@@ -1,0 +1,769 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``kaito_tpu_torch``) on one NVIDIA card.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, in
+order; any failure exits non-zero and prints no result:
+
+1. Card and build: the card's name and power limit (``nvidia-smi``),
+   then every kernel under ``kaito_tpu_torch/csrc/`` built from the
+   checkout with ``nvcc``.
+2. Kernels against their plain versions on the card, at Llama-3.1-8B
+   attention shapes, in bf16 and fp32: paged decode (K1), flash prefill
+   over a fresh chunk (K2) and over a segment-packed row (K3).  K1 runs
+   with the page-table width the full-width engine gives it at its
+   context limit, and is also timed at the live width the engine passes
+   and with one live sequence beside idle (length-0) rows.
+   Tolerances: fp32 atol 1e-4 (the kernels sum in another order than
+   the plain versions); bf16 atol 2e-2 (P is rounded to bf16 before the
+   PV product, relative to a different running max in each).  Each
+   kernel, its plain version and ``scaled_dot_product_attention`` as a
+   yardstick are timed with CUDA events on the card's clock (behind a
+   sleep kernel, so host issue does not enter), and the host time each
+   kernel call takes is recorded beside it.
+3. Goldens: ``tiny-llama-real`` in fp32 through the port's engine on the
+   card must reproduce ``tests/testdata/goldens_tiny-llama-real.json``
+   (greedy tokens exact, logprobs within atol 2e-3).
+4. Full width: the port's HTTP server serves ``llama-3.1-8b-instruct``
+   (all 32 layers, bf16, synthetic weights from seed 0): one completion,
+   one streamed chat, then four concurrent 100-400-token prompts (a
+   prefill pack) and one 700-token prompt (a continuation chunk).  Every
+   response must be well formed and carry its ``max_tokens``; the launch
+   counts of K1, K2 and K3, zeroed just before this phase, must each
+   have grown.  TTFT, decode tokens/s and the inter-token gaps of one
+   sequence alone are printed beside the card.
+
+The last three lines of standard output are the card line, one JSON
+object with the kernel records, and ``{"ok": true, "device": ...}``.
+``--sweep-run-ahead`` adds a decode sweep over ``decode_run_ahead`` at
+full width, with the rule that picks the engine's CUDA auto value
+(:func:`pick_run_ahead`; PERF.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import threading
+import time
+import traceback
+import urllib.error
+import urllib.request
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+FP32_ATOL, BF16_ATOL = 1e-4, 2e-2
+BIG = 1 << 30
+SLEEP_CYCLES = 100_000_000   # ~50 ms of GPU clock: longer than any queue of calls
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
+    """(card ms, host ms) per call of ``fn``.  A sleep kernel holds the
+    stream while the host queues all ``iters`` calls, so the CUDA events
+    time the card's work back to back, not the rate at which Python
+    issues it; the host time is how long each call held the issuing
+    thread."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host * 1e3 / iters
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# Decode lengths of phase 2: eight live sequences up to 2048 tokens
+K1_LENGTHS = [2048, 1, 37, 511, 1000, 1536, 64, 1999]
+K1_SINGLE = [230] + [0] * 7      # one live sequence, seven idle rows (length 0)
+
+
+def _path_pages_per_seq() -> int:
+    """Page-table width of the full-width config when a sequence reaches
+    its context limit (the widest table the engine passes to K1)."""
+    from kaito_tpu_torch.engine.config import EngineConfig
+    from kaito_tpu_torch.models.registry import get_model_by_name
+
+    md = get_model_by_name("llama-3.1-8b-instruct")
+    return EngineConfig(model=md.name,
+                        max_model_len=min(md.max_model_len, 8192)).pages_per_seq
+
+
+def _decode_case(torch, dtype, lengths, window, softcap, gen, pmax):
+    B, H, Hkv, D, ps, L = len(lengths), 32, 8, 128, 64, 2
+    P = B * pmax + 57
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    ck = torch.randn(L, P, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
+    cv = torch.randn(L, P, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
+    # pages scattered through the pool; page 0 stays the null page
+    perm = torch.randperm(P - 1, generator=gen, device="cuda")[: B * pmax] + 1
+    pt = perm.reshape(B, pmax).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    args = (q, ck, cv, pt, lens, window)
+    kw = dict(scale=1.0 / math.sqrt(D), softcap=softcap, layer=1)
+    return args, kw
+
+
+def _time_decode(torch, args, kw, label):
+    """K1, its plain version and SDPA on one bf16 case; SDPA attends over
+    the live pages gathered into a contiguous [B, Hkv, S, D] copy (the
+    gather itself is not timed)."""
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+
+    q, ck, cv, pt, lens, _ = args
+    B, H, D = q.shape
+    Hkv, ps = ck.shape[3], ck.shape[2]
+    ms, host_ms = time_ms(lambda: paged_decode_attention_cuda(*args, **kw))
+    plain_ms = time_ms(lambda: paged_decode_attention_plain(*args, **kw), iters=5)[0]
+    n_pg = -(-int(lens.max()) // ps)
+    S = n_pg * ps
+    live_pt = pt[:, :n_pg].long()
+    kg = ck[1][live_pt].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
+    vg = cv[1][live_pt].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())
+    mask = mask[:, None, None, :]
+    qs = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask,
+                                      scale=kw["scale"], enable_gqa=True))[0]
+    live = int(lens.sum())
+    el = q.element_size()
+    nbytes = (2 * B * H * D + 2 * live * Hkv * D) * el + pt.numel() * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * live * H * D)
+    log(f"K1 {label}: {ms:.4f} ms (plain {plain_ms:.4f}, SDPA {library_ms:.4f}, "
+        f"bound {b_ms:.5f} by {b_by}; host {host_ms:.4f} ms per call)")
+    return dict(case=label, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, host_ms=host_ms)
+
+
+def check_decode(torch, records):
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    full = _path_pages_per_seq()
+    err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    cases = [(K1_LENGTHS, w, c) for w, c in ((BIG, None), (300, None), (BIG, 30.0))]
+    cases.append((K1_SINGLE, BIG, None))
+    for dtype in (torch.bfloat16, torch.float32):
+        for lengths, window, softcap in cases:
+            args, kw = _decode_case(torch, dtype, lengths, window, softcap, gen,
+                                    full)
+            out = paged_decode_attention_cuda(*args, **kw)
+            ref = paged_decode_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float()).abs().max().item()
+            err[dtype] = max(err[dtype], e)
+            log(f"K1 {dtype} lengths={lengths} window={window} softcap={softcap} "
+                f"page table width {full}: max err {e:.3g}")
+    if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
+        raise SmokeFailure(f"K1 disagrees with its plain version: {err}")
+    # timed at the widest page table the engine passes, and at the live
+    # width it passes when no sequence is longer than these
+    timed = []
+    for lengths, pmax, label in (
+            (K1_LENGTHS, full, f"8 live sequences <= 2048 tokens, table width {full}"),
+            (K1_LENGTHS, 2048 // 64, "8 live sequences <= 2048 tokens, table width 32"),
+            (K1_SINGLE, full, f"1 live sequence of 230 tokens, table width {full}"),
+            (K1_SINGLE, 4, "1 live sequence of 230 tokens, table width 4")):
+        args, kw = _decode_case(torch, torch.bfloat16, lengths, BIG, None, gen, pmax)
+        timed.append(_time_decode(torch, args, kw, label))
+    main = timed[0]
+    records["paged_decode_attention"] = dict(
+        name="paged_decode_attention", route="cuda",
+        source="kaito_tpu_torch/csrc/decode_attention.cu",
+        replaces="kaito_tpu/engine/ops/decode_attention.py:199",
+        shape=f"B=8 H=32 Hkv=8 D=128 ps=64 lengths<=2048 table width {full} bf16",
+        max_abs_err=err[torch.bfloat16], max_err_bf16=err[torch.bfloat16],
+        max_err_fp32=err[torch.float32], ms=main["ms"], kernel_ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        host_ms=main["host_ms"], cases=timed)
+
+
+def _flash_inputs(torch, dtype, T, gen, B=1, H=32, Hkv=8, D=128):
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def _packed_layout(torch, T, seg_lens):
+    segs = torch.full((1, T), -1, dtype=torch.int32)
+    poss = torch.zeros((1, T), dtype=torch.int32)
+    off = 0
+    for si, n in enumerate(seg_lens):
+        segs[0, off:off + n] = si
+        poss[0, off:off + n] = torch.arange(n, dtype=torch.int32)
+        off += n
+    return segs.cuda(), poss.cuda()
+
+
+def check_flash(torch, records):
+    from kaito_tpu_torch.engine.ops.flash_prefill import (
+        flash_prefill_attention_cuda, flash_prefill_attention_plain,
+        flash_prefill_packed_cuda, flash_prefill_packed_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    T, D = 512, 128
+    scale = 1.0 / math.sqrt(D)
+    seg_lens = (100, 150, 120, 90)           # 460 tokens + 52 pad
+    valid = sum(seg_lens)
+    segs, poss = _packed_layout(torch, T, seg_lens)
+    err2 = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    err3 = dict(err2)
+    for dtype in (torch.bfloat16, torch.float32):
+        for true_len, window, softcap in ((T, BIG, None), (300, 128, None),
+                                          (T - 7, BIG, 30.0)):
+            q, k, v = _flash_inputs(torch, dtype, T, gen)
+            tl = torch.tensor([true_len], dtype=torch.int32, device="cuda")
+            out = flash_prefill_attention_cuda(q, k, v, tl, window, scale=scale,
+                                               softcap=softcap)
+            ref = flash_prefill_attention_plain(q, k, v, tl, window, scale=scale,
+                                                softcap=softcap)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float())[:, :true_len].abs().max().item()
+            err2[dtype] = max(err2[dtype], e)
+            log(f"K2 {dtype} true_len={true_len} window={window} "
+                f"softcap={softcap}: max err {e:.3g}")
+        for window, softcap in ((BIG, None), (64, None), (BIG, 30.0)):
+            q, k, v = _flash_inputs(torch, dtype, T, gen)
+            out = flash_prefill_packed_cuda(q, k, v, segs, poss, window,
+                                            scale=scale, softcap=softcap)
+            ref = flash_prefill_packed_plain(q, k, v, segs, poss, window,
+                                             scale=scale, softcap=softcap)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float())[:, :valid].abs().max().item()
+            err3[dtype] = max(err3[dtype], e)
+            log(f"K3 {dtype} segments={seg_lens} window={window} "
+                f"softcap={softcap}: max err {e:.3g}")
+    # ragged T (not a multiple of the 64-row tile) against the plain version
+    q, k, v = _flash_inputs(torch, torch.float32, 200, gen, H=8, Hkv=2, D=64)
+    tl = torch.tensor([200], dtype=torch.int32, device="cuda")
+    e = (flash_prefill_attention_cuda(q, k, v, tl, BIG, scale=0.125)
+         - flash_prefill_attention_plain(q, k, v, tl, BIG, scale=0.125)
+         ).abs().max().item()
+    log(f"K2 float32 T=200 D=64 (ragged tail): max err {e:.3g}")
+    err2[torch.float32] = max(err2[torch.float32], e)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = _flash_inputs(torch, torch.bfloat16, T, gen)
+    H, Hkv = q.shape[2], k.shape[2]
+    tl = torch.tensor([T], dtype=torch.int32, device="cuda")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    el = 2
+    io_bytes = (2 * q.numel() + k.numel() + v.numel()) * el
+
+    ms2, host2 = time_ms(lambda: flash_prefill_attention_cuda(q, k, v, tl, BIG,
+                                                             scale=scale))
+    plain2 = time_ms(lambda: flash_prefill_attention_plain(q, k, v, tl, BIG,
+                                                           scale=scale), iters=5)[0]
+    lib2 = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale,
+                                enable_gqa=True))[0]
+    flops2 = 4.0 * H * D * T * (T + 1) / 2
+    b2, by2 = bound(io_bytes + 4, flops2)
+    records["flash_prefill_attention"] = dict(
+        name="flash_prefill_attention", route="cuda",
+        source="kaito_tpu_torch/csrc/flash_prefill.cu",
+        replaces="kaito_tpu/engine/ops/flash_prefill.py:225",
+        shape="B=1 T=512 H=32 Hkv=8 D=128 causal bf16",
+        max_abs_err=err2[torch.bfloat16], max_err_bf16=err2[torch.bfloat16],
+        max_err_fp32=err2[torch.float32], ms=ms2, kernel_ms=ms2,
+        plain_ms=plain2, bound_ms=b2, bound_by=by2, library_ms=lib2,
+        host_ms=host2)
+
+    ms3, host3 = time_ms(lambda: flash_prefill_packed_cuda(q, k, v, segs, poss, BIG,
+                                                           scale=scale))
+    plain3 = time_ms(lambda: flash_prefill_packed_plain(q, k, v, segs, poss, BIG,
+                                                        scale=scale), iters=5)[0]
+    sq, sk = segs[0][:, None], segs[0][None, :]
+    pq, pk = poss[0][:, None], poss[0][None, :]
+    mask = ((sq == sk) & (sq >= 0) & (pk <= pq))[None, None]
+    lib3 = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale,
+                                enable_gqa=True))[0]
+    flops3 = sum(4.0 * H * D * n * (n + 1) / 2 for n in seg_lens)
+    b3, by3 = bound(io_bytes + 2 * T * 4, flops3)
+    records["flash_prefill_packed"] = dict(
+        name="flash_prefill_packed", route="cuda",
+        source="kaito_tpu_torch/csrc/flash_prefill.cu",
+        replaces="kaito_tpu/engine/ops/flash_prefill.py:163",
+        shape="B=1 T=512 (segments 100,150,120,90 + 52 pad) H=32 Hkv=8 D=128 bf16",
+        max_abs_err=err3[torch.bfloat16], max_err_bf16=err3[torch.bfloat16],
+        max_err_fp32=err3[torch.float32], ms=ms3, kernel_ms=ms3,
+        plain_ms=plain3, bound_ms=b3, bound_by=by3, library_ms=lib3,
+        host_ms=host3)
+    for name, err in (("K2", err2), ("K3", err3)):
+        if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
+            raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: goldens
+# ---------------------------------------------------------------------------
+
+def check_goldens():
+    from kaito_tpu_torch.engine.config import EngineConfig
+    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+
+    golden = json.load(open(os.path.join(
+        REPO, "tests", "testdata", "goldens_tiny-llama-real.json")))
+    cfg = EngineConfig(model="tiny-llama-real",
+                       weights_dir=os.path.join(REPO, "checkpoints",
+                                                "tiny-llama-real"),
+                       dtype="float32", kv_dtype="float32", max_model_len=512,
+                       max_num_seqs=2, prefill_buckets=(64, 128),
+                       enable_prefix_caching=False, seed=0)
+    eng = InferenceEngine(cfg, device="cuda")
+    eng.start()
+    worst = 0.0
+    try:
+        for p in golden["prompts"]:
+            want = p["fp32"]["greedy_tokens"]
+            req = eng.submit(list(p["prompt_tokens"]), SamplingParams(
+                max_tokens=len(want), temperature=0.0, ignore_eos=True,
+                logprobs=True))
+            got = list(req.stream())
+            if got != want:
+                raise SmokeFailure(f"golden tokens differ for {p['text']!r}: "
+                                   f"{got} != {want}")
+            d = max(abs(a - b) for a, b in zip(req.output_logprobs,
+                                               p["fp32"]["logprobs"]))
+            worst = max(worst, d)
+            if d > 2e-3:
+                raise SmokeFailure(f"golden logprobs off by {d:.3g} for "
+                                   f"{p['text']!r}")
+    finally:
+        eng.stop()
+    log(f"goldens: {len(golden['prompts'])} prompts exact, worst logprob "
+        f"diff {worst:.3g}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the full-width server
+# ---------------------------------------------------------------------------
+
+def _post(url, body, timeout=600):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def _get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _prompt(n_bytes: int, salt: int) -> str:
+    words = ("kernel page prefill decode tensor window segment cache model "
+             "token batch stream").split()
+    out, i = [], salt
+    while len(" ".join(out)) < n_bytes - 1:
+        out.append(words[i % len(words)])
+        i = i * 7 + 3
+    return " ".join(out)[: n_bytes - 1]   # the byte tokenizer adds a BOS
+
+
+def _completion(base, prompt, max_tokens, **extra):
+    t0 = time.perf_counter()
+    status, raw = _post(f"{base}/v1/completions", dict(
+        prompt=prompt, max_tokens=max_tokens, temperature=0.0, ignore_eos=True,
+        **extra))
+    dt = time.perf_counter() - t0
+    resp = json.loads(raw)
+    if status != 200 or resp.get("object") != "text_completion":
+        raise SmokeFailure(f"bad completion response {status}: {raw[:300]!r}")
+    ch = resp["choices"][0]
+    if not isinstance(ch.get("text"), str) or ch.get("finish_reason") != "length":
+        raise SmokeFailure(f"malformed choice {ch}")
+    if resp["usage"]["completion_tokens"] != max_tokens:
+        raise SmokeFailure(f"asked {max_tokens} tokens, got {resp['usage']}")
+    return resp, dt
+
+
+def _stream_chat(base, max_tokens):
+    req = urllib.request.Request(
+        f"{base}/v1/chat/completions",
+        data=json.dumps(dict(
+            messages=[{"role": "user", "content": "Name three prime numbers."}],
+            max_tokens=max_tokens, temperature=0.0, ignore_eos=True, stream=True,
+            stream_options={"include_usage": True})).encode(),
+        headers={"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                events.append(line[len("data: "):])
+    if not events or events[-1] != "[DONE]":
+        raise SmokeFailure(f"stream did not end with [DONE]: {events[-3:]}")
+    chunks = [json.loads(e) for e in events[:-1]]
+    if chunks[0]["choices"][0]["delta"].get("role") != "assistant":
+        raise SmokeFailure(f"stream lacks the role chunk: {chunks[0]}")
+    if not any(c["choices"] and c["choices"][0]["finish_reason"] == "length"
+               for c in chunks):
+        raise SmokeFailure("stream lacks a finish_reason=length chunk")
+    usage = chunks[-1].get("usage") or {}
+    if usage.get("completion_tokens") != max_tokens:
+        raise SmokeFailure(f"stream asked {max_tokens} tokens, usage {usage}")
+    if any(c["object"] != "chat.completion.chunk" for c in chunks):
+        raise SmokeFailure("stream chunk with a wrong object type")
+    return len(chunks)
+
+
+def run_server_phase(counters, run_ahead_sweep=False, profile=False):
+    import torch
+
+    from kaito_tpu_torch.engine.config import EngineConfig
+    from kaito_tpu_torch.engine.server import make_server
+
+    cfg = EngineConfig(model="llama-3.1-8b-instruct", dtype="bfloat16",
+                       kv_dtype="bfloat16", max_num_seqs=8, seed=0)
+    t0 = time.perf_counter()
+    server = make_server(None, cfg, host="127.0.0.1", port=0, device="cuda")
+    engine = server.state.engine
+    torch.cuda.synchronize()
+    log(f"8B engine up in {time.perf_counter() - t0:.1f}s: "
+        f"{engine.model.param_bytes() / 2**30:.2f} GiB weights, "
+        f"{engine.sizing_report}")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    stats = {}
+    try:
+        for c in counters:
+            c.launches = 0
+        status, raw = _get(f"{base}/health")
+        if status != 200 or json.loads(raw)["status"] != "ok":
+            raise SmokeFailure(f"/health answered {status} {raw!r}")
+        status, raw = _get(f"{base}/v1/models")
+        if status != 200 or json.loads(raw)["data"][0]["id"] != engine.md.name:
+            raise SmokeFailure(f"/v1/models answered {status} {raw!r}")
+        status, _ = _get(f"{base}/metrics")
+        if status != 501:
+            raise SmokeFailure(f"/metrics (not ported) answered {status}")
+
+        resp, _ = _completion(base, _prompt(60, 1), 16, logprobs=1)
+        lps = resp["choices"][0]["logprobs"]["token_logprobs"]
+        if len(lps) != 16 or not all(math.isfinite(x) and x <= 0 for x in lps):
+            raise SmokeFailure(f"bad logprobs {lps}")
+        n_chunks = _stream_chat(base, 16)
+        log(f"completion + streamed chat ok ({n_chunks} SSE chunks)")
+
+        # a long decode in flight makes the concurrent arrivals stage
+        # together, so their prefill forms a pack
+        results, errors = {}, []
+
+        def run(key, prompt, n):
+            try:
+                results[key] = _completion(base, prompt, n)
+            except Exception as e:   # reported below; the phase fails
+                errors.append(f"{key}: {e!r}")
+
+        bg = threading.Thread(target=run, args=("bg", _prompt(40, 2), 96))
+        bg.start()
+        time.sleep(0.5)
+        burst = [threading.Thread(target=run, args=(f"c{i}", _prompt(n, 10 + i), 32))
+                 for i, n in enumerate((120, 250, 330, 400))]
+        burst.append(threading.Thread(target=run, args=("long", _prompt(700, 20), 32)))
+        t_burst = time.perf_counter()
+        for t in burst:
+            t.start()
+        for t in burst + [bg]:
+            t.join(timeout=600)
+        t_burst = time.perf_counter() - t_burst
+        if errors or len(results) != 6:
+            raise SmokeFailure(f"concurrent requests failed: {errors}")
+        packs = engine.counters["prefill_packed_steps_total"]
+        log(f"burst of 5 ok in {t_burst:.2f}s; packed prefill dispatches {packs}")
+
+        # TTFT and decode rate of one request alone
+        p = _prompt(200, 30)
+        ttft = min(_completion(base, p, 1)[1] for _ in range(3))
+        t_long = min(_completion(base, p, 129)[1] for _ in range(2))
+        # inter-token gaps of one sequence alone, as the engine delivers them
+        single = _itl(_timed_tokens(engine, p, 129))
+        stats = dict(ttft_ms=ttft * 1e3, decode_tok_s=128 / (t_long - ttft),
+                     burst_s=t_burst, burst_completion_tokens=32 * 5,
+                     prompt_tokens=200, packed_prefill_dispatches=packs,
+                     run_ahead=engine.run_ahead,
+                     single_stream=single)
+        log(f"one sequence at run_ahead={engine.run_ahead}: "
+            f"{single['decode_tok_s']:.2f} tok/s, ITL p50/p90/max "
+            f"{single['itl_p50_ms']:.1f}/{single['itl_p90_ms']:.1f}/"
+            f"{single['itl_max_ms']:.1f} ms")
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        log(f"launches on the main path: {launches}")
+        if run_ahead_sweep:
+            stats["run_ahead_sweep"] = sweep_run_ahead(engine)
+        if profile:
+            stats["profile"] = profile_request(engine, base)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    return launches, stats
+
+
+def profile_request(engine, base):
+    """torch.profiler over one request alone (200-token prompt, 33
+    output tokens): wall time, device busy time, kernel launches and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _completion(base, _prompt(200, 50), 8)           # warm
+    steps0 = engine.counters["decode_steps_total"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _completion(base, _prompt(200, 51), 33)
+        wall = time.perf_counter() - t0
+    steps = engine.counters["decode_steps_total"] - steps0
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0 and "CPU" not in str(getattr(e, "device_type", "")):
+            rows.append((e.key, e.count, dev / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    res = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+               device_idle_share=1.0 - busy / (wall * 1e3),
+               kernel_launches=sum(r[1] for r in rows), decode_steps=steps,
+               top=[dict(name=k[:80], count=c, ms=ms) for k, c, ms in rows[:12]])
+    log(f"profile: wall {res['wall_ms']:.1f} ms, device busy {busy:.1f} ms, "
+        f"{res['kernel_launches']} kernel launches, {steps} decode steps")
+    for r in res["top"]:
+        log(f"  {r['ms']:8.2f} ms  x{r['count']:5d}  {r['name']}")
+    return res
+
+
+def _timed_tokens(engine, prompt: str, n: int) -> list[float]:
+    """Submit one greedy request straight to the serving engine and stamp
+    the host clock as each token is delivered (the moment the server
+    could stream it)."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    req = engine.submit(engine.tokenizer.encode(prompt), SamplingParams(
+        max_tokens=n, temperature=0.0, ignore_eos=True))
+    stamps = [time.perf_counter() for _ in req.stream()]
+    if len(stamps) != n:
+        raise SmokeFailure(f"asked {n} tokens, got {len(stamps)}")
+    return stamps
+
+
+def _quantile(xs, f):
+    xs = sorted(xs)
+    i = f * (len(xs) - 1)
+    lo = int(math.floor(i))
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (i - lo)
+
+
+def _itl(stamps) -> dict:
+    gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return dict(decode_tok_s=len(gaps) / (stamps[-1] - stamps[0]),
+                itl_p50_ms=_quantile(gaps, 0.5), itl_p90_ms=_quantile(gaps, 0.9),
+                itl_max_ms=max(gaps))
+
+
+def pick_run_ahead(single: dict) -> int:
+    """The smallest fused window whose single-stream median decode rate
+    beats K=1's by more than the larger of the two interquartile ranges;
+    1 when none does."""
+    def iqr(v):
+        return _quantile(v, 0.75) - _quantile(v, 0.25)
+
+    base = single[1]
+    for k in sorted(single):
+        if k == 1:
+            continue
+        gain = _quantile(single[k], 0.5) - _quantile(base, 0.5)
+        if gain > max(iqr(base), iqr(single[k])):
+            return k
+    return 1
+
+
+def sweep_run_ahead(engine, values=(1, 2, 4, 8, 16), reps=6):
+    """Decode rate and inter-token latency per fused-window size K,
+    ``reps`` rounds with the order of the sizes reversed every other
+    round, on two workloads through the serving engine: one sequence
+    alone (200-token prompt, 129 tokens; tokens/s over its 128 decode
+    gaps, and the gaps' p50/p90/max), and 8 concurrent requests of 128
+    tokens (aggregate tokens/s, prefill included)."""
+    single = {k: [] for k in values}
+    itl = {k: [] for k in values}
+    conc = {k: [] for k in values}
+    errors = []
+
+    def run(i):
+        try:
+            _timed_tokens(engine, _prompt(64, 40 + i), 128)
+        except Exception as e:   # reported below; the sweep fails
+            errors.append(repr(e))
+
+    for rep in range(reps):
+        for k in (values if rep % 2 == 0 else values[::-1]):
+            engine.run_ahead = k
+            r = _itl(_timed_tokens(engine, _prompt(200, 60 + rep), 129))
+            single[k].append(r["decode_tok_s"])
+            itl[k].append(r)
+            ths = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+            t0 = time.perf_counter()
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            conc[k].append(8 * 128 / (time.perf_counter() - t0))
+            if errors:
+                raise SmokeFailure(f"sweep requests failed: {errors}")
+    pick = pick_run_ahead(single)
+    for k in values:
+        med = {f: _quantile([r[f] for r in itl[k]], 0.5)
+               for f in ("itl_p50_ms", "itl_p90_ms", "itl_max_ms")}
+        log(f"run_ahead={k}: single " + " ".join(f"{x:.2f}" for x in single[k])
+            + f" tok/s (median {_quantile(single[k], 0.5):.2f}, IQR "
+            f"{_quantile(single[k], 0.75) - _quantile(single[k], 0.25):.2f}); "
+            f"ITL median of p50/p90/max {med['itl_p50_ms']:.1f}/"
+            f"{med['itl_p90_ms']:.1f}/{med['itl_max_ms']:.1f} ms; concurrent8 "
+            + " ".join(f"{x:.1f}" for x in conc[k]) + " tok/s")
+    log(f"run_ahead pick (smallest K beating K=1 by more than the IQR): {pick}")
+    return dict(single=single, itl=itl, concurrent8=conc, pick=pick)
+
+
+def _watchdog(seconds: float) -> None:
+    """Fail the run (exit 1, no result) if it has not finished in time:
+    a hung request must not hold the card until an outer limit."""
+    def fire():
+        log(f"FAIL: not finished after {seconds:.0f}s")
+        os._exit(1)
+
+    t = threading.Timer(seconds, fire)
+    t.daemon = True
+    t.start()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sweep-run-ahead", action="store_true",
+                    help="also sweep decode_run_ahead at full width")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one full-width request with torch.profiler")
+    ap.add_argument("--time-limit", type=float, default=1100.0,
+                    help="seconds after which the run fails")
+    args = ap.parse_args(argv)
+    _watchdog(args.time_limit)
+    import torch
+
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is False; this script needs a card")
+        return 2
+    try:
+        import kaito_tpu_torch
+    except ImportError as e:
+        log(f"FAIL: the kaito_tpu_torch package is not beside this script: {e}")
+        return 2
+    pkg = os.path.dirname(os.path.abspath(kaito_tpu_torch.__file__))
+    if os.path.dirname(pkg) != REPO:
+        log(f"FAIL: kaito_tpu_torch imported from {pkg}, not from this checkout")
+        return 2
+    try:
+        # fp32 matmuls in full fp32 (the goldens' precision), not TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+        from kaito_tpu_torch.ops import build
+
+        t0 = time.perf_counter()
+        logs = build.build_all(ptxas_verbose=True)
+        log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
+        for name, text in logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {name}: {line.strip()}")
+
+        from kaito_tpu_torch.engine.ops.decode_attention import \
+            paged_decode_attention_cuda
+        from kaito_tpu_torch.engine.ops.flash_prefill import (
+            flash_prefill_attention_cuda, flash_prefill_packed_cuda)
+
+        counters = (paged_decode_attention_cuda, flash_prefill_attention_cuda,
+                    flash_prefill_packed_cuda)
+        records: dict = {}
+        with torch.no_grad():
+            check_decode(torch, records)
+            check_flash(torch, records)
+            golden_err = check_goldens()
+            launches, stats = run_server_phase(counters, args.sweep_run_ahead,
+                                               args.profile)
+        for c, name in zip(counters, ("paged_decode_attention",
+                                      "flash_prefill_attention",
+                                      "flash_prefill_packed")):
+            records[name]["launches"] = launches[c.__name__]
+            if launches[c.__name__] <= 0:
+                raise SmokeFailure(f"{name} never launched on the main path")
+        log(f"full width on {card}: TTFT {stats['ttft_ms']:.1f} ms "
+            f"({stats['prompt_tokens']}-token prompt, alone), decode "
+            f"{stats['decode_tok_s']:.1f} tok/s (one sequence); golden "
+            f"logprob diff {golden_err:.3g}")
+        print(json.dumps({"phase4": stats, "golden_max_logprob_diff": golden_err}))
+        print(card)
+        print(json.dumps({"kernels": list(records.values())}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    except Exception:
+        log("FAIL:\n" + traceback.format_exc())
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

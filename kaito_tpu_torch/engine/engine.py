@@ -1,0 +1,976 @@
+"""The inference engine: continuous batching over a paged KV cache.
+
+Counterpart of the synchronous core of ``kaito_tpu.engine.engine``:
+
+- Fixed decode *slots* (``max_num_seqs``).  One decode step advances
+  every slot; inactive slots write to the null page and their samples
+  are discarded.
+- Prefill runs in bounded chunks that interleave with decode
+  (decode-priority), writing straight into the request's pages.  The
+  per-step token budget is spread over a PACK of staged slots: fresh
+  prompts are segment-packed into one row, continuation chunks batch on
+  the batch axis (``prefill_pack``; 1 is the serial round-robin
+  scheduler).
+- Pages come from a free-list allocator on demand; when the pool runs
+  dry the newest sequence is preempted back to the queue (its output so
+  far becomes part of its prompt on resume).
+- Steady-state decode fuses up to ``decode_run_ahead`` steps into one
+  window: sampling, stop detection and per-slot budgets stay on the
+  device, and the host reads the window's tokens back once.
+
+Not ported yet, and rejected at construction with the ROADMAP item that
+carries them: quantization, int8 KV, async dispatch, speculation,
+adapters, parallelism beyond one device, the KV pool, host offload and
+P/D, the device profiler, QoS, deadlines and the ITL/flight recorders.
+Prefix caching (on by default) runs as the JAX engine does when its
+native radix tree is absent: the plain page allocator.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from kaito_tpu_torch.device import resolve_device
+from kaito_tpu_torch.engine.config import EngineConfig
+from kaito_tpu_torch.engine.kv_cache import NULL_PAGE, create_kv_cache
+from kaito_tpu_torch.engine.model import TransformerLM
+from kaito_tpu_torch.engine.sampler import SamplingState, chosen_logprob, sample
+from kaito_tpu_torch.engine.tokenizer import load_tokenizer
+from kaito_tpu_torch.models.metadata import ModelMetadata
+from kaito_tpu_torch.models.registry import get_model_by_name
+
+logger = logging.getLogger(__name__)
+
+# columns in the fused-decode on-device stop matrix; requests with more
+# stop ids than this take the single-step path
+_STOP_WIDTH = 8
+# fused decode steps per window when decode_run_ahead is None on CUDA:
+# the smallest window whose single-stream decode rate beat single steps
+# by more than the rates' interquartile range on an H100
+# (chip_smoke.py --sweep-run-ahead, PERF.md).  A window of K delivers
+# tokens in bursts of K, which PERF.md weighs.  The CPU uses 1
+AUTO_RUN_AHEAD_CUDA = 2
+# device memory the page pool leaves free for activations and scratch
+_RESERVE_FRACTION = 0.08
+_RESERVE_MIN_BYTES = 4 << 30
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8}
+
+# (config field, value counts as "on", ROADMAP item that ports it)
+_UNPORTED = (
+    ("quantization", bool, "queue 1, M11 weight quantization"),
+    ("kv_dtype", lambda v: v == "int8", "queue 1, M12 int8 KV"),
+    ("async_dispatch", bool, "queue 1, M13 async dispatch"),
+    ("speculative_ngram", bool, "queue 1, M14 speculation"),
+    ("speculative_draft", bool, "queue 1, M14 speculation"),
+    ("adapters_dir", bool, "queue 1, M16 multi-LoRA"),
+    ("adapter_slots", bool, "queue 1, M16 multi-LoRA"),
+    ("kv_pool_enabled", bool, "queue 1, M18 KV movement"),
+    ("kv_pool_disk_bytes", bool, "queue 1, M18 KV movement"),
+    ("host_kv_offload_bytes", bool, "queue 1, M18 KV movement"),
+    ("pd_enabled", bool, "queue 1, M18 KV movement"),
+    ("tensor_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
+    ("pipeline_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
+    ("data_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
+    ("sequence_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
+    ("expert_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
+    ("comm_overlap", bool, "queue 1, M19 multi-GPU"),
+    ("devprof_interval_s", bool, "queue 1, M20 device profiling"),
+    ("qos_config", bool, "queue 1, QoS, deadlines and ITL"),
+    ("request_timeout_s", bool, "queue 1, QoS, deadlines and ITL"),
+    ("kv_shed_threshold", bool, "queue 1, QoS, deadlines and ITL"),
+    ("itl_enabled", bool, "queue 1, QoS, deadlines and ITL"),
+    ("flight_dir", bool, "queue 1, the /debug/* routes"),
+)
+
+
+def check_ported(cfg: EngineConfig) -> None:
+    """Raise NotImplementedError for a config gate this port lacks."""
+    for name, on, item in _UNPORTED:
+        if on(getattr(cfg, name)):
+            raise NotImplementedError(
+                f"EngineConfig.{name}={getattr(cfg, name)!r} is not ported to "
+                f"kaito_tpu_torch yet (ROADMAP {item})")
+
+
+@dataclass
+class SamplingParams:
+    max_tokens: int = 128
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    stop_token_ids: tuple[int, ...] = ()
+    seed: int = 0
+    ignore_eos: bool = False
+    logprobs: bool = False     # per-generated-token log p (model dist)
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    repetition_penalty: float = 1.0
+    min_p: float = 0.0
+
+    @property
+    def has_penalties(self) -> bool:
+        return (self.presence_penalty != 0.0
+                or self.frequency_penalty != 0.0
+                or self.repetition_penalty != 1.0)
+
+
+@dataclass
+class Request:
+    req_id: str
+    prompt_tokens: list[int]
+    params: SamplingParams
+    out: "queue.SimpleQueue[Optional[int]]" = field(default_factory=queue.SimpleQueue)
+    output_tokens: list[int] = field(default_factory=list)
+    output_logprobs: list = field(default_factory=list)
+    submit_time: float = field(default_factory=time.monotonic)
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+    finish_reason: str = ""
+    aborted: bool = False
+    preemptions: int = 0
+    prompt_counted: bool = False   # prompt tokens counted once
+    error: Optional[dict] = None
+
+    def resume_tokens(self) -> list[int]:
+        """Prompt plus everything generated so far — what a preempted
+        request prefills from on re-admission."""
+        return list(self.prompt_tokens) + list(self.output_tokens)
+
+    def stream(self):
+        """Yield token ids until completion."""
+        while True:
+            tok = self.out.get()
+            if tok is None:
+                return
+            yield tok
+
+
+class PageAllocator:
+    """Free-list page allocator (page 0 reserved as the null page)."""
+
+    def __init__(self, num_pages: int):
+        self.free = list(range(num_pages - 1, 0, -1))
+        self.num_pages = num_pages
+
+    @property
+    def available(self) -> int:
+        return len(self.free)
+
+    def alloc(self, n: int) -> list[int]:
+        if n <= 0:
+            return []
+        if n > len(self.free):
+            raise MemoryError(f"need {n} pages, have {len(self.free)}")
+        taken = self.free[-n:][::-1]
+        del self.free[len(self.free) - n:]
+        return taken
+
+    def release(self, pages: list[int]) -> None:
+        self.free.extend(reversed(pages))
+
+
+@dataclass
+class _Slot:
+    request: Optional[Request] = None
+    pages: list[int] = field(default_factory=list)
+    position: int = 0          # next token position (== current length)
+    remaining: int = 0
+    prefilling: bool = False
+    prefill_pos: int = 0       # prompt tokens written so far
+    prefill_tokens: list[int] = field(default_factory=list)
+    seq: int = 0               # admission order (newest preempts first)
+
+
+class InferenceEngine:
+    """Synchronous engine core; the HTTP server drives it via a thread.
+
+    ``params`` is an optional parameter tree (``model.params_from_jax``
+    or ``TransformerLM.param_tree`` form); else ``cfg.weights_dir`` is
+    loaded, else synthetic weights are drawn from ``cfg.seed``.
+    """
+
+    def __init__(self, cfg: EngineConfig,
+                 metadata: Optional[ModelMetadata] = None,
+                 params: Optional[dict] = None,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        check_ported(cfg)
+        self.cfg = cfg
+        self.md = metadata or get_model_by_name(cfg.model)
+        arch = self.md.arch
+        self.model = TransformerLM(arch, dtype=_DTYPES[cfg.dtype],
+                                   device=self.device)
+        self.tokenizer = load_tokenizer(self.md.hf_id, arch.vocab_size)
+        if not cfg.max_model_len:
+            cfg.max_model_len = min(self.md.max_model_len, 8192)
+        self.pages_per_seq = cfg.pages_per_seq
+        # buckets must cover any admissible prompt (< max_model_len)
+        self.buckets = tuple(sorted(
+            {b for b in cfg.prefill_buckets if b < cfg.max_model_len}
+            | {cfg.max_model_len}))
+
+        t0 = time.monotonic()
+        if params is not None:
+            self.model.load_params(params)
+        elif cfg.weights_dir:
+            from kaito_tpu_torch.engine.weights import load_safetensors_params
+
+            self.model.load_params(load_safetensors_params(self.model,
+                                                           cfg.weights_dir))
+        else:
+            self.model.init_params(cfg.seed)
+        logger.info("weights ready in %.1fs (%.2f GiB on %s)",
+                    time.monotonic() - t0, self.model.param_bytes() / 2**30,
+                    self.device)
+
+        self.sizing_report: dict = {}
+        num_pages = cfg.max_pages or self._derive_max_pages()
+        num_pages = max(num_pages, cfg.max_num_seqs * self.pages_per_seq // 4 + 2)
+        if cfg.max_pages:
+            self.sizing_report = {"source": "configured"}
+        self.sizing_report["pages"] = num_pages
+        self.cache = create_kv_cache(arch, num_pages, cfg.page_size,
+                                     _DTYPES[cfg.kv_dtype], self.device)
+        logger.info("KV cache: %d pages x %d tokens (%.2f GiB)", num_pages,
+                    cfg.page_size,
+                    2 * self.cache.k.numel() * self.cache.k.element_size() / 2**30)
+        if cfg.enable_prefix_caching:
+            logger.info("prefix cache radix tree not ported; plain allocator")
+        self.allocator = PageAllocator(num_pages)
+        # a single sequence can never outgrow the whole pool
+        self._capacity_tokens = (num_pages - 1) * cfg.page_size
+
+        S = cfg.max_num_seqs
+        self.slots = [_Slot() for _ in range(S)]
+        self.page_tables = np.zeros((S, self.pages_per_seq), np.int32)
+        self.positions = np.zeros((S,), np.int32)
+        self.active = np.zeros((S,), bool)
+        self.last_tokens = np.zeros((S,), np.int32)
+        self._remaining = np.zeros((S,), np.int32)
+        self.sampling = SamplingState.create(S, cfg.seed, self.device)
+        # penalty state allocates on the first penalized admission
+        self.token_counts: Optional[torch.Tensor] = None   # [S, V] int32
+        self.prompt_seen: Optional[torch.Tensor] = None    # [S, V] bool
+
+        self.waiting: "collections.deque[Request]" = collections.deque()
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._decode_since_prefill = 0
+        self._prefill_rr = 0
+        self._admit_seq = 0
+        self._batch_epoch = 0
+        self._stop_cache: tuple = (-1, None)
+
+        self.counters = {
+            "prompt_tokens_total": 0,
+            "generation_tokens_total": 0,
+            "requests_total": 0,
+            "requests_finished_total": 0,
+            "requests_failed_total": 0,
+            "prefill_steps_total": 0,
+            "prefill_tokens_total": 0,
+            "prefill_packed_steps_total": 0,
+            "decode_steps_total": 0,
+            "decode_windows_total": 0,
+            "preemptions_total": 0,
+            "engine_fatal_total": 0,
+        }
+        ra = cfg.decode_run_ahead
+        if ra is None:
+            ra = AUTO_RUN_AHEAD_CUDA if self.device.type == "cuda" else 1
+        self.run_ahead = max(1, int(ra))
+
+    # ------------------------------------------------------------------
+    # Construction helpers
+    # ------------------------------------------------------------------
+
+    def _derive_max_pages(self) -> int:
+        """Size the page pool from free device memory, measured with
+        ``torch.cuda.mem_get_info`` after the weights are resident; the
+        CPU sizes for ``max_num_seqs`` full contexts."""
+        cap = self.cfg.max_num_seqs * self.pages_per_seq
+        if self.device.type == "cpu":
+            self.sizing_report = {"source": "seq-cap"}
+            return cap + 1
+        kv_bytes = torch.empty((), dtype=_DTYPES[self.cfg.kv_dtype]).element_size()
+        page_bytes = self.md.kv_bytes_per_token(kv_bytes) * self.cfg.page_size
+        free, total = torch.cuda.mem_get_info(self.device)
+        reserve = max(int(total * _RESERVE_FRACTION), _RESERVE_MIN_BYTES)
+        pages = int(max(free - reserve, 0) // page_bytes)
+        self.sizing_report = {"source": "measured", "device_total_bytes": int(total),
+                              "free_after_weights_bytes": int(free),
+                              "reserve_bytes": reserve,
+                              "weights_bytes": self.model.param_bytes()}
+        return max(2, min(pages, cap) + 1)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds largest bucket {self.buckets[-1]}")
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self.waiting)
+
+    @property
+    def num_running(self) -> int:
+        return int(self.active.sum())
+
+    def submit(self, prompt_tokens: list[int], params: SamplingParams,
+               req_id: Optional[str] = None) -> Request:
+        n = len(prompt_tokens)
+        if n < 1:
+            raise ValueError("prompt must hold at least one token")
+        if n >= self.cfg.max_model_len:
+            raise ValueError(f"prompt length {n} exceeds max_model_len "
+                             f"{self.cfg.max_model_len}")
+        if n + 1 > self._capacity_tokens:
+            raise ValueError(f"prompt length {n} exceeds KV pool capacity "
+                             f"{self._capacity_tokens} tokens")
+        if params.max_tokens < 1:
+            raise ValueError(f"max_tokens must be >= 1, got {params.max_tokens}")
+        with self._lock:
+            self.counters["requests_total"] += 1
+            req = Request(req_id or f"req-{self.counters['requests_total']}",
+                          list(prompt_tokens), params)
+            self.waiting.append(req)
+        self._wake.set()
+        return req
+
+    def abort(self, req: Request) -> None:
+        """Cancel; the scheduler retires the slot at its next touch."""
+        req.aborted = True
+        self._wake.set()
+
+    def generate(self, prompt: str, params: Optional[SamplingParams] = None) -> str:
+        """Blocking single-request helper (needs a started engine)."""
+        req = self.submit(self.tokenizer.encode(prompt), params or SamplingParams())
+        return self.tokenizer.decode(list(req.stream()))
+
+    def start(self):
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="engine-loop")
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._wake.set()
+        if self._thread:
+            self._thread.join(timeout=30)
+        # nothing else would deliver end-of-stream to in-flight clients
+        self._fail_all()
+
+    # ------------------------------------------------------------------
+    # Scheduler loop
+    # ------------------------------------------------------------------
+
+    def _loop(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not self._stop.is_set():
+            try:
+                did_work = self.step()
+            except Exception:
+                # a scheduler-loop failure must not strand waiting clients
+                logger.exception("engine loop failure; failing in-flight requests")
+                self.counters["engine_fatal_total"] += 1
+                self._fail_all()
+                continue
+            if not did_work:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+
+    def _pop_waiting(self) -> Optional[Request]:
+        with self._lock:
+            return self.waiting.popleft() if self.waiting else None
+
+    def _requeue_front(self, req: Request):
+        with self._lock:
+            self.waiting.appendleft(req)
+
+    def _fail_request(self, req: Request) -> None:
+        req.finish_reason = "error"
+        req.finish_time = time.monotonic()
+        if req.error is None:
+            req.error = {"status": 500, "type": "internal_error",
+                         "message": f"request {req.req_id} failed in the engine"}
+        self.counters["requests_failed_total"] += 1
+        req.out.put(None)
+
+    def _fail_all(self):
+        for i, slot in enumerate(self.slots):
+            if slot.request is not None:
+                req = slot.request
+                self._evict_slot(i)
+                self._fail_request(req)
+        while (req := self._pop_waiting()) is not None:
+            self._fail_request(req)
+
+    def _evict_slot(self, slot_idx: int):
+        """Return a slot's pages to the pool and clear it."""
+        slot = self.slots[slot_idx]
+        self.allocator.release(slot.pages)
+        sp = slot.request.params
+        if sp.temperature > 0.0 or sp.top_k > 0 or sp.top_p < 1.0 \
+                or sp.min_p > 0.0 or sp.has_penalties:
+            self.sampling.reset_slot(slot_idx)
+        self.slots[slot_idx] = _Slot()
+        self.active[slot_idx] = False
+        self._remaining[slot_idx] = 0
+        self._batch_epoch += 1
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One scheduler iteration; False when idle.
+
+        Decode-priority: every iteration with active slots runs one
+        decode window; prefill advances one budgeted round every
+        ``prefill_interleave`` decode steps (every iteration when nothing
+        is decoding)."""
+        # reserve BEFORE admitting: growth of running sequences must not
+        # be starved by a fresh admission grabbing the last pages
+        la = 1
+        if self.active.any():
+            la = self._decode_lookahead()
+            self._ensure_decode_pages(la)
+        did = self._admit_new()
+        decoding = bool(self.active.any())
+        steps_run = 0
+        if decoding:
+            # recompute after admission: ensure-pages may have preempted
+            la2 = self._decode_lookahead()
+            if la2 > 1:
+                if did or la2 > la:
+                    self._ensure_decode_pages(la2)
+                self._decode_multi(la2)
+            else:
+                self._decode_once()
+            steps_run = la2
+            did = True
+        # prefill cadence counts DECODE STEPS, not iterations
+        self._decode_since_prefill += steps_run
+        if (not decoding) or self.cfg.prefill_interleave <= 1 \
+                or self._decode_since_prefill >= self.cfg.prefill_interleave:
+            if self._advance_prefills():
+                did = True
+                self._decode_since_prefill = 0
+        return did
+
+    def _admit_new(self) -> bool:
+        """Fill every free slot from the waiting queue (bookkeeping only;
+        prefill compute happens in _advance_prefills)."""
+        admitted = False
+        while True:
+            free_slot = next((i for i, s in enumerate(self.slots)
+                              if s.request is None), None)
+            if free_slot is None:
+                return admitted
+            req = self._pop_waiting()
+            if req is None:
+                return admitted
+            if req.aborted:
+                req.finish_reason = req.finish_reason or "abort"
+                req.out.put(None)
+                admitted = True
+                continue
+            if not self._admit(req, free_slot):
+                return admitted      # page OOM: requeued, stall admission
+            admitted = True
+
+    def _admit(self, req: Request, free_slot: int) -> bool:
+        """Reserve the prompt's pages (plus one decode token) and stage
+        the request into a slot; decode grows the page list later."""
+        tokens = req.resume_tokens()
+        n = len(tokens)
+        ps = self.cfg.page_size
+        pages_needed = -(-(n + 1) // ps)
+        # one page of headroom per decoding slot, so an admission does
+        # not trigger immediate grow-preempt churn
+        headroom = int(self.active.sum())
+        if self.allocator.available < pages_needed + headroom:
+            self._requeue_front(req)
+            return False
+        pages = self.allocator.alloc(pages_needed)
+        slot = self.slots[free_slot]
+        self.page_tables[free_slot] = 0
+        self.page_tables[free_slot, :len(pages)] = pages
+        slot.request = req
+        slot.pages = list(pages)
+        self._admit_seq += 1
+        slot.seq = self._admit_seq
+        slot.prefilling = True
+        slot.prefill_pos = 0
+        slot.prefill_tokens = tokens
+        p = req.params
+        self.sampling.set_slot(free_slot, temperature=p.temperature, top_k=p.top_k,
+                               top_p=p.top_p, presence=p.presence_penalty,
+                               frequency=p.frequency_penalty,
+                               repetition=p.repetition_penalty, min_p=p.min_p)
+        if p.has_penalties:
+            self._ensure_penalty_state()
+            V = self.md.arch.vocab_size
+            row = np.bincount(np.asarray(req.output_tokens, np.int64),
+                              minlength=V)[:V].astype(np.int32)
+            self.token_counts[free_slot] = self._tensor(row)
+            # repetition penalty sees the PROMPT too (vLLM parity)
+            seen = np.zeros((V,), bool)
+            seen[np.clip(np.asarray(req.prompt_tokens), 0, V - 1)] = True
+            self.prompt_seen[free_slot] = self._tensor(seen)
+        return True
+
+    # ------------------------------------------------------------------
+    # Prefill
+    # ------------------------------------------------------------------
+
+    def _advance_prefills(self) -> bool:
+        """One prefill round: ``prefill_pack`` > 1 (0 = auto, up to
+        ``max_num_seqs``) spreads the token budget over a pack of staged
+        slots; 1 is the serial round-robin scheduler."""
+        pack = self.cfg.prefill_pack or self.cfg.max_num_seqs
+        if pack <= 1:
+            return self._advance_prefill_single()
+        return self._advance_prefill_pack(pack)
+
+    def _staged(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots)
+                if s.request is not None and s.prefilling]
+
+    def _advance_prefill_single(self) -> bool:
+        """ONE bounded prefill chunk for one staged slot (round-robin)."""
+        idxs = self._staged()
+        if not idxs:
+            return False
+        i = idxs[self._prefill_rr % len(idxs)]
+        self._prefill_rr += 1
+        slot = self.slots[i]
+        n = len(slot.prefill_tokens)
+        pos = slot.prefill_pos
+        take = min(n - pos, max(self.cfg.max_prefill_tokens, self.cfg.page_size))
+        rows = [(i, pos, take, n)]
+        if pos == 0 and take == n:
+            logits = self._dispatch_prefill_fresh(rows)
+        else:
+            logits = self._dispatch_prefill_ctx(rows)
+        self._complete(self._advance_rows(rows, logits))
+        return True
+
+    def _advance_prefill_pack(self, pack_limit: int) -> bool:
+        """Token-budget prefill (docs/prefill.md): a PACK of staged slots,
+        in admission order, whose chunks fill ``max_prefill_tokens`` as
+        an aggregate budget.  Fresh-complete prompts segment-pack into
+        one row (a single one takes the fresh family); continuation
+        chunks batch on the batch axis per bucket."""
+        staged = sorted(self._staged(), key=lambda i: self.slots[i].seq)
+        if not staged:
+            return False
+        left = max(self.cfg.max_prefill_tokens, self.cfg.page_size)
+        picks: list[tuple[int, int, int, int]] = []  # (slot, pos, take, n)
+        for i in staged:
+            if len(picks) >= pack_limit or left <= 0:
+                break
+            slot = self.slots[i]
+            n = len(slot.prefill_tokens)
+            pos = slot.prefill_pos
+            take = min(n - pos, left)
+            if take < n - pos and picks and take < self.cfg.page_size:
+                # sub-page tail of the budget: leave it whole for the
+                # next round instead of fragmenting a long prompt
+                break
+            picks.append((i, pos, take, n))
+            left -= take
+        if not picks:
+            return False
+        groups: dict[tuple, list] = {}
+        for p in picks:
+            _, pos, take, n = p
+            gk = ("seg",) if pos == 0 and take == n else ("ctx", self._bucket(take))
+            groups.setdefault(gk, []).append(p)
+        completed = []
+        for gk, rows in groups.items():
+            if gk[0] == "seg" and len(rows) > 1:
+                logits = self._dispatch_prefill_packed(rows)
+                self.counters["prefill_packed_steps_total"] += 1
+            elif gk[0] == "ctx":
+                logits = self._dispatch_prefill_ctx(rows)
+            else:
+                logits = self._dispatch_prefill_fresh(rows)
+            completed += self._advance_rows(rows, logits)
+        self._complete(completed)
+        return True
+
+    def _advance_rows(self, rows, logits) -> list:
+        """Book one dispatch's chunks; the rows whose prompt is done."""
+        self.counters["prefill_steps_total"] += 1
+        self.counters["prefill_tokens_total"] += sum(r[2] for r in rows)
+        done = []
+        for row, (i, pos, take, n) in enumerate(rows):
+            slot = self.slots[i]
+            slot.prefill_pos = pos + take
+            if slot.prefill_pos >= n:
+                done.append((i, n, logits[row:row + 1]))
+        return done
+
+    def _complete(self, completed) -> None:
+        """Sample the first token of every prompt finished this round
+        (one sampler call) and start decoding them."""
+        if not completed:
+            return
+        idxs = [i for (i, _, _) in completed]
+        toks, lps = self._sample_first_batch(
+            idxs, torch.cat([lg for (_, _, lg) in completed]))
+        for (i, n, _), tok, lp in zip(completed, toks, lps):
+            req = self.slots[i].request
+            if not req.prompt_counted:
+                # resume-after-preempt re-prefills prompt+generated; only
+                # the original prompt counts
+                self.counters["prompt_tokens_total"] += len(req.prompt_tokens)
+                req.prompt_counted = True
+            self._begin_decode(i, tok, n, first_lp=lp)
+
+    def _dispatch_prefill_fresh(self, rows):
+        """Fresh-complete prompts on the batch axis: tokens [B, bucket]."""
+        bucket = self._bucket(max(n for (_, _, _, n) in rows))
+        B = len(rows)
+        toks = np.zeros((B, bucket), np.int32)
+        tls = np.zeros((B,), np.int32)
+        for j, (i, _, _, n) in enumerate(rows):
+            toks[j, :n] = self.slots[i].prefill_tokens
+            tls[j] = n
+        pts = self.page_tables[[r[0] for r in rows]]
+        self.cache, logits, _ = self.model.prefill(
+            self.cache, self._tensor(toks), self._tensor(tls), self._tensor(pts))
+        return logits
+
+    def _dispatch_prefill_ctx(self, rows):
+        """Chunks on the batch axis, each attending over its own paged
+        history (earlier chunks + itself) from ``start_pos``."""
+        bucket = self._bucket(max(take for (_, _, take, _) in rows))
+        B = len(rows)
+        toks = np.zeros((B, bucket), np.int32)
+        tls = np.zeros((B,), np.int32)
+        sps = np.zeros((B,), np.int32)
+        for j, (i, pos, take, _) in enumerate(rows):
+            toks[j, :take] = self.slots[i].prefill_tokens[pos:pos + take]
+            tls[j] = take
+            sps[j] = pos
+        pts = self.page_tables[[r[0] for r in rows]]
+        self.cache, logits, _ = self.model.prefill(
+            self.cache, self._tensor(toks), self._tensor(tls), self._tensor(pts),
+            start_pos=self._tensor(sps))
+        return logits
+
+    def _dispatch_prefill_packed(self, rows):
+        """Segment packing: S fresh prompts concatenated into ONE padded
+        row with per-token segment ids, positions and page targets.
+        Returns last-token logits [S, V] in pack order."""
+        ps = self.cfg.page_size
+        T = self._bucket(sum(take for (_, _, take, _) in rows))
+        S = len(rows)
+        toks = np.zeros((1, T), np.int32)
+        segs = np.full((1, T), -1, np.int32)
+        poss = np.zeros((1, T), np.int32)
+        tok_pages = np.full((T,), NULL_PAGE, np.int32)
+        last_idx = np.zeros((S,), np.int32)
+        off = 0
+        for si, (i, _, take, _) in enumerate(rows):
+            toks[0, off:off + take] = self.slots[i].prefill_tokens
+            segs[0, off:off + take] = si
+            rel = np.arange(take, dtype=np.int32)
+            poss[0, off:off + take] = rel
+            tok_pages[off:off + take] = self.page_tables[i][rel // ps]
+            last_idx[si] = off + take - 1
+            off += take
+        self.cache, logits, _ = self.model.prefill_packed(
+            self.cache, self._tensor(toks), self._tensor(segs), self._tensor(poss),
+            self._tensor(tok_pages), self._tensor(last_idx))
+        return logits
+
+    def _sample_first_batch(self, idxs: list[int], logits
+                            ) -> tuple[list[int], list[float]]:
+        """First-token sampling for every sequence completing in a
+        prefill round: one sampler call over the gathered rows."""
+        sub = self.sampling.select(idxs)
+        counts = seen = None
+        if self.token_counts is not None:
+            sel = torch.as_tensor(idxs, device=self.device)
+            counts, seen = self.token_counts[sel], self.prompt_seen[sel]
+        tok = sample(logits, sub, counts, seen)
+        lps = chosen_logprob(logits, tok)
+        return tok.cpu().tolist(), lps.cpu().tolist()
+
+    def _begin_decode(self, slot_idx: int, first: int, n: int,
+                      first_lp: Optional[float] = None):
+        """Move a slot to decoding after its prompt KV is in place and
+        emit the first token."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        slot.prefilling = False
+        slot.position = n
+        slot.remaining = min(req.params.max_tokens - len(req.output_tokens),
+                             self.cfg.max_model_len - n,
+                             self._capacity_tokens - n)
+        self.positions[slot_idx] = n
+        self.active[slot_idx] = True
+        self.last_tokens[slot_idx] = first
+        self._remaining[slot_idx] = slot.remaining
+        self._batch_epoch += 1
+        if req.first_token_time is None:
+            req.first_token_time = time.monotonic()
+        if req.params.has_penalties and self.token_counts is not None:
+            self.token_counts[slot_idx, first] += 1
+        self._emit(slot_idx, first, logprob=first_lp)
+
+    # ------------------------------------------------------------------
+    # Page growth + preemption
+    # ------------------------------------------------------------------
+
+    def _alloc_one_page(self) -> Optional[int]:
+        try:
+            return self.allocator.alloc(1)[0]
+        except MemoryError:
+            return None
+
+    def _preempt_slot(self, victim: int):
+        """Preempt a slot back to the front of the waiting queue; its
+        generated tokens become part of the prompt on resume."""
+        req = self.slots[victim].request
+        logger.info("preempting %s (slot %d) to reclaim KV pages",
+                    req.req_id, victim)
+        req.preemptions += 1
+        self.counters["preemptions_total"] += 1
+        self._evict_slot(victim)
+        if len(req.resume_tokens()) + 1 > self._capacity_tokens:
+            # the sequence already fills the whole pool and cannot be
+            # re-admitted; every token was emitted — finish at the cap
+            req.finish_reason = "length"
+            req.finish_time = time.monotonic()
+            req.out.put(None)
+            self.counters["requests_finished_total"] += 1
+            return
+        self._requeue_front(req)
+
+    def _newest_slot(self) -> Optional[int]:
+        """Preemption victim: the newest-admitted sequence."""
+        cands = [i for i, s in enumerate(self.slots) if s.request is not None]
+        return max(cands, key=lambda i: self.slots[i].seq) if cands else None
+
+    def _ensure_decode_pages(self, lookahead: int = 1):
+        """Every active slot must own the pages its next ``lookahead``
+        KV writes land in; when the pool is dry the newest sequence
+        yields — even if it is the one that needs the page."""
+        for i, slot in enumerate(self.slots):
+            if not self.active[i] or slot.request is None:
+                continue
+            needed = self._pages_needed(slot, lookahead)
+            while len(slot.pages) < needed:
+                page = self._alloc_one_page()
+                if page is not None:
+                    self.page_tables[i, len(slot.pages)] = page
+                    slot.pages.append(page)
+                    continue
+                victim = self._newest_slot()
+                if victim is None or victim == i:
+                    self._preempt_slot(i)
+                    break
+                self._preempt_slot(victim)
+
+    def _ensure_penalty_state(self):
+        if self.token_counts is None:
+            S, V = len(self.slots), self.md.arch.vocab_size
+            logger.info("allocating penalty state (%d x %d)", S, V)
+            self.token_counts = torch.zeros((S, V), dtype=torch.int32,
+                                            device=self.device)
+            self.prompt_seen = torch.zeros((S, V), dtype=torch.bool,
+                                           device=self.device)
+
+    # ------------------------------------------------------------------
+    # Decode
+    # ------------------------------------------------------------------
+
+    def _decode_inputs(self, steps: int = 1):
+        """Device inputs of a window of ``steps`` decode steps.  The page
+        tables are cut to the columns the window's writes reach, so the
+        decode kernel sizes its split grid from the longest live
+        sequence, not from ``max_model_len``."""
+        ps = self.cfg.page_size
+        live = self.positions[self.active]
+        hi = int(live.max()) + steps - 1 if live.size else 0
+        cols = min(self.pages_per_seq, hi // ps + 1)
+        return (self._tensor(self.last_tokens), self._tensor(self.positions),
+                self._tensor(self.page_tables[:, :cols]),
+                self._tensor(self.active))
+
+    def _decode_step(self, tok, pos, pt, act):
+        """One model step + sampling on the device; (next, logprob)."""
+        self.cache, logits = self.model.decode(self.cache, tok, pos, pt, act)
+        nxt = sample(logits, self.sampling, self.token_counts, self.prompt_seen)
+        lp = chosen_logprob(logits, nxt)
+        if self.token_counts is not None:
+            rows = torch.arange(nxt.shape[0], device=self.device)
+            self.token_counts[rows, nxt.long()] += act.to(torch.int32)
+        return nxt, lp
+
+    def _decode_once(self):
+        tok, pos, pt, act = self._decode_inputs()
+        nxt, lps = self._decode_step(tok, pos, pt, act)
+        self.counters["decode_steps_total"] += 1
+        self.counters["decode_windows_total"] += 1
+        toks, lps = nxt.cpu().tolist(), lps.cpu().tolist()
+        for i, slot in enumerate(self.slots):
+            if not self.active[i]:
+                continue
+            self.positions[i] += 1
+            slot.position += 1
+            self._emit(i, toks[i], logprob=lps[i])
+            self.last_tokens[i] = toks[i]
+
+    def _decode_lookahead(self) -> int:
+        """How many decode steps the next window may fuse: ``run_ahead``
+        in steady state, at most ``fused_under_load`` while requests wait
+        or prefill, 1 when an abort is pending or a stop set overflows
+        the device stop matrix; clamped to the batch's largest remaining
+        budget (a power of two) and to what the free pool covers."""
+        K = self.run_ahead
+        if K <= 1:
+            return 1
+        busy = self.num_waiting > 0
+        max_rem = 0
+        for i, s in enumerate(self.slots):
+            if s.request is None:
+                continue
+            if s.request.aborted:
+                return 1
+            if s.prefilling:
+                busy = True
+                continue
+            if self.active[i]:
+                if len(self._stop_set(s.request)) > _STOP_WIDTH:
+                    return 1
+                max_rem = max(max_rem, s.remaining)
+        if busy:
+            K = min(K, self.cfg.fused_under_load)
+            if K <= 1:
+                return 1
+        if max_rem < K:
+            K = 1 << max(0, max_rem.bit_length() - 1)
+        while K > 1 and not self._lookahead_fits(K):
+            K //= 2
+        return max(1, K)
+
+    def _pages_needed(self, slot: _Slot, lookahead: int) -> int:
+        """Pages a decoding slot must own for its next ``lookahead`` KV
+        writes (positions [position, position + steps - 1])."""
+        steps = max(1, min(lookahead, slot.remaining))
+        return (slot.position + steps - 1) // self.cfg.page_size + 1
+
+    def _lookahead_fits(self, K: int) -> bool:
+        extra = 0
+        for i, slot in enumerate(self.slots):
+            if self.active[i] and slot.request is not None:
+                extra += max(0, self._pages_needed(slot, K) - len(slot.pages))
+        return extra <= self.allocator.available
+
+    def _stop_matrix(self) -> torch.Tensor:
+        """Device [S, _STOP_WIDTH] stop ids (-1 padded), cached on the
+        batch epoch."""
+        epoch, dev = self._stop_cache
+        if epoch == self._batch_epoch and dev is not None:
+            return dev
+        stop = np.full((len(self.slots), _STOP_WIDTH), -1, np.int32)
+        for i, slot in enumerate(self.slots):
+            if slot.request is None or not self.active[i]:
+                continue
+            ids = sorted(self._stop_set(slot.request))
+            stop[i, :len(ids)] = ids
+        dev = self._tensor(stop)
+        self._stop_cache = (self._batch_epoch, dev)
+        return dev
+
+    def _decode_multi(self, K: int):
+        """K decode steps in one window: sampling, stop detection and
+        budgets on the device (a slot that stops goes inactive and
+        writes no more KV), one readback, then the host replays the
+        window through the single-step _emit path."""
+        tok, pos, pt, act = self._decode_inputs(K)
+        left = self._tensor(self._remaining)
+        stop = self._stop_matrix()
+        toks, acts, lps = [], [], []
+        for _ in range(K):
+            nxt, lp = self._decode_step(tok, pos, pt, act)
+            nxt = torch.where(act, nxt, tok)
+            left = left - act.to(torch.int32)
+            hit = (nxt[:, None] == stop).any(dim=1)
+            toks.append(nxt)
+            acts.append(act)
+            lps.append(lp)
+            pos = pos + act.to(torch.int32)
+            act = act & ~hit & (left > 0)
+            tok = nxt
+        self.counters["decode_steps_total"] += K
+        self.counters["decode_windows_total"] += 1
+        self._replay_window(torch.stack(toks).cpu().numpy(),
+                            torch.stack(acts).cpu().numpy(),
+                            torch.stack(lps).cpu().numpy())
+
+    def _replay_window(self, toks, acts, lps):
+        """Replay a window's [K, S] trace through _emit (stop handling,
+        eviction, streaming); acts[k] is the device's active mask before
+        step k."""
+        toks, acts, lps = toks.tolist(), acts.tolist(), lps.tolist()
+        for tk, ak, lk in zip(toks, acts, lps):
+            for i, slot in enumerate(self.slots):
+                # slot.request goes None when _emit retires it mid-window
+                if not ak[i] or slot.request is None:
+                    continue
+                self.positions[i] += 1
+                slot.position += 1
+                self._emit(i, tk[i], logprob=lk[i])
+                self.last_tokens[i] = tk[i]
+
+    def _stop_set(self, req: Request) -> set:
+        stop_ids = set(req.params.stop_token_ids)
+        eos = self.tokenizer.eos_token_id
+        if eos is not None and not req.params.ignore_eos:
+            stop_ids.add(eos)
+        return stop_ids
+
+    def _emit(self, slot_idx: int, token: int, logprob: Optional[float] = None):
+        """Deliver one generated token; retire the slot when finished."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        req.output_tokens.append(token)
+        if req.params.logprobs:
+            req.output_logprobs.append(logprob)
+        slot.remaining -= 1
+        self._remaining[slot_idx] = slot.remaining
+        self.counters["generation_tokens_total"] += 1
+        stop_ids = self._stop_set(req)
+        if token not in stop_ids:
+            req.out.put(token)
+        if token in stop_ids or slot.remaining <= 0 or req.aborted:
+            req.finish_reason = "stop" if token in stop_ids else "length"
+            req.finish_time = time.monotonic()
+            req.out.put(None)
+            self._evict_slot(slot_idx)
+            self.counters["requests_finished_total"] += 1

@@ -1,0 +1,169 @@
+"""Neural-net building blocks for the config-driven transformer.
+
+Plain functions over tensors, the counterpart of ``kaito_tpu.engine.nn``.
+Weights keep the JAX package's ``[in, out]`` layout, so a projection is
+``x @ w``.  Compute runs in the weights' dtype (bf16 on the card) with
+fp32 norms, rope and activations' inputs where the JAX package has them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from kaito_tpu_torch.device import resolve_device
+from kaito_tpu_torch.models.metadata import ModelArch
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a plain ``[in, out]`` weight.  Quantized weights
+    (the JAX package's QTensor dicts) are not ported yet."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            "quantized weights are not ported yet (ROADMAP queue 1, M11)")
+    return x @ w
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             offset: bool) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    w = scale.float()
+    if offset:
+        w = 1.0 + w
+    return (y * w).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+def apply_norm(x: torch.Tensor, params: dict, arch: ModelArch) -> torch.Tensor:
+    if arch.norm_type == "layernorm":
+        return layer_norm(x, params["scale"], params.get("bias"),
+                          arch.rms_norm_eps)
+    return rms_norm(x, params["scale"], arch.rms_norm_eps, arch.norm_offset)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding (default, linear and llama3 scaling)
+# ---------------------------------------------------------------------------
+
+def _rope_type(arch: ModelArch) -> str:
+    """The rope scaling type; raises for the types not ported yet."""
+    scaling = arch.rope_scaling or {}
+    rope_type = str(scaling.get("rope_type", scaling.get("type", ""))).lower()
+    if rope_type in ("yarn", "longrope", "su"):
+        raise NotImplementedError(
+            f"rope_scaling type {rope_type!r} is not ported yet "
+            f"(ROADMAP queue 1: yarn and longrope rope)")
+    return rope_type
+
+
+def rope_frequencies(arch: ModelArch,
+                     device: str | torch.device = "cuda") -> torch.Tensor:
+    """Per-pair inverse frequencies, fp32 ``[rot_dim // 2]`` on
+    ``device``, with the default, linear or llama3 scaling applied.
+    yarn and longrope are not ported yet and raise."""
+    rope_type = _rope_type(arch)
+    device = resolve_device(device)
+    rot_dim = int(arch.head_dim * arch.partial_rotary_factor)
+    rot_dim -= rot_dim % 2
+    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                            device=device) / rot_dim
+    inv_freq = 1.0 / (arch.rope_theta ** exponent)
+
+    scaling = arch.rope_scaling or {}
+    if rope_type == "linear":
+        inv_freq = inv_freq / float(scaling.get("factor", 1.0))
+    elif rope_type == "llama3":
+        # Llama-3.1 frequency-dependent scaling: low-frequency components
+        # are stretched by `factor`, high-frequency kept, mid smoothed.
+        factor = float(scaling.get("factor", 8.0))
+        low = float(scaling.get("low_freq_factor", 1.0))
+        high = float(scaling.get("high_freq_factor", 4.0))
+        old_len = float(scaling.get("original_max_position_embeddings", 8192))
+        wavelen = 2.0 * math.pi / inv_freq
+        low_wl = old_len / low
+        high_wl = old_len / high
+        smooth = ((old_len / wavelen - low) / (high - low)).clamp(0.0, 1.0)
+        inv_freq = torch.where(
+            wavelen > low_wl, inv_freq / factor,
+            torch.where(wavelen < high_wl, inv_freq,
+                        (1 - smooth) * inv_freq / factor + smooth * inv_freq))
+    return inv_freq
+
+
+def rope_attention_factor(arch: ModelArch) -> float:
+    """Magnitude correction on the rotated dims' cos/sin (HF
+    attention_scaling): an explicit ``attention_factor``, else 1.0 for
+    the rope types this port supports."""
+    scaling = arch.rope_scaling or {}
+    if scaling.get("attention_factor") is not None:
+        return float(scaling["attention_factor"])
+    _rope_type(arch)                # raises for the unported types
+    return 1.0
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               inv_freq: torch.Tensor, head_dim: int,
+               mscale: float = 1.0) -> torch.Tensor:
+    """Rotate the first ``2*len(inv_freq)`` dims of each head.
+
+    x: [..., seq, heads, head_dim]; positions: [..., seq].  ``mscale``
+    multiplies the rotated output; pass-through dims stay unscaled.
+    """
+    rot = 2 * inv_freq.shape[-1]
+    angles = positions[..., :, None].float() * inv_freq     # [..., seq, rot/2]
+    cos = torch.cos(angles)[..., :, None, :] * mscale
+    sin = torch.sin(angles)[..., :, None, :] * mscale
+    x_rot = x[..., :rot].float()
+    x_pass = x[..., rot:]
+    x1, x2 = x_rot.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+def activation(x: torch.Tensor, name: str) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="none")
+    if name in ("gelu_tanh", "gelu_new"):
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def mlp(x: torch.Tensor, p: dict, arch: ModelArch) -> torch.Tensor:
+    """Gated (SwiGLU/GeGLU) or classic 2-matrix MLP."""
+    if arch.gated_mlp:
+        h = activation(linear(x, p["gate"]), arch.hidden_act) \
+            * linear(x, p["up"])
+    else:
+        h = linear(x, p["up"])
+        if "up_bias" in p:
+            h = h + p["up_bias"]
+        h = activation(h, arch.hidden_act)
+    out = linear(h, p["down"])
+    if "down_bias" in p:
+        out = out + p["down_bias"]
+    return out
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap

@@ -1,0 +1,158 @@
+"""Paged decode attention: the CUDA kernel and its plain version.
+
+Counterpart of ``kaito_tpu.engine.ops.decode_attention``.  The kernel
+(``kaito_tpu_torch/csrc/decode_attention.cu``) replaces the Pallas TPU
+kernel ``paged_decode_attention_pallas``: one query token per sequence
+attends over its paged KV history in one layer of the stacked pool,
+with GQA, a sliding window, an optional softcap and an fp32 online
+softmax.  It splits each sequence into 128-token pieces across CTAs and
+merges them in a second launch; its header note says what bounds it on
+the H100 and how it is laid out.
+
+:func:`paged_decode_attention_cuda` launches the kernel for tensors on
+the card and runs :func:`paged_decode_attention_plain` for tensors on
+the CPU; a CUDA tensor it cannot take raises.  ``launches`` on the
+wrapper counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from kaito_tpu_torch.ops import build
+
+NEG_INF = -1e30
+SUPPORTED_HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,            # [B, H, D]
+    cache_k: torch.Tensor,      # [P, ps, Hkv, D] or [Lg, P, ps, Hkv, D] with layer
+    cache_v: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, pmax] int32
+    lengths: torch.Tensor,      # [B] int32, tokens in cache including the new one
+    window: int,                # huge == global attention
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: q pre-scaled in q's
+    dtype, fp32 scores and softmax, P rounded to the cache dtype before
+    the PV product, normalised after it.  A row of length 0 attends over
+    nothing and comes out zero."""
+    if layer is not None:
+        cache_k, cache_v = cache_k[layer], cache_v[layer]
+    B, H, D = q.shape
+    ps, Hkv = cache_k.shape[1], cache_k.shape[2]
+    G = H // Hkv
+    # pages past the longest sequence are fully masked: leave them out
+    n_pg = max(1, -(-int(lengths.max()) // ps))
+    pt = page_tables[:, :n_pg].long()
+    S = n_pg * ps
+    k = cache_k[pt].reshape(B, S, Hkv, D).float()
+    v = cache_v[pt].reshape(B, S, Hkv, D)
+    qs = (q * scale).to(q.dtype).float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qs, k)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(S, device=q.device)[None, :]
+    ln = lengths.long()[:, None]
+    mask = (pos < ln) & (pos >= ln - window)
+    mask = mask[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    out = pv / l.clamp_min(1e-30)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+@functools.cache
+def _kernel():
+    return build.bind("decode_attention", "kaito_decode_attention", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p])
+
+
+@functools.cache
+def _workspace_floats():
+    fn = build.load_library("decode_attention").kaito_decode_workspace_floats
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def paged_decode_attention_cuda(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    page_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    window: int,
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """Paged decode attention (contract of
+    :func:`paged_decode_attention_plain`).  On the card it launches the
+    CUDA kernel; on the CPU it is the plain version."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, cache_k, cache_v, page_tables, lengths, window, scale=scale,
+            softcap=softcap, layer=layer)
+    if layer is not None:
+        cache_k, cache_v = cache_k[layer], cache_v[layer]
+    B, H, D = q.shape
+    P, ps, Hkv, Dk = cache_k.shape
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"decode kernel takes float32 or bfloat16, got {q.dtype}")
+    if D not in SUPPORTED_HEAD_DIMS or Dk != D:
+        raise ValueError(f"decode kernel takes head_dim in {SUPPORTED_HEAD_DIMS}, "
+                         f"got q {D} / cache {Dk}")
+    if H % Hkv:
+        raise ValueError(f"query heads {H} not a multiple of kv heads {Hkv}")
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        if t.shape != cache_k.shape or t.dtype != q.dtype or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous {q.dtype} pool "
+                             f"{tuple(cache_k.shape)} on {q.device}")
+    for name, t, shape in (("page_tables", page_tables, (B, page_tables.shape[1])),
+                           ("lengths", lengths, (B,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous int32 {shape} on {q.device}")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    for t in (q, cache_k, cache_v, out):
+        if _ptr(t) % 16:
+            raise ValueError("decode kernel needs 16-byte aligned tensors")
+    pmax = page_tables.shape[1]
+    # split-K scratch: per (sequence, head, split) accumulator + (max, sum)
+    work = torch.empty(_workspace_floats()(B, H, D, ps, pmax),
+                       dtype=torch.float32, device=q.device)
+    rc = _kernel()(
+        _ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(out), _ptr(page_tables),
+        _ptr(lengths), _ptr(work), B, H, Hkv, D, ps, pmax,
+        int(min(window, 2**31 - 1)), float(scale), float(softcap or 0.0),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "kaito_decode_attention")
+    paged_decode_attention_cuda.launches += 1
+    return out
+
+
+paged_decode_attention_cuda.launches = 0

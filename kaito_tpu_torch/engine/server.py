@@ -1,0 +1,383 @@
+"""OpenAI-compatible HTTP server for the PyTorch engine.
+
+Counterpart of the serving surface of ``kaito_tpu.engine.server``:
+``/health``, ``/v1/models``, ``/v1/completions`` and
+``/v1/chat/completions`` with ``"stream": true`` server-sent events, in
+the same request and response shapes (``ignore_eos`` and the other vLLM
+extra parameters included; ``stream_options.include_usage`` adds a
+final usage chunk to a stream).  Stdlib HTTP only: the engine thread
+does the work, handler threads stream its queues.
+
+Not ported yet: ``/metrics``, the ``/debug/*`` routes, P/D, the KV
+pool, adapters, QoS and constrained decoding (``response_format`` and
+``tools``).  Their routes answer 501.
+
+Run: ``python -m kaito_tpu_torch.engine.server --model
+llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from kaito_tpu_torch.device import resolve_device
+from kaito_tpu_torch.engine.chat import render_chat
+from kaito_tpu_torch.engine.config import EngineConfig
+from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+
+logger = logging.getLogger(__name__)
+
+# routes of the JAX server that later slices port (ROADMAP queue 1)
+_UNPORTED_GET = ("/metrics", "/debug/", "/pd/", "/kv_pool/", "/v1/adapters",
+                 "/ui")
+_UNPORTED_POST = ("/pd/", "/v1/adapters", "/start_profile", "/stop_profile",
+                  "/debug/")
+
+
+class ServerState:
+    def __init__(self, engine: InferenceEngine, cfg: EngineConfig):
+        self.engine = engine
+        self.cfg = cfg
+        self.model_name = cfg.served_model_name or engine.md.name
+
+
+class OpenAIHandler(BaseHTTPRequestHandler):
+    state: ServerState  # injected via make_server
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # route through logging, not stderr
+        logger.debug("%s " + fmt, self.address_string(), *args)
+
+    # ---------------- helpers ----------------
+
+    def _json(self, code: int, obj: dict):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _error(self, code: int, message: str,
+               etype: str = "invalid_request_error"):
+        self._json(code, {"error": {"message": message, "type": etype}})
+
+    def _not_ported(self):
+        self._error(501, f"{self.path} is not implemented by the PyTorch "
+                         f"engine yet", "not_implemented")
+
+    def _read_body(self) -> Optional[dict]:
+        try:
+            n = int(self.headers.get("Content-Length", "0"))
+            body = json.loads(self.rfile.read(n) if n else b"{}")
+        except (ValueError, json.JSONDecodeError):
+            self._error(400, "invalid JSON body")
+            return None
+        if not isinstance(body, dict):
+            self._error(400, "JSON body must be an object")
+            return None
+        return body
+
+    def _sse_start(self):
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+    def _sse_send(self, obj) -> None:
+        data = b"data: " + json.dumps(obj).encode() + b"\n\n"
+        self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+
+    def _sse_end(self):
+        data = b"data: [DONE]\n\n"
+        self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+        self.wfile.write(b"0\r\n\r\n")
+
+    # ---------------- routes ----------------
+
+    def do_GET(self):
+        st = self.state
+        if self.path == "/health":
+            body = {"status": "ok", "device": str(st.engine.device)}
+            if st.engine.sizing_report:
+                body["kv_sizing"] = st.engine.sizing_report
+            self._json(200, body)
+        elif self.path == "/v1/models":
+            self._json(200, {"object": "list", "data": [
+                {"id": st.model_name, "object": "model",
+                 "owned_by": "kaito-tpu", "root": st.model_name}]})
+        elif self.path.startswith(_UNPORTED_GET):
+            self._not_ported()
+        else:
+            self._error(404, f"no route {self.path}")
+
+    def do_POST(self):
+        if self.path == "/v1/completions":
+            self._completions(chat=False)
+        elif self.path == "/v1/chat/completions":
+            self._completions(chat=True)
+        elif self.path.startswith(_UNPORTED_POST):
+            self._not_ported()
+        else:
+            self._error(404, f"no route {self.path}")
+
+    def _completions(self, chat: bool):
+        st = self.state
+        eng = st.engine
+        body = self._read_body()
+        if body is None:
+            return
+        if eng.num_waiting >= st.cfg.max_queue_len:
+            return self._error(429, "engine queue full, retry later",
+                               "rate_limit_error")
+        for key in ("response_format", "tools", "tool_choice", "kv_transfer"):
+            if body.get(key) is not None:
+                return self._error(501, f"{key!r} is not implemented by the "
+                                        f"PyTorch engine yet", "not_implemented")
+        try:
+            if chat:
+                messages = body.get("messages")
+                if not isinstance(messages, list) or not messages:
+                    return self._error(400, "'messages' must be a non-empty list")
+                prompt_text = render_chat(eng.tokenizer, messages,
+                                          model_id=eng.md.name)
+            else:
+                prompt = body.get("prompt", "")
+                if isinstance(prompt, list):
+                    prompt = prompt[0] if prompt else ""
+                if not isinstance(prompt, str) or prompt == "":
+                    return self._error(400, "'prompt' must be a non-empty string")
+                prompt_text = prompt
+            if chat:
+                want_lp = bool(body.get("logprobs"))
+                if int(body.get("top_logprobs", 0) or 0) > 0:
+                    return self._error(400, "top_logprobs alternatives are "
+                                            "not supported")
+            else:
+                lp_param = body.get("logprobs")
+                want_lp = lp_param not in (None, False, 0)
+                if want_lp and int(lp_param) > 1:
+                    return self._error(400, "logprobs > 1 (top-k "
+                                            "alternatives) is not supported")
+            stream = bool(body.get("stream", False))
+            if want_lp and stream:
+                return self._error(400, "logprobs are not supported with "
+                                        "streaming")
+            if body.get("echo") or int(body.get("n", 1) or 1) != 1:
+                return self._error(501, "'echo' and 'n' > 1 are not implemented "
+                                        "by the PyTorch engine yet",
+                                   "not_implemented")
+            model_field = body.get("model") or ""
+            if model_field and model_field not in (st.model_name, eng.md.name):
+                return self._error(404, f"model {model_field!r} not found")
+            params = SamplingParams(
+                max_tokens=int(body.get("max_tokens") or 128),
+                temperature=float(body.get("temperature", 1.0)),
+                top_k=int(body.get("top_k", 0) or 0),
+                top_p=float(body.get("top_p", 1.0)),
+                seed=int(body.get("seed", 0) or 0),
+                logprobs=want_lp,
+                presence_penalty=float(body.get("presence_penalty", 0.0) or 0.0),
+                frequency_penalty=float(body.get("frequency_penalty", 0.0) or 0.0),
+                repetition_penalty=float(body.get("repetition_penalty", 1.0)
+                                         or 1.0),
+                min_p=float(body.get("min_p", 0.0) or 0.0),
+                ignore_eos=bool(body.get("ignore_eos", False)),
+            )
+            include_usage = bool((body.get("stream_options") or {})
+                                 .get("include_usage"))
+        except (TypeError, ValueError, AttributeError) as e:
+            return self._error(400, f"bad parameter: {e}")
+
+        stop = body.get("stop")
+        stop_strs = [stop] if isinstance(stop, str) else list(stop or [])
+        tokens = eng.tokenizer.encode(prompt_text)
+        try:
+            req = eng.submit(tokens, params,
+                             req_id=f"cmpl-{uuid.uuid4().hex[:20]}")
+        except ValueError as e:
+            return self._error(400, str(e))
+        obj = "chat.completion" if chat else "text_completion"
+        base = {"id": req.req_id, "object": obj + (".chunk" if stream else ""),
+                "created": int(time.time()),
+                "model": model_field or st.model_name}
+        if stream:
+            return self._stream(req, base, chat, stop_strs, include_usage)
+
+        out_ids = list(req.stream())
+        if req.finish_reason == "error":
+            err = req.error or {}
+            return self._error(int(err.get("status", 500)),
+                               err.get("message", "request failed"),
+                               err.get("type", "internal_error"))
+        text = eng.tokenizer.decode(out_ids)
+        finish = req.finish_reason or "stop"
+        for s in stop_strs:
+            if s in text:
+                text = text[: text.find(s)]
+                finish = "stop"
+        lp_block = None
+        if params.logprobs:
+            lps = list(req.output_logprobs[:len(out_ids)])
+            strs = [eng.tokenizer.decode([t]) for t in out_ids]
+            offsets = [len(prompt_text) + sum(len(x) for x in strs[:i])
+                       for i in range(len(strs))]
+            lp_block = ({"content": [{"token": s, "logprob": lp,
+                                      "bytes": list(s.encode())}
+                                     for s, lp in zip(strs, lps)]} if chat else
+                        {"tokens": strs, "token_logprobs": lps,
+                         "top_logprobs": None, "text_offset": offsets})
+        if chat:
+            choice = {"index": 0, "message": {"role": "assistant", "content": text},
+                      "finish_reason": finish}
+            if lp_block is not None:
+                choice["logprobs"] = lp_block
+        else:
+            choice = {"index": 0, "text": text, "logprobs": lp_block,
+                      "finish_reason": finish}
+        resp = dict(base)
+        resp.update({"choices": [choice], "usage": {
+            "prompt_tokens": len(tokens), "completion_tokens": len(out_ids),
+            "total_tokens": len(tokens) + len(out_ids)}})
+        self._json(200, resp)
+
+    def _stream(self, req, base, chat, stop_strs, include_usage):
+        eng = self.state.engine
+        self._sse_start()
+
+        def chunk(delta: Optional[str], finish=None):
+            c = dict(base)
+            if chat:
+                body = {"delta": {} if delta is None else {"content": delta}}
+            else:
+                body = {"text": delta or ""}
+            c["choices"] = [{"index": 0, **body, "finish_reason": finish}]
+            return c
+
+        if chat:
+            first = dict(base)
+            first["choices"] = [{"index": 0, "delta": {"role": "assistant"},
+                                 "finish_reason": None}]
+            self._sse_send(first)
+        sent_text, ids, stopped = "", [], False
+        for tok in req.stream():
+            ids.append(tok)
+            text = eng.tokenizer.decode(ids)
+            if text.endswith("�"):
+                continue  # mid-codepoint; wait for more bytes
+            delta = text[len(sent_text):]
+            sent_text = text
+            if stop_strs and any(s in sent_text for s in stop_strs):
+                cut = min(sent_text.find(s) for s in stop_strs if s in sent_text)
+                delta = sent_text[:cut][len(sent_text) - len(delta):]
+                eng.abort(req)
+                stopped = True
+            if delta:
+                self._sse_send(chunk(delta))
+            if stopped:
+                break
+        if not stopped and ids:
+            tail = eng.tokenizer.decode(ids)[len(sent_text):]
+            if tail:
+                self._sse_send(chunk(tail))
+        self._sse_send(chunk(None, "stop" if stopped else (req.finish_reason or "stop")))
+        if include_usage:
+            n_out = len(req.output_tokens)
+            usage = dict(base)
+            usage.update({"choices": [], "usage": {
+                "prompt_tokens": len(req.prompt_tokens),
+                "completion_tokens": n_out,
+                "total_tokens": len(req.prompt_tokens) + n_out}})
+            self._sse_send(usage)
+        self._sse_end()
+
+
+def make_server(engine: Optional[InferenceEngine], cfg: EngineConfig,
+                host: str = "0.0.0.0", port: Optional[int] = None,
+                device: str = "cuda") -> ThreadingHTTPServer:
+    """HTTP server over ``engine``; with ``engine=None`` it builds and
+    starts an :class:`InferenceEngine` for ``cfg`` on ``device``."""
+    if engine is None:
+        engine = InferenceEngine(cfg, device=device)
+        engine.start()
+    elif engine.device != resolve_device(device):
+        raise ValueError(f"engine runs on {engine.device}, server asked for "
+                         f"{device!r}")
+    state = ServerState(engine, cfg)
+    handler = type("Handler", (OpenAIHandler,), {"state": state})
+    server = ThreadingHTTPServer((host, port if port is not None else cfg.port),
+                                 handler)
+    server.daemon_threads = True
+    server.state = state  # type: ignore[attr-defined]
+    return server
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="kaito-tpu-torch-serve")
+    ap.add_argument("--model", default="tiny-llama-test")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a usable card "
+                         "raises")
+    ap.add_argument("--port", type=int, default=5000)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--max-model-len", type=int, default=0)
+    ap.add_argument("--max-num-seqs", type=int, default=8)
+    ap.add_argument("--served-model-name", default="")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--kv-cache-dtype", default="auto",
+                    choices=["auto", "bfloat16", "float32", "int8"],
+                    help="KV page-pool dtype; 'auto' follows --dtype "
+                         "(int8 is not ported yet and raises)")
+    ap.add_argument("--weights-dir", default="",
+                    help="safetensors checkpoint dir ('' = synthetic weights)")
+    ap.add_argument("--max-pages", type=int, default=0,
+                    help="KV page-pool size (0 = size from free device memory)")
+    ap.add_argument("--max-prefill-tokens", type=int, default=512)
+    ap.add_argument("--prefill-pack", type=int, default=0,
+                    help="staged sequences per prefill round (0 = auto, up "
+                         "to max-num-seqs; 1 = serial round-robin)")
+    ap.add_argument("--decode-run-ahead", type=int, default=None,
+                    help="fused decode steps per window (default: measured "
+                         "auto value)")
+    ap.add_argument("--enable-prefix-caching", dest="enable_prefix_caching",
+                    action="store_true", default=True)
+    ap.add_argument("--no-enable-prefix-caching", dest="enable_prefix_caching",
+                    action="store_false")
+    ap.add_argument("--max-queue-len", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO)
+    cfg = EngineConfig(
+        model=args.model, port=args.port, max_model_len=args.max_model_len,
+        max_num_seqs=args.max_num_seqs,
+        served_model_name=args.served_model_name, dtype=args.dtype,
+        kv_dtype=args.dtype if args.kv_cache_dtype == "auto" else args.kv_cache_dtype,
+        weights_dir=args.weights_dir, max_pages=args.max_pages,
+        max_prefill_tokens=args.max_prefill_tokens,
+        prefill_pack=args.prefill_pack, decode_run_ahead=args.decode_run_ahead,
+        enable_prefix_caching=args.enable_prefix_caching,
+        max_queue_len=args.max_queue_len, seed=args.seed)
+    server = make_server(None, cfg, host=args.host, device=args.device)
+    engine = server.state.engine
+    logger.info("serving %s on %s:%d (%s)", cfg.model, args.host, cfg.port,
+                engine.device)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        engine.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,147 @@
+"""Checkpoint loading: HF safetensors -> the stacked parameter tree.
+
+Counterpart of ``kaito_tpu.engine.weights`` for dense llama-style
+checkpoints.  HF linear weights are [out, in]; the port keeps the JAX
+package's [in, out], so projections transpose on load.  The safetensors
+format (an 8-byte header length, a JSON header, raw little-endian
+tensor bytes) is read directly, so loading needs no package beyond
+torch.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import struct
+from typing import Callable, Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+# our layer key -> (HF suffix, transpose?)
+_LAYER_MAP = {
+    "attn_norm": ("input_layernorm.weight", False),
+    "attn_norm_bias": ("input_layernorm.bias", False),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "mlp_norm_bias": ("post_attention_layernorm.bias", False),
+    "q": ("self_attn.q_proj.weight", True),
+    "k": ("self_attn.k_proj.weight", True),
+    "v": ("self_attn.v_proj.weight", True),
+    "o": ("self_attn.o_proj.weight", True),
+    "q_bias": ("self_attn.q_proj.bias", False),
+    "k_bias": ("self_attn.k_proj.bias", False),
+    "v_bias": ("self_attn.v_proj.bias", False),
+    "o_bias": ("self_attn.o_proj.bias", False),
+    "q_norm": ("self_attn.q_norm.weight", False),
+    "k_norm": ("self_attn.k_norm.weight", False),
+    "gate": ("mlp.gate_proj.weight", True),
+    "up": ("mlp.up_proj.weight", True),
+    "down": ("mlp.down_proj.weight", True),
+    "up_bias": ("mlp.up_proj.bias", False),
+    "down_bias": ("mlp.down_proj.bias", False),
+    "post_attn_norm": ("post_attention_layernorm.weight", False),
+    "post_mlp_norm": ("post_feedforward_layernorm.weight", False),
+}
+# gemma-3 swaps the meaning of post_attention_layernorm: pre-MLP norm is
+# pre_feedforward_layernorm
+_GEMMA_OVERRIDES = {
+    "mlp_norm": ("pre_feedforward_layernorm.weight", False),
+    "post_attn_norm": ("post_attention_layernorm.weight", False),
+}
+
+_ST_DTYPES = {
+    "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "F64": torch.float64, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """All tensors of one ``.safetensors`` file, on the CPU."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())     # the tensors below are views of it
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported dtype "
+                             f"{info['dtype']}")
+        lo, hi = info["data_offsets"]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        t = torch.frombuffer(data, dtype=dtype, offset=lo,
+                             count=(hi - lo) // itemsize) if hi > lo \
+            else torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(info["shape"])
+    return out
+
+
+def _reader(directory: str) -> tuple[Callable[[str], Optional[torch.Tensor]],
+                                     list[str]]:
+    tensors: dict[str, torch.Tensor] = {}
+    for f in sorted(os.listdir(directory)):
+        if f.endswith(".safetensors"):
+            tensors.update(read_safetensors(os.path.join(directory, f)))
+    return tensors.get, sorted(tensors)
+
+
+def load_safetensors_params(model, directory: str) -> dict:
+    """Assemble the stacked param tree from HF shards on disk."""
+    read, all_keys = _reader(directory)
+    params = assemble_params(model, read, all_keys)
+    logger.info("loaded %d tensors from %s", len(all_keys), directory)
+    return params
+
+
+def assemble_params(model, read: Callable[[str], Optional[torch.Tensor]],
+                    all_keys: list[str]) -> dict:
+    """Map HF tensors onto the stacked layout of ``model``
+    (a :class:`~kaito_tpu_torch.engine.model.TransformerLM`)."""
+    arch = model.arch
+
+    def get(name: str, required: bool = True) -> Optional[torch.Tensor]:
+        for prefix in ("model.", "transformer.", ""):
+            t = read(prefix + name)
+            if t is not None:
+                return t
+        if required:
+            raise KeyError(f"missing tensor {name!r}; have e.g. {all_keys[:5]}")
+        return None
+
+    def pad_vocab(t: torch.Tensor) -> torch.Tensor:
+        pad = model.vocab_padded - t.shape[0]
+        if pad <= 0:
+            return t
+        return torch.cat([t, torch.zeros((pad, t.shape[1]), dtype=t.dtype)])
+
+    params: dict = {"embed": pad_vocab(get("embed_tokens.weight")),
+                    "final_norm": get("norm.weight")}
+    fnb = get("norm.bias", required=False)
+    if fnb is not None:
+        params["final_norm_bias"] = fnb
+    if not arch.tie_word_embeddings:
+        head = read("lm_head.weight")
+        if head is None:
+            head = get("embed_tokens.weight")
+        params["lm_head"] = pad_vocab(head)
+
+    layer_map = dict(_LAYER_MAP)
+    if arch.pre_post_norm:
+        layer_map.update(_GEMMA_OVERRIDES)
+    for g in model.groups:
+        stack: dict[str, list] = {}
+        for li in range(g.start, g.start + g.count):
+            for key in model._layer_specs():
+                suffix, transpose = layer_map[key]
+                t = get(f"layers.{li}.{suffix}", required=False)
+                if t is None:
+                    raise KeyError(f"no source tensor for layer {li} key {key!r}")
+                stack.setdefault(key, []).append(t.t() if transpose else t)
+        params[g.name] = {k: torch.stack(v) for k, v in stack.items()}
+    return params

@@ -1,0 +1,105 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+These need an NVIDIA Hopper card and ``nvcc``; without one they skip.
+On the card (no JAX there, so without the suite's conftest):
+``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.
+Tolerances: fp32 atol 1e-4 (another summation order than the plain
+versions), bf16 atol 2e-2 (P is rounded to bf16 before the PV product,
+relative to a different running max)."""
+
+import pytest
+import torch
+
+BIG = 1 << 30
+ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return gen
+
+
+def _rand(gen, *shape, dtype):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Hkv,G,ps", [(32, 4, 2, 16), (64, 2, 4, 64),
+                                        (128, 8, 4, 64), (64, 1, 8, 32),
+                                        (128, 4, 1, 16)])
+@pytest.mark.parametrize("window,softcap", [(BIG, None), (19, None), (270, None),
+                                            (BIG, 30.0)])
+def test_decode_kernel(card, dtype, D, Hkv, G, ps, window, softcap):
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+
+    B, pmax, P = 6, 40, 250           # up to 1280 tokens: several splits
+    q = _rand(card, B, Hkv * G, D, dtype=dtype)
+    ck = _rand(card, 3, P, ps, Hkv, D, dtype=dtype)
+    cv = _rand(card, 3, P, ps, Hkv, D, dtype=dtype)
+    pt = (torch.randperm(P - 1, generator=card, device="cuda")[:B * pmax] + 1
+          ).reshape(B, pmax).to(torch.int32)
+    # length 0: an inactive engine row, which attends over nothing
+    lens = torch.tensor([0, 1, ps, ps + 3, pmax * ps, 300],
+                        dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, softcap=softcap, layer=2)
+    before = paged_decode_attention_cuda.launches
+    out = paged_decode_attention_cuda(q, ck, cv, pt, lens, window, **kw)
+    ref = paged_decode_attention_plain(q, ck, cv, pt, lens, window, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_cuda.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D,Hkv,G", [(64, 32, 2, 2), (200, 64, 1, 4),
+                                       (256, 128, 8, 4)])
+@pytest.mark.parametrize("window,softcap", [(BIG, None), (9, None), (BIG, 25.0)])
+def test_flash_kernels(card, dtype, T, D, Hkv, G, window, softcap):
+    from kaito_tpu_torch.engine.ops.flash_prefill import (
+        flash_prefill_attention_cuda, flash_prefill_attention_plain,
+        flash_prefill_packed_cuda, flash_prefill_packed_plain)
+
+    q = _rand(card, 2, T, Hkv * G, D, dtype=dtype)
+    k = _rand(card, 2, T, Hkv, D, dtype=dtype)
+    v = _rand(card, 2, T, Hkv, D, dtype=dtype)
+    tl = torch.tensor([T, T // 2 + 3], dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, softcap=softcap)
+    out = flash_prefill_attention_cuda(q, k, v, tl, window, **kw)
+    ref = flash_prefill_attention_plain(q, k, v, tl, window, **kw)
+    for b in range(2):
+        n = int(tl[b])
+        assert (out[b, :n].float() - ref[b, :n].float()).abs().max().item() \
+            <= ATOL[dtype]
+    seg_lens = (T // 3, T // 4, T // 5)
+    segs = torch.full((2, T), -1, dtype=torch.int32)
+    poss = torch.zeros((2, T), dtype=torch.int32)
+    off = 0
+    for si, n in enumerate(seg_lens):
+        segs[:, off:off + n] = si
+        poss[:, off:off + n] = torch.arange(n, dtype=torch.int32)
+        off += n
+    segs, poss = segs.cuda(), poss.cuda()
+    out = flash_prefill_packed_cuda(q, k, v, segs, poss, window, **kw)
+    ref = flash_prefill_packed_plain(q, k, v, segs, poss, window, **kw)
+    torch.cuda.synchronize()
+    assert (out[:, :off].float() - ref[:, :off].float()).abs().max().item() \
+        <= ATOL[dtype]
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(card):
+    from kaito_tpu_torch.engine.ops.flash_prefill import flash_prefill_attention_cuda
+
+    q = _rand(card, 1, 16, 4, 48, dtype=torch.float32)     # D=48 unsupported
+    tl = torch.tensor([16], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill_attention_cuda(q, q[:, :, :2], q[:, :, :2], tl, BIG, scale=1.0)
+    q = _rand(card, 1, 16, 4, 64, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_prefill_attention_cuda(q, q[:, :, :2], q[:, :, :2], tl, BIG, scale=1.0)
