@@ -8,20 +8,28 @@ order; any failure exits non-zero and prints no result:
    then every kernel under ``kaito_tpu_torch/csrc/`` built from the
    checkout with ``nvcc``.
 2. Kernels against their plain versions on the card, at Llama-3.1-8B
-   attention shapes, in bf16 and fp32: paged decode (K1), flash prefill
-   over a fresh chunk (K2) and over a segment-packed row (K3).  K1 runs
-   with the page-table width the full-width engine gives it at its
-   context limit, and is also timed at the live width the engine passes
-   and with one live sequence beside idle (length-0) rows.
-   Tolerances: fp32 atol 1e-4 (the kernels sum in another order than
-   the plain versions); bf16 atol 2e-2 (P is rounded to bf16 before the
-   PV product, relative to a different running max in each).  Each
-   kernel, its plain version and ``scaled_dot_product_attention`` as a
-   yardstick are timed with CUDA events on the card's clock (behind a
-   sleep kernel, so host issue does not enter), and the host time each
-   kernel call takes is recorded beside it.
+   shapes, in bf16 and fp32: paged decode (K1), flash prefill over a
+   fresh chunk (K2) and over a segment-packed row (K3), paged decode
+   over int8 pages with scales (K1q, over the K1 pools quantized), and
+   the fused dequant matmuls of int8 (K4) and int4 (K5) weights at the
+   four projection shapes with 1, 8 and 200 rows.  K1 runs with the
+   page-table width the full-width engine gives it at its context limit,
+   and is also timed at the live width the engine passes and with one
+   live sequence beside idle (length-0) rows.  Tolerances: fp32 atol
+   1e-4 (the kernels sum in another order than the plain versions);
+   bf16 atol 2e-2 (P is rounded to bf16 before the PV product, relative
+   to a different running max in each); for K1q, K4 and K5 relative to
+   the output's largest magnitude.  Each kernel, its plain version and
+   one PyTorch call as a yardstick (``scaled_dot_product_attention``;
+   ``torch.matmul`` against the dequantized bf16 weight for K4/K5) are
+   timed with CUDA events on the card's clock (behind a sleep kernel, so
+   host issue does not enter), and the host time each kernel call takes
+   is recorded beside it.  K4/K5 and their yardstick cycle through copies
+   of the weight that together exceed the 50 MB L2, as a decode step
+   finds each weight cold.
 3. Goldens: ``tiny-llama-real`` in fp32 through the port's engine on the
-   card must reproduce ``tests/testdata/goldens_tiny-llama-real.json``
+   card must reproduce the ``fp32``, ``int8``, ``weight_int4`` and
+   ``kv_int8`` sections of ``tests/testdata/goldens_tiny-llama-real.json``
    (greedy tokens exact, logprobs within atol 2e-3).
 4. Full width: the port's HTTP server serves ``llama-3.1-8b-instruct``
    (all 32 layers, bf16, synthetic weights from seed 0): one completion,
@@ -31,6 +39,11 @@ order; any failure exits non-zero and prints no result:
    counts of K1, K2 and K3, zeroed just before this phase, must each
    have grown.  TTFT, decode tokens/s and the inter-token gaps of one
    sequence alone are printed beside the card.
+5. Quantized, full width: the server, configured by its own command line
+   (``--quantization int4 --kv-cache-dtype int8``), serves the same model
+   and request mix; then a shorter ``--quantization int8`` leg (bf16 KV).
+   The launch counts of K5 and K1q (int4 leg) and of K4 (int8 leg) are
+   zeroed before each leg and must grow.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -42,6 +55,8 @@ full width, with the rule that picks the engine's CUDA auto value
 from __future__ import annotations
 
 import argparse
+import gc
+import importlib
 import json
 import math
 import os
@@ -61,8 +76,33 @@ BIG = 1 << 30
 SLEEP_CYCLES = 100_000_000   # ~50 ms of GPU clock: longer than any queue of calls
 
 
+# every kernel of the port: (record name, wrapper module, wrapper, the
+# wrapper's launch counter for that kernel)
+_OPS = "kaito_tpu_torch.engine.ops."
+KERNELS = (
+    ("paged_decode_attention", _OPS + "decode_attention",
+     "paged_decode_attention_cuda", "launches"),
+    ("flash_prefill_attention", _OPS + "flash_prefill",
+     "flash_prefill_attention_cuda", "launches"),
+    ("flash_prefill_packed", _OPS + "flash_prefill",
+     "flash_prefill_packed_cuda", "launches"),
+    ("paged_decode_attention_int8kv", _OPS + "decode_attention",
+     "paged_decode_attention_cuda", "launches_q"),
+    ("quant_matmul_int8", _OPS + "quant_matmul", "quant_matmul_cuda",
+     "launches_int8"),
+    ("quant_matmul_int4", _OPS + "quant_matmul", "quant_matmul_cuda",
+     "launches_int4"),
+)
+
+
 class SmokeFailure(RuntimeError):
     pass
+
+
+def _counter(name):
+    """(wrapper, counter attribute) of the kernel record ``name``."""
+    _, mod, fn, attr = next(k for k in KERNELS if k[0] == name)
+    return getattr(importlib.import_module(mod), fn), attr
 
 
 def log(msg: str) -> None:
@@ -141,9 +181,20 @@ def _decode_case(torch, dtype, lengths, window, softcap, gen, pmax):
     return args, kw
 
 
+def _quantize_pool(torch, pool):
+    """A [L, P, ps, Hkv, D] pool as int8 codes and fp32 scales per
+    (layer, page, head), as the int8 page writes leave them."""
+    x = pool.float()
+    scale = x.abs().amax(dim=(2, 4)) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    codes = torch.round(x / safe[:, :, None, :, None]).clamp(-127, 127)
+    return codes.to(torch.int8), scale.contiguous()
+
+
 def _time_decode(torch, args, kw, label):
-    """K1, its plain version and SDPA on one bf16 case; SDPA attends over
-    the live pages gathered into a contiguous [B, Hkv, S, D] copy (the
+    """K1 (or K1q, when ``kw`` holds scales), its plain version and SDPA
+    on one bf16 case; SDPA attends over the live pages gathered (and
+    dequantized) into a contiguous [B, Hkv, S, D] copy in q's dtype (the
     gather itself is not timed)."""
     from kaito_tpu_torch.engine.ops.decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_plain)
@@ -151,13 +202,20 @@ def _time_decode(torch, args, kw, label):
     q, ck, cv, pt, lens, _ = args
     B, H, D = q.shape
     Hkv, ps = ck.shape[3], ck.shape[2]
+    quant = kw.get("k_scale") is not None
     ms, host_ms = time_ms(lambda: paged_decode_attention_cuda(*args, **kw))
     plain_ms = time_ms(lambda: paged_decode_attention_plain(*args, **kw), iters=5)[0]
     n_pg = -(-int(lens.max()) // ps)
     S = n_pg * ps
     live_pt = pt[:, :n_pg].long()
-    kg = ck[1][live_pt].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
-    vg = cv[1][live_pt].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
+
+    def gathered(pool, scale):
+        x = pool[1][live_pt]
+        if scale is not None:
+            x = x.float() * scale[1][live_pt][:, :, None, :, None]
+        return x.to(q.dtype).reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
+
+    kg, vg = gathered(ck, kw.get("k_scale")), gathered(cv, kw.get("v_scale"))
     mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())
     mask = mask[:, None, None, :]
     qs = q[:, :, None, :]
@@ -166,10 +224,15 @@ def _time_decode(torch, args, kw, label):
                                       scale=kw["scale"], enable_gqa=True))[0]
     live = int(lens.sum())
     el = q.element_size()
-    nbytes = (2 * B * H * D + 2 * live * Hkv * D) * el + pt.numel() * 4 + B * 4
+    nbytes = 2 * B * H * D * el + 2 * live * Hkv * D * ck.element_size() \
+        + pt.numel() * 4 + B * 4
+    if quant:
+        # the fp32 k and v scales of every live page and KV head
+        nbytes += 2 * sum(-(-int(n) // ps) for n in lens.tolist()) * Hkv * 4
     b_ms, b_by = bound(nbytes, 4.0 * live * H * D)
-    log(f"K1 {label}: {ms:.4f} ms (plain {plain_ms:.4f}, SDPA {library_ms:.4f}, "
-        f"bound {b_ms:.5f} by {b_by}; host {host_ms:.4f} ms per call)")
+    log(f"{'K1q' if quant else 'K1'} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+        f"SDPA {library_ms:.4f}, bound {b_ms:.5f} by {b_by}; host {host_ms:.4f} ms "
+        f"per call)")
     return dict(case=label, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by, host_ms=host_ms)
 
@@ -182,6 +245,7 @@ def check_decode(torch, records):
     gen.manual_seed(1)
     full = _path_pages_per_seq()
     err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    err_q = dict(err)
     cases = [(K1_LENGTHS, w, c) for w, c in ((BIG, None), (300, None), (BIG, 30.0))]
     cases.append((K1_SINGLE, BIG, None))
     for dtype in (torch.bfloat16, torch.float32):
@@ -193,10 +257,22 @@ def check_decode(torch, records):
             torch.cuda.synchronize()
             e = (out.float() - ref.float()).abs().max().item()
             err[dtype] = max(err[dtype], e)
-            log(f"K1 {dtype} lengths={lengths} window={window} softcap={softcap} "
-                f"page table width {full}: max err {e:.3g}")
+            # K1q over the same pools quantized to int8
+            (q, ck, cv, pt, lens, win) = args
+            (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
+            qargs, qkw = (q, k8, v8, pt, lens, win), dict(kw, k_scale=ks, v_scale=vs)
+            out = paged_decode_attention_cuda(*qargs, **qkw)
+            ref = paged_decode_attention_plain(*qargs, **qkw).float()
+            torch.cuda.synchronize()
+            eq = (out.float() - ref).abs().max().item() / max(
+                ref.abs().max().item(), 1e-30)
+            err_q[dtype] = max(err_q[dtype], eq)
+            log(f"K1/K1q {dtype} lengths={lengths} window={window} softcap={softcap} "
+                f"page table width {full}: max err {e:.3g} / relative {eq:.3g}")
     if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
         raise SmokeFailure(f"K1 disagrees with its plain version: {err}")
+    if err_q[torch.bfloat16] > BF16_ATOL or err_q[torch.float32] > FP32_ATOL:
+        raise SmokeFailure(f"K1q disagrees with its plain version: {err_q}")
     # timed at the widest page table the engine passes, and at the live
     # width it passes when no sequence is longer than these
     timed = []
@@ -218,6 +294,110 @@ def check_decode(torch, records):
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
         host_ms=main["host_ms"], cases=timed)
+    # K1q at the main case: the same pools quantized to int8
+    args, kw = _decode_case(torch, torch.bfloat16, K1_LENGTHS, BIG, None, gen, full)
+    (q, ck, cv, pt, lens, win) = args
+    (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
+    del ck, cv
+    tq = _time_decode(torch, (q, k8, v8, pt, lens, win),
+                      dict(kw, k_scale=ks, v_scale=vs), timed[0]["case"])
+    records["paged_decode_attention_int8kv"] = dict(
+        name="paged_decode_attention_int8kv", route="cuda",
+        source="kaito_tpu_torch/csrc/decode_attention.cu",
+        replaces="kaito_tpu/engine/ops/decode_attention.py:76",
+        shape=f"B=8 H=32 Hkv=8 D=128 ps=64 lengths<=2048 table width {full} "
+              f"bf16 q, int8 pages + fp32 scales",
+        max_abs_err=err_q[torch.bfloat16], max_rel_err_bf16=err_q[torch.bfloat16],
+        max_rel_err_fp32=err_q[torch.float32], ms=tq["ms"], kernel_ms=tq["ms"],
+        plain_ms=tq["plain_ms"], bound_ms=tq["bound_ms"], bound_by=tq["bound_by"],
+        library_ms=tq["library_ms"], host_ms=tq["host_ms"])
+
+
+# projection shapes of Llama-3.1-8B, [K, N]
+PROJ_SHAPES = {"q/o": (4096, 4096), "k/v": (4096, 1024),
+               "gate/up": (4096, 14336), "down": (14336, 4096)}
+L2_BYTES = 50 << 20
+
+
+def _cold_cycle(tensors_of, nbytes):
+    """Copies of a weight (``tensors_of()`` makes one) that together
+    exceed twice the L2, and a function handing out the next one."""
+    copies = [tensors_of() for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+    it = iter(range(1 << 62))
+    return lambda: copies[next(it) % len(copies)]
+
+
+def check_quant_matmul(torch, records):
+    """K4 and K5 against their plain version at the projection shapes,
+    rows 1, 8 and 200, bf16 and fp32; then timed in bf16 (gate/up at
+    every row count, the other shapes at 8 rows) beside torch.matmul
+    against the dequantized bf16 weight."""
+    from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
+                                                         quant_matmul_plain)
+    from kaito_tpu_torch.engine.quant import dequant_weight, quantize_weight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for scheme, name, replaces in (
+            ("int8", "quant_matmul_int8", "kaito_tpu/engine/ops/quant_matmul.py:109"),
+            ("int4", "quant_matmul_int4", "kaito_tpu/engine/ops/quant_matmul.py:129")):
+        err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        timed = []
+        for label, (K, N) in PROJ_SHAPES.items():
+            w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda")
+                                / math.sqrt(K), scheme)
+            for rows in (1, 8, 200):
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = torch.randn(rows, K, generator=gen, device="cuda").to(dtype)
+                    out = quant_matmul_cuda(x, w)
+                    ref = quant_matmul_plain(x, w).float()
+                    torch.cuda.synchronize()
+                    e = (out.float() - ref).abs().max().item() / max(
+                        ref.abs().max().item(), 1e-30)
+                    err[dtype] = max(err[dtype], e)
+            log(f"{name} {label} [{K}x{N}] rows 1/8/200: max relative err "
+                f"bf16 {err[torch.bfloat16]:.3g} fp32 {err[torch.float32]:.3g}")
+            for rows in ((1, 8, 200) if label == "gate/up" else (8,)):
+                timed.append(_time_quant_matmul(torch, w, rows, K, N, scheme,
+                                                f"{label} [{K}x{N}] rows {rows}",
+                                                gen, dequant_weight))
+            del w
+        if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
+            raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
+        main = next(t for t in timed if t["case"].startswith("gate/up") and
+                    t["case"].endswith("rows 8"))
+        records[name] = dict(
+            name=name, route="cuda", source="kaito_tpu_torch/csrc/quant_matmul.cu",
+            replaces=replaces,
+            shape=f"x [8, 4096] bf16 @ {scheme} W [4096, 14336] (gate/up)",
+            max_abs_err=err[torch.bfloat16], max_rel_err_bf16=err[torch.bfloat16],
+            max_rel_err_fp32=err[torch.float32], ms=main["ms"], kernel_ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
+            host_ms=main["host_ms"], cases=timed)
+
+
+def _time_quant_matmul(torch, w, rows, K, N, scheme, label, gen, dequant_weight):
+    from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
+                                                         quant_matmul_plain)
+
+    x = torch.randn(rows, K, generator=gen, device="cuda").to(torch.bfloat16)
+    wbytes = sum(t.numel() * t.element_size() for t in w.values())
+    nxt = _cold_cycle(lambda: {k: t.clone() for k, t in w.items()}, wbytes)
+    ms, host_ms = time_ms(lambda: quant_matmul_cuda(x, nxt()))
+    plain_ms = time_ms(lambda: quant_matmul_plain(x, nxt()), iters=5)[0]
+    del nxt
+    deq = dequant_weight(w, torch.bfloat16)
+    nxt_lib = _cold_cycle(lambda: deq.clone(), deq.numel() * 2)
+    library_ms = time_ms(lambda: torch.matmul(x, nxt_lib()))[0]
+    del nxt_lib, deq
+    nbytes = 2 * rows * K + wbytes + 2 * rows * N
+    b_ms, b_by = bound(nbytes, 2.0 * rows * K * N)
+    log(f"{scheme} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, torch.matmul bf16 "
+        f"{library_ms:.4f}, bound {b_ms:.5f} by {b_by}; host {host_ms:.4f} ms per "
+        f"call)")
+    return dict(case=label, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, host_ms=host_ms)
 
 
 def _flash_inputs(torch, dtype, T, gen, B=1, H=32, Hkv=8, D=128):
@@ -341,41 +521,47 @@ def check_flash(torch, records):
 # Phase 3: goldens
 # ---------------------------------------------------------------------------
 
-def check_goldens():
+# golden section -> (quantization, kv_dtype) of the engine that replays it
+GOLDEN_MODES = {"fp32": ("", "float32"), "int8": ("int8", "float32"),
+                "weight_int4": ("int4", "float32"), "kv_int8": ("", "int8")}
+
+
+def check_goldens(section):
     from kaito_tpu_torch.engine.config import EngineConfig
     from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
 
     golden = json.load(open(os.path.join(
         REPO, "tests", "testdata", "goldens_tiny-llama-real.json")))
+    quant, kv_dtype = GOLDEN_MODES[section]
     cfg = EngineConfig(model="tiny-llama-real",
                        weights_dir=os.path.join(REPO, "checkpoints",
                                                 "tiny-llama-real"),
-                       dtype="float32", kv_dtype="float32", max_model_len=512,
+                       dtype="float32", kv_dtype=kv_dtype, max_model_len=512,
                        max_num_seqs=2, prefill_buckets=(64, 128),
-                       enable_prefix_caching=False, seed=0)
+                       enable_prefix_caching=False, quantization=quant, seed=0)
     eng = InferenceEngine(cfg, device="cuda")
     eng.start()
     worst = 0.0
     try:
         for p in golden["prompts"]:
-            want = p["fp32"]["greedy_tokens"]
+            want = p[section]["greedy_tokens"]
             req = eng.submit(list(p["prompt_tokens"]), SamplingParams(
                 max_tokens=len(want), temperature=0.0, ignore_eos=True,
                 logprobs=True))
             got = list(req.stream())
             if got != want:
-                raise SmokeFailure(f"golden tokens differ for {p['text']!r}: "
-                                   f"{got} != {want}")
+                raise SmokeFailure(f"{section} golden tokens differ for "
+                                   f"{p['text']!r}: {got} != {want}")
             d = max(abs(a - b) for a, b in zip(req.output_logprobs,
-                                               p["fp32"]["logprobs"]))
+                                               p[section]["logprobs"]))
             worst = max(worst, d)
             if d > 2e-3:
-                raise SmokeFailure(f"golden logprobs off by {d:.3g} for "
-                                   f"{p['text']!r}")
+                raise SmokeFailure(f"{section} golden logprobs off by {d:.3g} "
+                                   f"for {p['text']!r}")
     finally:
         eng.stop()
-    log(f"goldens: {len(golden['prompts'])} prompts exact, worst logprob "
-        f"diff {worst:.3g}")
+    log(f"goldens {section}: {len(golden['prompts'])} prompts exact, worst "
+        f"logprob diff {worst:.3g}")
     return worst
 
 
@@ -455,28 +641,34 @@ def _stream_chat(base, max_tokens):
     return len(chunks)
 
 
-def run_server_phase(counters, run_ahead_sweep=False, profile=False):
+def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
+                     profile=False):
+    """Serve ``llama-3.1-8b-instruct`` at full width with the server's
+    command-line ``flags`` and drive the request mix (``burst=False``
+    leaves out the concurrent burst).  Returns the launch counts of the
+    kernel records ``counted``, zeroed just before the requests, and the
+    leg's statistics."""
     import torch
 
-    from kaito_tpu_torch.engine.config import EngineConfig
-    from kaito_tpu_torch.engine.server import make_server
+    from kaito_tpu_torch.engine.server import make_server, parse_args
 
-    cfg = EngineConfig(model="llama-3.1-8b-instruct", dtype="bfloat16",
-                       kv_dtype="bfloat16", max_num_seqs=8, seed=0)
+    cfg, _ = parse_args(["--model", "llama-3.1-8b-instruct", "--dtype", "bfloat16",
+                         "--max-num-seqs", "8", "--seed", "0", *flags])
     t0 = time.perf_counter()
     server = make_server(None, cfg, host="127.0.0.1", port=0, device="cuda")
     engine = server.state.engine
     torch.cuda.synchronize()
-    log(f"8B engine up in {time.perf_counter() - t0:.1f}s: "
-        f"{engine.model.param_bytes() / 2**30:.2f} GiB weights, "
-        f"{engine.sizing_report}")
+    log(f"{label}: 8B engine up in {time.perf_counter() - t0:.1f}s: "
+        f"{engine.model.param_bytes() / 2**30:.2f} GiB weights, KV "
+        f"{cfg.kv_dtype}, {engine.sizing_report}")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     stats = {}
     try:
-        for c in counters:
-            c.launches = 0
+        for name in counted:
+            fn, attr = _counter(name)
+            setattr(fn, attr, 0)
         status, raw = _get(f"{base}/health")
         if status != 200 or json.loads(raw)["status"] != "ok":
             raise SmokeFailure(f"/health answered {status} {raw!r}")
@@ -494,51 +686,27 @@ def run_server_phase(counters, run_ahead_sweep=False, profile=False):
         n_chunks = _stream_chat(base, 16)
         log(f"completion + streamed chat ok ({n_chunks} SSE chunks)")
 
-        # a long decode in flight makes the concurrent arrivals stage
-        # together, so their prefill forms a pack
-        results, errors = {}, []
-
-        def run(key, prompt, n):
-            try:
-                results[key] = _completion(base, prompt, n)
-            except Exception as e:   # reported below; the phase fails
-                errors.append(f"{key}: {e!r}")
-
-        bg = threading.Thread(target=run, args=("bg", _prompt(40, 2), 96))
-        bg.start()
-        time.sleep(0.5)
-        burst = [threading.Thread(target=run, args=(f"c{i}", _prompt(n, 10 + i), 32))
-                 for i, n in enumerate((120, 250, 330, 400))]
-        burst.append(threading.Thread(target=run, args=("long", _prompt(700, 20), 32)))
-        t_burst = time.perf_counter()
-        for t in burst:
-            t.start()
-        for t in burst + [bg]:
-            t.join(timeout=600)
-        t_burst = time.perf_counter() - t_burst
-        if errors or len(results) != 6:
-            raise SmokeFailure(f"concurrent requests failed: {errors}")
-        packs = engine.counters["prefill_packed_steps_total"]
-        log(f"burst of 5 ok in {t_burst:.2f}s; packed prefill dispatches {packs}")
-
+        if burst:
+            stats.update(_burst(base, engine))
         # TTFT and decode rate of one request alone
         p = _prompt(200, 30)
         ttft = min(_completion(base, p, 1)[1] for _ in range(3))
         t_long = min(_completion(base, p, 129)[1] for _ in range(2))
         # inter-token gaps of one sequence alone, as the engine delivers them
         single = _itl(_timed_tokens(engine, p, 129))
-        stats = dict(ttft_ms=ttft * 1e3, decode_tok_s=128 / (t_long - ttft),
-                     burst_s=t_burst, burst_completion_tokens=32 * 5,
-                     prompt_tokens=200, packed_prefill_dispatches=packs,
-                     run_ahead=engine.run_ahead,
+        stats.update(ttft_ms=ttft * 1e3, decode_tok_s=128 / (t_long - ttft),
+                     prompt_tokens=200, run_ahead=engine.run_ahead,
+                     weights_gib=engine.model.param_bytes() / 2**30,
+                     kv_pages=engine.sizing_report.get("pages"),
                      single_stream=single)
-        log(f"one sequence at run_ahead={engine.run_ahead}: "
+        log(f"{label}: one sequence at run_ahead={engine.run_ahead}: "
             f"{single['decode_tok_s']:.2f} tok/s, ITL p50/p90/max "
             f"{single['itl_p50_ms']:.1f}/{single['itl_p90_ms']:.1f}/"
             f"{single['itl_max_ms']:.1f} ms")
         torch.cuda.synchronize()
-        launches = {c.__name__: c.launches for c in counters}
-        log(f"launches on the main path: {launches}")
+        launches = {name: getattr(*_counter(name)) for name in counted}
+        log(f"{label}: launches {launches}; decode steps "
+            f"{engine.counters['decode_steps_total']}")
         if run_ahead_sweep:
             stats["run_ahead_sweep"] = sweep_run_ahead(engine)
         if profile:
@@ -549,6 +717,47 @@ def run_server_phase(counters, run_ahead_sweep=False, profile=False):
         engine.stop()
         thread.join(timeout=30)
     return launches, stats
+
+
+def _burst(base, engine):
+    """A long decode in flight, then four concurrent 100-400-token
+    prompts (they stage together, so their prefill forms a pack) and one
+    700-token prompt (a continuation chunk)."""
+    results, errors = {}, []
+
+    def run(key, prompt, n):
+        try:
+            results[key] = _completion(base, prompt, n)
+        except Exception as e:   # reported below; the phase fails
+            errors.append(f"{key}: {e!r}")
+
+    bg = threading.Thread(target=run, args=("bg", _prompt(40, 2), 96))
+    bg.start()
+    time.sleep(0.5)
+    burst = [threading.Thread(target=run, args=(f"c{i}", _prompt(n, 10 + i), 32))
+             for i, n in enumerate((120, 250, 330, 400))]
+    burst.append(threading.Thread(target=run, args=("long", _prompt(700, 20), 32)))
+    t_burst = time.perf_counter()
+    for t in burst:
+        t.start()
+    for t in burst + [bg]:
+        t.join(timeout=600)
+    t_burst = time.perf_counter() - t_burst
+    if errors or len(results) != 6:
+        raise SmokeFailure(f"concurrent requests failed: {errors}")
+    packs = engine.counters["prefill_packed_steps_total"]
+    log(f"burst of 5 ok in {t_burst:.2f}s; packed prefill dispatches {packs}")
+    return dict(burst_s=t_burst, burst_completion_tokens=32 * 5,
+                packed_prefill_dispatches=packs)
+
+
+def _release_card(torch):
+    """Drop a finished leg's engine (its cycles included) and hand the
+    cached blocks back, so the next leg sizes its pool from a free card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"card memory after release: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated")
 
 
 def profile_request(engine, base):
@@ -694,7 +903,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep-run-ahead", action="store_true",
                     help="also sweep decode_run_ahead at full width")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one full-width request with torch.profiler")
+                    help="also profile one full-width request of each server "
+                         "leg with torch.profiler")
     ap.add_argument("--time-limit", type=float, default=1100.0,
                     help="seconds after which the run fails")
     args = ap.parse_args(argv)
@@ -729,33 +939,41 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
 
-        from kaito_tpu_torch.engine.ops.decode_attention import \
-            paged_decode_attention_cuda
-        from kaito_tpu_torch.engine.ops.flash_prefill import (
-            flash_prefill_attention_cuda, flash_prefill_packed_cuda)
-
-        counters = (paged_decode_attention_cuda, flash_prefill_attention_cuda,
-                    flash_prefill_packed_cuda)
         records: dict = {}
         with torch.no_grad():
             check_decode(torch, records)
             check_flash(torch, records)
-            golden_err = check_goldens()
-            launches, stats = run_server_phase(counters, args.sweep_run_ahead,
-                                               args.profile)
-        for c, name in zip(counters, ("paged_decode_attention",
-                                      "flash_prefill_attention",
-                                      "flash_prefill_packed")):
-            records[name]["launches"] = launches[c.__name__]
-            if launches[c.__name__] <= 0:
-                raise SmokeFailure(f"{name} never launched on the main path")
-        log(f"full width on {card}: TTFT {stats['ttft_ms']:.1f} ms "
-            f"({stats['prompt_tokens']}-token prompt, alone), decode "
-            f"{stats['decode_tok_s']:.1f} tok/s (one sequence); golden "
-            f"logprob diff {golden_err:.3g}")
-        print(json.dumps({"phase4": stats, "golden_max_logprob_diff": golden_err}))
+            check_quant_matmul(torch, records)
+            golden_err = {sec: check_goldens(sec) for sec in GOLDEN_MODES}
+            _release_card(torch)
+            # each leg: (label, server flags, kernels it must launch, burst)
+            legs = (("phase 4, bf16", [],
+                     ("paged_decode_attention", "flash_prefill_attention",
+                      "flash_prefill_packed"), True),
+                    ("phase 5, int4 weights + int8 KV",
+                     ["--quantization", "int4", "--kv-cache-dtype", "int8"],
+                     ("quant_matmul_int4", "paged_decode_attention_int8kv"), True),
+                    ("phase 5, int8 weights", ["--quantization", "int8"],
+                     ("quant_matmul_int8",), False))
+            stats = {}
+            for i, (label, flags, counted, burst) in enumerate(legs):
+                launches, stats[label] = run_server_phase(
+                    flags, counted, label, burst=burst,
+                    run_ahead_sweep=args.sweep_run_ahead and i == 0,
+                    profile=args.profile)
+                _release_card(torch)
+                for name in counted:
+                    records[name]["launches"] = launches[name]
+                    if launches[name] <= 0:
+                        raise SmokeFailure(f"{name} never launched in {label}")
+                log(f"{label} on {card}: TTFT {stats[label]['ttft_ms']:.1f} ms "
+                    f"({stats[label]['prompt_tokens']}-token prompt, alone), decode "
+                    f"{stats[label]['decode_tok_s']:.1f} tok/s (one sequence)")
+        log(f"golden logprob diffs {golden_err}")
+        print(json.dumps({"server_legs": stats,
+                          "golden_max_logprob_diff": golden_err}))
         print(card)
-        print(json.dumps({"kernels": list(records.values())}))
+        print(json.dumps({"kernels": [records[k[0]] for k in KERNELS]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -28,6 +28,21 @@
 // table's width, so callers pass only the columns live sequences reach.
 // The Pallas kernel's flat [H, ps*Hkv] score panel with a head mask was a
 // Mosaic workaround and is not carried over.  Not yet done: TMA loads.
+//
+// K1q, the int8 instance (the Pallas kernel's quantized=True mode): the
+// pools hold int8 codes with fp32 scales [P, Hkv] per page and KV head.
+// A tile's codes arrive as 8-byte pieces (half the bytes of a bf16 row),
+// are widened after the load, and the scales of its tokens' pages are
+// read straight from [P, Hkv] (the Pallas kernel pre-tiles them into
+// per-column rows, a Mosaic layout workaround).  sigma_k multiplies the
+// fp32 scores after the QK dot and sigma_v the probabilities after the
+// running sum l is updated; P stays fp32 against fp32 V (no rounding of P,
+// as in the quantized Pallas kernel).  Its bound is bytes too, at half of
+// K1's.  The merge kernel is the same.
+#include <stdint.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace kaito {
@@ -45,24 +60,29 @@ inline size_t decode_smem_bytes(int G, int D) {
                 + (size_t)DEC_TK * D       // v
                 + (size_t)G * DEC_TK       // scores / P
                 + (size_t)G * D            // acc
-                + 3 * (size_t)G;           // m, l, alpha
+                + 3 * (size_t)G            // m, l, alpha
+                + 2 * (size_t)DEC_TK;      // K1q scales per token
   return floats * sizeof(float);
 }
 
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
 // One 32-token tile of K and V rows for one KV head, held in registers
 // between its loads and its store to shared memory: thread tid owns the
-// 16-byte pieces tid, tid + DEC_THREADS, ... of the tile's rows.
-template <typename T, int D>
+// pieces tid, tid + DEC_THREADS, ... of the tile's rows (16 bytes for
+// fp32/bf16 rows, 8 bytes of int8 codes).
+template <typename TKV, int D>
 struct KVTile {
-  static constexpr int V = 16 / (int)sizeof(T);             // values per piece
-  static constexpr int R = D / V;                            // pieces per row
-  static constexpr int N = DEC_TK * R / DEC_THREADS;         // pieces per thread
+  using Piece = std::conditional_t<sizeof(TKV) == 1, uint2, uint4>;
+  static constexpr int V = (int)(sizeof(Piece) / sizeof(TKV));   // values per piece
+  static constexpr int R = D / V;                                // pieces per row
+  static constexpr int N = DEC_TK * R / DEC_THREADS;             // pieces per thread
   static_assert(N >= 1 && DEC_TK * R % DEC_THREADS == 0, "tile split");
-  uint4 k[N], v[N];
+  Piece k[N], v[N];
 
   // Issue every load of tile t0 (rows past `length` read as zero).
-  __device__ __forceinline__ void fetch(const T* __restrict__ kc,
-                                        const T* __restrict__ vc,
+  __device__ __forceinline__ void fetch(const TKV* __restrict__ kc,
+                                        const TKV* __restrict__ vc,
                                         const int* __restrict__ pt, int t0,
                                         int length, int ps, size_t tok_stride,
                                         size_t head_off, int tid) {
@@ -70,12 +90,12 @@ struct KVTile {
     for (int j = 0; j < N; ++j) {
       const int i = tid + j * DEC_THREADS;
       const int pos = t0 + i / R;
-      k[j] = v[j] = make_uint4(0u, 0u, 0u, 0u);
+      k[j] = v[j] = Piece{};
       if (pos < length) {
         const size_t off = ((size_t)pt[pos / ps] * ps + pos % ps) * tok_stride +
                            head_off;
-        k[j] = __ldg(reinterpret_cast<const uint4*>(kc + off) + i % R);
-        v[j] = __ldg(reinterpret_cast<const uint4*>(vc + off) + i % R);
+        k[j] = __ldg(reinterpret_cast<const Piece*>(kc + off) + i % R);
+        v[j] = __ldg(reinterpret_cast<const Piece*>(vc + off) + i % R);
       }
     }
   }
@@ -86,8 +106,8 @@ struct KVTile {
     for (int j = 0; j < N; ++j) {
       const int i = tid + j * DEC_THREADS;
       const int r = i / R, c = (i % R) * V;
-      const T* ek = reinterpret_cast<const T*>(&k[j]);
-      const T* ev = reinterpret_cast<const T*>(&v[j]);
+      const TKV* ek = reinterpret_cast<const TKV*>(&k[j]);
+      const TKV* ev = reinterpret_cast<const TKV*>(&v[j]);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         k_s[r * (D + 1) + c + e] = to_f(ek[e]);
@@ -97,15 +117,19 @@ struct KVTile {
   }
 };
 
-template <typename T, int D>
+// T: q/out dtype; TKV: pool dtype (T, or int8_t for K1q with k_scale and
+// v_scale, one layer's [P, Hkv] scales).
+template <typename T, typename TKV, int D>
 __global__ void __launch_bounds__(DEC_THREADS)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, float* __restrict__ part_acc,
+decode_split_kernel(const T* __restrict__ q, const TKV* __restrict__ kc,
+                    const TKV* __restrict__ vc, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, float* __restrict__ part_acc,
                     float* __restrict__ part_ml,
                     const int* __restrict__ page_tables,
                     const int* __restrict__ lengths, int H, int Hkv, int ps,
                     int pmax, int n_split, int window, float scale,
                     float softcap) {
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   constexpr int DP = dec_row<D>();
   const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int G = H / Hkv;
@@ -121,6 +145,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float* m_s = acc_s + G * D;          // [G]
   float* l_s = m_s + G;                // [G]
   float* a_s = l_s + G;                // [G]
+  float* sk_s = a_s + G;               // [TK] K1q: sigma_k, sigma_v per token
+  float* sv_s = sk_s + DEC_TK;         // [TK]
 
   const int length = lengths[b];
   const int lo = window < length ? length - window : 0;
@@ -131,7 +157,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int* pt = page_tables + (size_t)b * pmax;
   const size_t tok_stride = (size_t)Hkv * D, head_off = (size_t)h * D;
   int t0 = max(split * DEC_CHUNK, (lo / DEC_TK) * DEC_TK);
-  KVTile<T, D> tile;
+  KVTile<TKV, D> tile;
   tile.fetch(kc, vc, pt, t0, length, ps, tok_stride, head_off, tid);
 
   for (int i = tid; i < G * D; i += DEC_THREADS) {
@@ -147,6 +173,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   for (; t0 < t_end; t0 += DEC_TK) {
     tile.store(k_s, v_s, tid);
+    if (QUANT && tid < DEC_TK) {
+      // the scales of each token's (page, KV head); rows past the end are
+      // masked below, so any finite value does
+      const int pos = min(t0 + tid, length - 1);
+      const size_t si = (size_t)pt[pos / ps] * Hkv + h;
+      sk_s[tid] = k_scale[si];
+      sv_s[tid] = v_scale[si];
+    }
     __syncthreads();
     // the next tile's loads fly while this one is scored
     if (t0 + DEC_TK < t_end)
@@ -159,6 +193,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       float s = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+      if (QUANT) s *= sk_s[r];
       if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
       const int pos = t0 + r;
       const bool valid = pos < length && pos >= length - window;
@@ -177,7 +212,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       float sum = p;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[g * DEC_TK + lane] = round_to<T>(p);
+      p_s[g * DEC_TK + lane] = QUANT ? p * sv_s[lane] : round_to<T>(p);
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
         a_s[g] = alpha;
@@ -235,22 +270,23 @@ decode_merge_kernel(const float* __restrict__ part_acc,
   out[((size_t)b * H + head) * D + d] = from_f<T>(acc / fmaxf(L, 1e-30f));
 }
 
-template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* kc, const void* vc, void* out,
+template <typename T, typename TKV, int D>
+cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
+                          const float* k_scale, const float* v_scale, void* out,
                           const int* page_tables, const int* lengths, float* work,
                           int n_split, int B, int H, int Hkv, int ps, int pmax,
                           int window, float scale, float softcap,
                           cudaStream_t stream) {
   const size_t smem = decode_smem_bytes(H / Hkv, D);
-  auto split = decode_split_kernel<T, D>;
+  auto split = decode_split_kernel<T, TKV, D>;
   cudaError_t err = allow_smem(split, smem);
   if (err != cudaSuccess) return err;
   float* part_acc = work;
   float* part_ml = work + (size_t)B * H * n_split * D;
   split<<<dim3(Hkv, B, n_split), DEC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      part_acc, part_ml, page_tables, lengths, H, Hkv, ps, pmax, n_split, window,
-      scale, softcap);
+      static_cast<const T*>(q), static_cast<const TKV*>(kc),
+      static_cast<const TKV*>(vc), k_scale, v_scale, part_acc, part_ml, page_tables,
+      lengths, H, Hkv, ps, pmax, n_split, window, scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<T, D><<<dim3(H, B), D, 0, stream>>>(
@@ -260,33 +296,48 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc, void* o
 
 }  // namespace kaito
 
-// q [B, H, D]; k_layer/v_layer: one layer of the pool, [P, ps, Hkv, D];
-// page_tables [B, pmax] and lengths [B] int32; out [B, H, D].
-// work: fp32 scratch of kaito_decode_workspace_floats(...) floats.
-// dtype: 0 = float32, 1 = bfloat16.  softcap <= 0 disables it.
-// Returns the CUDA error of the launches (0 = success).
+// q [B, H, D]; k_layer/v_layer: one layer of the pool, [P, ps, Hkv, D], in
+// q's dtype, or int8 codes when k_scale/v_scale (that layer's fp32 [P, Hkv]
+// scales) are given (K1q; both null for K1); page_tables [B, pmax] and
+// lengths [B] int32; out [B, H, D].  work: fp32 scratch of
+// kaito_decode_workspace_floats(...) floats.  dtype: 0 = float32,
+// 1 = bfloat16.  softcap <= 0 disables it.  Returns the CUDA error of the
+// launches (0 = success).
 extern "C" int kaito_decode_attention(const void* q, const void* k_layer,
                                       const void* v_layer, void* out,
                                       const int* page_tables, const int* lengths,
-                                      float* work, int B, int H, int Hkv, int D,
-                                      int ps, int pmax, int window, float scale,
-                                      float softcap, int dtype, void* stream) {
+                                      float* work, const float* k_scale,
+                                      const float* v_scale, int B, int H, int Hkv,
+                                      int D, int ps, int pmax, int window,
+                                      float scale, float softcap, int dtype,
+                                      void* stream) {
   using namespace kaito;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_split = (pmax * ps + DEC_CHUNK - 1) / DEC_CHUNK;
-#define KAITO_DEC(T, DD)                                                          \
-  return (int)launch_decode<T, DD>(q, k_layer, v_layer, out, page_tables, lengths, \
-                                   work, n_split, B, H, Hkv, ps, pmax, window,     \
-                                   scale, softcap, s)
+  const bool quant = k_scale != nullptr;
+  if (quant != (v_scale != nullptr)) return (int)cudaErrorInvalidValue;
+#define KAITO_DEC(T, TKV, DD)                                                       \
+  return (int)launch_decode<T, TKV, DD>(q, k_layer, v_layer, k_scale, v_scale, out, \
+                                        page_tables, lengths, work, n_split, B, H,  \
+                                        Hkv, ps, pmax, window, scale, softcap, s)
+#define KAITO_DEC_D(T, TKV)            \
+  if (D == 32) KAITO_DEC(T, TKV, 32);  \
+  if (D == 64) KAITO_DEC(T, TKV, 64);  \
+  if (D == 128) KAITO_DEC(T, TKV, 128)
   if (dtype == 1) {
-    if (D == 32) KAITO_DEC(__nv_bfloat16, 32);
-    if (D == 64) KAITO_DEC(__nv_bfloat16, 64);
-    if (D == 128) KAITO_DEC(__nv_bfloat16, 128);
+    if (quant) {
+      KAITO_DEC_D(__nv_bfloat16, int8_t);
+    } else {
+      KAITO_DEC_D(__nv_bfloat16, __nv_bfloat16);
+    }
   } else if (dtype == 0) {
-    if (D == 32) KAITO_DEC(float, 32);
-    if (D == 64) KAITO_DEC(float, 64);
-    if (D == 128) KAITO_DEC(float, 128);
+    if (quant) {
+      KAITO_DEC_D(float, int8_t);
+    } else {
+      KAITO_DEC_D(float, float);
+    }
   }
+#undef KAITO_DEC_D
 #undef KAITO_DEC
   return (int)cudaErrorInvalidValue;
 }

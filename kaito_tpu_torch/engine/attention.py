@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from kaito_tpu_torch.engine.kv_cache import dequantize_pages
+
 NEG_INF = -1e30
 
 
@@ -29,6 +31,18 @@ def _gqa_expand(x: torch.Tensor, groups: int) -> torch.Tensor:
 def _layer_view(cache: torch.Tensor, layer: Optional[int]) -> torch.Tensor:
     """The single-layer pool: ``cache`` or its layer ``layer`` (a view)."""
     return cache if layer is None else cache[layer]
+
+
+def _dequant_gathered(pages: torch.Tensor, scale_pool: torch.Tensor,
+                      page_tables: torch.Tensor, layer: Optional[int],
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Gathered int8 pages ``[B, n_pg, ps, Hkv, D]`` times their
+    per-page-per-head scales, gathered from the ``[P, Hkv]`` (or, with
+    ``layer``, ``[Lg, P, Hkv]``) pool through the same page tables, in
+    ``out_dtype``.  Null and garbage pages dequantize to finite values
+    that the length mask drops."""
+    s = _layer_view(scale_pool, layer)[page_tables]          # [B, n_pg, Hkv]
+    return dequantize_pages(pages, s).to(out_dtype)
 
 
 def _attend(q, k, v, mask, scale, logit_softcap):
@@ -103,11 +117,14 @@ def paged_context_attention(
     sliding_window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
     layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # int8 pools: [P, Hkv] / [Lg, P, Hkv]
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Chunked prefill WITH prior context: queries attend over the whole
     paged history (earlier chunks + this one) with absolute-position
     causal masking.  Pages past the longest history are fully masked
-    and are not gathered."""
+    and are not gathered.  With scales, the int8 pages are dequantized
+    to q's dtype after the gather."""
     B, T, H, D = q.shape
     ck, cv = _layer_view(cache_k, layer), _layer_view(cache_v, layer)
     ps, Hkv = ck.shape[1], ck.shape[2]
@@ -115,8 +132,12 @@ def paged_context_attention(
     n_pg = max(1, min(page_tables.shape[1], -(-int(end.max()) // ps)))
     pt = page_tables[:, :n_pg].long()
     S = n_pg * ps
-    k = ck[pt].reshape(B, S, Hkv, D)
-    v = cv[pt].reshape(B, S, Hkv, D)
+    k, v = ck[pt], cv[pt]                                         # [B, n_pg, ps, Hkv, D]
+    if k_scale is not None:
+        k = _dequant_gathered(k, k_scale, pt, layer, q.dtype)
+        v = _dequant_gathered(v, v_scale, pt, layer, q.dtype)
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
     groups = H // Hkv
     q_pos = start_pos.long()[:, None] + torch.arange(T, device=q.device)[None, :]
     k_pos = torch.arange(S, device=q.device)[None, :]
@@ -139,8 +160,12 @@ def paged_decode_attention(
     sliding_window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
     layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # int8 pools: [P, Hkv] / [Lg, P, Hkv]
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Attend one query token per sequence over its paged KV history."""
+    """Attend one query token per sequence over its paged KV history
+    (int8 pages, with scales, dequantized to q's dtype after the
+    gather)."""
     B, H, D = q.shape
     ck, cv = _layer_view(cache_k, layer), _layer_view(cache_v, layer)
     ps, Hkv = ck.shape[1], ck.shape[2]
@@ -148,8 +173,12 @@ def paged_decode_attention(
     S = pmax * ps
     groups = H // Hkv
     pt = page_tables.long()
-    k = ck[pt].reshape(B, S, Hkv, D)
-    v = cv[pt].reshape(B, S, Hkv, D)
+    k, v = ck[pt], cv[pt]
+    if k_scale is not None:
+        k = _dequant_gathered(k, k_scale, pt, layer, q.dtype)
+        v = _dequant_gathered(v, v_scale, pt, layer, q.dtype)
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
     qg = q.reshape(B, Hkv, groups, D)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
     if logit_softcap:

@@ -18,10 +18,12 @@ Counterpart of the synchronous core of ``kaito_tpu.engine.engine``:
   window: sampling, stop detection and per-slot budgets stay on the
   device, and the host reads the window's tokens back once.
 
-Not ported yet, and rejected at construction with the ROADMAP item that
-carries them: quantization, int8 KV, async dispatch, speculation,
-adapters, parallelism beyond one device, the KV pool, host offload and
-P/D, the device profiler, QoS, deadlines and the ITL/flight recorders.
+Weight quantization (``quantization`` int8 / int4) and the int8 KV cache
+(``kv_dtype="int8"``) serve as in the JAX engine.  Not ported yet, and
+rejected at construction with the ROADMAP item that carries them: async
+dispatch, speculation, adapters, parallelism beyond one device, the KV
+pool, host offload and P/D, the device profiler, QoS, deadlines and the
+ITL/flight recorders.
 Prefix caching (on by default) runs as the JAX engine does when its
 native radix tree is absent: the plain page allocator.
 """
@@ -41,8 +43,11 @@ import torch
 
 from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine.config import EngineConfig
-from kaito_tpu_torch.engine.kv_cache import NULL_PAGE, create_kv_cache
+from kaito_tpu_torch.engine.kv_cache import (NULL_PAGE, create_kv_cache,
+                                             kv_cache_is_quantized,
+                                             scale_bytes_per_page)
 from kaito_tpu_torch.engine.model import TransformerLM
+from kaito_tpu_torch.engine.quant import QUANT_SCHEMES, supports_quantization
 from kaito_tpu_torch.engine.sampler import SamplingState, chosen_logprob, sample
 from kaito_tpu_torch.engine.tokenizer import load_tokenizer
 from kaito_tpu_torch.models.metadata import ModelMetadata
@@ -68,8 +73,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 # (config field, value counts as "on", ROADMAP item that ports it)
 _UNPORTED = (
-    ("quantization", bool, "queue 1, M11 weight quantization"),
-    ("kv_dtype", lambda v: v == "int8", "queue 1, M12 int8 KV"),
     ("async_dispatch", bool, "queue 1, M13 async dispatch"),
     ("speculative_ngram", bool, "queue 1, M14 speculation"),
     ("speculative_draft", bool, "queue 1, M14 speculation"),
@@ -101,6 +104,20 @@ def check_ported(cfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={getattr(cfg, name)!r} is not ported to "
                 f"kaito_tpu_torch yet (ROADMAP {item})")
+
+
+def check_quantization(cfg: EngineConfig, md: ModelMetadata) -> None:
+    """Raise ValueError for a weight-quantization scheme the engine cannot
+    serve, before anything is allocated: a mistyped scheme is never
+    served as bf16."""
+    if not cfg.quantization:
+        return
+    if cfg.quantization not in QUANT_SCHEMES:
+        raise ValueError(f"unknown quantization {cfg.quantization!r} "
+                         f"(known: {', '.join(QUANT_SCHEMES)})")
+    if not supports_quantization(md.arch, cfg.quantization):
+        raise ValueError(f"quantization {cfg.quantization!r} does not support "
+                         f"this architecture (hidden_size={md.arch.hidden_size})")
 
 
 @dataclass
@@ -196,8 +213,11 @@ class InferenceEngine:
     """Synchronous engine core; the HTTP server drives it via a thread.
 
     ``params`` is an optional parameter tree (``model.params_from_jax``
-    or ``TransformerLM.param_tree`` form); else ``cfg.weights_dir`` is
-    loaded, else synthetic weights are drawn from ``cfg.seed``.
+    or ``TransformerLM.param_tree`` form, plain or already quantized);
+    else ``cfg.weights_dir`` is loaded, else synthetic weights are drawn
+    from ``cfg.seed``.  Under ``cfg.quantization`` the plain projections
+    of any of the three are quantized one tensor at a time after the
+    cast to the model dtype, as the JAX engine does.
     """
 
     def __init__(self, cfg: EngineConfig,
@@ -208,6 +228,10 @@ class InferenceEngine:
         check_ported(cfg)
         self.cfg = cfg
         self.md = metadata or get_model_by_name(cfg.model)
+        check_quantization(cfg, self.md)
+        if cfg.kv_dtype not in _DTYPES:
+            raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r} "
+                             f"(known: {', '.join(_DTYPES)})")
         arch = self.md.arch
         self.model = TransformerLM(arch, dtype=_DTYPES[cfg.dtype],
                                    device=self.device)
@@ -221,18 +245,24 @@ class InferenceEngine:
             | {cfg.max_model_len}))
 
         t0 = time.monotonic()
+        quant = cfg.quantization
         if params is not None:
-            self.model.load_params(params)
+            self.model.load_params(params, quantization=quant)
         elif cfg.weights_dir:
             from kaito_tpu_torch.engine.weights import load_safetensors_params
 
             self.model.load_params(load_safetensors_params(self.model,
-                                                           cfg.weights_dir))
+                                                           cfg.weights_dir),
+                                   quantization=quant)
         else:
-            self.model.init_params(cfg.seed)
-        logger.info("weights ready in %.1fs (%.2f GiB on %s)",
-                    time.monotonic() - t0, self.model.param_bytes() / 2**30,
-                    self.device)
+            self.model.init_params(cfg.seed, quantization=quant)
+        if self.device.type == "cuda":
+            # quantizing leaves freed blocks in the caching allocator; the
+            # pool is sized from what the device reports free
+            torch.cuda.empty_cache()
+        logger.info("%sweights ready in %.1fs (%.2f GiB on %s)",
+                    f"{quant} " if quant else "", time.monotonic() - t0,
+                    self.model.param_bytes() / 2**30, self.device)
 
         self.sizing_report: dict = {}
         num_pages = cfg.max_pages or self._derive_max_pages()
@@ -242,9 +272,11 @@ class InferenceEngine:
         self.sizing_report["pages"] = num_pages
         self.cache = create_kv_cache(arch, num_pages, cfg.page_size,
                                      _DTYPES[cfg.kv_dtype], self.device)
-        logger.info("KV cache: %d pages x %d tokens (%.2f GiB)", num_pages,
-                    cfg.page_size,
-                    2 * self.cache.k.numel() * self.cache.k.element_size() / 2**30)
+        kv_bytes = 2 * self.cache.k.numel() * self.cache.k.element_size()
+        if self.cache.quantized:
+            kv_bytes += 2 * self.cache.k_scale.numel() * 4
+        logger.info("KV cache: %d pages x %d tokens, %s (%.2f GiB)", num_pages,
+                    cfg.page_size, cfg.kv_dtype, kv_bytes / 2**30)
         if cfg.enable_prefix_caching:
             logger.info("prefix cache radix tree not ported; plain allocator")
         self.allocator = PageAllocator(num_pages)
@@ -305,8 +337,12 @@ class InferenceEngine:
         if self.device.type == "cpu":
             self.sizing_report = {"source": "seq-cap"}
             return cap + 1
-        kv_bytes = torch.empty((), dtype=_DTYPES[self.cfg.kv_dtype]).element_size()
+        kv_dtype = _DTYPES[self.cfg.kv_dtype]
+        kv_bytes = torch.empty((), dtype=kv_dtype).element_size()
         page_bytes = self.md.kv_bytes_per_token(kv_bytes) * self.cfg.page_size
+        if kv_cache_is_quantized(kv_dtype):
+            # each page also carries its fp32 k and v scales per layer and head
+            page_bytes += scale_bytes_per_page(self.md.arch)
         free, total = torch.cuda.mem_get_info(self.device)
         reserve = max(int(total * _RESERVE_FRACTION), _RESERVE_MIN_BYTES)
         pages = int(max(free - reserve, 0) // page_bytes)
@@ -682,8 +718,10 @@ class InferenceEngine:
 
     def _dispatch_prefill_packed(self, rows):
         """Segment packing: S fresh prompts concatenated into ONE padded
-        row with per-token segment ids, positions and page targets.
-        Returns last-token logits [S, V] in pack order."""
+        row with per-token segment ids, positions and page targets (for
+        an int8 cache also the pack's pages and each token's index into
+        them, pads pointing one past the end).  Returns last-token logits
+        [S, V] in pack order."""
         ps = self.cfg.page_size
         T = self._bucket(sum(take for (_, _, take, _) in rows))
         S = len(rows)
@@ -692,18 +730,27 @@ class InferenceEngine:
         poss = np.zeros((1, T), np.int32)
         tok_pages = np.full((T,), NULL_PAGE, np.int32)
         last_idx = np.zeros((S,), np.int32)
+        pack_pages: list[int] = []
+        tok_pgslot = np.zeros((T,), np.int32)
         off = 0
         for si, (i, _, take, _) in enumerate(rows):
             toks[0, off:off + take] = self.slots[i].prefill_tokens
             segs[0, off:off + take] = si
             rel = np.arange(take, dtype=np.int32)
             poss[0, off:off + take] = rel
-            tok_pages[off:off + take] = self.page_tables[i][rel // ps]
+            table = self.page_tables[i]
+            tok_pages[off:off + take] = table[rel // ps]
+            tok_pgslot[off:off + take] = len(pack_pages) + rel // ps
+            pack_pages += table[:-(-take // ps)].tolist()
             last_idx[si] = off + take - 1
             off += take
+        tok_pgslot[off:] = len(pack_pages)
+        quant = self.cache.quantized
         self.cache, logits, _ = self.model.prefill_packed(
             self.cache, self._tensor(toks), self._tensor(segs), self._tensor(poss),
-            self._tensor(tok_pages), self._tensor(last_idx))
+            self._tensor(tok_pages), self._tensor(last_idx),
+            self._tensor(np.asarray(pack_pages, np.int32)) if quant else None,
+            self._tensor(tok_pgslot) if quant else None)
         return logits
 
     def _sample_first_batch(self, idxs: list[int], logits

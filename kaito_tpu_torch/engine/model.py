@@ -11,6 +11,12 @@ Hopper kernels for tensors on the card, their plain versions for
 tensors on the CPU.  Prompt chunks that follow earlier chunks use
 ``attention.paged_context_attention``, which has no kernel.
 
+Under weight quantization (``engine.quant``) each layer stack's
+projections are QTensor dicts ``{"q8"|"q4": int8, "scale": fp32}`` that
+``nn.linear`` routes to the fused dequant matmul; with an int8 KV cache
+the page writes take their quantizing ``_q`` forms and attention reads
+the pages with their scales.
+
 MoE and MLA families, and yarn/longrope rope scaling, are not ported yet
 and raise.
 """
@@ -29,13 +35,16 @@ from torch import nn as tnn
 from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine import attention as attn
 from kaito_tpu_torch.engine import nn
-from kaito_tpu_torch.engine.kv_cache import (KVCache, write_decode_tokens,
-                                             write_packed_prefill_tokens,
-                                             write_prefill_tokens)
+from kaito_tpu_torch.engine.kv_cache import (
+    KVCache, write_decode_tokens, write_decode_tokens_q,
+    write_packed_prefill_tokens, write_packed_prefill_tokens_q,
+    write_prefill_tokens, write_prefill_tokens_q)
 from kaito_tpu_torch.engine.ops.decode_attention import \
     paged_decode_attention_cuda
 from kaito_tpu_torch.engine.ops.flash_prefill import (
     flash_prefill_attention_cuda, flash_prefill_packed_cuda)
+from kaito_tpu_torch.engine.quant import (is_qtensor, is_quantized_leaf,
+                                          quantize_weight)
 from kaito_tpu_torch.models.metadata import AttentionKind, ModelArch
 
 VOCAB_ALIGN = 128
@@ -75,14 +84,18 @@ def params_from_jax(np_tree: dict, arch: ModelArch) -> dict:
     """The JAX param pytree, passed as numpy arrays (``jax.tree.map(
     np.asarray, params)``), as this port's parameter tree: the same
     names and the same stacked groups of ``_layer_groups``, as CPU
-    tensors.  Feed it to :meth:`TransformerLM.load_params`."""
+    tensors.  A tree from ``quantize_params`` keeps its QTensor dicts:
+    int8 codes stay int8 and scales fp32.  Feed it to
+    :meth:`TransformerLM.load_params`."""
     out: dict = {}
     for key, val in np_tree.items():
         if isinstance(val, dict):
             if key == "serve_lora":
                 raise NotImplementedError(
                     "adapters are not ported yet (ROADMAP queue 1, M16)")
-            out[key] = {n: _to_torch(a) for n, a in val.items()}
+            out[key] = {n: ({k: _to_torch(x) for k, x in a.items()}
+                            if isinstance(a, dict) else _to_torch(a))
+                        for n, a in val.items()}
         else:
             out[key] = _to_torch(val)
     names = {g.name for g in _layer_groups(arch)}
@@ -90,6 +103,26 @@ def params_from_jax(np_tree: dict, arch: ModelArch) -> dict:
     if missing:
         raise KeyError(f"param tree lacks layer groups {sorted(missing)}")
     return out
+
+
+def _check_qtensor(name: str, w: dict, full: tuple) -> None:
+    """A QTensor for a ``full`` = [L, in, out] weight: int8 codes
+    [L, in, out] ("q8") or [L, in/2, out] ("q4"), fp32 scales [L, out]
+    or [L, G, out] over whole groups."""
+    L, K, N = full
+    if "q8" in w:
+        codes, want, sshape = w["q8"], full, (L, N)
+    else:
+        codes, want = w["q4"], (L, K // 2, N)
+        G = w["scale"].shape[-2] if w["scale"].dim() == 3 else 0
+        sshape = (L, G, N) if G and K % G == 0 and (K // G) % 2 == 0 else None
+    if codes.dtype != torch.int8 or tuple(codes.shape) != want \
+            or w["scale"].dtype != torch.float32 or sshape is None \
+            or tuple(w["scale"].shape) != sshape:
+        raise ValueError(
+            f"param {name!r}: QTensor codes {codes.dtype} {tuple(codes.shape)}, "
+            f"scale {w['scale'].dtype} {tuple(w['scale'].shape)} do not fit "
+            f"the weight {full}")
 
 
 class TransformerLM(tnn.Module):
@@ -115,7 +148,9 @@ class TransformerLM(tnn.Module):
             local = replace(arch, rope_theta=10000.0, rope_scaling=None)
             self._inv_freq_local = nn.rope_frequencies(local, self.device)
         self.top = tnn.ParameterDict()
+        # per layer group: plain leaves, and one ParameterDict per QTensor
         self.stacks = tnn.ModuleDict()
+        self.qstacks = tnn.ModuleDict()
 
     # ------------------------------------------------------------------
     # Parameters
@@ -168,12 +203,15 @@ class TransformerLM(tnn.Module):
             specs["lm_head"] = (self.vocab_padded, E)
         return specs
 
-    def init_params(self, seed: int = 0) -> None:
+    def init_params(self, seed: int = 0, quantization: str = "") -> None:
         """Synthetic weights with the JAX package's shapes and scales:
         0.02 normal for the top level, 1/sqrt(fan_in) normal per layer,
         ones for norms (zeros with a norm offset), zeros for biases.
         Each tensor draws from its own seeded ``torch.Generator`` on the
-        target device, so values do not depend on draw order."""
+        target device, so values do not depend on draw order.  Under
+        ``quantization`` each stacked projection is quantized right after
+        it is drawn, so the device holds the quantized tree plus at most
+        one full-precision leaf."""
         gen = torch.Generator(device=self.device)
 
         def normal(shape, std, salt):
@@ -205,14 +243,19 @@ class TransformerLM(tnn.Module):
                     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
                     layer[name] = normal(full, 1.0 / math.sqrt(fan_in),
                                          _name_salt(name) + 7919 * (gi + 1))
+                    if quantization and is_quantized_leaf(g.name, name):
+                        layer[name] = quantize_weight(layer[name], quantization)
             tree[g.name] = layer
         self.load_params(tree)
 
-    def load_params(self, tree: dict) -> None:
+    def load_params(self, tree: dict, quantization: str = "") -> None:
         """Install a parameter tree (names and stacked shapes of
-        :meth:`init_params`), moved to the model's device and dtype."""
-        def param(t):
-            return tnn.Parameter(t.to(device=self.device, dtype=self.dtype),
+        :meth:`init_params`), moved to the model's device and dtype.
+        QTensor leaves keep their own dtypes (int8 codes, fp32 scales);
+        under ``quantization`` a plain projection is cast to the model
+        dtype, then quantized, one tensor at a time."""
+        def param(t, dtype=self.dtype):
+            return tnn.Parameter(t.to(device=self.device, dtype=dtype),
                                  requires_grad=False)
 
         for name, shape in self._top_specs().items():
@@ -221,20 +264,37 @@ class TransformerLM(tnn.Module):
                                  f"!= {shape}")
             self.top[name] = param(tree[name])
         for g in self.groups:
-            stack = tnn.ParameterDict()
+            stack, qstack = tnn.ParameterDict(), tnn.ModuleDict()
             for name, shape in self._layer_specs().items():
+                full = (g.count,) + shape
                 t = tree[g.name][name]
-                if tuple(t.shape) != (g.count,) + shape:
+                if quantization and is_quantized_leaf(g.name, name) \
+                        and not is_qtensor(t):
+                    if tuple(t.shape) != full:
+                        raise ValueError(f"param {g.name}.{name!r}: shape "
+                                         f"{tuple(t.shape)} != {full}")
+                    t = quantize_weight(t.to(device=self.device, dtype=self.dtype),
+                                        quantization)
+                if is_qtensor(t):
+                    _check_qtensor(f"{g.name}.{name}", t, full)
+                    qstack[name] = tnn.ParameterDict(
+                        {k: param(x, x.dtype) for k, x in t.items()})
+                    continue
+                if tuple(t.shape) != full:
                     raise ValueError(f"param {g.name}.{name!r}: shape "
-                                     f"{tuple(t.shape)} != {(g.count,) + shape}")
+                                     f"{tuple(t.shape)} != {full}")
                 stack[name] = param(t)
             self.stacks[g.name] = stack
+            self.qstacks[g.name] = qstack
 
     def param_tree(self) -> dict:
-        """The parameters as a nested dict of tensors."""
+        """The parameters as a nested dict of tensors (QTensor dicts for
+        quantized projections)."""
         tree = {k: v for k, v in self.top.items()}
         for g in self.groups:
             tree[g.name] = {k: v for k, v in self.stacks[g.name].items()}
+            tree[g.name].update({k: dict(v.items())
+                                 for k, v in self.qstacks[g.name].items()})
         return tree
 
     def param_bytes(self) -> int:
@@ -305,42 +365,63 @@ class TransformerLM(tnn.Module):
         h = self._norm(x, p, "attn_norm")
         q, k_new, v_new = self._attn_qkv(h, p, positions, window)
         ck, cv = cache.k, cache.v
+        ks, vs = cache.k_scale, cache.v_scale      # None unless int8 pools
         ps = ck.shape[2]
         softcap = a.attn_logit_softcap
 
         if mode == "prefill_packed":
-            seg_ids, tok_pages = packed
+            seg_ids, tok_pages, pack_pages, tok_pgslot = packed
             offsets = positions[0] % ps
-            write_packed_prefill_tokens(ck, k_new, tok_pages, offsets, layer=li)
-            write_packed_prefill_tokens(cv, v_new, tok_pages, offsets, layer=li)
+            if ks is not None:
+                write_packed_prefill_tokens_q(ck, ks, k_new, pack_pages, tok_pgslot,
+                                              offsets, layer=li)
+                write_packed_prefill_tokens_q(cv, vs, v_new, pack_pages, tok_pgslot,
+                                              offsets, layer=li)
+            else:
+                write_packed_prefill_tokens(ck, k_new, tok_pages, offsets, layer=li)
+                write_packed_prefill_tokens(cv, v_new, tok_pages, offsets, layer=li)
             out = flash_prefill_packed_cuda(
                 q, k_new, v_new, seg_ids, positions, win,
                 scale=self._scale, softcap=softcap)
         elif mode == "prefill":
             start = (start_pos if start_pos is not None
                      else torch.zeros((B,), dtype=torch.int32, device=x.device))
-            write_prefill_tokens(ck, k_new, page_tables, start, true_lens, ps,
-                                 layer=li)
-            write_prefill_tokens(cv, v_new, page_tables, start, true_lens, ps,
-                                 layer=li)
+            if ks is not None:
+                write_prefill_tokens_q(ck, ks, k_new, page_tables, start, true_lens,
+                                       ps, layer=li)
+                write_prefill_tokens_q(cv, vs, v_new, page_tables, start, true_lens,
+                                       ps, layer=li)
+            else:
+                write_prefill_tokens(ck, k_new, page_tables, start, true_lens, ps,
+                                     layer=li)
+                write_prefill_tokens(cv, v_new, page_tables, start, true_lens, ps,
+                                     layer=li)
             if start_pos is not None:
                 # chunk attends over earlier chunks + itself
                 out = attn.paged_context_attention(
                     q, ck, cv, page_tables, start, true_lens, scale=self._scale,
-                    sliding_window=window, logit_softcap=softcap, layer=li)
+                    sliding_window=window, logit_softcap=softcap, layer=li,
+                    k_scale=ks, v_scale=vs)
             else:
                 out = flash_prefill_attention_cuda(
                     q, k_new, v_new, true_lens, win, scale=self._scale,
                     softcap=softcap)
         else:
             pos0 = positions[:, 0]
-            write_decode_tokens(ck, k_new[:, 0], page_tables, pos0, ps, active,
-                                layer=li)
-            write_decode_tokens(cv, v_new[:, 0], page_tables, pos0, ps, active,
-                                layer=li)
+            if ks is not None:
+                write_decode_tokens_q(ck, ks, k_new[:, 0], page_tables, pos0, ps,
+                                      active, layer=li)
+                write_decode_tokens_q(cv, vs, v_new[:, 0], page_tables, pos0, ps,
+                                      active, layer=li)
+            else:
+                write_decode_tokens(ck, k_new[:, 0], page_tables, pos0, ps, active,
+                                    layer=li)
+                write_decode_tokens(cv, v_new[:, 0], page_tables, pos0, ps, active,
+                                    layer=li)
             out = paged_decode_attention_cuda(
                 q[:, 0], ck, cv, page_tables, lengths, win,
-                scale=self._scale, softcap=softcap, layer=li)[:, None]
+                scale=self._scale, softcap=softcap, layer=li,
+                k_scale=ks, v_scale=vs)[:, None]
         o_in = out.reshape(B, T, a.num_heads * a.head_dim)
         attn_out = nn.linear(o_in, p["o"])
         if "o_bias" in p:
@@ -357,9 +438,12 @@ class TransformerLM(tnn.Module):
 
     def _run_layers(self, cache: KVCache, x, mode, **kw):
         for g in self.groups:
-            stack = self.stacks[g.name]
+            stack, qstack = self.stacks[g.name], self.qstacks[g.name]
             for i in range(g.count):
                 p = {name: t[i] for name, t in stack.items()}
+                # a QTensor's layer: {"q8"|"q4": codes[i], "scale": scale[i]}
+                p.update({name: {k: t[i] for k, t in qt.items()}
+                          for name, qt in qstack.items()})
                 x = self._layer(x, p, cache, g.start + i, mode, **kw)
         return x
 
@@ -412,16 +496,22 @@ class TransformerLM(tnn.Module):
         return cache, self._logits(last), last
 
     def prefill_packed(self, cache: KVCache, tokens, seg_ids, positions,
-                       tok_pages, last_idx):
+                       tok_pages, last_idx, pack_pages=None, tok_pgslot=None):
         """Segment-packed prefill: S fresh prompts in ONE padded row.
         tokens/seg_ids/positions: [1, T] int32 (segment -1 = pad,
         positions within the segment); tok_pages: [T] page per token;
-        last_idx: [S] packed index of each segment's final token.
-        Returns (cache, last_logits [S, V] fp32, last_hidden [S, E])."""
+        last_idx: [S] packed index of each segment's final token.  An
+        int8 cache also needs pack_pages ([n_pg] the segments' pages)
+        and tok_pgslot ([T] each token's index into them, n_pg for
+        pads).  Returns (cache, last_logits [S, V] fp32, last_hidden
+        [S, E])."""
+        if cache.quantized and (pack_pages is None or tok_pgslot is None):
+            raise ValueError("an int8 KV cache needs pack_pages and tok_pgslot")
         x = self._embed(tokens)
         x = self._run_layers(cache, x, "prefill_packed", positions=positions,
                              page_tables=None, lengths=None, true_lens=None,
-                             active=None, packed=(seg_ids, tok_pages))
+                             active=None,
+                             packed=(seg_ids, tok_pages, pack_pages, tok_pgslot))
         x = self._norm(x, self.top, "final_norm")
         last = x[0, last_idx.long()]
         return cache, self._logits(last), last

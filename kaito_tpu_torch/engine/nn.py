@@ -15,15 +15,15 @@ import torch
 import torch.nn.functional as F
 
 from kaito_tpu_torch.device import resolve_device
+from kaito_tpu_torch.engine.ops.quant_matmul import quant_linear
 from kaito_tpu_torch.models.metadata import ModelArch
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for a plain ``[in, out]`` weight.  Quantized weights
-    (the JAX package's QTensor dicts) are not ported yet."""
+    """``x @ w`` for a plain ``[in, out]`` weight; a QTensor dict
+    (``engine.quant``) goes through the fused dequant matmul."""
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized weights are not ported yet (ROADMAP queue 1, M11)")
+        return quant_linear(x, w)
     return x @ w
 
 

@@ -9,10 +9,16 @@ softmax.  It splits each sequence into 128-token pieces across CTAs and
 merges them in a second launch; its header note says what bounds it on
 the H100 and how it is laid out.
 
+With ``k_scale``/``v_scale`` (int8 pools with fp32 per-page-per-head
+scales) the same kernel design runs over int8 pages (K1q, the Pallas
+kernel's ``quantized=True`` mode): the codes are widened after the load,
+sigma_k multiplies the fp32 scores after the QK dot and sigma_v the
+probabilities after the running sum is updated.
+
 :func:`paged_decode_attention_cuda` launches the kernel for tensors on
 the card and runs :func:`paged_decode_attention_plain` for tensors on
 the CPU; a CUDA tensor it cannot take raises.  ``launches`` on the
-wrapper counts kernel launches.
+wrapper counts K1's launches and ``launches_q`` K1q's.
 """
 
 from __future__ import annotations
@@ -41,13 +47,22 @@ def paged_decode_attention_plain(
     scale: float,
     softcap: Optional[float] = None,
     layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # int8 pools: [P, Hkv] / [Lg, P, Hkv]
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: q pre-scaled in q's
     dtype, fp32 scores and softmax, P rounded to the cache dtype before
     the PV product, normalised after it.  A row of length 0 attends over
-    nothing and comes out zero."""
+    nothing and comes out zero.
+
+    With scales (K1q): int8 codes widened, sigma_k folded into the fp32
+    scores, sigma_v into the probabilities after the sum ``l`` is taken,
+    and P kept in fp32 against fp32 V (the quantized Pallas kernel does
+    not round P)."""
     if layer is not None:
         cache_k, cache_v = cache_k[layer], cache_v[layer]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
     B, H, D = q.shape
     ps, Hkv = cache_k.shape[1], cache_k.shape[2]
     G = H // Hkv
@@ -59,6 +74,10 @@ def paged_decode_attention_plain(
     v = cache_v[pt].reshape(B, S, Hkv, D)
     qs = (q * scale).to(q.dtype).float().reshape(B, Hkv, G, D)
     s = torch.einsum("bkgd,bskd->bkgs", qs, k)
+    if k_scale is not None:
+        # per token: the scale of its (page, KV head), [B, Hkv, 1, S]
+        sk = k_scale[pt].repeat_interleave(ps, dim=1).transpose(1, 2)[:, :, None]
+        s = s * sk
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     pos = torch.arange(S, device=q.device)[None, :]
@@ -69,7 +88,12 @@ def paged_decode_attention_plain(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * mask
     l = p.sum(dim=-1, keepdim=True)
-    pv = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    if k_scale is not None:
+        sv = v_scale[pt].repeat_interleave(ps, dim=1).transpose(1, 2)[:, :, None]
+        p = p * sv
+    else:
+        p = p.to(v.dtype)
+    pv = torch.einsum("bkgs,bskd->bkgd", p.float(), v.float())
     out = pv / l.clamp_min(1e-30)
     return out.reshape(B, H, D).to(q.dtype)
 
@@ -83,6 +107,7 @@ def _kernel():
     return build.bind("decode_attention", "kaito_decode_attention", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p])
@@ -107,16 +132,22 @@ def paged_decode_attention_cuda(
     scale: float,
     softcap: Optional[float] = None,
     layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Paged decode attention (contract of
     :func:`paged_decode_attention_plain`).  On the card it launches the
-    CUDA kernel; on the CPU it is the plain version."""
+    CUDA kernel (K1, or K1q with scales); on the CPU it is the plain
+    version."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, cache_k, cache_v, page_tables, lengths, window, scale=scale,
-            softcap=softcap, layer=layer)
+            softcap=softcap, layer=layer, k_scale=k_scale, v_scale=v_scale)
+    quantized = k_scale is not None
     if layer is not None:
         cache_k, cache_v = cache_k[layer], cache_v[layer]
+        if quantized:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
     B, H, D = q.shape
     P, ps, Hkv, Dk = cache_k.shape
     if q.dtype not in _DTYPES:
@@ -126,11 +157,18 @@ def paged_decode_attention_cuda(
                          f"got q {D} / cache {Dk}")
     if H % Hkv:
         raise ValueError(f"query heads {H} not a multiple of kv heads {Hkv}")
+    kv_dtype = torch.int8 if quantized else q.dtype
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
-        if t.shape != cache_k.shape or t.dtype != q.dtype or not t.is_contiguous() \
+        if t.shape != cache_k.shape or t.dtype != kv_dtype or not t.is_contiguous() \
                 or t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous {q.dtype} pool "
+            raise ValueError(f"{name} must be a contiguous {kv_dtype} pool "
                              f"{tuple(cache_k.shape)} on {q.device}")
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is None or t.dtype != torch.float32 or tuple(t.shape) != (P, Hkv) \
+                    or not t.is_contiguous() or t.device != q.device:
+                raise ValueError(f"{name} must be contiguous float32 {(P, Hkv)} "
+                                 f"on {q.device}")
     for name, t, shape in (("page_tables", page_tables, (B, page_tables.shape[1])),
                            ("lengths", lengths, (B,))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape \
@@ -147,12 +185,18 @@ def paged_decode_attention_cuda(
                        dtype=torch.float32, device=q.device)
     rc = _kernel()(
         _ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(out), _ptr(page_tables),
-        _ptr(lengths), _ptr(work), B, H, Hkv, D, ps, pmax,
+        _ptr(lengths), _ptr(work), _ptr(k_scale) if quantized else None,
+        _ptr(v_scale) if quantized else None, B, H, Hkv, D, ps, pmax,
         int(min(window, 2**31 - 1)), float(scale), float(softcap or 0.0),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "kaito_decode_attention")
-    paged_decode_attention_cuda.launches += 1
+    if quantized:
+        paged_decode_attention_cuda.launches_q += 1
+    else:
+        paged_decode_attention_cuda.launches += 1
     return out
 
 
+# launches of K1 (bf16/fp32 pools) and of K1q (int8 pools)
 paged_decode_attention_cuda.launches = 0
+paged_decode_attention_cuda.launches_q = 0

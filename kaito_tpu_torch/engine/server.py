@@ -319,7 +319,9 @@ def make_server(engine: Optional[InferenceEngine], cfg: EngineConfig,
     return server
 
 
-def main(argv=None):
+def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
+    """The server's command line as an engine config (and the parsed
+    arguments, for the options that are not config fields)."""
     ap = argparse.ArgumentParser(prog="kaito-tpu-torch-serve")
     ap.add_argument("--model", default="tiny-llama-test")
     ap.add_argument("--device", default="cuda",
@@ -334,8 +336,12 @@ def main(argv=None):
                     choices=["bfloat16", "float32"])
     ap.add_argument("--kv-cache-dtype", default="auto",
                     choices=["auto", "bfloat16", "float32", "int8"],
-                    help="KV page-pool dtype; 'auto' follows --dtype "
-                         "(int8 is not ported yet and raises)")
+                    help="KV page-pool dtype; 'auto' follows --dtype; int8 "
+                         "stores codes with fp32 per-page-per-head scales")
+    ap.add_argument("--quantization", default="", choices=["", "int8", "int4"],
+                    help="weight-only quantization of the layer projections: "
+                         "'' (off), int8 (per output channel) or int4 "
+                         "(packed, groups of 128 input rows)")
     ap.add_argument("--weights-dir", default="",
                     help="safetensors checkpoint dir ('' = synthetic weights)")
     ap.add_argument("--max-pages", type=int, default=0,
@@ -354,18 +360,23 @@ def main(argv=None):
     ap.add_argument("--max-queue-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-
-    logging.basicConfig(level=logging.INFO)
     cfg = EngineConfig(
         model=args.model, port=args.port, max_model_len=args.max_model_len,
         max_num_seqs=args.max_num_seqs,
         served_model_name=args.served_model_name, dtype=args.dtype,
         kv_dtype=args.dtype if args.kv_cache_dtype == "auto" else args.kv_cache_dtype,
-        weights_dir=args.weights_dir, max_pages=args.max_pages,
+        weights_dir=args.weights_dir, quantization=args.quantization,
+        max_pages=args.max_pages,
         max_prefill_tokens=args.max_prefill_tokens,
         prefill_pack=args.prefill_pack, decode_run_ahead=args.decode_run_ahead,
         enable_prefix_caching=args.enable_prefix_caching,
         max_queue_len=args.max_queue_len, seed=args.seed)
+    return cfg, args
+
+
+def main(argv=None):
+    cfg, args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
     server = make_server(None, cfg, host=args.host, device=args.device)
     engine = server.state.engine
     logger.info("serving %s on %s:%d (%s)", cfg.model, args.host, cfg.port,

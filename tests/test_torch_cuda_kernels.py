@@ -5,7 +5,8 @@ On the card (no JAX there, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.
 Tolerances: fp32 atol 1e-4 (another summation order than the plain
 versions), bf16 atol 2e-2 (P is rounded to bf16 before the PV product,
-relative to a different running max)."""
+relative to a different running max); for K1q, K4 and K5 relative to the
+output's largest magnitude, since their outputs are not bounded by 1."""
 
 import pytest
 import torch
@@ -91,6 +92,70 @@ def test_flash_kernels(card, dtype, T, D, Hkv, G, window, softcap):
     torch.cuda.synchronize()
     assert (out[:, :off].float() - ref[:, :off].float()).abs().max().item() \
         <= ATOL[dtype]
+
+
+def _quantized_pool(gen, L, P, ps, Hkv, D):
+    """Random pages as int8 codes with per-(page, head) fp32 scales."""
+    x = torch.randn(L, P, ps, Hkv, D, generator=gen, device="cuda")
+    scale = x.abs().amax(dim=(2, 4)) / 127.0
+    codes = torch.round(x / scale[:, :, None, :, None]).clamp(-127, 127)
+    return codes.to(torch.int8), scale.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Hkv,G,ps", [(32, 4, 2, 16), (64, 2, 4, 64),
+                                        (128, 8, 4, 64)])
+@pytest.mark.parametrize("window,softcap", [(BIG, None), (270, None), (BIG, 30.0)])
+def test_quantized_decode_kernel(card, dtype, D, Hkv, G, ps, window, softcap):
+    """K1q: int8 pages with scales against its plain version."""
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+
+    B, pmax, P = 6, 40, 250
+    q = _rand(card, B, Hkv * G, D, dtype=dtype)
+    ck, ks = _quantized_pool(card, 3, P, ps, Hkv, D)
+    cv, vs = _quantized_pool(card, 3, P, ps, Hkv, D)
+    pt = (torch.randperm(P - 1, generator=card, device="cuda")[:B * pmax] + 1
+          ).reshape(B, pmax).to(torch.int32)
+    lens = torch.tensor([0, 1, ps, ps + 3, pmax * ps, 300],
+                        dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, softcap=softcap, layer=2, k_scale=ks, v_scale=vs)
+    before = (paged_decode_attention_cuda.launches,
+              paged_decode_attention_cuda.launches_q)
+    out = paged_decode_attention_cuda(q, ck, cv, pt, lens, window, **kw)
+    ref = paged_decode_attention_plain(q, ck, cv, pt, lens, window, **kw)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention_cuda.launches,
+            paged_decode_attention_cuda.launches_q) == (before[0], before[1] + 1)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= ATOL[dtype] * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+@pytest.mark.parametrize("rows,K,N", [(1, 4096, 1024), (3, 256, 50), (8, 512, 264),
+                                      (17, 192, 128), (64, 1024, 384),
+                                      (200, 384, 256), (256, 100, 16)])
+def test_quant_matmul_kernel(card, dtype, scheme, rows, K, N):
+    """K4/K5 against their plain version: the CUDA-core path (fp32 x, or
+    shapes off the tensor-core tiles: ragged K and N, every row tiling)
+    and the tensor-core path (bf16 x, K a multiple of 64, N of 128; one
+    or four m16 tiles per CTA, int4 groups of 128 or of the whole K)."""
+    from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
+                                                         quant_matmul_plain)
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    x = _rand(card, rows, K, dtype=dtype)
+    w = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), scheme)
+    counter = "launches_" + scheme
+    before = getattr(quant_matmul_cuda, counter)
+    out = quant_matmul_cuda(x, w)
+    ref = quant_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert getattr(quant_matmul_cuda, counter) == before + 1
+    assert out.dtype == dtype and out.shape == (rows, N)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= ATOL[dtype] * ref.float().abs().max().item()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):

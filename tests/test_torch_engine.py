@@ -231,8 +231,6 @@ def test_submit_validates_input():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value,item", [
-    ("quantization", "int8", "M11"),
-    ("kv_dtype", "int8", "M12"),
     ("async_dispatch", True, "M13"),
     ("speculative_ngram", 3, "M14"),
     ("speculative_draft", "tiny-llama-test", "M14"),

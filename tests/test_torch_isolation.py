@@ -34,6 +34,9 @@ def test_sources_found():
     assert len(SOURCES) > 15
     assert (PKG / "csrc" / "decode_attention.cu").exists()
     assert (PKG / "csrc" / "flash_prefill.cu").exists()
+    assert (PKG / "csrc" / "quant_matmul.cu").exists()
+    assert PKG / "engine" / "quant.py" in SOURCES
+    assert PKG / "engine" / "ops" / "quant_matmul.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))

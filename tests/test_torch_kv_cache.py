@@ -45,12 +45,6 @@ def test_create_kv_cache_layout():
     assert not t.k.any() and not t.v.any()
 
 
-def test_int8_pool_is_not_ported():
-    arch = get_model_by_name(PRESET).arch
-    with pytest.raises(NotImplementedError, match="M12"):
-        tkv.create_kv_cache(arch, P, PS, torch.int8, "cpu")
-
-
 @pytest.mark.parametrize("layer", [None, 2])
 def test_prefill_writes_match(layer):
     arch, t, j = _pools()

@@ -141,10 +141,19 @@ def test_mlp_matches(preset):
     _close(got, want)
 
 
-def test_linear_rejects_quantized_weights():
-    with pytest.raises(NotImplementedError, match="M11"):
-        tnn.linear(torch.zeros(2, 4), {"q8": torch.zeros(4, 4),
-                                       "scale": torch.ones(4)})
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+def test_linear_routes_quantized_weights(scheme):
+    """A QTensor weight goes through the quantized matmul, as in the JAX
+    package's nn.linear (fp32: the two differ by summation order)."""
+    from kaito_tpu.engine.quant import quantize_weight as jquant
+    from kaito_tpu_torch.engine.quant import quantize_weight as tquant
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 3, 256).astype(np.float32)
+    w = rng.randn(256, 64).astype(np.float32)
+    got = tnn.linear(torch.from_numpy(x), tquant(torch.from_numpy(w), scheme))
+    want = jnn.linear(jnp.asarray(x), jquant(jnp.asarray(w), scheme))
+    _close(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("cap", [None, 30.0])
