@@ -12,25 +12,35 @@ order; any failure exits non-zero and prints no result:
    fresh chunk (K2) and over a segment-packed row (K3), paged decode
    over int8 pages with scales (K1q, over the K1 pools quantized), and
    the fused dequant matmuls of int8 (K4) and int4 (K5) weights at the
-   four projection shapes with 1, 8 and 200 rows.  K1 runs with the
+   four projection shapes with 1, 8 and 200 rows; and K6, the int8 and
+   int4 kernels with the next layer's slab prefetched into L2, at the
+   TP=2 ring-chunk shapes (o and down chunks, strided views), whose
+   output must be bitwise K4/K5's.  K1 runs with the
    page-table width the full-width engine gives it at its context limit,
    and is also timed at the live width the engine passes and with one
    live sequence beside idle (length-0) rows.  Tolerances: fp32 atol
    1e-4 (the kernels sum in another order than the plain versions);
    bf16 atol 2e-2 (P is rounded to bf16 before the PV product, relative
    to a different running max in each); for K1q, K4 and K5 relative to
-   the output's largest magnitude.  Each kernel, its plain version and
+   the output's largest magnitude (K6 the same as K4/K5).  Each kernel,
+   its plain version and
    one PyTorch call as a yardstick (``scaled_dot_product_attention``;
    ``torch.matmul`` against the dequantized bf16 weight for K4/K5) are
    timed with CUDA events on the card's clock (behind a sleep kernel, so
    host issue does not enter), and the host time each kernel call takes
    is recorded beside it.  K4/K5 and their yardstick cycle through copies
    of the weight that together exceed the 50 MB L2, as a decode step
-   finds each weight cold.
+   finds each weight cold; K6 is also timed by what its prefetch buys:
+   the next layer's K4/K5 call right after K6, against the same call
+   right after a K4/K5 call without the prefetch.
 3. Goldens: ``tiny-llama-real`` in fp32 through the port's engine on the
    card must reproduce the ``fp32``, ``int8``, ``weight_int4`` and
    ``kv_int8`` sections of ``tests/testdata/goldens_tiny-llama-real.json``
-   (greedy tokens exact, logprobs within atol 2e-3).
+   (greedy tokens exact, logprobs within atol 2e-3); then at
+   tensor_parallel 2 (all four) and 4 (all but ``weight_int4``, which
+   that degree refuses), each with the comm-overlap ring off and on, on
+   a mesh of the first cards or, on a one-card machine, of slots that
+   all map onto that card.
 4. Full width: the port's HTTP server serves ``llama-3.1-8b-instruct``
    (all 32 layers, bf16, synthetic weights from seed 0): one completion,
    one streamed chat, then four concurrent 100-400-token prompts (a
@@ -44,12 +54,21 @@ order; any failure exits non-zero and prints no result:
    and request mix; then a shorter ``--quantization int8`` leg (bf16 KV).
    The launch counts of K5 and K1q (int4 leg) and of K4 (int8 leg) are
    zeroed before each leg and must grow.
+6. Tensor parallel, full width: the same model at TP=2 with the
+   comm-overlap ring, its engine built on an explicit mesh (two cards, or
+   two slots of one card, which the log names) and handed to
+   ``make_server``: int4 weights + int8 KV with the request mix of phase
+   5 (K6 int4, K5, K1q, K2 and K3 must launch), then int8 weights with
+   bf16 KV without the burst (K6 int8 and K1).  On one card a ring hop
+   moves nothing, so these legs time no transfer.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
 ``--sweep-run-ahead`` adds a decode sweep over ``decode_run_ahead`` at
 full width, with the rule that picks the engine's CUDA auto value
-(:func:`pick_run_ahead`; PERF.md).
+(:func:`pick_run_ahead`; PERF.md).  On a machine with two cards or more,
+each phase 6 leg runs on the first two cards and again with both shards
+on the first card, so one run compares a real ring hop with none.
 """
 
 from __future__ import annotations
@@ -92,6 +111,10 @@ KERNELS = (
      "launches_int8"),
     ("quant_matmul_int4", _OPS + "quant_matmul", "quant_matmul_cuda",
      "launches_int4"),
+    ("quant_matmul_int8_pf", _OPS + "quant_matmul", "quant_matmul_cuda",
+     "launches_int8_pf"),
+    ("quant_matmul_int4_pf", _OPS + "quant_matmul", "quant_matmul_cuda",
+     "launches_int4_pf"),
 )
 
 
@@ -400,6 +423,138 @@ def _time_quant_matmul(torch, w, rows, K, N, scheme, label, gen, dequant_weight)
                 bound_ms=b_ms, bound_by=b_by, host_ms=host_ms)
 
 
+# one TP=2 shard's row-parallel planes of Llama-3.1-8B, [K / 2, N]; the
+# ring multiplies column chunks of N / 2
+PF_SHAPES = {"o": (2048, 4096), "down": (7168, 4096)}
+
+
+def _time_second(torch, first, second, iters: int = 20, warmup: int = 3) -> float:
+    """Card ms of ``second()`` when it runs right after ``first()``: CUDA
+    events around each ``second`` call only, behind a sleep kernel."""
+    for _ in range(warmup):
+        first()
+        second()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in pairs:
+        first()
+        a.record()
+        second()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def check_quant_matmul_pf(torch, records):
+    """K6 at the TP=2 ring-chunk shapes of Llama-3.1-8B (o and down
+    chunks [K, 2048 of 4096 columns], strided views of the shard's plane),
+    rows 1, 8 and 200, bf16 and fp32: its output must be bitwise K4/K5's
+    on the same views and within their tolerances of the plain version.
+    Then timed at 8 rows in bf16: K6 itself; the K4/K5 call on the next
+    slab right after K6 prefetched it, against the same call right after
+    a K4/K5 call that did not (the next slab cold); K6's bound (both
+    slabs' bytes); and torch.matmul over the dequantized bf16 chunk.
+    Every timed call cycles through copies of the planes that together
+    exceed the L2."""
+    from kaito_tpu_torch.engine.ops.overlap_collectives import _slice_out
+    from kaito_tpu_torch.engine.ops.quant_matmul import (
+        prefetch_ok, quant_matmul_cuda, quant_matmul_plain)
+    from kaito_tpu_torch.engine.quant import dequant_weight, quantize_weight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    for scheme, name, replaces in (
+            ("int8", "quant_matmul_int8_pf", "kaito_tpu/engine/ops/quant_matmul.py:193"),
+            ("int4", "quant_matmul_int4_pf", "kaito_tpu/engine/ops/quant_matmul.py:199")):
+        err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        timed = []
+        for label, (K, N) in PF_SHAPES.items():
+            def planes():
+                return tuple(quantize_weight(torch.randn(K, N, generator=gen,
+                                                         device="cuda")
+                                             / math.sqrt(K), scheme) for _ in range(2))
+            w, w_next = planes()
+            nc = N // 2
+            for c in (0, 1):
+                wc, pc = _slice_out(w, c * nc, nc), _slice_out(w_next, c * nc, nc)
+                if not prefetch_ok(wc, pc):
+                    raise SmokeFailure(f"{name} {label}: prefetch_ok refused the "
+                                       f"ring chunk")
+                for rows in (1, 8, 200):
+                    for dtype in (torch.bfloat16, torch.float32):
+                        x = torch.randn(rows, K, generator=gen, device="cuda").to(dtype)
+                        out = quant_matmul_cuda(x, wc, pc)
+                        base = quant_matmul_cuda(x, wc)
+                        ref = quant_matmul_plain(x, wc).float()
+                        torch.cuda.synchronize()
+                        if not torch.equal(out, base):
+                            raise SmokeFailure(
+                                f"{name} {label} chunk {c} rows {rows} {dtype}: not "
+                                f"bitwise equal to the kernel without prefetch")
+                        e = (out.float() - ref).abs().max().item() / max(
+                            ref.abs().max().item(), 1e-30)
+                        err[dtype] = max(err[dtype], e)
+            log(f"{name} {label} chunk [{K}x{nc} of {N}] rows 1/8/200: bitwise equal "
+                f"to K4/K5; max relative err bf16 {err[torch.bfloat16]:.3g} fp32 "
+                f"{err[torch.float32]:.3g}")
+            rows = 8
+            x = torch.randn(rows, K, generator=gen, device="cuda").to(torch.bfloat16)
+            pair_bytes = 2 * sum(t.numel() * t.element_size() for t in w.values())
+            nxt = _cold_cycle(planes, pair_bytes)
+            chunk = lambda t: _slice_out(t, 0, nc)   # noqa: E731
+            def k6():
+                live, ahead = nxt()
+                return quant_matmul_cuda(x, chunk(live), chunk(ahead))
+
+            ms, host_ms = time_ms(k6)
+            state = {}
+
+            def first(pf):
+                state["w"] = nxt()
+                a, b = chunk(state["w"][0]), chunk(state["w"][1])
+                return quant_matmul_cuda(x, a, b) if pf else quant_matmul_cuda(x, a)
+
+            warm = _time_second(torch, lambda: first(True),
+                                lambda: quant_matmul_cuda(x, chunk(state["w"][1])))
+            cold = _time_second(torch, lambda: first(False),
+                                lambda: quant_matmul_cuda(x, chunk(state["w"][1])))
+            plain_ms = time_ms(lambda: quant_matmul_plain(x, chunk(nxt()[0])), iters=5)[0]
+            del nxt, state
+            deq = dequant_weight(chunk(w), torch.bfloat16)
+            nxt_lib = _cold_cycle(lambda: deq.clone(), deq.numel() * 2)
+            library_ms = time_ms(lambda: torch.matmul(x, nxt_lib()))[0]
+            del nxt_lib, deq
+            slab = sum(t.numel() * t.element_size() for t in chunk(w).values())
+            b_ms, b_by = bound(2 * rows * K + 2 * slab + 2 * rows * nc,
+                               2.0 * rows * K * nc)
+            log(f"{name} {label} chunk rows {rows}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+                f"torch.matmul bf16 {library_ms:.4f}, bound {b_ms:.5f} by {b_by}; "
+                f"host {host_ms:.4f}); next layer's call after the prefetch "
+                f"{warm:.4f} ms, after no prefetch {cold:.4f} ms")
+            timed.append(dict(case=f"{label} chunk [{K}x{nc} of {N}] rows {rows}",
+                              ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=b_ms, bound_by=b_by, host_ms=host_ms,
+                              next_call_prefetched_ms=warm, next_call_cold_ms=cold))
+            del w, w_next
+        if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
+            raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
+        main = next(t for t in timed if t["case"].startswith("down"))
+        records[name] = dict(
+            name=name, route="cuda", source="kaito_tpu_torch/csrc/quant_matmul.cu",
+            replaces=replaces,
+            shape=f"x [8, 7168] bf16 @ {scheme} W [7168, 2048 of 4096 columns] "
+                  f"(TP=2 down ring chunk) + the next layer's chunk prefetched",
+            max_abs_err=err[torch.bfloat16], max_rel_err_bf16=err[torch.bfloat16],
+            max_rel_err_fp32=err[torch.float32], bitwise_equal_to_no_prefetch=True,
+            ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], host_ms=main["host_ms"],
+            next_call_prefetched_ms=main["next_call_prefetched_ms"],
+            next_call_cold_ms=main["next_call_cold_ms"], cases=timed)
+
+
 def _flash_inputs(torch, dtype, T, gen, B=1, H=32, Hkv=8, D=128):
     q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(dtype)
@@ -526,7 +681,21 @@ GOLDEN_MODES = {"fp32": ("", "float32"), "int8": ("int8", "float32"),
                 "weight_int4": ("int4", "float32"), "kv_int8": ("", "int8")}
 
 
-def check_goldens(section):
+def tp_mesh(torch, n, shared=False):
+    """A tensor-parallel mesh of n slots: the first n cards, or, with
+    ``shared`` or on a machine with fewer, every slot on the first card."""
+    from kaito_tpu_torch.parallel.mesh import build_mesh
+
+    if torch.cuda.device_count() >= n and not shared:
+        return build_mesh(tensor=n)
+    return build_mesh(tensor=n, devices=["cuda:0"] * n)
+
+
+def check_goldens(section, tp=1, overlap=False):
+    """Replay one golden section; at ``tp`` > 1 on a :func:`tp_mesh`,
+    with the comm-overlap decode ring on or off."""
+    import torch
+
     from kaito_tpu_torch.engine.config import EngineConfig
     from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
 
@@ -538,8 +707,13 @@ def check_goldens(section):
                                                 "tiny-llama-real"),
                        dtype="float32", kv_dtype=kv_dtype, max_model_len=512,
                        max_num_seqs=2, prefill_buckets=(64, 128),
-                       enable_prefix_caching=False, quantization=quant, seed=0)
-    eng = InferenceEngine(cfg, device="cuda")
+                       enable_prefix_caching=False, quantization=quant, seed=0,
+                       tensor_parallel=tp, comm_overlap=overlap)
+    eng = InferenceEngine(cfg, device="cuda",
+                          mesh=tp_mesh(torch, tp) if tp > 1 else None)
+    if eng.comm_overlap != overlap:
+        raise SmokeFailure(f"{section} TP={tp}: comm_overlap={eng.comm_overlap}, "
+                           f"asked {overlap}")
     eng.start()
     worst = 0.0
     try:
@@ -560,9 +734,16 @@ def check_goldens(section):
                                    f"for {p['text']!r}")
     finally:
         eng.stop()
-    log(f"goldens {section}: {len(golden['prompts'])} prompts exact, worst "
-        f"logprob diff {worst:.3g}")
+    log(f"goldens {section} TP={tp} overlap={overlap}: {len(golden['prompts'])} "
+        f"prompts exact, worst logprob diff {worst:.3g}")
     return worst
+
+
+# TP golden replays: (tensor_parallel, sections); each with overlap off
+# and on.  int4 is refused at TP=4: a shard of tiny-llama-real's o
+# projection would hold 64 in-rows, not a whole group of 128
+TP_GOLDENS = ((2, ("fp32", "int8", "weight_int4", "kv_int8")),
+              (4, ("fp32", "int8", "kv_int8")))
 
 
 # ---------------------------------------------------------------------------
@@ -642,20 +823,31 @@ def _stream_chat(base, max_tokens):
 
 
 def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
-                     profile=False):
+                     profile=False, tp=1, shared=False):
     """Serve ``llama-3.1-8b-instruct`` at full width with the server's
     command-line ``flags`` and drive the request mix (``burst=False``
-    leaves out the concurrent burst).  Returns the launch counts of the
-    kernel records ``counted``, zeroed just before the requests, and the
-    leg's statistics."""
+    leaves out the concurrent burst).  At ``tp`` > 1 the engine is built
+    on a :func:`tp_mesh` and handed to ``make_server``.  Returns the
+    launch counts of the kernel records ``counted``, zeroed just before
+    the requests, and the leg's statistics."""
     import torch
 
+    from kaito_tpu_torch.engine.engine import InferenceEngine
     from kaito_tpu_torch.engine.server import make_server, parse_args
 
     cfg, _ = parse_args(["--model", "llama-3.1-8b-instruct", "--dtype", "bfloat16",
                          "--max-num-seqs", "8", "--seed", "0", *flags])
     t0 = time.perf_counter()
-    server = make_server(None, cfg, host="127.0.0.1", port=0, device="cuda")
+    if tp > 1:
+        mesh = tp_mesh(torch, tp, shared)
+        engine = InferenceEngine(cfg, device="cuda", mesh=mesh)
+        if not engine.comm_overlap:
+            raise SmokeFailure(f"{label}: the comm-overlap gate did not engage")
+        engine.start()
+        server = make_server(engine, cfg, host="127.0.0.1", port=0, device="cuda")
+        log(f"{label}: {mesh}; shards share one card: {mesh.shared}")
+    else:
+        server = make_server(None, cfg, host="127.0.0.1", port=0, device="cuda")
     engine = server.state.engine
     torch.cuda.synchronize()
     log(f"{label}: 8B engine up in {time.perf_counter() - t0:.1f}s: "
@@ -696,6 +888,8 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         single = _itl(_timed_tokens(engine, p, 129))
         stats.update(ttft_ms=ttft * 1e3, decode_tok_s=128 / (t_long - ttft),
                      prompt_tokens=200, run_ahead=engine.run_ahead,
+                     tensor_parallel=tp, comm_overlap=engine.comm_overlap,
+                     shared_card=bool(tp > 1 and engine.mesh.shared),
                      weights_gib=engine.model.param_bytes() / 2**30,
                      kv_pages=engine.sizing_report.get("pages"),
                      single_stream=single)
@@ -944,26 +1138,54 @@ def main(argv=None) -> int:
             check_decode(torch, records)
             check_flash(torch, records)
             check_quant_matmul(torch, records)
+            check_quant_matmul_pf(torch, records)
             golden_err = {sec: check_goldens(sec) for sec in GOLDEN_MODES}
+            for tp, sections in TP_GOLDENS:
+                for sec in sections:
+                    for ov in (False, True):
+                        golden_err[f"{sec} TP={tp} overlap={ov}"] = check_goldens(
+                            sec, tp, ov)
             _release_card(torch)
-            # each leg: (label, server flags, kernels it must launch, burst)
+            tp2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
+            # each leg: (label, server flags, kernels it must launch, burst,
+            # tensor-parallel degree)
             legs = (("phase 4, bf16", [],
                      ("paged_decode_attention", "flash_prefill_attention",
-                      "flash_prefill_packed"), True),
+                      "flash_prefill_packed"), True, 1),
                     ("phase 5, int4 weights + int8 KV",
                      ["--quantization", "int4", "--kv-cache-dtype", "int8"],
-                     ("quant_matmul_int4", "paged_decode_attention_int8kv"), True),
+                     ("quant_matmul_int4", "paged_decode_attention_int8kv"), True, 1),
                     ("phase 5, int8 weights", ["--quantization", "int8"],
-                     ("quant_matmul_int8",), False))
+                     ("quant_matmul_int8",), False, 1),
+                    ("phase 6, TP=2 int4 weights + int8 KV, comm overlap",
+                     ["--quantization", "int4", "--kv-cache-dtype", "int8", *tp2],
+                     ("quant_matmul_int4_pf", "quant_matmul_int4",
+                      "paged_decode_attention_int8kv", "flash_prefill_attention",
+                      "flash_prefill_packed"), True, 2),
+                    ("phase 6, TP=2 int8 weights, comm overlap",
+                     ["--quantization", "int8", *tp2],
+                     ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2))
+            # with two cards or more, each TP leg runs on the first two and
+            # again with both shards on the first, so one run compares a real
+            # ring hop with none
+            placements = ((", two cards", False), (", one card", True)) \
+                if torch.cuda.device_count() >= 2 else (("", True),)
+            legs = [(label + where, flags, counted, burst, tp, shared)
+                    for label, flags, counted, burst, tp in legs
+                    for where, shared in (placements if tp > 1 else (("", False),))]
             stats = {}
-            for i, (label, flags, counted, burst) in enumerate(legs):
+            for i, (label, flags, counted, burst, tp, shared) in enumerate(legs):
                 launches, stats[label] = run_server_phase(
                     flags, counted, label, burst=burst,
                     run_ahead_sweep=args.sweep_run_ahead and i == 0,
-                    profile=args.profile)
+                    profile=args.profile, tp=tp, shared=shared)
                 _release_card(torch)
                 for name in counted:
-                    records[name]["launches"] = launches[name]
+                    if "launches" not in records[name]:
+                        records[name]["launches"] = launches[name]
+                    else:
+                        records[name].setdefault("launches_by_leg", {})[label] = \
+                            launches[name]
                     if launches[name] <= 0:
                         raise SmokeFailure(f"{name} never launched in {label}")
                 log(f"{label} on {card}: TTFT {stats[label]['ttft_ms']:.1f} ms "

@@ -1,16 +1,23 @@
-// Fused dequant matmul for Hopper (sm_90a): K4 (int8) and K5 (int4).
+// Fused dequant matmul for Hopper (sm_90a): K4 (int8), K5 (int4) and
+// K6 (either, with the next layer's slab prefetched into L2).
 //
 // Replaces the Pallas TPU kernel
 // kaito_tpu/engine/ops/quant_matmul.py::quant_matmul (bodies _int8_kernel
-// and _int4_kernel): out[rows, N] = x[rows, K] @ W for a weight-only
-// quantized QTensor W (kaito_tpu_torch/engine/quant.py), rows <= 256.
+// and _int4_kernel, and their prefetch variants _int8_kernel_pf and
+// _int4_kernel_pf with _prefetch_touch): out[rows, N] = x[rows, K] @ W
+// for a weight-only quantized QTensor W (kaito_tpu_torch/engine/quant.py),
+// rows <= 256.
 //   int8: W = q8 [K, N] int8, scale [N] fp32; the per-column scale folds
 //         after the whole fp32-accumulated dot.
 //   int4: W = q4 [K/2, N] int8, byte i holding in-rows 2i (low nibble) and
 //         2i+1 (high nibble), each biased by +8; scale [G, N] fp32 over
 //         groups of K/G in-rows; each group's scale folds after that
 //         group's fp32 partial dot.
-// The output is cast once, at the end, to x's dtype (fp32 or bf16).
+// The codes and the int4 scales are read through explicit row strides
+// (ldw, lds, in elements), so a column chunk of a wider plane (the ring
+// of engine/ops/overlap_collectives.py) is used in place.  The output is
+// [rows, N] contiguous, cast once, at the end, to x's dtype (fp32 or
+// bf16).
 //
 // Bound on the H100: bytes at decode sizes (a weight byte feeds 2 x rows
 // flops, far below the ~295 flop/byte where bf16 tensor-core compute
@@ -21,15 +28,16 @@
 // byte of in-rows 2i and 2i+1 is widened into both rows of the tile.
 //
 // Two paths, chosen from what the call gives them:
-// - Tensor cores, for bf16 x with K a multiple of 64, N of 128 and int4
-//   groups of whole 64-row stages (every Llama projection).  A CTA of 4
-//   warps owns 128 columns and 16 (decode) or 64 rows; per 64-row stage
-//   the 8 KB of codes (4 KB int4) are loaded into registers with 16-byte
-//   loads while the previous stage computes, widened to bf16 into shared
-//   memory as a [k][n] tile (int8 through the mantissa of 2^23 in fp32,
-//   int4 through the mantissa of 128 in bf16: exact), and read back as B
-//   fragments with ldmatrix.trans; x is staged the same way, and
-//   mma.sync m16n8k16 sums bf16 products in fp32.
+// - Tensor cores, for bf16 x with K a multiple of 64, N of 128, int4
+//   groups of whole 64-row stages and 16-byte aligned code rows (every
+//   Llama projection and its ring chunks).  A CTA of 4 warps owns 128
+//   columns and 16 (decode) or 64 rows; per 64-row stage the 8 KB of
+//   codes (4 KB int4) are loaded into registers with 16-byte loads while
+//   the previous stage computes, widened to bf16 into shared memory as a
+//   [k][n] tile (int8 through the mantissa of 2^23 in fp32, int4 through
+//   the mantissa of 128 in bf16: exact), and read back as B fragments
+//   with ldmatrix.trans; x is staged the same way, and mma.sync
+//   m16n8k16 sums bf16 products in fp32.
 // - CUDA cores, for fp32 x and any other shape: a CTA owns 256 columns,
 //   up to 8 rows of x (in shared memory, fp32) and a slice of K; its 8
 //   warps walk interleaved rows of the slice with 8-byte loads, each
@@ -40,6 +48,24 @@
 // projections have few column tiles); the slices' fp32 partial outputs
 // are summed by a second kernel.  Not yet done: TMA and a warp-specialised
 // pipeline, which the int4 path needs to reach its bound.
+//
+// K6 (template flag PF, entry kaito_quant_matmul_pf) is the same kernel
+// with two more pointers: the next layer's codes and scales, in the same
+// layout and strides.  The Pallas kernel carries them as two more input
+// streams read under a runtime-false predicate, only so that Mosaic keeps
+// their HBM->VMEM DMA; here a prefetch is a hint that never reaches
+// registers, so no predicate is needed.  Each CTA computes exactly what
+// K4/K5 compute for its tile (same plan, same split-K, same reduction
+// order: the output is bitwise K4/K5's) and, over its k-loop, asks L2 for
+// the rows of the next slab that the same tile reads in the next layer's
+// call (cp.async.bulk.prefetch.L2, one row segment per instruction,
+// issued stage by stage beside the live loads, so the prefetches do not
+// crowd the live stream at its start), plus its scale rows.  Nothing goes
+// to shared memory or registers.  The wrapper engages K6 only for a slab
+// of at most 16 MiB (engine/ops/quant_matmul.py, PREFETCH_L2_BUDGET): the
+// live chunk and the prefetched one must both sit in the 50 MB L2, beside
+// the activations, for the prefetch to survive to its use; the Pallas
+// kernel's 4 MiB VMEM budget plays that part on the TPU.
 #include <stdint.h>
 
 #include <algorithm>
@@ -101,6 +127,26 @@ __device__ __forceinline__ int qm_byte(const uint2& v, int c) {
   return (int)(int8_t)(uint8_t)(word >> (8 * (c % 4)));
 }
 
+// Ask L2 for `bytes` (a multiple of 16) at the 16-byte aligned global
+// address p; a hint: nothing is loaded into the SM.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .u64 g;\n\tcvta.to.global.u64 g, %0;\n\t"
+      "cp.async.bulk.prefetch.L2.global [g], %1;\n\t}\n" ::"l"(p),
+      "r"(bytes)
+      : "memory");
+}
+
+// Prefetch row `r` of a plane, columns [col, min(col + 128, N)) of
+// element size `es`, cut down to whole 16-byte pieces.
+__device__ __forceinline__ void prefetch_row(const void* base, size_t ld, int r,
+                                             int col, int N, int es) {
+  if (col >= N) return;
+  const uint32_t bytes = (uint32_t)(min(128, N - col) * es) & ~15u;
+  if (bytes)
+    prefetch_l2(static_cast<const char*>(base) + ((size_t)r * ld + col) * es, bytes);
+}
+
 // acc += part * scale(group row), part = 0.
 template <int R>
 __device__ __forceinline__ void qm_fold(float (&acc)[R][QM_COLS],
@@ -118,12 +164,13 @@ __device__ __forceinline__ void qm_fold(float (&acc)[R][QM_COLS],
   }
 }
 
-template <typename T, bool INT4, int R>
+template <typename T, bool INT4, int R, bool PF>
 __global__ void __launch_bounds__(QM_THREADS)
 quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                     const float* __restrict__ scale, T* __restrict__ out,
                     float* __restrict__ part_out, int rows, int K, int N, int gk,
-                    int kc, int n_split, bool vec) {
+                    int kc, int n_split, bool vec, int ldw, int lds,
+                    const int8_t* __restrict__ nw, const float* __restrict__ ns) {
   constexpr int VPS = INT4 ? 2 : 1;          // x values per k-step
   const int ks = INT4 ? K / 2 : K;
   const int row0 = blockIdx.x * R, n0 = blockIdx.y * QM_TN, split = blockIdx.z;
@@ -151,13 +198,25 @@ quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int c = 0; c < QM_COLS; ++c) acc[r][c] = part[r][c] = 0.f;
   int g_cur = min(k_lo + lane_k, ks - 1) / gk;
+  // K6: the first row tile prefetches the scale rows of its slice (two
+  // 128-column segments of fp32 each)
+  if (PF && blockIdx.x == 0) {
+    const int g_lo = k_lo / gk, g_hi = (k_hi - 1) / gk;
+    for (int i = tid; i < (g_hi - g_lo + 1) * 2; i += QM_THREADS)
+      prefetch_row(ns, lds, g_lo + i / 2, n0 + (i % 2) * 128, N, 4);
+  }
 
   for (int kb = k_lo + lane_k; kb < k_hi; kb += QM_LANES * QM_UNROLL) {
     uint2 wv[QM_UNROLL];
 #pragma unroll
     for (int u = 0; u < QM_UNROLL; ++u) {
       const int k = kb + u * QM_LANES;
-      wv[u] = qm_load(w + (size_t)k * N + col, k < k_hi, col, N, vec);
+      wv[u] = qm_load(w + (size_t)k * ldw + col, k < k_hi, col, N, vec);
+    }
+    if (PF && blockIdx.x == 0 && tid % 32 < 2 * QM_UNROLL) {
+      // this warp's rows of the next slab: two 128-column segments each
+      const int k = kb + (tid % 32 / 2) * QM_LANES;
+      if (k < k_hi) prefetch_row(nw, ldw, k, n0 + (tid % 2) * 128, N, 1);
     }
 #pragma unroll
     for (int u = 0; u < QM_UNROLL; ++u) {
@@ -165,7 +224,7 @@ quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
       if (k >= k_hi) continue;
       const int g = k / gk;
       if (g != g_cur) {            // a thread's rows only move forward
-        qm_fold<R>(acc, part, scale + (size_t)g_cur * N, col, N);
+        qm_fold<R>(acc, part, scale + (size_t)g_cur * lds, col, N);
         g_cur = g;
       }
       const float* xr = x_s + (size_t)(k - k_lo) * VPS * R;
@@ -192,7 +251,7 @@ quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
       }
     }
   }
-  qm_fold<R>(acc, part, scale + (size_t)g_cur * N, col, N);
+  qm_fold<R>(acc, part, scale + (size_t)g_cur * lds, col, N);
 
   // add the 8 warps' sums, one row at a time; thread tid owns column n0 + tid
 #pragma unroll
@@ -312,12 +371,13 @@ __device__ __forceinline__ void tc_ldmatrix_x4_trans(uint32_t (&r)[4], const voi
 // next stage's loads are issued, and the stage's 4 k16 steps run on the
 // tensor cores.  A group's partial sums fold into the fp32 accumulators
 // with its scales when the group ends (int8: once, at the slice's end).
-template <bool INT4, int MT>
+template <bool INT4, int MT, bool PF>
 __global__ void __launch_bounds__(TC_THREADS)
 quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                        const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ part_out, int rows, int K, int N, int gk,
-                       int kc, int n_split) {
+                       int kc, int n_split, int ldw, int lds,
+                       const int8_t* __restrict__ nw, const float* __restrict__ ns) {
   constexpr int W_CHUNKS = (INT4 ? TC_TK / 2 : TC_TK) * TC_TN / 16 / TC_THREADS;
   constexpr int X_CHUNKS = 16 * MT * TC_TK / 8 / TC_THREADS;   // 16-byte pieces
   static_assert(W_CHUNKS >= 1 && 16 * MT * TC_TK / 8 % TC_THREADS == 0, "stage split");
@@ -337,7 +397,7 @@ quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __rest
       const int c = tid + j * TC_THREADS;              // 8 chunks of 16 B per row
       const int r = (INT4 ? k0 / 2 : k0) + c / 8;
       wr[j] = __ldg(reinterpret_cast<const uint4*>(
-                  w + (size_t)min(r, code_rows - 1) * N + n0) + c % 8);
+                  w + (size_t)min(r, code_rows - 1) * ldw + n0) + c % 8);
     }
 #pragma unroll
     for (int j = 0; j < X_CHUNKS; ++j) {
@@ -391,12 +451,25 @@ quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __rest
       for (int e = 0; e < 4; ++e) acc[m][n][e] = part[m][n][e] = 0.f;
   const int colw = n0 + warp * 32;   // this warp's first column
 
+  // K6: the first row tile prefetches the scale rows of its slice (one
+  // 128-column segment of fp32 each)
+  if (PF && blockIdx.x == 0) {
+    const int g_lo = k_lo / gk, g_hi = (k_hi - 1) / gk;
+    for (int i = tid; i <= g_hi - g_lo; i += TC_THREADS)
+      prefetch_row(ns, lds, g_lo + i, n0, N, 4);
+  }
+
   load_stage(k_lo);
   for (int k0 = k_lo; k0 < k_hi; k0 += TC_TK) {
     __syncthreads();                 // the previous stage's reads are done
     store_stage();
     __syncthreads();
     if (k0 + TC_TK < k_hi) load_stage(k0 + TC_TK);
+    // K6: this stage's code rows of the next slab, one 128-byte row
+    // segment per thread
+    constexpr int STAGE_ROWS = INT4 ? TC_TK / 2 : TC_TK;
+    if (PF && blockIdx.x == 0 && tid < STAGE_ROWS)
+      prefetch_row(nw, ldw, (INT4 ? k0 / 2 : k0) + tid, n0, N, 1);
 #pragma unroll
     for (int kk = 0; kk < TC_TK; kk += 16) {
       uint32_t b[4][2];
@@ -424,7 +497,7 @@ quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __rest
     }
     if ((k0 + TC_TK) % gk == 0 || k0 + TC_TK >= k_hi) {
       // the group of in-rows [k0 + 64 - gk, k0 + 64) is complete
-      const float* s_row = scale + (size_t)(k0 / gk) * N;
+      const float* s_row = scale + (size_t)(k0 / gk) * lds;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const float2 sc = *reinterpret_cast<const float2*>(s_row + colw + n * 8 + 2 * t);
@@ -461,102 +534,130 @@ quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __rest
       }
 }
 
-template <bool INT4, int MT>
-cudaError_t launch_quant_matmul_tc(const void* x, const void* w, const float* scale,
-                                   void* out, float* work, int rows, int K, int N,
-                                   int gk, const TcPlan& pl, cudaStream_t stream) {
-  const dim3 grid((rows + 16 * MT - 1) / (16 * MT), N / TC_TN, pl.n_split);
-  quant_matmul_tc_kernel<INT4, MT><<<grid, TC_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
-      static_cast<__nv_bfloat16*>(out), work, rows, K, N, gk, pl.kc, pl.n_split);
+// The plane pointers and strides of one call: the live weight and, for
+// K6, the next layer's (nw, ns; null for K4/K5).
+struct QmArgs {
+  const void* x;
+  const int8_t* w;
+  const float* scale;
+  void* out;
+  float* work;
+  int rows, K, N, groups, ldw, lds;
+  const int8_t* nw;
+  const float* ns;
+};
+
+template <bool INT4, int MT, bool PF>
+cudaError_t launch_quant_matmul_tc(const QmArgs& a, int gk, const TcPlan& pl,
+                                   cudaStream_t stream) {
+  const dim3 grid((a.rows + 16 * MT - 1) / (16 * MT), a.N / TC_TN, pl.n_split);
+  quant_matmul_tc_kernel<INT4, MT, PF><<<grid, TC_THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x), a.w, a.scale,
+      static_cast<__nv_bfloat16*>(a.out), a.work, a.rows, a.K, a.N, gk, pl.kc,
+      pl.n_split, a.ldw, a.lds, a.nw, a.ns);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || pl.n_split == 1) return err;
-  const long long total = (long long)rows * N;
+  const long long total = (long long)a.rows * a.N;
   const int blocks = (int)std::min<long long>((total + 255) / 256, 1024);
   quant_matmul_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
-      work, static_cast<__nv_bfloat16*>(out), total, pl.n_split);
+      a.work, static_cast<__nv_bfloat16*>(a.out), total, pl.n_split);
   return cudaGetLastError();
 }
 
-template <typename T, bool INT4, int R>
-cudaError_t launch_quant_matmul(const void* x, const void* w, const float* scale,
-                                void* out, float* work, int rows, int K, int N,
-                                int groups, const QmPlan& pl, cudaStream_t stream) {
-  const int ks = INT4 ? K / 2 : K;
-  const bool vec = N % QM_COLS == 0 && reinterpret_cast<uintptr_t>(w) % 8 == 0;
+template <typename T, bool INT4, int R, bool PF>
+cudaError_t launch_quant_matmul(const QmArgs& a, const QmPlan& pl, cudaStream_t stream) {
+  const int ks = INT4 ? a.K / 2 : a.K;
+  const bool vec = a.N % QM_COLS == 0 && a.ldw % QM_COLS == 0 &&
+                   reinterpret_cast<uintptr_t>(a.w) % 8 == 0;
   const size_t smem =
       ((size_t)pl.kc * (INT4 ? 2 : 1) * R + (size_t)QM_LANES * QM_TN) * sizeof(float);
-  auto kernel = quant_matmul_kernel<T, INT4, R>;
+  auto kernel = quant_matmul_kernel<T, INT4, R, PF>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + R - 1) / R, (N + QM_TN - 1) / QM_TN, pl.n_split);
+  const dim3 grid((a.rows + R - 1) / R, (a.N + QM_TN - 1) / QM_TN, pl.n_split);
   kernel<<<grid, QM_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
-      static_cast<T*>(out), work, rows, K, N, ks / groups, pl.kc, pl.n_split, vec);
+      static_cast<const T*>(a.x), a.w, a.scale, static_cast<T*>(a.out), a.work, a.rows,
+      a.K, a.N, ks / a.groups, pl.kc, pl.n_split, vec, a.ldw, a.lds, a.nw, a.ns);
   err = cudaGetLastError();
   if (err != cudaSuccess || pl.n_split == 1) return err;
-  const long long total = (long long)rows * N;
+  const long long total = (long long)a.rows * a.N;
   const int blocks = (int)std::min<long long>((total + 255) / 256, 1024);
-  quant_matmul_reduce_kernel<T><<<blocks, 256, 0, stream>>>(work, static_cast<T*>(out),
+  quant_matmul_reduce_kernel<T><<<blocks, 256, 0, stream>>>(a.work, static_cast<T*>(a.out),
                                                             total, pl.n_split);
   return cudaGetLastError();
 }
 
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
 
-template <typename T, bool INT4>
-cudaError_t dispatch_rows(const void* x, const void* w, const float* scale, void* out,
-                          float* work, int rows, int K, int N, int groups,
-                          cudaStream_t stream) {
-  const int gk = K / groups;   // in-rows per scale group
-  if (tc_fits(K, N, gk, std::is_same<T, __nv_bfloat16>::value) && aligned16(x) &&
-      aligned16(w) && aligned16(out)) {
-    const TcPlan tp = tc_plan(rows, K, N, gk, INT4);
-    if (tp.mt == 1)
-      return launch_quant_matmul_tc<INT4, 1>(x, w, scale, out, work, rows, K, N, gk, tp,
-                                             stream);
-    return launch_quant_matmul_tc<INT4, 4>(x, w, scale, out, work, rows, K, N, gk, tp,
-                                           stream);
+template <typename T, bool INT4, bool PF>
+cudaError_t dispatch_rows(const QmArgs& a, cudaStream_t stream) {
+  const int gk = a.K / a.groups;   // in-rows per scale group
+  // the tensor-core path reads 16-byte code pieces and float2 scales
+  if (tc_fits(a.K, a.N, gk, std::is_same<T, __nv_bfloat16>::value) && aligned(a.x, 16) &&
+      aligned(a.w, 16) && a.ldw % 16 == 0 && aligned(a.scale, 8) && a.lds % 2 == 0 &&
+      aligned(a.out, 16)) {
+    const TcPlan tp = tc_plan(a.rows, a.K, a.N, gk, INT4);
+    if (tp.mt == 1) return launch_quant_matmul_tc<INT4, 1, PF>(a, gk, tp, stream);
+    return launch_quant_matmul_tc<INT4, 4, PF>(a, gk, tp, stream);
   }
-  const QmPlan pl = qm_plan(rows, K, N, INT4);
-  if (pl.rt == 1)
-    return launch_quant_matmul<T, INT4, 1>(x, w, scale, out, work, rows, K, N, groups,
-                                           pl, stream);
-  if (pl.rt == 4)
-    return launch_quant_matmul<T, INT4, 4>(x, w, scale, out, work, rows, K, N, groups,
-                                           pl, stream);
-  return launch_quant_matmul<T, INT4, 8>(x, w, scale, out, work, rows, K, N, groups,
-                                         pl, stream);
+  const QmPlan pl = qm_plan(a.rows, a.K, a.N, INT4);
+  if (pl.rt == 1) return launch_quant_matmul<T, INT4, 1, PF>(a, pl, stream);
+  if (pl.rt == 4) return launch_quant_matmul<T, INT4, 4, PF>(a, pl, stream);
+  return launch_quant_matmul<T, INT4, 8, PF>(a, pl, stream);
+}
+
+template <bool PF>
+int dispatch(const QmArgs& a, int int4, int dtype, cudaStream_t s) {
+  if (a.rows < 1 || a.K < 1 || a.N < 1 || a.groups < 1 || (int4 && a.K % 2) ||
+      a.ldw < a.N || (int4 && a.groups > 1 && a.lds < a.N)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 1) {
+    return int4 ? (int)dispatch_rows<__nv_bfloat16, true, PF>(a, s)
+                : (int)dispatch_rows<__nv_bfloat16, false, PF>(a, s);
+  }
+  if (dtype == 0) {
+    return int4 ? (int)dispatch_rows<float, true, PF>(a, s)
+                : (int)dispatch_rows<float, false, PF>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace kaito
 
 // x [rows, K] (dtype 0 = float32, 1 = bfloat16); w: int8 codes [K, N]
-// (int4 = 0) or packed nibbles [K/2, N] (int4 = 1); scale fp32 [groups, N]
-// (groups = 1 for int8); out [rows, N] in x's dtype.  work: fp32 scratch of
+// (int4 = 0) or packed nibbles [K/2, N] (int4 = 1), rows ldw elements
+// apart; scale fp32 [groups, N] (groups = 1 for int8), rows lds elements
+// apart; out [rows, N] contiguous in x's dtype.  work: fp32 scratch of
 // kaito_quant_matmul_workspace_floats(...) floats (none when that is 0).
 // Returns the CUDA error of the launches (0 = success).
 extern "C" int kaito_quant_matmul(const void* x, const void* w, const float* scale,
                                   void* out, float* work, int rows, int K, int N,
-                                  int groups, int int4, int dtype, void* stream) {
-  using namespace kaito;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows < 1 || K < 1 || N < 1 || groups < 1 || (int4 && K % 2)) {
+                                  int groups, int int4, int dtype, int ldw, int lds,
+                                  void* stream) {
+  const kaito::QmArgs a{x, static_cast<const int8_t*>(w), scale, out, work, rows, K, N,
+                        groups, ldw, lds, nullptr, nullptr};
+  return kaito::dispatch<false>(a, int4, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K6: kaito_quant_matmul, and the same tiles of the next layer's codes
+// (next_w) and scales (next_scale), in w's and scale's shapes and strides
+// and 16-byte aligned, prefetched into L2.  The output is bitwise
+// kaito_quant_matmul's.
+extern "C" int kaito_quant_matmul_pf(const void* x, const void* w, const float* scale,
+                                     const void* next_w, const float* next_scale,
+                                     void* out, float* work, int rows, int K, int N,
+                                     int groups, int int4, int dtype, int ldw, int lds,
+                                     void* stream) {
+  if (!kaito::aligned(next_w, 16) || !kaito::aligned(next_scale, 16) || ldw % 16 ||
+      (int4 && groups > 1 && lds % 4)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    return int4 ? (int)dispatch_rows<__nv_bfloat16, true>(x, w, scale, out, work, rows,
-                                                         K, N, groups, s)
-                : (int)dispatch_rows<__nv_bfloat16, false>(x, w, scale, out, work, rows,
-                                                          K, N, groups, s);
-  }
-  if (dtype == 0) {
-    return int4 ? (int)dispatch_rows<float, true>(x, w, scale, out, work, rows, K, N,
-                                                 groups, s)
-                : (int)dispatch_rows<float, false>(x, w, scale, out, work, rows, K, N,
-                                                  groups, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const kaito::QmArgs a{x, static_cast<const int8_t*>(w), scale, out, work, rows, K, N,
+                        groups, ldw, lds, static_cast<const int8_t*>(next_w), next_scale};
+  return kaito::dispatch<true>(a, int4, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // fp32 scratch kaito_quant_matmul needs: one [rows, N] partial output per K

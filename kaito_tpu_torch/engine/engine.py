@@ -18,12 +18,16 @@ Counterpart of the synchronous core of ``kaito_tpu.engine.engine``:
   window: sampling, stop detection and per-slot budgets stay on the
   device, and the host reads the window's tokens back once.
 
-Weight quantization (``quantization`` int8 / int4) and the int8 KV cache
-(``kv_dtype="int8"``) serve as in the JAX engine.  Not ported yet, and
-rejected at construction with the ROADMAP item that carries them: async
-dispatch, speculation, adapters, parallelism beyond one device, the KV
-pool, host offload and P/D, the device profiler, QoS, deadlines and the
-ITL/flight recorders.
+Weight quantization (``quantization`` int8 / int4), the int8 KV cache
+(``kv_dtype="int8"``) and tensor parallelism (``tensor_parallel``, with
+the ``comm_overlap`` decode ring) serve as in the JAX engine.  A
+tensor-parallel engine is one process driving every device of its mesh
+(``parallel.mesh``): an explicit ``mesh=`` may place several shards on
+one device; without one, ``tensor_parallel=n`` takes the first n cards.
+Not ported yet, and rejected at construction with the ROADMAP item that
+carries them: async dispatch, speculation, adapters, pipeline, data,
+sequence and expert parallelism, the KV pool, host offload and P/D, the
+device profiler, QoS, deadlines and the ITL/flight recorders.
 Prefix caching (on by default) runs as the JAX engine does when its
 native radix tree is absent: the plain page allocator.
 """
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import logging
+import os
 import queue
 import threading
 import time
@@ -44,14 +49,18 @@ import torch
 from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.kv_cache import (NULL_PAGE, create_kv_cache,
-                                             kv_cache_is_quantized,
+                                             create_sharded_kv_cache,
+                                             kv_bytes, kv_cache_is_quantized,
                                              scale_bytes_per_page)
-from kaito_tpu_torch.engine.model import TransformerLM
+from kaito_tpu_torch.engine.model import (TensorParallelLM, TransformerLM,
+                                          check_tensor_parallel)
 from kaito_tpu_torch.engine.quant import QUANT_SCHEMES, supports_quantization
 from kaito_tpu_torch.engine.sampler import SamplingState, chosen_logprob, sample
 from kaito_tpu_torch.engine.tokenizer import load_tokenizer
 from kaito_tpu_torch.models.metadata import ModelMetadata
 from kaito_tpu_torch.models.registry import get_model_by_name
+from kaito_tpu_torch.parallel.mesh import AXIS_TENSOR, Mesh, build_mesh
+from kaito_tpu_torch.parallel.sharding import SERVE_RULES, ring_axis
 
 logger = logging.getLogger(__name__)
 
@@ -82,12 +91,10 @@ _UNPORTED = (
     ("kv_pool_disk_bytes", bool, "queue 1, M18 KV movement"),
     ("host_kv_offload_bytes", bool, "queue 1, M18 KV movement"),
     ("pd_enabled", bool, "queue 1, M18 KV movement"),
-    ("tensor_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("pipeline_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("data_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("sequence_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("expert_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
-    ("comm_overlap", bool, "queue 1, M19 multi-GPU"),
     ("devprof_interval_s", bool, "queue 1, M20 device profiling"),
     ("qos_config", bool, "queue 1, QoS, deadlines and ITL"),
     ("request_timeout_s", bool, "queue 1, QoS, deadlines and ITL"),
@@ -118,6 +125,33 @@ def check_quantization(cfg: EngineConfig, md: ModelMetadata) -> None:
     if not supports_quantization(md.arch, cfg.quantization):
         raise ValueError(f"quantization {cfg.quantization!r} does not support "
                          f"this architecture (hidden_size={md.arch.hidden_size})")
+
+
+def resolve_mesh(cfg: EngineConfig, mesh: Optional[Mesh],
+                 device: str | torch.device) -> Optional[Mesh]:
+    """The engine's tensor-parallel mesh, or None for one device: the
+    caller's ``mesh``, else the first ``cfg.tensor_parallel`` CUDA
+    devices, which raises when fewer are visible.  A CPU mesh is always
+    explicit: without one, ``device="cpu"`` at tensor_parallel > 1
+    raises NotImplementedError."""
+    tp = cfg.tensor_parallel
+    if mesh is None:
+        if tp <= 1:
+            return None
+        if torch.device(device).type == "cpu":
+            raise NotImplementedError(
+                f"tensor_parallel={tp} on the CPU without an explicit mesh: the "
+                f"CPU has no devices to take, pass mesh=build_mesh(tensor={tp}, "
+                f"devices=['cpu'] * {tp}) (ROADMAP queue 1, M19)")
+        mesh = build_mesh(tensor=tp)
+    n = mesh.size(AXIS_TENSOR)
+    if len(mesh.devices) != n:
+        raise ValueError(f"{mesh} has axes beyond {AXIS_TENSOR!r}; only tensor "
+                         f"parallelism is ported")
+    if tp not in (1, n):
+        raise ValueError(f"tensor_parallel={tp} but the mesh's tensor axis "
+                         f"has {n} devices")
+    return mesh if n > 1 else None
 
 
 @dataclass
@@ -218,14 +252,22 @@ class InferenceEngine:
     from ``cfg.seed``.  Under ``cfg.quantization`` the plain projections
     of any of the three are quantized one tensor at a time after the
     cast to the model dtype, as the JAX engine does.
+
+    With a tensor-parallel ``mesh`` (or ``cfg.tensor_parallel`` > 1)
+    the model is a :class:`TensorParallelLM`, the cache a list of
+    per-shard pools, and ``device`` is the mesh's first device, where
+    logits are gathered and sampled.
     """
 
     def __init__(self, cfg: EngineConfig,
                  metadata: Optional[ModelMetadata] = None,
                  params: Optional[dict] = None,
-                 device: str | torch.device = "cuda"):
-        self.device = resolve_device(device)
+                 device: str | torch.device = "cuda",
+                 mesh: Optional[Mesh] = None):
         check_ported(cfg)
+        self.mesh = resolve_mesh(cfg, mesh, device)
+        self.device = (self.mesh.devices[0] if self.mesh is not None
+                       else resolve_device(device))
         self.cfg = cfg
         self.md = metadata or get_model_by_name(cfg.model)
         check_quantization(cfg, self.md)
@@ -233,8 +275,14 @@ class InferenceEngine:
             raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r} "
                              f"(known: {', '.join(_DTYPES)})")
         arch = self.md.arch
-        self.model = TransformerLM(arch, dtype=_DTYPES[cfg.dtype],
-                                   device=self.device)
+        if self.mesh is not None:
+            check_tensor_parallel(arch, self.mesh.size(AXIS_TENSOR),
+                                  cfg.quantization)
+            self.model = TensorParallelLM(arch, self.mesh, dtype=_DTYPES[cfg.dtype])
+        else:
+            self.model = TransformerLM(arch, dtype=_DTYPES[cfg.dtype],
+                                       device=self.device)
+        self.comm_overlap = self._resolve_comm_overlap()
         self.tokenizer = load_tokenizer(self.md.hf_id, arch.vocab_size)
         if not cfg.max_model_len:
             cfg.max_model_len = min(self.md.max_model_len, 8192)
@@ -260,6 +308,10 @@ class InferenceEngine:
             # quantizing leaves freed blocks in the caching allocator; the
             # pool is sized from what the device reports free
             torch.cuda.empty_cache()
+        if self.mesh is not None:
+            logger.info("tensor parallel: %s%s", self.mesh,
+                        " (several shards share a device)" if self.mesh.shared
+                        else "")
         logger.info("%sweights ready in %.1fs (%.2f GiB on %s)",
                     f"{quant} " if quant else "", time.monotonic() - t0,
                     self.model.param_bytes() / 2**30, self.device)
@@ -270,13 +322,15 @@ class InferenceEngine:
         if cfg.max_pages:
             self.sizing_report = {"source": "configured"}
         self.sizing_report["pages"] = num_pages
-        self.cache = create_kv_cache(arch, num_pages, cfg.page_size,
-                                     _DTYPES[cfg.kv_dtype], self.device)
-        kv_bytes = 2 * self.cache.k.numel() * self.cache.k.element_size()
-        if self.cache.quantized:
-            kv_bytes += 2 * self.cache.k_scale.numel() * 4
+        if self.mesh is not None:
+            self.cache = create_sharded_kv_cache(arch, self.mesh.devices, num_pages,
+                                                 cfg.page_size, _DTYPES[cfg.kv_dtype])
+        else:
+            self.cache = create_kv_cache(arch, num_pages, cfg.page_size,
+                                         _DTYPES[cfg.kv_dtype], self.device)
+        self._kv_quantized = kv_cache_is_quantized(_DTYPES[cfg.kv_dtype])
         logger.info("KV cache: %d pages x %d tokens, %s (%.2f GiB)", num_pages,
-                    cfg.page_size, cfg.kv_dtype, kv_bytes / 2**30)
+                    cfg.page_size, cfg.kv_dtype, kv_bytes(self.cache) / 2**30)
         if cfg.enable_prefix_caching:
             logger.info("prefix cache radix tree not ported; plain allocator")
         self.allocator = PageAllocator(num_pages)
@@ -329,27 +383,65 @@ class InferenceEngine:
     # Construction helpers
     # ------------------------------------------------------------------
 
+    def _resolve_comm_overlap(self) -> bool:
+        """The collective-compute overlap gate (``cfg.comm_overlap``; None
+        follows KAITO_COMM_OVERLAP, off when unset).  It engages only on a
+        TP >= 2 mesh whose ring axis divides the hidden size, heads and
+        intermediate width, and then sends decode's row-parallel
+        projections through the pipelined ring; otherwise it stays off
+        with a warning."""
+        cfg, arch = self.cfg, self.md.arch
+        co = cfg.comm_overlap if cfg.comm_overlap is not None else (
+            os.environ.get("KAITO_COMM_OVERLAP", "").strip().lower()
+            not in ("", "0", "false", "off"))
+        if not co:
+            return False
+        ax = ring_axis(SERVE_RULES)
+        tp = self.mesh.size(ax) if ax and self.mesh is not None else 1
+        if tp >= 2 and arch.hidden_size % tp == 0 and arch.num_heads % tp == 0 \
+                and arch.intermediate_size % tp == 0:
+            self.model.overlap = True
+            logger.info("collective-compute overlap: ring TP decode (%s=%d, %d "
+                        "hops per projection)", ax, tp, tp - 1)
+            return True
+        logger.warning("comm-overlap requested but not applicable (ring axis=%s "
+                       "size=%d, embed=%d heads=%d intermediate=%d must all "
+                       "divide); keeping the unoverlapped path", ax, tp,
+                       arch.hidden_size, arch.num_heads, arch.intermediate_size)
+        return False
+
     def _derive_max_pages(self) -> int:
         """Size the page pool from free device memory, measured with
         ``torch.cuda.mem_get_info`` after the weights are resident; the
-        CPU sizes for ``max_num_seqs`` full contexts."""
+        CPU sizes for ``max_num_seqs`` full contexts.  A tensor-parallel
+        page holds 1/n of the KV heads on each shard, and a device holds
+        a page for every shard it carries, so the pool is sized by the
+        device with the least room per page."""
         cap = self.cfg.max_num_seqs * self.pages_per_seq
         if self.device.type == "cpu":
             self.sizing_report = {"source": "seq-cap"}
             return cap + 1
         kv_dtype = _DTYPES[self.cfg.kv_dtype]
-        kv_bytes = torch.empty((), dtype=kv_dtype).element_size()
-        page_bytes = self.md.kv_bytes_per_token(kv_bytes) * self.cfg.page_size
+        el = torch.empty((), dtype=kv_dtype).element_size()
+        page_bytes = self.md.kv_bytes_per_token(el) * self.cfg.page_size
         if kv_cache_is_quantized(kv_dtype):
             # each page also carries its fp32 k and v scales per layer and head
             page_bytes += scale_bytes_per_page(self.md.arch)
-        free, total = torch.cuda.mem_get_info(self.device)
-        reserve = max(int(total * _RESERVE_FRACTION), _RESERVE_MIN_BYTES)
-        pages = int(max(free - reserve, 0) // page_bytes)
-        self.sizing_report = {"source": "measured", "device_total_bytes": int(total),
-                              "free_after_weights_bytes": int(free),
-                              "reserve_bytes": reserve,
-                              "weights_bytes": self.model.param_bytes()}
+        devices = self.mesh.devices if self.mesh is not None else [self.device]
+        pages, report = None, []
+        for dev in dict.fromkeys(devices):
+            share = devices.count(dev) / len(devices)
+            free, total = torch.cuda.mem_get_info(dev)
+            reserve = max(int(total * _RESERVE_FRACTION), _RESERVE_MIN_BYTES)
+            fit = int(max(free - reserve, 0) // (page_bytes * share))
+            pages = fit if pages is None else min(pages, fit)
+            report.append({"device": str(dev), "device_total_bytes": int(total),
+                           "free_after_weights_bytes": int(free),
+                           "reserve_bytes": reserve})
+        self.sizing_report = dict(report[0], source="measured",
+                                  weights_bytes=self.model.param_bytes())
+        if len(report) > 1:
+            self.sizing_report["devices"] = report
         return max(2, min(pages, cap) + 1)
 
     def _bucket(self, n: int) -> int:
@@ -745,7 +837,7 @@ class InferenceEngine:
             last_idx[si] = off + take - 1
             off += take
         tok_pgslot[off:] = len(pack_pages)
-        quant = self.cache.quantized
+        quant = self._kv_quantized
         self.cache, logits, _ = self.model.prefill_packed(
             self.cache, self._tensor(toks), self._tensor(segs), self._tensor(poss),
             self._tensor(tok_pages), self._tensor(last_idx),

@@ -32,8 +32,8 @@ that is never written back, so no write needs a host sync.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Optional, Sequence
 
 import torch
 
@@ -97,6 +97,31 @@ def create_kv_cache(arch: ModelArch, num_pages: int, page_size: int,
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    k_scale=k_scale, v_scale=v_scale)
+
+
+def create_sharded_kv_cache(arch: ModelArch, devices: Sequence[torch.device],
+                            num_pages: int, page_size: int,
+                            dtype: torch.dtype = torch.bfloat16) -> list[KVCache]:
+    """The pools of a tensor-parallel engine: one :class:`KVCache` per
+    shard, on its device, holding that shard's ``num_kv_heads / n`` KV
+    heads (and, for int8 pools, scale pools ``[L, P, Hkv / n]`` following
+    them), as the JAX engine shards the pools' head axis over its
+    ``tensor`` mesh axis.  Every shard addresses the same page ids."""
+    n = len(devices)
+    if arch.num_kv_heads % n:
+        raise ValueError(f"{n} shards do not divide {arch.num_kv_heads} KV heads")
+    local = replace(arch, num_kv_heads=arch.num_kv_heads // n)
+    return [create_kv_cache(local, num_pages, page_size, dtype, d) for d in devices]
+
+
+def kv_bytes(cache) -> int:
+    """Device bytes of a cache, or of a list of shard caches."""
+    if isinstance(cache, list):
+        return sum(kv_bytes(c) for c in cache)
+    total = 2 * cache.k.numel() * cache.k.element_size()
+    if cache.quantized:
+        total += 2 * cache.k_scale.numel() * 4
+    return total
 
 
 def _layer(cache: torch.Tensor, layer: Optional[int]) -> torch.Tensor:

@@ -43,9 +43,14 @@ from kaito_tpu_torch.engine.ops.decode_attention import \
     paged_decode_attention_cuda
 from kaito_tpu_torch.engine.ops.flash_prefill import (
     flash_prefill_attention_cuda, flash_prefill_packed_cuda)
-from kaito_tpu_torch.engine.quant import (is_qtensor, is_quantized_leaf,
-                                          quantize_weight)
+from kaito_tpu_torch.engine.ops.overlap_collectives import (
+    ag_matmul_eligible, all_gather_matmul, overlap_linear, psum_linear)
+from kaito_tpu_torch.engine.quant import (INT4_GROUP, is_qtensor,
+                                          is_quantized_leaf,
+                                          qtensor_logical_axes, quantize_weight)
 from kaito_tpu_torch.models.metadata import AttentionKind, ModelArch
+from kaito_tpu_torch.parallel.mesh import AXIS_TENSOR, Mesh
+from kaito_tpu_torch.parallel.sharding import SERVE_RULES
 
 VOCAB_ALIGN = 128
 _BIG_WINDOW = 1 << 30
@@ -125,12 +130,131 @@ def _check_qtensor(name: str, w: dict, full: tuple) -> None:
             f"the weight {full}")
 
 
+# logical axes of every parameter (layer-stack names without the leading
+# "layers" axis), as the JAX package's _top_specs/_layer_specs name them
+LOGICAL_AXES: dict[str, tuple] = {
+    "embed": ("vocab", "embed"), "lm_head": ("vocab", "embed"),
+    "final_norm": ("embed",), "final_norm_bias": ("embed",),
+    "attn_norm": ("embed",), "attn_norm_bias": ("embed",),
+    "mlp_norm": ("embed",), "mlp_norm_bias": ("embed",),
+    "post_attn_norm": ("embed",), "post_mlp_norm": ("embed",),
+    "q": ("embed", "heads"), "k": ("embed", "kv_heads"),
+    "v": ("embed", "kv_heads"), "o": ("heads", "embed"),
+    "q_bias": ("heads",), "k_bias": ("kv_heads",), "v_bias": ("kv_heads",),
+    "o_bias": ("embed",), "q_norm": (None,), "k_norm": (None,),
+    "gate": ("embed", "intermediate"), "up": ("embed", "intermediate"),
+    "down": ("intermediate", "embed"), "up_bias": ("intermediate",),
+    "down_bias": ("embed",),
+}
+
+# the embedding stays replicated on every shard: the lookup is exact
+# either way, and a vocab-sharded table would need a gather per token
+_REPLICATED = ("embed",)
+
+
+def local_arch(arch: ModelArch, n: int) -> ModelArch:
+    """The architecture one of ``n`` tensor-parallel shards computes:
+    heads, KV heads and the intermediate width divided by ``n``; hidden
+    size, head_dim and vocabulary unchanged."""
+    for what, v in (("num_heads", arch.num_heads),
+                    ("num_kv_heads", arch.num_kv_heads),
+                    ("intermediate_size", arch.intermediate_size)):
+        if v % n:
+            raise ValueError(f"tensor_parallel={n} does not divide "
+                             f"{what}={v}")
+    return replace(arch, num_heads=arch.num_heads // n,
+                   num_kv_heads=arch.num_kv_heads // n,
+                   intermediate_size=arch.intermediate_size // n)
+
+
+def check_tensor_parallel(arch: ModelArch, n: int, quantization: str = "") -> None:
+    """Raise ValueError when ``n`` shards cannot split this model: heads,
+    KV heads, intermediate width and the padded vocabulary must divide,
+    and under int4 every shard of the row-parallel o and down weights
+    must own whole groups of ``INT4_GROUP`` in-rows."""
+    local_arch(arch, n)
+    vp = -(-arch.vocab_size // VOCAB_ALIGN) * VOCAB_ALIGN
+    if vp % n:
+        raise ValueError(f"tensor_parallel={n} does not divide the padded "
+                         f"vocabulary {vp}")
+    if quantization == "int4":
+        for name, k in (("o", arch.num_heads * arch.head_dim),
+                        ("down", arch.intermediate_size)):
+            if k % INT4_GROUP or (k // INT4_GROUP) % n:
+                raise ValueError(
+                    f"int4 weights at tensor_parallel={n}: each shard of "
+                    f"{name!r} would hold {k // n} of its {k} in-rows, not "
+                    f"whole groups of {INT4_GROUP}")
+
+
+def _shard_dim(logical: tuple) -> Optional[int]:
+    """The dim SERVE_RULES splits over the tensor axis, or None."""
+    for i, a in enumerate(SERVE_RULES.spec(logical)):
+        if a == AXIS_TENSOR or (isinstance(a, tuple) and AXIS_TENSOR in a):
+            return i
+    return None
+
+
+def shard_leaf(group: Optional[str], name: str, t, n: int) -> list:
+    """The ``n`` tensor-parallel shards of one leaf (plain or QTensor) of
+    a full parameter tree, cut by SERVE_RULES: q/k/v/gate/up on their
+    out dim, o/down on their contraction dim, lm_head on vocab; int8
+    scales of the row-parallel weights replicated, int4 scale rows
+    following their groups.  The embedding and the norms are
+    replicated.  Shards are contiguous copies on ``t``'s device."""
+    ax = LOGICAL_AXES[name] if group is None else ("layers",) + LOGICAL_AXES[name]
+    if group is None and name in _REPLICATED:
+        return [t] * n
+    if is_qtensor(t):
+        axes = qtensor_logical_axes(ax, "int4" if "q4" in t else "int8")
+        parts = {k: _shard_tensor(v, axes[k], n) for k, v in t.items()}
+        return [{k: parts[k][r] for k in t} for r in range(n)]
+    return _shard_tensor(t, ax, n)
+
+
+def _shard_tensor(t: torch.Tensor, logical: tuple, n: int) -> list:
+    dim = _shard_dim(logical)
+    if dim is None:
+        return [t] * n
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} ({logical[dim]}) does "
+                         f"not split into {n} shards")
+    return [c.contiguous() for c in t.chunk(n, dim=dim)]
+
+
+def shard_params(tree: dict, mesh: Mesh) -> list[dict]:
+    """A full parameter tree (plain or QTensor-quantized, in the names
+    and stacked shapes of :meth:`TransformerLM.init_params`) cut into one
+    tree per device of the mesh's tensor axis, each in the shapes of a
+    :class:`TransformerLM` over ``local_arch(arch, n)`` with
+    ``vocab_shard=(rank, n)``.  A quantized tree must be quantized whole
+    before it is cut, so codes and scales equal the unsharded ones."""
+    n = mesh.size(AXIS_TENSOR)
+    out: list[dict] = [{} for _ in range(n)]
+    for group, name, leaf in _leaves(tree):
+        for r, piece in enumerate(shard_leaf(group, name, leaf, n)):
+            (out[r].setdefault(group, {}) if group else out[r])[name] = piece
+    return out
+
+
+def _leaves(tree: dict):
+    """(layer group or None, name, leaf) of a parameter tree; a QTensor
+    is one leaf."""
+    for key, val in tree.items():
+        if isinstance(val, dict) and not is_qtensor(val):
+            for name, leaf in val.items():
+                yield key, name, leaf
+        else:
+            yield None, key, val
+
+
 class TransformerLM(tnn.Module):
     """Dense GQA transformer; parameters live in the module, KV pools in
     an explicit :class:`KVCache` written in place."""
 
     def __init__(self, arch: ModelArch, dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 vocab_shard: tuple[int, int] = (0, 1)):
         super().__init__()
         if arch.attention_kind == AttentionKind.MLA:
             raise NotImplementedError(
@@ -140,6 +264,9 @@ class TransformerLM(tnn.Module):
         self.device = resolve_device(device)
         self.groups = _layer_groups(arch)
         self.vocab_padded = -(-arch.vocab_size // VOCAB_ALIGN) * VOCAB_ALIGN
+        # (rank, n): this model's rows of the logits head when it is one
+        # shard of a TensorParallelLM; (0, 1) holds the whole head
+        self.vocab_shard = vocab_shard
         self._inv_freq_global = nn.rope_frequencies(arch, self.device)
         self._rope_mscale = nn.rope_attention_factor(arch)
         self._inv_freq_local = self._inv_freq_global
@@ -200,8 +327,17 @@ class TransformerLM(tnn.Module):
         if a.norm_type == "layernorm":
             specs["final_norm_bias"] = (E,)
         if not a.tie_word_embeddings:
-            specs["lm_head"] = (self.vocab_padded, E)
+            specs["lm_head"] = (self.vocab_padded // self.vocab_shard[1], E)
         return specs
+
+    def param_logical_axes(self) -> dict:
+        """Tree matching :meth:`init_params` with the logical axis names of
+        every dim (the layer stacks lead with "layers")."""
+        axes: dict = {name: LOGICAL_AXES[name] for name in self._top_specs()}
+        for g in self.groups:
+            axes[g.name] = {name: ("layers",) + LOGICAL_AXES[name]
+                            for name in self._layer_specs()}
+        return axes
 
     def init_params(self, seed: int = 0, quantization: str = "") -> None:
         """Synthetic weights with the JAX package's shapes and scales:
@@ -212,6 +348,14 @@ class TransformerLM(tnn.Module):
         ``quantization`` each stacked projection is quantized right after
         it is drawn, so the device holds the quantized tree plus at most
         one full-precision leaf."""
+        tree: dict = {}
+        for group, name, t in self.synthetic_leaves(seed, quantization):
+            (tree.setdefault(group, {}) if group else tree)[name] = t
+        self.load_params(tree)
+
+    def synthetic_leaves(self, seed: int = 0, quantization: str = ""):
+        """The leaves of :meth:`init_params`, one at a time, as (layer
+        group or None, name, tensor on the model's device)."""
         gen = torch.Generator(device=self.device)
 
         def normal(shape, std, salt):
@@ -223,30 +367,27 @@ class TransformerLM(tnn.Module):
             fill = 0.0 if self.arch.norm_offset else 1.0
             return torch.full(shape, fill, dtype=self.dtype, device=self.device)
 
-        tree: dict = {}
         for name, shape in self._top_specs().items():
             if "norm" in name:
-                tree[name] = (torch.zeros(shape, dtype=self.dtype, device=self.device)
-                              if "bias" in name else norm_fill(shape))
+                yield None, name, (torch.zeros(shape, dtype=self.dtype,
+                                               device=self.device)
+                                   if "bias" in name else norm_fill(shape))
             else:
-                tree[name] = normal(shape, 0.02, _name_salt(name))
+                yield None, name, normal(shape, 0.02, _name_salt(name))
         for gi, g in enumerate(self.groups):
-            layer: dict = {}
             for name, shape in self._layer_specs().items():
                 full = (g.count,) + shape
                 if "norm" in name and "bias" not in name:
-                    layer[name] = norm_fill(full)
+                    t = norm_fill(full)
                 elif "bias" in name:
-                    layer[name] = torch.zeros(full, dtype=self.dtype,
-                                              device=self.device)
+                    t = torch.zeros(full, dtype=self.dtype, device=self.device)
                 else:
                     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-                    layer[name] = normal(full, 1.0 / math.sqrt(fan_in),
-                                         _name_salt(name) + 7919 * (gi + 1))
+                    t = normal(full, 1.0 / math.sqrt(fan_in),
+                               _name_salt(name) + 7919 * (gi + 1))
                     if quantization and is_quantized_leaf(g.name, name):
-                        layer[name] = quantize_weight(layer[name], quantization)
-            tree[g.name] = layer
-        self.load_params(tree)
+                        t = quantize_weight(t, quantization)
+                yield g.name, name, t
 
     def load_params(self, tree: dict, quantization: str = "") -> None:
         """Install a parameter tree (names and stacked shapes of
@@ -330,12 +471,13 @@ class TransformerLM(tnn.Module):
             return nn.layer_norm(x, p[name], p.get(f"{name}_bias"), a.rms_norm_eps)
         return nn.rms_norm(x, p[name], a.rms_norm_eps, a.norm_offset)
 
-    def _attn_qkv(self, x, p, positions, window):
+    def _attn_qkv(self, x, p, positions, window, q_proj=None):
         """q/k/v heads with norms and rope applied.  x: [B, T, E];
-        positions: [B, T] absolute positions."""
+        positions: [B, T] absolute positions; ``q_proj``: the q
+        projection when a collective already computed it."""
         a = self.arch
         B, T, _ = x.shape
-        q = nn.linear(x, p["q"])
+        q = nn.linear(x, p["q"]) if q_proj is None else q_proj
         k = nn.linear(x, p["k"])
         v = nn.linear(x, p["v"])
         if "q_bias" in p:
@@ -354,16 +496,24 @@ class TransformerLM(tnn.Module):
         k = nn.apply_rope(k, positions, inv_freq, a.head_dim, mscale=mscale)
         return q, k, v
 
-    def _layer(self, x, p, cache: KVCache, li: int, mode: str, *,
-               positions, page_tables, lengths, true_lens, active,
-               start_pos=None, packed=None):
+    def _layer(self, x, p, cache: KVCache, li: int, mode: str, **kw):
         """One transformer block over layer ``li`` of the pools."""
+        h = self._norm(x, p, "attn_norm")
+        o_in = self._attention(h, p, cache, li, mode, **kw)
+        x, h2 = self._attn_residual(x, h, nn.linear(o_in, p["o"]), p)
+        return self._mlp_residual(x, nn.mlp(h2, p, self.arch), p)
+
+    def _attention(self, h, p, cache: KVCache, li: int, mode: str, *,
+                   positions, page_tables, lengths, true_lens, active,
+                   start_pos=None, packed=None, q_proj=None):
+        """q/k/v of the normed input ``h``, their page writes and the
+        attention over layer ``li`` of the pools: the attention-out
+        projection's input [B, T, H * D]."""
         a = self.arch
-        B, T, _ = x.shape
+        B, T, _ = h.shape
         window = self._window(li)
         win = window if window is not None else _BIG_WINDOW
-        h = self._norm(x, p, "attn_norm")
-        q, k_new, v_new = self._attn_qkv(h, p, positions, window)
+        q, k_new, v_new = self._attn_qkv(h, p, positions, window, q_proj)
         ck, cv = cache.k, cache.v
         ks, vs = cache.k_scale, cache.v_scale      # None unless int8 pools
         ps = ck.shape[2]
@@ -385,7 +535,7 @@ class TransformerLM(tnn.Module):
                 scale=self._scale, softcap=softcap)
         elif mode == "prefill":
             start = (start_pos if start_pos is not None
-                     else torch.zeros((B,), dtype=torch.int32, device=x.device))
+                     else torch.zeros((B,), dtype=torch.int32, device=h.device))
             if ks is not None:
                 write_prefill_tokens_q(ck, ks, k_new, page_tables, start, true_lens,
                                        ps, layer=li)
@@ -422,29 +572,39 @@ class TransformerLM(tnn.Module):
                 q[:, 0], ck, cv, page_tables, lengths, win,
                 scale=self._scale, softcap=softcap, layer=li,
                 k_scale=ks, v_scale=vs)[:, None]
-        o_in = out.reshape(B, T, a.num_heads * a.head_dim)
-        attn_out = nn.linear(o_in, p["o"])
+        return out.reshape(B, T, a.num_heads * a.head_dim)
+
+    def _attn_residual(self, x, h, attn_out, p):
+        """The residual after attention: (x, the MLP's input)."""
+        a = self.arch
         if "o_bias" in p:
             attn_out = attn_out + p["o_bias"]
         if a.parallel_residual:
-            return x + attn_out + nn.mlp(h, p, a)
+            return x + attn_out, h
         if a.pre_post_norm:
             attn_out = self._norm(attn_out, p, "post_attn_norm")
         x = x + attn_out
-        mlp_out = nn.mlp(self._norm(x, p, "mlp_norm"), p, a)
-        if a.pre_post_norm:
+        return x, self._norm(x, p, "mlp_norm")
+
+    def _mlp_residual(self, x, mlp_out, p):
+        a = self.arch
+        if a.pre_post_norm and not a.parallel_residual:
             mlp_out = self._norm(mlp_out, p, "post_mlp_norm")
         return x + mlp_out
 
+    def _layer_params(self, g: LayerGroup, i: int) -> dict:
+        """Layer ``i`` of group ``g``: views of the stacks; a QTensor's
+        layer is {"q8"|"q4": codes[i], "scale": scale[i]}."""
+        p = {name: t[i] for name, t in self.stacks[g.name].items()}
+        p.update({name: {k: t[i] for k, t in qt.items()}
+                  for name, qt in self.qstacks[g.name].items()})
+        return p
+
     def _run_layers(self, cache: KVCache, x, mode, **kw):
         for g in self.groups:
-            stack, qstack = self.stacks[g.name], self.qstacks[g.name]
             for i in range(g.count):
-                p = {name: t[i] for name, t in stack.items()}
-                # a QTensor's layer: {"q8"|"q4": codes[i], "scale": scale[i]}
-                p.update({name: {k: t[i] for k, t in qt.items()}
-                          for name, qt in qstack.items()})
-                x = self._layer(x, p, cache, g.start + i, mode, **kw)
+                x = self._layer(x, self._layer_params(g, i), cache, g.start + i,
+                                mode, **kw)
         return x
 
     # ------------------------------------------------------------------
@@ -458,21 +618,64 @@ class TransformerLM(tnn.Module):
                                  dtype=self.dtype, device=x.device)
         return x
 
-    def _logits(self, x):
-        """fp32 logits [..., vocab_size]: bf16 inputs, fp32 accumulation
-        and output, as the JAX package's dot_general with
-        preferred_element_type=float32."""
-        a = self.arch
-        head = self.top["embed"] if a.tie_word_embeddings else self.top["lm_head"]
-        x2 = x.reshape(-1, x.shape[-1])
-        if x2.dtype == torch.float32:
-            logits = x2 @ head.t()
-        elif x2.is_cuda:
-            logits = torch.mm(x2, head.t(), out_dtype=torch.float32)
+    def _logits_local(self, x2):
+        """fp32 logits [N, rows] of this model's rows of the head (all of
+        them unless it is one shard of a TensorParallelLM): bf16 inputs,
+        fp32 accumulation and output, as the JAX package's dot_general
+        with preferred_element_type=float32."""
+        if self.arch.tie_word_embeddings:
+            r, n = self.vocab_shard
+            rows = self.vocab_padded // n
+            head = self.top["embed"][r * rows:(r + 1) * rows]
         else:
-            logits = x2.float() @ head.float().t()
-        logits = nn.softcap(logits, a.final_logit_softcap)
-        return logits.reshape(*x.shape[:-1], -1)[..., : a.vocab_size]
+            head = self.top["lm_head"]
+        if x2.dtype == torch.float32:
+            return x2 @ head.t()
+        if x2.is_cuda:
+            return torch.mm(x2, head.t(), out_dtype=torch.float32)
+        return x2.float() @ head.float().t()
+
+    def _logits(self, x):
+        """fp32 logits [..., vocab_size]."""
+        logits = self._logits_local(x.reshape(-1, x.shape[-1]))
+        return _finish_logits(logits, self.arch, x.shape[:-1])
+
+    def _prefill_in(self, tokens, true_lens, page_tables, start_pos):
+        """(embedded tokens, layer inputs) of :meth:`prefill`."""
+        B, T = tokens.shape
+        rel = torch.arange(T, dtype=torch.int32, device=tokens.device)
+        rel = rel[None, :].expand(B, T)
+        positions = rel if start_pos is None else rel + start_pos[:, None]
+        return self._embed(tokens), dict(
+            positions=positions, page_tables=page_tables, lengths=true_lens,
+            true_lens=true_lens, active=None, start_pos=start_pos)
+
+    def _prefill_out(self, x, true_lens):
+        """The final-normed hidden state of each row's last token."""
+        x = self._norm(x, self.top, "final_norm")
+        idx = (true_lens.long() - 1).clamp_min(0)
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+
+    def _packed_in(self, tokens, seg_ids, positions, tok_pages, pack_pages,
+                   tok_pgslot):
+        return self._embed(tokens), dict(
+            positions=positions, page_tables=None, lengths=None, true_lens=None,
+            active=None, packed=(seg_ids, tok_pages, pack_pages, tok_pgslot))
+
+    def _packed_out(self, x, last_idx):
+        return self._norm(x, self.top, "final_norm")[0, last_idx.long()]
+
+    def _decode_in(self, tokens, positions, page_tables, active):
+        pos2 = positions[:, None].to(torch.int32)
+        lengths = (positions + 1).to(torch.int32)
+        if active is not None:
+            lengths = torch.where(active, lengths, 0).to(torch.int32)
+        return self._embed(tokens[:, None]), dict(
+            positions=pos2, page_tables=page_tables, lengths=lengths,
+            true_lens=None, active=active)
+
+    def _decode_out(self, x):
+        return self._norm(x, self.top, "final_norm")[:, 0]
 
     def prefill(self, cache: KVCache, tokens, true_lens, page_tables,
                 start_pos=None):
@@ -481,18 +684,9 @@ class TransformerLM(tnn.Module):
         true_lens: [B] int32 valid new tokens; page_tables: [B, pmax]
         int32.  Returns (cache, last_logits [B, V] fp32, last_hidden
         [B, E]); the cache is written in place."""
-        B, T = tokens.shape
-        rel = torch.arange(T, dtype=torch.int32, device=tokens.device)
-        rel = rel[None, :].expand(B, T)
-        positions = rel if start_pos is None else rel + start_pos[:, None]
-        x = self._embed(tokens)
-        x = self._run_layers(cache, x, "prefill", positions=positions,
-                             page_tables=page_tables, lengths=true_lens,
-                             true_lens=true_lens, active=None,
-                             start_pos=start_pos)
-        x = self._norm(x, self.top, "final_norm")
-        idx = (true_lens.long() - 1).clamp_min(0)
-        last = x[torch.arange(B, device=x.device), idx]
+        x, kw = self._prefill_in(tokens, true_lens, page_tables, start_pos)
+        last = self._prefill_out(self._run_layers(cache, x, "prefill", **kw),
+                                 true_lens)
         return cache, self._logits(last), last
 
     def prefill_packed(self, cache: KVCache, tokens, seg_ids, positions,
@@ -507,13 +701,10 @@ class TransformerLM(tnn.Module):
         [S, E])."""
         if cache.quantized and (pack_pages is None or tok_pgslot is None):
             raise ValueError("an int8 KV cache needs pack_pages and tok_pgslot")
-        x = self._embed(tokens)
-        x = self._run_layers(cache, x, "prefill_packed", positions=positions,
-                             page_tables=None, lengths=None, true_lens=None,
-                             active=None,
-                             packed=(seg_ids, tok_pages, pack_pages, tok_pgslot))
-        x = self._norm(x, self.top, "final_norm")
-        last = x[0, last_idx.long()]
+        x, kw = self._packed_in(tokens, seg_ids, positions, tok_pages, pack_pages,
+                                tok_pgslot)
+        last = self._packed_out(self._run_layers(cache, x, "prefill_packed", **kw),
+                                last_idx)
         return cache, self._logits(last), last
 
     def decode(self, cache: KVCache, tokens, positions, page_tables,
@@ -524,13 +715,191 @@ class TransformerLM(tnn.Module):
         null page and attend over nothing (length 0; their logits are
         meaningless), so their positions need not fit ``page_tables``.
         Returns (cache, logits [B, V] fp32)."""
-        pos2 = positions[:, None].to(torch.int32)
-        lengths = (positions + 1).to(torch.int32)
-        if active is not None:
-            lengths = torch.where(active, lengths, 0).to(torch.int32)
-        x = self._embed(tokens[:, None])
-        x = self._run_layers(cache, x, "decode", positions=pos2,
-                             page_tables=page_tables, lengths=lengths,
-                             true_lens=None, active=active)
-        x = self._norm(x, self.top, "final_norm")
-        return cache, self._logits(x[:, 0])
+        x, kw = self._decode_in(tokens, positions, page_tables, active)
+        x = self._decode_out(self._run_layers(cache, x, "decode", **kw))
+        return cache, self._logits(x)
+
+
+def _finish_logits(logits, arch: ModelArch, lead) -> torch.Tensor:
+    """Padded-vocab fp32 logits [N, vocab_padded] -> softcapped
+    [*lead, vocab_size]."""
+    logits = nn.softcap(logits, arch.final_logit_softcap)
+    return logits.reshape(*lead, -1)[..., : arch.vocab_size]
+
+
+class TensorParallelLM:
+    """Tensor-parallel serving over a mesh's ``tensor`` axis, driven from
+    one process (the counterpart of the JAX engine's GSPMD model on a
+    TP mesh).
+
+    Every device of the mesh holds one shard: a :class:`TransformerLM`
+    over ``local_arch(arch, n)`` (its heads, KV heads and intermediate
+    columns, and its rows of the logits head) whose kernel wrappers run
+    unchanged.  The shards run in lockstep, one layer at a time; the two
+    row-parallel projections (attention-out and MLP-down) reduce their
+    partial sums across the shards: ``psum_linear`` in prefill and in
+    decode with the comm-overlap gate off, the pipelined ring
+    (``overlap_linear``, and ``all_gather_matmul`` for the plain
+    column-parallel q/gate/up) in decode with it on.  Quantized o/down
+    then take layer (i + 1) mod L's slab as their prefetch (K6): the JAX
+    model's rolled ``_prefetch_stack`` is an index here.  Logits are
+    each shard's vocabulary rows, gathered on the first shard's device.
+
+    The forward passes take and return the same things as
+    TransformerLM's, with a list of per-shard :class:`KVCache` for the
+    cache; inputs are copied to every shard's device.
+    """
+
+    def __init__(self, arch: ModelArch, mesh: Mesh,
+                 dtype: torch.dtype = torch.bfloat16):
+        self.arch, self.mesh, self.dtype = arch, mesh, dtype
+        self.n = mesh.size(AXIS_TENSOR)
+        check_tensor_parallel(arch, self.n)
+        self.device = mesh.devices[0]
+        local = local_arch(arch, self.n)
+        self.shards = [TransformerLM(local, dtype, dev, vocab_shard=(r, self.n))
+                       for r, dev in enumerate(mesh.devices)]
+        # the full-width model: names, shapes and synthetic draws (no
+        # weights of its own)
+        self.spec = TransformerLM(arch, dtype, self.device)
+        self.groups = self.spec.groups
+        self.vocab_padded = self.spec.vocab_padded
+        self.overlap = False       # the engine's comm-overlap gate
+
+    def _layer_specs(self) -> dict[str, tuple[int, ...]]:
+        return self.spec._layer_specs()
+
+    # ------------------------------------------------------------------
+    # Parameters
+    # ------------------------------------------------------------------
+
+    def _install(self, leaves, quantization: str = "") -> None:
+        """Cut each full leaf into its shards as it comes (quantizing a
+        plain projection whole first, on the first device) and install
+        the shard trees: at most one full leaf is held at a time."""
+        trees: list[dict] = [{} for _ in self.shards]
+        for group, name, t in leaves:
+            if quantization and group and is_quantized_leaf(group, name) \
+                    and not is_qtensor(t):
+                t = quantize_weight(t.to(device=self.device, dtype=self.dtype),
+                                    quantization)
+            for r, piece in enumerate(shard_leaf(group, name, t, self.n)):
+                dev = self.mesh.devices[r]
+                piece = ({k: v.to(dev) for k, v in piece.items()}
+                         if isinstance(piece, dict) else piece.to(dev))
+                (trees[r].setdefault(group, {}) if group else trees[r])[name] = piece
+            del t
+        for shard, tree in zip(self.shards, trees):
+            shard.load_params(tree)
+
+    def init_params(self, seed: int = 0, quantization: str = "") -> None:
+        """The synthetic weights of a single-device TransformerLM on the
+        first device, each leaf cut into its shards as it is drawn."""
+        self._install(self.spec.synthetic_leaves(seed, quantization))
+
+    def load_params(self, tree: dict, quantization: str = "") -> None:
+        """A full tree (plain or quantized, as
+        :meth:`TransformerLM.load_params` takes it), quantized whole under
+        ``quantization`` and cut into the shards."""
+        self._install(_leaves(tree), quantization)
+
+    def param_bytes(self) -> int:
+        return sum(m.param_bytes() for m in self.shards)
+
+    # ------------------------------------------------------------------
+    # Lockstep execution
+    # ------------------------------------------------------------------
+
+    def _rep(self, t):
+        """``t`` on every shard's device (one copy per distinct device)."""
+        if t is None:
+            return [None] * self.n
+        on: dict = {}
+        for d in self.mesh.devices:
+            if d not in on:
+                on[d] = t.to(d)
+        return [on[d] for d in self.mesh.devices]
+
+    def _each(self, method: str, *args) -> list:
+        """``shard.method(*args)`` on every shard, each with the args on its
+        device."""
+        reps = [self._rep(a) for a in args]
+        return [getattr(m, method)(*(r[i] for r in reps))
+                for i, m in enumerate(self.shards)]
+
+    def _prefetch(self, g: LayerGroup, i: int) -> dict:
+        """Each shard's layer (i + 1) mod L slab of the quantized o and
+        down weights ({} for plain weights)."""
+        j = (i + 1) % g.count
+        out = {}
+        for name in ("o", "down"):
+            if name in self.shards[0].qstacks[g.name]:
+                out[name] = [{k: t[j] for k, t in m.qstacks[g.name][name].items()}
+                             for m in self.shards]
+        return out
+
+    def _layer(self, xs, ps, caches, li, mode, kws, ov, pf):
+        sh, mesh, n = self.shards, self.mesh, self.n
+        hs = [m._norm(x, p, "attn_norm") for m, x, p in zip(sh, xs, ps)]
+        qs = [None] * n
+        if ov and ag_matmul_eligible(hs[0], ps[0]["q"], n):
+            qs = all_gather_matmul(hs, [p["q"] for p in ps], mesh)
+        o_in = [m._attention(h, p, c, li, mode, q_proj=q, **kw)
+                for m, h, p, c, q, kw in zip(sh, hs, ps, caches, qs, kws)]
+        wo = [p["o"] for p in ps]
+        attn = (overlap_linear(o_in, wo, mesh, prefetch=pf.get("o")) if ov
+                else psum_linear(o_in, wo, mesh))
+        res = [m._attn_residual(x, h, a, p)
+               for m, x, h, a, p in zip(sh, xs, hs, attn, ps)]
+        outs = nn.mlp([r[1] for r in res], ps, self.arch, mesh=mesh, overlap=ov,
+                      pf_down=pf.get("down"))
+        return [m._mlp_residual(r[0], o, p) for m, r, o, p in zip(sh, res, outs, ps)]
+
+    def _run_layers(self, caches, ins, mode):
+        """``ins``: each shard's (embedded input, layer inputs)."""
+        xs, kws = [x for x, _ in ins], [kw for _, kw in ins]
+        ov = self.overlap and mode == "decode"
+        for g in self.groups:
+            for i in range(g.count):
+                ps = [m._layer_params(g, i) for m in self.shards]
+                pf = self._prefetch(g, i) if ov else {}
+                xs = self._layer(xs, ps, caches, g.start + i, mode, kws, ov, pf)
+        return xs
+
+    def _logits(self, xs):
+        """Every shard's vocabulary rows, gathered on the first device."""
+        x = xs[0]
+        parts = [m._logits_local(xi.reshape(-1, xi.shape[-1])).to(self.device)
+                 for m, xi in zip(self.shards, xs)]
+        return _finish_logits(torch.cat(parts, dim=-1), self.arch, x.shape[:-1])
+
+    # ------------------------------------------------------------------
+    # Forward passes (TransformerLM's, over per-shard caches)
+    # ------------------------------------------------------------------
+
+    def prefill(self, caches: list, tokens, true_lens, page_tables,
+                start_pos=None):
+        ins = self._each("_prefill_in", tokens, true_lens, page_tables, start_pos)
+        xs = self._run_layers(caches, ins, "prefill")
+        lasts = self._each_out("_prefill_out", xs, true_lens)
+        return caches, self._logits(lasts), lasts[0]
+
+    def prefill_packed(self, caches: list, tokens, seg_ids, positions,
+                       tok_pages, last_idx, pack_pages=None, tok_pgslot=None):
+        if caches[0].quantized and (pack_pages is None or tok_pgslot is None):
+            raise ValueError("an int8 KV cache needs pack_pages and tok_pgslot")
+        ins = self._each("_packed_in", tokens, seg_ids, positions, tok_pages,
+                         pack_pages, tok_pgslot)
+        xs = self._run_layers(caches, ins, "prefill_packed")
+        lasts = self._each_out("_packed_out", xs, last_idx)
+        return caches, self._logits(lasts), lasts[0]
+
+    def decode(self, caches: list, tokens, positions, page_tables, active=None):
+        ins = self._each("_decode_in", tokens, positions, page_tables, active)
+        xs = self._run_layers(caches, ins, "decode")
+        return caches, self._logits([m._decode_out(x)
+                                     for m, x in zip(self.shards, xs)])
+
+    def _each_out(self, method: str, xs, t):
+        return [getattr(m, method)(x, ti)
+                for m, x, ti in zip(self.shards, xs, self._rep(t))]

@@ -15,8 +15,11 @@ import torch
 import torch.nn.functional as F
 
 from kaito_tpu_torch.device import resolve_device
+from kaito_tpu_torch.engine.ops.overlap_collectives import (
+    ag_matmul_eligible, all_gather_matmul, overlap_linear, psum_linear)
 from kaito_tpu_torch.engine.ops.quant_matmul import quant_linear
 from kaito_tpu_torch.models.metadata import ModelArch
+from kaito_tpu_torch.parallel.mesh import Mesh
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
@@ -147,20 +150,52 @@ def activation(x: torch.Tensor, name: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {name!r}")
 
 
-def mlp(x: torch.Tensor, p: dict, arch: ModelArch) -> torch.Tensor:
-    """Gated (SwiGLU/GeGLU) or classic 2-matrix MLP."""
+def _hidden(g: Optional[torch.Tensor], u: torch.Tensor, p: dict,
+            arch: ModelArch) -> torch.Tensor:
+    """The MLP's hidden activation from the gate (None for a classic MLP)
+    and up projections."""
     if arch.gated_mlp:
-        h = activation(linear(x, p["gate"]), arch.hidden_act) \
-            * linear(x, p["up"])
-    else:
-        h = linear(x, p["up"])
-        if "up_bias" in p:
-            h = h + p["up_bias"]
-        h = activation(h, arch.hidden_act)
-    out = linear(h, p["down"])
-    if "down_bias" in p:
-        out = out + p["down_bias"]
-    return out
+        return activation(g, arch.hidden_act) * u
+    if "up_bias" in p:
+        u = u + p["up_bias"]
+    return activation(u, arch.hidden_act)
+
+
+def _down_bias(out: torch.Tensor, p: dict) -> torch.Tensor:
+    return out + p["down_bias"] if "down_bias" in p else out
+
+
+def mlp(x, p, arch: ModelArch, mesh: Optional[Mesh] = None,
+        overlap: bool = False, pf_down: Optional[list] = None):
+    """Gated (SwiGLU/GeGLU) or classic 2-matrix MLP.
+
+    With a tensor-parallel ``mesh``, ``x`` and ``p`` are lists with one
+    entry per shard (the replicated input, each shard's parameters), and
+    so is the result.  gate/up are column-parallel and need no
+    collective; the row-parallel down projection's partial sums are
+    reduced by ``psum_linear``.  ``overlap`` (the comm-overlap decode
+    step) routes gate/up through the pipelined all-gather + matmul ring
+    where ``ag_matmul_eligible`` holds, and down through
+    ``overlap_linear`` with ``pf_down`` (each shard's next-layer down
+    slab, or None) as its layer-ahead prefetch."""
+    if mesh is None:
+        g = linear(x, p["gate"]) if arch.gated_mlp else None
+        h = _hidden(g, linear(x, p["up"]), p, arch)
+        return _down_bias(linear(h, p["down"]), p)
+    n = len(x)
+
+    def col(name):
+        ws = [pi[name] for pi in p]
+        if overlap and ag_matmul_eligible(x[0], ws[0], n):
+            return all_gather_matmul(x, ws, mesh)
+        return [linear(xi, wi) for xi, wi in zip(x, ws)]
+
+    gs = col("gate") if arch.gated_mlp else [None] * n
+    h = [_hidden(g, u, pi, arch) for g, u, pi in zip(gs, col("up"), p)]
+    wd = [pi["down"] for pi in p]
+    down = (overlap_linear(h, wd, mesh, prefetch=pf_down) if overlap
+            else psum_linear(h, wd, mesh))
+    return [_down_bias(d, pi) for d, pi in zip(down, p)]
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

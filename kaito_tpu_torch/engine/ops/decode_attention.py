@@ -183,7 +183,8 @@ def paged_decode_attention_cuda(
     # split-K scratch: per (sequence, head, split) accumulator + (max, sum)
     work = torch.empty(_workspace_floats()(B, H, D, ps, pmax),
                        dtype=torch.float32, device=q.device)
-    rc = _kernel()(
+    rc = build.launch(
+        q.device, _kernel(),
         _ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(out), _ptr(page_tables),
         _ptr(lengths), _ptr(work), _ptr(k_scale) if quantized else None,
         _ptr(v_scale) if quantized else None, B, H, Hkv, D, ps, pmax,

@@ -145,7 +145,8 @@ def flash_prefill_attention_cuda(
     true_len = _int32(true_len, (B,), q.device, "true_len")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    rc = _kernel("kaito_flash_prefill")(
+    rc = build.launch(
+        q.device, _kernel("kaito_flash_prefill"),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         true_len.data_ptr(), B, T, H, Hkv, D, int(min(window, 2**31 - 1)),
         float(scale), float(softcap or 0.0), _DTYPES[q.dtype],
@@ -176,7 +177,8 @@ def flash_prefill_packed_cuda(
     positions = _int32(positions, (B, T), q.device, "positions")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    rc = _kernel("kaito_flash_prefill_packed")(
+    rc = build.launch(
+        q.device, _kernel("kaito_flash_prefill_packed"),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         seg_ids.data_ptr(), positions.data_ptr(), B, T, H, Hkv, D,
         int(min(window, 2**31 - 1)), float(scale), float(softcap or 0.0),

@@ -90,6 +90,23 @@ def int4_group_size(w: dict) -> int:
     return (2 * w["q4"].shape[-2]) // w["scale"].shape[-2]
 
 
+def qtensor_logical_axes(ax: tuple, scheme: str = "int8") -> dict:
+    """Logical axes of the QTensor quantized from a weight whose axes are
+    ``ax``.  int8: q8 keeps the weight's axes; the per-out-channel scale
+    drops the contracted (in, second-to-last) dim.  int4: q4 keeps the
+    weight's axes (the packed dim is still the in axis, at half length),
+    and the scale's GROUP dim takes the in axis's assignment, so a TP
+    shard of packed rows owns exactly its groups' scale rows.
+
+    That holds only when every shard owns whole groups of
+    ``INT4_GROUP`` in-rows: a row-parallel weight's in-dim over the TP
+    degree must be a multiple of 128 (or the weight a single group).
+    The engine refuses a TP degree where it is not."""
+    if scheme == "int4":
+        return {"q4": ax, "scale": ax[:-2] + (ax[-2],) + ax[-1:]}
+    return {"q8": ax, "scale": ax[:-2] + ax[-1:]}
+
+
 def _pack_int4(q: torch.Tensor) -> torch.Tensor:
     """[.., in, out] integer nibbles in [-8, 7] -> [.., in/2, out] int8:
     byte i = (row 2i + 8) | ((row 2i+1 + 8) << 4)."""

@@ -14,6 +14,11 @@ pool, adapters, QoS and constrained decoding (``response_format`` and
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
 llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
+``--tensor-parallel-size N`` shards the model over the first N cards
+(``--comm-overlap`` adds the pipelined decode ring); a mesh that puts
+several shards on one device is built in Python
+(``kaito_tpu_torch.parallel.mesh.build_mesh``) and its engine handed to
+:func:`make_server`.
 """
 
 from __future__ import annotations
@@ -359,6 +364,15 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     action="store_false")
     ap.add_argument("--max-queue-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tensor-parallel-size", type=int, default=1,
+                    help="shards over the first N cards (raises when fewer "
+                         "are visible)")
+    ap.add_argument("--comm-overlap", action="store_true", default=None,
+                    help="collective-compute overlap for TP decode: pipelined "
+                         "ring reduce-scatter/all-gather in place of the "
+                         "all-reduce, plus layer-ahead prefetch of quantized "
+                         "slabs (default: follow KAITO_COMM_OVERLAP, off when "
+                         "unset)")
     args = ap.parse_args(argv)
     cfg = EngineConfig(
         model=args.model, port=args.port, max_model_len=args.max_model_len,
@@ -370,7 +384,8 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         max_prefill_tokens=args.max_prefill_tokens,
         prefill_pack=args.prefill_pack, decode_run_ahead=args.decode_run_ahead,
         enable_prefix_caching=args.enable_prefix_caching,
-        max_queue_len=args.max_queue_len, seed=args.seed)
+        max_queue_len=args.max_queue_len, seed=args.seed,
+        tensor_parallel=args.tensor_parallel_size, comm_overlap=args.comm_overlap)
     return cfg, args
 
 

@@ -11,7 +11,8 @@ kernel never loads a stale library.
 Bindings: pointers and the stream pass as ``ctypes.c_void_p``; the
 stream is ``torch.cuda.current_stream().cuda_stream``.  Each C entry
 point returns ``cudaGetLastError()`` after its launch and
-:func:`check` raises when that is not 0.
+:func:`check` raises when that is not 0.  :func:`launch` makes the
+tensors' device current around the call.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -106,6 +109,14 @@ def bind(stem: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(device: torch.device, fn: ctypes._CFuncPtr, *args) -> int:
+    """Call the kernel entry ``fn`` with ``device`` as the current CUDA
+    device: a ctypes launch goes to the current device, and the shards of
+    a tensor-parallel engine live on several."""
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def check(rc: int, what: str) -> None:

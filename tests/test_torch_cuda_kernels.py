@@ -168,3 +168,53 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     q = _rand(card, 1, 16, 4, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_prefill_attention_cuda(q, q[:, :, :2], q[:, :, :2], tl, BIG, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+@pytest.mark.parametrize("rows,K,N,n", [(1, 2048, 4096, 2), (8, 1024, 1024, 2),
+                                        (200, 512, 512, 4), (3, 256, 384, 2)])
+def test_prefetch_kernel_is_bitwise_the_plain_kernel(card, dtype, scheme, rows, K,
+                                                     N, n):
+    """K6 on every column chunk of a plane (the ring's strided views),
+    with the next layer's chunk prefetched: bitwise K4/K5's output on the
+    same views, and within their tolerance of the plain version."""
+    from kaito_tpu_torch.engine.ops.overlap_collectives import _slice_out
+    from kaito_tpu_torch.engine.ops.quant_matmul import (
+        prefetch_ok, quant_matmul_cuda, quant_matmul_plain)
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    w = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), scheme)
+    w_next = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), scheme)
+    x = _rand(card, rows, K, dtype=dtype)
+    nc = N // n
+    counter = f"launches_{scheme}_pf"
+    for c in range(n):
+        wc, pc = _slice_out(w, c * nc, nc), _slice_out(w_next, c * nc, nc)
+        assert prefetch_ok(wc, pc)
+        before = getattr(quant_matmul_cuda, counter)
+        out = quant_matmul_cuda(x, wc, pc)
+        base = quant_matmul_cuda(x, wc)
+        ref = quant_matmul_plain(x, wc)
+        torch.cuda.synchronize()
+        assert getattr(quant_matmul_cuda, counter) == before + 1
+        assert torch.equal(out, base)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= ATOL[dtype] * ref.float().abs().max().item()
+
+
+def test_prefetch_kernel_takes_the_ring_path(card):
+    """quant_linear with a next-layer slab launches K6, without one K4."""
+    from kaito_tpu_torch.engine.ops.quant_matmul import (quant_linear,
+                                                         quant_matmul_cuda)
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    w = quantize_weight(torch.randn(512, 256, generator=card, device="cuda"), "int8")
+    x = _rand(card, 2, 512, dtype=torch.bfloat16)
+    before = (quant_matmul_cuda.launches_int8, quant_matmul_cuda.launches_int8_pf)
+    a = quant_linear(x, w, prefetch=w)
+    b = quant_linear(x, w)
+    torch.cuda.synchronize()
+    assert (quant_matmul_cuda.launches_int8,
+            quant_matmul_cuda.launches_int8_pf) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(a, b)
