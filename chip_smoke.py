@@ -9,7 +9,11 @@ order; any failure exits non-zero and prints no result:
    checkout with ``nvcc``.
 2. Kernels against their plain versions on the card, at Llama-3.1-8B
    shapes, in bf16 and fp32: paged decode (K1), flash prefill over a
-   fresh chunk (K2) and over a segment-packed row (K3), paged decode
+   fresh chunk (K2) and over a segment-packed row (K3) at T = 512, 256
+   and 200 (ragged), with windows of 128 and 32 tokens, a softcap, and
+   packed layouts of four segments and of many 1-3-token ones (K2 and
+   K3 are timed at T = 512 and at T = 256, the bucket of phase 4's
+   200-token prompt), paged decode
    over int8 pages with scales (K1q, over the K1 pools quantized), and
    the fused dequant matmuls of int8 (K4) and int4 (K5) weights at the
    four projection shapes with 1, 8 and 200 rows; and K6, the int8 and
@@ -64,7 +68,12 @@ order; any failure exits non-zero and prints no result:
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
-``--sweep-run-ahead`` adds a decode sweep over ``decode_run_ahead`` at
+``--phase2-only`` stops after phase 2 and prints the kernel records
+(without launch counts) and no result line; ``--first-leg-only`` skips
+phase 3 and every server leg after phase 4's bf16 one (with
+``--profile``, the quickest reading of TTFT and prefill device time)
+and prints no result line either.  ``--sweep-run-ahead`` adds
+a decode sweep over ``decode_run_ahead`` at
 full width, with the rule that picks the engine's CUDA auto value
 (:func:`pick_run_ahead`; PERF.md).  On a machine with two cards or more,
 each phase 6 leg runs on the first two cards and again with both shards
@@ -573,80 +582,35 @@ def _packed_layout(torch, T, seg_lens):
     return segs.cuda(), poss.cuda()
 
 
-def check_flash(torch, records):
+# phase 2's packed layouts: (T, segment lengths); pads fill the rest
+FLASH_PACKED = {512: (100, 150, 120, 90),          # 460 tokens + 52 pad
+                256: (50, 75, 60, 45)}             # 230 tokens + 26 pad
+# many short segments (1-3 tokens) and one that spans three 64-key tiles
+SHORT_SEGMENTS = (1, 2, 3) * 20 + (1, 3, 170) + (2,) * 10
+
+
+def _time_flash(torch, T, gen, scale):
+    """K2 and K3 bf16 at B=1, T, H=32, Hkv=8, D=128: the kernel, the plain
+    version, one SDPA call for the same function, and the bound."""
     from kaito_tpu_torch.engine.ops.flash_prefill import (
         flash_prefill_attention_cuda, flash_prefill_attention_plain,
         flash_prefill_packed_cuda, flash_prefill_packed_plain)
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    T, D = 512, 128
-    scale = 1.0 / math.sqrt(D)
-    seg_lens = (100, 150, 120, 90)           # 460 tokens + 52 pad
-    valid = sum(seg_lens)
-    segs, poss = _packed_layout(torch, T, seg_lens)
-    err2 = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    err3 = dict(err2)
-    for dtype in (torch.bfloat16, torch.float32):
-        for true_len, window, softcap in ((T, BIG, None), (300, 128, None),
-                                          (T - 7, BIG, 30.0)):
-            q, k, v = _flash_inputs(torch, dtype, T, gen)
-            tl = torch.tensor([true_len], dtype=torch.int32, device="cuda")
-            out = flash_prefill_attention_cuda(q, k, v, tl, window, scale=scale,
-                                               softcap=softcap)
-            ref = flash_prefill_attention_plain(q, k, v, tl, window, scale=scale,
-                                                softcap=softcap)
-            torch.cuda.synchronize()
-            e = (out.float() - ref.float())[:, :true_len].abs().max().item()
-            err2[dtype] = max(err2[dtype], e)
-            log(f"K2 {dtype} true_len={true_len} window={window} "
-                f"softcap={softcap}: max err {e:.3g}")
-        for window, softcap in ((BIG, None), (64, None), (BIG, 30.0)):
-            q, k, v = _flash_inputs(torch, dtype, T, gen)
-            out = flash_prefill_packed_cuda(q, k, v, segs, poss, window,
-                                            scale=scale, softcap=softcap)
-            ref = flash_prefill_packed_plain(q, k, v, segs, poss, window,
-                                             scale=scale, softcap=softcap)
-            torch.cuda.synchronize()
-            e = (out.float() - ref.float())[:, :valid].abs().max().item()
-            err3[dtype] = max(err3[dtype], e)
-            log(f"K3 {dtype} segments={seg_lens} window={window} "
-                f"softcap={softcap}: max err {e:.3g}")
-    # ragged T (not a multiple of the 64-row tile) against the plain version
-    q, k, v = _flash_inputs(torch, torch.float32, 200, gen, H=8, Hkv=2, D=64)
-    tl = torch.tensor([200], dtype=torch.int32, device="cuda")
-    e = (flash_prefill_attention_cuda(q, k, v, tl, BIG, scale=0.125)
-         - flash_prefill_attention_plain(q, k, v, tl, BIG, scale=0.125)
-         ).abs().max().item()
-    log(f"K2 float32 T=200 D=64 (ragged tail): max err {e:.3g}")
-    err2[torch.float32] = max(err2[torch.float32], e)
-
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    seg_lens = FLASH_PACKED[T]
+    segs, poss = _packed_layout(torch, T, seg_lens)
     q, k, v = _flash_inputs(torch, torch.bfloat16, T, gen)
-    H, Hkv = q.shape[2], k.shape[2]
+    H, D = q.shape[2], q.shape[3]
     tl = torch.tensor([T], dtype=torch.int32, device="cuda")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    el = 2
-    io_bytes = (2 * q.numel() + k.numel() + v.numel()) * el
-
+    io_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     ms2, host2 = time_ms(lambda: flash_prefill_attention_cuda(q, k, v, tl, BIG,
                                                              scale=scale))
     plain2 = time_ms(lambda: flash_prefill_attention_plain(q, k, v, tl, BIG,
                                                            scale=scale), iters=5)[0]
     lib2 = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale,
                                 enable_gqa=True))[0]
-    flops2 = 4.0 * H * D * T * (T + 1) / 2
-    b2, by2 = bound(io_bytes + 4, flops2)
-    records["flash_prefill_attention"] = dict(
-        name="flash_prefill_attention", route="cuda",
-        source="kaito_tpu_torch/csrc/flash_prefill.cu",
-        replaces="kaito_tpu/engine/ops/flash_prefill.py:225",
-        shape="B=1 T=512 H=32 Hkv=8 D=128 causal bf16",
-        max_abs_err=err2[torch.bfloat16], max_err_bf16=err2[torch.bfloat16],
-        max_err_fp32=err2[torch.float32], ms=ms2, kernel_ms=ms2,
-        plain_ms=plain2, bound_ms=b2, bound_by=by2, library_ms=lib2,
-        host_ms=host2)
-
+    b2, by2 = bound(io_bytes + 4, 4.0 * H * D * T * (T + 1) / 2)
     ms3, host3 = time_ms(lambda: flash_prefill_packed_cuda(q, k, v, segs, poss, BIG,
                                                            scale=scale))
     plain3 = time_ms(lambda: flash_prefill_packed_plain(q, k, v, segs, poss, BIG,
@@ -656,17 +620,84 @@ def check_flash(torch, records):
     mask = ((sq == sk) & (sq >= 0) & (pk <= pq))[None, None]
     lib3 = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale,
                                 enable_gqa=True))[0]
-    flops3 = sum(4.0 * H * D * n * (n + 1) / 2 for n in seg_lens)
-    b3, by3 = bound(io_bytes + 2 * T * 4, flops3)
-    records["flash_prefill_packed"] = dict(
-        name="flash_prefill_packed", route="cuda",
-        source="kaito_tpu_torch/csrc/flash_prefill.cu",
-        replaces="kaito_tpu/engine/ops/flash_prefill.py:163",
-        shape="B=1 T=512 (segments 100,150,120,90 + 52 pad) H=32 Hkv=8 D=128 bf16",
-        max_abs_err=err3[torch.bfloat16], max_err_bf16=err3[torch.bfloat16],
-        max_err_fp32=err3[torch.float32], ms=ms3, kernel_ms=ms3,
-        plain_ms=plain3, bound_ms=b3, bound_by=by3, library_ms=lib3,
-        host_ms=host3)
+    b3, by3 = bound(io_bytes + 2 * T * 4,
+                    sum(4.0 * H * D * n * (n + 1) / 2 for n in seg_lens))
+    log(f"T={T} bf16: K2 {ms2:.4f} ms (plain {plain2:.4f}, SDPA causal "
+        f"{lib2:.4f}, bound {b2:.5f} by {by2}); K3 segments {seg_lens} "
+        f"{ms3:.4f} ms (plain {plain3:.4f}, SDPA block mask {lib3:.4f}, bound "
+        f"{b3:.5f} by {by3})")
+    return (dict(ms=ms2, host_ms=host2, plain_ms=plain2, library_ms=lib2,
+                 bound_ms=b2, bound_by=by2),
+            dict(ms=ms3, host_ms=host3, plain_ms=plain3, library_ms=lib3,
+                 bound_ms=b3, bound_by=by3, segments=seg_lens))
+
+
+def check_flash(torch, records):
+    from kaito_tpu_torch.engine.ops.flash_prefill import (
+        flash_prefill_attention_cuda, flash_prefill_attention_plain,
+        flash_prefill_packed_cuda, flash_prefill_packed_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    err2 = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    err3 = dict(err2)
+    # (T, H, Hkv, D) x (true_len, window, softcap) for K2; the packed
+    # layouts of K3 at each T
+    shapes = ((512, 32, 8, 128), (256, 32, 8, 128), (200, 8, 2, 64),
+              (200, 32, 8, 128))
+    for dtype in (torch.bfloat16, torch.float32):
+        for T, H, Hkv, D in shapes:
+            scale = 1.0 / math.sqrt(D)
+            for true_len, window, softcap in ((T, BIG, None), (T * 3 // 5, 128, None),
+                                              (T - 7, BIG, 30.0), (T, 32, None)):
+                q, k, v = _flash_inputs(torch, dtype, T, gen, H=H, Hkv=Hkv, D=D)
+                tl = torch.tensor([true_len], dtype=torch.int32, device="cuda")
+                out = flash_prefill_attention_cuda(q, k, v, tl, window, scale=scale,
+                                                   softcap=softcap)
+                ref = flash_prefill_attention_plain(q, k, v, tl, window, scale=scale,
+                                                    softcap=softcap)
+                torch.cuda.synchronize()
+                e = (out.float() - ref.float())[:, :true_len].abs().max().item()
+                err2[dtype] = max(err2[dtype], e)
+                log(f"K2 {dtype} T={T} H={H} Hkv={Hkv} D={D} true_len={true_len} "
+                    f"window={window} softcap={softcap}: max err {e:.3g}")
+            layouts = [FLASH_PACKED.get(T, (T // 3, T // 4, T // 5))]
+            if T == 512:
+                layouts.append(SHORT_SEGMENTS)
+            for seg_lens in layouts:
+                segs, poss = _packed_layout(torch, T, seg_lens)
+                valid = sum(seg_lens)
+                for window, softcap in ((BIG, None), (64, None), (BIG, 30.0),
+                                        (32, None)):
+                    q, k, v = _flash_inputs(torch, dtype, T, gen, H=H, Hkv=Hkv, D=D)
+                    out = flash_prefill_packed_cuda(q, k, v, segs, poss, window,
+                                                    scale=scale, softcap=softcap)
+                    ref = flash_prefill_packed_plain(q, k, v, segs, poss, window,
+                                                     scale=scale, softcap=softcap)
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(out.float()).all():
+                        raise SmokeFailure(f"K3 {dtype} T={T}: non-finite output")
+                    e = (out.float() - ref.float())[:, :valid].abs().max().item()
+                    err3[dtype] = max(err3[dtype], e)
+                    log(f"K3 {dtype} T={T} D={D} {len(seg_lens)} segments "
+                        f"({valid} tokens) window={window} softcap={softcap}: "
+                        f"max err {e:.3g}")
+
+    scale = 1.0 / math.sqrt(128)
+    t512 = _time_flash(torch, 512, gen, scale)
+    t256 = _time_flash(torch, 256, gen, scale)
+    for name, i, src_line, shape in (
+            ("flash_prefill_attention", 0, 225,
+             "B=1 T=512 H=32 Hkv=8 D=128 causal bf16"),
+            ("flash_prefill_packed", 1, 163,
+             "B=1 T=512 (segments 100,150,120,90 + 52 pad) H=32 Hkv=8 D=128 bf16")):
+        err = (err2, err3)[i]
+        records[name] = dict(
+            name=name, route="cuda", source="kaito_tpu_torch/csrc/flash_prefill.cu",
+            replaces=f"kaito_tpu/engine/ops/flash_prefill.py:{src_line}",
+            shape=shape, max_abs_err=err[torch.bfloat16],
+            max_err_bf16=err[torch.bfloat16], max_err_fp32=err[torch.float32],
+            kernel_ms=t512[i]["ms"], t256=t256[i], **t512[i])
     for name, err in (("K2", err2), ("K3", err3)):
         if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
             raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
@@ -976,7 +1007,10 @@ def profile_request(engine, base):
             rows.append((e.key, e.count, dev / 1e3))
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    res = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+    flash = sum(r[2] for r in rows if "flash" in r[0])
+    log(f"profile: flash prefill kernels (K2, K3) {flash:.3f} device ms in "
+        f"{sum(r[1] for r in rows if 'flash' in r[0])} launches")
+    res = dict(wall_ms=wall * 1e3, device_busy_ms=busy, flash_device_ms=flash,
                device_idle_share=1.0 - busy / (wall * 1e3),
                kernel_launches=sum(r[1] for r in rows), decode_steps=steps,
                top=[dict(name=k[:80], count=c, ms=ms) for k, c, ms in rows[:12]])
@@ -1099,6 +1133,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width request of each server "
                          "leg with torch.profiler")
+    ap.add_argument("--phase2-only", action="store_true",
+                    help="stop after phase 2 (build and kernel checks) and print "
+                         "the kernel records without launches; no result line")
+    ap.add_argument("--first-leg-only", action="store_true",
+                    help="skip the goldens (phase 3) and every server leg after "
+                         "phase 4's bf16 one; no result line")
     ap.add_argument("--time-limit", type=float, default=1100.0,
                     help="seconds after which the run fails")
     args = ap.parse_args(argv)
@@ -1130,7 +1170,8 @@ def main(argv=None) -> int:
         log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
         for name, text in logs.items():
             for line in text.splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers", "spill",
+                                           "setmaxnreg", "arning")):
                     log(f"  {name}: {line.strip()}")
 
         records: dict = {}
@@ -1139,8 +1180,13 @@ def main(argv=None) -> int:
             check_flash(torch, records)
             check_quant_matmul(torch, records)
             check_quant_matmul_pf(torch, records)
-            golden_err = {sec: check_goldens(sec) for sec in GOLDEN_MODES}
-            for tp, sections in TP_GOLDENS:
+            if args.phase2_only:
+                print(card)
+                print(json.dumps({"kernels": [records[k[0]] for k in KERNELS]}))
+                return 0
+            golden_err = {} if args.first_leg_only else {
+                sec: check_goldens(sec) for sec in GOLDEN_MODES}
+            for tp, sections in () if args.first_leg_only else TP_GOLDENS:
                 for sec in sections:
                     for ov in (False, True):
                         golden_err[f"{sec} TP={tp} overlap={ov}"] = check_goldens(
@@ -1173,6 +1219,8 @@ def main(argv=None) -> int:
             legs = [(label + where, flags, counted, burst, tp, shared)
                     for label, flags, counted, burst, tp in legs
                     for where, shared in (placements if tp > 1 else (("", False),))]
+            if args.first_leg_only:
+                legs = legs[:1]
             stats = {}
             for i, (label, flags, counted, burst, tp, shared) in enumerate(legs):
                 launches, stats[label] = run_server_phase(
@@ -1191,6 +1239,9 @@ def main(argv=None) -> int:
                 log(f"{label} on {card}: TTFT {stats[label]['ttft_ms']:.1f} ms "
                     f"({stats[label]['prompt_tokens']}-token prompt, alone), decode "
                     f"{stats[label]['decode_tok_s']:.1f} tok/s (one sequence)")
+        if args.first_leg_only:
+            print(json.dumps({"server_legs": stats}))
+            return 0
         log(f"golden logprob diffs {golden_err}")
         print(json.dumps({"server_legs": stats,
                           "golden_max_logprob_diff": golden_err}))

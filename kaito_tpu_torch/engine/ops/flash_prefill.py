@@ -16,6 +16,14 @@ Each wrapper launches its kernel for tensors on the card and runs its
 plain version for tensors on the CPU; a CUDA tensor it cannot take
 raises.  ``launches`` on each wrapper counts kernel launches.  The
 kernels mask the ragged tail themselves, so T needs no block multiple.
+
+In bf16 both products run on the tensor cores (``wgmma``) and K/V tiles
+arrive by TMA into a two-stage ring; the key tiles each 64-row query
+tile visits, and the ones on which it evaluates the mask, follow
+:func:`key_tile_range` and :func:`tile_fully_visible`, which the CUDA
+source mirrors.  fp32 (the goldens) runs on the CUDA cores.  TMA reads
+q, k and v from 16-byte aligned addresses: a view that is not gets
+copied first.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from kaito_tpu_torch.ops import build
 
 NEG_INF = -1e30
+BIG_WINDOW = 2**31 - 1
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,6 +63,24 @@ def _flash_plain(q, k, v, mask, scale, softcap):
     return out.transpose(1, 2).to(q.dtype)
 
 
+def fresh_mask(T: int, true_len: torch.Tensor, window: int) -> torch.Tensor:
+    """[B, T, T] (query, key) visibility over fresh chunks: causal, inside
+    the window, keys below ``true_len``."""
+    pos = torch.arange(T, device=true_len.device)
+    qp, kp = pos[:, None], pos[None, :]
+    mask = (kp <= qp) & (kp > qp - window)
+    return mask[None] & (kp[None] < true_len.long()[:, None, None])
+
+
+def packed_mask(seg_ids: torch.Tensor, positions: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """[B, T, T] visibility over segment-packed rows: same segment (not a
+    pad), causal on within-segment positions, inside the window."""
+    sq, sk = seg_ids[:, :, None], seg_ids[:, None, :]
+    pq, pk = positions[:, :, None], positions[:, None, :]
+    return (sq == sk) & (sq >= 0) & (pk <= pq) & (pk > pq - window)
+
+
 def flash_prefill_attention_plain(
     q: torch.Tensor,            # [B, T, H, D]
     k: torch.Tensor,            # [B, T, Hkv, D]
@@ -64,12 +91,8 @@ def flash_prefill_attention_plain(
     scale: float,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    T = q.shape[1]
-    pos = torch.arange(T, device=q.device)
-    qp, kp = pos[:, None], pos[None, :]
-    mask = (kp <= qp) & (kp > qp - window)
-    mask = mask[None] & (kp[None] < true_len.long()[:, None, None])
-    return _flash_plain(q, k, v, mask, scale, softcap)
+    return _flash_plain(q, k, v, fresh_mask(q.shape[1], true_len, window),
+                        scale, softcap)
 
 
 def flash_prefill_packed_plain(
@@ -83,10 +106,66 @@ def flash_prefill_packed_plain(
     scale: float,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    sq, sk = seg_ids[:, :, None], seg_ids[:, None, :]
-    pq, pk = positions[:, :, None], positions[:, None, :]
-    mask = (sq == sk) & (sq >= 0) & (pk <= pq) & (pk > pq - window)
-    return _flash_plain(q, k, v, mask, scale, softcap)
+    return _flash_plain(q, k, v, packed_mask(seg_ids, positions, window),
+                        scale, softcap)
+
+
+# Tile schedule of the bf16 kernels (csrc/flash_prefill.cu mirrors both
+# functions): a CTA owns BLOCK_Q query rows and visits key tiles of BLOCK_K.
+BLOCK_Q = 64
+BLOCK_K = 64
+
+
+def key_tile_range(mode: str, q_start: int, block_q: int, block_k: int, T: int,
+                   true_len: int = 0, window: int = BIG_WINDOW,
+                   seg_ids=None) -> tuple[int, int]:
+    """(first, last) key tile, inclusive, that the query tile starting at
+    ``q_start`` visits; ``last < first`` when it visits none (its rows
+    are written as zeros).
+
+    ``mode="fresh"``: keys up to the tile's last row and below
+    ``true_len``, and none below ``q_start - window + 1`` (the first
+    row's window).  ``mode="packed"``: ``seg_ids`` is one row's [T]
+    segment ids (-1 = pad); keys from the first token of the segment of
+    the tile's first valid row, found from ``seg_ids`` alone, up to the
+    tile's last valid row.  Segments are contiguous and ordered along
+    the row, as the Pallas kernel's own causal skip assumes."""
+    q_end = min(q_start + block_q, T)
+    if mode == "fresh":
+        lo = max(0, q_start - window + 1)
+        hi = min(q_end, true_len, T)          # exclusive
+    else:
+        rows = [t for t in range(q_start, q_end) if int(seg_ids[t]) >= 0]
+        if not rows:
+            return 0, -1
+        lo, s0 = rows[0], int(seg_ids[rows[0]])
+        while lo > 0 and int(seg_ids[lo - 1]) == s0:
+            lo -= 1
+        hi = rows[-1] + 1
+    if hi <= lo:
+        return 0, -1
+    return lo // block_k, (hi - 1) // block_k
+
+
+def tile_fully_visible(mode: str, q_start: int, k_start: int, block_q: int,
+                       block_k: int, T: int, true_len: int = 0,
+                       window: int = BIG_WINDOW, seg_ids=None,
+                       positions=None) -> bool:
+    """True when every (query, key) pair of the tile pair is visible, so
+    the kernel skips the per-element mask there.  Rows and keys at or
+    past T never count as visible.  In packed mode positions are taken
+    to rise along the row within a segment."""
+    q_end, k_end = min(q_start + block_q, T), k_start + block_k
+    if k_end > T:
+        return False
+    if mode == "fresh":
+        return (k_end - 1 <= q_start and k_end <= true_len
+                and k_start > q_end - 1 - window)
+    s = int(seg_ids[q_start])
+    return (s >= 0 and all(int(seg_ids[i]) == s
+                           for i in (q_end - 1, k_start, k_end - 1))
+            and int(positions[k_end - 1]) <= int(positions[q_start])
+            and int(positions[k_start]) > int(positions[q_end - 1]) - window)
 
 
 # (q, k, v, out, *index tensors, B, T, H, Hkv, D, window, scale, softcap,
@@ -119,6 +198,12 @@ def _check_qkv(q, k, v):
     return B, T, H, Hkv, D
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (a TMA rule)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _int32(t: torch.Tensor, shape, device, name):
     if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape) \
             or t.device != device:
@@ -143,7 +228,7 @@ def flash_prefill_attention_cuda(
                                              scale=scale, softcap=softcap)
     B, T, H, Hkv, D = _check_qkv(q, k, v)
     true_len = _int32(true_len, (B,), q.device, "true_len")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     rc = build.launch(
         q.device, _kernel("kaito_flash_prefill"),
@@ -175,7 +260,7 @@ def flash_prefill_packed_cuda(
     B, T, H, Hkv, D = _check_qkv(q, k, v)
     seg_ids = _int32(seg_ids, (B, T), q.device, "seg_ids")
     positions = _int32(positions, (B, T), q.device, "positions")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     rc = build.launch(
         q.device, _kernel("kaito_flash_prefill_packed"),

@@ -58,10 +58,25 @@ def test_decode_kernel(card, dtype, D, Hkv, G, ps, window, softcap):
     assert (out.float() - ref.float()).abs().max().item() <= ATOL[dtype]
 
 
+def _packed(T, seg_lens, B=2):
+    segs = torch.full((B, T), -1, dtype=torch.int32)
+    poss = torch.zeros((B, T), dtype=torch.int32)
+    off = 0
+    for si, n in enumerate(seg_lens):
+        segs[:, off:off + n] = si
+        poss[:, off:off + n] = torch.arange(n, dtype=torch.int32)
+        off += n
+    return segs.cuda(), poss.cuda(), off
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,D,Hkv,G", [(64, 32, 2, 2), (200, 64, 1, 4),
-                                       (256, 128, 8, 4)])
-@pytest.mark.parametrize("window,softcap", [(BIG, None), (9, None), (BIG, 25.0)])
+                                       (256, 128, 8, 4), (1, 128, 8, 4),
+                                       (63, 64, 2, 8), (65, 32, 4, 1),
+                                       (512, 128, 8, 4), (1000, 64, 1, 8),
+                                       (200, 32, 2, 8), (130, 128, 4, 1)])
+@pytest.mark.parametrize("window,softcap", [(BIG, None), (9, None), (BIG, 25.0),
+                                            (40, None)])
 def test_flash_kernels(card, dtype, T, D, Hkv, G, window, softcap):
     from kaito_tpu_torch.engine.ops.flash_prefill import (
         flash_prefill_attention_cuda, flash_prefill_attention_plain,
@@ -72,24 +87,49 @@ def test_flash_kernels(card, dtype, T, D, Hkv, G, window, softcap):
     v = _rand(card, 2, T, Hkv, D, dtype=dtype)
     tl = torch.tensor([T, T // 2 + 3], dtype=torch.int32, device="cuda")
     kw = dict(scale=D ** -0.5, softcap=softcap)
+    before = (flash_prefill_attention_cuda.launches,
+              flash_prefill_packed_cuda.launches)
     out = flash_prefill_attention_cuda(q, k, v, tl, window, **kw)
     ref = flash_prefill_attention_plain(q, k, v, tl, window, **kw)
     for b in range(2):
-        n = int(tl[b])
+        n = min(int(tl[b]), T)
         assert (out[b, :n].float() - ref[b, :n].float()).abs().max().item() \
             <= ATOL[dtype]
-    seg_lens = (T // 3, T // 4, T // 5)
-    segs = torch.full((2, T), -1, dtype=torch.int32)
-    poss = torch.zeros((2, T), dtype=torch.int32)
-    off = 0
-    for si, n in enumerate(seg_lens):
-        segs[:, off:off + n] = si
-        poss[:, off:off + n] = torch.arange(n, dtype=torch.int32)
-        off += n
-    segs, poss = segs.cuda(), poss.cuda()
+    segs, poss, off = _packed(T, (max(T // 3, 1), T // 4, T // 5))
     out = flash_prefill_packed_cuda(q, k, v, segs, poss, window, **kw)
     ref = flash_prefill_packed_plain(q, k, v, segs, poss, window, **kw)
     torch.cuda.synchronize()
+    assert (flash_prefill_attention_cuda.launches,
+            flash_prefill_packed_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(out.float()).all()
+    assert (out[:, :off].float() - ref[:, :off].float()).abs().max().item() \
+        <= ATOL[dtype]
+
+
+# many 1-3-token segments, then one spanning three 64-key tiles, then pads
+SHORT_SEGMENTS = (1, 2, 3, 1, 1, 3, 2, 2) * 5 + (150,) + (1, 3, 2) * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Hkv,G", [(32, 2, 4), (64, 1, 8), (128, 8, 4)])
+@pytest.mark.parametrize("window,softcap", [(BIG, None), (2, None), (50, 30.0)])
+def test_flash_packed_short_segments(card, dtype, D, Hkv, G, window, softcap):
+    """Pad rows stay finite; every valid row matches the plain version."""
+    from kaito_tpu_torch.engine.ops.flash_prefill import (
+        flash_prefill_packed_cuda, flash_prefill_packed_plain)
+
+    T = 300
+    segs, poss, off = _packed(T, SHORT_SEGMENTS)
+    q = _rand(card, 2, T, Hkv * G, D, dtype=dtype)
+    k = _rand(card, 2, T, Hkv, D, dtype=dtype)
+    v = _rand(card, 2, T, Hkv, D, dtype=dtype)
+    kw = dict(scale=D ** -0.5, softcap=softcap)
+    before = flash_prefill_packed_cuda.launches
+    out = flash_prefill_packed_cuda(q, k, v, segs, poss, window, **kw)
+    ref = flash_prefill_packed_plain(q, k, v, segs, poss, window, **kw)
+    torch.cuda.synchronize()
+    assert flash_prefill_packed_cuda.launches == before + 1
+    assert torch.isfinite(out.float()).all()
     assert (out[:, :off].float() - ref[:, :off].float()).abs().max().item() \
         <= ATOL[dtype]
 
