@@ -16,7 +16,10 @@ order; any failure exits non-zero and prints no result:
    200-token prompt), paged decode
    over int8 pages with scales (K1q, over the K1 pools quantized), and
    the fused dequant matmuls of int8 (K4) and int4 (K5) weights at the
-   four projection shapes with 1, 8 and 200 rows; and K6, the int8 and
+   four projection shapes with 1, 8, 17, 64, 65, 200 and 256 rows (bf16
+   calls of 17-256 rows take the wide path, whose launch counter must
+   follow), timed at 8 and 200 rows at every shape and also at 1, 64 and
+   256 rows at gate/up; and K6, the int8 and
    int4 kernels with the next layer's slab prefetched into L2, at the
    TP=2 ring-chunk shapes (o and down chunks, strided views), whose
    output must be bitwise K4/K5's.  K1 runs with the
@@ -56,8 +59,9 @@ order; any failure exits non-zero and prints no result:
 5. Quantized, full width: the server, configured by its own command line
    (``--quantization int4 --kv-cache-dtype int8``), serves the same model
    and request mix; then a shorter ``--quantization int8`` leg (bf16 KV).
-   The launch counts of K5 and K1q (int4 leg) and of K4 (int8 leg) are
-   zeroed before each leg and must grow.
+   The launch counts of K5 and K1q (int4 leg) and of K4 (int8 leg), and
+   of K5's and K4's launches on the wide (prefill-row) path, are zeroed
+   before each leg and must grow.
 6. Tensor parallel, full width: the same model at TP=2 with the
    comm-overlap ring, its engine built on an explicit mesh (two cards, or
    two slots of one card, which the log names) and handed to
@@ -72,7 +76,12 @@ object with the kernel records, and ``{"ok": true, "device": ...}``.
 (without launch counts) and no result line; ``--first-leg-only`` skips
 phase 3 and every server leg after phase 4's bf16 one (with
 ``--profile``, the quickest reading of TTFT and prefill device time)
-and prints no result line either.  ``--sweep-run-ahead`` adds
+and prints no result line either; nor does ``--leg NAME`` (one of
+``bf16``, ``int4-kv8``, ``int8``, ``tp2-int4-kv8``, ``tp2-int8``), which
+builds the kernels and runs that server leg alone, phases 2 and 3
+skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
+its quantized matmuls' device time per 200-token prefill, in one call
+for a parent tree and this one.  ``--sweep-run-ahead`` adds
 a decode sweep over ``decode_run_ahead`` at
 full width, with the rule that picks the engine's CUDA auto value
 (:func:`pick_run_ahead`; PERF.md).  On a machine with two cards or more,
@@ -127,12 +136,24 @@ KERNELS = (
 )
 
 
+# K4/K5's launches on the wide (prefill-row) path: (counter name, the
+# kernel record it belongs to, the wrapper's counter)
+WIDE_COUNTERS = (
+    ("quant_matmul_int8_wide", "quant_matmul_int8", "launches_int8_wide"),
+    ("quant_matmul_int4_wide", "quant_matmul_int4", "launches_int4_wide"),
+)
+
+
 class SmokeFailure(RuntimeError):
     pass
 
 
 def _counter(name):
-    """(wrapper, counter attribute) of the kernel record ``name``."""
+    """(wrapper, counter attribute) of the kernel record or wide-path
+    counter ``name``."""
+    for wide, record, attr in WIDE_COUNTERS:
+        if name == wide:
+            return _counter(record)[0], attr
     _, mod, fn, attr = next(k for k in KERNELS if k[0] == name)
     return getattr(importlib.import_module(mod), fn), attr
 
@@ -359,10 +380,18 @@ def _cold_cycle(tensors_of, nbytes):
     return lambda: copies[next(it) % len(copies)]
 
 
+# K4/K5 rows checked at every projection shape (17-256: the wide path in
+# bf16) and timed: every shape at 8 and 200 rows, gate/up also at these
+QM_CHECK_ROWS = (1, 8, 17, 64, 65, 200, 256)
+QM_TIME_ROWS = (8, 200)
+QM_TIME_ROWS_GATE_UP = (1, 8, 64, 200, 256)
+
+
 def check_quant_matmul(torch, records):
     """K4 and K5 against their plain version at the projection shapes,
-    rows 1, 8 and 200, bf16 and fp32; then timed in bf16 (gate/up at
-    every row count, the other shapes at 8 rows) beside torch.matmul
+    rows 1-256 (``QM_CHECK_ROWS``), bf16 and fp32, with the wide-path
+    counter growing on every bf16 call of 17-256 rows; then timed in bf16
+    at 8 and 200 rows (gate/up also at 1, 64 and 256) beside torch.matmul
     against the dequantized bf16 weight."""
     from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
                                                          quant_matmul_plain)
@@ -374,22 +403,34 @@ def check_quant_matmul(torch, records):
             ("int8", "quant_matmul_int8", "kaito_tpu/engine/ops/quant_matmul.py:109"),
             ("int4", "quant_matmul_int4", "kaito_tpu/engine/ops/quant_matmul.py:129")):
         err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        err_wide = 0.0
         timed = []
+        wide = f"launches_{scheme}_wide"
         for label, (K, N) in PROJ_SHAPES.items():
             w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda")
                                 / math.sqrt(K), scheme)
-            for rows in (1, 8, 200):
+            for rows in QM_CHECK_ROWS:
                 for dtype in (torch.bfloat16, torch.float32):
                     x = torch.randn(rows, K, generator=gen, device="cuda").to(dtype)
+                    # (a parent under comparison has no wide counter)
+                    before = getattr(quant_matmul_cuda, wide, 0)
                     out = quant_matmul_cuda(x, w)
                     ref = quant_matmul_plain(x, w).float()
                     torch.cuda.synchronize()
                     e = (out.float() - ref).abs().max().item() / max(
                         ref.abs().max().item(), 1e-30)
                     err[dtype] = max(err[dtype], e)
-            log(f"{name} {label} [{K}x{N}] rows 1/8/200: max relative err "
-                f"bf16 {err[torch.bfloat16]:.3g} fp32 {err[torch.float32]:.3g}")
-            for rows in ((1, 8, 200) if label == "gate/up" else (8,)):
+                    on_wide = dtype == torch.bfloat16 and 16 < rows <= 256
+                    if hasattr(quant_matmul_cuda, wide) and \
+                            getattr(quant_matmul_cuda, wide) - before != int(on_wide):
+                        raise SmokeFailure(f"{name} {label} rows {rows} {dtype}: the "
+                                           f"wide path's counter did not follow")
+                    if on_wide:
+                        err_wide = max(err_wide, e)
+            log(f"{name} {label} [{K}x{N}] rows {QM_CHECK_ROWS}: max relative err "
+                f"bf16 {err[torch.bfloat16]:.3g} (wide path {err_wide:.3g}) fp32 "
+                f"{err[torch.float32]:.3g}")
+            for rows in (QM_TIME_ROWS_GATE_UP if label == "gate/up" else QM_TIME_ROWS):
                 timed.append(_time_quant_matmul(torch, w, rows, K, N, scheme,
                                                 f"{label} [{K}x{N}] rows {rows}",
                                                 gen, dequant_weight))
@@ -398,12 +439,16 @@ def check_quant_matmul(torch, records):
             raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
         main = next(t for t in timed if t["case"].startswith("gate/up") and
                     t["case"].endswith("rows 8"))
+        prefill = next(t for t in timed if t["case"].startswith("gate/up") and
+                       t["case"].endswith("rows 200"))
         records[name] = dict(
             name=name, route="cuda", source="kaito_tpu_torch/csrc/quant_matmul.cu",
             replaces=replaces,
             shape=f"x [8, 4096] bf16 @ {scheme} W [4096, 14336] (gate/up)",
             max_abs_err=err[torch.bfloat16], max_rel_err_bf16=err[torch.bfloat16],
-            max_rel_err_fp32=err[torch.float32], ms=main["ms"], kernel_ms=main["ms"],
+            max_rel_err_wide=err_wide, max_rel_err_fp32=err[torch.float32],
+            prefill_ms=prefill["ms"], prefill_library_ms=prefill["library_ms"],
+            prefill_bound_ms=prefill["bound_ms"], ms=main["ms"], kernel_ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             host_ms=main["host_ms"], cases=timed)
@@ -889,6 +934,9 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
     base = f"http://127.0.0.1:{server.server_address[1]}"
     stats = {}
     try:
+        # a tree from before the wide path (a parent under comparison) has
+        # no wide counters: its legs are timed without them
+        counted = [n for n in counted if hasattr(*_counter(n))]
         for name in counted:
             fn, attr = _counter(name)
             setattr(fn, attr, 0)
@@ -986,18 +1034,41 @@ def _release_card(torch):
 
 
 def profile_request(engine, base):
-    """torch.profiler over one request alone (200-token prompt, 33
-    output tokens): wall time, device busy time, kernel launches and the
-    kernels that take the most device time."""
+    """torch.profiler over one 200-token prefill alone
+    (:func:`_profile_prefill`), then over one request alone (200-token
+    prompt, 33 output tokens): wall time, device busy time, kernel
+    launches and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     _completion(base, _prompt(200, 50), 8)           # warm
+    prefill = _profile_prefill(base)
     steps0 = engine.counters["decode_steps_total"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _completion(base, _prompt(200, 51), 33)
         wall = time.perf_counter() - t0
     steps = engine.counters["decode_steps_total"] - steps0
+    rows = _device_rows(prof)
+    busy = sum(r[2] for r in rows)
+    flash = sum(r[2] for r in rows if "flash" in r[0])
+    log(f"profile: flash prefill kernels (K2, K3) {flash:.3f} device ms in "
+        f"{sum(r[1] for r in rows if 'flash' in r[0])} launches")
+    quant = sum(r[2] for r in rows if "quant_matmul" in r[0])
+    res = dict(wall_ms=wall * 1e3, device_busy_ms=busy, flash_device_ms=flash,
+               quant_matmul_device_ms=quant,
+               device_idle_share=1.0 - busy / (wall * 1e3),
+               kernel_launches=sum(r[1] for r in rows), decode_steps=steps,
+               prefill=prefill,
+               top=[dict(name=k[:80], count=c, ms=ms) for k, c, ms in rows[:12]])
+    log(f"profile: wall {res['wall_ms']:.1f} ms, device busy {busy:.1f} ms, "
+        f"{res['kernel_launches']} kernel launches, {steps} decode steps")
+    for r in res["top"]:
+        log(f"  {r['ms']:8.2f} ms  x{r['count']:5d}  {r['name']}")
+    return res
+
+
+def _device_rows(prof):
+    """(kernel name, launches, device ms) of every kernel in a profile."""
     rows = []
     for e in prof.key_averages():
         dev = getattr(e, "self_device_time_total", None)
@@ -1005,19 +1076,33 @@ def profile_request(engine, base):
             dev = getattr(e, "self_cuda_time_total", 0)
         if dev > 0 and "CPU" not in str(getattr(e, "device_type", "")):
             rows.append((e.key, e.count, dev / 1e3))
-    rows.sort(key=lambda r: -r[2])
-    busy = sum(r[2] for r in rows)
-    flash = sum(r[2] for r in rows if "flash" in r[0])
-    log(f"profile: flash prefill kernels (K2, K3) {flash:.3f} device ms in "
-        f"{sum(r[1] for r in rows if 'flash' in r[0])} launches")
-    res = dict(wall_ms=wall * 1e3, device_busy_ms=busy, flash_device_ms=flash,
-               device_idle_share=1.0 - busy / (wall * 1e3),
-               kernel_launches=sum(r[1] for r in rows), decode_steps=steps,
-               top=[dict(name=k[:80], count=c, ms=ms) for k, c, ms in rows[:12]])
-    log(f"profile: wall {res['wall_ms']:.1f} ms, device busy {busy:.1f} ms, "
-        f"{res['kernel_launches']} kernel launches, {steps} decode steps")
-    for r in res["top"]:
-        log(f"  {r['ms']:8.2f} ms  x{r['count']:5d}  {r['name']}")
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def _profile_prefill(base):
+    """torch.profiler over one 200-token prompt answered with one token:
+    the prefill alone.  Its wall time (the request's TTFT under the
+    profiler), device busy time, and the device time and launches of the
+    quantized matmul kernels (K4/K5, with any split-K reduction) by
+    kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _completion(base, _prompt(200, 52), 1)
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    quant = [r for r in rows if "quant_matmul" in r[0]]
+    res = dict(wall_ms=wall * 1e3, device_busy_ms=sum(r[2] for r in rows),
+               quant_matmul_device_ms=sum(r[2] for r in quant),
+               quant_matmul_launches=sum(r[1] for r in quant),
+               quant_matmul_kernels=[dict(name=k[:100], count=c, ms=ms)
+                                     for k, c, ms in quant])
+    log(f"profile, one 200-token prefill: wall {res['wall_ms']:.1f} ms, device busy "
+        f"{res['device_busy_ms']:.2f} ms, quant matmul {res['quant_matmul_device_ms']:.3f}"
+        f" ms in {res['quant_matmul_launches']} launches")
+    for r in res["quant_matmul_kernels"]:
+        log(f"  {r['ms']:8.3f} ms  x{r['count']:5d}  {r['name']}")
     return res
 
 
@@ -1114,6 +1199,27 @@ def sweep_run_ahead(engine, values=(1, 2, 4, 8, 16), reps=6):
     return dict(single=single, itl=itl, concurrent8=conc, pick=pick)
 
 
+_TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
+# the server legs of phases 4-6: (name for --leg, label, server flags,
+# counters that must grow, burst, tensor-parallel degree)
+LEGS = (("bf16", "phase 4, bf16", [],
+         ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
+         True, 1),
+        ("int4-kv8", "phase 5, int4 weights + int8 KV",
+         ["--quantization", "int4", "--kv-cache-dtype", "int8"],
+         ("quant_matmul_int4", "quant_matmul_int4_wide",
+          "paged_decode_attention_int8kv"), True, 1),
+        ("int8", "phase 5, int8 weights", ["--quantization", "int8"],
+         ("quant_matmul_int8", "quant_matmul_int8_wide"), False, 1),
+        ("tp2-int4-kv8", "phase 6, TP=2 int4 weights + int8 KV, comm overlap",
+         ["--quantization", "int4", "--kv-cache-dtype", "int8", *_TP2],
+         ("quant_matmul_int4_pf", "quant_matmul_int4", "paged_decode_attention_int8kv",
+          "flash_prefill_attention", "flash_prefill_packed"), True, 2),
+        ("tp2-int8", "phase 6, TP=2 int8 weights, comm overlap",
+         ["--quantization", "int8", *_TP2],
+         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2))
+
+
 def _watchdog(seconds: float) -> None:
     """Fail the run (exit 1, no result) if it has not finished in time:
     a hung request must not hold the card until an outer limit."""
@@ -1139,6 +1245,11 @@ def main(argv=None) -> int:
     ap.add_argument("--first-leg-only", action="store_true",
                     help="skip the goldens (phase 3) and every server leg after "
                          "phase 4's bf16 one; no result line")
+    ap.add_argument("--leg", choices=[name for name, *_ in LEGS],
+                    help="build the kernels and run this one server leg alone "
+                         "(phases 2 and 3 skipped; with --profile, the quickest "
+                         "reading of its TTFT and prefill device time); no result "
+                         "line")
     ap.add_argument("--time-limit", type=float, default=1100.0,
                     help="seconds after which the run fails")
     args = ap.parse_args(argv)
@@ -1175,49 +1286,33 @@ def main(argv=None) -> int:
                     log(f"  {name}: {line.strip()}")
 
         records: dict = {}
+        alone = args.first_leg_only or args.leg is not None
         with torch.no_grad():
-            check_decode(torch, records)
-            check_flash(torch, records)
-            check_quant_matmul(torch, records)
-            check_quant_matmul_pf(torch, records)
+            if args.leg is None:
+                check_decode(torch, records)
+                check_flash(torch, records)
+                check_quant_matmul(torch, records)
+                check_quant_matmul_pf(torch, records)
             if args.phase2_only:
                 print(card)
                 print(json.dumps({"kernels": [records[k[0]] for k in KERNELS]}))
                 return 0
-            golden_err = {} if args.first_leg_only else {
+            golden_err = {} if alone else {
                 sec: check_goldens(sec) for sec in GOLDEN_MODES}
-            for tp, sections in () if args.first_leg_only else TP_GOLDENS:
+            for tp, sections in () if alone else TP_GOLDENS:
                 for sec in sections:
                     for ov in (False, True):
                         golden_err[f"{sec} TP={tp} overlap={ov}"] = check_goldens(
                             sec, tp, ov)
             _release_card(torch)
-            tp2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
-            # each leg: (label, server flags, kernels it must launch, burst,
-            # tensor-parallel degree)
-            legs = (("phase 4, bf16", [],
-                     ("paged_decode_attention", "flash_prefill_attention",
-                      "flash_prefill_packed"), True, 1),
-                    ("phase 5, int4 weights + int8 KV",
-                     ["--quantization", "int4", "--kv-cache-dtype", "int8"],
-                     ("quant_matmul_int4", "paged_decode_attention_int8kv"), True, 1),
-                    ("phase 5, int8 weights", ["--quantization", "int8"],
-                     ("quant_matmul_int8",), False, 1),
-                    ("phase 6, TP=2 int4 weights + int8 KV, comm overlap",
-                     ["--quantization", "int4", "--kv-cache-dtype", "int8", *tp2],
-                     ("quant_matmul_int4_pf", "quant_matmul_int4",
-                      "paged_decode_attention_int8kv", "flash_prefill_attention",
-                      "flash_prefill_packed"), True, 2),
-                    ("phase 6, TP=2 int8 weights, comm overlap",
-                     ["--quantization", "int8", *tp2],
-                     ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2))
             # with two cards or more, each TP leg runs on the first two and
             # again with both shards on the first, so one run compares a real
             # ring hop with none
             placements = ((", two cards", False), (", one card", True)) \
                 if torch.cuda.device_count() >= 2 else (("", True),)
             legs = [(label + where, flags, counted, burst, tp, shared)
-                    for label, flags, counted, burst, tp in legs
+                    for name, label, flags, counted, burst, tp in LEGS
+                    if args.leg in (None, name)
                     for where, shared in (placements if tp > 1 else (("", False),))]
             if args.first_leg_only:
                 legs = legs[:1]
@@ -1228,18 +1323,22 @@ def main(argv=None) -> int:
                     run_ahead_sweep=args.sweep_run_ahead and i == 0,
                     profile=args.profile, tp=tp, shared=shared)
                 _release_card(torch)
-                for name in counted:
-                    if "launches" not in records[name]:
-                        records[name]["launches"] = launches[name]
-                    else:
-                        records[name].setdefault("launches_by_leg", {})[label] = \
-                            launches[name]
+                for name in launches:
                     if launches[name] <= 0:
                         raise SmokeFailure(f"{name} never launched in {label}")
+                    if alone:
+                        continue
+                    wide = next((w for w in WIDE_COUNTERS if w[0] == name), None)
+                    rec = records[wide[1] if wide else name]
+                    key = "launches_wide" if wide else "launches"
+                    if key not in rec:
+                        rec[key] = launches[name]
+                    else:
+                        rec.setdefault(key + "_by_leg", {})[label] = launches[name]
                 log(f"{label} on {card}: TTFT {stats[label]['ttft_ms']:.1f} ms "
                     f"({stats[label]['prompt_tokens']}-token prompt, alone), decode "
                     f"{stats[label]['decode_tok_s']:.1f} tok/s (one sequence)")
-        if args.first_leg_only:
+        if alone:
             print(json.dumps({"server_legs": stats}))
             return 0
         log(f"golden logprob diffs {golden_err}")

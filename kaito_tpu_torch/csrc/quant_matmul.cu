@@ -21,48 +21,78 @@
 //
 // Bound on the H100: bytes at decode sizes (a weight byte feeds 2 x rows
 // flops, far below the ~295 flop/byte where bf16 tensor-core compute
-// binds), operations from a few hundred rows up.  The HBM stream is the
-// quantized bytes: codes arrive as int8 and are widened on the SM, and the
-// bf16 weight is never materialised.  The Pallas version's even/odd split
-// of x outside the kernel (a Mosaic workaround) is not needed: the int4
-// byte of in-rows 2i and 2i+1 is widened into both rows of the tile.
+// binds), operations at prefill sizes (200 rows: 400 flop per int8 code
+// byte, 800 per int4 byte).  The HBM stream is the quantized bytes: codes
+// arrive as int8 and are widened on the SM, exactly (int8 through the
+// mantissa of 2^23 in fp32, int4 through the mantissa of 128 in bf16),
+// and the bf16 weight is never materialised.  The Pallas version's
+// even/odd split of x outside the kernel (a Mosaic workaround) is not
+// needed: the int4 byte of in-rows 2i and 2i+1 is widened into both rows
+// of the tile.
 //
-// Two paths, chosen from what the call gives them:
-// - Tensor cores, for bf16 x with K a multiple of 64, N of 128, int4
-//   groups of whole 64-row stages and 16-byte aligned code rows (every
-//   Llama projection and its ring chunks).  A CTA of 4 warps owns 128
-//   columns and 16 (decode) or 64 rows; per 64-row stage the 8 KB of
-//   codes (4 KB int4) are loaded into registers with 16-byte loads while
-//   the previous stage computes, widened to bf16 into shared memory as a
-//   [k][n] tile (int8 through the mantissa of 2^23 in fp32, int4 through
-//   the mantissa of 128 in bf16: exact), and read back as B fragments
-//   with ldmatrix.trans; x is staged the same way, and mma.sync
-//   m16n8k16 sums bf16 products in fp32.
-// - CUDA cores, for fp32 x and any other shape: a CTA owns 256 columns,
-//   up to 8 rows of x (in shared memory, fp32) and a slice of K; its 8
-//   warps walk interleaved rows of the slice with 8-byte loads, each
-//   thread keeping 8 rows x 8 columns of fp32 sums, and the warps' sums
-//   are added through shared memory.  Tails of K and N are masked, and
-//   rows not a multiple of 8 bytes take byte loads.
-// In both, K is split into slices so a launch fills the 132 SMs (the k/v
-// projections have few column tiles); the slices' fp32 partial outputs
-// are summed by a second kernel.  Not yet done: TMA and a warp-specialised
-// pipeline, which the int4 path needs to reach its bound.
+// Three paths, chosen from what the call gives them (pick_path):
+// - Wide (bf16 x, 17-256 rows, K a multiple of 64, N of 128, int4 groups
+//   of whole 64-row stages, 16-byte aligned planes: every Llama
+//   projection and its ring chunks at prefill rows).  The product runs
+//   transposed, out^T = W^T x^T, so that the widened weight is the wgmma
+//   A operand, which may come from registers: a CTA owns 128 columns of
+//   W for nt rows of x (64, 128 or 256: all of the call's; int4 at most
+//   128, two CTAs per column tile over that), and each code byte is read
+//   once and widened once, in registers, for all those rows, never going
+//   back to shared memory.  256 threads (two warpgroups), one CTA per SM
+//   (two for int8 up to 128 rows); threads 0 and 128 keep a ring of x
+//   stages ([nt rows][64 k] bf16 in the 128-byte swizzle, from L2: the
+//   K-major B operand) and a ring of up to 8 code stages ([64 k][128]
+//   int8 or [32][128] int4 bytes in the 128-byte swizzle, from HBM, each
+//   also asked of L2 a ring ahead) in flight by TMA with mbarrier
+//   completion.  Warpgroup w owns the tile's columns 64 w .. 64 w + 63
+//   as the M of wgmma m64 n nt k16: each stage it reads its columns'
+//   codes with 16-byte loads (the swizzle keeps them free of bank
+//   conflicts), widens them into the A fragments of the stage's four
+//   k-steps (int8 through the mantissa of 2^23 in fp32, int4 through the
+//   mantissa of 128 in bf16: exact), frees the code slot, issues the
+//   stage's wgmmas and waits for them.  Nothing runs between the issue
+//   and the wait, so the A registers the wgmmas read asynchronously stay
+//   untouched; the two warpgroups share the tensor cores, so one widens
+//   while the other's products run.  The fp32 accumulator holds one int4
+//   group's partial dot; at the group's end it folds into a second fp32
+//   accumulator with the scales, staged in shared memory at the start
+//   (int8 folds once, at the end): that second accumulator is why int4
+//   stops at 128 rows a CTA.  K is split only where the tiles leave SMs
+//   idle (split = the most CTAs that stay one wave: q/o, down and k/v,
+//   not gate/up).  The plan mirrors wide_plan in
+//   engine/ops/quant_matmul.py, which the CPU tests hold.
+// - Decode (bf16 x, up to 16 rows, same shapes): a CTA of 4 warps owns
+//   128 columns and 16 rows; per 64-row stage the 8 KB of codes (4 KB
+//   int4) are loaded into registers with 16-byte loads while the previous
+//   stage computes, widened to bf16 into shared memory as a [k][n] tile,
+//   and read back as B fragments with ldmatrix.trans; x is staged the
+//   same way, and mma.sync m16n8k16 sums bf16 products in fp32.
+// - CUDA cores, for fp32 x (the goldens), more than 256 rows, and any
+//   other shape: a CTA owns 256 columns, up to 8 rows of x (in shared
+//   memory, fp32) and a slice of K; its 8 warps walk interleaved rows of
+//   the slice with 8-byte loads, each thread keeping 8 rows x 8 columns
+//   of fp32 sums, and the warps' sums are added through shared memory.
+//   Tails of K and N are masked, and rows not a multiple of 8 bytes take
+//   byte loads.
+// Where K is split, the slices' fp32 partial outputs go to a workspace
+// and a second kernel sums them in slice order: the output is the same
+// from run to run, and no atomics are used.
 //
-// K6 (template flag PF, entry kaito_quant_matmul_pf) is the same kernel
+// K6 (template flag PF, entry kaito_quant_matmul_pf) is the same kernels
 // with two more pointers: the next layer's codes and scales, in the same
 // layout and strides.  The Pallas kernel carries them as two more input
 // streams read under a runtime-false predicate, only so that Mosaic keeps
 // their HBM->VMEM DMA; here a prefetch is a hint that never reaches
 // registers, so no predicate is needed.  Each CTA computes exactly what
-// K4/K5 compute for its tile (same plan, same split-K, same reduction
-// order: the output is bitwise K4/K5's) and, over its k-loop, asks L2 for
-// the rows of the next slab that the same tile reads in the next layer's
-// call (cp.async.bulk.prefetch.L2, one row segment per instruction,
-// issued stage by stage beside the live loads, so the prefetches do not
-// crowd the live stream at its start), plus its scale rows.  Nothing goes
-// to shared memory or registers.  The wrapper engages K6 only for a slab
-// of at most 16 MiB (engine/ops/quant_matmul.py, PREFETCH_L2_BUDGET): the
+// K4/K5 compute for its tile (same path, plan and reduction order: the
+// output is bitwise K4/K5's) and, over its k-loop, asks L2 for the rows
+// of the next slab that the same tile reads in the next layer's call
+// (cp.async.bulk.prefetch.L2, one row segment per instruction, issued
+// stage by stage beside the live loads, so the prefetches do not crowd
+// the live stream at its start), plus its scale rows.  Nothing goes to
+// shared memory or registers.  The wrapper engages K6 only for a slab of
+// at most 16 MiB (engine/ops/quant_matmul.py, PREFETCH_L2_BUDGET): the
 // live chunk and the prefetched one must both sit in the 50 MB L2, beside
 // the activations, for the prefetch to survive to its use; the Pallas
 // kernel's 4 MiB VMEM budget plays that part on the TPU.
@@ -72,6 +102,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace kaito {
 
@@ -137,14 +168,19 @@ __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
       : "memory");
 }
 
-// Prefetch row `r` of a plane, columns [col, min(col + 128, N)) of
-// element size `es`, cut down to whole 16-byte pieces.
-__device__ __forceinline__ void prefetch_row(const void* base, size_t ld, int r,
-                                             int col, int N, int es) {
+// Prefetch row `r` of a plane, columns [col, min(col + n, N)) of element
+// size `es`, cut down to whole 16-byte pieces.
+__device__ __forceinline__ void prefetch_span(const void* base, size_t ld, int r,
+                                              int col, int n, int N, int es) {
   if (col >= N) return;
-  const uint32_t bytes = (uint32_t)(min(128, N - col) * es) & ~15u;
+  const uint32_t bytes = (uint32_t)(min(n, N - col) * es) & ~15u;
   if (bytes)
     prefetch_l2(static_cast<const char*>(base) + ((size_t)r * ld + col) * es, bytes);
+}
+
+__device__ __forceinline__ void prefetch_row(const void* base, size_t ld, int r,
+                                             int col, int N, int es) {
+  prefetch_span(base, ld, r, col, 128, N, es);
 }
 
 // acc += part * scale(group row), part = 0.
@@ -288,7 +324,8 @@ __global__ void quant_matmul_reduce_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path (bf16 x): mma.sync m16n8k16, bf16 operands, fp32 sums.
+// Decode-sized tensor-core path (bf16 x, up to 16 rows): mma.sync m16n8k16,
+// bf16 operands, fp32 sums.
 // ---------------------------------------------------------------------------
 
 constexpr int TC_THREADS = 128;        // 4 warps, 32 columns each
@@ -304,22 +341,19 @@ inline bool tc_fits(int K, int N, int gk, bool bf16) {
   return bf16 && K % TC_TK == 0 && N % TC_TN == 0 && gk % TC_TK == 0;
 }
 
-// mt: m16 tiles per CTA (1 for up to 16 rows, else 4); kc: in-rows per K
-// slice, whole stages (and, for int4, whole groups).
+// kc: in-rows per K slice, whole stages (and, for int4, whole groups).
 struct TcPlan {
-  int mt;
   int n_split;
   int kc;
 };
 
-inline TcPlan tc_plan(int rows, int K, int N, int gk, bool int4) {
-  const int mt = rows <= 16 ? 1 : 4;
+inline TcPlan tc_plan(int K, int N, int gk, bool int4) {
   const int unit = int4 ? gk : TC_TK;
-  const int tiles = ((rows + 16 * mt - 1) / (16 * mt)) * (N / TC_TN);
+  const int tiles = N / TC_TN;
   const int n_units = K / unit;
   const int n_split = std::min(n_units, std::max(1, (TC_TARGET_CTAS + tiles - 1) / tiles));
   const int kc = (n_units + n_split - 1) / n_split * unit;
-  return {mt, (K + kc - 1) / kc, kc};
+  return {(K + kc - 1) / kc, kc};
 }
 
 // Two int8 codes (bytes `lo` and `hi` of `word`) as a bf16x2: the biased
@@ -364,20 +398,21 @@ __device__ __forceinline__ void tc_ldmatrix_x4_trans(uint32_t (&r)[4], const voi
       : "r"(addr));
 }
 
-// One CTA: rows [row0, row0 + 16 MT) x columns [n0, n0 + 128) over the K
+// One CTA: rows [0, 16) x columns [n0, n0 + 128) over the K
 // slice [k_lo, k_hi).  Each stage of 64 in-rows: the codes (and x) for the
 // stage are already in registers; they are widened to bf16 into shared
 // memory (W as [k][n], read back as B fragments with ldmatrix.trans), the
 // next stage's loads are issued, and the stage's 4 k16 steps run on the
 // tensor cores.  A group's partial sums fold into the fp32 accumulators
 // with its scales when the group ends (int8: once, at the slice's end).
-template <bool INT4, int MT, bool PF>
+template <bool INT4, bool PF>
 __global__ void __launch_bounds__(TC_THREADS)
 quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                        const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ part_out, int rows, int K, int N, int gk,
                        int kc, int n_split, int ldw, int lds,
                        const int8_t* __restrict__ nw, const float* __restrict__ ns) {
+  constexpr int MT = 1;
   constexpr int W_CHUNKS = (INT4 ? TC_TK / 2 : TC_TK) * TC_TN / 16 / TC_THREADS;
   constexpr int X_CHUNKS = 16 * MT * TC_TK / 8 / TC_THREADS;   // 16-byte pieces
   static_assert(W_CHUNKS >= 1 && 16 * MT * TC_TK / 8 % TC_THREADS == 0, "stage split");
@@ -534,6 +569,344 @@ quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __rest
       }
 }
 
+// ---------------------------------------------------------------------------
+// Wide path (bf16 x, 17-256 rows): wgmma + TMA, one widened weight tile
+// per stage for all of the call's rows.
+// ---------------------------------------------------------------------------
+
+constexpr int WD_STAGE = 64;            // in-rows per stage
+constexpr int WD_CRING_MAX = 8;         // code stages in flight, at most
+constexpr int WD_SMEM_MAX = 232448;     // shared memory a block may use
+// two warpgroups, threads 0 and 128 also issuing the copies: a ninth,
+// producer warp would cap every thread at 168 registers, short of int8's
+// 256-row accumulator and int4's two
+constexpr int WD_THREADS = 256;
+constexpr int WD_SMS = 132;             // the H100's SMs
+constexpr int WD_MAX_ROWS = 256;        // the widest wgmma N
+constexpr int WD_TN = 128;              // columns per CTA
+constexpr int WD_SCALE_GROUPS = 64;     // int4 scale rows a CTA stages in shared memory
+
+// CTAs a wide-path SM holds: two of int8 up to 128 rows (each thread
+// under 128 registers, so four warpgroups hide each other's widening),
+// else one (int8's 256-row accumulator, int4's second accumulator).
+constexpr int wd_ctas_per_sm(bool int4, int nt) { return !int4 && nt <= 128 ? 2 : 1; }
+
+// Launch plan of the wide path (mirrored by wide_plan in
+// engine/ops/quant_matmul.py, which the CPU tests hold): nt rows of x
+// per CTA (the wgmma N: 64, 128 or 256; int4, whose group fold keeps a
+// second accumulator, at most 128) in row_blocks CTAs per 128-column tile,
+// K cut into n_split slices of kc in-rows (whole stages; for int4 whole
+// groups, at most WD_SCALE_GROUPS of them): the smallest split that keeps
+// one wave of CTAs on the SMs, none where the tiles fill them.
+struct WidePlan {
+  int nt, row_blocks, n_split, kc;
+};
+
+inline WidePlan wide_plan(int rows, int K, int N, int gk, bool int4) {
+  const int nt = rows <= 64 ? 64 : rows <= 128 || int4 ? 128 : 256;
+  const int row_blocks = (rows + nt - 1) / nt;
+  const int unit = int4 ? gk : WD_STAGE;
+  const int n_units = K / unit;
+  const int tiles = N / WD_TN * row_blocks;
+  int split = tiles >= WD_SMS ? 1
+                              : std::max(1, std::min(n_units, WD_SMS * wd_ctas_per_sm(int4, nt) / tiles));
+  if (int4) split = std::max(split, (n_units + WD_SCALE_GROUPS - 1) / WD_SCALE_GROUPS);
+  const int kc = (n_units + split - 1) / split * unit;
+  return {nt, row_blocks, (K + kc - 1) / kc, kc};
+}
+
+// Shared memory of one instance: a ring of x stages ([NT rows][64 k]
+// bf16 in the 128-byte swizzle: the K-major B operand), int4's scale
+// rows and, in what is left of the CTA's share of the SM, a deeper ring
+// of code stages ([rows of codes][128] bytes in the 128-byte swizzle:
+// the HBM stream, whose latency the depth covers); then the full and
+// empty barriers.
+template <bool INT4, int NT>
+struct WdLayout {
+  static constexpr int CTAS = wd_ctas_per_sm(INT4, NT);
+  static constexpr int XRING = CTAS == 2 ? 3 : 5;   // x stages in flight
+  static constexpr int BUDGET = (WD_SMEM_MAX + 1024) / CTAS - 1024;
+  static constexpr int CROWS = INT4 ? WD_STAGE / 2 : WD_STAGE;   // code rows per stage
+  static constexpr int CODES = CROWS * WD_TN;
+  static constexpr int XST = NT * WD_STAGE * 2;
+  static constexpr int X_OFF = 0;
+  static constexpr int S_OFF = X_OFF + XRING * XST;
+  static constexpr int C_OFF = S_OFF + (INT4 ? WD_SCALE_GROUPS * WD_TN * 4 : 0);
+  static constexpr int BARS = 2 * (XRING + WD_CRING_MAX) * 8;
+  static constexpr int CRING_FIT = (BUDGET - 1024 - BARS - C_OFF) / CODES;
+  static constexpr int CRING = CRING_FIT < WD_CRING_MAX ? CRING_FIT : WD_CRING_MAX;
+  static constexpr int BAR_OFF = C_OFF + CRING * CODES;
+  static constexpr size_t SMEM = 1024 + BAR_OFF + BARS;
+  static_assert(CRING >= 4 && SMEM <= BUDGET, "rings fit the CTA's share");
+};
+
+// D (+)= A * B: A [64 x 16] bf16 from registers (the widened weight), B
+// [16 x N] K-major in shared memory (x); fp32 accumulators
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// A fragment of one k16 step, int8: the weight's columns c0 = 16 warp +
+// lane / 4 and c0 + 8 (of the warpgroup's 64) by in-rows 2 (lane % 4)
+// (+1, +8, +9).  The four code rows come as 16-byte pieces of the
+// swizzled tile holding the warp's 16 columns; byte lane / 4 and the one
+// 8 further are the thread's, widened exactly as tc_i8x2 does.
+__device__ __forceinline__ void a_frag_i8(uint32_t (&a)[4], const uint4 (&r)[4], int g) {
+  const int sel = g & 3;
+  uint32_t lo[4], hi[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = g < 4 ? r[i].x : r[i].y;
+    hi[i] = g < 4 ? r[i].z : r[i].w;
+  }
+  // rows (k, k + 1) of column c0 / c0 + 8, then rows (k + 8, k + 9)
+  a[0] = tc_i8x2(__byte_perm(lo[0], lo[1], sel | ((4 + sel) << 4)), 0, 1);
+  a[1] = tc_i8x2(__byte_perm(hi[0], hi[1], sel | ((4 + sel) << 4)), 0, 1);
+  a[2] = tc_i8x2(__byte_perm(lo[2], lo[3], sel | ((4 + sel) << 4)), 0, 1);
+  a[3] = tc_i8x2(__byte_perm(hi[2], hi[3], sel | ((4 + sel) << 4)), 0, 1);
+}
+
+// One packed int4 byte (in-rows 2i low, 2i + 1 high, each biased by +8)
+// as a bf16x2 of its two codes, exactly as tc_i4x2 widens them.
+__device__ __forceinline__ uint32_t i4_pair(uint32_t b) {
+  const uint32_t bits = (b & 0xFu) | ((b & 0xF0u) << 12) | 0x43004300u;
+  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&bits);
+  v = __hsub2(v, __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragment of one k16 step, int4: packed rows 8 kk + lane % 4 and 4
+// further hold in-rows (2 (lane % 4), +1) and (+8, +9).
+__device__ __forceinline__ void a_frag_i4(uint32_t (&a)[4], const uint4 (&r)[2], int g) {
+  const int sh = 8 * (g & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t lo = g < 4 ? r[i].x : r[i].y, hi = g < 4 ? r[i].z : r[i].w;
+    a[2 * i] = i4_pair((lo >> sh) & 0xFFu);
+    a[2 * i + 1] = i4_pair((hi >> sh) & 0xFFu);
+  }
+}
+
+// One CTA: columns [n0, n0 + 128) for rows [row0, row0 + NT) of the call
+// (row block rb of the column tile), over the K slice [k_lo, k_hi).
+// Thread 0 fills both rings at the start; then, each stage, thread 0
+// refills the code slot and thread 128 the x slot freed two stages
+// before, each code tile also asked of L2 a ring ahead of its copy.
+// Warpgroup wg owns the tile's columns 64 wg .. 64 wg + 63 as the M of
+// wgmma m64 nNT k16 and runs each stage as: widen its codes into the A
+// fragments of the four k-steps, free the code slot, issue the wgmmas
+// against the x tile (B), wait.  A group's partial sums (the wgmma
+// accumulator) fold into fp32 accumulators with its scales (staged in
+// shared memory at the start) when the group ends; int8 folds once, at
+// the slice's end.
+template <bool INT4, int NT, bool PF>
+__global__ void __launch_bounds__(WD_THREADS, wd_ctas_per_sm(INT4, NT))
+quant_matmul_wide_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ part_out, int rows, int K, int N, int gk,
+                         int kc, int n_split, int ldw, int lds,
+                         const int8_t* __restrict__ nw, const float* __restrict__ ns) {
+  using L = WdLayout<INT4, NT>;
+  constexpr int TN = WD_TN, NA = NT / 2;   // accumulator registers a thread holds
+  constexpr int CR = L::CRING, XR = L::XRING;
+  // the row blocks of a column tile are neighbours in the grid, so they run
+  // together and the second reads the codes from L2
+  const int rbs = (rows + NT - 1) / NT, rb = blockIdx.x % rbs;
+  const int n0 = blockIdx.x / rbs * TN, split = blockIdx.y, row0 = NT * rb;
+  const int k_lo = split * kc, k_hi = min(K, k_lo + kc);
+  const int n_st = (k_hi - k_lo) / WD_STAGE;
+  const int tid = threadIdx.x;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t bars = base + L::BAR_OFF;
+  auto x_full = [&](int s) { return bars + 8 * s; };
+  auto x_empty = [&](int s) { return bars + 8 * (XR + s); };
+  auto c_full = [&](int s) { return bars + 8 * (2 * XR + s); };
+  auto c_empty = [&](int s) { return bars + 8 * (2 * XR + CR + s); };
+  auto code_row = [&](int j) { return (INT4 ? k_lo / 2 : k_lo) + j * L::CROWS; };
+  auto load_codes = [&](int j) {   // thread 0
+    const int s = j % CR;
+    mbar_expect_tx(c_full(s), L::CODES);
+    tma_load_2d(base + L::C_OFF + s * L::CODES, &wmap, c_full(s), n0, code_row(j));
+    if (j + CR < n_st) tma_prefetch_2d(&wmap, n0, code_row(j + CR));
+  };
+  auto load_x = [&](int j) {   // thread 0 at the start, then thread 128
+    const int s = j % XR;
+    mbar_expect_tx(x_full(s), L::XST);
+    tma_load_2d(base + L::X_OFF + s * L::XST, &xmap, x_full(s), k_lo + j * WD_STAGE, row0);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < XR; ++s) {
+      mbar_init(x_full(s), 1);
+      mbar_init(x_empty(s), WD_THREADS);
+    }
+    for (int s = 0; s < CR; ++s) {
+      mbar_init(c_full(s), 1);
+      mbar_init(c_empty(s), WD_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < min(CR, n_st); ++j) load_codes(j);
+    for (int j = 0; j < min(XR, n_st); ++j) load_x(j);
+  }
+  // K6: warp 0 prefetches the next slab's scale rows of the same tile
+  if (PF && tid < 32 && rb == 0) {
+    for (int g = k_lo / gk + tid; g <= (k_hi - 1) / gk; g += 32)
+      prefetch_span(ns, lds, g, n0, TN, N, 4);
+  }
+  __syncthreads();
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int cw = 64 * wg + 16 * warp;   // the warp's first column in the tile
+  float part[NA], acc[INT4 ? NA : 1];   // acc: int4's folded groups
+#pragma unroll
+  for (int e = 0; e < NA; ++e) part[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < (INT4 ? NA : 1); ++e) acc[e] = 0.f;
+
+  // int4: the slice's scale rows, [group][128 columns], into shared memory
+  const int g_lo = k_lo / gk;
+  float* sc_s = reinterpret_cast<float*>(sm + L::S_OFF);
+  if (INT4) {
+    const int n_pairs = ((k_hi - 1) / gk - g_lo + 1) * (TN / 2);
+    for (int i = tid; i < n_pairs; i += WD_THREADS) {
+      const int gr = i / (TN / 2), c = 2 * (i % (TN / 2));
+      *reinterpret_cast<float2*>(sc_s + gr * TN + c) =
+          *reinterpret_cast<const float2*>(scale + (size_t)(g_lo + gr) * lds + n0 + c);
+    }
+    __syncthreads();
+  }
+
+  // the A fragments of stage j's four k-steps, widened from its codes
+  auto widen = [&](uint32_t (&a)[4][4], int j) {
+    const unsigned char* codes = sm + L::C_OFF + (j % CR) * L::CODES;
+    // the 16-byte piece of code row r holding the warp's columns
+    auto piece = [&](int r) {
+      return *reinterpret_cast<const uint4*>(codes + r * TN +
+                                             (((cw / 16) ^ (r & 7)) << 4));
+    };
+#pragma unroll
+    for (int kk = 0; kk < WD_STAGE / 16; ++kk) {
+      if constexpr (INT4) {
+        const uint4 r[2] = {piece(8 * kk + t), piece(8 * kk + t + 4)};
+        a_frag_i4(a[kk], r, g);
+      } else {
+        const int k = 16 * kk + 2 * t;
+        const uint4 r[4] = {piece(k), piece(k + 1), piece(k + 8), piece(k + 9)};
+        a_frag_i8(a[kk], r, g);
+      }
+    }
+  };
+  // accumulator element e: column cw + g + 8 ((e >> 1) & 1) of the tile,
+  // row row0 + 8 (e >> 2) + 2 t + (e & 1)
+  auto col_scale = [&](const float* s_row, float (&sc)[2]) {
+    sc[0] = s_row[cw + g];
+    sc[1] = s_row[cw + g + 8];
+  };
+
+  // Nothing runs between a stage's wgmmas and their wait: the A
+  // fragments they read asynchronously stay untouched while they run.
+  // The two warpgroups share the tensor cores, so one widens while the
+  // other's products run.
+  uint32_t a[4][4];
+  for (int j = 0; j < n_st; ++j) {
+    const int k0 = k_lo + j * WD_STAGE;
+    const bool g_start = j == 0 || k0 % gk == 0;
+    mbar_wait(c_full(j % CR), (j / CR) & 1);
+    widen(a, j);
+    mbar_arrive(c_empty(j % CR));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) reg_fence(a[kk]);
+    mbar_wait(x_full(j % XR), (j / XR) & 1);
+    reg_fence(part);
+    wg_fence();
+    const uint32_t xs = base + L::X_OFF + (j % XR) * L::XST;
+#pragma unroll
+    for (int kk = 0; kk < WD_STAGE / 16; ++kk)
+      wgmma_rs(part, a[kk], smem_desc(xs + kk * 32, 16, 1024, 1), !(g_start && kk == 0));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) reg_fence(a[kk]);
+    reg_fence(part);
+    mbar_arrive(x_empty(j % XR));
+    // refill the slots freed two stages ago (by now the other warpgroup,
+    // which may trail this one by part of a stage, has freed them too):
+    // thread 0 the codes, thread 128 the x, so each warpgroup carries half
+    if (tid == 0 && j >= 2 && j - 2 + CR < n_st) {
+      mbar_wait(c_empty((j - 2) % CR), ((j - 2) / CR) & 1);
+      load_codes(j - 2 + CR);
+    }
+    if (tid == 128 && j >= 2 && j - 2 + XR < n_st) {
+      mbar_wait(x_empty((j - 2) % XR), ((j - 2) / XR) & 1);
+      load_x(j - 2 + XR);
+    }
+    if (PF && tid < 32 && rb == 0) {   // K6: this stage's rows of the next slab
+      for (int r = tid; r < L::CROWS; r += 32)
+        prefetch_span(nw, ldw, code_row(j) + r, n0, TN, N, 1);
+    }
+    if (INT4 && j + 1 < n_st && (k0 + WD_STAGE) % gk == 0) {   // the group is complete
+      float sc[2];
+      col_scale(sc_s + (k0 / gk - g_lo) * TN, sc);
+#pragma unroll
+      for (int e = 0; e < NA; ++e) acc[e] = fmaf(part[e], sc[(e >> 1) & 1], acc[e]);
+    }
+  }
+
+  float sc[2];
+  if constexpr (INT4) {
+    col_scale(sc_s + ((k_hi - 1) / gk - g_lo) * TN, sc);
+#pragma unroll
+    for (int e = 0; e < NA; ++e) part[e] = fmaf(part[e], sc[(e >> 1) & 1], acc[e]);
+  } else {
+    // int8: the per-column scale folds once, after the slice's whole dot
+    col_scale(scale + n0, sc);
+#pragma unroll
+    for (int e = 0; e < NA; ++e) part[e] *= sc[(e >> 1) & 1];
+  }
+#pragma unroll
+  for (int e = 0; e < NA; ++e) {
+    const int row = row0 + 8 * (e >> 2) + 2 * t + (e & 1);
+    const int col = n0 + cw + g + 8 * ((e >> 1) & 1);
+    if (row >= rows) continue;
+    if (n_split == 1)
+      out[(size_t)row * N + col] = __float2bfloat16(part[e]);
+    else
+      part_out[((size_t)split * rows + row) * N + col] = part[e];
+  }
+}
+
 // The plane pointers and strides of one call: the live weight and, for
 // K6, the next layer's (nw, ns; null for K4/K5).
 struct QmArgs {
@@ -547,21 +920,65 @@ struct QmArgs {
   const float* ns;
 };
 
-template <bool INT4, int MT, bool PF>
+// The second pass of a split K: out = the slices' fp32 partials summed in
+// slice order.
+template <typename T>
+cudaError_t reduce_splits(const QmArgs& a, int n_split, cudaStream_t stream) {
+  const long long total = (long long)a.rows * a.N;
+  const int blocks = (int)std::min<long long>((total + 255) / 256, 1024);
+  quant_matmul_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
+      a.work, static_cast<T*>(a.out), total, n_split);
+  return cudaGetLastError();
+}
+
+template <bool INT4, bool PF>
 cudaError_t launch_quant_matmul_tc(const QmArgs& a, int gk, const TcPlan& pl,
                                    cudaStream_t stream) {
-  const dim3 grid((a.rows + 16 * MT - 1) / (16 * MT), a.N / TC_TN, pl.n_split);
-  quant_matmul_tc_kernel<INT4, MT, PF><<<grid, TC_THREADS, 0, stream>>>(
+  const dim3 grid(1, a.N / TC_TN, pl.n_split);
+  quant_matmul_tc_kernel<INT4, PF><<<grid, TC_THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.w, a.scale,
       static_cast<__nv_bfloat16*>(a.out), a.work, a.rows, a.K, a.N, gk, pl.kc,
       pl.n_split, a.ldw, a.lds, a.nw, a.ns);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || pl.n_split == 1) return err;
-  const long long total = (long long)a.rows * a.N;
-  const int blocks = (int)std::min<long long>((total + 255) / 256, 1024);
-  quant_matmul_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
-      a.work, static_cast<__nv_bfloat16*>(a.out), total, pl.n_split);
-  return cudaGetLastError();
+  return reduce_splits<__nv_bfloat16>(a, pl.n_split, stream);
+}
+
+// x [rows, K] bf16 as a 2-D map of [64 rows][64 k] boxes in the 128-byte
+// swizzle (rows past the call's arrive as zeros); the codes [code rows,
+// N], rows ldw bytes apart, as [CROWS][128] boxes stored as they are.
+template <bool INT4, int NT, bool PF>
+cudaError_t launch_wide(const QmArgs& a, int gk, const WidePlan& pl, cudaStream_t stream) {
+  using L = WdLayout<INT4, NT>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {(cuuint64_t)a.K, (cuuint64_t)a.rows};
+  const cuuint64_t xstride[1] = {(cuuint64_t)a.K * 2};
+  const cuuint32_t xbox[2] = {WD_STAGE, NT};
+  const cuuint64_t wdims[2] = {(cuuint64_t)a.N, (cuuint64_t)(INT4 ? a.K / 2 : a.K)};
+  const cuuint64_t wstride[1] = {(cuuint64_t)a.ldw};
+  const cuuint32_t wbox[2] = {(cuuint32_t)WD_TN, (cuuint32_t)L::CROWS};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a.x), xdims,
+             xstride, xbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(a.w), wdims,
+             wstride, wbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kern = quant_matmul_wide_kernel<INT4, NT, PF>;
+  cudaError_t err = allow_smem(kern, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.N / WD_TN * pl.row_blocks, pl.n_split);
+  kern<<<grid, WD_THREADS, L::SMEM, stream>>>(
+      xmap, wmap, a.scale, static_cast<__nv_bfloat16*>(a.out), a.work, a.rows, a.K, a.N,
+      gk, pl.kc, pl.n_split, a.ldw, a.lds, a.nw, a.ns);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || pl.n_split == 1) return err;
+  return reduce_splits<__nv_bfloat16>(a, pl.n_split, stream);
 }
 
 template <typename T, bool INT4, int R, bool PF>
@@ -580,27 +997,39 @@ cudaError_t launch_quant_matmul(const QmArgs& a, const QmPlan& pl, cudaStream_t 
       a.K, a.N, ks / a.groups, pl.kc, pl.n_split, vec, a.ldw, a.lds, a.nw, a.ns);
   err = cudaGetLastError();
   if (err != cudaSuccess || pl.n_split == 1) return err;
-  const long long total = (long long)a.rows * a.N;
-  const int blocks = (int)std::min<long long>((total + 255) / 256, 1024);
-  quant_matmul_reduce_kernel<T><<<blocks, 256, 0, stream>>>(a.work, static_cast<T*>(a.out),
-                                                            total, pl.n_split);
-  return cudaGetLastError();
+  return reduce_splits<T>(a, pl.n_split, stream);
 }
 
 inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// Which path a call takes.  Both tensor-core paths read 16-byte code
+// pieces (the wide one by TMA, which also reads x) and float2 scales.
+enum class QmPath { kCudaCores, kTensorDecode, kWide };
+
+inline QmPath pick_path(const QmArgs& a, int gk, bool bf16) {
+  if (!tc_fits(a.K, a.N, gk, bf16) || !aligned(a.x, 16) || !aligned(a.w, 16) ||
+      a.ldw % 16 || !aligned(a.scale, 8) || a.lds % 2 || !aligned(a.out, 16))
+    return QmPath::kCudaCores;
+  if (a.rows <= 16) return QmPath::kTensorDecode;
+  return a.rows <= WD_MAX_ROWS ? QmPath::kWide : QmPath::kCudaCores;
+}
+
 template <typename T, bool INT4, bool PF>
 cudaError_t dispatch_rows(const QmArgs& a, cudaStream_t stream) {
   const int gk = a.K / a.groups;   // in-rows per scale group
-  // the tensor-core path reads 16-byte code pieces and float2 scales
-  if (tc_fits(a.K, a.N, gk, std::is_same<T, __nv_bfloat16>::value) && aligned(a.x, 16) &&
-      aligned(a.w, 16) && a.ldw % 16 == 0 && aligned(a.scale, 8) && a.lds % 2 == 0 &&
-      aligned(a.out, 16)) {
-    const TcPlan tp = tc_plan(a.rows, a.K, a.N, gk, INT4);
-    if (tp.mt == 1) return launch_quant_matmul_tc<INT4, 1, PF>(a, gk, tp, stream);
-    return launch_quant_matmul_tc<INT4, 4, PF>(a, gk, tp, stream);
+  switch (pick_path(a, gk, std::is_same<T, __nv_bfloat16>::value)) {
+    case QmPath::kWide: {
+      const WidePlan wp = wide_plan(a.rows, a.K, a.N, gk, INT4);
+      if (wp.nt == 64) return launch_wide<INT4, 64, PF>(a, gk, wp, stream);
+      if (wp.nt == 128) return launch_wide<INT4, 128, PF>(a, gk, wp, stream);
+      return launch_wide<INT4, INT4 ? 128 : 256, PF>(a, gk, wp, stream);   // int4: nt <= 128
+    }
+    case QmPath::kTensorDecode:
+      return launch_quant_matmul_tc<INT4, PF>(a, gk, tc_plan(a.K, a.N, gk, INT4), stream);
+    default:
+      break;
   }
   const QmPlan pl = qm_plan(a.rows, a.K, a.N, INT4);
   if (pl.rt == 1) return launch_quant_matmul<T, INT4, 1, PF>(a, pl, stream);
@@ -661,13 +1090,33 @@ extern "C" int kaito_quant_matmul_pf(const void* x, const void* w, const float* 
 }
 
 // fp32 scratch kaito_quant_matmul needs: one [rows, N] partial output per K
-// slice when K is split, else nothing (the larger of the two paths' needs).
+// slice when K is split, else nothing (the larger of the paths' needs, as
+// alignment may send a tileable call to the CUDA cores).
 extern "C" long long kaito_quant_matmul_workspace_floats(int rows, int K, int N,
                                                          int groups, int int4,
                                                          int dtype) {
   using namespace kaito;
   int n_split = qm_plan(rows, K, N, int4 != 0).n_split;
-  if (groups >= 1 && tc_fits(K, N, K / groups, dtype == 1))
-    n_split = std::max(n_split, tc_plan(rows, K, N, K / groups, int4 != 0).n_split);
+  if (groups >= 1 && tc_fits(K, N, K / groups, dtype == 1)) {
+    if (rows <= 16)
+      n_split = std::max(n_split, tc_plan(K, N, K / groups, int4 != 0).n_split);
+    else if (rows <= WD_MAX_ROWS)
+      n_split = std::max(n_split, wide_plan(rows, K, N, K / groups, int4 != 0).n_split);
+  }
   return n_split > 1 ? (long long)n_split * rows * N : 0;
+}
+
+// The wide path's plan for a call of this shape, as {nt, row_blocks,
+// n_split, kc} in plan[0..3]; returns 1 when bf16 x of these rows and shape takes
+// the wide path (given aligned planes), else 0 and leaves plan alone.
+// For the tests that hold engine/ops/quant_matmul.py's mirror.
+extern "C" int kaito_quant_matmul_wide_plan(int rows, int K, int N, int groups, int int4,
+                                            int* plan) {
+  using namespace kaito;
+  if (rows <= 16 || rows > WD_MAX_ROWS || groups < 1 || K % groups ||
+      !tc_fits(K, N, K / groups, true))
+    return 0;
+  const WidePlan p = wide_plan(rows, K, N, K / groups, int4 != 0);
+  plan[0] = p.nt, plan[1] = p.row_blocks, plan[2] = p.n_split, plan[3] = p.kc;
+  return 1;
 }

@@ -14,16 +14,19 @@ bounds it on the H100 and how it is laid out.
 :func:`quant_linear` is the ``nn.linear`` entry point.  Routing follows
 the JAX package: a call whose leading dims hold at most ``MAX_ROWS``
 rows goes to :func:`quant_matmul_cuda`, which launches the kernel for
-tensors on the card and runs :func:`quant_matmul_plain` for tensors on
-the CPU; a wider (prefill-shaped) call dequantizes and multiplies with
-``torch.matmul`` (:func:`dequant_matmul`), as the JAX package leaves
-such calls to XLA outside any Pallas kernel.  ``prefetch=`` (the next
+tensors on the card (bf16 calls of 17 rows or more on its wide,
+prefill-row path) and runs :func:`quant_matmul_plain` for tensors on
+the CPU; a wider call (over ``MAX_ROWS`` rows) dequantizes and
+multiplies with ``torch.matmul`` (:func:`dequant_matmul`), as the JAX
+package leaves such calls to XLA outside any Pallas kernel.  ``prefetch=`` (the next
 layer's slab, threaded by the tensor-parallel decode ring) routes to K6
 when :func:`prefetch_ok` holds, else it is dropped.  The weight planes
 may be column chunks of wider planes (last dim contiguous, rows any
 distance apart): the kernels read them in place.  ``launches_int8``,
 ``launches_int4``, ``launches_int8_pf`` and ``launches_int4_pf`` on the
-wrapper count the launches of K4, K5 and K6.
+wrapper count the launches of K4, K5 and K6; ``launches_int8_wide`` and
+``launches_int4_wide`` count the K4/K5 launches that take the wide
+(prefill-row) path, whose launch plan :func:`wide_plan` mirrors.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,6 +52,100 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # to its use (the header note of csrc/quant_matmul.cu).  A larger slab
 # is dropped, as the Pallas kernel drops one over its VMEM budget.
 PREFETCH_L2_BUDGET = 16 << 20
+
+
+# The launch plans of csrc/quant_matmul.cu, mirrored (the card tests hold
+# each against the C functions of the same names).
+SMS = 132                  # the H100's SMs
+STAGE = 64                 # in-rows per pipeline stage of the tensor-core paths
+DECODE_ROWS = 16           # bf16 calls up to this many rows take mma.sync
+_QM = dict(lanes=8, tn=256, target=264, x_max=1024)   # the CUDA-core path
+_TC = dict(tn=128, target=528)                         # the decode-row path
+WIDE_TN = 128              # columns per CTA of the wide path
+WIDE_SCALE_GROUPS = 64     # int4 scale rows a wide CTA stages in shared memory
+
+
+class WidePlan(NamedTuple):
+    """The wide path's launch: ``nt`` rows of x per CTA (the wgmma N),
+    ``row_blocks`` CTAs per 128-column tile, K cut into ``n_split``
+    slices of ``kc`` in-rows; a grid of ``(N // 128 * row_blocks,
+    n_split)`` CTAs, the row blocks of a column tile side by side."""
+    nt: int
+    row_blocks: int
+    n_split: int
+    kc: int
+
+
+def tc_fits(K: int, N: int, gk: int) -> bool:
+    """bf16 x on whole stages and 128-column tiles, int4 groups of whole
+    stages: both tensor-core paths (``tc_fits``)."""
+    return K % STAGE == 0 and N % WIDE_TN == 0 and gk % STAGE == 0
+
+
+def wide_plan(rows: int, K: int, N: int, groups: int, int4: bool) -> WidePlan:
+    """``wide_plan``: all rows in one CTA per 128-column tile (int4, whose
+    group fold keeps a second accumulator, at most 128 rows a CTA); K is
+    split, on stages (int4: whole groups, at most ``WIDE_SCALE_GROUPS`` a
+    slice), only as far as one wave of CTAs still fits on the SMs (two
+    CTAs an SM for int8 up to 128 rows, else one)."""
+    gk = K // groups
+    nt = 64 if rows <= 64 else 128 if rows <= 128 or int4 else 256
+    row_blocks = -(-rows // nt)
+    unit = gk if int4 else STAGE
+    n_units = K // unit
+    tiles = N // WIDE_TN * row_blocks
+    slots = SMS * (2 if not int4 and nt <= 128 else 1)
+    split = 1 if tiles >= SMS else max(1, min(n_units, slots // tiles))
+    if int4:
+        split = max(split, -(-n_units // WIDE_SCALE_GROUPS))
+    kc = -(-n_units // split) * unit
+    return WidePlan(nt, row_blocks, -(-K // kc), kc)
+
+
+def _tc_split(K: int, N: int, gk: int, int4: bool) -> int:
+    unit = gk if int4 else STAGE
+    n_units = K // unit
+    split = min(n_units, max(1, -(-_TC["target"] // (N // _TC["tn"]))))
+    kc = -(-n_units // split) * unit
+    return -(-K // kc)
+
+
+def _qm_split(rows: int, K: int, N: int, int4: bool) -> int:
+    rt = 1 if rows <= 1 else 4 if rows <= 4 else 8
+    ks = K // 2 if int4 else K
+    tiles = -(-rows // rt) * -(-N // _QM["tn"])
+    split = min(-(-_QM["target"] // tiles), max(1, ks // _QM["lanes"]))
+    split = max(split, -(-(ks * (2 if int4 else 1)) // _QM["x_max"]))
+    kc = -(-ks // split)
+    kc = -(-kc // _QM["lanes"]) * _QM["lanes"]
+    return -(-ks // kc)
+
+
+def workspace_floats(rows: int, K: int, N: int, groups: int, int4: bool,
+                     bf16: bool) -> int:
+    """``kaito_quant_matmul_workspace_floats``: the fp32 partial outputs
+    of the largest split any path may take for this call."""
+    n_split = _qm_split(rows, K, N, int4)
+    if bf16 and groups >= 1 and tc_fits(K, N, K // groups):
+        if rows <= DECODE_ROWS:
+            n_split = max(n_split, _tc_split(K, N, K // groups, int4))
+        elif rows <= MAX_ROWS:
+            n_split = max(n_split, wide_plan(rows, K, N, groups, int4).n_split)
+    return n_split * rows * N if n_split > 1 else 0
+
+
+def takes_wide(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+               groups: int) -> bool:
+    """Whether the kernel runs this call on the wide path (``pick_path``):
+    bf16 x of 17..MAX_ROWS rows on the tensor-core shapes, with 16-byte
+    aligned x and code rows and 8-byte aligned scale rows."""
+    rows, K = x.shape
+    N = codes.shape[1]
+    lds = scale.stride(0) if scale.dim() == 2 else N
+    return (x.dtype == torch.bfloat16 and DECODE_ROWS < rows <= MAX_ROWS
+            and tc_fits(K, N, K // groups) and x.data_ptr() % 16 == 0
+            and codes.data_ptr() % 16 == 0 and codes.stride(0) % 16 == 0
+            and scale.data_ptr() % 8 == 0 and lds % 2 == 0)
 
 
 def quant_matmul_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
@@ -210,6 +307,9 @@ def quant_matmul_cuda(x: torch.Tensor, w: dict,
                     "kaito_quant_matmul_pf")
         counter = "launches_int4_pf" if int4 else "launches_int8_pf"
     setattr(quant_matmul_cuda, counter, getattr(quant_matmul_cuda, counter) + 1)
+    if w_next is None and takes_wide(x, codes, scale, groups):
+        counter += "_wide"
+        setattr(quant_matmul_cuda, counter, getattr(quant_matmul_cuda, counter) + 1)
     return out
 
 
@@ -219,6 +319,9 @@ quant_matmul_cuda.launches_int8 = 0
 quant_matmul_cuda.launches_int4 = 0
 quant_matmul_cuda.launches_int8_pf = 0
 quant_matmul_cuda.launches_int4_pf = 0
+# of those K4/K5 launches, the ones on the wide (prefill-row) path
+quant_matmul_cuda.launches_int8_wide = 0
+quant_matmul_cuda.launches_int4_wide = 0
 
 
 def quant_linear(x: torch.Tensor, w: dict,

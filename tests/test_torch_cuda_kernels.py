@@ -213,7 +213,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("scheme", ["int8", "int4"])
 @pytest.mark.parametrize("rows,K,N,n", [(1, 2048, 4096, 2), (8, 1024, 1024, 2),
-                                        (200, 512, 512, 4), (3, 256, 384, 2)])
+                                        (200, 512, 512, 4), (3, 256, 384, 2),
+                                        (200, 2048, 4096, 2)])
 def test_prefetch_kernel_is_bitwise_the_plain_kernel(card, dtype, scheme, rows, K,
                                                      N, n):
     """K6 on every column chunk of a plane (the ring's strided views),
@@ -258,3 +259,84 @@ def test_prefetch_kernel_takes_the_ring_path(card):
     assert (quant_matmul_cuda.launches_int8,
             quant_matmul_cuda.launches_int8_pf) == (before[0] + 1, before[1] + 1)
     assert torch.equal(a, b)
+
+
+def _int4_one_group(gen, K: int, N: int) -> dict:
+    """An int4 QTensor whose one scale group spans the whole K (the
+    quantizer makes one only where K % 128 != 0): random codes."""
+    q4 = torch.randint(-128, 128, (K // 2, N), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    return {"q4": q4, "scale": torch.rand(1, N, generator=gen, device="cuda") / 64}
+
+
+# (scheme, int4 group: 128 or 0 for one whole-K group, K, N, columns of a
+# strided chunk of the N-column plane or None)
+WIDE_CASES = [("int8", None, 1024, 128, None), ("int8", None, 192, 1024, None),
+              ("int8", None, 512, 1024, 384), ("int8", None, 4096, 1024, None),
+              ("int4", 128, 1024, 128, None), ("int4", 128, 512, 1024, 384),
+              ("int4", 128, 4096, 1024, None), ("int4", 0, 192, 1024, None),
+              ("int4", 0, 1024, 128, None), ("int4", 0, 512, 1024, 384)]
+
+
+@pytest.mark.parametrize("scheme,group,K,N,chunk", WIDE_CASES)
+@pytest.mark.parametrize("rows", [17, 64, 65, 200, 256])
+def test_quant_matmul_wide_path(card, scheme, group, K, N, chunk, rows):
+    """K4/K5's wide path (bf16 x, 17-256 rows) against the plain version:
+    int4 groups of 128 in-rows or of the whole K, one and two 64-row
+    slices per warpgroup, split and unsplit K, and strided column chunks
+    of a wider plane (ldw > N); the wide counter grows by one per call."""
+    from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
+                                                         quant_matmul_plain)
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    if group == 0 and K % 128 == 0:
+        w = _int4_one_group(card, K, N)
+    else:
+        w = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), scheme)
+    if chunk is not None:
+        w = {k: t[..., :chunk] for k, t in w.items()}
+    x = _rand(card, rows, K, dtype=torch.bfloat16)
+    counters = ("launches_" + scheme, f"launches_{scheme}_wide")
+    before = [getattr(quant_matmul_cuda, c) for c in counters]
+    out = quant_matmul_cuda(x, w)
+    ref = quant_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert [getattr(quant_matmul_cuda, c) for c in counters] == [b + 1 for b in before]
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= ATOL[torch.bfloat16] * ref.float().abs().max().item()
+
+
+def test_quant_matmul_plans_mirror_the_kernel(card):
+    """wide_plan and workspace_floats (engine/ops/quant_matmul.py) equal
+    the C functions they mirror, over the Llama-3.1-8B projections, their
+    TP=2 chunks, int4 groups of 128 and of the whole K, rows 1-300."""
+    import ctypes
+
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.ops import build
+
+    lib = build.load_library("quant_matmul")
+    c_plan = lib.kaito_quant_matmul_wide_plan
+    c_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    c_plan.restype = ctypes.c_int
+    c_work = lib.kaito_quant_matmul_workspace_floats
+    c_work.argtypes = [ctypes.c_int] * 6
+    c_work.restype = ctypes.c_longlong
+    shapes = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+              (2048, 4096), (4096, 7168), (7168, 2048), (4096, 512), (192, 1024)]
+    plan = (ctypes.c_int * 4)()
+    for K, N in shapes:
+        for int4 in (0, 1):
+            for groups in ((1, K // 128) if int4 and K % 128 == 0 else (1,)):
+                for rows in (1, 8, 16, 17, 63, 64, 65, 128, 129, 200, 256, 257, 300):
+                    fits = c_plan(rows, K, N, groups, int4, plan)
+                    want = 16 < rows <= 256 and qm.tc_fits(K, N, K // groups)
+                    assert bool(fits) == want, (rows, K, N, groups, int4)
+                    if fits:
+                        assert tuple(plan) == tuple(qm.wide_plan(
+                            rows, K, N, groups, bool(int4))), (rows, K, N, groups)
+                    for dtype in (0, 1):
+                        assert c_work(rows, K, N, groups, int4, dtype) == \
+                            qm.workspace_floats(rows, K, N, groups, bool(int4),
+                                                dtype == 1), (rows, K, N, groups)

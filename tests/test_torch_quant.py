@@ -114,6 +114,30 @@ def test_plain_quant_matmul_matches_the_pallas_kernel_and_fallback(scheme, rows,
                                fallback, **TOL)
 
 
+# prefill-sized rows, which the kernel's wide path takes on the card.
+# Their tolerance: 64-256 rows give thousands more outputs of magnitude
+# ~20 than SHAPES, and the fp32 sums of 512 products, run in other orders
+# here, in the Pallas kernel and in the fallback, differ by up to ~6e-5
+# absolute on a few of them (TOL's atol is 2e-5).
+PREFILL_SHAPES = [(scheme, rows, 512, 256) for scheme in ("int8", "int4")
+                  for rows in (64, 200, 256)]
+PREFILL_TOL = dict(rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("scheme,rows,K,N", PREFILL_SHAPES)
+def test_plain_quant_matmul_at_prefill_rows(scheme, rows, K, N):
+    rng = np.random.RandomState(rows * K + N)
+    x = rng.randn(rows, K).astype(np.float32)
+    qt = _jit_quantize(rng.randn(K, N).astype(np.float32), scheme)
+    jw = jax.tree.map(jnp.asarray, qt)
+    tw = {k: torch.from_numpy(v) for k, v in qt.items()}
+    got = tqm.quant_linear(torch.from_numpy(x), tw).numpy()
+    pallas = np.asarray(jqm.quant_matmul(jnp.asarray(x), jw, interpret=True))
+    fallback = np.asarray(jqm.dequant_matmul_jax(jnp.asarray(x), jw))
+    np.testing.assert_allclose(got, pallas, **PREFILL_TOL)
+    np.testing.assert_allclose(got, fallback, **PREFILL_TOL)
+
+
 @pytest.mark.parametrize("scheme", ["int8", "int4"])
 def test_leading_dims_flatten_into_rows(scheme):
     rng = np.random.RandomState(7)
