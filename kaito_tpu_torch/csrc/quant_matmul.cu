@@ -40,9 +40,10 @@
 //   128, two CTAs per column tile over that), and each code byte is read
 //   once and widened once, in registers, for all those rows, never going
 //   back to shared memory.  256 threads (two warpgroups), one CTA per SM
-//   (two for int8 up to 128 rows); threads 0 and 128 keep a ring of x
-//   stages ([nt rows][64 k] bf16 in the 128-byte swizzle, from L2: the
-//   K-major B operand) and a ring of up to 8 code stages ([64 k][128]
+//   (two for int8 up to 128 rows and int4 up to 64); threads 0 and 128
+//   keep a ring of x stages ([nt rows][64 k] bf16 in the 128-byte
+//   swizzle, from L2: the K-major B operand) and a ring of up to 8 code
+//   stages ([64 k][128]
 //   int8 or [32][128] int4 bytes in the 128-byte swizzle, from HBM, each
 //   also asked of L2 a ring ahead) in flight by TMA with mbarrier
 //   completion.  Warpgroup w owns the tile's columns 64 w .. 64 w + 63
@@ -586,10 +587,11 @@ constexpr int WD_MAX_ROWS = 256;        // the widest wgmma N
 constexpr int WD_TN = 128;              // columns per CTA
 constexpr int WD_SCALE_GROUPS = 64;     // int4 scale rows a CTA stages in shared memory
 
-// CTAs a wide-path SM holds: two of int8 up to 128 rows (each thread
-// under 128 registers, so four warpgroups hide each other's widening),
-// else one (int8's 256-row accumulator, int4's second accumulator).
-constexpr int wd_ctas_per_sm(bool int4, int nt) { return !int4 && nt <= 128 ? 2 : 1; }
+// CTAs a wide-path SM holds: two where a thread needs under 128
+// registers (int8 up to 128 rows, int4 up to 64), so four warpgroups
+// hide each other's widening; else one (int8's 256-row accumulator,
+// int4's second accumulator at 128 rows).
+constexpr int wd_ctas_per_sm(bool int4, int nt) { return nt <= (int4 ? 64 : 128) ? 2 : 1; }
 
 // Launch plan of the wide path (mirrored by wide_plan in
 // engine/ops/quant_matmul.py, which the CPU tests hold): nt rows of x

@@ -87,14 +87,14 @@ def wide_plan(rows: int, K: int, N: int, groups: int, int4: bool) -> WidePlan:
     group fold keeps a second accumulator, at most 128 rows a CTA); K is
     split, on stages (int4: whole groups, at most ``WIDE_SCALE_GROUPS`` a
     slice), only as far as one wave of CTAs still fits on the SMs (two
-    CTAs an SM for int8 up to 128 rows, else one)."""
+    CTAs an SM for int8 up to 128 rows and int4 up to 64, else one)."""
     gk = K // groups
     nt = 64 if rows <= 64 else 128 if rows <= 128 or int4 else 256
     row_blocks = -(-rows // nt)
     unit = gk if int4 else STAGE
     n_units = K // unit
     tiles = N // WIDE_TN * row_blocks
-    slots = SMS * (2 if not int4 and nt <= 128 else 1)
+    slots = SMS * (2 if nt <= (64 if int4 else 128) else 1)
     split = 1 if tiles >= SMS else max(1, min(n_units, slots // tiles))
     if int4:
         split = max(split, -(-n_units // WIDE_SCALE_GROUPS))

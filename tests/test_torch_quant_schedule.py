@@ -77,7 +77,7 @@ def test_wide_plan_covers_every_output_once(rows, shape, scheme):
     if tiles >= tqm.SMS:
         assert plan.n_split == 1
     else:
-        slots = tqm.SMS * (2 if not int4 and plan.nt <= 128 else 1)
+        slots = tqm.SMS * (2 if plan.nt <= (64 if int4 else 128) else 1)
         assert plan.n_split == 1 or tiles * plan.n_split <= slots
     # the workspace the wrapper allocates holds the split's partials
     need = plan.n_split * rows * N if plan.n_split > 1 else 0
