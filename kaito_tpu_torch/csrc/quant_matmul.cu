@@ -35,21 +35,20 @@
 //   of whole 64-row stages, 16-byte aligned planes: every Llama
 //   projection and its ring chunks at prefill rows).  The product runs
 //   transposed, out^T = W^T x^T, so that the widened weight is the wgmma
-//   A operand, which may come from registers: a CTA owns 128 columns of
-//   W for nt rows of x (64, 128 or 256: all of the call's; int4 at most
+//   A operand, which may come from registers: a CTA owns 128 columns of W
+//   for nt rows of x (64, 128 or 256: all of the call's; int4 at most
 //   128, two CTAs per column tile over that), and each code byte is read
 //   once and widened once, in registers, for all those rows, never going
 //   back to shared memory.  256 threads (two warpgroups), one CTA per SM
 //   (two for int8 up to 128 rows and int4 up to 64); threads 0 and 128
 //   keep a ring of x stages ([nt rows][64 k] bf16 in the 128-byte
 //   swizzle, from L2: the K-major B operand) and a ring of up to 8 code
-//   stages ([64 k][128]
-//   int8 or [32][128] int4 bytes in the 128-byte swizzle, from HBM, each
-//   also asked of L2 a ring ahead) in flight by TMA with mbarrier
-//   completion.  Warpgroup w owns the tile's columns 64 w .. 64 w + 63
-//   as the M of wgmma m64 n nt k16: each stage it reads its columns'
-//   codes with 16-byte loads (the swizzle keeps them free of bank
-//   conflicts), widens them into the A fragments of the stage's four
+//   stages ([64 k][128] int8 or [32][128] int4 bytes in the 128-byte
+//   swizzle, from HBM, each also asked of L2 a ring ahead) in flight by
+//   TMA with mbarrier completion.  Warpgroup w owns the tile's columns 64
+//   w .. 64 w + 63 as the M of wgmma m64 n nt k16: each stage it reads
+//   its columns' codes with 16-byte loads (the swizzle keeps them free of
+//   bank conflicts), widens them into the A fragments of the stage's four
 //   k-steps (int8 through the mantissa of 2^23 in fp32, int4 through the
 //   mantissa of 128 in bf16: exact), frees the code slot, issues the
 //   stage's wgmmas and waits for them.  Nothing runs between the issue
