@@ -25,7 +25,13 @@ order; any failure exits non-zero and prints no result:
    output must be bitwise K4/K5's.  K1 runs with the
    page-table width the full-width engine gives it at its context limit,
    and is also timed at the live width the engine passes and with one
-   live sequence beside idle (length-0) rows.  Tolerances: fp32 atol
+   live sequence beside idle (length-0) rows; K1q is timed at both
+   widths too.  The K1/K1q plan (splits, CTAs, scratch) and ptxas's
+   register and spill lines for ``decode_attention.cu`` are logged (a
+   spill fails the run), the merge counters must read zero after the
+   checks, and one K1 and one K1q call captured in a CUDA graph must
+   match the plain version when replayed after new lengths and page
+   tables are copied into its inputs.  Tolerances: fp32 atol
    1e-4 (the kernels sum in another order than the plain versions);
    bf16 atol 2e-2 (P is rounded to bf16 before the PV product, relative
    to a different running max in each); for K1q, K4 and K5 relative to
@@ -81,7 +87,11 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
-for a parent tree and this one.  ``--sweep-run-ahead`` adds
+for a parent tree and this one.  ``--decode-variants SPEC ...`` rebuilds
+``decode_attention.cu`` with other values of its constants (``SPEC`` =
+``NAME=VALUE,...``), times K1/K1q with each beside the committed build
+at the main case, eight 900-token and one 7196-token sequence, and
+stops (no other check, no result line).  ``--sweep-run-ahead`` adds
 a decode sweep over ``decode_run_ahead`` at
 full width, with the rule that picks the engine's CUDA auto value
 (:func:`pick_run_ahead`; PERF.md).  On a machine with two cards or more,
@@ -97,6 +107,7 @@ import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -286,14 +297,82 @@ def _time_decode(torch, args, kw, label):
     log(f"{'K1q' if quant else 'K1'} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, "
         f"SDPA {library_ms:.4f}, bound {b_ms:.5f} by {b_by}; host {host_ms:.4f} ms "
         f"per call)")
-    return dict(case=label, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b_ms, bound_by=b_by, host_ms=host_ms)
+    return dict(case=label, table_width=pt.shape[1], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, host_ms=host_ms)
 
 
-def check_decode(torch, records):
+def _decode_build_lines(build_logs):
+    """ptxas's entry, register and spill lines for csrc/decode_attention.cu
+    (empty when the library was already built); a spill is a defect."""
+    lines = [ln.strip() for ln in build_logs.get("decode_attention.cu", "").splitlines()
+             if any(w in ln for w in ("entry function", "registers", "spill"))]
+    spills = [ln for ln in lines
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    return lines, spills
+
+
+def _check_decode_graph(torch, full, gen):
+    """One K1 and one K1q call (bf16, the main case) captured in a CUDA
+    graph and replayed after new lengths and page-table contents are
+    copied into the static inputs; each replay against the plain version.
+    Returns the worst error of each (K1 absolute, K1q relative)."""
     from kaito_tpu_torch.engine.ops.decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_plain)
 
+    worst = {}
+    for quant in (False, True):
+        args, kw = _decode_case(torch, torch.bfloat16, K1_LENGTHS, BIG, None, gen, full)
+        q, ck, cv, pt, lens, win = args
+        if quant:
+            (ck, ks), (cv, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
+            kw = dict(kw, k_scale=ks, v_scale=vs)
+        run = lambda: paged_decode_attention_cuda(q, ck, cv, pt, lens, win, **kw)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run()
+        err = 0.0
+        for lengths in (list(reversed(K1_LENGTHS)), K1_SINGLE, [4000, 0, 1, 2, 3, 64, 65,
+                                                                 8000]):
+            lens.copy_(torch.tensor(lengths, dtype=torch.int32))
+            P = ck.shape[1]
+            pt.copy_((torch.randperm(P - 1, generator=gen, device="cuda")[:pt.numel()]
+                      + 1).reshape(pt.shape).to(torch.int32))
+            graph.replay()
+            ref = paged_decode_attention_plain(q, ck, cv, pt, lens, win, **kw).float()
+            torch.cuda.synchronize()
+            e = (out.float() - ref).abs().max().item()
+            if quant:
+                e /= max(ref.abs().max().item(), 1e-30)
+            err = max(err, e)
+        worst["K1q" if quant else "K1"] = err
+        del graph
+    log(f"K1/K1q CUDA graph replays (new lengths and tables): max err {worst}")
+    if worst["K1"] > BF16_ATOL or worst["K1q"] > BF16_ATOL:
+        raise SmokeFailure(f"K1/K1q replayed from a CUDA graph disagree: {worst}")
+    return worst
+
+
+def check_decode(torch, records, build_logs):
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        decode_plan, paged_decode_attention_cuda, paged_decode_attention_plain,
+        workspace)
+
+    lines, spills = _decode_build_lines(build_logs)
+    for ln in lines:
+        log(f"  decode_attention.cu: {ln}")
+    if spills:
+        raise SmokeFailure(f"decode_attention.cu spills: {spills}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B in (len(K1_LENGTHS), 1):
+        plan = decode_plan(B, 32, 8, 128, sms)
+        log(f"K1/K1q plan, B={B} H=32 Hkv=8 D=128 on {sms} SMs: n_split "
+            f"{plan.n_split}, {plan.ctas} CTAs, {plan.scratch_floats} scratch floats "
+            f"(any table width)")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     full = _path_pages_per_seq()
@@ -326,6 +405,9 @@ def check_decode(torch, records):
         raise SmokeFailure(f"K1 disagrees with its plain version: {err}")
     if err_q[torch.bfloat16] > BF16_ATOL or err_q[torch.float32] > FP32_ATOL:
         raise SmokeFailure(f"K1q disagrees with its plain version: {err_q}")
+    if workspace(torch.device("cuda", 0)).counters.any():
+        raise SmokeFailure("K1/K1q left a merge counter above zero")
+    graph_err = _check_decode_graph(torch, full, gen)
     # timed at the widest page table the engine passes, and at the live
     # width it passes when no sequence is longer than these
     timed = []
@@ -337,23 +419,29 @@ def check_decode(torch, records):
         args, kw = _decode_case(torch, torch.bfloat16, lengths, BIG, None, gen, pmax)
         timed.append(_time_decode(torch, args, kw, label))
     main = timed[0]
+    plan = decode_plan(len(K1_LENGTHS), 32, 8, 128, sms)
     records["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
         source="kaito_tpu_torch/csrc/decode_attention.cu",
         replaces="kaito_tpu/engine/ops/decode_attention.py:199",
         shape=f"B=8 H=32 Hkv=8 D=128 ps=64 lengths<=2048 table width {full} bf16",
         max_abs_err=err[torch.bfloat16], max_err_bf16=err[torch.bfloat16],
-        max_err_fp32=err[torch.float32], ms=main["ms"], kernel_ms=main["ms"],
+        max_err_fp32=err[torch.float32], graph_replay_err=graph_err["K1"],
+        ms=main["ms"], kernel_ms=main["ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
-        host_ms=main["host_ms"], cases=timed)
-    # K1q at the main case: the same pools quantized to int8
-    args, kw = _decode_case(torch, torch.bfloat16, K1_LENGTHS, BIG, None, gen, full)
-    (q, ck, cv, pt, lens, win) = args
-    (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
-    del ck, cv
-    tq = _time_decode(torch, (q, k8, v8, pt, lens, win),
-                      dict(kw, k_scale=ks, v_scale=vs), timed[0]["case"])
+        host_ms=main["host_ms"], n_split=plan.n_split, ctas=plan.ctas, cases=timed)
+    # K1q at the main case, at both table widths: the same pools quantized
+    # to int8
+    timed_q = []
+    for pmax, label in ((full, timed[0]["case"]), (2048 // 64, timed[1]["case"])):
+        args, kw = _decode_case(torch, torch.bfloat16, K1_LENGTHS, BIG, None, gen, pmax)
+        (q, ck, cv, pt, lens, win) = args
+        (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
+        del ck, cv
+        timed_q.append(_time_decode(torch, (q, k8, v8, pt, lens, win),
+                                    dict(kw, k_scale=ks, v_scale=vs), label))
+    tq = timed_q[0]
     records["paged_decode_attention_int8kv"] = dict(
         name="paged_decode_attention_int8kv", route="cuda",
         source="kaito_tpu_torch/csrc/decode_attention.cu",
@@ -361,9 +449,120 @@ def check_decode(torch, records):
         shape=f"B=8 H=32 Hkv=8 D=128 ps=64 lengths<=2048 table width {full} "
               f"bf16 q, int8 pages + fp32 scales",
         max_abs_err=err_q[torch.bfloat16], max_rel_err_bf16=err_q[torch.bfloat16],
-        max_rel_err_fp32=err_q[torch.float32], ms=tq["ms"], kernel_ms=tq["ms"],
+        max_rel_err_fp32=err_q[torch.float32], graph_replay_err=graph_err["K1q"],
+        ms=tq["ms"], kernel_ms=tq["ms"],
         plain_ms=tq["plain_ms"], bound_ms=tq["bound_ms"], bound_by=tq["bound_by"],
-        library_ms=tq["library_ms"], host_ms=tq["host_ms"])
+        library_ms=tq["library_ms"], host_ms=tq["host_ms"], n_split=plan.n_split,
+        ctas=plan.ctas, cases=timed_q)
+
+
+def sweep_decode(torch, specs, rounds: int = 3):
+    """``--decode-variants``: csrc/decode_attention.cu built once as it is
+    and once per spec (``NAME=VALUE,...`` replacing its ``constexpr int``
+    constants, e.g. ``DEC_STAGES=2,DEC_CTAS_PER_SM=8``) into
+    build/kernels/variants/, then K1 and K1q timed with each at the main
+    case (table width at the context limit), in interleaved rounds.  The
+    wrapper is bypassed: each variant's library is called with scratch
+    sized by its own plan functions."""
+    import ctypes
+    import shutil
+
+    from kaito_tpu_torch.ops import build
+
+    root = os.path.join(REPO, "build", "kernels", "variants")
+    shutil.rmtree(root, ignore_errors=True)
+    procs = []
+    for i, spec in enumerate([""] + list(specs)):
+        d = os.path.join(root, str(i))
+        shutil.copytree(build.CSRC, d)
+        src = os.path.join(d, "decode_attention.cu")
+        text = open(src).read()
+        for item in filter(None, spec.split(",")):
+            name, value = item.split("=")
+            text, n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{value};", text)
+            if n != 1:
+                raise SmokeFailure(f"no constant {name} in decode_attention.cu")
+        open(src, "w").write(text)
+        lib = os.path.join(d, "libdecode_attention.so")
+        procs.append((spec or "as committed", lib, subprocess.Popen(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-I", d, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    variants = []
+    for spec, lib, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise SmokeFailure(f"variant {spec} failed to build:\n{out}")
+        so = ctypes.CDLL(lib)
+        fn = so.kaito_decode_attention
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for name, n in (("kaito_decode_workspace_floats", 5), ("kaito_decode_counters", 3)):
+            getattr(so, name).argtypes = [ctypes.c_int] * n
+            getattr(so, name).restype = ctypes.c_longlong
+        variants.append((spec, so, fn))
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    full = _path_pages_per_seq()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    from kaito_tpu_torch.engine.ops.decode_attention import paged_decode_attention_plain
+
+    def case_calls(lengths):
+        """(callers by (variant, quant)) over one set of lengths."""
+        args, kw = _decode_case(torch, torch.bfloat16, lengths, BIG, None, gen, full)
+        q, ck, cv, pt, lens, _ = args
+        (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
+        B, H, D = q.shape
+        Hkv, ps = ck.shape[3], ck.shape[2]
+        out = torch.empty_like(q)
+        refs = {False: paged_decode_attention_plain(*args, **kw).float(),
+                True: paged_decode_attention_plain(
+                    q, k8, v8, pt, lens, BIG, **dict(kw, k_scale=ks, v_scale=vs)).float()}
+
+        def caller(spec, so, fn, quant):
+            part = torch.empty(max(so.kaito_decode_workspace_floats(B, H, Hkv, D, sms), 1),
+                               dtype=torch.float32, device="cuda")
+            cnt = torch.zeros(so.kaito_decode_counters(B, H, Hkv), dtype=torch.int32,
+                              device="cuda")
+            kc, vc = (k8[1], v8[1]) if quant else (ck[1], cv[1])
+            sc = (ks[1].data_ptr(), vs[1].data_ptr()) if quant else (None, None)
+
+            def call():
+                rc = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+                        pt.data_ptr(), lens.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                        *sc, B, H, Hkv, D, ps, pt.shape[1], BIG, kw["scale"], 0.0, 1, sms,
+                        stream)
+                if rc:
+                    raise SmokeFailure(f"variant {spec} launch failed: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            err = (out.float() - refs[quant]).abs().max().item()
+            if quant:
+                err /= refs[quant].abs().max().item()
+            if err > BF16_ATOL:
+                raise SmokeFailure(f"variant {spec} disagrees: {err}")
+            return call
+        return caller
+
+    # the main case, and the same 7196 tokens spread evenly or in one sequence
+    cases = {"main": case_calls(K1_LENGTHS), "8 x 900": case_calls([900] * 8),
+             "1 x 7196": case_calls([7196])}
+    times = {(case, spec, quant): [] for case in cases for spec, _, _ in variants
+             for quant in (False, True)}
+    for _ in range(rounds):
+        for case, caller in cases.items():
+            for spec, so, fn in variants:
+                for quant in (False, True):
+                    times[(case, spec, quant)].append(
+                        time_ms(caller(spec, so, fn, quant))[0])
+    for (case, spec, quant), ts in times.items():
+        log(f"decode variant [{spec}] {'K1q' if quant else 'K1'} {case}: "
+            f"{' '.join(f'{t:.4f}' for t in ts)} ms")
+    return {f"{'K1q' if quant else 'K1'} {case} {spec}": ts
+            for (case, spec, quant), ts in times.items()}
 
 
 # projection shapes of Llama-3.1-8B, [K, N]
@@ -1250,6 +1449,10 @@ def main(argv=None) -> int:
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
                          "line")
+    ap.add_argument("--decode-variants", nargs="*", metavar="SPEC",
+                    help="after phase 2, time K1/K1q built as committed and with "
+                         "each SPEC (NAME=VALUE,... of decode_attention.cu's "
+                         "constants), and stop; no other check, no result line")
     ap.add_argument("--time-limit", type=float, default=1100.0,
                     help="seconds after which the run fails")
     args = ap.parse_args(argv)
@@ -1288,11 +1491,16 @@ def main(argv=None) -> int:
         records: dict = {}
         alone = args.first_leg_only or args.leg is not None
         with torch.no_grad():
-            if args.leg is None:
-                check_decode(torch, records)
+            if args.leg is None and args.decode_variants is None:
+                check_decode(torch, records, logs)
                 check_flash(torch, records)
                 check_quant_matmul(torch, records)
                 check_quant_matmul_pf(torch, records)
+            if args.decode_variants is not None:
+                print(card)
+                print(json.dumps({"decode_variants": sweep_decode(
+                    torch, args.decode_variants)}))
+                return 0
             if args.phase2_only:
                 print(card)
                 print(json.dumps({"kernels": [records[k[0]] for k in KERNELS]}))

@@ -950,8 +950,8 @@ class InferenceEngine:
     def _decode_inputs(self, steps: int = 1):
         """Device inputs of a window of ``steps`` decode steps.  The page
         tables are cut to the columns the window's writes reach, so the
-        decode kernel sizes its split grid from the longest live
-        sequence, not from ``max_model_len``."""
+        host copies only those (the decode kernel's grid does not depend
+        on the width)."""
         ps = self.cfg.page_size
         live = self.positions[self.active]
         hi = int(live.max()) + steps - 1 if live.size else 0

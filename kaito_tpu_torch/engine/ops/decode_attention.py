@@ -5,25 +5,30 @@ Counterpart of ``kaito_tpu.engine.ops.decode_attention``.  The kernel
 kernel ``paged_decode_attention_pallas``: one query token per sequence
 attends over its paged KV history in one layer of the stacked pool,
 with GQA, a sliding window, an optional softcap and an fp32 online
-softmax.  It splits each sequence into 128-token pieces across CTAs and
-merges them in a second launch; its header note says what bounds it on
+softmax.  One launch per call: each sequence's live window is cut into
+page-aligned splits across CTAs, and the last split of a (sequence, head
+block) to finish merges them.  The grid and the scratch depend on the
+batch, the heads and the card's SM count only (:func:`decode_plan`),
+never on the page table's width.  Its header note says what bounds it on
 the H100 and how it is laid out.
 
 With ``k_scale``/``v_scale`` (int8 pools with fp32 per-page-per-head
-scales) the same kernel design runs over int8 pages (K1q, the Pallas
-kernel's ``quantized=True`` mode): the codes are widened after the load,
-sigma_k multiplies the fp32 scores after the QK dot and sigma_v the
-probabilities after the running sum is updated.
+scales) the same kernel runs over int8 pages (K1q, the Pallas kernel's
+``quantized=True`` mode): sigma_k multiplies the fp32 scores after the
+QK dot and sigma_v the probabilities after the running sum is updated.
 
 :func:`paged_decode_attention_cuda` launches the kernel for tensors on
 the card and runs :func:`paged_decode_attention_plain` for tensors on
 the CPU; a CUDA tensor it cannot take raises.  ``launches`` on the
-wrapper counts K1's launches and ``launches_q`` K1q's.
+wrapper counts K1's launches and ``launches_q`` K1q's.  The scratch and
+the merge counters are allocated once per card and reused, so calls on
+one card must not run concurrently on two streams.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -34,6 +39,52 @@ from kaito_tpu_torch.ops import build
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the launch plan of csrc/decode_attention.cu (DEC_* there)
+HEADS_PER_CTA = 8          # query heads of one CTA: the mma's N
+SLICE = 16                 # tokens of a warp slice: split starts are multiples
+CTAS_PER_SM = 4            # grid target: two waves of two CTAs an SM
+MAX_SPLIT = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    n_split: int           # splits per (sequence, head block): the grid's z
+    head_blocks: int       # CTAs per KV head (G / 8, rounded up)
+    ctas: int              # the whole grid
+    scratch_floats: int    # fp32 partials: B * H * n_split * (D + 2), or 0
+    counters: int          # int32 merge counters, one per (sequence, head block)
+
+
+def decode_plan(B: int, H: int, Hkv: int, D: int, sms: int) -> DecodePlan:
+    """The kernel's grid and scratch for a call (``dec_n_split`` and
+    ``dec_scratch_floats`` in the source): a function of the batch, the
+    heads and the card's SM count, never of the page table's width.  The
+    wrapper sizes the scratch with it; it computes no output."""
+    hb = -(-(H // Hkv) // HEADS_PER_CTA)
+    pairs = max(B * Hkv * hb, 1)
+    n_split = min(max(-(-CTAS_PER_SM * sms // pairs), 1), MAX_SPLIT)
+    return DecodePlan(n_split=n_split, head_blocks=hb, ctas=B * Hkv * hb * n_split,
+                      scratch_floats=B * H * n_split * (D + 2) if n_split > 1 else 0,
+                      counters=B * Hkv * hb)
+
+
+def decode_split(length: int, window: int, ps: int, n_split: int, split: int
+                 ) -> tuple[int, int, int, int]:
+    """(lo, t0, t1, n_live) of one split, as each CTA finds it on the
+    device (``dec_split``): the window's first position ``lo``, the split's
+    tokens [t0, t1) and how many splits of the sequence have work.  The
+    live window, started at the multiple of lcm(ps, 16) at or below
+    ``lo``, is cut into ``n_split`` pieces of whole such units."""
+    low = ps & -ps
+    unit = ps * (SLICE // min(low, SLICE))
+    lo = length - window if window < length else 0
+    base = lo // unit * unit
+    span = length - base
+    per = -(-(-(-max(span, 1) // n_split)) // unit) * unit
+    n_live = -(-span // per) if length > 0 else 0
+    t0 = base + split * per
+    return lo, t0, min(t0 + per, length), n_live
 
 
 def paged_decode_attention_plain(
@@ -106,19 +157,41 @@ def _ptr(t: torch.Tensor) -> int:
 def _kernel():
     return build.bind("decode_attention", "kaito_decode_attention", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 @functools.cache
-def _workspace_floats():
-    fn = build.load_library("decode_attention").kaito_decode_workspace_floats
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_longlong
-    return fn
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class _Workspace:
+    """One card's scratch and merge counters, grown when a call needs
+    more.  The counters are zeroed once; every call leaves them at zero."""
+
+    def __init__(self):
+        self.part: Optional[torch.Tensor] = None
+        self.counters: Optional[torch.Tensor] = None
+
+    def get(self, plan: DecodePlan, device: torch.device):
+        if self.counters is None or self.counters.numel() < plan.counters:
+            self.counters = torch.zeros(plan.counters, dtype=torch.int32, device=device)
+        need = max(plan.scratch_floats, 1)
+        if self.part is None or self.part.numel() < need:
+            self.part = torch.empty(need, dtype=torch.float32, device=device)
+        return self.part, self.counters
+
+
+_WORKSPACES: dict[int, _Workspace] = {}
+
+
+def workspace(device: torch.device) -> _Workspace:
+    """The scratch and counters the kernel uses on ``device``."""
+    return _WORKSPACES.setdefault(device.index, _Workspace())
 
 
 def paged_decode_attention_cuda(
@@ -179,17 +252,16 @@ def paged_decode_attention_cuda(
     for t in (q, cache_k, cache_v, out):
         if _ptr(t) % 16:
             raise ValueError("decode kernel needs 16-byte aligned tensors")
-    pmax = page_tables.shape[1]
-    # split-K scratch: per (sequence, head, split) accumulator + (max, sum)
-    work = torch.empty(_workspace_floats()(B, H, D, ps, pmax),
-                       dtype=torch.float32, device=q.device)
+    sms = _sms(q.device.index)
+    part, counters = workspace(q.device).get(decode_plan(B, H, Hkv, D, sms), q.device)
     rc = build.launch(
         q.device, _kernel(),
         _ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(out), _ptr(page_tables),
-        _ptr(lengths), _ptr(work), _ptr(k_scale) if quantized else None,
-        _ptr(v_scale) if quantized else None, B, H, Hkv, D, ps, pmax,
+        _ptr(lengths), _ptr(part), _ptr(counters),
+        _ptr(k_scale) if quantized else None,
+        _ptr(v_scale) if quantized else None, B, H, Hkv, D, ps, page_tables.shape[1],
         int(min(window, 2**31 - 1)), float(scale), float(softcap or 0.0),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], sms, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "kaito_decode_attention")
     if quantized:
         paged_decode_attention_cuda.launches_q += 1

@@ -19,6 +19,7 @@ from kaito_tpu.engine.ops.flash_prefill import (flash_prefill_attention,
 from kaito_tpu_torch.engine import attention as tattn
 from kaito_tpu_torch.engine.ops import decode_attention as tdec
 from kaito_tpu_torch.engine.ops import flash_prefill as tflash
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BIG = 1 << 30
 TOL = dict(rtol=2e-5, atol=2e-5)

@@ -171,6 +171,166 @@ def test_quantized_decode_kernel(card, dtype, D, Hkv, G, ps, window, softcap):
     assert err <= ATOL[dtype] * max(1.0, ref.float().abs().max().item())
 
 
+def _decode_inputs(gen, dtype, quant, lengths, pmax, D=128, Hkv=8, G=4, ps=64, P=None):
+    """q and a two-layer pool (int8 codes + scales when ``quant``) with a
+    page table of width ``pmax`` over scattered pages."""
+    B = len(lengths)
+    P = P or B * pmax + 9
+    q = _rand(gen, B, Hkv * G, D, dtype=dtype)
+    if quant:
+        ck, ks = _quantized_pool(gen, 2, P, ps, Hkv, D)
+        cv, vs = _quantized_pool(gen, 2, P, ps, Hkv, D)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        ck = _rand(gen, 2, P, ps, Hkv, D, dtype=dtype)
+        cv = _rand(gen, 2, P, ps, Hkv, D, dtype=dtype)
+        scales = {}
+    pt = (torch.randperm(P - 1, generator=gen, device="cuda")[:B * pmax] + 1
+          ).reshape(B, pmax).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return (q, ck, cv, pt, lens), dict(scale=D ** -0.5, layer=1, **scales)
+
+
+def _decode_err(out, ref, quant):
+    err = (out.float() - ref.float()).abs().max().item()
+    return err / max(ref.float().abs().max().item(), 1e-30) if quant else err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
+def test_decode_table_width_does_not_change_the_output(card, dtype, quant):
+    """The same lengths and pages through a table of the live width and one
+    of 128 columns (the extra columns point anywhere): the grid does not
+    see the width, so the outputs are equal bit for bit."""
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+
+    lengths = [2048, 1, 37, 511, 1000, 1536, 64, 1999]
+    (q, ck, cv, pt, lens), kw = _decode_inputs(card, dtype, quant, lengths, 128)
+    narrow = pt[:, :32].contiguous()
+    out_wide = paged_decode_attention_cuda(q, ck, cv, pt, lens, BIG, **kw)
+    out_narrow = paged_decode_attention_cuda(q, ck, cv, narrow, lens, BIG, **kw)
+    ref = paged_decode_attention_plain(q, ck, cv, narrow, lens, BIG, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_wide, out_narrow)
+    assert _decode_err(out_wide, ref, quant) <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
+@pytest.mark.parametrize("window", [BIG, 100])
+def test_decode_single_live_sequence_among_idle_rows(card, dtype, quant, window):
+    """One 230-token sequence beside seven rows of length 0: the idle rows
+    come out zero, the live one matches the plain version, and the merge
+    counters read zero after the call."""
+    from kaito_tpu_torch.engine.ops import decode_attention as dec
+
+    lengths = [0, 0, 0, 230, 0, 0, 0, 0]
+    (q, ck, cv, pt, lens), kw = _decode_inputs(card, dtype, quant, lengths, 128)
+    out = dec.paged_decode_attention_cuda(q, ck, cv, pt, lens, window, **kw)
+    ref = dec.paged_decode_attention_plain(q, ck, cv, pt, lens, window, **kw)
+    torch.cuda.synchronize()
+    assert not out[[0, 1, 2, 4, 5, 6, 7]].float().any()
+    assert _decode_err(out, ref, quant) <= ATOL[dtype]
+    assert not dec.workspace(q.device).counters.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
+@pytest.mark.parametrize("D,Hkv,G,ps", [(128, 8, 4, 64), (64, 2, 8, 16),
+                                        (32, 1, 16, 32), (128, 4, 1, 16)])
+def test_decode_merge_counters_read_zero_after_a_call(card, dtype, quant, D, Hkv, G, ps):
+    """Several splits per sequence (the last split merges) at every head
+    dim, G = 1, 8 and 16 (two head blocks): the counters are back at zero
+    after each call, and two calls give equal outputs (the merge runs in
+    split order, whichever CTA finishes last)."""
+    from kaito_tpu_torch.engine.ops import decode_attention as dec
+
+    lengths = [900, 3, 0, 640, 129]
+    (q, ck, cv, pt, lens), kw = _decode_inputs(card, dtype, quant, lengths, 60, D=D,
+                                               Hkv=Hkv, G=G, ps=ps)
+    plan = dec.decode_plan(len(lengths), Hkv * G, Hkv, D,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.n_split > 1
+    first = dec.paged_decode_attention_cuda(q, ck, cv, pt, lens, BIG, **kw)
+    torch.cuda.synchronize()
+    assert not dec.workspace(q.device).counters.any()
+    second = dec.paged_decode_attention_cuda(q, ck, cv, pt, lens, BIG, **kw)
+    ref = dec.paged_decode_attention_plain(q, ck, cv, pt, lens, BIG, **kw)
+    torch.cuda.synchronize()
+    assert not dec.workspace(q.device).counters.any()
+    assert torch.equal(first, second)
+    assert _decode_err(first, ref, quant) <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
+def test_decode_kernel_replays_in_a_cuda_graph(card, dtype, quant):
+    """One call captured in a CUDA graph, replayed after new lengths and
+    page-table contents are copied into its static inputs: each replay
+    matches the plain version on the new inputs."""
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+
+    (q, ck, cv, pt, lens), kw = _decode_inputs(
+        card, dtype, quant, [700, 1, 0, 1999, 64, 300, 1024, 5], 40)
+    run = lambda: paged_decode_attention_cuda(q, ck, cv, pt, lens, 1500, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                      # warm up: build, scratch, counters
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    P = ck.shape[1]
+    for new_lengths in ([2500, 2, 17, 0, 640, 64, 1, 2555], [0] * 7 + [33],
+                        [1280] * 8):
+        lens.copy_(torch.tensor(new_lengths, dtype=torch.int32))
+        pt.copy_((torch.randperm(P - 1, generator=card, device="cuda")[:pt.numel()] + 1
+                  ).reshape(pt.shape).to(torch.int32))
+        graph.replay()
+        ref = paged_decode_attention_plain(q, ck, cv, pt, lens, 1500, **kw)
+        torch.cuda.synchronize()
+        assert _decode_err(out, ref, quant) <= ATOL[dtype], new_lengths
+
+
+def test_decode_plans_mirror_the_kernel(card):
+    """decode_plan and decode_split (engine/ops/decode_attention.py) equal
+    the source's dec_n_split, dec_scratch_floats and dec_split."""
+    import ctypes
+
+    from kaito_tpu_torch.engine.ops import decode_attention as dec
+    from kaito_tpu_torch.ops import build
+
+    lib = build.load_library("decode_attention")
+    lib.kaito_decode_plan.argtypes = [ctypes.c_int] * 4
+    lib.kaito_decode_plan.restype = ctypes.c_int
+    lib.kaito_decode_workspace_floats.argtypes = [ctypes.c_int] * 5
+    lib.kaito_decode_workspace_floats.restype = ctypes.c_longlong
+    lib.kaito_decode_counters.argtypes = [ctypes.c_int] * 3
+    lib.kaito_decode_counters.restype = ctypes.c_longlong
+    lib.kaito_decode_split.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.kaito_decode_split.restype = None
+    for B in (1, 2, 5, 8, 64, 256):
+        for Hkv, G in ((8, 4), (1, 8), (2, 16), (4, 1), (4, 7)):
+            for sms in (1, 78, 132):
+                plan = dec.decode_plan(B, Hkv * G, Hkv, 128, sms)
+                assert plan.n_split == lib.kaito_decode_plan(B, Hkv * G, Hkv, sms)
+                assert plan.scratch_floats == lib.kaito_decode_workspace_floats(
+                    B, Hkv * G, Hkv, 128, sms)
+                assert plan.counters == lib.kaito_decode_counters(B, Hkv * G, Hkv)
+    got = (ctypes.c_int * 4)()
+    for length in (0, 1, 15, 16, 63, 64, 65, 230, 1000, 2048, 8191):
+        for window in (BIG, 1, 30, 100, 1024):
+            for ps in (16, 32, 64):
+                for n_split in (1, 3, 9, 64):
+                    for split in (0, 1, n_split - 1):
+                        lib.kaito_decode_split(length, window, ps, n_split, split, got)
+                        assert tuple(got) == dec.decode_split(length, window, ps,
+                                                              n_split, split)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("scheme", ["int8", "int4"])
 @pytest.mark.parametrize("rows,K,N", [(1, 4096, 1024), (3, 256, 50), (8, 512, 264),

@@ -26,6 +26,7 @@ from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
 from kaito_tpu_torch.engine.model import params_from_jax
 from kaito_tpu_torch.models import get_model_by_name
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(REPO, "tests", "testdata", "goldens_tiny-llama-real.json")

@@ -19,6 +19,7 @@ from hypothesis import given, settings, strategies as st
 from kaito_tpu.engine.ops.flash_prefill import (flash_prefill_attention,
                                                 flash_prefill_packed)
 from kaito_tpu_torch.engine.ops import flash_prefill as tflash
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BIG = 1 << 30
 NEG_INF = -1e30

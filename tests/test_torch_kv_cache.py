@@ -14,6 +14,7 @@ from kaito_tpu.engine import kv_cache as jkv
 from kaito_tpu.models import get_model_by_name as jax_model
 from kaito_tpu_torch.engine import kv_cache as tkv
 from kaito_tpu_torch.models import get_model_by_name
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PRESET = "tiny-llama-test"
 P, PS = 24, 4

@@ -28,6 +28,7 @@ from kaito_tpu_torch.engine import attention as tattn
 from kaito_tpu_torch.engine import kv_cache as tkv
 from kaito_tpu_torch.engine.ops import decode_attention as tdec
 from kaito_tpu_torch.models import get_model_by_name
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PRESET = "tiny-llama-test"
 PS = 16

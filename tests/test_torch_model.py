@@ -19,6 +19,7 @@ from kaito_tpu.models import get_model_by_name as jax_model
 from kaito_tpu_torch.engine.kv_cache import create_kv_cache as t_cache
 from kaito_tpu_torch.engine.model import TransformerLM, params_from_jax
 from kaito_tpu_torch.models import get_model_by_name
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PRESET = "tiny-llama-test"
 PS, P, PMAX = 16, 40, 6

@@ -15,6 +15,7 @@ from kaito_tpu.engine import nn as jnn
 from kaito_tpu.models import get_model_by_name as jax_model
 from kaito_tpu_torch.engine import nn as tnn
 from kaito_tpu_torch.models import get_model_by_name
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -34,6 +34,7 @@ from kaito_tpu_torch.engine.ops import overlap_collectives as tov
 from kaito_tpu_torch.engine.ops import quant_matmul as tqm
 from kaito_tpu_torch.parallel import sharding as tsh
 from kaito_tpu_torch.parallel.mesh import build_mesh
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 

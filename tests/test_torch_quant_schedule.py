@@ -24,6 +24,7 @@ from kaito_tpu.engine import quant as jq
 from kaito_tpu.engine.ops import quant_matmul as jqm
 from kaito_tpu_torch.engine.ops import quant_matmul as tqm
 from kaito_tpu_torch.engine.quant import unpack_int4
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # [K, N]: the projections of Llama-3.1-8B (q/o, k/v, gate/up, down), their
 # TP=2 column shards (q, k/v, gate/up) and row shards (o, down), and the

@@ -16,6 +16,7 @@ import torch
 
 from kaito_tpu.engine import sampler as js
 from kaito_tpu_torch.engine import sampler as ts
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 N_DRAWS = 20000

@@ -14,6 +14,7 @@ from kaito_tpu_torch.engine.chat import render_chat
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
 from kaito_tpu_torch.engine.server import make_server
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -50,6 +50,7 @@ from kaito_tpu_torch.engine.ops import overlap_collectives as tov
 from kaito_tpu_torch.engine.quant import qtensor_logical_axes, quantize_params
 from kaito_tpu_torch.models import get_model_by_name
 from kaito_tpu_torch.parallel.mesh import Mesh, build_mesh
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(REPO, "tests", "testdata", "goldens_tiny-llama-real.json")
