@@ -31,11 +31,17 @@ order; any failure exits non-zero and prints no result:
    spill fails the run), the merge counters must read zero after the
    checks, and one K1 and one K1q call captured in a CUDA graph must
    match the plain version when replayed after new lengths and page
-   tables are copied into its inputs.  Tolerances: fp32 atol
+   tables are copied into its inputs (and after an eager call at a
+   larger batch).  Tolerances: fp32 atol
    1e-4 (the kernels sum in another order than the plain versions);
    bf16 atol 2e-2 (P is rounded to bf16 before the PV product, relative
-   to a different running max in each); for K1q, K4 and K5 relative to
-   the output's largest magnitude (K6 the same as K4/K5).  Each kernel,
+   to a different running max in each); for K4 and K5 relative to the
+   output's largest magnitude (K6 the same as K4/K5); K1 and K1q (K1q
+   only so) also relative to each sequence's largest magnitude, since a
+   long sequence comes out far smaller than a short one.  The reading
+   of a kernel that loses one split of the longest sequence (the plain
+   version without that split's pages) is logged beside them and must
+   fail that check.  Each kernel,
    its plain version and
    one PyTorch call as a yardstick (``scaled_dot_product_attention``;
    ``torch.matmul`` against the dequantized bf16 weight for K4/K5) are
@@ -87,11 +93,7 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
-for a parent tree and this one.  ``--decode-variants SPEC ...`` rebuilds
-``decode_attention.cu`` with other values of its constants (``SPEC`` =
-``NAME=VALUE,...``), times K1/K1q with each beside the committed build
-at the main case, eight 900-token and one 7196-token sequence, and
-stops (no other check, no result line).  ``--sweep-run-ahead`` adds
+for a parent tree and this one.  ``--sweep-run-ahead`` adds
 a decode sweep over ``decode_run_ahead`` at
 full width, with the rule that picks the engine's CUDA auto value
 (:func:`pick_run_ahead`; PERF.md).  On a machine with two cards or more,
@@ -311,13 +313,55 @@ def _decode_build_lines(build_logs):
     return lines, spills
 
 
+def _seq_rel_err(out, ref) -> float:
+    """The worst error of a sequence of a [B, H, D] output relative to
+    that sequence's largest magnitude."""
+    diff = (out.float() - ref.float()).abs().flatten(1).amax(dim=1)
+    return (diff / ref.float().abs().flatten(1).amax(dim=1).clamp_min(1e-30)).max().item()
+
+
+def _decode_errs(out, ref) -> tuple[float, float]:
+    """(absolute, per-sequence relative) error of a K1/K1q output."""
+    return (out.float() - ref.float()).abs().max().item(), _seq_rel_err(out, ref)
+
+
+def _dropped_split_reading(torch, args, kw, sms):
+    """What the checks read for a kernel that loses the second split of
+    the longest sequence (global window): the plain version with that
+    split's pages left out of the sequence, against the plain version.
+    Returns (absolute, relative to the batch's largest magnitude,
+    per-sequence relative)."""
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        decode_plan, decode_split, paged_decode_attention_plain)
+
+    q, ck, cv, pt, lens, win = args
+    B, H, D = q.shape
+    ps, Hkv = ck.shape[2], ck.shape[3]
+    b = int(lens.argmax())
+    n = int(lens[b])
+    _, t0, t1, n_live = decode_split(n, win, ps, decode_plan(B, H, Hkv, D, sms).n_split, 1)
+    if n_live < 3:
+        raise SmokeFailure(f"the longest sequence has {n_live} splits, not a middle one")
+    pt2, lens2 = pt.clone(), lens.clone()
+    keep = torch.cat([pt[b, :t0 // ps], pt[b, t1 // ps:]])
+    pt2[b, :keep.numel()] = keep
+    lens2[b] = n - (t1 - t0)
+    ref = paged_decode_attention_plain(*args, **kw).float()
+    bad = paged_decode_attention_plain(q, ck, cv, pt2, lens2, win, **kw).float()
+    e = (bad - ref).abs().max().item()
+    return e, e / ref.abs().max().item(), _seq_rel_err(bad, ref)
+
+
 def _check_decode_graph(torch, full, gen):
     """One K1 and one K1q call (bf16, the main case) captured in a CUDA
     graph and replayed after new lengths and page-table contents are
     copied into the static inputs; each replay against the plain version.
-    Returns the worst error of each (K1 absolute, K1q relative)."""
+    Before the replays, an eager call at a batch whose plan needs more
+    scratch and counters: the workspace must not move under the graph.
+    Returns the worst error of each (K1 the larger of absolute and
+    per-sequence relative, K1q per-sequence relative)."""
     from kaito_tpu_torch.engine.ops.decode_attention import (
-        paged_decode_attention_cuda, paged_decode_attention_plain)
+        paged_decode_attention_cuda, paged_decode_attention_plain, workspace)
 
     worst = {}
     for quant in (False, True):
@@ -335,7 +379,19 @@ def _check_decode_graph(torch, full, gen):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = run()
-        err = 0.0
+        ws = workspace(q.device)
+        ptrs = (ws.part.data_ptr(), ws.counters.data_ptr())
+        big, bkw = _decode_case(torch, torch.bfloat16, [300 + 37 * i for i in range(16)],
+                                BIG, None, gen, 20)
+        if quant:
+            (k8, ks), (v8, vs) = _quantize_pool(torch, big[1]), _quantize_pool(torch, big[2])
+            big, bkw = (big[0], k8, v8) + big[3:], dict(bkw, k_scale=ks, v_scale=vs)
+        eb, rb = _decode_errs(paged_decode_attention_cuda(*big, **bkw),
+                              paged_decode_attention_plain(*big, **bkw))
+        err = rb if quant else max(eb, rb)
+        if (ws.part.data_ptr(), ws.counters.data_ptr()) != ptrs:
+            raise SmokeFailure("the decode workspace moved under a captured graph")
+        del big
         for lengths in (list(reversed(K1_LENGTHS)), K1_SINGLE, [4000, 0, 1, 2, 3, 64, 65,
                                                                  8000]):
             lens.copy_(torch.tensor(lengths, dtype=torch.int32))
@@ -345,10 +401,8 @@ def _check_decode_graph(torch, full, gen):
             graph.replay()
             ref = paged_decode_attention_plain(q, ck, cv, pt, lens, win, **kw).float()
             torch.cuda.synchronize()
-            e = (out.float() - ref).abs().max().item()
-            if quant:
-                e /= max(ref.abs().max().item(), 1e-30)
-            err = max(err, e)
+            e, r = _decode_errs(out, ref)
+            err = max(err, r if quant else max(e, r))
         worst["K1q" if quant else "K1"] = err
         del graph
     log(f"K1/K1q CUDA graph replays (new lengths and tables): max err {worst}")
@@ -377,7 +431,7 @@ def check_decode(torch, records, build_logs):
     gen.manual_seed(1)
     full = _path_pages_per_seq()
     err = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    err_q = dict(err)
+    err_r, err_q = dict(err), dict(err)
     cases = [(K1_LENGTHS, w, c) for w, c in ((BIG, None), (300, None), (BIG, 30.0))]
     cases.append((K1_SINGLE, BIG, None))
     for dtype in (torch.bfloat16, torch.float32):
@@ -387,8 +441,9 @@ def check_decode(torch, records, build_logs):
             out = paged_decode_attention_cuda(*args, **kw)
             ref = paged_decode_attention_plain(*args, **kw)
             torch.cuda.synchronize()
-            e = (out.float() - ref.float()).abs().max().item()
+            e, r = _decode_errs(out, ref)
             err[dtype] = max(err[dtype], e)
+            err_r[dtype] = max(err_r[dtype], r)
             # K1q over the same pools quantized to int8
             (q, ck, cv, pt, lens, win) = args
             (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
@@ -396,17 +451,31 @@ def check_decode(torch, records, build_logs):
             out = paged_decode_attention_cuda(*qargs, **qkw)
             ref = paged_decode_attention_plain(*qargs, **qkw).float()
             torch.cuda.synchronize()
-            eq = (out.float() - ref).abs().max().item() / max(
-                ref.abs().max().item(), 1e-30)
+            eq = _seq_rel_err(out, ref)
             err_q[dtype] = max(err_q[dtype], eq)
             log(f"K1/K1q {dtype} lengths={lengths} window={window} softcap={softcap} "
-                f"page table width {full}: max err {e:.3g} / relative {eq:.3g}")
-    if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
-        raise SmokeFailure(f"K1 disagrees with its plain version: {err}")
+                f"page table width {full}: K1 max err {e:.3g}, per sequence "
+                f"relative {r:.3g} / K1q per sequence relative {eq:.3g}")
+    for name, bad in (("K1", err), ("K1 per sequence", err_r)):
+        if bad[torch.bfloat16] > BF16_ATOL or bad[torch.float32] > FP32_ATOL:
+            raise SmokeFailure(f"{name} disagrees with its plain version: {bad}")
     if err_q[torch.bfloat16] > BF16_ATOL or err_q[torch.float32] > FP32_ATOL:
         raise SmokeFailure(f"K1q disagrees with its plain version: {err_q}")
     if workspace(torch.device("cuda", 0)).counters.any():
         raise SmokeFailure("K1/K1q left a merge counter above zero")
+    # a kernel that loses one split must fail the per-sequence check
+    args, kw = _decode_case(torch, torch.bfloat16, K1_LENGTHS, BIG, None, gen, full)
+    q, ck, cv, pt, lens, win = args
+    (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
+    dropped = {"K1": _dropped_split_reading(torch, args, kw, sms),
+               "K1q": _dropped_split_reading(torch, (q, k8, v8, pt, lens, win),
+                                             dict(kw, k_scale=ks, v_scale=vs), sms)}
+    del args, ck, cv, k8, v8
+    for name, (e, rel, seq) in dropped.items():
+        log(f"{name} with the second split of the longest sequence lost: max err "
+            f"{e:.3g}, relative to the batch {rel:.3g}, per sequence {seq:.3g}")
+        if seq <= BF16_ATOL:
+            raise SmokeFailure(f"{name}'s check does not see a lost split: {seq}")
     graph_err = _check_decode_graph(torch, full, gen)
     # timed at the widest page table the engine passes, and at the live
     # width it passes when no sequence is longer than these
@@ -426,7 +495,9 @@ def check_decode(torch, records, build_logs):
         replaces="kaito_tpu/engine/ops/decode_attention.py:199",
         shape=f"B=8 H=32 Hkv=8 D=128 ps=64 lengths<=2048 table width {full} bf16",
         max_abs_err=err[torch.bfloat16], max_err_bf16=err[torch.bfloat16],
-        max_err_fp32=err[torch.float32], graph_replay_err=graph_err["K1"],
+        max_err_fp32=err[torch.float32], max_seq_rel_err_bf16=err_r[torch.bfloat16],
+        max_seq_rel_err_fp32=err_r[torch.float32], lost_split_err=dropped["K1"],
+        graph_replay_err=graph_err["K1"],
         ms=main["ms"], kernel_ms=main["ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
@@ -449,120 +520,12 @@ def check_decode(torch, records, build_logs):
         shape=f"B=8 H=32 Hkv=8 D=128 ps=64 lengths<=2048 table width {full} "
               f"bf16 q, int8 pages + fp32 scales",
         max_abs_err=err_q[torch.bfloat16], max_rel_err_bf16=err_q[torch.bfloat16],
-        max_rel_err_fp32=err_q[torch.float32], graph_replay_err=graph_err["K1q"],
+        max_rel_err_fp32=err_q[torch.float32], lost_split_err=dropped["K1q"],
+        graph_replay_err=graph_err["K1q"],
         ms=tq["ms"], kernel_ms=tq["ms"],
         plain_ms=tq["plain_ms"], bound_ms=tq["bound_ms"], bound_by=tq["bound_by"],
         library_ms=tq["library_ms"], host_ms=tq["host_ms"], n_split=plan.n_split,
         ctas=plan.ctas, cases=timed_q)
-
-
-def sweep_decode(torch, specs, rounds: int = 3):
-    """``--decode-variants``: csrc/decode_attention.cu built once as it is
-    and once per spec (``NAME=VALUE,...`` replacing its ``constexpr int``
-    constants, e.g. ``DEC_STAGES=2,DEC_CTAS_PER_SM=8``) into
-    build/kernels/variants/, then K1 and K1q timed with each at the main
-    case (table width at the context limit), in interleaved rounds.  The
-    wrapper is bypassed: each variant's library is called with scratch
-    sized by its own plan functions."""
-    import ctypes
-    import shutil
-
-    from kaito_tpu_torch.ops import build
-
-    root = os.path.join(REPO, "build", "kernels", "variants")
-    shutil.rmtree(root, ignore_errors=True)
-    procs = []
-    for i, spec in enumerate([""] + list(specs)):
-        d = os.path.join(root, str(i))
-        shutil.copytree(build.CSRC, d)
-        src = os.path.join(d, "decode_attention.cu")
-        text = open(src).read()
-        for item in filter(None, spec.split(",")):
-            name, value = item.split("=")
-            text, n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{value};", text)
-            if n != 1:
-                raise SmokeFailure(f"no constant {name} in decode_attention.cu")
-        open(src, "w").write(text)
-        lib = os.path.join(d, "libdecode_attention.so")
-        procs.append((spec or "as committed", lib, subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-I", d, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    variants = []
-    for spec, lib, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise SmokeFailure(f"variant {spec} failed to build:\n{out}")
-        so = ctypes.CDLL(lib)
-        fn = so.kaito_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-            ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        for name, n in (("kaito_decode_workspace_floats", 5), ("kaito_decode_counters", 3)):
-            getattr(so, name).argtypes = [ctypes.c_int] * n
-            getattr(so, name).restype = ctypes.c_longlong
-        variants.append((spec, so, fn))
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    full = _path_pages_per_seq()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    stream = torch.cuda.current_stream().cuda_stream
-    from kaito_tpu_torch.engine.ops.decode_attention import paged_decode_attention_plain
-
-    def case_calls(lengths):
-        """(callers by (variant, quant)) over one set of lengths."""
-        args, kw = _decode_case(torch, torch.bfloat16, lengths, BIG, None, gen, full)
-        q, ck, cv, pt, lens, _ = args
-        (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
-        B, H, D = q.shape
-        Hkv, ps = ck.shape[3], ck.shape[2]
-        out = torch.empty_like(q)
-        refs = {False: paged_decode_attention_plain(*args, **kw).float(),
-                True: paged_decode_attention_plain(
-                    q, k8, v8, pt, lens, BIG, **dict(kw, k_scale=ks, v_scale=vs)).float()}
-
-        def caller(spec, so, fn, quant):
-            part = torch.empty(max(so.kaito_decode_workspace_floats(B, H, Hkv, D, sms), 1),
-                               dtype=torch.float32, device="cuda")
-            cnt = torch.zeros(so.kaito_decode_counters(B, H, Hkv), dtype=torch.int32,
-                              device="cuda")
-            kc, vc = (k8[1], v8[1]) if quant else (ck[1], cv[1])
-            sc = (ks[1].data_ptr(), vs[1].data_ptr()) if quant else (None, None)
-
-            def call():
-                rc = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-                        pt.data_ptr(), lens.data_ptr(), part.data_ptr(), cnt.data_ptr(),
-                        *sc, B, H, Hkv, D, ps, pt.shape[1], BIG, kw["scale"], 0.0, 1, sms,
-                        stream)
-                if rc:
-                    raise SmokeFailure(f"variant {spec} launch failed: CUDA error {rc}")
-
-            call()
-            torch.cuda.synchronize()
-            err = (out.float() - refs[quant]).abs().max().item()
-            if quant:
-                err /= refs[quant].abs().max().item()
-            if err > BF16_ATOL:
-                raise SmokeFailure(f"variant {spec} disagrees: {err}")
-            return call
-        return caller
-
-    # the main case, and the same 7196 tokens spread evenly or in one sequence
-    cases = {"main": case_calls(K1_LENGTHS), "8 x 900": case_calls([900] * 8),
-             "1 x 7196": case_calls([7196])}
-    times = {(case, spec, quant): [] for case in cases for spec, _, _ in variants
-             for quant in (False, True)}
-    for _ in range(rounds):
-        for case, caller in cases.items():
-            for spec, so, fn in variants:
-                for quant in (False, True):
-                    times[(case, spec, quant)].append(
-                        time_ms(caller(spec, so, fn, quant))[0])
-    for (case, spec, quant), ts in times.items():
-        log(f"decode variant [{spec}] {'K1q' if quant else 'K1'} {case}: "
-            f"{' '.join(f'{t:.4f}' for t in ts)} ms")
-    return {f"{'K1q' if quant else 'K1'} {case} {spec}": ts
-            for (case, spec, quant), ts in times.items()}
 
 
 # projection shapes of Llama-3.1-8B, [K, N]
@@ -1449,10 +1412,6 @@ def main(argv=None) -> int:
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
                          "line")
-    ap.add_argument("--decode-variants", nargs="*", metavar="SPEC",
-                    help="after phase 2, time K1/K1q built as committed and with "
-                         "each SPEC (NAME=VALUE,... of decode_attention.cu's "
-                         "constants), and stop; no other check, no result line")
     ap.add_argument("--time-limit", type=float, default=1100.0,
                     help="seconds after which the run fails")
     args = ap.parse_args(argv)
@@ -1491,16 +1450,11 @@ def main(argv=None) -> int:
         records: dict = {}
         alone = args.first_leg_only or args.leg is not None
         with torch.no_grad():
-            if args.leg is None and args.decode_variants is None:
+            if args.leg is None:
                 check_decode(torch, records, logs)
                 check_flash(torch, records)
                 check_quant_matmul(torch, records)
                 check_quant_matmul_pf(torch, records)
-            if args.decode_variants is not None:
-                print(card)
-                print(json.dumps({"decode_variants": sweep_decode(
-                    torch, args.decode_variants)}))
-                return 0
             if args.phase2_only:
                 print(card)
                 print(json.dumps({"kernels": [records[k[0]] for k in KERNELS]}))

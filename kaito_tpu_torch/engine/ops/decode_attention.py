@@ -21,8 +21,11 @@ QK dot and sigma_v the probabilities after the running sum is updated.
 the card and runs :func:`paged_decode_attention_plain` for tensors on
 the CPU; a CUDA tensor it cannot take raises.  ``launches`` on the
 wrapper counts K1's launches and ``launches_q`` K1q's.  The scratch and
-the merge counters are allocated once per card and reused, so calls on
-one card must not run concurrently on two streams.
+the merge counters are allocated once per card, at the most any call on
+that card can need (:func:`workspace_bounds`), and never replaced: a CUDA
+graph that captures a call keeps their pointers, and a later call of any
+batch writes into the same buffers.  Calls on one card must not run
+concurrently on two streams.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the launch plan of csrc/decode_attention.cu (DEC_* there)
 HEADS_PER_CTA = 8          # query heads of one CTA: the mma's N
 SLICE = 16                 # tokens of a warp slice: split starts are multiples
-CTAS_PER_SM = 4            # grid target: two waves of two CTAs an SM
+CTAS_PER_SM = 4            # grid target, CTAs an SM (the bf16 instances fit three at once)
 MAX_SPLIT = 64
 
 
@@ -67,6 +70,18 @@ def decode_plan(B: int, H: int, Hkv: int, D: int, sms: int) -> DecodePlan:
     return DecodePlan(n_split=n_split, head_blocks=hb, ctas=B * Hkv * hb * n_split,
                       scratch_floats=B * H * n_split * (D + 2) if n_split > 1 else 0,
                       counters=B * Hkv * hb)
+
+
+def workspace_bounds(sms: int) -> tuple[int, int]:
+    """(scratch floats, merge counters) that cover every call on a card of
+    ``sms`` SMs.  Only a plan of more than one split touches either, and
+    that takes fewer than ``CTAS_PER_SM * sms`` (sequence, head block)
+    pairs; each pair holds at most ``HEADS_PER_CTA`` query heads and
+    ``D`` is at most 128."""
+    target = CTAS_PER_SM * sms
+    rows = max((p * min(-(-target // p), MAX_SPLIT) for p in range(1, target)),
+               default=0)
+    return HEADS_PER_CTA * rows * (max(SUPPORTED_HEAD_DIMS) + 2), max(target - 1, 0)
 
 
 def decode_split(length: int, window: int, ps: int, n_split: int, split: int
@@ -170,19 +185,22 @@ def _sms(index: int) -> int:
 
 
 class _Workspace:
-    """One card's scratch and merge counters, grown when a call needs
-    more.  The counters are zeroed once; every call leaves them at zero."""
+    """One card's scratch and merge counters, allocated on the first call
+    at :func:`workspace_bounds` and kept for the process.  The counters
+    are zeroed once; every call leaves them at zero."""
 
     def __init__(self):
         self.part: Optional[torch.Tensor] = None
         self.counters: Optional[torch.Tensor] = None
 
-    def get(self, plan: DecodePlan, device: torch.device):
-        if self.counters is None or self.counters.numel() < plan.counters:
-            self.counters = torch.zeros(plan.counters, dtype=torch.int32, device=device)
-        need = max(plan.scratch_floats, 1)
-        if self.part is None or self.part.numel() < need:
-            self.part = torch.empty(need, dtype=torch.float32, device=device)
+    def get(self, plan: DecodePlan, device: torch.device, sms: int):
+        if self.part is None:
+            floats, counters = workspace_bounds(sms)
+            self.part = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+            self.counters = torch.zeros(max(counters, 1), dtype=torch.int32, device=device)
+        if plan.n_split > 1 and (plan.scratch_floats > self.part.numel()
+                                 or plan.counters > self.counters.numel()):
+            raise ValueError(f"decode plan {plan} exceeds the card's workspace")
         return self.part, self.counters
 
 
@@ -253,7 +271,7 @@ def paged_decode_attention_cuda(
         if _ptr(t) % 16:
             raise ValueError("decode kernel needs 16-byte aligned tensors")
     sms = _sms(q.device.index)
-    part, counters = workspace(q.device).get(decode_plan(B, H, Hkv, D, sms), q.device)
+    part, counters = workspace(q.device).get(decode_plan(B, H, Hkv, D, sms), q.device, sms)
     rc = build.launch(
         q.device, _kernel(),
         _ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(out), _ptr(page_tables),

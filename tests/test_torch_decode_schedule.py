@@ -8,8 +8,9 @@ sequence's length and the window.  Hypothesis holds them, over batches,
 KV heads, groups, page sizes 16/32/64, lengths with zeros, windows and SM
 counts, to the properties the kernel relies on: every live token of the
 window falls in exactly one split, every split starts on a page edge and
-a 16-token edge, none runs past the length, and neither the grid nor the
-scratch depends on the page table's width.
+a 16-token edge, none runs past the length, neither the grid nor the
+scratch depends on the page table's width, and the per-card workspace
+(``workspace_bounds``) holds every plan's scratch and counters.
 
 A plain loop that walks the plan with the kernel's arithmetic (per split,
 four warps each taking every fourth 16-token slice with its own fp32
@@ -62,6 +63,20 @@ def test_plan_depends_on_batch_heads_and_card_only(B, Hkv, G, D, sms):
         assert plan.scratch_floats == B * H * plan.n_split * (D + 2)
     else:
         assert plan.scratch_floats == 0
+
+
+@settings(max_examples=300, deadline=None)
+@given(B=st.one_of(st.integers(1, 64), st.integers(65, 4096)),
+       Hkv=st.sampled_from([1, 2, 4, 8]), G=st.sampled_from([1, 2, 4, 7, 8, 16]),
+       D=st.sampled_from([32, 64, 128]), sms=st.sampled_from([1, 8, 78, 114, 132]))
+def test_workspace_bounds_cover_every_plan(B, Hkv, G, D, sms):
+    """The per-card workspace is sized once by ``workspace_bounds`` and
+    never replaced (a captured graph keeps its pointers): every plan with
+    a merge fits in it, at any batch."""
+    plan = tdec.decode_plan(B, Hkv * G, Hkv, D, sms)
+    floats, counters = tdec.workspace_bounds(sms)
+    if plan.n_split > 1:
+        assert plan.scratch_floats <= floats and plan.counters <= counters
 
 
 @settings(max_examples=400, deadline=None)
