@@ -303,13 +303,22 @@ def _time_decode(torch, args, kw, label):
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, host_ms=host_ms)
 
 
-def _decode_build_lines(build_logs):
-    """ptxas's entry, register and spill lines for csrc/decode_attention.cu
-    (empty when the library was already built); a spill is a defect."""
-    lines = [ln.strip() for ln in build_logs.get("decode_attention.cu", "").splitlines()
-             if any(w in ln for w in ("entry function", "registers", "spill"))]
-    spills = [ln for ln in lines
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+def _build_lines(build_logs, source, kernel=""):
+    """ptxas's entry, register and spill lines for csrc/``source`` (empty
+    when the library was already built), only those of the kernels whose
+    mangled name holds ``kernel``; and the spill lines among them, each
+    with its kernel's name (a spill is a defect)."""
+    lines, spills, name = [], [], ""
+    for ln in build_logs.get(source, "").splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+        if kernel not in name or not any(w in ln for w in ("entry function", "registers",
+                                                           "spill")):
+            continue
+        lines.append(ln.strip())
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
+            spills.append(f"{name}: {ln.strip()}")
     return lines, spills
 
 
@@ -416,7 +425,7 @@ def check_decode(torch, records, build_logs):
         decode_plan, paged_decode_attention_cuda, paged_decode_attention_plain,
         workspace)
 
-    lines, spills = _decode_build_lines(build_logs)
+    lines, spills = _build_lines(build_logs, "decode_attention.cu")
     for ln in lines:
         log(f"  decode_attention.cu: {ln}")
     if spills:
@@ -542,23 +551,44 @@ def _cold_cycle(tensors_of, nbytes):
     return lambda: copies[next(it) % len(copies)]
 
 
-# K4/K5 rows checked at every projection shape (17-256: the wide path in
-# bf16) and timed: every shape at 8 and 200 rows, gate/up also at these
-QM_CHECK_ROWS = (1, 8, 17, 64, 65, 200, 256)
-QM_TIME_ROWS = (8, 200)
-QM_TIME_ROWS_GATE_UP = (1, 8, 64, 200, 256)
+# K4/K5 rows checked at every projection shape (1-16: the decode-row path
+# in bf16, 17-256 the wide path) and timed: every shape at 1, 8, 16 and
+# 200 rows, gate/up also at these
+QM_CHECK_ROWS = (1, 5, 8, 9, 16, 17, 64, 65, 200, 256)
+QM_TIME_ROWS = (1, 8, 16, 200)
+QM_TIME_ROWS_GATE_UP = (1, 8, 16, 64, 200, 256)
 
 
-def check_quant_matmul(torch, records):
+def check_quant_matmul(torch, records, build_logs):
     """K4 and K5 against their plain version at the projection shapes,
     rows 1-256 (``QM_CHECK_ROWS``), bf16 and fp32, with the wide-path
     counter growing on every bf16 call of 17-256 rows; then timed in bf16
-    at 8 and 200 rows (gate/up also at 1, 64 and 256) beside torch.matmul
-    against the dequantized bf16 weight."""
+    at 1, 8, 16 and 200 rows (gate/up also at 64 and 256) beside
+    torch.matmul against the dequantized bf16 weight.  The decode-row
+    path's ptxas lines are logged (a spill fails the run), its plan at
+    each shape too, and its merge counters must read zero after the
+    checks."""
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
     from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
                                                          quant_matmul_plain)
     from kaito_tpu_torch.engine.quant import dequant_weight, quantize_weight
 
+    decode_path = hasattr(qm, "decode_plan")   # (a parent under comparison has none)
+    if decode_path:
+        lines, spills = _build_lines(build_logs, "quant_matmul.cu", "decode_kernel")
+        for ln in lines:
+            log(f"  quant_matmul.cu decode rows: {ln}")
+        if spills:
+            raise SmokeFailure(f"quant_matmul.cu's decode-row kernels spill: {spills}")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for label, (K, N) in dict(PROJ_SHAPES, **{f"TP=2 {k} chunk": (K, N // 2)
+                                                   for k, (K, N) in PF_SHAPES.items()}).items():
+            for scheme in ("int8", "int4"):
+                p = qm.decode_plan(8, K, N, K // 128 if scheme == "int4" else 1,
+                                   scheme == "int4", sms)
+                log(f"decode-row plan {scheme} {label} [{K}x{N}] at 8 rows: "
+                    f"{N // qm.DECODE_TN * p.n_split} CTAs, {p.n_split} K slices of "
+                    f"{p.kc} in-rows")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     for scheme, name, replaces in (
@@ -599,6 +629,8 @@ def check_quant_matmul(torch, records):
             del w
         if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
             raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
+        if decode_path and qm.decode_workspace(torch.device("cuda", 0)).counters.any():
+            raise SmokeFailure(f"{name}: a decode-row merge counter is not back at zero")
         main = next(t for t in timed if t["case"].startswith("gate/up") and
                     t["case"].endswith("rows 8"))
         prefill = next(t for t in timed if t["case"].startswith("gate/up") and
@@ -769,6 +801,85 @@ def check_quant_matmul_pf(torch, records):
             library_ms=main["library_ms"], host_ms=main["host_ms"],
             next_call_prefetched_ms=main["next_call_prefetched_ms"],
             next_call_cold_ms=main["next_call_cold_ms"], cases=timed)
+
+
+def check_quant_graph(torch, records):
+    """One K5 call (x [8, 4096] @ int4 gate/up [4096, 14336]) and one K6
+    call (x [8, 7168] @ the int4 TP=2 down ring chunk [7168, 2048 of 4096],
+    the next chunk prefetched) captured in a CUDA graph; each replayed
+    after new x is copied into its input, then again after an eager call
+    of 16 rows over the whole plane (more partials than the captured plan):
+    every replay against the plain version (relative to the output's
+    largest magnitude, ``BF16_ATOL``) and bitwise against the eager
+    kernel; the card's workspace must not move and its merge counters
+    must read zero.  Skipped in a tree without the decode-row workspace (a
+    parent under comparison)."""
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.engine.ops.overlap_collectives import _slice_out
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    if not hasattr(qm, "decode_workspace"):
+        log("quant matmul CUDA graph replay: skipped (no decode-row workspace here)")
+        return
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def weight(K, N):
+        return quantize_weight(torch.randn(K, N, generator=gen, device="cuda")
+                               / math.sqrt(K), "int4")
+
+    def rel_err(out, ref):
+        return (out.float() - ref.float()).abs().max().item() / max(
+            ref.float().abs().max().item(), 1e-30)
+
+    worst = {}
+    for name, (K, N), chunk in (("quant_matmul_int4", PROJ_SHAPES["gate/up"], None),
+                                ("quant_matmul_int4_pf", PF_SHAPES["down"], 2)):
+        w, w_next = weight(K, N), weight(K, N)
+        live = _slice_out(w, 0, N // chunk) if chunk else w
+        ahead = _slice_out(w_next, 0, N // chunk) if chunk else None
+        x = torch.randn(8, K, generator=gen, device="cuda").to(torch.bfloat16)
+        run = lambda: qm.quant_matmul_cuda(x, live, ahead)   # noqa: E731
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        ws = qm.decode_workspace(x.device)
+        ptrs = (ws.part.data_ptr(), ws.counters.data_ptr())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run()
+        err = 0.0
+        for larger in (False, False, True, False):
+            if larger:
+                # 16 rows over the whole plane: more partials than the
+                # captured plan (gate/up: twice the rows; down: the full
+                # plane, 12 slices of 16 rows x 4096 against 19 of 8 x 2048)
+                x16 = torch.randn(16, K, generator=gen, device="cuda").to(torch.bfloat16)
+                err = max(err, rel_err(qm.quant_matmul_cuda(x16, w),
+                                       qm.quant_matmul_plain(x16, w)))
+                continue
+            x.copy_(torch.randn(8, K, generator=gen, device="cuda").to(torch.bfloat16))
+            graph.replay()
+            eager = qm.quant_matmul_cuda(x, live)
+            ref = qm.quant_matmul_plain(x, live)
+            torch.cuda.synchronize()
+            if not torch.equal(out, eager):
+                raise SmokeFailure(f"{name} replayed from a CUDA graph is not bitwise the "
+                                   f"eager kernel")
+            err = max(err, rel_err(out, ref))
+        if (ws.part.data_ptr(), ws.counters.data_ptr()) != ptrs:
+            raise SmokeFailure("the quant matmul's decode workspace moved under a graph")
+        if ws.counters.any():
+            raise SmokeFailure(f"{name}: a merge counter is not back at zero after replays")
+        worst[name] = err
+        records[name]["graph_replay_max_rel_err"] = err
+        del graph, w, w_next
+    log(f"K5/K6 CUDA graph replays (new x, then after a larger call): max relative "
+        f"err {worst}")
+    if max(worst.values()) > BF16_ATOL:
+        raise SmokeFailure(f"K5/K6 replayed from a CUDA graph disagree: {worst}")
 
 
 def _flash_inputs(torch, dtype, T, gen, B=1, H=32, Hkv=8, D=128):
@@ -1453,8 +1564,9 @@ def main(argv=None) -> int:
             if args.leg is None:
                 check_decode(torch, records, logs)
                 check_flash(torch, records)
-                check_quant_matmul(torch, records)
+                check_quant_matmul(torch, records, logs)
                 check_quant_matmul_pf(torch, records)
+                check_quant_graph(torch, records)
             if args.phase2_only:
                 print(card)
                 print(json.dumps({"kernels": [records[k[0]] for k in KERNELS]}))

@@ -62,12 +62,38 @@
 //   idle (split = the most CTAs that stay one wave: q/o, down and k/v,
 //   not gate/up).  The plan mirrors wide_plan in
 //   engine/ops/quant_matmul.py, which the CPU tests hold.
-// - Decode (bf16 x, up to 16 rows, same shapes): a CTA of 4 warps owns
-//   128 columns and 16 rows; per 64-row stage the 8 KB of codes (4 KB
-//   int4) are loaded into registers with 16-byte loads while the previous
-//   stage computes, widened to bf16 into shared memory as a [k][n] tile,
-//   and read back as B fragments with ldmatrix.trans; x is staged the
-//   same way, and mma.sync m16n8k16 sums bf16 products in fp32.
+// - Decode rows (bf16 x, 1-16 rows, same shapes: every decode step's
+//   projections and the TP ring's chunks).  Bound by bytes: a code byte
+//   feeds 2-32 flops, and the call must stream every code once (gate/up
+//   int8 at 8 rows: 58.7 MB, 17.6 us at 3.35 TB/s).  The design meets the
+//   stream with depth and keeps the SM's work per code small: one launch
+//   whose grid is a single wave of DQ_CTAS_PER_SM CTAs an SM (a function
+//   of N, K and the SM count, never of the pointers); each CTA owns 128
+//   columns and one K slice, and its 128 threads keep a ring of 4 (int8)
+//   or 7 (int4) 64-row stages in shared memory filled by 16-byte
+//   cp.asyncs whose completion lands on an mbarrier per slot, so three
+//   stages (24 KB of codes) are in flight while one is read: about 72 KB
+//   an SM, against the ~25 KB that 3.35 TB/s at ~1 us needs.  The
+//   product runs transposed, out^T = W^T x^T, on mma.sync m16n8k16: the
+//   weight's columns on M (a warp owns 32 as two m16 tiles) and the rows
+//   of x on N (one n8 tile, two for 9-16 rows), so no product is wasted
+//   on padding rows beyond the n8 tile.  Within a k16 step each lane's k
+//   are in-rows 4t .. 4t + 3 (t = lane % 4): it reads its codes as whole
+//   words, bank-free through a swizzle of the 16-byte pieces, and widens
+//   them straight into the A fragments (int8 two prmt, two fadd and a
+//   prmt per pair, int4 a prmt, a lop3 and an hsub2), and its x as one
+//   8-byte piece; no bf16 copy of the weight exists anywhere.  int4's
+//   scales fold per group, int8's once per slice.  Where K is split, each
+//   warp writes its fp32 partials to the card's workspace and the last
+//   warp of a 32-column block to arrive (fence, then an atomicAdd on a
+//   counter of the workspace) sums every slice's in slice order, casts
+//   once and resets the counter: deterministic, no atomics on the output,
+//   and the next call (or a CUDA graph's replay) finds every counter at
+//   zero.  The workspace is sized once per card
+//   (kaito_quant_matmul_decode_workspace) and every launch parameter is a
+//   pointer or an int, so a captured call replays after its inputs change
+//   and after larger calls.  The plan mirrors decode_plan in
+//   engine/ops/quant_matmul.py.
 // - CUDA cores, for fp32 x (the goldens), more than 256 rows, and any
 //   other shape: a CTA owns 256 columns, up to 8 rows of x (in shared
 //   memory, fp32) and a slice of K; its 8 warps walk interleaved rows of
@@ -75,9 +101,10 @@
 //   of fp32 sums, and the warps' sums are added through shared memory.
 //   Tails of K and N are masked, and rows not a multiple of 8 bytes take
 //   byte loads.
-// Where K is split, the slices' fp32 partial outputs go to a workspace
-// and a second kernel sums them in slice order: the output is the same
-// from run to run, and no atomics are used.
+// On the wide and CUDA-core paths, where K is split, the slices' fp32
+// partial outputs go to a workspace of the call and a second kernel sums
+// them in slice order: the output is the same from run to run, and no
+// atomics are used.
 //
 // K6 (template flag PF, entry kaito_quant_matmul_pf) is the same kernels
 // with two more pointers: the next layer's codes and scales, in the same
@@ -324,65 +351,118 @@ __global__ void quant_matmul_reduce_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------------
-// Decode-sized tensor-core path (bf16 x, up to 16 rows): mma.sync m16n8k16,
-// bf16 operands, fp32 sums.
+// Decode-row path (bf16 x, up to 16 rows): mma.sync m16n8k16 with the
+// weight's columns on M and the rows of x on N, the codes streamed through
+// a cp.async ring and widened straight into the A fragments; one launch.
 // ---------------------------------------------------------------------------
 
-constexpr int TC_THREADS = 128;        // 4 warps, 32 columns each
-constexpr int TC_TN = 128;             // columns per CTA
-constexpr int TC_TK = 64;              // in-rows per pipeline stage
-constexpr int TC_WS = TC_TN + 8;       // W tile row stride (bf16): 272 B, ldmatrix conflict-free
-constexpr int TC_XS = TC_TK + 8;       // x tile row stride (bf16): 36 words, fragment reads conflict-free
-constexpr int TC_TARGET_CTAS = 528;    // four CTAs for each of the 132 SMs
+constexpr int DQ_THREADS = 128;        // 4 warps, 32 columns each
+constexpr int DQ_TN = 128;             // columns per CTA
+constexpr int DQ_STAGE = 64;           // in-rows per stage
+constexpr int DQ_MAX_ROWS = 16;        // two n8 tiles
+constexpr int DQ_CTAS_PER_SM = 3;      // grid target: one wave of this many CTAs an SM
+constexpr int DQ_MIN_STAGES = 4;       // a K slice holds at least this many stages
+constexpr int DQ_XS = 160;             // bytes between x rows of a stage: 8-byte reads conflict-free
 
-// The tensor-core path takes bf16 x with whole stages and whole column
+// The tensor-core paths take bf16 x with whole stages and whole column
 // tiles, and int4 groups of whole stages (the Llama projections all fit).
 inline bool tc_fits(int K, int N, int gk, bool bf16) {
-  return bf16 && K % TC_TK == 0 && N % TC_TN == 0 && gk % TC_TK == 0;
+  return bf16 && K % DQ_STAGE == 0 && N % DQ_TN == 0 && gk % DQ_STAGE == 0;
 }
 
-// kc: in-rows per K slice, whole stages (and, for int4, whole groups).
-struct TcPlan {
-  int n_split;
-  int kc;
+// Launch plan of the decode-row path (mirrored by decode_plan in
+// engine/ops/quant_matmul.py, which the CPU tests hold): nt n8 tiles of
+// rows (1 up to 8 rows, else 2); one CTA per 128-column tile and K slice,
+// K cut into n_split slices of kc in-rows (whole stages; for int4 whole
+// groups) so that the grid is one wave of DQ_CTAS_PER_SM CTAs an SM, each
+// slice at least DQ_MIN_STAGES stages; none where the tiles fill the wave.
+// A function of N, K and the SM count (and rows only through nt), never
+// of the pointers.
+struct DecodePlan {
+  int nt, n_split, kc;
 };
 
-inline TcPlan tc_plan(int K, int N, int gk, bool int4) {
-  const int unit = int4 ? gk : TC_TK;
-  const int tiles = N / TC_TN;
+inline DecodePlan decode_plan(int rows, int K, int N, int gk, bool int4, int sms) {
+  const int unit = int4 ? gk : DQ_STAGE;
   const int n_units = K / unit;
-  const int n_split = std::min(n_units, std::max(1, (TC_TARGET_CTAS + tiles - 1) / tiles));
-  const int kc = (n_units + n_split - 1) / n_split * unit;
-  return {(K + kc - 1) / kc, kc};
+  const int tiles = N / DQ_TN;
+  const int slots = DQ_CTAS_PER_SM * std::max(sms, 1);
+  int split = tiles >= slots ? 1 : slots / tiles;
+  split = std::min(split, std::max(1, K / (DQ_STAGE * DQ_MIN_STAGES)));
+  split = std::max(1, std::min(split, n_units));
+  const int kc = (n_units + split - 1) / split * unit;
+  return {rows <= 8 ? 1 : 2, (K + kc - 1) / kc, kc};
 }
 
-// Two int8 codes (bytes `lo` and `hi` of `word`) as a bf16x2: the biased
-// byte sits in the mantissa of 2^23 and the bias is subtracted in fp32,
-// both exact for |code| <= 128.
-__device__ __forceinline__ uint32_t tc_i8x2(uint32_t word, int lo, int hi) {
-  const uint32_t biased = word ^ 0x80808080u;
-  const float a = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7640 | lo)) -
-                  8388736.f;
-  const float b = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7640 | hi)) -
-                  8388736.f;
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
+// The per-card workspace that holds every split call's partials and
+// merge counters: a split plan has at most `slots` CTAs of 128 columns,
+// each with at most 16 rows of fp32 partials and 4 counters (one per
+// warp's 32 columns).
+inline long long decode_workspace_floats(int sms) {
+  return (long long)DQ_CTAS_PER_SM * std::max(sms, 1) * DQ_TN * DQ_MAX_ROWS;
+}
+inline long long decode_workspace_counters(int sms) {
+  return (long long)DQ_CTAS_PER_SM * std::max(sms, 1) * (DQ_TN / 32);
 }
 
-// Nibbles at bit `shift` of bytes `lo` and `hi` of `word` (biased by +8)
-// as a bf16x2 of the codes: 128 + nibble is a bf16 with the nibble in its
-// mantissa, and 136 is subtracted in bf16, exactly.
-__device__ __forceinline__ uint32_t tc_i4x2(uint32_t word, int shift, int lo, int hi) {
-  const uint32_t nib = (word >> shift) & 0x0F0F0F0Fu;
-  // bytes: [nib lo, 0x43, nib hi, 0x43]
-  const uint32_t bits = __byte_perm(nib, 0x43u, (lo) | (4 << 4) | (hi << 8) | (4 << 12));
+// Shared memory of one CTA: a ring of stages, each the stage's codes
+// ([rows of codes][128] bytes, 16-byte pieces swizzled) and its x
+// ([16 rows][DQ_XS bytes], 64 bf16 each); then a full and an empty
+// mbarrier per slot.  Under 48 KB, so no attribute is set at launch.
+template <bool INT4>
+struct DqLayout {
+  static constexpr int CROWS = INT4 ? DQ_STAGE / 2 : DQ_STAGE;   // code rows per stage
+  static constexpr int CODES = CROWS * DQ_TN;
+  static constexpr int SLOT = CODES + DQ_MAX_ROWS * DQ_XS;
+  static constexpr int RING = INT4 ? 7 : 4;                      // stages a CTA holds
+  static constexpr int ROWS_PER_LANE = INT4 ? 2 : 4;             // code rows a lane reads per k16 step
+  static_assert(RING * SLOT + 2 * RING * 8 <= 48 * 1024, "static shared memory");
+  static_assert(RING >= 4, "at least three stages in flight while one is read");
+};
+
+// 16-byte piece p of code row r sits at piece p ^ dq_swz(r): the rows a
+// lane reads in one k16 step share (r / ROWS_PER_LANE) & 3 = lane % 4, so
+// the 32 lanes' 4-byte reads land on 32 banks.
+template <bool INT4>
+__device__ __forceinline__ int dq_swz(int r) {
+  return 2 * ((r / DqLayout<INT4>::ROWS_PER_LANE) & 3);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// The barrier's phase completes once this thread's cp.asyncs so far have
+// landed (one of the count the barrier was initialised with).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Two int8 codes, byte c of the biased words lo (k) and hi (k + 1), as a
+// bf16x2: each byte sits in the mantissa of 2^23 and the bias goes in
+// fp32, exact for |code| <= 128, whose fp32 then has bf16's bits in its
+// upper half.
+__device__ __forceinline__ uint32_t dq_i8(uint32_t lo, uint32_t hi, int c) {
+  const float a = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7640 | c)) - 8388736.f;
+  const float b = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7640 | c)) - 8388736.f;
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// The packed int4 byte c of word w (in-rows 2i low nibble, 2i + 1 high,
+// each biased by +8), with wh = w >> 4, as a bf16x2 of its two codes:
+// 128 + nibble is a bf16 with the nibble in its mantissa, and 136 is
+// subtracted in bf16, exactly.
+__device__ __forceinline__ uint32_t dq_i4(uint32_t w, uint32_t wh, int c) {
+  const uint32_t bits = (__byte_perm(w, wh, c | ((c + 4) << 8)) & 0x000F000Fu) | 0x43004300u;
   __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&bits);
   v = __hsub2(v, __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void tc_mma(float (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void dq_mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -390,183 +470,264 @@ __device__ __forceinline__ void tc_mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void tc_ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+// One CTA: columns [n0, n0 + 128) for every row of the call, over the K
+// slice [k_lo, k_hi) (grid: x the column tile, y the slice).  All 128
+// threads fill a ring of RING stages with 16-byte cp.asyncs (the stage's
+// codes and its x rows, rows past the call's zero-filled), each closing
+// its share of a stage with an arrive on the slot's full barrier; a slot
+// is refilled, RING stages on, once every warp has arrived on its empty
+// barrier, so three stages are in flight while one is read.  Warp w owns
+// columns 32 w .. 32 w + 31 as two m16 tiles: lane (g, t) = (lane / 4,
+// lane % 4) holds the 4 columns 32 w + 4 g .. + 3, m-tile mt taking
+// column 2 mt (as row g of A) and 2 mt + 1 (row g + 8).  Within a k16
+// step the lane's logical k (2t, 2t + 1, 2t + 8, 2t + 9) are the in-rows
+// 4t .. 4t + 3, so it reads its codes as whole words (int8: rows 4t ..
+// 4t + 3; int4: packed rows 2t, 2t + 1) and its x as one 8-byte piece
+// x[row][4t .. 4t + 3] per n8 tile.  A group's partial sums fold into fp32
+// accumulators with its scales when the group ends (int8: once, at the
+// slice's end).  Unsplit, the warp casts and stores its columns; split,
+// it stores its fp32 partials and the last warp of the column block to
+// arrive (a counter per 32 columns, after a fence) sums every slice's in
+// slice order, casts once, and resets the counter.
+template <bool INT4, int NT, bool PF>
+__global__ void __launch_bounds__(DQ_THREADS, DQ_CTAS_PER_SM)
+quant_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+                           const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ part_out, int* __restrict__ counters, int rows,
+                           int K, int N, int gk, int kc, int n_split, int ldw, int lds,
+                           const int8_t* __restrict__ nw, const float* __restrict__ ns) {
+  using L = DqLayout<INT4>;
+  constexpr int S = L::RING;
+  __shared__ __align__(128) unsigned char ring[S * L::SLOT];
+  __shared__ __align__(8) uint64_t bars[2 * S];
 
-// One CTA: rows [0, 16) x columns [n0, n0 + 128) over the K
-// slice [k_lo, k_hi).  Each stage of 64 in-rows: the codes (and x) for the
-// stage are already in registers; they are widened to bf16 into shared
-// memory (W as [k][n], read back as B fragments with ldmatrix.trans), the
-// next stage's loads are issued, and the stage's 4 k16 steps run on the
-// tensor cores.  A group's partial sums fold into the fp32 accumulators
-// with its scales when the group ends (int8: once, at the slice's end).
-template <bool INT4, bool PF>
-__global__ void __launch_bounds__(TC_THREADS)
-quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                       const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ part_out, int rows, int K, int N, int gk,
-                       int kc, int n_split, int ldw, int lds,
-                       const int8_t* __restrict__ nw, const float* __restrict__ ns) {
-  constexpr int MT = 1;
-  constexpr int W_CHUNKS = (INT4 ? TC_TK / 2 : TC_TK) * TC_TN / 16 / TC_THREADS;
-  constexpr int X_CHUNKS = 16 * MT * TC_TK / 8 / TC_THREADS;   // 16-byte pieces
-  static_assert(W_CHUNKS >= 1 && 16 * MT * TC_TK / 8 % TC_THREADS == 0, "stage split");
-  __shared__ __align__(16) __nv_bfloat16 ws[TC_TK * TC_WS];        // [k][n]
-  __shared__ __align__(16) __nv_bfloat16 xs[16 * MT * TC_XS];      // [row][k]
-
-  const int row0 = blockIdx.x * 16 * MT, n0 = blockIdx.y * TC_TN, split = blockIdx.z;
+  const int n0 = blockIdx.x * DQ_TN, split = blockIdx.y;
   const int k_lo = split * kc, k_hi = min(K, k_lo + kc);
+  const int n_st = (k_hi - k_lo) / DQ_STAGE;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int code_rows = INT4 ? K / 2 : K;   // rows of the code array
+  const int g = lane / 4, t = lane % 4;
+  const uint32_t ring_s = smem_addr(ring);
+  auto full = [&](int s) { return smem_addr(&bars[s]); };
+  auto empty = [&](int s) { return smem_addr(&bars[S + s]); };
+  auto code_row = [&](int j) { return (INT4 ? k_lo / 2 : k_lo) + j * L::CROWS; };
 
-  uint4 wr[W_CHUNKS], xr[X_CHUNKS];
-  auto load_stage = [&](int k0) {
+  // every thread's share of stage j: code pieces tid, tid + 128, ... and
+  // (threads below 8 NT * 8) one piece of x
+  auto issue = [&](int j) {
+    const uint32_t slot = ring_s + (j % S) * L::SLOT;
+    const int r0 = code_row(j);
 #pragma unroll
-    for (int j = 0; j < W_CHUNKS; ++j) {
-      const int c = tid + j * TC_THREADS;              // 8 chunks of 16 B per row
-      const int r = (INT4 ? k0 / 2 : k0) + c / 8;
-      wr[j] = __ldg(reinterpret_cast<const uint4*>(
-                  w + (size_t)min(r, code_rows - 1) * ldw + n0) + c % 8);
+    for (int q = tid; q < L::CODES / 16; q += DQ_THREADS) {
+      const int r = q / 8, p = q % 8;
+      cp_async16(slot + r * DQ_TN + ((p ^ dq_swz<INT4>(r)) << 4),
+                 w + (size_t)(r0 + r) * ldw + n0 + 16 * p, 16);
     }
-#pragma unroll
-    for (int j = 0; j < X_CHUNKS; ++j) {
-      const int c = tid + j * TC_THREADS;              // 8 chunks of 8 values per row
-      const int row = row0 + c / 8;
-      xr[j] = row < rows ? __ldg(reinterpret_cast<const uint4*>(
-                               x + (size_t)row * K + k0) + c % 8)
-                         : make_uint4(0u, 0u, 0u, 0u);
+    if (tid < 8 * NT * 8) {
+      const int r = tid / 8, p = tid % 8;
+      const bool live = r < rows;
+      cp_async16(slot + L::CODES + r * DQ_XS + 16 * p,
+                 live ? x + (size_t)r * K + k_lo + j * DQ_STAGE + 8 * p : x, live ? 16 : 0);
     }
-  };
-  auto store_stage = [&]() {
-#pragma unroll
-    for (int j = 0; j < W_CHUNKS; ++j) {
-      const int c = tid + j * TC_THREADS;
-      const int r = c / 8, col = (c % 8) * 16;
-      const uint32_t in[4] = {wr[j].x, wr[j].y, wr[j].z, wr[j].w};
-      if constexpr (INT4) {
-        // packed row r holds in-rows 2r (low nibbles) and 2r + 1 (high)
-        uint4* lo = reinterpret_cast<uint4*>(ws + (2 * r) * TC_WS + col);
-        uint4* hi = reinterpret_cast<uint4*>(ws + (2 * r + 1) * TC_WS + col);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          lo[h] = make_uint4(tc_i4x2(in[2 * h], 0, 0, 1), tc_i4x2(in[2 * h], 0, 2, 3),
-                             tc_i4x2(in[2 * h + 1], 0, 0, 1),
-                             tc_i4x2(in[2 * h + 1], 0, 2, 3));
-          hi[h] = make_uint4(tc_i4x2(in[2 * h], 4, 0, 1), tc_i4x2(in[2 * h], 4, 2, 3),
-                             tc_i4x2(in[2 * h + 1], 4, 0, 1),
-                             tc_i4x2(in[2 * h + 1], 4, 2, 3));
-        }
-      } else {
-        uint4* dst = reinterpret_cast<uint4*>(ws + r * TC_WS + col);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          dst[h] = make_uint4(tc_i8x2(in[2 * h], 0, 1), tc_i8x2(in[2 * h], 2, 3),
-                              tc_i8x2(in[2 * h + 1], 0, 1), tc_i8x2(in[2 * h + 1], 2, 3));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < X_CHUNKS; ++j) {
-      const int c = tid + j * TC_THREADS;
-      *reinterpret_cast<uint4*>(xs + (c / 8) * TC_XS + (c % 8) * 8) = xr[j];
-    }
+    cp_async_arrive(full(j % S));
   };
 
-  float acc[MT][4][4], part[MT][4][4];
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), DQ_THREADS);
+      mbar_init(empty(s), DQ_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int j = 0; j < min(S, n_st); ++j) issue(j);
+
+  const int cw = 32 * warp + 4 * g;   // the lane's first column in the tile
+  // K6: the next slab's scale rows of this tile's slice (one 128-column
+  // segment of fp32 each)
+  if (PF) {
+    for (int gr = k_lo / gk + tid; gr <= (k_hi - 1) / gk; gr += DQ_THREADS)
+      prefetch_row(ns, lds, gr, n0, N, 4);
+  }
+
+  float acc[2][NT][4], part[2][NT][4];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][n][e] = part[m][n][e] = 0.f;
-  const int colw = n0 + warp * 32;   // this warp's first column
+  // the scales of the lane's 4 columns: int8 the slice's one row, int4
+  // the current group's row (loaded at the group's start, used at its end)
+  float sc[4];
+  auto load_scale = [&](int gr) {
+    const float* s_row = scale + (size_t)gr * lds + n0 + cw;
+    const float2 lo = *reinterpret_cast<const float2*>(s_row);
+    const float2 hi = *reinterpret_cast<const float2*>(s_row + 2);
+    sc[0] = lo.x, sc[1] = lo.y, sc[2] = hi.x, sc[3] = hi.y;
+  };
+  if (!INT4) load_scale(0);
 
-  // K6: the first row tile prefetches the scale rows of its slice (one
-  // 128-column segment of fp32 each)
-  if (PF && blockIdx.x == 0) {
-    const int g_lo = k_lo / gk, g_hi = (k_hi - 1) / gk;
-    for (int i = tid; i <= g_hi - g_lo; i += TC_THREADS)
-      prefetch_row(ns, lds, g_lo + i, n0, N, 4);
-  }
-
-  load_stage(k_lo);
-  for (int k0 = k_lo; k0 < k_hi; k0 += TC_TK) {
-    __syncthreads();                 // the previous stage's reads are done
-    store_stage();
-    __syncthreads();
-    if (k0 + TC_TK < k_hi) load_stage(k0 + TC_TK);
+  for (int j = 0; j < n_st; ++j) {
+    // refill the slot of stage j - 1 once every warp has read it
+    if (j >= 1 && j - 1 + S < n_st) {
+      mbar_wait(empty((j - 1) % S), ((j - 1) / S) & 1);
+      issue(j - 1 + S);
+    }
+    const int k0 = k_lo + j * DQ_STAGE;
+    if (INT4 && k0 % gk == 0) load_scale(k0 / gk);
+    mbar_wait(full(j % S), (j / S) & 1);
+    const unsigned char* codes = ring + (j % S) * L::SLOT;
+    const unsigned char* xs = codes + L::CODES;
+    // the word of code row r holding the lane's 4 columns
+    auto word = [&](int r) {
+      return *reinterpret_cast<const uint32_t*>(
+          codes + r * DQ_TN + (((2 * warp + g / 4) ^ dq_swz<INT4>(r)) << 4) + 4 * (g % 4));
+    };
+#pragma unroll
+    for (int kk = 0; kk < DQ_STAGE / 16; ++kk) {
+      uint2 xb[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        xb[n] = *reinterpret_cast<const uint2*>(xs + (8 * n + g) * DQ_XS + 32 * kk + 8 * t);
+      uint32_t a[2][4];
+      if constexpr (INT4) {
+        const uint32_t w0 = word(8 * kk + 2 * t), w1 = word(8 * kk + 2 * t + 1);
+        const uint32_t h0 = w0 >> 4, h1 = w1 >> 4;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          a[m][0] = dq_i4(w0, h0, 2 * m);
+          a[m][1] = dq_i4(w0, h0, 2 * m + 1);
+          a[m][2] = dq_i4(w1, h1, 2 * m);
+          a[m][3] = dq_i4(w1, h1, 2 * m + 1);
+        }
+      } else {
+        uint32_t wv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wv[i] = word(16 * kk + 4 * t + i) ^ 0x80808080u;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          a[m][0] = dq_i8(wv[0], wv[1], 2 * m);
+          a[m][1] = dq_i8(wv[0], wv[1], 2 * m + 1);
+          a[m][2] = dq_i8(wv[2], wv[3], 2 * m);
+          a[m][3] = dq_i8(wv[2], wv[3], 2 * m + 1);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) dq_mma(part[m][n], a[m], xb[n].x, xb[n].y);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(j % S));
     // K6: this stage's code rows of the next slab, one 128-byte row
     // segment per thread
-    constexpr int STAGE_ROWS = INT4 ? TC_TK / 2 : TC_TK;
-    if (PF && blockIdx.x == 0 && tid < STAGE_ROWS)
-      prefetch_row(nw, ldw, (INT4 ? k0 / 2 : k0) + tid, n0, N, 1);
+    if (PF && tid < L::CROWS) prefetch_row(nw, ldw, code_row(j) + tid, n0, N, 1);
+    if (INT4 && ((k0 + DQ_STAGE) % gk == 0 || j + 1 == n_st)) {
+      // the group is complete: C element e of m-tile m is column 2 m + e / 2
 #pragma unroll
-    for (int kk = 0; kk < TC_TK; kk += 16) {
-      uint32_t b[4][2];
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        tc_ldmatrix_x4_trans(
-            r, ws + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * TC_WS + (colw - n0) +
-                   p * 16 + (lane >> 4) * 8);
-        b[2 * p][0] = r[0];
-        b[2 * p][1] = r[1];
-        b[2 * p + 1][0] = r[2];
-        b[2 * p + 1][1] = r[3];
-      }
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const __nv_bfloat16* xa = xs + (m * 16 + g) * TC_XS + kk + 2 * t;
-        const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(xa),
-                               *reinterpret_cast<const uint32_t*>(xa + 8 * TC_XS),
-                               *reinterpret_cast<const uint32_t*>(xa + 8),
-                               *reinterpret_cast<const uint32_t*>(xa + 8 * TC_XS + 8)};
-#pragma unroll
-        for (int n = 0; n < 4; ++n) tc_mma(part[m][n], a, b[n][0], b[n][1]);
-      }
-    }
-    if ((k0 + TC_TK) % gk == 0 || k0 + TC_TK >= k_hi) {
-      // the group of in-rows [k0 + 64 - gk, k0 + 64) is complete
-      const float* s_row = scale + (size_t)(k0 / gk) * lds;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const float2 sc = *reinterpret_cast<const float2*>(s_row + colw + n * 8 + 2 * t);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          acc[m][n][0] = fmaf(part[m][n][0], sc.x, acc[m][n][0]);
-          acc[m][n][1] = fmaf(part[m][n][1], sc.y, acc[m][n][1]);
-          acc[m][n][2] = fmaf(part[m][n][2], sc.x, acc[m][n][2]);
-          acc[m][n][3] = fmaf(part[m][n][3], sc.y, acc[m][n][3]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[m][n][e] = 0.f;
-        }
-      }
+          for (int e = 0; e < 4; ++e) {
+            acc[m][n][e] = fmaf(part[m][n][e], sc[2 * m + e / 2], acc[m][n][e]);
+            part[m][n][e] = 0.f;
+          }
     }
   }
+  if (!INT4) {
+    // int8: the per-column scale folds once, after the slice's whole dot
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = part[m][n][e] * sc[2 * m + e / 2];
+  }
 
-  // C fragment: elements (row g, cols 2t, 2t+1) and (row g + 8, same cols)
+  // the lane's outputs: rows 8 n + 2 t + h (h = C element e % 2), its
+  // columns n0 + cw .. + 3 in order (m-tile m, e / 2)
+  auto vals = [&](int n, int h) {
+    return make_float4(acc[0][n][h], acc[0][n][2 + h], acc[1][n][h], acc[1][n][2 + h]);
+  };
+  auto store = [&](int row, float4 v) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 bits;
+    bits.x = *reinterpret_cast<uint32_t*>(&lo);
+    bits.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + (size_t)row * N + n0 + cw) = bits;
+  };
+  if (n_split == 1) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = row0 + m * 16 + g + 8 * h, col = colw + n * 8 + 2 * t;
-        if (row >= rows) continue;
-        const float v0 = acc[m][n][2 * h], v1 = acc[m][n][2 * h + 1];
-        if (n_split == 1) {
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          *reinterpret_cast<float2*>(part_out + ((size_t)split * rows + row) * N + col) =
-              make_float2(v0, v1);
-        }
+        const int row = 8 * n + 2 * t + h;
+        if (row < rows) store(row, vals(n, h));
       }
+    return;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 8 * n + 2 * t + h;
+      if (row < rows)
+        *reinterpret_cast<float4*>(part_out + ((size_t)split * rows + row) * N + n0 + cw) =
+            vals(n, h);
+    }
+  // arrival of the warp's slice: each lane's partials are ordered before
+  // lane 0's add by the fence and the warp barrier
+  __threadfence();
+  __syncwarp();
+  int* counter = counters + (n0 + 32 * warp) / 32;
+  int last = 0;
+  if (lane == 0) last = atomicAdd(counter, 1) == n_split - 1;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();   // every other slice's partials are visible now
+  // the lane's 2 NT rows, CHUNK slices of each loaded at once, summed in
+  // slice order
+  constexpr int CHUNK = 8 / NT;
+  const size_t step = (size_t)rows * N / 4;   // one slice, in float4s
+  const float4* p = reinterpret_cast<const float4*>(part_out + n0 + cw);
+  float4 sum[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sum[n][h] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < n_split; s0 += CHUNK) {
+    float4 v[NT][2][CHUNK];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) {
+          const int row = 8 * n + 2 * t + h;
+          if (row < rows && s0 + i < n_split)
+            v[n][h][i] = __ldcg(p + (s0 + i) * step + (size_t)row * N / 4);
+        }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i)
+          if (s0 + i < n_split) {
+            sum[n][h].x += v[n][h][i].x;
+            sum[n][h].y += v[n][h][i].y;
+            sum[n][h].z += v[n][h][i].z;
+            sum[n][h].w += v[n][h][i].w;
+          }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 8 * n + 2 * t + h;
+      if (row < rows) store(row, sum[n][h]);
+    }
+  if (lane == 0) *counter = 0;   // every slice of this call has arrived
 }
 
 // ---------------------------------------------------------------------------
@@ -673,6 +834,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// Two int8 codes (bytes `lo` and `hi` of `word`) as a bf16x2: the biased
+// byte sits in the mantissa of 2^23 and the bias is subtracted in fp32,
+// both exact for |code| <= 128.
+__device__ __forceinline__ uint32_t tc_i8x2(uint32_t word, int lo, int hi) {
+  const uint32_t biased = word ^ 0x80808080u;
+  const float a = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7640 | lo)) -
+                  8388736.f;
+  const float b = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7640 | hi)) -
+                  8388736.f;
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // A fragment of one k16 step, int8: the weight's columns c0 = 16 warp +
 // lane / 4 and c0 + 8 (of the warpgroup's 64) by in-rows 2 (lane % 4)
 // (+1, +8, +9).  The four code rows come as 16-byte pieces of the
@@ -694,7 +868,7 @@ __device__ __forceinline__ void a_frag_i8(uint32_t (&a)[4], const uint4 (&r)[4],
 }
 
 // One packed int4 byte (in-rows 2i low, 2i + 1 high, each biased by +8)
-// as a bf16x2 of its two codes, exactly as tc_i4x2 widens them.
+// as a bf16x2 of its two codes, exactly as dq_i4 widens them.
 __device__ __forceinline__ uint32_t i4_pair(uint32_t b) {
   const uint32_t bits = (b & 0xFu) | ((b & 0xF0u) << 12) | 0x43004300u;
   __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&bits);
@@ -909,17 +1083,26 @@ quant_matmul_wide_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // The plane pointers and strides of one call: the live weight and, for
-// K6, the next layer's (nw, ns; null for K4/K5).
+// K6, the next layer's (nw, ns; null for K4/K5); the fp32 workspace
+// (work_floats of it) and the merge counters; the card's SM count.
 struct QmArgs {
   const void* x;
   const int8_t* w;
   const float* scale;
   void* out;
   float* work;
-  int rows, K, N, groups, ldw, lds;
+  long long work_floats;
+  int* counters;
+  int rows, K, N, groups, ldw, lds, sms;
   const int8_t* nw;
   const float* ns;
 };
+
+// Whether the workspace holds n_split slices of [rows, N] fp32 partials.
+inline bool work_fits(const QmArgs& a, int n_split) {
+  return n_split == 1 || (a.work != nullptr &&
+                          (long long)n_split * a.rows * a.N <= a.work_floats);
+}
 
 // The second pass of a split K: out = the slices' fp32 partials summed in
 // slice order.
@@ -933,16 +1116,17 @@ cudaError_t reduce_splits(const QmArgs& a, int n_split, cudaStream_t stream) {
 }
 
 template <bool INT4, bool PF>
-cudaError_t launch_quant_matmul_tc(const QmArgs& a, int gk, const TcPlan& pl,
-                                   cudaStream_t stream) {
-  const dim3 grid(1, a.N / TC_TN, pl.n_split);
-  quant_matmul_tc_kernel<INT4, PF><<<grid, TC_THREADS, 0, stream>>>(
+cudaError_t launch_decode(const QmArgs& a, int gk, const DecodePlan& pl, cudaStream_t stream) {
+  if (!work_fits(a, pl.n_split) || (pl.n_split > 1 && a.counters == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.N / DQ_TN, pl.n_split);
+  auto kern = pl.nt == 1 ? quant_matmul_decode_kernel<INT4, 1, PF>
+                         : quant_matmul_decode_kernel<INT4, 2, PF>;
+  kern<<<grid, DQ_THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.w, a.scale,
-      static_cast<__nv_bfloat16*>(a.out), a.work, a.rows, a.K, a.N, gk, pl.kc,
+      static_cast<__nv_bfloat16*>(a.out), a.work, a.counters, a.rows, a.K, a.N, gk, pl.kc,
       pl.n_split, a.ldw, a.lds, a.nw, a.ns);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || pl.n_split == 1) return err;
-  return reduce_splits<__nv_bfloat16>(a, pl.n_split, stream);
+  return cudaGetLastError();
 }
 
 // x [rows, K] bf16 as a 2-D map of [64 rows][64 k] boxes in the 128-byte
@@ -970,6 +1154,7 @@ cudaError_t launch_wide(const QmArgs& a, int gk, const WidePlan& pl, cudaStream_
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
+  if (!work_fits(a, pl.n_split)) return cudaErrorInvalidValue;
   auto kern = quant_matmul_wide_kernel<INT4, NT, PF>;
   cudaError_t err = allow_smem(kern, L::SMEM);
   if (err != cudaSuccess) return err;
@@ -989,6 +1174,7 @@ cudaError_t launch_quant_matmul(const QmArgs& a, const QmPlan& pl, cudaStream_t 
                    reinterpret_cast<uintptr_t>(a.w) % 8 == 0;
   const size_t smem =
       ((size_t)pl.kc * (INT4 ? 2 : 1) * R + (size_t)QM_LANES * QM_TN) * sizeof(float);
+  if (!work_fits(a, pl.n_split)) return cudaErrorInvalidValue;
   auto kernel = quant_matmul_kernel<T, INT4, R, PF>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1006,14 +1192,14 @@ inline bool aligned(const void* p, int bytes) {
 }
 
 // Which path a call takes.  Both tensor-core paths read 16-byte code
-// pieces (the wide one by TMA, which also reads x) and float2 scales.
+// and x pieces (the wide one by TMA) and float2 scales.
 enum class QmPath { kCudaCores, kTensorDecode, kWide };
 
 inline QmPath pick_path(const QmArgs& a, int gk, bool bf16) {
   if (!tc_fits(a.K, a.N, gk, bf16) || !aligned(a.x, 16) || !aligned(a.w, 16) ||
       a.ldw % 16 || !aligned(a.scale, 8) || a.lds % 2 || !aligned(a.out, 16))
     return QmPath::kCudaCores;
-  if (a.rows <= 16) return QmPath::kTensorDecode;
+  if (a.rows <= DQ_MAX_ROWS) return QmPath::kTensorDecode;
   return a.rows <= WD_MAX_ROWS ? QmPath::kWide : QmPath::kCudaCores;
 }
 
@@ -1028,7 +1214,8 @@ cudaError_t dispatch_rows(const QmArgs& a, cudaStream_t stream) {
       return launch_wide<INT4, INT4 ? 128 : 256, PF>(a, gk, wp, stream);   // int4: nt <= 128
     }
     case QmPath::kTensorDecode:
-      return launch_quant_matmul_tc<INT4, PF>(a, gk, tc_plan(a.K, a.N, gk, INT4), stream);
+      return launch_decode<INT4, PF>(a, gk, decode_plan(a.rows, a.K, a.N, gk, INT4, a.sms),
+                                     stream);
     default:
       break;
   }
@@ -1061,14 +1248,20 @@ int dispatch(const QmArgs& a, int int4, int dtype, cudaStream_t s) {
 // (int4 = 0) or packed nibbles [K/2, N] (int4 = 1), rows ldw elements
 // apart; scale fp32 [groups, N] (groups = 1 for int8), rows lds elements
 // apart; out [rows, N] contiguous in x's dtype.  work: fp32 scratch of
-// kaito_quant_matmul_workspace_floats(...) floats (none when that is 0).
-// Returns the CUDA error of the launches (0 = success).
+// work_floats floats: on the decode-row path (bf16 x of at most 16 rows on
+// the tensor-core shapes) the card's workspace of
+// kaito_quant_matmul_decode_workspace(sms), with its counters (zeroed
+// once; every call leaves them at zero); on the other paths at least
+// kaito_quant_matmul_workspace_floats(...) floats.  sms: the card's SM
+// count.  Returns the CUDA error of the launches (0 = success;
+// cudaErrorInvalidValue when the workspace is short).
 extern "C" int kaito_quant_matmul(const void* x, const void* w, const float* scale,
-                                  void* out, float* work, int rows, int K, int N,
-                                  int groups, int int4, int dtype, int ldw, int lds,
+                                  void* out, float* work, long long work_floats,
+                                  int* counters, int rows, int K, int N, int groups,
+                                  int int4, int dtype, int ldw, int lds, int sms,
                                   void* stream) {
-  const kaito::QmArgs a{x, static_cast<const int8_t*>(w), scale, out, work, rows, K, N,
-                        groups, ldw, lds, nullptr, nullptr};
+  const kaito::QmArgs a{x,    static_cast<const int8_t*>(w), scale, out, work, work_floats,
+                        counters, rows, K, N, groups, ldw, lds, sms, nullptr, nullptr};
   return kaito::dispatch<false>(a, int4, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -1078,32 +1271,37 @@ extern "C" int kaito_quant_matmul(const void* x, const void* w, const float* sca
 // kaito_quant_matmul's.
 extern "C" int kaito_quant_matmul_pf(const void* x, const void* w, const float* scale,
                                      const void* next_w, const float* next_scale,
-                                     void* out, float* work, int rows, int K, int N,
-                                     int groups, int int4, int dtype, int ldw, int lds,
+                                     void* out, float* work, long long work_floats,
+                                     int* counters, int rows, int K, int N, int groups,
+                                     int int4, int dtype, int ldw, int lds, int sms,
                                      void* stream) {
   if (!kaito::aligned(next_w, 16) || !kaito::aligned(next_scale, 16) || ldw % 16 ||
       (int4 && groups > 1 && lds % 4)) {
     return (int)cudaErrorInvalidValue;
   }
-  const kaito::QmArgs a{x, static_cast<const int8_t*>(w), scale, out, work, rows, K, N,
-                        groups, ldw, lds, static_cast<const int8_t*>(next_w), next_scale};
+  const kaito::QmArgs a{x,        static_cast<const int8_t*>(w),
+                        scale,    out,
+                        work,     work_floats,
+                        counters, rows,
+                        K,        N,
+                        groups,   ldw,
+                        lds,      sms,
+                        static_cast<const int8_t*>(next_w), next_scale};
   return kaito::dispatch<true>(a, int4, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// fp32 scratch kaito_quant_matmul needs: one [rows, N] partial output per K
-// slice when K is split, else nothing (the larger of the paths' needs, as
-// alignment may send a tileable call to the CUDA cores).
+// fp32 scratch a call off the decode-row path needs: one [rows, N]
+// partial output per K slice when K is split, else nothing (the larger of
+// the paths' needs, as alignment may send a tileable call to the CUDA
+// cores).  A decode-row call uses the card's workspace instead.
 extern "C" long long kaito_quant_matmul_workspace_floats(int rows, int K, int N,
                                                          int groups, int int4,
                                                          int dtype) {
   using namespace kaito;
   int n_split = qm_plan(rows, K, N, int4 != 0).n_split;
-  if (groups >= 1 && tc_fits(K, N, K / groups, dtype == 1)) {
-    if (rows <= 16)
-      n_split = std::max(n_split, tc_plan(K, N, K / groups, int4 != 0).n_split);
-    else if (rows <= WD_MAX_ROWS)
-      n_split = std::max(n_split, wide_plan(rows, K, N, K / groups, int4 != 0).n_split);
-  }
+  if (groups >= 1 && tc_fits(K, N, K / groups, dtype == 1) && rows > DQ_MAX_ROWS &&
+      rows <= WD_MAX_ROWS)
+    n_split = std::max(n_split, wide_plan(rows, K, N, K / groups, int4 != 0).n_split);
   return n_split > 1 ? (long long)n_split * rows * N : 0;
 }
 
@@ -1114,10 +1312,33 @@ extern "C" long long kaito_quant_matmul_workspace_floats(int rows, int K, int N,
 extern "C" int kaito_quant_matmul_wide_plan(int rows, int K, int N, int groups, int int4,
                                             int* plan) {
   using namespace kaito;
-  if (rows <= 16 || rows > WD_MAX_ROWS || groups < 1 || K % groups ||
+  if (rows <= DQ_MAX_ROWS || rows > WD_MAX_ROWS || groups < 1 || K % groups ||
       !tc_fits(K, N, K / groups, true))
     return 0;
   const WidePlan p = wide_plan(rows, K, N, K / groups, int4 != 0);
   plan[0] = p.nt, plan[1] = p.row_blocks, plan[2] = p.n_split, plan[3] = p.kc;
   return 1;
+}
+
+// The decode-row path's plan for a call of this shape on a card of `sms`
+// SMs, as {nt, n_split, kc} in plan[0..2]; returns 1 when bf16 x of these
+// rows and shape takes the decode-row path (given aligned planes), else 0
+// and leaves plan alone.  For the tests that hold the mirror.
+extern "C" int kaito_quant_matmul_decode_plan(int rows, int K, int N, int groups, int int4,
+                                              int sms, int* plan) {
+  using namespace kaito;
+  if (rows < 1 || rows > DQ_MAX_ROWS || groups < 1 || K % groups ||
+      !tc_fits(K, N, K / groups, true))
+    return 0;
+  const DecodePlan p = decode_plan(rows, K, N, K / groups, int4 != 0, sms);
+  plan[0] = p.nt, plan[1] = p.n_split, plan[2] = p.kc;
+  return 1;
+}
+
+// The card's decode-row workspace: sizes[0] fp32 floats of partials and
+// sizes[1] int32 merge counters, enough for every decode-row call on a
+// card of `sms` SMs.
+extern "C" void kaito_quant_matmul_decode_workspace(int sms, long long* sizes) {
+  sizes[0] = kaito::decode_workspace_floats(sms);
+  sizes[1] = kaito::decode_workspace_counters(sms);
 }

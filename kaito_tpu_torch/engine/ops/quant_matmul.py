@@ -24,9 +24,21 @@ when :func:`prefetch_ok` holds, else it is dropped.  The weight planes
 may be column chunks of wider planes (last dim contiguous, rows any
 distance apart): the kernels read them in place.  ``launches_int8``,
 ``launches_int4``, ``launches_int8_pf`` and ``launches_int4_pf`` on the
-wrapper count the launches of K4, K5 and K6; ``launches_int8_wide`` and
+wrapper count the launches of K4, K5 and K6 (one launch a call on
+every path up to 16 bf16 rows); ``launches_int8_wide`` and
 ``launches_int4_wide`` count the K4/K5 launches that take the wide
 (prefill-row) path, whose launch plan :func:`wide_plan` mirrors.
+
+Calls of at most 16 bf16 rows (decode steps and the ring's chunks) take
+the decode-row path, whose plan :func:`decode_plan` mirrors: a grid
+fixed by N, K and the card's SM count, the last warp of each split
+column block merging the slices.  Its partials and merge counters live
+in one workspace per card (:func:`decode_workspace`), sized once at
+:func:`decode_workspace_bounds` and never replaced, so a CUDA graph that
+captures a call keeps valid pointers after larger calls; the counters
+are zeroed once and every call leaves them at zero.  Run one call on a
+card before capturing any (the workspace is allocated then), and do not
+run calls on one card concurrently on two streams.
 """
 
 from __future__ import annotations
@@ -58,9 +70,11 @@ PREFETCH_L2_BUDGET = 16 << 20
 # each against the C functions of the same names).
 SMS = 132                  # the H100's SMs
 STAGE = 64                 # in-rows per pipeline stage of the tensor-core paths
-DECODE_ROWS = 16           # bf16 calls up to this many rows take mma.sync
+DECODE_ROWS = 16           # bf16 calls up to this many rows take the decode-row path
+DECODE_TN = 128            # columns per CTA of the decode-row path
+DECODE_CTAS_PER_SM = 3     # its grid: one wave of this many CTAs an SM
+DECODE_MIN_STAGES = 4      # its K slices hold at least this many stages
 _QM = dict(lanes=8, tn=256, target=264, x_max=1024)   # the CUDA-core path
-_TC = dict(tn=128, target=528)                         # the decode-row path
 WIDE_TN = 128              # columns per CTA of the wide path
 WIDE_SCALE_GROUPS = 64     # int4 scale rows a wide CTA stages in shared memory
 
@@ -102,12 +116,41 @@ def wide_plan(rows: int, K: int, N: int, groups: int, int4: bool) -> WidePlan:
     return WidePlan(nt, row_blocks, -(-K // kc), kc)
 
 
-def _tc_split(K: int, N: int, gk: int, int4: bool) -> int:
+class DecodePlan(NamedTuple):
+    """The decode-row path's launch: ``nt`` n8 tiles of rows (1 up to 8
+    rows, else 2) and K cut into ``n_split`` slices of ``kc`` in-rows; a
+    grid of ``(N // 128, n_split)`` CTAs."""
+    nt: int
+    n_split: int
+    kc: int
+
+
+def decode_plan(rows: int, K: int, N: int, groups: int, int4: bool,
+                sms: int = SMS) -> DecodePlan:
+    """``decode_plan``: one CTA per 128-column tile and K slice; K split
+    (on stages; int4 on whole groups) into as many slices as keep the
+    grid one wave of ``DECODE_CTAS_PER_SM`` CTAs an SM, each slice at least
+    ``DECODE_MIN_STAGES`` stages; unsplit where the tiles fill the wave.
+    A function of N, K and the SM count (rows only pick ``nt``)."""
+    gk = K // groups
     unit = gk if int4 else STAGE
     n_units = K // unit
-    split = min(n_units, max(1, -(-_TC["target"] // (N // _TC["tn"]))))
+    tiles = N // DECODE_TN
+    slots = DECODE_CTAS_PER_SM * max(sms, 1)
+    split = 1 if tiles >= slots else slots // tiles
+    split = min(split, max(1, K // (STAGE * DECODE_MIN_STAGES)))
+    split = max(1, min(split, n_units))
     kc = -(-n_units // split) * unit
-    return -(-K // kc)
+    return DecodePlan(1 if rows <= 8 else 2, -(-K // kc), kc)
+
+
+def decode_workspace_bounds(sms: int) -> tuple[int, int]:
+    """(fp32 partials, int32 merge counters) that hold every split
+    decode-row call on a card of ``sms`` SMs: a split plan has at most
+    one wave of CTAs, each 128 columns of at most 16 rows, one counter
+    per 32 columns."""
+    slots = DECODE_CTAS_PER_SM * max(sms, 1)
+    return slots * DECODE_TN * DECODE_ROWS, slots * DECODE_TN // 32
 
 
 def _qm_split(rows: int, K: int, N: int, int4: bool) -> int:
@@ -124,28 +167,41 @@ def _qm_split(rows: int, K: int, N: int, int4: bool) -> int:
 def workspace_floats(rows: int, K: int, N: int, groups: int, int4: bool,
                      bf16: bool) -> int:
     """``kaito_quant_matmul_workspace_floats``: the fp32 partial outputs
-    of the largest split any path may take for this call."""
+    of the largest split a path off the decode-row one may take for this
+    call (the decode-row path uses the card's workspace)."""
     n_split = _qm_split(rows, K, N, int4)
-    if bf16 and groups >= 1 and tc_fits(K, N, K // groups):
-        if rows <= DECODE_ROWS:
-            n_split = max(n_split, _tc_split(K, N, K // groups, int4))
-        elif rows <= MAX_ROWS:
-            n_split = max(n_split, wide_plan(rows, K, N, groups, int4).n_split)
+    if bf16 and groups >= 1 and tc_fits(K, N, K // groups) \
+            and DECODE_ROWS < rows <= MAX_ROWS:
+        n_split = max(n_split, wide_plan(rows, K, N, groups, int4).n_split)
     return n_split * rows * N if n_split > 1 else 0
+
+
+def _tensor_core_path(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                      groups: int) -> bool:
+    """bf16 x on the tensor-core shapes with 16-byte aligned x and code
+    rows and 8-byte aligned scale rows (``pick_path``)."""
+    K, N = x.shape[1], codes.shape[1]
+    lds = scale.stride(0) if scale.dim() == 2 else N
+    return (x.dtype == torch.bfloat16 and tc_fits(K, N, K // groups)
+            and x.data_ptr() % 16 == 0 and codes.data_ptr() % 16 == 0
+            and codes.stride(0) % 16 == 0 and scale.data_ptr() % 8 == 0
+            and lds % 2 == 0)
 
 
 def takes_wide(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                groups: int) -> bool:
     """Whether the kernel runs this call on the wide path (``pick_path``):
-    bf16 x of 17..MAX_ROWS rows on the tensor-core shapes, with 16-byte
-    aligned x and code rows and 8-byte aligned scale rows."""
-    rows, K = x.shape
-    N = codes.shape[1]
-    lds = scale.stride(0) if scale.dim() == 2 else N
-    return (x.dtype == torch.bfloat16 and DECODE_ROWS < rows <= MAX_ROWS
-            and tc_fits(K, N, K // groups) and x.data_ptr() % 16 == 0
-            and codes.data_ptr() % 16 == 0 and codes.stride(0) % 16 == 0
-            and scale.data_ptr() % 8 == 0 and lds % 2 == 0)
+    17..MAX_ROWS rows on the tensor-core path."""
+    return DECODE_ROWS < x.shape[0] <= MAX_ROWS and \
+        _tensor_core_path(x, codes, scale, groups)
+
+
+def takes_decode(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                 groups: int) -> bool:
+    """Whether the kernel runs this call on the decode-row path
+    (``pick_path``): 1..DECODE_ROWS rows on the tensor-core path."""
+    return 1 <= x.shape[0] <= DECODE_ROWS and \
+        _tensor_core_path(x, codes, scale, groups)
 
 
 def quant_matmul_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
@@ -212,9 +268,11 @@ def prefetch_ok(w: dict, w_next: Optional[dict]) -> bool:
     return all(_aligned16(t) for t in _planes(w_next))
 
 
+# x, w, scale, out, work, work_floats, counters, rows, K, N, groups, int4,
+# dtype, ldw, lds, sms, stream
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p]
 
 
 @functools.cache
@@ -226,6 +284,35 @@ def _kernel():
 def _kernel_pf():
     return build.bind("quant_matmul", "kaito_quant_matmul_pf",
                       _ARGS[:3] + [ctypes.c_void_p, ctypes.c_void_p] + _ARGS[3:])
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class _DecodeWorkspace:
+    """One card's decode-row partials and merge counters, allocated at
+    :func:`decode_workspace_bounds` and kept for the process.  The
+    counters are zeroed once; every call leaves them at zero."""
+
+    def __init__(self, device: torch.device, sms: int):
+        floats, counters = decode_workspace_bounds(sms)
+        self.part = torch.empty(floats, dtype=torch.float32, device=device)
+        self.counters = torch.zeros(counters, dtype=torch.int32, device=device)
+
+
+_DECODE_WORKSPACES: dict[int, _DecodeWorkspace] = {}
+
+
+def decode_workspace(device: torch.device) -> _DecodeWorkspace:
+    """The decode-row path's workspace on ``device`` (a card), allocated
+    at its first use."""
+    ws = _DECODE_WORKSPACES.get(device.index)
+    if ws is None:
+        ws = _DECODE_WORKSPACES[device.index] = _DecodeWorkspace(device,
+                                                                 _sms(device.index))
+    return ws
 
 
 @functools.cache
@@ -289,11 +376,15 @@ def quant_matmul_cuda(x: torch.Tensor, w: dict,
     lds = scale.stride(0) if int4 else N
     x = x.contiguous()
     out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
-    n_work = _workspace_floats(rows, K, N, groups, int(int4), _DTYPES[x.dtype])
-    work = torch.empty((max(n_work, 1),), dtype=torch.float32, device=x.device)
+    ws = decode_workspace(x.device)
+    if takes_decode(x, codes, scale, groups):
+        work = ws.part
+    else:
+        n_work = _workspace_floats(rows, K, N, groups, int(int4), _DTYPES[x.dtype])
+        work = torch.empty((max(n_work, 1),), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    tail = (_ptr(out), _ptr(work), rows, K, N, groups, int(int4), _DTYPES[x.dtype],
-            ldw, lds, stream)
+    tail = (_ptr(out), _ptr(work), work.numel(), _ptr(ws.counters), rows, K, N, groups,
+            int(int4), _DTYPES[x.dtype], ldw, lds, _sms(x.device.index), stream)
     if w_next is None:
         build.check(build.launch(x.device, _kernel(), _ptr(x), _ptr(codes),
                                  _ptr(scale), *tail), "kaito_quant_matmul")

@@ -545,3 +545,162 @@ def test_quant_matmul_plans_mirror_the_kernel(card):
                         assert c_work(rows, K, N, groups, int4, dtype) == \
                             qm.workspace_floats(rows, K, N, groups, bool(int4),
                                                 dtype == 1), (rows, K, N, groups)
+
+
+# decode-row cases: (scheme, int4 group: 128 or 0 for one whole-K group, K,
+# N, columns of a strided chunk of the N-column plane or None)
+DECODE_CASES = [("int8", None, 4096, 1024, None), ("int8", None, 4096, 14336, None),
+                ("int8", None, 7168, 4096, 2048), ("int8", None, 192, 384, None),
+                ("int4", 128, 4096, 1024, None), ("int4", 128, 4096, 14336, None),
+                ("int4", 128, 7168, 4096, 2048), ("int4", 0, 192, 1024, None),
+                ("int4", 0, 1024, 128, None)]
+
+
+@pytest.mark.parametrize("scheme,group,K,N,chunk", DECODE_CASES)
+@pytest.mark.parametrize("rows", [1, 5, 8, 9, 16])
+def test_quant_matmul_decode_rows(card, scheme, group, K, N, chunk, rows):
+    """K4/K5's decode-row path (bf16 x, 1-16 rows) against the plain
+    version: split and unsplit K, int4 groups of 128 in-rows or of the
+    whole K, one and two n8 tiles, strided column chunks of a wider plane.
+    One launch a call (the counter grows by one, the wide one not), two
+    calls bitwise equal, and every merge counter back at zero."""
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    if group == 0 and K % 128 == 0:
+        w = _int4_one_group(card, K, N)
+    else:
+        w = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), scheme)
+    if chunk is not None:
+        w = {k: t[..., :chunk] for k, t in w.items()}
+    x = _rand(card, rows, K, dtype=torch.bfloat16)
+    codes, scale = (w["q4"], w["scale"]) if "q4" in w else (w["q8"], w["scale"])
+    assert qm.takes_decode(x, codes, scale, scale.shape[0] if "q4" in w else 1)
+    counters = ("launches_" + scheme, f"launches_{scheme}_wide")
+    before = [getattr(qm.quant_matmul_cuda, c) for c in counters]
+    out = qm.quant_matmul_cuda(x, w)
+    again = qm.quant_matmul_cuda(x, w)
+    ref = qm.quant_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert [getattr(qm.quant_matmul_cuda, c) for c in counters] == [before[0] + 2,
+                                                                     before[1]]
+    assert torch.equal(out, again)
+    assert not qm.decode_workspace(x.device).counters.any()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= ATOL[torch.bfloat16] * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+@pytest.mark.parametrize("rows", [1, 8, 16])
+def test_prefetch_decode_rows_are_bitwise_the_plain_kernel(card, scheme, rows):
+    """K6 on the TP=2 down ring's chunks ([7168, 2048 of 4096], strided
+    views) at decode rows: bitwise K4/K5's output on the same views, and
+    the merge counters back at zero."""
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.engine.ops.overlap_collectives import _slice_out
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    K, N = 7168, 4096
+    w = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), scheme)
+    w_next = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), scheme)
+    x = _rand(card, rows, K, dtype=torch.bfloat16)
+    for c in range(2):
+        wc, pc = _slice_out(w, c * N // 2, N // 2), _slice_out(w_next, c * N // 2, N // 2)
+        assert qm.prefetch_ok(wc, pc)
+        out = qm.quant_matmul_cuda(x, wc, pc)
+        base = qm.quant_matmul_cuda(x, wc)
+        torch.cuda.synchronize()
+        assert torch.equal(out, base)
+        assert not qm.decode_workspace(x.device).counters.any()
+
+
+@pytest.mark.parametrize("pf", [False, True], ids=["K5", "K6"])
+def test_quant_matmul_decode_replays_in_a_cuda_graph(card, pf):
+    """One K5 (or K6) call at 8 rows captured in a CUDA graph; replayed
+    after new x is copied into its input, and again after an eager call
+    with more rows and a wider N (whose plan needs more partials): the
+    card's workspace did not move under the graph, and every replay
+    matches the plain version and the eager kernel bitwise."""
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.engine.ops.overlap_collectives import _slice_out
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    K, N = 4096, 4096
+    w = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), "int4")
+    w_next = quantize_weight(torch.randn(K, N, generator=card, device="cuda"), "int4")
+    wc, pc = _slice_out(w, 0, N // 2), _slice_out(w_next, 0, N // 2)
+    x = _rand(card, 8, K, dtype=torch.bfloat16)
+    run = lambda: qm.quant_matmul_cuda(x, wc, pc if pf else None)   # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                      # warm up: build, workspace
+    torch.cuda.current_stream().wait_stream(side)
+    ws = qm.decode_workspace(x.device)
+    ptrs = (ws.part.data_ptr(), ws.counters.data_ptr())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    small = qm.decode_plan(8, K, N // 2, K // 128, True, sms)
+    big = qm.decode_plan(16, K, N, K // 128, True, sms)
+    assert small.n_split > 1 and big.n_split > 1
+    assert 16 * N * big.n_split > 8 * (N // 2) * small.n_split
+
+    def replay_and_check():
+        x.copy_(_rand(card, 8, K, dtype=torch.bfloat16))
+        graph.replay()
+        eager = qm.quant_matmul_cuda(x, wc)
+        ref = qm.quant_matmul_plain(x, wc)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= ATOL[torch.bfloat16] * ref.float().abs().max().item()
+        assert not ws.counters.any()
+
+    replay_and_check()
+    replay_and_check()
+    x16 = _rand(card, 16, K, dtype=torch.bfloat16)
+    wide = qm.quant_matmul_cuda(x16, w)
+    ref = qm.quant_matmul_plain(x16, w)
+    torch.cuda.synchronize()
+    assert (wide.float() - ref.float()).abs().max().item() <= \
+        ATOL[torch.bfloat16] * ref.float().abs().max().item()
+    assert (ws.part.data_ptr(), ws.counters.data_ptr()) == ptrs
+    replay_and_check()
+
+
+def test_quant_matmul_decode_plans_mirror_the_kernel(card):
+    """decode_plan and decode_workspace_bounds (engine/ops/quant_matmul.py)
+    equal the C functions they mirror, over the Llama-3.1-8B projections,
+    their TP=2 chunks, int4 groups of 128 and of the whole K, rows 1-17
+    and several SM counts."""
+    import ctypes
+
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.ops import build
+
+    lib = build.load_library("quant_matmul")
+    c_plan = lib.kaito_quant_matmul_decode_plan
+    c_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    c_plan.restype = ctypes.c_int
+    c_ws = lib.kaito_quant_matmul_decode_workspace
+    c_ws.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    c_ws.restype = None
+    shapes = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+              (2048, 4096), (4096, 7168), (7168, 2048), (4096, 512), (192, 1024),
+              (1024, 128)]
+    plan = (ctypes.c_int * 3)()
+    sizes = (ctypes.c_longlong * 2)()
+    for sms in (1, 8, 78, 114, 132):
+        c_ws(sms, sizes)
+        assert tuple(sizes) == qm.decode_workspace_bounds(sms)
+        for K, N in shapes:
+            for int4 in (0, 1):
+                for groups in ((1, K // 128) if int4 and K % 128 == 0 else (1,)):
+                    for rows in (1, 7, 8, 9, 16, 17):
+                        fits = c_plan(rows, K, N, groups, int4, sms, plan)
+                        assert bool(fits) == (rows <= 16 and qm.tc_fits(K, N, K // groups))
+                        if fits:
+                            assert tuple(plan) == tuple(qm.decode_plan(
+                                rows, K, N, groups, bool(int4), sms)), (rows, K, N, groups)
