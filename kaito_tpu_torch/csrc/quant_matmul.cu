@@ -62,38 +62,39 @@
 //   idle (split = the most CTAs that stay one wave: q/o, down and k/v,
 //   not gate/up).  The plan mirrors wide_plan in
 //   engine/ops/quant_matmul.py, which the CPU tests hold.
-// - Decode rows (bf16 x, 1-16 rows, same shapes: every decode step's
-//   projections and the TP ring's chunks).  Bound by bytes: a code byte
-//   feeds 2-32 flops, and the call must stream every code once (gate/up
-//   int8 at 8 rows: 58.7 MB, 17.6 us at 3.35 TB/s).  The design meets the
-//   stream with depth and keeps the SM's work per code small: one launch
-//   whose grid is a single wave of DQ_CTAS_PER_SM CTAs an SM (a function
-//   of N, K and the SM count, never of the pointers); each CTA owns 128
-//   columns and one K slice, and its 128 threads keep a ring of 4 (int8)
-//   or 7 (int4) 64-row stages in shared memory filled by 16-byte
-//   cp.asyncs whose completion lands on an mbarrier per slot, so three
-//   stages (24 KB of codes) are in flight while one is read: about 72 KB
-//   an SM, against the ~25 KB that 3.35 TB/s at ~1 us needs.  The
-//   product runs transposed, out^T = W^T x^T, on mma.sync m16n8k16: the
-//   weight's columns on M (a warp owns 32 as two m16 tiles) and the rows
-//   of x on N (one n8 tile, two for 9-16 rows), so no product is wasted
-//   on padding rows beyond the n8 tile.  Within a k16 step each lane's k
-//   are in-rows 4t .. 4t + 3 (t = lane % 4): it reads its codes as whole
-//   words, bank-free through a swizzle of the 16-byte pieces, and widens
-//   them straight into the A fragments (int8 two prmt, two fadd and a
-//   prmt per pair, int4 a prmt, a lop3 and an hsub2), and its x as one
-//   8-byte piece; no bf16 copy of the weight exists anywhere.  int4's
+// - Decode rows (bf16 x, 1-16 rows, K and int4 groups in whole 64-row
+//   (int8) or 128-row (int4) stages: every decode step's projections and
+//   the TP ring's chunks).  Bound by bytes: a code byte feeds 2-32 flops,
+//   and a call must stream every code once (gate/up int8 at 8 rows: 58.7
+//   MB, 17.6 us at 3.35 TB/s).  One launch, whose grid is one CTA per
+//   128-column tile and K slice, the split a function of N, K, the SM
+//   count and the rows' n8 tiles, never of the pointers (decode_plan).
+//   Each CTA's 128 threads keep a ring of 4 stages of 64 code rows (8 KB,
+//   for int4 128 in-rows) and their x rows in shared memory, filled by
+//   16-byte cp.asyncs in one commit group a stage, so three stages are in
+//   flight while one is read; rows are padded so every read below is
+//   free of bank conflicts.  The product runs transposed, out^T = W^T
+//   x^T, on mma.sync m16n8k16: the weight's columns on M (a warp owns 32
+//   as two m16 tiles) and the rows of x on N (one n8 tile, two for 9-16
+//   rows), so no product is spent on rows the call lacks.  Within a k16
+//   step a lane's k are chosen so that it reads its codes as whole words
+//   and widens them straight into the A fragments (int8: two prmt, two
+//   fadd and a prmt a pair; int4: a prmt, a lop3 and an hsub2), and x as
+//   whole words; no bf16 copy of the weight exists anywhere.  int4's
 //   scales fold per group, int8's once per slice.  Where K is split, each
 //   warp writes its fp32 partials to the card's workspace and the last
-//   warp of a 32-column block to arrive (fence, then an atomicAdd on a
+//   warp of a 32-column block to arrive (a fence, then an atomicAdd on a
 //   counter of the workspace) sums every slice's in slice order, casts
 //   once and resets the counter: deterministic, no atomics on the output,
 //   and the next call (or a CUDA graph's replay) finds every counter at
 //   zero.  The workspace is sized once per card
 //   (kaito_quant_matmul_decode_workspace) and every launch parameter is a
 //   pointer or an int, so a captured call replays after its inputs change
-//   and after larger calls.  The plan mirrors decode_plan in
-//   engine/ops/quant_matmul.py.
+//   and after larger calls.  What holds it (H100, PERF.md): the stream
+//   of 128-byte row segments, which the card serves at ~2.3-2.7 TB/s
+//   here; a fixed ~3 us of launch and ramp; the split merge's three
+//   round trips at the end (~2-3 us); int4's widening, which overlaps the
+//   stream only in part.
 // - CUDA cores, for fp32 x (the goldens), more than 256 rows, and any
 //   other shape: a CTA owns 256 columns, up to 8 rows of x (in shared
 //   memory, fp32) and a slice of K; its 8 warps walk interleaved rows of
@@ -114,14 +115,16 @@
 // registers, so no predicate is needed.  Each CTA computes exactly what
 // K4/K5 compute for its tile (same path, plan and reduction order: the
 // output is bitwise K4/K5's) and, over its k-loop, asks L2 for the rows
-// of the next slab that the same tile reads in the next layer's call
-// (cp.async.bulk.prefetch.L2, one row segment per instruction, issued
+// of the next slab that the same tile reads in the next layer's call,
 // stage by stage beside the live loads, so the prefetches do not crowd
-// the live stream at its start), plus its scale rows.  Nothing goes to
-// shared memory or registers.  The wrapper engages K6 only for a slab of
-// at most 16 MiB (engine/ops/quant_matmul.py, PREFETCH_L2_BUDGET): the
-// live chunk and the prefetched one must both sit in the 50 MB L2, beside
-// the activations, for the prefetch to survive to its use; the Pallas
+// the live stream at its start, plus its scale rows: on the decode-row
+// path a prefetch.global.L2 per 32-byte sector (a bulk prefetch per row
+// queues on the SM's TMA unit), on the other paths
+// cp.async.bulk.prefetch.L2 per row segment.  Nothing goes to shared
+// memory or registers.  The wrapper engages K6 only for a slab of at most
+// 16 MiB (engine/ops/quant_matmul.py, PREFETCH_L2_BUDGET): the live chunk
+// and the prefetched one must both sit in the 50 MB L2, beside the
+// activations, for the prefetch to survive to its use; the Pallas
 // kernel's 4 MiB VMEM budget plays that part on the TPU.
 #include <stdint.h>
 
@@ -358,40 +361,57 @@ __global__ void quant_matmul_reduce_kernel(const float* __restrict__ part,
 
 constexpr int DQ_THREADS = 128;        // 4 warps, 32 columns each
 constexpr int DQ_TN = 128;             // columns per CTA
-constexpr int DQ_STAGE = 64;           // in-rows per stage
+constexpr int DQ_CROWS = 64;           // code rows per stage: 8 KB
 constexpr int DQ_MAX_ROWS = 16;        // two n8 tiles
-constexpr int DQ_CTAS_PER_SM = 3;      // grid target: one wave of this many CTAs an SM
-constexpr int DQ_MIN_STAGES = 4;       // a K slice holds at least this many stages
-constexpr int DQ_XS = 160;             // bytes between x rows of a stage: 8-byte reads conflict-free
+constexpr int DQ_CTAS_PER_SM = 3;      // grid target: one wave of up to this many CTAs an SM
+constexpr int DQ_RING = 4;             // stages a CTA holds: three in flight while one is read
+constexpr int DQ_MIN_STAGES = 4;       // stages of a K slice in a wave of several CTAs an SM
+constexpr int TC_STAGE = 64;           // the unit of tc_fits: a wide-path stage
+
+// in-rows per decode-row stage: 64 int8 rows, or 64 packed int4 rows
+constexpr int dq_stage(bool int4) { return int4 ? 2 * DQ_CROWS : DQ_CROWS; }
 
 // The tensor-core paths take bf16 x with whole stages and whole column
 // tiles, and int4 groups of whole stages (the Llama projections all fit).
 inline bool tc_fits(int K, int N, int gk, bool bf16) {
-  return bf16 && K % DQ_STAGE == 0 && N % DQ_TN == 0 && gk % DQ_STAGE == 0;
+  return bf16 && K % TC_STAGE == 0 && N % DQ_TN == 0 && gk % TC_STAGE == 0;
+}
+
+// The decode-row path's shapes: whole stages, whole column tiles, int4
+// groups of whole stages.
+inline bool decode_fits(int K, int N, int gk, bool int4) {
+  const int ks = dq_stage(int4);
+  return K % ks == 0 && N % DQ_TN == 0 && gk % ks == 0;
 }
 
 // Launch plan of the decode-row path (mirrored by decode_plan in
 // engine/ops/quant_matmul.py, which the CPU tests hold): nt n8 tiles of
 // rows (1 up to 8 rows, else 2); one CTA per 128-column tile and K slice,
 // K cut into n_split slices of kc in-rows (whole stages; for int4 whole
-// groups) so that the grid is one wave of DQ_CTAS_PER_SM CTAs an SM, each
-// slice at least DQ_MIN_STAGES stages; none where the tiles fill the wave.
-// A function of N, K and the SM count (and rows only through nt), never
-// of the pointers.
+// groups).  The split is the larger of two: one CTA an SM with slices of
+// at least 2 stages (small planes, where each CTA's latency chain sets
+// the time), and one wave of DQ_CTAS_PER_SM CTAs an SM (2 for nt = 2,
+// whose merge moves twice the partials) with slices of at least
+// DQ_MIN_STAGES stages (large planes, where the stream does); none where
+// the tiles fill that wave.  A function of N, K, the SM count and nt,
+// never of the pointers.
 struct DecodePlan {
   int nt, n_split, kc;
 };
 
 inline DecodePlan decode_plan(int rows, int K, int N, int gk, bool int4, int sms) {
-  const int unit = int4 ? gk : DQ_STAGE;
+  const int nt = rows <= 8 ? 1 : 2;
+  const int ks = dq_stage(int4);
+  const int unit = int4 ? gk : ks;
   const int n_units = K / unit;
   const int tiles = N / DQ_TN;
-  const int slots = DQ_CTAS_PER_SM * std::max(sms, 1);
-  int split = tiles >= slots ? 1 : slots / tiles;
-  split = std::min(split, std::max(1, K / (DQ_STAGE * DQ_MIN_STAGES)));
-  split = std::max(1, std::min(split, n_units));
+  sms = std::max(sms, 1);
+  const int slots = (nt == 1 ? DQ_CTAS_PER_SM : DQ_CTAS_PER_SM - 1) * sms;
+  const int per_sm = std::min(sms / tiles, K / (ks * 2));
+  const int wave = tiles >= slots ? 1 : std::min(slots / tiles, K / (ks * DQ_MIN_STAGES));
+  const int split = std::max(1, std::min(std::max(per_sm, wave), n_units));
   const int kc = (n_units + split - 1) / split * unit;
-  return {rows <= 8 ? 1 : 2, (K + kc - 1) / kc, kc};
+  return {nt, (K + kc - 1) / kc, kc};
 }
 
 // The per-card workspace that holds every split call's partials and
@@ -405,39 +425,40 @@ inline long long decode_workspace_counters(int sms) {
   return (long long)DQ_CTAS_PER_SM * std::max(sms, 1) * (DQ_TN / 32);
 }
 
-// Shared memory of one CTA: a ring of stages, each the stage's codes
-// ([rows of codes][128] bytes, 16-byte pieces swizzled) and its x
-// ([16 rows][DQ_XS bytes], 64 bf16 each); then a full and an empty
-// mbarrier per slot.  Under 48 KB, so no attribute is set at launch.
+// Dynamic shared memory of one CTA: a ring of DQ_RING stages, each the
+// stage's 64 code rows (128 bytes each, CS apart) and its x rows (KS bf16,
+// XS apart; rows past the call's zeroed once).  The padding keeps every
+// read conflict-free: a lane's four 4-byte code reads of a k16 step come
+// from rows whose 36-word offsets put the four t's 8 banks apart, and its
+// x reads from rows 4 (int8, 4-byte reads) or 8 (int4, 8-byte reads)
+// banks apart.
 template <bool INT4>
 struct DqLayout {
-  static constexpr int CROWS = INT4 ? DQ_STAGE / 2 : DQ_STAGE;   // code rows per stage
-  static constexpr int CODES = CROWS * DQ_TN;
-  static constexpr int SLOT = CODES + DQ_MAX_ROWS * DQ_XS;
-  static constexpr int RING = INT4 ? 7 : 4;                      // stages a CTA holds
-  static constexpr int ROWS_PER_LANE = INT4 ? 2 : 4;             // code rows a lane reads per k16 step
-  static_assert(RING * SLOT + 2 * RING * 8 <= 48 * 1024, "static shared memory");
-  static_assert(RING >= 4, "at least three stages in flight while one is read");
+  static constexpr int KS = dq_stage(INT4);
+  static constexpr int CS = DQ_TN + 16;
+  static constexpr int XS = 2 * KS + (INT4 ? 32 : 16);
+  static constexpr int CODES = DQ_CROWS * CS;
+  static constexpr int SLOT = CODES + DQ_MAX_ROWS * XS;
+  static constexpr int SMEM = DQ_RING * SLOT;
 };
 
-// 16-byte piece p of code row r sits at piece p ^ dq_swz(r): the rows a
-// lane reads in one k16 step share (r / ROWS_PER_LANE) & 3 = lane % 4, so
-// the 32 lanes' 4-byte reads land on 32 banks.
-template <bool INT4>
-__device__ __forceinline__ int dq_swz(int r) {
-  return 2 * ((r / DqLayout<INT4>::ROWS_PER_LANE) & 3);
+// Ask L2 for the 32-byte sector at p, through the load/store unit: a
+// hint, nothing reaches the SM.  (A bulk prefetch per 128-byte row costs
+// the SM's TMA unit a request each, which queued behind one another when
+// one CTA an SM issues them.)
+__device__ __forceinline__ void prefetch_sector(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
-
-// The barrier's phase completes once this thread's cp.asyncs so far have
-// landed (one of the count the barrier was initialised with).
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Two int8 codes, byte c of the biased words lo (k) and hi (k + 1), as a
@@ -472,18 +493,18 @@ __device__ __forceinline__ void dq_mma(float (&c)[4], const uint32_t (&a)[4], ui
 
 // One CTA: columns [n0, n0 + 128) for every row of the call, over the K
 // slice [k_lo, k_hi) (grid: x the column tile, y the slice).  All 128
-// threads fill a ring of RING stages with 16-byte cp.asyncs (the stage's
-// codes and its x rows, rows past the call's zero-filled), each closing
-// its share of a stage with an arrive on the slot's full barrier; a slot
-// is refilled, RING stages on, once every warp has arrived on its empty
-// barrier, so three stages are in flight while one is read.  Warp w owns
-// columns 32 w .. 32 w + 31 as two m16 tiles: lane (g, t) = (lane / 4,
-// lane % 4) holds the 4 columns 32 w + 4 g .. + 3, m-tile mt taking
-// column 2 mt (as row g of A) and 2 mt + 1 (row g + 8).  Within a k16
-// step the lane's logical k (2t, 2t + 1, 2t + 8, 2t + 9) are the in-rows
-// 4t .. 4t + 3, so it reads its codes as whole words (int8: rows 4t ..
-// 4t + 3; int4: packed rows 2t, 2t + 1) and its x as one 8-byte piece
-// x[row][4t .. 4t + 3] per n8 tile.  A group's partial sums fold into fp32
+// threads copy each stage's code rows and x rows into a ring of RING
+// slots with 16-byte cp.asyncs, one commit group a stage; each stage
+// starts with a wait for its group and a barrier, after which the slot of
+// the stage before takes the stage RING - 1 on, so RING - 1 stages are in
+// flight while one is read.  Warp w owns columns 32 w .. 32 w + 31 as two
+// m16 tiles: lane (g, t) = (lane / 4, lane % 4) holds the 4 columns
+// 32 w + 4 g .. + 3, m-tile mt taking column 2 mt (as row g of A) and
+// 2 mt + 1 (row g + 8), and reads them as one word of each code row it
+// needs.  int8: the lane's logical k (2t, 2t + 1, 2t + 8, 2t + 9) of a
+// k16 step are those in-rows, x as two words; int4: they are the in-rows
+// 4t .. 4t + 3, i.e. the packed rows 2t and 2t + 1, x as one 8-byte piece
+// x[row][4t .. 4t + 3].  A group's partial sums fold into fp32
 // accumulators with its scales when the group ends (int8: once, at the
 // slice's end).  Unsplit, the warp casts and stores its columns; split,
 // it stores its fp32 partials and the last warp of the column block to
@@ -497,56 +518,53 @@ quant_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __
                            int K, int N, int gk, int kc, int n_split, int ldw, int lds,
                            const int8_t* __restrict__ nw, const float* __restrict__ ns) {
   using L = DqLayout<INT4>;
-  constexpr int S = L::RING;
-  __shared__ __align__(128) unsigned char ring[S * L::SLOT];
-  __shared__ __align__(8) uint64_t bars[2 * S];
+  constexpr int S = DQ_RING, KS = L::KS;
+  extern __shared__ __align__(128) unsigned char ring[];
 
   const int n0 = blockIdx.x * DQ_TN, split = blockIdx.y;
   const int k_lo = split * kc, k_hi = min(K, k_lo + kc);
-  const int n_st = (k_hi - k_lo) / DQ_STAGE;
+  const int n_st = (k_hi - k_lo) / KS;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const uint32_t ring_s = smem_addr(ring);
-  auto full = [&](int s) { return smem_addr(&bars[s]); };
-  auto empty = [&](int s) { return smem_addr(&bars[S + s]); };
-  auto code_row = [&](int j) { return (INT4 ? k_lo / 2 : k_lo) + j * L::CROWS; };
+  auto code_row = [&](int j) { return (INT4 ? k_lo / 2 : k_lo) + j * DQ_CROWS; };
 
-  // every thread's share of stage j: code pieces tid, tid + 128, ... and
-  // (threads below 8 NT * 8) one piece of x
+  // every thread: its 16-byte pieces of stage j's code rows and x rows
   auto issue = [&](int j) {
     const uint32_t slot = ring_s + (j % S) * L::SLOT;
     const int r0 = code_row(j);
 #pragma unroll
-    for (int q = tid; q < L::CODES / 16; q += DQ_THREADS) {
-      const int r = q / 8, p = q % 8;
-      cp_async16(slot + r * DQ_TN + ((p ^ dq_swz<INT4>(r)) << 4),
-                 w + (size_t)(r0 + r) * ldw + n0 + 16 * p, 16);
-    }
-    if (tid < 8 * NT * 8) {
-      const int r = tid / 8, p = tid % 8;
-      const bool live = r < rows;
-      cp_async16(slot + L::CODES + r * DQ_XS + 16 * p,
-                 live ? x + (size_t)r * K + k_lo + j * DQ_STAGE + 8 * p : x, live ? 16 : 0);
-    }
-    cp_async_arrive(full(j % S));
+    for (int q = tid; q < DQ_CROWS * 8; q += DQ_THREADS)
+      cp_async16(slot + q / 8 * L::CS + 16 * (q % 8),
+                 w + (size_t)(r0 + q / 8) * ldw + n0 + 16 * (q % 8));
+    for (int q = tid; q < rows * (KS / 8); q += DQ_THREADS)
+      cp_async16(slot + L::CODES + q / (KS / 8) * L::XS + 16 * (q % (KS / 8)),
+                 x + (size_t)(q / (KS / 8)) * K + k_lo + j * KS + 8 * (q % (KS / 8)));
+    cp_async_commit();
   };
 
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full(s), DQ_THREADS);
-      mbar_init(empty(s), DQ_THREADS / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  // x rows past the call's are zeros in every slot (no copy writes them)
+  constexpr int XP = KS / 8;   // 16-byte pieces of an x row
+  for (int i = tid; i < S * (8 * NT - rows) * XP; i += DQ_THREADS) {
+    const int per_slot = (8 * NT - rows) * XP;
+    const int r = rows + i % per_slot / XP;
+    *reinterpret_cast<uint4*>(ring + i / per_slot * L::SLOT + L::CODES + r * L::XS +
+                              16 * (i % XP)) = make_uint4(0u, 0u, 0u, 0u);
   }
-  __syncthreads();
-  for (int j = 0; j < min(S, n_st); ++j) issue(j);
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < n_st)
+      issue(j);
+    else
+      cp_async_commit();
+  }
 
   const int cw = 32 * warp + 4 * g;   // the lane's first column in the tile
-  // K6: the next slab's scale rows of this tile's slice (one 128-column
-  // segment of fp32 each)
+  // K6: the next slab's scale rows of this tile's slice (128 columns of
+  // fp32, 16 sectors each)
   if (PF) {
-    for (int gr = k_lo / gk + tid; gr <= (k_hi - 1) / gk; gr += DQ_THREADS)
-      prefetch_row(ns, lds, gr, n0, N, 4);
+    const int g_lo = k_lo / gk, n_sec = ((k_hi - 1) / gk - g_lo + 1) * 16;
+    for (int i = tid; i < n_sec; i += DQ_THREADS)
+      prefetch_sector(ns + (size_t)(g_lo + i / 16) * lds + n0 + 8 * (i % 16));
   }
 
   float acc[2][NT][4], part[2][NT][4];
@@ -568,27 +586,36 @@ quant_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __
   if (!INT4) load_scale(0);
 
   for (int j = 0; j < n_st; ++j) {
-    // refill the slot of stage j - 1 once every warp has read it
-    if (j >= 1 && j - 1 + S < n_st) {
-      mbar_wait(empty((j - 1) % S), ((j - 1) / S) & 1);
-      issue(j - 1 + S);
-    }
-    const int k0 = k_lo + j * DQ_STAGE;
+    const int k0 = k_lo + j * KS;
     if (INT4 && k0 % gk == 0) load_scale(k0 / gk);
-    mbar_wait(full(j % S), (j / S) & 1);
+    // stage j has landed (this thread's pieces, then everyone's), and every
+    // warp is done with stage j - 1, whose slot takes stage j + S - 1
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (j + S - 1 < n_st)
+      issue(j + S - 1);
+    else
+      cp_async_commit();
     const unsigned char* codes = ring + (j % S) * L::SLOT;
     const unsigned char* xs = codes + L::CODES;
     // the word of code row r holding the lane's 4 columns
     auto word = [&](int r) {
-      return *reinterpret_cast<const uint32_t*>(
-          codes + r * DQ_TN + (((2 * warp + g / 4) ^ dq_swz<INT4>(r)) << 4) + 4 * (g % 4));
+      return *reinterpret_cast<const uint32_t*>(codes + r * L::CS + cw);
     };
 #pragma unroll
-    for (int kk = 0; kk < DQ_STAGE / 16; ++kk) {
-      uint2 xb[NT];
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      uint32_t b[NT][2];
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
-        xb[n] = *reinterpret_cast<const uint2*>(xs + (8 * n + g) * DQ_XS + 32 * kk + 8 * t);
+      for (int n = 0; n < NT; ++n) {
+        const unsigned char* xr = xs + (8 * n + g) * L::XS + 32 * kk;
+        if constexpr (INT4) {
+          const uint2 v = *reinterpret_cast<const uint2*>(xr + 8 * t);
+          b[n][0] = v.x, b[n][1] = v.y;
+        } else {
+          b[n][0] = *reinterpret_cast<const uint32_t*>(xr + 4 * t);
+          b[n][1] = *reinterpret_cast<const uint32_t*>(xr + 16 + 4 * t);
+        }
+      }
       uint32_t a[2][4];
       if constexpr (INT4) {
         const uint32_t w0 = word(8 * kk + 2 * t), w1 = word(8 * kk + 2 * t + 1);
@@ -603,7 +630,8 @@ quant_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __
       } else {
         uint32_t wv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) wv[i] = word(16 * kk + 4 * t + i) ^ 0x80808080u;
+        for (int i = 0; i < 4; ++i)
+          wv[i] = word(16 * kk + 2 * t + (i & 1) + 8 * (i >> 1)) ^ 0x80808080u;
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
           a[m][0] = dq_i8(wv[0], wv[1], 2 * m);
@@ -615,14 +643,16 @@ quant_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int n = 0; n < NT; ++n) dq_mma(part[m][n], a[m], xb[n].x, xb[n].y);
+        for (int n = 0; n < NT; ++n) dq_mma(part[m][n], a[m], b[n][0], b[n][1]);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(j % S));
     // K6: this stage's code rows of the next slab, one 128-byte row
-    // segment per thread
-    if (PF && tid < L::CROWS) prefetch_row(nw, ldw, code_row(j) + tid, n0, N, 1);
-    if (INT4 && ((k0 + DQ_STAGE) % gk == 0 || j + 1 == n_st)) {
+    // segment per thread of warps 0 and 1
+if (PF) {
+#pragma unroll
+      for (int q = tid; q < DQ_CROWS * 4; q += DQ_THREADS)
+        prefetch_sector(nw + (size_t)(code_row(j) + q / 4) * ldw + n0 + 32 * (q % 4));
+    }
+    if (INT4 && ((k0 + KS) % gk == 0 || j + 1 == n_st)) {
       // the group is complete: C element e of m-tile m is column 2 m + e / 2
 #pragma unroll
       for (int m = 0; m < 2; ++m)
@@ -1115,14 +1145,14 @@ cudaError_t reduce_splits(const QmArgs& a, int n_split, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool INT4, bool PF>
+template <bool INT4, int NT, bool PF>
 cudaError_t launch_decode(const QmArgs& a, int gk, const DecodePlan& pl, cudaStream_t stream) {
   if (!work_fits(a, pl.n_split) || (pl.n_split > 1 && a.counters == nullptr))
     return cudaErrorInvalidValue;
-  const dim3 grid(a.N / DQ_TN, pl.n_split);
-  auto kern = pl.nt == 1 ? quant_matmul_decode_kernel<INT4, 1, PF>
-                         : quant_matmul_decode_kernel<INT4, 2, PF>;
-  kern<<<grid, DQ_THREADS, 0, stream>>>(
+  auto kern = quant_matmul_decode_kernel<INT4, NT, PF>;
+  cudaError_t err = allow_smem(kern, DqLayout<INT4>::SMEM);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(a.N / DQ_TN, pl.n_split), DQ_THREADS, DqLayout<INT4>::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.w, a.scale,
       static_cast<__nv_bfloat16*>(a.out), a.work, a.counters, a.rows, a.K, a.N, gk, pl.kc,
       pl.n_split, a.ldw, a.lds, a.nw, a.ns);
@@ -1195,27 +1225,30 @@ inline bool aligned(const void* p, int bytes) {
 // and x pieces (the wide one by TMA) and float2 scales.
 enum class QmPath { kCudaCores, kTensorDecode, kWide };
 
-inline QmPath pick_path(const QmArgs& a, int gk, bool bf16) {
+inline QmPath pick_path(const QmArgs& a, int gk, bool bf16, bool int4) {
   if (!tc_fits(a.K, a.N, gk, bf16) || !aligned(a.x, 16) || !aligned(a.w, 16) ||
       a.ldw % 16 || !aligned(a.scale, 8) || a.lds % 2 || !aligned(a.out, 16))
     return QmPath::kCudaCores;
-  if (a.rows <= DQ_MAX_ROWS) return QmPath::kTensorDecode;
+  if (a.rows <= DQ_MAX_ROWS)
+    return decode_fits(a.K, a.N, gk, int4) ? QmPath::kTensorDecode : QmPath::kCudaCores;
   return a.rows <= WD_MAX_ROWS ? QmPath::kWide : QmPath::kCudaCores;
 }
 
 template <typename T, bool INT4, bool PF>
 cudaError_t dispatch_rows(const QmArgs& a, cudaStream_t stream) {
   const int gk = a.K / a.groups;   // in-rows per scale group
-  switch (pick_path(a, gk, std::is_same<T, __nv_bfloat16>::value)) {
+  switch (pick_path(a, gk, std::is_same<T, __nv_bfloat16>::value, INT4)) {
     case QmPath::kWide: {
       const WidePlan wp = wide_plan(a.rows, a.K, a.N, gk, INT4);
       if (wp.nt == 64) return launch_wide<INT4, 64, PF>(a, gk, wp, stream);
       if (wp.nt == 128) return launch_wide<INT4, 128, PF>(a, gk, wp, stream);
       return launch_wide<INT4, INT4 ? 128 : 256, PF>(a, gk, wp, stream);   // int4: nt <= 128
     }
-    case QmPath::kTensorDecode:
-      return launch_decode<INT4, PF>(a, gk, decode_plan(a.rows, a.K, a.N, gk, INT4, a.sms),
-                                     stream);
+    case QmPath::kTensorDecode: {
+      const DecodePlan dp = decode_plan(a.rows, a.K, a.N, gk, INT4, a.sms);
+      return dp.nt == 1 ? launch_decode<INT4, 1, PF>(a, gk, dp, stream)
+                        : launch_decode<INT4, 2, PF>(a, gk, dp, stream);
+    }
     default:
       break;
   }
@@ -1328,7 +1361,7 @@ extern "C" int kaito_quant_matmul_decode_plan(int rows, int K, int N, int groups
                                               int sms, int* plan) {
   using namespace kaito;
   if (rows < 1 || rows > DQ_MAX_ROWS || groups < 1 || K % groups ||
-      !tc_fits(K, N, K / groups, true))
+      !tc_fits(K, N, K / groups, true) || !decode_fits(K, N, K / groups, int4 != 0))
     return 0;
   const DecodePlan p = decode_plan(rows, K, N, K / groups, int4 != 0, sms);
   plan[0] = p.nt, plan[1] = p.n_split, plan[2] = p.kc;
@@ -1341,4 +1374,23 @@ extern "C" int kaito_quant_matmul_decode_plan(int rows, int K, int N, int groups
 extern "C" void kaito_quant_matmul_decode_workspace(int sms, long long* sizes) {
   sizes[0] = kaito::decode_workspace_floats(sms);
   sizes[1] = kaito::decode_workspace_counters(sms);
+}
+
+// CTAs of the decode-row kernel (int4 or int8, nt n8 tiles, K4/K5) that
+// one SM holds at once, as launched; the plan assumes DQ_CTAS_PER_SM.
+template <bool INT4, int NT>
+int decode_occupancy() {
+  auto kern = kaito::quant_matmul_decode_kernel<INT4, NT, false>;
+  constexpr int smem = kaito::DqLayout<INT4>::SMEM;
+  int blocks = 0;
+  if (kaito::allow_smem(kern, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kaito::DQ_THREADS, smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+extern "C" int kaito_quant_matmul_decode_occupancy(int int4, int nt) {
+  return int4 ? (nt == 1 ? decode_occupancy<true, 1>() : decode_occupancy<true, 2>())
+              : (nt == 1 ? decode_occupancy<false, 1>() : decode_occupancy<false, 2>());
 }

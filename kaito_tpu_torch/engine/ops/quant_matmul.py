@@ -72,8 +72,9 @@ SMS = 132                  # the H100's SMs
 STAGE = 64                 # in-rows per pipeline stage of the tensor-core paths
 DECODE_ROWS = 16           # bf16 calls up to this many rows take the decode-row path
 DECODE_TN = 128            # columns per CTA of the decode-row path
-DECODE_CTAS_PER_SM = 3     # its grid: one wave of this many CTAs an SM
-DECODE_MIN_STAGES = 4      # its K slices hold at least this many stages
+DECODE_CROWS = 64          # code rows of one of its stages (int8 rows, packed int4 rows)
+DECODE_CTAS_PER_SM = 3     # its grid: one wave of up to this many CTAs an SM
+DECODE_MIN_STAGES = 4      # stages of its K slices in a wave of several CTAs an SM
 _QM = dict(lanes=8, tn=256, target=264, x_max=1024)   # the CUDA-core path
 WIDE_TN = 128              # columns per CTA of the wide path
 WIDE_SCALE_GROUPS = 64     # int4 scale rows a wide CTA stages in shared memory
@@ -94,6 +95,19 @@ def tc_fits(K: int, N: int, gk: int) -> bool:
     """bf16 x on whole stages and 128-column tiles, int4 groups of whole
     stages: both tensor-core paths (``tc_fits``)."""
     return K % STAGE == 0 and N % WIDE_TN == 0 and gk % STAGE == 0
+
+
+def decode_stage(int4: bool) -> int:
+    """In-rows of one decode-row stage (``dq_stage``): 64 code rows, two
+    in-rows each for int4."""
+    return 2 * DECODE_CROWS if int4 else DECODE_CROWS
+
+
+def decode_fits(K: int, N: int, gk: int, int4: bool) -> bool:
+    """The decode-row path's shapes (``decode_fits``): whole stages, whole
+    128-column tiles, int4 groups of whole stages."""
+    ks = decode_stage(int4)
+    return K % ks == 0 and N % DECODE_TN == 0 and gk % ks == 0
 
 
 def wide_plan(rows: int, K: int, N: int, groups: int, int4: bool) -> WidePlan:
@@ -128,20 +142,25 @@ class DecodePlan(NamedTuple):
 def decode_plan(rows: int, K: int, N: int, groups: int, int4: bool,
                 sms: int = SMS) -> DecodePlan:
     """``decode_plan``: one CTA per 128-column tile and K slice; K split
-    (on stages; int4 on whole groups) into as many slices as keep the
-    grid one wave of ``DECODE_CTAS_PER_SM`` CTAs an SM, each slice at least
-    ``DECODE_MIN_STAGES`` stages; unsplit where the tiles fill the wave.
-    A function of N, K and the SM count (rows only pick ``nt``)."""
+    (on stages of 64 code rows; int4 on whole groups) into the larger of
+    two: one CTA an SM with slices of at least 2 stages, and one wave of
+    ``DECODE_CTAS_PER_SM`` CTAs an SM (one fewer for 9-16 rows) with
+    slices of at least ``DECODE_MIN_STAGES`` stages; unsplit where the
+    tiles fill that wave.  A function of N, K, the SM count and whether
+    the rows take one n8 tile or two."""
+    nt = 1 if rows <= 8 else 2
     gk = K // groups
-    unit = gk if int4 else STAGE
+    ks = decode_stage(int4)
+    unit = gk if int4 else ks
     n_units = K // unit
     tiles = N // DECODE_TN
-    slots = DECODE_CTAS_PER_SM * max(sms, 1)
-    split = 1 if tiles >= slots else slots // tiles
-    split = min(split, max(1, K // (STAGE * DECODE_MIN_STAGES)))
-    split = max(1, min(split, n_units))
+    sms = max(sms, 1)
+    slots = (DECODE_CTAS_PER_SM if nt == 1 else DECODE_CTAS_PER_SM - 1) * sms
+    per_sm = min(sms // tiles, K // (ks * 2))
+    wave = 1 if tiles >= slots else min(slots // tiles, K // (ks * DECODE_MIN_STAGES))
+    split = max(1, min(max(per_sm, wave), n_units))
     kc = -(-n_units // split) * unit
-    return DecodePlan(1 if rows <= 8 else 2, -(-K // kc), kc)
+    return DecodePlan(nt, -(-K // kc), kc)
 
 
 def decode_workspace_bounds(sms: int) -> tuple[int, int]:
@@ -197,11 +216,13 @@ def takes_wide(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
 
 
 def takes_decode(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-                 groups: int) -> bool:
+                 groups: int, int4: bool) -> bool:
     """Whether the kernel runs this call on the decode-row path
-    (``pick_path``): 1..DECODE_ROWS rows on the tensor-core path."""
-    return 1 <= x.shape[0] <= DECODE_ROWS and \
-        _tensor_core_path(x, codes, scale, groups)
+    (``pick_path``): 1..DECODE_ROWS rows on the tensor-core path, in
+    whole decode-row stages."""
+    K, N = x.shape[1], codes.shape[1]
+    return 1 <= x.shape[0] <= DECODE_ROWS and decode_fits(K, N, K // groups, int4) \
+        and _tensor_core_path(x, codes, scale, groups)
 
 
 def quant_matmul_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
@@ -377,7 +398,7 @@ def quant_matmul_cuda(x: torch.Tensor, w: dict,
     x = x.contiguous()
     out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
     ws = decode_workspace(x.device)
-    if takes_decode(x, codes, scale, groups):
+    if takes_decode(x, codes, scale, groups, int4):
         work = ws.part
     else:
         n_work = _workspace_floats(rows, K, N, groups, int(int4), _DTYPES[x.dtype])

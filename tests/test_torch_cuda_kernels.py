@@ -552,7 +552,7 @@ def test_quant_matmul_plans_mirror_the_kernel(card):
 DECODE_CASES = [("int8", None, 4096, 1024, None), ("int8", None, 4096, 14336, None),
                 ("int8", None, 7168, 4096, 2048), ("int8", None, 192, 384, None),
                 ("int4", 128, 4096, 1024, None), ("int4", 128, 4096, 14336, None),
-                ("int4", 128, 7168, 4096, 2048), ("int4", 0, 192, 1024, None),
+                ("int4", 128, 7168, 4096, 2048), ("int4", 0, 512, 1024, None),
                 ("int4", 0, 1024, 128, None)]
 
 
@@ -575,7 +575,7 @@ def test_quant_matmul_decode_rows(card, scheme, group, K, N, chunk, rows):
         w = {k: t[..., :chunk] for k, t in w.items()}
     x = _rand(card, rows, K, dtype=torch.bfloat16)
     codes, scale = (w["q4"], w["scale"]) if "q4" in w else (w["q8"], w["scale"])
-    assert qm.takes_decode(x, codes, scale, scale.shape[0] if "q4" in w else 1)
+    assert qm.takes_decode(x, codes, scale, scale.shape[0] if "q4" in w else 1, "q4" in w)
     counters = ("launches_" + scheme, f"launches_{scheme}_wide")
     before = [getattr(qm.quant_matmul_cuda, c) for c in counters]
     out = qm.quant_matmul_cuda(x, w)
@@ -700,7 +700,8 @@ def test_quant_matmul_decode_plans_mirror_the_kernel(card):
                 for groups in ((1, K // 128) if int4 and K % 128 == 0 else (1,)):
                     for rows in (1, 7, 8, 9, 16, 17):
                         fits = c_plan(rows, K, N, groups, int4, sms, plan)
-                        assert bool(fits) == (rows <= 16 and qm.tc_fits(K, N, K // groups))
+                        assert bool(fits) == (rows <= 16 and qm.tc_fits(K, N, K // groups)
+                                              and qm.decode_fits(K, N, K // groups, bool(int4)))
                         if fits:
                             assert tuple(plan) == tuple(qm.decode_plan(
                                 rows, K, N, groups, bool(int4), sms)), (rows, K, N, groups)

@@ -54,7 +54,7 @@ def test_decode_plan_covers_every_output_once(rows, shape, scheme, sms):
     groups = _groups(K, int4, scheme == "int4 whole-K")
     gk = K // groups
     plan = tqm.decode_plan(rows, K, N, groups, int4, sms)
-    assert tqm.tc_fits(K, N, gk)
+    assert tqm.decode_fits(K, N, gk, int4)
     # rows: one n8 tile up to 8, two up to 16; every (row, column) of the
     # call owned by exactly one CTA of each K slice
     assert plan.nt == (1 if rows <= 8 else 2) and 8 * plan.nt >= rows
@@ -65,21 +65,25 @@ def test_decode_plan_covers_every_output_once(rows, shape, scheme, sms):
             owners[s, tile * tqm.DECODE_TN:(tile + 1) * tqm.DECODE_TN] += 1
     assert (owners == 1).all()
     # K slices: whole stages (int4: whole groups), contiguous, none empty,
-    # covering K; all but the last hold at least DECODE_MIN_STAGES stages
-    # when K is split
-    assert plan.kc % tqm.STAGE == 0 and (not int4 or plan.kc % gk == 0)
+    # covering K; all but the last hold at least 2 stages when K is split,
+    # DECODE_MIN_STAGES where more than one CTA an SM runs
+    ks = tqm.decode_stage(int4)
+    assert plan.kc % ks == 0 and (not int4 or plan.kc % gk == 0)
     bounds = _slices(plan, K)
     assert bounds[0][0] == 0 and bounds[-1][1] == K
     assert all(lo < hi for lo, hi in bounds)
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
-    assert all((hi - lo) % (gk if int4 else tqm.STAGE) == 0 for lo, hi in bounds)
+    assert all((hi - lo) % (gk if int4 else ks) == 0 for lo, hi in bounds)
     if plan.n_split > 1:
-        assert plan.kc >= tqm.DECODE_MIN_STAGES * tqm.STAGE
-    # one wave: no split where the tiles fill it, else at most one wave
-    slots = tqm.DECODE_CTAS_PER_SM * sms
+        assert plan.kc >= 2 * ks
+        if tiles * plan.n_split > sms:
+            assert plan.kc >= tqm.DECODE_MIN_STAGES * ks
+    # one wave: at most one CTA an SM, or DECODE_CTAS_PER_SM (one fewer
+    # for two n8 tiles), and no split where the tiles fill that wave
+    slots = (tqm.DECODE_CTAS_PER_SM - (plan.nt - 1)) * sms
     if tiles >= slots:
         assert plan.n_split == 1
-    assert plan.n_split == 1 or tiles * plan.n_split <= slots
+    assert plan.n_split == 1 or tiles * plan.n_split <= max(slots, sms)
     # the card's workspace holds a split call's partials and counters
     floats, counters = tqm.decode_workspace_bounds(sms)
     if plan.n_split > 1:
@@ -88,7 +92,7 @@ def test_decode_plan_covers_every_output_once(rows, shape, scheme, sms):
 
 
 @settings(max_examples=300, deadline=None)
-@given(rows=st.integers(1, 16), K=st.integers(1, 512).map(lambda u: 64 * u),
+@given(rows=st.integers(1, 16), K=st.integers(1, 256).map(lambda u: 128 * u),
        N=st.integers(1, 1024).map(lambda u: 128 * u), int4=st.booleans(),
        sms=st.sampled_from(SMS))
 def test_decode_workspace_bounds_cover_every_plan(rows, K, N, int4, sms):
@@ -103,20 +107,28 @@ def test_decode_workspace_bounds_cover_every_plan(rows, K, N, int4, sms):
 
 
 def test_decode_rows_take_the_decode_path():
-    """bf16 calls of 1-16 rows on the tensor-core shapes take the
-    decode-row path, and only they: not 17 rows, fp32 x, nor shapes off
-    the tiles; and the wide path's per-call workspace does not count
-    them."""
+    """bf16 calls of 1-16 rows on the decode-row shapes take the
+    decode-row path, and only they: not 17 rows, fp32 x, shapes off the
+    tiles, nor int4 whose K or groups are not whole 128-row stages; and
+    the wide path's per-call workspace does not count them."""
     w = {"q8": torch.zeros(512, 256, dtype=torch.int8), "scale": torch.ones(256)}
     for rows in (1, 8, 16):
         x = torch.zeros(rows, 512, dtype=torch.bfloat16)
-        assert tqm.takes_decode(x, w["q8"], w["scale"], 1)
+        assert tqm.takes_decode(x, w["q8"], w["scale"], 1, False)
         assert not tqm.takes_wide(x, w["q8"], w["scale"], 1)
     assert not tqm.takes_decode(torch.zeros(17, 512, dtype=torch.bfloat16), w["q8"],
-                                w["scale"], 1)
-    assert not tqm.takes_decode(torch.zeros(8, 512), w["q8"], w["scale"], 1)
+                                w["scale"], 1, False)
+    assert not tqm.takes_decode(torch.zeros(8, 512), w["q8"], w["scale"], 1, False)
     assert not tqm.takes_decode(torch.zeros(8, 500, dtype=torch.bfloat16),
-                                w["q8"][:500], w["scale"], 1)
+                                w["q8"][:500], w["scale"], 1, False)
+    q4 = torch.zeros(96, 256, dtype=torch.int8)   # K = 192: int8 fits, int4 does not
+    x = torch.zeros(8, 192, dtype=torch.bfloat16)
+    assert tqm.takes_decode(x, torch.zeros(192, 256, dtype=torch.int8), w["scale"], 1,
+                            False)
+    assert not tqm.takes_decode(x, q4, torch.ones(1, 256), 1, True)
+    assert not tqm.takes_decode(torch.zeros(8, 512, dtype=torch.bfloat16),
+                                torch.zeros(256, 256, dtype=torch.int8), torch.ones(8, 256),
+                                8, True)
     # the CUDA-core fallback's split is all a decode-row call's own
     # workspace has to hold
     assert tqm.workspace_floats(8, 4096, 1024, 1, False, True) == \
@@ -140,9 +152,10 @@ def _planned_loop(x: torch.Tensor, w: dict, sms: int) -> torch.Tensor:
         for s, (k_lo, k_hi) in enumerate(_slices(plan, K)):
             acc = torch.zeros(rows, tqm.DECODE_TN)
             part = torch.zeros_like(acc)
-            for k0 in range(k_lo, k_hi, tqm.STAGE):
-                part += x[:, k0:k0 + tqm.STAGE] @ q[k0:k0 + tqm.STAGE, cols]
-                if int4 and ((k0 + tqm.STAGE) % gk == 0 or k0 + tqm.STAGE == k_hi):
+            ks = tqm.decode_stage(int4)
+            for k0 in range(k_lo, k_hi, ks):
+                part += x[:, k0:k0 + ks] @ q[k0:k0 + ks, cols]
+                if int4 and ((k0 + ks) % gk == 0 or k0 + ks == k_hi):
                     acc += part * scale[k0 // gk, cols]
                     part.zero_()
             parts[s, :, cols] = acc if int4 else part * scale[0, cols]
@@ -152,22 +165,28 @@ def _planned_loop(x: torch.Tensor, w: dict, sms: int) -> torch.Tensor:
     return out
 
 
-@pytest.mark.parametrize("scheme", ["int8", "int4"])
+@pytest.mark.parametrize("scheme", ["int8", "int4", "int4 whole-K"])
 @pytest.mark.parametrize("rows", [1, 8, 16])
-@pytest.mark.parametrize("K,N,sms", [(512, 256, 132), (1024, 128, 132), (192, 128, 132),
-                                     (384, 384, 1)])
+@pytest.mark.parametrize("K,N,sms", [(1024, 256, 132), (2048, 128, 132), (384, 384, 1)])
 def test_planned_loop_matches_pallas(scheme, rows, K, N, sms):
-    """Split and unsplit plans (K 512 and 1024 cut into 2 and 4 slices,
-    int4 on groups of 128 or of the whole 192; one card slot per column
-    tile, unsplit), against the Pallas kernel in interpret mode."""
+    """Split and unsplit plans (K 1024 and 2048 cut into 2 and 4 slices
+    for int8 and int4 groups of 128, one whole-K group unsplit; one card
+    slot per column tile, unsplit), against the Pallas kernel in
+    interpret mode."""
     rng = np.random.RandomState(rows + K + N)
     x = rng.randn(rows, K).astype(np.float32)
-    fn = jax.jit(lambda a: jq.quantize_weight(a, scheme))
-    qt = jax.tree.map(np.array, fn(jnp.asarray(rng.randn(K, N).astype(np.float32))))
+    if scheme == "int4 whole-K":   # the quantizer makes one only where K % 128 != 0
+        qt = {"q4": rng.randint(-128, 128, (K // 2, N)).astype(np.int8),
+              "scale": (rng.rand(1, N) / 64).astype(np.float32)}
+    else:
+        fn = jax.jit(lambda a: jq.quantize_weight(a, scheme))
+        qt = jax.tree.map(np.array, fn(jnp.asarray(rng.randn(K, N).astype(np.float32))))
     w = {k: torch.from_numpy(v) for k, v in qt.items()}
     groups = w["scale"].reshape(-1, N).shape[0]
-    plan = tqm.decode_plan(rows, K, N, groups, scheme == "int4", sms)
-    assert (plan.n_split > 1) == (K != 192 and sms > 1)
+    int4 = scheme != "int8"
+    assert tqm.decode_fits(K, N, K // groups, int4)
+    plan = tqm.decode_plan(rows, K, N, groups, int4, sms)
+    assert (plan.n_split > 1) == (scheme != "int4 whole-K" and sms > 1)
     got = _planned_loop(torch.from_numpy(x), w, sms)
     want = np.asarray(jqm.quant_matmul(jnp.asarray(x), jax.tree.map(jnp.asarray, qt),
                                        interpret=True))
