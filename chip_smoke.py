@@ -16,13 +16,19 @@ order; any failure exits non-zero and prints no result:
    200-token prompt), paged decode
    over int8 pages with scales (K1q, over the K1 pools quantized), and
    the fused dequant matmuls of int8 (K4) and int4 (K5) weights at the
-   four projection shapes with 1, 8, 17, 64, 65, 200 and 256 rows (bf16
-   calls of 17-256 rows take the wide path, whose launch counter must
-   follow), timed at 8 and 200 rows at every shape and also at 1, 64 and
-   256 rows at gate/up; and K6, the int8 and
+   four projection shapes with 1, 5, 8, 9, 16, 17, 64, 65, 200 and 256
+   rows (bf16 calls of 17-256 rows take the wide path, whose launch
+   counter must follow), timed at 1, 8, 16 and 200 rows at every shape
+   and also at 64 and 256 rows at gate/up; and K6, the int8 and
    int4 kernels with the next layer's slab prefetched into L2, at the
    TP=2 ring-chunk shapes (o and down chunks, strided views), whose
-   output must be bitwise K4/K5's.  K1 runs with the
+   output must be bitwise K4/K5's.  The decode-row path (bf16, 1-16
+   rows) logs its plan at each shape and ptxas's register and spill
+   lines (a spill fails the run), its merge counters must read zero
+   after the checks, and one K5 and one K6 call captured in a CUDA
+   graph must match the plain version (and the eager kernel, bitwise)
+   when replayed after new x is copied into its input and after an
+   eager call with more partials.  K1 runs with the
    page-table width the full-width engine gives it at its context limit,
    and is also timed at the live width the engine passes and with one
    live sequence beside idle (length-0) rows; K1q is timed at both
@@ -854,8 +860,8 @@ def check_quant_graph(torch, records):
         for larger in (False, False, True, False):
             if larger:
                 # 16 rows over the whole plane: more partials than the
-                # captured plan (gate/up: twice the rows; down: the full
-                # plane, 12 slices of 16 rows x 4096 against 19 of 8 x 2048)
+                # captured plan (twice the rows; at down also twice the
+                # columns of the ring's chunk)
                 x16 = torch.randn(16, K, generator=gen, device="cuda").to(torch.bfloat16)
                 err = max(err, rel_err(qm.quant_matmul_cuda(x16, w),
                                        qm.quant_matmul_plain(x16, w)))

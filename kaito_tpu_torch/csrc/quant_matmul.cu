@@ -493,11 +493,11 @@ __device__ __forceinline__ void dq_mma(float (&c)[4], const uint32_t (&a)[4], ui
 
 // One CTA: columns [n0, n0 + 128) for every row of the call, over the K
 // slice [k_lo, k_hi) (grid: x the column tile, y the slice).  All 128
-// threads copy each stage's code rows and x rows into a ring of RING
+// threads copy each stage's code rows and x rows into a ring of DQ_RING
 // slots with 16-byte cp.asyncs, one commit group a stage; each stage
 // starts with a wait for its group and a barrier, after which the slot of
-// the stage before takes the stage RING - 1 on, so RING - 1 stages are in
-// flight while one is read.  Warp w owns columns 32 w .. 32 w + 31 as two
+// the stage before takes the stage DQ_RING - 1 on, so DQ_RING - 1 stages
+// are in flight while one is read.  Warp w owns columns 32 w .. 32 w + 31 as two
 // m16 tiles: lane (g, t) = (lane / 4, lane % 4) holds the 4 columns
 // 32 w + 4 g .. + 3, m-tile mt taking column 2 mt (as row g of A) and
 // 2 mt + 1 (row g + 8), and reads them as one word of each code row it
@@ -645,9 +645,9 @@ quant_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __
 #pragma unroll
         for (int n = 0; n < NT; ++n) dq_mma(part[m][n], a[m], b[n][0], b[n][1]);
     }
-    // K6: this stage's code rows of the next slab, one 128-byte row
-    // segment per thread of warps 0 and 1
-if (PF) {
+    // K6: this stage's code rows of the next slab, a 32-byte sector per
+    // request, two a thread
+    if (PF) {
 #pragma unroll
       for (int q = tid; q < DQ_CROWS * 4; q += DQ_THREADS)
         prefetch_sector(nw + (size_t)(code_row(j) + q / 4) * ldw + n0 + 32 * (q % 4));
@@ -1374,23 +1374,4 @@ extern "C" int kaito_quant_matmul_decode_plan(int rows, int K, int N, int groups
 extern "C" void kaito_quant_matmul_decode_workspace(int sms, long long* sizes) {
   sizes[0] = kaito::decode_workspace_floats(sms);
   sizes[1] = kaito::decode_workspace_counters(sms);
-}
-
-// CTAs of the decode-row kernel (int4 or int8, nt n8 tiles, K4/K5) that
-// one SM holds at once, as launched; the plan assumes DQ_CTAS_PER_SM.
-template <bool INT4, int NT>
-int decode_occupancy() {
-  auto kern = kaito::quant_matmul_decode_kernel<INT4, NT, false>;
-  constexpr int smem = kaito::DqLayout<INT4>::SMEM;
-  int blocks = 0;
-  if (kaito::allow_smem(kern, smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kaito::DQ_THREADS, smem) !=
-          cudaSuccess)
-    return -1;
-  return blocks;
-}
-
-extern "C" int kaito_quant_matmul_decode_occupancy(int int4, int nt) {
-  return int4 ? (nt == 1 ? decode_occupancy<true, 1>() : decode_occupancy<true, 2>())
-              : (nt == 1 ? decode_occupancy<false, 1>() : decode_occupancy<false, 2>());
 }

@@ -140,7 +140,7 @@ class DecodePlan(NamedTuple):
 
 
 def decode_plan(rows: int, K: int, N: int, groups: int, int4: bool,
-                sms: int = SMS) -> DecodePlan:
+                sms: int) -> DecodePlan:
     """``decode_plan``: one CTA per 128-column tile and K slice; K split
     (on stages of 64 code rows; int4 on whole groups) into the larger of
     two: one CTA an SM with slices of at least 2 stages, and one wave of
@@ -397,14 +397,15 @@ def quant_matmul_cuda(x: torch.Tensor, w: dict,
     lds = scale.stride(0) if int4 else N
     x = x.contiguous()
     out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
-    ws = decode_workspace(x.device)
     if takes_decode(x, codes, scale, groups, int4):
-        work = ws.part
+        ws = decode_workspace(x.device)
+        work, counters = ws.part, _ptr(ws.counters)
     else:
         n_work = _workspace_floats(rows, K, N, groups, int(int4), _DTYPES[x.dtype])
         work = torch.empty((max(n_work, 1),), dtype=torch.float32, device=x.device)
+        counters = None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    tail = (_ptr(out), _ptr(work), work.numel(), _ptr(ws.counters), rows, K, N, groups,
+    tail = (_ptr(out), _ptr(work), work.numel(), counters, rows, K, N, groups,
             int(int4), _DTYPES[x.dtype], ldw, lds, _sms(x.device.index), stream)
     if w_next is None:
         build.check(build.launch(x.device, _kernel(), _ptr(x), _ptr(codes),
