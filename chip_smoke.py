@@ -579,22 +579,20 @@ def check_quant_matmul(torch, records, build_logs):
                                                          quant_matmul_plain)
     from kaito_tpu_torch.engine.quant import dequant_weight, quantize_weight
 
-    decode_path = hasattr(qm, "decode_plan")   # (a parent under comparison has none)
-    if decode_path:
-        lines, spills = _build_lines(build_logs, "quant_matmul.cu", "decode_kernel")
-        for ln in lines:
-            log(f"  quant_matmul.cu decode rows: {ln}")
-        if spills:
-            raise SmokeFailure(f"quant_matmul.cu's decode-row kernels spill: {spills}")
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        for label, (K, N) in dict(PROJ_SHAPES, **{f"TP=2 {k} chunk": (K, N // 2)
-                                                   for k, (K, N) in PF_SHAPES.items()}).items():
-            for scheme in ("int8", "int4"):
-                p = qm.decode_plan(8, K, N, K // 128 if scheme == "int4" else 1,
-                                   scheme == "int4", sms)
-                log(f"decode-row plan {scheme} {label} [{K}x{N}] at 8 rows: "
-                    f"{N // qm.DECODE_TN * p.n_split} CTAs, {p.n_split} K slices of "
-                    f"{p.kc} in-rows")
+    lines, spills = _build_lines(build_logs, "quant_matmul.cu", "decode_kernel")
+    for ln in lines:
+        log(f"  quant_matmul.cu decode rows: {ln}")
+    if spills:
+        raise SmokeFailure(f"quant_matmul.cu's decode-row kernels spill: {spills}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (K, N) in dict(PROJ_SHAPES, **{f"TP=2 {k} chunk": (K, N // 2)
+                                               for k, (K, N) in PF_SHAPES.items()}).items():
+        for scheme in ("int8", "int4"):
+            p = qm.decode_plan(8, K, N, K // 128 if scheme == "int4" else 1,
+                               scheme == "int4", sms)
+            log(f"decode-row plan {scheme} {label} [{K}x{N}] at 8 rows: "
+                f"{N // qm.DECODE_TN * p.n_split} CTAs, {p.n_split} K slices of "
+                f"{p.kc} in-rows")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     for scheme, name, replaces in (
@@ -610,8 +608,7 @@ def check_quant_matmul(torch, records, build_logs):
             for rows in QM_CHECK_ROWS:
                 for dtype in (torch.bfloat16, torch.float32):
                     x = torch.randn(rows, K, generator=gen, device="cuda").to(dtype)
-                    # (a parent under comparison has no wide counter)
-                    before = getattr(quant_matmul_cuda, wide, 0)
+                    before = getattr(quant_matmul_cuda, wide)
                     out = quant_matmul_cuda(x, w)
                     ref = quant_matmul_plain(x, w).float()
                     torch.cuda.synchronize()
@@ -619,8 +616,7 @@ def check_quant_matmul(torch, records, build_logs):
                         ref.abs().max().item(), 1e-30)
                     err[dtype] = max(err[dtype], e)
                     on_wide = dtype == torch.bfloat16 and 16 < rows <= 256
-                    if hasattr(quant_matmul_cuda, wide) and \
-                            getattr(quant_matmul_cuda, wide) - before != int(on_wide):
+                    if getattr(quant_matmul_cuda, wide) - before != int(on_wide):
                         raise SmokeFailure(f"{name} {label} rows {rows} {dtype}: the "
                                            f"wide path's counter did not follow")
                     if on_wide:
@@ -635,7 +631,7 @@ def check_quant_matmul(torch, records, build_logs):
             del w
         if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
             raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
-        if decode_path and qm.decode_workspace(torch.device("cuda", 0)).counters.any():
+        if qm.decode_workspace(torch.device("cuda", 0)).counters.any():
             raise SmokeFailure(f"{name}: a decode-row merge counter is not back at zero")
         main = next(t for t in timed if t["case"].startswith("gate/up") and
                     t["case"].endswith("rows 8"))
@@ -818,15 +814,11 @@ def check_quant_graph(torch, records):
     every replay against the plain version (relative to the output's
     largest magnitude, ``BF16_ATOL``) and bitwise against the eager
     kernel; the card's workspace must not move and its merge counters
-    must read zero.  Skipped in a tree without the decode-row workspace (a
-    parent under comparison)."""
+    must read zero."""
     from kaito_tpu_torch.engine.ops import quant_matmul as qm
     from kaito_tpu_torch.engine.ops.overlap_collectives import _slice_out
     from kaito_tpu_torch.engine.quant import quantize_weight
 
-    if not hasattr(qm, "decode_workspace"):
-        log("quant matmul CUDA graph replay: skipped (no decode-row workspace here)")
-        return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
 
@@ -1213,9 +1205,6 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
     base = f"http://127.0.0.1:{server.server_address[1]}"
     stats = {}
     try:
-        # a tree from before the wide path (a parent under comparison) has
-        # no wide counters: its legs are timed without them
-        counted = [n for n in counted if hasattr(*_counter(n))]
         for name in counted:
             fn, attr = _counter(name)
             setattr(fn, attr, 0)
@@ -1317,6 +1306,7 @@ def profile_request(engine, base):
     (:func:`_profile_prefill`), then over one request alone (200-token
     prompt, 33 output tokens): wall time, device busy time, kernel
     launches and the kernels that take the most device time."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     _completion(base, _prompt(200, 50), 8)           # warm
@@ -1326,6 +1316,7 @@ def profile_request(engine, base):
         t0 = time.perf_counter()
         _completion(base, _prompt(200, 51), 33)
         wall = time.perf_counter() - t0
+        torch.cuda.synchronize()   # the trace holds every kernel the request ran
     steps = engine.counters["decode_steps_total"] - steps0
     rows = _device_rows(prof)
     busy = sum(r[2] for r in rows)
@@ -1364,12 +1355,14 @@ def _profile_prefill(base):
     profiler), device busy time, and the device time and launches of the
     quantized matmul kernels (K4/K5, with any split-K reduction) by
     kernel name."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _completion(base, _prompt(200, 52), 1)
         wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
     rows = _device_rows(prof)
     quant = [r for r in rows if "quant_matmul" in r[0]]
     res = dict(wall_ms=wall * 1e3, device_busy_ms=sum(r[2] for r in rows),

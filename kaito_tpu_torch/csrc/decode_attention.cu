@@ -867,21 +867,6 @@ decode_fp32_kernel(const float* __restrict__ q, const TKV* __restrict__ kc,
                        smem_f);
 }
 
-// Raise a kernel's shared-memory cap once per device (not on every call:
-// a call may be captured into a CUDA graph); `done` holds the devices
-// already raised, one per kernel instance.
-template <typename K>
-cudaError_t allow_smem_once(K kernel, size_t bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = 1ull << (dev & 63);
-  if (done.load() & bit) return cudaSuccess;
-  err = allow_smem(kernel, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
 // static: the flags below stay private to this library, not one
 // process-wide symbol shared by every copy of it that is loaded
 template <typename TKV, int D>

@@ -129,6 +129,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -1145,12 +1146,16 @@ cudaError_t reduce_splits(const QmArgs& a, int n_split, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// static: the flag below stays private to this library, not one
+// process-wide symbol shared by every copy of it that is loaded
 template <bool INT4, int NT, bool PF>
-cudaError_t launch_decode(const QmArgs& a, int gk, const DecodePlan& pl, cudaStream_t stream) {
+static cudaError_t launch_decode(const QmArgs& a, int gk, const DecodePlan& pl,
+                                 cudaStream_t stream) {
   if (!work_fits(a, pl.n_split) || (pl.n_split > 1 && a.counters == nullptr))
     return cudaErrorInvalidValue;
   auto kern = quant_matmul_decode_kernel<INT4, NT, PF>;
-  cudaError_t err = allow_smem(kern, DqLayout<INT4>::SMEM);
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = allow_smem_once(kern, DqLayout<INT4>::SMEM, done);
   if (err != cudaSuccess) return err;
   kern<<<dim3(a.N / DQ_TN, pl.n_split), DQ_THREADS, DqLayout<INT4>::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.w, a.scale,

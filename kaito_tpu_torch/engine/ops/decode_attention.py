@@ -195,6 +195,11 @@ class _Workspace:
 
     def get(self, plan: DecodePlan, device: torch.device, sms: int):
         if self.part is None:
+            if torch.cuda.is_current_stream_capturing():
+                # the buffers would come from the graph's private pool
+                raise RuntimeError(f"the decode kernel's workspace on {device} is "
+                                   f"allocated by the first call, which must run "
+                                   f"outside CUDA graph capture")
             floats, counters = workspace_bounds(sms)
             self.part = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
             self.counters = torch.zeros(max(counters, 1), dtype=torch.int32, device=device)

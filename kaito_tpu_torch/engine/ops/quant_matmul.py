@@ -37,8 +37,9 @@ in one workspace per card (:func:`decode_workspace`), sized once at
 :func:`decode_workspace_bounds` and never replaced, so a CUDA graph that
 captures a call keeps valid pointers after larger calls; the counters
 are zeroed once and every call leaves them at zero.  Run one call on a
-card before capturing any (the workspace is allocated then), and do not
-run calls on one card concurrently on two streams.
+card before capturing any (the workspace is allocated then; a first call
+under capture raises), and do not run calls on one card concurrently on
+two streams.
 """
 
 from __future__ import annotations
@@ -328,9 +329,15 @@ _DECODE_WORKSPACES: dict[int, _DecodeWorkspace] = {}
 
 def decode_workspace(device: torch.device) -> _DecodeWorkspace:
     """The decode-row path's workspace on ``device`` (a card), allocated
-    at its first use."""
+    at its first use.  A first use inside CUDA graph capture raises: the
+    buffers would come from the graph's private pool, which outlives
+    neither the graph nor the process's later calls."""
     ws = _DECODE_WORKSPACES.get(device.index)
     if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the quant matmul's decode-row workspace on {device} "
+                               f"is allocated by the first call, which must run "
+                               f"outside CUDA graph capture")
         ws = _DECODE_WORKSPACES[device.index] = _DecodeWorkspace(device,
                                                                  _sms(device.index))
     return ws

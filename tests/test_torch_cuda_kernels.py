@@ -670,6 +670,48 @@ def test_quant_matmul_decode_replays_in_a_cuda_graph(card, pf):
     replay_and_check()
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K5"])
+def test_workspace_first_use_under_capture_raises(card, monkeypatch, kernel):
+    """A card's first decode-attention or decode-row quant matmul call
+    inside CUDA graph capture raises instead of allocating the per-card
+    workspace from the graph's private pool (which a later eager call
+    would go on writing after the graph is freed); an eager call after it
+    allocates the workspace as usual."""
+    from kaito_tpu_torch.engine.ops import decode_attention as dec
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    if kernel == "K1":
+        (q, ck, cv, pt, lens), kw = _decode_inputs(card, torch.bfloat16, False,
+                                                   [700, 1, 0, 1999], 40)
+        args = (q, ck, cv, pt, lens, BIG)
+        call, mod, table = dec.paged_decode_attention_cuda, dec, "_WORKSPACES"
+    else:
+        w = quantize_weight(torch.randn(4096, 1024, generator=card, device="cuda"), "int4")
+        args, kw = (_rand(card, 8, 4096, dtype=torch.bfloat16), w), {}
+        call, mod, table = qm.quant_matmul_cuda, qm, "_DECODE_WORKSPACES"
+
+    def run():
+        return call(*args, **kw)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                      # warm up: build and bind the kernel
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(mod, table, {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="outside CUDA graph capture"):
+        with torch.cuda.graph(graph):
+            run()
+    del graph
+    run()
+    torch.cuda.synchronize()
+    (ws,) = getattr(mod, table).values()
+    assert ws.part is not None and not ws.counters.any()
+
+
 def test_quant_matmul_decode_plans_mirror_the_kernel(card):
     """decode_plan and decode_workspace_bounds (engine/ops/quant_matmul.py)
     equal the C functions they mirror, over the Llama-3.1-8B projections,

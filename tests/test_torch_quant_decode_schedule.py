@@ -55,15 +55,18 @@ def test_decode_plan_covers_every_output_once(rows, shape, scheme, sms):
     gk = K // groups
     plan = tqm.decode_plan(rows, K, N, groups, int4, sms)
     assert tqm.decode_fits(K, N, gk, int4)
-    # rows: one n8 tile up to 8, two up to 16; every (row, column) of the
-    # call owned by exactly one CTA of each K slice
+    # rows: one n8 tile up to 8, two up to 16
     assert plan.nt == (1 if rows <= 8 else 2) and 8 * plan.nt >= rows
+    # the grid, (N // DECODE_TN column tiles) x (n_split K slices), CTA
+    # (tile, s) reading in-rows [s kc, min(K, (s + 1) kc)) of its tile's
+    # columns: every column in one tile, every in-row in one slice, so
+    # every output is owned by exactly one CTA of each slice
     tiles = N // tqm.DECODE_TN
-    owners = np.zeros((plan.n_split, N), np.int32)
-    for tile in range(tiles):
-        for s in range(plan.n_split):
-            owners[s, tile * tqm.DECODE_TN:(tile + 1) * tqm.DECODE_TN] += 1
-    assert (owners == 1).all()
+    assert tiles * tqm.DECODE_TN == N
+    reads = np.zeros(K, np.int32)
+    for s in range(plan.n_split):
+        reads[s * plan.kc:min(K, (s + 1) * plan.kc)] += 1
+    assert (reads == 1).all()
     # K slices: whole stages (int4: whole groups), contiguous, none empty,
     # covering K; all but the last hold at least 2 stages when K is split,
     # DECODE_MIN_STAGES where more than one CTA an SM runs
