@@ -61,25 +61,38 @@ order; any failure exits non-zero and prints no result:
 3. Goldens: ``tiny-llama-real`` in fp32 through the port's engine on the
    card must reproduce the ``fp32``, ``int8``, ``weight_int4`` and
    ``kv_int8`` sections of ``tests/testdata/goldens_tiny-llama-real.json``
-   (greedy tokens exact, logprobs within atol 2e-3); then at
-   tensor_parallel 2 (all four) and 4 (all but ``weight_int4``, which
-   that degree refuses), each with the comm-overlap ring off and on, on
-   a mesh of the first cards or, on a one-card machine, of slots that
-   all map onto that card.
+   (greedy tokens exact, logprobs within atol 2e-3), every decode window
+   a replayed CUDA graph; the four again through the async decode loop
+   (``async_dispatch``); then at tensor_parallel 2 (all four) and 4 (all
+   but ``weight_int4``, which that degree refuses), each with the
+   comm-overlap ring off and on, and fp32 at TP=2 with the ring through
+   the async loop, on a mesh of the first cards or, on a one-card
+   machine, of slots that all map onto that card (windows at TP >= 2 run
+   eagerly).
 4. Full width: the port's HTTP server serves ``llama-3.1-8b-instruct``
    (all 32 layers, bf16, synthetic weights from seed 0): one completion,
    one streamed chat, then four concurrent 100-400-token prompts (a
    prefill pack) and one 700-token prompt (a continuation chunk).  Every
    response must be well formed and carry its ``max_tokens``; the launch
    counts of K1, K2 and K3, zeroed just before this phase, must each
-   have grown.  TTFT, decode tokens/s and the inter-token gaps of one
-   sequence alone are printed beside the card.
+   have grown (a replayed decode window counts its kernels), and every
+   decode window must have been a graph replay.  TTFT, decode tokens/s
+   and the inter-token gaps of one sequence alone are printed beside the
+   card, with the decode readings of one sequence: host launch and copy
+   calls and device kernels a decode step (profiled), the windows'
+   captures, graph pool and kernel nodes.  Then the server stops, the
+   engine greedily decodes a batch of four prompts step by step, and an
+   engine with the eager reference loop (``_eager_decode``; same config,
+   seed and weights) must emit the same tokens; its one-sequence tok/s,
+   ITL and launches a step are printed beside the captured engine's.
 5. Quantized, full width: the server, configured by its own command line
    (``--quantization int4 --kv-cache-dtype int8``), serves the same model
    and request mix; then a shorter ``--quantization int8`` leg (bf16 KV).
    The launch counts of K5 and K1q (int4 leg) and of K4 (int8 leg), and
    of K5's and K4's launches on the wide (prefill-row) path, are zeroed
-   before each leg and must grow.
+   before each leg and must grow.  Last, the bf16 server with
+   ``--async-dispatch`` and the request mix of phase 4.  Each of these
+   TP=1 legs is held against the eager loop as in phase 4.
 6. Tensor parallel, full width: the same model at TP=2 with the
    comm-overlap ring, its engine built on an explicit mesh (two cards, or
    two slots of one card, which the log names) and handed to
@@ -95,7 +108,8 @@ object with the kernel records, and ``{"ok": true, "device": ...}``.
 phase 3 and every server leg after phase 4's bf16 one (with
 ``--profile``, the quickest reading of TTFT and prefill device time)
 and prints no result line either; nor does ``--leg NAME`` (one of
-``bf16``, ``int4-kv8``, ``int8``, ``tp2-int4-kv8``, ``tp2-int8``), which
+``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
+``tp2-int8``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -1038,9 +1052,11 @@ def tp_mesh(torch, n, shared=False):
     return build_mesh(tensor=n, devices=["cuda:0"] * n)
 
 
-def check_goldens(section, tp=1, overlap=False):
+def check_goldens(section, tp=1, overlap=False, async_on=False):
     """Replay one golden section; at ``tp`` > 1 on a :func:`tp_mesh`,
-    with the comm-overlap decode ring on or off."""
+    with the comm-overlap decode ring on or off; with ``async_on``
+    through the async decode loop.  At TP=1 the decode windows must run
+    as replayed CUDA graphs."""
     import torch
 
     from kaito_tpu_torch.engine.config import EngineConfig
@@ -1055,7 +1071,8 @@ def check_goldens(section, tp=1, overlap=False):
                        dtype="float32", kv_dtype=kv_dtype, max_model_len=512,
                        max_num_seqs=2, prefill_buckets=(64, 128),
                        enable_prefix_caching=False, quantization=quant, seed=0,
-                       tensor_parallel=tp, comm_overlap=overlap)
+                       tensor_parallel=tp, comm_overlap=overlap,
+                       async_dispatch=async_on)
     eng = InferenceEngine(cfg, device="cuda",
                           mesh=tp_mesh(torch, tp) if tp > 1 else None)
     if eng.comm_overlap != overlap:
@@ -1081,8 +1098,16 @@ def check_goldens(section, tp=1, overlap=False):
                                    f"for {p['text']!r}")
     finally:
         eng.stop()
-    log(f"goldens {section} TP={tp} overlap={overlap}: {len(golden['prompts'])} "
-        f"prompts exact, worst logprob diff {worst:.3g}")
+    if eng.window.capture != (tp == 1) or eng.async_dispatch != async_on:
+        raise SmokeFailure(f"{section} TP={tp}: capture {eng.window.capture}, async "
+                           f"{eng.async_dispatch}")
+    replays = eng.counters["decode_graph_replays_total"]
+    if tp == 1 and replays < eng.counters["decode_windows_total"]:
+        raise SmokeFailure(f"{section}: {eng.counters['decode_windows_total']} decode "
+                           f"windows but {replays} graph replays")
+    log(f"goldens {section} TP={tp} overlap={overlap} async={async_on}: "
+        f"{len(golden['prompts'])} prompts exact, worst logprob diff {worst:.3g}; "
+        f"{eng.counters['decode_graph_captures_total']} captures, {replays} replays")
     return worst
 
 
@@ -1176,7 +1201,11 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
     leaves out the concurrent burst).  At ``tp`` > 1 the engine is built
     on a :func:`tp_mesh` and handed to ``make_server``.  Returns the
     launch counts of the kernel records ``counted``, zeroed just before
-    the requests, and the leg's statistics."""
+    the requests, and the leg's statistics: among them the decode
+    readings of :func:`decode_readings` and, at TP=1, where every decode
+    window must be a replayed CUDA graph, those of the eager reference
+    loop and its greedy tokens against the captured windows'
+    (:func:`compare_eager`)."""
     import torch
 
     from kaito_tpu_torch.engine.engine import InferenceEngine
@@ -1248,6 +1277,12 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         launches = {name: getattr(*_counter(name)) for name in counted}
         log(f"{label}: launches {launches}; decode steps "
             f"{engine.counters['decode_steps_total']}")
+        windows = engine.counters["decode_windows_total"]
+        replays = engine.counters["decode_graph_replays_total"]
+        if (tp == 1) != engine.window.capture or (tp == 1 and replays < windows):
+            raise SmokeFailure(f"{label}: capture {engine.window.capture}, {windows} "
+                               f"decode windows, {replays} graph replays")
+        stats["decode"] = decode_readings(engine, p, label)
         if run_ahead_sweep:
             stats["run_ahead_sweep"] = sweep_run_ahead(engine)
         if profile:
@@ -1257,7 +1292,132 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         server.server_close()
         engine.stop()
         thread.join(timeout=30)
+    if tp == 1:
+        del server, engine
+        _release_card(torch)
+        stats["eager"] = compare_eager(cfg, p, label)
     return launches, stats
+
+
+def _api_calls(prof) -> dict:
+    """Host-side launch and copy calls of a profile (the CUDA runtime and
+    driver events the profiler records), by name."""
+    calls = {}
+    for e in prof.key_averages():
+        k = e.key
+        if k.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy",
+                         "cudaMemset")):
+            calls[k] = calls.get(k, 0) + e.count
+    return calls
+
+
+def _profiled_request(engine, prompt, n):
+    """(host launch and copy calls, device kernels, decode steps) of one
+    greedy request of ``n`` tokens straight to the serving engine."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    steps0 = engine.counters["decode_steps_total"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _timed_tokens(engine, prompt, n)
+        torch.cuda.synchronize()
+    kernels = sum(r[1] for r in _device_rows(prof))
+    return _api_calls(prof), kernels, engine.counters["decode_steps_total"] - steps0
+
+
+def decode_readings(engine, prompt, label) -> dict:
+    """One sequence's decode as the engine runs it: the host's launch
+    and copy calls and the device's kernels a decode step (a profiled
+    17-token request less a profiled 1-token one, over their 16 decode
+    steps), and, for a captured engine, its captures, graph pool and
+    each graph's kernel nodes."""
+    calls1, k1, s1 = _profiled_request(engine, prompt, 1)
+    calls17, k17, s17 = _profiled_request(engine, prompt, 17)
+    steps = max(s17 - s1, 1)
+    host = {k: (calls17.get(k, 0) - calls1.get(k, 0)) / steps
+            for k in set(calls1) | set(calls17)}
+    res = dict(host_calls_per_step=sum(host.values()),
+               host_calls_by_name={k: v for k, v in host.items() if v},
+               device_kernels_per_step=(k17 - k1) / steps, profiled_steps=steps)
+    msg = (f"{label}: a decode step (one sequence, run_ahead={engine.run_ahead}): "
+           f"{res['host_calls_per_step']:.1f} host launch/copy calls "
+           f"{res['host_calls_by_name']}, {res['device_kernels_per_step']:.1f} "
+           f"device kernels")
+    if engine.window is not None and engine.window.capture:
+        w = engine.window.stats()
+        res.update(captures=w["captures"], replays=w["replays"],
+                   graph_pool_mib=w["pool_bytes"] / 2**20,
+                   graphs=[dict(K=g["K"], key=g["key"], kernel_nodes=g["nodes"]["kernel"],
+                                nodes=g["nodes"], wrapper_kernels=g["launches"])
+                           for g in w["graphs"]])
+        msg += (f"; {w['captures']} captures, graph pool "
+                f"{res['graph_pool_mib']:.1f} MiB, kernel nodes a window "
+                + ", ".join(f"K={g['K']}: {g['kernel_nodes']}" for g in res["graphs"]))
+    log(msg)
+    return res
+
+
+# the greedy batch that holds the captured windows against the eager
+# loop: (prompt bytes, salt), 24 tokens each, submitted together
+_BATCH = ((60, 71), (130, 72), (200, 73), (330, 74))
+
+
+def greedy_batch(engine) -> list:
+    """The greedy tokens of :data:`_BATCH`, submitted together to a fresh
+    engine (not started) and driven step by step, so any two engines see
+    one schedule and one page pool: an int8 page keeps the scale its
+    last owner grew (as in the JAX package), so int8-KV output depends
+    on what the pool served before."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    reqs = [engine.submit(engine.tokenizer.encode(_prompt(n, salt)), SamplingParams(
+        max_tokens=24, temperature=0.0, ignore_eos=True)) for n, salt in _BATCH]
+    for _ in range(5000):
+        engine.step()
+        if all(r.finish_reason for r in reqs):
+            break
+    if not all(r.finish_reason == "length" for r in reqs):
+        raise SmokeFailure(f"greedy batch did not finish: "
+                           f"{[r.finish_reason for r in reqs]}")
+    return [list(r.output_tokens) for r in reqs]
+
+
+def compare_eager(cfg, prompt, label) -> dict:
+    """The greedy batch of a fresh engine of ``cfg`` (captured windows)
+    against that of the same engine with the eager reference decode loop
+    (same config, seed and weights); then the eager engine's one-sequence
+    decode: tok/s, ITL and launches a step."""
+    import dataclasses
+
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, device="cuda")
+    got = greedy_batch(eng)
+    del eng
+    _release_card(torch)
+    ref = InferenceEngine(dataclasses.replace(cfg, async_dispatch=False),
+                          device="cuda", _eager_decode=True)
+    try:
+        want = greedy_batch(ref)
+        if got != want:
+            diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise SmokeFailure(f"{label}: captured windows' greedy tokens differ from "
+                               f"the eager loop's for prompts {diff}: {got} != {want}")
+        ref.start()
+        single = _itl(_timed_tokens(ref, prompt, 129))
+        res = dict(single_stream=single, greedy_batch_equal=True,
+                   decode=decode_readings(ref, prompt, label + " (eager reference)"))
+    finally:
+        ref.stop()
+    log(f"{label}: eager reference loop: greedy batch equal; one sequence "
+        f"{single['decode_tok_s']:.2f} tok/s, ITL p50/p90/max "
+        f"{single['itl_p50_ms']:.1f}/{single['itl_p90_ms']:.1f}/"
+        f"{single['itl_max_ms']:.1f} ms")
+    del ref
+    _release_card(torch)
+    return res
 
 
 def _burst(base, engine):
@@ -1483,6 +1643,9 @@ LEGS = (("bf16", "phase 4, bf16", [],
           "paged_decode_attention_int8kv"), True, 1),
         ("int8", "phase 5, int8 weights", ["--quantization", "int8"],
          ("quant_matmul_int8", "quant_matmul_int8_wide"), False, 1),
+        ("bf16-async", "phase 5, bf16, async dispatch", ["--async-dispatch"],
+         ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
+         True, 1),
         ("tp2-int4-kv8", "phase 6, TP=2 int4 weights + int8 KV, comm overlap",
          ["--quantization", "int4", "--kv-cache-dtype", "int8", *_TP2],
          ("quant_matmul_int4_pf", "quant_matmul_int4", "paged_decode_attention_int8kv",
@@ -1572,6 +1735,11 @@ def main(argv=None) -> int:
                 return 0
             golden_err = {} if alone else {
                 sec: check_goldens(sec) for sec in GOLDEN_MODES}
+            for sec in () if alone else GOLDEN_MODES:
+                golden_err[f"{sec} async"] = check_goldens(sec, async_on=True)
+            if not alone:
+                golden_err["fp32 TP=2 overlap=True async"] = check_goldens(
+                    "fp32", 2, True, async_on=True)
             for tp, sections in () if alone else TP_GOLDENS:
                 for sec in sections:
                     for ov in (False, True):

@@ -1,0 +1,336 @@
+"""The decode window: K fused decode steps over static buffers, captured
+once per key and replayed as one CUDA graph.
+
+Counterpart of the JAX engine's jitted ``decode_step`` and
+``decode_multi`` (``kaito_tpu.engine.engine._build_decode_fn`` and
+``_build_decode_multi_fn(K, with_state)``): there a window of K decode
+steps is one XLA program, built once per shape and replayed with the
+cache, sampling and penalty state donated.  Here a :class:`DecodeWindow`
+keeps the window's inputs in static device buffers — last tokens,
+positions, the page tables at their full width, the active rows, the
+remaining budgets (``left``) and the ``[S, stop_width]`` stop matrix —
+and runs K steps over them (:func:`run_steps`, the scan body), writing
+the ``[K, S]`` trace (tokens, each step's active mask before it,
+logprobs) into static outputs and the final carry (next tokens,
+positions, active, left) back into its inputs.  The next window starts
+from that carry, which is what async dispatch feeds back (copying in
+only what the host changed; the synchronous loop copies every field).
+
+On one card (``capture=True``) each key — K, the sampler's gates and
+whether penalty state is live — is captured once: first one eager
+warm-up on a side stream with every row inactive (inactive rows write
+only the null page, and the kernels' first workspace use then happens
+outside capture, as they demand), then the capture, into one memory
+pool that every window of the engine shares; from then on a call is one
+graph launch.  The engine's ``torch.Generator`` is registered with each
+graph, so a replay draws fresh noise, and the warm-up gives back the
+draws it took, so seeded engines reproduce each other.  A capture that
+fails raises; nothing falls back to eager.  Without capture (the CPU,
+or a tensor-parallel engine, one process over several devices) the same
+body runs eagerly on the same buffers.
+
+Launch counts.  A kernel wrapper adds one to its counter where it
+launches its kernel; under capture that launch is only recorded.  The
+window takes the capture's additions back, keeps them as the graph's
+kernels, and adds them again at every replay, so the counters read
+kernels run on the device, warm-up included.  The graph's node count,
+from the CUDA driver, says how many kernels a window runs in all: the
+wrappers' and PyTorch's.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import gc
+import logging
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from kaito_tpu_torch.engine.ops.decode_attention import paged_decode_attention_cuda
+from kaito_tpu_torch.engine.ops.flash_prefill import (flash_prefill_attention_cuda,
+                                                      flash_prefill_packed_cuda)
+from kaito_tpu_torch.engine.ops.quant_matmul import quant_matmul_cuda
+
+logger = logging.getLogger(__name__)
+
+# the carry a window writes back into its inputs, in run_steps' order
+CARRY = ("last_tokens", "positions", "active", "left")
+
+# every kernel wrapper's launch counters: (wrapper, counter attributes)
+_COUNTERS = (
+    (paged_decode_attention_cuda, ("launches", "launches_q")),
+    (flash_prefill_attention_cuda, ("launches",)),
+    (flash_prefill_packed_cuda, ("launches",)),
+    (quant_matmul_cuda, ("launches_int8", "launches_int4", "launches_int8_pf",
+                         "launches_int4_pf", "launches_int8_wide",
+                         "launches_int4_wide")),
+)
+
+# CUgraphNodeType values (cuda.h) named in node counts
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def run_steps(step: Callable, K: int, tok, pos, page_tables, act, left, stop):
+    """K fused decode steps, the body of the JAX engine's decode scan:
+    ``step(tok, pos, page_tables, act) -> (next, logprob)`` runs the
+    model and samples; a row that emits a stop id or spends its budget
+    goes inactive, so it writes no more KV.  Returns the ``[K, S]``
+    (tokens, active before each step, logprobs) and the carry (tokens,
+    positions, active, left)."""
+    toks, acts, lps = [], [], []
+    for _ in range(K):
+        nxt, lp = step(tok, pos, page_tables, act)
+        nxt = torch.where(act, nxt, tok)
+        left = left - act.to(torch.int32)
+        # the stop matrix is -1 padded; token ids are >= 0
+        hit = (nxt[:, None] == stop).any(dim=1)
+        toks.append(nxt)
+        acts.append(act)
+        lps.append(lp)
+        pos = pos + act.to(torch.int32)
+        act = act & ~hit & (left > 0)
+        tok = nxt
+    return (torch.stack(toks), torch.stack(acts), torch.stack(lps)), \
+        (tok, pos, act, left)
+
+
+def launch_counts() -> dict[tuple, int]:
+    """Every kernel wrapper's launch counter, by (wrapper name, attribute)."""
+    return {(fn.__name__, a): getattr(fn, a) for fn, attrs in _COUNTERS
+            for a in attrs}
+
+
+def _add_launches(counts: dict[tuple, int], sign: int = 1) -> None:
+    for fn, attrs in _COUNTERS:
+        for a in attrs:
+            n = counts.get((fn.__name__, a), 0)
+            if n:
+                setattr(fn, a, getattr(fn, a) + sign * n)
+
+
+@functools.cache
+def _driver() -> ctypes.CDLL:
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    lib.cuGraphNodeGetType.restype = ctypes.c_int
+    return lib
+
+
+def graph_nodes(raw_graph: int) -> dict[str, int]:
+    """Node counts by type (kernel, memcpy, memset, other) of a captured
+    ``cudaGraph_t``, read through the CUDA driver."""
+    lib = _driver()
+    n = ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(raw_graph, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if lib.cuGraphGetNodes(raw_graph, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = collections.Counter({name: 0 for name in _NODE_TYPES.values()})
+    t = ctypes.c_int()
+    for node in nodes[:n.value]:
+        if lib.cuGraphNodeGetType(node, ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds[_NODE_TYPES.get(t.value, "other")] += 1
+    return dict(kinds)
+
+
+@dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    out: tuple                       # static [K, S] tokens, active, logprobs
+    launches: dict                   # wrapper launches one replay makes
+    nodes: dict                      # the graph's nodes by type
+
+
+class DecodeWindow:
+    """Static decode inputs and outputs, and the engine's captured
+    windows.
+
+    ``step(tok, pos, page_tables, act) -> (next, logprob)`` is one model
+    step with sampling (the engine's); ``batch`` rows, page tables of
+    ``pages_per_seq`` columns, a stop matrix of ``stop_width`` ids.
+    ``capture`` (a card only) captures each key once and replays it;
+    otherwise :meth:`run` runs the body eagerly.  ``counters`` (the
+    engine's) gains ``decode_graph_captures_total`` and
+    ``decode_graph_replays_total``."""
+
+    def __init__(self, step: Callable, batch: int, pages_per_seq: int,
+                 stop_width: int, device: torch.device, generator: torch.Generator,
+                 capture: bool, counters: dict):
+        if capture and device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a card, got {device}")
+        self.step, self.device, self.generator = step, device, generator
+        self.capture, self.counters = capture, counters
+        S = batch
+
+        def full(shape, dtype, fill):
+            return torch.full(shape, fill, dtype=dtype, device=device)
+
+        self.inputs = {
+            "last_tokens": full((S,), torch.int32, 0),
+            "positions": full((S,), torch.int32, 0),
+            "active": full((S,), torch.bool, False),
+            "left": full((S,), torch.int32, 0),
+            "page_tables": full((S, pages_per_seq), torch.int32, 0),
+            "stop": full((S, stop_width), torch.int32, -1),
+        }
+        self._cuda = device.type == "cuda"
+        self._stage = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=self._cuda)
+                       for k, v in self.inputs.items()}
+        self._staged: Optional[torch.cuda.Event] = None
+        self._eager: dict[int, tuple] = {}
+        self.graphs: dict[tuple, _Graph] = {}
+        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self._side = torch.cuda.Stream(device) if capture else None
+        self.pool_bytes = 0
+        counters.setdefault("decode_graph_captures_total", 0)
+        counters.setdefault("decode_graph_replays_total", 0)
+
+    def upload(self, arrays: dict[str, np.ndarray]) -> int:
+        """Copy host arrays into the named inputs, behind the stream's
+        earlier work (on the card through pinned staging, without
+        blocking the host); returns how many it copied."""
+        if not arrays:
+            return 0
+        if self._staged is not None:
+            self._staged.synchronize()      # the staging is free to rewrite
+        for name, a in arrays.items():
+            st = self._stage[name]
+            st.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            self.inputs[name].copy_(st, non_blocking=self._cuda)
+        if self._cuda:
+            self._staged = torch.cuda.Event()
+            self._staged.record(torch.cuda.current_stream(self.device))
+        return len(arrays)
+
+    def _outputs(self, K: int) -> tuple:
+        S = self.inputs["active"].shape[0]
+        return tuple(torch.empty((K, S), dtype=dt, device=self.device)
+                     for dt in (torch.int32, torch.bool, torch.float32))
+
+    def _body(self, K: int, out: tuple) -> None:
+        x = self.inputs
+        trace, carry = run_steps(self.step, K, x["last_tokens"], x["positions"],
+                                 x["page_tables"], x["active"], x["left"], x["stop"])
+        for o, t in zip(out, trace):
+            o.copy_(t)
+        for name, t in zip(CARRY, carry):
+            x[name].copy_(t)
+
+    def run(self, K: int, key: tuple) -> tuple:
+        """K decode steps from the inputs; the static ``[K, S]`` (tokens,
+        active, logprobs), valid until the next window of the same K and
+        ``key`` (the sampler's gates and the penalty state's liveness)."""
+        if not self.capture:
+            out = self._eager.get(K)
+            if out is None:
+                out = self._eager[K] = self._outputs(K)
+            self._body(K, out)
+            return out
+        g = self.graphs.get((K, key))
+        if g is None:
+            g = self.graphs[(K, key)] = self._capture(K, key)
+        g.graph.replay()
+        _add_launches(g.launches)
+        self.counters["decode_graph_replays_total"] += 1
+        return g.out
+
+    def _capture(self, K: int, key: tuple) -> _Graph:
+        dev, side = self.device, self._side
+        cur = torch.cuda.current_stream(dev)
+        out = self._outputs(K)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            active = self.inputs["active"].clone()
+            self.inputs["active"].zero_()
+            rng = self.generator.get_state()
+            self._body(K, out)                     # the warm-up
+            self.generator.set_state(rng)
+        # a graph the collector frees during capture (an engine dropped
+        # earlier) would invalidate it: collect now, not during capture
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(self.generator)
+        before = launch_counts()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                self._body(K, out)
+        finally:
+            if collecting:
+                gc.enable()
+        launches = {k: n - before[k] for k, n in launch_counts().items()
+                    if n != before[k]}
+        _add_launches(launches, -1)                # capture runs nothing
+        nodes = graph_nodes(graph.raw_cuda_graph())
+        graph.instantiate()
+        with torch.cuda.stream(side):
+            self.inputs["active"].copy_(active)
+        cur.wait_stream(side)
+        self.pool_bytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
+        self.counters["decode_graph_captures_total"] += 1
+        logger.info("captured decode window K=%d key=%s: %d kernel nodes (%s), "
+                    "wrapper kernels %s; decode graph pool %.1f MiB",
+                    K, key, nodes["kernel"], nodes, _named(launches),
+                    self.pool_bytes / 2**20)
+        return _Graph(graph, out, launches, nodes)
+
+    def stats(self) -> dict:
+        """Captures, replays, the pool's size and each graph's K, key,
+        node counts and wrapper kernels."""
+        return dict(
+            captures=self.counters["decode_graph_captures_total"],
+            replays=self.counters["decode_graph_replays_total"],
+            pool_bytes=self.pool_bytes,
+            graphs=[dict(K=K, key=repr(key), nodes=g.nodes,
+                         launches=_named(g.launches))
+                    for (K, key), g in self.graphs.items()])
+
+
+def _named(launches: dict) -> dict:
+    return {f"{fn}.{a}": n for (fn, a), n in launches.items()}
+
+
+class TraceReadback:
+    """Host copies of one window's ``[K, S]`` trace: enqueued right after
+    the window (into pinned memory on the card), with an event that
+    :meth:`wait` waits on, never the whole device."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self.host: Optional[tuple] = None
+        self.event: Optional[torch.cuda.Event] = None
+        self.K = 0
+
+    def enqueue(self, out: tuple) -> None:
+        K = out[0].shape[0]
+        if self.host is None or self.host[0].shape[0] < K:
+            self.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=self._cuda)
+                              for t in out)
+        for h, t in zip(self.host, out):
+            h[:K].copy_(t, non_blocking=self._cuda)
+        if self._cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+        self.K = K
+
+    def wait(self) -> tuple:
+        """The trace as numpy views of the host copies (valid until the
+        next :meth:`enqueue`)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return tuple(h[:self.K].numpy() for h in self.host)

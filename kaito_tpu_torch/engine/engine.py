@@ -16,7 +16,16 @@ Counterpart of the synchronous core of ``kaito_tpu.engine.engine``:
   far becomes part of its prompt on resume).
 - Steady-state decode fuses up to ``decode_run_ahead`` steps into one
   window: sampling, stop detection and per-slot budgets stay on the
-  device, and the host reads the window's tokens back once.
+  device, and the host reads the window's tokens back once.  A window
+  runs over static device buffers (``decode_graph.DecodeWindow``): on
+  one card each window shape is captured once and replayed as one CUDA
+  graph, the counterpart of the JAX engine's jitted ``decode_step`` /
+  ``decode_multi``; a tensor-parallel engine runs the same window
+  eagerly.
+- ``async_dispatch`` (the zero-bubble loop): window N+1 is dispatched
+  from window N's final carry, still on the device, while the host
+  replays window N's trace; any host-side batch change drains the
+  pipeline first.
 
 Weight quantization (``quantization`` int8 / int4), the int8 KV cache
 (``kv_dtype="int8"``) and tensor parallelism (``tensor_parallel``, with
@@ -25,7 +34,7 @@ tensor-parallel engine is one process driving every device of its mesh
 (``parallel.mesh``): an explicit ``mesh=`` may place several shards on
 one device; without one, ``tensor_parallel=n`` takes the first n cards.
 Not ported yet, and rejected at construction with the ROADMAP item that
-carries them: async dispatch, speculation, adapters, pipeline, data,
+carries them: speculation, adapters, pipeline, data,
 sequence and expert parallelism, the KV pool, host offload and P/D, the
 device profiler, QoS, deadlines and the ITL/flight recorders.
 Prefix caching (on by default) runs as the JAX engine does when its
@@ -48,6 +57,8 @@ import torch
 
 from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine.config import EngineConfig
+from kaito_tpu_torch.engine.decode_graph import (DecodeWindow, TraceReadback,
+                                                 run_steps)
 from kaito_tpu_torch.engine.kv_cache import (NULL_PAGE, create_kv_cache,
                                              create_sharded_kv_cache,
                                              kv_bytes, kv_cache_is_quantized,
@@ -69,10 +80,11 @@ logger = logging.getLogger(__name__)
 _STOP_WIDTH = 8
 # fused decode steps per window when decode_run_ahead is None on CUDA:
 # the smallest window whose single-stream decode rate beat single steps
-# by more than the rates' interquartile range on an H100
-# (chip_smoke.py --sweep-run-ahead, PERF.md).  A window of K delivers
-# tokens in bursts of K, which PERF.md weighs.  The CPU uses 1
-AUTO_RUN_AHEAD_CUDA = 2
+# by more than the rates' interquartile range on an H100, with each
+# window a replayed CUDA graph (chip_smoke.py --sweep-run-ahead,
+# PERF.md).  A window of K delivers tokens in bursts of K, which PERF.md
+# weighs.  The CPU uses 1
+AUTO_RUN_AHEAD_CUDA = 4
 # device memory the page pool leaves free for activations and scratch
 _RESERVE_FRACTION = 0.08
 _RESERVE_MIN_BYTES = 4 << 30
@@ -82,7 +94,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 # (config field, value counts as "on", ROADMAP item that ports it)
 _UNPORTED = (
-    ("async_dispatch", bool, "queue 1, M13 async dispatch"),
     ("speculative_ngram", bool, "queue 1, M14 speculation"),
     ("speculative_draft", bool, "queue 1, M14 speculation"),
     ("adapters_dir", bool, "queue 1, M16 multi-LoRA"),
@@ -111,6 +122,33 @@ def check_ported(cfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={getattr(cfg, name)!r} is not ported to "
                 f"kaito_tpu_torch yet (ROADMAP {item})")
+
+
+def resolve_async_dispatch(cfg: EngineConfig) -> bool:
+    """The async decode dispatch gate: ``cfg.async_dispatch``; None
+    follows KAITO_ASYNC_DISPATCH ("1" or "true"), off when unset."""
+    if cfg.async_dispatch is not None:
+        return bool(cfg.async_dispatch)
+    return os.environ.get("KAITO_ASYNC_DISPATCH", "") in ("1", "true")
+
+
+class Histogram:
+    """Observations counted per bucket (upper bounds, then +Inf), with
+    their sum: what a Prometheus histogram holds, which /metrics exposes
+    once it is ported (ROADMAP item 27)."""
+
+    def __init__(self, buckets: tuple):
+        self.buckets = tuple(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, v: float) -> None:
+        i = next((j for j, b in enumerate(self.buckets) if v <= b),
+                 len(self.buckets))
+        self.counts[i] += 1
+        self.sum += v
+        self.count += 1
 
 
 def check_quantization(cfg: EngineConfig, md: ModelMetadata) -> None:
@@ -257,14 +295,32 @@ class InferenceEngine:
     the model is a :class:`TensorParallelLM`, the cache a list of
     per-shard pools, and ``device`` is the mesh's first device, where
     logits are gathered and sampled.
+
+    Decode windows run through a :class:`DecodeWindow`, captured as CUDA
+    graphs on one card.  ``_eager_decode`` (for tests and the card's
+    smoke run, as their reference) runs the synchronous loop op by op
+    from fresh tensors instead.
     """
+
+    # Loop state the async pipeline keeps on the device.  The scan-
+    # advanced fields lag on the host while a window is in flight, so a
+    # dirty mark on them drains the pipeline before they are uploaded
+    # (uploading a stale mirror would roll the device state back);
+    # page_tables is written by the host alone and safe to upload.
+    _STATE_FIELDS = ("last_tokens", "positions", "active", "page_tables", "left")
+    _DEVICE_ADVANCED = frozenset(("last_tokens", "positions", "active", "left"))
 
     def __init__(self, cfg: EngineConfig,
                  metadata: Optional[ModelMetadata] = None,
                  params: Optional[dict] = None,
                  device: str | torch.device = "cuda",
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 _eager_decode: bool = False):
         check_ported(cfg)
+        self.async_dispatch = resolve_async_dispatch(cfg)
+        if self.async_dispatch and _eager_decode:
+            raise ValueError("the eager reference decode loop is synchronous; "
+                             "async_dispatch needs the decode window")
         self.mesh = resolve_mesh(cfg, mesh, device)
         self.device = (self.mesh.devices[0] if self.mesh is not None
                        else resolve_device(device))
@@ -379,6 +435,36 @@ class InferenceEngine:
             ra = AUTO_RUN_AHEAD_CUDA if self.device.type == "cuda" else 1
         self.run_ahead = max(1, int(ra))
 
+        self.window: Optional[DecodeWindow] = None
+        if not _eager_decode:
+            capture = self.mesh is None and self.device.type == "cuda"
+            self.window = DecodeWindow(self._decode_step, S, self.pages_per_seq,
+                                       _STOP_WIDTH, self.device,
+                                       self.sampling.generator, capture,
+                                       self.counters)
+            if self.mesh is not None:
+                logger.info("tensor parallel: decode windows run eagerly, not as "
+                            "CUDA graphs (ROADMAP item 35)")
+        # two host copies of window traces: one in flight, one retiring
+        self._readbacks = (TraceReadback(self.device), TraceReadback(self.device))
+        self._windows = 0
+        self._stop_epoch = -1
+        # the async pipeline (docs/decode-loop.md of the JAX package):
+        # fields to upload before the next dispatch, the window in
+        # flight (K, its readback), and the device-idle gap before each
+        # dispatch
+        self._dirty: set[str] = set(self._STATE_FIELDS)
+        self._inflight: Optional[tuple] = None
+        self._last_ready_t = 0.0
+        self.dispatch_gap_hist: Optional[Histogram] = None
+        if self.async_dispatch:
+            self.counters["h2d_uploads_total"] = 0
+            self.dispatch_gap_hist = Histogram(
+                (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                 0.05, 0.1, 0.25))
+            logger.info("async decode dispatch enabled (two-deep pipeline, "
+                        "device-resident loop state)")
+
     # ------------------------------------------------------------------
     # Construction helpers
     # ------------------------------------------------------------------
@@ -451,7 +537,12 @@ class InferenceEngine:
         raise ValueError(f"prompt length {n} exceeds largest bucket {self.buckets[-1]}")
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """``a`` on the engine's device; on the card through pinned
+        memory, so the copy does not block the host."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------------
     # Public API
@@ -547,6 +638,10 @@ class InferenceEngine:
         req.out.put(None)
 
     def _fail_all(self):
+        # a failure may leave a window in flight: forget it and upload
+        # every field from the (authoritative) host mirrors next time
+        self._inflight = None
+        self._mark_state_dirty()
         for i, slot in enumerate(self.slots):
             if slot.request is not None:
                 req = slot.request
@@ -567,6 +662,7 @@ class InferenceEngine:
         self.active[slot_idx] = False
         self._remaining[slot_idx] = 0
         self._batch_epoch += 1
+        self._mark_state_dirty("active", "left")
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -575,7 +671,10 @@ class InferenceEngine:
         Decode-priority: every iteration with active slots runs one
         decode window; prefill advances one budgeted round every
         ``prefill_interleave`` decode steps (every iteration when nothing
-        is decoding)."""
+        is decoding).  With ``async_dispatch`` the fused windows go
+        through the two-deep pipeline (:meth:`_step_async`)."""
+        if self.async_dispatch:
+            return self._step_async()
         # reserve BEFORE admitting: growth of running sequences must not
         # be starved by a fresh admission grabbing the last pages
         la = 1
@@ -643,6 +742,7 @@ class InferenceEngine:
         slot = self.slots[free_slot]
         self.page_tables[free_slot] = 0
         self.page_tables[free_slot, :len(pages)] = pages
+        self._mark_state_dirty("page_tables")
         slot.request = req
         slot.pages = list(pages)
         self._admit_seq += 1
@@ -852,7 +952,7 @@ class InferenceEngine:
         sub = self.sampling.select(idxs)
         counts = seen = None
         if self.token_counts is not None:
-            sel = torch.as_tensor(idxs, device=self.device)
+            sel = self._tensor(np.asarray(idxs, np.int64))
             counts, seen = self.token_counts[sel], self.prompt_seen[sel]
         tok = sample(logits, sub, counts, seen)
         lps = chosen_logprob(logits, tok)
@@ -874,6 +974,7 @@ class InferenceEngine:
         self.last_tokens[slot_idx] = first
         self._remaining[slot_idx] = slot.remaining
         self._batch_epoch += 1
+        self._mark_state_dirty("positions", "active", "last_tokens", "left")
         if req.first_token_time is None:
             req.first_token_time = time.monotonic()
         if req.params.has_penalties and self.token_counts is not None:
@@ -927,6 +1028,7 @@ class InferenceEngine:
                 if page is not None:
                     self.page_tables[i, len(slot.pages)] = page
                     slot.pages.append(page)
+                    self._mark_state_dirty("page_tables")
                     continue
                 victim = self._newest_slot()
                 if victim is None or victim == i:
@@ -935,6 +1037,9 @@ class InferenceEngine:
                 self._preempt_slot(victim)
 
     def _ensure_penalty_state(self):
+        """First penalized admission: allocate the [S, V] histogram and
+        prompt mask, kept for the engine's life (a captured window keeps
+        their pointers; their liveness keys new windows)."""
         if self.token_counts is None:
             S, V = len(self.slots), self.md.arch.vocab_size
             logger.info("allocating penalty state (%d x %d)", S, V)
@@ -948,10 +1053,10 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _decode_inputs(self, steps: int = 1):
-        """Device inputs of a window of ``steps`` decode steps.  The page
-        tables are cut to the columns the window's writes reach, so the
-        host copies only those (the decode kernel's grid does not depend
-        on the width)."""
+        """Device inputs of the eager reference loop's window of ``steps``
+        decode steps.  The page tables are cut to the columns the
+        window's writes reach, so the host copies only those (the decode
+        kernel's grid does not depend on the width)."""
         ps = self.cfg.page_size
         live = self.positions[self.active]
         hi = int(live.max()) + steps - 1 if live.size else 0
@@ -971,6 +1076,9 @@ class InferenceEngine:
         return nxt, lp
 
     def _decode_once(self):
+        if self.window is not None:
+            self._decode_window(1)
+            return
         tok, pos, pt, act = self._decode_inputs()
         nxt, lps = self._decode_step(tok, pos, pt, act)
         self.counters["decode_steps_total"] += 1
@@ -1030,19 +1138,24 @@ class InferenceEngine:
                 extra += max(0, self._pages_needed(slot, K) - len(slot.pages))
         return extra <= self.allocator.available
 
-    def _stop_matrix(self) -> torch.Tensor:
-        """Device [S, _STOP_WIDTH] stop ids (-1 padded), cached on the
-        batch epoch."""
-        epoch, dev = self._stop_cache
-        if epoch == self._batch_epoch and dev is not None:
-            return dev
+    def _stop_ids(self) -> np.ndarray:
+        """[S, _STOP_WIDTH] stop ids of the active slots, -1 padded (a
+        wider stop set takes single steps, whose host _emit stops it)."""
         stop = np.full((len(self.slots), _STOP_WIDTH), -1, np.int32)
         for i, slot in enumerate(self.slots):
             if slot.request is None or not self.active[i]:
                 continue
-            ids = sorted(self._stop_set(slot.request))
+            ids = sorted(self._stop_set(slot.request))[:_STOP_WIDTH]
             stop[i, :len(ids)] = ids
-        dev = self._tensor(stop)
+        return stop
+
+    def _stop_matrix(self) -> torch.Tensor:
+        """Device stop ids for the eager reference loop, cached on the
+        batch epoch."""
+        epoch, dev = self._stop_cache
+        if epoch == self._batch_epoch and dev is not None:
+            return dev
+        dev = self._tensor(self._stop_ids())
         self._stop_cache = (self._batch_epoch, dev)
         return dev
 
@@ -1051,26 +1164,170 @@ class InferenceEngine:
         budgets on the device (a slot that stops goes inactive and
         writes no more KV), one readback, then the host replays the
         window through the single-step _emit path."""
+        if self.window is not None:
+            self._decode_window(K)
+            return
         tok, pos, pt, act = self._decode_inputs(K)
-        left = self._tensor(self._remaining)
-        stop = self._stop_matrix()
-        toks, acts, lps = [], [], []
-        for _ in range(K):
-            nxt, lp = self._decode_step(tok, pos, pt, act)
-            nxt = torch.where(act, nxt, tok)
-            left = left - act.to(torch.int32)
-            hit = (nxt[:, None] == stop).any(dim=1)
-            toks.append(nxt)
-            acts.append(act)
-            lps.append(lp)
-            pos = pos + act.to(torch.int32)
-            act = act & ~hit & (left > 0)
-            tok = nxt
+        (toks, acts, lps), _ = run_steps(self._decode_step, K, tok, pos, pt, act,
+                                         self._tensor(self._remaining),
+                                         self._stop_matrix())
         self.counters["decode_steps_total"] += K
         self.counters["decode_windows_total"] += 1
-        self._replay_window(torch.stack(toks).cpu().numpy(),
-                            torch.stack(acts).cpu().numpy(),
-                            torch.stack(lps).cpu().numpy())
+        self._replay_window(toks.cpu().numpy(), acts.cpu().numpy(),
+                            lps.cpu().numpy())
+
+    # ------------------------------------------------------------------
+    # The decode window, synchronous and async
+    # ------------------------------------------------------------------
+
+    def _host_state(self, name: str) -> np.ndarray:
+        return {"last_tokens": self.last_tokens, "positions": self.positions,
+                "active": self.active, "page_tables": self.page_tables,
+                "left": self._remaining}[name]
+
+    def _dispatch(self, K: int, fields) -> tuple:
+        """Upload ``fields`` of the loop state (and the stop matrix and
+        sampling knobs where they changed), run one K-step window and
+        enqueue its trace's readback.  Returns the window (K, readback)
+        and how many host-to-device copies it made."""
+        w = self.window
+        n = w.upload({f: self._host_state(f) for f in fields})
+        if self._stop_epoch != self._batch_epoch:
+            n += w.upload({"stop": self._stop_ids()})
+            self._stop_epoch = self._batch_epoch
+        n += int(self.sampling.refresh())
+        out = w.run(K, (self.sampling.gates(), self.token_counts is not None))
+        rb = self._readbacks[self._windows % 2]
+        self._windows += 1
+        rb.enqueue(out)
+        self.counters["decode_steps_total"] += K
+        self.counters["decode_windows_total"] += 1
+        return (K, rb), n
+
+    def _decode_window(self, K: int) -> None:
+        """The synchronous loop's window: every field from the host
+        mirrors, then the trace replayed on the host."""
+        win, _ = self._dispatch(K, self._STATE_FIELDS)
+        self._retire_window(win)
+
+    def _retire_window(self, win) -> None:
+        """Wait for a window's readback (its event, not the device) and
+        replay its trace through _emit."""
+        _, rb = win
+        toks, acts, lps = rb.wait()
+        self._last_ready_t = time.monotonic()
+        self._replay_window(toks, acts, lps)
+
+    def _mark_state_dirty(self, *names: str) -> None:
+        """The host changed loop-state mirrors: upload them at the next
+        async dispatch (no-op when the async loop is off).  With no
+        names, every field."""
+        if self.async_dispatch:
+            self._dirty.update(names or self._STATE_FIELDS)
+
+    def _drain_pipeline(self) -> None:
+        """Retire the window in flight, if any: the host mirrors are then
+        reconciled, and paths that read them (preempt, evict, abort,
+        admission) are safe."""
+        win, self._inflight = self._inflight, None
+        if win is not None:
+            self._retire_window(win)
+
+    def _must_drain(self) -> bool:
+        """Host-side batch changes that may run this step: an admission
+        (waiting work and a free slot), a slot mid-prefill (its
+        _begin_decode writes loop state), or a pending abort."""
+        if self._inflight is None:
+            return False
+        if self.num_waiting > 0 and any(s.request is None for s in self.slots):
+            return True
+        return any(s.request is not None and (s.prefilling or s.request.aborted)
+                   for s in self.slots)
+
+    def _needs_sync_decode(self) -> bool:
+        """What only the single-step host loop handles: a pending abort
+        and a stop set wider than the device matrix."""
+        for i, s in enumerate(self.slots):
+            if s.request is None:
+                continue
+            if s.request.aborted:
+                return True
+            if self.active[i] and len(self._stop_set(s.request)) > _STOP_WIDTH:
+                return True
+        return False
+
+    def _decode_async(self, K: int) -> None:
+        """Dispatch one K-step window from the device-resident loop state
+        (uploading only what the host dirtied) and enqueue its readback;
+        then retire the previous window, which the device has finished
+        or is finishing while this one queues behind it."""
+        if self._inflight is not None and self._dirty & self._DEVICE_ADVANCED:
+            # the host mirrors of scan-advanced fields lag the window in
+            # flight: uploading them now would roll the device state back
+            self._drain_pipeline()
+        fields = [f for f in self._STATE_FIELDS if f in self._dirty]
+        self._dirty.clear()
+        t = time.monotonic()
+        # the device idles only when nothing was in flight
+        gap = (max(0.0, t - self._last_ready_t)
+               if self._inflight is None and self._last_ready_t else 0.0)
+        win, uploads = self._dispatch(K, fields)
+        self.counters["h2d_uploads_total"] += uploads
+        self.dispatch_gap_hist.observe(gap)
+        prev, self._inflight = self._inflight, win
+        if prev is not None:
+            self._retire_window(prev)
+
+    def _step_async(self) -> bool:
+        """The async twin of :meth:`step`: the same decode-priority
+        schedule, but fused windows go through the two-deep pipeline, and
+        the host replays window N while window N+1 runs."""
+        if self._must_drain():
+            self._drain_pipeline()
+        pend = self._inflight[0] if self._inflight is not None else 0
+        la = 1
+        if self.active.any():
+            la = self._decode_lookahead()
+            if pend and not self._lookahead_fits(la + pend):
+                # the reservation must also cover the window in flight;
+                # when the pool cannot, drain so preemption is safe
+                self._drain_pipeline()
+                pend = 0
+            self._ensure_decode_pages(la + pend)
+        did = self._admit_new()
+        decoding = bool(self.active.any())
+        steps_run = 0
+        if decoding:
+            if self._needs_sync_decode():
+                self._drain_pipeline()
+                self._decode_once()
+                self._mark_state_dirty()
+                steps_run = 1
+            elif self.active.any():
+                la2 = self._decode_lookahead()
+                pend = self._inflight[0] if self._inflight is not None else 0
+                while la2 > 1 and not self._lookahead_fits(la2 + pend):
+                    la2 //= 2
+                if pend and not self._lookahead_fits(la2 + pend):
+                    self._drain_pipeline()
+                    pend = 0
+                if did or la2 + pend > la:
+                    self._ensure_decode_pages(la2 + pend)
+                self._decode_async(la2)
+                steps_run = la2
+            did = True
+        elif self._inflight is not None:
+            # nothing active on the host: the trailing window may still
+            # hold final tokens
+            self._drain_pipeline()
+            did = True
+        self._decode_since_prefill += steps_run
+        if (not decoding) or self.cfg.prefill_interleave <= 1 \
+                or self._decode_since_prefill >= self.cfg.prefill_interleave:
+            if self._advance_prefills():
+                did = True
+                self._decode_since_prefill = 0
+        return did
 
     def _replay_window(self, toks, acts, lps):
         """Replay a window's [K, S] trace through _emit (stop handling,

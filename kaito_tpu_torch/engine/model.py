@@ -270,6 +270,11 @@ class TransformerLM(tnn.Module):
         self._inv_freq_global = nn.rope_frequencies(arch, self.device)
         self._rope_mscale = nn.rope_attention_factor(arch)
         self._inv_freq_local = self._inv_freq_global
+        # the embedding multiplier as a device scalar, made once: a copy
+        # from the host per call would block and could not be captured
+        self._embed_scale = (torch.tensor(arch.embedding_multiplier, dtype=dtype,
+                                          device=self.device)
+                             if arch.embedding_multiplier else None)
         if arch.sliding_window_pattern and arch.sliding_window:
             # gemma-3 sliding layers use unscaled theta=10k rope
             local = replace(arch, rope_theta=10000.0, rope_scaling=None)
@@ -613,9 +618,8 @@ class TransformerLM(tnn.Module):
 
     def _embed(self, tokens):
         x = self.top["embed"][tokens.long()].to(self.dtype)
-        if self.arch.embedding_multiplier:
-            x = x * torch.tensor(self.arch.embedding_multiplier,
-                                 dtype=self.dtype, device=x.device)
+        if self._embed_scale is not None:
+            x = x * self._embed_scale
         return x
 
     def _logits_local(self, x2):

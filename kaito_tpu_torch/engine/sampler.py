@@ -3,13 +3,15 @@ presence, frequency and repetition penalties, batched over slots.
 
 Counterpart of ``kaito_tpu.engine.sampler``.  Per-slot knobs live in a
 :class:`SamplingState`: host numpy arrays (the engine sets them at
-admission) mirrored on the device.  The gates that decide which masking
-passes run — any random row, any top-k/top-p row, any min-p row — read
-the host arrays, so a fused multi-step decode window never waits on the
-device to decide them.  Random draws come from one ``torch.Generator``
-per engine (Gumbel-max over the masked logits); they are not the JAX
-package's threefry draws, so sampled tokens are compared by
-distribution, never token for token.
+admission) mirrored on the device in one buffer per knob, kept for the
+state's life and refreshed in place, so a captured decode graph keeps
+reading them.  The gates that decide which passes run — any random row,
+any top-k/top-p row, any min-p row, any penalty (:meth:`SamplingState.gates`)
+— read the host arrays, so a fused multi-step decode window never waits
+on the device to decide them, and a captured window is keyed by them.
+Random draws come from one ``torch.Generator`` per engine (Gumbel-max
+over the masked logits); they are not the JAX package's threefry draws,
+so sampled tokens are compared by distribution, never token for token.
 """
 
 from __future__ import annotations
@@ -26,11 +28,17 @@ _FIELDS = ("temperature", "top_k", "top_p", "presence", "frequency",
            "repetition", "min_p")
 _NEUTRAL = {"temperature": 0.0, "top_k": 0, "top_p": 1.0, "presence": 0.0,
             "frequency": 0.0, "repetition": 1.0, "min_p": 0.0}
+_TORCH = {np.int32: torch.int32, np.float32: torch.float32}
 
 
 @dataclass
 class SamplingState:
-    """Per-slot sampling knobs, shape [B], plus the engine's generator."""
+    """Per-slot sampling knobs, shape [B], plus the engine's generator.
+
+    The host arrays are authoritative; :meth:`set_slot` and
+    :meth:`reset_slot` mark the device mirrors stale and :meth:`refresh`
+    copies every knob into its buffer (through pinned staging on the
+    card), which :meth:`dev` does on first use after a change."""
 
     temperature: np.ndarray   # 0 => greedy
     top_k: np.ndarray         # 0 => disabled
@@ -42,6 +50,9 @@ class SamplingState:
     generator: torch.Generator
     device: torch.device
     _dev: dict = field(default_factory=dict, repr=False)
+    _stage: dict = field(default_factory=dict, repr=False)
+    _copied: Optional[torch.cuda.Event] = field(default=None, repr=False)
+    _stale: bool = field(default=True, repr=False)
 
     @staticmethod
     def create(batch: int, seed: int = 0,
@@ -61,7 +72,7 @@ class SamplingState:
         """Greedy/no-mask/no-penalty row (retirement)."""
         for f in _FIELDS:
             getattr(self, f)[i] = _NEUTRAL[f]
-        self._dev.clear()
+        self._stale = True
 
     def set_slot(self, i: int, *, temperature: float, top_k: int,
                  top_p: float, presence: float = 0.0, frequency: float = 0.0,
@@ -71,7 +82,7 @@ class SamplingState:
                     repetition=repetition, min_p=min_p)
         for f, v in vals.items():
             getattr(self, f)[i] = v
-        self._dev.clear()
+        self._stale = True
 
     def select(self, idxs) -> "SamplingState":
         """The rows ``idxs`` as a state of their own (same generator)."""
@@ -79,17 +90,53 @@ class SamplingState:
         return SamplingState(**{f: getattr(self, f)[idxs].copy() for f in _FIELDS},
                              generator=self.generator, device=self.device)
 
+    def refresh(self) -> bool:
+        """Copy the host knobs into the device buffers if a slot changed
+        since the last copy; True when it copied.  Raises under CUDA graph
+        capture: a captured copy would replay stale staging."""
+        if not self._stale:
+            return False
+        cuda = self.device.type == "cuda"
+        if cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("sampling knobs changed during CUDA graph capture; "
+                               "refresh them before capturing")
+        if self._copied is not None:
+            self._copied.synchronize()      # the staging is free to rewrite
+        for f in _FIELDS:
+            a = getattr(self, f)
+            if f not in self._dev:
+                self._dev[f] = torch.empty(a.shape, dtype=_TORCH[a.dtype.type],
+                                           device=self.device)
+                self._stage[f] = torch.empty(a.shape, dtype=_TORCH[a.dtype.type],
+                                             pin_memory=cuda)
+            self._stage[f].copy_(torch.from_numpy(a))
+            self._dev[f].copy_(self._stage[f], non_blocking=cuda)
+        if cuda:
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+        self._stale = False
+        return True
+
     def dev(self, name: str) -> torch.Tensor:
-        """Device copy of one knob, uploaded once per change."""
-        t = self._dev.get(name)
-        if t is None:
-            t = self._dev[name] = torch.from_numpy(getattr(self, name)).to(self.device)
-        return t
+        """The device buffer of one knob (the same tensor for the state's
+        life), refreshed first if a slot changed."""
+        self.refresh()
+        return self._dev[name]
 
     @property
     def any_penalty(self) -> bool:
         return bool(np.any((self.presence != 0.0) | (self.frequency != 0.0)
                            | (self.repetition != 1.0)))
+
+    def gates(self) -> tuple[bool, bool, bool, bool]:
+        """(any random row, any random top-k/top-p row, any random min-p
+        row, any penalty row): the host gates that decide which passes
+        :func:`sample` runs, and part of a captured window's key."""
+        rnd = self.temperature > 0.0
+        return (bool(rnd.any()),
+                bool(np.any(rnd & ((self.top_k > 0) | (self.top_p < 1.0)))),
+                bool(np.any(rnd & (self.min_p > 0.0))),
+                self.any_penalty)
 
 
 def chosen_logprob(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -148,17 +195,17 @@ def sample(logits: torch.Tensor, state: SamplingState, counts=None,
     prompt_seen: the optional [B, V] penalty state.  ``uniforms``
     ([B, V] in (0, 1)) replaces the generator's draws, so a test can
     feed the same noise to two implementations."""
+    random_row, topk_topp, min_p, _ = state.gates()
     if counts is not None and counts.shape == logits.shape:
         logits = apply_penalties(logits, state, counts, prompt_seen)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    random_row = state.temperature > 0.0
-    if not random_row.any():
+    if not random_row:
         return greedy
     temp = state.dev("temperature").clamp_min(1e-6)[:, None]
     scaled = logits / temp
-    if np.any(random_row & ((state.top_k > 0) | (state.top_p < 1.0))):
+    if topk_topp:
         scaled = _mask_topk_topp(scaled, state)
-    if np.any(random_row & (state.min_p > 0.0)):
+    if min_p:
         scaled = _mask_min_p(scaled, state)
     if uniforms is None:
         uniforms = torch.rand(scaled.shape, generator=state.generator,

@@ -14,6 +14,7 @@ pool, adapters, QoS and constrained decoding (``response_format`` and
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
 llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
+``--async-dispatch`` turns on the two-deep decode pipeline.
 ``--tensor-parallel-size N`` shards the model over the first N cards
 (``--comm-overlap`` adds the pipelined decode ring); a mesh that puts
 several shards on one device is built in Python
@@ -373,6 +374,12 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                          "all-reduce, plus layer-ahead prefetch of quantized "
                          "slabs (default: follow KAITO_COMM_OVERLAP, off when "
                          "unset)")
+    ap.add_argument("--async-dispatch", action="store_true", default=None,
+                    help="zero-bubble decode loop: device-resident loop state "
+                         "and a two-deep dispatch pipeline overlapping the "
+                         "host's postprocess with the device's next window "
+                         "(default: follow KAITO_ASYNC_DISPATCH, off when "
+                         "unset)")
     args = ap.parse_args(argv)
     cfg = EngineConfig(
         model=args.model, port=args.port, max_model_len=args.max_model_len,
@@ -385,7 +392,8 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         prefill_pack=args.prefill_pack, decode_run_ahead=args.decode_run_ahead,
         enable_prefix_caching=args.enable_prefix_caching,
         max_queue_len=args.max_queue_len, seed=args.seed,
-        tensor_parallel=args.tensor_parallel_size, comm_overlap=args.comm_overlap)
+        tensor_parallel=args.tensor_parallel_size, comm_overlap=args.comm_overlap,
+        async_dispatch=args.async_dispatch)
     return cfg, args
 
 

@@ -232,7 +232,6 @@ def test_submit_validates_input():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value,item", [
-    ("async_dispatch", True, "M13"),
     ("speculative_ngram", 3, "M14"),
     ("speculative_draft", "tiny-llama-test", "M14"),
     ("adapters_dir", "/nonexistent", "M16"),
