@@ -79,8 +79,8 @@ order; any failure exits non-zero and prints no result:
    decode window must have been a graph replay.  TTFT, decode tokens/s
    and the inter-token gaps of one sequence alone are printed beside the
    card, with the decode readings of one sequence: host launch and copy
-   calls and device kernels a decode step (profiled), the windows'
-   captures, graph pool and kernel nodes.  Then the server stops, the
+   calls a decode step and a window, device kernels a step (profiled),
+   the windows' captures, graph pool and kernel nodes.  Then the server stops, the
    engine greedily decodes a batch of four prompts step by step, and an
    engine with the eager reference loop (``_eager_decode``; same config,
    seed and weights) must emit the same tokens; its one-sequence tok/s,
@@ -1312,37 +1312,43 @@ def _api_calls(prof) -> dict:
 
 
 def _profiled_request(engine, prompt, n):
-    """(host launch and copy calls, device kernels, decode steps) of one
-    greedy request of ``n`` tokens straight to the serving engine."""
+    """(host launch and copy calls, device kernels, decode steps, decode
+    windows) of one greedy request of ``n`` tokens straight to the
+    serving engine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = engine.counters["decode_steps_total"]
+    c = engine.counters
+    steps0, windows0 = c["decode_steps_total"], c["decode_windows_total"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _timed_tokens(engine, prompt, n)
         torch.cuda.synchronize()
     kernels = sum(r[1] for r in _device_rows(prof))
-    return _api_calls(prof), kernels, engine.counters["decode_steps_total"] - steps0
+    return (_api_calls(prof), kernels, c["decode_steps_total"] - steps0,
+            c["decode_windows_total"] - windows0)
 
 
 def decode_readings(engine, prompt, label) -> dict:
     """One sequence's decode as the engine runs it: the host's launch
-    and copy calls and the device's kernels a decode step (a profiled
-    17-token request less a profiled 1-token one, over their 16 decode
-    steps), and, for a captured engine, its captures, graph pool and
-    each graph's kernel nodes."""
-    calls1, k1, s1 = _profiled_request(engine, prompt, 1)
-    calls17, k17, s17 = _profiled_request(engine, prompt, 17)
-    steps = max(s17 - s1, 1)
-    host = {k: (calls17.get(k, 0) - calls1.get(k, 0)) / steps
+    and copy calls a decode step and a decode window, and the device's
+    kernels a step (a profiled 17-token request less a profiled 1-token
+    one, over their 16 decode steps), and, for a captured engine, its
+    captures, graph pool and each graph's kernel nodes."""
+    calls1, k1, s1, w1 = _profiled_request(engine, prompt, 1)
+    calls17, k17, s17, w17 = _profiled_request(engine, prompt, 17)
+    steps, windows = max(s17 - s1, 1), max(w17 - w1, 1)
+    host = {k: calls17.get(k, 0) - calls1.get(k, 0)
             for k in set(calls1) | set(calls17)}
-    res = dict(host_calls_per_step=sum(host.values()),
-               host_calls_by_name={k: v for k, v in host.items() if v},
-               device_kernels_per_step=(k17 - k1) / steps, profiled_steps=steps)
+    res = dict(host_calls_per_step=sum(host.values()) / steps,
+               host_calls_per_window=sum(host.values()) / windows,
+               host_calls_by_name={k: v / steps for k, v in host.items() if v},
+               device_kernels_per_step=(k17 - k1) / steps, profiled_steps=steps,
+               profiled_windows=windows)
     msg = (f"{label}: a decode step (one sequence, run_ahead={engine.run_ahead}): "
            f"{res['host_calls_per_step']:.1f} host launch/copy calls "
            f"{res['host_calls_by_name']}, {res['device_kernels_per_step']:.1f} "
-           f"device kernels")
+           f"device kernels; {res['host_calls_per_window']:.1f} host calls a "
+           f"decode window ({steps} steps in {windows} windows)")
     if engine.window is not None and engine.window.capture:
         w = engine.window.stats()
         res.update(captures=w["captures"], replays=w["replays"],
