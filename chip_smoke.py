@@ -57,7 +57,13 @@ order; any failure exits non-zero and prints no result:
    of the weight that together exceed the 50 MB L2, as a decode step
    finds each weight cold; K6 is also timed by what its prefetch buys:
    the next layer's K4/K5 call right after K6, against the same call
-   right after a K4/K5 call without the prefetch.
+   right after a K4/K5 call without the prefetch.  At gpt-oss-20b's
+   attention shape (64 query heads over 8 KV heads, head_dim 64) K1 and
+   K1q run eight sequences with a global window and with its window of
+   128, and K2 and K3 a 512-token chunk with the same two windows, each
+   against its plain version (bf16 and fp32) and timed in bf16 beside
+   SDPA (a boolean mask where a window cuts it) and the bound, which
+   counts only the keys the window keeps; K1's plan there is logged.
 3. Goldens: ``tiny-llama-real`` in fp32 through the port's engine on the
    card must reproduce the ``fp32``, ``int8``, ``weight_int4`` and
    ``kv_int8`` sections of ``tests/testdata/goldens_tiny-llama-real.json``
@@ -68,7 +74,9 @@ order; any failure exits non-zero and prints no result:
    comm-overlap ring off and on, and fp32 at TP=2 with the ring through
    the async loop, on a mesh of the first cards or, on a one-card
    machine, of slots that all map onto that card (windows at TP >= 2 run
-   eagerly).
+   eagerly).  Then the MoE checkpoint ``tiny-moe-real``: its four
+   sections (``tests/testdata/goldens_tiny-moe-real.json``) through
+   captured windows, and ``fp32`` through the async loop.
 4. Full width: the port's HTTP server serves ``llama-3.1-8b-instruct``
    (all 32 layers, bf16, synthetic weights from seed 0): one completion,
    one streamed chat, then four concurrent 100-400-token prompts (a
@@ -100,6 +108,12 @@ order; any failure exits non-zero and prints no result:
    5 (K6 int4, K5, K1q, K2 and K3 must launch), then int8 weights with
    bf16 KV without the burst (K6 int8 and K1).  On one card a ring hop
    moves nothing, so these legs time no transfer.
+7. MoE, full width (leg ``moe-bf16``), after the card is released from
+   the llama legs: the server serves ``gpt-oss-20b`` (all 24 layers,
+   32 experts, top-4, bf16, synthetic weights from seed 0) with the
+   request mix of phase 4; K1, K2 and K3 must launch, every decode window
+   must be a graph replay (its expert products in the grouped form), and
+   the greedy batch must equal the eager loop's, as in phase 4.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -109,7 +123,7 @@ phase 3 and every server leg after phase 4's bf16 one (with
 ``--profile``, the quickest reading of TTFT and prefill device time)
 and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
-``tp2-int8``), which
+``tp2-int8``, ``moe-bf16``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -252,8 +266,9 @@ def _path_pages_per_seq() -> int:
                         max_model_len=min(md.max_model_len, 8192)).pages_per_seq
 
 
-def _decode_case(torch, dtype, lengths, window, softcap, gen, pmax):
-    B, H, Hkv, D, ps, L = len(lengths), 32, 8, 128, 64, 2
+def _decode_case(torch, dtype, lengths, window, softcap, gen, pmax, H=32, Hkv=8,
+                 D=128):
+    B, ps, L = len(lengths), 64, 2
     P = B * pmax + 57
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
     ck = torch.randn(L, P, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
@@ -285,7 +300,7 @@ def _time_decode(torch, args, kw, label):
     from kaito_tpu_torch.engine.ops.decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_plain)
 
-    q, ck, cv, pt, lens, _ = args
+    q, ck, cv, pt, lens, window = args
     B, H, D = q.shape
     Hkv, ps = ck.shape[3], ck.shape[2]
     quant = kw.get("k_scale") is not None
@@ -302,19 +317,22 @@ def _time_decode(torch, args, kw, label):
         return x.to(q.dtype).reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
 
     kg, vg = gathered(ck, kw.get("k_scale")), gathered(cv, kw.get("v_scale"))
-    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())
+    key = torch.arange(S, device="cuda")[None, :]
+    mask = (key < lens[:, None].long()) & (key >= lens[:, None].long() - window)
     mask = mask[:, None, None, :]
     qs = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask,
                                       scale=kw["scale"], enable_gqa=True))[0]
-    live = int(lens.sum())
+    # the keys this run attends over: a window keeps the last ``window``
+    live = int(lens.clamp(max=window).sum())
     el = q.element_size()
     nbytes = 2 * B * H * D * el + 2 * live * Hkv * D * ck.element_size() \
         + pt.numel() * 4 + B * 4
     if quant:
         # the fp32 k and v scales of every live page and KV head
-        nbytes += 2 * sum(-(-int(n) // ps) for n in lens.tolist()) * Hkv * 4
+        nbytes += 2 * sum(-(-min(int(n), window) // ps) for n in lens.tolist()) \
+            * Hkv * 4
     b_ms, b_by = bound(nbytes, 4.0 * live * H * D)
     log(f"{'K1q' if quant else 'K1'} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, "
         f"SDPA {library_ms:.4f}, bound {b_ms:.5f} by {b_by}; host {host_ms:.4f} ms "
@@ -555,6 +573,64 @@ def check_decode(torch, records, build_logs):
         plain_ms=tq["plain_ms"], bound_ms=tq["bound_ms"], bound_by=tq["bound_by"],
         library_ms=tq["library_ms"], host_ms=tq["host_ms"], n_split=plan.n_split,
         ctas=plan.ctas, cases=timed_q)
+    check_decode_gpt_oss(torch, records, sms, gen, full)
+
+
+# gpt-oss-20b's attention: 64 query heads over 8 KV heads, head_dim 64; a
+# window of 128 tokens on every other layer
+GPT_OSS_HEADS = dict(H=64, Hkv=8, D=64)
+
+
+def check_decode_gpt_oss(torch, records, sms, gen, full):
+    """K1 and K1q at gpt-oss-20b's decode shape (8 query heads per KV
+    head at head_dim 64), global and with its window of 128, against
+    their plain versions in bf16 and fp32; timed in bf16 beside SDPA and
+    the bound.  Kept in the K1 and K1q records under ``gpt_oss_20b``."""
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        decode_plan, paged_decode_attention_cuda, paged_decode_attention_plain)
+
+    B = len(K1_LENGTHS)
+    plan = decode_plan(B, **GPT_OSS_HEADS, sms=sms)
+    log(f"K1/K1q plan, B={B} H=64 Hkv=8 D=64 on {sms} SMs: n_split {plan.n_split}, "
+        f"{plan.ctas} CTAs, {plan.scratch_floats} scratch floats")
+    err = {("K1", torch.bfloat16): 0.0, ("K1", torch.float32): 0.0,
+           ("K1q", torch.bfloat16): 0.0, ("K1q", torch.float32): 0.0}
+    timed = {"K1": [], "K1q": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (BIG, 128):
+            args, kw = _decode_case(torch, dtype, K1_LENGTHS, window, None, gen, full,
+                                    **GPT_OSS_HEADS)
+            out = paged_decode_attention_cuda(*args, **kw)
+            ref = paged_decode_attention_plain(*args, **kw)
+            q, ck, cv, pt, lens, win = args
+            (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
+            qargs, qkw = (q, k8, v8, pt, lens, win), dict(kw, k_scale=ks, v_scale=vs)
+            outq = paged_decode_attention_cuda(*qargs, **qkw)
+            refq = paged_decode_attention_plain(*qargs, **qkw).float()
+            torch.cuda.synchronize()
+            e = max(_decode_errs(out, ref))
+            eq = _seq_rel_err(outq, refq)
+            err["K1", dtype] = max(err["K1", dtype], e)
+            err["K1q", dtype] = max(err["K1q", dtype], eq)
+            log(f"K1/K1q {dtype} H=64 Hkv=8 D=64 window={window}: K1 max err "
+                f"(absolute or per sequence) {e:.3g} / K1q per sequence relative "
+                f"{eq:.3g}")
+            if dtype == torch.bfloat16:
+                label = f"gpt-oss-20b B=8 H=64 Hkv=8 D=64 window {window}"
+                timed["K1"].append(_time_decode(torch, args, kw, label))
+                timed["K1q"].append(_time_decode(torch, qargs, qkw, label))
+            del args, ck, cv, k8, v8
+    for name in ("K1", "K1q"):
+        bad = {str(d): err[name, d] for d in (torch.bfloat16, torch.float32)}
+        if err[name, torch.bfloat16] > BF16_ATOL or err[name, torch.float32] > FP32_ATOL:
+            raise SmokeFailure(f"{name} at gpt-oss-20b's shape disagrees with its "
+                               f"plain version: {bad}")
+        rec = records["paged_decode_attention" if name == "K1"
+                      else "paged_decode_attention_int8kv"]
+        rec["gpt_oss_20b"] = dict(
+            shape=f"B=8 H=64 Hkv=8 D=64 ps=64 lengths<=2048 table width {full} bf16",
+            max_err_bf16=err[name, torch.bfloat16], max_err_fp32=err[name, torch.float32],
+            n_split=plan.n_split, ctas=plan.ctas, cases=timed[name])
 
 
 # projection shapes of Llama-3.1-8B, [K, N]
@@ -919,9 +995,15 @@ FLASH_PACKED = {512: (100, 150, 120, 90),          # 460 tokens + 52 pad
 SHORT_SEGMENTS = (1, 2, 3) * 20 + (1, 3, 170) + (2,) * 10
 
 
-def _time_flash(torch, T, gen, scale):
-    """K2 and K3 bf16 at B=1, T, H=32, Hkv=8, D=128: the kernel, the plain
-    version, one SDPA call for the same function, and the bound."""
+def _attended(n: int, window: int) -> int:
+    """Query-key pairs of a causal prompt of ``n`` tokens under a window."""
+    return sum(min(i + 1, window) for i in range(n))
+
+
+def _time_flash(torch, T, gen, scale, H=32, Hkv=8, D=128, window=BIG):
+    """K2 and K3 bf16 at B=1, T, H, Hkv, D and ``window``: the kernel, the
+    plain version, one SDPA call for the same function (causal, or a
+    boolean mask where a window or segments cut it), and the bound."""
     from kaito_tpu_torch.engine.ops.flash_prefill import (
         flash_prefill_attention_cuda, flash_prefill_attention_plain,
         flash_prefill_packed_cuda, flash_prefill_packed_plain)
@@ -929,33 +1011,39 @@ def _time_flash(torch, T, gen, scale):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     seg_lens = FLASH_PACKED[T]
     segs, poss = _packed_layout(torch, T, seg_lens)
-    q, k, v = _flash_inputs(torch, torch.bfloat16, T, gen)
-    H, D = q.shape[2], q.shape[3]
+    q, k, v = _flash_inputs(torch, torch.bfloat16, T, gen, H=H, Hkv=Hkv, D=D)
     tl = torch.tensor([T], dtype=torch.int32, device="cuda")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     io_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    ms2, host2 = time_ms(lambda: flash_prefill_attention_cuda(q, k, v, tl, BIG,
+    ms2, host2 = time_ms(lambda: flash_prefill_attention_cuda(q, k, v, tl, window,
                                                              scale=scale))
-    plain2 = time_ms(lambda: flash_prefill_attention_plain(q, k, v, tl, BIG,
+    plain2 = time_ms(lambda: flash_prefill_attention_plain(q, k, v, tl, window,
                                                            scale=scale), iters=5)[0]
-    lib2 = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale,
-                                enable_gqa=True))[0]
-    b2, by2 = bound(io_bytes + 4, 4.0 * H * D * T * (T + 1) / 2)
-    ms3, host3 = time_ms(lambda: flash_prefill_packed_cuda(q, k, v, segs, poss, BIG,
-                                                           scale=scale))
-    plain3 = time_ms(lambda: flash_prefill_packed_plain(q, k, v, segs, poss, BIG,
+    rows = torch.arange(T, device="cuda")
+    if window >= BIG:
+        lib2 = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale,
+                                    enable_gqa=True))[0]
+    else:
+        wmask = ((rows[None, :] <= rows[:, None])
+                 & (rows[:, None] - rows[None, :] < window))[None, None]
+        lib2 = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=wmask, scale=scale,
+                                    enable_gqa=True))[0]
+    b2, by2 = bound(io_bytes + 4, 4.0 * H * D * _attended(T, window))
+    ms3, host3 = time_ms(lambda: flash_prefill_packed_cuda(q, k, v, segs, poss,
+                                                           window, scale=scale))
+    plain3 = time_ms(lambda: flash_prefill_packed_plain(q, k, v, segs, poss, window,
                                                         scale=scale), iters=5)[0]
     sq, sk = segs[0][:, None], segs[0][None, :]
     pq, pk = poss[0][:, None], poss[0][None, :]
-    mask = ((sq == sk) & (sq >= 0) & (pk <= pq))[None, None]
+    mask = ((sq == sk) & (sq >= 0) & (pk <= pq) & (pq - pk < window))[None, None]
     lib3 = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale,
                                 enable_gqa=True))[0]
     b3, by3 = bound(io_bytes + 2 * T * 4,
-                    sum(4.0 * H * D * n * (n + 1) / 2 for n in seg_lens))
-    log(f"T={T} bf16: K2 {ms2:.4f} ms (plain {plain2:.4f}, SDPA causal "
-        f"{lib2:.4f}, bound {b2:.5f} by {by2}); K3 segments {seg_lens} "
-        f"{ms3:.4f} ms (plain {plain3:.4f}, SDPA block mask {lib3:.4f}, bound "
-        f"{b3:.5f} by {by3})")
+                    sum(4.0 * H * D * _attended(n, window) for n in seg_lens))
+    log(f"T={T} H={H} Hkv={Hkv} D={D} window={window} bf16: K2 {ms2:.4f} ms "
+        f"(plain {plain2:.4f}, SDPA {lib2:.4f}, bound {b2:.5f} by {by2}); K3 "
+        f"segments {seg_lens} {ms3:.4f} ms (plain {plain3:.4f}, SDPA block mask "
+        f"{lib3:.4f}, bound {b3:.5f} by {by3})")
     return (dict(ms=ms2, host_ms=host2, plain_ms=plain2, library_ms=lib2,
                  bound_ms=b2, bound_by=by2),
             dict(ms=ms3, host_ms=host3, plain_ms=plain3, library_ms=lib3,
@@ -974,12 +1062,13 @@ def check_flash(torch, records):
     # (T, H, Hkv, D) x (true_len, window, softcap) for K2; the packed
     # layouts of K3 at each T
     shapes = ((512, 32, 8, 128), (256, 32, 8, 128), (200, 8, 2, 64),
-              (200, 32, 8, 128))
+              (200, 32, 8, 128), (512, 64, 8, 64))
     for dtype in (torch.bfloat16, torch.float32):
         for T, H, Hkv, D in shapes:
             scale = 1.0 / math.sqrt(D)
             for true_len, window, softcap in ((T, BIG, None), (T * 3 // 5, 128, None),
-                                              (T - 7, BIG, 30.0), (T, 32, None)):
+                                              (T - 7, BIG, 30.0), (T, 32, None),
+                                              (T, 128, None)):
                 q, k, v = _flash_inputs(torch, dtype, T, gen, H=H, Hkv=Hkv, D=D)
                 tl = torch.tensor([true_len], dtype=torch.int32, device="cuda")
                 out = flash_prefill_attention_cuda(q, k, v, tl, window, scale=scale,
@@ -998,7 +1087,7 @@ def check_flash(torch, records):
                 segs, poss = _packed_layout(torch, T, seg_lens)
                 valid = sum(seg_lens)
                 for window, softcap in ((BIG, None), (64, None), (BIG, 30.0),
-                                        (32, None)):
+                                        (32, None), (128, None)):
                     q, k, v = _flash_inputs(torch, dtype, T, gen, H=H, Hkv=Hkv, D=D)
                     out = flash_prefill_packed_cuda(q, k, v, segs, poss, window,
                                                     scale=scale, softcap=softcap)
@@ -1016,6 +1105,9 @@ def check_flash(torch, records):
     scale = 1.0 / math.sqrt(128)
     t512 = _time_flash(torch, 512, gen, scale)
     t256 = _time_flash(torch, 256, gen, scale)
+    # gpt-oss-20b's prefill: a 512-token chunk, window 128 and global
+    gpt_oss = [_time_flash(torch, 512, gen, 1.0 / math.sqrt(64), window=w,
+                           **GPT_OSS_HEADS) for w in (128, BIG)]
     for name, i, src_line, shape in (
             ("flash_prefill_attention", 0, 225,
              "B=1 T=512 H=32 Hkv=8 D=128 causal bf16"),
@@ -1027,7 +1119,9 @@ def check_flash(torch, records):
             replaces=f"kaito_tpu/engine/ops/flash_prefill.py:{src_line}",
             shape=shape, max_abs_err=err[torch.bfloat16],
             max_err_bf16=err[torch.bfloat16], max_err_fp32=err[torch.float32],
-            kernel_ms=t512[i]["ms"], t256=t256[i], **t512[i])
+            kernel_ms=t512[i]["ms"], t256=t256[i], **t512[i],
+            gpt_oss_20b=dict(shape="B=1 T=512 H=64 Hkv=8 D=64 bf16",
+                             window_128=gpt_oss[0][i], window_global=gpt_oss[1][i]))
     for name, err in (("K2", err2), ("K3", err3)):
         if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
             raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
@@ -1052,22 +1146,22 @@ def tp_mesh(torch, n, shared=False):
     return build_mesh(tensor=n, devices=["cuda:0"] * n)
 
 
-def check_goldens(section, tp=1, overlap=False, async_on=False):
-    """Replay one golden section; at ``tp`` > 1 on a :func:`tp_mesh`,
-    with the comm-overlap decode ring on or off; with ``async_on``
-    through the async decode loop.  At TP=1 the decode windows must run
-    as replayed CUDA graphs."""
+def check_goldens(section, tp=1, overlap=False, async_on=False,
+                  model="tiny-llama-real"):
+    """Replay one golden section of ``model``'s checkpoint; at ``tp`` > 1
+    on a :func:`tp_mesh`, with the comm-overlap decode ring on or off;
+    with ``async_on`` through the async decode loop.  At TP=1 the decode
+    windows must run as replayed CUDA graphs."""
     import torch
 
     from kaito_tpu_torch.engine.config import EngineConfig
     from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
 
     golden = json.load(open(os.path.join(
-        REPO, "tests", "testdata", "goldens_tiny-llama-real.json")))
+        REPO, "tests", "testdata", f"goldens_{model}.json")))
     quant, kv_dtype = GOLDEN_MODES[section]
-    cfg = EngineConfig(model="tiny-llama-real",
-                       weights_dir=os.path.join(REPO, "checkpoints",
-                                                "tiny-llama-real"),
+    cfg = EngineConfig(model=model,
+                       weights_dir=os.path.join(REPO, "checkpoints", model),
                        dtype="float32", kv_dtype=kv_dtype, max_model_len=512,
                        max_num_seqs=2, prefill_buckets=(64, 128),
                        enable_prefix_caching=False, quantization=quant, seed=0,
@@ -1088,13 +1182,13 @@ def check_goldens(section, tp=1, overlap=False, async_on=False):
                 logprobs=True))
             got = list(req.stream())
             if got != want:
-                raise SmokeFailure(f"{section} golden tokens differ for "
+                raise SmokeFailure(f"{model} {section} golden tokens differ for "
                                    f"{p['text']!r}: {got} != {want}")
             d = max(abs(a - b) for a, b in zip(req.output_logprobs,
                                                p[section]["logprobs"]))
             worst = max(worst, d)
             if d > 2e-3:
-                raise SmokeFailure(f"{section} golden logprobs off by {d:.3g} "
+                raise SmokeFailure(f"{model} {section} golden logprobs off by {d:.3g} "
                                    f"for {p['text']!r}")
     finally:
         eng.stop()
@@ -1105,7 +1199,8 @@ def check_goldens(section, tp=1, overlap=False, async_on=False):
     if tp == 1 and replays < eng.counters["decode_windows_total"]:
         raise SmokeFailure(f"{section}: {eng.counters['decode_windows_total']} decode "
                            f"windows but {replays} graph replays")
-    log(f"goldens {section} TP={tp} overlap={overlap} async={async_on}: "
+    moe = f", expert form {eng.model.moe_impl}" if eng.md.arch.num_experts else ""
+    log(f"goldens {model} {section} TP={tp} overlap={overlap} async={async_on}{moe}: "
         f"{len(golden['prompts'])} prompts exact, worst logprob diff {worst:.3g}; "
         f"{eng.counters['decode_graph_captures_total']} captures, {replays} replays")
     return worst
@@ -1195,8 +1290,8 @@ def _stream_chat(base, max_tokens):
 
 
 def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
-                     profile=False, tp=1, shared=False):
-    """Serve ``llama-3.1-8b-instruct`` at full width with the server's
+                     profile=False, tp=1, shared=False, model="llama-3.1-8b-instruct"):
+    """Serve ``model`` at full width with the server's
     command-line ``flags`` and drive the request mix (``burst=False``
     leaves out the concurrent burst).  At ``tp`` > 1 the engine is built
     on a :func:`tp_mesh` and handed to ``make_server``.  Returns the
@@ -1211,7 +1306,7 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
     from kaito_tpu_torch.engine.engine import InferenceEngine
     from kaito_tpu_torch.engine.server import make_server, parse_args
 
-    cfg, _ = parse_args(["--model", "llama-3.1-8b-instruct", "--dtype", "bfloat16",
+    cfg, _ = parse_args(["--model", model, "--dtype", "bfloat16",
                          "--max-num-seqs", "8", "--seed", "0", *flags])
     t0 = time.perf_counter()
     if tp > 1:
@@ -1226,9 +1321,11 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         server = make_server(None, cfg, host="127.0.0.1", port=0, device="cuda")
     engine = server.state.engine
     torch.cuda.synchronize()
-    log(f"{label}: 8B engine up in {time.perf_counter() - t0:.1f}s: "
+    moe = (f", expert form {engine.model.moe_impl}" if engine.md.arch.num_experts
+           else "")
+    log(f"{label}: {model} engine up in {time.perf_counter() - t0:.1f}s: "
         f"{engine.model.param_bytes() / 2**30:.2f} GiB weights, KV "
-        f"{cfg.kv_dtype}, {engine.sizing_report}")
+        f"{cfg.kv_dtype}{moe}, {engine.sizing_report}")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1638,27 +1735,31 @@ def sweep_run_ahead(engine, values=(1, 2, 4, 8, 16), reps=6):
 
 
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
-# the server legs of phases 4-6: (name for --leg, label, server flags,
-# counters that must grow, burst, tensor-parallel degree)
-LEGS = (("bf16", "phase 4, bf16", [],
+_LLAMA, _GPT_OSS = "llama-3.1-8b-instruct", "gpt-oss-20b"
+# the server legs of phases 4-7: (name for --leg, label, model, server
+# flags, counters that must grow, burst, tensor-parallel degree)
+LEGS = (("bf16", "phase 4, bf16", _LLAMA, [],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
          True, 1),
-        ("int4-kv8", "phase 5, int4 weights + int8 KV",
+        ("int4-kv8", "phase 5, int4 weights + int8 KV", _LLAMA,
          ["--quantization", "int4", "--kv-cache-dtype", "int8"],
          ("quant_matmul_int4", "quant_matmul_int4_wide",
           "paged_decode_attention_int8kv"), True, 1),
-        ("int8", "phase 5, int8 weights", ["--quantization", "int8"],
+        ("int8", "phase 5, int8 weights", _LLAMA, ["--quantization", "int8"],
          ("quant_matmul_int8", "quant_matmul_int8_wide"), False, 1),
-        ("bf16-async", "phase 5, bf16, async dispatch", ["--async-dispatch"],
+        ("bf16-async", "phase 5, bf16, async dispatch", _LLAMA, ["--async-dispatch"],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
          True, 1),
-        ("tp2-int4-kv8", "phase 6, TP=2 int4 weights + int8 KV, comm overlap",
+        ("tp2-int4-kv8", "phase 6, TP=2 int4 weights + int8 KV, comm overlap", _LLAMA,
          ["--quantization", "int4", "--kv-cache-dtype", "int8", *_TP2],
          ("quant_matmul_int4_pf", "quant_matmul_int4", "paged_decode_attention_int8kv",
           "flash_prefill_attention", "flash_prefill_packed"), True, 2),
-        ("tp2-int8", "phase 6, TP=2 int8 weights, comm overlap",
+        ("tp2-int8", "phase 6, TP=2 int8 weights, comm overlap", _LLAMA,
          ["--quantization", "int8", *_TP2],
-         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2))
+         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2),
+        ("moe-bf16", "phase 7, gpt-oss-20b MoE, bf16", _GPT_OSS, [],
+         ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
+         True, 1))
 
 
 def _watchdog(seconds: float) -> None:
@@ -1743,6 +1844,12 @@ def main(argv=None) -> int:
                 sec: check_goldens(sec) for sec in GOLDEN_MODES}
             for sec in () if alone else GOLDEN_MODES:
                 golden_err[f"{sec} async"] = check_goldens(sec, async_on=True)
+            for sec in () if alone else GOLDEN_MODES:
+                golden_err[f"tiny-moe-real {sec}"] = check_goldens(
+                    sec, model="tiny-moe-real")
+            if not alone:
+                golden_err["tiny-moe-real fp32 async"] = check_goldens(
+                    "fp32", async_on=True, model="tiny-moe-real")
             if not alone:
                 golden_err["fp32 TP=2 overlap=True async"] = check_goldens(
                     "fp32", 2, True, async_on=True)
@@ -1757,18 +1864,18 @@ def main(argv=None) -> int:
             # ring hop with none
             placements = ((", two cards", False), (", one card", True)) \
                 if torch.cuda.device_count() >= 2 else (("", True),)
-            legs = [(label + where, flags, counted, burst, tp, shared)
-                    for name, label, flags, counted, burst, tp in LEGS
+            legs = [(label + where, model, flags, counted, burst, tp, shared)
+                    for name, label, model, flags, counted, burst, tp in LEGS
                     if args.leg in (None, name)
                     for where, shared in (placements if tp > 1 else (("", False),))]
             if args.first_leg_only:
                 legs = legs[:1]
             stats = {}
-            for i, (label, flags, counted, burst, tp, shared) in enumerate(legs):
+            for i, (label, model, flags, counted, burst, tp, shared) in enumerate(legs):
                 launches, stats[label] = run_server_phase(
                     flags, counted, label, burst=burst,
                     run_ahead_sweep=args.sweep_run_ahead and i == 0,
-                    profile=args.profile, tp=tp, shared=shared)
+                    profile=args.profile, tp=tp, shared=shared, model=model)
                 _release_card(torch)
                 for name in launches:
                     if launches[name] <= 0:

@@ -33,6 +33,9 @@ the ``comm_overlap`` decode ring) serve as in the JAX engine.  A
 tensor-parallel engine is one process driving every device of its mesh
 (``parallel.mesh``): an explicit ``mesh=`` may place several shards on
 one device; without one, ``tensor_parallel=n`` takes the first n cards.
+MoE models serve on one device with the JAX engine's ragged expert
+semantics (``model.moe_impl_for`` picks how the products run); a
+tensor-parallel MoE engine raises.
 Not ported yet, and rejected at construction with the ROADMAP item that
 carries them: speculation, adapters, pipeline, data,
 sequence and expert parallelism, the KV pool, host offload and P/D, the
@@ -371,6 +374,10 @@ class InferenceEngine:
         logger.info("%sweights ready in %.1fs (%.2f GiB on %s)",
                     f"{quant} " if quant else "", time.monotonic() - t0,
                     self.model.param_bytes() / 2**30, self.device)
+        if arch.num_experts:
+            logger.info("MoE: %d experts, top-%d, expert products %s",
+                        arch.num_experts, arch.num_experts_per_tok,
+                        self.model.moe_impl)
 
         self.sizing_report: dict = {}
         num_pages = cfg.max_pages or self._derive_max_pages()

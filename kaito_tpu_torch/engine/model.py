@@ -1,4 +1,4 @@
-"""Config-driven transformer LM, dense GQA families.
+"""Config-driven transformer LM: dense GQA and token-choice MoE families.
 
 Counterpart of ``kaito_tpu.engine.model``.  Parameters keep the JAX
 package's stacked layout — one ``[num_layers, ...]`` tensor per layer
@@ -17,8 +17,14 @@ projections are QTensor dicts ``{"q8"|"q4": int8, "scale": fp32}`` that
 the page writes take their quantizing ``_q`` forms and attention reads
 the pages with their scales.
 
-MoE and MLA families, and yarn/longrope rope scaling, are not ported yet
-and raise.
+A MoE layer group (``_layer_groups``: all layers, or the layers from
+``moe_layer_start`` on after a dense group) replaces the MLP with routed
+expert stacks ``[L, X, in, out]`` (``nn.moe_mlp_ragged``).  How the
+expert products run is :data:`TransformerLM.moe_impl`, fixed by device
+and dtype (:func:`moe_impl_for`).
+
+MLA attention and yarn/longrope rope scaling are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -64,17 +70,40 @@ def _name_salt(name: str) -> int:
 
 @dataclass(frozen=True)
 class LayerGroup:
-    name: str          # "dense"
+    name: str          # "dense" | "moe"
     start: int
     count: int
     moe: bool
 
 
 def _layer_groups(arch: ModelArch) -> tuple[LayerGroup, ...]:
+    if arch.num_experts > 0 and arch.moe_layer_start > 0:
+        k = arch.moe_layer_start
+        return (LayerGroup("dense", 0, k, False),
+                LayerGroup("moe", k, arch.num_layers - k, True))
     if arch.num_experts > 0:
-        raise NotImplementedError(
-            "MoE models are not ported yet (ROADMAP queue 1, M17)")
+        return (LayerGroup("moe", 0, arch.num_layers, True),)
     return (LayerGroup("dense", 0, arch.num_layers, False),)
+
+
+def moe_impl_for(device: torch.device, dtype: torch.dtype) -> str:
+    """How a MoE layer computes its expert products, with the JAX
+    engine's ragged semantics (``moe_impl="ragged"`` at
+    ``expert_parallel == 1``), in prefill and decode alike:
+
+    - the CPU: "ragged", one fp32 product per non-empty group, sized on
+      the host (:func:`nn.moe_mlp_ragged`), the JAX package's numbers;
+    - the card in bf16: "grouped", one ``torch._grouped_mm`` over groups
+      whose bounds stay on the device, so a captured decode window holds
+      it and a decode step reads only the experts its active rows chose
+      (PERF.md times it against the dense form at gpt-oss-20b's rows);
+    - the card in fp32: "dense" (:func:`nn.moe_mlp`), every token through
+      every expert: ``torch._grouped_mm`` takes bf16 only on the card,
+      and in fp32 the dense form's numbers are the ragged form's up to
+      the order of sums."""
+    if device.type == "cpu":
+        return "ragged"
+    return "grouped" if dtype == torch.bfloat16 else "dense"
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -111,16 +140,17 @@ def params_from_jax(np_tree: dict, arch: ModelArch) -> dict:
 
 
 def _check_qtensor(name: str, w: dict, full: tuple) -> None:
-    """A QTensor for a ``full`` = [L, in, out] weight: int8 codes
-    [L, in, out] ("q8") or [L, in/2, out] ("q4"), fp32 scales [L, out]
-    or [L, G, out] over whole groups."""
-    L, K, N = full
+    """A QTensor for a ``full`` = [L, ..., in, out] weight (a layer stack
+    [L, in, out] or an expert stack [L, X, in, out]): int8 codes of the
+    full shape ("q8") or [..., in/2, out] ("q4"), fp32 scales
+    [..., out] or [..., G, out] over whole groups."""
+    lead, K, N = tuple(full[:-2]), full[-2], full[-1]
     if "q8" in w:
-        codes, want, sshape = w["q8"], full, (L, N)
+        codes, want, sshape = w["q8"], tuple(full), lead + (N,)
     else:
-        codes, want = w["q4"], (L, K // 2, N)
-        G = w["scale"].shape[-2] if w["scale"].dim() == 3 else 0
-        sshape = (L, G, N) if G and K % G == 0 and (K // G) % 2 == 0 else None
+        codes, want = w["q4"], lead + (K // 2, N)
+        G = w["scale"].shape[-2] if w["scale"].dim() == len(full) else 0
+        sshape = lead + (G, N) if G and K % G == 0 and (K // G) % 2 == 0 else None
     if codes.dtype != torch.int8 or tuple(codes.shape) != want \
             or w["scale"].dtype != torch.float32 or sshape is None \
             or tuple(w["scale"].shape) != sshape:
@@ -145,6 +175,12 @@ LOGICAL_AXES: dict[str, tuple] = {
     "gate": ("embed", "intermediate"), "up": ("embed", "intermediate"),
     "down": ("intermediate", "embed"), "up_bias": ("intermediate",),
     "down_bias": ("embed",),
+    "router": ("embed", "expert"),
+    "experts_gate": ("expert", "embed", "intermediate"),
+    "experts_up": ("expert", "embed", "intermediate"),
+    "experts_down": ("expert", "intermediate", "embed"),
+    "shared_gate": ("embed", "intermediate"),
+    "shared_up": ("embed", "intermediate"), "shared_down": ("intermediate", "embed"),
 }
 
 # the embedding stays replicated on every shard: the lookup is exact
@@ -171,7 +207,14 @@ def check_tensor_parallel(arch: ModelArch, n: int, quantization: str = "") -> No
     """Raise ValueError when ``n`` shards cannot split this model: heads,
     KV heads, intermediate width and the padded vocabulary must divide,
     and under int4 every shard of the row-parallel o and down weights
-    must own whole groups of ``INT4_GROUP`` in-rows."""
+    must own whole groups of ``INT4_GROUP`` in-rows.  A MoE model at
+    ``n`` > 1 raises NotImplementedError: its expert stacks have no
+    split yet."""
+    if n > 1 and arch.num_experts > 0:
+        raise NotImplementedError(
+            f"tensor_parallel={n} with a MoE model: the expert stacks have no "
+            f"tensor-parallel split yet (ROADMAP queue 1, M17 item 38: MoE at "
+            f"TP >= 2 and the expert axis)")
     local_arch(arch, n)
     vp = -(-arch.vocab_size // VOCAB_ALIGN) * VOCAB_ALIGN
     if vp % n:
@@ -249,8 +292,13 @@ def _leaves(tree: dict):
 
 
 class TransformerLM(tnn.Module):
-    """Dense GQA transformer; parameters live in the module, KV pools in
-    an explicit :class:`KVCache` written in place."""
+    """GQA transformer, dense or MoE; parameters live in the module, KV
+    pools in an explicit :class:`KVCache` written in place.
+
+    ``moe_impl`` is how MoE layers compute: "dense" (:func:`nn.moe_mlp`),
+    "ragged" or "grouped" (:func:`nn.moe_mlp_ragged` sized on the host or
+    on the device), set from the device and dtype by
+    :func:`moe_impl_for`."""
 
     def __init__(self, arch: ModelArch, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda",
@@ -263,6 +311,7 @@ class TransformerLM(tnn.Module):
         self.dtype = dtype
         self.device = resolve_device(device)
         self.groups = _layer_groups(arch)
+        self.moe_impl = moe_impl_for(self.device, dtype)
         self.vocab_padded = -(-arch.vocab_size // VOCAB_ALIGN) * VOCAB_ALIGN
         # (rank, n): this model's rows of the logits head when it is one
         # shard of a TensorParallelLM; (0, 1) holds the whole head
@@ -288,7 +337,7 @@ class TransformerLM(tnn.Module):
     # Parameters
     # ------------------------------------------------------------------
 
-    def _layer_specs(self) -> dict[str, tuple[int, ...]]:
+    def _layer_specs(self, moe: bool = False) -> dict[str, tuple[int, ...]]:
         a = self.arch
         E, H, Hkv, D, I = (a.hidden_size, a.num_heads, a.num_kv_heads,
                            a.head_dim, a.intermediate_size)
@@ -316,6 +365,15 @@ class TransformerLM(tnn.Module):
         if a.pre_post_norm:
             specs["post_attn_norm"] = (E,)
             specs["post_mlp_norm"] = (E,)
+        if moe:
+            X, Im = a.num_experts, a.moe_intermediate_size or I
+            specs.update({"router": (E, X), "experts_gate": (X, E, Im),
+                          "experts_up": (X, E, Im), "experts_down": (X, Im, E)})
+            if a.num_shared_experts:
+                Is = Im * a.num_shared_experts
+                specs.update({"shared_gate": (E, Is), "shared_up": (E, Is),
+                              "shared_down": (Is, E)})
+            return specs
         if a.gated_mlp:
             specs["gate"] = (E, I)
         specs["up"] = (E, I)
@@ -341,7 +399,7 @@ class TransformerLM(tnn.Module):
         axes: dict = {name: LOGICAL_AXES[name] for name in self._top_specs()}
         for g in self.groups:
             axes[g.name] = {name: ("layers",) + LOGICAL_AXES[name]
-                            for name in self._layer_specs()}
+                            for name in self._layer_specs(g.moe)}
         return axes
 
     def init_params(self, seed: int = 0, quantization: str = "") -> None:
@@ -380,7 +438,7 @@ class TransformerLM(tnn.Module):
             else:
                 yield None, name, normal(shape, 0.02, _name_salt(name))
         for gi, g in enumerate(self.groups):
-            for name, shape in self._layer_specs().items():
+            for name, shape in self._layer_specs(g.moe).items():
                 full = (g.count,) + shape
                 if "norm" in name and "bias" not in name:
                     t = norm_fill(full)
@@ -411,7 +469,7 @@ class TransformerLM(tnn.Module):
             self.top[name] = param(tree[name])
         for g in self.groups:
             stack, qstack = tnn.ParameterDict(), tnn.ModuleDict()
-            for name, shape in self._layer_specs().items():
+            for name, shape in self._layer_specs(g.moe).items():
                 full = (g.count,) + shape
                 t = tree[g.name][name]
                 if quantization and is_quantized_leaf(g.name, name) \
@@ -501,12 +559,28 @@ class TransformerLM(tnn.Module):
         k = nn.apply_rope(k, positions, inv_freq, a.head_dim, mscale=mscale)
         return q, k, v
 
-    def _layer(self, x, p, cache: KVCache, li: int, mode: str, **kw):
+    def _layer(self, x, p, cache: KVCache, li: int, mode: str, moe: bool, **kw):
         """One transformer block over layer ``li`` of the pools."""
         h = self._norm(x, p, "attn_norm")
         o_in = self._attention(h, p, cache, li, mode, **kw)
         x, h2 = self._attn_residual(x, h, nn.linear(o_in, p["o"]), p)
-        return self._mlp_residual(x, nn.mlp(h2, p, self.arch), p)
+        return self._mlp_residual(x, self._mlp(h2, p, moe, kw["active"]), p)
+
+    def _mlp(self, x, p, moe: bool, active=None):
+        """The layer's MLP: dense, or its MoE by ``moe_impl``.  ``active``
+        (decode's active rows, else None) keeps the grouped form's
+        inactive rows out of every expert group."""
+        if not moe:
+            return nn.mlp(x, p, self.arch)
+        B, T, E = x.shape
+        x2 = x.reshape(B * T, E)
+        if self.moe_impl == "dense":
+            y = nn.moe_mlp(x2, p, self.arch)
+        else:
+            valid = None if active is None else active.repeat_interleave(T)
+            y = nn.moe_mlp_ragged(x2, p, self.arch,
+                                  grouped=self.moe_impl == "grouped", valid=valid)
+        return y.reshape(B, T, E)
 
     def _attention(self, h, p, cache: KVCache, li: int, mode: str, *,
                    positions, page_tables, lengths, true_lens, active,
@@ -609,7 +683,7 @@ class TransformerLM(tnn.Module):
         for g in self.groups:
             for i in range(g.count):
                 x = self._layer(x, self._layer_params(g, i), cache, g.start + i,
-                                mode, **kw)
+                                mode, g.moe, **kw)
         return x
 
     # ------------------------------------------------------------------
@@ -770,8 +844,8 @@ class TensorParallelLM:
         self.vocab_padded = self.spec.vocab_padded
         self.overlap = False       # the engine's comm-overlap gate
 
-    def _layer_specs(self) -> dict[str, tuple[int, ...]]:
-        return self.spec._layer_specs()
+    def _layer_specs(self, moe: bool = False) -> dict[str, tuple[int, ...]]:
+        return self.spec._layer_specs(moe)
 
     # ------------------------------------------------------------------
     # Parameters

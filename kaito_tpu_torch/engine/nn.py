@@ -18,6 +18,7 @@ from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine.ops.overlap_collectives import (
     ag_matmul_eligible, all_gather_matmul, overlap_linear, psum_linear)
 from kaito_tpu_torch.engine.ops.quant_matmul import quant_linear
+from kaito_tpu_torch.engine.quant import dequant_weight
 from kaito_tpu_torch.models.metadata import ModelArch
 from kaito_tpu_torch.parallel.mesh import Mesh
 
@@ -196,6 +197,138 @@ def mlp(x, p, arch: ModelArch, mesh: Optional[Mesh] = None,
     down = (overlap_linear(h, wd, mesh, prefetch=pf_down) if overlap
             else psum_linear(h, wd, mesh))
     return [_down_bias(d, pi) for d, pi in zip(down, p)]
+
+
+# ---------------------------------------------------------------------------
+# Token-choice mixture of experts
+# ---------------------------------------------------------------------------
+
+def _route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """fp32 router logits, the top ``k`` experts of each token and a
+    softmax over their k logits: (weights [T, k] fp32, experts [T, k]).
+    ``jax.lax.top_k`` breaks a tie toward the lower expert index;
+    ``torch.topk`` does not promise that, so tied router logits may pick
+    another expert than the JAX package."""
+    logits = x.float() @ router.float()
+    weights, idx = torch.topk(logits, k, dim=-1, sorted=True)
+    return torch.softmax(weights, dim=-1), idx
+
+
+def _shared_experts(y, x, p, arch):
+    if "shared_gate" not in p:
+        return y
+    shared = {"gate": p["shared_gate"], "up": p["shared_up"],
+              "down": p["shared_down"]}
+    return y + mlp(x, shared, arch)
+
+
+def _expert_weight(w, dtype) -> torch.Tensor:
+    """An expert stack [X, in, out] in ``dtype`` for a product whose
+    int8 scale is applied after it: a plain stack as it is, int8 codes
+    widened unscaled, int4 dequantized whole (its per-group scales do not
+    fold after the product), as the JAX package's ``moe_mlp`` does."""
+    if not isinstance(w, dict):
+        return w
+    if "q8" in w:
+        return w["q8"].to(dtype)
+    return dequant_weight(w, dtype)
+
+
+def moe_mlp(x: torch.Tensor, p: dict, arch: ModelArch) -> torch.Tensor:
+    """Token-choice MoE with dense expert compute (``kaito_tpu.engine.nn.
+    moe_mlp``): every token through every expert, weighted by a dense
+    [T, X] routing matrix that holds its top-k softmax weights.  x:
+    [T, E].  Static shapes and exact, at X / k times the ragged form's
+    products; the products round to x's dtype, the weighted sum runs in
+    fp32."""
+    T = x.shape[0]
+    weights, idx = _route(x, p["router"], arch.num_experts_per_tok)
+    route = torch.zeros((T, arch.num_experts), dtype=torch.float32,
+                        device=x.device).scatter(1, idx, weights)
+
+    def expert_dot(lhs, w):
+        """lhs [X, T, in] (or [T, in], the same for every expert) @ each
+        expert's [in, out] -> [X, T, out] in lhs's dtype."""
+        out = torch.matmul(lhs, _expert_weight(w, lhs.dtype))
+        if isinstance(w, dict) and "q8" in w:
+            out = out * w["scale"][:, None, :].to(lhs.dtype)
+        return out
+
+    gate = expert_dot(x, p["experts_gate"])
+    up = expert_dot(x, p["experts_up"])
+    h = activation(gate, arch.hidden_act) * up
+    out = expert_dot(h, p["experts_down"])                    # [X, T, E]
+    y = torch.einsum("xte,tx->te", out.float(), route).to(x.dtype)
+    return _shared_experts(y, x, p, arch)
+
+
+def moe_mlp_ragged(x: torch.Tensor, p: dict, arch: ModelArch,
+                   grouped: bool = False,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-choice MoE through grouped products (``kaito_tpu.engine.nn.
+    moe_mlp_ragged``): the (token, slot) rows sort by expert and each
+    expert multiplies its own contiguous group, so the products scale
+    with k, not with the expert count.  x: [T, E].
+
+    The group boundaries stay on the device.  ``grouped=False`` reads
+    them on the host and runs one fp32 product per non-empty group, as
+    ``lax.ragged_dot(preferred_element_type=float32)`` does: the form of
+    the CPU, whose results match the JAX package's.  ``grouped=True``
+    hands them to one ``torch._grouped_mm`` call, which no host read
+    precedes, so a CUDA graph can hold it; on the card it takes bf16
+    only, and its products round to bf16 before the activation.
+
+    ``valid`` [T] (the decode batch's active rows) sends the rows of the
+    other tokens into no group: they multiply nothing and read no
+    expert's weights, and their routed share comes out zero.  Rows of
+    valid tokens do not change.
+
+    The combine gathers each token's k rows back through the inverse of
+    the sort and sums them in slot order, in fp32: no atomics, so two
+    runs on the card give the same bits (the JAX package's
+    ``.at[token_of].add`` sums in sorted order)."""
+    T, E = x.shape
+    X, k = arch.num_experts, arch.num_experts_per_tok
+    weights, idx = _route(x, p["router"], k)
+    flat = idx.reshape(-1)                                  # [T * k]
+    if valid is not None:
+        flat = torch.where(valid.repeat_interleave(k), flat, X)
+    order = torch.argsort(flat, stable=True)
+    expert_of_row = flat[order]
+    x_sorted = x[order // k]
+    # each expert's group ends here in the sorted rows; rows past the
+    # last end belong to no group
+    ends = torch.searchsorted(expert_of_row,
+                              torch.arange(X, device=x.device, dtype=flat.dtype),
+                              right=True)
+    rows_expert = expert_of_row.clamp(max=X - 1)
+    bounds = None if grouped else [0] + ends.tolist()
+
+    def products(lhs, w):
+        wt = _expert_weight(w, lhs.dtype)
+        if grouped:
+            out = torch._grouped_mm(lhs, wt, offs=ends.to(torch.int32)).float()
+        else:
+            out = torch.zeros((lhs.shape[0], wt.shape[-1]), dtype=torch.float32,
+                              device=lhs.device)
+            for e in range(X):
+                lo, hi = bounds[e], bounds[e + 1]
+                if hi > lo:
+                    out[lo:hi] = lhs[lo:hi].float() @ wt[e].float()
+        if isinstance(w, dict) and "q8" in w:
+            out = out * w["scale"][rows_expert]
+        return out
+
+    gate = products(x_sorted, p["experts_gate"])
+    up = products(x_sorted, p["experts_up"])
+    h = (activation(gate, arch.hidden_act) * up).to(x.dtype)
+    out = products(h, p["experts_down"])                      # [T * k, E]
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(order.numel(), device=x.device)
+    y = (out[inverse].reshape(T, k, E) * weights[..., None]).sum(dim=1)
+    if valid is not None:
+        y = torch.where(valid[:, None], y, 0.0)
+    return _shared_experts(y.to(x.dtype), x, p, arch)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

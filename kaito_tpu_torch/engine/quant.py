@@ -33,9 +33,9 @@ import torch
 
 from kaito_tpu_torch.models.metadata import ModelArch
 
-# layer-stack keys whose matmuls dequantize on use (the MLA and MoE keys
-# are kept so a tree of those families quantizes the same way once the
-# families are ported)
+# layer-stack keys whose matmuls dequantize on use (the MLA keys are kept
+# so a tree of that family quantizes the same way once it is ported); an
+# expert stack [L, X, in, out] quantizes per (layer, expert, out column)
 QUANT_KEYS = (
     "q", "k", "v", "o", "gate", "up", "down",
     "q_a", "q_b", "kv_a",

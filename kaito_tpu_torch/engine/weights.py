@@ -1,8 +1,10 @@
 """Checkpoint loading: HF safetensors -> the stacked parameter tree.
 
-Counterpart of ``kaito_tpu.engine.weights`` for dense llama-style
-checkpoints.  HF linear weights are [out, in]; the port keeps the JAX
-package's [in, out], so projections transpose on load.  The safetensors
+Counterpart of ``kaito_tpu.engine.weights`` for llama-style checkpoints,
+dense and MoE (Mixtral's and Qwen/DeepSeek's expert names).  HF linear
+weights are [out, in]; the port keeps the JAX package's [in, out], so
+projections transpose on load, and a MoE layer's per-expert tensors
+stack over the expert axis.  The safetensors
 format (an 8-byte header length, a JSON header, raw little-endian
 tensor bytes) is read directly, so loading needs no package beyond
 torch.
@@ -137,11 +139,63 @@ def assemble_params(model, read: Callable[[str], Optional[torch.Tensor]],
     for g in model.groups:
         stack: dict[str, list] = {}
         for li in range(g.start, g.start + g.count):
-            for key in model._layer_specs():
-                suffix, transpose = layer_map[key]
-                t = get(f"layers.{li}.{suffix}", required=False)
+            for key in model._layer_specs(g.moe):
+                t = None
+                if key in layer_map:
+                    suffix, transpose = layer_map[key]
+                    t = get(f"layers.{li}.{suffix}", required=False)
+                    if t is not None and transpose:
+                        t = t.t()
+                elif g.moe:
+                    t = _read_moe_tensor(get, arch, li, key)
                 if t is None:
                     raise KeyError(f"no source tensor for layer {li} key {key!r}")
-                stack.setdefault(key, []).append(t.t() if transpose else t)
+                stack.setdefault(key, []).append(t)
         params[g.name] = {k: torch.stack(v) for k, v in stack.items()}
     return params
+
+
+# MoE tensors do not fit the flat suffix map: HF stores one tensor per
+# expert (Mixtral's ``block_sparse_moe.experts.{e}.w{1,2,3}``, Qwen's and
+# DeepSeek's ``mlp.experts.{e}.{gate,up,down}_proj``); the port stacks
+# them over the expert axis.  w1 = gate, w3 = up, w2 = down (Mixtral's
+# numbering).
+_MOE_EXPERT_SUFFIXES = {
+    "experts_gate": ("w1", "gate_proj"),
+    "experts_up": ("w3", "up_proj"),
+    "experts_down": ("w2", "down_proj"),
+}
+_MOE_SHARED = {
+    "shared_gate": "gate_proj",
+    "shared_up": "up_proj",
+    "shared_down": "down_proj",
+}
+
+
+def _read_moe_tensor(get, arch, li: int, key: str) -> Optional[torch.Tensor]:
+    """Layer ``li``'s router [E, X], expert stack [X, in, out] or shared
+    expert [in, out] under either naming; None when absent."""
+    if key == "router":
+        for suffix in ("block_sparse_moe.gate.weight", "mlp.gate.weight"):
+            t = get(f"layers.{li}.{suffix}", required=False)
+            if t is not None:
+                return t.t()                         # [X, E] -> [E, X]
+        return None
+    if key in _MOE_EXPERT_SUFFIXES:
+        mix, qwen = _MOE_EXPERT_SUFFIXES[key]
+        per_expert = []
+        for e in range(arch.num_experts):
+            t = get(f"layers.{li}.block_sparse_moe.experts.{e}.{mix}.weight",
+                    required=False)
+            if t is None:
+                t = get(f"layers.{li}.mlp.experts.{e}.{qwen}.weight",
+                        required=False)
+            if t is None:
+                return None
+            per_expert.append(t.t())                 # HF [out, in] -> ours
+        return torch.stack(per_expert)
+    if key in _MOE_SHARED:
+        t = get(f"layers.{li}.mlp.shared_experts.{_MOE_SHARED[key]}.weight",
+                required=False)
+        return None if t is None else t.t()
+    return None
