@@ -19,7 +19,13 @@ order; any failure exits non-zero and prints no result:
    four projection shapes with 1, 5, 8, 9, 16, 17, 64, 65, 200 and 256
    rows (bf16 calls of 17-256 rows take the wide path, whose launch
    counter must follow), timed at 1, 8, 16 and 200 rows at every shape
-   and also at 64 and 256 rows at gate/up; and K6, the int8 and
+   and also at 64 and 256 rows at gate/up; K4 and K5 again at
+   DeepSeek-V3's eight projection shapes (kv_a 7168x576, whose 576
+   columns take the CUDA-core path, q_a, q_b, o, and the dense and
+   shared-expert MLPs) with 1, 8, 16, 17, 200 and 256 bf16 rows, each
+   call one launch, on the wide path exactly when the wrapper takes it
+   (the errors, paths and launches by shape go into the kernel
+   records); and K6, the int8 and
    int4 kernels with the next layer's slab prefetched into L2, at the
    TP=2 ring-chunk shapes (o and down chunks, strided views), whose
    output must be bitwise K4/K5's.  The decode-row path (bf16, 1-16
@@ -76,7 +82,13 @@ order; any failure exits non-zero and prints no result:
    machine, of slots that all map onto that card (windows at TP >= 2 run
    eagerly).  Then the MoE checkpoint ``tiny-moe-real``: its four
    sections (``tests/testdata/goldens_tiny-moe-real.json``) through
-   captured windows, and ``fp32`` through the async loop.
+   captured windows, and ``fp32`` through the async loop.  Last a tiny
+   MLA model (``tests/test_mla.py``'s config: q_lora, one dense and two
+   MoE layers, a shared expert; weights drawn once on the CPU from seed
+   0) in the four modes ``fp32``, ``int8``, ``weight_int4`` and
+   ``kv_int8``: an engine on the card must give the greedy tokens of one
+   on the CPU (which the CPU tests hold against the JAX engine) with
+   logprobs within atol 2e-3, every card window a replay.
 4. Full width: the port's HTTP server serves ``llama-3.1-8b-instruct``
    (all 32 layers, bf16, synthetic weights from seed 0): one completion,
    one streamed chat, then four concurrent 100-400-token prompts (a
@@ -114,6 +126,19 @@ order; any failure exits non-zero and prints no result:
    request mix of phase 4; K1, K2 and K3 must launch, every decode window
    must be a graph replay (its expert products in the grouped form), and
    the greedy batch must equal the eager loop's, as in phase 4.
+8. MLA, full width cut in depth (legs ``mla-bf16`` and ``mla-int8-kv8``):
+   ``deepseek-v3-0324`` at its published widths (hidden 7168, 128 heads,
+   latent 512 + rope 64, 256 experts, top-8, one shared expert, vocab
+   129280), its 61 layers cut to 5 (the 3 dense layers and 2 MoE ones;
+   synthetic bf16 weights from seed 0, 53.2 GB), the engine built with
+   the cut metadata and handed to ``make_server``, and the request mix
+   of phase 4.  Every window must be a graph replay, the greedy batch
+   must equal the eager loop's, and K1, K1q, K2 and K3 must not launch
+   (MLA attends through ``attention.mla_*``).  Then 4 layers (3 dense +
+   1 MoE) with ``--quantization int8 --kv-cache-dtype int8``: K4 must
+   launch on the decode-row and the wide path.  Each leg also times the
+   plain MLA decode attention at one layer of its pool (8 sequences,
+   the full table width) against its bound.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -123,7 +148,7 @@ phase 3 and every server leg after phase 4's bf16 one (with
 ``--profile``, the quickest reading of TTFT and prefill device time)
 and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
-``tp2-int8``, ``moe-bf16``), which
+``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -740,6 +765,77 @@ def check_quant_matmul(torch, records, build_logs):
             host_ms=main["host_ms"], cases=timed)
 
 
+# the int8 projections of DeepSeek-V3 (phase 8's mla-int8-kv8 leg), [K, N]:
+# kv_a's 576 columns are no whole number of 128-column tiles, so it takes
+# the CUDA-core path
+DEEPSEEK_PROJ_SHAPES = {"kv_a": (7168, 576), "q_a": (7168, 1536), "q_b": (1536, 24576),
+                        "o": (16384, 7168), "dense gate/up": (7168, 18432),
+                        "dense down": (18432, 7168), "shared gate/up": (7168, 2048),
+                        "shared down": (2048, 7168)}
+DEEPSEEK_ROWS = (1, 8, 16, 17, 200, 256)
+
+
+def check_quant_matmul_deepseek(torch, records):
+    """K4 and K5 against their plain version at DeepSeek-V3's projection
+    shapes (``DEEPSEEK_PROJ_SHAPES``), bf16, at ``DEEPSEEK_ROWS`` rows
+    (decode rows, both sides of the wide path's lower edge, and prefill
+    rows): each call must launch once, on the wide path exactly when the
+    wrapper says it takes it, and agree within the phase's bf16
+    tolerance relative to the output's largest magnitude.  Each shape's
+    path at each row count, its worst error and the launches this check
+    made go into the kernel record under ``deepseek_v3``."""
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
+                                                         quant_matmul_plain)
+    from kaito_tpu_torch.engine.quant import quantize_weight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for scheme, name in (("int8", "quant_matmul_int8"), ("int4", "quant_matmul_int4")):
+        int4 = scheme == "int4"
+        per_shape = {}
+        for label, (K, N) in DEEPSEEK_PROJ_SHAPES.items():
+            w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda")
+                                / math.sqrt(K), scheme)
+            codes, scale = w["q4" if int4 else "q8"], w["scale"]
+            groups = scale.shape[0] if int4 else 1
+            launched = {"launches": 0, "launches_wide": 0}
+            err, paths = {}, {}
+            for rows in DEEPSEEK_ROWS:
+                x = torch.randn(rows, K, generator=gen, device="cuda").to(torch.bfloat16)
+                wide = qm.takes_wide(x, codes, scale, groups)
+                paths[rows] = ("wide" if wide else "decode-row"
+                               if qm.takes_decode(x, codes, scale, groups, int4)
+                               else "cuda-core")
+                before = (getattr(quant_matmul_cuda, f"launches_{scheme}"),
+                          getattr(quant_matmul_cuda, f"launches_{scheme}_wide"))
+                out = quant_matmul_cuda(x, w)
+                ref = quant_matmul_plain(x, w).float()
+                torch.cuda.synchronize()
+                got = (getattr(quant_matmul_cuda, f"launches_{scheme}") - before[0],
+                       getattr(quant_matmul_cuda, f"launches_{scheme}_wide") - before[1])
+                if got != (1, int(wide)):
+                    raise SmokeFailure(f"{name} {label} rows {rows}: launches "
+                                       f"{got}, expected (1, {int(wide)})")
+                launched["launches"] += got[0]
+                launched["launches_wide"] += got[1]
+                err[rows] = (out.float() - ref).abs().max().item() / max(
+                    ref.abs().max().item(), 1e-30)
+            worst = max(err.values())
+            log(f"{name} DeepSeek-V3 {label} [{K}x{N}] bf16 rows {DEEPSEEK_ROWS}: "
+                f"paths {paths}, max relative err {worst:.3g}")
+            if worst > BF16_ATOL:
+                raise SmokeFailure(f"{name} at DeepSeek-V3's {label} [{K}x{N}] "
+                                   f"disagrees with its plain version: {err}")
+            per_shape[label] = dict(K=K, N=N, paths=paths, max_rel_err_bf16=err,
+                                    check_launches=launched)
+            del w, codes, scale
+        records[name]["deepseek_v3"] = per_shape
+        records[name]["max_abs_err"] = max(
+            records[name]["max_abs_err"],
+            *(v["max_rel_err_bf16"][r] for v in per_shape.values() for r in DEEPSEEK_ROWS))
+
+
 def _time_quant_matmul(torch, w, rows, K, N, scheme, label, gen, dequant_weight):
     from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
                                                          quant_matmul_plain)
@@ -1213,6 +1309,80 @@ TP_GOLDENS = ((2, ("fp32", "int8", "weight_int4", "kv_int8")),
               (4, ("fp32", "int8", "kv_int8")))
 
 
+# tests/test_mla.py's tiny DeepSeek-V3-shaped config (MLA with q_lora, one
+# dense layer then two MoE layers with a shared expert); K4/K5 take every
+# one of its projections as it is, so no width is changed
+MLA_TINY_CFG = {
+    "architectures": ["DeepseekV3ForCausalLM"], "model_type": "deepseek_v3",
+    "vocab_size": 512, "hidden_size": 64, "num_hidden_layers": 3,
+    "num_attention_heads": 4, "num_key_value_heads": 4, "intermediate_size": 128,
+    "moe_intermediate_size": 32, "n_routed_experts": 4, "num_experts_per_tok": 2,
+    "n_shared_experts": 1, "first_k_dense_replace": 1, "kv_lora_rank": 32,
+    "q_lora_rank": 48, "qk_rope_head_dim": 16, "qk_nope_head_dim": 24,
+    "v_head_dim": 24, "max_position_embeddings": 256}
+# 11, 29 and 40 tokens: the 40-token prompt prefills in three chunks
+MLA_TINY_PROMPTS = ([(3 * i) % 500 + 2 for i in range(11)],
+                    [(7 * i) % 500 + 2 for i in range(29)],
+                    [(13 * i) % 480 + 3 for i in range(40)])
+
+
+def check_mla_tiny(section):
+    """The tiny MLA config in fp32 with the weights and KV of golden mode
+    ``section``: the weights are drawn once on the CPU from seed 0
+    (quantized there), the same tensors go into an engine on the CPU
+    (asked for explicitly) and one on the card, and the prompts, submitted
+    together, must give the same greedy tokens and logprobs within atol
+    2e-3, every card window a replayed CUDA graph.  The CPU engine is the
+    one the CPU tests hold against the JAX engine
+    (``tests/test_torch_mla_engine.py``)."""
+    import torch
+
+    from kaito_tpu_torch.engine.config import EngineConfig
+    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+    from kaito_tpu_torch.engine.model import TransformerLM
+    from kaito_tpu_torch.models.autogen import metadata_from_hf_config
+
+    quant, kv_dtype = GOLDEN_MODES[section]
+    md = metadata_from_hf_config("test/tiny-mla", MLA_TINY_CFG, name="tiny-mla-test")
+    src = TransformerLM(md.arch, dtype=torch.float32, device="cpu")
+    src.init_params(seed=0, quantization=quant)
+    tree = src.param_tree()
+    cfg = EngineConfig(model=md.name, dtype="float32", kv_dtype=kv_dtype,
+                       max_model_len=128, max_num_seqs=4, prefill_buckets=(16, 32, 64),
+                       max_prefill_tokens=16, decode_run_ahead=4,
+                       enable_prefix_caching=False, quantization=quant, seed=0)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = InferenceEngine(cfg, metadata=md, params=tree, device=dev)
+        reqs = [eng.submit(p, SamplingParams(max_tokens=12, temperature=0.0,
+                                             ignore_eos=True, logprobs=True))
+                for p in MLA_TINY_PROMPTS]
+        for _ in range(3000):
+            eng.step()
+            if all(r.finish_reason for r in reqs):
+                break
+        if not all(r.finish_reason == "length" for r in reqs):
+            raise SmokeFailure(f"tiny MLA {section} on {dev}: requests did not finish")
+        outs[dev] = ([list(r.output_tokens) for r in reqs],
+                     [list(r.output_logprobs) for r in reqs], eng.counters)
+        del eng
+    (cpu_tok, cpu_lp, _), (tok, lp, c) = outs["cpu"], outs["cuda"]
+    if tok != cpu_tok:
+        raise SmokeFailure(f"tiny MLA {section}: card tokens {tok} != CPU {cpu_tok}")
+    worst = max(abs(a - b) for x, y in zip(lp, cpu_lp) for a, b in zip(x, y))
+    if worst > 2e-3:
+        raise SmokeFailure(f"tiny MLA {section}: logprobs off by {worst:.3g}")
+    if c["decode_graph_replays_total"] < c["decode_windows_total"] or \
+            c["prefill_packed_steps_total"]:
+        raise SmokeFailure(f"tiny MLA {section}: {c['decode_windows_total']} windows, "
+                           f"{c['decode_graph_replays_total']} replays, "
+                           f"{c['prefill_packed_steps_total']} packed prefills")
+    log(f"tiny MLA {section}: card = CPU engine, {len(tok)} prompts exact, worst "
+        f"logprob diff {worst:.3g}; {c['decode_graph_captures_total']} captures, "
+        f"{c['decode_graph_replays_total']} replays")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the full-width server
 # ---------------------------------------------------------------------------
@@ -1289,49 +1459,71 @@ def _stream_chat(base, max_tokens):
     return len(chunks)
 
 
+def cut_metadata(model, layers):
+    """``model``'s catalog entry at its published widths with its depth cut
+    to ``layers`` (None: the whole model)."""
+    import dataclasses
+
+    from kaito_tpu_torch.models.registry import get_model_by_name
+
+    md = get_model_by_name(model)
+    if layers is None:
+        return md
+    return dataclasses.replace(md, arch=dataclasses.replace(md.arch, num_layers=layers))
+
+
 def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
-                     profile=False, tp=1, shared=False, model="llama-3.1-8b-instruct"):
-    """Serve ``model`` at full width with the server's
-    command-line ``flags`` and drive the request mix (``burst=False``
-    leaves out the concurrent burst).  At ``tp`` > 1 the engine is built
-    on a :func:`tp_mesh` and handed to ``make_server``.  Returns the
+                     profile=False, tp=1, shared=False, model="llama-3.1-8b-instruct",
+                     layers=None, absent=()):
+    """Serve ``model`` at full width (its depth cut to ``layers`` when
+    given) with the server's command-line ``flags`` and drive the request
+    mix (``burst=False`` leaves out the concurrent burst).  At ``tp`` > 1,
+    or with ``layers``, the engine is built here (on a :func:`tp_mesh`, or
+    with the cut metadata) and handed to ``make_server``.  Returns the
     launch counts of the kernel records ``counted``, zeroed just before
-    the requests, and the leg's statistics: among them the decode
-    readings of :func:`decode_readings` and, at TP=1, where every decode
-    window must be a replayed CUDA graph, those of the eager reference
-    loop and its greedy tokens against the captured windows'
+    the requests (those of ``absent``, zeroed with them, must stay 0), and
+    the leg's statistics: among them the decode readings of
+    :func:`decode_readings`, for an MLA model the plain decode
+    attention's time (:func:`time_mla_decode`), and, at TP=1, where every
+    decode window must be a replayed CUDA graph, those of the eager
+    reference loop and its greedy tokens against the captured windows'
     (:func:`compare_eager`)."""
     import torch
 
     from kaito_tpu_torch.engine.engine import InferenceEngine
+    from kaito_tpu_torch.engine.kv_cache import kv_bytes
     from kaito_tpu_torch.engine.server import make_server, parse_args
 
     cfg, _ = parse_args(["--model", model, "--dtype", "bfloat16",
                          "--max-num-seqs", "8", "--seed", "0", *flags])
+    md = cut_metadata(model, layers)
     t0 = time.perf_counter()
-    if tp > 1:
-        mesh = tp_mesh(torch, tp, shared)
-        engine = InferenceEngine(cfg, device="cuda", mesh=mesh)
-        if not engine.comm_overlap:
+    if tp > 1 or layers is not None:
+        mesh = tp_mesh(torch, tp, shared) if tp > 1 else None
+        engine = InferenceEngine(cfg, device="cuda", metadata=md, mesh=mesh)
+        if tp > 1 and not engine.comm_overlap:
             raise SmokeFailure(f"{label}: the comm-overlap gate did not engage")
         engine.start()
         server = make_server(engine, cfg, host="127.0.0.1", port=0, device="cuda")
-        log(f"{label}: {mesh}; shards share one card: {mesh.shared}")
+        if tp > 1:
+            log(f"{label}: {mesh}; shards share one card: {mesh.shared}")
     else:
         server = make_server(None, cfg, host="127.0.0.1", port=0, device="cuda")
     engine = server.state.engine
     torch.cuda.synchronize()
     moe = (f", expert form {engine.model.moe_impl}" if engine.md.arch.num_experts
            else "")
-    log(f"{label}: {model} engine up in {time.perf_counter() - t0:.1f}s: "
+    log(f"{label}: {model} ({md.arch.num_layers} layers) engine up in "
+        f"{time.perf_counter() - t0:.1f}s: "
         f"{engine.model.param_bytes() / 2**30:.2f} GiB weights, KV "
-        f"{cfg.kv_dtype}{moe}, {engine.sizing_report}")
+        f"{cfg.kv_dtype} {kv_bytes(engine.cache) / 2**20:.1f} MiB{moe}, "
+        f"{engine.sizing_report}")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     stats = {}
     try:
-        for name in counted:
+        for name in (*counted, *absent):
             fn, attr = _counter(name)
             setattr(fn, attr, 0)
         status, raw = _get(f"{base}/health")
@@ -1365,7 +1557,8 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
                      shared_card=bool(tp > 1 and engine.mesh.shared),
                      weights_gib=engine.model.param_bytes() / 2**30,
                      kv_pages=engine.sizing_report.get("pages"),
-                     single_stream=single)
+                     kv_pool_mib=kv_bytes(engine.cache) / 2**20,
+                     layers=md.arch.num_layers, single_stream=single)
         log(f"{label}: one sequence at run_ahead={engine.run_ahead}: "
             f"{single['decode_tok_s']:.2f} tok/s, ITL p50/p90/max "
             f"{single['itl_p50_ms']:.1f}/{single['itl_p90_ms']:.1f}/"
@@ -1374,12 +1567,17 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         launches = {name: getattr(*_counter(name)) for name in counted}
         log(f"{label}: launches {launches}; decode steps "
             f"{engine.counters['decode_steps_total']}")
+        stray = {name: getattr(*_counter(name)) for name in absent}
+        if any(stray.values()):
+            raise SmokeFailure(f"{label}: kernels of another path launched: {stray}")
         windows = engine.counters["decode_windows_total"]
         replays = engine.counters["decode_graph_replays_total"]
         if (tp == 1) != engine.window.capture or (tp == 1 and replays < windows):
             raise SmokeFailure(f"{label}: capture {engine.window.capture}, {windows} "
                                f"decode windows, {replays} graph replays")
         stats["decode"] = decode_readings(engine, p, label)
+        if engine.model.is_mla:
+            stats["mla_decode_attention"] = time_mla_decode(engine, label)
         if run_ahead_sweep:
             stats["run_ahead_sweep"] = sweep_run_ahead(engine)
         if profile:
@@ -1392,8 +1590,58 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
     if tp == 1:
         del server, engine
         _release_card(torch)
-        stats["eager"] = compare_eager(cfg, p, label)
+        stats["eager"] = compare_eager(cfg, p, label, md)
     return launches, stats
+
+
+def time_mla_decode(engine, label) -> dict:
+    """The plain MLA decode attention (``TransformerLM.mla_decode_attention``
+    over ``attention.mla_paged_decode_attention``: the JAX package's
+    einsums, no kernel) at one layer of the serving
+    engine's latent pool, eight sequences of :data:`K1_LENGTHS` over the
+    full page-table width the decode window passes (int8 pages with their
+    scales for an int8 pool): card ms a layer (CUDA events) against the
+    bound over the latent bytes gathered at the full width and at the
+    live lengths, each with the kv_b weights, the queries and the output
+    read or written once, and the operations of the absorbed form at that
+    width."""
+    import torch
+
+    m, c, a = engine.model, engine.cache, engine.md.arch
+    H, B, pmax, ps = a.num_heads, len(K1_LENGTHS), engine.pages_per_seq, \
+        engine.cfg.page_size
+    dn, dr, dv, dl = (a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim,
+                      a.kv_lora_rank)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pt = torch.randint(1, c.k.shape[1], (B, pmax), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    lengths = torch.tensor(K1_LENGTHS, dtype=torch.int32, device="cuda")
+    qn = torch.randn(B, H, dn, generator=gen, device="cuda").to(m.dtype)
+    qr = torch.randn(B, H, dr, generator=gen, device="cuda").to(m.dtype)
+
+    def call():
+        return m.mla_decode_attention(c, qn, qr, pt, lengths, layer=0)
+
+    out = call()
+    if not torch.isfinite(out.float()).all():
+        raise SmokeFailure(f"{label}: MLA decode attention gave non-finite values")
+    ms, host = time_ms(call, iters=10)
+    tok_bytes = (dl + dr) * c.k.element_size()
+    fixed = (dl * H * (dn + dv) + qn.numel() + qr.numel() + B * H * dv) * 2
+    res = {"card_ms": ms, "host_ms": host, "sequences": B, "heads": H,
+           "table_width_tokens": pmax * ps, "live_tokens": int(sum(K1_LENGTHS))}
+    for what, tokens in (("full_width", B * pmax * ps), ("live", sum(K1_LENGTHS))):
+        nbytes = fixed + tokens * tok_bytes \
+            + (B * pmax * 4 if c.k_scale is not None else 0)
+        flops = 2 * H * (B * dn * dl + tokens * (dl + dr) + tokens * dl + B * dl * dv)
+        res[what] = dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops)),
+                         bytes=nbytes, flops=flops)
+    log(f"{label}: plain MLA decode attention, one layer, {B} sequences (live "
+        f"{res['live_tokens']} tokens, table width {res['table_width_tokens']}): "
+        f"{ms:.4f} card ms ({host:.3f} host ms); bound full width "
+        f"{res['full_width']['bound_ms']:.4f} ms ({res['full_width']['bound_by']}), "
+        f"live {res['live']['bound_ms']:.4f} ms ({res['live']['bound_by']})")
+    return res
 
 
 def _api_calls(prof) -> dict:
@@ -1485,23 +1733,23 @@ def greedy_batch(engine) -> list:
     return [list(r.output_tokens) for r in reqs]
 
 
-def compare_eager(cfg, prompt, label) -> dict:
+def compare_eager(cfg, prompt, label, metadata=None) -> dict:
     """The greedy batch of a fresh engine of ``cfg`` (captured windows)
     against that of the same engine with the eager reference decode loop
-    (same config, seed and weights); then the eager engine's one-sequence
-    decode: tok/s, ITL and launches a step."""
+    (same config, ``metadata``, seed and weights); then the eager engine's
+    one-sequence decode: tok/s, ITL and launches a step."""
     import dataclasses
 
     import torch
 
     from kaito_tpu_torch.engine.engine import InferenceEngine
 
-    eng = InferenceEngine(cfg, device="cuda")
+    eng = InferenceEngine(cfg, device="cuda", metadata=metadata)
     got = greedy_batch(eng)
     del eng
     _release_card(torch)
     ref = InferenceEngine(dataclasses.replace(cfg, async_dispatch=False),
-                          device="cuda", _eager_decode=True)
+                          device="cuda", metadata=metadata, _eager_decode=True)
     try:
         want = greedy_batch(ref)
         if got != want:
@@ -1735,31 +1983,44 @@ def sweep_run_ahead(engine, values=(1, 2, 4, 8, 16), reps=6):
 
 
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
-_LLAMA, _GPT_OSS = "llama-3.1-8b-instruct", "gpt-oss-20b"
-# the server legs of phases 4-7: (name for --leg, label, model, server
-# flags, counters that must grow, burst, tensor-parallel degree)
+_LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
+_GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
+                  "flash_prefill_attention", "flash_prefill_packed")
+# the server legs of phases 4-8: (name for --leg, label, model, server
+# flags, counters that must grow, burst, tensor-parallel degree, the
+# depth the model is cut to (None: whole), counters that must stay 0)
 LEGS = (("bf16", "phase 4, bf16", _LLAMA, [],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
-         True, 1),
+         True, 1, None, ()),
         ("int4-kv8", "phase 5, int4 weights + int8 KV", _LLAMA,
          ["--quantization", "int4", "--kv-cache-dtype", "int8"],
          ("quant_matmul_int4", "quant_matmul_int4_wide",
-          "paged_decode_attention_int8kv"), True, 1),
+          "paged_decode_attention_int8kv"), True, 1, None, ()),
         ("int8", "phase 5, int8 weights", _LLAMA, ["--quantization", "int8"],
-         ("quant_matmul_int8", "quant_matmul_int8_wide"), False, 1),
+         ("quant_matmul_int8", "quant_matmul_int8_wide"), False, 1, None, ()),
         ("bf16-async", "phase 5, bf16, async dispatch", _LLAMA, ["--async-dispatch"],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
-         True, 1),
+         True, 1, None, ()),
         ("tp2-int4-kv8", "phase 6, TP=2 int4 weights + int8 KV, comm overlap", _LLAMA,
          ["--quantization", "int4", "--kv-cache-dtype", "int8", *_TP2],
          ("quant_matmul_int4_pf", "quant_matmul_int4", "paged_decode_attention_int8kv",
-          "flash_prefill_attention", "flash_prefill_packed"), True, 2),
+          "flash_prefill_attention", "flash_prefill_packed"), True, 2, None, ()),
         ("tp2-int8", "phase 6, TP=2 int8 weights, comm overlap", _LLAMA,
          ["--quantization", "int8", *_TP2],
-         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2),
+         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2, None, ()),
         ("moe-bf16", "phase 7, gpt-oss-20b MoE, bf16", _GPT_OSS, [],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
-         True, 1))
+         True, 1, None, ()),
+        # DeepSeek-V3 at its published widths, 61 layers cut to the 3 dense
+        # and 2 MoE layers (1.34 TB in bf16 whole; 53 GB so)
+        ("mla-bf16", "phase 8, DeepSeek-V3 MLA + MoE (5 of 61 layers), bf16",
+         _DEEPSEEK, [], (), True, 1, 5, _GQA_ATTENTION),
+        # 3 dense + 1 MoE layer: every call widens the int8 expert stack
+        # whole (ROADMAP item 36; 7.5 GB a projection), and the window's
+        # graph pool keeps that room, so one MoE layer keeps the peak low
+        ("mla-int8-kv8", "phase 8, DeepSeek-V3 (4 of 61 layers), int8 weights + "
+         "int8 KV", _DEEPSEEK, ["--quantization", "int8", "--kv-cache-dtype", "int8"],
+         ("quant_matmul_int8", "quant_matmul_int8_wide"), True, 1, 4, _GQA_ATTENTION))
 
 
 def _watchdog(seconds: float) -> None:
@@ -1834,6 +2095,7 @@ def main(argv=None) -> int:
                 check_decode(torch, records, logs)
                 check_flash(torch, records)
                 check_quant_matmul(torch, records, logs)
+                check_quant_matmul_deepseek(torch, records)
                 check_quant_matmul_pf(torch, records)
                 check_quant_graph(torch, records)
             if args.phase2_only:
@@ -1850,6 +2112,8 @@ def main(argv=None) -> int:
             if not alone:
                 golden_err["tiny-moe-real fp32 async"] = check_goldens(
                     "fp32", async_on=True, model="tiny-moe-real")
+            for sec in () if alone else GOLDEN_MODES:
+                golden_err[f"tiny MLA {sec}"] = check_mla_tiny(sec)
             if not alone:
                 golden_err["fp32 TP=2 overlap=True async"] = check_goldens(
                     "fp32", 2, True, async_on=True)
@@ -1864,18 +2128,21 @@ def main(argv=None) -> int:
             # ring hop with none
             placements = ((", two cards", False), (", one card", True)) \
                 if torch.cuda.device_count() >= 2 else (("", True),)
-            legs = [(label + where, model, flags, counted, burst, tp, shared)
-                    for name, label, model, flags, counted, burst, tp in LEGS
-                    if args.leg in (None, name)
+            legs = [(label + where, model, flags, counted, burst, tp, shared, layers,
+                     absent)
+                    for name, label, model, flags, counted, burst, tp, layers, absent
+                    in LEGS if args.leg in (None, name)
                     for where, shared in (placements if tp > 1 else (("", False),))]
             if args.first_leg_only:
                 legs = legs[:1]
             stats = {}
-            for i, (label, model, flags, counted, burst, tp, shared) in enumerate(legs):
+            for i, (label, model, flags, counted, burst, tp, shared, layers,
+                    absent) in enumerate(legs):
                 launches, stats[label] = run_server_phase(
                     flags, counted, label, burst=burst,
                     run_ahead_sweep=args.sweep_run_ahead and i == 0,
-                    profile=args.profile, tp=tp, shared=shared, model=model)
+                    profile=args.profile, tp=tp, shared=shared, model=model,
+                    layers=layers, absent=absent)
                 _release_card(torch)
                 for name in launches:
                     if launches[name] <= 0:

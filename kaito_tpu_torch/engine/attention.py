@@ -4,10 +4,19 @@ Counterparts of ``kaito_tpu.engine.attention``, with the same
 arguments and the same arithmetic: fp32 scores and softmax, normalised
 probabilities cast to the value dtype before the PV product.  The
 tests hold them against the JAX package, and the kernels of
-``engine.ops`` against them.  Only :func:`paged_context_attention` is
-on the model's path: it has no kernel in the JAX package either, and
-serves prompt chunks that follow earlier chunks (prompts longer than
-``max_prefill_tokens``) on the card as well.
+``engine.ops`` against them.  Of the GQA functions only
+:func:`paged_context_attention` is on the model's path: it has no
+kernel in the JAX package either, and serves prompt chunks that follow
+earlier chunks (prompts longer than ``max_prefill_tokens``) on the card
+as well.
+
+The three MLA functions (DeepSeek-style latent attention) are the
+model's whole MLA path, on the card too: the JAX package computes them
+as plain einsums, outside any Pallas kernel.  The paged two gather the
+latent pages over the full page-table width, as the JAX functions do,
+so a captured decode window holds them, and use the absorbed form:
+``q_nope`` is projected into latent space, scores and the output are
+latent products in fp32, and ``W_uv`` expands the output.
 """
 
 from __future__ import annotations
@@ -192,3 +201,137 @@ def paged_decode_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype), v)
     return out.reshape(B, H, D)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-style latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_prefill_attention(
+    q_nope: torch.Tensor,       # [B, T, H, dn]
+    q_rope: torch.Tensor,       # [B, T, H, dr] (roped)
+    c_kv: torch.Tensor,         # [B, T, dl] normalized latent
+    k_rope: torch.Tensor,       # [B, T, dr] (roped, shared across heads)
+    kv_b_k: torch.Tensor,       # [dl, H*dn]
+    kv_b_v: torch.Tensor,       # [dl, H*dv]
+    *,
+    scale: float,
+    true_len: Optional[torch.Tensor] = None,   # [B]
+) -> torch.Tensor:
+    """Latent attention over a fresh chunk (positions 0..T-1): per-head
+    K/V expanded from the latent, scores ``q_nope . k_nope + q_rope .
+    k_rope`` in fp32, the causal (and ``true_len``) mask, probabilities
+    cast to V's dtype.  Returns [B, T, H, dv]."""
+    B, T, H, dn = q_nope.shape
+    dv = kv_b_v.shape[1] // H
+    k_nope = (c_kv @ kv_b_k).reshape(B, T, H, dn)
+    v = (c_kv @ kv_b_v).reshape(B, T, H, dv)
+    s = torch.einsum("bthd,bshd->bhts", q_nope.float(), k_nope.float())
+    s = s + torch.einsum("bthd,bsd->bhts", q_rope.float(), k_rope.float())
+    s = s * scale
+    pos = torch.arange(T, device=q_nope.device)
+    mask = (pos[None, :] <= pos[:, None])[None].expand(B, T, T)
+    if true_len is not None:
+        mask = mask & (pos[None, None, :] < true_len.long()[:, None, None])
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v)
+
+
+def _latent_pages(cache_latent: torch.Tensor, page_tables: torch.Tensor,
+                  layer: Optional[int], latent_scale: Optional[torch.Tensor],
+                  kv_lora_rank: int):
+    """(c_kv, k_rope) of every page of ``page_tables`` [B, pmax]:
+    [B, pmax * ps, dl] and [B, pmax * ps, dr], scaled to fp32 when the
+    pool is int8 (``latent_scale`` [P, 1] / [Lg, P, 1]), else in the
+    pool's dtype."""
+    pt = page_tables.long()
+    lat = _layer_view(cache_latent, layer)[pt][:, :, :, 0]   # [B, pmax, ps, dl+dr]
+    if latent_scale is not None:
+        sl = _layer_view(latent_scale, layer)[pt]             # [B, pmax, 1]
+        lat = lat.float() * sl[..., None]
+    B, pmax, ps, dtot = lat.shape
+    lat = lat.reshape(B, pmax * ps, dtot)
+    return lat[..., :kv_lora_rank], lat[..., kv_lora_rank:]
+
+
+def mla_paged_context_attention(
+    q_nope: torch.Tensor,        # [B, T, H, dn] chunk queries
+    q_rope: torch.Tensor,        # [B, T, H, dr] (roped)
+    cache_latent: torch.Tensor,  # [P, ps, 1, dl+dr] (chunk latent already written)
+    page_tables: torch.Tensor,   # [B, pmax]
+    start_pos: torch.Tensor,     # [B] absolute position of q[:, 0]
+    true_lens: torch.Tensor,     # [B] valid NEW tokens in the chunk
+    kv_b_k: torch.Tensor,        # [dl, H*dn]
+    kv_b_v: torch.Tensor,        # [dl, H*dv]
+    *,
+    scale: float,
+    kv_lora_rank: int,
+    layer: Optional[int] = None,
+    latent_scale: Optional[torch.Tensor] = None,   # int8 pool: [P, 1] / [Lg, P, 1]
+) -> torch.Tensor:
+    """Chunked MLA prefill WITH prior context: the chunk's queries attend
+    over the whole paged latent history (earlier chunks + this one) with
+    absolute-position causal masking, in the absorbed form.  Returns
+    [B, T, H, dv] in q's dtype."""
+    B, T, H, dn = q_nope.shape
+    dl = kv_lora_rank
+    dv = kv_b_v.shape[1] // H
+    c_kv, k_rope = _latent_pages(cache_latent, page_tables, layer, latent_scale, dl)
+    S = c_kv.shape[1]
+    c_kv = c_kv.float()
+    q_lat = torch.einsum("bthd,lhd->bthl", q_nope.float(),
+                         kv_b_k.reshape(dl, H, dn).float())
+    s = torch.einsum("bthl,bsl->bhts", q_lat, c_kv)
+    s = s + torch.einsum("bthd,bsd->bhts", q_rope.float(), k_rope.float())
+    s = s * scale
+    dev = q_nope.device
+    q_pos = start_pos.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    k_pos = torch.arange(S, device=dev)[None, :]
+    mask = k_pos[:, None, :] <= q_pos[:, :, None]                 # [B, T, S]
+    end = start_pos.long() + true_lens.long()
+    mask = mask & (k_pos < end[:, None])[:, None, :]
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out_lat = torch.einsum("bhts,bsl->bthl", p, c_kv)
+    out = torch.einsum("bthl,lhd->bthd", out_lat,
+                       kv_b_v.reshape(dl, H, dv).float())
+    return out.to(q_nope.dtype)
+
+
+def mla_paged_decode_attention(
+    q_nope: torch.Tensor,        # [B, H, dn]
+    q_rope: torch.Tensor,        # [B, H, dr]
+    cache_latent: torch.Tensor,  # [P, ps, 1, dl+dr]
+    page_tables: torch.Tensor,   # [B, pmax]
+    lengths: torch.Tensor,       # [B] tokens in cache INCLUDING the new one
+    kv_b_k: torch.Tensor,        # [dl, H*dn]
+    kv_b_v: torch.Tensor,        # [dl, H*dv]
+    *,
+    scale: float,
+    kv_lora_rank: int,
+    layer: Optional[int] = None,
+    latent_scale: Optional[torch.Tensor] = None,   # int8 pool: [P, 1] / [Lg, P, 1]
+) -> torch.Tensor:
+    """One query token per sequence over its paged latent history, in
+    the absorbed form: ``q_lat = q_nope . W_uk`` per head, scores
+    ``q_lat . c_kv + q_rope . k_rope`` and the latent output in fp32,
+    expanded by ``W_uv``; no per-token K/V is formed.  Returns
+    [B, H, dv] in q's dtype."""
+    B, H, dn = q_nope.shape
+    dl = kv_lora_rank
+    dv = kv_b_v.shape[1] // H
+    c_kv, k_rope = _latent_pages(cache_latent, page_tables, layer, latent_scale, dl)
+    S = c_kv.shape[1]
+    c_kv = c_kv.float()
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope.float(),
+                         kv_b_k.reshape(dl, H, dn).float())
+    s = torch.einsum("bhl,bsl->bhs", q_lat, c_kv)
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(), k_rope.float())
+    s = s * scale
+    s_pos = torch.arange(S, device=q_nope.device)[None, :]
+    s = torch.where((s_pos < lengths.long()[:, None])[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out_lat = torch.einsum("bhs,bsl->bhl", p, c_kv)
+    out = torch.einsum("bhl,lhd->bhd", out_lat, kv_b_v.reshape(dl, H, dv).float())
+    return out.to(q_nope.dtype)

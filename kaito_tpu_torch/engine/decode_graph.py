@@ -29,6 +29,11 @@ fails raises; nothing falls back to eager.  Without capture (the CPU,
 or a tensor-parallel engine, one process over several devices) the same
 body runs eagerly on the same buffers.
 
+The body is whatever the engine's step runs: an MLA model's step (the
+latent page writes, int8 ones included, the gather over the full-width
+page tables and the absorbed products, all plain torch) is captured the
+same way, since none of it reads anything back to the host.
+
 Launch counts.  A kernel wrapper adds one to its counter where it
 launches its kernel; under capture that launch is only recorded.  The
 window takes the capture's additions back, keeps them as the graph's

@@ -35,7 +35,9 @@ tensor-parallel engine is one process driving every device of its mesh
 one device; without one, ``tensor_parallel=n`` takes the first n cards.
 MoE models serve on one device with the JAX engine's ragged expert
 semantics (``model.moe_impl_for`` picks how the products run); a
-tensor-parallel MoE engine raises.
+tensor-parallel MoE engine raises.  MLA models serve on one device from
+a latent page pool, their fresh prompts batched per bucket instead of
+segment-packed; a tensor-parallel MLA engine raises.
 Not ported yet, and rejected at construction with the ROADMAP item that
 carries them: speculation, adapters, pipeline, data,
 sequence and expert parallelism, the KV pool, host offload and P/D, the
@@ -814,8 +816,10 @@ class InferenceEngine:
         """Token-budget prefill (docs/prefill.md): a PACK of staged slots,
         in admission order, whose chunks fill ``max_prefill_tokens`` as
         an aggregate budget.  Fresh-complete prompts segment-pack into
-        one row (a single one takes the fresh family); continuation
-        chunks batch on the batch axis per bucket."""
+        one row (a single one takes the fresh family; an MLA model, which
+        has no packed prefill, batches them on the batch axis per
+        bucket); continuation chunks batch on the batch axis per
+        bucket."""
         staged = sorted(self._staged(), key=lambda i: self.slots[i].seq)
         if not staged:
             return False
@@ -836,10 +840,14 @@ class InferenceEngine:
             left -= take
         if not picks:
             return False
+        mla = self.model.is_mla
         groups: dict[tuple, list] = {}
         for p in picks:
             _, pos, take, n = p
-            gk = ("seg",) if pos == 0 and take == n else ("ctx", self._bucket(take))
+            if pos == 0 and take == n:
+                gk = ("fresh", self._bucket(take)) if mla else ("seg",)
+            else:
+                gk = ("ctx", self._bucket(take))
             groups.setdefault(gk, []).append(p)
         completed = []
         for gk, rows in groups.items():
@@ -1059,18 +1067,11 @@ class InferenceEngine:
     # Decode
     # ------------------------------------------------------------------
 
-    def _decode_inputs(self, steps: int = 1):
-        """Device inputs of the eager reference loop's window of ``steps``
-        decode steps.  The page tables are cut to the columns the
-        window's writes reach, so the host copies only those (the decode
-        kernel's grid does not depend on the width)."""
-        ps = self.cfg.page_size
-        live = self.positions[self.active]
-        hi = int(live.max()) + steps - 1 if live.size else 0
-        cols = min(self.pages_per_seq, hi // ps + 1)
+    def _decode_inputs(self):
+        """Device inputs of the eager reference loop's decode steps, the
+        page tables at the full width the decode window passes."""
         return (self._tensor(self.last_tokens), self._tensor(self.positions),
-                self._tensor(self.page_tables[:, :cols]),
-                self._tensor(self.active))
+                self._tensor(self.page_tables), self._tensor(self.active))
 
     def _decode_step(self, tok, pos, pt, act):
         """One model step + sampling on the device; (next, logprob)."""
@@ -1174,7 +1175,7 @@ class InferenceEngine:
         if self.window is not None:
             self._decode_window(K)
             return
-        tok, pos, pt, act = self._decode_inputs(K)
+        tok, pos, pt, act = self._decode_inputs()
         (toks, acts, lps), _ = run_steps(self._decode_step, K, tok, pos, pt, act,
                                          self._tensor(self._remaining),
                                          self._stop_matrix())

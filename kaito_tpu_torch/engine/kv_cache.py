@@ -8,6 +8,11 @@ contiguous ``[page_size, kv_heads, head_dim]`` block and a decode write
 is one ``[kv_heads, head_dim]`` row, which the decode kernel reads back
 row by row straight from the pool.
 
+An MLA model caches one latent stream, ``[c_kv ; k_rope]`` of width
+``kv_lora_rank + qk_rope_head_dim``, as a single head: ``k`` holds it
+and ``v`` is a zero-size placeholder, as in the JAX package; every
+write above then runs on ``k`` with ``Hkv = 1``.
+
 Page 0 is the null page: unused page-table slots point at it, so reads
 stay in bounds and masking is done by length; writes of padding tokens
 and inactive rows land there.
@@ -82,20 +87,20 @@ def create_kv_cache(arch: ModelArch, num_pages: int, page_size: int,
                     device: str | torch.device = "cuda") -> KVCache:
     """Zeroed pools on ``device`` (the card unless the CPU is asked for);
     int8 pools come with zero scales, which dequantize the zeroed pool to
-    exact zeros and only grow as tokens land."""
-    if arch.attention_kind == AttentionKind.MLA:
-        raise NotImplementedError(
-            "MLA latent caches are not ported yet (ROADMAP queue 1, M17)")
+    exact zeros and only grow as tokens land.  An MLA model gets its
+    latent pool in ``k`` and a zero-size ``v``; an int8 latent pool
+    keeps both scale pools, as the JAX package allocates them."""
     device = resolve_device(device)
-    shape = (arch.num_layers, num_pages, page_size, arch.num_kv_heads,
-             arch.head_dim)
+    shape = (arch.num_layers, num_pages, page_size, arch.kv_cache_heads,
+             arch.kv_cache_dim)
     k_scale = v_scale = None
     if kv_cache_is_quantized(dtype):
-        sshape = (arch.num_layers, num_pages, arch.num_kv_heads)
+        sshape = (arch.num_layers, num_pages, arch.kv_cache_heads)
         k_scale = torch.zeros(sshape, dtype=torch.float32, device=device)
         v_scale = torch.zeros(sshape, dtype=torch.float32, device=device)
+    vshape = shape[:-1] + (0,) if arch.attention_kind == AttentionKind.MLA else shape
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(vshape, dtype=dtype, device=device),
                    k_scale=k_scale, v_scale=v_scale)
 
 
@@ -115,12 +120,13 @@ def create_sharded_kv_cache(arch: ModelArch, devices: Sequence[torch.device],
 
 
 def kv_bytes(cache) -> int:
-    """Device bytes of a cache, or of a list of shard caches."""
+    """Device bytes of a cache, or of a list of shard caches: both pools
+    (an MLA pool's ``v`` holds nothing) and their scales."""
     if isinstance(cache, list):
         return sum(kv_bytes(c) for c in cache)
-    total = 2 * cache.k.numel() * cache.k.element_size()
+    total = (cache.k.numel() + cache.v.numel()) * cache.k.element_size()
     if cache.quantized:
-        total += 2 * cache.k_scale.numel() * 4
+        total += (cache.k_scale.numel() + cache.v_scale.numel()) * 4
     return total
 
 

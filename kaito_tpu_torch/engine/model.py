@@ -1,4 +1,4 @@
-"""Config-driven transformer LM: dense GQA and token-choice MoE families.
+"""Config-driven transformer LM: dense GQA, MLA and token-choice MoE families.
 
 Counterpart of ``kaito_tpu.engine.model``.  Parameters keep the JAX
 package's stacked layout — one ``[num_layers, ...]`` tensor per layer
@@ -23,8 +23,14 @@ expert stacks ``[L, X, in, out]`` (``nn.moe_mlp_ragged``).  How the
 expert products run is :data:`TransformerLM.moe_impl`, fixed by device
 and dtype (:func:`moe_impl_for`).
 
-MLA attention and yarn/longrope rope scaling are not ported yet and
-raise.
+MLA (DeepSeek-style latent attention, ``arch.kv_lora_rank`` set)
+replaces q/k/v with the latent projections of ``_layer_specs``: one
+latent stream ``[c_kv ; k_rope]`` is written to the pool and attention
+runs through the three ``attention.mla_*`` functions (plain torch, as
+the JAX package computes them), with rope tables over
+``qk_rope_head_dim``.  Its prompts never segment-pack.
+
+yarn/longrope rope scaling is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -181,6 +187,9 @@ LOGICAL_AXES: dict[str, tuple] = {
     "experts_down": ("expert", "intermediate", "embed"),
     "shared_gate": ("embed", "intermediate"),
     "shared_up": ("embed", "intermediate"), "shared_down": ("intermediate", "embed"),
+    "q_a": ("embed", None), "q_a_norm": (None,), "q_b": (None, "heads"),
+    "kv_a": ("embed", None), "kv_a_norm": (None,),
+    "kv_b_k": (None, "heads"), "kv_b_v": (None, "heads"),
 }
 
 # the embedding stays replicated on every shard: the lookup is exact
@@ -207,9 +216,14 @@ def check_tensor_parallel(arch: ModelArch, n: int, quantization: str = "") -> No
     """Raise ValueError when ``n`` shards cannot split this model: heads,
     KV heads, intermediate width and the padded vocabulary must divide,
     and under int4 every shard of the row-parallel o and down weights
-    must own whole groups of ``INT4_GROUP`` in-rows.  A MoE model at
-    ``n`` > 1 raises NotImplementedError: its expert stacks have no
-    split yet."""
+    must own whole groups of ``INT4_GROUP`` in-rows.  An MLA or MoE
+    model at ``n`` > 1 raises NotImplementedError: the latent pool and
+    the expert stacks have no split yet."""
+    if n > 1 and arch.attention_kind == AttentionKind.MLA:
+        raise NotImplementedError(
+            f"tensor_parallel={n} with MLA attention: the latent pool and its "
+            f"heads have no tensor-parallel split yet (ROADMAP queue 1, M17 "
+            f"item 40: MLA at TP >= 2)")
     if n > 1 and arch.num_experts > 0:
         raise NotImplementedError(
             f"tensor_parallel={n} with a MoE model: the expert stacks have no "
@@ -292,8 +306,8 @@ def _leaves(tree: dict):
 
 
 class TransformerLM(tnn.Module):
-    """GQA transformer, dense or MoE; parameters live in the module, KV
-    pools in an explicit :class:`KVCache` written in place.
+    """GQA or MLA transformer, dense or MoE; parameters live in the
+    module, KV pools in an explicit :class:`KVCache` written in place.
 
     ``moe_impl`` is how MoE layers compute: "dense" (:func:`nn.moe_mlp`),
     "ragged" or "grouped" (:func:`nn.moe_mlp_ragged` sized on the host or
@@ -304,9 +318,7 @@ class TransformerLM(tnn.Module):
                  device: str | torch.device = "cuda",
                  vocab_shard: tuple[int, int] = (0, 1)):
         super().__init__()
-        if arch.attention_kind == AttentionKind.MLA:
-            raise NotImplementedError(
-                "MLA attention is not ported yet (ROADMAP queue 1, M17)")
+        self.is_mla = arch.attention_kind == AttentionKind.MLA
         self.arch = arch
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -316,7 +328,10 @@ class TransformerLM(tnn.Module):
         # (rank, n): this model's rows of the logits head when it is one
         # shard of a TensorParallelLM; (0, 1) holds the whole head
         self.vocab_shard = vocab_shard
-        self._inv_freq_global = nn.rope_frequencies(arch, self.device)
+        # MLA ropes only its qk_rope_head_dim slice, at full rotation
+        rope_arch = (replace(arch, head_dim=arch.qk_rope_head_dim or 64,
+                             partial_rotary_factor=1.0) if self.is_mla else arch)
+        self._inv_freq_global = nn.rope_frequencies(rope_arch, self.device)
         self._rope_mscale = nn.rope_attention_factor(arch)
         self._inv_freq_local = self._inv_freq_global
         # the embedding multiplier as a device scalar, made once: a copy
@@ -337,17 +352,35 @@ class TransformerLM(tnn.Module):
     # Parameters
     # ------------------------------------------------------------------
 
+    def _mla_dims(self) -> tuple[int, int, int, int]:
+        """(qk_nope_head_dim, qk_rope_head_dim, v_head_dim, kv_lora_rank)
+        with the JAX package's defaults."""
+        a = self.arch
+        return (a.qk_nope_head_dim or a.head_dim, a.qk_rope_head_dim or 64,
+                a.v_head_dim or a.head_dim, a.kv_lora_rank or 512)
+
     def _layer_specs(self, moe: bool = False) -> dict[str, tuple[int, ...]]:
         a = self.arch
         E, H, Hkv, D, I = (a.hidden_size, a.num_heads, a.num_kv_heads,
                            a.head_dim, a.intermediate_size)
-        specs = {
-            "attn_norm": (E,),
-            "q": (E, H * D),
-            "k": (E, Hkv * D),
-            "v": (E, Hkv * D),
-            "o": (H * D, E),
-        }
+        if self.is_mla:
+            dn, dr, dv, dl = self._mla_dims()
+            specs = {"attn_norm": (E,), "kv_a": (E, dl + dr), "kv_a_norm": (dl,),
+                     "kv_b_k": (dl, H * dn), "kv_b_v": (dl, H * dv),
+                     "o": (H * dv, E)}
+            if a.q_lora_rank:
+                specs.update({"q_a": (E, a.q_lora_rank), "q_a_norm": (a.q_lora_rank,),
+                              "q_b": (a.q_lora_rank, H * (dn + dr))})
+            else:
+                specs["q"] = (E, H * (dn + dr))
+        else:
+            specs = {
+                "attn_norm": (E,),
+                "q": (E, H * D),
+                "k": (E, Hkv * D),
+                "v": (E, Hkv * D),
+                "o": (H * D, E),
+            }
         if a.qkv_bias or a.linear_bias:
             specs.update({"q_bias": (H * D,), "k_bias": (Hkv * D,),
                           "v_bias": (Hkv * D,)})
@@ -521,6 +554,10 @@ class TransformerLM(tnn.Module):
     @property
     def _scale(self) -> float:
         a = self.arch
+        if self.is_mla:
+            # the JAX package's yarn mscale term is reached only through
+            # yarn rope, which rope_attention_factor refuses (item 26)
+            return 1.0 / math.sqrt(self._mla_dims()[0] + (a.qk_rope_head_dim or 0))
         denom = a.query_pre_attn_scalar if a.query_pre_attn_scalar else a.head_dim
         return 1.0 / math.sqrt(denom)
 
@@ -562,7 +599,8 @@ class TransformerLM(tnn.Module):
     def _layer(self, x, p, cache: KVCache, li: int, mode: str, moe: bool, **kw):
         """One transformer block over layer ``li`` of the pools."""
         h = self._norm(x, p, "attn_norm")
-        o_in = self._attention(h, p, cache, li, mode, **kw)
+        attend = self._mla_attention if self.is_mla else self._attention
+        o_in = attend(h, p, cache, li, mode, **kw)
         x, h2 = self._attn_residual(x, h, nn.linear(o_in, p["o"]), p)
         return self._mlp_residual(x, self._mlp(h2, p, moe, kw["active"]), p)
 
@@ -652,6 +690,86 @@ class TransformerLM(tnn.Module):
                 scale=self._scale, softcap=softcap, layer=li,
                 k_scale=ks, v_scale=vs)[:, None]
         return out.reshape(B, T, a.num_heads * a.head_dim)
+
+    def _mla_attention(self, h, p, cache: KVCache, li: int, mode: str, *,
+                       positions, page_tables, lengths, true_lens, active,
+                       start_pos=None):
+        """Latent attention (``kaito_tpu.engine.model._mla_attention``):
+        q through ``q_a``/``q_b`` (or ``q``), the latent ``[c_kv ; k_rope]``
+        through ``kv_a``, written to layer ``li`` of the latent pool (the
+        int8 write folds one scale a page over the whole row); a fresh
+        chunk attends with K/V expanded from its own latent, a later
+        chunk and decode over the paged latent in the absorbed form.
+        Returns the attention-out projection's input [B, T, H * dv]."""
+        a = self.arch
+        B, T, _ = h.shape
+        H = a.num_heads
+        dn, dr, dv, dl = self._mla_dims()
+        if "q_a" in p:
+            q_lat = nn.rms_norm(nn.linear(h, p["q_a"]), p["q_a_norm"],
+                                a.rms_norm_eps, False)
+            q = nn.linear(q_lat, p["q_b"])
+        else:
+            q = nn.linear(h, p["q"])
+        q = q.reshape(B, T, H, dn + dr)
+        q_nope = q[..., :dn]
+        q_rope = nn.apply_rope(q[..., dn:], positions, self._inv_freq_global, dr,
+                               mscale=self._rope_mscale)
+        kv = nn.linear(h, p["kv_a"])                              # [B, T, dl+dr]
+        c_kv = nn.rms_norm(kv[..., :dl], p["kv_a_norm"], a.rms_norm_eps, False)
+        k_rope = nn.apply_rope(kv[..., dl:][:, :, None, :], positions,
+                               self._inv_freq_global, dr,
+                               mscale=self._rope_mscale)[:, :, 0]
+        latent = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]  # [B, T, 1, dl+dr]
+        ck, ks = cache.k, cache.k_scale     # one stream; ks None unless int8
+        ps = ck.shape[2]
+        wk, wv = p["kv_b_k"], p["kv_b_v"]
+        if mode == "prefill":
+            start = (start_pos if start_pos is not None
+                     else torch.zeros((B,), dtype=torch.int32, device=h.device))
+            if ks is not None:
+                write_prefill_tokens_q(ck, ks, latent, page_tables, start, true_lens,
+                                       ps, layer=li)
+            else:
+                write_prefill_tokens(ck, latent, page_tables, start, true_lens, ps,
+                                     layer=li)
+            if start_pos is not None:
+                out = attn.mla_paged_context_attention(
+                    q_nope, q_rope, ck, page_tables, start, true_lens, wk, wv,
+                    scale=self._scale, kv_lora_rank=dl, layer=li, latent_scale=ks)
+            else:
+                out = attn.mla_prefill_attention(q_nope, q_rope, c_kv, k_rope, wk, wv,
+                                                 scale=self._scale, true_len=true_lens)
+        elif mode == "decode":
+            pos0 = positions[:, 0]
+            if ks is not None:
+                write_decode_tokens_q(ck, ks, latent[:, 0], page_tables, pos0, ps,
+                                      active, layer=li)
+            else:
+                write_decode_tokens(ck, latent[:, 0], page_tables, pos0, ps, active,
+                                    layer=li)
+            out = self._mla_decode(cache, q_nope[:, 0], q_rope[:, 0], page_tables,
+                                   lengths, p, li)[:, None]
+        else:
+            raise NotImplementedError(f"MLA attention has no {mode!r} mode")
+        return out.reshape(B, T, H * dv)
+
+    def _mla_decode(self, cache: KVCache, q_nope, q_rope, page_tables, lengths, p,
+                    li: int):
+        return attn.mla_paged_decode_attention(
+            q_nope, q_rope, cache.k, page_tables, lengths, p["kv_b_k"], p["kv_b_v"],
+            scale=self._scale, kv_lora_rank=self._mla_dims()[3], layer=li,
+            latent_scale=cache.k_scale)
+
+    def mla_decode_attention(self, cache: KVCache, q_nope, q_rope, page_tables,
+                             lengths, layer: int = 0):
+        """Layer ``layer``'s MLA decode attention over the latent pool of
+        ``cache``, as a decode step runs it: queries q_nope [B, H, dn] and
+        q_rope [B, H, dr] (rope applied), page tables [B, pmax], lengths
+        [B] -> [B, H, dv]."""
+        g = next(g for g in self.groups if g.start <= layer < g.start + g.count)
+        return self._mla_decode(cache, q_nope, q_rope, page_tables, lengths,
+                                self._layer_params(g, layer - g.start), layer)
 
     def _attn_residual(self, x, h, attn_out, p):
         """The residual after attention: (x, the MLP's input)."""
@@ -777,6 +895,10 @@ class TransformerLM(tnn.Module):
         and tok_pgslot ([T] each token's index into them, n_pg for
         pads).  Returns (cache, last_logits [S, V] fp32, last_hidden
         [S, E])."""
+        if self.is_mla:
+            raise NotImplementedError(
+                "segment-packed prefill is not implemented for MLA attention; "
+                "the engine batches fresh MLA prompts on the batch axis instead")
         if cache.quantized and (pack_pages is None or tok_pgslot is None):
             raise ValueError("an int8 KV cache needs pack_pages and tok_pgslot")
         x, kw = self._packed_in(tokens, seg_ids, positions, tok_pages, pack_pages,
@@ -840,6 +962,7 @@ class TensorParallelLM:
         # the full-width model: names, shapes and synthetic draws (no
         # weights of its own)
         self.spec = TransformerLM(arch, dtype, self.device)
+        self.is_mla = self.spec.is_mla
         self.groups = self.spec.groups
         self.vocab_padded = self.spec.vocab_padded
         self.overlap = False       # the engine's comm-overlap gate

@@ -33,9 +33,10 @@ import torch
 
 from kaito_tpu_torch.models.metadata import ModelArch
 
-# layer-stack keys whose matmuls dequantize on use (the MLA keys are kept
-# so a tree of that family quantizes the same way once it is ported); an
-# expert stack [L, X, in, out] quantizes per (layer, expert, out column)
+# layer-stack keys whose matmuls dequantize on use: dense attention and
+# MLP, MLA's latent projections (kv_b_k / kv_b_v stay plain), expert
+# stacks, which quantize per (layer, expert, out column) of [L, X, in,
+# out], and shared experts
 QUANT_KEYS = (
     "q", "k", "v", "o", "gate", "up", "down",
     "q_a", "q_b", "kv_a",

@@ -17,7 +17,8 @@ from kaito_tpu.engine.kv_cache import create_kv_cache as j_cache
 from kaito_tpu.engine.model import TransformerLM as JaxLM
 from kaito_tpu.models import get_model_by_name as jax_model
 from kaito_tpu_torch.engine.kv_cache import create_kv_cache as t_cache
-from kaito_tpu_torch.engine.model import TransformerLM, params_from_jax
+from kaito_tpu_torch.engine.model import (TransformerLM, check_tensor_parallel,
+                                          params_from_jax)
 from kaito_tpu_torch.models import get_model_by_name
 from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -183,6 +184,10 @@ def test_synthetic_init_is_seeded_and_scaled():
 
 @pytest.mark.parametrize("preset,item", [("deepseek-v3-0324", "M17")])
 def test_unported_families_raise(preset, item):
+    """What the port does not serve of a family raises with its ROADMAP
+    item: DeepSeek-V3 (MLA + MoE) builds, and refuses tensor
+    parallelism."""
     arch = get_model_by_name(preset).arch
+    assert TransformerLM(arch, dtype=torch.float32, device="cpu").is_mla
     with pytest.raises(NotImplementedError, match=item):
-        TransformerLM(arch, dtype=torch.float32, device="cpu")
+        check_tensor_parallel(arch, 2)
