@@ -71,10 +71,14 @@ order; any failure exits non-zero and prints no result:
    SDPA (a boolean mask where a window cuts it) and the bound, which
    counts only the keys the window keeps; K1's plan there is logged.
 3. Goldens: ``tiny-llama-real`` in fp32 through the port's engine on the
-   card must reproduce the ``fp32``, ``int8``, ``weight_int4`` and
-   ``kv_int8`` sections of ``tests/testdata/goldens_tiny-llama-real.json``
-   (greedy tokens exact, logprobs within atol 2e-3), every decode window
-   a replayed CUDA graph; the four again through the async decode loop
+   card, the prefix cache on, must reproduce the ``fp32``, ``int8``,
+   ``weight_int4`` and ``kv_int8`` sections of
+   ``tests/testdata/goldens_tiny-llama-real.json`` (greedy tokens exact,
+   logprobs within atol 2e-3), every decode window a replayed CUDA
+   graph; the four again at page 16 with each prompt served twice, the
+   second run a prefix hit that must take its whole prompt pages from
+   the cache (``kv_int8``'s logprobs there held against a CPU engine's
+   same runs); the four again through the async decode loop
    (``async_dispatch``); then at tensor_parallel 2 (all four) and 4 (all
    but ``weight_int4``, which that degree refuses), each with the
    comm-overlap ring off and on, and fp32 at TP=2 with the ring through
@@ -96,11 +100,24 @@ order; any failure exits non-zero and prints no result:
    response must be well formed and carry its ``max_tokens``; the launch
    counts of K1, K2 and K3, zeroed just before this phase, must each
    have grown (a replayed decode window counts its kernels), and every
-   decode window must have been a graph replay.  TTFT, decode tokens/s
-   and the inter-token gaps of one sequence alone are printed beside the
-   card, with the decode readings of one sequence: host launch and copy
-   calls a decode step and a window, device kernels a step (profiled),
-   the windows' captures, graph pool and kernel nodes.  Then the server stops, the
+   decode window must have been a graph replay.  Cold TTFT (the
+   minimum over three 200-byte prompts new to the prefix cache), decode
+   tokens/s (a cold 129-token run against it) and the inter-token gaps
+   of one sequence alone are printed beside the card; then warm TTFT (a
+   prompt the cache holds: three repeats after one cold run, each
+   taking 192 of its tokens from the cache, and a repeat whose greedy
+   text must be the cold run's; an MLA leg must have no tree and reads
+   none).  The routes: ``/metrics`` must parse, its histograms be
+   cumulative and its prompt, generation and cached-token counters
+   equal the engine's; a request sent with an ``X-Request-Id`` must have
+   its span tree at ``/debug/trace?trace_id=`` and engine steps inside
+   it at ``/debug/timeline``; ``/debug/slo`` must answer and
+   ``/debug/device`` answer 501.  Then the decode readings of one
+   sequence: host launch and copy calls a decode step and a window (on
+   the bf16, int8 and bf16-async legs no more than when decode windows
+   were first captured, PERF.md section 5), device
+   kernels a step (profiled), the windows' captures, graph pool and
+   kernel nodes.  Then the server stops, the
    engine greedily decodes a batch of four prompts step by step, and an
    engine with the eager reference loop (``_eager_decode``; same config,
    seed and weights) must emit the same tokens; its one-sequence tok/s,
@@ -1242,52 +1259,88 @@ def tp_mesh(torch, n, shared=False):
     return build_mesh(tensor=n, devices=["cuda:0"] * n)
 
 
+def _golden_runs(eng, golden, section, runs):
+    """Each golden prompt ``runs`` times in turn through a started
+    engine: [(prompt, run, tokens, logprobs, prompt tokens cached)]."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    out = []
+    for p in golden["prompts"]:
+        for run in range(runs):
+            c0 = eng.counters["prefix_cached_tokens_total"]
+            req = eng.submit(list(p["prompt_tokens"]), SamplingParams(
+                max_tokens=len(p[section]["greedy_tokens"]), temperature=0.0,
+                ignore_eos=True, logprobs=True))
+            got = list(req.stream())
+            out.append((p, run, got, list(req.output_logprobs),
+                        eng.counters["prefix_cached_tokens_total"] - c0))
+    return out
+
+
 def check_goldens(section, tp=1, overlap=False, async_on=False,
-                  model="tiny-llama-real"):
-    """Replay one golden section of ``model``'s checkpoint; at ``tp`` > 1
-    on a :func:`tp_mesh`, with the comm-overlap decode ring on or off;
-    with ``async_on`` through the async decode loop.  At TP=1 the decode
-    windows must run as replayed CUDA graphs."""
+                  model="tiny-llama-real", warm=False):
+    """Replay one golden section of ``model``'s checkpoint, the prefix
+    cache on; at ``tp`` > 1 on a :func:`tp_mesh`, with the comm-overlap
+    decode ring on or off; with ``async_on`` through the async decode
+    loop.  At TP=1 the decode windows must run as replayed CUDA graphs.
+    With ``warm``, at page 16 each prompt is served twice and the second
+    run must take its whole prompt pages from the cache and still match.
+    Over int8 pages (``kv_int8``) the logprobs are held against the same
+    runs of a CPU engine instead: a page's scale covers its 16 tokens
+    (not the goldens' 64), and a reused page keeps the scale it grew."""
     import torch
 
     from kaito_tpu_torch.engine.config import EngineConfig
-    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+    from kaito_tpu_torch.engine.engine import InferenceEngine
 
     golden = json.load(open(os.path.join(
         REPO, "tests", "testdata", f"goldens_{model}.json")))
     quant, kv_dtype = GOLDEN_MODES[section]
-    cfg = EngineConfig(model=model,
-                       weights_dir=os.path.join(REPO, "checkpoints", model),
-                       dtype="float32", kv_dtype=kv_dtype, max_model_len=512,
-                       max_num_seqs=2, prefill_buckets=(64, 128),
-                       enable_prefix_caching=False, quantization=quant, seed=0,
-                       tensor_parallel=tp, comm_overlap=overlap,
-                       async_dispatch=async_on)
-    eng = InferenceEngine(cfg, device="cuda",
+
+    def config():
+        return EngineConfig(model=model,
+                            weights_dir=os.path.join(REPO, "checkpoints", model),
+                            dtype="float32", kv_dtype=kv_dtype, max_model_len=512,
+                            max_num_seqs=2, prefill_buckets=(64, 128),
+                            page_size=16 if warm else 64, quantization=quant,
+                            seed=0, tensor_parallel=tp, comm_overlap=overlap,
+                            async_dispatch=async_on)
+
+    eng = InferenceEngine(config(), device="cuda",
                           mesh=tp_mesh(torch, tp) if tp > 1 else None)
-    if eng.comm_overlap != overlap:
+    if eng.comm_overlap != overlap or eng.prefix_cache is None:
         raise SmokeFailure(f"{section} TP={tp}: comm_overlap={eng.comm_overlap}, "
-                           f"asked {overlap}")
+                           f"asked {overlap}; prefix cache {eng.prefix_cache}")
+    runs = 2 if warm else 1
     eng.start()
-    worst = 0.0
     try:
-        for p in golden["prompts"]:
-            want = p[section]["greedy_tokens"]
-            req = eng.submit(list(p["prompt_tokens"]), SamplingParams(
-                max_tokens=len(want), temperature=0.0, ignore_eos=True,
-                logprobs=True))
-            got = list(req.stream())
-            if got != want:
-                raise SmokeFailure(f"{model} {section} golden tokens differ for "
-                                   f"{p['text']!r}: {got} != {want}")
-            d = max(abs(a - b) for a, b in zip(req.output_logprobs,
-                                               p[section]["logprobs"]))
-            worst = max(worst, d)
-            if d > 2e-3:
-                raise SmokeFailure(f"{model} {section} golden logprobs off by {d:.3g} "
-                                   f"for {p['text']!r}")
+        results = _golden_runs(eng, golden, section, runs)
     finally:
         eng.stop()
+    ref = None
+    if warm and section == "kv_int8":
+        cpu = InferenceEngine(config(), device="cpu")
+        cpu.start()
+        try:
+            ref = _golden_runs(cpu, golden, section, runs)
+        finally:
+            cpu.stop()
+    worst = 0.0
+    for i, (p, run, got, lps, cached) in enumerate(results):
+        want = p[section]
+        if got != want["greedy_tokens"]:
+            raise SmokeFailure(f"{model} {section} golden tokens differ for "
+                               f"{p['text']!r} (run {run}): {got} != "
+                               f"{want['greedy_tokens']}")
+        if cached != (len(p["prompt_tokens"]) // 16 * 16 if run else 0):
+            raise SmokeFailure(f"{model} {section} run {run} of {p['text']!r} took "
+                               f"{cached} cached tokens")
+        d = max(abs(a - b) for a, b in zip(
+            lps, want["logprobs"] if ref is None else ref[i][3]))
+        worst = max(worst, d)
+        if d > 2e-3:
+            raise SmokeFailure(f"{model} {section} golden logprobs off by {d:.3g} "
+                               f"for {p['text']!r} (run {run})")
     if eng.window.capture != (tp == 1) or eng.async_dispatch != async_on:
         raise SmokeFailure(f"{section} TP={tp}: capture {eng.window.capture}, async "
                            f"{eng.async_dispatch}")
@@ -1296,7 +1349,8 @@ def check_goldens(section, tp=1, overlap=False, async_on=False,
         raise SmokeFailure(f"{section}: {eng.counters['decode_windows_total']} decode "
                            f"windows but {replays} graph replays")
     moe = f", expert form {eng.model.moe_impl}" if eng.md.arch.num_experts else ""
-    log(f"goldens {model} {section} TP={tp} overlap={overlap} async={async_on}{moe}: "
+    log(f"goldens {model} {section} TP={tp} overlap={overlap} async={async_on}"
+        f"{' warm (each prompt twice, page 16)' if warm else ''}{moe}: "
         f"{len(golden['prompts'])} prompts exact, worst logprob diff {worst:.3g}; "
         f"{eng.counters['decode_graph_captures_total']} captures, {replays} replays")
     return worst
@@ -1403,9 +1457,12 @@ def _get(url):
 
 
 def _prompt(n_bytes: int, salt: int) -> str:
+    """``n_bytes`` of words after the salt itself: prompts of distinct
+    salts share no prefix, so none is a prefix-cache hit on another
+    (the word walk alone repeats with the salt modulo 12)."""
     words = ("kernel page prefill decode tensor window segment cache model "
              "token batch stream").split()
-    out, i = [], salt
+    out, i = [str(salt)], salt
     while len(" ".join(out)) < n_bytes - 1:
         out.append(words[i % len(words)])
         i = i * 7 + 3
@@ -1532,9 +1589,9 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         status, raw = _get(f"{base}/v1/models")
         if status != 200 or json.loads(raw)["data"][0]["id"] != engine.md.name:
             raise SmokeFailure(f"/v1/models answered {status} {raw!r}")
-        status, _ = _get(f"{base}/metrics")
+        status, _ = _get(f"{base}/debug/device")
         if status != 501:
-            raise SmokeFailure(f"/metrics (not ported) answered {status}")
+            raise SmokeFailure(f"/debug/device (not ported) answered {status}")
 
         resp, _ = _completion(base, _prompt(60, 1), 16, logprobs=1)
         lps = resp["choices"][0]["logprobs"]["token_logprobs"]
@@ -1545,13 +1602,20 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
 
         if burst:
             stats.update(_burst(base, engine))
-        # TTFT and decode rate of one request alone
+        # TTFT and decode rate of one request alone, each prompt new to
+        # the prefix cache; then TTFT of a prompt the cache holds
         p = _prompt(200, 30)
-        ttft = min(_completion(base, p, 1)[1] for _ in range(3))
-        t_long = min(_completion(base, p, 129)[1] for _ in range(2))
+        ttft = min(_completion(base, _prompt(200, 30 + i), 1)[1] for i in range(3))
+        t_long = min(_completion(base, _prompt(200, 33 + i), 129)[1] for i in range(2))
+        stats["warm"] = warm_ttft(base, engine, label)
+        if tp == 1 and not engine.model.is_mla:
+            stats["warm"]["context_attention"] = time_context_attention(
+                engine, stats["warm"]["ttft_ms"], label)
+        stats["routes"] = check_routes(base, engine, label)
         # inter-token gaps of one sequence alone, as the engine delivers them
         single = _itl(_timed_tokens(engine, p, 129))
         stats.update(ttft_ms=ttft * 1e3, decode_tok_s=128 / (t_long - ttft),
+                     warm_ttft_ms=stats["warm"]["ttft_ms"],
                      prompt_tokens=200, run_ahead=engine.run_ahead,
                      tensor_parallel=tp, comm_overlap=engine.comm_overlap,
                      shared_card=bool(tp > 1 and engine.mesh.shared),
@@ -1576,6 +1640,10 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
             raise SmokeFailure(f"{label}: capture {engine.window.capture}, {windows} "
                                f"decode windows, {replays} graph replays")
         stats["decode"] = decode_readings(engine, p, label)
+        ceiling = _HOST_CALLS_CEILING.get(label)
+        if ceiling is not None and stats["decode"]["host_calls_per_step"] > ceiling:
+            raise SmokeFailure(f"{label}: {stats['decode']['host_calls_per_step']:.3f} "
+                               f"host calls a decode step, above {ceiling}")
         if engine.model.is_mla:
             stats["mla_decode_attention"] = time_mla_decode(engine, label)
         if run_ahead_sweep:
@@ -1592,6 +1660,138 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         _release_card(torch)
         stats["eager"] = compare_eager(cfg, p, label, md)
     return launches, stats
+
+
+# host launch/copy calls a decode step on these legs when decode windows
+# were first captured (PERF.md section 5): the tracer, the timeline and
+# the prefix cache add none
+_HOST_CALLS_CEILING = {"phase 4, bf16": 2.75, "phase 5, int8 weights": 2.75,
+                   "phase 5, bf16, async dispatch": 1.65}
+
+
+def warm_ttft(base, engine, label) -> dict:
+    """TTFT of a 200-byte prompt the prefix cache holds: one cold run of
+    16 tokens commits its whole pages, then the minimum over three
+    1-token repeats, with the prompt tokens each took from the cache
+    (192 at page 64), then one 16-token repeat whose greedy text must be
+    the cold run's.  Without a tree (MLA) the repeats read 0 cached
+    tokens; with one, a repeat that reads 0 fails the leg."""
+    c = engine.counters
+    pw = _prompt(200, 40)
+    cold = _completion(base, pw, 16)[0]["choices"][0]["text"]
+    c0 = c["prefix_cached_tokens_total"]
+    ttft = min(_completion(base, pw, 1)[1] for _ in range(3))
+    cached = (c["prefix_cached_tokens_total"] - c0) / 3
+    warm = _completion(base, pw, 16)[0]["choices"][0]["text"]
+    tree = engine.prefix_cache is not None
+    if tree == engine.model.is_mla:
+        raise SmokeFailure(f"{label}: prefix cache tree {tree} with MLA "
+                           f"{engine.model.is_mla}")
+    if tree and not cached:
+        raise SmokeFailure(f"{label}: a repeated prompt read no cached tokens")
+    if warm != cold:
+        raise SmokeFailure(f"{label}: a warm run's greedy text differs from the "
+                           f"cold run's: {warm!r} != {cold!r}")
+    log(f"{label}: warm TTFT {ttft * 1e3:.1f} ms ({cached:.0f} of the prompt's "
+        f"tokens cached a request, tree {'on' if tree else 'off (MLA)'}); warm "
+        f"greedy text equal to the cold run's")
+    return dict(ttft_ms=ttft * 1e3, cached_tokens_per_request=cached, tree=tree)
+
+
+def time_context_attention(engine, warm_ms, label) -> dict:
+    """The plain ``attention.paged_context_attention`` (no kernel in
+    either package) at one layer of the serving pool, as a warm 200-token
+    prompt runs it: the 8-token suffix padded to its bucket, at position
+    192 over 4 pages (int8 pages with their scales for an int8 pool).
+    Card ms a layer (CUDA events), and all layers' share of the warm
+    TTFT."""
+    import torch
+
+    from kaito_tpu_torch.engine import attention as attn
+
+    m, c, a, ps = engine.model, engine.cache, engine.md.arch, engine.cfg.page_size
+    T = engine._bucket(8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, T, a.num_heads, a.head_dim, generator=gen,
+                    device="cuda").to(m.dtype)
+    # the history's 4 pages, as the model passes them (history_pages)
+    pt = torch.arange(1, 5, dtype=torch.int32, device="cuda")[None]
+    start = torch.tensor([192], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([8], dtype=torch.int32, device="cuda")
+
+    def call():
+        return attn.paged_context_attention(
+            q, c.k, c.v, pt, start, lens, scale=m._scale, layer=0,
+            k_scale=c.k_scale, v_scale=c.v_scale)
+
+    if not torch.isfinite(call()[0, :8].float()).all():
+        raise SmokeFailure(f"{label}: context attention gave non-finite values")
+    ms, host = time_ms(call, iters=10)
+    layers = a.num_layers
+    res = dict(card_ms_per_layer=ms, host_ms_per_layer=host, bucket=T,
+               layers=layers, share_of_warm_ttft=ms * layers / warm_ms)
+    log(f"{label}: plain context attention (bucket {T}, 8 tokens at 192 over 4 "
+        f"pages), one layer: {ms:.4f} card ms ({host:.3f} host ms); x{layers} "
+        f"layers = {100 * res['share_of_warm_ttft']:.1f}% of the warm TTFT")
+    return res
+
+
+def check_routes(base, engine, label) -> dict:
+    """``/metrics`` parses, its histograms are cumulative and its token
+    counters equal the engine's (every request so far came over HTTP);
+    a request sent with an ``X-Request-Id`` has its span tree at
+    ``/debug/trace?trace_id=`` and engine steps inside its span at
+    ``/debug/timeline``; ``/debug/slo`` answers."""
+    from kaito_tpu_torch.utils.promtext import (check_histograms,
+                                                parse_exposition)
+
+    rid = "smoke-" + re.sub(r"[^A-Za-z0-9]+", "-", label).strip("-")
+    req = urllib.request.Request(f"{base}/v1/completions", data=json.dumps(dict(
+        prompt=_prompt(60, 41), max_tokens=8, temperature=0.0,
+        ignore_eos=True)).encode(), headers={"Content-Type": "application/json",
+                                             "X-Request-Id": rid})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200 or r.headers.get("X-Request-Id") != rid:
+            raise SmokeFailure(f"{label}: X-Request-Id not echoed: {r.headers}")
+    status, raw = _get(f"{base}/metrics")
+    if status != 200:
+        raise SmokeFailure(f"{label}: /metrics answered {status}")
+    samples = parse_exposition(raw.decode())
+    hists = check_histograms(samples)
+    values = {n: v for n, lbl, v in samples if not lbl}
+    c = engine.counters
+    for fam, key in (("kaito:prompt_tokens_total", "prompt_tokens_total"),
+                     ("kaito:generation_tokens_total", "generation_tokens_total"),
+                     ("kaito:prefix_cached_tokens_total",
+                      "prefix_cached_tokens_total")):
+        if values.get(fam) != c[key]:
+            raise SmokeFailure(f"{label}: {fam} {values.get(fam)} != engine {c[key]}")
+    status, raw = _get(f"{base}/debug/trace?trace_id={rid}")
+    events = json.loads(raw)["traceEvents"] if status == 200 else []
+    spans = {e["name"]: e for e in events if e["ph"] == "X"}
+    if status != 200 or not {"queue.wait", "admit", "prefill.chunk", "decode",
+                             "request"} <= set(spans):
+        raise SmokeFailure(f"{label}: /debug/trace?trace_id={rid} answered {status} "
+                           f"with spans {sorted(spans)}")
+    r0 = spans["request"]["ts"]
+    r1 = r0 + spans["request"]["dur"]
+    status, raw = _get(f"{base}/debug/timeline")
+    steps = [e for e in json.loads(raw)["traceEvents"]
+             if e["name"] == "engine.step"] if status == 200 else []
+    inside = [e for e in steps if r0 <= e["ts"] <= r1]
+    if not inside:
+        raise SmokeFailure(f"{label}: /debug/timeline ({status}, {len(steps)} steps) "
+                           f"has no step inside request {rid}")
+    status, raw = _get(f"{base}/debug/slo")
+    if status != 200 or "alerts" not in json.loads(raw):
+        raise SmokeFailure(f"{label}: /debug/slo answered {status}")
+    res = dict(metric_samples=len(samples), histograms=len(hists),
+               trace_spans=len(spans), steps_in_request=len(inside),
+               timeline_steps=len(steps))
+    log(f"{label}: /metrics {len(samples)} samples, {len(hists)} cumulative "
+        f"histograms, token counters equal the engine's; trace {rid}: "
+        f"{sorted(spans)}, {len(inside)} timeline steps inside it")
+    return res
 
 
 def time_mla_decode(engine, label) -> dict:
@@ -1772,9 +1972,13 @@ def compare_eager(cfg, prompt, label, metadata=None) -> dict:
 
 
 def _burst(base, engine):
-    """A long decode in flight, then four concurrent 100-400-token
-    prompts (they stage together, so their prefill forms a pack) and one
-    700-token prompt (a continuation chunk)."""
+    """A long decode in flight, then four concurrent 120-400-token
+    prompts and one 700-token prompt (a continuation chunk), arriving
+    at once: the engine admits none of them until all five are queued,
+    in this order, so they stage together and the first two prompts'
+    prefill forms a pack.  Left to the HTTP threads' timing, the first
+    prompt could be admitted a step before the second and prefill alone,
+    and then no two fresh prompts fit one prefill budget."""
     results, errors = {}, []
 
     def run(key, prompt, n):
@@ -1790,8 +1994,18 @@ def _burst(base, engine):
              for i, n in enumerate((120, 250, 330, 400))]
     burst.append(threading.Thread(target=run, args=("long", _prompt(700, 20), 32)))
     t_burst = time.perf_counter()
-    for t in burst:
-        t.start()
+    engine._admit_new = lambda: False         # admission held: the loop decodes on
+    try:
+        for t in burst:
+            queued = engine.counters["requests_total"]
+            t.start()
+            deadline = time.monotonic() + 60
+            while (engine.counters["requests_total"] == queued and t.is_alive()
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+    finally:
+        del engine._admit_new
+        engine._wake.set()
     for t in burst + [bg]:
         t.join(timeout=600)
     t_burst = time.perf_counter() - t_burst
@@ -1822,6 +2036,7 @@ def profile_request(engine, base):
 
     _completion(base, _prompt(200, 50), 8)           # warm
     prefill = _profile_prefill(base)
+    prefill_warm = _profile_prefill(base, warm=True)
     steps0 = engine.counters["decode_steps_total"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1839,7 +2054,7 @@ def profile_request(engine, base):
                quant_matmul_device_ms=quant,
                device_idle_share=1.0 - busy / (wall * 1e3),
                kernel_launches=sum(r[1] for r in rows), decode_steps=steps,
-               prefill=prefill,
+               prefill=prefill, prefill_warm=prefill_warm,
                top=[dict(name=k[:80], count=c, ms=ms) for k, c, ms in rows[:12]])
     log(f"profile: wall {res['wall_ms']:.1f} ms, device busy {busy:.1f} ms, "
         f"{res['kernel_launches']} kernel launches, {steps} decode steps")
@@ -1860,31 +2075,41 @@ def _device_rows(prof):
     return sorted(rows, key=lambda r: -r[2])
 
 
-def _profile_prefill(base):
+def _profile_prefill(base, warm=False):
     """torch.profiler over one 200-token prompt answered with one token:
-    the prefill alone.  Its wall time (the request's TTFT under the
-    profiler), device busy time, and the device time and launches of the
-    quantized matmul kernels (K4/K5, with any split-K reduction) by
-    kernel name."""
+    the prefill alone (``warm``: a repeat of a prompt the prefix cache
+    holds, its 8-token suffix prefilled over 192 cached tokens).  Its
+    wall time (the request's TTFT under the profiler), device busy time,
+    host launch and copy calls, the kernels that take the most device
+    time, and the device time and launches of the quantized matmul
+    kernels (K4/K5, with any split-K reduction) by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    prompt = _prompt(200, 53 if warm else 52)
+    if warm:
+        _completion(base, prompt, 1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _completion(base, _prompt(200, 52), 1)
+        _completion(base, prompt, 1)
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
     rows = _device_rows(prof)
     quant = [r for r in rows if "quant_matmul" in r[0]]
+    what = "warm (192 cached)" if warm else "cold"
     res = dict(wall_ms=wall * 1e3, device_busy_ms=sum(r[2] for r in rows),
+               host_calls=sum(_api_calls(prof).values()),
+               kernel_launches=sum(r[1] for r in rows),
+               top=[dict(name=k[:80], count=c, ms=ms) for k, c, ms in rows[:8]],
                quant_matmul_device_ms=sum(r[2] for r in quant),
                quant_matmul_launches=sum(r[1] for r in quant),
                quant_matmul_kernels=[dict(name=k[:100], count=c, ms=ms)
                                      for k, c, ms in quant])
-    log(f"profile, one 200-token prefill: wall {res['wall_ms']:.1f} ms, device busy "
-        f"{res['device_busy_ms']:.2f} ms, quant matmul {res['quant_matmul_device_ms']:.3f}"
-        f" ms in {res['quant_matmul_launches']} launches")
-    for r in res["quant_matmul_kernels"]:
+    log(f"profile, one 200-token prefill, {what}: wall {res['wall_ms']:.1f} ms, device "
+        f"busy {res['device_busy_ms']:.2f} ms, {res['kernel_launches']} kernels, "
+        f"{res['host_calls']} host launch/copy calls, quant matmul "
+        f"{res['quant_matmul_device_ms']:.3f} ms in {res['quant_matmul_launches']} launches")
+    for r in res["top"]:
         log(f"  {r['ms']:8.3f} ms  x{r['count']:5d}  {r['name']}")
     return res
 
@@ -2104,6 +2329,8 @@ def main(argv=None) -> int:
                 return 0
             golden_err = {} if alone else {
                 sec: check_goldens(sec) for sec in GOLDEN_MODES}
+            for sec in () if alone else GOLDEN_MODES:
+                golden_err[f"{sec} warm"] = check_goldens(sec, warm=True)
             for sec in () if alone else GOLDEN_MODES:
                 golden_err[f"{sec} async"] = check_goldens(sec, async_on=True)
             for sec in () if alone else GOLDEN_MODES:

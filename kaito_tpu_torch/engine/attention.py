@@ -114,6 +114,16 @@ def packed_prefill_attention(
                    scale, logit_softcap)
 
 
+def history_pages(page_tables: torch.Tensor, start_pos: torch.Tensor,
+                  true_lens: torch.Tensor, page_size: int) -> torch.Tensor:
+    """The columns of ``page_tables`` that hold a chunked prefill's
+    history and chunk (earlier chunks + this one): read once on the
+    host, so that every layer's context attention gathers only these
+    pages without reading the lengths back itself."""
+    end = int((start_pos.long() + true_lens.long()).max())
+    return page_tables[:, :max(1, min(page_tables.shape[1], -(-end // page_size)))]
+
+
 def paged_context_attention(
     q: torch.Tensor,            # [B, T, H, D] chunk queries
     cache_k: torch.Tensor,      # [P, ps, Hkv, D] (chunk KV already written)
@@ -131,15 +141,16 @@ def paged_context_attention(
 ) -> torch.Tensor:
     """Chunked prefill WITH prior context: queries attend over the whole
     paged history (earlier chunks + this one) with absolute-position
-    causal masking.  Pages past the longest history are fully masked
-    and are not gathered.  With scales, the int8 pages are dequantized
-    to q's dtype after the gather."""
+    causal masking.  Every page of ``page_tables`` is gathered, pages
+    past a row's history masked (the model passes only the history's
+    columns, :func:`history_pages`).  With scales, the int8 pages are
+    dequantized to q's dtype after the gather."""
     B, T, H, D = q.shape
     ck, cv = _layer_view(cache_k, layer), _layer_view(cache_v, layer)
     ps, Hkv = ck.shape[1], ck.shape[2]
     end = start_pos.long() + true_lens.long()                     # [B]
-    n_pg = max(1, min(page_tables.shape[1], -(-int(end.max()) // ps)))
-    pt = page_tables[:, :n_pg].long()
+    n_pg = page_tables.shape[1]
+    pt = page_tables.long()
     S = n_pg * ps
     k, v = ck[pt], cv[pt]                                         # [B, n_pg, ps, Hkv, D]
     if k_scale is not None:

@@ -38,12 +38,16 @@ semantics (``model.moe_impl_for`` picks how the products run); a
 tensor-parallel MoE engine raises.  MLA models serve on one device from
 a latent page pool, their fresh prompts batched per bucket instead of
 segment-packed; a tensor-parallel MLA engine raises.
+Prefix caching (on by default, off for MLA) shares whole prompt pages
+through the port's radix tree (``prefix_cache.PrefixCache``), as the
+JAX engine does through its native one: a hit prefills only the
+prompt's suffix, as a continuation chunk over the cached pages.  Every
+request is traced (``tracer`` spans, one ``timeline`` record per
+non-idle step, the step and queue histograms) from host clocks only.
 Not ported yet, and rejected at construction with the ROADMAP item that
 carries them: speculation, adapters, pipeline, data,
 sequence and expert parallelism, the KV pool, host offload and P/D, the
-device profiler, QoS, deadlines and the ITL/flight recorders.
-Prefix caching (on by default) runs as the JAX engine does when its
-native radix tree is absent: the plain page allocator.
+device profiler, QoS, deadlines and the ITL recorder.
 """
 
 from __future__ import annotations
@@ -68,8 +72,10 @@ from kaito_tpu_torch.engine.kv_cache import (NULL_PAGE, create_kv_cache,
                                              create_sharded_kv_cache,
                                              kv_bytes, kv_cache_is_quantized,
                                              scale_bytes_per_page)
+from kaito_tpu_torch.engine.metrics import Histogram
 from kaito_tpu_torch.engine.model import (TensorParallelLM, TransformerLM,
                                           check_tensor_parallel)
+from kaito_tpu_torch.engine.prefix_cache import PrefixCache
 from kaito_tpu_torch.engine.quant import QUANT_SCHEMES, supports_quantization
 from kaito_tpu_torch.engine.sampler import SamplingState, chosen_logprob, sample
 from kaito_tpu_torch.engine.tokenizer import load_tokenizer
@@ -77,6 +83,8 @@ from kaito_tpu_torch.models.metadata import ModelMetadata
 from kaito_tpu_torch.models.registry import get_model_by_name
 from kaito_tpu_torch.parallel.mesh import AXIS_TENSOR, Mesh, build_mesh
 from kaito_tpu_torch.parallel.sharding import SERVE_RULES, ring_axis
+from kaito_tpu_torch.utils.tracing import (RingTracer, StepTimeline,
+                                           format_span_tree)
 
 logger = logging.getLogger(__name__)
 
@@ -116,7 +124,6 @@ _UNPORTED = (
     ("request_timeout_s", bool, "queue 1, QoS, deadlines and ITL"),
     ("kv_shed_threshold", bool, "queue 1, QoS, deadlines and ITL"),
     ("itl_enabled", bool, "queue 1, QoS, deadlines and ITL"),
-    ("flight_dir", bool, "queue 1, the /debug/* routes"),
 )
 
 
@@ -135,25 +142,6 @@ def resolve_async_dispatch(cfg: EngineConfig) -> bool:
     if cfg.async_dispatch is not None:
         return bool(cfg.async_dispatch)
     return os.environ.get("KAITO_ASYNC_DISPATCH", "") in ("1", "true")
-
-
-class Histogram:
-    """Observations counted per bucket (upper bounds, then +Inf), with
-    their sum: what a Prometheus histogram holds, which /metrics exposes
-    once it is ported (ROADMAP item 27)."""
-
-    def __init__(self, buckets: tuple):
-        self.buckets = tuple(buckets)
-        self.counts = [0] * (len(self.buckets) + 1)
-        self.sum = 0.0
-        self.count = 0
-
-    def observe(self, v: float) -> None:
-        i = next((j for j, b in enumerate(self.buckets) if v <= b),
-                 len(self.buckets))
-        self.counts[i] += 1
-        self.sum += v
-        self.count += 1
 
 
 def check_quantization(cfg: EngineConfig, md: ModelMetadata) -> None:
@@ -235,6 +223,10 @@ class Request:
     preemptions: int = 0
     prompt_counted: bool = False   # prompt tokens counted once
     error: Optional[dict] = None
+    # end-to-end trace identity (X-Request-Id): distinct from req_id so
+    # a client-supplied id never collides with engine-internal keys;
+    # defaults to req_id at submit
+    trace_id: str = ""
 
     def resume_tokens(self) -> list[int]:
         """Prompt plus everything generated so far — what a preempted
@@ -284,6 +276,14 @@ class _Slot:
     prefill_pos: int = 0       # prompt tokens written so far
     prefill_tokens: list[int] = field(default_factory=list)
     seq: int = 0               # admission order (newest preempts first)
+    shared_tokens: int = 0     # leading tokens on pages shared at admission
+    prefill_t0: float = 0.0    # first prefill dispatch (0: none yet)
+    staged_t0: float = 0.0     # admission time
+
+    @property
+    def written(self) -> int:
+        """Tokens whose KV has landed in the cache."""
+        return self.prefill_pos if self.prefilling else self.position
 
 
 class InferenceEngine:
@@ -396,9 +396,15 @@ class InferenceEngine:
         self._kv_quantized = kv_cache_is_quantized(_DTYPES[cfg.kv_dtype])
         logger.info("KV cache: %d pages x %d tokens, %s (%.2f GiB)", num_pages,
                     cfg.page_size, cfg.kv_dtype, kv_bytes(self.cache) / 2**30)
-        if cfg.enable_prefix_caching:
-            logger.info("prefix cache radix tree not ported; plain allocator")
-        self.allocator = PageAllocator(num_pages)
+        self._num_pages = num_pages
+        # the tree tracks host-side page IDs only, the same ids every
+        # shard of a tensor-parallel pool indexes; MLA keeps the plain
+        # allocator, as the JAX engine does
+        self.prefix_cache: Optional[PrefixCache] = None
+        if cfg.enable_prefix_caching and not self.model.is_mla:
+            self.prefix_cache = PrefixCache(num_pages, cfg.page_size)
+            logger.info("prefix caching enabled (radix tree)")
+        self.allocator = self.prefix_cache or PageAllocator(num_pages)
         # a single sequence can never outgrow the whole pool
         self._capacity_tokens = (num_pages - 1) * cfg.page_size
 
@@ -438,7 +444,38 @@ class InferenceEngine:
             "decode_windows_total": 0,
             "preemptions_total": 0,
             "engine_fatal_total": 0,
+            "prefix_cached_tokens_total": 0,
+            # per-request prefix-cache outcome (a resume does not count)
+            "prefix_cache_hits_total": 0,
+            "prefix_cache_misses_total": 0,
+            "requests_expired_total": 0,
+            "requests_shed_total": 0,       # 429s (bumped by the server)
         }
+        # tracing + flight recorder: bounded, always on, host clocks
+        # only — recording is a deque append, scrapes snapshot.  The
+        # server's metrics registry adopts the histograms
+        self.tracer = RingTracer(cfg.trace_capacity)
+        self.timeline = StepTimeline(cfg.timeline_capacity)
+        self.step_hist = Histogram(
+            "kaito:engine_step_seconds", "Scheduler step wall time", None,
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0, 2.5))
+        self.queue_wait_hist = Histogram(
+            "kaito:queue_wait_seconds",
+            "Submit-to-admission queue wait", None,
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                     0.5, 1.0, 2.5, 5.0, 10.0, 30.0))
+        self.prefill_pack_hist = Histogram(
+            "kaito:engine_prefill_pack_size",
+            "Sequences packed per prefill dispatch", None,
+            buckets=(1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0))
+        self.prefill_wait_hist = Histogram(
+            "kaito:prefill_queue_wait_seconds",
+            "Staged-to-first-prefill-dispatch wait", None,
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                     0.5, 1.0, 2.5, 5.0))
+        self._prefill_pack_note = 0
+        self._gap_last = 0.0
         ra = cfg.decode_run_ahead
         if ra is None:
             ra = AUTO_RUN_AHEAD_CUDA if self.device.type == "cuda" else 1
@@ -469,8 +506,11 @@ class InferenceEngine:
         if self.async_dispatch:
             self.counters["h2d_uploads_total"] = 0
             self.dispatch_gap_hist = Histogram(
-                (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
-                 0.05, 0.1, 0.25))
+                "kaito:engine_dispatch_gap_seconds",
+                "Host-side gap between decode dispatches (device idle "
+                "between windows; ~0 when the pipeline is primed)", None,
+                buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
+                         0.01, 0.025, 0.05, 0.1, 0.25))
             logger.info("async decode dispatch enabled (two-deep pipeline, "
                         "device-resident loop state)")
 
@@ -566,7 +606,8 @@ class InferenceEngine:
         return int(self.active.sum())
 
     def submit(self, prompt_tokens: list[int], params: SamplingParams,
-               req_id: Optional[str] = None) -> Request:
+               req_id: Optional[str] = None,
+               trace_id: Optional[str] = None) -> Request:
         n = len(prompt_tokens)
         if n < 1:
             raise ValueError("prompt must hold at least one token")
@@ -580,8 +621,9 @@ class InferenceEngine:
             raise ValueError(f"max_tokens must be >= 1, got {params.max_tokens}")
         with self._lock:
             self.counters["requests_total"] += 1
-            req = Request(req_id or f"req-{self.counters['requests_total']}",
-                          list(prompt_tokens), params)
+            rid = req_id or f"req-{self.counters['requests_total']}"
+            req = Request(rid, list(prompt_tokens), params,
+                          trace_id=trace_id or rid)
             self.waiting.append(req)
         self._wake.set()
         return req
@@ -644,7 +686,27 @@ class InferenceEngine:
             req.error = {"status": 500, "type": "internal_error",
                          "message": f"request {req.req_id} failed in the engine"}
         self.counters["requests_failed_total"] += 1
+        self._finish_trace(req)
         req.out.put(None)
+
+    def _finish_trace(self, req: Request) -> None:
+        """Record the request's decode + end-to-end spans and, when it
+        crossed ``slow_request_threshold_s``, log its span tree."""
+        end = req.finish_time or time.monotonic()
+        if req.first_token_time is not None:
+            self.tracer.record("decode", req.trace_id, req.first_token_time,
+                               end - req.first_token_time,
+                               tokens=len(req.output_tokens))
+        self.tracer.record("request", req.trace_id, req.submit_time,
+                           end - req.submit_time, req_id=req.req_id,
+                           finish=req.finish_reason or "stop",
+                           preemptions=req.preemptions)
+        thr = self.cfg.slow_request_threshold_s
+        if thr and end - req.submit_time >= thr:
+            logger.warning(
+                "slow request %s (trace %s): %.3fs e2e >= %.3fs threshold\n%s",
+                req.req_id, req.trace_id, end - req.submit_time, thr,
+                format_span_tree(self.tracer.spans(req.trace_id)))
 
     def _fail_all(self):
         # a failure may leave a window in flight: forget it and upload
@@ -654,15 +716,36 @@ class InferenceEngine:
         for i, slot in enumerate(self.slots):
             if slot.request is not None:
                 req = slot.request
-                self._evict_slot(i)
+                self._evict_slot(i, commit=False)
                 self._fail_request(req)
         while (req := self._pop_waiting()) is not None:
             self._fail_request(req)
+        if self.prefix_cache is not None:
+            # after a failed step the pool's contents are not trusted:
+            # the tree must not advertise them
+            self.prefix_cache = PrefixCache(self._num_pages, self.cfg.page_size)
+            self.allocator = self.prefix_cache
 
-    def _evict_slot(self, slot_idx: int):
-        """Return a slot's pages to the pool and clear it."""
+    def _evict_slot(self, slot_idx: int, commit: bool = True):
+        """Return a slot's pages to the pool and clear it.
+
+        ``commit`` feeds the written-token prefix into the radix tree
+        for future prefix hits; the failure path passes False.  Only
+        tokens whose KV landed are committed: the final sampled token's
+        KV never lands (the slot retires before a step would write it).
+        The pages shared at admission are released with their tokens
+        even when the slot wrote fewer (a preempted prefill whose whole
+        prompt was cached), so their references always return."""
         slot = self.slots[slot_idx]
-        self.allocator.release(slot.pages)
+        if self.prefix_cache is not None:
+            tokens = slot.request.resume_tokens()[:max(slot.written,
+                                                       slot.shared_tokens)]
+            if commit:
+                self.prefix_cache.release(tokens, slot.pages)
+            else:
+                self.prefix_cache.release_uncommitted(tokens, slot.pages)
+        else:
+            self.allocator.release(slot.pages)
         sp = slot.request.params
         if sp.temperature > 0.0 or sp.top_k > 0 or sp.top_p < 1.0 \
                 or sp.min_p > 0.0 or sp.has_penalties:
@@ -681,9 +764,49 @@ class InferenceEngine:
         decode window; prefill advances one budgeted round every
         ``prefill_interleave`` decode steps (every iteration when nothing
         is decoding).  With ``async_dispatch`` the fused windows go
-        through the two-deep pipeline (:meth:`_step_async`)."""
-        if self.async_dispatch:
-            return self._step_async()
+        through the two-deep pipeline (:meth:`_step_async`).
+
+        Every non-idle iteration appends one bounded timeline record
+        (wall time, batch shape, token mix, KV pressure, preemption and
+        shed deltas) and observes ``kaito:engine_step_seconds``, from
+        host clocks and host mirrors only."""
+        c = self.counters
+        before = (c["prefill_steps_total"], c["decode_steps_total"],
+                  c["generation_tokens_total"], c["prefill_tokens_total"],
+                  c["preemptions_total"], c["requests_expired_total"],
+                  c["requests_shed_total"])
+        t0 = time.monotonic()
+        did = self._step_async() if self.async_dispatch else self._step_sync()
+        if did:
+            wall = time.monotonic() - t0
+            self.step_hist.observe(wall)
+            extra = {}
+            if self.async_dispatch:
+                # host-side idle between the previous window's readback
+                # and this step's dispatch; ~0 whenever the pipeline was
+                # primed
+                extra["dispatch_gap"] = round(self._gap_last, 6)
+                self._gap_last = 0.0
+            if self._prefill_pack_note:
+                extra["prefill_pack"] = self._prefill_pack_note
+                self._prefill_pack_note = 0
+            self.timeline.add(
+                t0, wall, **extra,
+                running=self.num_running,
+                waiting=self.num_waiting,
+                prefill_steps=c["prefill_steps_total"] - before[0],
+                decode_steps=c["decode_steps_total"] - before[1],
+                decode_tokens=c["generation_tokens_total"] - before[2],
+                prefill_tokens=c["prefill_tokens_total"] - before[3],
+                preemptions=c["preemptions_total"] - before[4],
+                expired=c["requests_expired_total"] - before[5],
+                shed=c["requests_shed_total"] - before[6],
+                kv_pages_used=(self.allocator.num_pages - 1
+                               - self.allocator.available))
+        return did
+
+    def _step_sync(self) -> bool:
+        """The synchronous loop's iteration (see :meth:`step`)."""
         # reserve BEFORE admitting: growth of running sequences must not
         # be starved by a fresh admission grabbing the last pages
         la = 1
@@ -736,7 +859,10 @@ class InferenceEngine:
 
     def _admit(self, req: Request, free_slot: int) -> bool:
         """Reserve the prompt's pages (plus one decode token) and stage
-        the request into a slot; decode grows the page list later."""
+        the request into a slot; decode grows the page list later.  With
+        the prefix cache, the whole prompt pages already committed are
+        shared and prefill starts after them."""
+        t_adm = time.monotonic()
         tokens = req.resume_tokens()
         n = len(tokens)
         ps = self.cfg.page_size
@@ -747,7 +873,18 @@ class InferenceEngine:
         if self.allocator.available < pages_needed + headroom:
             self._requeue_front(req)
             return False
-        pages = self.allocator.alloc(pages_needed)
+        shared = cached = 0
+        if self.prefix_cache is not None:
+            res = self.prefix_cache.acquire(tokens, n + 1)
+            if res is None:
+                self._requeue_front(req)
+                return False
+            pages, shared = res
+            # at least one suffix token must run to produce logits; the
+            # overlap rewrites identical KV into the shared page
+            cached = min(shared, n - 1)
+        else:
+            pages = self.allocator.alloc(pages_needed)
         slot = self.slots[free_slot]
         self.page_tables[free_slot] = 0
         self.page_tables[free_slot, :len(pages)] = pages
@@ -757,8 +894,25 @@ class InferenceEngine:
         self._admit_seq += 1
         slot.seq = self._admit_seq
         slot.prefilling = True
-        slot.prefill_pos = 0
+        slot.prefill_pos = cached
+        slot.shared_tokens = shared
         slot.prefill_tokens = tokens
+        now = time.monotonic()
+        slot.staged_t0 = now
+        # queue wait only on the first admission: a resume after
+        # preemption would count the whole lifetime as queue time
+        if req.first_token_time is None and not req.preemptions:
+            self.queue_wait_hist.observe(now - req.submit_time)
+            self.tracer.record("queue.wait", req.trace_id, req.submit_time,
+                               now - req.submit_time)
+        self.tracer.record("admit", req.trace_id, t_adm, now - t_adm,
+                           slot=free_slot, cached_tokens=cached,
+                           pages=len(pages), resume=req.preemptions)
+        if cached:
+            self.counters["prefix_cached_tokens_total"] += cached
+        if self.prefix_cache is not None and not req.preemptions:
+            self.counters["prefix_cache_hits_total" if cached
+                          else "prefix_cache_misses_total"] += 1
         p = req.params
         self.sampling.set_slot(free_slot, temperature=p.temperature, top_k=p.top_k,
                                top_p=p.top_p, presence=p.presence_penalty,
@@ -805,11 +959,12 @@ class InferenceEngine:
         pos = slot.prefill_pos
         take = min(n - pos, max(self.cfg.max_prefill_tokens, self.cfg.page_size))
         rows = [(i, pos, take, n)]
+        t0 = time.monotonic()
         if pos == 0 and take == n:
             logits = self._dispatch_prefill_fresh(rows)
         else:
             logits = self._dispatch_prefill_ctx(rows)
-        self._complete(self._advance_rows(rows, logits))
+        self._complete(self._advance_rows(rows, logits, t0, packed=False))
         return True
 
     def _advance_prefill_pack(self, pack_limit: int) -> bool:
@@ -851,6 +1006,7 @@ class InferenceEngine:
             groups.setdefault(gk, []).append(p)
         completed = []
         for gk, rows in groups.items():
+            t0 = time.monotonic()
             if gk[0] == "seg" and len(rows) > 1:
                 logits = self._dispatch_prefill_packed(rows)
                 self.counters["prefill_packed_steps_total"] += 1
@@ -858,17 +1014,35 @@ class InferenceEngine:
                 logits = self._dispatch_prefill_ctx(rows)
             else:
                 logits = self._dispatch_prefill_fresh(rows)
-            completed += self._advance_rows(rows, logits)
+            completed += self._advance_rows(rows, logits, t0, packed=True)
         self._complete(completed)
         return True
 
-    def _advance_rows(self, rows, logits) -> list:
-        """Book one dispatch's chunks; the rows whose prompt is done."""
+    def _advance_rows(self, rows, logits, t0: float, packed: bool) -> list:
+        """Book one dispatch's chunks (dispatched at ``t0``; ``packed``
+        from the pack scheduler) and trace each; the rows whose prompt
+        is done."""
+        dur = time.monotonic() - t0
         self.counters["prefill_steps_total"] += 1
         self.counters["prefill_tokens_total"] += sum(r[2] for r in rows)
+        self.prefill_pack_hist.observe(float(len(rows)) if packed else 1.0)
+        if packed:
+            self._prefill_pack_note = max(self._prefill_pack_note, len(rows))
         done = []
         for row, (i, pos, take, n) in enumerate(rows):
             slot = self.slots[i]
+            wait = 0.0
+            if not slot.prefill_t0:
+                slot.prefill_t0 = t0
+                if slot.staged_t0:
+                    wait = max(0.0, t0 - slot.staged_t0)
+                self.prefill_wait_hist.observe(wait)
+            attrs = dict(pos=pos, tokens=take, bucket=self._bucket(take),
+                         slot=i, cp=False)
+            if packed:
+                attrs["pack"] = len(rows)
+            self.tracer.record("prefill.chunk", slot.request.trace_id, t0, dur,
+                               **attrs, queue_wait=round(wait, 6))
             slot.prefill_pos = pos + take
             if slot.prefill_pos >= n:
                 done.append((i, n, logits[row:row + 1]))
@@ -1001,6 +1175,9 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _alloc_one_page(self) -> Optional[int]:
+        if self.prefix_cache is not None:
+            got = self.prefix_cache.alloc_raw(1)
+            return got[0] if got else None
         try:
             return self.allocator.alloc(1)[0]
         except MemoryError:
@@ -1014,12 +1191,15 @@ class InferenceEngine:
                     req.req_id, victim)
         req.preemptions += 1
         self.counters["preemptions_total"] += 1
-        self._evict_slot(victim)
+        self.tracer.record("preempt", req.trace_id, time.monotonic(), 0.0,
+                           slot=victim)
+        self._evict_slot(victim, commit=True)
         if len(req.resume_tokens()) + 1 > self._capacity_tokens:
             # the sequence already fills the whole pool and cannot be
             # re-admitted; every token was emitted — finish at the cap
             req.finish_reason = "length"
             req.finish_time = time.monotonic()
+            self._finish_trace(req)
             req.out.put(None)
             self.counters["requests_finished_total"] += 1
             return
@@ -1282,6 +1462,7 @@ class InferenceEngine:
         win, uploads = self._dispatch(K, fields)
         self.counters["h2d_uploads_total"] += uploads
         self.dispatch_gap_hist.observe(gap)
+        self._gap_last = gap
         prev, self._inflight = self._inflight, win
         if prev is not None:
             self._retire_window(prev)
@@ -1375,6 +1556,7 @@ class InferenceEngine:
         if token in stop_ids or slot.remaining <= 0 or req.aborted:
             req.finish_reason = "stop" if token in stop_ids else "length"
             req.finish_time = time.monotonic()
+            self._finish_trace(req)
             req.out.put(None)
-            self._evict_slot(slot_idx)
+            self._evict_slot(slot_idx, commit=True)
             self.counters["requests_finished_total"] += 1

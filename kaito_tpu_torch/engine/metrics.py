@@ -1,0 +1,406 @@
+"""Prometheus text-exposition metrics, dependency-free.
+
+The port's own copy of ``kaito_tpu/engine/metrics.py``: the serving
+metric surface the KEDA scaler, the InferencePool EPP and the benchmark
+probe scrape at :5000/metrics, under the names of vLLM's ``vllm:*``
+series with the ``kaito:`` prefix.  Under one ``EngineConfig`` the
+port's ``/metrics`` exposes exactly the JAX server's families; a family
+whose feature the port lacks reads as the JAX server's does with that
+feature off.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Iterable, Optional
+
+
+def process_rss_bytes() -> float:
+    """Resident set size of this process, dependency-free: /proc on
+    Linux, getrusage fallback elsewhere, 0.0 when neither works."""
+    try:
+        with open("/proc/self/statm") as f:
+            return float(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except Exception:
+        pass
+    try:
+        import resource
+
+        return float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) \
+            * 1024.0
+    except Exception:
+        return 0.0
+
+
+class Counter:
+    def __init__(self, name: str, help_: str, registry: "Optional[Registry]",
+                 labels: tuple[str, ...] = ()):
+        self.name, self.help = name, help_
+        self.label_names = labels
+        self._values: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+        if registry is not None:
+            registry.register(self)
+
+    def inc(self, amount: float = 1.0, **labels):
+        key = tuple(str(labels.get(l, "")) for l in self.label_names)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def collect(self) -> Iterable[str]:
+        with self._lock:
+            values = sorted(self._values.items())
+        yield f"# HELP {self.name} {self.help}"
+        yield f"# TYPE {self.name} counter"
+        if not values:
+            # a labelled family with no samples emits nothing: an
+            # unlabelled `name 0` here would clash with labelled
+            # samples the moment the first one appears
+            if not self.label_names:
+                yield f"{self.name} 0"
+            return
+        for key, v in values:
+            yield f"{self.name}{_fmt_labels(self.label_names, key)} {_fmt(v)}"
+
+
+class Gauge:
+    """Unlabelled (the original surface: ``.value`` / ``set(v)`` / a
+    scalar ``fn``) or labelled like Counter/Histogram.  A labelled
+    gauge stores one value per label set via ``set(v, **labels)``; a
+    labelled ``fn`` computes the whole family at scrape time and must
+    return a mapping of label-value tuples to floats (the router's
+    breaker state and the SLO burn rates are time-derived, so they
+    can't be stored)."""
+
+    def __init__(self, name: str, help_: str, registry: "Optional[Registry]",
+                 fn=None, labels: tuple[str, ...] = ()):
+        self.name, self.help = name, help_
+        self.fn = fn
+        self.label_names = labels
+        self.value = 0.0
+        self._values: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+        if registry is not None:
+            registry.register(self)
+
+    def set(self, v: float, **labels):
+        if self.label_names:
+            key = tuple(str(labels.get(l, "")) for l in self.label_names)
+            with self._lock:
+                self._values[key] = float(v)
+        else:
+            self.value = float(v)
+
+    def collect(self) -> Iterable[str]:
+        yield f"# HELP {self.name} {self.help}"
+        yield f"# TYPE {self.name} gauge"
+        if self.label_names:
+            if self.fn is not None:
+                computed = self.fn() or {}
+                items = sorted(
+                    (tuple(str(x) for x in k), v)
+                    for k, v in computed.items())
+            else:
+                with self._lock:
+                    items = sorted(self._values.items())
+            for key, v in items:
+                yield (f"{self.name}"
+                       f"{_fmt_labels(self.label_names, key)} {_fmt(v)}")
+            return
+        v = self.fn() if self.fn is not None else self.value
+        yield f"{self.name} {_fmt(v)}"
+
+
+class Histogram:
+    DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                       0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+    def __init__(self, name: str, help_: str, registry: "Optional[Registry]",
+                 buckets: Optional[tuple] = None,
+                 labels: tuple[str, ...] = ()):
+        self.name, self.help = name, help_
+        self.buckets = tuple(buckets or self.DEFAULT_BUCKETS)
+        self.label_names = labels
+        # aggregate across all label values — `percentile()` and the
+        # unlabelled exposition read these
+        self._counts = [0] * (len(self.buckets) + 1)
+        self._sum = 0.0
+        self._total = 0
+        # label-values tuple -> [counts, sum, total] (labelled families)
+        self._series: dict[tuple, list] = {}
+        self._lock = threading.Lock()
+        if registry is not None:
+            registry.register(self)
+
+    def observe(self, v: float, **labels):
+        idx = len(self.buckets)
+        for i, b in enumerate(self.buckets):
+            if v <= b:
+                idx = i
+                break
+        with self._lock:
+            self._sum += v
+            self._total += 1
+            self._counts[idx] += 1
+            if self.label_names:
+                key = tuple(str(labels.get(l, ""))
+                            for l in self.label_names)
+                s = self._series.get(key)
+                if s is None:
+                    s = self._series[key] = [
+                        [0] * (len(self.buckets) + 1), 0.0, 0]
+                s[0][idx] += 1
+                s[1] += v
+                s[2] += 1
+
+    @property
+    def count(self) -> int:
+        """Observations so far, across all label values."""
+        with self._lock:
+            return self._total
+
+    def _emit_series(self, label_names, label_values, counts, sum_,
+                     total) -> Iterable[str]:
+        cum = 0
+        for i, b in enumerate(self.buckets):
+            cum += counts[i]
+            lbl = _fmt_labels(label_names + ("le",),
+                              label_values + (_fmt(b),))
+            yield f"{self.name}_bucket{lbl} {cum}"
+        cum += counts[-1]
+        lbl = _fmt_labels(label_names + ("le",), label_values + ("+Inf",))
+        yield f"{self.name}_bucket{lbl} {cum}"
+        lbl = _fmt_labels(label_names, label_values)
+        yield f"{self.name}_sum{lbl} {_fmt(sum_)}"
+        yield f"{self.name}_count{lbl} {total}"
+
+    def collect(self) -> Iterable[str]:
+        # snapshot under the lock, format outside it: a concurrent
+        # observe() must never see buckets inconsistent with _count/_sum
+        with self._lock:
+            if self.label_names:
+                series = [(k, list(s[0]), s[1], s[2])
+                          for k, s in sorted(self._series.items())]
+            else:
+                counts, sum_, total = list(self._counts), self._sum, self._total
+        yield f"# HELP {self.name} {self.help}"
+        yield f"# TYPE {self.name} histogram"
+        if self.label_names:
+            for key, c, s, t in series:
+                yield from self._emit_series(self.label_names, key, c, s, t)
+        else:
+            yield from self._emit_series((), (), counts, sum_, total)
+
+
+def _fmt(v: float) -> str:
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _escape_label_value(v) -> str:
+    # exposition format: backslash first, then quote and newline
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _fmt_labels(names, values) -> str:
+    if not names:
+        return ""
+    inner = ",".join(f'{n}="{_escape_label_value(v)}"'
+                     for n, v in zip(names, values))
+    return "{" + inner + "}"
+
+
+class Registry:
+    def __init__(self):
+        self._metrics = []
+
+    def register(self, m):
+        """Accepts any object with a ``collect() -> Iterable[str]``
+        method — custom collectors (e.g. the router's breaker-state
+        gauges, computed at scrape time) register alongside metrics."""
+        self._metrics.append(m)
+
+    def expose(self) -> str:
+        lines: list[str] = []
+        for m in self._metrics:
+            lines.extend(m.collect())
+        return "\n".join(lines) + "\n"
+
+
+def _counter_fn(engine, key: str):
+    return lambda: engine.counters.get(key, 0)
+
+
+class EngineMetrics:
+    """The engine's metric families (names mirror vLLM's so the KEDA
+    scaler/EPP configs translate 1:1).  The features the port has not
+    ported yet (the host KV tier, speculation, P/D) keep their families
+    at the values the JAX server reads with them off: the engine's
+    counters, absent until a later slice adds them, read 0."""
+
+    def __init__(self, engine=None):
+        self.registry = Registry()
+        r = self.registry
+        self.prompt_tokens = Counter(
+            "kaito:prompt_tokens_total", "Prefill tokens processed", r)
+        self.generation_tokens = Counter(
+            "kaito:generation_tokens_total", "Tokens generated", r)
+        self.request_success = Counter(
+            "kaito:request_success_total", "Requests finished", r,
+            labels=("finished_reason",))
+        self.requests_rejected = Counter(
+            "kaito:request_rejected_total", "Requests rejected (rate limit)", r)
+        self.requests_shed = Counter(
+            "kaito:request_shed_total",
+            "Requests shed by admission control (429 + Retry-After)", r,
+            labels=("reason",))
+        self.ttft = Histogram(
+            "kaito:time_to_first_token_seconds", "Time to first token", r)
+        self.tpot = Histogram(
+            "kaito:time_per_output_token_seconds",
+            "Per-request MEAN time per output token "
+            "((finish - first_token) / (n_out - 1)); decode stalls "
+            "average out — see kaito:inter_token_latency_seconds (--itl) "
+            "for true per-token gaps", r,
+            buckets=(0.002, 0.005, 0.01, 0.02, 0.04, 0.06, 0.08, 0.1, 0.25,
+                     0.5, 1.0))
+        self.e2e_latency = Histogram(
+            "kaito:e2e_request_latency_seconds", "End-to-end request latency", r)
+        # process-level gauges: fleet rollups use uptime to tell a
+        # restarted replica (counters reset, uptime tiny) from a quiet
+        # one, and RSS to spot a leaking replica before the OOM-killer
+        self._started_monotonic = time.monotonic()
+        Gauge("kaito:process_uptime_seconds",
+              "Seconds since this serving process started", r,
+              fn=lambda: time.monotonic() - self._started_monotonic)
+        Gauge("kaito:process_resident_memory_bytes",
+              "Resident set size of the serving process", r,
+              fn=process_rss_bytes)
+        if engine is None:
+            return
+        # the engine owns its step/queue-wait histograms (observed from
+        # the scheduler thread); expose them through this registry
+        # rather than duplicating series
+        for attr in ("step_hist", "queue_wait_hist", "dispatch_gap_hist",
+                     "prefill_pack_hist", "prefill_wait_hist"):
+            h = getattr(engine, attr, None)
+            if h is not None:
+                r.register(h)
+
+        def _slots_total():
+            return len(engine.slots)
+
+        Gauge("kaito:batch_occupancy",
+              "Active decode slots / max batch size", r,
+              fn=lambda: engine.num_running / max(1, _slots_total()))
+        # absolute slot gauges next to the ratio: fleet rollups sum
+        # these across replicas (a ratio can't be summed)
+        Gauge("kaito:active_slots", "Decode slots occupied right now",
+              r, fn=lambda: engine.num_running)
+        Gauge("kaito:slots_total", "Decode slot capacity", r,
+              fn=_slots_total)
+        Gauge("kaito:num_requests_running", "Active decode slots", r,
+              fn=lambda: engine.num_running)
+        Gauge("kaito:num_requests_waiting", "Queued requests", r,
+              fn=lambda: engine.num_waiting)
+        Gauge("kaito:kv_cache_usage_perc", "KV page pool usage", r,
+              fn=lambda: 1.0 - engine.allocator.available /
+              max(engine.allocator.num_pages - 1, 1))
+        Gauge("kaito:kv_pages_total", "Total KV pages", r,
+              fn=lambda: engine.allocator.num_pages - 1)
+        # page size gauge: the benchmark probe derives concurrency from
+        # KV capacity and must not hardcode the page size
+        Gauge("kaito:kv_page_size", "Tokens per KV page", r,
+              fn=lambda: engine.cfg.page_size)
+        for name, help_, key in (
+                ("num_preemptions_total", "Sequences preempted",
+                 "preemptions_total"),
+                ("prefix_cached_tokens_total",
+                 "Prompt tokens served from the prefix cache",
+                 "prefix_cached_tokens_total"),
+                # per-request hit/miss split: the EPP judges affinity
+                # quality from these
+                ("prefix_cache_hits_total",
+                 "Requests admitted with a nonzero cached prefix",
+                 "prefix_cache_hits_total"),
+                ("prefix_cache_misses_total",
+                 "Cache-eligible requests admitted with no cached prefix",
+                 "prefix_cache_misses_total"),
+                ("host_kv_spilled_pages_total",
+                 "KV pages spilled to the host offload tier",
+                 "host_kv_spilled_pages_total"),
+                ("host_kv_restored_pages_total",
+                 "KV pages restored from the host offload tier",
+                 "host_kv_restored_pages_total")):
+            Gauge(f"kaito:{name}", help_, r, fn=_counter_fn(engine, key))
+        # the host KV offload tier (ROADMAP M18) is not ported: these
+        # read as the JAX server's do with the tier off
+        for name, help_ in (
+                ("host_kv_bytes_used", "Bytes held by the host KV offload tier"),
+                ("host_kv_entries",
+                 "Sequences parked in the host KV offload tier"),
+                ("host_kv_hits_total",
+                 "Host KV offload pops that found the sequence"),
+                ("host_kv_misses_total",
+                 "Host KV offload pops that came up empty"),
+                ("host_kv_evictions_total",
+                 "Entries LRU-evicted from the host KV offload tier")):
+            Gauge(f"kaito:{name}", help_, r, fn=lambda: 0)
+        if engine.async_dispatch:
+            # the family exists only with the async loop on, like the
+            # dispatch-gap histogram above
+            Gauge("kaito:engine_h2d_uploads_total",
+                  "Loop-state arrays uploaded host-to-device at "
+                  "decode dispatch (~zero per dispatch in steady "
+                  "state)", r, fn=_counter_fn(engine, "h2d_uploads_total"))
+        for name, help_, key in (
+                ("pd_device_handoffs_total",
+                 "Colocated device-to-device KV hand-offs",
+                 "pd_device_handoffs_total"),
+                ("requests_failed_total",
+                 "Requests that died request-scoped (structured error)",
+                 "requests_failed_total"),
+                ("requests_expired_total",
+                 "Requests aborted at their deadline (408)",
+                 "requests_expired_total"),
+                ("kv_import_retries_total",
+                 "Transient KV-transfer failures retried as local recompute",
+                 "kv_import_retries_total"),
+                ("engine_fatal_total",
+                 "Engine-fatal failures (every in-flight request failed)",
+                 "engine_fatal_total")):
+            Gauge(f"kaito:{name}", help_, r, fn=_counter_fn(engine, key))
+        # speculative decoding (ROADMAP M14) is not ported: proposed and
+        # accepted read 0 for both proposer modes, the depth 0
+        for name, help_ in (
+                ("spec_proposed_tokens_total", "Speculative tokens proposed"),
+                ("spec_accepted_tokens_total",
+                 "Speculative tokens accepted by the target")):
+            Gauge(f"kaito:{name}", help_, r, labels=("mode",),
+                  fn=lambda: {("ngram",): 0, ("draft",): 0})
+        Gauge("kaito:spec_depth",
+              "Mean adaptive speculation depth over active slots", r,
+              fn=lambda: 0.0)
+        # the P/D cost model's live constants (ROADMAP M18): 0 until the
+        # first observed transfer / prefill provides a sample
+        Gauge("kaito:pd_measured_net_bytes_s",
+              "EWMA observed KV transfer bandwidth", r, fn=lambda: 0)
+        Gauge("kaito:pd_measured_prefill_tok_s",
+              "EWMA observed prefill throughput", r, fn=lambda: 0)
+
+    def observe_request(self, req) -> None:
+        if req.first_token_time:
+            self.ttft.observe(req.first_token_time - req.submit_time)
+        if req.finish_time:
+            self.e2e_latency.observe(req.finish_time - req.submit_time)
+            n_out = len(req.output_tokens)
+            if req.first_token_time and n_out > 1:
+                self.tpot.observe(
+                    (req.finish_time - req.first_token_time) / (n_out - 1))
+            self.request_success.inc(finished_reason=req.finish_reason or "stop")
+        self.prompt_tokens.inc(len(req.prompt_tokens))
+        self.generation_tokens.inc(len(req.output_tokens))

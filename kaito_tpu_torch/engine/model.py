@@ -880,6 +880,9 @@ class TransformerLM(tnn.Module):
         true_lens: [B] int32 valid new tokens; page_tables: [B, pmax]
         int32.  Returns (cache, last_logits [B, V] fp32, last_hidden
         [B, E]); the cache is written in place."""
+        if start_pos is not None:
+            page_tables = attn.history_pages(page_tables, start_pos, true_lens,
+                                             cache.k.shape[2])
         x, kw = self._prefill_in(tokens, true_lens, page_tables, start_pos)
         last = self._prefill_out(self._run_layers(cache, x, "prefill", **kw),
                                  true_lens)
@@ -1080,6 +1083,9 @@ class TensorParallelLM:
 
     def prefill(self, caches: list, tokens, true_lens, page_tables,
                 start_pos=None):
+        if start_pos is not None:
+            page_tables = attn.history_pages(page_tables, start_pos, true_lens,
+                                             caches[0].k.shape[2])
         ins = self._each("_prefill_in", tokens, true_lens, page_tables, start_pos)
         xs = self._run_layers(caches, ins, "prefill")
         lasts = self._each_out("_prefill_out", xs, true_lens)

@@ -5,11 +5,18 @@ Counterpart of the serving surface of ``kaito_tpu.engine.server``:
 ``/v1/chat/completions`` with ``"stream": true`` server-sent events, in
 the same request and response shapes (``ignore_eos`` and the other vLLM
 extra parameters included; ``stream_options.include_usage`` adds a
-final usage chunk to a stream).  Stdlib HTTP only: the engine thread
-does the work, handler threads stream its queues.
+final usage chunk to a stream), and the observability surface:
+``/metrics`` (the ``kaito:*`` families: the engine's, the rate
+limiter's and the SLO watchdog's), ``/debug/trace`` (``?trace_id=``),
+``/debug/timeline``, ``/debug/slo`` and ``/debug/flight`` (403 without
+``--flight-dir``).  A client's ``X-Request-Id`` (or the trace id of a
+W3C ``traceparent``) names the request's trace and is echoed on every
+response, stream and error body.  Queue-depth 429s come from the rate
+limiter.  Stdlib HTTP only: the engine thread does the work, handler
+threads stream its queues.
 
-Not ported yet: ``/metrics``, the ``/debug/*`` routes, P/D, the KV
-pool, adapters, QoS and constrained decoding (``response_format`` and
+Not ported yet: ``/debug/device``, P/D, the KV pool, adapters, the
+profiler routes, QoS and constrained decoding (``response_format`` and
 ``tools``).  Their routes answer 501.
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
@@ -27,30 +34,89 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qs, urlparse
 
 from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine.chat import render_chat
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+from kaito_tpu_torch.engine.metrics import EngineMetrics, Gauge
+from kaito_tpu_torch.engine.rate_limit import RateLimiter
+from kaito_tpu_torch.runtime.slo import SLOTargets, SLOWatchdog, engine_chip_count
+from kaito_tpu_torch.utils.tracing import (chrome_trace, make_request_id,
+                                           parse_traceparent, sanitize_request_id)
 
 logger = logging.getLogger(__name__)
 
 # routes of the JAX server that later slices port (ROADMAP queue 1)
-_UNPORTED_GET = ("/metrics", "/debug/", "/pd/", "/kv_pool/", "/v1/adapters",
-                 "/ui")
-_UNPORTED_POST = ("/pd/", "/v1/adapters", "/start_profile", "/stop_profile",
-                  "/debug/")
+_UNPORTED_GET = ("/debug/device", "/debug/kv_pool", "/pd/", "/kv_pool/",
+                 "/v1/adapters", "/ui")
+_UNPORTED_POST = ("/pd/", "/v1/adapters", "/start_profile", "/stop_profile")
+
+_SHED_MESSAGE = "engine queue full, retry later"
 
 
 class ServerState:
+    """What the handlers share: the engine, one metrics registry holding
+    the engine's, the rate limiter's and the SLO watchdog's families,
+    and the flight recorder (with ``cfg.flight_dir`` only)."""
+
     def __init__(self, engine: InferenceEngine, cfg: EngineConfig):
         self.engine = engine
         self.cfg = cfg
         self.model_name = cfg.served_model_name or engine.md.name
+        self.metrics = EngineMetrics(engine)
+        self.limiter = RateLimiter(cfg.max_queue_len, cfg.disable_rate_limit)
+        self.metrics.registry.register(self.limiter.probe_errors)
+        # north-star SLO watchdog: config targets, KAITO_SLO_* on top
+        self.slo = SLOWatchdog(
+            targets=SLOTargets.from_env(SLOTargets(
+                ttft_p50_s=cfg.slo_ttft_p50_ms / 1000.0,
+                ttft_p99_s=cfg.slo_ttft_p99_ms / 1000.0,
+                itl_p99_s=cfg.slo_itl_p99_ms / 1000.0,
+                tokens_per_sec_per_chip=cfg.slo_tokens_per_sec_per_chip,
+                availability=cfg.slo_availability)),
+            chips=engine_chip_count(engine),
+            role=cfg.role or os.environ.get("KAITO_INFERENCE_ROLE", ""))
+        self.slo.register_metrics(self.metrics.registry)
+        # incident flight recorder: only with a flight_dir — no dir means
+        # no recorder, no watcher thread, no kaito:flight_bundles_total
+        # family, and /debug/flight answers 403
+        self.flight = None
+        self.flight_watcher = None
+        if cfg.flight_dir:
+            from kaito_tpu_torch.utils.flightrec import (FlightRecorder,
+                                                         FlightWatcher,
+                                                         engine_flight_snapshot)
+
+            self.flight = FlightRecorder(
+                cfg.flight_dir,
+                collect=lambda: engine_flight_snapshot(engine, slo=self.slo,
+                                                       cfg=cfg),
+                max_bundles=cfg.flight_max_bundles)
+            self.flight_watcher = FlightWatcher(
+                self.flight, slo_snapshot=self.slo.snapshot,
+                fatal_count=lambda: int(engine.counters["engine_fatal_total"]))
+            self.flight_watcher.start()
+            Gauge("kaito:flight_bundles_total",
+                  "Flight-recorder bundles written since process start",
+                  self.metrics.registry,
+                  fn=lambda: float(self.flight.bundles_total))
+
+    def observe(self, req) -> None:
+        """A finished request's latencies and tokens, into the metrics
+        and the SLO watchdog."""
+        self.metrics.observe_request(req)
+        self.slo.observe_request(req)
+
+    def close(self) -> None:
+        if self.flight_watcher is not None:
+            self.flight_watcher.stop()
 
 
 class OpenAIHandler(BaseHTTPRequestHandler):
@@ -62,17 +128,33 @@ class OpenAIHandler(BaseHTTPRequestHandler):
 
     # ---------------- helpers ----------------
 
-    def _json(self, code: int, obj: dict):
-        body = json.dumps(obj).encode()
+    def _intake_trace(self):
+        """This request's end-to-end trace id: the client's
+        ``X-Request-Id`` wins, then the trace id of an inbound W3C
+        ``traceparent``, else a fresh id.  Every response echoes it."""
+        self._rid = (sanitize_request_id(self.headers.get("X-Request-Id"))
+                     or parse_traceparent(self.headers.get("traceparent"))
+                     or make_request_id())
+
+    def _send(self, code: int, ctype: str, body: bytes,
+              headers: Optional[dict] = None):
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
+        self.send_header("X-Request-Id", self._rid)
+        for k, v in (headers or {}).items():
+            self.send_header(k, str(v))
         self.end_headers()
         self.wfile.write(body)
 
+    def _json(self, code: int, obj: dict, headers: Optional[dict] = None):
+        self._send(code, "application/json", json.dumps(obj).encode(), headers)
+
     def _error(self, code: int, message: str,
-               etype: str = "invalid_request_error"):
-        self._json(code, {"error": {"message": message, "type": etype}})
+               etype: str = "invalid_request_error",
+               headers: Optional[dict] = None):
+        self._json(code, {"error": {"message": message, "type": etype,
+                                    "request_id": self._rid}}, headers)
 
     def _not_ported(self):
         self._error(501, f"{self.path} is not implemented by the PyTorch "
@@ -95,6 +177,7 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
         self.send_header("Transfer-Encoding", "chunked")
+        self.send_header("X-Request-Id", self._rid)
         self.end_headers()
 
     def _sse_send(self, obj) -> None:
@@ -110,6 +193,7 @@ class OpenAIHandler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         st = self.state
+        self._intake_trace()
         if self.path == "/health":
             body = {"status": "ok", "device": str(st.engine.device)}
             if st.engine.sizing_report:
@@ -119,20 +203,67 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             self._json(200, {"object": "list", "data": [
                 {"id": st.model_name, "object": "model",
                  "owned_by": "kaito-tpu", "root": st.model_name}]})
+        elif self.path == "/metrics":
+            self._send(200, "text/plain; version=0.0.4",
+                       st.metrics.registry.expose().encode())
         elif self.path.startswith(_UNPORTED_GET):
             self._not_ported()
+        elif self.path.startswith("/debug/trace"):
+            # ?trace_id= filters to one request's span tree;
+            # metadata.dropped counts ring-overflow evictions
+            q = parse_qs(urlparse(self.path).query)
+            tracer = st.engine.tracer
+            self._json(200, chrome_trace(tracer.spans(q.get("trace_id", [None])[0]),
+                                         dropped=tracer.dropped))
+        elif self.path.startswith("/debug/timeline"):
+            self._json(200, st.engine.timeline.chrome_trace())
+        elif self.path.startswith("/debug/slo"):
+            self._json(200, st.slo.snapshot())
+        elif self.path.startswith("/debug/flight"):
+            self._flight_get()
         else:
             self._error(404, f"no route {self.path}")
 
     def do_POST(self):
+        self._intake_trace()
         if self.path == "/v1/completions":
             self._completions(chat=False)
         elif self.path == "/v1/chat/completions":
             self._completions(chat=True)
         elif self.path.startswith(_UNPORTED_POST):
             self._not_ported()
+        elif self.path.startswith("/debug/flight"):
+            self._flight_post()
         else:
             self._error(404, f"no route {self.path}")
+
+    def _flight_get(self):
+        """List the flight bundles at ``/debug/flight``, fetch one at
+        ``/debug/flight/<name>``; 403 without a flight directory."""
+        rec = self.state.flight
+        if rec is None:
+            return self._error(403, "flight recorder disabled (--flight-dir)")
+        rest = self.path[len("/debug/flight"):].strip("/")
+        if not rest:
+            return self._json(200, {"dir": rec.dir,
+                                    "bundles_total": rec.bundles_total,
+                                    "bundles": rec.list()})
+        raw = rec.read(rest)
+        if raw is None:
+            return self._error(404, f"no bundle {rest!r}")
+        self._send(200, "application/json", raw)
+
+    def _flight_post(self):
+        """Snapshot every debug surface into a bundle now."""
+        from kaito_tpu_torch.utils.flightrec import TRIGGER_MANUAL
+
+        rec = self.state.flight
+        if rec is None:
+            return self._error(403, "flight recorder disabled (--flight-dir)")
+        name = rec.record(TRIGGER_MANUAL, reason="POST /debug/flight")
+        if name is None:
+            return self._error(500, "flight bundle write failed")
+        self._json(200, {"bundle": name})
 
     def _completions(self, chat: bool):
         st = self.state
@@ -140,9 +271,14 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         body = self._read_body()
         if body is None:
             return
-        if eng.num_waiting >= st.cfg.max_queue_len:
-            return self._error(429, "engine queue full, retry later",
-                               "rate_limit_error")
+        shed = st.limiter.shed_reason(eng)
+        if shed is not None:
+            st.metrics.requests_rejected.inc()
+            st.metrics.requests_shed.inc(reason=shed)
+            st.slo.note_shed()
+            eng.counters["requests_shed_total"] += 1
+            return self._error(429, _SHED_MESSAGE, "rate_limit_error", headers={
+                "Retry-After": st.limiter.retry_after_s(eng, key=self._rid)})
         for key in ("response_format", "tools", "tool_choice", "kv_transfer"):
             if body.get(key) is not None:
                 return self._error(501, f"{key!r} is not implemented by the "
@@ -207,7 +343,8 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         tokens = eng.tokenizer.encode(prompt_text)
         try:
             req = eng.submit(tokens, params,
-                             req_id=f"cmpl-{uuid.uuid4().hex[:20]}")
+                             req_id=f"cmpl-{uuid.uuid4().hex[:20]}",
+                             trace_id=self._rid)
         except ValueError as e:
             return self._error(400, str(e))
         obj = "chat.completion" if chat else "text_completion"
@@ -218,6 +355,7 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             return self._stream(req, base, chat, stop_strs, include_usage)
 
         out_ids = list(req.stream())
+        st.observe(req)
         if req.finish_reason == "error":
             err = req.error or {}
             return self._error(int(err.get("status", 500)),
@@ -302,7 +440,16 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                 "completion_tokens": n_out,
                 "total_tokens": len(req.prompt_tokens) + n_out}})
             self._sse_send(usage)
+        self.state.observe(req)
         self._sse_end()
+
+
+class _Server(ThreadingHTTPServer):
+    """Stops the server state's threads (the flight watcher) on close."""
+
+    def server_close(self):
+        super().server_close()
+        self.state.close()
 
 
 def make_server(engine: Optional[InferenceEngine], cfg: EngineConfig,
@@ -318,8 +465,7 @@ def make_server(engine: Optional[InferenceEngine], cfg: EngineConfig,
                          f"{device!r}")
     state = ServerState(engine, cfg)
     handler = type("Handler", (OpenAIHandler,), {"state": state})
-    server = ThreadingHTTPServer((host, port if port is not None else cfg.port),
-                                 handler)
+    server = _Server((host, port if port is not None else cfg.port), handler)
     server.daemon_threads = True
     server.state = state  # type: ignore[attr-defined]
     return server
@@ -364,6 +510,19 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
     ap.add_argument("--no-enable-prefix-caching", dest="enable_prefix_caching",
                     action="store_false")
     ap.add_argument("--max-queue-len", type=int, default=256)
+    ap.add_argument("--kaito-disable-rate-limit", action="store_true")
+    ap.add_argument("--slow-request-threshold-s", type=float, default=0.0,
+                    help="dump a request's span tree to the log when its "
+                         "end-to-end latency crosses this (0 = off)")
+    ap.add_argument("--flight-dir",
+                    default=os.environ.get("KAITO_FLIGHT_DIR", ""),
+                    help="directory for incident flight-recorder bundles "
+                         "(written on an SLO page, an engine-fatal error, "
+                         "SIGTERM with requests in flight, or POST "
+                         "/debug/flight; '' = off, /debug/flight answers 403)")
+    ap.add_argument("--flight-max-bundles", type=int,
+                    default=int(os.environ.get("KAITO_FLIGHT_MAX_BUNDLES", "16")),
+                    help="bundles kept under --flight-dir (LRU by mtime)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tensor-parallel-size", type=int, default=1,
                     help="shards over the first N cards (raises when fewer "
@@ -391,7 +550,11 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         max_prefill_tokens=args.max_prefill_tokens,
         prefill_pack=args.prefill_pack, decode_run_ahead=args.decode_run_ahead,
         enable_prefix_caching=args.enable_prefix_caching,
-        max_queue_len=args.max_queue_len, seed=args.seed,
+        max_queue_len=args.max_queue_len,
+        disable_rate_limit=args.kaito_disable_rate_limit,
+        slow_request_threshold_s=args.slow_request_threshold_s,
+        flight_dir=args.flight_dir, flight_max_bundles=args.flight_max_bundles,
+        seed=args.seed,
         tensor_parallel=args.tensor_parallel_size, comm_overlap=args.comm_overlap,
         async_dispatch=args.async_dispatch)
     return cfg, args
@@ -402,6 +565,19 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     server = make_server(None, cfg, host=args.host, device=args.device)
     engine = server.state.engine
+    if cfg.flight_dir:
+        # a flight trigger: SIGTERM with requests still in flight
+        # snapshots the black box before the graceful shutdown runs
+        import signal
+
+        def _on_sigterm(signum, frame):
+            in_flight = engine.num_running + engine.num_waiting
+            if in_flight > 0:
+                server.state.flight.record(
+                    "sigterm", reason=f"{in_flight} request(s) in flight")
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _on_sigterm)
     logger.info("serving %s on %s:%d (%s)", cfg.model, args.host, cfg.port,
                 engine.device)
     try:

@@ -251,8 +251,27 @@ def test_unported_gates_raise(field, value, item):
 
 
 def test_prefix_caching_default_runs_on_the_plain_allocator(caplog):
+    """Prefix caching is on by default and builds the radix tree (the
+    plain allocator serves only with it off, and for MLA, as in the JAX
+    engine); output is the same as with it off."""
+    from kaito_tpu_torch.engine.engine import PageAllocator
+    from kaito_tpu_torch.engine.prefix_cache import PrefixCache
+    from kaito_tpu_torch.models.autogen import metadata_from_hf_config
+    from tests.test_torch_mla import CONFIGS
+
+    assert EngineConfig().enable_prefix_caching
     with caplog.at_level("INFO"):
         eng = InferenceEngine(EngineConfig(**{**BASE, "enable_prefix_caching": True}),
                               device="cpu")
-    assert "plain allocator" in caplog.text
+    assert "radix tree" in caplog.text
+    assert isinstance(eng.prefix_cache, PrefixCache) and eng.allocator is eng.prefix_cache
     assert _run(eng, PROMPTS[:1], n=4)[0] == _run(_mk(), PROMPTS[:1], n=4)[0]
+    assert isinstance(_mk().allocator, PageAllocator) and _mk().prefix_cache is None
+    mla = InferenceEngine(
+        EngineConfig(model="tiny-mla-test", max_model_len=128, page_size=16,
+                     max_num_seqs=2, dtype="float32", prefill_buckets=(16, 32, 64)),
+        metadata=metadata_from_hf_config("test/q_lora", CONFIGS["q_lora"],
+                                         name="tiny-mla-test"),
+        device="cpu")
+    assert mla.cfg.enable_prefix_caching and mla.prefix_cache is None
+    assert isinstance(mla.allocator, PageAllocator)
