@@ -70,6 +70,9 @@ order; any failure exits non-zero and prints no result:
    against its plain version (bf16 and fp32) and timed in bf16 beside
    SDPA (a boolean mask where a window cuts it) and the bound, which
    counts only the keys the window keeps; K1's plan there is logged.
+   K2 also at prompt scoring's lengths, T = 1024 and 4096 with true_len
+   T - 37 (bf16 and fp32, the same tolerances), timed at T = 4096 beside
+   SDPA.
 3. Goldens: ``tiny-llama-real`` in fp32 through the port's engine on the
    card, the prefix cache on, must reproduce the ``fp32``, ``int8``,
    ``weight_int4`` and ``kv_int8`` sections of
@@ -92,7 +95,10 @@ order; any failure exits non-zero and prints no result:
    0) in the four modes ``fp32``, ``int8``, ``weight_int4`` and
    ``kv_int8``: an engine on the card must give the greedy tokens of one
    on the CPU (which the CPU tests hold against the JAX engine) with
-   logprobs within atol 2e-3, every card window a replay.
+   logprobs within atol 2e-3, every card window a replay.  The fp32
+   goldens are also scored (``score_prompt``: each golden prompt plus
+   its golden tokens, K2 once a layer): the scores of the golden tokens
+   must be the golden logprobs within 2e-3.
 4. Full width: the port's HTTP server serves ``llama-3.1-8b-instruct``
    (all 32 layers, bf16, synthetic weights from seed 0): one completion,
    one streamed chat, then four concurrent 100-400-token prompts (a
@@ -112,7 +118,8 @@ order; any failure exits non-zero and prints no result:
    equal the engine's; a request sent with an ``X-Request-Id`` must have
    its span tree at ``/debug/trace?trace_id=`` and engine steps inside
    it at ``/debug/timeline``; ``/debug/slo`` must answer and
-   ``/debug/device`` answer 501.  Then the decode readings of one
+   ``/debug/device`` answer 501; with QoS and ITL off no ``/metrics``
+   series may carry a ``tenant`` label or belong to an ITL family.  Then the decode readings of one
    sequence: host launch and copy calls a decode step and a window (on
    the bf16, int8 and bf16-async legs no more than when decode windows
    were first captured, PERF.md section 5), device
@@ -156,6 +163,28 @@ order; any failure exits non-zero and prints no result:
    launch on the decode-row and the wide path.  Each leg also times the
    plain MLA decode attention at one layer of its pool (8 sequences,
    the full table width) against its bound.
+9. QoS, deadlines, ITL, scoring and ``n`` (leg ``qos-bf16``): the bf16
+   server of phase 4 with its own flags ``--qos-config`` (``acme``
+   guaranteed, everyone else best-effort with a queue budget of 4),
+   ``--itl``, ``--kv-shed-threshold 0.95`` and ``--max-queue-len 64``.
+   acme's streamed TTFT alone, then under a best-effort flood of
+   24-token requests: acme always completes, the flood takes 429s with a
+   Retry-After, the per-tenant shed counters agree, and acme's loaded
+   TTFT p50 stays within max(2x, +250 ms) of its unloaded one.  With
+   every slot held by best-effort decodes an acme request completes
+   unpreempted while a best-effort one is preempted and still finishes.
+   A request queued behind a full batch with a 50 ms timeout answers 408
+   without spending a prompt token; a 400-token decode with a 1 s
+   timeout answers 408 mid-decode; every page comes back.  The ITL
+   histogram's count must equal the leg's tokens less one a request,
+   logged beside the client's stamps of one sequence.  ``echo`` scores a
+   1000- and a 4000-byte prompt (twice each), each with exactly one K2
+   launch a layer, and a served greedy continuation's logprobs against
+   the same tokens scored (bf16, within 0.1).  ``n``: four greedy choices
+   hold n=1's tokens up to a near-tie (the two picks' logprobs within
+   0.1), four sampled ones sum to the usage, and ``n`` with ``stream``
+   is a 400.  K1 and K2 must launch, and every decode window
+   must be a graph replay.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -165,7 +194,7 @@ phase 3 and every server leg after phase 4's bf16 one (with
 ``--profile``, the quickest reading of TTFT and prefill device time)
 and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
-``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``), which
+``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -1163,6 +1192,36 @@ def _time_flash(torch, T, gen, scale, H=32, Hkv=8, D=128, window=BIG):
                  bound_ms=b3, bound_by=by3, segments=seg_lens))
 
 
+# prompt scoring's K2 launches (one a layer over the fresh [1, T] row,
+# T a multiple of 128 up to max_model_len): checked at these T with
+# true_len T - 37, and timed at the longest
+SCORING_T = (1024, 4096)
+
+
+def _time_scoring_k2(torch, T, gen, scale):
+    """K2 bf16 at a scoring length (B=1, T, H=32, Hkv=8, D=128, causal,
+    the whole row valid): the kernel, the plain version, SDPA and the
+    bound."""
+    from kaito_tpu_torch.engine.ops.flash_prefill import (
+        flash_prefill_attention_cuda, flash_prefill_attention_plain)
+
+    q, k, v = _flash_inputs(torch, torch.bfloat16, T, gen)
+    tl = torch.tensor([T], dtype=torch.int32, device="cuda")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms, host = time_ms(lambda: flash_prefill_attention_cuda(q, k, v, tl, BIG,
+                                                           scale=scale))
+    plain = time_ms(lambda: flash_prefill_attention_plain(q, k, v, tl, BIG,
+                                                          scale=scale), iters=3)[0]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))[0]
+    b, by = bound((2 * q.numel() + k.numel() + v.numel()) * 2 + 4,
+                  4.0 * 32 * 128 * _attended(T, BIG))
+    log(f"K2 at scoring length T={T} bf16: {ms:.4f} ms (plain {plain:.4f}, SDPA "
+        f"{lib:.4f}, bound {b:.5f} by {by}); {host:.3f} host ms a call")
+    return dict(T=T, ms=ms, host_ms=host, plain_ms=plain, library_ms=lib,
+                bound_ms=b, bound_by=by)
+
+
 def check_flash(torch, records):
     from kaito_tpu_torch.engine.ops.flash_prefill import (
         flash_prefill_attention_cuda, flash_prefill_attention_plain,
@@ -1216,6 +1275,21 @@ def check_flash(torch, records):
                         f"max err {e:.3g}")
 
     scale = 1.0 / math.sqrt(128)
+    # K2 at prompt scoring's lengths, part of its record's error
+    scoring_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for T in SCORING_T:
+            q, k, v = _flash_inputs(torch, dtype, T, gen)
+            tl = torch.tensor([T - 37], dtype=torch.int32, device="cuda")
+            out = flash_prefill_attention_cuda(q, k, v, tl, BIG, scale=scale)
+            ref = flash_prefill_attention_plain(q, k, v, tl, BIG, scale=scale)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float())[:, :T - 37].abs().max().item()
+            scoring_err[dtype] = max(scoring_err[dtype], e)
+            err2[dtype] = max(err2[dtype], e)
+            log(f"K2 {dtype} scoring T={T} true_len={T - 37}: max err {e:.3g}")
+            del q, k, v, out, ref
+    scoring = [_time_scoring_k2(torch, T, gen, scale) for T in SCORING_T]
     t512 = _time_flash(torch, 512, gen, scale)
     t256 = _time_flash(torch, 256, gen, scale)
     # gpt-oss-20b's prefill: a 512-token chunk, window 128 and global
@@ -1235,6 +1309,10 @@ def check_flash(torch, records):
             kernel_ms=t512[i]["ms"], t256=t256[i], **t512[i],
             gpt_oss_20b=dict(shape="B=1 T=512 H=64 Hkv=8 D=64 bf16",
                              window_128=gpt_oss[0][i], window_global=gpt_oss[1][i]))
+    records["flash_prefill_attention"]["scoring"] = dict(
+        lengths=list(SCORING_T), true_len="T - 37",
+        max_err_bf16=scoring_err[torch.bfloat16],
+        max_err_fp32=scoring_err[torch.float32], timed=scoring)
     for name, err in (("K2", err2), ("K3", err3)):
         if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
             raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
@@ -1312,9 +1390,14 @@ def check_goldens(section, tp=1, overlap=False, async_on=False,
         raise SmokeFailure(f"{section} TP={tp}: comm_overlap={eng.comm_overlap}, "
                            f"asked {overlap}; prefix cache {eng.prefix_cache}")
     runs = 2 if warm else 1
+    # the fp32 checkpoint's goldens once more through prompt scoring (K2
+    # over each golden prompt plus its golden tokens)
+    score = (section == "fp32" and tp == 1 and not warm and not async_on
+             and model == "tiny-llama-real")
     eng.start()
     try:
         results = _golden_runs(eng, golden, section, runs)
+        scored = score_goldens(eng, golden) if score else None
     finally:
         eng.stop()
     ref = None
@@ -1349,10 +1432,41 @@ def check_goldens(section, tp=1, overlap=False, async_on=False,
         raise SmokeFailure(f"{section}: {eng.counters['decode_windows_total']} decode "
                            f"windows but {replays} graph replays")
     moe = f", expert form {eng.model.moe_impl}" if eng.md.arch.num_experts else ""
+    if scored is not None:
+        worst = max(worst, scored)
     log(f"goldens {model} {section} TP={tp} overlap={overlap} async={async_on}"
         f"{' warm (each prompt twice, page 16)' if warm else ''}{moe}: "
         f"{len(golden['prompts'])} prompts exact, worst logprob diff {worst:.3g}; "
         f"{eng.counters['decode_graph_captures_total']} captures, {replays} replays")
+    return worst
+
+
+def score_goldens(eng, golden) -> float:
+    """Score each golden prompt plus its fp32 golden tokens through a
+    started engine (``score_prompt``, on its thread): the scores of the
+    golden tokens must be the golden logprobs within 2e-3, and each
+    prompt must launch K2 once a layer.  Returns the worst difference."""
+    from kaito_tpu_torch.engine.ops.flash_prefill import flash_prefill_attention_cuda
+
+    worst = 0.0
+    layers = eng.md.arch.num_layers
+    for p in golden["prompts"]:
+        toks, gold = list(p["prompt_tokens"]), p["fp32"]
+        k2 = flash_prefill_attention_cuda.launches
+        lps = eng.score_prompt(toks + gold["greedy_tokens"])
+        if flash_prefill_attention_cuda.launches - k2 != layers:
+            raise SmokeFailure(f"scoring {p['text']!r}: K2 launched "
+                               f"{flash_prefill_attention_cuda.launches - k2} times, "
+                               f"not once a layer ({layers})")
+        n = len(toks)
+        got = lps[n:n + len(gold["greedy_tokens"])]
+        d = max(abs(a - b) for a, b in zip(got, gold["logprobs"]))
+        worst = max(worst, d)
+        if lps[0] is not None or d > 2e-3:
+            raise SmokeFailure(f"scoring the golden {p['text']!r}: logprobs off by "
+                               f"{d:.3g} (first {lps[0]})")
+    log(f"goldens tiny-llama-real fp32 through prompt scoring: {len(golden['prompts'])} "
+        f"prompts, worst logprob diff {worst:.3g}, K2 once a layer each")
     return worst
 
 
@@ -1741,7 +1855,8 @@ def check_routes(base, engine, label) -> dict:
     counters equal the engine's (every request so far came over HTTP);
     a request sent with an ``X-Request-Id`` has its span tree at
     ``/debug/trace?trace_id=`` and engine steps inside its span at
-    ``/debug/timeline``; ``/debug/slo`` answers."""
+    ``/debug/timeline``; ``/debug/slo`` answers.  With QoS and ITL off,
+    ``/metrics`` holds no ``tenant`` label and no ITL family."""
     from kaito_tpu_torch.utils.promtext import (check_histograms,
                                                 parse_exposition)
 
@@ -1759,6 +1874,13 @@ def check_routes(base, engine, label) -> dict:
     samples = parse_exposition(raw.decode())
     hists = check_histograms(samples)
     values = {n: v for n, lbl, v in samples if not lbl}
+    # QoS and ITL off (every leg of phases 4-8): no per-tenant series and
+    # no ITL family, as before either was ported
+    qos_itl = [f"{n}{lbl}" for n, lbl, _ in samples if "tenant=" in lbl
+               or n.startswith(("kaito:inter_token_latency_seconds",
+                                "kaito:itl_stalls_total"))]
+    if qos_itl:
+        raise SmokeFailure(f"{label}: QoS/ITL series with both off: {qos_itl[:5]}")
     c = engine.counters
     for fam, key in (("kaito:prompt_tokens_total", "prompt_tokens_total"),
                      ("kaito:generation_tokens_total", "generation_tokens_total"),
@@ -2207,6 +2329,556 @@ def sweep_run_ahead(engine, values=(1, 2, 4, 8, 16), reps=6):
     return dict(single=single, itl=itl, concurrent8=conc, pick=pick)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: multi-tenant QoS, deadlines, ITL, prompt scoring and n > 1
+# ---------------------------------------------------------------------------
+
+# tests/test_qos.py's document: "acme" guaranteed, everyone else
+# best-effort with a queue budget of 4
+QOS_DOC = json.dumps({
+    "classes": {"guaranteed": {"priority": 100, "weight": 8},
+                "best-effort": {"priority": 0, "weight": 1, "max_queue_len": 4}},
+    "tenants": {"acme": "guaranteed"}, "default_class": "best-effort"})
+QOS_FLAGS = ["--qos-config", QOS_DOC, "--itl", "--kv-shed-threshold", "0.95",
+             "--max-queue-len", "64"]
+QOS_LEG = ("qos-bf16", "phase 9, bf16, QoS + deadlines + ITL + scoring")
+# best-effort flood threads: each holds at most one request, so with 8
+# slots it takes more than 8 + 4 of them to pass the tenant's queue
+# budget of 4 (tests/test_qos.py's ten outran the JAX test server's
+# smaller batch)
+FLOOD_THREADS = 16
+# a served greedy continuation's bf16 logprobs (prefill, then replayed
+# decode windows) against the same tokens scored by one cache-less bf16
+# forward: the two sum in different orders
+SCORE_BF16_ATOL = 0.1
+
+
+def _http(base, path, body, headers=None, timeout=600):
+    """(status, headers, body) of one POST, an HTTP error included."""
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _acme_ttft(base, salt) -> float:
+    """TTFT of one streamed acme chat request of 16 tokens (its first
+    event comes with its first token); fails unless it completes."""
+    req = urllib.request.Request(f"{base}/v1/chat/completions", data=json.dumps(dict(
+        messages=[{"role": "user", "content": _prompt(200, salt)}], max_tokens=16,
+        temperature=0.0, ignore_eos=True, stream=True)).encode(),
+        headers={"Content-Type": "application/json", "X-Kaito-Tenant": "acme",
+                 "X-Request-Id": f"acme-{salt}"})
+    t0 = time.perf_counter()
+    first, done, finish = None, False, None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            if not line.startswith(b"data:"):
+                continue
+            if first is None:
+                first = time.perf_counter() - t0
+            if b"[DONE]" in line:
+                done = True
+                break
+            ch = json.loads(line[5:]).get("choices") or [{}]
+            finish = ch[0].get("finish_reason") or finish
+    if not done or finish != "length":
+        raise SmokeFailure(f"acme request {salt} did not complete: done {done}, "
+                           f"finish {finish}")
+    return first
+
+
+def _ttft_parts(base, salt) -> dict:
+    """Where one acme request's TTFT went, from its spans (ms): queue
+    wait, staged until its first prefill dispatch, its prefill chunks,
+    and submit to first token on the engine's clock."""
+    sp = _spans(base, f"acme-{salt}")
+    req, adm = sp["request"][0], sp["admit"][0]
+    chunks = sorted(sp["prefill.chunk"], key=lambda a: a["ts_ms"])
+    return dict(queue_ms=sp["queue.wait"][0]["dur_ms"],
+                staged_ms=chunks[0]["queue_wait"] * 1e3,
+                prefill_ms=sum(c["dur_ms"] for c in chunks),
+                prefill_pack=max(c.get("pack", 1) for c in chunks),
+                engine_ttft_ms=sp["decode"][0]["ts_ms"] - req["ts_ms"],
+                preemptions=req["preemptions"], cached_tokens=adm["cached_tokens"])
+
+
+def _wait_idle(engine, what, limit=300.0):
+    deadline = time.monotonic() + limit
+    while engine.num_running or engine.num_waiting or any(
+            s.request is not None for s in engine.slots):
+        if time.monotonic() > deadline:
+            raise SmokeFailure(f"engine not idle after {what}")
+        time.sleep(0.01)
+
+
+def _wait_running(engine, n, what, limit=120.0):
+    deadline = time.monotonic() + limit
+    while engine.num_running < n:
+        if time.monotonic() > deadline:
+            raise SmokeFailure(f"{what}: {engine.num_running} of {n} slots decoding")
+        time.sleep(0.002)
+
+
+def _spans(base, rid) -> dict:
+    status, raw = _get(f"{base}/debug/trace?trace_id={rid}")
+    if status != 200:
+        raise SmokeFailure(f"/debug/trace?trace_id={rid} answered {status}")
+    out: dict = {}
+    for e in json.loads(raw)["traceEvents"]:
+        if e["ph"] == "X":
+            out.setdefault(e["name"], []).append(dict(
+                e["args"], ts_ms=e["ts"] / 1e3, dur_ms=e["dur"] / 1e3))
+    return out
+
+
+def _label(lbl, name):
+    m = re.search(name + r'="([^"]*)"', lbl)
+    return m.group(1) if m else None
+
+
+def _labelled(samples, family) -> dict:
+    """{tenant: value} of a per-tenant family."""
+    return {_label(lbl, "tenant"): v for n, lbl, v in samples if n == family}
+
+
+def _hist_quantile(samples, family, q) -> float:
+    """Upper bucket edge holding quantile ``q`` of a histogram family."""
+    buckets = sorted((float(_label(lbl, "le")), v) for n, lbl, v in samples
+                     if n == family + "_bucket")
+    total = buckets[-1][1]
+    return next(le for le, cum in buckets if cum >= q * total)
+
+
+def _flood(base, threads, stop, out):
+    """The best-effort flood, in a process of its own (as the JAX test's
+    clients are, beside its server): ``threads`` threads of tenant
+    "free" send 24-token requests until ``stop`` is set, pausing 50 ms
+    after each 429; ``out`` gets (served, shed, errors)."""
+    served, sheds, errors = [], [], []
+
+    def run():
+        while not stop.is_set():
+            status, hdrs, raw = _http(base, "/v1/completions", dict(
+                prompt="qos overload probe " * 3, max_tokens=24, temperature=0.0,
+                ignore_eos=True), {"X-Kaito-Tenant": "free"})
+            if status == 200:
+                served.append(1)
+            elif status == 429 and hdrs.get("Retry-After"):
+                sheds.append(1)
+                stop.wait(0.05)
+            else:
+                errors.append(f"{status} {raw[:200]!r}")
+                return
+
+    ths = [threading.Thread(target=run) for _ in range(threads)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    out.put((len(served), len(sheds), errors))
+
+
+def qos_overload(base, engine, label) -> dict:
+    """tests/test_qos.py:542-618 on the card: acme's TTFT alone (five
+    streamed requests after two warm-ups), then under a best-effort
+    flood of 24-token requests from ``FLOOD_THREADS`` threads of another
+    process, six more.  acme always completes and is never shed; the
+    flood takes 429s, each with a Retry-After; the per-tenant shed
+    counters say so; acme's loaded TTFT p50 holds max(2x its unloaded
+    p50, it + 0.25 s)."""
+    import multiprocessing
+
+    for i in range(2):
+        _acme_ttft(base, 900 + i)
+    baseline = [_acme_ttft(base, 902 + i) for i in range(5)]
+    pre0 = engine.counters["preemptions_total"]
+    ctx = multiprocessing.get_context("spawn")
+    stop, out = ctx.Event(), ctx.Queue()
+    proc = ctx.Process(target=_flood, args=(base, FLOOD_THREADS, stop, out))
+    proc.start()
+    try:
+        # the flood fills the slots and the queue
+        deadline = time.monotonic() + 60
+        while engine.num_waiting_for("free") < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(1.0)
+        loaded = [_acme_ttft(base, 910 + i) for i in range(6)]
+    finally:
+        stop.set()
+        try:
+            n_served, n_shed, errors = out.get(timeout=300)
+        finally:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+    served, sheds = [1] * n_served, [1] * n_shed
+    _wait_idle(engine, "the flood")
+    # where acme's TTFT went, alone and under the flood (medians, ms)
+    parts = {}
+    for key, salts in (("alone", range(902, 907)), ("loaded", range(910, 916))):
+        rows = [_ttft_parts(base, s) for s in salts]
+        parts[key] = {k: _quantile([r[k] for r in rows], 0.5) for k in rows[0]}
+    log(f"{label}: acme's TTFT by span (medians, ms): alone {parts['alone']}; "
+        f"under the flood {parts['loaded']}")
+    preemptions = engine.counters["preemptions_total"] - pre0
+    b50, l50 = _quantile(baseline, 0.5), _quantile(loaded, 0.5)
+    status, raw = _get(f"{base}/metrics")
+    from kaito_tpu_torch.utils.promtext import parse_exposition
+
+    samples = parse_exposition(raw.decode())
+    shed_by = _labelled(samples, "kaito:requests_shed_total")
+    served_by = _labelled(samples, "kaito:requests_served_total")
+    log(f"{label}: acme TTFT p50 alone {b50 * 1e3:.1f} ms ({', '.join(f'{x * 1e3:.1f}' for x in baseline)}), "
+        f"under a {FLOOD_THREADS}-thread best-effort flood {l50 * 1e3:.1f} ms "
+        f"({', '.join(f'{x * 1e3:.1f}' for x in loaded)}); flood: {len(served)} served, "
+        f"{len(sheds)} shed (429 + Retry-After); preemptions {preemptions}; shed by "
+        f"tenant {shed_by}, served by tenant {served_by}")
+    if errors:
+        raise SmokeFailure(f"{label}: flood requests failed: {errors[:3]}")
+    if not sheds:
+        raise SmokeFailure(f"{label}: the flood never outran the best-effort budget")
+    if shed_by.get("free", 0) < len(sheds) or shed_by.get("acme", 0.0) != 0.0:
+        raise SmokeFailure(f"{label}: per-tenant sheds {shed_by}, {len(sheds)} seen")
+    if l50 > max(2 * b50, b50 + 0.25):
+        raise SmokeFailure(f"{label}: acme's loaded TTFT p50 {l50 * 1e3:.1f} ms above "
+                           f"max(2 x {b50 * 1e3:.1f}, {b50 * 1e3:.1f} + 250) ms")
+    return dict(acme_ttft_alone_ms=[x * 1e3 for x in baseline],
+                acme_ttft_loaded_ms=[x * 1e3 for x in loaded],
+                acme_ttft_p50_alone_ms=b50 * 1e3, acme_ttft_p50_loaded_ms=l50 * 1e3,
+                flood_threads=FLOOD_THREADS, flood_served=len(served),
+                flood_shed=len(sheds), preemptions=preemptions,
+                shed_by_tenant=shed_by, served_by_tenant=served_by,
+                ttft_parts=parts)
+
+
+def _free_batch(base, engine, n, tokens, salt, tag):
+    """``n`` best-effort requests of ``tokens`` tokens in threads, each
+    with the X-Request-Id ``{tag}-{i}``, each sent once the one before
+    has left the queue (the tenant's queue budget is 4): (threads, their
+    results)."""
+    results = {}
+
+    def run(i):
+        results[i] = _http(base, "/v1/completions", dict(
+            prompt=_prompt(100, salt + i), max_tokens=tokens, temperature=0.0,
+            ignore_eos=True), {"X-Kaito-Tenant": "free", "X-Request-Id": f"{tag}-{i}"})
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        queued = engine.counters["requests_total"]
+        t.start()
+        deadline = time.monotonic() + 60
+        while (engine.counters["requests_total"] == queued
+               or engine.num_waiting_for("free")) and time.monotonic() < deadline:
+            time.sleep(0.001)
+    return threads, results
+
+
+def _all_served(threads, results, tokens, what):
+    for t in threads:
+        t.join(timeout=600)
+    bad = {i: r[0] for i, r in results.items() if r[0] != 200 or json.loads(
+        r[2])["usage"]["completion_tokens"] != tokens}
+    if bad or len(results) != len(threads):
+        raise SmokeFailure(f"{what}: requests not served whole: {bad}")
+
+
+def qos_slot_preemption(base, engine, label) -> dict:
+    """Every slot held by a best-effort decode: one acme request takes a
+    slot from them and completes unpreempted; a best-effort request
+    shows a ``preempt`` span, and all of them finish every token."""
+    n = len(engine.slots)
+    threads, results = _free_batch(base, engine, n, 200, 950, "free-held")
+    _wait_running(engine, n, f"{label}: slot preemption")
+    t0 = time.perf_counter()
+    status, _, raw = _http(base, "/v1/completions", dict(
+        prompt=_prompt(100, 960), max_tokens=16, temperature=0.0, ignore_eos=True),
+        {"X-Kaito-Tenant": "acme", "X-Request-Id": "acme-claims-a-slot"})
+    dt = time.perf_counter() - t0
+    if status != 200 or json.loads(raw)["usage"]["completion_tokens"] != 16:
+        raise SmokeFailure(f"{label}: acme request answered {status} {raw[:200]!r}")
+    _all_served(threads, results, 200, f"{label}: held slots")
+    acme = _spans(base, "acme-claims-a-slot")["request"][0]
+    preempted = [i for i in range(n) if "preempt" in _spans(base, f"free-held-{i}")]
+    log(f"{label}: with {n} best-effort decodes holding every slot, acme's 16 tokens "
+        f"took {dt * 1e3:.1f} ms, {acme['preemptions']} preemptions; best-effort "
+        f"requests preempted: {preempted}, all {n} served whole")
+    if acme["preemptions"] != 0 or not preempted:
+        raise SmokeFailure(f"{label}: acme preemptions {acme['preemptions']}, "
+                           f"best-effort preempted {preempted}")
+    return dict(acme_ms=dt * 1e3, acme_preemptions=acme["preemptions"],
+                best_effort_preempted=preempted)
+
+
+def qos_deadlines(base, engine, label) -> dict:
+    """A request queued behind a full batch with "timeout": 0.05 answers
+    408 and burns no prompt token; a 400-token decode with "timeout": 1.0
+    answers 408 cut mid-decode; every page comes back."""
+    c = engine.counters
+    _wait_idle(engine, "the slot check")
+    avail0, exp0 = engine.allocator.available, c["requests_expired_total"]
+    n = len(engine.slots)
+    threads, results = _free_batch(base, engine, n, 160, 970, "fill")
+    _wait_running(engine, n, f"{label}: deadline fill")
+    p0 = c["prompt_tokens_total"]
+    t0 = time.perf_counter()
+    status, _, raw = _http(base, "/v1/completions", dict(
+        prompt=_prompt(100, 980), max_tokens=8, temperature=0.0, ignore_eos=True,
+        timeout=0.05), {"X-Kaito-Tenant": "free"})
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    err = json.loads(raw).get("error", {})
+    if status != 408 or err.get("type") != "deadline_exceeded":
+        raise SmokeFailure(f"{label}: a queued request past its deadline answered "
+                           f"{status} {raw[:200]!r}")
+    if c["requests_expired_total"] != exp0 + 1 or c["prompt_tokens_total"] != p0:
+        raise SmokeFailure(f"{label}: expired {c['requests_expired_total'] - exp0}, "
+                           f"prompt tokens grew by {c['prompt_tokens_total'] - p0}")
+    _all_served(threads, results, 160, f"{label}: deadline fill")
+    _wait_idle(engine, "the deadline fill")
+    t0 = time.perf_counter()
+    status, _, raw = _http(base, "/v1/completions", dict(
+        prompt=_prompt(100, 981), max_tokens=400, temperature=0.0, ignore_eos=True,
+        timeout=1.0), {"X-Kaito-Tenant": "acme", "X-Request-Id": "cut-at-1s"})
+    cut_ms = (time.perf_counter() - t0) * 1e3
+    _wait_idle(engine, "the cut request")
+    tokens = _spans(base, "cut-at-1s")["decode"][0]["tokens"]
+    if status != 408 or not 0 < tokens < 400:
+        raise SmokeFailure(f"{label}: the 1 s decode answered {status} after "
+                           f"{tokens} tokens")
+    if engine.allocator.available != avail0:
+        raise SmokeFailure(f"{label}: {engine.allocator.available} pages free after "
+                           f"the deadlines, {avail0} before")
+    log(f"{label}: deadlines: a request queued behind {n} decodes answered 408 in "
+        f"{queued_ms:.1f} ms (timeout 50 ms; no prompt token spent); a 400-token "
+        f"decode with timeout 1 s answered 408 in {cut_ms:.1f} ms after {tokens} "
+        f"tokens; {avail0} pages free before and after")
+    return dict(queued_408_ms=queued_ms, cut_408_ms=cut_ms, cut_tokens=tokens,
+                pages_free=avail0)
+
+
+def qos_scoring(base, engine, label) -> dict:
+    """``echo`` scoring of a 1000- and a 4000-byte prompt, twice each (a
+    bucket's first call also meets its GEMM shapes for the first time):
+    one K2 launch a layer each, every value finite and <= 0, None first; then a served
+    greedy continuation's logprobs against the same tokens scored."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+    from kaito_tpu_torch.engine.ops.flash_prefill import flash_prefill_attention_cuda
+
+    _wait_idle(engine, "the deadlines")
+    layers = engine.md.arch.num_layers
+    res = {}
+    for nbytes, call in ((1000, 1), (4000, 1), (1000, 2), (4000, 2)):
+        k2 = flash_prefill_attention_cuda.launches
+        t0 = time.perf_counter()
+        status, _, raw = _http(base, "/v1/completions", dict(
+            prompt=_prompt(nbytes, 995), max_tokens=0, echo=True, logprobs=1),
+            {"X-Kaito-Tenant": "acme"})
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = flash_prefill_attention_cuda.launches - k2
+        body = json.loads(raw)
+        if status != 200:
+            raise SmokeFailure(f"{label}: scoring {nbytes} bytes answered {status} "
+                               f"{raw[:200]!r}")
+        lps = body["choices"][0]["logprobs"]["token_logprobs"]
+        n = body["usage"]["prompt_tokens"]
+        if lps[0] is not None or len(lps) != n or not all(
+                math.isfinite(x) and x <= 0 for x in lps[1:]):
+            raise SmokeFailure(f"{label}: bad scores of {nbytes} bytes: {lps[:4]}")
+        if launched != layers:
+            raise SmokeFailure(f"{label}: scoring {n} tokens launched K2 {launched} "
+                               f"times, not {layers}")
+        key = f"{nbytes}_bytes_call{call}"
+        res[key] = dict(tokens=n, bucket=max(128, -(-n // 128) * 128), ms=ms,
+                        k2_launches=launched, mean_logprob=sum(lps[1:]) / (n - 1))
+        log(f"{label}: scored a {nbytes}-byte prompt ({n} tokens, bucket "
+            f"{res[key]['bucket']}, call {call}) over HTTP in {ms:.1f} ms, K2 "
+            f"{launched} launches")
+    ptoks = engine.tokenizer.encode(_prompt(200, 996))
+    req = engine.submit(ptoks, SamplingParams(max_tokens=16, temperature=0.0,
+                                              ignore_eos=True, logprobs=True))
+    out = list(req.stream())
+    scored = engine.score_prompt(ptoks + out)[len(ptoks):len(ptoks) + 16]
+    d = max(abs(a - b) for a, b in zip(scored, req.output_logprobs))
+    log(f"{label}: a served greedy continuation's 16 logprobs (mean "
+        f"{sum(req.output_logprobs) / 16:.4f}) against the same tokens scored: max "
+        f"diff {d:.4f} (bf16 tolerance {SCORE_BF16_ATOL})")
+    if len(out) != 16 or d > SCORE_BF16_ATOL:
+        raise SmokeFailure(f"{label}: scored continuation off by {d:.4f}")
+    res["served_vs_scored_max_diff"] = d
+    res["greedy_mean_logprob"] = sum(req.output_logprobs) / 16
+    return res
+
+
+def qos_choices(base, engine, label, submitted) -> dict:
+    """``n``: four greedy choices against n=1's; four sampled choices
+    whose usage is the sum of theirs; n=2 with stream is 400.  Tokens
+    are compared as ids, from the engine requests the server made
+    (``submitted``): most of a synthetic model's ids decode to no text
+    under the byte tokenizer.  A greedy choice equals n=1's tokens up to
+    the first position, if any, where the two picked different tokens
+    whose logprobs lie within the bf16 tolerance: a near-tie that the
+    choices' other prefill batch decides otherwise (the synthetic
+    weights' distribution is flat; fp32 choices equal the JAX server's
+    on the CPU)."""
+    body = dict(prompt=_prompt(60, 997), max_tokens=16, temperature=0.0,
+                ignore_eos=True, logprobs=1)
+    out, toks, lps = {}, {}, {}
+    for key, extra in (("one", {}), ("greedy4", {"n": 4}),
+                       ("sampled4", {"n": 4, "temperature": 0.8, "seed": 11})):
+        k0 = len(submitted)
+        status, _, raw = _http(base, "/v1/completions", dict(body, **extra))
+        if status != 200:
+            raise SmokeFailure(f"{label}: n {extra} answered {status} {raw[:200]!r}")
+        out[key] = json.loads(raw)
+        toks[key] = [list(r.output_tokens) for r in submitted[k0:]]
+        lps[key] = [list(r.output_logprobs) for r in submitted[k0:]]
+    ref, ref_lp = toks["one"][0], lps["one"][0]
+    ties = []
+    for t, lp in zip(toks["greedy4"], lps["greedy4"]):
+        k = next((i for i, (a, b) in enumerate(zip(t, ref)) if a != b), None)
+        if len(t) != 16 or (k is not None and abs(lp[k] - ref_lp[k]) > SCORE_BF16_ATOL):
+            raise SmokeFailure(f"{label}: n=4 greedy tokens {toks['greedy4']} against "
+                               f"n=1's {ref}")
+        ties.append(None if k is None else (k, abs(lp[k] - ref_lp[k])))
+    if len(toks["greedy4"]) != 4 or out["greedy4"]["usage"]["completion_tokens"] != 64:
+        raise SmokeFailure(f"{label}: n=4 greedy usage {out['greedy4']['usage']}")
+    sampled = out["sampled4"]
+    per = [len(c["logprobs"]["tokens"]) for c in sampled["choices"]]
+    if [c["index"] for c in sampled["choices"]] != [0, 1, 2, 3] or \
+            sampled["usage"]["completion_tokens"] != sum(per) or \
+            [len(t) for t in toks["sampled4"]] != per:
+        raise SmokeFailure(f"{label}: n=4 sampled usage {sampled['usage']}, choices {per}")
+    status, _, _ = _http(base, "/v1/completions", dict(body, n=2, stream=True))
+    if status != 400:
+        raise SmokeFailure(f"{label}: n=2 with stream answered {status}")
+    distinct = len({tuple(t) for t in toks["sampled4"]})
+    log(f"{label}: n=4 greedy against n=1's tokens, (first differing position, "
+        f"logprob gap) a choice: {ties}; n=4 at temperature 0.8: usage "
+        f"{sampled['usage']['completion_tokens']} = {per}, {distinct} distinct token "
+        f"sequences; n=2 + stream 400")
+    return dict(greedy_near_ties=ties, sampled_distinct=distinct)
+
+
+def run_qos_phase(label) -> tuple[dict, dict]:
+    """Phase 9: Llama-3.1-8B at full width in bf16 behind the QoS
+    document, ITL on, KV shedding at 0.95 and a queue of 64 (the server's
+    own flags), through :func:`qos_overload`, :func:`qos_slot_preemption`,
+    :func:`qos_deadlines`, the ITL count, :func:`qos_scoring` and
+    :func:`qos_choices`.  Returns the launches of K1, K2 and K3, zeroed
+    just before the requests, and the readings."""
+    import torch
+
+    from kaito_tpu_torch.engine.server import make_server, parse_args
+    from kaito_tpu_torch.utils.promtext import check_histograms, parse_exposition
+
+    counted = ("paged_decode_attention", "flash_prefill_attention",
+               "flash_prefill_packed")
+    cfg, _ = parse_args(["--model", _LLAMA, "--dtype", "bfloat16", "--max-num-seqs",
+                         "8", "--seed", "0", *QOS_FLAGS])
+    t0 = time.perf_counter()
+    server = make_server(None, cfg, host="127.0.0.1", port=0, device="cuda")
+    engine = server.state.engine
+    if engine.qos is None or engine.itl_hist is None:
+        raise SmokeFailure(f"{label}: QoS {engine.qos}, ITL {engine.itl_hist}")
+    log(f"{label}: engine up in {time.perf_counter() - t0:.1f}s; QoS classes "
+        f"{sorted(engine.qos.classes)}, ITL on, kv_shed_threshold "
+        f"{cfg.kv_shed_threshold}, max_queue_len {cfg.max_queue_len}")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    # every request the leg submits, for the ITL count
+    submitted = []
+    submit = engine.submit
+
+    def recording(*a, **kw):
+        req = submit(*a, **kw)
+        submitted.append(req)
+        return req
+
+    engine.submit = recording
+    stats = {}
+    try:
+        for name in counted:
+            fn, attr = _counter(name)
+            setattr(fn, attr, 0)
+        stats["overload"] = qos_overload(base, engine, label)
+        stats["slot_preemption"] = qos_slot_preemption(base, engine, label)
+        stats["deadlines"] = qos_deadlines(base, engine, label)
+        # the ITL recorder beside the client's own stamps of one sequence
+        gaps, observe = [], engine.itl_observer
+        engine.itl_observer = lambda g, t: (gaps.append(g), observe(g, t))
+        single = _itl(_timed_tokens(engine, _prompt(200, 990), 129))
+        engine.itl_observer = observe
+        stats["scoring"] = qos_scoring(base, engine, label)
+        stats["choices"] = qos_choices(base, engine, label, submitted)
+        _wait_idle(engine, "the leg")
+        torch.cuda.synchronize()
+        launches = {name: getattr(*_counter(name)) for name in counted}
+        want = sum(max(0, len(r.output_tokens) - 1) for r in submitted)
+        count = engine.itl_hist.count
+        status, raw = _get(f"{base}/metrics")
+        samples = parse_exposition(raw.decode())
+        check_histograms(samples)
+        status, raw = _get(f"{base}/debug/slo")
+        slo = json.loads(raw)
+        fast = slo["sli"]["fast"]
+        stalls = engine.counters["itl_stalls_total"]
+        hist = {q: _hist_quantile(samples, "kaito:inter_token_latency_seconds", q)
+                for q in (0.5, 0.99)}
+        mine = sorted(g * 1e3 for g in gaps)
+        stats["itl"] = dict(
+            count=count, tokens_minus_one=want, requests=len(submitted),
+            stalls=stalls, slo_itl_p50_ms=fast["itl_p50_s"] * 1e3,
+            slo_itl_p99_ms=fast["itl_p99_s"] * 1e3,
+            hist_p50_le_ms=hist[0.5] * 1e3, hist_p99_le_ms=hist[0.99] * 1e3,
+            one_sequence_engine=dict(gaps=len(gaps), p50_ms=_quantile(mine, 0.5),
+                                     p99_ms=_quantile(mine, 0.99), max_ms=mine[-1]),
+            one_sequence_client=single)
+        log(f"{label}: ITL: kaito:inter_token_latency_seconds count {count} over "
+            f"{len(submitted)} requests (their tokens - 1: {want}), {stalls} stalls "
+            f"above {cfg.slo_itl_p99_ms:.0f} ms; /debug/slo fast window p50/p99 "
+            f"{fast['itl_p50_s'] * 1e3:.2f}/{fast['itl_p99_s'] * 1e3:.2f} ms, "
+            f"histogram buckets <= {hist[0.5] * 1e3:.0f}/{hist[0.99] * 1e3:.0f} ms; one "
+            f"sequence alone: engine stamps p50/p99/max {_quantile(mine, 0.5):.2f}/"
+            f"{_quantile(mine, 0.99):.2f}/{mine[-1]:.2f} ms over {len(gaps)} gaps, "
+            f"client stamps p50/p90/max {single['itl_p50_ms']:.2f}/"
+            f"{single['itl_p90_ms']:.2f}/{single['itl_max_ms']:.2f} ms")
+        if count != want or len(gaps) != 128:
+            raise SmokeFailure(f"{label}: ITL count {count}, tokens - 1 {want}; "
+                               f"{len(gaps)} gaps of one 129-token sequence")
+        if "itl_p99" not in slo["burn_rates"] or "acme" not in slo.get("tenants", {}):
+            raise SmokeFailure(f"{label}: /debug/slo lacks itl_p99 or the tenants: "
+                               f"{sorted(slo)}")
+        fams = {n for n, _, _ in samples}
+        for fam in ("kaito:inter_token_latency_seconds_count", "kaito:itl_stalls_total",
+                    "kaito:requests_shed_total", "kaito:requests_served_total",
+                    "kaito:slo_tenant_ttft_p50_seconds", "kaito:slo_itl_p99_seconds"):
+            if fam not in fams:
+                raise SmokeFailure(f"{label}: /metrics lacks {fam}")
+        windows = engine.counters["decode_windows_total"]
+        replays = engine.counters["decode_graph_replays_total"]
+        if replays < windows:
+            raise SmokeFailure(f"{label}: {windows} decode windows, {replays} replays")
+        stats.update(launches=launches, decode_windows=windows, graph_replays=replays,
+                     preemptions_total=engine.counters["preemptions_total"],
+                     expired_total=engine.counters["requests_expired_total"],
+                     shed_total=engine.counters["requests_shed_total"])
+        log(f"{label}: launches {launches}; {windows} decode windows, {replays} "
+            f"graph replays")
+    finally:
+        del engine.submit
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    return launches, stats
+
+
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
 _LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
@@ -2273,7 +2945,7 @@ def main(argv=None) -> int:
     ap.add_argument("--first-leg-only", action="store_true",
                     help="skip the goldens (phase 3) and every server leg after "
                          "phase 4's bf16 one; no result line")
-    ap.add_argument("--leg", choices=[name for name, *_ in LEGS],
+    ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [QOS_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -2386,6 +3058,18 @@ def main(argv=None) -> int:
                 log(f"{label} on {card}: TTFT {stats[label]['ttft_ms']:.1f} ms "
                     f"({stats[label]['prompt_tokens']}-token prompt, alone), decode "
                     f"{stats[label]['decode_tok_s']:.1f} tok/s (one sequence)")
+            if args.leg in (None, QOS_LEG[0]) and not args.first_leg_only:
+                name, label = QOS_LEG
+                launches, stats[label] = run_qos_phase(label)
+                _release_card(torch)
+                for kname, n in launches.items():
+                    if n <= 0 and kname != "flash_prefill_packed":
+                        raise SmokeFailure(f"{kname} never launched in {label}")
+                    if not alone:
+                        records[kname].setdefault("launches_by_leg", {})[label] = n
+                o = stats[label]["overload"]
+                log(f"{label} on {card}: acme TTFT p50 {o['acme_ttft_p50_alone_ms']:.1f} "
+                    f"ms alone, {o['acme_ttft_p50_loaded_ms']:.1f} ms under the flood")
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

@@ -44,10 +44,23 @@ JAX engine does through its native one: a hit prefills only the
 prompt's suffix, as a continuation chunk over the cached pages.  Every
 request is traced (``tracer`` spans, one ``timeline`` record per
 non-idle step, the step and queue histograms) from host clocks only.
+
+Multi-tenant QoS (``qos_config``, ``engine.qos``): per-tenant queues
+behind the one waiting-queue surface, admitted by strict priority across
+classes and deficit round robin across the tenants of a class; a queued
+request of a higher class claims a slot, and page room, from the newest
+sequence of the lowest class below it.  Request deadlines (a per-request
+``timeout_s``, else ``request_timeout_s``) are swept every 50 ms: an
+expired request leaves the queue or its slot with a 408
+``deadline_exceeded`` error.  The ITL recorder (``itl_enabled``, else
+KAITO_ITL) stamps each token as the host retires it into
+``kaito:inter_token_latency_seconds``.  Prompt scoring
+(:meth:`InferenceEngine.score_prompt`, the ``echo`` contract) runs on
+the engine thread between steps, never from a caller's thread.
 Not ported yet, and rejected at construction with the ROADMAP item that
 carries them: speculation, adapters, pipeline, data,
-sequence and expert parallelism, the KV pool, host offload and P/D, the
-device profiler, QoS, deadlines and the ITL recorder.
+sequence and expert parallelism, the KV pool, host offload and P/D, and
+the device profiler.
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ from kaito_tpu_torch.engine.metrics import Histogram
 from kaito_tpu_torch.engine.model import (TensorParallelLM, TransformerLM,
                                           check_tensor_parallel)
 from kaito_tpu_torch.engine.prefix_cache import PrefixCache
+from kaito_tpu_torch.engine.qos import DEFAULT_TENANT, parse_qos_config
 from kaito_tpu_torch.engine.quant import QUANT_SCHEMES, supports_quantization
 from kaito_tpu_torch.engine.sampler import SamplingState, chosen_logprob, sample
 from kaito_tpu_torch.engine.tokenizer import load_tokenizer
@@ -98,6 +112,8 @@ _STOP_WIDTH = 8
 # PERF.md).  A window of K delivers tokens in bursts of K, which PERF.md
 # weighs.  The CPU uses 1
 AUTO_RUN_AHEAD_CUDA = 4
+# seconds between two deadline sweeps (each walks the queue and slots)
+_DEADLINE_SWEEP_S = 0.05
 # device memory the page pool leaves free for activations and scratch
 _RESERVE_FRACTION = 0.08
 _RESERVE_MIN_BYTES = 4 << 30
@@ -120,10 +136,6 @@ _UNPORTED = (
     ("sequence_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("expert_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("devprof_interval_s", bool, "queue 1, M20 device profiling"),
-    ("qos_config", bool, "queue 1, QoS, deadlines and ITL"),
-    ("request_timeout_s", bool, "queue 1, QoS, deadlines and ITL"),
-    ("kv_shed_threshold", bool, "queue 1, QoS, deadlines and ITL"),
-    ("itl_enabled", bool, "queue 1, QoS, deadlines and ITL"),
 )
 
 
@@ -227,6 +239,18 @@ class Request:
     # a client-supplied id never collides with engine-internal keys;
     # defaults to req_id at submit
     trace_id: str = ""
+    # absolute monotonic deadline (None: none); past it the request
+    # ends with a 408 error
+    deadline: Optional[float] = None
+    # multi-tenant QoS: tenant id and its class's priority, "" and 0
+    # with QoS off (the scheduler then reads neither)
+    tenant: str = ""
+    priority: int = 0
+    # conversation identity (X-Kaito-Session), kept for tracing
+    session: str = ""
+    # the ITL recorder's stamp of the last token retired: on the
+    # request, so a gap spanning a preemption counts as one stall
+    last_emit_time: Optional[float] = None
 
     def resume_tokens(self) -> list[int]:
         """Prompt plus everything generated so far — what a preempted
@@ -264,6 +288,27 @@ class PageAllocator:
 
     def release(self, pages: list[int]) -> None:
         self.free.extend(reversed(pages))
+
+
+class _Job:
+    """A call the engine thread runs between steps for another thread."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.done = threading.Event()
+        self.value = None
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        try:
+            self.value = self.fn()
+        except Exception as e:   # raised in the caller's thread
+            self.error = e
+        self.done.set()
+
+    def fail(self, error: BaseException) -> None:
+        self.error = error
+        self.done.set()
 
 
 @dataclass
@@ -322,6 +367,10 @@ class InferenceEngine:
                  mesh: Optional[Mesh] = None,
                  _eager_decode: bool = False):
         check_ported(cfg)
+        # multi-tenant QoS: None keeps the single FIFO and newest-
+        # preempts-first eviction; a document the port cannot serve
+        # raises here
+        self.qos = parse_qos_config(cfg.qos_config)
         self.async_dispatch = resolve_async_dispatch(cfg)
         if self.async_dispatch and _eager_decode:
             raise ValueError("the eager reference decode loop is synchronous; "
@@ -421,6 +470,17 @@ class InferenceEngine:
         self.prompt_seen: Optional[torch.Tensor] = None    # [S, V] bool
 
         self.waiting: "collections.deque[Request]" = collections.deque()
+        # requests waiting, in self.waiting or (with QoS) the per-tenant
+        # deques, which the DRR order of each priority visits
+        self._waiting_count = 0
+        self._tenant_queues: dict[str, "collections.deque[Request]"] = {}
+        self._drr_order: dict[int, "collections.deque[str]"] = {}
+        self._drr_deficit: dict[str, float] = {}
+        self._last_deadline_sweep = 0.0
+        # the clock of deadlines and their sweep (tests inject theirs)
+        self._now = time.monotonic
+        # work the engine thread runs between steps (prompt scoring)
+        self._jobs: "queue.SimpleQueue[_Job]" = queue.SimpleQueue()
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -476,6 +536,25 @@ class InferenceEngine:
                      0.5, 1.0, 2.5, 5.0))
         self._prefill_pack_note = 0
         self._gap_last = 0.0
+        # true per-token inter-token latency (cfg.itl_enabled, else
+        # KAITO_ITL): _emit stamps the host clock as it retires each
+        # token and observes the gap since the request's previous one.
+        # Off: itl_hist is None and _emit does no extra work
+        self.itl_enabled = bool(cfg.itl_enabled or os.environ.get(
+            "KAITO_ITL", "") in ("1", "true"))
+        self.itl_hist: Optional[Histogram] = None
+        # the server wires this to SLOWatchdog.observe_itl(gap, tenant)
+        self.itl_observer = None
+        self._itl_time = time.monotonic
+        if self.itl_enabled:
+            self._itl_stall_s = max(1e-6, float(cfg.slo_itl_p99_ms) * 1e-3)
+            self.counters["itl_stalls_total"] = 0
+            self.itl_hist = Histogram(
+                "kaito:inter_token_latency_seconds",
+                "True per-token inter-token latency (gap between "
+                "consecutive emitted tokens of one request)", None,
+                buckets=(0.002, 0.005, 0.01, 0.02, 0.04, 0.06, 0.08,
+                         0.1, 0.25, 0.5, 1.0, 2.5))
         ra = cfg.decode_run_ahead
         if ra is None:
             ra = AUTO_RUN_AHEAD_CUDA if self.device.type == "cuda" else 1
@@ -599,7 +678,7 @@ class InferenceEngine:
 
     @property
     def num_waiting(self) -> int:
-        return len(self.waiting)
+        return self._waiting_count
 
     @property
     def num_running(self) -> int:
@@ -607,7 +686,12 @@ class InferenceEngine:
 
     def submit(self, prompt_tokens: list[int], params: SamplingParams,
                req_id: Optional[str] = None,
-               trace_id: Optional[str] = None) -> Request:
+               trace_id: Optional[str] = None,
+               timeout_s: Optional[float] = None,
+               tenant: str = "", priority: str = "") -> Request:
+        """Queue a request.  ``timeout_s`` (else ``request_timeout_s``;
+        0 is none) sets its deadline; ``tenant`` and ``priority`` (a
+        class name) place it under QoS."""
         n = len(prompt_tokens)
         if n < 1:
             raise ValueError("prompt must hold at least one token")
@@ -619,14 +703,86 @@ class InferenceEngine:
                              f"{self._capacity_tokens} tokens")
         if params.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {params.max_tokens}")
+        t, prio = self._resolve_qos(tenant, priority)
+        deadline = self._deadline_for(timeout_s)
         with self._lock:
             self.counters["requests_total"] += 1
             rid = req_id or f"req-{self.counters['requests_total']}"
             req = Request(rid, list(prompt_tokens), params,
-                          trace_id=trace_id or rid)
-            self.waiting.append(req)
+                          trace_id=trace_id or rid, deadline=deadline,
+                          tenant=t, priority=prio)
+            self._waiting_count += 1
+            if self.qos is None:
+                self.waiting.append(req)
+            else:
+                self._qos_push_locked(req)
         self._wake.set()
         return req
+
+    def _deadline_for(self, timeout_s: Optional[float]) -> Optional[float]:
+        """Absolute monotonic deadline from a per-request timeout,
+        falling back to the server default (0 = no deadline)."""
+        t = timeout_s if timeout_s else self.cfg.request_timeout_s
+        return (self._now() + float(t)) if t else None
+
+    def _resolve_qos(self, tenant: str, priority: str) -> tuple[str, int]:
+        """(tenant id, numeric class priority) for a submission.  With
+        QoS off the tenant rides along for tracing only and priority
+        stays 0."""
+        if self.qos is None:
+            return tenant or "", 0
+        t = tenant or DEFAULT_TENANT
+        return t, self.qos.class_of(t, priority).priority
+
+    def score_prompt(self, tokens: list[int]) -> list:
+        """log p of each prompt token given its prefix, None for the
+        first (the ``echo`` + ``logprobs`` + ``max_tokens: 0`` contract).
+        The prompt pads to a multiple of 128 tokens (at least 128),
+        outside the prefill buckets, so any prompt under max_model_len
+        scores.  The forward runs on the engine thread between two
+        steps (:meth:`_on_engine_thread`); its failure is raised here."""
+        n = len(tokens)
+        if n < 1:
+            return []
+        if n >= self.cfg.max_model_len:
+            raise ValueError(f"prompt length {n} exceeds max_model_len "
+                             f"{self.cfg.max_model_len}")
+        bucket = max(128, -(-n // 128) * 128)
+        buf = np.zeros((1, bucket), np.int32)
+        buf[0, :n] = tokens
+        lens = np.asarray([n], np.int32)
+        lp = self._on_engine_thread(lambda: self.model.score(
+            self._tensor(buf), self._tensor(lens)).cpu().numpy())
+        return [None] + [float(x) for x in lp[:n - 1]]
+
+    def _on_engine_thread(self, fn):
+        """``fn()`` run on the engine thread between two steps, its
+        result returned (its exception raised) here; inline when no loop
+        runs, or when called from the loop.  A launch from another
+        thread would land inside a decode window's capture, and the
+        kernels' per-card workspaces and launch counters are the loop's."""
+        t = self._thread
+        if t is None or not t.is_alive() or threading.current_thread() is t:
+            with torch.no_grad():
+                return fn()
+        job = _Job(fn)
+        self._jobs.put(job)
+        self._wake.set()
+        while not job.done.wait(0.5):
+            if not t.is_alive() and not job.done.is_set():
+                raise RuntimeError("the engine stopped before the job ran")
+        if job.error is not None:
+            raise job.error
+        return job.value
+
+    def _run_jobs(self) -> None:
+        while True:
+            try:
+                job = self._jobs.get_nowait()
+            except queue.Empty:
+                return
+            with torch.no_grad():
+                job.run()
 
     def abort(self, req: Request) -> None:
         """Cancel; the scheduler retires the slot at its next touch."""
@@ -650,6 +806,11 @@ class InferenceEngine:
             self._thread.join(timeout=30)
         # nothing else would deliver end-of-stream to in-flight clients
         self._fail_all()
+        while True:
+            try:
+                self._jobs.get_nowait().fail(RuntimeError("the engine stopped"))
+            except queue.Empty:
+                break
 
     # ------------------------------------------------------------------
     # Scheduler loop
@@ -659,6 +820,7 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         while not self._stop.is_set():
+            self._run_jobs()
             try:
                 did_work = self.step()
             except Exception:
@@ -673,11 +835,99 @@ class InferenceEngine:
 
     def _pop_waiting(self) -> Optional[Request]:
         with self._lock:
-            return self.waiting.popleft() if self.waiting else None
+            if self.qos is not None:
+                return self._qos_pop_locked()
+            if not self.waiting:
+                return None
+            self._waiting_count -= 1
+            return self.waiting.popleft()
 
     def _requeue_front(self, req: Request):
         with self._lock:
-            self.waiting.appendleft(req)
+            self._waiting_count += 1
+            if self.qos is None:
+                self.waiting.appendleft(req)
+            else:
+                self._qos_push_locked(req, front=True)
+
+    # -- QoS admission queues ------------------------------------------
+    #
+    # Per-tenant deques behind the same num_waiting/_pop/_requeue
+    # surface: admission pops strict-priority across classes and
+    # deficit-round-robin across tenants within a class, so one noisy
+    # tenant can neither starve a guaranteed class nor crowd out its
+    # own-priority peers beyond its weight.  All helpers assume
+    # self._lock is held.
+
+    def _qos_push_locked(self, req: Request, front: bool = False) -> None:
+        q = self._tenant_queues.get(req.tenant)
+        if q is None:
+            q = self._tenant_queues[req.tenant] = collections.deque()
+        order = self._drr_order.setdefault(req.priority, collections.deque())
+        if front:
+            q.appendleft(req)
+            if req.tenant in order:
+                order.remove(req.tenant)
+            order.appendleft(req.tenant)
+            # a preempted resume must not wait out a DRR rotation: top
+            # the tenant's deficit up to one service
+            self._drr_deficit[req.tenant] = max(
+                self._drr_deficit.get(req.tenant, 0.0), 1.0)
+        else:
+            q.append(req)
+            if req.tenant not in order:
+                order.append(req.tenant)
+
+    def _qos_pop_locked(self) -> Optional[Request]:
+        for prio in sorted(self._drr_order, reverse=True):
+            order = self._drr_order[prio]
+            # every full rotation grants each tenant its weight of
+            # deficit (weight >= 1), so two passes guarantee a service
+            for _ in range(2 * len(order) + 1):
+                if not order:
+                    break
+                t = order[0]
+                q = self._tenant_queues.get(t)
+                if not q:
+                    # emptied by an expiry sweep
+                    order.popleft()
+                    self._drr_deficit.pop(t, None)
+                    continue
+                if self._drr_deficit.get(t, 0.0) < 1.0:
+                    self._drr_deficit[t] = (self._drr_deficit.get(t, 0.0)
+                                            + self.qos.weight_of(t))
+                    order.rotate(-1)
+                    continue
+                self._drr_deficit[t] -= 1.0
+                req = q.popleft()
+                self._waiting_count -= 1
+                if not q:
+                    del self._tenant_queues[t]
+                    order.remove(t)
+                    self._drr_deficit.pop(t, None)
+                if not order:
+                    del self._drr_order[prio]
+                return req
+            if not order:
+                del self._drr_order[prio]
+        return None
+
+    def num_waiting_for(self, tenant: str) -> int:
+        """Waiting-queue depth for ONE tenant (per-tenant rate-limit
+        budgets); the global count with QoS off."""
+        if self.qos is None:
+            return self._waiting_count
+        with self._lock:
+            q = self._tenant_queues.get(tenant)
+            return len(q) if q else 0
+
+    def _peek_waiting_priority(self) -> Optional[int]:
+        """Highest priority class with a queued request (QoS only)."""
+        with self._lock:
+            for prio in sorted(self._drr_order, reverse=True):
+                if any(self._tenant_queues.get(t) for t in self._drr_order[prio]):
+                    return prio
+        return None
 
     def _fail_request(self, req: Request) -> None:
         req.finish_reason = "error"
@@ -688,6 +938,76 @@ class InferenceEngine:
         self.counters["requests_failed_total"] += 1
         self._finish_trace(req)
         req.out.put(None)
+
+    def _expire_request(self, req: Request) -> None:
+        """Deadline abort: a 408 structured error; the request consumes
+        no (or no more) device time."""
+        req.finish_reason = "deadline"
+        req.finish_time = time.monotonic()
+        if req.error is None:
+            req.error = {"status": 408, "type": "deadline_exceeded",
+                         "message": f"request {req.req_id} exceeded its "
+                                    f"deadline before completing"}
+        self.counters["requests_expired_total"] += 1
+        self._finish_trace(req)
+        req.out.put(None)
+
+    def _sweep_deadlines(self) -> bool:
+        """The deadline sweep, at most every :data:`_DEADLINE_SWEEP_S`.
+        A slot's expiry evicts it, which reads the host mirrors: with a
+        window in flight and a live slot under a deadline, the pipeline
+        drains first."""
+        now = self._now()
+        if now - self._last_deadline_sweep < _DEADLINE_SWEEP_S:
+            return False
+        self._last_deadline_sweep = now
+        if self._inflight is not None and any(
+                s.request is not None and s.request.deadline is not None
+                for s in self.slots):
+            self._drain_pipeline()
+        return self._expire_deadlines()
+
+    def _expire_deadlines(self) -> bool:
+        """Sweep expired requests out of the waiting queue and the
+        slots.  Queue expiry spends no device time; slot expiry frees
+        the pages mid-decode.  A slot expiring mid-prefill commits no
+        page to the prefix cache."""
+        now = self._now()
+
+        def dead(r):
+            return r.deadline is not None and now > r.deadline
+
+        with self._lock:
+            if self.qos is not None:
+                expired = []
+                for tenant in list(self._tenant_queues):
+                    q = self._tenant_queues[tenant]
+                    gone = [r for r in q if dead(r)]
+                    if gone:
+                        keep = collections.deque(r for r in q if not dead(r))
+                        if keep:
+                            self._tenant_queues[tenant] = keep
+                        else:
+                            # the pop path lazily sweeps the DRR order
+                            del self._tenant_queues[tenant]
+                        self._waiting_count -= len(gone)
+                        expired.extend(gone)
+            else:
+                expired = [r for r in self.waiting if dead(r)]
+                if expired:
+                    self.waiting = collections.deque(
+                        r for r in self.waiting if not dead(r))
+                    self._waiting_count = len(self.waiting)
+        for r in expired:
+            self._expire_request(r)
+        did = bool(expired)
+        for i, slot in enumerate(self.slots):
+            req = slot.request
+            if req is not None and dead(req):
+                self._evict_slot(i, commit=not slot.prefilling)
+                self._expire_request(req)
+                did = True
+        return did
 
     def _finish_trace(self, req: Request) -> None:
         """Record the request's decode + end-to-end spans and, when it
@@ -807,13 +1127,14 @@ class InferenceEngine:
 
     def _step_sync(self) -> bool:
         """The synchronous loop's iteration (see :meth:`step`)."""
+        did0 = self._sweep_deadlines()
         # reserve BEFORE admitting: growth of running sequences must not
         # be starved by a fresh admission grabbing the last pages
         la = 1
         if self.active.any():
             la = self._decode_lookahead()
             self._ensure_decode_pages(la)
-        did = self._admit_new()
+        did = self._admit_new() or did0
         decoding = bool(self.active.any())
         steps_run = 0
         if decoding:
@@ -844,6 +1165,16 @@ class InferenceEngine:
             free_slot = next((i for i, s in enumerate(self.slots)
                               if s.request is None), None)
             if free_slot is None:
+                # slot-level QoS preemption: a queued higher-priority
+                # request claims a slot from a strictly lower class
+                # instead of waiting out its whole decode
+                if self.qos is not None:
+                    nxt = self._peek_waiting_priority()
+                    victim = (None if nxt is None
+                              else self._newest_slot(below_priority=nxt))
+                    if victim is not None:
+                        self._preempt_slot(victim)
+                        continue
                 return admitted
             req = self._pop_waiting()
             if req is None:
@@ -851,6 +1182,11 @@ class InferenceEngine:
             if req.aborted:
                 req.finish_reason = req.finish_reason or "abort"
                 req.out.put(None)
+                admitted = True
+                continue
+            if req.deadline is not None and self._now() > req.deadline:
+                # queue expiry at admission: no device time spent
+                self._expire_request(req)
                 admitted = True
                 continue
             if not self._admit(req, free_slot):
@@ -868,11 +1204,13 @@ class InferenceEngine:
         ps = self.cfg.page_size
         pages_needed = -(-(n + 1) // ps)
         # one page of headroom per decoding slot, so an admission does
-        # not trigger immediate grow-preempt churn
-        headroom = int(self.active.sum())
-        if self.allocator.available < pages_needed + headroom:
-            self._requeue_front(req)
-            return False
+        # not trigger immediate grow-preempt churn; under QoS a higher
+        # class evicts lower-class sequences for room (each eviction
+        # also shrinks the headroom, so it is recomputed)
+        while self.allocator.available < pages_needed + int(self.active.sum()):
+            if not self._preempt_one_lower(req):
+                self._requeue_front(req)
+                return False
         shared = cached = 0
         if self.prefix_cache is not None:
             res = self.prefix_cache.acquire(tokens, n + 1)
@@ -975,7 +1313,8 @@ class InferenceEngine:
         has no packed prefill, batches them on the batch axis per
         bucket); continuation chunks batch on the batch axis per
         bucket."""
-        staged = sorted(self._staged(), key=lambda i: self.slots[i].seq)
+        staged = sorted(self._staged(), key=lambda i: (-self.slots[i].request.priority,
+                                                       self.slots[i].seq))
         if not staged:
             return False
         left = max(self.cfg.max_prefill_tokens, self.cfg.page_size)
@@ -1205,10 +1544,33 @@ class InferenceEngine:
             return
         self._requeue_front(req)
 
-    def _newest_slot(self) -> Optional[int]:
-        """Preemption victim: the newest-admitted sequence."""
+    def _newest_slot(self, below_priority: Optional[int] = None) -> Optional[int]:
+        """Preemption victim.  QoS off: the newest-admitted sequence.
+        With QoS: the newest sequence of the LOWEST priority class
+        present.  ``below_priority`` restricts candidates to strictly
+        lower classes (admission never evicts a peer or better)."""
         cands = [i for i, s in enumerate(self.slots) if s.request is not None]
-        return max(cands, key=lambda i: self.slots[i].seq) if cands else None
+        if below_priority is not None:
+            cands = [i for i in cands
+                     if self.slots[i].request.priority < below_priority]
+        if not cands:
+            return None
+        if self.qos is None:
+            return max(cands, key=lambda i: self.slots[i].seq)
+        return max(cands, key=lambda i: (-self.slots[i].request.priority,
+                                         self.slots[i].seq))
+
+    def _preempt_one_lower(self, req: Request) -> bool:
+        """Admission-side preemption (QoS only): evict one strictly
+        lower-priority sequence to make page room for ``req``; False
+        when nothing lower is running."""
+        if self.qos is None:
+            return False
+        victim = self._newest_slot(below_priority=req.priority)
+        if victim is None:
+            return False
+        self._preempt_slot(victim)
+        return True
 
     def _ensure_decode_pages(self, lookahead: int = 1):
         """Every active slot must own the pages its next ``lookahead``
@@ -1423,11 +1785,13 @@ class InferenceEngine:
 
     def _must_drain(self) -> bool:
         """Host-side batch changes that may run this step: an admission
-        (waiting work and a free slot), a slot mid-prefill (its
-        _begin_decode writes loop state), or a pending abort."""
+        (waiting work and a free slot, or QoS, which may preempt for
+        one), a slot mid-prefill (its _begin_decode writes loop state),
+        or a pending abort."""
         if self._inflight is None:
             return False
-        if self.num_waiting > 0 and any(s.request is None for s in self.slots):
+        if self._waiting_count > 0 and (
+                self.qos is not None or any(s.request is None for s in self.slots)):
             return True
         return any(s.request is not None and (s.prefilling or s.request.aborted)
                    for s in self.slots)
@@ -1471,6 +1835,7 @@ class InferenceEngine:
         """The async twin of :meth:`step`: the same decode-priority
         schedule, but fused windows go through the two-deep pipeline, and
         the host replays window N while window N+1 runs."""
+        did0 = self._sweep_deadlines()
         if self._must_drain():
             self._drain_pipeline()
         pend = self._inflight[0] if self._inflight is not None else 0
@@ -1483,7 +1848,7 @@ class InferenceEngine:
                 self._drain_pipeline()
                 pend = 0
             self._ensure_decode_pages(la + pend)
-        did = self._admit_new()
+        did = self._admit_new() or did0
         decoding = bool(self.active.any())
         steps_run = 0
         if decoding:
@@ -1544,6 +1909,21 @@ class InferenceEngine:
         """Deliver one generated token; retire the slot when finished."""
         slot = self.slots[slot_idx]
         req = slot.request
+        if self.itl_hist is not None:
+            # the one stamp site every retire path shares (single steps,
+            # a replayed window, the async loop's replay): the instant
+            # the host hands the token to the client
+            now = self._itl_time()
+            last = req.last_emit_time
+            req.last_emit_time = now
+            if last is not None:
+                gap = now - last
+                self.itl_hist.observe(gap)
+                if gap > self._itl_stall_s:
+                    self.counters["itl_stalls_total"] += 1
+                obs = self.itl_observer
+                if obs is not None:
+                    obs(gap, req.tenant)
         req.output_tokens.append(token)
         if req.params.logprobs:
             req.output_logprobs.append(logprob)

@@ -240,11 +240,26 @@ class EngineMetrics:
     scaler/EPP configs translate 1:1).  The features the port has not
     ported yet (the host KV tier, speculation, P/D) keep their families
     at the values the JAX server reads with them off: the engine's
-    counters, absent until a later slice adds them, read 0."""
+    counters, absent until a later slice adds them, read 0.  The
+    per-tenant families exist only with a QoS config (``qos``), the ITL
+    ones only with the engine's ITL recorder on."""
 
-    def __init__(self, engine=None):
+    def __init__(self, engine=None, qos=None):
         self.registry = Registry()
         r = self.registry
+        # per-tenant slices exist ONLY with a QoS config: collect()
+        # emits HELP/TYPE lines even for an empty family, and the
+        # QoS-off exposition must stay byte-identical
+        self.tenant_shed = None
+        self.tenant_served = None
+        if qos is not None:
+            self.tenant_shed = Counter(
+                "kaito:requests_shed_total",
+                "Requests shed by admission control, per tenant", r,
+                labels=("tenant",))
+            self.tenant_served = Counter(
+                "kaito:requests_served_total",
+                "Requests completed, per tenant", r, labels=("tenant",))
         self.prompt_tokens = Counter(
             "kaito:prompt_tokens_total", "Prefill tokens processed", r)
         self.generation_tokens = Counter(
@@ -290,6 +305,14 @@ class EngineMetrics:
             h = getattr(engine, attr, None)
             if h is not None:
                 r.register(h)
+        # true per-token ITL: itl_hist is None when the recorder is off,
+        # so neither family exists and the exposition stays as it was
+        if engine.itl_hist is not None:
+            r.register(engine.itl_hist)
+            Gauge("kaito:itl_stalls_total",
+                  "Inter-token gaps exceeding the ITL SLO target "
+                  "(--slo-itl-p99-ms)", r,
+                  fn=_counter_fn(engine, "itl_stalls_total"))
 
         def _slots_total():
             return len(engine.slots)
@@ -402,5 +425,7 @@ class EngineMetrics:
                 self.tpot.observe(
                     (req.finish_time - req.first_token_time) / (n_out - 1))
             self.request_success.inc(finished_reason=req.finish_reason or "stop")
+            if self.tenant_served is not None and req.tenant:
+                self.tenant_served.inc(tenant=req.tenant)
         self.prompt_tokens.inc(len(req.prompt_tokens))
         self.generation_tokens.inc(len(req.output_tokens))

@@ -30,6 +30,11 @@ runs through the three ``attention.mla_*`` functions (plain torch, as
 the JAX package computes them), with rope tables over
 ``qk_rope_head_dim``.  Its prompts never segment-pack.
 
+Prompt scoring (:meth:`TransformerLM.score`, the JAX engine's
+cache-less ``"train"`` forward) runs every layer over one fresh row,
+its attention through the flash prefill kernel (MLA: the plain
+``attention.mla_prefill_attention``), and writes no page.
+
 yarn/longrope rope scaling is not ported yet and raises.
 """
 
@@ -60,12 +65,16 @@ from kaito_tpu_torch.engine.ops.overlap_collectives import (
 from kaito_tpu_torch.engine.quant import (INT4_GROUP, is_qtensor,
                                           is_quantized_leaf,
                                           qtensor_logical_axes, quantize_weight)
+from kaito_tpu_torch.engine.sampler import chosen_logprob
 from kaito_tpu_torch.models.metadata import AttentionKind, ModelArch
 from kaito_tpu_torch.parallel.mesh import AXIS_TENSOR, Mesh
 from kaito_tpu_torch.parallel.sharding import SERVE_RULES
 
 VOCAB_ALIGN = 128
 _BIG_WINDOW = 1 << 30
+# positions a scoring forward projects onto the vocabulary at a time, so
+# its [T, V] fp32 logits never exist whole
+SCORE_CHUNK = 128
 
 
 def _name_salt(name: str) -> int:
@@ -631,6 +640,13 @@ class TransformerLM(tnn.Module):
         window = self._window(li)
         win = window if window is not None else _BIG_WINDOW
         q, k_new, v_new = self._attn_qkv(h, p, positions, window, q_proj)
+        if mode == "score":
+            # the cache-less forward of prompt scoring: the fresh row
+            # attends over itself and writes no page
+            out = flash_prefill_attention_cuda(q, k_new, v_new, true_lens, win,
+                                               scale=self._scale,
+                                               softcap=a.attn_logit_softcap)
+            return out.reshape(B, T, a.num_heads * a.head_dim)
         ck, cv = cache.k, cache.v
         ks, vs = cache.k_scale, cache.v_scale      # None unless int8 pools
         ps = ck.shape[2]
@@ -720,10 +736,14 @@ class TransformerLM(tnn.Module):
         k_rope = nn.apply_rope(kv[..., dl:][:, :, None, :], positions,
                                self._inv_freq_global, dr,
                                mscale=self._rope_mscale)[:, :, 0]
+        wk, wv = p["kv_b_k"], p["kv_b_v"]
+        if mode == "score":
+            out = attn.mla_prefill_attention(q_nope, q_rope, c_kv, k_rope, wk, wv,
+                                             scale=self._scale, true_len=true_lens)
+            return out.reshape(B, T, H * dv)
         latent = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]  # [B, T, 1, dl+dr]
         ck, ks = cache.k, cache.k_scale     # one stream; ks None unless int8
         ps = ck.shape[2]
-        wk, wv = p["kv_b_k"], p["kv_b_v"]
         if mode == "prefill":
             start = (start_pos if start_pos is not None
                      else torch.zeros((B,), dtype=torch.int32, device=h.device))
@@ -873,6 +893,13 @@ class TransformerLM(tnn.Module):
     def _decode_out(self, x):
         return self._norm(x, self.top, "final_norm")[:, 0]
 
+    def _score_in(self, tokens, true_len):
+        B, T = tokens.shape
+        positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
+        return self._embed(tokens), dict(
+            positions=positions[None, :].expand(B, T), page_tables=None,
+            lengths=None, true_lens=true_len, active=None)
+
     def prefill(self, cache: KVCache, tokens, true_lens, page_tables,
                 start_pos=None):
         """Prompts (or prompt suffixes when ``start_pos`` marks earlier
@@ -921,6 +948,29 @@ class TransformerLM(tnn.Module):
         x, kw = self._decode_in(tokens, positions, page_tables, active)
         x = self._decode_out(self._run_layers(cache, x, "decode", **kw))
         return cache, self._logits(x)
+
+    def score(self, tokens, true_len):
+        """log p(token[t+1] | tokens[:t+1]) of one prompt, the JAX
+        engine's ``_score_fn``: one cache-less causal forward over tokens
+        [1, T] (T a multiple of :data:`SCORE_CHUNK`, the prompt padded;
+        true_len [1] int32 its length), the final norm and the vocabulary
+        projection in chunks of :data:`SCORE_CHUNK` positions.  Returns
+        [T - 1] fp32 (entries from true_len - 1 on are padding's)."""
+        x, kw = self._score_in(tokens, true_len)
+        x = self._run_layers(None, x, "score", **kw)[0]
+        return _score_logprobs(tokens[0], lambda a, b: self._logits(
+            self._norm(x[a:b], self.top, "final_norm")))
+
+
+def _score_logprobs(tokens, logits_of) -> torch.Tensor:
+    """The log p of each next token of ``tokens`` [T]: ``logits_of(a, b)``
+    gives the fp32 logits of positions [a, b), taken
+    :data:`SCORE_CHUNK` at a time.  Returns [T - 1] fp32."""
+    T = tokens.shape[0]
+    targets = torch.cat([tokens[1:], tokens.new_zeros(1)]).long()
+    lp = [chosen_logprob(logits_of(c, c + SCORE_CHUNK), targets[c:c + SCORE_CHUNK])
+          for c in range(0, T, SCORE_CHUNK)]
+    return torch.cat(lp)[:T - 1]
 
 
 def _finish_logits(logits, arch: ModelArch, lead) -> torch.Tensor:
@@ -1106,6 +1156,15 @@ class TensorParallelLM:
         xs = self._run_layers(caches, ins, "decode")
         return caches, self._logits([m._decode_out(x)
                                      for m, x in zip(self.shards, xs)])
+
+    def score(self, tokens, true_len):
+        """TransformerLM.score over the shards: each shard's heads and
+        columns, the row-parallel sums reduced as in prefill, the
+        vocabulary rows of every shard gathered a chunk at a time."""
+        ins = self._each("_score_in", tokens, true_len)
+        xs = [x[0] for x in self._run_layers([None] * self.n, ins, "score")]
+        return _score_logprobs(tokens[0].to(self.device), lambda a, b: self._logits(
+            [m._norm(x[a:b], m.top, "final_norm") for m, x in zip(self.shards, xs)]))
 
     def _each_out(self, method: str, xs, t):
         return [getattr(m, method)(x, ti)

@@ -11,13 +11,26 @@ limiter's and the SLO watchdog's), ``/debug/trace`` (``?trace_id=``),
 ``/debug/timeline``, ``/debug/slo`` and ``/debug/flight`` (403 without
 ``--flight-dir``).  A client's ``X-Request-Id`` (or the trace id of a
 W3C ``traceparent``) names the request's trace and is echoed on every
-response, stream and error body.  Queue-depth 429s come from the rate
-limiter.  Stdlib HTTP only: the engine thread does the work, handler
-threads stream its queues.
+response, stream and error body.  429s come from the rate limiter:
+queue depth, and with ``--kv-shed-threshold`` KV-page pressure.
 
-Not ported yet: ``/debug/device``, P/D, the KV pool, adapters, the
-profiler routes, QoS and constrained decoding (``response_format`` and
-``tools``).  Their routes answer 501.
+Multi-tenant QoS (``--qos-config``): the ``X-Kaito-Tenant`` and
+``X-Kaito-Priority`` headers (the body's ``tenant`` and ``priority``
+as fallback) name a request's tenant and class; the limiter sheds the
+tenant over its queue or token budget, and ``/metrics`` and
+``/debug/slo`` gain per-tenant series.  A body's ``timeout`` (else
+``--request-timeout-s``) is the request's deadline, past which it
+answers 408.  ``--itl`` records every inter-token gap
+(``kaito:inter_token_latency_seconds``, the watchdog's ``itl_p99``).
+``n`` (1-16, not streamed) submits one engine request a choice, and
+``echo`` with ``max_tokens: 0`` and ``logprobs`` scores the prompt.
+Stdlib HTTP only: the engine thread does the work (prompt scoring
+included), handler threads stream its queues.
+
+Not ported yet: ``/debug/device``, P/D, the KV pool, adapters (and the
+QoS document's tenant-to-adapter map), the profiler routes and
+constrained decoding (``response_format`` and ``tools``).  Their routes
+answer 501.
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
 llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
@@ -32,6 +45,7 @@ several shards on one device is built in Python
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -46,6 +60,7 @@ from kaito_tpu_torch.engine.chat import render_chat
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
 from kaito_tpu_torch.engine.metrics import EngineMetrics, Gauge
+from kaito_tpu_torch.engine.qos import valid_tenant
 from kaito_tpu_torch.engine.rate_limit import RateLimiter
 from kaito_tpu_torch.runtime.slo import SLOTargets, SLOWatchdog, engine_chip_count
 from kaito_tpu_torch.utils.tracing import (chrome_trace, make_request_id,
@@ -58,7 +73,29 @@ _UNPORTED_GET = ("/debug/device", "/debug/kv_pool", "/pd/", "/kv_pool/",
                  "/v1/adapters", "/ui")
 _UNPORTED_POST = ("/pd/", "/v1/adapters", "/start_profile", "/stop_profile")
 
-_SHED_MESSAGE = "engine queue full, retry later"
+# the 429's message for each shed reason of RateLimiter.shed_reason
+_SHED_MESSAGES = {
+    "queue_full": "engine queue full, retry later",
+    "tenant_queue_full": "tenant queue budget exhausted, retry later",
+    "tenant_rate": "tenant token budget exhausted, retry later",
+    "kv_pressure": "KV page pool saturated, retry later",
+}
+# most choices one request may ask for
+_MAX_CHOICES = 16
+
+
+def token_surface_forms(tokenizer, ids, window: int = 8) -> list:
+    """Per-token surface strings by a bounded-window incremental decode:
+    a few tokens of left context make byte merges and multi-byte
+    codepoints decode as they do in the whole text."""
+    out = []
+    ids = list(ids)
+    for i in range(len(ids)):
+        lo = max(0, i - window)
+        prev = tokenizer.decode(ids[lo:i]) if i > lo else ""
+        cur = tokenizer.decode(ids[lo:i + 1])
+        out.append(cur[len(prev):])
+    return out
 
 
 class ServerState:
@@ -70,8 +107,13 @@ class ServerState:
         self.engine = engine
         self.cfg = cfg
         self.model_name = cfg.served_model_name or engine.md.name
-        self.metrics = EngineMetrics(engine)
-        self.limiter = RateLimiter(cfg.max_queue_len, cfg.disable_rate_limit)
+        # multi-tenant QoS: the engine parsed the config; the limiter,
+        # metrics and SLO watchdog share it
+        self.qos = engine.qos
+        self.metrics = EngineMetrics(engine, qos=self.qos)
+        self.limiter = RateLimiter(cfg.max_queue_len, cfg.disable_rate_limit,
+                                   kv_shed_threshold=cfg.kv_shed_threshold,
+                                   qos=self.qos)
         self.metrics.registry.register(self.limiter.probe_errors)
         # north-star SLO watchdog: config targets, KAITO_SLO_* on top
         self.slo = SLOWatchdog(
@@ -82,8 +124,13 @@ class ServerState:
                 tokens_per_sec_per_chip=cfg.slo_tokens_per_sec_per_chip,
                 availability=cfg.slo_availability)),
             chips=engine_chip_count(engine),
+            per_tenant=self.qos is not None,
+            itl_enabled=engine.itl_hist is not None,
             role=cfg.role or os.environ.get("KAITO_INFERENCE_ROLE", ""))
         self.slo.register_metrics(self.metrics.registry)
+        # the engine's ITL stamps feed the watchdog's windows (gap, tenant)
+        if engine.itl_hist is not None:
+            engine.itl_observer = self.slo.observe_itl
         # incident flight recorder: only with a flight_dir — no dir means
         # no recorder, no watcher thread, no kaito:flight_bundles_total
         # family, and /debug/flight answers 403
@@ -113,6 +160,13 @@ class ServerState:
         and the SLO watchdog."""
         self.metrics.observe_request(req)
         self.slo.observe_request(req)
+
+    def note_tokens(self, reqs) -> None:
+        """Post-paid token budgets: debit each request's prompt and
+        generated tokens to its tenant."""
+        for r in reqs:
+            self.limiter.note_tokens(r.tenant,
+                                     len(r.prompt_tokens) + len(r.output_tokens))
 
     def close(self) -> None:
         if self.flight_watcher is not None:
@@ -155,6 +209,47 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                headers: Optional[dict] = None):
         self._json(code, {"error": {"message": message, "type": etype,
                                     "request_id": self._rid}}, headers)
+
+    def _request_error(self, req) -> None:
+        """Answer with a request's structured engine error: a failure
+        (5xx) or a deadline (408)."""
+        err = req.error or {"status": 500, "type": "internal_error",
+                            "message": "request failed in the engine"}
+        self._error(int(err.get("status", 500)), err.get("message", "request failed"),
+                    err.get("type", "internal_error"))
+
+    def _intake_tenant(self, body: dict) -> Optional[tuple[str, str]]:
+        """This request's (tenant id, priority-class name): the
+        ``X-Kaito-Tenant`` / ``X-Kaito-Priority`` headers, the body's
+        ``tenant`` / ``priority`` as fallback.  Sends a 400 and returns
+        None for an invalid tenant id or, under QoS, an unknown class."""
+        tenant = str(self.headers.get("X-Kaito-Tenant") or body.get("tenant") or "").strip()
+        priority = str(self.headers.get("X-Kaito-Priority")
+                       or body.get("priority") or "").strip()
+        if tenant and not valid_tenant(tenant):
+            self._error(400, "invalid tenant id (label-safe, max 64 chars)")
+            return None
+        qos = self.state.qos
+        if priority and qos is not None and priority not in qos.classes:
+            self._error(400, f"unknown priority class {priority!r}")
+            return None
+        return tenant, priority
+
+    def _shed(self, shed: dict) -> None:
+        """Answer 429 for a shed decision of the rate limiter and count it
+        (per tenant with QoS)."""
+        st = self.state
+        reason, tenant = shed["reason"], shed["tenant"]
+        st.metrics.requests_rejected.inc()
+        st.metrics.requests_shed.inc(reason=reason)
+        if st.metrics.tenant_shed is not None:
+            st.metrics.tenant_shed.inc(tenant=tenant or "default")
+        st.slo.note_shed(tenant=tenant)
+        st.engine.counters["requests_shed_total"] += 1
+        self._error(429, _SHED_MESSAGES.get(reason, "over capacity"),
+                    "rate_limit_error", headers={
+                        "Retry-After": st.limiter.retry_after_s(st.engine,
+                                                                key=self._rid)})
 
     def _not_ported(self):
         self._error(501, f"{self.path} is not implemented by the PyTorch "
@@ -271,14 +366,13 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         body = self._read_body()
         if body is None:
             return
-        shed = st.limiter.shed_reason(eng)
+        qos_ids = self._intake_tenant(body)
+        if qos_ids is None:
+            return
+        tenant, priority = qos_ids
+        shed = st.limiter.shed_reason(eng, tenant=tenant)
         if shed is not None:
-            st.metrics.requests_rejected.inc()
-            st.metrics.requests_shed.inc(reason=shed)
-            st.slo.note_shed()
-            eng.counters["requests_shed_total"] += 1
-            return self._error(429, _SHED_MESSAGE, "rate_limit_error", headers={
-                "Retry-After": st.limiter.retry_after_s(eng, key=self._rid)})
+            return self._shed(shed)
         for key in ("response_format", "tools", "tool_choice", "kv_transfer"):
             if body.get(key) is not None:
                 return self._error(501, f"{key!r} is not implemented by the "
@@ -312,10 +406,17 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             if want_lp and stream:
                 return self._error(400, "logprobs are not supported with "
                                         "streaming")
-            if body.get("echo") or int(body.get("n", 1) or 1) != 1:
-                return self._error(501, "'echo' and 'n' > 1 are not implemented "
-                                        "by the PyTorch engine yet",
-                                   "not_implemented")
+            # echo + logprobs + max_tokens=0: prompt SCORING (the lm-eval
+            # loglikelihood contract); echo with generation is refused
+            echo = bool(body.get("echo", False)) and not chat
+            if echo and int(body.get("max_tokens") or 0) > 0:
+                return self._error(400, "'echo' is only supported with "
+                                        "max_tokens=0 (prompt scoring)")
+            n_choices = int(body.get("n", 1) or 1)
+            if not 1 <= n_choices <= _MAX_CHOICES:
+                return self._error(400, f"'n' must be between 1 and {_MAX_CHOICES}")
+            if n_choices > 1 and stream:
+                return self._error(400, "'n' > 1 is not supported with streaming")
             model_field = body.get("model") or ""
             if model_field and model_field not in (st.model_name, eng.md.name):
                 return self._error(404, f"model {model_field!r} not found")
@@ -335,65 +436,154 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             )
             include_usage = bool((body.get("stream_options") or {})
                                  .get("include_usage"))
+            # per-request deadline in seconds; 0/absent falls back to
+            # --request-timeout-s
+            timeout_s = float(body.get("timeout", 0) or 0)
+            if timeout_s < 0:
+                return self._error(400, "'timeout' must be >= 0")
         except (TypeError, ValueError, AttributeError) as e:
             return self._error(400, f"bad parameter: {e}")
 
         stop = body.get("stop")
         stop_strs = [stop] if isinstance(stop, str) else list(stop or [])
         tokens = eng.tokenizer.encode(prompt_text)
+        if echo:
+            return self._score_prompt(body, tokens, prompt_text, want_lp)
+        if n_choices > 1 and not params.seed:
+            # pin the first choice's seed now, so the choices' seeds
+            # (seed + i) never collide with the engine's own
+            params = dataclasses.replace(params, seed=int(uuid.uuid4().hex[:8], 16) | 1)
+        req_id = f"cmpl-{uuid.uuid4().hex[:20]}"
+        reqs = []
         try:
-            req = eng.submit(tokens, params,
-                             req_id=f"cmpl-{uuid.uuid4().hex[:20]}",
-                             trace_id=self._rid)
+            for ci in range(n_choices):
+                reqs.append(eng.submit(
+                    tokens, dataclasses.replace(params, seed=params.seed + ci),
+                    req_id=req_id if ci == 0 else f"{req_id}-{ci}",
+                    trace_id=self._rid, timeout_s=timeout_s, tenant=tenant,
+                    priority=priority))
         except ValueError as e:
+            for r in reqs:
+                eng.abort(r)
             return self._error(400, str(e))
+        # conversation identity (X-Kaito-Session), kept on the request
+        session = self.headers.get("X-Kaito-Session", "").strip()
+        if session:
+            reqs[0].session = session[:128]
         obj = "chat.completion" if chat else "text_completion"
-        base = {"id": req.req_id, "object": obj + (".chunk" if stream else ""),
+        base = {"id": req_id, "object": obj + (".chunk" if stream else ""),
                 "created": int(time.time()),
                 "model": model_field or st.model_name}
         if stream:
-            return self._stream(req, base, chat, stop_strs, include_usage)
+            return self._stream(reqs[0], base, chat, stop_strs, include_usage)
 
-        out_ids = list(req.stream())
-        st.observe(req)
-        if req.finish_reason == "error":
-            err = req.error or {}
-            return self._error(int(err.get("status", 500)),
-                               err.get("message", "request failed"),
-                               err.get("type", "internal_error"))
-        text = eng.tokenizer.decode(out_ids)
+        outs = [list(r.stream()) for r in reqs]   # drain every choice
+        bad = next((r for r in reqs if r.finish_reason in ("error", "deadline")),
+                   None)
+        if bad is not None:
+            # a failure or a deadline: the structured error (5xx / 408),
+            # not a 200 with truncated text
+            st.metrics.observe_request(reqs[0])
+            st.slo.observe_request(bad)
+            return self._request_error(bad)
+        choices = [self._choice(idx, r, out_ids, chat, stop_strs, prompt_text)
+                   for idx, (r, out_ids) in enumerate(zip(reqs, outs))]
+        completion = sum(len(o) for o in outs)
+        resp = dict(base)
+        resp.update({"choices": choices, "usage": {
+            "prompt_tokens": len(tokens), "completion_tokens": completion,
+            "total_tokens": len(tokens) + completion}})
+        st.observe(reqs[0])
+        st.note_tokens(reqs)
+        self._json(200, resp)
+
+    def _choice(self, idx, req, out_ids, chat, stop_strs, prompt_text) -> dict:
+        """One choice of a finished request: its text cut at the first
+        stop string, with its logprobs aligned to the text returned."""
+        tok = self.state.engine.tokenizer
+        text = tok.decode(out_ids)
         finish = req.finish_reason or "stop"
+        stop_cut = False
         for s in stop_strs:
             if s in text:
                 text = text[: text.find(s)]
                 finish = "stop"
+                stop_cut = True
         lp_block = None
-        if params.logprobs:
+        if req.params.logprobs:
+            strs = token_surface_forms(tok, out_ids)
             lps = list(req.output_logprobs[:len(out_ids)])
-            strs = [eng.tokenizer.decode([t]) for t in out_ids]
-            offsets = [len(prompt_text) + sum(len(x) for x in strs[:i])
-                       for i in range(len(strs))]
-            lp_block = ({"content": [{"token": s, "logprob": lp,
-                                      "bytes": list(s.encode())}
-                                     for s, lp in zip(strs, lps)]} if chat else
-                        {"tokens": strs, "token_logprobs": lps,
-                         "top_logprobs": None, "text_offset": offsets})
+            if stop_cut:
+                kept, acc = len(out_ids), 0
+                for i, s in enumerate(strs):
+                    if acc >= len(text):
+                        kept = i
+                        break
+                    acc += len(s)
+                strs, lps = strs[:kept], lps[:kept]
+            if chat:
+                lp_block = {"content": [{"token": s, "logprob": lp,
+                                         "bytes": list(s.encode())}
+                                        for s, lp in zip(strs, lps)]}
+            else:
+                offsets, pos = [], len(prompt_text)
+                for s in strs:
+                    offsets.append(pos)
+                    pos += len(s)
+                lp_block = {"tokens": strs, "token_logprobs": lps,
+                            "top_logprobs": None, "text_offset": offsets}
         if chat:
-            choice = {"index": 0, "message": {"role": "assistant", "content": text},
+            choice = {"index": idx, "message": {"role": "assistant", "content": text},
                       "finish_reason": finish}
             if lp_block is not None:
                 choice["logprobs"] = lp_block
-        else:
-            choice = {"index": 0, "text": text, "logprobs": lp_block,
-                      "finish_reason": finish}
-        resp = dict(base)
-        resp.update({"choices": [choice], "usage": {
-            "prompt_tokens": len(tokens), "completion_tokens": len(out_ids),
-            "total_tokens": len(tokens) + len(out_ids)}})
-        self._json(200, resp)
+            return choice
+        return {"index": idx, "text": text, "logprobs": lp_block,
+                "finish_reason": finish}
+
+    def _score_prompt(self, body: dict, tokens: list, prompt_text: str,
+                      want_lp: bool):
+        """completions ``echo`` + ``max_tokens: 0``: the prompt with the
+        log p of each of its tokens (None first), computed on the engine
+        thread.  A scoring failure answers 500."""
+        st = self.state
+        if not want_lp:
+            return self._error(400, "'echo' with max_tokens=0 requires logprobs")
+        try:
+            lps = st.engine.score_prompt(tokens)
+        except ValueError as e:
+            return self._error(400, str(e))
+        except Exception as e:
+            logger.exception("prompt scoring failed")
+            return self._error(500, f"prompt scoring failed: {e}", "internal_error")
+        strs = token_surface_forms(st.engine.tokenizer, tokens)
+        offsets, pos = [], 0
+        for s in strs:
+            offsets.append(pos)
+            pos += len(s)
+        choice = {"index": 0, "text": prompt_text, "finish_reason": "stop",
+                  "logprobs": {"tokens": strs, "token_logprobs": lps,
+                               "top_logprobs": None, "text_offset": offsets}}
+        self._json(200, {
+            "id": f"cmpl-{uuid.uuid4().hex[:20]}",
+            "object": "text_completion", "created": int(time.time()),
+            "model": body.get("model") or st.model_name,
+            "choices": [choice],
+            "usage": {"prompt_tokens": len(tokens), "completion_tokens": 0,
+                      "total_tokens": len(tokens)}})
 
     def _stream(self, req, base, chat, stop_strs, include_usage):
-        eng = self.state.engine
+        """Server-sent events of one request.  The stream opens with its
+        first token: a request that fails or passes its deadline before
+        one answers with its structured error instead, and one that does
+        after sends the error as its last event."""
+        st = self.state
+        eng = st.engine
+        toks = req.stream()
+        first_tok = next(toks, None)
+        if first_tok is None and req.finish_reason in ("error", "deadline"):
+            st.observe(req)
+            return self._request_error(req)
         self._sse_start()
 
         def chunk(delta: Optional[str], finish=None):
@@ -411,10 +601,10 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                                  "finish_reason": None}]
             self._sse_send(first)
         sent_text, ids, stopped = "", [], False
-        for tok in req.stream():
+        for tok in _chain(first_tok, toks):
             ids.append(tok)
             text = eng.tokenizer.decode(ids)
-            if text.endswith("�"):
+            if text.endswith("\ufffd"):
                 continue  # mid-codepoint; wait for more bytes
             delta = text[len(sent_text):]
             sent_text = text
@@ -432,6 +622,12 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             if tail:
                 self._sse_send(chunk(tail))
         self._sse_send(chunk(None, "stop" if stopped else (req.finish_reason or "stop")))
+        if not stopped and req.finish_reason in ("error", "deadline"):
+            err = req.error or {}
+            self._sse_send({"error": {"message": err.get("message", "request failed"),
+                                      "type": err.get("type", "internal_error"),
+                                      "code": int(err.get("status", 500)),
+                                      "request_id": self._rid}})
         if include_usage:
             n_out = len(req.output_tokens)
             usage = dict(base)
@@ -440,8 +636,17 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                 "completion_tokens": n_out,
                 "total_tokens": len(req.prompt_tokens) + n_out}})
             self._sse_send(usage)
-        self.state.observe(req)
+        st.observe(req)
+        st.note_tokens([req])
         self._sse_end()
+
+
+def _chain(first, rest):
+    """``first`` (unless None) then the rest of an iterator."""
+    if first is None:
+        return
+    yield first
+    yield from rest
 
 
 class _Server(ThreadingHTTPServer):
@@ -511,6 +716,27 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     action="store_false")
     ap.add_argument("--max-queue-len", type=int, default=256)
     ap.add_argument("--kaito-disable-rate-limit", action="store_true")
+    ap.add_argument("--qos-config",
+                    default=os.environ.get("KAITO_QOS_CONFIG", ""),
+                    help="multi-tenant QoS classes as inline JSON or @path to a "
+                         "file; '' = off (one implicit tenant, FIFO admission)")
+    ap.add_argument("--request-timeout-s", type=float, default=0.0,
+                    help="server-default request deadline in seconds (0 = none); "
+                         "an expired request answers 408")
+    ap.add_argument("--kv-shed-threshold", type=float, default=0.0,
+                    help="shed new requests with 429 + Retry-After when KV page "
+                         "usage crosses this fraction while a queue exists "
+                         "(0 = off)")
+    ap.add_argument("--itl", action="store_true",
+                    default=os.environ.get("KAITO_ITL", "") in ("1", "true"),
+                    help="stamp every retired token and expose true per-token "
+                         "inter-token latency (kaito:inter_token_latency_seconds "
+                         "and the watchdog's itl_p99 SLI); off keeps the "
+                         "exposition as it is")
+    ap.add_argument("--slo-itl-p99-ms", type=float,
+                    default=float(os.environ.get("KAITO_SLO_ITL_P99_MS", "250")),
+                    help="ITL p99 SLO target (ms); gaps beyond it count as "
+                         "stalls and burn the itl_p99 budget")
     ap.add_argument("--slow-request-threshold-s", type=float, default=0.0,
                     help="dump a request's span tree to the log when its "
                          "end-to-end latency crosses this (0 = off)")
@@ -552,6 +778,9 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         enable_prefix_caching=args.enable_prefix_caching,
         max_queue_len=args.max_queue_len,
         disable_rate_limit=args.kaito_disable_rate_limit,
+        qos_config=args.qos_config, request_timeout_s=args.request_timeout_s,
+        kv_shed_threshold=args.kv_shed_threshold, itl_enabled=args.itl,
+        slo_itl_p99_ms=args.slo_itl_p99_ms,
         slow_request_threshold_s=args.slow_request_threshold_s,
         flight_dir=args.flight_dir, flight_max_bundles=args.flight_max_bundles,
         seed=args.seed,

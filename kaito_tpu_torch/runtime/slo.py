@@ -154,16 +154,14 @@ class SLOWatchdog:
 
     All feed methods are cheap (deque append under a lock) and safe
     from handler threads.  ``chips`` is the serving slice's chip count
-    so tok/s normalizes to the per-chip north star.  The per-tenant and
-    inter-token-latency SLIs of the JAX watchdog come with QoS and ITL
-    (ROADMAP queue 1, item 29); with them off, as here, its snapshot and
-    families are these.
+    so tok/s normalizes to the per-chip north star.
     """
 
     def __init__(self, targets: Optional[SLOTargets] = None, chips: int = 1,
                  windows: tuple[float, float] = (WINDOW_FAST_S,
                                                 WINDOW_SLOW_S),
                  time_fn: Callable[[], float] = time.monotonic,
+                 per_tenant: bool = False, itl_enabled: bool = False,
                  role: str = ""):
         self.targets = targets or SLOTargets()
         self.chips = max(1, int(chips))
@@ -176,29 +174,86 @@ class SLOWatchdog:
         self.success = WindowSeries(slow, time_fn)
         self.failure = WindowSeries(slow, time_fn)
         self.shed = WindowSeries(slow, time_fn)
+        # per-token inter-token gaps (--itl): the itl_p99 SLI and its
+        # gauges only exist when the engine-side stamping is on, so the
+        # ITL-off exposition stays byte-identical
+        self.itl_enabled = bool(itl_enabled)
+        self.itl = WindowSeries(slow, time_fn)
         # P/D role attribution: "prefill" / "decode" / "unified"; a
         # non-empty role adds the kaito:slo_role info gauge
         self._role_set = bool(role)
         self.role = role or "unified"
+        # per-tenant QoS slices: only with a QoS config —
+        # the gauges they feed must not exist in the QoS-off exposition
+        self.per_tenant = per_tenant
+        self._tenant_ttft: dict[str, WindowSeries] = {}
+        self._tenant_shed: dict[str, WindowSeries] = {}
+        self._tenant_itl: dict[str, WindowSeries] = {}
 
     # -- feeds ---------------------------------------------------------
+
+    def _tenant_series(self, store: dict, tenant: str) -> WindowSeries:
+        s = store.get(tenant)
+        if s is None:
+            s = store[tenant] = WindowSeries(self.window_slow_s,
+                                             self.time_fn)
+        return s
+
+    def observe_ttft(self, seconds: float, tenant: str = "") -> None:
+        self.ttft.add(seconds)
+        if self.per_tenant and tenant:
+            self._tenant_series(self._tenant_ttft, tenant).add(seconds)
+
+    def observe_itl(self, seconds: float, tenant: str = "") -> None:
+        """One inter-token gap (the engine's retire-path stamp)."""
+        self.itl.add(seconds)
+        if self.per_tenant and tenant:
+            self._tenant_series(self._tenant_itl, tenant).add(seconds)
 
     def note_tokens(self, n: int) -> None:
         if n > 0:
             self.tokens.add(n)
 
-    def note_shed(self, n: int = 1) -> None:
+    def note_shed(self, n: int = 1, tenant: str = "") -> None:
         self.shed.add(n)
+        if self.per_tenant and tenant:
+            self._tenant_series(self._tenant_shed, tenant).add(n)
 
     def observe_request(self, req) -> None:
         """Feed one finished engine Request (the server calls this next
         to EngineMetrics.observe_request)."""
-        if req.first_token_time:
-            self.ttft.add(req.first_token_time - req.submit_time)
-        self.note_tokens(len(req.output_tokens))
-        if req.finish_time or req.finish_reason:
-            ok = req.finish_reason not in ("error", "deadline")
+        if getattr(req, "first_token_time", None):
+            self.observe_ttft(req.first_token_time - req.submit_time,
+                              tenant=getattr(req, "tenant", ""))
+        self.note_tokens(len(getattr(req, "output_tokens", ()) or ()))
+        if getattr(req, "finish_time", None) or \
+                getattr(req, "finish_reason", None):
+            ok = getattr(req, "finish_reason", None) not in \
+                ("error", "deadline")
             (self.success if ok else self.failure).add(1)
+
+    # -- per-tenant view -----------------------------------------------
+
+    def tenant_snapshot(self) -> dict:
+        """Fast-window TTFT p50 and shed count per tenant — the
+        degradation ladder's observable: a guaranteed tenant's p50
+        holds while best-effort sheds climb."""
+        out: dict = {}
+        for t in sorted(set(self._tenant_ttft) | set(self._tenant_shed)
+                        | set(self._tenant_itl)):
+            ttfts = (self._tenant_ttft[t].values(self.window_fast_s)
+                     if t in self._tenant_ttft else [])
+            shed = (self._tenant_shed[t].total(self.window_fast_s)
+                    if t in self._tenant_shed else 0.0)
+            out[t] = {"ttft_p50_s": round(_percentile(ttfts, 0.50), 6),
+                      "ttft_samples": len(ttfts),
+                      "shed": int(shed)}
+            if self.itl_enabled:
+                itls = (self._tenant_itl[t].values(self.window_fast_s)
+                        if t in self._tenant_itl else [])
+                out[t]["itl_p99_s"] = round(_percentile(itls, 0.99), 6)
+                out[t]["itl_samples"] = len(itls)
+        return out
 
     # -- evaluation ----------------------------------------------------
 
@@ -219,7 +274,7 @@ class SLOWatchdog:
         total = ok + fail + shed
         toks = self.tokens.total(window_s)
         tok_s_chip = toks / self._window_elapsed(window_s) / self.chips
-        return {
+        out = {
             "ttft_p50_s": round(_percentile(ttfts, 0.50), 6),
             "ttft_p99_s": round(_percentile(ttfts, 0.99), 6),
             "ttft_samples": n,
@@ -237,15 +292,26 @@ class SLOWatchdog:
             "throughput_burning": bool(
                 toks > 0 and tok_s_chip < t.tokens_per_sec_per_chip),
         }
+        if self.itl_enabled:
+            itls = self.itl.values(window_s)
+            bad_itl = sum(1 for v in itls if v > t.itl_p99_s)
+            out["itl_p50_s"] = round(_percentile(itls, 0.50), 6)
+            out["itl_p99_s"] = round(_percentile(itls, 0.99), 6)
+            out["itl_samples"] = len(itls)
+            out["burn"]["itl_p99"] = _ratio_burn(
+                bad_itl, len(itls), 1 - t.itl_p99_fraction)
+        return out
 
     def snapshot(self) -> dict:
         """The ``/debug/slo`` payload."""
         fast = self._eval_window(self.window_fast_s)
         slow = self._eval_window(self.window_slow_s)
+        slis = ("ttft_p50", "ttft_p99", "availability") + \
+            (("itl_p99",) if self.itl_enabled else ())
         burn_rates = {
             sli: {"fast": round(fast["burn"][sli], 4),
                   "slow": round(slow["burn"][sli], 4)}
-            for sli in ("ttft_p50", "ttft_p99", "availability")
+            for sli in slis
         }
         alerts = {
             sli: _alert_state(b["fast"], b["slow"])
@@ -261,7 +327,7 @@ class SLOWatchdog:
                        + [1.5 if fast["throughput_burning"] else 0.0])
         fast.pop("burn"), slow.pop("burn")
         fast.pop("throughput_burning"), slow.pop("throughput_burning")
-        return {
+        out = {
             "burn_max": round(burn_max, 4),
             "role": self.role,
             "targets": self.targets.to_dict(),
@@ -273,6 +339,9 @@ class SLOWatchdog:
             "alerts": alerts,
             "healthy": all(a != STATE_PAGE for a in alerts.values()),
         }
+        if self.per_tenant:
+            out["tenants"] = self.tenant_snapshot()
+        return out
 
     # -- exposition ----------------------------------------------------
 
@@ -314,11 +383,49 @@ class SLOWatchdog:
         Gauge("kaito:slo_healthy",
               "1 while no SLI is in the page state", registry,
               fn=lambda: 1.0 if self.snapshot()["healthy"] else 0.0)
+        if self.itl_enabled:
+            # ITL-only families — the itl_p99 entry in burn_rates /
+            # alerts above is likewise gated, so the ITL-off exposition
+            # stays byte-identical
+            Gauge("kaito:slo_itl_p50_seconds",
+                  "Rolling fast-window inter-token latency p50", registry,
+                  fn=lambda: self._eval_window(
+                      self.window_fast_s)["itl_p50_s"])
+            Gauge("kaito:slo_itl_p99_seconds",
+                  "Rolling fast-window inter-token latency p99", registry,
+                  fn=lambda: self._eval_window(
+                      self.window_fast_s)["itl_p99_s"])
         if self._role_set:
             Gauge("kaito:slo_role",
                   "Info gauge: the serving role this replica's SLO burn "
                   "attributes to", registry, labels=("role",),
                   fn=lambda: {(self.role,): 1.0})
+        if self.per_tenant:
+            # QoS-only families — registering them unconditionally
+            # would add HELP/TYPE lines to the QoS-off exposition
+            def _tenant_ttfts() -> dict:
+                return {(t,): s["ttft_p50_s"]
+                        for t, s in self.tenant_snapshot().items()}
+
+            def _tenant_sheds() -> dict:
+                return {(t,): float(s["shed"])
+                        for t, s in self.tenant_snapshot().items()}
+
+            Gauge("kaito:slo_tenant_ttft_p50_seconds",
+                  "Rolling fast-window TTFT p50 per tenant", registry,
+                  labels=("tenant",), fn=_tenant_ttfts)
+            Gauge("kaito:slo_tenant_shed",
+                  "Fast-window requests shed per tenant", registry,
+                  labels=("tenant",), fn=_tenant_sheds)
+            if self.itl_enabled:
+                def _tenant_itls() -> dict:
+                    return {(t,): s.get("itl_p99_s", 0.0)
+                            for t, s in self.tenant_snapshot().items()}
+
+                Gauge("kaito:slo_tenant_itl_p99_seconds",
+                      "Rolling fast-window inter-token latency p99 per "
+                      "tenant", registry, labels=("tenant",),
+                      fn=_tenant_itls)
 
 
 def engine_chip_count(engine) -> int:

@@ -299,11 +299,14 @@ def engine_flight_snapshot(engine, slo=None, cfg=None) -> dict:
             continue
         slots.append(_safe(lambda r=req, s=slot, j=i: {
             "slot": j, "req_id": r.req_id, "trace_id": r.trace_id,
-            "position": int(s.position), "remaining": int(s.remaining),
+            "tenant": r.tenant, "position": int(s.position),
+            "remaining": int(s.remaining),
             "output_tokens": len(r.output_tokens),
         }))
     body["slots"] = [s for s in slots if s]
     body["counters"] = _safe(lambda: dict(engine.counters), fallback={})
+    if engine.qos is not None:
+        body["qos_classes"] = _safe(lambda: sorted(engine.qos.classes))
     if cfg is not None:
         body["config"] = _safe(lambda: config_fingerprint(cfg))
     return body

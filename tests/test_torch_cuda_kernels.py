@@ -109,6 +109,25 @@ def test_flash_kernels(card, dtype, T, D, Hkv, G, window, softcap):
         <= ATOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1024, 4096])
+def test_flash_kernel_at_scoring_lengths(card, dtype, T):
+    """K2 as prompt scoring launches it: one fresh [1, T] row, T a
+    multiple of 128 past the prefill buckets, the prompt T - 37 long."""
+    from kaito_tpu_torch.engine.ops.flash_prefill import (
+        flash_prefill_attention_cuda, flash_prefill_attention_plain)
+
+    q = _rand(card, 1, T, 32, 128, dtype=dtype)
+    k = _rand(card, 1, T, 8, 128, dtype=dtype)
+    v = _rand(card, 1, T, 8, 128, dtype=dtype)
+    tl = torch.tensor([T - 37], dtype=torch.int32, device="cuda")
+    out = flash_prefill_attention_cuda(q, k, v, tl, BIG, scale=128 ** -0.5)
+    ref = flash_prefill_attention_plain(q, k, v, tl, BIG, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert (out[:, :T - 37].float() - ref[:, :T - 37].float()).abs().max().item() \
+        <= ATOL[dtype]
+
+
 # many 1-3-token segments, then one spanning three 64-key tiles, then pads
 SHORT_SEGMENTS = (1, 2, 3, 1, 1, 3, 2, 2) * 5 + (150,) + (1, 3, 2) * 4
 

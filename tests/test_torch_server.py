@@ -143,7 +143,7 @@ def test_unported_routes_answer_501(served, path):
     ({"prompt": ""}, 400),
     ({"prompt": "x", "model": "other-model"}, 404),
     ({"prompt": "x", "response_format": {"type": "json_object"}}, 501),
-    ({"prompt": "x", "n": 2}, 501),
+    ({"prompt": "x", "tool_choice": "auto"}, 501),
     ({"prompt": "x", "max_tokens": -3}, 400),
     ({"prompt": "x", "temperature": "hot"}, 400),
 ])
