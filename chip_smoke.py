@@ -98,12 +98,21 @@ order; any failure exits non-zero and prints no result:
    logprobs within atol 2e-3, every card window a replay.  The fp32
    goldens are also scored (``score_prompt``: each golden prompt plus
    its golden tokens, K2 once a layer): the scores of the golden tokens
-   must be the golden logprobs within 2e-3.
+   must be the golden logprobs within 2e-3.  The four sections of
+   ``tiny-llama-real`` again through n-gram speculation (4 tokens), and
+   ``fp32`` through the checkpoint as its own draft (k=4: full-accept
+   rounds and the draft KV's backfill): tokens exact, logprobs within
+   2e-3 (``kv_int8``'s against a CPU engine's same runs, its verify
+   windows requantizing a page over the window), every verify round
+   and draft scan a graph replay, fewer target forwards than tokens.
 4. Full width: the port's HTTP server serves ``llama-3.1-8b-instruct``
    (all 32 layers, bf16, synthetic weights from seed 0): one completion,
    one streamed chat, then four concurrent 100-400-token prompts (a
    prefill pack) and one 700-token prompt (a continuation chunk).  Every
-   response must be well formed and carry its ``max_tokens``; the launch
+   response must be well formed and carry its ``max_tokens``; a seeded
+   sampled completion (seed 7) sent twice must give one text and one
+   set of logprobs, seed 8 others (per-slot keys under graph replay);
+   the launch
    counts of K1, K2 and K3, zeroed just before this phase, must each
    have grown (a replayed decode window counts its kernels), and every
    decode window must have been a graph replay.  Cold TTFT (the
@@ -185,6 +194,25 @@ order; any failure exits non-zero and prints no result:
    0.1), four sampled ones sum to the usage, and ``n`` with ``stream``
    is a 400.  K1 and K2 must launch, and every decode window
    must be a graph replay.
+10. Speculation (leg ``spec-bf16``): Llama-3.1-8B at full width in bf16
+   (phase 4's config), three engines sharing one copy of the weights:
+   the plain engine, n-gram speculation (4 tokens, min match 2) and the
+   synthetic ``llama-3.2-1b-instruct`` draft at full width (k=4).  Four
+   repetitive prompts, 64 greedy tokens each, submitted together: each
+   speculative engine's tokens must equal the plain engine's, or part
+   from them only at a near-tie (both picks' logprobs within 0.1: a
+   verify window's [B, W] forward sums in another order than a decode
+   step); n-gram must accept proposals and emit more tokens than its
+   target forwards; the draft's depth controller must fall back to
+   n-gram and probe the draft again; a temperature-0.8 batch completes;
+   a seeded request (seed 7) sent twice to one slot gives one answer,
+   seed 8 another, on the plain engine and the draft one; every verify
+   round and draft scan is a graph replay (none eager); ``/metrics``'
+   ``kaito:spec_*`` equal the counters.  Logged: tokens a target
+   forward, host calls and device kernels a scheduler step (profiled),
+   ms a token of one sequence alone against the plain engine's, the
+   card ms of each captured verify graph and of the plain context
+   attention at its width, and K1's launches on the draft scan.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -194,7 +222,8 @@ phase 3 and every server leg after phase 4's bf16 one (with
 ``--profile``, the quickest reading of TTFT and prefill device time)
 and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
-``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``), which
+``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
+``spec-bf16``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -1355,8 +1384,16 @@ def _golden_runs(eng, golden, section, runs):
     return out
 
 
+# speculation in phase 3: n-gram (4 tokens), or the checkpoint as its own
+# draft (k=4, full-accept rounds and the draft KV's backfill)
+GOLDEN_SPEC = {"ngram": dict(speculative_ngram=4),
+               "draft": dict(speculative_draft="tiny-llama-real", speculative_draft_k=4,
+                             speculative_draft_weights_dir=os.path.join(
+                                 REPO, "checkpoints", "tiny-llama-real"))}
+
+
 def check_goldens(section, tp=1, overlap=False, async_on=False,
-                  model="tiny-llama-real", warm=False):
+                  model="tiny-llama-real", warm=False, spec=""):
     """Replay one golden section of ``model``'s checkpoint, the prefix
     cache on; at ``tp`` > 1 on a :func:`tp_mesh`, with the comm-overlap
     decode ring on or off; with ``async_on`` through the async decode
@@ -1365,11 +1402,17 @@ def check_goldens(section, tp=1, overlap=False, async_on=False,
     run must take its whole prompt pages from the cache and still match.
     Over int8 pages (``kv_int8``) the logprobs are held against the same
     runs of a CPU engine instead: a page's scale covers its 16 tokens
-    (not the goldens' 64), and a reused page keeps the scale it grew."""
+    (not the goldens' 64), and a reused page keeps the scale it grew.
+    With ``spec`` (a key of :data:`GOLDEN_SPEC`) the decode runs through
+    speculation, every verify round (and draft scan) a graph replay and
+    fewer target forwards than tokens; int8 KV's verify windows
+    requantize a page over the window, so ``kv_int8`` is then held
+    against a CPU engine's same runs too, both at the card's decode
+    window (where a round lands decides which tokens a scale covers)."""
     import torch
 
     from kaito_tpu_torch.engine.config import EngineConfig
-    from kaito_tpu_torch.engine.engine import InferenceEngine
+    from kaito_tpu_torch.engine.engine import AUTO_RUN_AHEAD_CUDA, InferenceEngine
 
     golden = json.load(open(os.path.join(
         REPO, "tests", "testdata", f"goldens_{model}.json")))
@@ -1382,7 +1425,10 @@ def check_goldens(section, tp=1, overlap=False, async_on=False,
                             max_num_seqs=2, prefill_buckets=(64, 128),
                             page_size=16 if warm else 64, quantization=quant,
                             seed=0, tensor_parallel=tp, comm_overlap=overlap,
-                            async_dispatch=async_on)
+                            async_dispatch=async_on, **GOLDEN_SPEC.get(spec, {}),
+                            # speculation: the CPU reference takes the card's
+                            # windows, so verify rounds land where they do
+                            decode_run_ahead=AUTO_RUN_AHEAD_CUDA if spec else None)
 
     eng = InferenceEngine(config(), device="cuda",
                           mesh=tp_mesh(torch, tp) if tp > 1 else None)
@@ -1393,7 +1439,7 @@ def check_goldens(section, tp=1, overlap=False, async_on=False,
     # the fp32 checkpoint's goldens once more through prompt scoring (K2
     # over each golden prompt plus its golden tokens)
     score = (section == "fp32" and tp == 1 and not warm and not async_on
-             and model == "tiny-llama-real")
+             and model == "tiny-llama-real" and not spec)
     eng.start()
     try:
         results = _golden_runs(eng, golden, section, runs)
@@ -1401,7 +1447,7 @@ def check_goldens(section, tp=1, overlap=False, async_on=False,
     finally:
         eng.stop()
     ref = None
-    if warm and section == "kv_int8":
+    if (warm or spec) and section == "kv_int8":
         cpu = InferenceEngine(config(), device="cpu")
         cpu.start()
         try:
@@ -1431,6 +1477,23 @@ def check_goldens(section, tp=1, overlap=False, async_on=False,
     if tp == 1 and replays < eng.counters["decode_windows_total"]:
         raise SmokeFailure(f"{section}: {eng.counters['decode_windows_total']} decode "
                            f"windows but {replays} graph replays")
+    if spec:
+        c = eng.counters
+        tokens = sum(len(p[section]["greedy_tokens"]) for p in golden["prompts"])
+        scan = (eng.spec_draft.scan.stats()["replays"] if eng.spec_draft is not None
+                else c["spec_draft_steps_total"])
+        if not c["spec_steps_total"] or c["spec_verify_eager_total"] or \
+                c["spec_verify_graph_replays_total"] != c["spec_steps_total"] or \
+                scan != c["spec_draft_steps_total"] or \
+                c["decode_steps_total"] >= tokens:
+            raise SmokeFailure(f"{section} {spec}: {c['decode_steps_total']} target "
+                               f"forwards for {tokens} tokens, counters "
+                               f"{ {k: n for k, n in c.items() if 'spec' in k} }")
+        log(f"goldens {model} {section} through {spec} speculation: "
+            f"{c['decode_steps_total']} target forwards for {tokens} tokens, "
+            f"{c['spec_steps_total']} verify rounds (graph replays), accepted "
+            f"{c['spec_accepted_tokens_total'] + c['spec_draft_accepted_tokens_total']}"
+            f" of {c['spec_proposed_tokens_total'] + c['spec_draft_proposed_tokens_total']}")
     moe = f", expert form {eng.model.moe_impl}" if eng.md.arch.num_experts else ""
     if scored is not None:
         worst = max(worst, scored)
@@ -1600,6 +1663,28 @@ def _completion(base, prompt, max_tokens, **extra):
     return resp, dt
 
 
+def _http_seed_check(base, label) -> dict:
+    """A seeded sampled completion (temperature 0.8, seed 7) twice gives
+    one text and one set of logprobs; seed 8 others (per-slot keys from
+    the request's seed, through the replayed decode windows)."""
+    def run(seed):
+        status, raw = _post(f"{base}/v1/completions", dict(
+            prompt=_prompt(60, 9), max_tokens=24, temperature=0.8, seed=seed,
+            ignore_eos=True, logprobs=1))
+        if status != 200:
+            raise SmokeFailure(f"{label}: seeded completion answered {status}")
+        ch = json.loads(raw)["choices"][0]
+        return ch["text"], tuple(ch["logprobs"]["token_logprobs"])
+
+    a, b, c = run(7), run(7), run(8)
+    if a != b or a == c:
+        raise SmokeFailure(f"{label}: seed 7 gave {a[0]!r} then {b[0]!r}; seed 8 "
+                           f"{c[0]!r}")
+    log(f"{label}: a seeded sampled completion reproduces (seed 7 twice), seed 8 "
+        f"differs")
+    return dict(seed_reproduces=True, seeds_differ=True)
+
+
 def _stream_chat(base, max_tokens):
     req = urllib.request.Request(
         f"{base}/v1/chat/completions",
@@ -1713,6 +1798,8 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
             raise SmokeFailure(f"bad logprobs {lps}")
         n_chunks = _stream_chat(base, 16)
         log(f"completion + streamed chat ok ({n_chunks} SSE chunks)")
+        if label == LEGS[0][1]:
+            stats["seed"] = _http_seed_check(base, label)
 
         if burst:
             stats.update(_burst(base, engine))
@@ -2879,6 +2966,355 @@ def run_qos_phase(label) -> tuple[dict, dict]:
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+SPEC_LEG = ("spec-bf16", "phase 10, bf16 speculation: n-gram and draft model")
+_DRAFT = "llama-3.2-1b-instruct"
+# bf16 greedy streams of two paths (a verify window's [B, W] forward
+# against decode steps) sum in different orders: on the flat synthetic
+# distribution they may part at a near-tie, where both picks' logprobs
+# must agree within this (as the `n` check of phase 9)
+SPEC_TIE_ATOL = 0.1
+_SPEC_TEXTS = ("The cat sat on the mat. ", "one two three four five ",
+               "abc def ghi jkl ", "Kubernetes operators serve models. ")
+
+
+def _spec_prompts(engine) -> list[list[int]]:
+    """Four repetitive prompts (a sentence repeated to ~240 bytes)."""
+    return [engine.tokenizer.encode(t * (240 // len(t))) for t in _SPEC_TEXTS]
+
+
+def _spec_batch(engine, prompts, params) -> list:
+    """``prompts`` submitted together to a fresh (not started) engine with
+    ``params`` each, driven step by step; the finished requests."""
+    reqs = [engine.submit(list(p), sp) for p, sp in zip(prompts, params)]
+    for _ in range(20000):
+        engine.step()
+        if all(r.finish_reason for r in reqs):
+            break
+    if not all(r.finish_reason == "length" for r in reqs):
+        raise SmokeFailure(f"batch did not finish: {[r.finish_reason for r in reqs]}")
+    return reqs
+
+
+def _greedy_params(n, k=1):
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    return [SamplingParams(max_tokens=n, temperature=0.0, ignore_eos=True,
+                           logprobs=True) for _ in range(k)]
+
+
+def _same_or_tie(got, want, label) -> list[int]:
+    """Each request's tokens against the reference's: equal, or equal up
+    to a near-tie (at the first divergence both picks' logprobs within
+    SPEC_TIE_ATOL).  Returns the equal prefix lengths."""
+    prefix = []
+    for g, w in zip(got, want):
+        a, b = g.output_tokens, w.output_tokens
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        if j < len(a):
+            d = abs(g.output_logprobs[j] - w.output_logprobs[j])
+            if d > SPEC_TIE_ATOL:
+                raise SmokeFailure(f"{label}: greedy tokens part from the plain "
+                                   f"engine's at {j} ({a[j]} vs {b[j]}), logprobs "
+                                   f"{g.output_logprobs[j]:.4f} vs "
+                                   f"{w.output_logprobs[j]:.4f}: not a near-tie")
+        prefix.append(j)
+    return prefix
+
+
+def _seed_check(engine, prompt, label) -> dict:
+    """A seeded sampled request (seed 7) twice, alone, on the same slot:
+    equal tokens; seed 8: others.  The prompt is cut under one page, so
+    no run takes it from the prefix cache (a cached prefill sums in
+    another order, and a bf16 draw may then part at a near-tie)."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    prompt = prompt[:engine.cfg.page_size - 8]
+
+    def run(seed):
+        sp = SamplingParams(max_tokens=24, temperature=0.8, seed=seed, ignore_eos=True)
+        return _spec_batch(engine, [prompt], [sp])[0].output_tokens
+
+    a, b, c = run(7), run(7), run(8)
+    if a != b or a == c:
+        raise SmokeFailure(f"{label}: seed 7 gave {a} then {b}; seed 8 gave {c}")
+    log(f"{label}: seed 7 twice: the same 24 tokens; seed 8: others")
+    return dict(seed_reproduces=True, seeds_differ=True)
+
+
+def _alone(engine, prompt_text, n=129) -> dict:
+    """One greedy sequence alone through the started engine: ms a token
+    after the first, and its tokens a target forward (a decode window
+    of K steps is K forwards, a verify round one)."""
+    c = engine.counters
+    steps = c["decode_steps_total"]
+    engine.start()
+    try:
+        stamps = _timed_tokens(engine, prompt_text, n)
+    finally:
+        engine.stop()
+    return dict(ms_per_token=(stamps[-1] - stamps[0]) * 1e3 / (n - 1),
+                tokens_per_target_forward=(n - 1) / (c["decode_steps_total"] - steps))
+
+
+def _profile_rounds(engine, prompt, steps=8) -> dict:
+    """Host launch/copy calls and device kernels a scheduler step of one
+    sequence decoding alone (its prefill done first), profiled over
+    ``steps`` steps, with how many of them were verify rounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    req = engine.submit(list(prompt), SamplingParams(max_tokens=steps * 6 + 8,
+                                                     temperature=0.0, ignore_eos=True))
+    while not req.output_tokens:
+        engine.step()
+    c = engine.counters
+    r0, d0, t0 = c["spec_steps_total"], c["decode_steps_total"], len(req.output_tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    calls = _api_calls(prof)
+    kernels = sum(r[1] for r in _device_rows(prof))
+    res = dict(steps=steps, verify_rounds=c["spec_steps_total"] - r0,
+               target_forwards=c["decode_steps_total"] - d0,
+               tokens=len(req.output_tokens) - t0,
+               host_calls_per_step=sum(calls.values()) / steps,
+               host_calls_by_name={k: v / steps for k, v in calls.items()},
+               device_kernels_per_step=kernels / steps)
+    while not req.finish_reason:
+        engine.step()
+    return res
+
+
+def _verify_ms(engine, label) -> dict:
+    """Card ms of one replay of each captured verify graph from its last
+    inputs (CUDA events), and of the plain context attention at one
+    layer at that width.  Run last: a replay rewrites its rows' window."""
+    import torch
+
+    from kaito_tpu_torch.engine import attention as attn
+
+    v = engine.spec_verify
+    res = {}
+    for (width, rnd), g in v.graphs.items():
+        res[f"width {width} random {rnd}"] = time_ms(g.graph.replay, iters=10)[0]
+    m, c, a = engine.model, engine.cache, engine.md.arch
+    width = max(w for w, _ in v.graphs)
+    B, W = v.B, v.W
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(B, W, a.num_heads, a.head_dim, generator=gen,
+                    device="cuda").to(m.dtype)
+    pt = torch.arange(1, 1 + B * width, dtype=torch.int32, device="cuda").reshape(B, width)
+    start = torch.full((B,), width * engine.cfg.page_size - W, dtype=torch.int32,
+                       device="cuda")
+    lens = torch.full((B,), W, dtype=torch.int32, device="cuda")
+    ctx, _ = time_ms(lambda: attn.paged_context_attention(
+        q, c.k, c.v, pt, start, lens, scale=m._scale, layer=0), iters=10)
+    res["context_attention_ms_per_layer"] = ctx
+    res["context_attention_width"] = width
+    res["layers"] = a.num_layers
+    log(f"{label}: verify graph replays (card ms) {res}")
+    return res
+
+
+def _spec_engine_stats(engine, label) -> dict:
+    c = engine.counters
+    v = engine.spec_verify.stats()
+    res = dict(verify_captures=v["captures"], verify_replays=v["replays"],
+               verify_eager=c["spec_verify_eager_total"],
+               verify_graphs=[dict(key=g["key"], kernel_nodes=g["nodes"]["kernel"],
+                                   replays=g["replays"]) for g in v["graphs"]],
+               counters={k: n for k, n in c.items() if k.startswith("spec_")},
+               decode_steps=c["decode_steps_total"],
+               decode_graph_replays=c["decode_graph_replays_total"])
+    if res["verify_eager"] or res["verify_replays"] != c["spec_steps_total"]:
+        raise SmokeFailure(f"{label}: {c['spec_steps_total']} verify rounds, "
+                           f"{res['verify_replays']} graph replays, "
+                           f"{res['verify_eager']} eager")
+    if engine.spec_draft is not None:
+        s = engine.spec_draft.scan.stats()
+        k1 = "paged_decode_attention_cuda.launches"
+        res.update(scan_captures=s["captures"], scan_replays=s["replays"],
+                   scan_graphs=[dict(key=g["key"], kernel_nodes=g["nodes"]["kernel"],
+                                     replays=g["replays"], k1_per_replay=g["launches"]
+                                     .get(k1, 0)) for g in s["graphs"]])
+        res["k1_launches_on_draft_scan"] = sum(g["replays"] * g["k1_per_replay"]
+                                               for g in res["scan_graphs"])
+        if s["replays"] != c["spec_draft_steps_total"] or \
+                res["k1_launches_on_draft_scan"] <= 0:
+            raise SmokeFailure(f"{label}: {c['spec_draft_steps_total']} draft "
+                               f"rounds, scan {s}")
+    return res
+
+
+def _check_spec_metrics(engine, cfg, label) -> dict:
+    """``/metrics`` of a server over ``engine``: the kaito:spec_* series
+    equal the engine's counters."""
+    from kaito_tpu_torch.engine.server import make_server
+    from kaito_tpu_torch.utils.promtext import parse_exposition
+
+    server = make_server(engine, cfg, host="127.0.0.1", port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, raw = _get(f"http://127.0.0.1:{server.server_address[1]}/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if status != 200:
+        raise SmokeFailure(f"{label}: /metrics answered {status}")
+    got = {n + lbl: v for n, lbl, v in parse_exposition(raw.decode())
+           if n.startswith("kaito:spec_")}
+    c = engine.counters
+    want = {'kaito:spec_proposed_tokens_total{mode="ngram"}':
+            c["spec_proposed_tokens_total"],
+            'kaito:spec_proposed_tokens_total{mode="draft"}':
+            c["spec_draft_proposed_tokens_total"],
+            'kaito:spec_accepted_tokens_total{mode="ngram"}':
+            c["spec_accepted_tokens_total"],
+            'kaito:spec_accepted_tokens_total{mode="draft"}':
+            c["spec_draft_accepted_tokens_total"],
+            "kaito:spec_depth": engine.spec_depth}
+    if got != {k: float(v) for k, v in want.items()}:
+        raise SmokeFailure(f"{label}: /metrics {got} against the counters {want}")
+    log(f"{label}: /metrics kaito:spec_* equal the counters: {got}")
+    return got
+
+
+def run_spec_phase(label) -> tuple[dict, dict]:
+    """Phase 10: Llama-3.1-8B at full width in bf16 (phase 4's config,
+    synthetic weights from seed 0), three engines sharing one copy of the
+    weights: the plain engine (the yardstick, and the seed repair under
+    graph replay), n-gram speculation (4 tokens, min match 2) and the
+    synthetic ``llama-3.2-1b-instruct`` draft (k=4).  Greedy batches of
+    four repetitive prompts against the plain engine's; the draft's
+    controller falls back and probes; sampled and seeded requests;
+    verify rounds as graph replays; ms per token alone; ``/metrics``.
+    Returns the launches of K1, K2 and K3 over the spec engines' runs and
+    the readings."""
+    import dataclasses
+
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+    from kaito_tpu_torch.engine.server import parse_args
+
+    counted = ("paged_decode_attention", "flash_prefill_attention",
+               "flash_prefill_packed")
+    cfg, _ = parse_args(["--model", _LLAMA, "--dtype", "bfloat16",
+                         "--max-num-seqs", "8", "--seed", "0"])
+    stats: dict = {}
+    t0 = time.perf_counter()
+    plain = InferenceEngine(cfg, device="cuda")
+    log(f"{label}: plain engine up in {time.perf_counter() - t0:.1f}s")
+    prompts = _spec_prompts(plain)
+    text = _SPEC_TEXTS[0] * (240 // len(_SPEC_TEXTS[0]))
+    want = _spec_batch(plain, prompts, _greedy_params(64, 4))
+    stats["plain"] = dict(seed=_seed_check(plain, prompts[1], label + ", plain"),
+                          decode_graph_replays=plain.counters["decode_graph_replays_total"])
+    if plain.counters["decode_graph_replays_total"] < plain.counters["decode_windows_total"]:
+        raise SmokeFailure(f"{label}: the plain engine's windows were not all replays")
+    # the seed repair's cost: kernel nodes of a sampled window against a
+    # greedy one of the same K (the key's first gate is "any random row")
+    graphs = plain.window.stats()["graphs"]
+    stats["plain"]["window_kernel_nodes"] = {
+        f"K={g['K']} {'sampled' if g['key'].startswith('((True') else 'greedy'}":
+        g["nodes"]["kernel"] for g in graphs}
+    log(f"{label}: decode window kernel nodes {stats['plain']['window_kernel_nodes']}")
+    stats["plain"].update(_alone(plain, text))
+    params = plain.model.param_tree()
+    del plain
+    _release_card(torch)
+    launches = {}
+    for name in counted:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
+
+    for mode, extra in (("ngram", dict(speculative_ngram=4, speculative_min_match=2)),
+                        ("draft", dict(speculative_draft=_DRAFT, speculative_draft_k=4))):
+        lbl = f"{label}, {mode}"
+        t0 = time.perf_counter()
+        spec_cfg = dataclasses.replace(cfg, **extra)
+        eng = InferenceEngine(spec_cfg, params=params, device="cuda")
+        log(f"{lbl}: engine up in {time.perf_counter() - t0:.1f}s"
+            + (f", draft {eng.spec_draft.model.param_bytes() / 2**30:.2f} GiB + KV "
+               f"{2 * eng.spec_draft.cache.k.nbytes / 2**30:.2f} GiB"
+               if eng.spec_draft is not None else ""))
+        c = eng.counters
+        ctl = eng.spec_ctl
+        seen = {"ngram": 0, "probe": 0}
+        if ctl is not None:
+            # the controller's fallbacks and probes, as they happen
+            observe, tick = ctl.observe, ctl.note_fallback_round
+
+            def observing(i, p, a, observe=observe, ctl=ctl):
+                before = ctl.mode(i)
+                observe(i, p, a)
+                seen["ngram"] += before == "draft" and ctl.mode(i) == "ngram"
+
+            def ticking(i, tick=tick, ctl=ctl):
+                before = ctl.mode(i)
+                tick(i)
+                seen["probe"] += before == "ngram" and ctl.mode(i) == "draft"
+
+            ctl.observe, ctl.note_fallback_round = observing, ticking
+        got = _spec_batch(eng, prompts, _greedy_params(64, 4))
+        steps = c["decode_steps_total"]
+        emitted = c["generation_tokens_total"] - len(prompts)
+        prefix = _same_or_tie(got, want, lbl)
+        res = dict(greedy_equal_prefix=prefix, greedy_tokens=64, batch_forwards=steps,
+                   batch_tokens_per_forward_a_sequence=emitted / len(prompts) / steps)
+        log(f"{lbl}: greedy batch against the plain engine: equal prefixes {prefix} "
+            f"of 64; {emitted} tokens of 4 sequences in {steps} target forwards "
+            f"({res['batch_tokens_per_forward_a_sequence']:.3f} a forward and "
+            f"sequence); counters "
+            f"{ {k: n for k, n in c.items() if k.startswith('spec_')} }")
+        if mode == "ngram" and c["spec_accepted_tokens_total"] <= 0:
+            raise SmokeFailure(f"{lbl}: no n-gram proposal was accepted")
+        if mode == "draft":
+            res["fallbacks"], res["probes"] = seen["ngram"], seen["probe"]
+            if not seen["ngram"] or not seen["probe"]:
+                raise SmokeFailure(f"{lbl}: the controller fell back {seen['ngram']} "
+                                   f"times and probed {seen['probe']} times")
+            sampled = _spec_batch(eng, prompts, [SamplingParams(
+                max_tokens=32, temperature=0.8, ignore_eos=True) for _ in prompts])
+            if any(len(r.output_tokens) != 32 for r in sampled):
+                raise SmokeFailure(f"{lbl}: a temperature-0.8 request lost tokens")
+            res["seed"] = _seed_check(eng, prompts[1], lbl)
+            log(f"{lbl}: controller fell back {seen['ngram']} times, probed "
+                f"{seen['probe']} times; a temperature-0.8 batch of 4 x 32 tokens "
+                f"complete; acceptance {c['spec_draft_accepted_tokens_total']} of "
+                f"{c['spec_draft_proposed_tokens_total']}")
+            res["metrics"] = _check_spec_metrics(eng, spec_cfg, lbl)
+        res["rounds"] = _profile_rounds(eng, prompts[0])
+        log(f"{lbl}: one sequence, a scheduler step: {res['rounds']}")
+        res["engine"] = _spec_engine_stats(eng, lbl)
+        log(f"{lbl}: {res['engine']}")
+        res.update(_alone(eng, text))
+        log(f"{lbl}: one sequence alone {res['ms_per_token']:.3f} ms a token, "
+            f"{res['tokens_per_target_forward']:.3f} tokens a target forward; the "
+            f"plain engine {stats['plain']['ms_per_token']:.3f} ms")
+        if mode == "ngram" and res["tokens_per_target_forward"] <= 1.0:
+            raise SmokeFailure(f"{lbl}: {res['tokens_per_target_forward']:.3f} tokens "
+                               f"a target forward alone")
+        res["verify_ms"] = _verify_ms(eng, lbl)
+        stats[mode] = res
+        del eng
+        _release_card(torch)
+    torch.cuda.synchronize()
+    launches = {name: getattr(*_counter(name)) for name in counted}
+    log(f"{label}: launches {launches}")
+    return launches, stats
+
+
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
 _LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
@@ -2945,7 +3381,8 @@ def main(argv=None) -> int:
     ap.add_argument("--first-leg-only", action="store_true",
                     help="skip the goldens (phase 3) and every server leg after "
                          "phase 4's bf16 one; no result line")
-    ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [QOS_LEG[0]],
+    ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [QOS_LEG[0],
+                                                                    SPEC_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -3005,6 +3442,10 @@ def main(argv=None) -> int:
                 golden_err[f"{sec} warm"] = check_goldens(sec, warm=True)
             for sec in () if alone else GOLDEN_MODES:
                 golden_err[f"{sec} async"] = check_goldens(sec, async_on=True)
+            for sec in () if alone else GOLDEN_MODES:
+                golden_err[f"{sec} n-gram"] = check_goldens(sec, spec="ngram")
+            if not alone:
+                golden_err["fp32 draft"] = check_goldens("fp32", spec="draft")
             for sec in () if alone else GOLDEN_MODES:
                 golden_err[f"tiny-moe-real {sec}"] = check_goldens(
                     sec, model="tiny-moe-real")
@@ -3070,6 +3511,22 @@ def main(argv=None) -> int:
                 o = stats[label]["overload"]
                 log(f"{label} on {card}: acme TTFT p50 {o['acme_ttft_p50_alone_ms']:.1f} "
                     f"ms alone, {o['acme_ttft_p50_loaded_ms']:.1f} ms under the flood")
+            if args.leg in (None, SPEC_LEG[0]) and not args.first_leg_only:
+                name, label = SPEC_LEG
+                launches, stats[label] = run_spec_phase(label)
+                _release_card(torch)
+                for kname, n in launches.items():
+                    if n <= 0 and kname != "flash_prefill_packed":
+                        raise SmokeFailure(f"{kname} never launched in {label}")
+                    if not alone:
+                        records[kname].setdefault("launches_by_leg", {})[label] = n
+                s = stats[label]
+                log(f"{label} on {card}: ms a token alone: plain "
+                    f"{s['plain']['ms_per_token']:.3f}, n-gram "
+                    f"{s['ngram']['ms_per_token']:.3f}, draft "
+                    f"{s['draft']['ms_per_token']:.3f}; tokens a target forward: "
+                    f"n-gram {s['ngram']['tokens_per_target_forward']:.3f}, draft "
+                    f"{s['draft']['tokens_per_target_forward']:.3f}")
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

@@ -19,15 +19,18 @@ only what the host changed; the synchronous loop copies every field).
 On one card (``capture=True``) each key — K, the sampler's gates and
 whether penalty state is live — is captured once: first one eager
 warm-up on a side stream with every row inactive (inactive rows write
-only the null page, and the kernels' first workspace use then happens
-outside capture, as they demand), then the capture, into one memory
-pool that every window of the engine shares; from then on a call is one
-graph launch.  The engine's ``torch.Generator`` is registered with each
-graph, so a replay draws fresh noise, and the warm-up gives back the
-draws it took, so seeded engines reproduce each other.  A capture that
-fails raises; nothing falls back to eager.  Without capture (the CPU,
-or a tensor-parallel engine, one process over several devices) the same
-body runs eagerly on the same buffers.
+only the null page and keep their sampling keys, and the kernels' first
+workspace use then happens outside capture, as they demand), then the
+capture, into one memory pool that every graph of the engine shares;
+from then on a call is one graph launch.  Random draws come from the
+per-row keys of the sampler's state, a device buffer that a replay
+reads and advances in place, so no generator is registered with a
+graph.  A capture that fails raises; nothing falls back to eager.
+Without capture (the CPU, or a tensor-parallel engine, one process over
+several devices) the same body runs eagerly on the same buffers.
+:func:`capture_graph` is the capture itself, shared with the
+speculative verify window and the draft's proposal scan
+(``engine.spec``).
 
 The body is whatever the engine's step runs: an MLA model's step (the
 latent page writes, int8 ones included, the gather over the full-width
@@ -148,57 +151,88 @@ def graph_nodes(raw_graph: int) -> dict[str, int]:
     return dict(kinds)
 
 
+def capture_graph(body: Callable[[], None], device: torch.device, pool,
+                  side: torch.cuda.Stream, neutral: Callable[[], Callable[[], None]]
+                  ) -> tuple[torch.cuda.CUDAGraph, dict, dict, int]:
+    """Capture ``body`` (which reads and writes only static buffers) as
+    one CUDA graph in ``pool``, on the stream ``side``.  ``neutral()``
+    first sets the body's inputs to a harmless state (rows inactive: they
+    write only the null page and draw nothing) and returns the function
+    that restores them; one eager warm-up runs in that state, so every
+    kernel's first workspace use happens outside capture.  Returns the
+    instantiated graph, the wrapper launches one replay makes (taken back
+    from the counters: a capture runs nothing), the graph's nodes by type
+    and how many bytes the pool grew."""
+    cur = torch.cuda.current_stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        restore = neutral()
+        body()                                     # the warm-up
+    # a graph the collector frees during capture (an engine dropped
+    # earlier) would invalidate it: collect now, not during capture
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = launch_counts()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=side,
+                              capture_error_mode="thread_local"):
+            body()
+    finally:
+        if collecting:
+            gc.enable()
+    launches = {k: n - before[k] for k, n in launch_counts().items()
+                if n != before[k]}
+    _add_launches(launches, -1)                    # capture runs nothing
+    nodes = graph_nodes(graph.raw_cuda_graph())
+    graph.instantiate()
+    with torch.cuda.stream(side):
+        restore()
+    cur.wait_stream(side)
+    return graph, launches, nodes, max(0, torch.cuda.memory_reserved(device) - reserved)
+
+
 @dataclass
 class _Graph:
     graph: torch.cuda.CUDAGraph
-    out: tuple                       # static [K, S] tokens, active, logprobs
+    out: Optional[tuple]             # the body's static outputs
     launches: dict                   # wrapper launches one replay makes
     nodes: dict                      # the graph's nodes by type
+    replays: int = 0
 
 
-class DecodeWindow:
-    """Static decode inputs and outputs, and the engine's captured
-    windows.
+class StaticGraphs:
+    """Static device inputs, refreshed in place, and the graphs that read
+    them, each captured once per key and replayed (on a card); without
+    capture a caller runs its body eagerly over the same buffers.
 
-    ``step(tok, pos, page_tables, act) -> (next, logprob)`` is one model
-    step with sampling (the engine's); ``batch`` rows, page tables of
-    ``pages_per_seq`` columns, a stop matrix of ``stop_width`` ids.
-    ``capture`` (a card only) captures each key once and replays it;
-    otherwise :meth:`run` runs the body eagerly.  ``counters`` (the
-    engine's) gains ``decode_graph_captures_total`` and
-    ``decode_graph_replays_total``."""
+    ``inputs`` maps names to the device tensors; ``name`` prefixes the
+    two counters it keeps in ``counters`` (the engine's):
+    ``<name>_captures_total`` and ``<name>_replays_total``.  ``pool`` is
+    the graph memory pool to capture into (a new one when None); the
+    engine's graphs share one."""
 
-    def __init__(self, step: Callable, batch: int, pages_per_seq: int,
-                 stop_width: int, device: torch.device, generator: torch.Generator,
-                 capture: bool, counters: dict):
+    def __init__(self, inputs: dict, device: torch.device, capture: bool,
+                 counters: dict, name: str, pool=None):
         if capture and device.type != "cuda":
             raise ValueError(f"CUDA graphs need a card, got {device}")
-        self.step, self.device, self.generator = step, device, generator
-        self.capture, self.counters = capture, counters
-        S = batch
-
-        def full(shape, dtype, fill):
-            return torch.full(shape, fill, dtype=dtype, device=device)
-
-        self.inputs = {
-            "last_tokens": full((S,), torch.int32, 0),
-            "positions": full((S,), torch.int32, 0),
-            "active": full((S,), torch.bool, False),
-            "left": full((S,), torch.int32, 0),
-            "page_tables": full((S, pages_per_seq), torch.int32, 0),
-            "stop": full((S, stop_width), torch.int32, -1),
-        }
+        self.inputs, self.device = inputs, device
+        self.capture, self.counters, self.name = capture, counters, name
         self._cuda = device.type == "cuda"
         self._stage = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=self._cuda)
-                       for k, v in self.inputs.items()}
+                       for k, v in inputs.items()}
         self._staged: Optional[torch.cuda.Event] = None
-        self._eager: dict[int, tuple] = {}
         self.graphs: dict[tuple, _Graph] = {}
-        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self.pool = (pool if pool is not None else torch.cuda.graph_pool_handle()) \
+            if capture else None
         self._side = torch.cuda.Stream(device) if capture else None
         self.pool_bytes = 0
-        counters.setdefault("decode_graph_captures_total", 0)
-        counters.setdefault("decode_graph_replays_total", 0)
+        counters.setdefault(f"{name}_captures_total", 0)
+        counters.setdefault(f"{name}_replays_total", 0)
 
     def upload(self, arrays: dict[str, np.ndarray]) -> int:
         """Copy host arrays into the named inputs, behind the stream's
@@ -216,6 +250,71 @@ class DecodeWindow:
             self._staged = torch.cuda.Event()
             self._staged.record(torch.cuda.current_stream(self.device))
         return len(arrays)
+
+    def replay(self, key: tuple, make: Callable) -> _Graph:
+        """Replay the graph of ``key``, capturing it first: ``make()``
+        gives (body, neutral, out) — the body over the static buffers,
+        :func:`capture_graph`'s ``neutral`` and the body's static
+        outputs, which the returned record keeps."""
+        g = self.graphs.get(key)
+        if g is None:
+            body, neutral, out = make()
+            graph, launches, nodes, grown = capture_graph(
+                body, self.device, self.pool, self._side, neutral)
+            self.pool_bytes += grown
+            self.counters[f"{self.name}_captures_total"] += 1
+            logger.info("captured %s %s: %d kernel nodes (%s), wrapper kernels "
+                        "%s; graph pool %.1f MiB", self.name, key, nodes["kernel"],
+                        nodes, _named(launches), self.pool_bytes / 2**20)
+            g = self.graphs[key] = _Graph(graph, out, launches, nodes)
+        g.graph.replay()
+        _add_launches(g.launches)
+        g.replays += 1
+        self.counters[f"{self.name}_replays_total"] += 1
+        return g
+
+    def stats(self) -> dict:
+        """Captures, replays, the pool's growth and each graph's key,
+        node counts and wrapper kernels."""
+        return dict(
+            captures=self.counters[f"{self.name}_captures_total"],
+            replays=self.counters[f"{self.name}_replays_total"],
+            pool_bytes=self.pool_bytes,
+            graphs=[dict(key=repr(key), nodes=g.nodes, launches=_named(g.launches),
+                         replays=g.replays)
+                    for key, g in self.graphs.items()])
+
+
+class DecodeWindow(StaticGraphs):
+    """Static decode inputs and outputs, and the engine's captured
+    windows.
+
+    ``step(tok, pos, page_tables, act) -> (next, logprob)`` is one model
+    step with sampling (the engine's); ``batch`` rows, page tables of
+    ``pages_per_seq`` columns, a stop matrix of ``stop_width`` ids.
+    ``capture`` (a card only) captures each key once and replays it;
+    otherwise :meth:`run` runs the body eagerly.  ``counters`` (the
+    engine's) gains ``decode_graph_captures_total`` and
+    ``decode_graph_replays_total``."""
+
+    def __init__(self, step: Callable, batch: int, pages_per_seq: int,
+                 stop_width: int, device: torch.device, capture: bool,
+                 counters: dict):
+        S = batch
+
+        def full(shape, dtype, fill):
+            return torch.full(shape, fill, dtype=dtype, device=device)
+
+        super().__init__({
+            "last_tokens": full((S,), torch.int32, 0),
+            "positions": full((S,), torch.int32, 0),
+            "active": full((S,), torch.bool, False),
+            "left": full((S,), torch.int32, 0),
+            "page_tables": full((S, pages_per_seq), torch.int32, 0),
+            "stop": full((S, stop_width), torch.int32, -1),
+        }, device, capture, counters, "decode_graph")
+        self.step = step
+        self._eager: dict[int, tuple] = {}
 
     def _outputs(self, K: int) -> tuple:
         S = self.inputs["active"].shape[0]
@@ -241,58 +340,19 @@ class DecodeWindow:
                 out = self._eager[K] = self._outputs(K)
             self._body(K, out)
             return out
-        g = self.graphs.get((K, key))
-        if g is None:
-            g = self.graphs[(K, key)] = self._capture(K, key)
-        g.graph.replay()
-        _add_launches(g.launches)
-        self.counters["decode_graph_replays_total"] += 1
-        return g.out
 
-    def _capture(self, K: int, key: tuple) -> _Graph:
-        dev, side = self.device, self._side
-        cur = torch.cuda.current_stream(dev)
-        out = self._outputs(K)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            active = self.inputs["active"].clone()
-            self.inputs["active"].zero_()
-            rng = self.generator.get_state()
-            self._body(K, out)                     # the warm-up
-            self.generator.set_state(rng)
-        # a graph the collector frees during capture (an engine dropped
-        # earlier) would invalidate it: collect now, not during capture
-        gc.collect()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(self.generator)
-        before = launch_counts()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                                  capture_error_mode="thread_local"):
-                self._body(K, out)
-        finally:
-            if collecting:
-                gc.enable()
-        launches = {k: n - before[k] for k, n in launch_counts().items()
-                    if n != before[k]}
-        _add_launches(launches, -1)                # capture runs nothing
-        nodes = graph_nodes(graph.raw_cuda_graph())
-        graph.instantiate()
-        with torch.cuda.stream(side):
-            self.inputs["active"].copy_(active)
-        cur.wait_stream(side)
-        self.pool_bytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
-        self.counters["decode_graph_captures_total"] += 1
-        logger.info("captured decode window K=%d key=%s: %d kernel nodes (%s), "
-                    "wrapper kernels %s; decode graph pool %.1f MiB",
-                    K, key, nodes["kernel"], nodes, _named(launches),
-                    self.pool_bytes / 2**20)
-        return _Graph(graph, out, launches, nodes)
+        def make():
+            out = self._outputs(K)
+            act = self.inputs["active"]
+
+            def neutral():
+                saved = act.clone()
+                act.zero_()
+                return lambda: act.copy_(saved)
+
+            return (lambda: self._body(K, out)), neutral, out
+
+        return self.replay((K, key), make).out
 
     def stats(self) -> dict:
         """Captures, replays, the pool's size and each graph's K, key,

@@ -57,8 +57,16 @@ KAITO_ITL) stamps each token as the host retires it into
 ``kaito:inter_token_latency_seconds``.  Prompt scoring
 (:meth:`InferenceEngine.score_prompt`, the ``echo`` contract) runs on
 the engine thread between steps, never from a caller's thread.
+Speculative decoding (``speculative_ngram``, ``speculative_draft``,
+``engine.spec``) verifies a window of proposed tokens per slot in one
+target forward, a captured graph on one card: the n-gram proposer's
+greedy rows by prefix match, the draft model's (greedy and
+pure-temperature rows) by Leviathan rejection sampling, with the
+adaptive depth controller and its fallback ladder.  A request's ``seed``
+(else its request count) keys its slot's draws: sampled requests
+reproduce, and draw the JAX engine's tokens.
 Not ported yet, and rejected at construction with the ROADMAP item that
-carries them: speculation, adapters, pipeline, data,
+carries them: adapters, pipeline, data,
 sequence and expert parallelism, the KV pool, host offload and P/D, and
 the device profiler.
 """
@@ -92,6 +100,8 @@ from kaito_tpu_torch.engine.prefix_cache import PrefixCache
 from kaito_tpu_torch.engine.qos import DEFAULT_TENANT, parse_qos_config
 from kaito_tpu_torch.engine.quant import QUANT_SCHEMES, supports_quantization
 from kaito_tpu_torch.engine.sampler import SamplingState, chosen_logprob, sample
+from kaito_tpu_torch.engine.spec import (DepthController, DraftRunner, NgramIndex,
+                                         VerifyWindow, width_bucket)
 from kaito_tpu_torch.engine.tokenizer import load_tokenizer
 from kaito_tpu_torch.models.metadata import ModelMetadata
 from kaito_tpu_torch.models.registry import get_model_by_name
@@ -123,8 +133,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 # (config field, value counts as "on", ROADMAP item that ports it)
 _UNPORTED = (
-    ("speculative_ngram", bool, "queue 1, M14 speculation"),
-    ("speculative_draft", bool, "queue 1, M14 speculation"),
     ("adapters_dir", bool, "queue 1, M16 multi-LoRA"),
     ("adapter_slots", bool, "queue 1, M16 multi-LoRA"),
     ("kv_pool_enabled", bool, "queue 1, M18 KV movement"),
@@ -429,6 +437,14 @@ class InferenceEngine:
             logger.info("MoE: %d experts, top-%d, expert products %s",
                         arch.num_experts, arch.num_experts_per_tok,
                         self.model.moe_impl)
+        # draft-model speculation: the draft's weights and page pool are
+        # resident before the target's pool is sized from what is free
+        self.spec_draft: Optional[DraftRunner] = None
+        self.spec_ctl: Optional[DepthController] = None
+        self._ngram_idx: dict[int, NgramIndex] = {}
+        if cfg.speculative_draft:
+            self.spec_draft = DraftRunner(self)
+            self.spec_ctl = DepthController(cfg.max_num_seqs, cfg.speculative_draft_k)
 
         self.sizing_report: dict = {}
         num_pages = cfg.max_pages or self._derive_max_pages()
@@ -510,6 +526,15 @@ class InferenceEngine:
             "prefix_cache_misses_total": 0,
             "requests_expired_total": 0,
             "requests_shed_total": 0,       # 429s (bumped by the server)
+            # speculation: the three spec_* totals are the n-gram
+            # proposer's, the spec_draft_* ones the draft model's
+            "spec_steps_total": 0,
+            "spec_proposed_tokens_total": 0,
+            "spec_accepted_tokens_total": 0,
+            "spec_draft_steps_total": 0,
+            "spec_draft_rows_total": 0,
+            "spec_draft_proposed_tokens_total": 0,
+            "spec_draft_accepted_tokens_total": 0,
         }
         # tracing + flight recorder: bounded, always on, host clocks
         # only — recording is a deque append, scrapes snapshot.  The
@@ -564,12 +589,24 @@ class InferenceEngine:
         if not _eager_decode:
             capture = self.mesh is None and self.device.type == "cuda"
             self.window = DecodeWindow(self._decode_step, S, self.pages_per_seq,
-                                       _STOP_WIDTH, self.device,
-                                       self.sampling.generator, capture,
+                                       _STOP_WIDTH, self.device, capture,
                                        self.counters)
             if self.mesh is not None:
                 logger.info("tensor parallel: decode windows run eagerly, not as "
                             "CUDA graphs (ROADMAP item 35)")
+        # the verify window (and the draft's scan) share the decode
+        # window's graph pool; they capture where it does
+        self.spec_verify: Optional[VerifyWindow] = None
+        if cfg.speculative_ngram > 0 or self.spec_draft is not None:
+            W = cfg.speculative_ngram + 1
+            if self.spec_draft is not None:
+                W = max(cfg.speculative_draft_k, cfg.speculative_ngram) + 1
+            capture = self.window is not None and self.window.capture
+            pool = self.window.pool if capture else None
+            B = cfg.speculative_max_batch
+            if self.spec_draft is not None:
+                self.spec_draft.attach(B, W, capture, pool)
+            self.spec_verify = VerifyWindow(self, B, W, capture, pool, self.spec_draft)
         # two host copies of window traces: one in flight, one retiring
         self._readbacks = (TraceReadback(self.device), TraceReadback(self.device))
         self._windows = 0
@@ -1070,6 +1107,14 @@ class InferenceEngine:
         if sp.temperature > 0.0 or sp.top_k > 0 or sp.top_p < 1.0 \
                 or sp.min_p > 0.0 or sp.has_penalties:
             self.sampling.reset_slot(slot_idx)
+        # speculation state is per slot: draft pages and position return
+        # to the draft pool, the depth controller restarts, and the
+        # n-gram index drops (rebuilt from resume_tokens on re-admission)
+        if self.spec_draft is not None:
+            self.spec_draft.release_slot(slot_idx)
+        if self.spec_ctl is not None:
+            self.spec_ctl.reset(slot_idx)
+        self._ngram_idx.pop(slot_idx, None)
         self.slots[slot_idx] = _Slot()
         self.active[slot_idx] = False
         self._remaining[slot_idx] = 0
@@ -1138,15 +1183,17 @@ class InferenceEngine:
         decoding = bool(self.active.any())
         steps_run = 0
         if decoding:
-            # recompute after admission: ensure-pages may have preempted
-            la2 = self._decode_lookahead()
-            if la2 > 1:
-                if did or la2 > la:
-                    self._ensure_decode_pages(la2)
-                self._decode_multi(la2)
-            else:
-                self._decode_once()
-            steps_run = la2
+            steps_run = self._decode_speculative() if self._spec_ok() else 0
+            if not steps_run:
+                # recompute after admission: ensure-pages may have preempted
+                la2 = self._decode_lookahead()
+                if la2 > 1:
+                    if did or la2 > la:
+                        self._ensure_decode_pages(la2)
+                    self._decode_multi(la2)
+                else:
+                    self._decode_once()
+                steps_run = la2
             did = True
         # prefill cadence counts DECODE STEPS, not iterations
         self._decode_since_prefill += steps_run
@@ -1252,10 +1299,15 @@ class InferenceEngine:
             self.counters["prefix_cache_hits_total" if cached
                           else "prefix_cache_misses_total"] += 1
         p = req.params
+        # the slot's keys: the request's seed, else its request count
+        seed = p.seed or self.counters["requests_total"]
         self.sampling.set_slot(free_slot, temperature=p.temperature, top_k=p.top_k,
                                top_p=p.top_p, presence=p.presence_penalty,
                                frequency=p.frequency_penalty,
-                               repetition=p.repetition_penalty, min_p=p.min_p)
+                               repetition=p.repetition_penalty, min_p=p.min_p,
+                               seed=seed)
+        if self.spec_draft is not None:
+            self.spec_draft.reseed(free_slot, seed)
         if p.has_penalties:
             self._ensure_penalty_state()
             V = self.md.arch.vocab_size
@@ -1483,6 +1535,9 @@ class InferenceEngine:
             sel = self._tensor(np.asarray(idxs, np.int64))
             counts, seen = self.token_counts[sel], self.prompt_seen[sel]
         tok = sample(logits, sub, counts, seen)
+        if sub.gates()[0]:
+            # a draw split the selected rows' keys
+            self.sampling.scatter_keys(idxs, sub)
         lps = chosen_logprob(logits, tok)
         return tok.cpu().tolist(), lps.cpu().tolist()
 
@@ -1618,7 +1673,8 @@ class InferenceEngine:
     def _decode_step(self, tok, pos, pt, act):
         """One model step + sampling on the device; (next, logprob)."""
         self.cache, logits = self.model.decode(self.cache, tok, pos, pt, act)
-        nxt = sample(logits, self.sampling, self.token_counts, self.prompt_seen)
+        nxt = sample(logits, self.sampling, self.token_counts, self.prompt_seen,
+                     active=act)
         lp = chosen_logprob(logits, nxt)
         if self.token_counts is not None:
             rows = torch.arange(nxt.shape[0], device=self.device)
@@ -1857,7 +1913,13 @@ class InferenceEngine:
                 self._decode_once()
                 self._mark_state_dirty()
                 steps_run = 1
-            elif self.active.any():
+            elif self._spec_ok():
+                # a verify round depends on the last one's accepted length:
+                # depth one, from the reconciled host mirrors
+                self._drain_pipeline()
+                steps_run = self._decode_speculative()
+                self._mark_state_dirty()
+            if not steps_run and self.active.any():
                 la2 = self._decode_lookahead()
                 pend = self._inflight[0] if self._inflight is not None else 0
                 while la2 > 1 and not self._lookahead_fits(la2 + pend):
@@ -1898,6 +1960,259 @@ class InferenceEngine:
                 self._emit(i, tk[i], logprob=lk[i])
                 self.last_tokens[i] = tk[i]
 
+    # ------------------------------------------------------------------
+    # Speculative decoding
+    # ------------------------------------------------------------------
+
+    def _spec_ok(self) -> bool:
+        """Speculate only when it is exact: the engine opted in, and every
+        active slot is greedy (n-gram) or greedy / pure temperature
+        (draft: rejection sampling keeps the target's distribution); no
+        penalties, top-k/top-p/min-p masks or pending aborts, which
+        change the distribution mid-window; at most
+        ``speculative_max_batch`` active slots."""
+        if self.spec_verify is None:
+            return False
+        draft = self.spec_draft is not None
+        n_active = 0
+        for i, s in enumerate(self.slots):
+            if s.request is None or not self.active[i]:
+                continue
+            n_active += 1
+            p = s.request.params
+            if p.has_penalties or s.request.aborted:
+                return False
+            if p.temperature > 0.0:
+                if not draft:
+                    return False
+                if p.top_k > 0 or p.top_p < 1.0 or p.min_p > 0.0:
+                    return False
+        return 0 < n_active <= self.cfg.speculative_max_batch
+
+    def _propose(self, slot_idx: int, req: Request) -> list[int]:
+        """Prompt lookup: the tokens that followed the latest earlier
+        occurrence of the sequence's trailing n-gram, from the slot's
+        :class:`NgramIndex` (built once from resume_tokens, appended to
+        by ``_emit``)."""
+        k = self.cfg.speculative_min_match
+        K = self.cfg.speculative_ngram
+        if K <= 0:
+            return []
+        idx = self._ngram_idx.get(slot_idx)
+        if idx is None or idx.k != k:
+            idx = self._ngram_idx[slot_idx] = NgramIndex(k, req.resume_tokens())
+        return idx.propose(K)
+
+    @property
+    def spec_depth(self) -> float:
+        """Mean adaptive speculation depth over active slots (0 when draft
+        speculation is off, idle, or fallen back)."""
+        if self.spec_ctl is None:
+            return 0.0
+        return self.spec_ctl.mean_depth([i for i, s in enumerate(self.slots)
+                                         if s.request is not None and self.active[i]])
+
+    def _verify(self, rows: list[int], windows: list[list[int]], prop_len,
+                draft: Optional[dict] = None) -> tuple:
+        """One verify round over the compact rows (``windows`` the host
+        part of each row's window, ``prop_len`` its proposal length;
+        ``draft`` the draft path's per-row temperature, one-hot flag,
+        draft flag and slot map).  Returns the window's (tokens, emitted
+        counts, logprobs) per row."""
+        v = self.spec_verify
+        L, B = v.layout, v.B
+        host = L.host(B)
+        toks = np.zeros((B, v.W), np.int32)
+        sp = np.zeros((B,), np.int32)
+        pl = np.zeros((B,), np.int32)
+        pt = np.zeros((B, self.pages_per_seq), np.int32)
+        for r, i in enumerate(rows):
+            toks[r, :len(windows[r])] = windows[r]
+            sp[r] = self.slots[i].position
+            pl[r] = prop_len[r]
+            pt[r] = self.page_tables[i]
+        tl = np.where(np.arange(B) < len(rows), pl + 1, 0).astype(np.int32)
+        for name, a in (("tokens", toks), ("true_lens", tl), ("start_pos", sp),
+                        ("prop_len", pl), ("page_tables", pt)):
+            L.put(host, name, a)
+        any_random = False
+        if draft is not None:
+            L.put(host, "temperature", draft["temps"])
+            L.put(host, "onehot", draft["onehot"].astype(np.int32))
+            L.put(host, "use_draft", draft["use_draft"].astype(np.int32))
+            L.put(host, "slot", np.where(draft["slot_map"] >= 0, draft["slot_map"],
+                                         self.spec_draft.spare))
+            any_random = bool(np.any(draft["temps"] > 0.0))
+        pages = -(-int((sp + tl).max()) // self.cfg.page_size)
+        return v.run(host, width_bucket(pages, self.pages_per_seq), any_random)
+
+    def _emit_window(self, i: int, tokens: list[int], lps: list[float]) -> None:
+        """Emit a verify window's tokens for slot ``i``; a slot retired
+        mid-window (stop, budget, abort, deadline) emits no more."""
+        slot = self.slots[i]
+        for j, t in enumerate(tokens):
+            if self.slots[i] is not slot:
+                break           # _emit retired it (eviction replaces the slot)
+            self.positions[i] += 1
+            slot.position += 1
+            self._emit(i, t, logprob=lps[j])
+            self.last_tokens[i] = t
+
+    def _decode_speculative(self) -> int:
+        """One verify round over a compact batch of the speculating slots
+        (padded to ``speculative_max_batch``, so one graph serves every
+        round).  Every covered slot advances by its accepted proposal
+        prefix plus one bonus token.  Returns the most tokens any slot
+        emitted (the prefill cadence's clock), or 0 when speculation
+        should not run this step (no proposal anywhere, or the page pool
+        cannot fund the window without preempting): the caller then
+        decodes plainly."""
+        if self.spec_draft is not None:
+            return self._decode_speculative_draft()
+        W = self.cfg.speculative_ngram + 1
+        rows: list[int] = []
+        proposals: list[list[int]] = []
+        for i, slot in enumerate(self.slots):
+            if slot.request is None or not self.active[i]:
+                continue
+            # never speculate past the budget
+            rows.append(i)
+            proposals.append(self._propose(i, slot.request)[:max(0, slot.remaining - 1)])
+        if not any(proposals):
+            return 0
+        if not self._lookahead_fits(W):
+            # speculative pages never preempt a running sequence
+            return 0
+        self._ensure_decode_pages(W)
+        out, n_emit, lps = self._verify(
+            rows, [[int(self.last_tokens[i])] + p for i, p in zip(rows, proposals)],
+            [len(p) for p in proposals])
+        self.counters["decode_steps_total"] += 1
+        self.counters["spec_steps_total"] += 1
+        max_emitted = 0
+        for r, (i, p) in enumerate(zip(rows, proposals)):
+            if self.slots[i].request is None:
+                continue
+            self.counters["spec_proposed_tokens_total"] += len(p)
+            self.counters["spec_accepted_tokens_total"] += n_emit[r] - 1
+            self._emit_window(i, out[r][:n_emit[r]], lps[r])
+            max_emitted = max(max_emitted, n_emit[r])
+        return max_emitted
+
+    def _decode_speculative_draft(self) -> int:
+        """The draft-model round: every active slot is one row of a single
+        ``[B, W]`` verify window.  Draft-mode rows carry the draft's
+        proposal at the controller's depth; fallback rows an n-gram
+        proposal (one-hot q); rows with nothing to propose ride along as
+        a plain one-token step.  Acceptance is rejection sampling inside
+        the verify graph, so sampled slots speculate too and greedy stays
+        exact.  Returns the most tokens any slot emitted, or 0 to fall
+        through to plain decode (every slot fallen back with no n-gram
+        hit)."""
+        cfg = self.cfg
+        runner, ctl = self.spec_draft, self.spec_ctl
+        W = max(cfg.speculative_draft_k, cfg.speculative_ngram) + 1
+        rows = [i for i, slot in enumerate(self.slots)
+                if slot.request is not None and self.active[i]]
+        if not rows:
+            return 0
+        B = cfg.speculative_max_batch
+        # plan each slot's draft depth (0: no draft proposal this round;
+        # its draft KV may still be catching up)
+        depths: dict[int, int] = {}
+        for i in rows:
+            slot = self.slots[i]
+            depth = 0
+            if ctl.mode(i) == "draft":
+                depth = min(ctl.depth(i), max(0, slot.remaining - 1),
+                            cfg.speculative_draft_k)
+                if depth > 0:
+                    pos = slot.position
+                    if not (runner.sync(i, pos, slot.request.resume_tokens)
+                            and runner.ensure_pages(i, pos + depth)):
+                        depth = 0     # mid catch-up: a plain step this round
+            depths[i] = depth
+        k_exec = max(depths.values())
+        if k_exec > 0:
+            # power-of-two scan lengths, clamped to the window's W - 1
+            k_exec = min(1 << (k_exec - 1).bit_length(), W - 1)
+            # the scan writes k_exec draft positions for every drafting
+            # row: a slot that cannot hold them rides along plainly
+            for i in rows:
+                if depths[i] > 0 and not runner.ensure_pages(
+                        i, self.slots[i].position + k_exec):
+                    depths[i] = 0
+            if not any(depths[i] > 0 for i in rows):
+                k_exec = 0
+        # n-gram proposals of the fallback rows
+        proposals: dict[int, list[int]] = {}
+        for i in rows:
+            p: list[int] = []
+            if depths[i] == 0 and ctl.mode(i) == "ngram":
+                if cfg.speculative_ngram > 0:
+                    slot = self.slots[i]
+                    p = self._propose(i, slot.request)[:max(0, min(slot.remaining - 1,
+                                                                   W - 1))]
+                # probation ticks whether or not the n-gram proposer is on:
+                # it is what re-arms the draft
+                ctl.note_fallback_round(i)
+            proposals[i] = p
+        if k_exec == 0 and not any(proposals.values()):
+            return 0              # plain decode: nothing to verify
+        if not self._lookahead_fits(W):
+            return 0              # speculative pages never preempt
+        self._ensure_decode_pages(W)
+
+        slot_map = np.full((B,), -1, np.int64)
+        temps = np.zeros((B,), np.float32)
+        onehot = np.ones((B,), bool)
+        draft_rows = np.zeros((B,), bool)
+        last = np.zeros((B,), np.int32)
+        sp = np.zeros((B,), np.int32)
+        for r, i in enumerate(rows):
+            slot = self.slots[i]
+            slot_map[r] = i
+            sp[r] = slot.position
+            temps[r] = slot.request.params.temperature
+            last[r] = int(self.last_tokens[i])
+            draft_rows[r] = depths[i] > 0
+            # draft rows verify against the draft's q; n-gram and empty
+            # rows are deterministic proposers (one-hot q)
+            onehot[r] = depths[i] <= 0
+        if k_exec > 0:
+            runner.propose(slot_map, last, sp, temps, draft_rows, k_exec)
+        prop_len = [depths[i] if depths[i] > 0 else len(proposals[i]) for i in rows]
+        out, n_emit, lps = self._verify(
+            rows, [[int(last[r])] + proposals[i] for r, i in enumerate(rows)],
+            prop_len, dict(temps=temps, onehot=onehot, use_draft=draft_rows,
+                           slot_map=slot_map))
+        self.counters["decode_steps_total"] += 1
+        self.counters["spec_steps_total"] += 1
+        if k_exec > 0:
+            self.counters["spec_draft_steps_total"] += 1
+        max_emitted = 0
+        for r, i in enumerate(rows):
+            slot = self.slots[i]
+            if slot.request is None:
+                continue
+            a = n_emit[r] - 1       # the accepted proposal prefix
+            if depths[i] > 0:
+                self.counters["spec_draft_rows_total"] += 1
+                self.counters["spec_draft_proposed_tokens_total"] += prop_len[r]
+                self.counters["spec_draft_accepted_tokens_total"] += a
+                ctl.observe(i, prop_len[r], a)
+            elif prop_len[r]:
+                self.counters["spec_proposed_tokens_total"] += prop_len[r]
+                self.counters["spec_accepted_tokens_total"] += a
+            self._emit_window(i, out[r][:n_emit[r]], lps[r])
+            if self.slots[i] is slot and depths[i] > 0:
+                # the scan wrote draft KV at sp .. sp + k_exec - 1: after a
+                # full accept the new position is one past it, which the
+                # next round's sync backfills
+                runner.commit(i, min(slot.position, int(sp[r]) + k_exec))
+            max_emitted = max(max_emitted, n_emit[r])
+        return max_emitted
+
     def _stop_set(self, req: Request) -> set:
         stop_ids = set(req.params.stop_token_ids)
         eos = self.tokenizer.eos_token_id
@@ -1925,6 +2240,9 @@ class InferenceEngine:
                 if obs is not None:
                     obs(gap, req.tenant)
         req.output_tokens.append(token)
+        ngram_idx = self._ngram_idx.get(slot_idx)
+        if ngram_idx is not None:
+            ngram_idx.append(token)
         if req.params.logprobs:
             req.output_logprobs.append(logprob)
         slot.remaining -= 1

@@ -238,7 +238,7 @@ def _counter_fn(engine, key: str):
 class EngineMetrics:
     """The engine's metric families (names mirror vLLM's so the KEDA
     scaler/EPP configs translate 1:1).  The features the port has not
-    ported yet (the host KV tier, speculation, P/D) keep their families
+    ported yet (the host KV tier, P/D) keep their families
     at the values the JAX server reads with them off: the engine's
     counters, absent until a later slice adds them, read 0.  The
     per-tenant families exist only with a QoS config (``qos``), the ITL
@@ -397,17 +397,23 @@ class EngineMetrics:
                  "Engine-fatal failures (every in-flight request failed)",
                  "engine_fatal_total")):
             Gauge(f"kaito:{name}", help_, r, fn=_counter_fn(engine, key))
-        # speculative decoding (ROADMAP M14) is not ported: proposed and
-        # accepted read 0 for both proposer modes, the depth 0
-        for name, help_ in (
-                ("spec_proposed_tokens_total", "Speculative tokens proposed"),
-                ("spec_accepted_tokens_total",
-                 "Speculative tokens accepted by the target")):
-            Gauge(f"kaito:{name}", help_, r, labels=("mode",),
-                  fn=lambda: {("ngram",): 0, ("draft",): 0})
+        # speculative decoding: the proposer-mode label splits the n-gram
+        # and draft-model paths (accept rate per mode is a direct ratio);
+        # the depth is the controller's mean over active slots
+        def per_mode(ngram: str, draft: str):
+            return lambda: {("ngram",): engine.counters.get(ngram, 0),
+                            ("draft",): engine.counters.get(draft, 0)}
+
+        Gauge("kaito:spec_proposed_tokens_total", "Speculative tokens proposed", r,
+              labels=("mode",), fn=per_mode("spec_proposed_tokens_total",
+                                            "spec_draft_proposed_tokens_total"))
+        Gauge("kaito:spec_accepted_tokens_total",
+              "Speculative tokens accepted by the target", r, labels=("mode",),
+              fn=per_mode("spec_accepted_tokens_total",
+                          "spec_draft_accepted_tokens_total"))
         Gauge("kaito:spec_depth",
               "Mean adaptive speculation depth over active slots", r,
-              fn=lambda: 0.0)
+              fn=lambda: engine.spec_depth)
         # the P/D cost model's live constants (ROADMAP M18): 0 until the
         # first observed transfer / prefill provides a sample
         Gauge("kaito:pd_measured_net_bytes_s",

@@ -937,6 +937,33 @@ class TransformerLM(tnn.Module):
                                 last_idx)
         return cache, self._logits(last), last
 
+    def verify_window_logits(self, cache: KVCache, tokens, true_lens, page_tables,
+                             start_pos):
+        """Speculative verification forward
+        (``kaito_tpu.engine.model.TransformerLM.verify_window_logits``):
+        a window of proposed tokens through the chunked-prefill path
+        (paged history + causal window attention, KV written in place),
+        and the fp32 logits at EVERY window position.  tokens: [B, W]
+        (the last emitted token, then the proposal, padded); true_lens:
+        [B] valid window tokens (0 skips a row: its writes go to the null
+        page); start_pos: [B] absolute position of the window start.
+        ``page_tables`` are passed whole: nothing here reads a length
+        back to the host, so a CUDA graph can hold the call.  Returns
+        (cache, logits [B, W, V] fp32)."""
+        x, kw = self._prefill_in(tokens, true_lens, page_tables, start_pos)
+        x = self._norm(self._run_layers(cache, x, "prefill", **kw), self.top,
+                       "final_norm")
+        return cache, self._logits(x)
+
+    def verify_window(self, cache: KVCache, tokens, true_lens, page_tables,
+                      start_pos):
+        """Greedy verification (the n-gram path): the greedy next token
+        and its model logprob at every window position.  Returns (cache,
+        targets [B, W] int32, lps [B, W] fp32)."""
+        cache, logits = self.verify_window_logits(cache, tokens, true_lens,
+                                                  page_tables, start_pos)
+        return (cache,) + greedy_targets(logits)
+
     def decode(self, cache: KVCache, tokens, positions, page_tables,
                active=None):
         """One decode step.  tokens: [B] last sampled token; positions:
@@ -960,6 +987,15 @@ class TransformerLM(tnn.Module):
         x = self._run_layers(None, x, "score", **kw)[0]
         return _score_logprobs(tokens[0], lambda a, b: self._logits(
             self._norm(x[a:b], self.top, "final_norm")))
+
+
+def greedy_targets(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The argmax of fp32 logits [B, W, V] and its logprob under the
+    unmodified distribution: (targets [B, W] int32, lps [B, W] fp32)."""
+    B, W, V = logits.shape
+    targets = torch.argmax(logits, dim=-1).to(torch.int32)
+    lps = chosen_logprob(logits.reshape(B * W, V), targets.reshape(B * W))
+    return targets, lps.reshape(B, W)
 
 
 def _score_logprobs(tokens, logits_of) -> torch.Tensor:
@@ -1150,6 +1186,19 @@ class TensorParallelLM:
         xs = self._run_layers(caches, ins, "prefill_packed")
         lasts = self._each_out("_packed_out", xs, last_idx)
         return caches, self._logits(lasts), lasts[0]
+
+    def verify_window_logits(self, caches: list, tokens, true_lens, page_tables,
+                             start_pos):
+        ins = self._each("_prefill_in", tokens, true_lens, page_tables, start_pos)
+        xs = self._run_layers(caches, ins, "prefill")
+        return caches, self._logits([m._norm(x, m.top, "final_norm")
+                                     for m, x in zip(self.shards, xs)])
+
+    def verify_window(self, caches: list, tokens, true_lens, page_tables,
+                      start_pos):
+        caches, logits = self.verify_window_logits(caches, tokens, true_lens,
+                                                   page_tables, start_pos)
+        return (caches,) + greedy_targets(logits)
 
     def decode(self, caches: list, tokens, positions, page_tables, active=None):
         ins = self._each("_decode_in", tokens, positions, page_tables, active)

@@ -62,6 +62,7 @@ from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
 from kaito_tpu_torch.engine.metrics import EngineMetrics, Gauge
 from kaito_tpu_torch.engine.qos import valid_tenant
 from kaito_tpu_torch.engine.rate_limit import RateLimiter
+from kaito_tpu_torch.models.registry import get_model_by_name, resolve_speculative_draft
 from kaito_tpu_torch.runtime.slo import SLOTargets, SLOWatchdog, engine_chip_count
 from kaito_tpu_torch.utils.tracing import (chrome_trace, make_request_id,
                                            parse_traceparent, sanitize_request_id)
@@ -704,6 +705,25 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
     ap.add_argument("--max-pages", type=int, default=0,
                     help="KV page-pool size (0 = size from free device memory)")
     ap.add_argument("--max-prefill-tokens", type=int, default=512)
+    ap.add_argument("--speculative-ngram", type=int,
+                    default=int(os.environ.get("KAITO_SPEC_NGRAM", "0")),
+                    help="prompt-lookup speculative decoding: propose up to N "
+                         "tokens per step (0 = off; exact greedy equivalence)")
+    ap.add_argument("--speculative-draft",
+                    default=os.environ.get("KAITO_SPEC_DRAFT", ""),
+                    help="draft preset for two-model speculative decoding, or "
+                         "'auto' for the model's curated pairing (must share the "
+                         "target's tokenizer; '' = off).  Greedy output stays "
+                         "exact; sampled output keeps the target's distribution "
+                         "(rejection sampling)")
+    ap.add_argument("--speculative-draft-k", type=int,
+                    default=int(os.environ.get("KAITO_SPEC_DRAFT_K", "4")),
+                    help="max adaptive speculation depth per slot (the "
+                         "accept-rate controller moves within [1, K] and falls "
+                         "back to n-gram, then plain decode, on poor acceptance)")
+    ap.add_argument("--speculative-draft-weights-dir",
+                    default=os.environ.get("KAITO_SPEC_DRAFT_WEIGHTS", ""),
+                    help="safetensors dir for the draft's weights ('' = synthetic)")
     ap.add_argument("--prefill-pack", type=int, default=0,
                     help="staged sequences per prefill round (0 = auto, up "
                          "to max-num-seqs; 1 = serial round-robin)")
@@ -785,7 +805,13 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         flight_dir=args.flight_dir, flight_max_bundles=args.flight_max_bundles,
         seed=args.seed,
         tensor_parallel=args.tensor_parallel_size, comm_overlap=args.comm_overlap,
-        async_dispatch=args.async_dispatch)
+        async_dispatch=args.async_dispatch,
+        speculative_ngram=args.speculative_ngram,
+        speculative_draft=(resolve_speculative_draft(get_model_by_name(args.model),
+                                                     args.speculative_draft)
+                           if args.speculative_draft else ""),
+        speculative_draft_k=args.speculative_draft_k,
+        speculative_draft_weights_dir=args.speculative_draft_weights_dir)
     return cfg, args
 
 

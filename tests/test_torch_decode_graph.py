@@ -131,7 +131,7 @@ def test_static_buffers_keep_their_storage():
 def test_capture_needs_a_card():
     with pytest.raises(ValueError, match="card"):
         DecodeWindow(lambda *a: None, 2, 4, 8, torch.device("cpu"),
-                     torch.Generator(), capture=True, counters={})
+                     capture=True, counters={})
 
 
 def test_embedding_multiplier_matches_jax():

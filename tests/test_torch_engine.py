@@ -232,8 +232,6 @@ def test_submit_validates_input():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value,item", [
-    ("speculative_ngram", 3, "M14"),
-    ("speculative_draft", "tiny-llama-test", "M14"),
     ("adapters_dir", "/nonexistent", "M16"),
     ("adapter_slots", 2, "M16"),
     ("tensor_parallel", 2, "M19"),
@@ -248,6 +246,21 @@ def test_submit_validates_input():
 def test_unported_gates_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         _mk(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("speculative_ngram", 3),
+    ("speculative_draft", "tiny-llama-test"),
+])
+def test_speculation_gates_build(field, value):
+    """The two M14 gates build an engine that serves: greedy output equal
+    to the plain engine's, through at least one verify round."""
+    eng = _mk(**{field: value})
+    assert eng.spec_verify is not None
+    assert (eng.spec_draft is not None) == (field == "speculative_draft")
+    prompt = [7, 11, 13, 7, 11, 13, 7, 11, 13, 7, 11]
+    assert _run(eng, [prompt], n=12) == _run(_mk(), [prompt], n=12)
+    assert eng.counters["spec_steps_total"] > 0
 
 
 def test_prefix_caching_default_runs_on_the_plain_allocator(caplog):

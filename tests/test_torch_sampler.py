@@ -1,12 +1,12 @@
 """kaito_tpu_torch.engine.sampler against kaito_tpu.engine.sampler.
 
 Greedy tokens, ``chosen_logprob`` and the penalties are held to the JAX
-sampler exactly (fp32 rtol/atol 2e-5 for values).  Sampled draws come
-from a torch generator, not JAX's threefry keys, so they are held by
-distribution: empirical frequencies of many draws against the exact
-masked distribution (tolerance 0.02, about 4 standard errors at
-20000 draws), with the JAX sampler's own draws held to the same
-expectation."""
+sampler exactly (fp32 rtol/atol 2e-5 for values).  Sampled draws are
+held by distribution here: empirical frequencies of many draws against
+the exact masked distribution (tolerance 0.02, about 4 standard errors
+at 20000 draws), with the JAX sampler's own draws held to the same
+expectation (``tests/test_torch_spec.py`` holds the per-row keys and
+draws to the JAX sampler's token for token)."""
 
 import jax
 import jax.numpy as jnp
