@@ -213,6 +213,37 @@ order; any failure exits non-zero and prints no result:
    ms a token of one sequence alone against the plain engine's, the
    card ms of each captured verify graph and of the plain context
    attention at its width, and K1's launches on the draft scan.
+11. Structured output and tool calling (leg ``grammar-bf16``):
+   Llama-3.1-8B at full width in bf16 (phase 4's config with the
+   prefix cache off, so a batch reruns exactly), byte tokenizer, a
+   server over the engine.  No ``kaito:grammar_*`` line on ``/metrics``
+   before the first constrained request, the whole family after it.
+   Over HTTP: a ``json_schema`` of a finite language (enums and a
+   boolean) on chat and completions must ``json.loads``, match and
+   finish ``stop``; a bounded regex must match whole and finish
+   ``stop``; ``json_object`` (unbounded) must open an object and parse
+   where it stops; ``tool_choice: "required"`` and a named function
+   answer ``tool_calls`` whose arguments parse, streamed as deltas that
+   accumulate to them; ``auto`` answers, streamed and not; 400s, 422
+   ``invalid_grammar_error`` for a regex past the state cap and an
+   unsupported schema, 501 for ``kv_transfer``, and 400
+   ``structured_output_disabled`` from a second server over the same
+   engine with ``--no-structured-output``; a seeded constrained sampled
+   request twice gives one answer, another seed another.  Then, on the
+   engine stepped directly: four unconstrained rows beside four
+   constrained ones equal their all-unconstrained run; a constrained
+   request decodes while requests under other grammars go live past the
+   table's capacity, which doubles mid-stream (the old table's graphs
+   dropped, the device table equal to the host's, the output walking
+   its automaton).  Last, n-gram and draft engines on the same weights
+   give the plain engine's constrained greedy batch up to the near-tie
+   rule of phase 10, every verify round and draft scan under the grammar
+   a graph replay.  Phase 5's int4 + int8 KV leg also answers one
+   ``json_schema`` chat (K5 and K1q under a mask).  Logged beside the
+   card: each grammar's compile ms, the table's MiB and upload ms, the
+   kernel nodes and card ms of a constrained K=4 window against an
+   unconstrained one, ms a token of one constrained sequence alone
+   against plain, host calls and device kernels a decode step of each.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -223,7 +254,7 @@ phase 3 and every server leg after phase 4's bf16 one (with
 and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
 ``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
-``spec-bf16``), which
+``spec-bf16``, ``grammar-bf16``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -1800,6 +1831,18 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         log(f"completion + streamed chat ok ({n_chunks} SSE chunks)")
         if label == LEGS[0][1]:
             stats["seed"] = _http_seed_check(base, label)
+        if label == LEGS[1][1]:
+            # K5 and K1q under a grammar mask
+            ch = _g_ok(base, "/v1/chat/completions", dict(
+                messages=_G_CHAT, max_tokens=64, temperature=0.0, response_format={
+                    "type": "json_schema", "json_schema": {"schema": _G_SCHEMA}}),
+                label, "a json_schema chat")
+            if ch["finish_reason"] != "stop" or \
+                    set(json.loads(ch["message"]["content"])) != set(_G_SCHEMA["required"]):
+                raise SmokeFailure(f"{label}: json_schema chat {ch}")
+            stats["constrained"] = ch["message"]["content"]
+            log(f"{label}: a json_schema chat under int4 weights and int8 KV: "
+                f"{stats['constrained']}")
 
         if burst:
             stats.update(_burst(base, engine))
@@ -2065,31 +2108,32 @@ def _api_calls(prof) -> dict:
     return calls
 
 
-def _profiled_request(engine, prompt, n):
+def _profiled_request(engine, prompt, n, grammar=None):
     """(host launch and copy calls, device kernels, decode steps, decode
     windows) of one greedy request of ``n`` tokens straight to the
-    serving engine."""
+    serving engine (under ``grammar`` when given)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     c = engine.counters
     steps0, windows0 = c["decode_steps_total"], c["decode_windows_total"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _timed_tokens(engine, prompt, n)
+        _timed_tokens(engine, prompt, n, grammar)
         torch.cuda.synchronize()
     kernels = sum(r[1] for r in _device_rows(prof))
     return (_api_calls(prof), kernels, c["decode_steps_total"] - steps0,
             c["decode_windows_total"] - windows0)
 
 
-def decode_readings(engine, prompt, label) -> dict:
-    """One sequence's decode as the engine runs it: the host's launch
-    and copy calls a decode step and a decode window, and the device's
-    kernels a step (a profiled 17-token request less a profiled 1-token
-    one, over their 16 decode steps), and, for a captured engine, its
-    captures, graph pool and each graph's kernel nodes."""
-    calls1, k1, s1, w1 = _profiled_request(engine, prompt, 1)
-    calls17, k17, s17, w17 = _profiled_request(engine, prompt, 17)
+def decode_readings(engine, prompt, label, grammar=None) -> dict:
+    """One sequence's decode as the engine runs it (under ``grammar``
+    when given): the host's launch and copy calls a decode step and a
+    decode window, and the device's kernels a step (a profiled 17-token
+    request less a profiled 1-token one, over their 16 decode steps),
+    and, for a captured engine, its captures, graph pool and each
+    graph's kernel nodes."""
+    calls1, k1, s1, w1 = _profiled_request(engine, prompt, 1, grammar)
+    calls17, k17, s17, w17 = _profiled_request(engine, prompt, 17, grammar)
     steps, windows = max(s17 - s1, 1), max(w17 - w1, 1)
     host = {k: calls17.get(k, 0) - calls1.get(k, 0)
             for k in set(calls1) | set(calls17)}
@@ -2323,14 +2367,14 @@ def _profile_prefill(base, warm=False):
     return res
 
 
-def _timed_tokens(engine, prompt: str, n: int) -> list[float]:
-    """Submit one greedy request straight to the serving engine and stamp
-    the host clock as each token is delivered (the moment the server
-    could stream it)."""
+def _timed_tokens(engine, prompt: str, n: int, grammar=None) -> list[float]:
+    """Submit one greedy request (under ``grammar`` when given) straight
+    to the serving engine and stamp the host clock as each token is
+    delivered (the moment the server could stream it)."""
     from kaito_tpu_torch.engine.engine import SamplingParams
 
     req = engine.submit(engine.tokenizer.encode(prompt), SamplingParams(
-        max_tokens=n, temperature=0.0, ignore_eos=True))
+        max_tokens=n, temperature=0.0, ignore_eos=True, grammar=grammar))
     stamps = [time.perf_counter() for _ in req.stream()]
     if len(stamps) != n:
         raise SmokeFailure(f"asked {n} tokens, got {len(stamps)}")
@@ -3103,10 +3147,12 @@ def _verify_ms(engine, label) -> dict:
 
     v = engine.spec_verify
     res = {}
-    for (width, rnd), g in v.graphs.items():
-        res[f"width {width} random {rnd}"] = time_ms(g.graph.replay, iters=10)[0]
+    for (width, rnd, gcap), g in v.graphs.items():
+        grammar = "" if gcap is None else f" grammar {gcap}"
+        res[f"width {width} random {rnd}{grammar}"] = time_ms(g.graph.replay,
+                                                              iters=10)[0]
     m, c, a = engine.model, engine.cache, engine.md.arch
-    width = max(w for w, _ in v.graphs)
+    width = max(w for w, *_ in v.graphs)
     B, W = v.B, v.W
     gen = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn(B, W, a.num_heads, a.head_dim, generator=gen,
@@ -3315,6 +3361,514 @@ def run_spec_phase(label) -> tuple[dict, dict]:
     return launches, stats
 
 
+GRAMMAR_LEG = ("grammar-bf16", "phase 11, bf16 structured output and tool calling")
+# finite languages, so a synthetic model's output ends with EOS
+_G_SCHEMA = {"type": "object",
+             "properties": {"color": {"enum": ["red", "green", "blue"]},
+                            "ok": {"type": "boolean"}, "size": {"enum": [1, 2, 3]}},
+             "required": ["color", "ok", "size"]}
+_G_REGEX = "(yes|no), [a-z]{2,8}\\."
+_G_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "Weather for a city",
+    "parameters": {"type": "object", "properties": {"city": {"enum": ["Paris", "Rome"]}},
+                   "required": ["city"]}}},
+    {"type": "function", "function": {
+        "name": "set_alarm",
+        "parameters": {"type": "object", "properties": {"on": {"type": "boolean"}},
+                       "required": ["on"]}}}]
+# an unbounded language of lowercase words: the timed sequence and the
+# speculation batches, whose prompts repeat words of it
+_G_WORDS = "([a-z]+ )*"
+_G_CHAT = [{"role": "user", "content": "What is the weather in Paris?"}]
+
+
+def _g_specs():
+    """The phase's grammars by name, as the server would compile them."""
+    from kaito_tpu_torch.engine.grammar import (GrammarSpec, canonical_schema,
+                                                tool_envelope_schema)
+
+    return {"json_schema": GrammarSpec("json_schema", canonical_schema(_G_SCHEMA)),
+            "json_object": GrammarSpec("json_object", ""),
+            "regex": GrammarSpec("regex", _G_REGEX),
+            "words": GrammarSpec("regex", _G_WORDS),
+            "tool envelope": GrammarSpec("json_schema", canonical_schema(
+                tool_envelope_schema(_G_TOOLS)))}
+
+
+def _g_walks(g, tokens, eos) -> bool:
+    """Every token allowed from the state before it, EOS only where the
+    automaton accepts; True when the walk ended with EOS."""
+    st = 0
+    for t in tokens:
+        if not g.allows(st, t):
+            raise SmokeFailure(f"token {t} not allowed in state {st}: {tokens}")
+        if t == eos:
+            return True
+        st = g.advance(st, t)
+    return False
+
+
+def _g_call(base, path, body):
+    status, _, raw = _http(base, path, body)
+    return status, raw
+
+
+def _g_ok(base, path, body, label, what):
+    status, raw = _g_call(base, path, body)
+    if status != 200:
+        raise SmokeFailure(f"{label}: {what} answered {status}: {raw[:300]!r}")
+    return json.loads(raw)["choices"][0]
+
+
+def _g_http(base, label) -> dict:
+    """The structured-output surface over HTTP: JSON schema and regex on
+    both endpoints (finite languages: the content parses and matches, and
+    finishes ``stop``), ``json_object`` (unbounded: its text must be a
+    prefix the automaton accepts), forced, named and ``auto`` tool calls,
+    streamed and not, and a seeded constrained sampled request twice."""
+    import re
+
+    res = {}
+    ch = _g_ok(base, "/v1/chat/completions", dict(
+        messages=_G_CHAT, max_tokens=64, temperature=0.0, response_format={
+            "type": "json_schema", "json_schema": {"name": "c", "schema": _G_SCHEMA}}),
+        label, "a json_schema chat")
+    obj = json.loads(ch["message"]["content"])
+    if ch["finish_reason"] != "stop" or set(obj) != set(_G_SCHEMA["required"]) \
+            or obj["color"] not in ("red", "green", "blue") \
+            or not isinstance(obj["ok"], bool) or obj["size"] not in (1, 2, 3):
+        raise SmokeFailure(f"{label}: json_schema chat {ch}")
+    res["json_schema_chat"] = ch["message"]["content"]
+    ch = _g_ok(base, "/v1/completions", dict(
+        prompt="A JSON answer: ", max_tokens=64, temperature=0.0, response_format={
+            "type": "json_schema", "json_schema": {"schema": _G_SCHEMA}}),
+        label, "a json_schema completion")
+    if ch["finish_reason"] != "stop" or set(json.loads(ch["text"])) != \
+            set(_G_SCHEMA["required"]):
+        raise SmokeFailure(f"{label}: json_schema completion {ch}")
+    res["json_schema_completion"] = ch["text"]
+    for path, body in (("/v1/completions", dict(prompt="The answer is ")),
+                       ("/v1/chat/completions", dict(messages=_G_CHAT))):
+        ch = _g_ok(base, path, dict(body, max_tokens=32, temperature=0.0,
+                                    response_format={"type": "regex",
+                                                     "regex": _G_REGEX}),
+                   label, f"a regex request on {path}")
+        text = ch.get("text", ch.get("message", {}).get("content"))
+        if ch["finish_reason"] != "stop" or not re.fullmatch(_G_REGEX, text):
+            raise SmokeFailure(f"{label}: regex on {path}: {ch}")
+        res[f"regex {path}"] = text
+    for path, body in (("/v1/completions", dict(prompt="An object: ")),
+                       ("/v1/chat/completions", dict(messages=_G_CHAT))):
+        ch = _g_ok(base, path, dict(body, max_tokens=48, temperature=0.0,
+                                    response_format={"type": "json_object"}),
+                   label, f"a json_object request on {path}")
+        text = ch.get("text", ch.get("message", {}).get("content"))
+        if not text.startswith("{") or (ch["finish_reason"] == "stop"
+                                        and not isinstance(json.loads(text), dict)):
+            raise SmokeFailure(f"{label}: json_object on {path}: {ch}")
+        res[f"json_object {path}"] = (ch["finish_reason"], len(text))
+    for choice, name in (("required", None), ({"type": "function", "function": {
+            "name": "set_alarm"}}, "set_alarm")):
+        ch = _g_ok(base, "/v1/chat/completions", dict(
+            messages=_G_CHAT, tools=_G_TOOLS, tool_choice=choice, max_tokens=64,
+            temperature=0.0), label, f"tool_choice {choice}")
+        calls = ch["message"].get("tool_calls") or []
+        if ch["finish_reason"] != "tool_calls" or len(calls) != 1 or \
+                (name and calls[0]["function"]["name"] != name) or \
+                not isinstance(json.loads(calls[0]["function"]["arguments"]), dict):
+            raise SmokeFailure(f"{label}: tool_choice {choice}: {ch}")
+        res[f"tool {name or 'required'}"] = calls[0]["function"]
+    # streamed forced call: the argument deltas accumulate to what parses
+    status, raw = _g_call(base, "/v1/chat/completions", dict(
+        messages=_G_CHAT, tools=_G_TOOLS, tool_choice="required", max_tokens=64,
+        temperature=0.0, stream=True))
+    events = [json.loads(line[6:]) for line in raw.decode().splitlines()
+              if line.startswith("data: {")]
+    deltas = [e["choices"][0]["delta"] for e in events]
+    calls = [d["tool_calls"][0] for d in deltas if "tool_calls" in d]
+    args = "".join(c["function"].get("arguments", "") for c in calls)
+    if status != 200 or not calls or calls[0]["function"].get("name") not in (
+            "get_weather", "set_alarm") or not isinstance(json.loads(args), dict) \
+            or events[-1]["choices"][0]["finish_reason"] != "tool_calls":
+        raise SmokeFailure(f"{label}: streamed tool call {status} {deltas}")
+    res["tool stream"] = dict(deltas=len(calls), name=calls[0]["function"]["name"],
+                              arguments=args)
+    for stream in (False, True):
+        status, raw = _g_call(base, "/v1/chat/completions", dict(
+            messages=_G_CHAT, tools=_G_TOOLS, max_tokens=16, temperature=0.0,
+            stream=stream))
+        if status != 200:
+            raise SmokeFailure(f"{label}: auto tool choice (stream {stream}) {status}")
+    res["tool auto"] = "200 streamed and not"
+
+    def seeded(seed):
+        ch = _g_ok(base, "/v1/completions", dict(
+            prompt="Words: ", max_tokens=24, temperature=0.8, seed=seed, logprobs=1,
+            response_format={"type": "regex", "regex": _G_WORDS}), label,
+            "a seeded constrained request")
+        if not re.fullmatch(r"([a-z]+ )*[a-z]*", ch["text"]):
+            raise SmokeFailure(f"{label}: seeded constrained text {ch['text']!r}")
+        return ch["text"], tuple(ch["logprobs"]["token_logprobs"])
+
+    a, b, c = seeded(7), seeded(7), seeded(8)
+    if a != b or a == c:
+        raise SmokeFailure(f"{label}: seed 7 gave {a[0]!r} then {b[0]!r}; seed 8 "
+                           f"{c[0]!r}")
+    res["seeded"] = a[0]
+    log(f"{label}: over HTTP: {res}")
+    return res
+
+
+def _g_taxonomy(base, engine, cfg, label) -> dict:
+    """400 for structural mistakes, 422 invalid_grammar_error for what the
+    compiler rejects, and 400 structured_output_disabled from a server over
+    the same engine with ``--no-structured-output``."""
+    import dataclasses
+
+    from kaito_tpu_torch.engine.server import make_server
+
+    cases = (("/v1/completions", dict(prompt="x", response_format={"type": "yaml"}),
+              400, "invalid_request_error"),
+             ("/v1/completions", dict(prompt="x", tool_choice="auto"), 400,
+              "invalid_request_error"),
+             ("/v1/chat/completions", dict(messages=_G_CHAT, tools=_G_TOOLS,
+                                           tool_choice="required",
+                                           response_format={"type": "json_object"}),
+              400, "invalid_request_error"),
+             ("/v1/completions", dict(prompt="x", response_format={
+                 "type": "regex",
+                 "regex": "a{64}b{64}c{64}d{64}e{64}f{64}g{64}h{64}i{9}"}),
+              422, "invalid_grammar_error"),
+             ("/v1/chat/completions", dict(messages=_G_CHAT, response_format={
+                 "type": "json_schema", "json_schema": {"schema": {"type": "tuple"}}}),
+              422, "invalid_grammar_error"),
+             ("/v1/completions", dict(prompt="x", kv_transfer={"source_url": "x"}),
+              501, "not_implemented"))
+    got = []
+    for path, body, code, etype in cases:
+        status, raw = _g_call(base, path, body)
+        t = json.loads(raw)["error"]["type"] if status != 200 else None
+        if (status, t) != (code, etype):
+            raise SmokeFailure(f"{label}: {body} answered {status} {t}, not {code} "
+                               f"{etype}")
+        got.append(status)
+    off = make_server(engine, dataclasses.replace(cfg, structured_output=False),
+                      host="127.0.0.1", port=0, device="cuda")
+    thread = threading.Thread(target=off.serve_forever, daemon=True)
+    thread.start()
+    try:
+        obase = f"http://127.0.0.1:{off.server_address[1]}"
+        for path, body in (("/v1/completions", dict(prompt="x", response_format={
+                "type": "json_object"})), ("/v1/chat/completions", dict(
+                    messages=_G_CHAT, tools=_G_TOOLS, tool_choice="required"))):
+            status, raw = _g_call(obase, path, body)
+            t = json.loads(raw)["error"]["type"] if status != 200 else None
+            if (status, t) != (400, "structured_output_disabled"):
+                raise SmokeFailure(f"{label}: --no-structured-output answered "
+                                   f"{status} {t}")
+            got.append(status)
+    finally:
+        off.shutdown()
+        off.server_close()
+        thread.join(timeout=30)
+    log(f"{label}: error taxonomy {got} (400s, 422 invalid_grammar_error, 501 "
+        f"kv_transfer, 400 structured_output_disabled)")
+    return dict(statuses=got)
+
+
+def _g_metrics(base) -> dict:
+    from kaito_tpu_torch.utils.promtext import parse_exposition
+
+    status, raw = _get(f"{base}/metrics")
+    if status != 200:
+        raise SmokeFailure(f"/metrics answered {status}")
+    return {n + lbl: v for n, lbl, v in parse_exposition(raw.decode())
+            if n.startswith("kaito:grammar_")}
+
+
+def _g_batch(engine, prompts, grammars, n=48) -> list:
+    """``prompts`` submitted together to a not-started engine, greedy, each
+    under its grammar (None: unconstrained), driven step by step."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    reqs = [engine.submit(engine.tokenizer.encode(p), SamplingParams(
+        max_tokens=n, temperature=0.0, ignore_eos=True, logprobs=True, grammar=g))
+        for p, g in zip(prompts, grammars)]
+    for _ in range(20000):
+        engine.step()
+        if all(r.finish_reason for r in reqs):
+            break
+    if not all(r.finish_reason == "length" for r in reqs):
+        raise SmokeFailure(f"batch did not finish: {[r.finish_reason for r in reqs]}")
+    return reqs
+
+
+def _g_window_ms(engine) -> dict:
+    """Card ms of one replay of each captured K=4 window with all eight
+    rows active at position 1024 (CUDA events); run last: a replay
+    writes KV into the pool and moves the window's carry."""
+    import numpy as np
+
+    w, S = engine.window, len(engine.slots)
+    pps = engine.pages_per_seq
+    pages = (1 + np.arange(S * pps, dtype=np.int32) % (engine._num_pages - 1)).reshape(
+        S, pps)
+    res = {}
+    for (K, key), g in list(w.graphs.items()):
+        if K != 4:
+            continue
+        w.upload({"last_tokens": np.full(S, 65, np.int32),
+                  "positions": np.full(S, 1024, np.int32),
+                  "active": np.ones(S, bool), "left": np.full(S, 10**6, np.int32),
+                  "page_tables": pages, "gstate": engine._gram_state * 0})
+        res["constrained" if key[2] is not None else "unconstrained"] = time_ms(
+            g.graph.replay, iters=10)[0]
+    return res
+
+
+def _g_time_uploads(engine) -> list:
+    """Time each grammar table upload: the engine's refresh runs between
+    two synchronizations of the card (host clock), and each call that
+    uploaded appends (ms, rows written).  Readings of the smoke only:
+    the engine itself never waits on an upload."""
+    import torch
+
+    times, inner = [], engine._refresh_grammar_device
+
+    def timed():
+        ds = engine.grammar_device_stats
+        n = ds["uploads"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner()
+        torch.cuda.synchronize()
+        if ds["uploads"] != n:
+            times.append(((time.perf_counter() - t0) * 1e3, ds["last_upload_rows"]))
+
+    engine._refresh_grammar_device = timed
+    return times
+
+
+def _g_room(engine) -> dict:
+    """What the card can spare a larger grammar table (free memory and
+    the allocator's cached blocks, less the engine's headroom) and the
+    largest capacity, a power of two rows, that a growth from the
+    current table can take: past it a constrained admission waits for
+    live rows to come free, or fails."""
+    room, V = engine._grammar_room(), engine.md.arch.vocab_size
+    cap = engine._gram_table.capacity
+    while (2 * cap) * V * 8 <= room:
+        cap *= 2
+    return dict(room_mib=room / 2**20, max_rows=cap, max_mib=cap * V * 8 / 2**20,
+                max_states_per_grammar=engine.grammar_cache.max_states)
+
+
+def _g_growth(engine, grammars, uploads, label) -> dict:
+    """A constrained request decodes (the words grammar, 64 tokens) while
+    requests under other grammars arrive: enough rows live at once that
+    the table doubles mid-stream.  The graphs of the old table must be
+    dropped, the device table must equal the host's, and the request's
+    output must walk its automaton."""
+    import torch
+
+    from kaito_tpu_torch.engine.engine import SamplingParams
+    from kaito_tpu_torch.engine.grammar import GrammarSpec
+
+    tok, ds = engine.tokenizer, engine.grammar_device_stats
+    tbl = engine._gram_table
+    cap0, dropped0 = tbl.capacity, ds["graphs_dropped"]
+    # the live rows must pass the capacity: json_object's, then 61-row ones
+    churn = [grammars["json_object"]]
+    letters = iter("abcdefg")
+    while 1 + grammars["words"].n_states + sum(g.n_states for g in churn) <= cap0:
+        churn.append(engine.grammar_cache.get(
+            GrammarSpec("regex", f"{next(letters)}{{60}}"), tok))
+    if len(churn) >= len(engine.slots):
+        raise SmokeFailure(f"{label}: a {cap0}-row table needs {len(churn)} live grammars")
+    main = engine.submit(tok.encode(_prompt(100, 90)), SamplingParams(
+        max_tokens=64, temperature=0.0, ignore_eos=True, grammar=grammars["words"]))
+    others = []
+    for step in range(20000):
+        if main.finish_reason and all(r.finish_reason for r in others):
+            break
+        engine.step()
+        if step == 4:
+            if main.finish_reason or not main.output_tokens:
+                raise SmokeFailure(f"{label}: the constrained request is not decoding")
+            others = [engine.submit(tok.encode("x"), SamplingParams(
+                max_tokens=40, temperature=0.0, ignore_eos=True, grammar=g))
+                for g in churn]
+    _g_walks(grammars["words"], main.output_tokens, tok.eos_token_id)
+    tbl = engine._gram_table
+    res = dict(capacity=(cap0, tbl.capacity), live_grammars=len(churn) + 1,
+               graphs_dropped=ds["graphs_dropped"] - dropped0,
+               upload_ms=uploads[-1][0], upload_rows=uploads[-1][1],
+               mib=(engine._gmask.nbytes + engine._gtrans.nbytes) / 2**20)
+    if tbl.capacity <= cap0 or res["graphs_dropped"] <= 0:
+        raise SmokeFailure(f"{label}: the table did not grow mid-stream: {res}")
+    if not (torch.equal(engine._gmask.cpu(), torch.from_numpy(tbl.mask)) and
+            torch.equal(engine._gtrans.cpu(), torch.from_numpy(tbl.trans))):
+        raise SmokeFailure(f"{label}: the device table differs from the host's")
+    log(f"{label}: mixed batch: the unconstrained rows equal their unconstrained "
+        f"run, the constrained ones walk their automata; the table grew while a "
+        f"constrained slot decoded {res}")
+    return res
+
+
+def run_grammar_phase(label) -> tuple[dict, dict]:
+    """Phase 11: Llama-3.1-8B at full width in bf16 (phase 4's config,
+    synthetic weights from seed 0, the prefix cache off so a batch reruns
+    exactly), served over HTTP under grammars; then, on the engine
+    stepped directly, a mixed batch against its unconstrained run, a
+    table growth while a constrained slot decodes, the window readings;
+    then n-gram and draft speculation (the weights shared) against the
+    plain engine's constrained batch.  Returns the launches of K1, K2 and
+    K3 over the phase and the readings."""
+    import dataclasses
+
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+    from kaito_tpu_torch.engine.server import make_server, parse_args
+
+    counted = ("paged_decode_attention", "flash_prefill_attention",
+               "flash_prefill_packed")
+    for name in counted:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
+    cfg, _ = parse_args(["--model", _LLAMA, "--dtype", "bfloat16", "--max-num-seqs",
+                         "8", "--seed", "0", "--no-enable-prefix-caching"])
+    engine = InferenceEngine(cfg, device="cuda")
+    server = make_server(engine, cfg, host="127.0.0.1", port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    stats: dict = {}
+    specs = _g_specs()
+    try:
+        if _g_metrics(base):
+            raise SmokeFailure(f"{label}: kaito:grammar_* before any constrained "
+                               f"request")
+        grammars, compile_ms = {}, {}
+        for name, spec in specs.items():
+            g = grammars[name] = engine.grammar_cache.get(spec, engine.tokenizer)
+            compile_ms[name] = dict(ms=g.compile_seconds * 1e3, states=g.n_states)
+        stats["compile"] = compile_ms
+        log(f"{label}: grammar compile ms (byte tokenizer, {engine.md.arch.vocab_size}"
+            f"-column rows) {compile_ms}")
+        uploads = _g_time_uploads(engine)
+        engine.start()
+        stats["http"] = _g_http(base, label)
+        ds = engine.grammar_device_stats
+        stats["table"] = dict(
+            capacity=engine._gram_table.capacity,
+            mib=(engine._gmask.nbytes + engine._gtrans.nbytes) / 2**20,
+            uploads=ds["uploads"], upload_mib=ds["upload_bytes"] / 2**20,
+            first_upload_ms=uploads[0][0], first_upload_rows=uploads[0][1],
+            last_upload_ms=uploads[-1][0], last_upload_rows=uploads[-1][1],
+            **_g_room(engine))
+        log(f"{label}: grammar table on the card after the HTTP checks {stats['table']}")
+        stats["taxonomy"] = _g_taxonomy(base, engine, cfg, label)
+        after = _g_metrics(base)
+        families = {k.split("{")[0].removesuffix("_bucket").removesuffix("_sum")
+                    .removesuffix("_count") for k in after}
+        want = {"kaito:grammar_compile_seconds", "kaito:grammar_cache_hits_total",
+                "kaito:grammar_cache_misses_total", "kaito:grammar_cache_evictions_total",
+                "kaito:grammar_requests_total", "kaito:grammar_cache_entries"}
+        if families != want or after["kaito:grammar_cache_hits_total"] <= 0:
+            raise SmokeFailure(f"{label}: /metrics grammar family {after}")
+        stats["metrics"] = {k: v for k, v in after.items() if "bucket" not in k}
+        log(f"{label}: /metrics kaito:grammar_* absent before, then {stats['metrics']}")
+        # one sequence alone: ms a token under the unbounded grammar against plain
+        p = _prompt(200, 30)
+        plain = _itl(_timed_tokens(engine, p, 129))
+        words = _itl(_timed_tokens(engine, p, 129, grammars["words"]))
+        stats["alone"] = dict(plain_ms_per_token=1e3 / plain["decode_tok_s"],
+                              constrained_ms_per_token=1e3 / words["decode_tok_s"])
+        log(f"{label}: one sequence alone: {stats['alone']}")
+        stats["decode"] = decode_readings(engine, p, label)
+        stats["decode_constrained"] = decode_readings(engine, p, label + ", constrained",
+                                                      grammars["words"])
+        engine.stop()
+
+        tok = engine.tokenizer
+        eos = tok.eos_token_id
+        # a mixed batch: four unconstrained rows beside four constrained
+        prompts = [_prompt(120, 80 + i) for i in range(8)]
+        alone = _g_batch(engine, prompts, [None] * 8)
+        mixed_g = [None] * 4 + [grammars[n] for n in ("json_schema", "regex", "words",
+                                                      "tool envelope")]
+        mixed = _g_batch(engine, prompts, mixed_g)
+        for i in range(4):
+            if mixed[i].output_tokens != alone[i].output_tokens:
+                raise SmokeFailure(f"{label}: unconstrained row {i} of the mixed "
+                                   f"batch changed")
+        for r, g in zip(mixed[4:], mixed_g[4:]):
+            _g_walks(g, r.output_tokens, eos)
+        stats["growth"] = _g_growth(engine, grammars, uploads, label)
+        if engine.counters["decode_graph_replays_total"] < \
+                engine.counters["decode_windows_total"]:
+            raise SmokeFailure(f"{label}: a decode window was not a graph replay")
+        want_batch = _g_batch(engine, _g_spec_prompts(), _g_spec_grammars(grammars))
+        w = engine.window.stats()
+        stats["window_nodes"] = {
+            f"K={g['K']} {'unconstrained' if g['key'].endswith('None)') else 'constrained'}"
+            f" {g['key']}": g["nodes"]["kernel"] for g in w["graphs"]}
+        stats["window_ms"] = _g_window_ms(engine)
+        log(f"{label}: window kernel nodes {stats['window_nodes']}; one K=4 replay "
+            f"(card ms, 8 rows at 1024) {stats['window_ms']}")
+        params = engine.model.param_tree()
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    del server, engine
+    _release_card(torch)
+    for mode, extra in (("ngram", dict(speculative_ngram=4, speculative_min_match=2)),
+                        ("draft", dict(speculative_draft=_DRAFT, speculative_draft_k=4))):
+        lbl = f"{label}, {mode}"
+        eng = InferenceEngine(dataclasses.replace(cfg, **extra), params=params,
+                              device="cuda")
+        gs = {n: eng.grammar_cache.get(s, eng.tokenizer) for n, s in specs.items()}
+        got = _g_batch(eng, _g_spec_prompts(), _g_spec_grammars(gs))
+        prefix = _same_or_tie(got, want_batch, lbl)
+        for r, g in zip(got, _g_spec_grammars(gs)):
+            _g_walks(g, r.output_tokens, eng.tokenizer.eos_token_id)
+        c = eng.counters
+        res = dict(greedy_equal_prefix=prefix,
+                   counters={k: n for k, n in c.items() if k.startswith("spec_")},
+                   engine=_spec_engine_stats(eng, lbl))
+        keys = [g["key"] for g in res["engine"]["verify_graphs"]]
+        if c["spec_steps_total"] <= 0 or not any(not k.endswith("None)") for k in keys):
+            raise SmokeFailure(f"{lbl}: no verify round under a grammar: {keys}")
+        if mode == "draft" and not any(not g["key"].endswith("None)")
+                                       for g in res["engine"]["scan_graphs"]):
+            raise SmokeFailure(f"{lbl}: no draft scan under a grammar")
+        log(f"{lbl}: constrained greedy batch against the plain engine's: equal "
+            f"prefixes {prefix} of 48; {res}")
+        stats[mode] = res
+        del eng
+        _release_card(torch)
+    torch.cuda.synchronize()
+    launches = {name: getattr(*_counter(name)) for name in counted}
+    log(f"{label}: launches {launches}")
+    return launches, stats
+
+
+_G_SPEC_TEXTS = ("abc def ghi jkl ", "one two three four five ", "the cat sat on the mat ")
+
+
+def _g_spec_prompts() -> list[str]:
+    """Four prompts of repeated lowercase words (~240 bytes): n-gram
+    proposals the words grammar allows; the fourth asks for JSON."""
+    return [t * (240 // len(t)) for t in _G_SPEC_TEXTS] + ["A JSON answer: "]
+
+
+def _g_spec_grammars(grammars) -> list:
+    return [grammars["words"]] * 3 + [grammars["json_schema"]]
+
+
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
 _LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
@@ -3381,8 +3935,8 @@ def main(argv=None) -> int:
     ap.add_argument("--first-leg-only", action="store_true",
                     help="skip the goldens (phase 3) and every server leg after "
                          "phase 4's bf16 one; no result line")
-    ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [QOS_LEG[0],
-                                                                    SPEC_LEG[0]],
+    ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [
+                        QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -3527,6 +4081,21 @@ def main(argv=None) -> int:
                     f"{s['draft']['ms_per_token']:.3f}; tokens a target forward: "
                     f"n-gram {s['ngram']['tokens_per_target_forward']:.3f}, draft "
                     f"{s['draft']['tokens_per_target_forward']:.3f}")
+            if args.leg in (None, GRAMMAR_LEG[0]) and not args.first_leg_only:
+                name, label = GRAMMAR_LEG
+                launches, stats[label] = run_grammar_phase(label)
+                _release_card(torch)
+                for kname, n in launches.items():
+                    if n <= 0:
+                        raise SmokeFailure(f"{kname} never launched in {label}")
+                    if not alone:
+                        records[kname].setdefault("launches_by_leg", {})[label] = n
+                s = stats[label]
+                log(f"{label} on {card}: ms a token alone: plain "
+                    f"{s['alone']['plain_ms_per_token']:.3f}, constrained "
+                    f"{s['alone']['constrained_ms_per_token']:.3f}; grammar table "
+                    f"{s['growth']['mib']:.1f} MiB after growth; one K=4 window "
+                    f"(card ms) {s['window_ms']}")
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

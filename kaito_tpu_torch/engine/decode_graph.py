@@ -16,21 +16,24 @@ positions, active, left) back into its inputs.  The next window starts
 from that carry, which is what async dispatch feeds back (copying in
 only what the host changed; the synchronous loop copies every field).
 
-On one card (``capture=True``) each key — K, the sampler's gates and
-whether penalty state is live — is captured once: first one eager
-warm-up on a side stream with every row inactive (inactive rows write
-only the null page and keep their sampling keys, and the kernels' first
-workspace use then happens outside capture, as they demand), then the
-capture, into one memory pool that every graph of the engine shares;
-from then on a call is one graph launch.  Random draws come from the
-per-row keys of the sampler's state, a device buffer that a replay
-reads and advances in place, so no generator is registered with a
-graph.  A capture that fails raises; nothing falls back to eager.
+On one card (``capture=True``) each key — K, the sampler's gates,
+whether penalty state is live and, while a slot is constrained, the
+grammar table's capacity — is captured once: first one eager warm-up on
+a side stream with every row inactive (inactive rows write only the null
+page and keep their sampling keys, and the kernels' first workspace use
+then happens outside capture, as they demand), then the capture, into
+one memory pool that every graph of the engine shares; from then on a
+call is one graph launch. A constrained window also reads the grammar
+table and carries each row's table row (``gstate``) as it does the
+tokens; a table that grows is new buffers, so the engine drops the
+graphs keyed on the old one (:meth:`StaticGraphs.drop`). Random draws
+come from the per-row keys of the sampler's state, a device buffer that
+a replay reads and advances in place, so no generator is registered with
+a graph. A capture that fails raises; nothing falls back to eager.
 Without capture (the CPU, or a tensor-parallel engine, one process over
 several devices) the same body runs eagerly on the same buffers.
-:func:`capture_graph` is the capture itself, shared with the
-speculative verify window and the draft's proposal scan
-(``engine.spec``).
+:func:`capture_graph` is the capture itself, shared with the speculative
+verify window and the draft's proposal scan (``engine.spec``).
 
 The body is whatever the engine's step runs: an MLA model's step (the
 latent page writes, int8 ones included, the gather over the full-width
@@ -83,17 +86,29 @@ _COUNTERS = (
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
 
 
-def run_steps(step: Callable, K: int, tok, pos, page_tables, act, left, stop):
+def run_steps(step: Callable, K: int, tok, pos, page_tables, act, left, stop,
+              grammar: Optional[tuple] = None):
     """K fused decode steps, the body of the JAX engine's decode scan:
-    ``step(tok, pos, page_tables, act) -> (next, logprob)`` runs the
-    model and samples; a row that emits a stop id or spends its budget
-    goes inactive, so it writes no more KV.  Returns the ``[K, S]``
-    (tokens, active before each step, logprobs) and the carry (tokens,
-    positions, active, left)."""
+    ``step(tok, pos, page_tables, act, grammar_rows) -> (next, logprob)``
+    runs the model and samples; a row that emits a stop id or spends its
+    budget goes inactive, so it writes no more KV.  ``grammar`` is None
+    or (gmask [R, V] fp32, gtrans [R, V] int32, gstate [S] int32): each
+    step gathers the rows' 0 / -inf mask rows ``gmask[gstate]`` into the
+    sampler and advances ``gstate = gtrans[gstate, next]`` on the active
+    rows (row 0, the unconstrained row, allows everything and loops on
+    itself).  Returns the ``[K, S]`` (tokens, active before each step,
+    logprobs) and the carry (tokens, positions, active, left, gstate;
+    gstate None without a grammar)."""
     toks, acts, lps = [], [], []
+    gst = None
+    if grammar is not None:
+        gmask, gtrans, gst = grammar
     for _ in range(K):
-        nxt, lp = step(tok, pos, page_tables, act)
+        grows = gmask[gst.long()] if gst is not None else None
+        nxt, lp = step(tok, pos, page_tables, act, grows)
         nxt = torch.where(act, nxt, tok)
+        if gst is not None:
+            gst = torch.where(act, gtrans[gst.long(), nxt.long()], gst)
         left = left - act.to(torch.int32)
         # the stop matrix is -1 padded; token ids are >= 0
         hit = (nxt[:, None] == stop).any(dim=1)
@@ -104,7 +119,7 @@ def run_steps(step: Callable, K: int, tok, pos, page_tables, act, left, stop):
         act = act & ~hit & (left > 0)
         tok = nxt
     return (torch.stack(toks), torch.stack(acts), torch.stack(lps)), \
-        (tok, pos, act, left)
+        (tok, pos, act, left, gst)
 
 
 def launch_counts() -> dict[tuple, int]:
@@ -273,6 +288,14 @@ class StaticGraphs:
         self.counters[f"{self.name}_replays_total"] += 1
         return g
 
+    def drop(self, stale: Callable[[tuple], bool]) -> int:
+        """Forget the graphs whose key ``stale`` marks (graphs that read
+        buffers the caller replaced); returns how many went."""
+        keys = [k for k in self.graphs if stale(k)]
+        for k in keys:
+            del self.graphs[k]
+        return len(keys)
+
     def stats(self) -> dict:
         """Captures, replays, the pool's growth and each graph's key,
         node counts and wrapper kernels."""
@@ -312,6 +335,7 @@ class DecodeWindow(StaticGraphs):
             "left": full((S,), torch.int32, 0),
             "page_tables": full((S, pages_per_seq), torch.int32, 0),
             "stop": full((S, stop_width), torch.int32, -1),
+            "gstate": full((S,), torch.int32, 0),
         }, device, capture, counters, "decode_graph")
         self.step = step
         self._eager: dict[int, tuple] = {}
@@ -321,24 +345,34 @@ class DecodeWindow(StaticGraphs):
         return tuple(torch.empty((K, S), dtype=dt, device=self.device)
                      for dt in (torch.int32, torch.bool, torch.float32))
 
-    def _body(self, K: int, out: tuple) -> None:
+    def _body(self, K: int, out: tuple, grammar: Optional[tuple] = None) -> None:
         x = self.inputs
+        if grammar is not None:
+            grammar = (*grammar, x["gstate"])
         trace, carry = run_steps(self.step, K, x["last_tokens"], x["positions"],
-                                 x["page_tables"], x["active"], x["left"], x["stop"])
+                                 x["page_tables"], x["active"], x["left"], x["stop"],
+                                 grammar)
         for o, t in zip(out, trace):
             o.copy_(t)
         for name, t in zip(CARRY, carry):
             x[name].copy_(t)
+        if grammar is not None:
+            x["gstate"].copy_(carry[-1])
 
-    def run(self, K: int, key: tuple) -> tuple:
+    def run(self, K: int, key: tuple, grammar: Optional[tuple] = None) -> tuple:
         """K decode steps from the inputs; the static ``[K, S]`` (tokens,
         active, logprobs), valid until the next window of the same K and
-        ``key`` (the sampler's gates and the penalty state's liveness)."""
+        ``key`` (the sampler's gates, the penalty state's liveness and the
+        grammar table's capacity when a slot is constrained).  ``grammar``
+        is None or the device table (gmask, gtrans): the window then
+        masks each step from the ``gstate`` input and carries it on; a
+        captured graph keeps the table's pointers, so the caller keys it
+        by capacity and :meth:`drop` s the graphs of a replaced table."""
         if not self.capture:
             out = self._eager.get(K)
             if out is None:
                 out = self._eager[K] = self._outputs(K)
-            self._body(K, out)
+            self._body(K, out, grammar)
             return out
 
         def make():
@@ -350,7 +384,7 @@ class DecodeWindow(StaticGraphs):
                 act.zero_()
                 return lambda: act.copy_(saved)
 
-            return (lambda: self._body(K, out)), neutral, out
+            return (lambda: self._body(K, out, grammar)), neutral, out
 
         return self.replay((K, key), make).out
 

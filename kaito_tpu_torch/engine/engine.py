@@ -64,7 +64,14 @@ greedy rows by prefix match, the draft model's (greedy and
 pure-temperature rows) by Leviathan rejection sampling, with the
 adaptive depth controller and its fallback ladder.  A request's ``seed``
 (else its request count) keys its slot's draws: sampled requests
-reproduce, and draw the JAX engine's tokens.
+reproduce, and draw the JAX engine's tokens.  A request's compiled
+grammar (``SamplingParams.grammar``, from ``response_format`` or a
+forced tool call) is packed at admission into one table of 0 / -inf
+mask rows and transition rows (host ``grammar.GrammarTable``, mirrored
+on the device); every sampled token of the slot, the first after
+prefill, a decode window's, a verify round's and a draft proposal's,
+is drawn under its current row, and the slot's row advances on the
+device and in the host mirror.
 Not ported yet, and rejected at construction with the ROADMAP item that
 carries them: adapters, pipeline, data,
 sequence and expert parallelism, the KV pool, host offload and P/D, and
@@ -89,6 +96,7 @@ from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.decode_graph import (DecodeWindow, TraceReadback,
                                                  run_steps)
+from kaito_tpu_torch.engine.grammar import GrammarCache, GrammarSlot, GrammarTable
 from kaito_tpu_torch.engine.kv_cache import (NULL_PAGE, create_kv_cache,
                                              create_sharded_kv_cache,
                                              kv_bytes, kv_cache_is_quantized,
@@ -127,6 +135,9 @@ _DEADLINE_SWEEP_S = 0.05
 # device memory the page pool leaves free for activations and scratch
 _RESERVE_FRACTION = 0.08
 _RESERVE_MIN_BYTES = 4 << 30
+# device memory a grammar table's growth leaves free beside it, for the
+# graph captures and activations that share the KV pool's reserve
+_GRAMMAR_HEADROOM_BYTES = 1 << 30
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": torch.int8}
@@ -219,6 +230,11 @@ class SamplingParams:
     frequency_penalty: float = 0.0
     repetition_penalty: float = 1.0
     min_p: float = 0.0
+    # grammar-constrained decoding: the grammar.CompiledGrammar the
+    # server compiled from response_format or a forced tool_choice
+    # before admission (compilation never runs on the engine thread).
+    # None = unconstrained
+    grammar: Optional[object] = field(default=None, compare=False, repr=False)
 
     @property
     def has_penalties(self) -> bool:
@@ -365,8 +381,10 @@ class InferenceEngine:
     # dirty mark on them drains the pipeline before they are uploaded
     # (uploading a stale mirror would roll the device state back);
     # page_tables is written by the host alone and safe to upload.
-    _STATE_FIELDS = ("last_tokens", "positions", "active", "page_tables", "left")
-    _DEVICE_ADVANCED = frozenset(("last_tokens", "positions", "active", "left"))
+    _STATE_FIELDS = ("last_tokens", "positions", "active", "page_tables", "left",
+                     "gstate")
+    _DEVICE_ADVANCED = frozenset(("last_tokens", "positions", "active", "left",
+                                  "gstate"))
 
     def __init__(self, cfg: EngineConfig,
                  metadata: Optional[ModelMetadata] = None,
@@ -484,6 +502,29 @@ class InferenceEngine:
         # penalty state allocates on the first penalized admission
         self.token_counts: Optional[torch.Tensor] = None   # [S, V] int32
         self.prompt_seen: Optional[torch.Tensor] = None    # [S, V] bool
+        # grammar-constrained decoding: the compiled-schema LRU always
+        # exists (the server compiles against it before admission); the
+        # packed table, on the host and the device, is allocated on the
+        # first constrained admission, so an unconstrained engine never
+        # holds or reads it.  _gram_state is each slot's absolute table
+        # row (0: unconstrained), advanced by _emit
+        self.grammar_cache = GrammarCache(entries=cfg.grammar_cache_entries,
+                                          max_states=cfg.grammar_max_states)
+        self._gram_table: Optional[GrammarTable] = None
+        self._gram_slots: list[Optional[GrammarSlot]] = [None] * S
+        self._gram_state = np.zeros((S,), np.int32)
+        self._gmask: Optional[torch.Tensor] = None     # [capacity, V] fp32
+        self._gtrans: Optional[torch.Tensor] = None    # [capacity, V] int32
+        # the larger (gmask, gtrans) an admission allocated before the
+        # install that grows the host table moves to them
+        self._gram_next: Optional[tuple] = None
+        self._gram_host: Optional[np.ndarray] = None   # the table's uploaded arrays
+        self._gram_used = 0
+        self._gram_version = 0
+        # table uploads: how many, their bytes, the last one's rows;
+        # graphs dropped with a replaced table
+        self.grammar_device_stats = {"uploads": 0, "upload_bytes": 0,
+                                     "last_upload_rows": 0, "graphs_dropped": 0}
 
         self.waiting: "collections.deque[Request]" = collections.deque()
         # requests waiting, in self.waiting or (with QoS) the per-tenant
@@ -1115,6 +1156,7 @@ class InferenceEngine:
         if self.spec_ctl is not None:
             self.spec_ctl.reset(slot_idx)
         self._ngram_idx.pop(slot_idx, None)
+        self._release_grammar(slot_idx)
         self.slots[slot_idx] = _Slot()
         self.active[slot_idx] = False
         self._remaining[slot_idx] = 0
@@ -1236,6 +1278,17 @@ class InferenceEngine:
                 self._expire_request(req)
                 admitted = True
                 continue
+            if req.params.grammar is not None:
+                verdict = self._reserve_grammar_table(req.params.grammar)
+                if verdict == "wait":
+                    self._requeue_front(req)
+                    return admitted  # table rows come free with a slot
+                if verdict is not None:
+                    req.error = {"status": 503, "type": "grammar_table_full",
+                                 "message": verdict}
+                    self._fail_request(req)
+                    admitted = True
+                    continue
             if not self._admit(req, free_slot):
                 return admitted      # page OOM: requeued, stall admission
             admitted = True
@@ -1318,6 +1371,8 @@ class InferenceEngine:
             seen = np.zeros((V,), bool)
             seen[np.clip(np.asarray(req.prompt_tokens), 0, V - 1)] = True
             self.prompt_seen[free_slot] = self._tensor(seen)
+        if p.grammar is not None:
+            self._install_grammar(free_slot, req)
         return True
 
     # ------------------------------------------------------------------
@@ -1534,7 +1589,11 @@ class InferenceEngine:
         if self.token_counts is not None:
             sel = self._tensor(np.asarray(idxs, np.int64))
             counts, seen = self.token_counts[sel], self.prompt_seen[sel]
-        tok = sample(logits, sub, counts, seen)
+        grows = None
+        if any(self._gram_slots[i] is not None for i in idxs):
+            # each row's current mask row (the zero row when unconstrained)
+            grows = self._gmask[self._tensor(self._gram_state[idxs].astype(np.int64))]
+        tok = sample(logits, sub, counts, seen, grammar_rows=grows)
         if sub.gates()[0]:
             # a draw split the selected rows' keys
             self.sampling.scatter_keys(idxs, sub)
@@ -1558,6 +1617,10 @@ class InferenceEngine:
         self._remaining[slot_idx] = slot.remaining
         self._batch_epoch += 1
         self._mark_state_dirty("positions", "active", "last_tokens", "left")
+        if self._gram_slots[slot_idx] is not None:
+            # the first token advances the host mirror below; a window
+            # since admission may have uploaded the state before it
+            self._mark_state_dirty("gstate")
         if req.first_token_time is None:
             req.first_token_time = time.monotonic()
         if req.params.has_penalties and self.token_counts is not None:
@@ -1661,6 +1724,169 @@ class InferenceEngine:
                                            device=self.device)
 
     # ------------------------------------------------------------------
+    # Grammar-constrained decoding state
+    # ------------------------------------------------------------------
+
+    def _grammar_live(self) -> bool:
+        """Whether any slot holds a grammar: decode then masks."""
+        return any(gs is not None for gs in self._gram_slots)
+
+    def _grammar_key(self) -> Optional[int]:
+        """A graph's grammar key: the table's capacity while a slot is
+        constrained (the graph reads the table), else None (it does not,
+        and is the graph an unconstrained engine captures)."""
+        return self._gram_table.capacity if self._grammar_live() else None
+
+    def _grammar_room(self) -> Optional[int]:
+        """Bytes a larger grammar table may take on the device: free
+        memory and the allocator's unused cached blocks, less
+        ``_GRAMMAR_HEADROOM_BYTES``; None on the CPU (no limit)."""
+        if self.device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(self.device)
+        cached = (torch.cuda.memory_reserved(self.device)
+                  - torch.cuda.memory_allocated(self.device))
+        return free + cached - _GRAMMAR_HEADROOM_BYTES
+
+    def _alloc_grammar_table(self, cap: int) -> tuple:
+        V = self._gram_table.V
+        return (torch.empty((cap, V), dtype=torch.float32, device=self.device),
+                torch.empty((cap, V), dtype=torch.int32, device=self.device))
+
+    def _reserve_grammar_table(self, g) -> Optional[str]:
+        """Before anything is reserved for a request under grammar ``g``,
+        make sure the device table can take the rows its install pins.
+        If the table must grow, the larger buffers are allocated here,
+        beside the old ones, which stay in use until the install moves
+        to them; so a failed allocation changes nothing.  Returns None
+        when the rows fit; "wait" when they do not, but a constrained
+        slot's rows will come free; else why they never fit."""
+        if self._gram_table is None:
+            V = self.md.arch.vocab_size
+            logger.info("allocating grammar table (vocab %d)", V)
+            self._gram_table = GrammarTable(V)
+        cap = self._gram_table.capacity_for(g)
+        if self._gram_next is not None and self._gram_next[0].shape[0] == cap:
+            return None
+        self._gram_next = None
+        if self._gmask is not None and self._gmask.shape[0] == cap:
+            return None
+        nbytes = cap * self._gram_table.V * 8
+        room = self._grammar_room()
+        if room is None or nbytes <= room:
+            try:
+                self._gram_next = self._alloc_grammar_table(cap)
+                return None
+            except torch.OutOfMemoryError:
+                pass
+        if self._grammar_live():
+            return "wait"
+        return (f"the grammar table needs {cap} rows ({nbytes / 2**20:.0f} MiB) on "
+                f"the device, more than its free memory can spare "
+                f"({max(room or 0, 0) / 2**20:.0f} MiB)")
+
+    def _refresh_grammar_device(self) -> None:
+        """Bring the device table up to the host table's version, in the
+        same buffers and in stream order behind any window in flight: an
+        install into spare rows writes only its span, a repack at the
+        same capacity the whole table.  A new capacity moves to the
+        buffers ``_reserve_grammar_table`` allocated and writes them
+        whole; the graphs that read the old ones are dropped (their keys
+        carry the old capacity, so none would replay)."""
+        tbl = self._gram_table
+        if tbl.version == self._gram_version:
+            return
+        cap = tbl.capacity
+        if self._gmask is None or self._gmask.shape[0] != cap:
+            if self._gmask is not None:
+                old = self._gmask.shape[0]
+                if self.device.type == "cuda":
+                    # no replay that reads the old buffers is still queued
+                    torch.cuda.synchronize(self.device)
+                self.grammar_device_stats["graphs_dropped"] += \
+                    self._drop_grammar_graphs(old)
+            (self._gmask, self._gtrans), self._gram_next = self._gram_next, None
+            lo, hi = 0, cap
+        elif tbl.mask is not self._gram_host:
+            lo, hi = 0, cap                 # repacked: every base moved
+        else:
+            lo, hi = self._gram_used, tbl.used   # the installed span
+        self._gmask[lo:hi].copy_(torch.from_numpy(tbl.mask[lo:hi]))
+        self._gtrans[lo:hi].copy_(torch.from_numpy(tbl.trans[lo:hi]))
+        st = self.grammar_device_stats
+        st["uploads"] += 1
+        st["upload_bytes"] += (hi - lo) * tbl.V * 8
+        st["last_upload_rows"] = hi - lo
+        self._gram_host, self._gram_used = tbl.mask, tbl.used
+        self._gram_version = tbl.version
+
+    def _drop_grammar_graphs(self, cap: int) -> int:
+        """Drop every graph keyed on the grammar table of ``cap`` rows."""
+        n = 0
+        if self.window is not None:
+            n += self.window.drop(lambda k: k[1][2] == cap)
+        if self.spec_verify is not None:
+            n += self.spec_verify.drop(lambda k: k[2] == cap)
+        if self.spec_draft is not None and self.spec_draft.scan is not None:
+            n += self.spec_draft.scan.drop(lambda k: k[2] == cap)
+        return n
+
+    def _sync_gram_state(self) -> None:
+        """Recompute every constrained slot's absolute table row from the
+        host mirrors (a repack moves bases; admission and eviction change
+        membership) and mark it for upload."""
+        tbl = self._gram_table
+        for i, gs in enumerate(self._gram_slots):
+            if gs is None:
+                self._gram_state[i] = 0
+                continue
+            if gs.version != tbl.version:
+                gs.base = tbl.base_of(gs.grammar.key)
+                gs.version = tbl.version
+            self._gram_state[i] = gs.base + gs.state
+        self._mark_state_dirty("gstate")
+
+    def _install_grammar(self, slot_idx: int, req: Request) -> None:
+        """Pin the request's compiled grammar into the packed table (the
+        device copy follows at once) and build the slot's host mirror.
+        A resume after preemption replays the generated tokens through
+        the automaton, so the mask continues where the slot left off."""
+        g = req.params.grammar
+        base = self._gram_table.acquire(g)
+        gs = GrammarSlot(grammar=g, base=base, version=self._gram_table.version)
+        for t in req.output_tokens:
+            gs.advance(int(t))
+        self._gram_slots[slot_idx] = gs
+        if not req.preemptions and not req.output_tokens:
+            self.grammar_cache.requests_total += 1
+        self._refresh_grammar_device()
+        self._sync_gram_state()
+
+    def _release_grammar(self, slot_idx: int) -> None:
+        gs = self._gram_slots[slot_idx]
+        if gs is None:
+            return
+        self._gram_table.release(gs.grammar.key)
+        self._gram_slots[slot_idx] = None
+        self._gram_state[slot_idx] = 0
+        self._mark_state_dirty("gstate")
+
+    def _truncate_for_grammar(self, slot_idx: int, p: list) -> list:
+        """Clip a speculative proposal at its first grammar-invalid token
+        (walking the automaton on the host, the slot's state untouched):
+        the prefix left is all that masked verification could accept."""
+        gs = self._gram_slots[slot_idx]
+        if gs is None or not p:
+            return p
+        st, out = gs.state, []
+        for t in p:
+            if not gs.grammar.allows(st, int(t)):
+                break
+            out.append(t)
+            st = gs.grammar.advance(st, int(t))
+        return out
+
+    # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
 
@@ -1670,11 +1896,12 @@ class InferenceEngine:
         return (self._tensor(self.last_tokens), self._tensor(self.positions),
                 self._tensor(self.page_tables), self._tensor(self.active))
 
-    def _decode_step(self, tok, pos, pt, act):
-        """One model step + sampling on the device; (next, logprob)."""
+    def _decode_step(self, tok, pos, pt, act, grammar_rows=None):
+        """One model step + sampling on the device (under the rows'
+        grammar masks when given); (next, logprob under the model)."""
         self.cache, logits = self.model.decode(self.cache, tok, pos, pt, act)
         nxt = sample(logits, self.sampling, self.token_counts, self.prompt_seen,
-                     active=act)
+                     active=act, grammar_rows=grammar_rows)
         lp = chosen_logprob(logits, nxt)
         if self.token_counts is not None:
             rows = torch.arange(nxt.shape[0], device=self.device)
@@ -1686,7 +1913,10 @@ class InferenceEngine:
             self._decode_window(1)
             return
         tok, pos, pt, act = self._decode_inputs()
-        nxt, lps = self._decode_step(tok, pos, pt, act)
+        grows = None
+        if self._grammar_live():
+            grows = self._gmask[self._tensor(self._gram_state.astype(np.int64))]
+        nxt, lps = self._decode_step(tok, pos, pt, act, grows)
         self.counters["decode_steps_total"] += 1
         self.counters["decode_windows_total"] += 1
         toks, lps = nxt.cpu().tolist(), lps.cpu().tolist()
@@ -1774,9 +2004,12 @@ class InferenceEngine:
             self._decode_window(K)
             return
         tok, pos, pt, act = self._decode_inputs()
+        grammar = None
+        if self._grammar_live():
+            grammar = (self._gmask, self._gtrans, self._tensor(self._gram_state))
         (toks, acts, lps), _ = run_steps(self._decode_step, K, tok, pos, pt, act,
                                          self._tensor(self._remaining),
-                                         self._stop_matrix())
+                                         self._stop_matrix(), grammar)
         self.counters["decode_steps_total"] += K
         self.counters["decode_windows_total"] += 1
         self._replay_window(toks.cpu().numpy(), acts.cpu().numpy(),
@@ -1789,7 +2022,7 @@ class InferenceEngine:
     def _host_state(self, name: str) -> np.ndarray:
         return {"last_tokens": self.last_tokens, "positions": self.positions,
                 "active": self.active, "page_tables": self.page_tables,
-                "left": self._remaining}[name]
+                "left": self._remaining, "gstate": self._gram_state}[name]
 
     def _dispatch(self, K: int, fields) -> tuple:
         """Upload ``fields`` of the loop state (and the stop matrix and
@@ -1797,12 +2030,17 @@ class InferenceEngine:
         enqueue its trace's readback.  Returns the window (K, readback)
         and how many host-to-device copies it made."""
         w = self.window
-        n = w.upload({f: self._host_state(f) for f in fields})
+        # the gstate input only while a window reads it (a slot holds a
+        # grammar): every admission of one marks it for upload again
+        n = w.upload({f: self._host_state(f) for f in fields
+                      if f != "gstate" or self._grammar_live()})
         if self._stop_epoch != self._batch_epoch:
             n += w.upload({"stop": self._stop_ids()})
             self._stop_epoch = self._batch_epoch
         n += int(self.sampling.refresh())
-        out = w.run(K, (self.sampling.gates(), self.token_counts is not None))
+        gcap = self._grammar_key()
+        out = w.run(K, (self.sampling.gates(), self.token_counts is not None, gcap),
+                    None if gcap is None else (self._gmask, self._gtrans))
         rb = self._readbacks[self._windows % 2]
         self._windows += 1
         rb.enqueue(out)
@@ -2017,23 +2255,27 @@ class InferenceEngine:
         """One verify round over the compact rows (``windows`` the host
         part of each row's window, ``prop_len`` its proposal length;
         ``draft`` the draft path's per-row temperature, one-hot flag,
-        draft flag and slot map).  Returns the window's (tokens, emitted
-        counts, logprobs) per row."""
+        draft flag and slot map).  A constrained row verifies under its
+        grammar: the window walks the automaton from the row's table row
+        (``gstate``) along the proposal.  Returns the window's (tokens,
+        emitted counts, logprobs) per row."""
         v = self.spec_verify
         L, B = v.layout, v.B
         host = L.host(B)
         toks = np.zeros((B, v.W), np.int32)
         sp = np.zeros((B,), np.int32)
         pl = np.zeros((B,), np.int32)
+        gst = np.zeros((B,), np.int32)
         pt = np.zeros((B, self.pages_per_seq), np.int32)
         for r, i in enumerate(rows):
             toks[r, :len(windows[r])] = windows[r]
             sp[r] = self.slots[i].position
             pl[r] = prop_len[r]
+            gst[r] = self._gram_state[i]
             pt[r] = self.page_tables[i]
         tl = np.where(np.arange(B) < len(rows), pl + 1, 0).astype(np.int32)
         for name, a in (("tokens", toks), ("true_lens", tl), ("start_pos", sp),
-                        ("prop_len", pl), ("page_tables", pt)):
+                        ("prop_len", pl), ("gstate", gst), ("page_tables", pt)):
             L.put(host, name, a)
         any_random = False
         if draft is not None:
@@ -2044,7 +2286,16 @@ class InferenceEngine:
                                          self.spec_draft.spare))
             any_random = bool(np.any(draft["temps"] > 0.0))
         pages = -(-int((sp + tl).max()) // self.cfg.page_size)
-        return v.run(host, width_bucket(pages, self.pages_per_seq), any_random)
+        return v.run(host, width_bucket(pages, self.pages_per_seq), any_random,
+                     self._verify_grammar(rows))
+
+    def _verify_grammar(self, rows: list[int]) -> Optional[tuple]:
+        """(capacity, gmask, gtrans) when a row of this round is
+        constrained, else None: the key part and tables of the verify
+        window and the draft scan."""
+        if not any(self._gram_slots[i] is not None for i in rows):
+            return None
+        return (self._gram_table.capacity, self._gmask, self._gtrans)
 
     def _emit_window(self, i: int, tokens: list[int], lps: list[float]) -> None:
         """Emit a verify window's tokens for slot ``i``; a slot retired
@@ -2075,9 +2326,10 @@ class InferenceEngine:
         for i, slot in enumerate(self.slots):
             if slot.request is None or not self.active[i]:
                 continue
-            # never speculate past the budget
+            # never speculate past the budget, nor past what the grammar allows
             rows.append(i)
-            proposals.append(self._propose(i, slot.request)[:max(0, slot.remaining - 1)])
+            proposals.append(self._truncate_for_grammar(
+                i, self._propose(i, slot.request)[:max(0, slot.remaining - 1)]))
         if not any(proposals):
             return 0
         if not self._lookahead_fits(W):
@@ -2162,6 +2414,9 @@ class InferenceEngine:
         if not self._lookahead_fits(W):
             return 0              # speculative pages never preempt
         self._ensure_decode_pages(W)
+        # a constrained fallback row verifies only its grammar-valid prefix
+        # (the draft's rows propose under the mask already)
+        proposals = {i: self._truncate_for_grammar(i, p) for i, p in proposals.items()}
 
         slot_map = np.full((B,), -1, np.int64)
         temps = np.zeros((B,), np.float32)
@@ -2180,7 +2435,11 @@ class InferenceEngine:
             # rows are deterministic proposers (one-hot q)
             onehot[r] = depths[i] <= 0
         if k_exec > 0:
-            runner.propose(slot_map, last, sp, temps, draft_rows, k_exec)
+            # constrained rows draft under their grammar from their row
+            gst = np.zeros((B,), np.int32)
+            gst[:len(rows)] = self._gram_state[rows]
+            runner.propose(slot_map, last, sp, temps, draft_rows, k_exec,
+                           gst, self._verify_grammar(rows))
         prop_len = [depths[i] if depths[i] > 0 else len(proposals[i]) for i in rows]
         out, n_emit, lps = self._verify(
             rows, [[int(last[r])] + proposals[i] for r, i in enumerate(rows)],
@@ -2240,6 +2499,13 @@ class InferenceEngine:
                 if obs is not None:
                     obs(gap, req.tenant)
         req.output_tokens.append(token)
+        gs = self._gram_slots[slot_idx]
+        if gs is not None:
+            # the host mirror of the device grammar state (a window
+            # advanced the device's already): exact for the next sync
+            # upload, a preemption's replay and speculation's walks
+            gs.advance(token)
+            self._gram_state[slot_idx] = gs.base + gs.state
         ngram_idx = self._ngram_idx.get(slot_idx)
         if ngram_idx is not None:
             ngram_idx.append(token)

@@ -231,6 +231,50 @@ class Registry:
         return "\n".join(lines) + "\n"
 
 
+class _GrammarCollector:
+    """The gated ``kaito:grammar_*`` family: nothing until the grammar
+    cache has served a constrained request (``GrammarCache.touched``), so
+    a deployment that never sends ``response_format`` or ``tools`` keeps
+    the same exposition.  Gated at scrape time, since the first
+    constrained request can come long after registration."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def collect(self) -> Iterable[str]:
+        cache = self.engine.grammar_cache
+        if not cache.touched:
+            return
+        name = "kaito:grammar_compile_seconds"
+        yield f"# HELP {name} Schema/regex -> token-mask grammar compile latency"
+        yield f"# TYPE {name} histogram"
+        counts = list(cache.compile_bucket_counts)
+        cum = 0
+        for i, edge in enumerate(cache.compile_buckets):
+            cum += counts[i]
+            yield f'{name}_bucket{{le="{_fmt(edge)}"}} {cum}'
+        cum += counts[-1]
+        yield f'{name}_bucket{{le="+Inf"}} {cum}'
+        yield f"{name}_sum {_fmt(cache.compile_sum_seconds)}"
+        yield f"{name}_count {cache.compile_count}"
+        stats = cache.stats()
+        for key, help_ in (
+                ("grammar_cache_hits_total",
+                 "Constrained requests served a precompiled grammar"),
+                ("grammar_cache_misses_total",
+                 "Constrained requests that compiled a new grammar"),
+                ("grammar_cache_evictions_total",
+                 "Grammars LRU-evicted from the compile cache"),
+                ("grammar_requests_total",
+                 "Requests admitted with a decoding grammar attached"),
+                ("grammar_cache_entries",
+                 "Grammars resident in the compile cache")):
+            mname = f"kaito:{key}"
+            yield f"# HELP {mname} {help_}"
+            yield f"# TYPE {mname} gauge"
+            yield f"{mname} {_fmt(stats.get(key, 0))}"
+
+
 def _counter_fn(engine, key: str):
     return lambda: engine.counters.get(key, 0)
 
@@ -414,6 +458,9 @@ class EngineMetrics:
         Gauge("kaito:spec_depth",
               "Mean adaptive speculation depth over active slots", r,
               fn=lambda: engine.spec_depth)
+        # structured output: the collector itself gates on the first
+        # constrained request
+        r.register(_GrammarCollector(engine))
         # the P/D cost model's live constants (ROADMAP M18): 0 until the
         # first observed transfer / prefill provides a sample
         Gauge("kaito:pd_measured_net_bytes_s",

@@ -955,15 +955,6 @@ class TransformerLM(tnn.Module):
                        "final_norm")
         return cache, self._logits(x)
 
-    def verify_window(self, cache: KVCache, tokens, true_lens, page_tables,
-                      start_pos):
-        """Greedy verification (the n-gram path): the greedy next token
-        and its model logprob at every window position.  Returns (cache,
-        targets [B, W] int32, lps [B, W] fp32)."""
-        cache, logits = self.verify_window_logits(cache, tokens, true_lens,
-                                                  page_tables, start_pos)
-        return (cache,) + greedy_targets(logits)
-
     def decode(self, cache: KVCache, tokens, positions, page_tables,
                active=None):
         """One decode step.  tokens: [B] last sampled token; positions:
@@ -989,11 +980,14 @@ class TransformerLM(tnn.Module):
             self._norm(x[a:b], self.top, "final_norm")))
 
 
-def greedy_targets(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The argmax of fp32 logits [B, W, V] and its logprob under the
+def greedy_targets(logits: torch.Tensor, grammar_rows: Optional[torch.Tensor] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The argmax of fp32 logits [B, W, V] (plus the 0 / -inf
+    ``grammar_rows`` [B, W, V] when given) and its logprob under the
     unmodified distribution: (targets [B, W] int32, lps [B, W] fp32)."""
     B, W, V = logits.shape
-    targets = torch.argmax(logits, dim=-1).to(torch.int32)
+    masked = logits if grammar_rows is None else logits + grammar_rows
+    targets = torch.argmax(masked, dim=-1).to(torch.int32)
     lps = chosen_logprob(logits.reshape(B * W, V), targets.reshape(B * W))
     return targets, lps.reshape(B, W)
 
@@ -1193,12 +1187,6 @@ class TensorParallelLM:
         xs = self._run_layers(caches, ins, "prefill")
         return caches, self._logits([m._norm(x, m.top, "final_norm")
                                      for m, x in zip(self.shards, xs)])
-
-    def verify_window(self, caches: list, tokens, true_lens, page_tables,
-                      start_pos):
-        caches, logits = self.verify_window_logits(caches, tokens, true_lens,
-                                                   page_tables, start_pos)
-        return (caches,) + greedy_targets(logits)
 
     def decode(self, caches: list, tokens, positions, page_tables, active=None):
         ins = self._each("_decode_in", tokens, positions, page_tables, active)

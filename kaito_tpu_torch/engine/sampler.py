@@ -326,9 +326,14 @@ def _mask_min_p(scaled: torch.Tensor, state: SamplingState) -> torch.Tensor:
 
 def sample(logits: torch.Tensor, state: SamplingState, counts=None,
            prompt_seen=None, uniforms: Optional[torch.Tensor] = None,
-           active: Optional[torch.Tensor] = None) -> torch.Tensor:
+           active: Optional[torch.Tensor] = None,
+           grammar_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One token per row, int32 [B].  logits: [B, V] fp32; counts and
-    prompt_seen: the optional [B, V] penalty state.  When any row
+    prompt_seen: the optional [B, V] penalty state; grammar_rows: the
+    optional [B, V] fp32 0 / -inf grammar masks, gathered per row and
+    added after the penalties and before temperature, so the greedy,
+    top-k/top-p, min-p and categorical paths all honour them (an
+    unconstrained row carries an all-zero row).  When any row
     samples, every row's key splits (``new, sub = split(key)``), the
     draw is ``categorical(sub, scaled logits)``, and the keys of the
     ``active`` rows (every row when None) advance to ``new`` in place;
@@ -338,6 +343,8 @@ def sample(logits: torch.Tensor, state: SamplingState, counts=None,
     random_row, topk_topp, min_p, _ = state.gates()
     if counts is not None and counts.shape == logits.shape:
         logits = apply_penalties(logits, state, counts, prompt_seen)
+    if grammar_rows is not None:
+        logits = logits + grammar_rows
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if not random_row:
         return greedy
@@ -373,7 +380,8 @@ def spec_verify_sample(target_logits: torch.Tensor, draft_logits: torch.Tensor,
                        temperature: torch.Tensor, onehot_q: torch.Tensor,
                        keys: torch.Tensor, any_random: bool = True,
                        uniforms: Optional[torch.Tensor] = None,
-                       noise: Optional[torch.Tensor] = None):
+                       noise: Optional[torch.Tensor] = None,
+                       grammar_rows: Optional[torch.Tensor] = None):
     """Leviathan-style speculative verification
     (``kaito_tpu.engine.sampler.spec_verify_sample``): accept a prefix of
     the proposal, then draw one token from the residual distribution; the
@@ -392,7 +400,10 @@ def spec_verify_sample(target_logits: torch.Tensor, draft_logits: torch.Tensor,
     ``any_random`` False (every row greedy, a host gate) skips the
     residual's Gumbel draw, whose token a greedy row never takes.
     ``uniforms`` [B, K] and ``noise`` [B, V] (Gumbel) replace the keys'
-    draws, for tests.
+    draws, for tests.  ``grammar_rows`` [B, W, V] fp32 of 0 / -inf
+    grammar masks per window position: the verify distribution
+    renormalizes under the mask (the softmax of masked logits is the
+    constrained conditional), so constrained rows keep speculating.
 
     Returns (out [B, W] int32, n_emit [B] int32, lps [B, W] fp32,
     new_keys [B, 2]); out[:, :n_emit] are the emitted tokens, lps the
@@ -400,11 +411,13 @@ def spec_verify_sample(target_logits: torch.Tensor, draft_logits: torch.Tensor,
     B, W, V = target_logits.shape
     K = W - 1
     dev = target_logits.device
+    masked = target_logits if grammar_rows is None \
+        else target_logits + grammar_rows
     greedy_row = temperature <= 0.0
     temp = temperature.clamp_min(1e-6)[:, None, None]
     vocab = torch.arange(V, device=dev)
-    p_soft = torch.softmax(target_logits / temp, dim=-1)
-    p_hot = (vocab == torch.argmax(target_logits, dim=-1)[..., None]).to(p_soft.dtype)
+    p_soft = torch.softmax(masked / temp, dim=-1)
+    p_hot = (vocab == torch.argmax(masked, dim=-1)[..., None]).to(p_soft.dtype)
     p = torch.where(greedy_row[:, None, None], p_hot, p_soft)      # [B, W, V]
     q_soft = torch.softmax(draft_logits / temp, dim=-1)
     prop = proposal.long()

@@ -27,10 +27,23 @@ answers 408.  ``--itl`` records every inter-token gap
 Stdlib HTTP only: the engine thread does the work (prompt scoring
 included), handler threads stream its queues.
 
-Not ported yet: ``/debug/device``, P/D, the KV pool, adapters (and the
-QoS document's tenant-to-adapter map), the profiler routes and
-constrained decoding (``response_format`` and ``tools``).  Their routes
-answer 501.
+Structured output: ``response_format`` (``json_object``,
+``json_schema``, ``regex``) and a forced ``tool_choice`` (``required``
+or a named function) compile on the request thread into a grammar the
+engine masks decoding with; a structural mistake answers 400, a schema
+the compiler rejects 422 ``invalid_grammar_error``, and either under
+``--no-structured-output`` 400 ``structured_output_disabled``.  ``tools``
+are rendered into the system message in the preset's wire format;
+forced calls come back as ``tool_calls`` (streamed as argument deltas
+while they decode), ``auto`` parses the reply for calls.  Every
+non-streaming chat reply goes through ``parsers.parse_message``, which
+splits a leading ``<think>`` block into ``reasoning_content`` on presets
+with a reasoning parser.  The ``kaito:grammar_*`` families appear on
+``/metrics`` with the first constrained request.
+
+Not ported yet: ``/debug/device``, P/D and ``kv_transfer``, the KV pool,
+adapters (and the QoS document's tenant-to-adapter map) and the
+profiler routes.  They answer 501.
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
 llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
@@ -59,7 +72,13 @@ from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine.chat import render_chat
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+from kaito_tpu_torch.engine.grammar import (GrammarError, GrammarSpec, canonical_schema,
+                                            spec_from_response_format,
+                                            tool_envelope_schema)
 from kaito_tpu_torch.engine.metrics import EngineMetrics, Gauge
+from kaito_tpu_torch.engine.parsers import (StreamingToolCallParser,
+                                            parse_forced_tool_call, parse_message,
+                                            render_tools_prompt, tool_call_deltas)
 from kaito_tpu_torch.engine.qos import valid_tenant
 from kaito_tpu_torch.engine.rate_limit import RateLimiter
 from kaito_tpu_torch.models.registry import get_model_by_name, resolve_speculative_draft
@@ -374,15 +393,39 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         shed = st.limiter.shed_reason(eng, tenant=tenant)
         if shed is not None:
             return self._shed(shed)
-        for key in ("response_format", "tools", "tool_choice", "kv_transfer"):
-            if body.get(key) is not None:
-                return self._error(501, f"{key!r} is not implemented by the "
-                                        f"PyTorch engine yet", "not_implemented")
+        if body.get("kv_transfer") is not None:
+            return self._error(501, "'kv_transfer' is not implemented by the "
+                                    "PyTorch engine yet", "not_implemented")
+        tools, tool_choice = body.get("tools"), body.get("tool_choice")
+        if not chat and (tools is not None or tool_choice is not None):
+            return self._error(400, "'tools' and 'tool_choice' are only "
+                                    "supported on /v1/chat/completions")
+        # structured output: response_format, tools and tool_choice are
+        # validated and COMPILED here, on the request thread, before
+        # admission; the engine thread only sees a compiled grammar
+        forced_tools = use_tools = False
+        grammar_spec = None
         try:
             if chat:
                 messages = body.get("messages")
                 if not isinstance(messages, list) or not messages:
                     return self._error(400, "'messages' must be a non-empty list")
+                tool_setup = self._tool_intake(tools, tool_choice)
+                if isinstance(tool_setup, str):
+                    return self._error(400, tool_setup)
+                use_tools, forced_tools, grammar_spec = tool_setup
+                if use_tools:
+                    # advertise the tools in the model's own call format,
+                    # merged into a leading system message so templates
+                    # that keep one system block see both
+                    tp = render_tools_prompt(tools, mode=eng.md.tool_call_parser
+                                             or "hermes")
+                    messages = list(messages)
+                    if messages[0].get("role") == "system":
+                        messages[0] = {"role": "system", "content":
+                                       messages[0].get("content", "") + "\n\n" + tp}
+                    else:
+                        messages = [{"role": "system", "content": tp}] + messages
                 prompt_text = render_chat(eng.tokenizer, messages,
                                           model_id=eng.md.name)
             else:
@@ -392,6 +435,29 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                 if not isinstance(prompt, str) or prompt == "":
                     return self._error(400, "'prompt' must be a non-empty string")
                 prompt_text = prompt
+            rf = body.get("response_format")
+            if rf is not None:
+                if grammar_spec is not None:
+                    return self._error(400, "'response_format' cannot be combined "
+                                            "with a forced tool_choice (both "
+                                            "constrain the output grammar)")
+                try:
+                    grammar_spec = spec_from_response_format(rf)
+                except GrammarError as e:
+                    return self._error(400, str(e))
+            grammar = None
+            if grammar_spec is not None:
+                if not st.cfg.structured_output:
+                    return self._error(400, "structured output is disabled on this "
+                                            "server (structured_output=false)",
+                                       "structured_output_disabled")
+                try:
+                    grammar = eng.grammar_cache.get(grammar_spec, eng.tokenizer)
+                except GrammarError as e:
+                    # a well-formed request whose grammar does not compile
+                    # (state cap, a tokenizer dead end, an unsupported
+                    # construct)
+                    return self._error(422, str(e), "invalid_grammar_error")
             if chat:
                 want_lp = bool(body.get("logprobs"))
                 if int(body.get("top_logprobs", 0) or 0) > 0:
@@ -434,6 +500,7 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                                          or 1.0),
                 min_p=float(body.get("min_p", 0.0) or 0.0),
                 ignore_eos=bool(body.get("ignore_eos", False)),
+                grammar=grammar,
             )
             include_usage = bool((body.get("stream_options") or {})
                                  .get("include_usage"))
@@ -476,6 +543,9 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                 "created": int(time.time()),
                 "model": model_field or st.model_name}
         if stream:
+            if chat and use_tools:
+                return self._stream_tool_calls(reqs[0], base, forced_tools,
+                                               include_usage)
             return self._stream(reqs[0], base, chat, stop_strs, include_usage)
 
         outs = [list(r.stream()) for r in reqs]   # drain every choice
@@ -487,7 +557,8 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             st.metrics.observe_request(reqs[0])
             st.slo.observe_request(bad)
             return self._request_error(bad)
-        choices = [self._choice(idx, r, out_ids, chat, stop_strs, prompt_text)
+        choices = [self._choice(idx, r, out_ids, chat, stop_strs, prompt_text,
+                                (use_tools, forced_tools))
                    for idx, (r, out_ids) in enumerate(zip(reqs, outs))]
         completion = sum(len(o) for o in outs)
         resp = dict(base)
@@ -498,9 +569,40 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         st.note_tokens(reqs)
         self._json(200, resp)
 
-    def _choice(self, idx, req, out_ids, chat, stop_strs, prompt_text) -> dict:
+    def _tool_intake(self, tools, tool_choice):
+        """A chat request's tools: (use_tools, forced, grammar spec of the
+        forced call's envelope or None), or the 400's message."""
+        if tools is not None and (not isinstance(tools, list) or not tools or not all(
+                isinstance(t, dict) for t in tools)):
+            return "'tools' must be a non-empty list of tool objects"
+        if tool_choice is not None and not tools:
+            return "'tool_choice' requires 'tools'"
+        if not tools:
+            return False, False, None
+        choice = tool_choice if tool_choice is not None else "auto"
+        named = None
+        if isinstance(choice, dict):
+            named = (choice.get("function") or {}).get("name")
+            if choice.get("type") != "function" or not named:
+                return ("'tool_choice' object must be {\"type\": \"function\", "
+                        "\"function\": {\"name\": ...}}")
+        elif choice not in ("auto", "none", "required"):
+            return f"unknown tool_choice {choice!r}"
+        if named is None and choice != "required":
+            return choice == "auto", False, None
+        # a forced call: generation is constrained to the JSON envelope
+        try:
+            env = tool_envelope_schema(tools, names=[named] if named else None)
+        except GrammarError as e:
+            return str(e)
+        return True, True, GrammarSpec("json_schema", canonical_schema(env))
+
+    def _choice(self, idx, req, out_ids, chat, stop_strs, prompt_text,
+                tools=(False, False)) -> dict:
         """One choice of a finished request: its text cut at the first
-        stop string, with its logprobs aligned to the text returned."""
+        stop string, with its logprobs aligned to the text returned; a
+        chat reply parsed for reasoning and tool calls (``tools`` is
+        (use_tools, forced))."""
         tok = self.state.engine.tokenizer
         text = tok.decode(out_ids)
         finish = req.finish_reason or "stop"
@@ -534,8 +636,21 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                 lp_block = {"tokens": strs, "token_logprobs": lps,
                             "top_logprobs": None, "text_offset": offsets}
         if chat:
-            choice = {"index": idx, "message": {"role": "assistant", "content": text},
-                      "finish_reason": finish}
+            md = self.state.engine.md
+            use_tools, forced = tools
+            if forced:
+                # the grammar-forced envelope parses directly
+                parsed = parse_forced_tool_call(text)
+            else:
+                parsed = parse_message(text, reasoning=bool(md.reasoning_parser),
+                                       tools=use_tools, tool_mode=md.tool_call_parser)
+            message = {"role": "assistant", "content": parsed.content}
+            if parsed.reasoning_content is not None:
+                message["reasoning_content"] = parsed.reasoning_content
+            if parsed.tool_calls:
+                message["tool_calls"] = parsed.tool_calls
+            choice = {"index": idx, "message": message,
+                      "finish_reason": parsed.finish_reason or finish}
             if lp_block is not None:
                 choice["logprobs"] = lp_block
             return choice
@@ -635,6 +750,68 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             usage.update({"choices": [], "usage": {
                 "prompt_tokens": len(req.prompt_tokens),
                 "completion_tokens": n_out,
+                "total_tokens": len(req.prompt_tokens) + n_out}})
+            self._sse_send(usage)
+        st.observe(req)
+        st.note_tokens([req])
+        self._sse_end()
+
+
+    def _stream_tool_calls(self, req, base, forced: bool, include_usage: bool):
+        """Server-sent events of a chat request with tools.  A forced call
+        (``required`` or named) is grammar-constrained to the JSON
+        envelope, so its name and argument bytes stream as they decode;
+        ``auto`` buffers the whole reply and then sends EITHER its content
+        or its ``tool_calls``, so a client's accumulator never sees both
+        interleaved.  Errors as in :meth:`_stream`."""
+        st = self.state
+        eng = st.engine
+        toks = req.stream()
+        first_tok = next(toks, None)
+        if first_tok is None and req.finish_reason in ("error", "deadline"):
+            st.observe(req)
+            return self._request_error(req)
+        self._sse_start()
+
+        def send(delta, finish=None):
+            c = dict(base)
+            c["choices"] = [{"index": 0, "delta": delta, "finish_reason": finish}]
+            self._sse_send(c)
+
+        send({"role": "assistant"})
+        ids: list[int] = []
+        if forced:
+            parser, sent = StreamingToolCallParser(), ""
+            for tok in _chain(first_tok, toks):
+                ids.append(tok)
+                text = eng.tokenizer.decode(ids)
+                if text.endswith("\ufffd"):
+                    continue  # mid-codepoint; wait for more bytes
+                delta, sent = text[len(sent):], text
+                for d in parser.feed(delta):
+                    send({"tool_calls": [d]})
+            tail = eng.tokenizer.decode(ids)[len(sent):]
+            for d in parser.feed(tail) + parser.finish():
+                send({"tool_calls": [d]})
+            finish = "tool_calls"
+        else:
+            ids = list(_chain(first_tok, toks))
+            parsed = parse_message(eng.tokenizer.decode(ids),
+                                   reasoning=bool(eng.md.reasoning_parser), tools=True,
+                                   tool_mode=eng.md.tool_call_parser)
+            if parsed.content:
+                send({"content": parsed.content})
+            finish = req.finish_reason or "stop"
+            if parsed.tool_calls:
+                for d in tool_call_deltas(parsed.tool_calls):
+                    send({"tool_calls": [d]})
+                finish = "tool_calls"
+        send({}, finish=finish)
+        if include_usage:
+            n_out = len(req.output_tokens)
+            usage = dict(base)
+            usage.update({"choices": [], "usage": {
+                "prompt_tokens": len(req.prompt_tokens), "completion_tokens": n_out,
                 "total_tokens": len(req.prompt_tokens) + n_out}})
             self._sse_send(usage)
         st.observe(req)
@@ -769,6 +946,19 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
     ap.add_argument("--flight-max-bundles", type=int,
                     default=int(os.environ.get("KAITO_FLIGHT_MAX_BUNDLES", "16")),
                     help="bundles kept under --flight-dir (LRU by mtime)")
+    ap.add_argument("--no-structured-output", dest="structured_output",
+                    action="store_false",
+                    default=os.environ.get("KAITO_STRUCTURED_OUTPUT", "1") != "0",
+                    help="reject response_format and forced tool_choice with a "
+                         "typed 400 (structured_output_disabled); on by default "
+                         "and pay-per-use")
+    ap.add_argument("--grammar-cache-entries", type=int,
+                    default=int(os.environ.get("KAITO_GRAMMAR_CACHE_ENTRIES", "64")),
+                    help="compiled-schema LRU entries")
+    ap.add_argument("--grammar-max-states", type=int,
+                    default=int(os.environ.get("KAITO_GRAMMAR_MAX_STATES", "512")),
+                    help="DFA state cap per grammar; each state costs 8 bytes "
+                         "per vocabulary entry in the device mask table")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tensor-parallel-size", type=int, default=1,
                     help="shards over the first N cards (raises when fewer "
@@ -802,6 +992,9 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         kv_shed_threshold=args.kv_shed_threshold, itl_enabled=args.itl,
         slo_itl_p99_ms=args.slo_itl_p99_ms,
         slow_request_threshold_s=args.slow_request_threshold_s,
+        structured_output=args.structured_output,
+        grammar_cache_entries=args.grammar_cache_entries,
+        grammar_max_states=args.grammar_max_states,
         flight_dir=args.flight_dir, flight_max_bundles=args.flight_max_bundles,
         seed=args.seed,
         tensor_parallel=args.tensor_parallel_size, comm_overlap=args.comm_overlap,

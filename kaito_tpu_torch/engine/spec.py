@@ -27,6 +27,16 @@ Counterpart of ``kaito_tpu.engine.spec`` and of the verify programs of
   proposals and the draft's logits into buffers the verify graph reads,
   so a draft round reads nothing back before the verify.
 
+Under a grammar both stay graphs: each row carries its absolute row of
+the engine's packed grammar table (``gstate``); the scan masks the
+draft's logits with ``gmask[row]`` and advances ``row = gtrans[row,
+token]`` as it proposes (the masked logits are the draft's q), and the
+verify walks the same automaton along each row's proposal to give every
+window position its mask.  A graph that reads the table is keyed by the
+table's capacity, so an engine that grows the table drops it
+(:meth:`StaticGraphs.drop`); unconstrained rounds capture the graphs
+they always did.
+
 The draft pool is private: a draft page is never taken from the
 target's allocator, so speculation never preempts.  A round's proposal
 scan writes draft KV at positions ``p .. p + k_exec - 1``; after a round
@@ -53,7 +63,7 @@ import torch
 
 from kaito_tpu_torch.engine.decode_graph import StaticGraphs
 from kaito_tpu_torch.engine.kv_cache import create_kv_cache
-from kaito_tpu_torch.engine.model import TransformerLM
+from kaito_tpu_torch.engine.model import TransformerLM, greedy_targets
 from kaito_tpu_torch.engine.sampler import (accepted_prefix, categorical, fold_in,
                                             prng_key, slot_key, spec_verify_sample,
                                             split_keys)
@@ -202,6 +212,21 @@ class DepthController:
         return sum(ks) / len(ks) if ks else 0.0
 
 
+def grammar_rows(gtrans: torch.Tensor, gstart: torch.Tensor, prop: torch.Tensor,
+                 prop_len: torch.Tensor) -> torch.Tensor:
+    """[B, K + 1] absolute grammar-table rows of a verify window: the
+    rows' start ``gstart`` [B], then the automaton advanced along each
+    row's proposal ``prop`` [B, K]; a position past ``prop_len`` keeps
+    the last state.  Position j holds the state before the token
+    verified at j."""
+    st = gstart.long()
+    rows = [st]
+    for j in range(prop.shape[1]):
+        st = torch.where(j < prop_len, gtrans[st, prop[:, j].long()].long(), st)
+        rows.append(st)
+    return torch.stack(rows, dim=1)
+
+
 def width_bucket(pages: int, pages_per_seq: int) -> int:
     """Page-table columns a window's attention reads: the power of two
     at or above ``pages`` (the rows' history and window), at most the
@@ -256,7 +281,7 @@ class VerifyWindow(StaticGraphs):
         self.engine, self.B, self.W, self.draft = engine, B, W, draft
         self.layout = _Packed(dict(tokens=W, true_lens=1, start_pos=1, prop_len=1,
                                    temperature=1, onehot=1, use_draft=1, slot=1,
-                                   page_tables=engine.pages_per_seq))
+                                   gstate=1, page_tables=engine.pages_per_seq))
         dev = engine.device
         packed = torch.zeros((B, self.layout.width), dtype=torch.int32, device=dev)
         super().__init__({"packed": packed}, dev, capture, engine.counters,
@@ -269,14 +294,23 @@ class VerifyWindow(StaticGraphs):
     def _in(self, name: str) -> torch.Tensor:
         return self.layout.view(self.inputs["packed"], name)
 
-    def _body(self, width: int, any_random: bool) -> None:
+    def _body(self, width: int, any_random: bool, grammar: Optional[tuple]) -> None:
         eng, W, K = self.engine, self.W, self.W - 1
         toks = self._in("tokens")
         tl, sp = self._in("true_lens"), self._in("start_pos")
         prop_len = self._in("prop_len")
         pt = self._in("page_tables")[:, :width]
         if self.draft is None:
-            eng.cache, targets, lps = eng.model.verify_window(eng.cache, toks, tl, pt, sp)
+            eng.cache, logits = eng.model.verify_window_logits(eng.cache, toks, tl,
+                                                               pt, sp)
+            grows = None
+            if grammar is not None:
+                _, gmask, gtrans = grammar
+                grows = gmask[grammar_rows(gtrans, self._in("gstate"), toks[:, 1:],
+                                           prop_len)]
+            # the targets are the argmax of the (masked) logits, their
+            # logprobs the model's
+            targets, lps = greedy_targets(logits, grows)
             j = torch.arange(K, device=toks.device)[None, :]
             hit = (toks[:, 1:] == targets[:, :K]) & (j < prop_len[:, None])
             # the accepted proposals ARE the targets: emit targets[:a + 1]
@@ -291,10 +325,15 @@ class VerifyWindow(StaticGraphs):
             eng.cache, logits = eng.model.verify_window_logits(eng.cache, toks, tl,
                                                                pt, sp)
             slot = self._in("slot").long()
+            grows = None
+            if grammar is not None:
+                _, gmask, gtrans = grammar
+                grows = gmask[grammar_rows(gtrans, self._in("gstate"), prop, prop_len)]
             out, n_emit, lps, new_keys = spec_verify_sample(
                 logits, d.dlogits, prop, prop_len,
                 self._in("temperature").view(torch.float32),
-                self._in("onehot") != 0, d.keys[slot], any_random=any_random)
+                self._in("onehot") != 0, d.keys[slot], any_random=any_random,
+                grammar_rows=grows)
             d.keys.index_copy_(0, slot, new_keys)
         self.out[:, :W] = out
         self.out[:, W] = n_emit
@@ -302,25 +341,29 @@ class VerifyWindow(StaticGraphs):
 
     def _neutral(self):
         """Rows skipped (no window tokens, the null page only, the keys'
-        spare row) for the warm-up."""
+        spare row, the unconstrained grammar row) for the warm-up."""
         buf = self.inputs["packed"]
         saved = buf.clone()
         self._in("true_lens").zero_()
         self._in("page_tables").zero_()
+        self._in("gstate").zero_()
         self._in("slot").fill_(self.draft.spare if self.draft is not None else 0)
         return lambda: buf.copy_(saved)
 
-    def run(self, host: np.ndarray, width: int, any_random: bool) -> tuple:
+    def run(self, host: np.ndarray, width: int, any_random: bool,
+            grammar: Optional[tuple] = None) -> tuple:
         """One verify round from the packed host inputs (``layout``):
-        upload, run, read back.  Returns (tokens [B][W], emitted counts
-        [B], logprobs [B][W]) as lists."""
+        upload, run, read back.  ``grammar`` is None or the engine's
+        (capacity, gmask, gtrans) when a row is constrained; the graph is
+        keyed by (width, any_random, capacity).  Returns (tokens [B][W],
+        emitted counts [B], logprobs [B][W]) as lists."""
         self.upload({"packed": host})
         if self.capture:
-            self.replay((width, any_random),
-                        lambda: (lambda: self._body(width, any_random),
-                                 self._neutral, None))
+            key = (width, any_random, grammar[0] if grammar is not None else None)
+            self.replay(key, lambda: (lambda: self._body(width, any_random, grammar),
+                                      self._neutral, None))
         else:
-            self._body(width, any_random)
+            self._body(width, any_random, grammar)
             self.counters["spec_verify_eager_total"] += 1
         if self._cuda:
             self._host.copy_(self.out, non_blocking=True)
@@ -403,7 +446,7 @@ class DraftRunner:
         steps) and its graphs."""
         dev = self.device
         self.layout = _Packed(dict(last=1, positions=1, active=1, temperature=1,
-                                   slot=1, page_tables=self.pages_per_seq))
+                                   slot=1, gstate=1, page_tables=self.pages_per_seq))
         self.props = torch.zeros((B, W - 1), dtype=torch.int32, device=dev)
         self.dlogits = torch.zeros((B, W - 1, self.md.arch.vocab_size),
                                    dtype=torch.float32, device=dev)
@@ -483,7 +526,7 @@ class DraftRunner:
     def _scan_in(self, name: str) -> torch.Tensor:
         return self.layout.view(self.scan.inputs["packed"], name)
 
-    def _scan_body(self, k: int, any_random: bool) -> None:
+    def _scan_body(self, k: int, any_random: bool, grammar: Optional[tuple]) -> None:
         tok, pos = self._scan_in("last"), self._scan_in("positions")
         active = self._scan_in("active") != 0
         # the decode kernel takes contiguous page tables
@@ -492,9 +535,16 @@ class DraftRunner:
         slot = self._scan_in("slot").long()
         keys = self.keys[slot]
         rnd = temp > 0.0
+        if grammar is not None:
+            _, gmask, gtrans = grammar
+            gr = self._scan_in("gstate").long()
         for s in range(k):
             self.cache, logits = self.model.decode(self.cache, tok, pos, pt, active)
             logits = logits.float()
+            if grammar is not None:
+                # a constrained row proposes under its mask, and the
+                # masked logits are the q its tokens were drawn from
+                logits = logits + gmask[gr]
             nxt = torch.argmax(logits, dim=-1)
             if any_random:
                 keys, sub = split_keys(keys, 2)
@@ -503,6 +553,8 @@ class DraftRunner:
             nxt = nxt.to(torch.int32)
             self.props[:, s] = nxt
             self.dlogits[:, s] = logits
+            if grammar is not None:
+                gr = gtrans[gr, nxt.long()].long()
             tok, pos = nxt, pos + 1
         if any_random:
             # only the drafting rows' keys advance
@@ -514,11 +566,14 @@ class DraftRunner:
         active.zero_()
         return lambda: active.copy_(saved)
 
-    def propose(self, slot_map, last, positions, temps, active, k: int) -> None:
+    def propose(self, slot_map, last, positions, temps, active, k: int,
+                gstate=None, grammar: Optional[tuple] = None) -> None:
         """The k-step draft scan over the compact verify batch (``slot_map``
         engine slot per row, -1 padding; ``active`` the rows that draft
         this round, the others ride along on the null page); the
-        proposals and logits land in ``props`` / ``dlogits``."""
+        proposals and logits land in ``props`` / ``dlogits``.  With
+        ``grammar`` (the engine's (capacity, gmask, gtrans)) each row
+        drafts under its grammar from its table row in ``gstate``."""
         L = self.layout
         host = L.host(len(slot_map))
         idx = np.where(slot_map >= 0, slot_map, self.spare)
@@ -527,16 +582,18 @@ class DraftRunner:
         L.put(host, "active", np.asarray(active, np.int32))
         L.put(host, "temperature", np.asarray(temps, np.float32))
         L.put(host, "slot", idx)
+        if gstate is not None:
+            L.put(host, "gstate", gstate)
         L.put(host, "page_tables", self.tables[np.minimum(idx, len(self.tables) - 1)]
               * (slot_map >= 0)[:, None])
         self.scan.upload({"packed": host})
         any_random = bool(np.any(np.asarray(temps) > 0.0))
         if self.scan.capture:
-            self.scan.replay((k, any_random),
-                             lambda: (lambda: self._scan_body(k, any_random),
-                                      self._scan_neutral, None))
+            key = (k, any_random, grammar[0] if grammar is not None else None)
+            self.scan.replay(key, lambda: (lambda: self._scan_body(k, any_random, grammar),
+                                           self._scan_neutral, None))
         else:
-            self._scan_body(k, any_random)
+            self._scan_body(k, any_random, grammar)
 
     def commit(self, i: int, new_position: int) -> None:
         """After a verify round: advance the draft KV valid prefix (the

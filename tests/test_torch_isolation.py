@@ -38,8 +38,9 @@ def test_sources_found():
     assert PKG / "engine" / "quant.py" in SOURCES
     assert PKG / "engine" / "ops" / "quant_matmul.py" in SOURCES
     for mod in ("engine/prefix_cache.py", "engine/metrics.py", "engine/qos.py",
-                "engine/rate_limit.py", "engine/spec.py", "runtime/slo.py",
-                "utils/tracing.py", "utils/promtext.py", "utils/flightrec.py"):
+                "engine/rate_limit.py", "engine/spec.py", "engine/grammar.py",
+                "engine/parsers.py", "runtime/slo.py", "utils/tracing.py",
+                "utils/promtext.py", "utils/flightrec.py"):
         assert PKG / mod in SOURCES, mod
 
 

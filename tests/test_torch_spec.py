@@ -13,8 +13,9 @@ package's, on the CPU.
   the same keys every row's tokens and counts equal, logprobs within
   2e-5; the first-token marginal is the target distribution and a
   one-hot q's acceptance probability is p (the JAX tests' bounds).
-- ``verify_window_logits`` / ``verify_window`` against the JAX model at
-  rtol 1e-5 / atol 1e-5 in fp32, and the pools after the window.
+- ``verify_window_logits`` against the JAX model at rtol 1e-5 / atol
+  1e-5 in fp32, the pools after the window, and ``greedy_targets`` over
+  its logits.
 """
 
 import jax
@@ -31,7 +32,7 @@ from kaito_tpu.models import get_model_by_name as jax_model
 from kaito_tpu_torch.engine import sampler as ts
 from kaito_tpu_torch.engine import spec as tspec
 from kaito_tpu_torch.engine.kv_cache import create_kv_cache as t_cache
-from kaito_tpu_torch.engine.model import TransformerLM, params_from_jax
+from kaito_tpu_torch.engine.model import TransformerLM, greedy_targets, params_from_jax
 from kaito_tpu_torch.models import get_model_by_name
 from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -339,8 +340,7 @@ def test_verify_window_logits_match_jax(models, start):
     np.testing.assert_allclose(tc.k[:, 1:].numpy(), np.asarray(jc.k[:, 1:]), **TOL)
     np.testing.assert_allclose(tc.v[:, 1:].numpy(), np.asarray(jc.v[:, 1:]), **TOL)
     # the greedy reduction: the argmax and its logprob at every position
-    _, targets, lps = tm.verify_window(tc, torch.from_numpy(win), torch.from_numpy(wl),
-                                       torch.from_numpy(pt), torch.from_numpy(tl))
+    targets, lps = greedy_targets(tlg)
     np.testing.assert_array_equal(targets[:2, :3].numpy(),
                                   np.argmax(np.asarray(jlg)[:2, :3], axis=-1))
     np.testing.assert_allclose(
