@@ -136,8 +136,9 @@ order; any failure exits non-zero and prints no result:
    kernel nodes.  Then the server stops, the
    engine greedily decodes a batch of four prompts step by step, and an
    engine with the eager reference loop (``_eager_decode``; same config,
-   seed and weights) must emit the same tokens; its one-sequence tok/s,
-   ITL and launches a step are printed beside the captured engine's.
+   seed and weights) must emit the same tokens; its one-sequence tok/s
+   and ITL (33 tokens) and launches a step are printed beside the
+   captured engine's.
 5. Quantized, full width: the server, configured by its own command line
    (``--quantization int4 --kv-cache-dtype int8``), serves the same model
    and request mix; then a shorter ``--quantization int8`` leg (bf16 KV).
@@ -146,7 +147,8 @@ order; any failure exits non-zero and prints no result:
    before each leg and must grow.  Last, the bf16 server with
    ``--async-dispatch`` and the request mix of phase 4.  Each of these
    TP=1 legs is held against the eager loop as in phase 4.
-6. Tensor parallel, full width: the same model at TP=2 with the
+6. Tensor parallel, full width cut in depth: the same model at TP=2
+   (its 32 layers cut to 8) with the
    comm-overlap ring, its engine built on an explicit mesh (two cards, or
    two slots of one card, which the log names) and handed to
    ``make_server``: int4 weights + int8 KV with the request mix of phase
@@ -244,6 +246,29 @@ order; any failure exits non-zero and prints no result:
    kernel nodes and card ms of a constrained K=4 window against an
    unconstrained one, ms a token of one constrained sequence alone
    against plain, host calls and device kernels a decode step of each.
+12. Multi-LoRA serving (legs ``adapter-bf16`` and ``adapter-fp32``).
+   Full width: Llama-3.1-8B in bf16 (phase 4's config, the prefix cache
+   off) with ``--adapter-slots 4 --adapter-rmax 16``; five adapters on
+   all seven targets (three at r=16, one at r=8, one at alpha/r = 1.5)
+   written on the card by the port's own ``save_adapter``.  Four are
+   hot-loaded over ``POST /v1/adapters`` while a base request decodes;
+   ``GET /v1/adapters``, ``/v1/models``, ``kaito:adapter_*`` and one
+   completion per adapter by the ``model`` field answer.  On the engine
+   stepped directly: a mixed batch of 8 (two prompts under the base and
+   three adapters) against each row alone under phase 10's near-tie
+   rule, every adapter stream apart from the base's, every decode window
+   a graph replay, K1, K2 and K3 launched; then a load that evicts, a
+   fault back in and a DELETE leave the count of captured graphs and the
+   lanes' addresses unchanged, and the batch reruns to the same tokens.
+   Logged: the slot table's MiB, each hot-load's ms, ms a token of one
+   sequence alone (base and adapter), host calls and device kernels a
+   decode step of each, and the kernel nodes and card ms of a K=4
+   window of 8 rows with adapters and without.  Exact: ``tiny-llama-real``
+   in fp32 with ``--adapter-slots 2`` and three adapters, on the card and
+   on the CPU: a mixed batch (base and two adapters) equals each row
+   alone and the CPU engine token for token, and an evict -> fault
+   round trip leaves the adapter's lane bit-equal and its stream
+   unchanged.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -254,7 +279,7 @@ phase 3 and every server leg after phase 4's bf16 one (with
 and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
 ``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
-``spec-bf16``, ``grammar-bf16``), which
+``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -289,6 +314,7 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 FP32_ATOL, BF16_ATOL = 1e-4, 2e-2
 BIG = 1 << 30
 SLEEP_CYCLES = 100_000_000   # ~50 ms of GPU clock: longer than any queue of calls
+T_START = time.perf_counter()   # reset when main() starts
 
 
 # every kernel of the port: (record name, wrapper module, wrapper, the
@@ -337,7 +363,9 @@ def _counter(name):
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+    """A line on stderr, stamped with the seconds since the run started."""
+    print(f"[chip_smoke {time.perf_counter() - T_START:7.1f}s] {msg}", file=sys.stderr,
+          flush=True)
 
 
 def card_line() -> str:
@@ -2108,32 +2136,32 @@ def _api_calls(prof) -> dict:
     return calls
 
 
-def _profiled_request(engine, prompt, n, grammar=None):
+def _profiled_request(engine, prompt, n, grammar=None, adapter=""):
     """(host launch and copy calls, device kernels, decode steps, decode
     windows) of one greedy request of ``n`` tokens straight to the
-    serving engine (under ``grammar`` when given)."""
+    serving engine (under ``grammar``, through ``adapter`` when given)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     c = engine.counters
     steps0, windows0 = c["decode_steps_total"], c["decode_windows_total"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _timed_tokens(engine, prompt, n, grammar)
+        _timed_tokens(engine, prompt, n, grammar, adapter)
         torch.cuda.synchronize()
     kernels = sum(r[1] for r in _device_rows(prof))
     return (_api_calls(prof), kernels, c["decode_steps_total"] - steps0,
             c["decode_windows_total"] - windows0)
 
 
-def decode_readings(engine, prompt, label, grammar=None) -> dict:
-    """One sequence's decode as the engine runs it (under ``grammar``
-    when given): the host's launch and copy calls a decode step and a
-    decode window, and the device's kernels a step (a profiled 17-token
-    request less a profiled 1-token one, over their 16 decode steps),
-    and, for a captured engine, its captures, graph pool and each
-    graph's kernel nodes."""
-    calls1, k1, s1, w1 = _profiled_request(engine, prompt, 1, grammar)
-    calls17, k17, s17, w17 = _profiled_request(engine, prompt, 17, grammar)
+def decode_readings(engine, prompt, label, grammar=None, adapter="") -> dict:
+    """One sequence's decode as the engine runs it (under ``grammar``,
+    through ``adapter`` when given): the host's launch and copy calls a
+    decode step and a decode window, and the device's kernels a step (a
+    profiled 17-token request less a profiled 1-token one, over their 16
+    decode steps), and, for a captured engine, its captures, graph pool
+    and each graph's kernel nodes."""
+    calls1, k1, s1, w1 = _profiled_request(engine, prompt, 1, grammar, adapter)
+    calls17, k17, s17, w17 = _profiled_request(engine, prompt, 17, grammar, adapter)
     steps, windows = max(s17 - s1, 1), max(w17 - w1, 1)
     host = {k: calls17.get(k, 0) - calls1.get(k, 0)
             for k in set(calls1) | set(calls17)}
@@ -2210,7 +2238,7 @@ def compare_eager(cfg, prompt, label, metadata=None) -> dict:
             raise SmokeFailure(f"{label}: captured windows' greedy tokens differ from "
                                f"the eager loop's for prompts {diff}: {got} != {want}")
         ref.start()
-        single = _itl(_timed_tokens(ref, prompt, 129))
+        single = _itl(_timed_tokens(ref, prompt, 33))
         res = dict(single_stream=single, greedy_batch_equal=True,
                    decode=decode_readings(ref, prompt, label + " (eager reference)"))
     finally:
@@ -2367,14 +2395,16 @@ def _profile_prefill(base, warm=False):
     return res
 
 
-def _timed_tokens(engine, prompt: str, n: int, grammar=None) -> list[float]:
-    """Submit one greedy request (under ``grammar`` when given) straight
-    to the serving engine and stamp the host clock as each token is
-    delivered (the moment the server could stream it)."""
+def _timed_tokens(engine, prompt: str, n: int, grammar=None,
+                  adapter: str = "") -> list[float]:
+    """Submit one greedy request (under ``grammar``, through ``adapter``
+    when given) straight to the serving engine and stamp the host clock
+    as each token is delivered (the moment the server could stream it)."""
     from kaito_tpu_torch.engine.engine import SamplingParams
 
     req = engine.submit(engine.tokenizer.encode(prompt), SamplingParams(
-        max_tokens=n, temperature=0.0, ignore_eos=True, grammar=grammar))
+        max_tokens=n, temperature=0.0, ignore_eos=True, grammar=grammar),
+        adapter=adapter)
     stamps = [time.perf_counter() for _ in req.stream()]
     if len(stamps) != n:
         raise SmokeFailure(f"asked {n} tokens, got {len(stamps)}")
@@ -3147,10 +3177,11 @@ def _verify_ms(engine, label) -> dict:
 
     v = engine.spec_verify
     res = {}
-    for (width, rnd, gcap), g in v.graphs.items():
+    for (width, rnd, lora, gcap), g in v.graphs.items():
         grammar = "" if gcap is None else f" grammar {gcap}"
-        res[f"width {width} random {rnd}{grammar}"] = time_ms(g.graph.replay,
-                                                              iters=10)[0]
+        adapters = " adapters" if lora else ""
+        res[f"width {width} random {rnd}{adapters}{grammar}"] = time_ms(
+            g.graph.replay, iters=10)[0]
     m, c, a = engine.model, engine.cache, engine.md.arch
     width = max(w for w, *_ in v.graphs)
     B, W = v.B, v.W
@@ -3621,7 +3652,7 @@ def _g_window_ms(engine) -> dict:
                   "positions": np.full(S, 1024, np.int32),
                   "active": np.ones(S, bool), "left": np.full(S, 10**6, np.int32),
                   "page_tables": pages, "gstate": engine._gram_state * 0})
-        res["constrained" if key[2] is not None else "unconstrained"] = time_ms(
+        res["constrained" if key[-1] is not None else "unconstrained"] = time_ms(
             g.graph.replay, iters=10)[0]
     return res
 
@@ -3869,6 +3900,369 @@ def _g_spec_grammars(grammars) -> list:
     return [grammars["words"]] * 3 + [grammars["json_schema"]]
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: multi-LoRA serving
+# ---------------------------------------------------------------------------
+
+ADAPTER_LEG = ("adapter-bf16", "phase 12, bf16 multi-LoRA (4 slots, rmax 16)")
+ADAPTER_EXACT_LEG = ("adapter-fp32", "phase 12, fp32 multi-LoRA on tiny-llama-real")
+# the full-width leg's adapters: (name, rank, alpha); ad-1 at alpha/r = 1.5,
+# ad-4 only loaded to force an eviction
+_A_ADAPTERS = (("ad-0", 16, 16), ("ad-1", 16, 24), ("ad-2", 16, 32), ("ad-3", 8, 16),
+               ("ad-4", 16, 16))
+# the mixed batch: each of two prompts under the base and three adapters
+_A_PROMPTS = ((96, 121), (150, 122))
+_A_MIXED = ("", "ad-0", "ad-1", "ad-3")
+
+
+def _a_write(torch, engine, root, name, r, alpha, seed, device) -> str:
+    """An adapter for every site of ``engine``'s model, written by the
+    port's own ``save_adapter``: A ~ N(0, 1/in) and B ~ N(0, 1/(4r))
+    drawn on ``device`` from ``seed``, stored in the model's dtype."""
+    from kaito_tpu_torch.tuning.lora import ALL_TARGETS, LoraConfig, save_adapter
+
+    model = engine.model
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    tree = {}
+    for g in model.groups:
+        stack = {}
+        for t, (i, o) in model.lora_specs().get(g.name, {}).items():
+            a = torch.randn((g.count, i, r), generator=gen, device=device) / math.sqrt(i)
+            b = torch.randn((g.count, r, o), generator=gen, device=device) * (
+                0.5 / math.sqrt(r))
+            stack[f"{t}_lora_a"] = a.to(model.dtype)
+            stack[f"{t}_lora_b"] = b.to(model.dtype)
+        tree[g.name] = stack
+    path = os.path.join(root, name)
+    save_adapter(path, tree, LoraConfig(r=r, alpha=alpha, targets=ALL_TARGETS),
+                 engine.md.name)
+    return path
+
+
+def _a_http(base, method, path, body=None):
+    """(status, parsed body) of one request, an HTTP error included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _a_batch(engine, rows, n=32) -> list:
+    """``rows`` ((prompt text, adapter)) submitted together to a
+    not-started engine, greedy with logprobs, driven step by step."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    reqs = [engine.submit(engine.tokenizer.encode(p), SamplingParams(
+        max_tokens=n, temperature=0.0, ignore_eos=True, logprobs=True), adapter=a)
+        for p, a in rows]
+    for _ in range(20000):
+        engine.step()
+        if all(r.finish_reason for r in reqs):
+            break
+    if not all(r.finish_reason == "length" for r in reqs):
+        raise SmokeFailure(f"batch did not finish: {[r.finish_reason for r in reqs]}")
+    return reqs
+
+
+def _a_captures(engine) -> int:
+    """Graphs captured so far by every StaticGraphs of the engine."""
+    c = engine.counters
+    return sum(v for k, v in c.items() if k.endswith("_captures_total"))
+
+
+def _a_window_ms(engine, lanes) -> dict:
+    """Card ms of one replay of each captured K=4 window, eight rows
+    active at position 1024: the base window with every lane 0, the
+    adapter window with ``lanes`` (CUDA events; run last: a replay
+    writes KV and moves the carry)."""
+    import numpy as np
+
+    w, S = engine.window, len(engine.slots)
+    pps = engine.pages_per_seq
+    pages = (1 + np.arange(S * pps, dtype=np.int32) % (engine._num_pages - 1)).reshape(
+        S, pps)
+    res = {}
+    for (K, key), g in list(w.graphs.items()):
+        if K != 4 or key[-1] is not None:
+            continue
+        lora = bool(key[-2])
+        w.upload({"last_tokens": np.full(S, 65, np.int32),
+                  "positions": np.full(S, 1024, np.int32),
+                  "active": np.ones(S, bool), "left": np.full(S, 10**6, np.int32),
+                  "page_tables": pages,
+                  "slot_adapters": np.asarray(lanes if lora else [0] * S, np.int32)})
+        ms = time_ms(g.graph.replay, iters=10)[0]
+        res["adapters" if lora else "base"] = dict(window_ms=ms, step_ms=ms / 4,
+                                                   kernel_nodes=g.nodes["kernel"])
+    return res
+
+
+def run_adapter_phase(label) -> tuple[dict, dict]:
+    """Phase 12, full width: Llama-3.1-8B in bf16 (phase 4's config, the
+    prefix cache off), ``--adapter-slots 4 --adapter-rmax 16``.  Five
+    adapters on all seven targets written on the card by the port's own
+    ``save_adapter``; four hot-loaded over ``POST /v1/adapters`` while a
+    base request decodes, then served by the ``model`` field.  On the
+    engine stepped directly: a mixed batch of 8 (two prompts under the
+    base and three adapters) against each row alone (phase 10's near-tie
+    rule), every adapter stream apart from the base's, every window a
+    replay; a load that evicts, a fault back in and a DELETE, with the
+    graph count and the lanes' addresses unchanged and the batch
+    rerunning to the same tokens.  Returns the launches of K1, K2 and K3
+    and the readings."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+    from kaito_tpu_torch.engine.server import make_server, parse_args
+
+    counted = ("paged_decode_attention", "flash_prefill_attention",
+               "flash_prefill_packed")
+    for name in counted:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
+    cfg, _ = parse_args(["--model", _LLAMA, "--dtype", "bfloat16", "--max-num-seqs",
+                         "8", "--seed", "0", "--no-enable-prefix-caching",
+                         "--adapter-slots", "4", "--adapter-rmax", "16"])
+    t_leg = t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, device="cuda")
+    cache = engine.adapter_cache
+    stats: dict = dict(slot_table_mib=cache.table_bytes / 2**20,
+                       engine_up_s=time.perf_counter() - t0,
+                       kv_pages=engine._num_pages)
+    log(f"{label}: engine up in {stats['engine_up_s']:.1f}s; slot table "
+        f"{stats['slot_table_mib']:.1f} MiB (4 slots + the base lane, rmax 16); "
+        f"{engine._num_pages} KV pages")
+    root = tempfile.mkdtemp(prefix="kaito-lora-")
+    server = make_server(engine, cfg, host="127.0.0.1", port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        paths = {name: _a_write(torch, engine, root, name, r, alpha, 40 + i, "cuda")
+                 for i, (name, r, alpha) in enumerate(_A_ADAPTERS)}
+        stats["write_s_each"] = (time.perf_counter() - t0) / len(paths)
+        stats["artifact_mib"] = {n: os.path.getsize(os.path.join(p, "adapter.msgpack"))
+                                 / 2**20 for n, p in paths.items()}
+        engine.start()
+        if _a_http(base, "GET", "/v1/adapters")[1]["resident"]:
+            raise SmokeFailure(f"{label}: adapters resident before any load")
+        if "kaito:adapter_resident 0" not in _get(base + "/metrics")[1].decode():
+            raise SmokeFailure(f"{label}: no kaito:adapter_* family with the cache on")
+        # hot-loads while a base request decodes
+        bg: dict = {}
+
+        def base_traffic():
+            bg["resp"], bg["s"] = _completion(base, _prompt(200, 120), 256)
+
+        traffic = threading.Thread(target=base_traffic)
+        traffic.start()
+        time.sleep(1.0)
+        load_ms = {}
+        for name, *_ in _A_ADAPTERS[:4]:
+            t0 = time.perf_counter()
+            status, body = _a_http(base, "POST", "/v1/adapters",
+                                   {"name": name, "source": paths[name]})
+            load_ms[name] = (time.perf_counter() - t0) * 1e3
+            if status != 200 or body.get("loaded") != name:
+                raise SmokeFailure(f"{label}: POST {name} answered {status} {body}")
+        busy_during = engine.num_running
+        traffic.join()
+        if "resp" not in bg:
+            raise SmokeFailure(f"{label}: the base request failed during the loads")
+        stats["post_load_ms"] = load_ms
+        log(f"{label}: POST /v1/adapters hot-load ms {load_ms} ({busy_during} base "
+            f"sequence(s) decoding); artifacts MiB {stats['artifact_mib']}")
+        snap = _a_http(base, "GET", "/v1/adapters")[1]
+        if sorted(e["name"] for e in snap["resident"]) != ["ad-0", "ad-1", "ad-2",
+                                                           "ad-3"]:
+            raise SmokeFailure(f"{label}: snapshot {snap}")
+        models = [m["id"] for m in _a_http(base, "GET", "/v1/models")[1]["data"]]
+        if models[1:] != ["ad-0", "ad-1", "ad-2", "ad-3"]:
+            raise SmokeFailure(f"{label}: /v1/models {models}")
+        # one completion by each model field: the logprobs of its tokens
+        # tell the adapters apart (the byte tokenizer's text may be empty)
+        lps = {a: tuple(_completion(base, _prompt(96, 121), 16, logprobs=1,
+                                    **({"model": a} if a else {}))[0]["choices"][0][
+                                        "logprobs"]["token_logprobs"])
+               for a in _A_MIXED}
+        if len(set(lps.values())) != len(lps):
+            raise SmokeFailure(f"{label}: an adapter's completion equals another's "
+                               f"{lps}")
+        # readings of one sequence alone: base against an adapter
+        p = _prompt(200, 30)
+        alone = {}
+        for a in ("", "ad-1"):
+            alone["adapter" if a else "base"] = dict(
+                ms_per_token=1e3 / _itl(_timed_tokens(engine, p, 129, adapter=a))[
+                    "decode_tok_s"],
+                decode=decode_readings(engine, p, f"{label}, {a or 'base'}",
+                                       adapter=a))
+        stats["alone"] = {k: dict(ms_per_token=v["ms_per_token"],
+                                  device_kernels_per_step=v["decode"][
+                                      "device_kernels_per_step"],
+                                  host_calls_per_step=v["decode"]["host_calls_per_step"])
+                          for k, v in alone.items()}
+        log(f"{label}: one sequence alone {stats['alone']}")
+        engine.stop()
+
+        # the mixed batch of 8 against each row alone
+        rows = [(_prompt(n, salt), a) for a in _A_MIXED for n, salt in _A_PROMPTS]
+        mixed = _a_batch(engine, rows)
+        solo = [_a_batch(engine, [row])[0] for row in rows]
+        prefix = _same_or_tie(mixed, solo, label + ", mixed batch vs solo")
+        for j, (_, a) in enumerate(rows):
+            if a and mixed[j].output_tokens == mixed[j % 2].output_tokens:
+                raise SmokeFailure(f"{label}: row {j} ({a}) streams the base's tokens")
+        c = engine.counters
+        if c["decode_graph_replays_total"] < c["decode_windows_total"]:
+            raise SmokeFailure(f"{label}: a decode window was not a graph replay")
+        stats["mixed"] = dict(equal_prefix_vs_solo=prefix, tokens=32, rows=len(rows))
+        log(f"{label}: mixed batch of {len(rows)} against each row alone: equal "
+            f"prefixes {prefix} of 32; every adapter stream apart from the base's")
+        # churn: a load that evicts, a fault back in, a DELETE; ad-2 is
+        # touched first, so the load evicts ad-0 (the least recent) and the
+        # batch's rerun faults it back in
+        _a_batch(engine, [(rows[0][0], "ad-2")], n=4)
+        before = _a_captures(engine)
+        ptrs = {k: t.data_ptr() for k, t in engine.model.lora["dense"].items()}
+        status, body = _a_http(base, "POST", "/v1/adapters",
+                               {"name": "ad-4", "source": paths["ad-4"]})
+        evicted = cache.snapshot()["host_tier"]
+        if status != 200 or evicted != ["ad-0"]:
+            raise SmokeFailure(f"{label}: POST ad-4 {status} {body}, host tier "
+                               f"{evicted}")
+        faults = cache.faults_total
+        again = _a_batch(engine, rows)
+        if cache.faults_total <= faults:
+            raise SmokeFailure(f"{label}: no fault back in ({cache.snapshot()})")
+        status, body = _a_http(base, "DELETE", "/v1/adapters/ad-4")
+        if status != 200:
+            raise SmokeFailure(f"{label}: DELETE ad-4 answered {status} {body}")
+        third = _a_batch(engine, rows)
+        after = _a_captures(engine)
+        moved = [k for k, t in engine.model.lora["dense"].items()
+                 if t.data_ptr() != ptrs[k]]
+        if after != before or moved:
+            raise SmokeFailure(f"{label}: graphs captured {before} before the churn, "
+                               f"{after} after; lanes moved {moved}")
+        for j, (x, y, z) in enumerate(zip(mixed, again, third)):
+            if not x.output_tokens == y.output_tokens == z.output_tokens:
+                raise SmokeFailure(f"{label}: row {j} changed across the churn")
+        snap = cache.snapshot()
+        stats["churn"] = dict(captures=after, evicted=evicted,
+                              loads=snap["loads_total"],
+                              evictions=snap["evictions_total"],
+                              faults=snap["faults_total"], hits=snap["hits_total"])
+        log(f"{label}: load (evicting {evicted}), fault back in, DELETE: graphs "
+            f"captured {before} before and {after} after, lanes in place, the batch "
+            f"reruns to the same tokens; {stats['churn']}")
+        launches = {name: getattr(*_counter(name)) for name in counted}
+        # card ms of a K=4 window step, eight rows: base, and the batch's lanes
+        lanes = [engine.adapter_index.get(a, 0) for a in _A_MIXED for _ in _A_PROMPTS]
+        stats["window"] = _a_window_ms(engine, lanes)
+        stats["window_graphs"] = {g["key"]: g["nodes"]["kernel"]
+                                  for g in engine.window.stats()["graphs"]
+                                  if g["K"] == 4}
+        log(f"{label}: one K=4 window, 8 rows at 1024 (lanes {lanes}): "
+            f"{stats['window']}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+    del server, engine, cache
+    _release_card(torch)
+    stats["phase_s"] = time.perf_counter() - t_leg
+    log(f"{label}: launches {launches}; {stats['phase_s']:.1f}s")
+    return launches, stats
+
+
+def run_adapter_exact_phase(label) -> dict:
+    """Phase 12, exact: ``tiny-llama-real`` (its checkpoint) in fp32 with
+    ``--adapter-slots 2`` and three adapters (seeded, written by the
+    port's ``save_adapter``) on the card and on the CPU.  A mixed batch
+    (two prompts under the base and two adapters) equals each row alone
+    token for token on the card, and the CPU engine's tokens; an
+    evict -> fault round trip leaves the faulted adapter's lane bit-equal
+    and its greedy stream unchanged."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+    from kaito_tpu_torch.engine.server import parse_args
+
+    t_leg = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kaito-lora-")
+    cfg, _ = parse_args(["--model", "tiny-llama-real", "--weights-dir",
+                         os.path.join(REPO, "checkpoints", "tiny-llama-real"),
+                         "--dtype", "float32", "--max-model-len", "256",
+                         "--max-num-seqs", "8", "--no-enable-prefix-caching",
+                         "--adapter-slots", "2", "--adapter-rmax", "8"])
+    try:
+        cpu = InferenceEngine(cfg, device="cpu")
+        for i, (name, r, alpha) in enumerate((("ex-a", 4, 6), ("ex-b", 8, 8),
+                                              ("ex-c", 2, 4))):
+            _a_write(torch, cpu, root, name, r, alpha, 60 + i, "cpu")
+        cfg = dataclasses.replace(cfg, adapters_dir=root)
+        cpu = InferenceEngine(cfg, device="cpu")
+        card = InferenceEngine(cfg, device="cuda")
+        if sorted(card.adapter_index) != ["ex-b", "ex-c"] or \
+                card.adapter_cache.snapshot()["host_tier"] != ["ex-a"]:
+            raise SmokeFailure(f"{label}: boot residency {card.adapter_snapshot()}")
+        rows = [(_prompt(n, salt), a) for a in ("", "ex-b", "ex-c")
+                for n, salt in ((40, 131), (90, 132))]
+        mixed = [r.output_tokens for r in _a_batch(card, rows, n=24)]
+        solo = [_a_batch(card, [row], n=24)[0].output_tokens for row in rows]
+        on_cpu = [r.output_tokens for r in _a_batch(cpu, rows, n=24)]
+        if not mixed == solo == on_cpu:
+            raise SmokeFailure(f"{label}: mixed {mixed}, solo {solo}, CPU {on_cpu}")
+        for j in range(2, len(rows)):
+            if mixed[j] == mixed[j % 2]:
+                raise SmokeFailure(f"{label}: row {j} streams the base's tokens")
+        # ex-b's lane and stream; ex-c is touched, so ex-a faults in
+        # evicting ex-b (the least recent), then ex-b faults back in
+        ac = card.adapter_cache
+        lane = {k: t[:, ac.name_to_slot["ex-b"]].clone()
+                for k, t in card.model.lora["dense"].items()}
+        first = _a_batch(card, [rows[2]], n=24)[0].output_tokens
+        _a_batch(card, [(rows[0][0], "ex-c")], n=8)
+        _a_batch(card, [(rows[0][0], "ex-a")], n=8)
+        if "ex-b" in ac.name_to_slot:
+            raise SmokeFailure(f"{label}: ex-b was not evicted {ac.snapshot()}")
+        back = _a_batch(card, [rows[2]], n=24)[0].output_tokens
+        s = ac.name_to_slot["ex-b"]
+        same = all(torch.equal(t[:, s], lane[k]) for k, t in card.model.lora["dense"]
+                   .items())
+        if not same or back != first:
+            raise SmokeFailure(f"{label}: after evict -> fault ex-b's lane equal "
+                               f"{same}, stream {back} vs {first}")
+        res = dict(rows=len(rows), tokens=24, mixed_equals_solo_and_cpu=True,
+                   fault_round_trip_exact=True, faults=ac.faults_total)
+        log(f"{label}: the mixed batch of {len(rows)} equals each row alone and the "
+            f"CPU engine, token for token; evict -> fault leaves ex-b's lane "
+            f"bit-equal and its stream unchanged ({res})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del card, cpu
+    _release_card(torch)
+    res["phase_s"] = time.perf_counter() - t_leg
+    log(f"{label}: {res['phase_s']:.1f}s")
+    return res
+
+
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
 _LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
@@ -3888,13 +4282,17 @@ LEGS = (("bf16", "phase 4, bf16", _LLAMA, [],
         ("bf16-async", "phase 5, bf16, async dispatch", _LLAMA, ["--async-dispatch"],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
          True, 1, None, ()),
-        ("tp2-int4-kv8", "phase 6, TP=2 int4 weights + int8 KV, comm overlap", _LLAMA,
+        # TP >= 2 decodes eagerly (ROADMAP item 35), 5600-9100 host launches
+        # a step at 32 layers: the TP legs keep every width and 8 layers,
+        # which keeps the whole run well inside its time limit
+        ("tp2-int4-kv8", "phase 6, TP=2 int4 weights + int8 KV, comm overlap "
+         "(8 of 32 layers)", _LLAMA,
          ["--quantization", "int4", "--kv-cache-dtype", "int8", *_TP2],
          ("quant_matmul_int4_pf", "quant_matmul_int4", "paged_decode_attention_int8kv",
-          "flash_prefill_attention", "flash_prefill_packed"), True, 2, None, ()),
-        ("tp2-int8", "phase 6, TP=2 int8 weights, comm overlap", _LLAMA,
-         ["--quantization", "int8", *_TP2],
-         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2, None, ()),
+          "flash_prefill_attention", "flash_prefill_packed"), True, 2, 8, ()),
+        ("tp2-int8", "phase 6, TP=2 int8 weights, comm overlap (8 of 32 layers)",
+         _LLAMA, ["--quantization", "int8", *_TP2],
+         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2, 8, ()),
         ("moe-bf16", "phase 7, gpt-oss-20b MoE, bf16", _GPT_OSS, [],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
          True, 1, None, ()),
@@ -3936,7 +4334,8 @@ def main(argv=None) -> int:
                     help="skip the goldens (phase 3) and every server leg after "
                          "phase 4's bf16 one; no result line")
     ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [
-                        QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0]],
+                        QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0], ADAPTER_LEG[0],
+                        ADAPTER_EXACT_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -3945,6 +4344,8 @@ def main(argv=None) -> int:
                     help="seconds after which the run fails")
     args = ap.parse_args(argv)
     _watchdog(args.time_limit)
+    global T_START
+    T_START = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4096,10 +4497,27 @@ def main(argv=None) -> int:
                     f"{s['alone']['constrained_ms_per_token']:.3f}; grammar table "
                     f"{s['growth']['mib']:.1f} MiB after growth; one K=4 window "
                     f"(card ms) {s['window_ms']}")
+            if args.leg in (None, ADAPTER_LEG[0]) and not args.first_leg_only:
+                name, label = ADAPTER_LEG
+                launches, stats[label] = run_adapter_phase(label)
+                for kname, n in launches.items():
+                    if n <= 0:
+                        raise SmokeFailure(f"{kname} never launched in {label}")
+                    if not alone:
+                        records[kname].setdefault("launches_by_leg", {})[label] = n
+                s = stats[label]
+                log(f"{label} on {card}: ms a token alone: base "
+                    f"{s['alone']['base']['ms_per_token']:.3f}, adapter "
+                    f"{s['alone']['adapter']['ms_per_token']:.3f}; POST hot-load ms "
+                    f"{s['post_load_ms']}; one K=4 window of 8 rows {s['window']}")
+            if args.leg in (None, ADAPTER_EXACT_LEG[0]) and not args.first_leg_only:
+                name, label = ADAPTER_EXACT_LEG
+                stats[label] = run_adapter_exact_phase(label)
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0
         log(f"golden logprob diffs {golden_err}")
+        log(f"whole run: {time.perf_counter() - T_START:.1f}s")
         print(json.dumps({"server_legs": stats,
                           "golden_max_logprob_diff": golden_err}))
         print(card)

@@ -17,13 +17,16 @@ from that carry, which is what async dispatch feeds back (copying in
 only what the host changed; the synchronous loop copies every field).
 
 On one card (``capture=True``) each key — K, the sampler's gates,
-whether penalty state is live and, while a slot is constrained, the
-grammar table's capacity — is captured once: first one eager warm-up on
+whether penalty state is live, while a slot is constrained the grammar
+table's capacity, and whether a row runs an adapter — is captured once: first one eager warm-up on
 a side stream with every row inactive (inactive rows write only the null
 page and keep their sampling keys, and the kernels' first workspace use
 then happens outside capture, as they demand), then the capture, into
 one memory pool that every graph of the engine shares; from then on a
-call is one graph launch. A constrained window also reads the grammar
+call is one graph launch. A window with an adapter row reads each row's
+lane from the ``slot_adapters`` input, and the model's adapter lanes,
+which the adapter cache rewrites in place: loads, evictions and faults
+capture nothing again. A constrained window also reads the grammar
 table and carries each row's table row (``gstate``) as it does the
 tokens; a table that grows is new buffers, so the engine drops the
 graphs keyed on the old one (:meth:`StaticGraphs.drop`). Random draws
@@ -87,10 +90,11 @@ _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
 
 
 def run_steps(step: Callable, K: int, tok, pos, page_tables, act, left, stop,
-              grammar: Optional[tuple] = None):
+              grammar: Optional[tuple] = None, aids=None):
     """K fused decode steps, the body of the JAX engine's decode scan:
-    ``step(tok, pos, page_tables, act, grammar_rows) -> (next, logprob)``
-    runs the model and samples; a row that emits a stop id or spends its
+    ``step(tok, pos, page_tables, act, grammar_rows, aids) -> (next,
+    logprob)`` runs the model (through the rows' adapter lanes ``aids``
+    [S], or none) and samples; a row that emits a stop id or spends its
     budget goes inactive, so it writes no more KV.  ``grammar`` is None
     or (gmask [R, V] fp32, gtrans [R, V] int32, gstate [S] int32): each
     step gathers the rows' 0 / -inf mask rows ``gmask[gstate]`` into the
@@ -105,7 +109,7 @@ def run_steps(step: Callable, K: int, tok, pos, page_tables, act, left, stop,
         gmask, gtrans, gst = grammar
     for _ in range(K):
         grows = gmask[gst.long()] if gst is not None else None
-        nxt, lp = step(tok, pos, page_tables, act, grows)
+        nxt, lp = step(tok, pos, page_tables, act, grows, aids)
         nxt = torch.where(act, nxt, tok)
         if gst is not None:
             gst = torch.where(act, gtrans[gst.long(), nxt.long()], gst)
@@ -336,6 +340,7 @@ class DecodeWindow(StaticGraphs):
             "page_tables": full((S, pages_per_seq), torch.int32, 0),
             "stop": full((S, stop_width), torch.int32, -1),
             "gstate": full((S,), torch.int32, 0),
+            "slot_adapters": full((S,), torch.int32, 0),
         }, device, capture, counters, "decode_graph")
         self.step = step
         self._eager: dict[int, tuple] = {}
@@ -345,13 +350,14 @@ class DecodeWindow(StaticGraphs):
         return tuple(torch.empty((K, S), dtype=dt, device=self.device)
                      for dt in (torch.int32, torch.bool, torch.float32))
 
-    def _body(self, K: int, out: tuple, grammar: Optional[tuple] = None) -> None:
+    def _body(self, K: int, out: tuple, grammar: Optional[tuple] = None,
+              lora: bool = False) -> None:
         x = self.inputs
         if grammar is not None:
             grammar = (*grammar, x["gstate"])
         trace, carry = run_steps(self.step, K, x["last_tokens"], x["positions"],
                                  x["page_tables"], x["active"], x["left"], x["stop"],
-                                 grammar)
+                                 grammar, x["slot_adapters"] if lora else None)
         for o, t in zip(out, trace):
             o.copy_(t)
         for name, t in zip(CARRY, carry):
@@ -359,10 +365,12 @@ class DecodeWindow(StaticGraphs):
         if grammar is not None:
             x["gstate"].copy_(carry[-1])
 
-    def run(self, K: int, key: tuple, grammar: Optional[tuple] = None) -> tuple:
+    def run(self, K: int, key: tuple, grammar: Optional[tuple] = None,
+            lora: bool = False) -> tuple:
         """K decode steps from the inputs; the static ``[K, S]`` (tokens,
         active, logprobs), valid until the next window of the same K and
-        ``key`` (the sampler's gates, the penalty state's liveness and the
+        ``key`` (the sampler's gates, the penalty state's liveness,
+        ``lora``, whether the rows read their adapter lanes, and last the
         grammar table's capacity when a slot is constrained).  ``grammar``
         is None or the device table (gmask, gtrans): the window then
         masks each step from the ``gstate`` input and carries it on; a
@@ -372,7 +380,7 @@ class DecodeWindow(StaticGraphs):
             out = self._eager.get(K)
             if out is None:
                 out = self._eager[K] = self._outputs(K)
-            self._body(K, out, grammar)
+            self._body(K, out, grammar, lora)
             return out
 
         def make():
@@ -384,7 +392,7 @@ class DecodeWindow(StaticGraphs):
                 act.zero_()
                 return lambda: act.copy_(saved)
 
-            return (lambda: self._body(K, out, grammar)), neutral, out
+            return (lambda: self._body(K, out, grammar, lora)), neutral, out
 
         return self.replay((K, key), make).out
 

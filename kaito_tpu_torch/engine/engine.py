@@ -72,8 +72,20 @@ on the device); every sampled token of the slot, the first after
 prefill, a decode window's, a verify round's and a draft proposal's,
 is drawn under its current row, and the slot's row advances on the
 device and in the host mirror.
+Multi-LoRA (``adapter_slots``, else ``adapters_dir``): every request may
+name an adapter (``submit(adapter=...)``); each row of a batch applies
+its own adapter's low-rank deltas through the model's lanes, lane 0 the
+base.  With ``adapter_slots`` the lanes are the two-tier
+``adapter_cache.AdapterCache``, allocated once at boot and written in
+place on the engine thread (loads, evictions, faults, deletes), so no
+graph is captured again; without it the adapters of ``adapters_dir``
+are stacked at boot (``adapters.load_adapter_stacks``), or merged into
+the base weights on a model with no sites (MLA).  Adapter requests
+never share prefix-cache pages, fresh prompts pack per adapter, and the
+decode and verify windows take each row's lane (``slot_adapters``) as an
+input; a window with no adapter row runs the base graph.
 Not ported yet, and rejected at construction with the ROADMAP item that
-carries them: adapters, pipeline, data,
+carries them: pipeline, data,
 sequence and expert parallelism, the KV pool, host offload and P/D, and
 the device profiler.
 """
@@ -93,6 +105,9 @@ import numpy as np
 import torch
 
 from kaito_tpu_torch.device import resolve_device
+from kaito_tpu_torch.engine.adapter_cache import AdapterCache, AdapterLoadError
+from kaito_tpu_torch.engine.adapters import (apply_adapters_to_params,
+                                             discover_adapters, load_adapter_stacks)
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.decode_graph import (DecodeWindow, TraceReadback,
                                                  run_steps)
@@ -144,8 +159,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 # (config field, value counts as "on", ROADMAP item that ports it)
 _UNPORTED = (
-    ("adapters_dir", bool, "queue 1, M16 multi-LoRA"),
-    ("adapter_slots", bool, "queue 1, M16 multi-LoRA"),
     ("kv_pool_enabled", bool, "queue 1, M18 KV movement"),
     ("kv_pool_disk_bytes", bool, "queue 1, M18 KV movement"),
     ("host_kv_offload_bytes", bool, "queue 1, M18 KV movement"),
@@ -275,6 +288,8 @@ class Request:
     # the ITL recorder's stamp of the last token retired: on the
     # request, so a gap spanning a preemption counts as one stall
     last_emit_time: Optional[float] = None
+    # per-request LoRA adapter name ("" = the base model)
+    adapter: str = ""
 
     def resume_tokens(self) -> list[int]:
         """Prompt plus everything generated so far — what a preempted
@@ -382,7 +397,7 @@ class InferenceEngine:
     # (uploading a stale mirror would roll the device state back);
     # page_tables is written by the host alone and safe to upload.
     _STATE_FIELDS = ("last_tokens", "positions", "active", "page_tables", "left",
-                     "gstate")
+                     "gstate", "slot_adapters")
     _DEVICE_ADVANCED = frozenset(("last_tokens", "positions", "active", "left",
                                   "gstate"))
 
@@ -455,6 +470,8 @@ class InferenceEngine:
             logger.info("MoE: %d experts, top-%d, expert products %s",
                         arch.num_experts, arch.num_experts_per_tok,
                         self.model.moe_impl)
+        # multi-LoRA: the lanes are resident before the page pool is sized
+        self._init_adapters()
         # draft-model speculation: the draft's weights and page pool are
         # resident before the target's pool is sized from what is free
         self.spec_draft: Optional[DraftRunner] = None
@@ -498,6 +515,7 @@ class InferenceEngine:
         self.active = np.zeros((S,), bool)
         self.last_tokens = np.zeros((S,), np.int32)
         self._remaining = np.zeros((S,), np.int32)
+        self.slot_adapters = np.zeros((S,), np.int32)   # 0 = the base lane
         self.sampling = SamplingState.create(S, cfg.seed, self.device)
         # penalty state allocates on the first penalized admission
         self.token_counts: Optional[torch.Tensor] = None   # [S, V] int32
@@ -675,6 +693,52 @@ class InferenceEngine:
     # Construction helpers
     # ------------------------------------------------------------------
 
+    def _init_adapters(self) -> None:
+        """The JAX engine's boot path: with ``adapter_slots`` the two-tier
+        cache (its lanes allocated now, the directory's adapters loaded
+        into it); else the directory's adapters stacked into fixed lanes,
+        or merged into the base weights when the model has no sites.
+        Nothing at all without adapter config."""
+        cfg = self.cfg
+        self.adapter_index: dict[str, int] = {}
+        self.adapters_merged = False
+        self.adapter_cache: Optional[AdapterCache] = None
+        # refusal reason -> count (kaito:adapter_load_failures_total)
+        self.adapter_load_failures: dict[str, int] = {}
+        if cfg.adapter_slots > 0 and not self.model.is_mla:
+            self.adapter_cache = AdapterCache(
+                self.model, slots=cfg.adapter_slots, rmax=cfg.adapter_rmax,
+                base_model=self.md.name, host_bytes=cfg.adapter_host_bytes,
+                allow_base_mismatch=cfg.adapter_allow_base_mismatch)
+            self.adapter_cache.busy_fn = self._adapter_busy
+            self.adapter_load_failures = self.adapter_cache.load_failures
+            # the cache's residency map, mutated in place
+            self.adapter_index = self.adapter_cache.name_to_slot
+            for name, path in discover_adapters(cfg.adapters_dir).items():
+                try:
+                    self.adapter_cache.load_from_path(name, path)
+                except AdapterLoadError:
+                    pass        # counted and logged by the cache
+        elif cfg.adapters_dir or cfg.adapter_slots > 0:
+            if cfg.adapter_slots > 0:
+                logger.warning("adapter cache requested but MLA has no adapter "
+                               "sites; falling back to boot-time discovery")
+            serve_lora, self.adapter_index = load_adapter_stacks(
+                self.model, cfg.adapters_dir, self.md.name,
+                allow_base_mismatch=cfg.adapter_allow_base_mismatch,
+                refusals=self.adapter_load_failures)
+            if serve_lora:
+                self.model.set_lora(serve_lora)
+            elif discover_adapters(cfg.adapters_dir):
+                if self.mesh is not None:
+                    raise NotImplementedError(
+                        "merging adapters into tensor-parallel shards")
+                # no sites (MLA) or no routable targets: merge into the base
+                # weights, so the advertised adapters still take effect
+                self.model.load_params(apply_adapters_to_params(
+                    self.model, self.model.param_tree(), cfg.adapters_dir))
+                self.adapters_merged = True
+
     def _resolve_comm_overlap(self) -> bool:
         """The collective-compute overlap gate (``cfg.comm_overlap``; None
         follows KAITO_COMM_OVERLAP, off when unset).  It engages only on a
@@ -766,10 +830,13 @@ class InferenceEngine:
                req_id: Optional[str] = None,
                trace_id: Optional[str] = None,
                timeout_s: Optional[float] = None,
-               tenant: str = "", priority: str = "") -> Request:
+               tenant: str = "", priority: str = "",
+               adapter: str = "") -> Request:
         """Queue a request.  ``timeout_s`` (else ``request_timeout_s``;
         0 is none) sets its deadline; ``tenant`` and ``priority`` (a
-        class name) place it under QoS."""
+        class name) place it under QoS; ``adapter`` names its LoRA
+        adapter (ValueError when unknown; a demoted one faults back in
+        here)."""
         n = len(prompt_tokens)
         if n < 1:
             raise ValueError("prompt must hold at least one token")
@@ -781,6 +848,7 @@ class InferenceEngine:
                              f"{self._capacity_tokens} tokens")
         if params.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {params.max_tokens}")
+        self._resolve_adapter(adapter)
         t, prio = self._resolve_qos(tenant, priority)
         deadline = self._deadline_for(timeout_s)
         with self._lock:
@@ -788,7 +856,7 @@ class InferenceEngine:
             rid = req_id or f"req-{self.counters['requests_total']}"
             req = Request(rid, list(prompt_tokens), params,
                           trace_id=trace_id or rid, deadline=deadline,
-                          tenant=t, priority=prio)
+                          tenant=t, priority=prio, adapter=adapter)
             self._waiting_count += 1
             if self.qos is None:
                 self.waiting.append(req)
@@ -796,6 +864,65 @@ class InferenceEngine:
                 self._qos_push_locked(req)
         self._wake.set()
         return req
+
+    # -- multi-LoRA admin ------------------------------------------------
+
+    def _resolve_adapter(self, adapter: str) -> None:
+        """Validate an adapter for a submission; with the cache, a demoted
+        one is faulted back into a slot on the engine thread."""
+        if not adapter:
+            return
+        if self.adapter_cache is not None:
+            try:
+                self._on_engine_thread(lambda: self.adapter_cache.ensure(adapter))
+            except KeyError:
+                raise ValueError(f"unknown adapter {adapter!r}") from None
+        elif adapter not in self.adapter_index:
+            raise ValueError(f"unknown adapter {adapter!r}")
+
+    def _adapter_busy(self, name: str) -> bool:
+        """In-flight work references the adapter: a slot's request
+        (prefilling or decoding) or a queued one.  A busy adapter is
+        pinned: the cache neither evicts nor overwrites it."""
+        if getattr(self, "_tenant_queues", None) is None:
+            return False        # boot: nothing in flight yet
+        if any(s.request is not None and s.request.adapter == name
+               for s in self.slots):
+            return True
+        with self._lock:
+            if any(r.adapter == name for r in self.waiting):
+                return True
+            return any(r.adapter == name for q in self._tenant_queues.values()
+                       for r in q)
+
+    def adapter_snapshot(self) -> Optional[dict]:
+        """The ``GET /v1/adapters`` payload; None when the cache is off."""
+        if self.adapter_cache is None:
+            return None
+        return self.adapter_cache.snapshot()
+
+    def load_adapter_dynamic(self, name: str, path: str) -> int:
+        """Hot-load an artifact directory into a slot (POST /v1/adapters):
+        read here, written into its lane on the engine thread.  Raises
+        AdapterLoadError (a ValueError) on refusal, AdapterBusyError when
+        in-flight work pins the adapter."""
+        if self.adapter_cache is None:
+            raise RuntimeError("adapter cache is not enabled")
+        adapter, r, scaling, base = self.adapter_cache.read(name, path)
+        return self._on_engine_thread(lambda: self.adapter_cache.install(
+            name, adapter, r=r, scaling=scaling, base=base))
+
+    def delete_adapter(self, name: str) -> bool:
+        """Drop an adapter from both tiers (DELETE /v1/adapters), on the
+        engine thread.  AdapterBusyError while in-flight work pins it."""
+        if self.adapter_cache is None:
+            raise RuntimeError("adapter cache is not enabled")
+        return self._on_engine_thread(lambda: self.adapter_cache.remove(name))
+
+    def _adapter_live(self) -> bool:
+        """Whether a slot holds an adapter request: windows then read the
+        lanes."""
+        return bool(self.slot_adapters.any())
 
     def _deadline_for(self, timeout_s: Optional[float]) -> Optional[float]:
         """Absolute monotonic deadline from a per-request timeout,
@@ -1135,7 +1262,9 @@ class InferenceEngine:
         even when the slot wrote fewer (a preempted prefill whose whole
         prompt was cached), so their references always return."""
         slot = self.slots[slot_idx]
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and slot.request.adapter:
+            self.prefix_cache.release_uncommitted([], slot.pages)
+        elif self.prefix_cache is not None:
             tokens = slot.request.resume_tokens()[:max(slot.written,
                                                        slot.shared_tokens)]
             if commit:
@@ -1160,8 +1289,9 @@ class InferenceEngine:
         self.slots[slot_idx] = _Slot()
         self.active[slot_idx] = False
         self._remaining[slot_idx] = 0
+        self.slot_adapters[slot_idx] = 0
         self._batch_epoch += 1
-        self._mark_state_dirty("active", "left")
+        self._mark_state_dirty("active", "left", "slot_adapters")
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -1278,6 +1408,9 @@ class InferenceEngine:
                 self._expire_request(req)
                 admitted = True
                 continue
+            if req.adapter and not self._adapter_resident(req):
+                admitted = True
+                continue
             if req.params.grammar is not None:
                 verdict = self._reserve_grammar_table(req.params.grammar)
                 if verdict == "wait":
@@ -1292,6 +1425,23 @@ class InferenceEngine:
             if not self._admit(req, free_slot):
                 return admitted      # page OOM: requeued, stall admission
             admitted = True
+
+    def _adapter_resident(self, req: Request) -> bool:
+        """Make sure an adapter request's adapter holds a lane before it
+        is admitted (a load since its submission may have evicted it:
+        fault it back in); if it cannot, the request fails alone (503
+        ``adapter_unavailable``)."""
+        if req.adapter in self.adapter_index:
+            return True
+        try:            # only the cache's residency changes after submission
+            self.adapter_cache.ensure(req.adapter)
+            return True
+        except (KeyError, AdapterLoadError) as e:
+            req.error = {"status": 503, "type": "adapter_unavailable",
+                         "message": f"adapter {req.adapter!r} could not be "
+                                    f"loaded: {e}"}
+        self._fail_request(req)
+        return False
 
     def _admit(self, req: Request, free_slot: int) -> bool:
         """Reserve the prompt's pages (plus one decode token) and stage
@@ -1313,7 +1463,10 @@ class InferenceEngine:
                 return False
         shared = cached = 0
         if self.prefix_cache is not None:
-            res = self.prefix_cache.acquire(tokens, n + 1)
+            # an adapter's KV carries its k/v deltas: its pages are
+            # exclusive (an empty-token acquire shares nothing), never
+            # matched and never committed
+            res = self.prefix_cache.acquire([] if req.adapter else tokens, n + 1)
             if res is None:
                 self._requeue_front(req)
                 return False
@@ -1326,7 +1479,8 @@ class InferenceEngine:
         slot = self.slots[free_slot]
         self.page_tables[free_slot] = 0
         self.page_tables[free_slot, :len(pages)] = pages
-        self._mark_state_dirty("page_tables")
+        self.slot_adapters[free_slot] = self.adapter_index.get(req.adapter, 0)
+        self._mark_state_dirty("page_tables", "slot_adapters")
         slot.request = req
         slot.pages = list(pages)
         self._admit_seq += 1
@@ -1348,7 +1502,7 @@ class InferenceEngine:
                            pages=len(pages), resume=req.preemptions)
         if cached:
             self.counters["prefix_cached_tokens_total"] += cached
-        if self.prefix_cache is not None and not req.preemptions:
+        if self.prefix_cache is not None and not req.preemptions and not req.adapter:
             self.counters["prefix_cache_hits_total" if cached
                           else "prefix_cache_misses_total"] += 1
         p = req.params
@@ -1416,9 +1570,9 @@ class InferenceEngine:
         """Token-budget prefill (docs/prefill.md): a PACK of staged slots,
         in admission order, whose chunks fill ``max_prefill_tokens`` as
         an aggregate budget.  Fresh-complete prompts segment-pack into
-        one row (a single one takes the fresh family; an MLA model, which
-        has no packed prefill, batches them on the batch axis per
-        bucket); continuation chunks batch on the batch axis per
+        one row per adapter (a single one takes the fresh family; an MLA
+        model, which has no packed prefill, batches them on the batch
+        axis per bucket); continuation chunks batch on the batch axis per
         bucket."""
         staged = sorted(self._staged(), key=lambda i: (-self.slots[i].request.priority,
                                                        self.slots[i].seq))
@@ -1446,7 +1600,8 @@ class InferenceEngine:
         for p in picks:
             _, pos, take, n = p
             if pos == 0 and take == n:
-                gk = ("fresh", self._bucket(take)) if mla else ("seg",)
+                gk = (("fresh", self._bucket(take)) if mla
+                      else ("seg", int(self.slot_adapters[p[0]])))
             else:
                 gk = ("ctx", self._bucket(take))
             groups.setdefault(gk, []).append(p)
@@ -1520,10 +1675,17 @@ class InferenceEngine:
         for j, (i, _, _, n) in enumerate(rows):
             toks[j, :n] = self.slots[i].prefill_tokens
             tls[j] = n
-        pts = self.page_tables[[r[0] for r in rows]]
+        idxs = [r[0] for r in rows]
         self.cache, logits, _ = self.model.prefill(
-            self.cache, self._tensor(toks), self._tensor(tls), self._tensor(pts))
+            self.cache, self._tensor(toks), self._tensor(tls),
+            self._tensor(self.page_tables[idxs]), adapter_ids=self._ids_tensor(idxs))
         return logits
+
+    def _ids_tensor(self, idxs) -> Optional[torch.Tensor]:
+        """The lanes of slots ``idxs`` on the device, or None when all are
+        the base's (the model then runs no adapter site)."""
+        a = self.slot_adapters[idxs]
+        return self._tensor(a) if a.any() else None
 
     def _dispatch_prefill_ctx(self, rows):
         """Chunks on the batch axis, each attending over its own paged
@@ -1537,18 +1699,19 @@ class InferenceEngine:
             toks[j, :take] = self.slots[i].prefill_tokens[pos:pos + take]
             tls[j] = take
             sps[j] = pos
-        pts = self.page_tables[[r[0] for r in rows]]
+        idxs = [r[0] for r in rows]
         self.cache, logits, _ = self.model.prefill(
-            self.cache, self._tensor(toks), self._tensor(tls), self._tensor(pts),
-            start_pos=self._tensor(sps))
+            self.cache, self._tensor(toks), self._tensor(tls),
+            self._tensor(self.page_tables[idxs]), start_pos=self._tensor(sps),
+            adapter_ids=self._ids_tensor(idxs))
         return logits
 
     def _dispatch_prefill_packed(self, rows):
         """Segment packing: S fresh prompts concatenated into ONE padded
         row with per-token segment ids, positions and page targets (for
         an int8 cache also the pack's pages and each token's index into
-        them, pads pointing one past the end).  Returns last-token logits
-        [S, V] in pack order."""
+        them, pads pointing one past the end).  The rows share one
+        adapter.  Returns last-token logits [S, V] in pack order."""
         ps = self.cfg.page_size
         T = self._bucket(sum(take for (_, _, take, _) in rows))
         S = len(rows)
@@ -1577,7 +1740,8 @@ class InferenceEngine:
             self.cache, self._tensor(toks), self._tensor(segs), self._tensor(poss),
             self._tensor(tok_pages), self._tensor(last_idx),
             self._tensor(np.asarray(pack_pages, np.int32)) if quant else None,
-            self._tensor(tok_pgslot) if quant else None)
+            self._tensor(tok_pgslot) if quant else None,
+            adapter_ids=self._ids_tensor([rows[0][0]]))
         return logits
 
     def _sample_first_batch(self, idxs: list[int], logits
@@ -1821,12 +1985,13 @@ class InferenceEngine:
         self._gram_version = tbl.version
 
     def _drop_grammar_graphs(self, cap: int) -> int:
-        """Drop every graph keyed on the grammar table of ``cap`` rows."""
+        """Drop every graph keyed on the grammar table of ``cap`` rows (the
+        last element of a window's and a verify graph's key)."""
         n = 0
         if self.window is not None:
-            n += self.window.drop(lambda k: k[1][2] == cap)
+            n += self.window.drop(lambda k: k[1][-1] == cap)
         if self.spec_verify is not None:
-            n += self.spec_verify.drop(lambda k: k[2] == cap)
+            n += self.spec_verify.drop(lambda k: k[-1] == cap)
         if self.spec_draft is not None and self.spec_draft.scan is not None:
             n += self.spec_draft.scan.drop(lambda k: k[2] == cap)
         return n
@@ -1892,14 +2057,18 @@ class InferenceEngine:
 
     def _decode_inputs(self):
         """Device inputs of the eager reference loop's decode steps, the
-        page tables at the full width the decode window passes."""
+        page tables at the full width the decode window passes, and the
+        slots' adapter lanes (None while no slot holds an adapter)."""
+        aids = self._tensor(self.slot_adapters) if self._adapter_live() else None
         return (self._tensor(self.last_tokens), self._tensor(self.positions),
-                self._tensor(self.page_tables), self._tensor(self.active))
+                self._tensor(self.page_tables), self._tensor(self.active), aids)
 
-    def _decode_step(self, tok, pos, pt, act, grammar_rows=None):
+    def _decode_step(self, tok, pos, pt, act, grammar_rows=None, aids=None):
         """One model step + sampling on the device (under the rows'
-        grammar masks when given); (next, logprob under the model)."""
-        self.cache, logits = self.model.decode(self.cache, tok, pos, pt, act)
+        grammar masks when given, through the rows' adapter lanes
+        ``aids`` when given); (next, logprob under the model)."""
+        self.cache, logits = self.model.decode(self.cache, tok, pos, pt, act,
+                                               adapter_ids=aids)
         nxt = sample(logits, self.sampling, self.token_counts, self.prompt_seen,
                      active=act, grammar_rows=grammar_rows)
         lp = chosen_logprob(logits, nxt)
@@ -1912,11 +2081,11 @@ class InferenceEngine:
         if self.window is not None:
             self._decode_window(1)
             return
-        tok, pos, pt, act = self._decode_inputs()
+        tok, pos, pt, act, aids = self._decode_inputs()
         grows = None
         if self._grammar_live():
             grows = self._gmask[self._tensor(self._gram_state.astype(np.int64))]
-        nxt, lps = self._decode_step(tok, pos, pt, act, grows)
+        nxt, lps = self._decode_step(tok, pos, pt, act, grows, aids)
         self.counters["decode_steps_total"] += 1
         self.counters["decode_windows_total"] += 1
         toks, lps = nxt.cpu().tolist(), lps.cpu().tolist()
@@ -2003,13 +2172,13 @@ class InferenceEngine:
         if self.window is not None:
             self._decode_window(K)
             return
-        tok, pos, pt, act = self._decode_inputs()
+        tok, pos, pt, act, aids = self._decode_inputs()
         grammar = None
         if self._grammar_live():
             grammar = (self._gmask, self._gtrans, self._tensor(self._gram_state))
         (toks, acts, lps), _ = run_steps(self._decode_step, K, tok, pos, pt, act,
                                          self._tensor(self._remaining),
-                                         self._stop_matrix(), grammar)
+                                         self._stop_matrix(), grammar, aids)
         self.counters["decode_steps_total"] += K
         self.counters["decode_windows_total"] += 1
         self._replay_window(toks.cpu().numpy(), acts.cpu().numpy(),
@@ -2022,7 +2191,8 @@ class InferenceEngine:
     def _host_state(self, name: str) -> np.ndarray:
         return {"last_tokens": self.last_tokens, "positions": self.positions,
                 "active": self.active, "page_tables": self.page_tables,
-                "left": self._remaining, "gstate": self._gram_state}[name]
+                "left": self._remaining, "gstate": self._gram_state,
+                "slot_adapters": self.slot_adapters}[name]
 
     def _dispatch(self, K: int, fields) -> tuple:
         """Upload ``fields`` of the loop state (and the stop matrix and
@@ -2030,17 +2200,21 @@ class InferenceEngine:
         enqueue its trace's readback.  Returns the window (K, readback)
         and how many host-to-device copies it made."""
         w = self.window
-        # the gstate input only while a window reads it (a slot holds a
-        # grammar): every admission of one marks it for upload again
+        # the gstate and slot_adapters inputs only while a window reads
+        # them (a slot holds a grammar, an adapter): every admission of one
+        # marks its field for upload again
+        lora = self._adapter_live()
         n = w.upload({f: self._host_state(f) for f in fields
-                      if f != "gstate" or self._grammar_live()})
+                      if (f != "gstate" or self._grammar_live())
+                      and (f != "slot_adapters" or lora)})
         if self._stop_epoch != self._batch_epoch:
             n += w.upload({"stop": self._stop_ids()})
             self._stop_epoch = self._batch_epoch
         n += int(self.sampling.refresh())
         gcap = self._grammar_key()
-        out = w.run(K, (self.sampling.gates(), self.token_counts is not None, gcap),
-                    None if gcap is None else (self._gmask, self._gtrans))
+        out = w.run(K, (self.sampling.gates(), self.token_counts is not None, lora,
+                        gcap),
+                    None if gcap is None else (self._gmask, self._gtrans), lora)
         rb = self._readbacks[self._windows % 2]
         self._windows += 1
         rb.enqueue(out)
@@ -2258,7 +2432,8 @@ class InferenceEngine:
         draft flag and slot map).  A constrained row verifies under its
         grammar: the window walks the automaton from the row's table row
         (``gstate``) along the proposal.  Returns the window's (tokens,
-        emitted counts, logprobs) per row."""
+        emitted counts, logprobs) per row.  Each row verifies through its
+        adapter's lane; the draft model (if any) proposes from the base."""
         v = self.spec_verify
         L, B = v.layout, v.B
         host = L.host(B)
@@ -2266,16 +2441,19 @@ class InferenceEngine:
         sp = np.zeros((B,), np.int32)
         pl = np.zeros((B,), np.int32)
         gst = np.zeros((B,), np.int32)
+        aids = np.zeros((B,), np.int32)
         pt = np.zeros((B, self.pages_per_seq), np.int32)
         for r, i in enumerate(rows):
             toks[r, :len(windows[r])] = windows[r]
             sp[r] = self.slots[i].position
             pl[r] = prop_len[r]
             gst[r] = self._gram_state[i]
+            aids[r] = self.slot_adapters[i]
             pt[r] = self.page_tables[i]
         tl = np.where(np.arange(B) < len(rows), pl + 1, 0).astype(np.int32)
         for name, a in (("tokens", toks), ("true_lens", tl), ("start_pos", sp),
-                        ("prop_len", pl), ("gstate", gst), ("page_tables", pt)):
+                        ("prop_len", pl), ("gstate", gst), ("aids", aids),
+                        ("page_tables", pt)):
             L.put(host, name, a)
         any_random = False
         if draft is not None:
@@ -2287,7 +2465,7 @@ class InferenceEngine:
             any_random = bool(np.any(draft["temps"] > 0.0))
         pages = -(-int((sp + tl).max()) // self.cfg.page_size)
         return v.run(host, width_bucket(pages, self.pages_per_seq), any_random,
-                     self._verify_grammar(rows))
+                     self._verify_grammar(rows), lora=bool(aids.any()))
 
     def _verify_grammar(self, rows: list[int]) -> Optional[tuple]:
         """(capacity, gmask, gtrans) when a row of this round is

@@ -286,7 +286,9 @@ class EngineMetrics:
     at the values the JAX server reads with them off: the engine's
     counters, absent until a later slice adds them, read 0.  The
     per-tenant families exist only with a QoS config (``qos``), the ITL
-    ones only with the engine's ITL recorder on."""
+    ones only with the engine's ITL recorder on, the ``kaito:adapter_*``
+    ones only with the adapter cache on (or a boot-time refusal
+    counted)."""
 
     def __init__(self, engine=None, qos=None):
         self.registry = Registry()
@@ -424,6 +426,39 @@ class EngineMetrics:
                   "Loop-state arrays uploaded host-to-device at "
                   "decode dispatch (~zero per dispatch in steady "
                   "state)", r, fn=_counter_fn(engine, "h2d_uploads_total"))
+        if getattr(engine, "adapter_cache", None) is not None:
+            # the multi-LoRA cache: the families exist only with it on,
+            # so a server without adapter config exposes what it did
+            ac = engine.adapter_cache
+            Gauge("kaito:adapter_resident",
+                  "Adapters resident in the HBM slot table", r, fn=lambda: len(ac))
+            Gauge("kaito:adapter_slots_total", "HBM adapter slot capacity", r,
+                  fn=lambda: ac.slots)
+            Gauge("kaito:adapter_loads_total",
+                  "Adapter installs into an HBM slot (boot, hot-load, "
+                  "fault-back-in)", r, fn=lambda: ac.loads_total)
+            Gauge("kaito:adapter_evictions_total",
+                  "Adapters evicted or deleted from the slot table", r,
+                  fn=lambda: ac.evictions_total)
+            Gauge("kaito:adapter_hits_total",
+                  "Submissions that found their adapter resident", r,
+                  fn=lambda: ac.hits_total)
+            Gauge("kaito:adapter_faults_total",
+                  "Submissions that faulted their adapter back in from the "
+                  "host tier", r, fn=lambda: ac.faults_total)
+            Gauge("kaito:adapter_host_entries",
+                  "Adapters parked in the host-RAM overflow tier", r,
+                  fn=lambda: len(ac.host) if ac.host is not None else 0)
+            Gauge("kaito:adapter_host_bytes_used",
+                  "Bytes held by the host-RAM adapter tier", r,
+                  fn=lambda: ac.host.used_bytes if ac.host is not None else 0)
+        failures = getattr(engine, "adapter_load_failures", None)
+        if getattr(engine, "adapter_cache", None) is not None or failures:
+            # refusals by reason: with the cache on, or on the boot path
+            # once a refusal was counted
+            Gauge("kaito:adapter_load_failures_total",
+                  "Adapter loads refused, by reason", r, labels=("reason",),
+                  fn=lambda: {(k,): float(v) for k, v in (failures or {}).items()})
         for name, help_, key in (
                 ("pd_device_handoffs_total",
                  "Colocated device-to-device KV hand-offs",

@@ -134,14 +134,13 @@ def params_from_jax(np_tree: dict, arch: ModelArch) -> dict:
     np.asarray, params)``), as this port's parameter tree: the same
     names and the same stacked groups of ``_layer_groups``, as CPU
     tensors.  A tree from ``quantize_params`` keeps its QTensor dicts:
-    int8 codes stay int8 and scales fp32.  Feed it to
+    int8 codes stay int8 and scales fp32.  The per-request adapter stacks
+    (``serve_lora``: {group: {f"{t}_a": [L, lanes, in, rmax], f"{t}_b":
+    [L, lanes, rmax, out]}}) come along as they are.  Feed it to
     :meth:`TransformerLM.load_params`."""
     out: dict = {}
     for key, val in np_tree.items():
         if isinstance(val, dict):
-            if key == "serve_lora":
-                raise NotImplementedError(
-                    "adapters are not ported yet (ROADMAP queue 1, M16)")
             out[key] = {n: ({k: _to_torch(x) for k, x in a.items()}
                             if isinstance(a, dict) else _to_torch(a))
                         for n, a in val.items()}
@@ -204,6 +203,29 @@ LOGICAL_AXES: dict[str, tuple] = {
 # the embedding stays replicated on every shard: the lookup is exact
 # either way, and a vocab-sharded table would need a gather per token
 _REPLICATED = ("embed",)
+
+# per-request LoRA targets: every projection of a dense layer, the
+# attention projections of a MoE layer (its experts have no sites); an
+# MLA layer has none (``kaito_tpu.engine.adapters``)
+LORA_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
+LORA_TARGETS_MOE = ("q", "k", "v", "o")
+# row-parallel targets (their A splits on its in rows under tensor
+# parallelism); the others are column-parallel (their B splits on out)
+_LORA_ROW = ("o", "down")
+
+
+def lora_shard(t: str, which: str, x: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """Shard ``r`` of ``n`` of a LoRA factor of target ``t`` (``which`` "a"
+    [..., in, rank] or "b" [..., rank, out]): a column-parallel target's
+    B by out columns, a row-parallel target's A by in rows, the other
+    factor whole."""
+    if n == 1:
+        return x
+    if which == "b" and t not in _LORA_ROW:
+        return x.chunk(n, dim=-1)[r]
+    if which == "a" and t in _LORA_ROW:
+        return x.chunk(n, dim=-2)[r]
+    return x
 
 
 def local_arch(arch: ModelArch, n: int) -> ModelArch:
@@ -356,6 +378,12 @@ class TransformerLM(tnn.Module):
         # per layer group: plain leaves, and one ParameterDict per QTensor
         self.stacks = tnn.ModuleDict()
         self.qstacks = tnn.ModuleDict()
+        # per-request adapter lanes {group: {f"{t}_a": [L, lanes, in, r],
+        # f"{t}_b": [L, lanes, r, out]}} (lane 0 the base's zeros),
+        # written in place by the adapter cache; {} serves no adapter
+        self.lora: dict[str, dict[str, torch.Tensor]] = {}
+        # the scaling of a merged adapter (tuning.lora.merge_lora)
+        self.lora_scaling = 0.0
 
     # ------------------------------------------------------------------
     # Parameters
@@ -532,6 +560,66 @@ class TransformerLM(tnn.Module):
                 stack[name] = param(t)
             self.stacks[g.name] = stack
             self.qstacks[g.name] = qstack
+        if tree.get("serve_lora"):
+            self.set_lora(tree["serve_lora"])
+
+    # ------------------------------------------------------------------
+    # Per-request adapter lanes
+    # ------------------------------------------------------------------
+
+    def lora_specs(self) -> dict[str, dict[str, tuple[int, int]]]:
+        """{group: {target: (in, out)}} of the per-request LoRA sites:
+        every projection of a dense group, q/k/v/o of a MoE group, none
+        on MLA."""
+        if self.is_mla:
+            return {}
+        out = {}
+        for g in self.groups:
+            specs = self._layer_specs(g.moe)
+            out[g.name] = {t: specs[t] for t in
+                           (LORA_TARGETS_MOE if g.moe else LORA_TARGETS)
+                           if t in specs}
+        return out
+
+    def alloc_lora(self, lanes: int, rmax: int) -> None:
+        """Zeroed lanes for every site, once: [L, lanes, in, rmax] and
+        [L, lanes, rmax, out] in the model's dtype on its device."""
+        self.lora, specs = {}, self.lora_specs()
+        for g in self.groups:
+            buf = {}
+            for t, (i, o) in specs.get(g.name, {}).items():
+                buf[f"{t}_a"] = torch.zeros((g.count, lanes, i, rmax), dtype=self.dtype,
+                                            device=self.device)
+                buf[f"{t}_b"] = torch.zeros((g.count, lanes, rmax, o), dtype=self.dtype,
+                                            device=self.device)
+            if buf:
+                self.lora[g.name] = buf
+
+    def set_lora(self, stacks: dict) -> None:
+        """Install stacked lanes ({group: {f"{t}_a", f"{t}_b"}}, lane 0 the
+        base's zeros), moved to the model's device and dtype."""
+        self.lora = {g: {k: t.to(device=self.device, dtype=self.dtype).contiguous()
+                         for k, t in buf.items()}
+                     for g, buf in stacks.items() if buf}
+
+    def write_lora_lane(self, lane: int, group: str, t: str, a: torch.Tensor,
+                        b: torch.Tensor) -> None:
+        """Overwrite lane ``lane`` of target ``t`` in place with a [L, in,
+        rmax] and b [L, rmax, out] (host tensors in the model dtype): a
+        copy in stream order, so a captured graph keeps its pointers."""
+        buf = self.lora[group]
+        buf[f"{t}_a"][:, lane].copy_(a)
+        buf[f"{t}_b"][:, lane].copy_(b)
+
+    def _lora_layer(self, g: "LayerGroup", i: int) -> Optional[dict]:
+        buf = self.lora.get(g.name)
+        return {k: t[i] for k, t in buf.items()} if buf else None
+
+    def _lora_ids(self, adapter_ids) -> Optional[torch.Tensor]:
+        """The rows' lanes as int64, or None when no adapter is served."""
+        if adapter_ids is None or not self.lora:
+            return None
+        return adapter_ids.long()
 
     def param_tree(self) -> dict:
         """The parameters as a nested dict of tensors (QTensor dicts for
@@ -580,15 +668,17 @@ class TransformerLM(tnn.Module):
             return nn.layer_norm(x, p[name], p.get(f"{name}_bias"), a.rms_norm_eps)
         return nn.rms_norm(x, p[name], a.rms_norm_eps, a.norm_offset)
 
-    def _attn_qkv(self, x, p, positions, window, q_proj=None):
+    def _attn_qkv(self, x, p, positions, window, q_proj=None, lora=None, ids=None):
         """q/k/v heads with norms and rope applied.  x: [B, T, E];
         positions: [B, T] absolute positions; ``q_proj``: the q
-        projection when a collective already computed it."""
+        projection when a collective already computed it; ``lora`` /
+        ``ids``: the layer's adapter lanes and the rows' lanes."""
         a = self.arch
         B, T, _ = x.shape
         q = nn.linear(x, p["q"]) if q_proj is None else q_proj
-        k = nn.linear(x, p["k"])
-        v = nn.linear(x, p["v"])
+        q = nn.plus_delta(q, x, lora, "q", ids)
+        k = nn.plus_delta(nn.linear(x, p["k"]), x, lora, "k", ids)
+        v = nn.plus_delta(nn.linear(x, p["v"]), x, lora, "v", ids)
         if "q_bias" in p:
             q, k, v = q + p["q_bias"], k + p["k_bias"], v + p["v_bias"]
         q = q.reshape(B, T, a.num_heads, a.head_dim)
@@ -605,20 +695,26 @@ class TransformerLM(tnn.Module):
         k = nn.apply_rope(k, positions, inv_freq, a.head_dim, mscale=mscale)
         return q, k, v
 
-    def _layer(self, x, p, cache: KVCache, li: int, mode: str, moe: bool, **kw):
-        """One transformer block over layer ``li`` of the pools."""
+    def _layer(self, x, p, cache: KVCache, li: int, mode: str, moe: bool,
+               lora=None, ids=None, **kw):
+        """One transformer block over layer ``li`` of the pools; ``lora``
+        / ``ids`` the layer's adapter lanes and the rows' lanes (None:
+        no adapter sites run)."""
         h = self._norm(x, p, "attn_norm")
-        attend = self._mla_attention if self.is_mla else self._attention
-        o_in = attend(h, p, cache, li, mode, **kw)
-        x, h2 = self._attn_residual(x, h, nn.linear(o_in, p["o"]), p)
-        return self._mlp_residual(x, self._mlp(h2, p, moe, kw["active"]), p)
+        if self.is_mla:
+            o_in = self._mla_attention(h, p, cache, li, mode, **kw)
+        else:
+            o_in = self._attention(h, p, cache, li, mode, lora=lora, ids=ids, **kw)
+        o = nn.plus_delta(nn.linear(o_in, p["o"]), o_in, lora, "o", ids)
+        x, h2 = self._attn_residual(x, h, o, p)
+        return self._mlp_residual(x, self._mlp(h2, p, moe, kw["active"], lora, ids), p)
 
-    def _mlp(self, x, p, moe: bool, active=None):
-        """The layer's MLP: dense, or its MoE by ``moe_impl``.  ``active``
-        (decode's active rows, else None) keeps the grouped form's
-        inactive rows out of every expert group."""
+    def _mlp(self, x, p, moe: bool, active=None, lora=None, ids=None):
+        """The layer's MLP: dense (with its adapter sites), or its MoE by
+        ``moe_impl``.  ``active`` (decode's active rows, else None) keeps
+        the grouped form's inactive rows out of every expert group."""
         if not moe:
-            return nn.mlp(x, p, self.arch)
+            return nn.mlp(x, p, self.arch, lora=lora, lora_ids=ids)
         B, T, E = x.shape
         x2 = x.reshape(B * T, E)
         if self.moe_impl == "dense":
@@ -631,7 +727,7 @@ class TransformerLM(tnn.Module):
 
     def _attention(self, h, p, cache: KVCache, li: int, mode: str, *,
                    positions, page_tables, lengths, true_lens, active,
-                   start_pos=None, packed=None, q_proj=None):
+                   start_pos=None, packed=None, q_proj=None, lora=None, ids=None):
         """q/k/v of the normed input ``h``, their page writes and the
         attention over layer ``li`` of the pools: the attention-out
         projection's input [B, T, H * D]."""
@@ -639,7 +735,7 @@ class TransformerLM(tnn.Module):
         B, T, _ = h.shape
         window = self._window(li)
         win = window if window is not None else _BIG_WINDOW
-        q, k_new, v_new = self._attn_qkv(h, p, positions, window, q_proj)
+        q, k_new, v_new = self._attn_qkv(h, p, positions, window, q_proj, lora, ids)
         if mode == "score":
             # the cache-less forward of prompt scoring: the fresh row
             # attends over itself and writes no page
@@ -817,11 +913,12 @@ class TransformerLM(tnn.Module):
                   for name, qt in self.qstacks[g.name].items()})
         return p
 
-    def _run_layers(self, cache: KVCache, x, mode, **kw):
+    def _run_layers(self, cache: KVCache, x, mode, ids=None, **kw):
         for g in self.groups:
             for i in range(g.count):
+                lora = self._lora_layer(g, i) if ids is not None else None
                 x = self._layer(x, self._layer_params(g, i), cache, g.start + i,
-                                mode, g.moe, **kw)
+                                mode, g.moe, lora=lora, ids=ids, **kw)
         return x
 
     # ------------------------------------------------------------------
@@ -901,30 +998,34 @@ class TransformerLM(tnn.Module):
             lengths=None, true_lens=true_len, active=None)
 
     def prefill(self, cache: KVCache, tokens, true_lens, page_tables,
-                start_pos=None):
+                start_pos=None, adapter_ids=None):
         """Prompts (or prompt suffixes when ``start_pos`` marks earlier
         chunks already in the pages).  tokens: [B, T] padded chunks;
         true_lens: [B] int32 valid new tokens; page_tables: [B, pmax]
-        int32.  Returns (cache, last_logits [B, V] fp32, last_hidden
-        [B, E]); the cache is written in place."""
+        int32; adapter_ids: [B] int32 each row's adapter lane (None: the
+        base for every row).  Returns (cache, last_logits [B, V] fp32,
+        last_hidden [B, E]); the cache is written in place."""
         if start_pos is not None:
             page_tables = attn.history_pages(page_tables, start_pos, true_lens,
                                              cache.k.shape[2])
         x, kw = self._prefill_in(tokens, true_lens, page_tables, start_pos)
-        last = self._prefill_out(self._run_layers(cache, x, "prefill", **kw),
+        last = self._prefill_out(self._run_layers(cache, x, "prefill",
+                                                  self._lora_ids(adapter_ids), **kw),
                                  true_lens)
         return cache, self._logits(last), last
 
     def prefill_packed(self, cache: KVCache, tokens, seg_ids, positions,
-                       tok_pages, last_idx, pack_pages=None, tok_pgslot=None):
+                       tok_pages, last_idx, pack_pages=None, tok_pgslot=None,
+                       adapter_ids=None):
         """Segment-packed prefill: S fresh prompts in ONE padded row.
         tokens/seg_ids/positions: [1, T] int32 (segment -1 = pad,
         positions within the segment); tok_pages: [T] page per token;
         last_idx: [S] packed index of each segment's final token.  An
         int8 cache also needs pack_pages ([n_pg] the segments' pages)
         and tok_pgslot ([T] each token's index into them, n_pg for
-        pads).  Returns (cache, last_logits [S, V] fp32, last_hidden
-        [S, E])."""
+        pads).  Every segment runs one adapter: ``adapter_ids`` is [1]
+        (or None for the base).  Returns (cache, last_logits [S, V] fp32,
+        last_hidden [S, E])."""
         if self.is_mla:
             raise NotImplementedError(
                 "segment-packed prefill is not implemented for MLA attention; "
@@ -933,12 +1034,13 @@ class TransformerLM(tnn.Module):
             raise ValueError("an int8 KV cache needs pack_pages and tok_pgslot")
         x, kw = self._packed_in(tokens, seg_ids, positions, tok_pages, pack_pages,
                                 tok_pgslot)
-        last = self._packed_out(self._run_layers(cache, x, "prefill_packed", **kw),
+        last = self._packed_out(self._run_layers(cache, x, "prefill_packed",
+                                                 self._lora_ids(adapter_ids), **kw),
                                 last_idx)
         return cache, self._logits(last), last
 
     def verify_window_logits(self, cache: KVCache, tokens, true_lens, page_tables,
-                             start_pos):
+                             start_pos, adapter_ids=None):
         """Speculative verification forward
         (``kaito_tpu.engine.model.TransformerLM.verify_window_logits``):
         a window of proposed tokens through the chunked-prefill path
@@ -948,23 +1050,27 @@ class TransformerLM(tnn.Module):
         [B] valid window tokens (0 skips a row: its writes go to the null
         page); start_pos: [B] absolute position of the window start.
         ``page_tables`` are passed whole: nothing here reads a length
-        back to the host, so a CUDA graph can hold the call.  Returns
+        back to the host, so a CUDA graph can hold the call.
+        ``adapter_ids`` [B] (or None) are the rows' adapter lanes.  Returns
         (cache, logits [B, W, V] fp32)."""
         x, kw = self._prefill_in(tokens, true_lens, page_tables, start_pos)
-        x = self._norm(self._run_layers(cache, x, "prefill", **kw), self.top,
-                       "final_norm")
+        x = self._norm(self._run_layers(cache, x, "prefill",
+                                        self._lora_ids(adapter_ids), **kw),
+                       self.top, "final_norm")
         return cache, self._logits(x)
 
     def decode(self, cache: KVCache, tokens, positions, page_tables,
-               active=None):
+               active=None, adapter_ids=None):
         """One decode step.  tokens: [B] last sampled token; positions:
         [B] int32 their positions (lengths after the write are
         positions + 1).  Rows that ``active`` marks off write to the
         null page and attend over nothing (length 0; their logits are
         meaningless), so their positions need not fit ``page_tables``.
+        ``adapter_ids`` [B] (or None) are the rows' adapter lanes.
         Returns (cache, logits [B, V] fp32)."""
         x, kw = self._decode_in(tokens, positions, page_tables, active)
-        x = self._decode_out(self._run_layers(cache, x, "decode", **kw))
+        x = self._decode_out(self._run_layers(cache, x, "decode",
+                                              self._lora_ids(adapter_ids), **kw))
         return cache, self._logits(x)
 
     def score(self, tokens, true_len):
@@ -1049,6 +1155,7 @@ class TensorParallelLM:
         self.groups = self.spec.groups
         self.vocab_padded = self.spec.vocab_padded
         self.overlap = False       # the engine's comm-overlap gate
+        self.lora_scaling = 0.0
 
     def _layer_specs(self, moe: bool = False) -> dict[str, tuple[int, ...]]:
         return self.spec._layer_specs(moe)
@@ -1084,11 +1191,45 @@ class TensorParallelLM:
     def load_params(self, tree: dict, quantization: str = "") -> None:
         """A full tree (plain or quantized, as
         :meth:`TransformerLM.load_params` takes it), quantized whole under
-        ``quantization`` and cut into the shards."""
-        self._install(_leaves(tree), quantization)
+        ``quantization`` and cut into the shards; ``serve_lora`` stacks are
+        split with :meth:`set_lora`."""
+        lora = tree.get("serve_lora")
+        self._install(_leaves({k: v for k, v in tree.items() if k != "serve_lora"}),
+                      quantization)
+        if lora:
+            self.set_lora(lora)
 
     def param_bytes(self) -> int:
         return sum(m.param_bytes() for m in self.shards)
+
+    # ------------------------------------------------------------------
+    # Per-request adapter lanes: each shard holds its split of every lane
+    # ------------------------------------------------------------------
+
+    def lora_specs(self) -> dict:
+        return self.spec.lora_specs()
+
+    @property
+    def lora(self) -> list[dict]:
+        return [m.lora for m in self.shards]
+
+    def alloc_lora(self, lanes: int, rmax: int) -> None:
+        """Each shard's lanes at its local widths: column-parallel targets
+        hold their out columns of B, row-parallel ones their in rows of A
+        (:func:`lora_shard`)."""
+        for m in self.shards:
+            m.alloc_lora(lanes, rmax)
+
+    def set_lora(self, stacks: dict) -> None:
+        for r, m in enumerate(self.shards):
+            m.set_lora({g: {k: lora_shard(k[:-2], k[-1], x, r, self.n)
+                            for k, x in buf.items()}
+                        for g, buf in stacks.items()})
+
+    def write_lora_lane(self, lane: int, group: str, t: str, a, b) -> None:
+        for r, m in enumerate(self.shards):
+            m.write_lora_lane(lane, group, t, lora_shard(t, "a", a, r, self.n),
+                              lora_shard(t, "b", b, r, self.n))
 
     # ------------------------------------------------------------------
     # Lockstep execution
@@ -1122,32 +1263,43 @@ class TensorParallelLM:
                              for m in self.shards]
         return out
 
-    def _layer(self, xs, ps, caches, li, mode, kws, ov, pf):
+    def _layer(self, xs, ps, caches, li, mode, kws, ov, pf, loras, ids):
         sh, mesh, n = self.shards, self.mesh, self.n
         hs = [m._norm(x, p, "attn_norm") for m, x, p in zip(sh, xs, ps)]
         qs = [None] * n
         if ov and ag_matmul_eligible(hs[0], ps[0]["q"], n):
             qs = all_gather_matmul(hs, [p["q"] for p in ps], mesh)
-        o_in = [m._attention(h, p, c, li, mode, q_proj=q, **kw)
-                for m, h, p, c, q, kw in zip(sh, hs, ps, caches, qs, kws)]
+        o_in = [m._attention(h, p, c, li, mode, q_proj=q, lora=lo, ids=d, **kw)
+                for m, h, p, c, q, kw, lo, d in zip(sh, hs, ps, caches, qs, kws,
+                                                    loras, ids)]
         wo = [p["o"] for p in ps]
-        attn = (overlap_linear(o_in, wo, mesh, prefetch=pf.get("o")) if ov
-                else psum_linear(o_in, wo, mesh))
+        # each shard's o delta (its rows of A) joins its partial sum
+        add = [nn.multi_lora_delta(o, lo, "o", d) for o, lo, d in zip(o_in, loras, ids)]
+        add = add if any(a is not None for a in add) else None
+        attn = (overlap_linear(o_in, wo, mesh, prefetch=pf.get("o"), add=add) if ov
+                else psum_linear(o_in, wo, mesh, add=add))
         res = [m._attn_residual(x, h, a, p)
                for m, x, h, a, p in zip(sh, xs, hs, attn, ps)]
         outs = nn.mlp([r[1] for r in res], ps, self.arch, mesh=mesh, overlap=ov,
-                      pf_down=pf.get("down"))
+                      pf_down=pf.get("down"), lora=loras, lora_ids=ids)
         return [m._mlp_residual(r[0], o, p) for m, r, o, p in zip(sh, res, outs, ps)]
 
-    def _run_layers(self, caches, ins, mode):
-        """``ins``: each shard's (embedded input, layer inputs)."""
+    def _run_layers(self, caches, ins, mode, adapter_ids=None):
+        """``ins``: each shard's (embedded input, layer inputs);
+        ``adapter_ids`` [B] or None."""
         xs, kws = [x for x, _ in ins], [kw for _, kw in ins]
         ov = self.overlap and mode == "decode"
+        ids = [None] * self.n
+        if adapter_ids is not None and self.shards[0].lora:
+            ids = self._rep(adapter_ids.long())
         for g in self.groups:
             for i in range(g.count):
                 ps = [m._layer_params(g, i) for m in self.shards]
                 pf = self._prefetch(g, i) if ov else {}
-                xs = self._layer(xs, ps, caches, g.start + i, mode, kws, ov, pf)
+                loras = [m._lora_layer(g, i) if d is not None else None
+                         for m, d in zip(self.shards, ids)]
+                xs = self._layer(xs, ps, caches, g.start + i, mode, kws, ov, pf,
+                                 loras, ids)
         return xs
 
     def _logits(self, xs):
@@ -1162,35 +1314,37 @@ class TensorParallelLM:
     # ------------------------------------------------------------------
 
     def prefill(self, caches: list, tokens, true_lens, page_tables,
-                start_pos=None):
+                start_pos=None, adapter_ids=None):
         if start_pos is not None:
             page_tables = attn.history_pages(page_tables, start_pos, true_lens,
                                              caches[0].k.shape[2])
         ins = self._each("_prefill_in", tokens, true_lens, page_tables, start_pos)
-        xs = self._run_layers(caches, ins, "prefill")
+        xs = self._run_layers(caches, ins, "prefill", adapter_ids)
         lasts = self._each_out("_prefill_out", xs, true_lens)
         return caches, self._logits(lasts), lasts[0]
 
     def prefill_packed(self, caches: list, tokens, seg_ids, positions,
-                       tok_pages, last_idx, pack_pages=None, tok_pgslot=None):
+                       tok_pages, last_idx, pack_pages=None, tok_pgslot=None,
+                       adapter_ids=None):
         if caches[0].quantized and (pack_pages is None or tok_pgslot is None):
             raise ValueError("an int8 KV cache needs pack_pages and tok_pgslot")
         ins = self._each("_packed_in", tokens, seg_ids, positions, tok_pages,
                          pack_pages, tok_pgslot)
-        xs = self._run_layers(caches, ins, "prefill_packed")
+        xs = self._run_layers(caches, ins, "prefill_packed", adapter_ids)
         lasts = self._each_out("_packed_out", xs, last_idx)
         return caches, self._logits(lasts), lasts[0]
 
     def verify_window_logits(self, caches: list, tokens, true_lens, page_tables,
-                             start_pos):
+                             start_pos, adapter_ids=None):
         ins = self._each("_prefill_in", tokens, true_lens, page_tables, start_pos)
-        xs = self._run_layers(caches, ins, "prefill")
+        xs = self._run_layers(caches, ins, "prefill", adapter_ids)
         return caches, self._logits([m._norm(x, m.top, "final_norm")
                                      for m, x in zip(self.shards, xs)])
 
-    def decode(self, caches: list, tokens, positions, page_tables, active=None):
+    def decode(self, caches: list, tokens, positions, page_tables, active=None,
+               adapter_ids=None):
         ins = self._each("_decode_in", tokens, positions, page_tables, active)
-        xs = self._run_layers(caches, ins, "decode")
+        xs = self._run_layers(caches, ins, "decode", adapter_ids)
         return caches, self._logits([m._decode_out(x)
                                      for m, x in zip(self.shards, xs)])
 

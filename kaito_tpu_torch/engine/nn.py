@@ -31,6 +31,42 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+def lora_delta(x: torch.Tensor, p: dict, name: str,
+               scaling: float) -> Optional[torch.Tensor]:
+    """The low-rank update ``(x @ A) @ B * scaling`` when the layer
+    carries lora factors for ``name`` (``{name}_lora_a`` [in, r],
+    ``{name}_lora_b`` [r, out]); None when it does not."""
+    a = p.get(f"{name}_lora_a")
+    if a is None:
+        return None
+    return ((x @ a) @ p[f"{name}_lora_b"]) * scaling
+
+
+def multi_lora_delta(x: torch.Tensor, lora: Optional[dict], name: str,
+                     ids: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Per-request batched LoRA: every row of the batch applies its own
+    adapter's low-rank update (lane 0 is the base's zeros).  x: [B, T,
+    E]; ``lora[f"{name}_a"]`` [lanes, E, r] and ``lora[f"{name}_b"]``
+    [lanes, r, out] are this layer's lanes (scaling folded into B);
+    ids: [B] int64 lanes.  The two products run as batched matmuls over
+    each row's gathered lane (``kaito_tpu.engine.nn.multi_lora_delta``'s
+    einsums).  None without lanes for ``name`` or without ids."""
+    if lora is None or ids is None:
+        return None
+    a = lora.get(f"{name}_a")
+    if a is None:
+        return None
+    return torch.bmm(torch.bmm(x, a[ids]), lora[f"{name}_b"][ids])
+
+
+def plus_delta(y: torch.Tensor, x: torch.Tensor, lora: Optional[dict], name: str,
+               ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """``y`` plus the multi-LoRA delta of ``x`` for ``name`` (``y`` itself
+    when there is none)."""
+    d = multi_lora_delta(x, lora, name, ids)
+    return y if d is None else y + d
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
              offset: bool) -> torch.Tensor:
     dtype = x.dtype
@@ -167,35 +203,49 @@ def _down_bias(out: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def mlp(x, p, arch: ModelArch, mesh: Optional[Mesh] = None,
-        overlap: bool = False, pf_down: Optional[list] = None):
+        overlap: bool = False, pf_down: Optional[list] = None,
+        lora=None, lora_ids=None):
     """Gated (SwiGLU/GeGLU) or classic 2-matrix MLP.
+
+    ``lora`` and ``lora_ids`` are the layer's multi-LoRA lanes and the
+    rows' lane ids (:func:`multi_lora_delta`): gate, up and down each
+    add their delta when the lanes carry them.
 
     With a tensor-parallel ``mesh``, ``x`` and ``p`` are lists with one
     entry per shard (the replicated input, each shard's parameters), and
-    so is the result.  gate/up are column-parallel and need no
-    collective; the row-parallel down projection's partial sums are
-    reduced by ``psum_linear``.  ``overlap`` (the comm-overlap decode
-    step) routes gate/up through the pipelined all-gather + matmul ring
-    where ``ag_matmul_eligible`` holds, and down through
-    ``overlap_linear`` with ``pf_down`` (each shard's next-layer down
-    slab, or None) as its layer-ahead prefetch."""
+    so is the result (and ``lora`` / ``lora_ids``, when given).  gate/up
+    are column-parallel and need no collective; the row-parallel down
+    projection's partial sums are reduced by ``psum_linear``, each
+    shard's down delta (its rows of A) added to its partial sum before
+    the reduction.  ``overlap`` (the comm-overlap decode step) routes
+    gate/up through the pipelined all-gather + matmul ring where
+    ``ag_matmul_eligible`` holds, and down through ``overlap_linear``
+    with ``pf_down`` (each shard's next-layer down slab, or None) as its
+    layer-ahead prefetch."""
     if mesh is None:
-        g = linear(x, p["gate"]) if arch.gated_mlp else None
-        h = _hidden(g, linear(x, p["up"]), p, arch)
-        return _down_bias(linear(h, p["down"]), p)
+        g = (plus_delta(linear(x, p["gate"]), x, lora, "gate", lora_ids)
+             if arch.gated_mlp else None)
+        h = _hidden(g, plus_delta(linear(x, p["up"]), x, lora, "up", lora_ids), p, arch)
+        return _down_bias(plus_delta(linear(h, p["down"]), h, lora, "down", lora_ids), p)
     n = len(x)
+    lora = lora if lora is not None else [None] * n
+    ids = lora_ids if lora_ids is not None else [None] * n
 
     def col(name):
         ws = [pi[name] for pi in p]
         if overlap and ag_matmul_eligible(x[0], ws[0], n):
-            return all_gather_matmul(x, ws, mesh)
-        return [linear(xi, wi) for xi, wi in zip(x, ws)]
+            ys = all_gather_matmul(x, ws, mesh)
+        else:
+            ys = [linear(xi, wi) for xi, wi in zip(x, ws)]
+        return [plus_delta(y, xi, li, name, d) for y, xi, li, d in zip(ys, x, lora, ids)]
 
     gs = col("gate") if arch.gated_mlp else [None] * n
     h = [_hidden(g, u, pi, arch) for g, u, pi in zip(gs, col("up"), p)]
     wd = [pi["down"] for pi in p]
-    down = (overlap_linear(h, wd, mesh, prefetch=pf_down) if overlap
-            else psum_linear(h, wd, mesh))
+    add = [multi_lora_delta(hi, li, "down", d) for hi, li, d in zip(h, lora, ids)]
+    add = add if any(a is not None for a in add) else None
+    down = (overlap_linear(h, wd, mesh, prefetch=pf_down, add=add) if overlap
+            else psum_linear(h, wd, mesh, add=add))
     return [_down_bias(d, pi) for d, pi in zip(down, p)]
 
 

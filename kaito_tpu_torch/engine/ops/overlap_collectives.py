@@ -81,10 +81,12 @@ def _hop(ts: Sequence[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
     return [ts[(d - 1) % n].to(mesh.devices[d]) for d in range(n)]
 
 
-def ring_matmul_reduce_scatter(xs, ws, mesh: Mesh, prefetch=None):
+def ring_matmul_reduce_scatter(xs, ws, mesh: Mesh, prefetch=None, add=None):
     """Pipelined matmul + reduce-scatter.  xs[d]: [.., K_local]; ws[d]:
     [K_local, N] (full out dim); prefetch[d]: the next layer's slab for
-    ws[d], or None.  Returns the fully reduced chunk each shard owns,
+    ws[d], or None; add[d]: a [.., N] term shard d adds to its partial
+    product (a LoRA delta's partial sum), or None.  Returns the fully
+    reduced chunk each shard owns,
     [.., N / n].  At step s shard d computes chunk ``(d - s - 1) mod n``
     into the accumulator that just arrived and forwards it, so the
     accumulator that lands on d after the last hop has visited every
@@ -102,6 +104,8 @@ def ring_matmul_reduce_scatter(xs, ws, mesh: Mesh, prefetch=None):
             pfc = (_slice_out(prefetch[d], c * nc, nc)
                    if prefetch is not None else None)
             part = _local_matmul(xs[d], wc, prefetch=pfc)
+            if add is not None and add[d] is not None:
+                part = part + add[d][..., c * nc:(c + 1) * nc]
             acc[d] = part if acc[d] is None else acc[d] + part
         if s != n - 1:
             acc = _hop(acc, mesh)
@@ -142,21 +146,26 @@ def ring_all_gather_matmul(xs, ws, mesh: Mesh):
     return acc
 
 
-def overlap_linear(xs, ws, mesh: Mesh, prefetch: Optional[list] = None):
+def overlap_linear(xs, ws, mesh: Mesh, prefetch: Optional[list] = None,
+                   add: Optional[list] = None):
     """Row-parallel TP linear with the output collective decomposed into
     pipelined ring hops: xs[d] [.., K/n] @ ws[d] [K/n, N] -> [.., N] on
     every shard, numerically a sum of the partials in ring order.
     ``prefetch`` lists each shard's next-layer slab for ``ws`` (same
     QTensor layout); its column chunks ride the same ring steps into
-    ``quant_linear`` (K6)."""
-    yc = ring_matmul_reduce_scatter(xs, ws, mesh, prefetch=prefetch)
+    ``quant_linear`` (K6).  ``add[d]`` (or None) is a [.., N] term added
+    to shard d's partial product before the reduction."""
+    yc = ring_matmul_reduce_scatter(xs, ws, mesh, prefetch=prefetch, add=add)
     return ring_all_gather(yc, mesh)
 
 
-def psum_linear(xs, ws, mesh: Mesh):
+def psum_linear(xs, ws, mesh: Mesh, add: Optional[list] = None):
     """Row-parallel TP linear with the plain all-reduce: each shard's
-    partial product, and on every device their sum in rank order."""
+    partial product (plus ``add[d]`` when given and not None), and on
+    every device their sum in rank order."""
     parts = [_local_matmul(x, w) for x, w in zip(xs, ws)]
+    if add is not None:
+        parts = [p if a is None else p + a for p, a in zip(parts, add)]
     out = []
     for dev in mesh.devices:
         total = parts[0].to(dev)

@@ -1,10 +1,9 @@
 """Multi-tenant QoS configuration.
 
-The port's own copy of ``kaito_tpu/engine/qos.py``.  The one
-difference: the port has no LoRA adapters (ROADMAP queue 1, M16), so a
-document that maps tenants to adapters raises NotImplementedError when
-it is parsed, at engine construction, instead of being served without
-them.
+The port's own copy of ``kaito_tpu/engine/qos.py``: the ``adapters``
+map routes a tenant's requests to its LoRA adapter
+(:meth:`QoSConfig.adapter_of`, read by the server when a request's
+``model`` field names none).
 
 One JSON document describes the tenant classes an engine serves:
 
@@ -144,8 +143,7 @@ def priority_rank(name: str) -> float:
 def parse_qos_config(text: str) -> Optional["QoSConfig"]:
     """Parse ``--qos-config`` (inline JSON, or ``@path`` to a file).
     Empty input returns None — QoS off.  Raises ValueError on any
-    malformed document, and NotImplementedError on a well-formed one
-    with a non-empty ``adapters`` map (the port serves no adapters)."""
+    malformed document."""
     text = (text or "").strip()
     if not text:
         return None
@@ -217,8 +215,4 @@ def parse_qos_config(text: str) -> Optional["QoSConfig"]:
     if default_class not in classes:
         raise ValueError(f"qos default_class {default_class!r} is not "
                          f"a defined class")
-    if adapters:
-        raise NotImplementedError(
-            f"qos 'adapters' (tenant -> LoRA adapter, {sorted(adapters)}) is not "
-            f"ported to kaito_tpu_torch yet (ROADMAP queue 1, M16 multi-LoRA)")
     return QoSConfig(classes, dict(tenants), default_class, dict(adapters))

@@ -41,9 +41,20 @@ splits a leading ``<think>`` block into ``reasoning_content`` on presets
 with a reasoning parser.  The ``kaito:grammar_*`` families appear on
 ``/metrics`` with the first constrained request.
 
-Not ported yet: ``/debug/device``, P/D and ``kv_transfer``, the KV pool,
-adapters (and the QoS document's tenant-to-adapter map) and the
-profiler routes.  They answer 501.
+Multi-LoRA: a request's ``model`` field names its adapter (else the QoS
+document's tenant -> adapter map does; a mapped adapter that is not
+loaded answers 503 ``adapter_unavailable``), ``/v1/models`` lists the
+adapters, and with ``--adapter-slots`` ``/v1/adapters`` hot-loads
+(``POST {"name", "source"}``), lists (``GET``) and drops (``DELETE
+/v1/adapters/<name>``) them: 403 with the cache off, 400 for a bad name
+or source, 403 for a remote source outside
+``--adapter-source-allowlist``, 409 while in-flight work pins it, 422
+for a refused load, 404 for an unknown name.  Sources are local
+directories (``path://`` or a bare path) and ``oras://`` pulls; a
+``hub://`` pull needs the hub fetcher, which is not ported yet.
+
+Not ported yet: ``/debug/device``, P/D and ``kv_transfer``, the KV pool
+and the profiler routes.  They answer 501.
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
 llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
@@ -69,6 +80,8 @@ from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from kaito_tpu_torch.device import resolve_device
+from kaito_tpu_torch.engine.adapter_cache import AdapterBusyError, AdapterLoadError
+from kaito_tpu_torch.engine.adapters import discover_adapters
 from kaito_tpu_torch.engine.chat import render_chat
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
@@ -89,9 +102,8 @@ from kaito_tpu_torch.utils.tracing import (chrome_trace, make_request_id,
 logger = logging.getLogger(__name__)
 
 # routes of the JAX server that later slices port (ROADMAP queue 1)
-_UNPORTED_GET = ("/debug/device", "/debug/kv_pool", "/pd/", "/kv_pool/",
-                 "/v1/adapters", "/ui")
-_UNPORTED_POST = ("/pd/", "/v1/adapters", "/start_profile", "/stop_profile")
+_UNPORTED_GET = ("/debug/device", "/debug/kv_pool", "/pd/", "/kv_pool/", "/ui")
+_UNPORTED_POST = ("/pd/", "/start_profile", "/stop_profile")
 
 # the 429's message for each shed reason of RateLimiter.shed_reason
 _SHED_MESSAGES = {
@@ -127,6 +139,9 @@ class ServerState:
         self.engine = engine
         self.cfg = cfg
         self.model_name = cfg.served_model_name or engine.md.name
+        # the boot directory's adapters (the /v1/models listing without
+        # the cache, and the names a merged engine still accepts)
+        self.adapters = discover_adapters(cfg.adapters_dir)
         # multi-tenant QoS: the engine parsed the config; the limiter,
         # metrics and SLO watchdog share it
         self.qos = engine.qos
@@ -315,9 +330,18 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                 body["kv_sizing"] = st.engine.sizing_report
             self._json(200, body)
         elif self.path == "/v1/models":
-            self._json(200, {"object": "list", "data": [
-                {"id": st.model_name, "object": "model",
-                 "owned_by": "kaito-tpu", "root": st.model_name}]})
+            models = [{"id": st.model_name, "object": "model",
+                       "owned_by": "kaito-tpu", "root": st.model_name}]
+            # with the cache, the adapters resident or parked now
+            snap = st.engine.adapter_snapshot()
+            names = (sorted({e["name"] for e in snap["resident"]}
+                            | set(snap["host_tier"]))
+                     if snap is not None else list(st.adapters))
+            models += [{"id": name, "object": "model", "owned_by": "kaito-tpu",
+                        "parent": st.model_name} for name in names]
+            self._json(200, {"object": "list", "data": models})
+        elif self.path == "/v1/adapters":
+            self._adapters_get()
         elif self.path == "/metrics":
             self._send(200, "text/plain; version=0.0.4",
                        st.metrics.registry.expose().encode())
@@ -347,10 +371,140 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             self._completions(chat=True)
         elif self.path.startswith(_UNPORTED_POST):
             self._not_ported()
+        elif self.path == "/v1/adapters":
+            self._adapters_post()
         elif self.path.startswith("/debug/flight"):
             self._flight_post()
         else:
             self._error(404, f"no route {self.path}")
+
+    def do_DELETE(self):
+        self._intake_trace()
+        if self.path.startswith("/v1/adapters/"):
+            self._adapters_delete(self.path[len("/v1/adapters/"):])
+        else:
+            self._error(404, f"no route {self.path}")
+
+    # ---------------- multi-LoRA admin ----------------
+
+    def _adapters_get(self):
+        """The cache's snapshot; 403 with the cache off."""
+        snap = self.state.engine.adapter_snapshot()
+        if snap is None:
+            return self._error(403, "adapter cache disabled on this pod")
+        self._json(200, snap)
+
+    def _resolve_adapter_source(self, source: str) -> str:
+        """A POST /v1/adapters source as a local artifact directory.
+        ``path://`` (or a bare path) is operator-local trust; a remote
+        pull (``hub://``, ``oras://``) needs a ``--adapter-source-allowlist``
+        prefix ("" = local paths only).  ValueError: malformed (400);
+        PermissionError: not allowlisted (403); RuntimeError: the pull
+        failed (502)."""
+        import shutil
+        import subprocess
+        import tempfile
+
+        if source.startswith("path://"):
+            source = source[len("path://"):]
+        if "://" not in source:
+            if not os.path.isdir(source):
+                raise ValueError(f"adapter path {source!r} is not a directory")
+            return source
+        scheme = source.split("://", 1)[0]
+        if scheme not in ("hub", "oras"):
+            raise ValueError(f"unsupported adapter source scheme {scheme!r} "
+                             f"(path://, hub://, oras://)")
+        allow = [p for p in self.state.cfg.adapter_source_allowlist.split(",") if p]
+        if not any(source.startswith(pref) for pref in allow):
+            raise PermissionError(f"adapter source {source!r} not in "
+                                  f"--adapter-source-allowlist")
+        if scheme == "hub":
+            raise RuntimeError(
+                f"adapter pull from {source} failed: hub:// pulls need the hub "
+                f"fetcher (kaito_tpu/runtime/weight_fetch.py), not ported yet "
+                f"(ROADMAP queue 1, M23)")
+        dest = tempfile.mkdtemp(prefix="kaito-adapter-")
+        try:
+            subprocess.run(["oras", "pull", source[len("oras://"):], "-o", dest],
+                           check=True, capture_output=True, timeout=600)
+        except Exception as e:
+            shutil.rmtree(dest, ignore_errors=True)
+            raise RuntimeError(f"adapter pull from {source} failed: {e}") from None
+        return dest
+
+    def _adapters_post(self):
+        """Hot-load an adapter into the slot table: its lane is written in
+        place, no graph is captured again."""
+        st = self.state
+        if st.engine.adapter_cache is None:
+            return self._error(403, "adapter cache disabled on this pod")
+        body = self._read_body()
+        if body is None:
+            return
+        name = str(body.get("name") or "").strip()
+        source = str(body.get("source") or "").strip()
+        if not name or not source:
+            return self._error(400, "'name' and 'source' are required")
+        if not valid_tenant(name):
+            return self._error(400, "adapter name must be label-safe (max 64 chars)")
+        try:
+            path = self._resolve_adapter_source(source)
+        except PermissionError as e:
+            return self._error(403, str(e))
+        except ValueError as e:
+            return self._error(400, str(e))
+        except RuntimeError as e:
+            return self._error(502, str(e))
+        try:
+            slot = st.engine.load_adapter_dynamic(name, path)
+        except AdapterBusyError as e:
+            return self._error(409, str(e))
+        except AdapterLoadError as e:
+            return self._error(422, str(e), "adapter_load_error")
+        except ValueError as e:
+            return self._error(400, str(e))
+        self._json(200, {"loaded": name, "slot": slot})
+
+    def _adapters_delete(self, name: str):
+        """Drop an adapter from both tiers: 409 while in-flight work pins
+        it, 404 when the cache holds no trace of it."""
+        from urllib.parse import unquote
+
+        st = self.state
+        if st.engine.adapter_cache is None:
+            return self._error(403, "adapter cache disabled on this pod")
+        name = unquote(name).strip()
+        try:
+            gone = st.engine.delete_adapter(name)
+        except AdapterBusyError as e:
+            return self._error(409, str(e))
+        if not gone:
+            return self._error(404, f"no adapter {name!r}")
+        self._json(200, {"deleted": name})
+
+    def _request_adapter(self, model_field: str, tenant: str):
+        """The adapter a completion runs: the ``model`` field's, else the
+        tenant's under QoS ("" the base).  Returns (adapter, None) or
+        (None, (status, message, type)) for the error to answer."""
+        st = self.state
+        eng = st.engine
+        cache = eng.adapter_cache
+        adapter = ""
+        if model_field and model_field not in (st.model_name, eng.md.name):
+            if model_field in eng.adapter_index or (cache is not None
+                                                    and cache.has(model_field)):
+                adapter = model_field
+            elif not (eng.adapters_merged and model_field in st.adapters):
+                return None, (404, f"model {model_field!r} not found",
+                              "invalid_request_error")
+        if not adapter and tenant and st.qos is not None:
+            adapter = st.qos.adapter_of(tenant)
+            if adapter and not (adapter in eng.adapter_index
+                                or (cache is not None and cache.has(adapter))):
+                return None, (503, f"tenant adapter {adapter!r} is not loaded on "
+                                   f"this replica", "adapter_unavailable")
+        return adapter, None
 
     def _flight_get(self):
         """List the flight bundles at ``/debug/flight``, fetch one at
@@ -485,8 +639,9 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             if n_choices > 1 and stream:
                 return self._error(400, "'n' > 1 is not supported with streaming")
             model_field = body.get("model") or ""
-            if model_field and model_field not in (st.model_name, eng.md.name):
-                return self._error(404, f"model {model_field!r} not found")
+            adapter, err = self._request_adapter(model_field, tenant)
+            if err is not None:
+                return self._error(*err)
             params = SamplingParams(
                 max_tokens=int(body.get("max_tokens") or 128),
                 temperature=float(body.get("temperature", 1.0)),
@@ -529,7 +684,7 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                     tokens, dataclasses.replace(params, seed=params.seed + ci),
                     req_id=req_id if ci == 0 else f"{req_id}-{ci}",
                     trace_id=self._rid, timeout_s=timeout_s, tenant=tenant,
-                    priority=priority))
+                    priority=priority, adapter=adapter))
         except ValueError as e:
             for r in reqs:
                 eng.abort(r)
@@ -959,6 +1114,30 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     default=int(os.environ.get("KAITO_GRAMMAR_MAX_STATES", "512")),
                     help="DFA state cap per grammar; each state costs 8 bytes "
                          "per vocabulary entry in the device mask table")
+    ap.add_argument("--kaito-adapters-dir", default="",
+                    help="LoRA adapters to serve at boot (one subdirectory each)")
+    ap.add_argument("--adapter-slots", type=int,
+                    default=int(os.environ.get("KAITO_ADAPTER_SLOTS", "0")),
+                    help="multi-LoRA cache: device slot-table capacity; 0 = off "
+                         "(boot-time stacks only, /v1/adapters 403, no "
+                         "kaito:adapter_* family)")
+    ap.add_argument("--adapter-rmax", type=int,
+                    default=int(os.environ.get("KAITO_ADAPTER_RMAX", "16")),
+                    help="largest servable adapter rank (higher is refused: "
+                         "rank_overflow)")
+    ap.add_argument("--adapter-host-bytes", type=int,
+                    default=int(os.environ.get("KAITO_ADAPTER_HOST_BYTES",
+                                               str(256 << 20))),
+                    help="host-RAM tier for evicted adapters (0 disables it)")
+    ap.add_argument("--adapter-allow-base-mismatch", action="store_true",
+                    default=os.environ.get("KAITO_ADAPTER_ALLOW_BASE_MISMATCH",
+                                           "") == "true",
+                    help="serve adapters recorded for another base model "
+                         "(default: refuse, reason base_mismatch)")
+    ap.add_argument("--adapter-source-allowlist",
+                    default=os.environ.get("KAITO_ADAPTER_ALLOWLIST", ""),
+                    help="comma-separated source prefixes POST /v1/adapters may "
+                         "pull from (hub://, oras://); '' = local paths only")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tensor-parallel-size", type=int, default=1,
                     help="shards over the first N cards (raises when fewer "
@@ -1004,7 +1183,11 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                                                      args.speculative_draft)
                            if args.speculative_draft else ""),
         speculative_draft_k=args.speculative_draft_k,
-        speculative_draft_weights_dir=args.speculative_draft_weights_dir)
+        speculative_draft_weights_dir=args.speculative_draft_weights_dir,
+        adapters_dir=args.kaito_adapters_dir, adapter_slots=args.adapter_slots,
+        adapter_rmax=args.adapter_rmax, adapter_host_bytes=args.adapter_host_bytes,
+        adapter_allow_base_mismatch=args.adapter_allow_base_mismatch,
+        adapter_source_allowlist=args.adapter_source_allowlist)
     return cfg, args
 
 

@@ -281,7 +281,7 @@ class VerifyWindow(StaticGraphs):
         self.engine, self.B, self.W, self.draft = engine, B, W, draft
         self.layout = _Packed(dict(tokens=W, true_lens=1, start_pos=1, prop_len=1,
                                    temperature=1, onehot=1, use_draft=1, slot=1,
-                                   gstate=1, page_tables=engine.pages_per_seq))
+                                   gstate=1, aids=1, page_tables=engine.pages_per_seq))
         dev = engine.device
         packed = torch.zeros((B, self.layout.width), dtype=torch.int32, device=dev)
         super().__init__({"packed": packed}, dev, capture, engine.counters,
@@ -294,15 +294,17 @@ class VerifyWindow(StaticGraphs):
     def _in(self, name: str) -> torch.Tensor:
         return self.layout.view(self.inputs["packed"], name)
 
-    def _body(self, width: int, any_random: bool, grammar: Optional[tuple]) -> None:
+    def _body(self, width: int, any_random: bool, grammar: Optional[tuple],
+              lora: bool = False) -> None:
         eng, W, K = self.engine, self.W, self.W - 1
         toks = self._in("tokens")
         tl, sp = self._in("true_lens"), self._in("start_pos")
         prop_len = self._in("prop_len")
         pt = self._in("page_tables")[:, :width]
+        aids = self._in("aids") if lora else None
         if self.draft is None:
             eng.cache, logits = eng.model.verify_window_logits(eng.cache, toks, tl,
-                                                               pt, sp)
+                                                               pt, sp, aids)
             grows = None
             if grammar is not None:
                 _, gmask, gtrans = grammar
@@ -323,7 +325,7 @@ class VerifyWindow(StaticGraphs):
             prop = torch.where(use & (j < prop_len[:, None]), d.props, toks[:, 1:])
             toks = torch.cat([toks[:, :1], prop], dim=1)
             eng.cache, logits = eng.model.verify_window_logits(eng.cache, toks, tl,
-                                                               pt, sp)
+                                                               pt, sp, aids)
             slot = self._in("slot").long()
             grows = None
             if grammar is not None:
@@ -347,23 +349,28 @@ class VerifyWindow(StaticGraphs):
         self._in("true_lens").zero_()
         self._in("page_tables").zero_()
         self._in("gstate").zero_()
+        self._in("aids").zero_()
         self._in("slot").fill_(self.draft.spare if self.draft is not None else 0)
         return lambda: buf.copy_(saved)
 
     def run(self, host: np.ndarray, width: int, any_random: bool,
-            grammar: Optional[tuple] = None) -> tuple:
+            grammar: Optional[tuple] = None, lora: bool = False) -> tuple:
         """One verify round from the packed host inputs (``layout``):
         upload, run, read back.  ``grammar`` is None or the engine's
-        (capacity, gmask, gtrans) when a row is constrained; the graph is
-        keyed by (width, any_random, capacity).  Returns (tokens [B][W],
-        emitted counts [B], logprobs [B][W]) as lists."""
+        (capacity, gmask, gtrans) when a row is constrained; ``lora``
+        whether a row verifies through an adapter lane (its ``aids``
+        column); the graph is keyed by (width, any_random, lora,
+        capacity).  Returns (tokens [B][W], emitted counts [B], logprobs
+        [B][W]) as lists."""
         self.upload({"packed": host})
         if self.capture:
-            key = (width, any_random, grammar[0] if grammar is not None else None)
-            self.replay(key, lambda: (lambda: self._body(width, any_random, grammar),
+            key = (width, any_random, lora,
+                   grammar[0] if grammar is not None else None)
+            self.replay(key, lambda: (lambda: self._body(width, any_random, grammar,
+                                                         lora),
                                       self._neutral, None))
         else:
-            self._body(width, any_random, grammar)
+            self._body(width, any_random, grammar, lora)
             self.counters["spec_verify_eager_total"] += 1
         if self._cuda:
             self._host.copy_(self.out, non_blocking=True)

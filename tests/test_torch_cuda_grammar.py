@@ -94,7 +94,7 @@ def test_constrained_windows_match_the_eager_loop(card, async_on):
     eng = _mk(async_dispatch=async_on)
     assert _mixed(eng) == want
     keys = [key for (_, key) in eng.window.graphs]
-    assert any(k[2] == eng._gram_table.capacity for k in keys)
+    assert any(k[-1] == eng._gram_table.capacity for k in keys)
     c = eng.counters
     assert c["decode_graph_replays_total"] >= c["decode_windows_total"] > 0
 
@@ -126,7 +126,7 @@ def test_capture_after_table_growth(card):
     assert cap == {"before": 64, "after": 128}
     assert eng.grammar_device_stats["graphs_dropped"] > 0
     keys = [key for (_, key) in eng.window.graphs]
-    assert all(k[2] in (None, 128) for k in keys) and any(k[2] == 128 for k in keys)
+    assert all(k[-1] in (None, 128) for k in keys) and any(k[-1] == 128 for k in keys)
     tbl = eng._gram_table
     assert torch.equal(eng._gmask.cpu(), torch.from_numpy(tbl.mask))
     assert torch.equal(eng._gtrans.cpu(), torch.from_numpy(tbl.trans))

@@ -232,8 +232,6 @@ def test_submit_validates_input():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value,item", [
-    ("adapters_dir", "/nonexistent", "M16"),
-    ("adapter_slots", 2, "M16"),
     ("tensor_parallel", 2, "M19"),
     ("pipeline_parallel", 2, "M19"),
     ("data_parallel", 2, "M19"),
@@ -261,6 +259,22 @@ def test_speculation_gates_build(field, value):
     prompt = [7, 11, 13, 7, 11, 13, 7, 11, 13, 7, 11]
     assert _run(eng, [prompt], n=12) == _run(_mk(), [prompt], n=12)
     assert eng.counters["spec_steps_total"] > 0
+
+
+@pytest.mark.parametrize("field,value", [
+    ("adapters_dir", "/nonexistent"),
+    ("adapter_slots", 2),
+])
+def test_adapter_gates_build(field, value):
+    """The two M16 gates build an engine that serves: with no adapter
+    found (an empty slot table), base output equal to the plain
+    engine's, and an unknown adapter refused at submission."""
+    eng = _mk(**{field: value})
+    assert (eng.adapter_cache is not None) == (field == "adapter_slots")
+    assert eng.adapter_index == {}
+    assert _run(eng, PROMPTS[:2], n=6) == _run(_mk(), PROMPTS[:2], n=6)
+    with pytest.raises(ValueError, match="unknown adapter"):
+        eng.submit([1, 2, 3], _greedy(2), adapter="nope")
 
 
 def test_prefix_caching_default_runs_on_the_plain_allocator(caplog):

@@ -1,5 +1,7 @@
 """The port stands alone: no module of kaito_tpu_torch, and not
-chip_smoke.py, imports jax or anything of kaito_tpu; every module
+chip_smoke.py, imports jax, flax, msgpack or anything of kaito_tpu (the
+card machine has none of them: the adapter artifact's msgpack is read
+by the port's own codec, ``utils/msgpack.py``); every module
 imports on a machine without a card; and a CUDA request without a
 usable card raises instead of falling back to the CPU."""
 
@@ -13,7 +15,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "kaito_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "kaito_tpu")
+FORBIDDEN = ("jax", "jaxlib", "kaito_tpu", "flax", "msgpack")
 
 
 def _imports(path):
@@ -40,7 +42,8 @@ def test_sources_found():
     for mod in ("engine/prefix_cache.py", "engine/metrics.py", "engine/qos.py",
                 "engine/rate_limit.py", "engine/spec.py", "engine/grammar.py",
                 "engine/parsers.py", "runtime/slo.py", "utils/tracing.py",
-                "utils/promtext.py", "utils/flightrec.py"):
+                "utils/promtext.py", "utils/flightrec.py", "utils/msgpack.py",
+                "tuning/lora.py", "engine/adapters.py", "engine/adapter_cache.py"):
         assert PKG / mod in SOURCES, mod
 
 

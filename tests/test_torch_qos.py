@@ -2,7 +2,7 @@
 
 - ``engine.qos.parse_qos_config`` reads the same documents to the same
   ``to_dict`` and rejects the same malformed ones; a document with a
-  tenant -> adapter map raises NotImplementedError naming M16.
+  tenant -> adapter map (M16) parses to the same ``adapter_of``.
 - A never-started JAX engine and a never-started port engine, given the
   same submissions, pop them in the same order: strict priority across
   classes, deficit round robin by weight within one, a preempted
@@ -116,12 +116,15 @@ def test_parse_qos_config_rejects_what_the_jax_package_rejects(doc, msg):
 
 
 def test_adapters_map_raises_naming_m16():
+    """The tenant -> adapter map (M16) parses as the JAX package's, and
+    an engine takes a document that holds one."""
     doc = json.dumps({"classes": {"a": {}}, "adapters": {"acme": "acme-lora"}})
     assert jax_parse(doc).adapter_of("acme") == "acme-lora"
-    with pytest.raises(NotImplementedError, match="M16"):
-        parse_qos_config(doc)
-    with pytest.raises(NotImplementedError, match="M16"):
-        InferenceEngine(EngineConfig(**{**BASE, "qos_config": doc}), device="cpu")
+    assert parse_qos_config(doc).adapter_of("acme") == "acme-lora"
+    assert parse_qos_config(doc).adapter_of("other") == ""
+    assert parse_qos_config(doc).to_dict() == jax_parse(doc).to_dict()
+    eng = InferenceEngine(EngineConfig(**{**BASE, "qos_config": doc}), device="cpu")
+    assert eng.qos.adapter_of("acme") == "acme-lora"
 
 
 def test_tenant_ids_and_priority_ranks():

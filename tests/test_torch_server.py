@@ -132,7 +132,7 @@ def test_health_and_models(served):
     assert status == 200 and body["data"][0]["id"] == "tiny-llama-real"
 
 
-@pytest.mark.parametrize("path", ["/debug/device", "/pd/kv/x", "/v1/adapters"])
+@pytest.mark.parametrize("path", ["/debug/device", "/pd/kv/x", "/debug/kv_pool"])
 def test_unported_routes_answer_501(served, path):
     _, base = served
     status, body = _get(base + path)
