@@ -72,7 +72,14 @@ order; any failure exits non-zero and prints no result:
    counts only the keys the window keeps; K1's plan there is logged.
    K2 also at prompt scoring's lengths, T = 1024 and 4096 with true_len
    T - 37 (bf16 and fp32, the same tolerances), timed at T = 4096 beside
-   SDPA.
+   SDPA.  At the head dims of the other dense families
+   (:data:`FAMILY_HEADS`: phi-3-mini H = Hkv = 32, D = 96; phi-2 H = Hkv
+   = 32, D = 80; gemma-3-4b H = 8, Hkv = 4, D = 256, scale 1/16, global
+   and its window of 1024) K1 and K1q run the eight sequences and K2 and
+   K3 T = 512 and 200 (and 2048 for gemma-3), bf16 and fp32 against
+   their plain versions with the same tolerances, each timed in bf16
+   beside SDPA and the bound; one K1 and one K1q call at D = 96 and at D
+   = 256 replay from a CUDA graph; ``flash_prefill.cu`` must not spill.
 3. Goldens: ``tiny-llama-real`` in fp32 through the port's engine on the
    card, the prefix cache on, must reproduce the ``fp32``, ``int8``,
    ``weight_int4`` and ``kv_int8`` sections of
@@ -270,6 +277,28 @@ order; any failure exits non-zero and prints no result:
    round trip leaves the adapter's lane bit-equal and its stream
    unchanged.
 
+13. The rest of the dense families (legs ``families-bf16`` and
+   ``families-fp32``).  Full width, bf16, synthetic weights from seed 0,
+   phase 4's config (page 64, 8 sequences, 512 prefill tokens, the
+   prefix cache on), each model served over HTTP (a completion with
+   logprobs, a streamed chat, phase 4's burst, TTFT and tok/s of one
+   request alone, the decode readings; K1, K2 and K3 zeroed before and
+   each launched): ``phi-3-mini-128k-instruct``'s widths through
+   ``autogen`` with longrope factor lists of 48 values from a seed and
+   an original length of 4096 (the tables at 4095 and 4096 must be short
+   then long; a ~4000-token prompt decodes 160 greedy tokens past 4096
+   in captured windows, every window a replay; the decode logprobs past
+   4096 within 0.1 of a fresh prefill's, ``score_prompt``, over the same
+   tokens; an eager-loop engine must give the same 160 tokens);
+   ``gemma-3-4b-instruct`` (D = 256; a 1100-token prompt scored, one K2 a
+   layer under the window of 1024, and decoded 24 tokens past it); and
+   ``phi-2`` (D = 80, partial rotary, parallel residual, biases).
+   Exact: a tiny phi-3 (hidden 384, 4 heads of 96, 2 layers, longrope
+   lists, original length 48) written as a fused checkpoint
+   (``qkv_proj``, ``gate_up_proj``) by the port's ``write_safetensors``
+   and served in fp32 from it on the card and on the CPU: two prompts
+   across position 48, tokens equal, logprobs within 2e-3.
+
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
 ``--phase2-only`` stops after phase 2 and prints the kernel records
@@ -279,7 +308,8 @@ phase 3 and every server leg after phase 4's bf16 one (with
 and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
 ``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
-``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``), which
+``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``,
+``families-bf16``, ``families-fp32``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -558,9 +588,9 @@ def _dropped_split_reading(torch, args, kw, sms):
     return e, e / ref.abs().max().item(), _seq_rel_err(bad, ref)
 
 
-def _check_decode_graph(torch, full, gen):
-    """One K1 and one K1q call (bf16, the main case) captured in a CUDA
-    graph and replayed after new lengths and page-table contents are
+def _check_decode_graph(torch, full, gen, heads=None):
+    """One K1 and one K1q call (bf16, the main case; at ``heads``, a dict
+    of H, Hkv and D, when given) captured in a CUDA graph and replayed after new lengths and page-table contents are
     copied into the static inputs; each replay against the plain version.
     Before the replays, an eager call at a batch whose plan needs more
     scratch and counters: the workspace must not move under the graph.
@@ -569,9 +599,11 @@ def _check_decode_graph(torch, full, gen):
     from kaito_tpu_torch.engine.ops.decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_plain, workspace)
 
+    heads = heads or {}
     worst = {}
     for quant in (False, True):
-        args, kw = _decode_case(torch, torch.bfloat16, K1_LENGTHS, BIG, None, gen, full)
+        args, kw = _decode_case(torch, torch.bfloat16, K1_LENGTHS, BIG, None, gen, full,
+                                **heads)
         q, ck, cv, pt, lens, win = args
         if quant:
             (ck, ks), (cv, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
@@ -588,7 +620,7 @@ def _check_decode_graph(torch, full, gen):
         ws = workspace(q.device)
         ptrs = (ws.part.data_ptr(), ws.counters.data_ptr())
         big, bkw = _decode_case(torch, torch.bfloat16, [300 + 37 * i for i in range(16)],
-                                BIG, None, gen, 20)
+                                BIG, None, gen, 20, **heads)
         if quant:
             (k8, ks), (v8, vs) = _quantize_pool(torch, big[1]), _quantize_pool(torch, big[2])
             big, bkw = (big[0], k8, v8) + big[3:], dict(bkw, k_scale=ks, v_scale=vs)
@@ -611,7 +643,8 @@ def _check_decode_graph(torch, full, gen):
             err = max(err, r if quant else max(e, r))
         worst["K1q" if quant else "K1"] = err
         del graph
-    log(f"K1/K1q CUDA graph replays (new lengths and tables): max err {worst}")
+    log(f"K1/K1q CUDA graph replays {heads or ''} (new lengths and tables): max err "
+        f"{worst}")
     if worst["K1"] > BF16_ATOL or worst["K1q"] > BF16_ATOL:
         raise SmokeFailure(f"K1/K1q replayed from a CUDA graph disagree: {worst}")
     return worst
@@ -1220,7 +1253,8 @@ def _packed_layout(torch, T, seg_lens):
 
 # phase 2's packed layouts: (T, segment lengths); pads fill the rest
 FLASH_PACKED = {512: (100, 150, 120, 90),          # 460 tokens + 52 pad
-                256: (50, 75, 60, 45)}             # 230 tokens + 26 pad
+                256: (50, 75, 60, 45),             # 230 tokens + 26 pad
+                2048: (700, 600, 500, 200)}        # gemma-3's window timing
 # many short segments (1-3 tokens) and one that spans three 64-key tiles
 SHORT_SEGMENTS = (1, 2, 3) * 20 + (1, 3, 170) + (2,) * 10
 
@@ -1404,6 +1438,139 @@ def check_flash(torch, records):
     for name, err in (("K2", err2), ("K3", err3)):
         if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
             raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
+
+
+# the dense families' attention shapes whose head dims 80, 96 and 256
+# the kernels take beside 32, 64 and 128: (name, heads, scale, windows);
+# gemma-3-4b's scale is 1 / sqrt(query_pre_attn_scalar), its local layers'
+# window 1024
+FAMILY_HEADS = (
+    ("phi-3-mini", dict(H=32, Hkv=32, D=96), 96 ** -0.5, (BIG,)),
+    ("phi-2", dict(H=32, Hkv=32, D=80), 80 ** -0.5, (BIG,)),
+    ("gemma-3-4b", dict(H=8, Hkv=4, D=256), 256 ** -0.5, (BIG, 1024)),
+)
+
+
+def check_families(torch, records, build_logs):
+    """K1, K1q, K2 and K3 at the head dims of phi-3-mini (96), phi-2 (80)
+    and gemma-3-4b (256), against their plain versions in bf16 and fp32
+    (phase 2's tolerances): decode over eight sequences up to 2048
+    tokens at the full table width, prefill at T = 512 and 200 (true_len
+    cut, and the four-segment layout for K3), and for gemma-3 T = 2048
+    with its window of 1024.  Each is timed in bf16 beside SDPA and the
+    bound; one K1 and one K1q call at D = 96 and at D = 256 are replayed
+    from a CUDA graph; ``flash_prefill.cu`` must not spill (its
+    instances' ptxas lines are logged; those of ``decode_attention.cu``
+    are checked by :func:`check_decode`).  Kept in the kernel records
+    under ``families``."""
+    from kaito_tpu_torch.engine.ops.decode_attention import (
+        decode_plan, paged_decode_attention_cuda, paged_decode_attention_plain)
+    from kaito_tpu_torch.engine.ops.flash_prefill import (
+        flash_prefill_attention_cuda, flash_prefill_attention_plain,
+        flash_prefill_packed_cuda, flash_prefill_packed_plain)
+
+    lines, spills = _build_lines(build_logs, "flash_prefill.cu")
+    for ln in lines:
+        log(f"  flash_prefill.cu: {ln}")
+    if spills:
+        raise SmokeFailure(f"flash_prefill.cu spills: {spills}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    full = _path_pages_per_seq()
+    B = len(K1_LENGTHS)
+    out_rec = {k: {} for k in ("paged_decode_attention", "paged_decode_attention_int8kv",
+                               "flash_prefill_attention", "flash_prefill_packed")}
+    bad = []
+
+    def note(err, name, dtype, x, what):
+        key = f"{name} {str(dtype)[6:]}"
+        err[key] = max(err.get(key, 0.0), x)
+        if x > (BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL) or not math.isfinite(x):
+            bad.append(f"{what}: {x:.3g}")
+
+    for fam, heads, scale, windows in FAMILY_HEADS:
+        H, Hkv, D = heads["H"], heads["Hkv"], heads["D"]
+        plan = decode_plan(B, H, Hkv, D, sms)
+        log(f"K1/K1q plan, {fam} B={B} H={H} Hkv={Hkv} D={D} on {sms} SMs: n_split "
+            f"{plan.n_split}, {plan.ctas} CTAs, {plan.scratch_floats} scratch floats")
+        err = {}
+        timed = {"K1": [], "K1q": [], "K2": [], "K3": []}
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in windows:
+                args, kw = _decode_case(torch, dtype, K1_LENGTHS, window, None, gen, full,
+                                        **heads)
+                kw["scale"] = scale
+                out = paged_decode_attention_cuda(*args, **kw)
+                ref = paged_decode_attention_plain(*args, **kw)
+                q, ck, cv, pt, lens, win = args
+                (k8, ks), (v8, vs) = _quantize_pool(torch, ck), _quantize_pool(torch, cv)
+                qargs, qkw = (q, k8, v8, pt, lens, win), dict(kw, k_scale=ks, v_scale=vs)
+                outq = paged_decode_attention_cuda(*qargs, **qkw)
+                refq = paged_decode_attention_plain(*qargs, **qkw).float()
+                torch.cuda.synchronize()
+                e = max(_decode_errs(out, ref))
+                eq = _seq_rel_err(outq, refq)
+                note(err, "K1", dtype, e, f"{fam} K1 {dtype} window={window}")
+                note(err, "K1q", dtype, eq, f"{fam} K1q {dtype} window={window}")
+                log(f"K1/K1q {dtype} {fam} H={H} Hkv={Hkv} D={D} window={window}: K1 max "
+                    f"err (absolute or per sequence) {e:.3g} / K1q per sequence "
+                    f"relative {eq:.3g}")
+                if dtype == torch.bfloat16:
+                    label = f"{fam} B=8 H={H} Hkv={Hkv} D={D} window {window}"
+                    timed["K1"].append(_time_decode(torch, args, kw, label))
+                    timed["K1q"].append(_time_decode(torch, qargs, qkw, label))
+                del args, qargs, ck, cv, k8, v8
+            # prefill: T = 512 and a ragged 200 at each window; gemma-3 also
+            # T = 2048, where its window of 1024 cuts
+            for T in (512, 200) + ((2048,) if len(windows) > 1 else ()):
+                for window in windows:
+                    for true_len in (T, T * 3 // 5):
+                        q, k, v = _flash_inputs(torch, dtype, T, gen, **heads)
+                        tl = torch.tensor([true_len], dtype=torch.int32, device="cuda")
+                        out = flash_prefill_attention_cuda(q, k, v, tl, window,
+                                                           scale=scale)
+                        ref = flash_prefill_attention_plain(q, k, v, tl, window,
+                                                            scale=scale)
+                        torch.cuda.synchronize()
+                        e2 = (out.float() - ref.float())[:, :true_len].abs().max().item()
+                        note(err, "K2", dtype, e2, f"{fam} K2 {dtype} T={T} "
+                             f"true_len={true_len} window={window}")
+                    seg_lens = FLASH_PACKED.get(T, (T // 3, T // 4, T // 5))
+                    segs, poss = _packed_layout(torch, T, seg_lens)
+                    valid = sum(seg_lens)
+                    out = flash_prefill_packed_cuda(q, k, v, segs, poss, window,
+                                                    scale=scale)
+                    ref = flash_prefill_packed_plain(q, k, v, segs, poss, window,
+                                                     scale=scale)
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(out.float()).all():
+                        bad.append(f"{fam} K3 {dtype} T={T}: non-finite output")
+                    e3 = (out.float() - ref.float())[:, :valid].abs().max().item()
+                    note(err, "K3", dtype, e3, f"{fam} K3 {dtype} T={T} window={window}")
+                    log(f"K2/K3 {dtype} {fam} T={T} D={D} window={window}: K2 max err "
+                        f"{e2:.3g} (true_len {T * 3 // 5} last), K3 {seg_lens} {e3:.3g}")
+                    del q, k, v, out, ref
+        for T, window in [(512, BIG)] + [(2048, w) for w in windows if w < BIG]:
+            k2, k3 = _time_flash(torch, T, gen, scale, window=window, **heads)
+            timed["K2"].append(dict(k2, case=f"{fam} T={T} window {window}"))
+            timed["K3"].append(dict(k3, case=f"{fam} T={T} window {window}"))
+        graph = _check_decode_graph(torch, full, gen, heads) if D in (96, 256) else None
+        shape = f"H={H} Hkv={Hkv} D={D}"
+        for rec, name in (("paged_decode_attention", "K1"),
+                          ("paged_decode_attention_int8kv", "K1q"),
+                          ("flash_prefill_attention", "K2"),
+                          ("flash_prefill_packed", "K3")):
+            out_rec[rec][fam] = dict(
+                shape=shape, max_err_bf16=err[f"{name} bfloat16"],
+                max_err_fp32=err[f"{name} float32"], cases=timed[name],
+                **({"graph_replay_err": graph[name]} if graph and name in graph
+                   else {}))
+    if bad:
+        raise SmokeFailure(f"the families' kernels disagree with their plain "
+                           f"versions: {bad}")
+    for rec, fams in out_rec.items():
+        records[rec]["families"] = fams
 
 
 # ---------------------------------------------------------------------------
@@ -4263,6 +4430,347 @@ def run_adapter_exact_phase(label) -> dict:
     return res
 
 
+FAMILIES_LEG = ("families-bf16", "phase 13, bf16 dense families (phi-3-mini-128k "
+                "longrope, gemma-3-4b, phi-2)")
+FAMILIES_EXACT_LEG = ("families-fp32", "phase 13, fp32 phi-3 fused checkpoint with "
+                      "longrope")
+_FAMILY_KERNELS = ("paged_decode_attention", "flash_prefill_attention",
+                   "flash_prefill_packed")
+# the long phi-3 prompt: ~4000 byte tokens, decoded past position 4096
+_LONG_BYTES, _LONG_TOKENS = 4000, 160
+# decode logprobs past the switch against a fresh prefill of the same
+# tokens, bf16: K1 over pages written one decode step at a time against
+# K2 over the whole row sum in other orders (phase 9's bound for a
+# served continuation against its scoring)
+_SWITCH_LOGPROB_ATOL = 0.1
+
+
+def _phi3_128k_config(orig=4096, seed=16):
+    """Phi-3-mini-128k-instruct's published widths (hidden 3072, 32
+    layers, 32 heads of 96, intermediate 8192, vocab 32064) as a HF
+    config dict, with longrope factor lists (48 values each, made from
+    ``seed``) and ``original_max_position_embeddings`` ``orig``: the
+    published lists are not in the repository."""
+    import random
+
+    rng = random.Random(seed)
+    return {"architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+            "vocab_size": 32064, "hidden_size": 3072, "num_hidden_layers": 32,
+            "num_attention_heads": 32, "num_key_value_heads": 32,
+            "intermediate_size": 8192, "max_position_embeddings": 131072,
+            "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "hidden_act": "silu",
+            "tie_word_embeddings": False,
+            "rope_scaling": {"type": "longrope",
+                             "short_factor": [1.0 + 0.05 * rng.random() for _ in range(48)],
+                             "long_factor": [1.0 + 40.0 * rng.random() for _ in range(48)],
+                             "original_max_position_embeddings": orig}}
+
+
+def _greedy_run(engine, tokens, n):
+    """Greedy tokens and their logprobs of one request driven step by
+    step on an engine that is not started."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    req = engine.submit(list(tokens), SamplingParams(
+        max_tokens=n, temperature=0.0, ignore_eos=True, logprobs=True))
+    for _ in range(20000):
+        engine.step()
+        if req.finish_reason:
+            break
+    if req.finish_reason != "length":
+        raise SmokeFailure(f"greedy run did not finish: {req.finish_reason}")
+    return list(req.output_tokens), [float(x) for x in req.output_logprobs]
+
+
+def _longrope_switch(engine, md, label) -> dict:
+    """phi-3-mini-128k across its original length: the selected table at
+    positions 4095 and 4096 (short, then long), then a ~4000-token prompt
+    decoded greedily past position 4096 in the captured windows (every
+    window a replay), and the decode logprobs from 4096 on against a
+    fresh prefill (``score_prompt``) over the same tokens."""
+    import torch
+
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    model = engine.model
+    short, long, orig, short_m, long_m = model._longrope
+    inv, ms = model._rope_select(torch.tensor([[int(orig) - 1, int(orig)]],
+                                              dtype=torch.int32, device="cuda"))
+    if not (torch.equal(inv[0, 0], short) and torch.equal(inv[0, 1], long)
+            and torch.equal(ms.flatten().cpu(), torch.tensor([short_m, long_m]))):
+        raise SmokeFailure(f"{label}: the tables at {int(orig) - 1} and {int(orig)} "
+                           f"are not short then long")
+    prompt = engine.tokenizer.encode(_prompt(_LONG_BYTES, 91))
+    n0 = len(prompt)
+    if not n0 < orig < n0 + _LONG_TOKENS:
+        raise SmokeFailure(f"{label}: a {n0}-token prompt and {_LONG_TOKENS} tokens "
+                           f"do not cross {orig}")
+    c = engine.counters
+    w0, r0 = c["decode_windows_total"], c["decode_graph_replays_total"]
+    t0 = time.perf_counter()
+    req = engine.submit(prompt, SamplingParams(max_tokens=_LONG_TOKENS, temperature=0.0,
+                                               ignore_eos=True, logprobs=True))
+    stamps = [time.perf_counter() for _ in req.stream()]
+    windows = c["decode_windows_total"] - w0
+    replays = c["decode_graph_replays_total"] - r0
+    if len(stamps) != _LONG_TOKENS or windows < 1 or replays < windows:
+        raise SmokeFailure(f"{label}: {len(stamps)} tokens, {windows} windows, "
+                           f"{replays} replays")
+    toks = list(req.output_tokens)
+    lps = [float(x) for x in req.output_logprobs]
+    scored = engine.score_prompt(prompt + toks)
+    # token i of the output sits at position n0 + i
+    past = [i for i in range(_LONG_TOKENS) if n0 + i >= orig]
+    diff = max(abs(lps[i] - scored[n0 + i]) for i in past)
+    before = max(abs(lps[i] - scored[n0 + i]) for i in range(_LONG_TOKENS)
+                 if n0 + i < orig)
+    log(f"{label}: a {n0}-token prompt decoded {_LONG_TOKENS} greedy tokens across "
+        f"position {int(orig)} in {windows} captured windows (TTFT "
+        f"{(stamps[0] - t0) * 1e3:.1f} ms); decode logprobs against a fresh prefill: "
+        f"max diff {diff:.4f} past the switch ({len(past)} tokens), {before:.4f} "
+        f"before it")
+    if diff > _SWITCH_LOGPROB_ATOL:
+        raise SmokeFailure(f"{label}: decode logprobs past {int(orig)} differ from a "
+                           f"fresh prefill by {diff}")
+    return dict(prompt_tokens=n0, tokens=_LONG_TOKENS, crossed_at=int(orig),
+                windows=windows, replays=replays, ttft_ms=(stamps[0] - t0) * 1e3,
+                logprob_diff_past_switch=diff, logprob_diff_before_switch=before,
+                tokens_after_switch=len(past), output=toks)
+
+
+def _family_phase(name, md, label) -> tuple[dict, dict]:
+    """Serve ``md`` at full width in bf16 on phase 4's config (page 64,
+    8 sequences, 512 prefill tokens, the prefix cache on) over HTTP: a
+    completion with logprobs, a streamed chat, the burst of phase 4 (a
+    prefill pack and a continuation chunk), cold TTFT and decode tok/s
+    of one request alone, and the decode readings.  phi-3-mini-128k also
+    runs :func:`_longrope_switch`; gemma-3 scores a 1100-token prompt
+    (its local layers' window of 1024 cuts K2) and decodes past 1024
+    (the window cuts K1).  Returns the launches of K1, K2 and K3, zeroed
+    just before the requests, and the readings."""
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+    from kaito_tpu_torch.engine.kv_cache import kv_bytes
+    from kaito_tpu_torch.engine.server import make_server, parse_args
+
+    cfg, _ = parse_args(["--model", name, "--dtype", "bfloat16", "--max-num-seqs", "8",
+                         "--seed", "0"])
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, device="cuda", metadata=md)
+    engine.start()
+    server = make_server(engine, cfg, host="127.0.0.1", port=0, device="cuda")
+    a = md.arch
+    log(f"{label}: {md.name} (hidden {a.hidden_size}, {a.num_layers} layers, "
+        f"{a.num_heads}/{a.num_kv_heads} heads of {a.head_dim}) engine up in "
+        f"{time.perf_counter() - t0:.1f}s: {engine.model.param_bytes() / 2**30:.2f} GiB "
+        f"weights, KV {kv_bytes(engine.cache) / 2**20:.1f} MiB, {engine.sizing_report}")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    stats = dict(model=md.name, head_dim=a.head_dim, layers=a.num_layers,
+                 weights_gib=engine.model.param_bytes() / 2**30)
+    try:
+        for kname in _FAMILY_KERNELS:
+            fn, attr = _counter(kname)
+            setattr(fn, attr, 0)
+        resp, _ = _completion(base, _prompt(60, 1), 16, logprobs=1)
+        lps = resp["choices"][0]["logprobs"]["token_logprobs"]
+        if len(lps) != 16 or not all(math.isfinite(x) and x <= 0 for x in lps):
+            raise SmokeFailure(f"{label}: bad logprobs {lps}")
+        _stream_chat(base, 16)
+        stats.update(_burst(base, engine))
+        p = _prompt(200, 30)
+        ttft = min(_completion(base, _prompt(200, 30 + i), 1)[1] for i in range(2))
+        t_long = _completion(base, _prompt(200, 33), 129)[1]
+        stats.update(ttft_ms=ttft * 1e3, decode_tok_s=128 / (t_long - ttft),
+                     prompt_tokens=200)
+        if engine.model._longrope is not None:
+            stats["longrope"] = _longrope_switch(engine, md, label)
+        if a.sliding_window:
+            k2 = _counter("flash_prefill_attention")
+            n_k2 = getattr(*k2)
+            long_prompt = engine.tokenizer.encode(_prompt(1100, 92))
+            scores = engine.score_prompt(long_prompt)
+            if getattr(*k2) - n_k2 != a.num_layers or not all(
+                    math.isfinite(x) for x in scores[1:]):
+                raise SmokeFailure(f"{label}: scoring a {len(long_prompt)}-token prompt")
+            req = engine.submit(long_prompt, SamplingParams(
+                max_tokens=24, temperature=0.0, ignore_eos=True))
+            if len(list(req.stream())) != 24:
+                raise SmokeFailure(f"{label}: a decode past the window stopped short")
+            stats["window_cut"] = dict(prompt_tokens=len(long_prompt),
+                                       window=a.sliding_window, scored=True,
+                                       decoded=24)
+            log(f"{label}: scored a {len(long_prompt)}-token prompt (one K2 a layer, "
+                f"window {a.sliding_window}) and decoded 24 tokens past it")
+        torch.cuda.synchronize()
+        launches = {k: getattr(*_counter(k)) for k in _FAMILY_KERNELS}
+        windows = engine.counters["decode_windows_total"]
+        replays = engine.counters["decode_graph_replays_total"]
+        if not engine.window.capture or replays < windows:
+            raise SmokeFailure(f"{label}: {windows} decode windows, {replays} replays")
+        stats["decode"] = decode_readings(engine, p, label)
+        log(f"{label}: {md.name}: TTFT {stats['ttft_ms']:.1f} ms (200-byte prompt, "
+            f"alone), decode {stats['decode_tok_s']:.1f} tok/s (one sequence); "
+            f"launches {launches}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    del server, engine
+    _release_card(torch)
+    if "longrope" in stats:
+        # the captured windows' tokens against the eager loop's, same weights
+        ref = InferenceEngine(cfg, device="cuda", metadata=md, _eager_decode=True)
+        prompt = ref.tokenizer.encode(_prompt(_LONG_BYTES, 91))
+        want, _ = _greedy_run(ref, prompt, _LONG_TOKENS)
+        del ref
+        _release_card(torch)
+        got = stats["longrope"].pop("output")
+        if got != want:
+            first = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+            raise SmokeFailure(f"{label}: captured windows part from the eager loop at "
+                               f"token {first}")
+        stats["longrope"]["eager_equal"] = True
+        log(f"{label}: the eager reference loop gives the captured windows' "
+            f"{_LONG_TOKENS} tokens across the switch")
+    return launches, stats
+
+
+def run_families_phase(label) -> tuple[dict, dict]:
+    """Phase 13: phi-3-mini-128k-instruct (built through ``autogen`` from
+    :func:`_phi3_128k_config`), gemma-3-4b-instruct and phi-2 at full
+    width, each by :func:`_family_phase`.  Returns each kernel's
+    launches summed over the three and the readings by model."""
+    from kaito_tpu_torch.models.autogen import metadata_from_hf_config
+
+    t_leg = time.perf_counter()
+    phi3 = metadata_from_hf_config("microsoft/Phi-3-mini-128k-instruct",
+                                   _phi3_128k_config(),
+                                   name="phi-3-mini-128k-instruct")
+    res, total = {}, {k: 0 for k in _FAMILY_KERNELS}
+    for name, md in (("phi-3-mini-128k-instruct", phi3),
+                     ("gemma-3-4b-instruct", cut_metadata("gemma-3-4b-instruct", None)),
+                     ("phi-2", cut_metadata("phi-2", None))):
+        launches, res[name] = _family_phase(name, md, f"{label}: {name}")
+        res[name]["launches"] = launches
+        for k, n in launches.items():
+            if n <= 0:
+                raise SmokeFailure(f"{label}: {k} never launched serving {name}")
+            total[k] += n
+    res["phase_s"] = time.perf_counter() - t_leg
+    log(f"{label}: {res['phase_s']:.1f}s")
+    return total, res
+
+
+_EXACT_PHI3 = {"architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+               "vocab_size": 512, "hidden_size": 384, "num_hidden_layers": 2,
+               "num_attention_heads": 4, "num_key_value_heads": 4,
+               "intermediate_size": 512, "max_position_embeddings": 4096,
+               "rms_norm_eps": 1e-5, "tie_word_embeddings": False}
+
+
+def _fused_checkpoint(model, path):
+    """``model``'s parameters as a HF checkpoint with phi-3's fused
+    ``qkv_proj`` and ``gate_up_proj`` tensors, written by the port's own
+    ``write_safetensors`` (the card has no ``safetensors`` package)."""
+    import torch
+
+    from kaito_tpu_torch.engine.weights import _LAYER_MAP, write_safetensors
+
+    tree = model.param_tree()
+    V = model.arch.vocab_size
+    sd = {"model.embed_tokens.weight": tree["embed"][:V],
+          "model.norm.weight": tree["final_norm"], "lm_head.weight": tree["lm_head"][:V]}
+    for g in model.groups:
+        p = tree[g.name]
+        for j in range(g.count):
+            pre = f"model.layers.{g.start + j}."
+            sd[pre + "self_attn.qkv_proj.weight"] = torch.cat(
+                [p[k][j].t() for k in ("q", "k", "v")])
+            sd[pre + "mlp.gate_up_proj.weight"] = torch.cat(
+                [p[k][j].t() for k in ("gate", "up")])
+            for key, t in p.items():
+                if key in ("q", "k", "v", "gate", "up"):
+                    continue
+                suffix, transpose = _LAYER_MAP[key]
+                sd[pre + suffix] = t[j].t() if transpose else t[j]
+    write_safetensors(os.path.join(path, "model.safetensors"),
+                      {k: v.contiguous() for k, v in sd.items()})
+    return sorted(sd)
+
+
+def run_families_exact_phase(label) -> dict:
+    """Phase 13, exact: a tiny phi-3 (hidden 384, 4 heads of 96, 2
+    layers) with longrope factor lists and an original length of 48,
+    weights drawn on the CPU from seed 5 and written as a fused
+    checkpoint (``qkv_proj``, ``gate_up_proj``); served in fp32 from that
+    checkpoint by an engine on the card and one on the CPU: two prompts
+    (40 and 60 tokens, the second prefilled across 48, the first decoded
+    across it), 24 greedy tokens each, equal token for token, logprobs
+    within 2e-3."""
+    import random
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.engine.config import EngineConfig
+    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+    from kaito_tpu_torch.engine.model import TransformerLM
+    from kaito_tpu_torch.models.autogen import metadata_from_hf_config
+
+    t_leg = time.perf_counter()
+    rng = random.Random(5)
+    cfg_json = dict(_EXACT_PHI3, rope_scaling={
+        "type": "longrope", "original_max_position_embeddings": 48,
+        "short_factor": [1.0 + 0.1 * rng.random() for _ in range(48)],
+        "long_factor": [1.0 + 8.0 * rng.random() for _ in range(48)]})
+    md = metadata_from_hf_config("test/phi3-fused", cfg_json, name="phi3-fused-test")
+    root = tempfile.mkdtemp(prefix="kaito-phi3-")
+    try:
+        src = TransformerLM(md.arch, dtype=torch.float32, device="cpu")
+        src.init_params(seed=5)
+        names = _fused_checkpoint(src, root)
+        del src
+        cfg = EngineConfig(model=md.name, weights_dir=root, max_model_len=256,
+                           page_size=16, max_num_seqs=4, dtype="float32",
+                           kv_dtype="float32", seed=0)
+        prompts = [[(7 * i) % 500 + 3 for i in range(40)],
+                   [(13 * i) % 500 + 3 for i in range(60)]]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            eng = InferenceEngine(cfg, device=dev, metadata=md)
+            if eng.model._longrope is None:
+                raise SmokeFailure(f"{label}: longrope tables missing on {dev}")
+            reqs = [eng.submit(p, SamplingParams(max_tokens=24, temperature=0.0,
+                                                 ignore_eos=True, logprobs=True))
+                    for p in prompts]
+            for _ in range(2000):
+                eng.step()
+                if all(r.finish_reason for r in reqs):
+                    break
+            runs[dev] = ([list(r.output_tokens) for r in reqs],
+                         [[float(x) for x in r.output_logprobs] for r in reqs])
+            del eng
+        (ct, cl), (pt, pl) = runs["cuda"], runs["cpu"]
+        diff = max(abs(x - y) for a, b in zip(cl, pl) for x, y in zip(a, b))
+        if ct != pt or diff > 2e-3:
+            raise SmokeFailure(f"{label}: card {ct} / CPU {pt}, logprob diff {diff}")
+        res = dict(checkpoint_tensors=len(names), fused=True, prompts=[40, 60],
+                   tokens=24, crossed_at=48, tokens_equal=True, max_logprob_diff=diff)
+        log(f"{label}: a fused phi-3 checkpoint ({len(names)} tensors) served on the "
+            f"card equals the CPU engine token for token across position 48; "
+            f"logprobs within {diff:.2e}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _release_card(torch)
+    res["phase_s"] = time.perf_counter() - t_leg
+    return res
+
+
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
 _LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
@@ -4335,7 +4843,7 @@ def main(argv=None) -> int:
                          "phase 4's bf16 one; no result line")
     ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [
                         QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0], ADAPTER_LEG[0],
-                        ADAPTER_EXACT_LEG[0]],
+                        ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -4383,6 +4891,7 @@ def main(argv=None) -> int:
             if args.leg is None:
                 check_decode(torch, records, logs)
                 check_flash(torch, records)
+                check_families(torch, records, logs)
                 check_quant_matmul(torch, records, logs)
                 check_quant_matmul_deepseek(torch, records)
                 check_quant_matmul_pf(torch, records)
@@ -4513,6 +5022,19 @@ def main(argv=None) -> int:
             if args.leg in (None, ADAPTER_EXACT_LEG[0]) and not args.first_leg_only:
                 name, label = ADAPTER_EXACT_LEG
                 stats[label] = run_adapter_exact_phase(label)
+            if args.leg in (None, FAMILIES_LEG[0]) and not args.first_leg_only:
+                name, label = FAMILIES_LEG
+                launches, stats[label] = run_families_phase(label)
+                if not alone:
+                    for kname, n in launches.items():
+                        records[kname].setdefault("launches_by_leg", {})[label] = n
+                log(f"{label} on {card}: " + "; ".join(
+                    f"{m}: TTFT {s['ttft_ms']:.1f} ms, {s['decode_tok_s']:.1f} tok/s, "
+                    f"{s['decode']['device_kernels_per_step']:.1f} device kernels a step"
+                    for m, s in stats[label].items() if isinstance(s, dict)))
+            if args.leg in (None, FAMILIES_EXACT_LEG[0]) and not args.first_leg_only:
+                name, label = FAMILIES_EXACT_LEG
+                stats[label] = run_families_exact_phase(label)
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

@@ -61,6 +61,15 @@
 // word, so a page's scales are read once).  At the end the warps'
 // states merge in shared memory.
 //
+// Head dims 32, 64, 128 and 256 run at their own width.  80 and 96 (phi-2,
+// phi-3) run the bf16 path at a compute width of 128 (dec_cw): a slice's
+// rows are copied at their D columns into rows of 128 whose last
+// columns are zeroed once when the CTA starts, q is zero past D, and
+// only D columns of the output are kept, so the lane maps of D = 128
+// serve unchanged (K1q's 16-byte code reads included).  The padded width
+// costs 128 / D of the slice's shared-memory traffic and products; the
+// bytes read from device memory stay those of D.
+//
 // fp32 q (the tiny golden models): the CUDA cores, exact fp32 so the
 // goldens replay: a 32-token tile of K and V loaded by the whole CTA into
 // registers and widened to fp32 in shared memory, the same plan, scratch
@@ -98,6 +107,10 @@ constexpr int DEC_TK = 32;           // fp32 path: tokens per tile
 __host__ __device__ inline int dec_cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __host__ __device__ inline int dec_head_blocks(int G) { return dec_cdiv(G, DEC_HEADS); }
+
+// the tensor-core path's compute width for head dim D
+template <int D>
+__host__ __device__ constexpr int dec_cw() { return D == 80 || D == 96 ? 128 : D; }
 
 // splits of each sequence: enough CTAs for DEC_CTAS_PER_SM an SM
 __host__ __device__ inline int dec_n_split(int B, int H, int Hkv, int sms) {
@@ -138,13 +151,14 @@ __host__ __device__ inline long long dec_scratch_floats(int B, int H, int Hkv, i
 // ---------------------------------------------------------------------------
 
 // The CTA's `nw` partial states for its gb heads lie in shared memory as
-// m_w/l_w [nw][8] and a_w [nw][8][D].  Merge them; then write the output
+// m_w/l_w [nw][8] and a_w [nw][8][DA] (DA >= D: the compute width, whose
+// columns past D are dropped).  Merge them; then write the output
 // (one live split) or the partial, and let the last split merge.  The
 // last split reads every split's (max, sum) at once into `red` (shared
 // memory free by then, at least 2 * 8 * DEC_MAX_SPLIT floats), turns them
 // into weights, and sums the accumulators with the loads of all splits
 // in flight together.
-template <typename T, int D>
+template <typename T, int D, int DA = D>
 __device__ void dec_finish(const float* m_w, const float* l_w, const float* a_w, int nw,
                            int gb, size_t head_row, int split, int n_split, int n_live,
                            float* __restrict__ part_acc, float* __restrict__ part_ml,
@@ -159,7 +173,7 @@ __device__ void dec_finish(const float* m_w, const float* l_w, const float* a_w,
     for (int w = 0; w < nw; ++w) {
       const float e = expf(m_w[w * DEC_HEADS + g] - M);
       L += l_w[w * DEC_HEADS + g] * e;
-      A += a_w[(w * DEC_HEADS + g) * D + d] * e;
+      A += a_w[(w * DEC_HEADS + g) * DA + d] * e;
     }
     if (n_live == 1) {
       out[(head_row + g) * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
@@ -345,8 +359,6 @@ struct DecSlice {
   static constexpr int CH = ROW / 16;                      // 16-byte chunks a row
   static constexpr int MAT = DEC_SLICE * ROW;              // bytes of K (or V)
   static constexpr int BYTES = 2 * MAT + (QUANT ? 2 * DEC_SLICE * 4 : 0);
-  static constexpr int COPIES = DEC_SLICE * CH / 32;       // chunks a lane, each matrix
-  static_assert(COPIES >= 1 && DEC_SLICE * CH % 32 == 0, "slice split");
 
   __device__ static __forceinline__ int swz_k(int r, int c) {
     if constexpr (QUANT) return CH == 8 ? c ^ (r & 1) : c;
@@ -378,9 +390,12 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ kc
                  int* __restrict__ counters, const int* __restrict__ page_tables,
                  const int* __restrict__ lengths, int H, int Hkv, int ps, int pmax,
                  int n_split, int window, float scale, float softcap) {
-  using S = DecSlice<TKV, D>;
+  constexpr int DC = dec_cw<D>();   // compute width: rows of DC in shared memory
+  using S = DecSlice<TKV, DC>;
   constexpr bool QUANT = S::QUANT;
-  constexpr int KS = D / 16;        // k-steps of QK; m-tiles of PV
+  constexpr int KS = DC / 16;       // k-steps of QK; m-tiles of PV
+  constexpr int CHD = D * (int)sizeof(TKV) / 16;          // 16-byte chunks of a row read
+  constexpr int NCP = (DEC_SLICE * CHD + 31) / 32;        // copies a lane, each matrix
   constexpr int W = DEC_WARPS;
   constexpr int P_BYTES = DEC_HEADS * DEC_SLICE * 2;
   constexpr int WARP_BYTES = DEC_STAGES * S::BYTES + (QUANT ? 2 : 1) * P_BYTES;
@@ -392,9 +407,9 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ kc
   const DecCta c = dec_cta(lengths, H, Hkv, ps, n_split, window);
 
   // q pre-scaled and rounded to bf16 as the B operand (heads on N, d on
-  // K): natural d order for bf16 K, the permuted order of the int8 reads
-  // for K1q (slot 2t + e of k-step ks is d = t * D / 4 + 4 ks + e, slot
-  // 2t + 8 + e is d = t * D / 4 + 4 ks + 2 + e)
+  // K; zero past D): natural d order for bf16 K, the permuted order of
+  // the int8 reads for K1q (slot 2t + e of k-step ks is d = t * DC / 4 +
+  // 4 ks + e, slot 2t + 8 + e is d = t * DC / 4 + 4 ks + 2 + e)
   uint32_t qb[KS][2];
   {
     // pairs of q as words; the loads fly beside lengths[b]
@@ -403,8 +418,8 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ kc
     for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int d = QUANT ? t * (D / 4) + 4 * ks + 2 * j : 16 * ks + 2 * t + 8 * j;
-        uint32_t w = g < c.gb ? __ldg(qr + d / 2) : 0u;
+        const int d = QUANT ? t * (DC / 4) + 4 * ks + 2 * j : 16 * ks + 2 * t + 8 * j;
+        uint32_t w = g < c.gb && d < D ? __ldg(qr + d / 2) : 0u;
         const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
         qb[ks][j] = pack_bf16(x.x * scale, x.y * scale);
       }
@@ -414,6 +429,12 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ kc
   if (dec_idle<__nv_bfloat16, D>(c, out)) return;
 
   unsigned char* ring = smem + warp * WARP_BYTES;
+  if constexpr (DC != D) {
+    // the columns past D stay zero: no copy writes them
+    for (int i = lane; i < DEC_STAGES * S::BYTES / 16; i += 32)
+      reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+  }
   __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(ring + DEC_STAGES * S::BYTES);
   __nv_bfloat16* p_lo = p_hi + DEC_HEADS * DEC_SLICE;
   const int* pt = page_tables + (size_t)c.b * pmax;
@@ -437,15 +458,18 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ kc
   auto issue = [&](int i, int tok, int page) {
     unsigned char* st = ring + (i % DEC_STAGES) * S::BYTES;
 #pragma unroll
-    for (int j = 0; j < S::COPIES; ++j) {
-      const int ci = lane + 32 * j, r = ci / S::CH, col = ci % S::CH;
+    for (int j = 0; j < NCP; ++j) {
+      const int ci = lane + 32 * j, col = ci % CHD;
+      const int r = ci / CHD < DEC_SLICE ? ci / CHD : DEC_SLICE - 1;
       const int rt = __shfl_sync(0xffffffffu, tok, r);
-      const size_t off = rt >= 0 ? (size_t)rt * tok_stride + head_off : 0;
-      const uint32_t n = rt >= 0 ? 16u : 0u;
-      cp_async16(dec_smem(st + r * S::ROW + S::swz_k(r, col) * 16),
-                 reinterpret_cast<const unsigned char*>(kc + off) + col * 16, n);
-      cp_async16(dec_smem(st + S::MAT + r * S::ROW + S::swz_v(r, col) * 16),
-                 reinterpret_cast<const unsigned char*>(vc + off) + col * 16, n);
+      if (DEC_SLICE * CHD % 32 == 0 || ci < DEC_SLICE * CHD) {
+        const size_t off = rt >= 0 ? (size_t)rt * tok_stride + head_off : 0;
+        const uint32_t n = rt >= 0 ? 16u : 0u;
+        cp_async16(dec_smem(st + r * S::ROW + S::swz_k(r, col) * 16),
+                   reinterpret_cast<const unsigned char*>(kc + off) + col * 16, n);
+        cp_async16(dec_smem(st + S::MAT + r * S::ROW + S::swz_v(r, col) * 16),
+                   reinterpret_cast<const unsigned char*>(vc + off) + col * 16, n);
+      }
     }
     if constexpr (QUANT) {
       // lanes 0-15 sigma_k of rows 0-15, lanes 16-31 sigma_v; the lanes of
@@ -491,18 +515,18 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ kc
     // (even and odd k-steps in two chains of mma)
     float s[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
     if constexpr (QUANT) {
-      // lane (g, t) reads D / 4 codes of rows g and g + 8 at byte t * D / 4
+      // lane (g, t) reads DC / 4 codes of rows g and g + 8 at byte t * DC / 4
       uint32_t w0[KS], w8[KS];
       auto load_row = [&](int r, uint32_t(&w)[KS]) {
-        if constexpr (D == 32) {
+        if constexpr (DC == 32) {
           const uint2 x = *reinterpret_cast<const uint2*>(ks_base + r * S::ROW + 8 * t);
           w[0] = x.x;
           w[1] = x.y;
         } else {
 #pragma unroll
-          for (int j = 0; j < D / 64; ++j) {
+          for (int j = 0; j < DC / 64; ++j) {
             const uint4 x = *reinterpret_cast<const uint4*>(
-                ks_base + r * S::ROW + S::swz_k(r, t * (D / 64) + j) * 16);
+                ks_base + r * S::ROW + S::swz_k(r, t * (DC / 64) + j) * 16);
             w[4 * j] = x.x;
             w[4 * j + 1] = x.y;
             w[4 * j + 2] = x.z;
@@ -602,21 +626,30 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ kc
 
     // O^T[D, 8] += V^T[D, 16] P^T
     if constexpr (QUANT) {
-      // lane (g, t) reads D / 8 codes of tokens 2t, 2t + 1, 2t + 8, 2t + 9
-      // at byte g * D / 8: m-tile mt, row g + 8 h is d = g * D / 8 + 2 mt + h
-      constexpr int WORDS = D / 32;
+      // lane (g, t) reads DC / 8 codes of tokens 2t, 2t + 1, 2t + 8, 2t + 9
+      // at byte g * DC / 8: m-tile mt, row g + 8 h is d = g * DC / 8 + 2 mt + h
+      constexpr int WORDS = DC / 32;
       uint32_t v[4][WORDS];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int r = 2 * t + (k & 1) + 8 * (k >> 1);
         const unsigned char* row = vs_base + r * S::ROW;
-        if constexpr (D == 128) {
+        if constexpr (DC == 256) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint4 x = *reinterpret_cast<const uint4*>(row + S::swz_v(r, 2 * g + j) * 16);
+            v[k][4 * j] = x.x;
+            v[k][4 * j + 1] = x.y;
+            v[k][4 * j + 2] = x.z;
+            v[k][4 * j + 3] = x.w;
+          }
+        } else if constexpr (DC == 128) {
           const uint4 x = *reinterpret_cast<const uint4*>(row + S::swz_v(r, g) * 16);
           v[k][0] = x.x;
           v[k][1] = x.y;
           v[k][2] = x.z;
           v[k][3] = x.w;
-        } else if constexpr (D == 64) {
+        } else if constexpr (DC == 64) {
           const uint2 x = *reinterpret_cast<const uint2*>(row + 8 * g);
           v[k][0] = x.x;
           v[k][1] = x.y;
@@ -668,17 +701,17 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ kc
       l_w[warp * DEC_HEADS + 2 * t + e] = l_run[e];
     }
   }
-  float* aw = a_w + warp * DEC_HEADS * D;
+  float* aw = a_w + warp * DEC_HEADS * DC;
 #pragma unroll
   for (int m = 0; m < KS; ++m)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int head = 2 * t + (e & 1), h8 = e >> 1;
-      const int d = QUANT ? g * (D / 8) + 2 * m + h8 : 16 * m + g + 8 * h8;
-      aw[head * D + d] = acc[m][e];
+      const int d = QUANT ? g * (DC / 8) + 2 * m + h8 : 16 * m + g + 8 * h8;
+      aw[head * DC + d] = acc[m][e];
     }
   __syncthreads();
-  dec_finish<__nv_bfloat16, D>(m_w, l_w, a_w, W, c.gb, c.head_row, c.split, n_split,
+  dec_finish<__nv_bfloat16, D, DC>(m_w, l_w, a_w, W, c.gb, c.head_row, c.split, n_split,
                                c.n_live, part_acc, part_ml,
                                counters + (size_t)blockIdx.y * gridDim.x + blockIdx.x, out,
                                &flag_s, reinterpret_cast<float*>(smem));
@@ -710,8 +743,8 @@ struct KVTile {
   using Piece = std::conditional_t<sizeof(TKV) == 1, uint2, uint4>;
   static constexpr int V = (int)(sizeof(Piece) / sizeof(TKV));   // values per piece
   static constexpr int R = D / V;                                // pieces per row
-  static constexpr int N = DEC_TK * R / DEC_THREADS;             // pieces per thread
-  static_assert(N >= 1 && DEC_TK * R % DEC_THREADS == 0, "tile split");
+  static constexpr int N = (DEC_TK * R + DEC_THREADS - 1) / DEC_THREADS;   // pieces per thread
+  static constexpr bool EVEN = DEC_TK * R % DEC_THREADS == 0;             // no thread idles
   Piece k[N], v[N];
 
   // Issue every load of tile t0 (rows at or past `end` read as zero).
@@ -725,7 +758,7 @@ struct KVTile {
       const int i = tid + j * DEC_THREADS;
       const int pos = t0 + i / R;
       k[j] = v[j] = Piece{};
-      if (pos < end) {
+      if (pos < end && (EVEN || i < DEC_TK * R)) {
         const size_t off = ((size_t)pt[pos / ps] * ps + pos % ps) * tok_stride +
                            head_off;
         k[j] = __ldg(reinterpret_cast<const Piece*>(kc + off) + i % R);
@@ -739,6 +772,7 @@ struct KVTile {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const int i = tid + j * DEC_THREADS;
+      if (!EVEN && i >= DEC_TK * R) break;
       const int r = i / R, c = (i % R) * V;
       const TKV* ek = reinterpret_cast<const TKV*>(&k[j]);
       const TKV* ev = reinterpret_cast<const TKV*>(&v[j]);
@@ -875,7 +909,7 @@ static cudaError_t launch_tc(const void* q, const void* kc, const void* vc, cons
                       const int* page_tables, const int* lengths, dim3 grid, int B, int H,
                       int Hkv, int ps, int pmax, int window, float scale, float softcap,
                       cudaStream_t stream) {
-  constexpr int smem = dec_tc_smem_bytes<TKV, D>();
+  constexpr int smem = dec_tc_smem_bytes<TKV, dec_cw<D>()>();
   auto kern = decode_tc_kernel<TKV, D>;
   static std::atomic<uint64_t> done{0};
   cudaError_t err = allow_smem_once(kern, smem, done);
@@ -937,10 +971,13 @@ extern "C" int kaito_decode_attention(const void* q, const void* k_layer,
   return (int)PATH<TKV, DD>(q, k_layer, v_layer, k_scale, v_scale, out, part, counters,  \
                             page_tables, lengths, grid, B, H, Hkv, ps, pmax, window,     \
                             scale, softcap, s)
-#define KAITO_DEC_D(PATH, TKV)            \
-  if (D == 32) KAITO_DEC(PATH, TKV, 32);  \
-  if (D == 64) KAITO_DEC(PATH, TKV, 64);  \
-  if (D == 128) KAITO_DEC(PATH, TKV, 128)
+#define KAITO_DEC_D(PATH, TKV)             \
+  if (D == 32) KAITO_DEC(PATH, TKV, 32);   \
+  if (D == 64) KAITO_DEC(PATH, TKV, 64);   \
+  if (D == 80) KAITO_DEC(PATH, TKV, 80);   \
+  if (D == 96) KAITO_DEC(PATH, TKV, 96);   \
+  if (D == 128) KAITO_DEC(PATH, TKV, 128); \
+  if (D == 256) KAITO_DEC(PATH, TKV, 256)
   if (dtype == 1) {
     if (quant) {
       KAITO_DEC_D(launch_tc, int8_t);

@@ -54,6 +54,15 @@
 // tile_fully_visible in engine/ops/flash_prefill.py.  Times against the
 // bound and SDPA are in PERF.md.
 //
+// Head dims: 32, 64 and 128 as above.  80 and 96 (phi-2, phi-3) compute
+// at the padded width 128 (flash_cw): their tensor maps span the D
+// columns, so TMA fills the panel columns past D with zeros, the
+// products run over 128, and only D columns are stored; the padding
+// costs 128 / D of the product work, not of the bytes.  256 (gemma-3)
+// runs at its own width, one CTA to an SM: Q and the two rings take
+// 160 KB of shared memory, and the consumer's O accumulator 128
+// registers a thread (O += P V as two m64n128 products a k-step).
+//
 // fp32 (the goldens, not on the bf16 serving path) keeps the CUDA-core
 // design: TF32 tensor cores would cost the goldens digits.  One CTA per
 // (batch, query head, 64-row query tile); 64-key K/V tiles staged in
@@ -301,6 +310,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the bf16 path's compute width for head dim D
+template <int D>
+__host__ __device__ constexpr int flash_cw() { return D == 80 || D == 96 ? 128 : D; }
+
 // S (+)= A * B^T, A [64 x 16] and B [64 x 16] both K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                               int accumulate) {
@@ -488,7 +501,7 @@ __device__ __forceinline__ void softmax_step(
 }
 
 template <int D, bool PACKED>
-__global__ void __launch_bounds__(TC_THREADS, 2)
+__global__ void __launch_bounds__(TC_THREADS, D > 128 ? 1 : 2)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
@@ -497,8 +510,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const int* __restrict__ seg_ids,    // [B, T]  (packed mode)
                 const int* __restrict__ positions,  // [B, T]  (packed mode)
                 int T_, int H, int Hkv, int window, float scale, float softcap) {
-  using L = TcLayout<D>;
-  constexpr int NO = D / 2;   // O accumulator registers per thread
+  constexpr int DC = flash_cw<D>();   // compute width: D, or 128 for 80 and 96
+  using L = TcLayout<DC>;
+  constexpr int NO = DC / 2;  // O accumulator registers per thread
   constexpr int S = TC_STAGES;
   const int h = blockIdx.x, b = blockIdx.z;
   // the longest query tiles (most key tiles under the causal skip) first
@@ -537,7 +551,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(q_bar, L::TILE);
 #pragma unroll
-    for (int p = 0; p < D / L::PW; ++p)
+    for (int p = 0; p < DC / L::PW; ++p)
       tma_load(q_tile + p * L::PANEL, &qmap, q_bar, p * L::PW, h, q_start, b);
   }
   __syncthreads();
@@ -571,7 +585,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         if (issuer) {
           mbar_expect_tx(full_k(s), L::TILE);
 #pragma unroll
-          for (int p = 0; p < D / L::PW; ++p)
+          for (int p = 0; p < DC / L::PW; ++p)
             tma_load(base + L::K_OFF + s * L::TILE + p * L::PANEL, &kmap, full_k(s),
                      p * L::PW, hk, t0, b);
         }
@@ -589,7 +603,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           if (j >= S) mbar_wait(empty_v(s), parity);
           mbar_expect_tx(full_v(s), L::TILE);
 #pragma unroll
-          for (int p = 0; p < D / L::PW; ++p)
+          for (int p = 0; p < DC / L::PW; ++p)
             tma_load(base + L::V_OFF + s * L::TILE + p * L::PANEL, &vmap, full_v(s),
                      p * L::PW, hk, t0, b);
         }
@@ -640,15 +654,25 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     auto take_scores = [&](float (&sc)[32], int j) {   // S = Q K_j^T, async
       const uint32_t k_tile = base + L::K_OFF + (j % S) * L::TILE;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DC / 16; ++kk)
         wgmma_ss_n64(sc, L::kmajor(q_tile, kk), L::kmajor(k_tile, kk), kk > 0);
       wg_commit();
     };
     auto multiply_v = [&](const uint32_t (&pa)[4][4], int j) {   // O += P V_j, async
       const uint32_t v_tile = base + L::V_OFF + (j % S) * L::TILE;
 #pragma unroll
-      for (int kk = 0; kk < TC_BK / 16; ++kk)
-        wgmma_rs<D>(o, pa[kk], L::mnmajor(v_tile, kk));
+      for (int kk = 0; kk < TC_BK / 16; ++kk) {
+        if constexpr (DC <= 128) {
+          wgmma_rs<DC>(o, pa[kk], L::mnmajor(v_tile, kk));
+        } else {
+          // columns [128 c, 128 c + 128) of O: the accumulator registers
+          // 64 c on, from V's panels 2c and 2c + 1
+#pragma unroll
+          for (int c = 0; c < DC / 128; ++c)
+            wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(o + 64 * c), pa[kk],
+                          L::mnmajor(v_tile + c * (128 / L::PW) * L::PANEL, kk));
+        }
+      }
       wg_commit();
     };
     auto softmax = [&](float (&sc)[32], int j, float (&alpha)[2],
@@ -734,8 +758,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < NO; i += 2) {
       const int r = (i >> 1) & 1;
       const int t = row0 + 8 * r;
-      if (t < T_) {
-        const int col = 8 * (i >> 2) + cq;
+      const int col = 8 * (i >> 2) + cq;
+      if (t < T_ && (DC == D || col < D)) {
         *reinterpret_cast<__nv_bfloat162*>(
             out + (((size_t)b * T_ + t) * H + h) * D + col) =
             __floats2bfloat162_rn(o[i] * inv[r], o[i + 1] * inv[r]);
@@ -745,20 +769,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // [B, T, heads, D] bf16 as a 4-D tensor map whose box is one head's
-// 64 rows x PW columns, in the swizzle the wgmma descriptors read
+// 64 rows x PW columns (PW of the compute width), in the swizzle the
+// wgmma descriptors read; box columns past D arrive as zeros
 template <int D>
 static bool make_map(CUtensorMap* map, const void* ptr, int B, int T_, int heads) {
+  constexpr int DC = flash_cw<D>();
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)T_,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)T_ * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)TcLayout<D>::PW, 1, TC_BK, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)TcLayout<DC>::PW, 1, TC_BK, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                DC < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -775,7 +801,7 @@ cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o
   if (!make_map<D>(&qmap, q, B, T_, H) || !make_map<D>(&kmap, k, B, T_, Hkv) ||
       !make_map<D>(&vmap, v, B, T_, Hkv))
     return cudaErrorInvalidValue;
-  constexpr size_t smem = TcLayout<D>::SMEM;
+  constexpr size_t smem = TcLayout<flash_cw<D>()>::SMEM;
   auto kern = flash_tc_kernel<D, PACKED>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
@@ -804,11 +830,17 @@ int dispatch_flash(const void* q, const void* k, const void* v, void* out,
   if (dtype == 1) {
     if (D == 32) KAITO_FLASH_TC(32);
     if (D == 64) KAITO_FLASH_TC(64);
+    if (D == 80) KAITO_FLASH_TC(80);
+    if (D == 96) KAITO_FLASH_TC(96);
     if (D == 128) KAITO_FLASH_TC(128);
+    if (D == 256) KAITO_FLASH_TC(256);
   } else if (dtype == 0) {
     if (D == 32) KAITO_FLASH_F32(32);
     if (D == 64) KAITO_FLASH_F32(64);
+    if (D == 80) KAITO_FLASH_F32(80);
+    if (D == 96) KAITO_FLASH_F32(96);
     if (D == 128) KAITO_FLASH_F32(128);
+    if (D == 256) KAITO_FLASH_F32(256);
   }
 #undef KAITO_FLASH_TC
 #undef KAITO_FLASH_F32

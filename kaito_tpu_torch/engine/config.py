@@ -58,7 +58,7 @@ class EngineConfig:
     cp_q_tile: int = 1024                # ring query tile (memory bound)
     pp_microbatches: int = 4             # decode microbatches through the ring
     data_parallel: int = 1               # engine replica groups
-    use_pallas: Optional[bool] = None    # None = auto (TPU yes, CPU no)
+    use_pallas: Optional[bool] = None    # the JAX engine's Pallas switch; the port ignores it
     # fused decode steps per dispatch when the batch is in steady-state
     # decode (no prefills staged, queue empty): one lax.scan dispatch
     # runs K steps with on-device sampling + stop detection, amortizing

@@ -1534,10 +1534,14 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _advance_prefills(self) -> bool:
-        """One prefill round: ``prefill_pack`` > 1 (0 = auto, up to
-        ``max_num_seqs``) spreads the token budget over a pack of staged
-        slots; 1 is the serial round-robin scheduler."""
-        pack = self.cfg.prefill_pack or self.cfg.max_num_seqs
+        """One prefill round: ``prefill_pack`` > 1 (0 = KAITO_PREFILL_PACK,
+        else up to ``max_num_seqs``) spreads the token budget over a pack
+        of staged slots; 1 is the serial round-robin scheduler."""
+        pack = int(self.cfg.prefill_pack)
+        if pack <= 0:
+            pack = int(os.environ.get("KAITO_PREFILL_PACK", "0") or "0")
+        if pack <= 0:
+            pack = self.cfg.max_num_seqs
         if pack <= 1:
             return self._advance_prefill_single()
         return self._advance_prefill_pack(pack)

@@ -35,7 +35,11 @@ cache-less ``"train"`` forward) runs every layer over one fresh row,
 its attention through the flash prefill kernel (MLA: the plain
 ``attention.mla_prefill_attention``), and writes no page.
 
-yarn/longrope rope scaling is not ported yet and raises.
+Rope takes the linear, llama3, yarn and longrope scalings.  A longrope
+model with factor lists picks its table per position (``_rope_select``):
+positions past ``original_max_position_embeddings`` take the long
+factors, by a ``torch.where`` on the positions tensor, so a decode
+window captured in a CUDA graph switches tables as its sequences grow.
 """
 
 from __future__ import annotations
@@ -364,6 +368,8 @@ class TransformerLM(tnn.Module):
                              partial_rotary_factor=1.0) if self.is_mla else arch)
         self._inv_freq_global = nn.rope_frequencies(rope_arch, self.device)
         self._rope_mscale = nn.rope_attention_factor(arch)
+        # longrope (phi-3 family): per-position short/long table switch
+        self._longrope = None if self.is_mla else nn.longrope_tables(arch, self.device)
         self._inv_freq_local = self._inv_freq_global
         # the embedding multiplier as a device scalar, made once: a copy
         # from the host per call would block and could not be captured
@@ -648,13 +654,34 @@ class TransformerLM(tnn.Module):
             return _BIG_WINDOW
         return int(a.sliding_window)
 
+    def _rope_select(self, positions: torch.Tensor):
+        """(inv_freq, mscale) of the global table at ``positions``
+        [..., seq]: with longrope factor lists, per position (the long
+        table and mscale from ``original_max_position_embeddings`` on),
+        as ``[..., seq, half]`` and ``[..., seq, 1, 1]`` tensors chosen on
+        the device; else the one table and its float mscale."""
+        if self._longrope is None:
+            return self._inv_freq_global, self._rope_mscale
+        short, long, orig, short_m, long_m = self._longrope
+        is_long = positions >= orig                                  # [..., seq]
+        inv = torch.where(is_long[..., None], long, short)
+        ms = torch.where(is_long, long_m, short_m)[..., None, None].float()
+        return inv, ms
+
     @property
     def _scale(self) -> float:
         a = self.arch
         if self.is_mla:
-            # the JAX package's yarn mscale term is reached only through
-            # yarn rope, which rope_attention_factor refuses (item 26)
-            return 1.0 / math.sqrt(self._mla_dims()[0] + (a.qk_rope_head_dim or 0))
+            base = 1.0 / math.sqrt(self._mla_dims()[0] + (a.qk_rope_head_dim or 0))
+            # deepseek-yarn: the all-dim mscale lands in the softmax scale
+            # (squared: it applies to both q and k), while the
+            # mscale/mscale_all_dim ratio rides the rope table
+            s = a.rope_scaling or {}
+            if nn._rope_type(a) == "yarn" and s.get("mscale_all_dim") is not None:
+                m = nn.yarn_get_mscale(float(s.get("factor", 1.0)),
+                                       float(s["mscale_all_dim"]))
+                base *= m * m
+            return base
         denom = a.query_pre_attn_scalar if a.query_pre_attn_scalar else a.head_dim
         return 1.0 / math.sqrt(denom)
 
@@ -687,9 +714,14 @@ class TransformerLM(tnn.Module):
         if a.qk_norm:
             q = nn.rms_norm(q, p["q_norm"], a.rms_norm_eps, a.norm_offset)
             k = nn.rms_norm(k, p["k_norm"], a.rms_norm_eps, a.norm_offset)
-        if window is None or window >= _BIG_WINDOW:
+        if window is None or self._inv_freq_local is self._inv_freq_global:
+            inv_freq, mscale = self._rope_select(positions)
+        elif window >= _BIG_WINDOW:
             inv_freq, mscale = self._inv_freq_global, self._rope_mscale
         else:
+            # gemma-3's sliding layers: the unscaled 10k table with no
+            # magnitude correction (no supported arch mixes sliding
+            # windows with longrope)
             inv_freq, mscale = self._inv_freq_local, 1.0
         q = nn.apply_rope(q, positions, inv_freq, a.head_dim, mscale=mscale)
         k = nn.apply_rope(k, positions, inv_freq, a.head_dim, mscale=mscale)

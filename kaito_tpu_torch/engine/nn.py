@@ -99,32 +99,48 @@ def apply_norm(x: torch.Tensor, params: dict, arch: ModelArch) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embedding (default, linear and llama3 scaling)
+# Rotary position embedding (linear, llama3, yarn and longrope scaling)
 # ---------------------------------------------------------------------------
 
 def _rope_type(arch: ModelArch) -> str:
-    """The rope scaling type; raises for the types not ported yet."""
     scaling = arch.rope_scaling or {}
-    rope_type = str(scaling.get("rope_type", scaling.get("type", ""))).lower()
-    if rope_type in ("yarn", "longrope", "su"):
-        raise NotImplementedError(
-            f"rope_scaling type {rope_type!r} is not ported yet "
-            f"(ROADMAP queue 1: yarn and longrope rope)")
-    return rope_type
+    return str(scaling.get("rope_type", scaling.get("type", ""))).lower()
+
+
+def _rot_dim(arch: ModelArch) -> int:
+    rot_dim = int(arch.head_dim * arch.partial_rotary_factor)
+    return rot_dim - rot_dim % 2
+
+
+def _base_inv_freq(arch: ModelArch, device: torch.device) -> torch.Tensor:
+    rot_dim = _rot_dim(arch)
+    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                            device=device) / rot_dim
+    return 1.0 / (arch.rope_theta ** exponent)
+
+
+def _yarn_find_correction_dim(num_rotations: float, dim: int, base: float,
+                              max_pos: float) -> float:
+    return (dim * math.log(max_pos / (num_rotations * 2 * math.pi))
+            ) / (2 * math.log(base))
+
+
+def yarn_get_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN attention-magnitude correction (0.1·m·ln(s)+1)."""
+    if scale <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
 
 
 def rope_frequencies(arch: ModelArch,
                      device: str | torch.device = "cuda") -> torch.Tensor:
     """Per-pair inverse frequencies, fp32 ``[rot_dim // 2]`` on
-    ``device``, with the default, linear or llama3 scaling applied.
-    yarn and longrope are not ported yet and raise."""
+    ``device``, with the linear, llama3, yarn (NTK-by-parts) or longrope
+    (per-dim factors) scaling applied."""
     rope_type = _rope_type(arch)
     device = resolve_device(device)
-    rot_dim = int(arch.head_dim * arch.partial_rotary_factor)
-    rot_dim -= rot_dim % 2
-    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32,
-                            device=device) / rot_dim
-    inv_freq = 1.0 / (arch.rope_theta ** exponent)
+    rot_dim = _rot_dim(arch)
+    inv_freq = _base_inv_freq(arch, device)
 
     scaling = arch.rope_scaling or {}
     if rope_type == "linear":
@@ -144,27 +160,104 @@ def rope_frequencies(arch: ModelArch,
             wavelen > low_wl, inv_freq / factor,
             torch.where(wavelen < high_wl, inv_freq,
                         (1 - smooth) * inv_freq / factor + smooth * inv_freq))
+    elif rope_type == "yarn":
+        # exact NTK-by-parts: high-frequency pairs keep the base table,
+        # low-frequency pairs interpolate by `factor`, with a linear ramp
+        # between the beta_fast/beta_slow correction dims
+        factor = float(scaling.get("factor", 1.0))
+        orig = float(scaling.get("original_max_position_embeddings",
+                                 arch.max_position_embeddings))
+        low = math.floor(_yarn_find_correction_dim(
+            float(scaling.get("beta_fast", 32.0)), rot_dim, arch.rope_theta, orig))
+        high = math.ceil(_yarn_find_correction_dim(
+            float(scaling.get("beta_slow", 1.0)), rot_dim, arch.rope_theta, orig))
+        low, high = max(low, 0), min(high, rot_dim - 1)
+        if low == high:
+            high += 0.001
+        ramp = ((torch.arange(rot_dim // 2, dtype=torch.float32, device=device)
+                 - low) / (high - low)).clamp(0.0, 1.0)
+        extrap_mask = 1.0 - ramp
+        inv_freq = (inv_freq / factor) * (1.0 - extrap_mask) + inv_freq * extrap_mask
+    elif rope_type in ("longrope", "su"):
+        # phi-3 family: per-dim rescale factors, long vs short chosen by
+        # whether the model runs past its original trained length
+        orig = float(scaling.get("original_max_position_embeddings",
+                                 arch.max_position_embeddings))
+        use_long = arch.max_position_embeddings > orig
+        factors = scaling.get("long_factor" if use_long else "short_factor")
+        if factors is not None:
+            inv_freq = inv_freq / torch.tensor(factors, dtype=torch.float32,
+                                               device=device)[: rot_dim // 2]
+        else:
+            inv_freq = inv_freq / float(scaling.get("factor", 1.0))
     return inv_freq
 
 
-def rope_attention_factor(arch: ModelArch) -> float:
-    """Magnitude correction on the rotated dims' cos/sin (HF
-    attention_scaling): an explicit ``attention_factor``, else 1.0 for
-    the rope types this port supports."""
+def longrope_tables(arch: ModelArch, device: str | torch.device = "cuda"):
+    """Per-position longrope state for archs carrying factor lists:
+    ``(short_inv_freq, long_inv_freq, orig_len, short_mscale,
+    long_mscale)`` with the tables fp32 ``[rot_dim // 2]`` on ``device``;
+    None otherwise.  Positions past the original trained length take the
+    long table (the vLLM Phi3LongRoPE cache semantics), so a batch mixing
+    short and long sequences gives each row its own."""
     scaling = arch.rope_scaling or {}
+    if _rope_type(arch) not in ("longrope", "su") or "long_factor" not in scaling:
+        return None
+    device = resolve_device(device)
+    base = _base_inv_freq(arch, device)
+    half = _rot_dim(arch) // 2
+
+    def table(key):
+        return base / torch.tensor(scaling.get(key), dtype=torch.float32,
+                                   device=device)[:half]
+
+    orig = float(scaling.get("original_max_position_embeddings",
+                             arch.max_position_embeddings))
+    s = arch.max_position_embeddings / orig
+    default_m = (math.sqrt(1.0 + math.log(s) / math.log(orig))
+                 if s > 1.0 else 1.0)
+    short_m = float(scaling.get("short_mscale") or default_m)
+    long_m = float(scaling.get("long_mscale") or default_m)
+    return table("short_factor"), table("long_factor"), orig, short_m, long_m
+
+
+def rope_attention_factor(arch: ModelArch) -> float:
+    """Magnitude correction multiplying the rotated dims' cos/sin (HF
+    attention_scaling): an explicit ``attention_factor``; yarn's mscale
+    (or the mscale/mscale_all_dim ratio when both are set, deepseek
+    style, where the all-dim part moves into the softmax scale); and
+    longrope's sqrt(1 + ln(s)/ln(orig))."""
+    scaling = arch.rope_scaling or {}
+    rope_type = _rope_type(arch)
     if scaling.get("attention_factor") is not None:
         return float(scaling["attention_factor"])
-    _rope_type(arch)                # raises for the unported types
+    if rope_type == "yarn":
+        factor = float(scaling.get("factor", 1.0))
+        mscale = float(scaling.get("mscale", 1.0))
+        mad = scaling.get("mscale_all_dim")
+        if mad is not None:
+            return yarn_get_mscale(factor, mscale) / yarn_get_mscale(factor, float(mad))
+        return yarn_get_mscale(factor, mscale)
+    if rope_type in ("longrope", "su"):
+        orig = float(scaling.get("original_max_position_embeddings",
+                                 arch.max_position_embeddings))
+        s = arch.max_position_embeddings / orig
+        if s <= 1.0:
+            return 1.0
+        return math.sqrt(1.0 + math.log(s) / math.log(orig))
     return 1.0
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                inv_freq: torch.Tensor, head_dim: int,
-               mscale: float = 1.0) -> torch.Tensor:
+               mscale=1.0) -> torch.Tensor:
     """Rotate the first ``2*len(inv_freq)`` dims of each head.
 
-    x: [..., seq, heads, head_dim]; positions: [..., seq].  ``mscale``
-    multiplies the rotated output; pass-through dims stay unscaled.
+    x: [..., seq, heads, head_dim]; positions: [..., seq].  ``inv_freq``
+    is a plain ``[half]`` table or per position ``[..., seq, half]`` (the
+    longrope short/long switch).  ``mscale``, a float or a tensor
+    ``[..., seq, 1, 1]``, multiplies the rotated output; pass-through
+    dims stay unscaled.
     """
     rot = 2 * inv_freq.shape[-1]
     angles = positions[..., :, None].float() * inv_freq     # [..., seq, rot/2]

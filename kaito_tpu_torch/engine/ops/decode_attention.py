@@ -19,7 +19,9 @@ QK dot and sigma_v the probabilities after the running sum is updated.
 
 :func:`paged_decode_attention_cuda` launches the kernel for tensors on
 the card and runs :func:`paged_decode_attention_plain` for tensors on
-the CPU; a CUDA tensor it cannot take raises.  ``launches`` on the
+the CPU; a CUDA tensor it cannot take raises.  Head dims 80 and 96 run
+the bf16 kernel at a compute width of 128 (rows zero-padded in shared
+memory); 32, 64, 128 and 256 at their own.  ``launches`` on the
 wrapper counts K1's launches and ``launches_q`` K1q's.  The scratch and
 the merge counters are allocated once per card, at the most any call on
 that card can need (:func:`workspace_bounds`), and never replaced: a CUDA
@@ -40,7 +42,7 @@ import torch
 from kaito_tpu_torch.ops import build
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the launch plan of csrc/decode_attention.cu (DEC_* there)
@@ -77,7 +79,7 @@ def workspace_bounds(sms: int) -> tuple[int, int]:
     ``sms`` SMs.  Only a plan of more than one split touches either, and
     that takes fewer than ``CTAS_PER_SM * sms`` (sequence, head block)
     pairs; each pair holds at most ``HEADS_PER_CTA`` query heads and
-    ``D`` is at most 128."""
+    ``D`` is at most 256."""
     target = CTAS_PER_SM * sms
     rows = max((p * min(-(-target // p), MAX_SPLIT) for p in range(1, target)),
                default=0)

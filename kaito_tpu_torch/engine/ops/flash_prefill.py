@@ -23,7 +23,9 @@ tile visits, and the ones on which it evaluates the mask, follow
 :func:`key_tile_range` and :func:`tile_fully_visible`, which the CUDA
 source mirrors.  fp32 (the goldens) runs on the CUDA cores.  TMA reads
 q, k and v from 16-byte aligned addresses: a view that is not gets
-copied first.
+copied first.  Head dims 80 and 96 run the bf16 kernel at a compute
+width of 128 (TMA fills the columns past D with zeros); 32, 64, 128 and
+256 at their own.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from kaito_tpu_torch.ops import build
 
 NEG_INF = -1e30
 BIG_WINDOW = 2**31 - 1
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1024,15 +1024,19 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
     ap.add_argument("--served-model-name", default="")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
-    ap.add_argument("--kv-cache-dtype", default="auto",
-                    choices=["auto", "bfloat16", "float32", "int8"],
-                    help="KV page-pool dtype; 'auto' follows --dtype; int8 "
-                         "stores codes with fp32 per-page-per-head scales")
-    ap.add_argument("--quantization", default="", choices=["", "int8", "int4"],
+    ap.add_argument("--kv-cache-dtype",
+                    default=os.environ.get("KAITO_KV_CACHE_DTYPE", ""),
+                    choices=["", "auto", "bfloat16", "float32", "int8"],
+                    help="KV page-pool dtype; '' or 'auto' follows --dtype; "
+                         "int8 stores codes with fp32 per-page-per-head scales")
+    ap.add_argument("--quantization",
+                    default=os.environ.get("KAITO_QUANTIZATION", ""),
+                    choices=["", "int8", "int4"],
                     help="weight-only quantization of the layer projections: "
                          "'' (off), int8 (per output channel) or int4 "
                          "(packed, groups of 128 input rows)")
-    ap.add_argument("--weights-dir", default="",
+    ap.add_argument("--weights-dir",
+                    default=os.environ.get("KAITO_WEIGHTS_DIR", ""),
                     help="safetensors checkpoint dir ('' = synthetic weights)")
     ap.add_argument("--max-pages", type=int, default=0,
                     help="KV page-pool size (0 = size from free device memory)")
@@ -1056,7 +1060,8 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
     ap.add_argument("--speculative-draft-weights-dir",
                     default=os.environ.get("KAITO_SPEC_DRAFT_WEIGHTS", ""),
                     help="safetensors dir for the draft's weights ('' = synthetic)")
-    ap.add_argument("--prefill-pack", type=int, default=0,
+    ap.add_argument("--prefill-pack", type=int,
+                    default=int(os.environ.get("KAITO_PREFILL_PACK", "0")),
                     help="staged sequences per prefill round (0 = auto, up "
                          "to max-num-seqs; 1 = serial round-robin)")
     ap.add_argument("--decode-run-ahead", type=int, default=None,
@@ -1139,9 +1144,18 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     help="comma-separated source prefixes POST /v1/adapters may "
                          "pull from (hub://, oras://); '' = local paths only")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tensor-parallel-size", type=int, default=1,
+    ap.add_argument("--tensor-parallel-size", type=int,
+                    default=int(os.environ.get("KAITO_TENSOR_PARALLEL", "1")),
                     help="shards over the first N cards (raises when fewer "
                          "are visible)")
+    # the other mesh degrees: parsed as the JAX server parses them; any
+    # degree above 1 is refused by check_ported (ROADMAP M19)
+    for flag, var in (("pipeline", "KAITO_PIPELINE_PARALLEL"),
+                      ("expert", "KAITO_EXPERT_PARALLEL"),
+                      ("data", "KAITO_DATA_PARALLEL"),
+                      ("sequence", "KAITO_SEQUENCE_PARALLEL")):
+        ap.add_argument(f"--{flag}-parallel-size", type=int,
+                        default=int(os.environ.get(var, "1")))
     ap.add_argument("--comm-overlap", action="store_true", default=None,
                     help="collective-compute overlap for TP decode: pipelined "
                          "ring reduce-scatter/all-gather in place of the "
@@ -1159,7 +1173,8 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         model=args.model, port=args.port, max_model_len=args.max_model_len,
         max_num_seqs=args.max_num_seqs,
         served_model_name=args.served_model_name, dtype=args.dtype,
-        kv_dtype=args.dtype if args.kv_cache_dtype == "auto" else args.kv_cache_dtype,
+        kv_dtype=(args.dtype if args.kv_cache_dtype in ("", "auto")
+                  else args.kv_cache_dtype),
         weights_dir=args.weights_dir, quantization=args.quantization,
         max_pages=args.max_pages,
         max_prefill_tokens=args.max_prefill_tokens,
@@ -1176,7 +1191,11 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         grammar_max_states=args.grammar_max_states,
         flight_dir=args.flight_dir, flight_max_bundles=args.flight_max_bundles,
         seed=args.seed,
-        tensor_parallel=args.tensor_parallel_size, comm_overlap=args.comm_overlap,
+        tensor_parallel=args.tensor_parallel_size,
+        pipeline_parallel=args.pipeline_parallel_size,
+        expert_parallel=args.expert_parallel_size,
+        data_parallel=args.data_parallel_size,
+        sequence_parallel=args.sequence_parallel_size, comm_overlap=args.comm_overlap,
         async_dispatch=args.async_dispatch,
         speculative_ngram=args.speculative_ngram,
         speculative_draft=(resolve_speculative_draft(get_model_by_name(args.model),

@@ -1,13 +1,13 @@
 """Checkpoint loading: HF safetensors -> the stacked parameter tree.
 
 Counterpart of ``kaito_tpu.engine.weights`` for llama-style checkpoints,
-dense and MoE (Mixtral's and Qwen/DeepSeek's expert names).  HF linear
-weights are [out, in]; the port keeps the JAX package's [in, out], so
-projections transpose on load, and a MoE layer's per-expert tensors
-stack over the expert axis.  The safetensors
-format (an 8-byte header length, a JSON header, raw little-endian
-tensor bytes) is read directly, so loading needs no package beyond
-torch.
+dense (phi-3's fused q/k/v and gate/up included) and MoE (Mixtral's and
+Qwen/DeepSeek's expert names).  HF linear weights are [out, in]; the
+port keeps the JAX package's [in, out], so projections transpose on
+load, and a MoE layer's per-expert tensors stack over the expert axis.
+The safetensors format (an 8-byte header length, a JSON header, raw
+little-endian tensor bytes) is read and written directly, so loading
+needs no package beyond torch.
 """
 
 from __future__ import annotations
@@ -84,6 +84,28 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
     return out
 
 
+def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> None:
+    """Write ``tensors`` (name -> CPU tensor) as one ``.safetensors``
+    file, in the layout :func:`read_safetensors` reads (tensors in name
+    order, the header padded to 8 bytes)."""
+    names = {v: k for k, v in _ST_DTYPES.items()}
+    header, blobs, off = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
 def _reader(directory: str) -> tuple[Callable[[str], Optional[torch.Tensor]],
                                      list[str]]:
     tensors: dict[str, torch.Tensor] = {}
@@ -146,13 +168,39 @@ def assemble_params(model, read: Callable[[str], Optional[torch.Tensor]],
                     t = get(f"layers.{li}.{suffix}", required=False)
                     if t is not None and transpose:
                         t = t.t()
-                elif g.moe:
+                if t is None and key in _FUSED:
+                    t = _read_fused(get, arch, li, key)
+                if t is None and g.moe:
                     t = _read_moe_tensor(get, arch, li, key)
                 if t is None:
                     raise KeyError(f"no source tensor for layer {li} key {key!r}")
                 stack.setdefault(key, []).append(t)
         params[g.name] = {k: torch.stack(v) for k, v in stack.items()}
     return params
+
+
+# phi-3 checkpoints fuse q/k/v into ``self_attn.qkv_proj`` (rows q, then
+# k, then v, by the head counts) and gate/up into ``mlp.gate_up_proj``
+# (gate's ``intermediate_size`` rows, then up's)
+_FUSED = {"q": "self_attn.qkv_proj.weight", "k": "self_attn.qkv_proj.weight",
+          "v": "self_attn.qkv_proj.weight", "gate": "mlp.gate_up_proj.weight",
+          "up": "mlp.gate_up_proj.weight"}
+
+
+def _read_fused(get, arch, li: int, key: str) -> Optional[torch.Tensor]:
+    """Layer ``li``'s ``key`` projection [in, out] cut from its fused HF
+    tensor; None when the checkpoint has no fused tensor either."""
+    fused = get(f"layers.{li}.{_FUSED[key]}", required=False)
+    if fused is None:
+        return None
+    fused = fused.t()                                # HF [out, in] -> ours
+    if key in ("gate", "up"):
+        I = arch.intermediate_size
+        return fused[:, :I] if key == "gate" else fused[:, I:]
+    Hq = arch.num_heads * arch.head_dim
+    Hkv = arch.num_kv_heads * arch.head_dim
+    lo = {"q": 0, "k": Hq, "v": Hq + Hkv}[key]
+    return fused[:, lo:lo + (Hq if key == "q" else Hkv)]
 
 
 # MoE tensors do not fit the flat suffix map: HF stores one tensor per

@@ -3,7 +3,8 @@
 These need an NVIDIA Hopper card and ``nvcc``; without one they skip.
 On the card (no JAX there, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.
-Tolerances: fp32 atol 1e-4 (another summation order than the plain
+Head dims 80, 96 and 256 (phi-2, phi-3, gemma-3) run beside 32, 64 and
+128.  Tolerances: fp32 atol 1e-4 (another summation order than the plain
 versions), bf16 atol 2e-2 (P is rounded to bf16 before the PV product,
 relative to a different running max); for K4 and K5 relative to the
 output's largest magnitude, since their outputs are not bounded by 1.
@@ -36,7 +37,9 @@ def _rand(gen, *shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,Hkv,G,ps", [(32, 4, 2, 16), (64, 2, 4, 64),
                                         (128, 8, 4, 64), (64, 1, 8, 32),
-                                        (128, 4, 1, 16)])
+                                        (128, 4, 1, 16), (80, 4, 1, 64),
+                                        (96, 4, 1, 16), (96, 2, 4, 64),
+                                        (256, 2, 2, 64), (256, 1, 8, 16)])
 @pytest.mark.parametrize("window,softcap", [(BIG, None), (19, None), (270, None),
                                             (BIG, 30.0)])
 def test_decode_kernel(card, dtype, D, Hkv, G, ps, window, softcap):
@@ -77,7 +80,10 @@ def _packed(T, seg_lens, B=2):
                                        (256, 128, 8, 4), (1, 128, 8, 4),
                                        (63, 64, 2, 8), (65, 32, 4, 1),
                                        (512, 128, 8, 4), (1000, 64, 1, 8),
-                                       (200, 32, 2, 8), (130, 128, 4, 1)])
+                                       (200, 32, 2, 8), (130, 128, 4, 1),
+                                       (200, 80, 4, 1), (513, 96, 4, 1),
+                                       (65, 96, 2, 4), (300, 256, 2, 2),
+                                       (1, 256, 4, 1)])
 @pytest.mark.parametrize("window,softcap", [(BIG, None), (9, None), (BIG, 25.0),
                                             (40, None)])
 def test_flash_kernels(card, dtype, T, D, Hkv, G, window, softcap):
@@ -133,7 +139,8 @@ SHORT_SEGMENTS = (1, 2, 3, 1, 1, 3, 2, 2) * 5 + (150,) + (1, 3, 2) * 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,Hkv,G", [(32, 2, 4), (64, 1, 8), (128, 8, 4)])
+@pytest.mark.parametrize("D,Hkv,G", [(32, 2, 4), (64, 1, 8), (128, 8, 4), (80, 4, 1),
+                                     (96, 4, 1), (256, 2, 2)])
 @pytest.mark.parametrize("window,softcap", [(BIG, None), (2, None), (50, 30.0)])
 def test_flash_packed_short_segments(card, dtype, D, Hkv, G, window, softcap):
     """Pad rows stay finite; every valid row matches the plain version."""
@@ -166,7 +173,9 @@ def _quantized_pool(gen, L, P, ps, Hkv, D):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,Hkv,G,ps", [(32, 4, 2, 16), (64, 2, 4, 64),
-                                        (128, 8, 4, 64)])
+                                        (128, 8, 4, 64), (80, 4, 1, 64),
+                                        (96, 4, 1, 16), (96, 2, 4, 64),
+                                        (256, 2, 2, 64), (256, 1, 8, 16)])
 @pytest.mark.parametrize("window,softcap", [(BIG, None), (270, None), (BIG, 30.0)])
 def test_quantized_decode_kernel(card, dtype, D, Hkv, G, ps, window, softcap):
     """K1q: int8 pages with scales against its plain version."""
@@ -261,7 +270,8 @@ def test_decode_single_live_sequence_among_idle_rows(card, dtype, quant, window)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
-@pytest.mark.parametrize("D,Hkv,G,ps", [(128, 8, 4, 64), (64, 2, 8, 16),
+@pytest.mark.parametrize("D,Hkv,G,ps", [(128, 8, 4, 64), (64, 2, 8, 16), (96, 32, 1, 64),
+                                        (256, 4, 2, 64),
                                         (32, 1, 16, 32), (128, 4, 1, 16)])
 def test_decode_merge_counters_read_zero_after_a_call(card, dtype, quant, D, Hkv, G, ps):
     """Several splits per sequence (the last split merges) at every head

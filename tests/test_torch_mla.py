@@ -17,8 +17,9 @@
   shared expert), a q-direct variant (``q_lora_rank`` unset, as
   DeepSeek-V2-Lite publishes it), int8 and int4 weights and an int8
   latent pool; specs and logical axes at DeepSeek-V3's full width.
-- Refusals: packed prefill, tensor parallelism, yarn rope, and a CUDA
-  device without a card.
+- DeepSeek's yarn rope: the model's prefill and decode logits.
+- Refusals: packed prefill, tensor parallelism, and a CUDA device
+  without a card.
 """
 
 import dataclasses
@@ -569,12 +570,21 @@ def test_tensor_parallel_raises_with_the_roadmap_item():
         check_tensor_parallel(get_model_by_name("deepseek-v3-0324").arch, 8)
 
 
-def test_yarn_rope_raises():
-    _, tarch = _archs(rope_scaling={"rope_type": "yarn", "factor": 40.0,
-                                    "mscale_all_dim": 1.0,
-                                    "original_max_position_embeddings": 4096})
-    with pytest.raises(NotImplementedError, match="yarn"):
-        TransformerLM(tarch, dtype=torch.float32, device="cpu")
+@pytest.mark.parametrize("mscale", [1.0, 0.707])
+def test_yarn_rope_model_matches_jax(mscale):
+    """DeepSeek's yarn rope (the mscale ratio on the rope table, the
+    all-dim mscale squared in the softmax scale): prefill and decode
+    logits against the JAX model."""
+    scaling = {"type": "yarn", "factor": 40.0, "mscale": mscale,
+               "mscale_all_dim": 1.0, "original_max_position_embeddings": 64}
+    jarch, tarch = _archs(rope_scaling=scaling)
+    jm = JaxLM(jarch, dtype=jnp.float32)
+    jm.moe_impl = "ragged"
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tm = TransformerLM(tarch, dtype=torch.float32, device="cpu")
+    tm.load_params(params_from_jax(jax.tree.map(np.asarray, jp), tarch))
+    assert tm._scale == jm._scale and tm._rope_mscale == jm._rope_mscale
+    _prefill_then_decode(jm, jp, tm)
 
 
 def test_cuda_without_a_card_raises():

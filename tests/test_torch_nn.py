@@ -44,15 +44,6 @@ def test_rope_linear_scaling_matches():
     _close(tnn.rope_frequencies(arch, "cpu"), jnn.rope_frequencies(jarch))
 
 
-@pytest.mark.parametrize("rope_type", ["yarn", "longrope"])
-def test_unported_rope_types_raise(rope_type):
-    arch = dataclasses.replace(get_model_by_name("tiny-llama-test").arch,
-                               rope_scaling={"rope_type": rope_type,
-                                             "factor": 4.0})
-    with pytest.raises(NotImplementedError, match="yarn and longrope"):
-        tnn.rope_frequencies(arch, "cpu")
-
-
 @pytest.mark.parametrize("preset,mscale", [("llama-3.1-8b-instruct", 1.0),
                                            ("phi-2", 1.0),
                                            ("tiny-llama-test", 0.9)])
