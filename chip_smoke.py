@@ -134,7 +134,7 @@ order; any failure exits non-zero and prints no result:
    equal the engine's; a request sent with an ``X-Request-Id`` must have
    its span tree at ``/debug/trace?trace_id=`` and engine steps inside
    it at ``/debug/timeline``; ``/debug/slo`` must answer and
-   ``/debug/device`` answer 501; with QoS and ITL off no ``/metrics``
+   ``/debug/device`` answer 403 (sampling off); with QoS and ITL off no ``/metrics``
    series may carry a ``tenant`` label or belong to an ITL family.  Then the decode readings of one
    sequence: host launch and copy calls a decode step and a window (on
    the bf16, int8 and bf16-async legs no more than when decode windows
@@ -144,7 +144,8 @@ order; any failure exits non-zero and prints no result:
    engine greedily decodes a batch of four prompts step by step, and an
    engine with the eager reference loop (``_eager_decode``; same config,
    seed and weights) must emit the same tokens; its one-sequence tok/s
-   and ITL (33 tokens) and launches a step are printed beside the
+   and ITL (9 tokens) and launches a step (4 profiled decode steps) are
+   printed beside the
    captured engine's.
 5. Quantized, full width: the server, configured by its own command line
    (``--quantization int4 --kv-cache-dtype int8``), serves the same model
@@ -155,7 +156,7 @@ order; any failure exits non-zero and prints no result:
    ``--async-dispatch`` and the request mix of phase 4.  Each of these
    TP=1 legs is held against the eager loop as in phase 4.
 6. Tensor parallel, full width cut in depth: the same model at TP=2
-   (its 32 layers cut to 8) with the
+   (its 32 layers cut to 4) with the
    comm-overlap ring, its engine built on an explicit mesh (two cards, or
    two slots of one card, which the log names) and handed to
    ``make_server``: int4 weights + int8 KV with the request mix of phase
@@ -298,6 +299,39 @@ order; any failure exits non-zero and prints no result:
    (``qkv_proj``, ``gate_up_proj``) by the port's ``write_safetensors``
    and served in fp32 from it on the card and on the CPU: two prompts
    across position 48, tokens equal, logprobs within 2e-3.
+14. Device profiling and the host KV tier (legs ``devprof-bf16`` and
+   ``offload-bf16``).  Llama-3.1-8B at full width in bf16, phase 4's
+   config, the two legs sharing one copy of the weights.  Device
+   profiling: the server with ``--devprof-interval-s 0.5
+   --devprof-window-s 0.25`` serves 8 concurrent 256-token greedy
+   completions (after 8 of 16 tokens, which capture the graphs they
+   replay: a window over a capture is skipped; up to two more rounds
+   until a window falls inside the decodes) while ``/debug/device`` is
+   polled: every window's buckets
+   sum to 100 (within 0.01), and in every window with only decodes live
+   decode holds at least 95% of the busy time, matmul is the largest
+   busy bucket and attention is above 0 (the newest one's split of a
+   decode step is logged); the ``kaito:device_*`` gauges equal the last
+   window; ``/start_profile {"seconds": 2}`` answers 200, a second start
+   409, a sampler window meanwhile is skipped, the trace under
+   ``KAITO_PROFILE_DIR`` holds ``decode_tc_kernel`` and none of its K1-K3,
+   quant-matmul or GEMM slices is classified ``other`` (each bucket's top
+   names logged), ``/stop_profile`` on the idle profiler answers 409; the
+   same completions on an engine with sampling off (both tok/s logged);
+   and phase 4's greedy batch on an engine with a profiler window around
+   every step, its graph captures among them, equals an engine's without
+   token for token.  The host tier: at
+   ``--max-model-len 2048`` with 160 pages of 64, eight ~1500-token
+   prompts decoding 256 tokens each, with an 8 GiB tier and without:
+   preemptions, spilled and restored pages each at least 1, fewer prefill
+   tokens with the tier, the greedy tokens equal the tier-off engine's up
+   to the near-tie rule, every restore leaves the pool tensors'
+   addresses, every window is a replay, every page returns, K1 and K2
+   launch; each restore's and spill's card ms (between two
+   synchronizations) is logged against a 1600-token recompute prefill.
+   Exact: ``tiny-llama-real`` in fp32 and with int8 KV, two sequences
+   overrunning a 9-page pool with the tier on, on the card and on the
+   CPU: tokens equal, logprobs within 2e-3, a restore on both.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -309,7 +343,7 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
 ``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
 ``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``,
-``families-bf16``, ``families-fp32``), which
+``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -324,6 +358,7 @@ on the first card, so one run compares a real ring hop with none.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import importlib
 import json
@@ -2015,8 +2050,8 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         if status != 200 or json.loads(raw)["data"][0]["id"] != engine.md.name:
             raise SmokeFailure(f"/v1/models answered {status} {raw!r}")
         status, _ = _get(f"{base}/debug/device")
-        if status != 501:
-            raise SmokeFailure(f"/debug/device (not ported) answered {status}")
+        if status != 403:
+            raise SmokeFailure(f"/debug/device with sampling off answered {status}")
 
         resp, _ = _completion(base, _prompt(60, 1), 16, logprobs=1)
         lps = resp["choices"][0]["logprobs"]["token_logprobs"]
@@ -2078,7 +2113,8 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
         if (tp == 1) != engine.window.capture or (tp == 1 and replays < windows):
             raise SmokeFailure(f"{label}: capture {engine.window.capture}, {windows} "
                                f"decode windows, {replays} graph replays")
-        stats["decode"] = decode_readings(engine, p, label)
+        stats["decode"] = decode_readings(engine, p, label,
+                                          n=5 if tp > 1 else 17)
         ceiling = _HOST_CALLS_CEILING.get(label)
         if ceiling is not None and stats["decode"]["host_calls_per_step"] > ceiling:
             raise SmokeFailure(f"{label}: {stats['decode']['host_calls_per_step']:.3f} "
@@ -2291,6 +2327,20 @@ def time_mla_decode(engine, label) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def _card_profile():
+    """torch.profiler over the host and the card, holding the process-wide
+    profiler lock that the engine's device profiler and ``/start_profile``
+    take too (one trace at a time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kaito_tpu_torch.engine.devprof import PROFILE_LOCK
+
+    with PROFILE_LOCK, profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        yield prof
+
+
 def _api_calls(prof) -> dict:
     """Host-side launch and copy calls of a profile (the CUDA runtime and
     driver events the profiler records), by name."""
@@ -2308,11 +2358,10 @@ def _profiled_request(engine, prompt, n, grammar=None, adapter=""):
     windows) of one greedy request of ``n`` tokens straight to the
     serving engine (under ``grammar``, through ``adapter`` when given)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     c = engine.counters
     steps0, windows0 = c["decode_steps_total"], c["decode_windows_total"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _card_profile() as prof:
         _timed_tokens(engine, prompt, n, grammar, adapter)
         torch.cuda.synchronize()
     kernels = sum(r[1] for r in _device_rows(prof))
@@ -2320,15 +2369,15 @@ def _profiled_request(engine, prompt, n, grammar=None, adapter=""):
             c["decode_windows_total"] - windows0)
 
 
-def decode_readings(engine, prompt, label, grammar=None, adapter="") -> dict:
+def decode_readings(engine, prompt, label, grammar=None, adapter="", n=17) -> dict:
     """One sequence's decode as the engine runs it (under ``grammar``,
     through ``adapter`` when given): the host's launch and copy calls a
     decode step and a decode window, and the device's kernels a step (a
-    profiled 17-token request less a profiled 1-token one, over their 16
+    profiled ``n``-token request less a profiled 1-token one, over their n - 1
     decode steps), and, for a captured engine, its captures, graph pool
     and each graph's kernel nodes."""
     calls1, k1, s1, w1 = _profiled_request(engine, prompt, 1, grammar, adapter)
-    calls17, k17, s17, w17 = _profiled_request(engine, prompt, 17, grammar, adapter)
+    calls17, k17, s17, w17 = _profiled_request(engine, prompt, n, grammar, adapter)
     steps, windows = max(s17 - s1, 1), max(w17 - w1, 1)
     host = {k: calls17.get(k, 0) - calls1.get(k, 0)
             for k in set(calls1) | set(calls17)}
@@ -2405,9 +2454,12 @@ def compare_eager(cfg, prompt, label, metadata=None) -> dict:
             raise SmokeFailure(f"{label}: captured windows' greedy tokens differ from "
                                f"the eager loop's for prompts {diff}: {got} != {want}")
         ref.start()
-        single = _itl(_timed_tokens(ref, prompt, 33))
+        # the eager loop's depth is cut (9 tokens alone, 4 profiled
+        # decode steps) to keep the whole script inside its time limit
+        single = _itl(_timed_tokens(ref, prompt, 9))
         res = dict(single_stream=single, greedy_batch_equal=True,
-                   decode=decode_readings(ref, prompt, label + " (eager reference)"))
+                   decode=decode_readings(ref, prompt, label + " (eager reference)",
+                                          n=5))
     finally:
         ref.stop()
     log(f"{label}: eager reference loop: greedy batch equal; one sequence "
@@ -2480,13 +2532,12 @@ def profile_request(engine, base):
     prompt, 33 output tokens): wall time, device busy time, kernel
     launches and the kernels that take the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     _completion(base, _prompt(200, 50), 8)           # warm
     prefill = _profile_prefill(base)
     prefill_warm = _profile_prefill(base, warm=True)
     steps0 = engine.counters["decode_steps_total"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _card_profile() as prof:
         t0 = time.perf_counter()
         _completion(base, _prompt(200, 51), 33)
         wall = time.perf_counter() - t0
@@ -2532,12 +2583,11 @@ def _profile_prefill(base, warm=False):
     time, and the device time and launches of the quantized matmul
     kernels (K4/K5, with any split-K reduction) by kernel name."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     prompt = _prompt(200, 53 if warm else 52)
     if warm:
         _completion(base, prompt, 1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _card_profile() as prof:
         t0 = time.perf_counter()
         _completion(base, prompt, 1)
         wall = time.perf_counter() - t0
@@ -3306,7 +3356,6 @@ def _profile_rounds(engine, prompt, steps=8) -> dict:
     sequence decoding alone (its prefill done first), profiled over
     ``steps`` steps, with how many of them were verify rounds."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from kaito_tpu_torch.engine.engine import SamplingParams
 
@@ -3317,7 +3366,7 @@ def _profile_rounds(engine, prompt, steps=8) -> dict:
     c = engine.counters
     r0, d0, t0 = c["spec_steps_total"], c["decode_steps_total"], len(req.output_tokens)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _card_profile() as prof:
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
@@ -4771,6 +4820,595 @@ def run_families_exact_phase(label) -> dict:
     return res
 
 
+DEVPROF_LEG = ("devprof-bf16", "phase 14, bf16 device profiling")
+OFFLOAD_LEG = ("offload-bf16", "phase 14, bf16 host KV tier")
+_P14_KERNELS = ("paged_decode_attention", "flash_prefill_attention",
+                "flash_prefill_packed")
+# kernel names that must never be left in "other": the port's attention
+# kernels (K1/K1q, K2/K3), its quantized matmuls and the library GEMMs
+_CLASSIFIED = ("decode_tc_kernel", "decode_fp32_kernel", "flash_kernel",
+               "flash_tc_kernel", "quant_matmul_", "nvjet", "gemm", "cutlass", "xmma")
+_DP_SEQS, _DP_TOKENS = 8, 256
+# the host tier's leg: 8 prompts of ~1500 tokens decoding 256 each need
+# 8 x 28 pages of 64; 160 pages hold about six of them
+_OFF_PROMPT, _OFF_TOKENS, _OFF_PAGES = 1500, 256, 160
+_RESTORE_TOKENS = 1600
+
+
+def _devprof_load(base, poll: bool, n_tokens: int = _DP_TOKENS) -> tuple[float, dict]:
+    """:data:`_DP_SEQS` concurrent greedy completions of ``n_tokens``
+    tokens over HTTP while this thread polls ``/debug/device`` (``poll``)
+    and keeps every window it sees, by its stamp.  Returns the wall
+    seconds and the windows."""
+    errors: list = []
+
+    def one(i):
+        try:
+            _completion(base, _prompt(80, 140 + i), n_tokens)
+        except Exception as e:   # raised below, in the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(_DP_SEQS)]
+    windows: dict = {}
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        if poll:
+            status, raw = _get(f"{base}/debug/device")
+            if status != 200:
+                raise SmokeFailure(f"/debug/device answered {status} with sampling on")
+            for w in json.loads(raw)["ring"]:
+                windows[w["ts"]] = w
+        time.sleep(0.2)
+    wall = time.perf_counter() - t0
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return wall, windows
+
+
+def _decode_only(w) -> bool:
+    """A sampler window with device slices in which only decodes ran."""
+    return (w["n_slices"] > 0 and w["phase_pct"]["decode"] > 0
+            and w["phase_pct"]["prefill"] == 0 and w["phase_pct"]["prefill_packed"] == 0)
+
+
+def _busy_split(w) -> dict:
+    """A window's busy device time by bucket, in % of busy."""
+    busy = 100.0 - w["bucket_pct"]["idle"]
+    return {b: 100.0 * v / busy for b, v in w["bucket_pct"].items() if b != "idle"}
+
+
+def _check_windows(windows, label) -> dict:
+    """Every captured window's buckets sum to 100; in every window with
+    only decodes live, decode holds >= 95% of the busy time, matmul is the
+    largest busy bucket and attention is above 0.  Returns the newest
+    decode-only window's split."""
+    full = [w for w in windows.values() if w["n_slices"] > 0]
+    if not full:
+        raise SmokeFailure(f"{label}: no window captured any device slice")
+    for w in full:
+        total = sum(w["bucket_pct"].values())
+        if abs(total - 100.0) > 0.01:
+            raise SmokeFailure(f"{label}: a window's buckets sum to {total}")
+    decode_only = [w for w in full if _decode_only(w)]
+    if not decode_only:
+        raise SmokeFailure(f"{label}: no window held decodes alone "
+                           f"({len(full)} windows with slices)")
+    for w in decode_only:
+        split = _busy_split(w)
+        busy = 100.0 - w["bucket_pct"]["idle"]
+        share = 100.0 * w["phase_pct"]["decode"] / busy
+        top = max((b for b in split if b != "other"), key=split.get)
+        if share < 95.0 or max(split, key=split.get) != "matmul" \
+                or w["bucket_pct"]["attention"] <= 0:
+            raise SmokeFailure(f"{label}: decode-only window: decode {share:.2f}% of "
+                               f"busy, split {split}, largest {top}")
+    last = max(decode_only, key=lambda w: w["ts"])
+    res = dict(windows=len(windows), windows_with_slices=len(full),
+               decode_only_windows=len(decode_only),
+               decode_share_of_busy_pct=[100.0 * w["phase_pct"]["decode"]
+                                         / (100.0 - w["bucket_pct"]["idle"])
+                                         for w in decode_only],
+               decode_step_split_pct_of_busy=_busy_split(last),
+               decode_window=last)
+    log(f"{label}: {len(full)} windows with slices, {len(decode_only)} with decodes "
+        f"alone; the newest: idle {last['bucket_pct']['idle']:.2f}% of "
+        f"{last['wall_us'] / 1e3:.1f} ms, busy split "
+        + ", ".join(f"{b} {v:.2f}%" for b, v in res["decode_step_split_pct_of_busy"].items())
+        + f"; decode {res['decode_share_of_busy_pct'][-1]:.2f}% of busy, "
+        f"{last['window_tokens']:.0f} tokens in {last['capture_s']:.3f} s, matmul "
+        f"{last['matmul_pct_of_peak_flops']:.2f}% of peak FLOP/s, weights "
+        f"{last['hbm_pct_of_peak']:.2f}% of peak HBM")
+    return res
+
+
+def _check_device_gauges(base, label) -> dict:
+    """The ``kaito:device_*`` gauges equal the last window of
+    ``/debug/device`` (read between two reads of it that agree)."""
+    from kaito_tpu_torch.utils.promtext import parse_exposition
+
+    for _ in range(20):
+        d1 = json.loads(_get(f"{base}/debug/device")[1])
+        samples = parse_exposition(_get(f"{base}/metrics")[1].decode())
+        d2 = json.loads(_get(f"{base}/debug/device")[1])
+        if d1["windows_total"] == d2["windows_total"] and d1["last"] == d2["last"] \
+                and d1["windows_skipped"] == d2["windows_skipped"]:
+            break
+    else:
+        raise SmokeFailure(f"{label}: /debug/device kept moving")
+    last = d1["last"]
+    got = {}
+    for n, lbl, v in samples:
+        if n == "kaito:device_bucket_pct":
+            got[("bucket", lbl)] = v
+        elif n == "kaito:device_phase_pct":
+            got[("phase", lbl)] = v
+        elif n.startswith("kaito:device_") and not lbl:
+            got[n] = v
+    want = {"kaito:device_comm_pct": last["comm_pct"],
+            "kaito:device_comm_compute_overlap_pct": last["comm_compute_overlap_pct"],
+            "kaito:device_copy_overlap_pct": last["copy_overlap_pct"],
+            "kaito:device_idle_pct": last["bucket_pct"]["idle"],
+            "kaito:device_phase_attributed_pct": last["phase_attributed_pct"],
+            "kaito:device_matmul_pct_of_peak_flops": last["matmul_pct_of_peak_flops"],
+            "kaito:device_hbm_pct_of_peak": last["hbm_pct_of_peak"],
+            "kaito:device_windows_total": d1["windows_total"],
+            "kaito:device_windows_skipped_total": d1["windows_skipped"],
+            "kaito:device_window_errors_total": d1["parse_errors"]}
+    want.update({("bucket", f'{{bucket="{b}"}}'): v
+                 for b, v in last["bucket_pct"].items()})
+    want.update({("phase", f'{{phase="{p}"}}'): v for p, v in last["phase_pct"].items()})
+    bad = {k: (got.get(k), v) for k, v in want.items()
+           if got.get(k) is None or not math.isclose(got[k], v, rel_tol=1e-9,
+                                                     abs_tol=1e-9)}
+    if bad:
+        raise SmokeFailure(f"{label}: kaito:device_* against the last window: {bad}")
+    log(f"{label}: {len(want)} kaito:device_* series equal the last window "
+        f"({d1['windows_total']} windows, {d1['windows_skipped']} skipped)")
+    return dict(device_series=len(want), windows_total=d1["windows_total"],
+                windows_skipped=d1["windows_skipped"], parse_errors=d1["parse_errors"])
+
+
+def _after_a_window(dp, label, timeout_s: float = 60.0) -> None:
+    """Return as the sampler ends a window (taken, skipped or failed): it
+    then waits ``interval_s`` before it asks for the next one."""
+    def ended():
+        return dp.windows_total + dp.windows_skipped + dp.parse_errors
+
+    n0 = ended()
+    deadline = time.monotonic() + timeout_s
+    while ended() == n0:
+        if time.monotonic() > deadline:
+            raise SmokeFailure(f"{label}: the sampler ended no window in {timeout_s:.0f} s")
+        time.sleep(0.002)
+
+
+def _manual_trace(base, server, engine, label) -> dict:
+    """``/start_profile {"seconds": 2}`` answers 200 and a second start
+    409; four prompts sent together and one alone prefill and decode 2
+    tokens each inside the trace; a sampler window meanwhile is skipped
+    (the trace starts as the sampler ends a window, so that its next ask,
+    ``interval_s`` later, falls inside the trace: a trace started while a
+    window is open waits for it and may then end while the sampler still
+    folds that window, and no window of the sampler's would fall inside);
+    the trace written under ``KAITO_PROFILE_DIR`` holds K1's
+    ``decode_tc_kernel``, and no K1-K3, quant matmul or GEMM slice of it
+    is classified ``other`` (each bucket's top names logged); then
+    ``/stop_profile`` on the idle profiler answers 409."""
+    import tempfile
+
+    from kaito_tpu_torch.engine.devprof import classify, parse_torch_trace, read_trace
+
+    prof_dir = tempfile.mkdtemp(prefix="kaito-profile-")
+    os.environ["KAITO_PROFILE_DIR"] = prof_dir
+    dp = engine.devprof
+    _after_a_window(dp, label)
+    skipped0 = dp.windows_skipped
+    status, _, raw = _http(base, "/start_profile", {"seconds": 2})
+    if status != 200 or json.loads(raw).get("auto_stop_seconds") != 2:
+        raise SmokeFailure(f"{label}: /start_profile answered {status} {raw[:200]!r}")
+    status, _, _ = _http(base, "/start_profile", {})
+    if status != 409:
+        raise SmokeFailure(f"{label}: a second /start_profile answered {status}")
+    # two tokens each: a prefill and one decode step (a trace of 2 s of
+    # steady decode would hold ~500k kernel events)
+    burst = [threading.Thread(target=_completion, args=(base, _prompt(120 + 40 * i,
+                                                                     150 + i), 2),
+                              daemon=True) for i in range(4)]
+    for t in burst:
+        t.start()
+    for t in burst:
+        t.join()
+    _completion(base, _prompt(300, 155), 2)
+    for _ in range(300):
+        if not server.state.trace.active:
+            break
+        time.sleep(0.05)
+    if server.state.trace.active:
+        raise SmokeFailure(f"{label}: the trace did not stop itself after 2 s")
+    if dp.windows_skipped <= skipped0:
+        raise SmokeFailure(f"{label}: no sampler window was skipped during the trace")
+    status, _, _ = _http(base, "/stop_profile", {})
+    if status != 409:
+        raise SmokeFailure(f"{label}: /stop_profile on an idle profiler answered {status}")
+    files = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)
+             if f.endswith(".trace.json")]
+    if len(files) != 1:
+        raise SmokeFailure(f"{label}: {files} under KAITO_PROFILE_DIR")
+    slices = parse_torch_trace(read_trace(files[0]))
+    by_bucket: dict = {}
+    wrong = set()
+    for s in slices:
+        b = classify(s.op_name, s.name)
+        names = by_bucket.setdefault(b, {})
+        names[s.name[:90]] = names.get(s.name[:90], 0.0) + s.dur_us
+        if b == "other" and any(k in s.name.lower() for k in _CLASSIFIED):
+            wrong.add(s.name[:120])
+    if not any("decode_tc_kernel" in s.name for s in slices):
+        raise SmokeFailure(f"{label}: the trace holds no decode_tc_kernel event")
+    if wrong:
+        raise SmokeFailure(f"{label}: classified other: {sorted(wrong)[:6]}")
+    top = {b: sorted(n.items(), key=lambda kv: -kv[1])[:4] for b, n in by_bucket.items()}
+    for b, names in top.items():
+        log(f"{label}: trace, {b}: " + "; ".join(f"{n} {us / 1e3:.3f} ms"
+                                                 for n, us in names))
+    res = dict(trace_bytes=os.path.getsize(files[0]), trace_slices=len(slices),
+               skipped_during_trace=dp.windows_skipped - skipped0,
+               top_names_ms={b: [(n, us / 1e3) for n, us in names]
+                             for b, names in top.items()})
+    log(f"{label}: /start_profile 200 then 409, auto-stop after 2 s, /stop_profile "
+        f"409 idle; trace {res['trace_bytes'] / 2**20:.1f} MiB, {len(slices)} device "
+        f"slices, none of K1-K3 / GEMMs in other; {res['skipped_during_trace']} "
+        f"sampler windows skipped")
+    os.remove(files[0])
+    return res
+
+
+def _windows_are_harmless(cfg, params, label) -> dict:
+    """The greedy batch of :func:`greedy_batch` on a fresh engine with a
+    profiler window around every scheduler step (the first steps capture
+    the decode graphs inside windows), against the same batch on a fresh
+    engine without: token for token equal, one schedule, same weights."""
+    import dataclasses
+
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+
+    plain = InferenceEngine(dataclasses.replace(cfg, devprof_interval_s=0.0),
+                            params=params, device="cuda")
+    want = greedy_batch(plain)
+    del plain
+    _release_card(torch)
+    engine = InferenceEngine(cfg, params=params, device="cuda")
+    dp, step = engine.devprof, engine.step
+    inside = {"windows": 0, "captures": 0}
+
+    def windowed():
+        captures = engine.counters["decode_graph_captures_total"]
+        win = dp._open()
+        try:
+            return step()
+        finally:
+            if win is not None:
+                dp._close(win)
+                inside["windows"] += 1
+                inside["captures"] += (engine.counters["decode_graph_captures_total"]
+                                       - captures)
+
+    engine.step = windowed
+    got = greedy_batch(engine)
+    del engine
+    _release_card(torch)
+    if got != want or not inside["windows"] or not inside["captures"]:
+        raise SmokeFailure(f"{label}: greedy batch with a profiler window around every "
+                           f"step {got} against {want}; {inside}")
+    log(f"{label}: a profiler window around each of {inside['windows']} steps, "
+        f"{inside['captures']} graph captures inside them: the greedy batch equals an "
+        f"engine's without")
+    return dict(greedy_batch_equal=True, **inside)
+
+
+def run_devprof_phase(label) -> tuple[dict, dict, dict]:
+    """Phase 14, device profiling: Llama-3.1-8B at full width in bf16
+    (phase 4's config, synthetic weights from seed 0) served with
+    ``--devprof-interval-s 0.5 --devprof-window-s 0.25``: eight
+    concurrent 256-token greedy completions while ``/debug/device`` is
+    polled (:func:`_check_windows`), the ``kaito:device_*`` gauges
+    against the last window, the manual trace (:func:`_manual_trace`);
+    then the same completions on an engine with sampling off, sharing
+    the weights (tok/s of both), and :func:`_windows_are_harmless`.
+    Returns the launches of K1-K3 over the leg, the readings and
+    the weights (the host tier's leg reuses them)."""
+    import dataclasses
+
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+    from kaito_tpu_torch.engine.server import make_server, parse_args
+
+    t_leg = time.perf_counter()
+    for name in _P14_KERNELS:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
+    cfg, _ = parse_args(["--model", _LLAMA, "--dtype", "bfloat16", "--max-num-seqs",
+                         "8", "--seed", "0", "--devprof-interval-s", "0.5",
+                         "--devprof-window-s", "0.25"])
+    stats: dict = {}
+    params = None
+    for mode in ("on", "off"):
+        mcfg = cfg if mode == "on" else dataclasses.replace(cfg, devprof_interval_s=0.0)
+        t0 = time.perf_counter()
+        engine = InferenceEngine(mcfg, params=params, device="cuda")
+        if params is None:
+            params = engine.model.param_tree()
+        engine.start()
+        server = make_server(engine, mcfg, host="127.0.0.1", port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        log(f"{label}, sampling {mode}: engine up in {time.perf_counter() - t0:.1f}s")
+        try:
+            # the graphs the load replays, captured before it: a window
+            # over a capture is skipped
+            _devprof_load(base, poll=False, n_tokens=16)
+            c = engine.counters
+            captures0 = c["decode_graph_captures_total"]
+            skipped0 = engine.devprof.windows_skipped if mode == "on" else 0
+            wall, windows = _devprof_load(base, poll=mode == "on")
+            for _ in range(2 if mode == "on" else 0):
+                # the sampler's cadence is its own: another round if no
+                # window fell inside the decodes
+                if any(_decode_only(w) for w in windows.values()):
+                    break
+                windows.update(_devprof_load(base, poll=True)[1])
+            if mode == "on":
+                stats["load_windows_skipped"] = engine.devprof.windows_skipped - skipped0
+                stats["load_captures"] = c["decode_graph_captures_total"] - captures0
+                log(f"{label}: during the load {stats['load_captures']} graphs captured, "
+                    f"{stats['load_windows_skipped']} sampler windows skipped")
+            stats[f"tok_s_sampling_{mode}"] = _DP_SEQS * _DP_TOKENS / wall
+            log(f"{label}, sampling {mode}: {_DP_SEQS} x {_DP_TOKENS} greedy tokens in "
+                f"{wall:.3f} s: {stats[f'tok_s_sampling_{mode}']:.1f} tok/s")
+            if mode == "on":
+                stats["windows"] = _check_windows(windows, label)
+                stats["gauges"] = _check_device_gauges(base, label)
+                dp = engine.devprof
+                h = dp.capture_hist
+                n = max(h._total, 1)
+                stats["window_seconds"] = dict(
+                    windows=h._total, mean_capture_to_summary_s=h._sum / n,
+                    mean_stop_s=dp.stop_s_total / n,
+                    capture_s=sorted({w["capture_s"] for w in windows.values()}))
+                log(f"{label}: {h._total} windows open {stats['window_seconds']['capture_s']} s;"
+                    f" each {stats['window_seconds']['mean_capture_to_summary_s']:.3f} s "
+                    f"from opening to its summary, of which "
+                    f"{stats['window_seconds']['mean_stop_s']:.3f} s stopping the profiler"
+                    f" on the engine thread")
+                stats["trace"] = _manual_trace(base, server, engine, label)
+            else:
+                status, _ = _get(f"{base}/debug/device")
+                if status != 403:
+                    raise SmokeFailure(f"{label}: /debug/device with sampling off "
+                                       f"answered {status}")
+            if engine.counters["decode_graph_replays_total"] < \
+                    engine.counters["decode_windows_total"]:
+                raise SmokeFailure(f"{label}, sampling {mode}: a decode window was "
+                                   f"not a graph replay")
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+        del engine, server
+        _release_card(torch)
+    log(f"{label}: sampling on against off: {stats['tok_s_sampling_on']:.1f} against "
+        f"{stats['tok_s_sampling_off']:.1f} tok/s")
+    stats["harmless"] = _windows_are_harmless(cfg, params, label)
+    torch.cuda.synchronize()
+    launches = {name: getattr(*_counter(name)) for name in _P14_KERNELS}
+    log(f"{label}: launches {launches}")
+    stats["phase_s"] = time.perf_counter() - t_leg
+    return launches, stats, params
+
+
+def _offload_run(engine, prompts, label) -> tuple[list, dict]:
+    """The prompts submitted together to ``engine`` (not started), 256
+    greedy tokens each, stepped to the end.  Every restore is bracketed
+    by two synchronizations and timed, and must leave the pool tensors'
+    addresses as they were; so is every spill.  Returns the requests and
+    the readings."""
+    import torch
+
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    k, v = engine.cache.k, engine.cache.v
+    ptrs = (k.data_ptr(), v.data_ptr())
+    timed = {"restore": [], "spill": []}
+
+    def bracket(kind, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if engine.cache.k is not k or (k.data_ptr(), v.data_ptr()) != ptrs:
+                raise SmokeFailure(f"{label}: a {kind} replaced the pool tensors")
+            if kind == "spill" or got:
+                slot = args[1] if kind == "restore" else args[0]
+                timed[kind].append((int(engine.slots[slot].position), ms))
+            return got
+        return run
+
+    if engine.host_kv is not None:
+        engine._spill_slot = bracket("spill", engine._spill_slot)
+        engine._try_restore = bracket("restore", engine._try_restore)
+    reqs = [engine.submit(list(p), SamplingParams(
+        max_tokens=_OFF_TOKENS, temperature=0.0, ignore_eos=True, logprobs=True))
+        for p in prompts]
+    t0 = time.perf_counter()
+    for _ in range(100000):
+        engine.step()
+        if all(r.finish_reason for r in reqs):
+            break
+    wall = time.perf_counter() - t0
+    if not all(r.finish_reason == "length" for r in reqs):
+        raise SmokeFailure(f"{label}: {[r.finish_reason for r in reqs]}")
+    c = engine.counters
+    if c["decode_graph_replays_total"] < c["decode_windows_total"]:
+        raise SmokeFailure(f"{label}: a decode window was not a graph replay")
+    if engine.allocator.available != engine.allocator.num_pages - 1:
+        raise SmokeFailure(f"{label}: {engine.allocator.num_pages - 1 - engine.allocator.available}"
+                           f" pages did not come back")
+    return reqs, dict(wall_s=wall, restores=timed["restore"], spills=timed["spill"],
+                      **{key: c[key] for key in (
+                          "preemptions_total", "host_kv_spilled_pages_total",
+                          "host_kv_restored_pages_total", "prefill_tokens_total",
+                          "prefill_steps_total", "decode_windows_total",
+                          "decode_graph_replays_total")})
+
+
+def run_offload_phase(label, params=None) -> tuple[dict, dict]:
+    """Phase 14, the host KV tier: Llama-3.1-8B at full width in bf16
+    (phase 4's config at ``--max-model-len 2048``, the weights of the
+    device-profiling leg when given), its pool cut to
+    :data:`_OFF_PAGES` pages of 64 so that eight ~1500-token prompts
+    decoding 256 tokens each cannot all stay resident, with an 8 GiB host
+    tier and without one: preemptions, spills and restores happen, fewer
+    prefill tokens are computed with the tier, the greedy tokens equal
+    the tier-off engine's up to a near-tie, every restore leaves the
+    pool's addresses and every window is a replay, every page returns, K1
+    and K2 launch.  Logged: each restore's and spill's card ms (between
+    two synchronizations) by the sequence's length, against the
+    recompute prefill of a 1600-token prompt.  Then the exact leg
+    (:func:`_offload_exact`).  Returns the launches and readings."""
+    import dataclasses
+
+    import torch
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+    from kaito_tpu_torch.engine.server import parse_args
+
+    t_leg = time.perf_counter()
+    cfg, _ = parse_args(["--model", _LLAMA, "--dtype", "bfloat16", "--max-num-seqs",
+                         "8", "--seed", "0", "--max-model-len", "2048",
+                         "--max-pages", str(_OFF_PAGES)])
+    for name in _P14_KERNELS:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
+    stats: dict = {}
+    runs = {}
+    for mode, tier in (("on", 8 << 30), ("off", 0)):
+        lbl = f"{label}, tier {mode}"
+        t0 = time.perf_counter()
+        engine = InferenceEngine(dataclasses.replace(cfg, host_kv_offload_bytes=tier),
+                                 params=params, device="cuda")
+        if params is None:
+            params = engine.model.param_tree()
+        log(f"{lbl}: engine up in {time.perf_counter() - t0:.1f}s, "
+            f"{engine.allocator.num_pages} pages")
+        prompts = [engine.tokenizer.encode(_prompt(_OFF_PROMPT, 160 + i))
+                   for i in range(8)]
+        # a short prompt alone first: the fresh-prefill kernel (K2; a
+        # ~1500-token prompt prefills in 512-token chunks over its pages)
+        # and the first captures
+        _spec_batch(engine, [engine.tokenizer.encode(_prompt(200, 159))],
+                    _greedy_params(8))
+        reqs, res = _offload_run(engine, prompts, lbl)
+        runs[mode] = reqs
+        if mode == "off":
+            # the recompute of a 1600-token sequence: a fresh chunk and
+            # three continuation chunks, timed between two synchronizations
+            req = engine.submit(engine.tokenizer.encode(_prompt(_RESTORE_TOKENS, 199)),
+                                SamplingParams(max_tokens=1, temperature=0.0,
+                                               ignore_eos=True))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while not req.finish_reason:
+                engine.step()
+            torch.cuda.synchronize()
+            res["recompute_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            res["recompute_prefill_tokens"] = len(req.prompt_tokens)
+        stats[mode] = res
+        log(f"{lbl}: {res['wall_s']:.2f} s; preemptions {res['preemptions_total']}, "
+            f"spilled {res['host_kv_spilled_pages_total']} / restored "
+            f"{res['host_kv_restored_pages_total']} pages, prefill tokens "
+            f"{res['prefill_tokens_total']} in {res['prefill_steps_total']} dispatches")
+        del engine
+        _release_card(torch)
+    on, off = stats["on"], stats["off"]
+    if min(on["preemptions_total"], on["host_kv_spilled_pages_total"],
+           on["host_kv_restored_pages_total"]) < 1:
+        raise SmokeFailure(f"{label}: the tier was not exercised: {on}")
+    if on["prefill_tokens_total"] >= off["prefill_tokens_total"]:
+        raise SmokeFailure(f"{label}: {on['prefill_tokens_total']} prefill tokens with "
+                           f"the tier, {off['prefill_tokens_total']} without")
+    stats["greedy_equal_prefix"] = _same_or_tie(runs["on"], runs["off"], label)
+    near = min(on["restores"], key=lambda r: abs(r[0] - _RESTORE_TOKENS))
+    stats["restore_near_1600"] = dict(tokens=near[0], ms=near[1])
+    log(f"{label}: restores (tokens, card ms) {on['restores']}; spills {on['spills']}; "
+        f"the restore of {near[0]} tokens {near[1]:.2f} ms against a "
+        f"{off['recompute_prefill_tokens']}-token recompute prefill "
+        f"{off['recompute_prefill_ms']:.2f} ms; greedy prefixes "
+        f"{stats['greedy_equal_prefix']} of {_OFF_TOKENS}")
+    torch.cuda.synchronize()
+    launches = {name: getattr(*_counter(name)) for name in _P14_KERNELS}
+    log(f"{label}: launches {launches}")
+    stats["exact"] = _offload_exact(label)
+    stats["phase_s"] = time.perf_counter() - t_leg
+    return launches, stats
+
+
+def _offload_exact(label) -> dict:
+    """``tiny-llama-real`` in fp32 and with int8 KV (``tests/test_host_offload.py``'s
+    pair: two sequences overrunning a 9-page pool, the tier on) on the
+    card and on the CPU: tokens equal, logprobs within 2e-3 (for int8 KV
+    the CPU engine's same run, ROADMAP queue 3), a restore on both."""
+    import torch
+
+    from kaito_tpu_torch.engine.config import EngineConfig
+    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+
+    res = {}
+    for kv in ("float32", "int8"):
+        cfg = EngineConfig(model="tiny-llama-real",
+                           weights_dir=os.path.join(REPO, "checkpoints", "tiny-llama-real"),
+                           max_model_len=256, page_size=16, max_num_seqs=2, max_pages=10,
+                           dtype="float32", kv_dtype=kv, prefill_buckets=(32, 64, 128),
+                           seed=0, enable_prefix_caching=False,
+                           host_kv_offload_bytes=256 << 20)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            eng = InferenceEngine(cfg, device=dev)
+            reqs = [eng.submit([40, 41, 42] * 11, SamplingParams(
+                        max_tokens=100, temperature=0.0, ignore_eos=True, logprobs=True)),
+                    eng.submit([50, 51, 52] * 11, SamplingParams(
+                        max_tokens=40, temperature=0.0, ignore_eos=True, logprobs=True))]
+            for _ in range(4000):
+                eng.step()
+                if all(r.finish_reason for r in reqs):
+                    break
+            if eng.counters["host_kv_restored_pages_total"] < 1:
+                raise SmokeFailure(f"{label}, exact {kv}: no restore on {dev}")
+            runs[dev] = ([list(r.output_tokens) for r in reqs],
+                         [[float(x) for x in r.output_logprobs] for r in reqs])
+            del eng
+        (ct, cl), (pt, pl) = runs["cuda"], runs["cpu"]
+        diff = max(abs(x - y) for a, b in zip(cl, pl) for x, y in zip(a, b))
+        if ct != pt or diff > 2e-3:
+            raise SmokeFailure(f"{label}, exact {kv}: card {ct} / CPU {pt}, logprob "
+                               f"diff {diff}")
+        res[kv] = dict(tokens_equal=True, max_logprob_diff=diff)
+        log(f"{label}, exact tiny-llama-real {kv} KV: card = CPU token for token "
+            f"across a spill and a restore, logprobs within {diff:.2e}")
+    _release_card(torch)
+    return res
+
+
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
 _LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
@@ -4791,16 +5429,17 @@ LEGS = (("bf16", "phase 4, bf16", _LLAMA, [],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
          True, 1, None, ()),
         # TP >= 2 decodes eagerly (ROADMAP item 35), 5600-9100 host launches
-        # a step at 32 layers: the TP legs keep every width and 8 layers,
-        # which keeps the whole run well inside its time limit
+        # a step at 32 layers: the TP legs keep every width and 4 layers
+        # (and profile 4 decode steps), which keeps the whole run well
+        # inside its time limit
         ("tp2-int4-kv8", "phase 6, TP=2 int4 weights + int8 KV, comm overlap "
-         "(8 of 32 layers)", _LLAMA,
+         "(4 of 32 layers)", _LLAMA,
          ["--quantization", "int4", "--kv-cache-dtype", "int8", *_TP2],
          ("quant_matmul_int4_pf", "quant_matmul_int4", "paged_decode_attention_int8kv",
-          "flash_prefill_attention", "flash_prefill_packed"), True, 2, 8, ()),
-        ("tp2-int8", "phase 6, TP=2 int8 weights, comm overlap (8 of 32 layers)",
+          "flash_prefill_attention", "flash_prefill_packed"), True, 2, 4, ()),
+        ("tp2-int8", "phase 6, TP=2 int8 weights, comm overlap (4 of 32 layers)",
          _LLAMA, ["--quantization", "int8", *_TP2],
-         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2, 8, ()),
+         ("quant_matmul_int8_pf", "paged_decode_attention"), False, 2, 4, ()),
         ("moe-bf16", "phase 7, gpt-oss-20b MoE, bf16", _GPT_OSS, [],
          ("paged_decode_attention", "flash_prefill_attention", "flash_prefill_packed"),
          True, 1, None, ()),
@@ -4843,7 +5482,8 @@ def main(argv=None) -> int:
                          "phase 4's bf16 one; no result line")
     ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [
                         QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0], ADAPTER_LEG[0],
-                        ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0]],
+                        ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0],
+                        DEVPROF_LEG[0], OFFLOAD_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -5035,6 +5675,27 @@ def main(argv=None) -> int:
             if args.leg in (None, FAMILIES_EXACT_LEG[0]) and not args.first_leg_only:
                 name, label = FAMILIES_EXACT_LEG
                 stats[label] = run_families_exact_phase(label)
+            params14 = None
+            for leg, must in ((DEVPROF_LEG, ("paged_decode_attention",
+                                             "flash_prefill_attention")),
+                              (OFFLOAD_LEG, ("paged_decode_attention",
+                                             "flash_prefill_attention"))):
+                if args.leg not in (None, leg[0]) or args.first_leg_only:
+                    continue
+                name, label = leg
+                if leg is DEVPROF_LEG:
+                    launches, stats[label], params14 = run_devprof_phase(label)
+                else:
+                    launches, stats[label] = run_offload_phase(label, params14)
+                    params14 = None
+                _release_card(torch)
+                for kname in must:
+                    if launches[kname] <= 0:
+                        raise SmokeFailure(f"{kname} never launched in {label}")
+                if not alone:
+                    for kname, n in launches.items():
+                        records[kname].setdefault("launches_by_leg", {})[label] = n
+                log(f"{label} on {card}: {stats[label]['phase_s']:.1f} s")
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

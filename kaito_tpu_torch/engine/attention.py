@@ -25,9 +25,15 @@ from typing import Optional
 
 import torch
 
+from kaito_tpu_torch.engine.devprof import named_scope
 from kaito_tpu_torch.engine.kv_cache import dequantize_pages
 
 NEG_INF = -1e30
+
+# every attention entry point runs inside the profiler's "attention"
+# range, as the JAX package's run under named_scope("attention"): a
+# kernel launched there is bucketed as attention whatever its name
+_scoped = named_scope("attention")
 
 
 def _gqa_expand(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -65,6 +71,7 @@ def _attend(q, k, v, mask, scale, logit_softcap):
     return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
 
 
+@_scoped
 def prefill_attention(
     q: torch.Tensor,            # [B, T, H, D]
     k: torch.Tensor,            # [B, T, Hkv, D]
@@ -90,6 +97,7 @@ def prefill_attention(
                    scale, logit_softcap)
 
 
+@_scoped
 def packed_prefill_attention(
     q: torch.Tensor,            # [B, T, H, D]
     k: torch.Tensor,            # [B, T, Hkv, D]
@@ -124,6 +132,7 @@ def history_pages(page_tables: torch.Tensor, start_pos: torch.Tensor,
     return page_tables[:, :max(1, min(page_tables.shape[1], -(-end // page_size)))]
 
 
+@_scoped
 def paged_context_attention(
     q: torch.Tensor,            # [B, T, H, D] chunk queries
     cache_k: torch.Tensor,      # [P, ps, Hkv, D] (chunk KV already written)
@@ -169,6 +178,7 @@ def paged_context_attention(
                    scale, logit_softcap)
 
 
+@_scoped
 def paged_decode_attention(
     q: torch.Tensor,            # [B, H, D] (one new token per sequence)
     cache_k: torch.Tensor,      # [num_pages, page_size, Hkv, D]
@@ -218,6 +228,7 @@ def paged_decode_attention(
 # MLA (DeepSeek-style latent attention)
 # ---------------------------------------------------------------------------
 
+@_scoped
 def mla_prefill_attention(
     q_nope: torch.Tensor,       # [B, T, H, dn]
     q_rope: torch.Tensor,       # [B, T, H, dr] (roped)
@@ -266,6 +277,7 @@ def _latent_pages(cache_latent: torch.Tensor, page_tables: torch.Tensor,
     return lat[..., :kv_lora_rank], lat[..., kv_lora_rank:]
 
 
+@_scoped
 def mla_paged_context_attention(
     q_nope: torch.Tensor,        # [B, T, H, dn] chunk queries
     q_rope: torch.Tensor,        # [B, T, H, dr] (roped)
@@ -310,6 +322,7 @@ def mla_paged_context_attention(
     return out.to(q_nope.dtype)
 
 
+@_scoped
 def mla_paged_decode_attention(
     q_nope: torch.Tensor,        # [B, H, dn]
     q_rope: torch.Tensor,        # [B, H, dr]

@@ -217,7 +217,7 @@ class EngineConfig:
     # sampled device-time attribution (engine/devprof.py).  0 = off —
     # no sampler thread, no kaito:device_* families, /debug/device 403,
     # byte-identical exposition.  >0 captures a devprof_window_s
-    # jax.profiler window every devprof_interval_s and folds it into
+    # torch.profiler window every devprof_interval_s and folds it into
     # comm/compute/idle buckets + per-phase device metrics.
     devprof_interval_s: float = 0.0
     devprof_window_s: float = 0.25       # capture length per sample

@@ -84,10 +84,18 @@ the base weights on a model with no sites (MLA).  Adapter requests
 never share prefix-cache pages, fresh prompts pack per adapter, and the
 decode and verify windows take each row's lane (``slot_adapters``) as an
 input; a window with no adapter row runs the base graph.
+The host-RAM KV tier (``host_kv_offload_bytes``, ``engine.host_offload``):
+a sequence preempted to be resumed spills its written pages to pinned
+host memory, and its re-admission copies them back into freshly
+acquired, exclusive pages of the same pool tensors (the captured windows
+keep their pointers) and resumes decoding with no prefill; an entry the
+tier dropped resumes by recompute.  The sampling device profiler
+(``devprof_interval_s``, ``engine.devprof``): the engine thread opens and
+closes each ``torch.profiler`` window at a step boundary, and every
+dispatch runs inside its ``kaito/<phase>`` range.
 Not ported yet, and rejected at construction with the ROADMAP item that
-carries them: pipeline, data,
-sequence and expert parallelism, the KV pool, host offload and P/D, and
-the device profiler.
+carries them: pipeline, data, sequence and expert parallelism, the KV
+pool and P/D.
 """
 
 from __future__ import annotations
@@ -111,7 +119,9 @@ from kaito_tpu_torch.engine.adapters import (apply_adapters_to_params,
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.decode_graph import (DecodeWindow, TraceReadback,
                                                  run_steps)
+from kaito_tpu_torch.engine.devprof import DeviceProfiler, phase_scope, roofline
 from kaito_tpu_torch.engine.grammar import GrammarCache, GrammarSlot, GrammarTable
+from kaito_tpu_torch.engine.host_offload import HostKVPool, gather_pages, scatter_pages
 from kaito_tpu_torch.engine.kv_cache import (NULL_PAGE, create_kv_cache,
                                              create_sharded_kv_cache,
                                              kv_bytes, kv_cache_is_quantized,
@@ -161,13 +171,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 _UNPORTED = (
     ("kv_pool_enabled", bool, "queue 1, M18 KV movement"),
     ("kv_pool_disk_bytes", bool, "queue 1, M18 KV movement"),
-    ("host_kv_offload_bytes", bool, "queue 1, M18 KV movement"),
     ("pd_enabled", bool, "queue 1, M18 KV movement"),
     ("pipeline_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("data_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("sequence_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("expert_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
-    ("devprof_interval_s", bool, "queue 1, M20 device profiling"),
 )
 
 
@@ -507,6 +515,13 @@ class InferenceEngine:
         self.allocator = self.prefix_cache or PageAllocator(num_pages)
         # a single sequence can never outgrow the whole pool
         self._capacity_tokens = (num_pages - 1) * cfg.page_size
+        # the host-RAM KV tier: preempted sequences spill here and resume
+        # by restore instead of recompute
+        self.host_kv: Optional[HostKVPool] = None
+        if cfg.host_kv_offload_bytes > 0:
+            self.host_kv = HostKVPool(cfg.host_kv_offload_bytes)
+            logger.info("host KV offload tier: %.2f GiB",
+                        cfg.host_kv_offload_bytes / 2**30)
 
         S = cfg.max_num_seqs
         self.slots = [_Slot() for _ in range(S)]
@@ -585,6 +600,8 @@ class InferenceEngine:
             "prefix_cache_misses_total": 0,
             "requests_expired_total": 0,
             "requests_shed_total": 0,       # 429s (bumped by the server)
+            "host_kv_spilled_pages_total": 0,
+            "host_kv_restored_pages_total": 0,
             # speculation: the three spec_* totals are the n-gram
             # proposer's, the spec_draft_* ones the draft model's
             "spec_steps_total": 0,
@@ -688,6 +705,19 @@ class InferenceEngine:
                          0.01, 0.025, 0.05, 0.1, 0.25))
             logger.info("async decode dispatch enabled (two-deep pipeline, "
                         "device-resident loop state)")
+        # sampled device-time attribution.  Off by default: no sampler
+        # thread, no kaito:device_* families, /debug/device 403
+        self.devprof: Optional[DeviceProfiler] = None
+        if cfg.devprof_interval_s > 0:
+            self.devprof = DeviceProfiler(
+                interval_s=cfg.devprof_interval_s, window_s=cfg.devprof_window_s,
+                ring=cfg.devprof_ring, roofline=self._devprof_roofline(),
+                tokens_fn=lambda: self.counters["generation_tokens_total"],
+                cuda=self.device.type == "cuda",
+                captures_fn=lambda: sum(n for k, n in self.counters.items()
+                                        if k.endswith("_captures_total")))
+            logger.info("device profiler enabled: %.3gs window every %.3gs",
+                        self.devprof.window_s, self.devprof.interval_s)
 
     # ------------------------------------------------------------------
     # Construction helpers
@@ -738,6 +768,16 @@ class InferenceEngine:
                 self.model.load_params(apply_adapters_to_params(
                     self.model, self.model.param_tree(), cfg.adapters_dir))
                 self.adapters_merged = True
+
+    def _devprof_roofline(self) -> dict:
+        """The card's peaks and the model's weight stream for devprof's
+        achieved-vs-peak window rates (no per-sequence KV term: the
+        batch changes mid-window, so the weights are the stable lower
+        bound).  A CPU engine, or a card the peak table lacks, gets 0
+        peaks."""
+        card = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "")
+        return roofline(card, self.cfg.quantization, self.md.arch.param_count())
 
     def _resolve_comm_overlap(self) -> bool:
         """The collective-compute overlap gate (``cfg.comm_overlap``; None
@@ -1000,11 +1040,18 @@ class InferenceEngine:
         return self.tokenizer.decode(list(req.stream()))
 
     def start(self):
+        if self.devprof is not None:
+            # the engine thread opens and closes the sampler's windows;
+            # the profiler's first start (seconds) runs before it does
+            self.devprof.attached = True
+            self.devprof.start()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="engine-loop")
         self._thread.start()
 
     def stop(self):
+        if self.devprof is not None:
+            self.devprof.stop()
         self._stop.set()
         self._wake.set()
         if self._thread:
@@ -1024,7 +1071,10 @@ class InferenceEngine:
     def _loop(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        dp = self.devprof
         while not self._stop.is_set():
+            if dp is not None:
+                dp.at_step_boundary()
             self._run_jobs()
             try:
                 did_work = self.step()
@@ -1037,6 +1087,8 @@ class InferenceEngine:
             if not did_work:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
+        if dp is not None:
+            dp.at_step_boundary(closing=True)
 
     def _pop_waiting(self) -> Optional[Request]:
         with self._lock:
@@ -1140,6 +1192,8 @@ class InferenceEngine:
         if req.error is None:
             req.error = {"status": 500, "type": "internal_error",
                          "message": f"request {req.req_id} failed in the engine"}
+        if self.host_kv is not None:
+            self.host_kv.discard(req.req_id)
         self.counters["requests_failed_total"] += 1
         self._finish_trace(req)
         req.out.put(None)
@@ -1153,6 +1207,8 @@ class InferenceEngine:
             req.error = {"status": 408, "type": "deadline_exceeded",
                          "message": f"request {req.req_id} exceeded its "
                                     f"deadline before completing"}
+        if self.host_kv is not None:
+            self.host_kv.discard(req.req_id)
         self.counters["requests_expired_total"] += 1
         self._finish_trace(req)
         req.out.put(None)
@@ -1399,6 +1455,8 @@ class InferenceEngine:
             if req is None:
                 return admitted
             if req.aborted:
+                if self.host_kv is not None:
+                    self.host_kv.discard(req.req_id)
                 req.finish_reason = req.finish_reason or "abort"
                 req.out.put(None)
                 admitted = True
@@ -1453,6 +1511,7 @@ class InferenceEngine:
         n = len(tokens)
         ps = self.cfg.page_size
         pages_needed = -(-(n + 1) // ps)
+        has_spill = self.host_kv is not None and self.host_kv.has(req.req_id)
         # one page of headroom per decoding slot, so an admission does
         # not trigger immediate grow-preempt churn; under QoS a higher
         # class evicts lower-class sequences for room (each eviction
@@ -1463,10 +1522,11 @@ class InferenceEngine:
                 return False
         shared = cached = 0
         if self.prefix_cache is not None:
-            # an adapter's KV carries its k/v deltas: its pages are
-            # exclusive (an empty-token acquire shares nothing), never
-            # matched and never committed
-            res = self.prefix_cache.acquire([] if req.adapter else tokens, n + 1)
+            # an adapter's KV carries its k/v deltas, and a spilled
+            # sequence restores its host pages over its slot's: their
+            # pages are exclusive (an empty-token acquire shares nothing)
+            res = self.prefix_cache.acquire([] if req.adapter or has_spill else tokens,
+                                            n + 1)
             if res is None:
                 self._requeue_front(req)
                 return False
@@ -1527,6 +1587,9 @@ class InferenceEngine:
             self.prompt_seen[free_slot] = self._tensor(seen)
         if p.grammar is not None:
             self._install_grammar(free_slot, req)
+        if has_spill:
+            # resumed from host pages with no prefill, else recomputed
+            self._try_restore(req, free_slot)
         return True
 
     # ------------------------------------------------------------------
@@ -1670,6 +1733,7 @@ class InferenceEngine:
                 req.prompt_counted = True
             self._begin_decode(i, tok, n, first_lp=lp)
 
+    @phase_scope("prefill")
     def _dispatch_prefill_fresh(self, rows):
         """Fresh-complete prompts on the batch axis: tokens [B, bucket]."""
         bucket = self._bucket(max(n for (_, _, _, n) in rows))
@@ -1691,6 +1755,7 @@ class InferenceEngine:
         a = self.slot_adapters[idxs]
         return self._tensor(a) if a.any() else None
 
+    @phase_scope("prefill")
     def _dispatch_prefill_ctx(self, rows):
         """Chunks on the batch axis, each attending over its own paged
         history (earlier chunks + itself) from ``start_pos``."""
@@ -1710,6 +1775,7 @@ class InferenceEngine:
             adapter_ids=self._ids_tensor(idxs))
         return logits
 
+    @phase_scope("prefill_packed")
     def _dispatch_prefill_packed(self, rows):
         """Segment packing: S fresh prompts concatenated into ONE padded
         row with per-token segment ids, positions and page targets (for
@@ -1810,16 +1876,23 @@ class InferenceEngine:
 
     def _preempt_slot(self, victim: int):
         """Preempt a slot back to the front of the waiting queue; its
-        generated tokens become part of the prompt on resume."""
+        generated tokens become part of the prompt on resume.  With the
+        host tier, a sequence that will resume spills its written KV to
+        host RAM first, so its resume is a page restore, not a
+        recompute."""
         req = self.slots[victim].request
         logger.info("preempting %s (slot %d) to reclaim KV pages",
                     req.req_id, victim)
+        will_requeue = len(req.resume_tokens()) + 1 <= self._capacity_tokens
+        if will_requeue:
+            # a length-capped sequence would leak a maximal host entry
+            self._spill_slot(victim)
         req.preemptions += 1
         self.counters["preemptions_total"] += 1
         self.tracer.record("preempt", req.trace_id, time.monotonic(), 0.0,
                            slot=victim)
         self._evict_slot(victim, commit=True)
-        if len(req.resume_tokens()) + 1 > self._capacity_tokens:
+        if not will_requeue:
             # the sequence already fills the whole pool and cannot be
             # re-admitted; every token was emitted — finish at the cap
             req.finish_reason = "length"
@@ -1829,6 +1902,99 @@ class InferenceEngine:
             self.counters["requests_finished_total"] += 1
             return
         self._requeue_front(req)
+
+    def _shard_caches(self) -> list:
+        """The page pools of every shard (one without a mesh)."""
+        return self.cache if isinstance(self.cache, list) else [self.cache]
+
+    def _spill_slot(self, slot_idx: int) -> None:
+        """Copy a decoding slot's written KV pages into the host pool
+        (device-to-host, not waited for) ahead of its eviction; no-op
+        when the tier is off or the slot is mid-prefill.  Each shard of a
+        tensor-parallel pool spills its own pages."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        if self.host_kv is None or slot.prefilling:
+            return
+        written = slot.position
+        n_pages = -(-written // self.cfg.page_size)
+        if n_pages < 1:
+            return
+        # ids padded to a power of two onto the null page (whose content
+        # is garbage by design), as the JAX engine pads its gathers
+        ids = np.zeros((1 << (n_pages - 1).bit_length(),), np.int64)
+        ids[:n_pages] = slot.pages[:n_pages]
+        t0 = time.monotonic()
+        try:
+            k, v, ks, vs = [], [], [], []
+            for c in self._shard_caches():
+                idx = torch.from_numpy(ids).to(c.k.device)
+                pk, pv = gather_pages(c.k, c.v, idx)
+                k.append(pk)
+                v.append(pv)
+                if c.k_scale is not None:
+                    sk, sv = gather_pages(c.k_scale, c.v_scale, idx)
+                    ks.append(sk)
+                    vs.append(sv)
+            stored = self.host_kv.put(req.req_id, k, v, written,
+                                      k_scale=ks or None, v_scale=vs or None)
+            self.tracer.record("kv.spill", req.trace_id, t0, time.monotonic() - t0,
+                               pages=n_pages, stored=stored)
+            if stored:
+                self.counters["host_kv_spilled_pages_total"] += n_pages
+            # else: the entry can never fit; resume recomputes
+        except Exception:
+            # the spill is an optimization: a failed copy must not take
+            # the request (or the engine) with it; resume recomputes
+            logger.exception("host-KV spill failed for %s; resume will "
+                             "recompute", req.req_id)
+            self.host_kv.discard(req.req_id)
+
+    def _try_restore(self, req: Request, free_slot: int) -> bool:
+        """Resume a spilled sequence by copying its host pages into the
+        slot's freshly acquired pages, in place (the pool tensors, whose
+        addresses every captured window and verify graph holds, are
+        never replaced), and start decoding where it left off: its
+        pending input is its last emitted token, whose KV the next
+        decode step writes.  False (the slot then prefills) when the
+        entry was dropped or is stale."""
+        entry = self.host_kv.pop(req.req_id)
+        if entry is None:
+            return False
+        slot = self.slots[free_slot]
+        ps = self.cfg.page_size
+        n_pages = -(-entry.written // ps)
+        if len(slot.pages) < n_pages or entry.written != len(req.resume_tokens()) - 1:
+            return False
+        ids = np.zeros((entry.n_pages,), np.int64)
+        ids[:n_pages] = slot.pages[:n_pages]
+        t0 = time.monotonic()
+        for j, c in enumerate(self._shard_caches()):
+            idx = torch.from_numpy(ids).to(c.k.device)
+            scatter_pages(c.k, c.v, idx, entry.k[j], entry.v[j], entry.events[j])
+            if entry.k_scale is not None and c.k_scale is not None:
+                scatter_pages(c.k_scale, c.v_scale, idx, entry.k_scale[j],
+                              entry.v_scale[j])
+        self.tracer.record("kv.restore", req.trace_id, t0, time.monotonic() - t0,
+                           pages=n_pages)
+        self.counters["host_kv_restored_pages_total"] += n_pages
+        slot.prefilling = False
+        slot.prefill_tokens = []
+        slot.position = entry.written
+        slot.remaining = min(req.params.max_tokens - len(req.output_tokens),
+                             self.cfg.max_model_len - entry.written,
+                             self._capacity_tokens - entry.written)
+        self.positions[free_slot] = entry.written
+        self.active[free_slot] = True
+        self.last_tokens[free_slot] = req.output_tokens[-1]
+        self._remaining[free_slot] = slot.remaining
+        self._batch_epoch += 1
+        self._mark_state_dirty("positions", "active", "last_tokens", "left")
+        if self._gram_slots[free_slot] is not None:
+            self._mark_state_dirty("gstate")
+        logger.debug("restored %s: %d pages, resuming at %d", req.req_id,
+                     n_pages, entry.written)
+        return True
 
     def _newest_slot(self, below_priority: Optional[int] = None) -> Optional[int]:
         """Preemption victim.  QoS off: the newest-admitted sequence.
@@ -2081,6 +2247,7 @@ class InferenceEngine:
             self.token_counts[rows, nxt.long()] += act.to(torch.int32)
         return nxt, lp
 
+    @phase_scope("decode")
     def _decode_once(self):
         if self.window is not None:
             self._decode_window(1)
@@ -2168,6 +2335,7 @@ class InferenceEngine:
         self._stop_cache = (self._batch_epoch, dev)
         return dev
 
+    @phase_scope("decode")
     def _decode_multi(self, K: int):
         """K decode steps in one window: sampling, stop detection and
         budgets on the device (a slot that stops goes inactive and
@@ -2226,6 +2394,7 @@ class InferenceEngine:
         self.counters["decode_windows_total"] += 1
         return (K, rb), n
 
+    @phase_scope("decode")
     def _decode_window(self, K: int) -> None:
         """The synchronous loop's window: every field from the host
         mirrors, then the trace replayed on the host."""
@@ -2280,6 +2449,7 @@ class InferenceEngine:
                 return True
         return False
 
+    @phase_scope("decode")
     def _decode_async(self, K: int) -> None:
         """Dispatch one K-step window from the device-resident loop state
         (uploading only what the host dirtied) and enqueue its readback;
@@ -2704,5 +2874,7 @@ class InferenceEngine:
             req.finish_time = time.monotonic()
             self._finish_trace(req)
             req.out.put(None)
+            if self.host_kv is not None:
+                self.host_kv.discard(req.req_id)
             self._evict_slot(slot_idx, commit=True)
             self.counters["requests_finished_total"] += 1

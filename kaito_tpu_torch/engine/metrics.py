@@ -282,13 +282,14 @@ def _counter_fn(engine, key: str):
 class EngineMetrics:
     """The engine's metric families (names mirror vLLM's so the KEDA
     scaler/EPP configs translate 1:1).  The features the port has not
-    ported yet (the host KV tier, P/D) keep their families
-    at the values the JAX server reads with them off: the engine's
-    counters, absent until a later slice adds them, read 0.  The
-    per-tenant families exist only with a QoS config (``qos``), the ITL
-    ones only with the engine's ITL recorder on, the ``kaito:adapter_*``
-    ones only with the adapter cache on (or a boot-time refusal
-    counted)."""
+    ported yet (P/D) keep their families at the values the JAX server
+    reads with them off: the engine's counters, absent until a later
+    slice adds them, read 0; the host KV tier's read 0 with the tier
+    off.  The per-tenant families exist only with a QoS config
+    (``qos``), the ITL ones only with the engine's ITL recorder on, the
+    ``kaito:adapter_*`` ones only with the adapter cache on (or a
+    boot-time refusal counted), the ``kaito:device_*`` ones only with
+    the device profiler on."""
 
     def __init__(self, engine=None, qos=None):
         self.registry = Registry()
@@ -406,19 +407,24 @@ class EngineMetrics:
                  "KV pages restored from the host offload tier",
                  "host_kv_restored_pages_total")):
             Gauge(f"kaito:{name}", help_, r, fn=_counter_fn(engine, key))
-        # the host KV offload tier (ROADMAP M18) is not ported: these
-        # read as the JAX server's do with the tier off
-        for name, help_ in (
-                ("host_kv_bytes_used", "Bytes held by the host KV offload tier"),
+        # the host KV offload tier: 0 with the tier off
+        def host_kv(read):
+            return lambda: (read(engine.host_kv)
+                            if getattr(engine, "host_kv", None) is not None else 0)
+
+        for name, help_, read in (
+                ("host_kv_bytes_used", "Bytes held by the host KV offload tier",
+                 lambda p: p.used_bytes),
                 ("host_kv_entries",
-                 "Sequences parked in the host KV offload tier"),
+                 "Sequences parked in the host KV offload tier", len),
                 ("host_kv_hits_total",
-                 "Host KV offload pops that found the sequence"),
+                 "Host KV offload pops that found the sequence", lambda p: p.hits),
                 ("host_kv_misses_total",
-                 "Host KV offload pops that came up empty"),
+                 "Host KV offload pops that came up empty", lambda p: p.misses),
                 ("host_kv_evictions_total",
-                 "Entries LRU-evicted from the host KV offload tier")):
-            Gauge(f"kaito:{name}", help_, r, fn=lambda: 0)
+                 "Entries LRU-evicted from the host KV offload tier",
+                 lambda p: p.evicted_entries)):
+            Gauge(f"kaito:{name}", help_, r, fn=host_kv(read))
         if engine.async_dispatch:
             # the family exists only with the async loop on, like the
             # dispatch-gap histogram above
@@ -426,6 +432,49 @@ class EngineMetrics:
                   "Loop-state arrays uploaded host-to-device at "
                   "decode dispatch (~zero per dispatch in steady "
                   "state)", r, fn=_counter_fn(engine, "h2d_uploads_total"))
+        if getattr(engine, "devprof", None) is not None:
+            # sampled device-time attribution (engine/devprof.py): the
+            # families exist only with devprof_interval_s > 0, and read
+            # the last window (0.0 before the first one lands)
+            dp = engine.devprof
+            r.register(dp.capture_hist)
+            Gauge("kaito:device_bucket_pct",
+                  "Share of device wall in each op class for the last sampled "
+                  "window (buckets + idle sum to 100)", r, labels=("bucket",),
+                  fn=dp.bucket_pct)
+            Gauge("kaito:device_phase_pct",
+                  "Share of device wall attributed to each engine phase "
+                  "(kaito/<phase>)", r, labels=("phase",), fn=dp.phase_pct)
+            Gauge("kaito:device_comm_pct",
+                  "Collective share of device wall, last window", r,
+                  fn=dp.comm_pct)
+            Gauge("kaito:device_comm_compute_overlap_pct",
+                  "Share of collective time co-scheduled with compute on "
+                  "another unit (hidden, not serialized)", r, fn=dp.overlap_pct)
+            Gauge("kaito:device_copy_overlap_pct",
+                  "Share of copy/DMA time overlapped with other work", r,
+                  fn=dp.copy_overlap_pct)
+            Gauge("kaito:device_idle_pct", "Idle share of device wall, last window",
+                  r, fn=dp.idle_pct)
+            Gauge("kaito:device_phase_attributed_pct",
+                  "Share of busy device time carrying a kaito/* phase marker", r,
+                  fn=lambda: dp._lastval("phase_attributed_pct"))
+            Gauge("kaito:device_matmul_pct_of_peak_flops",
+                  "Window decode throughput vs the card's peak FLOPs "
+                  "(windowed mfu_pct)", r,
+                  fn=lambda: dp._lastval("matmul_pct_of_peak_flops"))
+            Gauge("kaito:device_hbm_pct_of_peak",
+                  "Window weight-stream bandwidth vs the card's peak memory "
+                  "bandwidth", r, fn=lambda: dp._lastval("hbm_pct_of_peak"))
+            Gauge("kaito:device_windows_total",
+                  "Devprof windows captured and parsed", r,
+                  fn=lambda: dp.windows_total)
+            Gauge("kaito:device_windows_skipped_total",
+                  "Devprof windows skipped (manual profile active or profiler "
+                  "refused)", r, fn=lambda: dp.windows_skipped)
+            Gauge("kaito:device_window_errors_total",
+                  "Devprof windows whose trace failed to parse", r,
+                  fn=lambda: dp.parse_errors)
         if getattr(engine, "adapter_cache", None) is not None:
             # the multi-LoRA cache: the families exist only with it on,
             # so a server without adapter config exposes what it did

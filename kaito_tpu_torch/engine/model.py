@@ -56,6 +56,7 @@ from torch import nn as tnn
 from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine import attention as attn
 from kaito_tpu_torch.engine import nn
+from kaito_tpu_torch.engine.devprof import profiler_range
 from kaito_tpu_torch.engine.kv_cache import (
     KVCache, write_decode_tokens, write_decode_tokens_q,
     write_packed_prefill_tokens, write_packed_prefill_tokens_q,
@@ -771,9 +772,10 @@ class TransformerLM(tnn.Module):
         if mode == "score":
             # the cache-less forward of prompt scoring: the fresh row
             # attends over itself and writes no page
-            out = flash_prefill_attention_cuda(q, k_new, v_new, true_lens, win,
-                                               scale=self._scale,
-                                               softcap=a.attn_logit_softcap)
+            with profiler_range("attention"):
+                out = flash_prefill_attention_cuda(q, k_new, v_new, true_lens, win,
+                                                   scale=self._scale,
+                                                   softcap=a.attn_logit_softcap)
             return out.reshape(B, T, a.num_heads * a.head_dim)
         ck, cv = cache.k, cache.v
         ks, vs = cache.k_scale, cache.v_scale      # None unless int8 pools
@@ -791,9 +793,10 @@ class TransformerLM(tnn.Module):
             else:
                 write_packed_prefill_tokens(ck, k_new, tok_pages, offsets, layer=li)
                 write_packed_prefill_tokens(cv, v_new, tok_pages, offsets, layer=li)
-            out = flash_prefill_packed_cuda(
-                q, k_new, v_new, seg_ids, positions, win,
-                scale=self._scale, softcap=softcap)
+            with profiler_range("attention"):
+                out = flash_prefill_packed_cuda(
+                    q, k_new, v_new, seg_ids, positions, win,
+                    scale=self._scale, softcap=softcap)
         elif mode == "prefill":
             start = (start_pos if start_pos is not None
                      else torch.zeros((B,), dtype=torch.int32, device=h.device))
@@ -814,9 +817,10 @@ class TransformerLM(tnn.Module):
                     sliding_window=window, logit_softcap=softcap, layer=li,
                     k_scale=ks, v_scale=vs)
             else:
-                out = flash_prefill_attention_cuda(
-                    q, k_new, v_new, true_lens, win, scale=self._scale,
-                    softcap=softcap)
+                with profiler_range("attention"):
+                    out = flash_prefill_attention_cuda(
+                        q, k_new, v_new, true_lens, win, scale=self._scale,
+                        softcap=softcap)
         else:
             pos0 = positions[:, 0]
             if ks is not None:
@@ -829,10 +833,11 @@ class TransformerLM(tnn.Module):
                                     layer=li)
                 write_decode_tokens(cv, v_new[:, 0], page_tables, pos0, ps, active,
                                     layer=li)
-            out = paged_decode_attention_cuda(
-                q[:, 0], ck, cv, page_tables, lengths, win,
-                scale=self._scale, softcap=softcap, layer=li,
-                k_scale=ks, v_scale=vs)[:, None]
+            with profiler_range("attention"):
+                out = paged_decode_attention_cuda(
+                    q[:, 0], ck, cv, page_tables, lengths, win,
+                    scale=self._scale, softcap=softcap, layer=li,
+                    k_scale=ks, v_scale=vs)[:, None]
         return out.reshape(B, T, a.num_heads * a.head_dim)
 
     def _mla_attention(self, h, p, cache: KVCache, li: int, mode: str, *,

@@ -53,8 +53,19 @@ for a refused load, 404 for an unknown name.  Sources are local
 directories (``path://`` or a bare path) and ``oras://`` pulls; a
 ``hub://`` pull needs the hub fetcher, which is not ported yet.
 
-Not ported yet: ``/debug/device``, P/D and ``kv_transfer``, the KV pool
-and the profiler routes.  They answer 501.
+Device profiling: with ``--devprof-interval-s`` > 0 the engine samples
+a ``--devprof-window-s`` torch.profiler window at that cadence;
+``/debug/device`` answers its snapshot (the last window's buckets and
+phases and the ring of recent windows; 403 with sampling off) and the
+``kaito:device_*`` families appear on ``/metrics``.  ``/start_profile``
+(optional body ``{"seconds": N}``: stop after N seconds) and
+``/stop_profile`` take a trace on the engine thread and write it as a
+chrome trace under ``KAITO_PROFILE_DIR``; a second start, or a stop with
+none running, answers 409.  The host KV tier takes
+``--kaito-kv-cache-cpu-memory-utilization`` (``KAITO_KV_CPU_MEM_UTIL``):
+the fraction of the host's RAM that preempted sequences spill to.
+
+Not ported yet: P/D and ``kv_transfer``, the KV pool.  They answer 501.
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
 llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
@@ -73,6 +84,8 @@ import dataclasses
 import json
 import logging
 import os
+import tempfile
+import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -84,6 +97,7 @@ from kaito_tpu_torch.engine.adapter_cache import AdapterBusyError, AdapterLoadEr
 from kaito_tpu_torch.engine.adapters import discover_adapters
 from kaito_tpu_torch.engine.chat import render_chat
 from kaito_tpu_torch.engine.config import EngineConfig
+from kaito_tpu_torch.engine.devprof import ManualTrace
 from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
 from kaito_tpu_torch.engine.grammar import (GrammarError, GrammarSpec, canonical_schema,
                                             spec_from_response_format,
@@ -102,8 +116,8 @@ from kaito_tpu_torch.utils.tracing import (chrome_trace, make_request_id,
 logger = logging.getLogger(__name__)
 
 # routes of the JAX server that later slices port (ROADMAP queue 1)
-_UNPORTED_GET = ("/debug/device", "/debug/kv_pool", "/pd/", "/kv_pool/", "/ui")
-_UNPORTED_POST = ("/pd/", "/start_profile", "/stop_profile")
+_UNPORTED_GET = ("/debug/kv_pool", "/pd/", "/kv_pool/", "/ui")
+_UNPORTED_POST = ("/pd/",)
 
 # the 429's message for each shed reason of RateLimiter.shed_reason
 _SHED_MESSAGES = {
@@ -133,7 +147,8 @@ def token_surface_forms(tokenizer, ids, window: int = 8) -> list:
 class ServerState:
     """What the handlers share: the engine, one metrics registry holding
     the engine's, the rate limiter's and the SLO watchdog's families,
-    and the flight recorder (with ``cfg.flight_dir`` only)."""
+    the flight recorder (with ``cfg.flight_dir`` only) and the manual
+    profiler trace."""
 
     def __init__(self, engine: InferenceEngine, cfg: EngineConfig):
         self.engine = engine
@@ -189,6 +204,12 @@ class ServerState:
                   "Flight-recorder bundles written since process start",
                   self.metrics.registry,
                   fn=lambda: float(self.flight.bundles_total))
+        # /start_profile's trace, taken on the engine thread; the lock
+        # orders the routes' starts and stops with the auto-stop timer
+        self.trace = ManualTrace(engine._on_engine_thread,
+                                 cuda=engine.device.type == "cuda")
+        self.profile_lock = threading.Lock()
+        self.profile_timer: Optional[threading.Timer] = None
 
     def observe(self, req) -> None:
         """A finished request's latencies and tokens, into the metrics
@@ -206,6 +227,37 @@ class ServerState:
     def close(self) -> None:
         if self.flight_watcher is not None:
             self.flight_watcher.stop()
+        # a pending /start_profile auto-stop must not fire into a
+        # torn-down engine
+        timer, self.profile_timer = self.profile_timer, None
+        if timer is not None:
+            timer.cancel()
+
+    def stop_profile(self) -> str:
+        """Stop the manual trace (the lock held) and write it; returns
+        the file's path."""
+        timer, self.profile_timer = self.profile_timer, None
+        if timer is not None:
+            timer.cancel()
+        return self.trace.stop(profile_dir())
+
+    def auto_stop_profile(self) -> None:
+        """Timer target for ``/start_profile {"seconds": N}``: stop the
+        trace unless a manual ``/stop_profile`` already did."""
+        with self.profile_lock:
+            if not self.trace.active:
+                return
+            try:
+                logger.info("profiler trace auto-stopped -> %s", self.stop_profile())
+            except Exception:
+                logger.exception("profiler auto-stop failed")
+
+
+def profile_dir() -> str:
+    """Where ``/stop_profile`` writes its trace: ``KAITO_PROFILE_DIR``,
+    else ``kaito-profile`` in the temporary directory."""
+    return os.environ.get("KAITO_PROFILE_DIR",
+                          os.path.join(tempfile.gettempdir(), "kaito-profile"))
 
 
 class OpenAIHandler(BaseHTTPRequestHandler):
@@ -347,6 +399,8 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                        st.metrics.registry.expose().encode())
         elif self.path.startswith(_UNPORTED_GET):
             self._not_ported()
+        elif self.path.startswith("/debug/device"):
+            self._debug_device()
         elif self.path.startswith("/debug/trace"):
             # ?trace_id= filters to one request's span tree;
             # metadata.dropped counts ring-overflow evictions
@@ -373,6 +427,10 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             self._not_ported()
         elif self.path == "/v1/adapters":
             self._adapters_post()
+        elif self.path == "/start_profile":
+            self._profile(start=True)
+        elif self.path == "/stop_profile":
+            self._profile(start=False)
         elif self.path.startswith("/debug/flight"):
             self._flight_post()
         else:
@@ -384,6 +442,63 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             self._adapters_delete(self.path[len("/v1/adapters/"):])
         else:
             self._error(404, f"no route {self.path}")
+
+    # ---------------- device profiling ----------------
+
+    def _debug_device(self):
+        """The sampling profiler's snapshot: the last window's device
+        time by bucket and phase, and the ring.  403 when sampling is
+        off, so the devprof-off surface stays as it was."""
+        dp = self.state.engine.devprof
+        if dp is None:
+            return self._error(403, "device profiler disabled (--devprof-interval-s)")
+        self._json(200, dp.snapshot())
+
+    def _profile(self, start: bool):
+        """``/start_profile`` and ``/stop_profile``: a torch.profiler trace
+        taken on the engine thread, written under ``KAITO_PROFILE_DIR``.
+        A start with ``{"seconds": N}`` stops itself after N seconds."""
+        st = self.state
+        # the body is optional JSON; always consume it (an unread
+        # payload would desync the next request on keep-alive)
+        n = int(self.headers.get("Content-Length", "0") or 0)
+        raw = self.rfile.read(n) if n else b""
+        seconds = 0.0
+        if start and raw:
+            try:
+                seconds = float((json.loads(raw) or {}).get("seconds", 0))
+            except (ValueError, json.JSONDecodeError, AttributeError, TypeError):
+                return self._error(400, "invalid JSON body")
+            if seconds < 0:
+                return self._error(400, "'seconds' must be >= 0")
+        prof_dir = profile_dir()
+        with st.profile_lock:
+            try:
+                if start:
+                    if st.trace.active:
+                        return self._error(409, "profiler already running")
+                    st.trace.start()
+                    body = {"status": "started", "dir": prof_dir}
+                    if seconds:
+                        # a fire-and-forget client cannot leave the
+                        # process-wide profiler running forever
+                        timer = threading.Timer(seconds, st.auto_stop_profile)
+                        timer.daemon = True
+                        st.profile_timer = timer
+                        timer.start()
+                        body["auto_stop_seconds"] = seconds
+                        body["auto_stop_deadline"] = time.time() + seconds
+                    logger.info("profiler trace started -> %s%s", prof_dir,
+                                f" (auto-stop in {seconds:g}s)" if seconds else "")
+                    return self._json(200, body)
+                if not st.trace.active:
+                    return self._error(409, "profiler not running")
+                path = st.stop_profile()
+                logger.info("profiler trace stopped -> %s", path)
+                return self._json(200, {"status": "stopped", "dir": prof_dir,
+                                        "file": path})
+            except Exception as e:
+                return self._error(500, f"profiler error: {e}", "internal_error")
 
     # ---------------- multi-LoRA admin ----------------
 
@@ -1071,6 +1186,10 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     action="store_true", default=True)
     ap.add_argument("--no-enable-prefix-caching", dest="enable_prefix_caching",
                     action="store_false")
+    ap.add_argument("--kaito-kv-cache-cpu-memory-utilization", type=float,
+                    default=float(os.environ.get("KAITO_KV_CPU_MEM_UTIL", "0")),
+                    help="fraction of host RAM for the KV offload tier that "
+                         "preempted sequences spill to (0 disables)")
     ap.add_argument("--max-queue-len", type=int, default=256)
     ap.add_argument("--kaito-disable-rate-limit", action="store_true")
     ap.add_argument("--qos-config",
@@ -1094,6 +1213,16 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     default=float(os.environ.get("KAITO_SLO_ITL_P99_MS", "250")),
                     help="ITL p99 SLO target (ms); gaps beyond it count as "
                          "stalls and burn the itl_p99 budget")
+    ap.add_argument("--devprof-interval-s", type=float,
+                    default=float(os.environ.get("KAITO_DEVPROF_INTERVAL_S", "0")),
+                    help="sampled device-time attribution: capture a short "
+                         "torch.profiler window this often and fold it into "
+                         "op-class buckets and engine phases on /metrics and "
+                         "/debug/device (0 = off; off keeps the exposition as "
+                         "it is and /debug/device answers 403)")
+    ap.add_argument("--devprof-window-s", type=float,
+                    default=float(os.environ.get("KAITO_DEVPROF_WINDOW_S", "0.25")),
+                    help="capture length of each sampled devprof window")
     ap.add_argument("--slow-request-threshold-s", type=float, default=0.0,
                     help="dump a request's span tree to the log when its "
                          "end-to-end latency crosses this (0 = off)")
@@ -1180,6 +1309,9 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         max_prefill_tokens=args.max_prefill_tokens,
         prefill_pack=args.prefill_pack, decode_run_ahead=args.decode_run_ahead,
         enable_prefix_caching=args.enable_prefix_caching,
+        host_kv_offload_bytes=int(args.kaito_kv_cache_cpu_memory_utilization
+                                  * os.sysconf("SC_PAGE_SIZE")
+                                  * os.sysconf("SC_PHYS_PAGES")),
         max_queue_len=args.max_queue_len,
         disable_rate_limit=args.kaito_disable_rate_limit,
         qos_config=args.qos_config, request_timeout_s=args.request_timeout_s,
@@ -1190,6 +1322,8 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         grammar_cache_entries=args.grammar_cache_entries,
         grammar_max_states=args.grammar_max_states,
         flight_dir=args.flight_dir, flight_max_bundles=args.flight_max_bundles,
+        devprof_interval_s=args.devprof_interval_s,
+        devprof_window_s=args.devprof_window_s,
         seed=args.seed,
         tensor_parallel=args.tensor_parallel_size,
         pipeline_parallel=args.pipeline_parallel_size,

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from kaito_tpu_torch.engine.decode_graph import StaticGraphs
+from kaito_tpu_torch.engine.devprof import phase_scope
 from kaito_tpu_torch.engine.kv_cache import create_kv_cache
 from kaito_tpu_torch.engine.model import TransformerLM, greedy_targets
 from kaito_tpu_torch.engine.sampler import (accepted_prefix, categorical, fold_in,
@@ -353,6 +354,7 @@ class VerifyWindow(StaticGraphs):
         self._in("slot").fill_(self.draft.spare if self.draft is not None else 0)
         return lambda: buf.copy_(saved)
 
+    @phase_scope("verify")
     def run(self, host: np.ndarray, width: int, any_random: bool,
             grammar: Optional[tuple] = None, lora: bool = False) -> tuple:
         """One verify round from the packed host inputs (``layout``):
@@ -497,6 +499,7 @@ class DraftRunner:
 
     # -- catch-up prefill ----------------------------------------------
 
+    @phase_scope("draft")
     def sync(self, i: int, position: int, tokens_fn) -> bool:
         """Bring slot ``i``'s draft KV up to the target position (KV
         written for ``tokens[0:position]``), one chunk of at most the
@@ -573,6 +576,7 @@ class DraftRunner:
         active.zero_()
         return lambda: active.copy_(saved)
 
+    @phase_scope("draft")
     def propose(self, slot_map, last, positions, temps, active, k: int,
                 gstate=None, grammar: Optional[tuple] = None) -> None:
         """The k-step draft scan over the compact verify batch (``slot_map``

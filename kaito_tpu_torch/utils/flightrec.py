@@ -285,9 +285,8 @@ def engine_flight_snapshot(engine, slo=None, cfg=None) -> dict:
                              + max(0, len(spans) - _SPAN_CAP))
     body["timeline"] = (_safe(engine.timeline.records, fallback=[])
                         or [])[-_STEP_CAP:]
-    # the device profiler (ROADMAP M20) is not ported: the key reads
-    # as the JAX bundle's does with it off
-    body["devprof"] = None
+    dp = getattr(engine, "devprof", None)
+    body["devprof"] = _safe(dp.snapshot) if dp is not None else None
     body["queue"] = {
         "running": int(_safe(lambda: engine.num_running, fallback=0) or 0),
         "waiting": int(_safe(lambda: engine.num_waiting, fallback=0) or 0),

@@ -238,7 +238,7 @@ def test_submit_validates_input():
     ("sequence_parallel", 2, "M19"),
     ("expert_parallel", 2, "M19"),
     ("kv_pool_enabled", True, "M18"),
-    ("host_kv_offload_bytes", 1 << 20, "M18"),
+    ("kv_pool_disk_bytes", 1 << 20, "M18"),
     ("pd_enabled", True, "M18"),
 ])
 def test_unported_gates_raise(field, value, item):

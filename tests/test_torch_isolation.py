@@ -43,7 +43,8 @@ def test_sources_found():
                 "engine/rate_limit.py", "engine/spec.py", "engine/grammar.py",
                 "engine/parsers.py", "runtime/slo.py", "utils/tracing.py",
                 "utils/promtext.py", "utils/flightrec.py", "utils/msgpack.py",
-                "tuning/lora.py", "engine/adapters.py", "engine/adapter_cache.py"):
+                "tuning/lora.py", "engine/adapters.py", "engine/adapter_cache.py",
+                "engine/devprof.py", "engine/host_offload.py"):
         assert PKG / mod in SOURCES, mod
 
 

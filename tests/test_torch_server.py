@@ -132,11 +132,19 @@ def test_health_and_models(served):
     assert status == 200 and body["data"][0]["id"] == "tiny-llama-real"
 
 
-@pytest.mark.parametrize("path", ["/debug/device", "/pd/kv/x", "/debug/kv_pool"])
+@pytest.mark.parametrize("path", ["/pd/kv/x", "/debug/kv_pool"])
 def test_unported_routes_answer_501(served, path):
     _, base = served
     status, body = _get(base + path)
     assert status == 501 and body["error"]["type"] == "not_implemented"
+
+
+def test_debug_device_is_403_with_devprof_off(served):
+    """The JAX server's answer with sampling off (--devprof-interval-s 0)."""
+    eng, base = served
+    assert eng.devprof is None
+    status, body = _get(base + "/debug/device")
+    assert status == 403 and "--devprof-interval-s" in body["error"]["message"]
 
 
 @pytest.mark.parametrize("body,code", [

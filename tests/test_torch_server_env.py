@@ -7,6 +7,8 @@ stops it there, so both packages parse the same command line under the
 same environment and the configs' fields are compared one by one.
 """
 
+import os
+
 import pytest
 
 import kaito_tpu.engine.server as jax_server
@@ -26,10 +28,16 @@ ENV = {
     "KAITO_QUANTIZATION": ("int4", "quantization", "int4"),
     "KAITO_WEIGHTS_DIR": ("/models/x", "weights_dir", "/models/x"),
     "KAITO_PREFILL_PACK": ("3", "prefill_pack", 3),
+    "KAITO_DEVPROF_INTERVAL_S": ("2.5", "devprof_interval_s", 2.5),
+    "KAITO_DEVPROF_WINDOW_S": ("0.125", "devprof_window_s", 0.125),
+    "KAITO_KV_CPU_MEM_UTIL": ("0.25", "host_kv_offload_bytes",
+                              int(0.25 * os.sysconf("SC_PAGE_SIZE")
+                                  * os.sysconf("SC_PHYS_PAGES"))),
 }
 FIELDS = ("tensor_parallel", "pipeline_parallel", "expert_parallel", "data_parallel",
           "sequence_parallel", "kv_dtype", "quantization", "weights_dir",
-          "prefill_pack", "dtype")
+          "prefill_pack", "dtype", "devprof_interval_s", "devprof_window_s",
+          "host_kv_offload_bytes")
 ARGV = ["--model", "tiny-llama-test", "--dtype", "float32"]
 
 
