@@ -236,7 +236,7 @@ order; any failure exits non-zero and prints no result:
    answer ``tool_calls`` whose arguments parse, streamed as deltas that
    accumulate to them; ``auto`` answers, streamed and not; 400s, 422
    ``invalid_grammar_error`` for a regex past the state cap and an
-   unsupported schema, 501 for ``kv_transfer``, and 400
+   unsupported schema, 403 for ``kv_transfer`` with P/D off, and 400
    ``structured_output_disabled`` from a second server over the same
    engine with ``--no-structured-output``; a seeded constrained sampled
    request twice gives one answer, another seed another.  Then, on the
@@ -317,7 +317,10 @@ order; any failure exits non-zero and prints no result:
    ``KAITO_PROFILE_DIR`` holds ``decode_tc_kernel`` and none of its K1-K3,
    quant-matmul or GEMM slices is classified ``other`` (each bucket's top
    names logged), ``/stop_profile`` on the idle profiler answers 409; the
-   same completions on an engine with sampling off (both tok/s logged);
+   same completions on an engine with sampling off (both tok/s logged
+   beside the card line); each window's seconds stopping the profiler on
+   the engine thread are logged, and one above 1.0 s fails the run (a
+   window closes after one decode window or its 0.25 s);
    and phase 4's greedy batch on an engine with a profiler window around
    every step, its graph captures among them, equals an engine's without
    token for token.  The host tier: at
@@ -332,6 +335,28 @@ order; any failure exits non-zero and prints no result:
    Exact: ``tiny-llama-real`` in fp32 and with int8 KV, two sequences
    overrunning a 9-page pool with the tier on, on the card and on the
    CPU: tokens equal, logprobs within 2e-3, a restore on both.
+15. KV movement (leg ``pd-bf16``).  Llama-3.1-8B at full width in bf16
+   at ``--max-model-len 4096``, two HTTP servers in this process sharing
+   one copy of the weights, 240 pages of 64 each, both ``--pd-enabled
+   --kv-pool``, the second with a 60 MiB store (one published prefix)
+   and a disk tier in a temp dir.  P/D: prompts of ~1500 and ~3000
+   tokens through ``/pd/prefill`` on the first, decoded on the second
+   with ``kv_transfer`` over the HTTP wire (forced past the break-even)
+   and over the colocated device path: the decode pool's imported pages
+   equal the prefill pool's gathered slab (``torch.equal``), the decode
+   engine runs no prefill dispatch and captures no graph for them, the
+   first token equals and the greedy tokens follow the decode engine's
+   own monolithic run up to the near-tie rule.  The pool: a prompt the
+   first server published is fetched by the second through the
+   ``X-Kaito-KV-Fetch`` headers (one fetch, whole pages, held in its
+   store after); a second publish demotes it to disk; a repeat hits the
+   disk tier.  Logged: the prefill role's ms, the meta handshake's, wire
+   bytes and GB/s, the import's card ms (two synchronizations) against a
+   recompute prefill of a prompt of the same length, the device path's
+   copy ms, TTFT through a fetch and a disk hit against cold.  Exact:
+   ``tiny-llama-real``'s four sections through P/D over both wires,
+   pages equal, tokens exact and logprobs within 2e-3 of the goldens
+   (``kv_int8`` of a CPU pair's same runs).
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -343,7 +368,8 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 ``bf16``, ``int4-kv8``, ``int8``, ``bf16-async``, ``tp2-int4-kv8``,
 ``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
 ``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``,
-``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``), which
+``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``,
+``pd-bf16``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -3790,7 +3816,7 @@ def _g_taxonomy(base, engine, cfg, label) -> dict:
                  "type": "json_schema", "json_schema": {"schema": {"type": "tuple"}}}),
               422, "invalid_grammar_error"),
              ("/v1/completions", dict(prompt="x", kv_transfer={"source_url": "x"}),
-              501, "not_implemented"))
+              403, "invalid_request_error"))
     got = []
     for path, body, code, etype in cases:
         status, raw = _g_call(base, path, body)
@@ -3818,8 +3844,8 @@ def _g_taxonomy(base, engine, cfg, label) -> dict:
         off.shutdown()
         off.server_close()
         thread.join(timeout=30)
-    log(f"{label}: error taxonomy {got} (400s, 422 invalid_grammar_error, 501 "
-        f"kv_transfer, 400 structured_output_disabled)")
+    log(f"{label}: error taxonomy {got} (400s, 422 invalid_grammar_error, 403 "
+        f"kv_transfer with P/D off, 400 structured_output_disabled)")
     return dict(statuses=got)
 
 
@@ -5159,6 +5185,13 @@ def run_devprof_phase(label) -> tuple[dict, dict, dict]:
             c = engine.counters
             captures0 = c["decode_graph_captures_total"]
             skipped0 = engine.devprof.windows_skipped if mode == "on" else 0
+            if mode == "on":
+                # the warm-up's windows (the first prefills and captures)
+                # are logged apart from the load's
+                warm = [round(a + b, 4) for a, b in engine.devprof.holds_recent]
+                engine.devprof.holds_recent.clear()
+                log(f"{label}: the warm-up's windows holding the engine thread "
+                    f"(start + stop): {warm} s")
             wall, windows = _devprof_load(base, poll=mode == "on")
             for _ in range(2 if mode == "on" else 0):
                 # the sampler's cadence is its own: another round if no
@@ -5189,6 +5222,20 @@ def run_devprof_phase(label) -> tuple[dict, dict, dict]:
                     f"from opening to its summary, of which "
                     f"{stats['window_seconds']['mean_stop_s']:.3f} s stopping the profiler"
                     f" on the engine thread")
+                # each window's hold of the engine thread, starting and
+                # stopping the profiler (ROADMAP item 53: a window covers
+                # one dispatch, a decode window of the engine's own K steps)
+                holds = list(dp.holds_recent)
+                stops = [a + b for a, b in holds]
+                stats["window_seconds"]["start_stop_s"] = holds
+                stats["window_seconds"]["hold_s_median"] = _quantile(stops, 0.5) \
+                    if stops else None
+                log(f"{label}: each window's seconds holding the engine thread during "
+                    f"the load (start, stop): {[(round(a, 4), round(b, 4)) for a, b in holds]}"
+                    f" (median of the sums {stats['window_seconds']['hold_s_median']})")
+                if not stops or max(stops) > 1.0:
+                    raise SmokeFailure(f"{label}: a window held the engine thread "
+                                       f"{max(stops, default=0):.3f} s (limit 1.0 s)")
                 stats["trace"] = _manual_trace(base, server, engine, label)
             else:
                 status, _ = _get(f"{base}/debug/device")
@@ -5205,8 +5252,9 @@ def run_devprof_phase(label) -> tuple[dict, dict, dict]:
             engine.stop()
         del engine, server
         _release_card(torch)
-    log(f"{label}: sampling on against off: {stats['tok_s_sampling_on']:.1f} against "
-        f"{stats['tok_s_sampling_off']:.1f} tok/s")
+    log(f"{label}: sampling on against off on {card_line()}: "
+        f"{stats['tok_s_sampling_on']:.1f} against {stats['tok_s_sampling_off']:.1f} "
+        f"tok/s ({100 * stats['tok_s_sampling_on'] / stats['tok_s_sampling_off']:.1f}%)")
     stats["harmless"] = _windows_are_harmless(cfg, params, label)
     torch.cuda.synchronize()
     launches = {name: getattr(*_counter(name)) for name in _P14_KERNELS}
@@ -5409,6 +5457,452 @@ def _offload_exact(label) -> dict:
     return res
 
 
+PD_LEG = ("pd-bf16", "phase 15, bf16 P/D hand-off, the KV pool and its disk tier")
+# two engines on one card share the weights; each pool 240 pages of 64
+# (15360 tokens, 1.9 GiB in bf16); prompts of ~200 (prefilled whole,
+# through K2), ~1500 and ~3000 tokens (in 512-token chunks)
+_PD_PAGES, _PD_PROMPTS, _PD_TOKENS = 240, (200, 1500, 3000), 32
+# the second server's store holds one published ~1500-byte prompt (5
+# pages of 8 MiB at Llama-3.1-8B's widths), not two
+_PD_STORE_BYTES = 60 << 20
+
+
+def _pd_serve(cfg, params):
+    """A started engine on the card and its HTTP server: (engine, server,
+    base URL)."""
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+    from kaito_tpu_torch.engine.server import make_server
+
+    engine = InferenceEngine(cfg, params=params, device="cuda")
+    engine.start()
+    server = make_server(engine, cfg, host="127.0.0.1", port=0, device="cuda")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return engine, server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _pd_close(*pairs):
+    for engine, server, _ in pairs:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+
+
+class _PDWatch:
+    """Records, on the engines' own threads, what P/D and the pool move:
+    the device slab the prefill engine's last hand-off export and its
+    last pool publish gathered (clones), and for each import the decode
+    pool's pages gathered right after it, with the import's card ms
+    between two synchronizations; the bytes and seconds of each pull."""
+
+    def __init__(self, torch, pre, dec):
+        import kaito_tpu_torch.engine.engine as em
+        from kaito_tpu_torch.engine import pd
+
+        self.torch, self.em, self.pd = torch, em, pd
+        self.exports, self.published, self.imports, self.pulls = [], [], [], []
+        self._stage, self._import = em.stage_export, em.import_arrays
+        self._pre, self._dec = pre, dec
+        watch = self
+
+        def stage(cache, pages, **kw):
+            exp = watch._stage(cache, pages, **kw)
+            if cache is watch._pre.cache:
+                slabs = [[t.clone() for t in exp.device_slabs()]]
+                if kw.get("first_token", -1) >= 0:
+                    watch.exports = slabs
+                else:
+                    watch.published = slabs
+            return exp
+
+        def imp(cache, pages, *arrs, **kw):
+            if cache is not watch._dec.cache:
+                return watch._import(cache, pages, *arrs, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            watch._import(cache, pages, *arrs, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = [t for t in pd._gather_canonical(cache, pages) if t is not None]
+            watch.imports = [(len(pages), ms, got)]
+
+        em.stage_export, em.import_arrays = stage, imp
+        note = dec.pd_costs.note_transfer
+
+        def pulled(nbytes, seconds):
+            watch.pulls.append((nbytes, seconds))
+            note(nbytes, seconds)
+        dec.pd_costs.note_transfer = pulled
+
+    def close(self):
+        self.em.stage_export, self.em.import_arrays = self._stage, self._import
+
+    def check_equal(self, label, published=False):
+        """The last import's pages (and scales) equal the last export's
+        slab (``published``: the last pool publish's) byte for byte."""
+        want = (self.published if published else self.exports)[-1]
+        n_pages, ms, got = self.imports[-1]
+        want = [t[:, :n_pages] for t in want]
+        if len(got) != len(want) or not all(
+                self.torch.equal(a, b) for a, b in zip(got, want)):
+            raise SmokeFailure(f"{label}: the imported pages differ from the prefill "
+                               f"pool's")
+        return n_pages, ms
+
+
+def _pd_prefill(base, text, **extra):
+    t0 = time.perf_counter()
+    status, raw = _post(f"{base}/pd/prefill", dict(prompt=text, **extra))
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise SmokeFailure(f"/pd/prefill answered {status}: {raw[:300]!r}")
+    return json.loads(raw), ms
+
+
+def _pd_decode(base, src, text, hs, wire, n, **extra):
+    """A completion of ``n`` greedy tokens continuing the staged prefill
+    ``hs`` of ``src`` over ``wire`` ("http" or "auto"): (tokens,
+    logprobs)."""
+    kv = dict(source_url=src, req_id=hs["req_id"], prompt_tokens=hs["prompt_tokens"],
+              first_token=hs["first_token"], wire=wire, force=True)
+    status, raw = _post(f"{base}/v1/completions", dict(
+        prompt=text, max_tokens=n, temperature=0.0, ignore_eos=True, logprobs=1,
+        kv_transfer=kv, **extra))
+    ch = json.loads(raw)["choices"][0]
+    return ch["logprobs"]["tokens"], ch["logprobs"]["token_logprobs"]
+
+
+def _stream_ttft(base, text, n, headers=None) -> tuple[float, str]:
+    """(ms to the first streamed token, the whole text) of a greedy
+    completion."""
+    req = urllib.request.Request(f"{base}/v1/completions", data=json.dumps(dict(
+        prompt=text, max_tokens=n, temperature=0.0, ignore_eos=True,
+        stream=True)).encode(), headers={"Content-Type": "application/json",
+                                         **(headers or {})})
+    t0 = time.perf_counter()
+    ttft, parts = None, []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            line = line.strip()
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            piece = json.loads(line[6:])["choices"][0].get("text") or ""
+            if ttft is None:
+                ttft = (time.perf_counter() - t0) * 1e3
+            parts.append(piece)
+    return ttft, "".join(parts)
+
+
+def _pd_exact(label) -> dict:
+    """The four sections of ``tiny-llama-real`` through P/D on the card,
+    over the HTTP wire and the colocated device path: every golden
+    prompt prefilled on one server and decoded on the other, the pages
+    equal byte for byte; tokens exact and logprobs within 2e-3 of the
+    goldens (the first token's comes from the prefill role), for
+    ``kv_int8`` of a CPU pair's same runs."""
+    import torch
+
+    from kaito_tpu_torch.engine.config import EngineConfig
+
+    golden = json.load(open(os.path.join(REPO, "tests", "testdata",
+                                         "goldens_tiny-llama-real.json")))
+    res = {}
+    for sec, (quant, kv) in GOLDEN_MODES.items():
+        cfg = EngineConfig(model="tiny-llama-real",
+                           weights_dir=os.path.join(REPO, "checkpoints", "tiny-llama-real"),
+                           dtype="float32", kv_dtype=kv, quantization=quant,
+                           max_model_len=512, max_num_seqs=2, prefill_buckets=(64, 128),
+                           seed=0, pd_enabled=True)
+        runs = {}
+        for dev in ("cuda", "cpu") if sec == "kv_int8" else ("cuda",):
+            pairs = []
+            for _ in range(2):
+                from kaito_tpu_torch.engine.engine import InferenceEngine
+                from kaito_tpu_torch.engine.server import make_server
+
+                eng = InferenceEngine(cfg, device=dev)
+                eng.start()
+                srv = make_server(eng, cfg, host="127.0.0.1", port=0, device=dev)
+                threading.Thread(target=srv.serve_forever, daemon=True).start()
+                pairs.append((eng, srv, f"http://127.0.0.1:{srv.server_address[1]}"))
+            (pre, _, a), (dec, _, b) = pairs
+            watch = _PDWatch(torch, pre, dec) if dev == "cuda" else None
+            finished = _finished_requests(dec)
+            try:
+                out = []
+                for p in golden["prompts"]:
+                    for wire in ("http", "auto"):
+                        staged = pre.submit(list(p["prompt_tokens"]), _pd_params(1),
+                                            export_kv=True)
+                        list(staged.stream())
+                        hs = dict(req_id=staged.req_id, first_token=staged.output_tokens[0],
+                                  prompt_tokens=list(p["prompt_tokens"]))
+                        n = len(p[sec]["greedy_tokens"])
+                        _pd_decode(b, a, "x", hs, wire, n)
+                        r = finished[-1]
+                        if watch is not None:
+                            watch.check_equal(f"{label}, exact {sec} {wire}")
+                        out.append((list(r.output_tokens), list(r.output_logprobs)))
+                runs[dev] = out
+            finally:
+                if watch is not None:
+                    watch.close()
+                _pd_close(*pairs)
+        want = runs.get("cpu") or [
+            (p[sec]["greedy_tokens"], p[sec]["logprobs"])
+            for p in golden["prompts"] for _ in ("http", "auto")]
+        diff = 0.0
+        for (gt, gl), (wt, wl) in zip(runs["cuda"], want):
+            if list(gt) != list(wt):
+                raise SmokeFailure(f"{label}, exact {sec}: tokens {gt} against {wt}")
+            diff = max([diff] + [abs(x - y) for x, y in zip(gl[1:], wl[1:])])
+        if diff > 2e-3:
+            raise SmokeFailure(f"{label}, exact {sec}: logprobs part by {diff}")
+        res[sec] = diff
+        log(f"{label}, exact tiny-llama-real {sec} through P/D (HTTP wire and device "
+            f"path): tokens exact, logprobs within {diff:.2e} of "
+            f"{'a CPU pair' if sec == 'kv_int8' else 'the goldens'}")
+    _release_card(torch)
+    return res
+
+
+def run_pd_phase(label) -> tuple[dict, dict]:
+    """Phase 15, KV movement: Llama-3.1-8B at full width in bf16 (phase 4's
+    config at ``--max-model-len 4096``, synthetic weights from seed 0,
+    :data:`_PD_PAGES` pages a pool) on two HTTP servers in this process
+    sharing one weight tree, both ``--pd-enabled`` and with the KV pool,
+    the second with a disk tier in a temp dir.  P/D: prompts of ~1500 and
+    ~3000 tokens prefilled on the first and decoded on the second, over
+    the HTTP wire (forced past the break-even) and the colocated device
+    path: the decode pool's pages equal the prefill pool's byte for byte,
+    the decode engine runs no prefill for them and captures no graph
+    again, the greedy tokens equal the second engine's own monolithic run
+    of the prompt up to a near-tie.  The pool: a prompt the first
+    published is fetched by the second through the ``X-Kaito-KV-Fetch``
+    headers; a second publish on the second, whose store holds one
+    entry, demotes the first to disk, and a repeat hits the disk tier:
+    each imports pages equal to the publisher's byte for byte, and its
+    greedy tokens equal the cold run's up to a near-tie.
+    Then the exact legs (:func:`_pd_exact`).  Logged beside the card:
+    the prefill role's ms, the meta handshake's, wire bytes and GB/s,
+    the import's card ms against a recompute prefill, the device path's
+    copy ms, and TTFT warm through a fetch and a disk hit against cold."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.engine.kv_pool import pool_key, prompt_pool_blocks
+    from kaito_tpu_torch.engine.server import parse_args
+
+    t_leg = time.perf_counter()
+    for name in _P14_KERNELS:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
+    cfg, _ = parse_args(["--model", _LLAMA, "--dtype", "bfloat16", "--max-num-seqs",
+                         "8", "--seed", "0", "--max-model-len", "4096", "--max-pages",
+                         str(_PD_PAGES), "--pd-enabled", "--kv-pool"])
+    tmp = tempfile.mkdtemp(prefix="kaito-pd-")
+    stats: dict = {}
+    t0 = time.perf_counter()
+    A = _pd_serve(cfg, None)
+    params = A[0].model.param_tree()
+    B = _pd_serve(dataclasses.replace(cfg, kv_pool_bytes=_PD_STORE_BYTES,
+                                      kv_pool_disk_bytes=4 << 30,
+                                      kv_pool_disk_dir=tmp), params)
+    (pre, _, a), (dec, _, b) = A, B
+    log(f"{label}: two servers up in {time.perf_counter() - t0:.1f}s, "
+        f"{pre.allocator.num_pages} + {dec.allocator.num_pages} pages")
+    watch = _PDWatch(torch, pre, dec)
+    prefills = []
+    orig_adv = dec._advance_prefills
+
+    def timed_prefills():
+        # a recompute's prefill rounds, each between two synchronizations
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        did = orig_adv()
+        torch.cuda.synchronize()
+        if did:
+            prefills.append((time.perf_counter() - t) * 1e3)
+        return did
+    try:
+        texts = [_prompt(n, 300 + i) for i, n in enumerate(_PD_PROMPTS)]
+        finished = _finished_requests(dec)
+        # the first server's first prefills pay the library's first calls
+        # and its first decode windows their captures (cold TTFT below is
+        # a cold cache, not a cold engine)
+        for salt, n in ((290, 200), (291, 1500)):
+            _completion(a, _prompt(n, salt), _PD_TOKENS)
+        mono = {}
+        for text in texts:
+            # the decode engine's own monolithic run: the reference, and
+            # the graphs a lone sequence replays, captured before the
+            # hand-offs
+            _completion(b, text, _PD_TOKENS, logprobs=1)
+            mono[text] = finished[-1]
+        # the pool, first (a freshly started replica has measured no
+        # link yet, so no measured break-even vetoes the fetch): A
+        # publishes, B fetches through the router's headers
+        c = dec.counters
+        text = _prompt(1500, 340)
+        finished_a = _finished_requests(pre)
+        # a stream carries no logprobs: the engines' requests keep them,
+        # for the near-tie rule
+        _keep_logprobs(pre, "submit")
+        _keep_logprobs(dec, "submit", "submit_with_kv_prefix")
+        cold_ms, want_text = _stream_ttft(a, text, _PD_TOKENS)
+        cold = finished_a[-1]
+        blocks = prompt_pool_blocks(text, cfg.page_size)
+        key = next((pool_key(blocks[:n]) for n in range(len(blocks), 0, -1)
+                    if pre.kv_pool.has(pool_key(blocks[:n]))), None)
+        if key is None:
+            raise SmokeFailure(f"{label}: the first server published nothing")
+        watch.imports = []
+        fetch_ms, got = _stream_ttft(b, text, _PD_TOKENS, headers={
+            "X-Kaito-KV-Fetch": a, "X-Kaito-KV-Fetch-Key": key})
+        fetch_req = finished[-1]
+        if len(watch.imports) != 1:
+            raise SmokeFailure(f"{label}: the pool fetch made {len(watch.imports)} imports")
+        fetch_pages = watch.check_equal(f"{label}, pool fetch", published=True)[0]
+        if c["kv_pool_fetches_total"] != 1 or c["kv_pool_fetch_failures_total"]:
+            raise SmokeFailure(f"{label}: pool fetches {c['kv_pool_fetches_total']}, "
+                               f"failures {c['kv_pool_fetch_failures_total']}")
+        fetched = c["kv_pool_fetched_tokens_total"]
+        if fetched <= 0 or fetched % cfg.page_size or not dec.kv_pool.has(key):
+            raise SmokeFailure(f"{label}: fetched {fetched} tokens, held "
+                               f"{dec.kv_pool.has(key)}")
+        # a second publish on B, whose store holds one entry, demotes the
+        # fetched prefix to disk
+        _completion(b, _prompt(1500, 341), 4)
+        deadline = time.monotonic() + 60
+        while not dec.kv_tier.has(key) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if dec.kv_pool.has(key) or not dec.kv_tier.has(key):
+            raise SmokeFailure(f"{label}: the fetched prefix was not demoted to disk")
+        watch.imports = []
+        disk_ms, got_disk = _stream_ttft(b, text, _PD_TOKENS)
+        disk_req = finished[-1]
+        if c["kv_tier_disk_hits_total"] != 1:
+            raise SmokeFailure(f"{label}: disk hits {c['kv_tier_disk_hits_total']}")
+        if len(watch.imports) != 1:
+            raise SmokeFailure(f"{label}: the disk hit made {len(watch.imports)} imports")
+        # the disk slab is the fetched prefix demoted: the publisher's pages
+        disk_pages = watch.check_equal(f"{label}, disk hit", published=True)[0]
+        # the continuation through either equals the cold run's, or parts
+        # at a near-tie (the rule of the P/D rows below)
+        agree = _same_or_tie([fetch_req, disk_req], [cold, cold],
+                             f"{label}, pool fetch and disk hit against the cold run")
+        stats["pool"] = dict(cold_ttft_ms=cold_ms, fetch_ttft_ms=fetch_ms,
+                             disk_ttft_ms=disk_ms, fetched_tokens=fetched,
+                             fetch_pages=fetch_pages, disk_pages=disk_pages,
+                             equal_prefix=agree, fetch_text_equal=got == want_text,
+                             disk_text_equal=got_disk == want_text,
+                             disk_entries=len(dec.kv_tier))
+        log(f"{label}: the pool fetch imported {fetch_pages} pages and the disk hit "
+            f"{disk_pages}, equal to the publisher's byte for byte; tokens equal to the "
+            f"cold run's for {agree} of {_PD_TOKENS}")
+        log(f"{label}: TTFT cold {cold_ms:.1f} ms, through a pool fetch of {fetched} "
+            f"tokens {fetch_ms:.1f} ms, through a disk hit {disk_ms:.1f} ms")
+        pd_rows = []
+        for wire in ("http", "auto"):
+            for text in texts:
+                hs, prefill_ms = _pd_prefill(a, text, temperature=0.0)
+                meta_ms = None
+                if wire == "http":
+                    t = time.perf_counter()
+                    status, raw = _get(f"{a}/pd/kv/{hs['req_id']}/meta")
+                    meta_ms = (time.perf_counter() - t) * 1e3
+                    if status != 200:
+                        raise SmokeFailure(f"{label}: meta answered {status}")
+                    # the handshake started the drain to host: its wall,
+                    # apart from the pull's
+                    t = time.perf_counter()
+                    pre.kv_exports.get(hs["req_id"]).wait_all()
+                    drain_ms = (time.perf_counter() - t) * 1e3
+                before = (c["prefill_steps_total"], c["decode_graph_captures_total"],
+                          c["pd_device_handoffs_total"], len(watch.pulls))
+                _pd_decode(b, a, text, hs, wire, _PD_TOKENS)
+                got = finished[-1]
+                if (c["prefill_steps_total"], c["decode_graph_captures_total"]) != \
+                        before[:2]:
+                    raise SmokeFailure(f"{label}, {wire}: the decode engine prefilled "
+                                       f"or captured: {before} -> {c}")
+                if wire == "auto" and c["pd_device_handoffs_total"] != before[2] + 1:
+                    raise SmokeFailure(f"{label}: no colocated device hand-off")
+                if wire == "http" and len(watch.pulls) != before[3] + 1:
+                    raise SmokeFailure(f"{label}: no pull over the wire")
+                n_pages, import_ms = watch.check_equal(f"{label}, {wire}")
+                if got.output_tokens[0] != mono[text].output_tokens[0]:
+                    raise SmokeFailure(f"{label}, {wire}: the prefill role's first token "
+                                       f"{got.output_tokens[0]} is not the monolithic "
+                                       f"run's {mono[text].output_tokens[0]}")
+                j = _same_or_tie([got], [mono[text]], f"{label}, {wire}")[0]
+                row = dict(wire=wire, prompt_tokens=len(hs["prompt_tokens"]),
+                           pages=n_pages, prefill_role_ms=prefill_ms,
+                           import_card_ms=import_ms, equal_prefix=j)
+                if wire == "http":
+                    nbytes, sec = watch.pulls[-1]
+                    row.update(meta_ms=meta_ms, drain_ms=drain_ms, wire_bytes=nbytes,
+                               wire_gb_s=nbytes / sec / 1e9)
+                pd_rows.append(row)
+                log(f"{label}: {row}")
+        stats["pd"] = pd_rows
+        # a recompute prefill of a fresh prompt of each length on the
+        # decode engine, its rounds between two synchronizations
+        dec._advance_prefills = timed_prefills
+        for i, n in enumerate(_PD_PROMPTS):
+            prefills.clear()
+            _completion(b, _prompt(n, 320 + i), 1)
+            stats.setdefault("recompute_prefill_ms", []).append(sum(prefills))
+        dec._advance_prefills = orig_adv
+        log(f"{label}: recompute prefill card ms {stats['recompute_prefill_ms']} for "
+            f"{list(_PD_PROMPTS)} tokens")
+    finally:
+        watch.close()
+        _pd_close(A, B)
+    del A, B, pre, dec
+    _release_card(torch)
+    torch.cuda.synchronize()
+    launches = {name: getattr(*_counter(name)) for name in _P14_KERNELS}
+    log(f"{label}: launches {launches}")
+    stats["exact"] = _pd_exact(label)
+    stats["phase_s"] = time.perf_counter() - t_leg
+    return launches, stats
+
+
+def _finished_requests(engine) -> list:
+    """A list the engine appends each request it finishes to."""
+    done, trace = [], engine._finish_trace
+
+    def keep(req):
+        done.append(req)
+        trace(req)
+    engine._finish_trace = keep
+    return done
+
+
+def _keep_logprobs(engine, *entries):
+    """Make each of ``engine``'s submit ``entries`` keep its request's
+    logprobs (the engine computes them either way)."""
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    for name in entries:
+        fn = getattr(engine, name)
+
+        def keep(*args, _fn=fn, **kw):
+            for a in list(args) + list(kw.values()):
+                if isinstance(a, SamplingParams):
+                    a.logprobs = True
+            return _fn(*args, **kw)
+        setattr(engine, name, keep)
+
+
+def _pd_params(n):
+    from kaito_tpu_torch.engine.engine import SamplingParams
+
+    return SamplingParams(max_tokens=n, temperature=0.0, ignore_eos=True, logprobs=True)
+
+
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
 _LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
@@ -5483,7 +5977,7 @@ def main(argv=None) -> int:
     ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [
                         QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0], ADAPTER_LEG[0],
                         ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0],
-                        DEVPROF_LEG[0], OFFLOAD_LEG[0]],
+                        DEVPROF_LEG[0], OFFLOAD_LEG[0], PD_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -5690,6 +6184,17 @@ def main(argv=None) -> int:
                     params14 = None
                 _release_card(torch)
                 for kname in must:
+                    if launches[kname] <= 0:
+                        raise SmokeFailure(f"{kname} never launched in {label}")
+                if not alone:
+                    for kname, n in launches.items():
+                        records[kname].setdefault("launches_by_leg", {})[label] = n
+                log(f"{label} on {card}: {stats[label]['phase_s']:.1f} s")
+            if args.leg in (None, PD_LEG[0]) and not args.first_leg_only:
+                name, label = PD_LEG
+                launches, stats[label] = run_pd_phase(label)
+                _release_card(torch)
+                for kname in ("paged_decode_attention", "flash_prefill_attention"):
                     if launches[kname] <= 0:
                         raise SmokeFailure(f"{kname} never launched in {label}")
                 if not alone:

@@ -233,7 +233,11 @@ class StaticGraphs:
     two counters it keeps in ``counters`` (the engine's):
     ``<name>_captures_total`` and ``<name>_replays_total``.  ``pool`` is
     the graph memory pool to capture into (a new one when None); the
-    engine's graphs share one."""
+    engine's graphs share one.  ``before_capture``, when set, runs on the
+    capturing thread before each capture (the engine's device profiler
+    drops a window open there)."""
+
+    before_capture: Optional[Callable[[], None]] = None
 
     def __init__(self, inputs: dict, device: torch.device, capture: bool,
                  counters: dict, name: str, pool=None):
@@ -278,6 +282,8 @@ class StaticGraphs:
         g = self.graphs.get(key)
         if g is None:
             body, neutral, out = make()
+            if self.before_capture is not None:
+                self.before_capture()
             graph, launches, nodes, grown = capture_graph(
                 body, self.device, self.pool, self._side, neutral)
             self.pool_bytes += grown

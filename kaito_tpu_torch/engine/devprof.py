@@ -62,7 +62,7 @@ import time
 from bisect import bisect_left
 from collections import deque
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 from kaito_tpu_torch.engine.metrics import Histogram
 
@@ -72,8 +72,8 @@ BUCKETS = ("matmul", "attention", "collective", "copy", "other", "idle")
 
 #: Engine phases marked with ``record_function("kaito/<phase>")`` around
 #: each dispatch (``phase_scope`` below; engine.py / spec.py).  A device
-#: slice lands in the phase of the range that encloses its launch.
-#: ``kv_import`` stays at 0 until P/D is ported.
+#: slice lands in the phase of the range that encloses its launch
+#: (``kv_import``: a P/D or pool import's in-place write, ``pd.import_arrays``).
 PHASES = ("decode", "prefill", "prefill_packed", "verify", "draft",
           "kv_import")
 
@@ -611,9 +611,56 @@ def _profile(cuda: bool):
     return profile(activities=acts)
 
 
+class _RangesProfile:
+    """A sampler window's profiler: it records what
+    :func:`parse_torch_trace` reads and nothing more.  On a card that is
+    the host's ``record_function`` ranges (``RecordScope.USER_SCOPE``)
+    and the card's kernels, copies and the runtime calls that launched
+    them; without a card the host's operators stand in for device time,
+    so they are recorded too (``RecordScope.FUNCTION``).  A full card
+    trace also records every aten operator (several host events a
+    launch), and stopping it costs the engine thread per event.  The same
+    ``start`` / ``stop`` / ``export_chrome_trace`` surface as
+    ``torch.profiler.profile``; ``start`` is ``profile._start_trace`` of
+    torch 2.11 with the record scopes narrowed."""
+
+    def __init__(self, cuda: bool):
+        from torch._C._profiler import RecordScope
+        from torch.autograd.profiler import profile
+
+        self._p = profile(use_device="cuda" if cuda else None, use_kineto=True)
+        self._scopes = {RecordScope.USER_SCOPE} if cuda else \
+            {RecordScope.USER_SCOPE, RecordScope.FUNCTION}
+
+    def start(self):
+        import torch
+
+        p = self._p
+        p._prepare_trace()
+        torch.autograd.profiler._run_on_profiler_start()
+        torch.autograd._enable_profiler(p.config(create_trace_id=False),
+                                        p.kineto_activities, self._scopes)
+
+    def stop(self):
+        self._p.__exit__(None, None, None)
+
+    def export_chrome_trace(self, path: str):
+        self._p.export_chrome_trace(path)
+
+
 # ----------------------------------------------------------------------
 # The sampler
 # ----------------------------------------------------------------------
+
+class _Window(NamedTuple):
+    """A window open on the engine thread."""
+    prof: object
+    t0: float            # when it opened
+    tokens: float        # generated tokens then
+    captures: int        # CUDA graphs captured then
+    dispatches: int      # dispatches made then
+    thread: int          # the thread that opened it
+    start_s: float       # seconds the profiler's start took
 
 class DeviceProfiler:
     """Background sampler: every ``interval_s`` take a ``window_s``
@@ -622,9 +669,19 @@ class DeviceProfiler:
     With ``attached`` (an engine sets it when it starts) the sampler
     thread only asks: the engine thread opens the window at its next
     step boundary and closes it at the first boundary past
-    ``window_s`` (:meth:`at_step_boundary`), and the sampler reads the
-    trace.  Detached, :meth:`sample_window` traces on the calling
-    thread.
+    ``window_s``, or at the first boundary after a step that dispatched
+    work (``dispatches_fn`` advanced), whichever comes first
+    (:meth:`at_step_boundary`): a window holds one dispatch, such as one
+    captured decode window of the engine's own K steps.  The sampler
+    reads the trace.  A graph capture on that thread drops the open
+    window first and the next boundary opens another (the engine's
+    graphs call :meth:`before_capture`).  Stopping the profiler and
+    writing its trace each take ~12-14 us a kernel event and hold the
+    interpreter lock (``tools/devprof_probe.py split``; several times
+    that inside a serving engine), so the cap bounds what a window costs
+    the engine: one decode step of an 8B model is ~2.7k kernel events, a
+    quarter second of steps ~68k.  Detached, :meth:`sample_window`
+    traces on the calling thread for ``window_s``.
 
     Never raises out of the sampling path: a failed capture or parse
     increments a counter and the loop moves on.  A window that finds
@@ -636,7 +693,8 @@ class DeviceProfiler:
                  roofline: Optional[dict] = None,
                  tokens_fn: Optional[Callable[[], float]] = None,
                  cuda: bool = False,
-                 captures_fn: Optional[Callable[[], int]] = None):
+                 captures_fn: Optional[Callable[[], int]] = None,
+                 dispatches_fn: Optional[Callable[[], int]] = None):
         self.interval_s = float(interval_s)
         self.window_s = float(window_s)
         self.roofline = roofline
@@ -645,13 +703,19 @@ class DeviceProfiler:
         # CUDA graphs the engine has captured so far: a window during
         # which one was captured is skipped (a capture is no serving step)
         self.captures_fn = captures_fn
+        # dispatches (prefill, decode window, verify, draft) the engine
+        # has made so far: a window closes at the first step boundary
+        # after one more
+        self.dispatches_fn = dispatches_fn
         self.attached = False
         self.windows = deque(maxlen=max(int(ring), 1))
         self.windows_total = 0
         self.windows_skipped = 0
         self.parse_errors = 0
-        # seconds spent stopping windows, on the thread that took them
+        # seconds spent stopping windows, on the thread that took them;
+        # and each recent window's hold of that thread, (start s, stop s)
         self.stop_s_total = 0.0
+        self.holds_recent: deque = deque(maxlen=256)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
@@ -659,7 +723,7 @@ class DeviceProfiler:
         # on the engine thread, and what it delivers when it closes
         self._ask = False
         self._ask_lock = threading.Lock()
-        self._win: Optional[tuple] = None
+        self._win: Optional[_Window] = None
         self._handoff: "queue.SimpleQueue[Optional[tuple]]" = queue.SimpleQueue()
         # registry=None: EngineMetrics adopts it when metrics are wired
         self.capture_hist = Histogram(
@@ -676,7 +740,7 @@ class DeviceProfiler:
             # the process's first trace initializes CUDA's tracing: pay it
             # here, not in the first window on the engine thread
             try:
-                prof = _profile(self.cuda)
+                prof = _RangesProfile(self.cuda)
                 prof.start()
                 prof.stop()
             except Exception as e:  # noqa: BLE001 - the windows count it
@@ -714,38 +778,64 @@ class DeviceProfiler:
             if self._win is None:
                 self._handoff.put(None)
             return
-        if not closing and time.perf_counter() - win[1] < self.window_s:
+        if not closing and time.perf_counter() - win.t0 < self.window_s \
+                and self._dispatches() == win.dispatches:
             return
         self._win = None
         self._handoff.put(self._close(win))
 
-    def _open(self) -> Optional[tuple]:
-        """(profile, start, tokens, captures) of a window started on this thread,
+    def before_capture(self) -> None:
+        """A CUDA graph capture is about to run: a window open on this
+        thread would record its warm-up and capture (a window over a
+        capture is skipped anyway, and stopping it would cost the engine
+        seconds), so it is dropped now, counted as skipped, and the
+        sampler's ask stands: the next step boundary opens another."""
+        win = self._win
+        if win is None or win.thread != threading.get_ident():
+            return
+        self._win = None
+        t0 = time.perf_counter()
+        try:
+            win.prof.stop()
+        except Exception:  # noqa: BLE001 - dropped either way
+            pass
+        finally:
+            PROFILE_LOCK.release()
+            self.holds_recent.append((win.start_s, time.perf_counter() - t0))
+        self.windows_skipped += 1
+        with self._ask_lock:
+            self._ask = True
+
+    def _open(self) -> Optional[_Window]:
+        """A window started on this thread,
         or None (counted as skipped) when another trace holds the lock
         or the profiler refuses."""
         if not PROFILE_LOCK.acquire(blocking=False):
             self.windows_skipped += 1
             logger.debug("devprof window skipped: a trace is running")
             return None
+        t0 = time.perf_counter()
         try:
-            prof = _profile(self.cuda)
+            prof = _RangesProfile(self.cuda)
             prof.start()
         except Exception as e:  # noqa: BLE001 - the window is optional
             PROFILE_LOCK.release()
             self.windows_skipped += 1
             logger.debug("devprof window skipped: %s", e)
             return None
-        return prof, time.perf_counter(), self._tokens(), self._captures()
+        t1 = time.perf_counter()
+        return _Window(prof, t1, self._tokens(), self._captures(), self._dispatches(),
+                       threading.get_ident(), t1 - t0)
 
-    def _close(self, win: tuple) -> Optional[tuple]:
+    def _close(self, win: _Window) -> Optional[tuple]:
         """(profile, capture seconds, tokens) of a window stopped on the
         thread that started it, or None (skipped) when stopping fails.
         The window's seconds and tokens are read before the stop: the
-        profiler's stop works through every event of the window (~11 us
+        profiler's stop works through every event of the window (~13-60 us
         each on an H100 machine) while the engine generates nothing."""
-        prof, t0, tok0, cap0 = win
+        prof = win.prof
         t1 = time.perf_counter()
-        capture_s, tokens = t1 - t0, max(self._tokens() - tok0, 0.0)
+        capture_s, tokens = t1 - win.t0, max(self._tokens() - win.tokens, 0.0)
         try:
             prof.stop()
         except Exception as e:  # noqa: BLE001
@@ -754,8 +844,10 @@ class DeviceProfiler:
             return None
         finally:
             PROFILE_LOCK.release()
-            self.stop_s_total += time.perf_counter() - t1
-        if self._captures() != cap0:
+            stop_s = time.perf_counter() - t1
+            self.stop_s_total += stop_s
+            self.holds_recent.append((win.start_s, stop_s))
+        if self._captures() != win.captures:
             self.windows_skipped += 1
             logger.debug("devprof window skipped: a CUDA graph was captured in it")
             return None
@@ -826,6 +918,9 @@ class DeviceProfiler:
 
     def _captures(self) -> int:
         return 0 if self.captures_fn is None else int(self.captures_fn())
+
+    def _dispatches(self) -> int:
+        return 0 if self.dispatches_fn is None else int(self.dispatches_fn())
 
     # -- read side ------------------------------------------------------
 

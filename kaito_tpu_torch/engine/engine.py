@@ -93,9 +93,19 @@ tier dropped resumes by recompute.  The sampling device profiler
 (``devprof_interval_s``, ``engine.devprof``): the engine thread opens and
 closes each ``torch.profiler`` window at a step boundary, and every
 dispatch runs inside its ``kaito/<phase>`` range.
+KV movement (``engine.pd``, ``engine.kv_pool``): a prefill role's request
+(``submit(export_kv=True)``) stages its prompt pages where it finishes,
+and a decode role continues from them with no prefill
+(``submit_with_kv``, ``submit_with_kv_chunked`` over the HTTP wire,
+``submit_with_kv_device`` from a colocated engine); with ``kv_pool_enabled``
+a finished prompt publishes its whole pages, and a fetch
+(``submit_with_kv_prefix``) imports a verified prefix and prefills the
+rest, below which ``kv_pool_disk_bytes`` keeps a slab directory.  Every
+import writes IN PLACE into freshly acquired, exclusive pages of the pool
+tensors (``pd.import_arrays``), so the captured windows keep their
+pointers; imported pages never enter the prefix tree or the host tier.
 Not ported yet, and rejected at construction with the ROADMAP item that
-carries them: pipeline, data, sequence and expert parallelism, the KV
-pool and P/D.
+carries them: pipeline, data, sequence and expert parallelism.
 """
 
 from __future__ import annotations
@@ -117,8 +127,7 @@ from kaito_tpu_torch.engine.adapter_cache import AdapterCache, AdapterLoadError
 from kaito_tpu_torch.engine.adapters import (apply_adapters_to_params,
                                              discover_adapters, load_adapter_stacks)
 from kaito_tpu_torch.engine.config import EngineConfig
-from kaito_tpu_torch.engine.decode_graph import (DecodeWindow, TraceReadback,
-                                                 run_steps)
+from kaito_tpu_torch.engine.decode_graph import DecodeWindow, TraceReadback, run_steps
 from kaito_tpu_torch.engine.devprof import DeviceProfiler, phase_scope, roofline
 from kaito_tpu_torch.engine.grammar import GrammarCache, GrammarSlot, GrammarTable
 from kaito_tpu_torch.engine.host_offload import HostKVPool, gather_pages, scatter_pages
@@ -126,9 +135,14 @@ from kaito_tpu_torch.engine.kv_cache import (NULL_PAGE, create_kv_cache,
                                              create_sharded_kv_cache,
                                              kv_bytes, kv_cache_is_quantized,
                                              scale_bytes_per_page)
+from kaito_tpu_torch.engine.kv_pool import (DiskPageStore, HostExport, PoolEntry,
+                                            PrefixPageStore, meta_nbytes, pool_key)
 from kaito_tpu_torch.engine.metrics import Histogram
 from kaito_tpu_torch.engine.model import (TensorParallelLM, TransformerLM,
                                           check_tensor_parallel)
+from kaito_tpu_torch.engine.pd import (ChunkedImport, KVExportRegistry,
+                                      TransferCostModel, import_arrays, import_kv,
+                                      stage_export, wire_dtype)
 from kaito_tpu_torch.engine.prefix_cache import PrefixCache
 from kaito_tpu_torch.engine.qos import DEFAULT_TENANT, parse_qos_config
 from kaito_tpu_torch.engine.quant import QUANT_SCHEMES, supports_quantization
@@ -140,6 +154,7 @@ from kaito_tpu_torch.models.metadata import ModelMetadata
 from kaito_tpu_torch.models.registry import get_model_by_name
 from kaito_tpu_torch.parallel.mesh import AXIS_TENSOR, Mesh, build_mesh
 from kaito_tpu_torch.parallel.sharding import SERVE_RULES, ring_axis
+from kaito_tpu_torch.utils.failpoints import FAILPOINTS
 from kaito_tpu_torch.utils.tracing import (RingTracer, StepTimeline,
                                            format_span_tree)
 
@@ -169,9 +184,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 # (config field, value counts as "on", ROADMAP item that ports it)
 _UNPORTED = (
-    ("kv_pool_enabled", bool, "queue 1, M18 KV movement"),
-    ("kv_pool_disk_bytes", bool, "queue 1, M18 KV movement"),
-    ("pd_enabled", bool, "queue 1, M18 KV movement"),
     ("pipeline_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("data_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
     ("sequence_parallel", lambda v: v > 1, "queue 1, M19 multi-GPU"),
@@ -298,6 +310,30 @@ class Request:
     last_emit_time: Optional[float] = None
     # per-request LoRA adapter name ("" = the base model)
     adapter: str = ""
+    # P/D disaggregation (engine.pd): the prefill role stages the
+    # prompt's KV where the request finishes; the decode role carries
+    # one import kind: a one-shot (meta, payload, first_token), a
+    # ChunkedImport fed by the server's puller, or a colocated engine's
+    # device slabs (meta, slabs, first_token, the gather's event).
+    # Imported pages are foreign bytes: exclusive, never committed to
+    # the prefix tree
+    export_kv: bool = False
+    kv_import: Optional[tuple] = None
+    kv_chunked: Optional[ChunkedImport] = None
+    kv_device: Optional[tuple] = None
+    # transient transfer failures left that fall back to local recompute
+    kv_retries: int = 0
+    # the cluster KV pool: the prompt's chained block hashes, one per
+    # whole page; kv_prefix_tokens > 0 marks a pool fetch in flight
+    # (kv_chunked holds only that prefix, prefill finishes the rest)
+    pool_blocks: list = field(default_factory=list)
+    kv_prefix_tokens: int = 0
+
+    @property
+    def imported(self) -> bool:
+        """The request's prompt KV arrives from outside the engine."""
+        return (self.kv_import is not None or self.kv_chunked is not None
+                or self.kv_device is not None)
 
     def resume_tokens(self) -> list[int]:
         """Prompt plus everything generated so far — what a preempted
@@ -370,7 +406,9 @@ class _Slot:
     seq: int = 0               # admission order (newest preempts first)
     shared_tokens: int = 0     # leading tokens on pages shared at admission
     prefill_t0: float = 0.0    # first prefill dispatch (0: none yet)
+    prefill_base: int = 0      # prefill_pos at that dispatch
     staged_t0: float = 0.0     # admission time
+    importing: bool = False    # P/D decode role: KV chunks still landing
 
     @property
     def written(self) -> int:
@@ -522,6 +560,35 @@ class InferenceEngine:
             self.host_kv = HostKVPool(cfg.host_kv_offload_bytes)
             logger.info("host KV offload tier: %.2f GiB",
                         cfg.host_kv_offload_bytes / 2**30)
+        # the cluster KV pool's replica-local store of published prompt
+        # prefixes, and below it the slab directory its LRU demotes to
+        # through an async spill worker.  None when off: every pool code
+        # path and the kv_pool / kv_tier metric families gate on them
+        self.kv_pool: Optional[PrefixPageStore] = None
+        self.kv_tier: Optional[DiskPageStore] = None
+        self._spill_q: Optional[queue.Queue] = None
+        self._spill_thread: Optional[threading.Thread] = None
+        if cfg.kv_pool_enabled:
+            self.kv_pool = PrefixPageStore(cfg.kv_pool_bytes)
+            logger.info("cluster KV pool store: %.2f GiB", cfg.kv_pool_bytes / 2**30)
+            if cfg.kv_pool_disk_bytes > 0:
+                import tempfile
+
+                root = cfg.kv_pool_disk_dir or os.path.join(tempfile.gettempdir(),
+                                                            "kaito-kv-tier")
+                self.kv_tier = DiskPageStore(root, cfg.kv_pool_disk_bytes)
+                self._spill_q = queue.Queue(maxsize=256)
+                self.kv_pool.on_evict = self._enqueue_spill
+                self._spill_thread = threading.Thread(
+                    target=self._spill_worker, daemon=True, name="kv-tier-spill")
+                self._spill_thread.start()
+                logger.info("KV pool disk tier: %.2f GiB at %s",
+                            cfg.kv_pool_disk_bytes / 2**30, root)
+        # P/D: staged exports wait here for their pull; the break-even
+        # model's constants calibrate from observed transfers and prefills
+        self.kv_exports = KVExportRegistry()
+        self.pd_costs = TransferCostModel()
+        self._last_export_tick = 0.0
 
         S = cfg.max_num_seqs
         self.slots = [_Slot() for _ in range(S)]
@@ -611,6 +678,19 @@ class InferenceEngine:
             "spec_draft_rows_total": 0,
             "spec_draft_proposed_tokens_total": 0,
             "spec_draft_accepted_tokens_total": 0,
+            # KV movement: colocated hand-offs, transient transfer
+            # failures recomputed; the pool's and the disk tier's
+            # counters reach /metrics only with those on
+            "pd_device_handoffs_total": 0,
+            "kv_import_retries_total": 0,
+            "kv_pool_fetches_total": 0,
+            "kv_pool_fetched_tokens_total": 0,
+            "kv_pool_fetch_failures_total": 0,
+            "kv_pool_published_total": 0,
+            "kv_tier_host_hits_total": 0,
+            "kv_tier_disk_hits_total": 0,
+            "kv_tier_import_tokens_total": 0,
+            "kv_tier_spill_drops_total": 0,
         }
         # tracing + flight recorder: bounded, always on, host clocks
         # only — recording is a deque append, scrapes snapshot.  The
@@ -715,9 +795,17 @@ class InferenceEngine:
                 tokens_fn=lambda: self.counters["generation_tokens_total"],
                 cuda=self.device.type == "cuda",
                 captures_fn=lambda: sum(n for k, n in self.counters.items()
-                                        if k.endswith("_captures_total")))
+                                        if k.endswith("_captures_total")),
+                dispatches_fn=lambda: sum(self.counters[k] for k in (
+                    "prefill_steps_total", "decode_windows_total", "spec_steps_total",
+                    "spec_draft_steps_total")))
             logger.info("device profiler enabled: %.3gs window every %.3gs",
                         self.devprof.window_s, self.devprof.interval_s)
+            # a capture drops the window open on the engine thread
+            for graphs in (self.window, self.spec_verify,
+                           self.spec_draft.scan if self.spec_draft is not None else None):
+                if graphs is not None:
+                    graphs.before_capture = self.devprof.before_capture
 
     # ------------------------------------------------------------------
     # Construction helpers
@@ -871,12 +959,23 @@ class InferenceEngine:
                trace_id: Optional[str] = None,
                timeout_s: Optional[float] = None,
                tenant: str = "", priority: str = "",
-               adapter: str = "") -> Request:
+               adapter: str = "", export_kv: bool = False,
+               pool_blocks: Optional[list] = None) -> Request:
         """Queue a request.  ``timeout_s`` (else ``request_timeout_s``;
         0 is none) sets its deadline; ``tenant`` and ``priority`` (a
         class name) place it under QoS; ``adapter`` names its LoRA
         adapter (ValueError when unknown; a demoted one faults back in
-        here)."""
+        here).  ``export_kv`` (the P/D prefill role) stages the prompt's
+        KV where the request finishes; ``pool_blocks`` (the prompt's
+        block hashes) publishes its whole pages to the KV pool."""
+        self._validate_submit(prompt_tokens, params)
+        self._resolve_adapter(adapter)
+        return self._enqueue(Request(
+            req_id or "", list(prompt_tokens), params, adapter=adapter,
+            export_kv=export_kv, pool_blocks=list(pool_blocks or [])),
+            "req", trace_id, timeout_s, tenant, priority)
+
+    def _validate_submit(self, prompt_tokens: list[int], params: SamplingParams) -> None:
         n = len(prompt_tokens)
         if n < 1:
             raise ValueError("prompt must hold at least one token")
@@ -888,15 +987,18 @@ class InferenceEngine:
                              f"{self._capacity_tokens} tokens")
         if params.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {params.max_tokens}")
-        self._resolve_adapter(adapter)
-        t, prio = self._resolve_qos(tenant, priority)
-        deadline = self._deadline_for(timeout_s)
+
+    def _enqueue(self, req: Request, prefix: str, trace_id: Optional[str],
+                 timeout_s: Optional[float], tenant: str, priority: str) -> Request:
+        """Queue a validated request (every submit path): its QoS
+        identity, deadline and trace id, and ``<prefix>-<count>`` for an
+        id the caller left empty."""
+        req.tenant, req.priority = self._resolve_qos(tenant, priority)
+        req.deadline = self._deadline_for(timeout_s)
         with self._lock:
             self.counters["requests_total"] += 1
-            rid = req_id or f"req-{self.counters['requests_total']}"
-            req = Request(rid, list(prompt_tokens), params,
-                          trace_id=trace_id or rid, deadline=deadline,
-                          tenant=t, priority=prio, adapter=adapter)
+            req.req_id = req.req_id or f"{prefix}-{self.counters['requests_total']}"
+            req.trace_id = trace_id or req.trace_id or req.req_id
             self._waiting_count += 1
             if self.qos is None:
                 self.waiting.append(req)
@@ -904,6 +1006,142 @@ class InferenceEngine:
                 self._qos_push_locked(req)
         self._wake.set()
         return req
+
+    # -- KV movement (P/D and the cluster KV pool) ------------------------
+
+    def _validate_kv_meta(self, meta: dict, n_prompt: int,
+                          strict_shape: bool = False) -> None:
+        """Refuse an incompatible hand-off in the REQUEST thread (a clean
+        4xx) before it reaches the scheduler: model identity, token count
+        and dtype always; with ``strict_shape`` (the colocated device
+        path, whose slabs land in the pool as they are) the slab's layer
+        count, page count and per-page layout too.  Chunked imports are
+        checked chunk by chunk as they assemble."""
+        if meta.get("model") not in ("", None, self.md.name):
+            raise ValueError(f"KV transfer model mismatch: {meta.get('model')} "
+                             f"!= {self.md.name}")
+        if meta.get("n_tokens") not in (None, n_prompt):
+            raise ValueError(f"KV transfer token mismatch: client sent {n_prompt} "
+                             f"prompt tokens, staged slab holds {meta.get('n_tokens')}")
+        self._check_wire_dtype(meta, "KV transfer")
+        shape = meta.get("shape")
+        if not strict_shape or not shape:
+            return
+        shape = tuple(int(s) for s in shape)
+        c = self._shard_caches()
+        tail = list(c[0].k.shape[2:])
+        tail[1] *= len(c)
+        n_pages = -(-n_prompt // self.cfg.page_size)
+        # the page count is a floor: an exporter may ship a rounded-up slab
+        if len(shape) != 5 or shape[0] != c[0].k.shape[0] \
+                or shape[2:] != tuple(tail) or shape[1] < n_pages:
+            raise ValueError(
+                f"KV slab incompatible with this engine: wire shape {shape}, pool "
+                f"expects ({c[0].k.shape[0]}, >={n_pages}) + {tuple(tail)} (layers, "
+                f"prompt pages, page_size, kv heads, head dim)")
+
+    def _check_wire_dtype(self, meta: dict, what: str) -> None:
+        wire = meta.get("dtype")
+        pool = self._shard_caches()[0].k.dtype
+        if wire is not None and wire_dtype(wire) != pool:
+            raise ValueError(f"{what} dtype mismatch: wire {wire} vs pool "
+                             f"{str(pool).removeprefix('torch.')} — prefill and decode "
+                             f"roles must run the same --kv-cache-dtype")
+
+    def submit_with_kv(self, prompt_tokens: list[int], first_token: int,
+                       meta: dict, payload: bytes, params: SamplingParams,
+                       req_id: Optional[str] = None,
+                       timeout_s: Optional[float] = None,
+                       trace_id: Optional[str] = None,
+                       tenant: str = "", priority: str = "") -> Request:
+        """Decode-role entry: continue a prefilled request from a one-shot
+        transfer of its KV pages (``pd.export_kv``'s payload)."""
+        self._validate_submit(prompt_tokens, params)
+        self._validate_kv_meta(meta, len(prompt_tokens))
+        return self._enqueue(Request(req_id or "", list(prompt_tokens), params,
+                                     kv_import=(meta, payload, first_token)),
+                             "pd", trace_id or meta.get("trace_id"), timeout_s,
+                             tenant, priority)
+
+    def submit_with_kv_device(self, prompt_tokens: list[int], first_token: int,
+                              meta: dict, slabs, params: SamplingParams,
+                              req_id: Optional[str] = None,
+                              timeout_s: Optional[float] = None,
+                              trace_id: Optional[str] = None,
+                              tenant: str = "", priority: str = "",
+                              adapter: str = "", event=None) -> Request:
+        """Colocated decode entry: the prefill engine lives in this
+        process, and its staged canonical slabs (``device_slabs()``) are
+        copied device to device into this engine's pages (a peer copy
+        across two cards), ordered after ``event``, the export's gather
+        event.  ``adapter`` continues under the prefill's adapter (the
+        server checks the staged meta first)."""
+        self._validate_submit(prompt_tokens, params)
+        self._resolve_adapter(adapter)
+        self._validate_kv_meta(meta, len(prompt_tokens), strict_shape=True)
+        return self._enqueue(Request(req_id or "", list(prompt_tokens), params,
+                                     adapter=adapter,
+                                     kv_device=(meta, slabs, first_token, event)),
+                             "pd", trace_id or meta.get("trace_id"), timeout_s,
+                             tenant, priority)
+
+    def submit_with_kv_chunked(self, prompt_tokens: list[int], first_token: int,
+                               meta: dict, plans, params: SamplingParams,
+                               req_id: Optional[str] = None,
+                               deadline_s: float = 120.0,
+                               timeout_s: Optional[float] = None,
+                               trace_id: Optional[str] = None,
+                               tenant: str = "", priority: str = "",
+                               adapter: str = "") -> Request:
+        """Decode-role entry of the chunked wire: the request is admitted
+        at once and the loop assembles its chunks as the caller feeds
+        ``req.kv_chunked.feed(i, payload)``, beside other requests'
+        decode."""
+        self._validate_submit(prompt_tokens, params)
+        self._resolve_adapter(adapter)
+        self._validate_kv_meta(meta, len(prompt_tokens))
+        return self._enqueue(Request(
+            req_id or "", list(prompt_tokens), params, adapter=adapter,
+            kv_chunked=ChunkedImport(meta, list(plans), first_token, deadline_s=deadline_s),
+            kv_retries=max(0, self.cfg.kv_import_retries)),
+            "pd", trace_id or meta.get("trace_id"), timeout_s, tenant, priority)
+
+    def submit_with_kv_prefix(self, prompt_tokens: list[int], meta: dict, plans,
+                              n_prefix_tokens: int, params: SamplingParams,
+                              req_id: Optional[str] = None,
+                              deadline_s: float = 30.0,
+                              timeout_s: Optional[float] = None,
+                              trace_id: Optional[str] = None,
+                              tenant: str = "", priority: str = "",
+                              adapter: str = "",
+                              pool_blocks: Optional[list] = None) -> Request:
+        """Cluster-pool entry: a verified whole-page PREFIX of the
+        prompt's KV is on its way over the chunked wire (from a peer, the
+        host store or the disk tier), and the local prefill finishes the
+        rest once it lands.  Any failure falls back to a full local
+        prefill."""
+        self._validate_submit(prompt_tokens, params)
+        self._resolve_adapter(adapter)
+        if meta.get("model") not in ("", None, self.md.name):
+            raise ValueError(f"KV pool model mismatch: {meta.get('model')} "
+                             f"!= {self.md.name}")
+        # the adapter folds into the hash chain, but the meta decides:
+        # KV computed under another adapter's deltas never imports
+        if str(meta.get("adapter") or "") != (adapter or ""):
+            raise ValueError(f"KV pool adapter mismatch: entry "
+                             f"{meta.get('adapter') or 'base'!r} vs request "
+                             f"{adapter or 'base'!r}")
+        self._check_wire_dtype(meta, "KV pool")
+        ps = self.cfg.page_size
+        if not (0 < n_prefix_tokens < len(prompt_tokens) and n_prefix_tokens % ps == 0):
+            raise ValueError(f"prefix token count {n_prefix_tokens} must be a positive "
+                             f"whole-page multiple below the prompt length "
+                             f"{len(prompt_tokens)}")
+        return self._enqueue(Request(
+            req_id or "", list(prompt_tokens), params, adapter=adapter,
+            kv_chunked=ChunkedImport(meta, list(plans), -1, deadline_s=deadline_s),
+            kv_prefix_tokens=n_prefix_tokens, pool_blocks=list(pool_blocks or [])),
+            "kvp", trace_id, timeout_s, tenant, priority)
 
     # -- multi-LoRA admin ------------------------------------------------
 
@@ -1049,6 +1287,27 @@ class InferenceEngine:
                                         name="engine-loop")
         self._thread.start()
 
+    def _enqueue_spill(self, entry: PoolEntry) -> None:
+        """The pool store's eviction hook, on whatever thread evicted
+        (usually the engine loop finishing a request): a non-blocking
+        put; a full queue drops the victim, which is always safe."""
+        try:
+            self._spill_q.put_nowait(entry)
+        except queue.Full:
+            self.counters["kv_tier_spill_drops_total"] += 1
+
+    def _spill_worker(self) -> None:
+        """Demote evicted pool entries to the disk tier, off the engine
+        loop (serializing a chunk may wait on its export's drain)."""
+        while True:
+            entry = self._spill_q.get()
+            if entry is None:
+                return
+            try:
+                self.kv_tier.spill(entry)
+            except Exception:
+                logger.exception("kv_tier spill of %s failed", entry.key)
+
     def stop(self):
         if self.devprof is not None:
             self.devprof.stop()
@@ -1056,6 +1315,10 @@ class InferenceEngine:
         self._wake.set()
         if self._thread:
             self._thread.join(timeout=30)
+        if self._spill_thread is not None:
+            self._spill_q.put(None)
+            self._spill_thread.join(timeout=10)
+            self._spill_thread = None
         # nothing else would deliver end-of-stream to in-flight clients
         self._fail_all()
         while True:
@@ -1318,7 +1581,10 @@ class InferenceEngine:
         even when the slot wrote fewer (a preempted prefill whose whole
         prompt was cached), so their references always return."""
         slot = self.slots[slot_idx]
-        if self.prefix_cache is not None and slot.request.adapter:
+        if self.prefix_cache is not None and (slot.request.adapter
+                                              or slot.request.imported):
+            # exclusive pages: an adapter's KV carries its deltas, an
+            # import's pages hold foreign bytes
             self.prefix_cache.release_uncommitted([], slot.pages)
         elif self.prefix_cache is not None:
             tokens = slot.request.resume_tokens()[:max(slot.written,
@@ -1398,9 +1664,17 @@ class InferenceEngine:
                                - self.allocator.available))
         return did
 
+    def _tick_exports(self) -> None:
+        """The export registry's upkeep, at most once a second."""
+        now = time.monotonic()
+        if now - self._last_export_tick >= 1.0:
+            self._last_export_tick = now
+            self.kv_exports.tick()
+
     def _step_sync(self) -> bool:
         """The synchronous loop's iteration (see :meth:`step`)."""
         did0 = self._sweep_deadlines()
+        self._tick_exports()
         # reserve BEFORE admitting: growth of running sequences must not
         # be starved by a fresh admission grabbing the last pages
         la = 1
@@ -1408,6 +1682,8 @@ class InferenceEngine:
             la = self._decode_lookahead()
             self._ensure_decode_pages(la)
         did = self._admit_new() or did0
+        if self._advance_imports():
+            did = True
         decoding = bool(self.active.any())
         steps_run = 0
         if decoding:
@@ -1511,7 +1787,8 @@ class InferenceEngine:
         n = len(tokens)
         ps = self.cfg.page_size
         pages_needed = -(-(n + 1) // ps)
-        has_spill = self.host_kv is not None and self.host_kv.has(req.req_id)
+        has_spill = (self.host_kv is not None and not req.imported
+                     and self.host_kv.has(req.req_id))
         # one page of headroom per decoding slot, so an admission does
         # not trigger immediate grow-preempt churn; under QoS a higher
         # class evicts lower-class sequences for room (each eviction
@@ -1521,12 +1798,14 @@ class InferenceEngine:
                 self._requeue_front(req)
                 return False
         shared = cached = 0
+        exclusive = True
         if self.prefix_cache is not None:
-            # an adapter's KV carries its k/v deltas, and a spilled
-            # sequence restores its host pages over its slot's: their
-            # pages are exclusive (an empty-token acquire shares nothing)
-            res = self.prefix_cache.acquire([] if req.adapter or has_spill else tokens,
-                                            n + 1)
+            # an adapter's KV carries its k/v deltas, a spilled sequence
+            # restores its host pages over its slot's and an import writes
+            # foreign bytes: their pages are exclusive (an empty-token
+            # acquire shares nothing)
+            exclusive = bool(req.adapter) or has_spill or req.imported
+            res = self.prefix_cache.acquire([] if exclusive else tokens, n + 1)
             if res is None:
                 self._requeue_front(req)
                 return False
@@ -1562,7 +1841,7 @@ class InferenceEngine:
                            pages=len(pages), resume=req.preemptions)
         if cached:
             self.counters["prefix_cached_tokens_total"] += cached
-        if self.prefix_cache is not None and not req.preemptions and not req.adapter:
+        if self.prefix_cache is not None and not req.preemptions and not exclusive:
             self.counters["prefix_cache_hits_total" if cached
                           else "prefix_cache_misses_total"] += 1
         p = req.params
@@ -1587,10 +1866,159 @@ class InferenceEngine:
             self.prompt_seen[free_slot] = self._tensor(seen)
         if p.grammar is not None:
             self._install_grammar(free_slot, req)
-        if has_spill:
+        if req.kv_import is not None:
+            self._start_imported(req, free_slot)
+        elif req.kv_device is not None:
+            self._start_device_import(req, free_slot)
+        elif req.kv_chunked is not None:
+            self._start_chunked_import(req, free_slot)
+        elif has_spill:
             # resumed from host pages with no prefill, else recomputed
             self._try_restore(req, free_slot)
         return True
+
+    def _start_imported(self, req: Request, free_slot: int) -> None:
+        """Decode-role start, one-shot transfer: write the pages in place
+        and decode from the prompt boundary (no prefill)."""
+        meta, payload, first = req.kv_import
+        n = len(req.prompt_tokens)
+        slot = self.slots[free_slot]
+        t0 = time.monotonic()
+        import_kv(self.cache, slot.pages[:-(-n // self.cfg.page_size)], payload, meta)
+        self.tracer.record("kv.import", req.trace_id, t0, time.monotonic() - t0,
+                           bytes=len(payload))
+        self._begin_imported(free_slot, first, n)
+
+    def _start_device_import(self, req: Request, free_slot: int) -> None:
+        """Colocated decode start: ONE device-to-device copy of the prefill
+        engine's staged slabs into this engine's pages, ordered after the
+        export's gather event; the bytes never touch the host."""
+        meta, slabs, first, event = req.kv_device
+        n = len(req.prompt_tokens)
+        n_pages = -(-n // self.cfg.page_size)
+        slot = self.slots[free_slot]
+        t0 = time.monotonic()
+        # the staged slab may hold more pages than the prompt needs
+        import_arrays(self.cache, slot.pages[:n_pages],
+                      *[t[:, :n_pages] for t in slabs], after=event)
+        self.tracer.record("kv.import.device", req.trace_id, t0,
+                           time.monotonic() - t0, pages=n_pages)
+        # drop the slab references (the prefill engine's device copy)
+        # and keep the field as the marker that the pages are foreign
+        req.kv_device = (meta, None, first, None)
+        self.counters["pd_device_handoffs_total"] += 1
+        self._begin_imported(free_slot, first, n)
+
+    def _start_chunked_import(self, req: Request, free_slot: int) -> None:
+        """Decode-role start of the chunked wire: the slot parks as
+        ``importing`` until :meth:`_advance_imports` has every chunk."""
+        self.slots[free_slot].importing = True
+        if not req.prompt_counted:
+            self.counters["prompt_tokens_total"] += len(req.prompt_tokens)
+            req.prompt_counted = True
+
+    def _begin_imported(self, slot_idx: int, first: int, n: int) -> None:
+        req = self.slots[slot_idx].request
+        if not req.prompt_counted:
+            self.counters["prompt_tokens_total"] += n
+            req.prompt_counted = True
+        self._begin_decode(slot_idx, first, n)
+
+    def _advance_imports(self) -> bool:
+        """Assemble arrived chunks of the importing slots into host
+        buffers (a bounded amount a call, so a large transfer never
+        stalls the others' decode), then ONE in-place write and the
+        decode start when the last one lands.  A transient failure
+        (the puller's network) with retries left recomputes locally; a
+        pool fetch's failure always does; anything else fails the
+        request with a 502."""
+        did = False
+        for i, slot in enumerate(self.slots):
+            req = slot.request
+            if req is None or not slot.importing:
+                continue
+            ci = req.kv_chunked
+            err, transient = ci.error, ci.transient
+            if err is None:
+                try:
+                    FAILPOINTS.fire("engine.kv_import", req_id=req.req_id)
+                    if ci.assemble():
+                        did = True
+                    if ci.complete and req.kv_prefix_tokens > 0:
+                        self._finish_prefix_import(i, ci)
+                        did = True
+                    elif ci.complete:
+                        n = len(req.prompt_tokens)
+                        n_pages = -(-n // self.cfg.page_size)
+                        # _begin_decode writes loop state the window in
+                        # flight advances on the device
+                        self._drain_pipeline()
+                        t0 = time.monotonic()
+                        import_arrays(self.cache, slot.pages[:n_pages],
+                                      *ci.full_arrays())
+                        self.tracer.record("kv.import.chunked", req.trace_id, t0,
+                                           time.monotonic() - t0, pages=n_pages)
+                        slot.importing = False
+                        self._begin_imported(i, ci.first_token, n)
+                        did = True
+                except Exception as e:
+                    # assembly and write failures are not transient: the
+                    # bytes are wrong, and the same transfer fails again
+                    err, transient = f"{type(e).__name__}: {e}", False
+            if err is None:
+                continue
+            self._evict_slot(i, commit=False)
+            did = True
+            if req.kv_prefix_tokens > 0:
+                # the pool is an optimization: any fetch failure recomputes
+                req.kv_chunked = None
+                req.kv_prefix_tokens = 0
+                self.counters["kv_pool_fetch_failures_total"] += 1
+                logger.warning("KV pool fetch for %s failed (%s); recomputing "
+                               "locally", req.req_id, err)
+                self._requeue_front(req)
+            elif transient and req.kv_retries > 0:
+                req.kv_retries -= 1
+                req.kv_chunked = None
+                self.counters["kv_import_retries_total"] += 1
+                logger.warning("KV import for %s failed transiently (%s); falling "
+                               "back to local recompute", req.req_id, err)
+                self._requeue_front(req)
+            else:
+                logger.warning("KV import failed for %s: %s", req.req_id, err)
+                req.error = {"status": 502, "type": "kv_transfer_failed",
+                             "message": f"KV import failed: {err}"}
+                self._fail_request(req)
+        return did
+
+    def _finish_prefix_import(self, i: int, ci: ChunkedImport) -> None:
+        """Write a completed pool fetch's verified whole-page prefix into
+        the slot's pages and hand the slot back to the prefill scheduler
+        for the rest; the local store then holds the prefix too."""
+        slot = self.slots[i]
+        req = slot.request
+        ps = self.cfg.page_size
+        n_use = req.kv_prefix_tokens // ps
+        # copies, not views: a view would pin the whole assembly buffers
+        # for as long as the replicated store entry lives
+        arrs = [a[:, :n_use].clone() for a in ci.full_arrays()]
+        t0 = time.monotonic()
+        import_arrays(self.cache, slot.pages[:n_use], *arrs)
+        self.tracer.record("kv.pool.import", req.trace_id, t0, time.monotonic() - t0,
+                           pages=n_use)
+        slot.importing = False
+        slot.prefill_pos = max(slot.prefill_pos, req.kv_prefix_tokens)
+        self.counters["kv_pool_fetches_total"] += 1
+        self.counters["kv_pool_fetched_tokens_total"] += req.kv_prefix_tokens
+        if self.kv_pool is not None and len(req.pool_blocks) >= n_use:
+            blocks = list(req.pool_blocks[:n_use])
+            key = pool_key(blocks)
+            if not self.kv_pool.has(key):
+                exp = HostExport(*arrs, n_tokens=n_use * ps, model=self.md.name,
+                                 prompt_tokens=req.prompt_tokens[:n_use * ps])
+                self.kv_pool.put(PoolEntry(key=key, blocks=blocks, n_tokens=n_use * ps,
+                                           n_pages=n_use, export=exp,
+                                           nbytes=meta_nbytes(exp.meta)))
 
     # ------------------------------------------------------------------
     # Prefill
@@ -1611,7 +2039,7 @@ class InferenceEngine:
 
     def _staged(self) -> list[int]:
         return [i for i, s in enumerate(self.slots)
-                if s.request is not None and s.prefilling]
+                if s.request is not None and s.prefilling and not s.importing]
 
     def _advance_prefill_single(self) -> bool:
         """ONE bounded prefill chunk for one staged slot (round-robin)."""
@@ -1702,6 +2130,7 @@ class InferenceEngine:
             wait = 0.0
             if not slot.prefill_t0:
                 slot.prefill_t0 = t0
+                slot.prefill_base = pos
                 if slot.staged_t0:
                     wait = max(0.0, t0 - slot.staged_t0)
                 self.prefill_wait_hist.observe(wait)
@@ -1724,8 +2153,16 @@ class InferenceEngine:
         idxs = [i for (i, _, _) in completed]
         toks, lps = self._sample_first_batch(
             idxs, torch.cat([lg for (_, _, lg) in completed]))
+        t_done = time.monotonic()
         for (i, n, _), tok, lp in zip(completed, toks, lps):
-            req = self.slots[i].request
+            slot = self.slots[i]
+            req = slot.request
+            if slot.prefill_t0:
+                # the sampler read the logits back, so the elapsed time
+                # covers the real compute (and the scheduler's
+                # interleaving): the recompute rate of the break-even
+                self.pd_costs.note_prefill(n - slot.prefill_base,
+                                           t_done - slot.prefill_t0)
             if not req.prompt_counted:
                 # resume-after-preempt re-prefills prompt+generated; only
                 # the original prompt counts
@@ -1892,6 +2329,10 @@ class InferenceEngine:
         self.tracer.record("preempt", req.trace_id, time.monotonic(), 0.0,
                            slot=victim)
         self._evict_slot(victim, commit=True)
+        # imported KV is spent (evicted above, uncommitted): the resume
+        # takes the normal prefill path, and a pool fetch is spent too
+        req.kv_import = req.kv_chunked = req.kv_device = None
+        req.kv_prefix_tokens = 0
         if not will_requeue:
             # the sequence already fills the whole pool and cannot be
             # re-admitted; every token was emitted — finish at the cap
@@ -1914,7 +2355,8 @@ class InferenceEngine:
         tensor-parallel pool spills its own pages."""
         slot = self.slots[slot_idx]
         req = slot.request
-        if self.host_kv is None or slot.prefilling:
+        if self.host_kv is None or slot.prefilling or req.kv_import is not None \
+                or req.kv_chunked is not None:
             return
         written = slot.position
         n_pages = -(-written // self.cfg.page_size)
@@ -2434,7 +2876,8 @@ class InferenceEngine:
         if self._waiting_count > 0 and (
                 self.qos is not None or any(s.request is None for s in self.slots)):
             return True
-        return any(s.request is not None and (s.prefilling or s.request.aborted)
+        return any(s.request is not None and ((s.prefilling and not s.importing)
+                                              or s.request.aborted)
                    for s in self.slots)
 
     def _needs_sync_decode(self) -> bool:
@@ -2478,6 +2921,7 @@ class InferenceEngine:
         schedule, but fused windows go through the two-deep pipeline, and
         the host replays window N while window N+1 runs."""
         did0 = self._sweep_deadlines()
+        self._tick_exports()
         if self._must_drain():
             self._drain_pipeline()
         pend = self._inflight[0] if self._inflight is not None else 0
@@ -2491,6 +2935,8 @@ class InferenceEngine:
                 pend = 0
             self._ensure_decode_pages(la + pend)
         did = self._admit_new() or did0
+        if self._advance_imports():
+            did = True
         decoding = bool(self.active.any())
         steps_run = 0
         if decoding:
@@ -2824,6 +3270,61 @@ class InferenceEngine:
             max_emitted = max(max_emitted, n_emit[r])
         return max_emitted
 
+    def _stage_export(self, slot_idx: int) -> None:
+        """The prefill role's export: the prompt's pages gathered on the
+        device (an event recorded after the gather) and put in the
+        registry; the host drain starts with the first host consumer, so
+        a colocated decode engine takes the device copy instead."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        n = len(req.prompt_tokens)
+        n_pages = -(-n // self.cfg.page_size)
+        t0 = time.monotonic()
+        exp = stage_export(self.cache, slot.pages[:n_pages], n_tokens=n,
+                           model=self.md.name, prompt_tokens=list(req.prompt_tokens),
+                           first_token=req.output_tokens[0], lazy_drain=True,
+                           trace_id=req.trace_id)
+        if req.adapter:
+            # the decode role reuses same-adapter KV only (a base export
+            # keeps the JAX writer's meta byte for byte)
+            exp.meta["adapter"] = req.adapter
+        self.kv_exports.put(req.req_id, exp)
+        self.tracer.record("kv.export.stage", req.trace_id, t0, time.monotonic() - t0,
+                           pages=n_pages)
+
+    def _publish_prefix(self, slot_idx: int) -> None:
+        """Publish a finished request's whole-page prompt prefix into the
+        pool store: the device gather here, the host drain on the
+        export's own thread.  An adapter request publishes under its
+        adapter-seeded chain, and its meta names the adapter."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        if not req.pool_blocks:
+            return
+        ps = self.cfg.page_size
+        # whole pages, never more than hash blocks (the advert pairs page
+        # i with block hash i)
+        n_pages = min(len(req.prompt_tokens) // ps, len(req.pool_blocks))
+        if n_pages * ps < (self.cfg.kv_pool_min_tokens or ps):
+            return
+        blocks = list(req.pool_blocks[:n_pages])
+        key = pool_key(blocks)
+        if self.kv_pool.has(key):
+            return
+        t0 = time.monotonic()
+        exp = stage_export(self.cache, slot.pages[:n_pages], n_tokens=n_pages * ps,
+                           model=self.md.name,
+                           prompt_tokens=req.prompt_tokens[:n_pages * ps],
+                           first_token=-1, trace_id=req.trace_id)
+        if req.adapter:
+            exp.meta["adapter"] = req.adapter
+        self.kv_pool.put(PoolEntry(key=key, blocks=blocks, n_tokens=n_pages * ps,
+                                   n_pages=n_pages, export=exp,
+                                   nbytes=meta_nbytes(exp.meta)))
+        self.counters["kv_pool_published_total"] += 1
+        self.tracer.record("kv.pool.publish", req.trace_id, t0, time.monotonic() - t0,
+                           pages=n_pages)
+
     def _stop_set(self, req: Request) -> set:
         stop_ids = set(req.params.stop_token_ids)
         eos = self.tokenizer.eos_token_id
@@ -2872,6 +3373,16 @@ class InferenceEngine:
         if token in stop_ids or slot.remaining <= 0 or req.aborted:
             req.finish_reason = "stop" if token in stop_ids else "length"
             req.finish_time = time.monotonic()
+            # both gathers run before _evict_slot, while the pages still
+            # hold the request's KV (the gathers copy them)
+            if req.export_kv:
+                self._stage_export(slot_idx)
+            if self.kv_pool is not None:
+                try:
+                    self._publish_prefix(slot_idx)
+                except Exception:
+                    # an optimization: it never takes the request down
+                    logger.exception("KV pool publish failed for %s", req.req_id)
             self._finish_trace(req)
             req.out.put(None)
             if self.host_kv is not None:

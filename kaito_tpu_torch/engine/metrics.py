@@ -281,11 +281,10 @@ def _counter_fn(engine, key: str):
 
 class EngineMetrics:
     """The engine's metric families (names mirror vLLM's so the KEDA
-    scaler/EPP configs translate 1:1).  The features the port has not
-    ported yet (P/D) keep their families at the values the JAX server
-    reads with them off: the engine's counters, absent until a later
-    slice adds them, read 0; the host KV tier's read 0 with the tier
-    off.  The per-tenant families exist only with a QoS config
+    scaler/EPP configs translate 1:1).  The host KV tier's families read
+    0 with the tier off; the ``kaito:kv_pool_*`` ones exist only with the
+    cluster KV pool on, the ``kaito:kv_tier_*`` ones only with its disk
+    tier.  The per-tenant families exist only with a QoS config
     (``qos``), the ITL ones only with the engine's ITL recorder on, the
     ``kaito:adapter_*`` ones only with the adapter cache on (or a
     boot-time refusal counted), the ``kaito:device_*`` ones only with
@@ -425,6 +424,58 @@ class EngineMetrics:
                  "Entries LRU-evicted from the host KV offload tier",
                  lambda p: p.evicted_entries)):
             Gauge(f"kaito:{name}", help_, r, fn=host_kv(read))
+        if getattr(engine, "kv_pool", None) is not None:
+            # the cluster KV pool: the families exist only with it on
+            # (collect() emits HELP/TYPE even for a zero series)
+            pool = engine.kv_pool
+            for name, help_, fn in (
+                    ("kv_pool_entries", "Prefix entries in the cluster KV pool store",
+                     lambda: len(pool)),
+                    ("kv_pool_bytes_used", "Host bytes held by the cluster KV pool store",
+                     lambda: pool.used_bytes),
+                    ("kv_pool_published_total", "Prefix entries published to the pool "
+                     "store", lambda: pool.published_total),
+                    ("kv_pool_evictions_total", "Prefix entries LRU-evicted from the pool "
+                     "store", lambda: pool.evictions_total),
+                    ("kv_pool_hits_total", "Pool fetch handshakes served from the store",
+                     lambda: pool.hits_total),
+                    ("kv_pool_misses_total", "Pool fetch handshakes that missed (evicted)",
+                     lambda: pool.misses_total),
+                    ("kv_pool_fetches_total", "Cross-replica prefix fetches imported",
+                     _counter_fn(engine, "kv_pool_fetches_total")),
+                    ("kv_pool_fetched_tokens_total", "Prompt tokens imported via "
+                     "cross-replica fetch", _counter_fn(engine, "kv_pool_fetched_tokens_total")),
+                    ("kv_pool_fetch_failures_total", "Prefix fetches that fell back to "
+                     "local recompute", _counter_fn(engine, "kv_pool_fetch_failures_total"))):
+                Gauge(f"kaito:{name}", help_, r, fn=fn)
+        if getattr(engine, "kv_tier", None) is not None:
+            # the pool's disk tier: the families exist only with it on
+            tier = engine.kv_tier
+            Gauge("kaito:kv_tier_hits_total", "Local tiered-probe hits by serving tier",
+                  r, labels=("tier",),
+                  fn=lambda: {("host",): float(engine.counters["kv_tier_host_hits_total"]),
+                              ("disk",): float(engine.counters["kv_tier_disk_hits_total"])})
+            for name, help_, fn in (
+                    ("kv_tier_entries", "Prefix entries resident in the SSD tier",
+                     lambda: len(tier)),
+                    ("kv_tier_bytes_used", "SSD bytes held by the disk tier (slabs + "
+                     "meta)", lambda: tier.used_bytes),
+                    ("kv_tier_spills_total", "Host-LRU victims persisted to the SSD tier",
+                     lambda: tier.spills_total),
+                    ("kv_tier_evictions_total", "Entries pruned from the SSD tier by its "
+                     "byte budget", lambda: tier.evictions_total),
+                    ("kv_tier_errors_total", "Corrupt slabs, failed writes, truncated "
+                     "reads in the SSD tier", lambda: tier.errors_total),
+                    ("kv_tier_import_tokens_total", "Prompt tokens imported from the "
+                     "local host/SSD tiers instead of recomputed",
+                     _counter_fn(engine, "kv_tier_import_tokens_total")),
+                    ("kv_tier_spill_drops_total", "Evicted entries dropped because the "
+                     "spill queue was full",
+                     _counter_fn(engine, "kv_tier_spill_drops_total")),
+                    ("kv_tier_disk_read_bytes_per_s", "Measured EWMA SSD read bandwidth "
+                     "feeding the break-even veto (0 before the first sample)",
+                     lambda: engine.pd_costs.snapshot()["disk_bytes_s"] or 0.0)):
+                Gauge(f"kaito:{name}", help_, r, fn=fn)
         if engine.async_dispatch:
             # the family exists only with the async loop on, like the
             # dispatch-gap histogram above
@@ -545,12 +596,14 @@ class EngineMetrics:
         # structured output: the collector itself gates on the first
         # constrained request
         r.register(_GrammarCollector(engine))
-        # the P/D cost model's live constants (ROADMAP M18): 0 until the
-        # first observed transfer / prefill provides a sample
+        # the P/D cost model's live constants: 0 until the first observed
+        # transfer / prefill provides a sample
         Gauge("kaito:pd_measured_net_bytes_s",
-              "EWMA observed KV transfer bandwidth", r, fn=lambda: 0)
+              "EWMA observed KV transfer bandwidth", r,
+              fn=lambda: engine.pd_costs.snapshot()["net_bytes_s"] or 0)
         Gauge("kaito:pd_measured_prefill_tok_s",
-              "EWMA observed prefill throughput", r, fn=lambda: 0)
+              "EWMA observed prefill throughput", r,
+              fn=lambda: engine.pd_costs.snapshot()["prefill_tok_s"] or 0)
 
     def observe_request(self, req) -> None:
         if req.first_token_time:

@@ -65,7 +65,21 @@ none running, answers 409.  The host KV tier takes
 ``--kaito-kv-cache-cpu-memory-utilization`` (``KAITO_KV_CPU_MEM_UTIL``):
 the fraction of the host's RAM that preempted sequences spill to.
 
-Not ported yet: P/D and ``kv_transfer``, the KV pool.  They answer 501.
+P/D disaggregation (``--pd-enabled``, else 403): ``POST /pd/prefill``
+runs a prompt on the prefill role and stages its KV; the decode role
+pulls it with ``kv_transfer`` in a completion body (``source_url``,
+``req_id``, ``prompt_tokens``, ``first_token``; ``"wire": "http"``
+forces the chunked wire, ``force`` skips the break-even): from an engine
+served in this process a device-to-device copy, else the chunked wire
+(``/pd/kv/<id>/meta``, ``/pd/kv/<id>/chunk/<i>``, ``DELETE /pd/kv/<id>``;
+``/pd/kv/<id>`` the whole slab).  ``--pd-source-allowlist`` bounds where
+KV may come from (403); an adapter mismatch answers 409.  The cluster KV
+pool (``--kv-pool``, else 403): ``/debug/kv_pool`` advertises the
+published prefixes, ``/kv_pool/<key>/meta`` and ``/chunk/<i>`` serve
+them, and a completion carrying ``X-Kaito-KV-Fetch`` /
+``X-Kaito-KV-Fetch-Key`` fetches its prefix from that peer; with
+``--kv-pool-disk-bytes`` a completion first probes this replica's host
+store and slab directory.  ``/ui`` answers 501.
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
 llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
@@ -99,6 +113,10 @@ from kaito_tpu_torch.engine.chat import render_chat
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.devprof import ManualTrace
 from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+from kaito_tpu_torch.engine.kv_pool import (common_prefix_pages, pool_block_chars,
+                                            pool_key, prompt_pool_blocks)
+from kaito_tpu_torch.engine.pd import (ChunkPlan, pack_transfer, should_import_from_disk,
+                                      should_transfer)
 from kaito_tpu_torch.engine.grammar import (GrammarError, GrammarSpec, canonical_schema,
                                             spec_from_response_format,
                                             tool_envelope_schema)
@@ -109,6 +127,7 @@ from kaito_tpu_torch.engine.parsers import (StreamingToolCallParser,
 from kaito_tpu_torch.engine.qos import valid_tenant
 from kaito_tpu_torch.engine.rate_limit import RateLimiter
 from kaito_tpu_torch.models.registry import get_model_by_name, resolve_speculative_draft
+from kaito_tpu_torch.runtime.routing import extract_prompt_text
 from kaito_tpu_torch.runtime.slo import SLOTargets, SLOWatchdog, engine_chip_count
 from kaito_tpu_torch.utils.tracing import (chrome_trace, make_request_id,
                                            parse_traceparent, sanitize_request_id)
@@ -116,8 +135,7 @@ from kaito_tpu_torch.utils.tracing import (chrome_trace, make_request_id,
 logger = logging.getLogger(__name__)
 
 # routes of the JAX server that later slices port (ROADMAP queue 1)
-_UNPORTED_GET = ("/debug/kv_pool", "/pd/", "/kv_pool/", "/ui")
-_UNPORTED_POST = ("/pd/",)
+_UNPORTED_GET = ("/ui",)
 
 # the 429's message for each shed reason of RateLimiter.shed_reason
 _SHED_MESSAGES = {
@@ -273,9 +291,12 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         """This request's end-to-end trace id: the client's
         ``X-Request-Id`` wins, then the trace id of an inbound W3C
         ``traceparent``, else a fresh id.  Every response echoes it."""
-        self._rid = (sanitize_request_id(self.headers.get("X-Request-Id"))
-                     or parse_traceparent(self.headers.get("traceparent"))
-                     or make_request_id())
+        client = (sanitize_request_id(self.headers.get("X-Request-Id"))
+                  or parse_traceparent(self.headers.get("traceparent")))
+        # a P/D decode role adopts the prefill's trace id unless the
+        # client named one
+        self._rid_client = bool(client)
+        self._rid = client or make_request_id()
 
     def _send(self, code: int, ctype: str, body: bytes,
               headers: Optional[dict] = None):
@@ -399,6 +420,26 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                        st.metrics.registry.expose().encode())
         elif self.path.startswith(_UNPORTED_GET):
             self._not_ported()
+        elif self.path.startswith("/pd/kv/"):
+            rest = self.path[len("/pd/kv/"):]
+            if rest.endswith("/meta"):
+                self._pd_kv_meta(rest[:-len("/meta")])
+            elif "/chunk/" in rest:
+                rid, _, idx = rest.partition("/chunk/")
+                self._pd_kv_chunk(rid, idx)
+            else:
+                self._pd_kv(rest)
+        elif self.path == "/debug/kv_pool":
+            self._kv_pool_advert()
+        elif self.path.startswith("/kv_pool/"):
+            rest = self.path[len("/kv_pool/"):]
+            if rest.endswith("/meta"):
+                self._kv_pool_meta(rest[:-len("/meta")])
+            elif "/chunk/" in rest:
+                key, _, idx = rest.partition("/chunk/")
+                self._kv_pool_chunk(key, idx)
+            else:
+                self._error(404, f"no route {self.path}")
         elif self.path.startswith("/debug/device"):
             self._debug_device()
         elif self.path.startswith("/debug/trace"):
@@ -423,8 +464,8 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             self._completions(chat=False)
         elif self.path == "/v1/chat/completions":
             self._completions(chat=True)
-        elif self.path.startswith(_UNPORTED_POST):
-            self._not_ported()
+        elif self.path == "/pd/prefill":
+            self._pd_prefill()
         elif self.path == "/v1/adapters":
             self._adapters_post()
         elif self.path == "/start_profile":
@@ -438,7 +479,14 @@ class OpenAIHandler(BaseHTTPRequestHandler):
 
     def do_DELETE(self):
         self._intake_trace()
-        if self.path.startswith("/v1/adapters/"):
+        if self.path.startswith("/pd/kv/"):
+            # the decode role declined the transfer (below break-even):
+            # release the staged export instead of waiting out its TTL
+            if not self._pd_enabled():
+                return self._error(403, "P/D disaggregation disabled on this pod")
+            gone = self.state.engine.kv_exports.pop(self.path[len("/pd/kv/"):])
+            self._json(200 if gone is not None else 404, {"released": gone is not None})
+        elif self.path.startswith("/v1/adapters/"):
             self._adapters_delete(self.path[len("/v1/adapters/"):])
         else:
             self._error(404, f"no route {self.path}")
@@ -649,6 +697,450 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             return self._error(500, "flight bundle write failed")
         self._json(200, {"bundle": name})
 
+    # ---------------- P/D disaggregation ----------------
+
+    def _pd_enabled(self) -> bool:
+        return bool(self.state.cfg.pd_enabled)
+
+    def _pd_prefill(self):
+        """Prefill-role entry: run the prompt, stage its KV for the pull,
+        answer the first sampled token.  The ``model`` field selects an
+        adapter as on /v1/completions; the staged meta records it."""
+        if not self._pd_enabled():
+            return self._error(403, "P/D disaggregation disabled on this pod")
+        st = self.state
+        body = self._read_body()
+        if body is None:
+            return
+        prompt = body.get("prompt", "")
+        if not isinstance(prompt, str) or not prompt:
+            return self._error(400, "'prompt' must be a non-empty string")
+        adapter, err = self._request_adapter(body.get("model") or "", "")
+        if err is not None:
+            return self._error(*err)
+        tokens = st.engine.tokenizer.encode(prompt)
+        try:
+            params = SamplingParams(
+                max_tokens=1, temperature=float(body.get("temperature", 1.0)),
+                top_k=int(body.get("top_k", 0) or 0),
+                top_p=float(body.get("top_p", 1.0)),
+                seed=int(body.get("seed", 0) or 0), ignore_eos=True)
+            req = st.engine.submit(tokens, params, req_id=f"pd-{uuid.uuid4().hex[:16]}",
+                                   export_kv=True, adapter=adapter, trace_id=self._rid)
+        except (TypeError, ValueError) as e:
+            return self._error(400, str(e))
+        toks = list(req.stream())
+        if not toks and req.finish_reason in ("error", "deadline"):
+            return self._request_error(req)
+        self._json(200, {"req_id": req.req_id, "request_id": self._rid,
+                         "first_token": req.output_tokens[0],
+                         "n_tokens": len(tokens), "prompt_tokens": tokens})
+
+    def _pd_kv(self, req_id: str):
+        """The whole slab in one body (small transfers); the chunked
+        endpoints below are the serving path.  The pop is the claim; on a
+        failure the export is put back for the retry (its blob is cached,
+        so the retry reads the same bytes)."""
+        if not self._pd_enabled():
+            return self._error(403, "P/D disaggregation disabled on this pod")
+        reg = self.state.engine.kv_exports
+        exp = reg.pop(req_id)
+        if exp is None:
+            return self._error(404, f"no staged KV for {req_id}")
+        try:
+            blob = pack_transfer(exp.meta, exp.whole_blob())
+        except Exception as e:
+            reg.put(req_id, exp)
+            return self._error(500, f"KV export drain failed: {e}")
+        try:
+            self._send(200, "application/octet-stream", blob)
+        except OSError:
+            reg.put(req_id, exp)
+            raise
+
+    def _pd_kv_meta(self, req_id: str):
+        """The chunk-plan handshake: the meta, nothing consumed.  A remote
+        puller is here, so the (lazy) drain starts now."""
+        if not self._pd_enabled():
+            return self._error(403, "P/D disaggregation disabled on this pod")
+        exp = self.state.engine.kv_exports.get(req_id)
+        if exp is None:
+            return self._error(404, f"no staged KV for {req_id}")
+        exp.ensure_draining()
+        self._json(200, {"meta": exp.meta, "n_chunks": exp.n_chunks})
+
+    def _pd_kv_chunk(self, req_id: str, idx: str):
+        """Pull ONE chunk, waiting for the drain to land it; a chunk is
+        consumed by its read (a second pull answers 410) and the export
+        drops once every chunk is served."""
+        if not self._pd_enabled():
+            return self._error(403, "P/D disaggregation disabled on this pod")
+        reg = self.state.engine.kv_exports
+        exp = reg.get(req_id)
+        if exp is None:
+            return self._error(404, f"no staged KV for {req_id}")
+        try:
+            data = exp.get_chunk(int(idx))
+        except (IndexError, ValueError) as e:
+            return self._error(400, str(e))
+        except KeyError as e:
+            return self._error(410, str(e))
+        except Exception as e:
+            return self._error(500, f"chunk read failed: {e}")
+        try:
+            self._send(200, "application/octet-stream", data)
+        except OSError:
+            # the client vanished mid-write: un-consume for its retry
+            exp.restage_chunk(int(idx), data)
+            reg.put(req_id, exp)
+            raise
+        reg.drop_served(req_id)
+
+    def _adopt_handoff_trace(self, meta: dict) -> None:
+        """The decode role adopts the trace id the prefill role stamped
+        into the staged meta when the client sent none: both roles' spans
+        land under ONE id."""
+        if not self._rid_client and meta.get("trace_id"):
+            self._rid = str(meta["trace_id"])
+
+    def _allowed_source(self, url: str) -> bool:
+        allow = [p for p in self.state.cfg.pd_source_allowlist.split(",") if p]
+        return not allow or any(url.startswith(pref) for pref in allow)
+
+    def _submit_with_transfer(self, kv_src: dict, params, req_id: str, *,
+                              timeout_s: float = 0.0, tenant: str = "",
+                              priority: str = "", adapter: str = ""):
+        """Continue decoding from a prefill role's staged KV: from an
+        engine served in this process, one device-to-device copy; else
+        the chunked wire (a handshake, then a puller thread feeding the
+        engine while it admits the request).  A greedy request below the
+        transfer-vs-recompute break-even prefills locally instead (the
+        export is released); ``force`` skips that test.  Only
+        same-adapter KV is reused (409).  Returns the request, or None
+        once an error was sent."""
+        import urllib.request
+
+        if not self._pd_enabled():
+            self._error(403, "P/D disaggregation disabled on this pod")
+            return None
+        url = str(kv_src.get("source_url", "")).rstrip("/")
+        src_id = str(kv_src.get("req_id", ""))
+        if not url or not src_id:
+            self._error(400, "kv_transfer needs source_url and req_id")
+            return None
+        if not self._allowed_source(url):
+            self._error(403, f"kv_transfer source {url!r} not in allowlist")
+            return None
+        prompt_tokens = list(kv_src.get("prompt_tokens") or [])
+        first = int(kv_src.get("first_token", 0))
+        eng = self.state.engine
+        qos = dict(timeout_s=timeout_s, tenant=tenant, priority=priority)
+        if kv_src.get("wire", "auto") != "http":
+            src_eng = lookup_local_engine(url)
+            staged = src_eng.kv_exports.pop(src_id) if src_eng is not None else None
+            if staged is not None:
+                # the prefill engine staged the true token list: a client
+                # claiming other tokens must not decode over this slab
+                if staged.prompt_tokens and prompt_tokens != staged.prompt_tokens:
+                    src_eng.kv_exports.put(src_id, staged)
+                    self._error(400, "kv_transfer prompt_tokens do not match the "
+                                     "staged prefill")
+                    return None
+                if str(staged.meta.get("adapter") or "") != adapter:
+                    src_eng.kv_exports.put(src_id, staged)
+                    self._error(409, f"kv_transfer adapter mismatch: prefill ran "
+                                     f"{staged.meta.get('adapter') or 'base'!r}, "
+                                     f"request wants {adapter or 'base'!r}")
+                    return None
+                slabs = staged.device_slabs()
+                if slabs is not None:
+                    self._adopt_handoff_trace(staged.meta)
+                    try:
+                        return eng.submit_with_kv_device(
+                            prompt_tokens, first, staged.meta, slabs, params,
+                            req_id=req_id, trace_id=self._rid, adapter=adapter,
+                            event=staged.event, **qos)
+                    except ValueError:
+                        # a refused submit keeps the prefill's result
+                        src_eng.kv_exports.put(src_id, staged)
+                        raise
+                # a remote drain released the slabs: take the wire
+                src_eng.kv_exports.put(src_id, staged)
+        c0 = eng._shard_caches()[0]
+        arch = eng.md.arch
+        # an int8 pool moves fp32 page scales beside the codes
+        scale_bpt = (8.0 * arch.num_layers * arch.num_kv_heads / max(1, eng.cfg.page_size)
+                     if c0.k_scale is not None else 0.0)
+        # recomputing re-samples the first token locally, which only a
+        # greedy request reproduces
+        if (not kv_src.get("force") and params.temperature == 0.0
+                and not should_transfer(len(prompt_tokens), arch, c0.k.element_size(),
+                                        scale_bytes_per_token=scale_bpt,
+                                        measured=eng.pd_costs)):
+            logger.info("kv_transfer below break-even (%d tokens); recomputing "
+                        "locally", len(prompt_tokens))
+
+            def release():
+                # off the request path: an unreachable prefill pod adds no
+                # timeout to a request that no longer needs it
+                try:
+                    urllib.request.urlopen(urllib.request.Request(
+                        f"{url}/pd/kv/{src_id}", method="DELETE"), timeout=10)
+                except Exception:
+                    pass
+            threading.Thread(target=release, daemon=True, name="pd-release").start()
+            return eng.submit(prompt_tokens, params, req_id=req_id, adapter=adapter,
+                              trace_id=self._rid, **qos)
+        try:
+            with urllib.request.urlopen(f"{url}/pd/kv/{src_id}/meta", timeout=30) as r:
+                meta = json.loads(r.read())["meta"]
+            plans = [ChunkPlan.from_json(c) for c in meta["chunks"]]
+        except Exception as e:
+            self._error(502, f"KV meta pull from {url} failed: {e}")
+            return None
+        if str(meta.get("adapter") or "") != adapter:
+            self._error(409, f"kv_transfer adapter mismatch: prefill ran "
+                             f"{meta.get('adapter') or 'base'!r}, request wants "
+                             f"{adapter or 'base'!r}")
+            return None
+        self._adopt_handoff_trace(meta)
+        req = eng.submit_with_kv_chunked(prompt_tokens, first, meta, plans, params,
+                                         req_id=req_id, trace_id=self._rid,
+                                         adapter=adapter, **qos)
+        self._start_puller(req, [f"{url}/pd/kv/{src_id}/chunk/{i}"
+                                 for i in range(len(plans))],
+                           eng.pd_costs.note_transfer, "pd-chunk-puller")
+        return req
+
+    def _start_puller(self, req, urls: list, note, name: str) -> None:
+        """A thread pulling ``urls`` into ``req``'s chunked import; its
+        failure is transient (the engine then recomputes)."""
+        import urllib.request
+
+        eng = self.state.engine
+
+        def pull():
+            ci = req.kv_chunked
+            u = ""
+            try:
+                t0, nbytes = time.monotonic(), 0
+                for i, u in enumerate(urls):
+                    with urllib.request.urlopen(u, timeout=120) as r:
+                        data = r.read()
+                    nbytes += len(data)
+                    ci.feed(i, data)
+                    eng._wake.set()
+                # pure wire time, the link sample of the break-even
+                note(nbytes, time.monotonic() - t0)
+            except Exception as e:
+                ci.set_error(f"chunk pull from {u} failed: {e}", transient=True)
+                eng._wake.set()
+
+        threading.Thread(target=pull, daemon=True, name=name).start()
+
+    # ---------------- the cluster KV pool ----------------
+
+    def _kv_pool_advert(self):
+        """The holder advert for the router's prefix index: the store's
+        keys with their per-page block-hash chains (metadata only)."""
+        eng = self.state.engine
+        pool = eng.kv_pool
+        if pool is None:
+            return self._error(403, "KV pool disabled on this pod")
+        ps = eng.cfg.page_size
+        cap = int(eng.cfg.kv_pool_advert_max)
+        total = len(pool)
+        entries = pool.advert(max_entries=cap)
+        self._json(200, {"enabled": True, "page_size": ps,
+                         "block_chars": pool_block_chars(ps), "total": total,
+                         "capped": bool(cap and total > len(entries)),
+                         "entries": entries})
+
+    def _kv_pool_meta(self, key: str):
+        """The fetch handshake: chunk plans plus the entry's exact prompt
+        tokens (the fetcher imports only the common whole pages).  A
+        dropped entry is a 404, which the fetcher treats as a miss."""
+        pool = self.state.engine.kv_pool
+        if pool is None:
+            return self._error(403, "KV pool disabled on this pod")
+        entry = pool.get(key)
+        if entry is None:
+            return self._error(404, f"no pool entry {key}")
+        exp = entry.export
+        exp.ensure_draining()
+        self._json(200, {"meta": exp.meta, "n_chunks": exp.n_chunks,
+                         "n_tokens": entry.n_tokens,
+                         "prompt_tokens": list(exp.prompt_tokens)})
+
+    def _kv_pool_chunk(self, key: str, idx: str):
+        """ONE chunk of a pool entry over the P/D wire format, never
+        consumed: an entry serves any number of fetches until evicted."""
+        pool = self.state.engine.kv_pool
+        if pool is None:
+            return self._error(403, "KV pool disabled on this pod")
+        entry = pool.peek(key)
+        if entry is None:
+            return self._error(410, f"pool entry {key} dropped")
+        try:
+            data = entry.export.get_chunk(int(idx), consume=False)
+        except (IndexError, ValueError) as e:
+            return self._error(400, str(e))
+        except Exception as e:
+            return self._error(500, f"chunk read failed: {e}")
+        self._send(200, "application/octet-stream", data)
+
+    def _submit_with_pool(self, tokens, params, req_id: str, pool_blocks, **qos):
+        """With the pool on: this replica's host store and slab directory
+        first (with the disk tier), then the peer an ``X-Kaito-KV-Fetch``
+        header names; None when neither serves (a plain submit follows)."""
+        req = None
+        if self.state.engine.kv_tier is not None:
+            req = self._submit_with_local_tier(tokens, params, req_id, pool_blocks, **qos)
+        url = self.headers.get("X-Kaito-KV-Fetch", "")
+        key = self.headers.get("X-Kaito-KV-Fetch-Key", "")
+        if req is None and url and key:
+            req = self._submit_with_pool_fetch(url, key, tokens, params, req_id,
+                                               pool_blocks, **qos)
+        return req
+
+    def _submit_prefix(self, tokens, params, req_id, meta, plans, n_prefix,
+                       pool_blocks, qos: dict):
+        return self.state.engine.submit_with_kv_prefix(
+            tokens, meta, plans, n_prefix, params, req_id=req_id, trace_id=self._rid,
+            pool_blocks=pool_blocks, **qos)
+
+    def _submit_with_pool_fetch(self, url: str, key: str, tokens, params, req_id: str,
+                                pool_blocks, **qos):
+        """Fetch the prompt's prefix from the peer the router named and
+        prefill only the rest.  None on any ineligibility or failure:
+        the pool only ever removes work."""
+        import urllib.request
+
+        eng = self.state.engine
+        url = url.rstrip("/")
+        # the P/D trust boundary bounds whose bytes enter the pool
+        if not self._allowed_source(url):
+            logger.info("kv_pool fetch source %s not in allowlist", url)
+            return None
+        try:
+            with urllib.request.urlopen(f"{url}/kv_pool/{key}/meta", timeout=10) as r:
+                hs = json.loads(r.read())
+            meta = hs["meta"]
+            plans = [ChunkPlan.from_json(c) for c in meta["chunks"]]
+            entry_tokens = hs.get("prompt_tokens") or []
+        except Exception as e:
+            logger.info("kv_pool meta pull from %s failed: %s", url, e)
+            return None
+        ps = eng.cfg.page_size
+        # the hashes indexed the entry; the tokens decide what imports
+        n_pages = common_prefix_pages(tokens, entry_tokens, ps)
+        if n_pages <= 0:
+            return None
+        n_prefix = n_pages * ps
+        # the engine vetoes only when its own MEASURED rates disagree (a
+        # fresh replica has none: the scale-out case the pool exists for)
+        snap = eng.pd_costs.snapshot()
+        if snap.get("net_bytes_s") and snap.get("prefill_tok_s"):
+            c0 = eng._shard_caches()[0]
+            arch = eng.md.arch
+            scale_bpt = (8.0 * arch.num_layers * arch.num_kv_heads / max(1, ps)
+                         if c0.k_scale is not None else 0.0)
+            if not should_transfer(n_prefix, arch, c0.k.element_size(),
+                                   scale_bytes_per_token=scale_bpt,
+                                   measured=eng.pd_costs):
+                logger.info("kv_pool fetch below measured break-even (%d tokens); "
+                            "recomputing locally", n_prefix)
+                return None
+        try:
+            req = self._submit_prefix(tokens, params, req_id, meta, plans, n_prefix,
+                                      pool_blocks, qos)
+        except ValueError as e:
+            logger.info("kv_pool fetch submit rejected: %s", e)
+            return None
+        self._start_puller(req, [f"{url}/kv_pool/{key}/chunk/{i}"
+                                 for i in range(len(plans))],
+                           eng.pd_costs.note_transfer, "kv-pool-puller")
+        return req
+
+    def _submit_with_local_tier(self, tokens, params, req_id: str, pool_blocks, **qos):
+        """This replica's own tiers before any peer or a recompute: the
+        host store's longest resident prefix, else the slab directory's
+        (a disk read below the measured break-even recomputes).  None on
+        any miss or ineligibility."""
+        eng = self.state.engine
+        pool, tier = eng.kv_pool, eng.kv_tier
+        if not pool_blocks:
+            return None
+        ps = eng.cfg.page_size
+
+        def feed(req, read, note, name):
+            def run():
+                ci = req.kv_chunked
+                try:
+                    t0, fed = time.monotonic(), 0
+                    for i in range(ci.n_chunks):
+                        data = read(i)
+                        fed += len(data)
+                        ci.feed(i, data)
+                        eng._wake.set()
+                    if note is not None:
+                        note(fed, time.monotonic() - t0)
+                except Exception as e:
+                    # the engine's fetch-failure path recomputes
+                    ci.set_error(f"{name} failed: {e}", transient=True)
+                    eng._wake.set()
+            threading.Thread(target=run, daemon=True, name=name).start()
+
+        # the host store: peek during the scan, one get() on the entry
+        # chosen (a hit and an LRU touch, as a remote handshake counts)
+        entry = None
+        for n in range(len(pool_blocks), 0, -1):
+            entry = pool.peek(pool_key(pool_blocks[:n]))
+            if entry is not None:
+                break
+        if entry is not None:
+            exp = entry.export
+            n_pages = common_prefix_pages(tokens, exp.prompt_tokens, ps)
+            if n_pages > 0:
+                try:
+                    req = self._submit_prefix(tokens, params, req_id, exp.meta,
+                                              exp.plans, n_pages * ps, pool_blocks, qos)
+                except ValueError as e:
+                    logger.info("kv_tier host import rejected: %s", e)
+                    return None
+                pool.get(entry.key)
+                eng.counters["kv_tier_host_hits_total"] += 1
+                eng.counters["kv_tier_import_tokens_total"] += n_pages * ps
+                exp.ensure_draining()
+                feed(req, lambda i: exp.get_chunk(i, consume=False), None,
+                     "kv-tier-host-feeder")
+                return req
+        hit = tier.lookup_longest(pool_blocks)
+        if hit is None:
+            return None
+        key, dmeta = hit
+        n_pages = common_prefix_pages(tokens, dmeta.get("prompt_tokens") or [], ps)
+        if n_pages <= 0:
+            return None
+        nbytes = sum(int(x) for x in dmeta["chunk_sizes"])
+        if not should_import_from_disk(nbytes, n_pages * ps, eng.pd_costs):
+            logger.info("kv_tier disk read below measured break-even (%d tokens); "
+                        "recomputing locally", n_pages * ps)
+            return None
+        try:
+            meta = dmeta["meta"]
+            plans = [ChunkPlan.from_json(c) for c in meta["chunks"]]
+            req = self._submit_prefix(tokens, params, req_id, meta, plans,
+                                      n_pages * ps, pool_blocks, qos)
+        except (KeyError, ValueError) as e:
+            logger.info("kv_tier disk import rejected: %s", e)
+            return None
+        eng.counters["kv_tier_disk_hits_total"] += 1
+        eng.counters["kv_tier_import_tokens_total"] += n_pages * ps
+        feed(req, lambda i: tier.read_chunk(key, i, dmeta), eng.pd_costs.note_disk_read,
+             "kv-tier-disk-feeder")
+        return req
+
     def _completions(self, chat: bool):
         st = self.state
         eng = st.engine
@@ -662,9 +1154,6 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         shed = st.limiter.shed_reason(eng, tenant=tenant)
         if shed is not None:
             return self._shed(shed)
-        if body.get("kv_transfer") is not None:
-            return self._error(501, "'kv_transfer' is not implemented by the "
-                                    "PyTorch engine yet", "not_implemented")
         tools, tool_choice = body.get("tools"), body.get("tool_choice")
         if not chat and (tools is not None or tool_choice is not None):
             return self._error(400, "'tools' and 'tool_choice' are only "
@@ -785,6 +1274,18 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         stop = body.get("stop")
         stop_strs = [stop] if isinstance(stop, str) else list(stop or [])
         tokens = eng.tokenizer.encode(prompt_text)
+        kv_src = body.get("kv_transfer")
+        # the cluster KV pool: the request hashed the way the router
+        # hashes it (the body's text, not the rendered template), the
+        # adapter seeding the chain
+        pool_blocks: list = []
+        if eng.kv_pool is not None:
+            pool_blocks = prompt_pool_blocks(extract_prompt_text(body),
+                                             eng.cfg.page_size, adapter=adapter)
+        if kv_src and n_choices > 1:
+            return self._error(400, "'n' > 1 is not supported with KV transfer")
+        if echo and kv_src:
+            return self._error(400, "prompt scoring with KV transfer is not supported")
         if echo:
             return self._score_prompt(body, tokens, prompt_text, want_lp)
         if n_choices > 1 and not params.seed:
@@ -793,13 +1294,25 @@ class OpenAIHandler(BaseHTTPRequestHandler):
             params = dataclasses.replace(params, seed=int(uuid.uuid4().hex[:8], 16) | 1)
         req_id = f"cmpl-{uuid.uuid4().hex[:20]}"
         reqs = []
+        qos = dict(timeout_s=timeout_s, tenant=tenant, priority=priority,
+                   adapter=adapter)
         try:
-            for ci in range(n_choices):
+            first = None
+            if kv_src:
+                first = self._submit_with_transfer(kv_src, params, req_id, **qos)
+                if first is None:
+                    return  # the error is sent
+                tokens = first.prompt_tokens
+            elif eng.kv_pool is not None:
+                first = self._submit_with_pool(tokens, params, req_id, pool_blocks, **qos)
+            if first is not None:
+                reqs.append(first)
+            for ci in range(len(reqs), n_choices):
                 reqs.append(eng.submit(
                     tokens, dataclasses.replace(params, seed=params.seed + ci),
                     req_id=req_id if ci == 0 else f"{req_id}-{ci}",
-                    trace_id=self._rid, timeout_s=timeout_s, tenant=tenant,
-                    priority=priority, adapter=adapter))
+                    trace_id=self._rid, pool_blocks=pool_blocks if ci == 0 else None,
+                    **qos))
         except ValueError as e:
             for r in reqs:
                 eng.abort(r)
@@ -1097,10 +1610,38 @@ def _chain(first, rest):
     yield from rest
 
 
+# Colocated P/D: the engines served from this process, by base URL.  A
+# kv_transfer whose source_url resolves here is a device-to-device copy
+# of the staged slab: no host bounce, no wire.
+_LOCAL_PD_ENGINES: dict[str, InferenceEngine] = {}
+_LOCAL_PD_LOCK = threading.Lock()
+
+
+def lookup_local_engine(url: str) -> Optional[InferenceEngine]:
+    with _LOCAL_PD_LOCK:
+        return _LOCAL_PD_ENGINES.get(url.rstrip("/"))
+
+
 class _Server(ThreadingHTTPServer):
-    """Stops the server state's threads (the flight watcher) on close."""
+    """Registers its engine for colocated P/D, unregisters it when it
+    stops serving (a reused port must not divert a lookup to a dead
+    engine), and stops the server state's threads (the flight watcher)
+    on close."""
+
+    _pd_urls: tuple = ()
+
+    def _pd_unregister(self):
+        with _LOCAL_PD_LOCK:
+            for u in self._pd_urls:
+                if _LOCAL_PD_ENGINES.get(u) is self.state.engine:
+                    del _LOCAL_PD_ENGINES[u]
+
+    def shutdown(self):
+        self._pd_unregister()
+        super().shutdown()
 
     def server_close(self):
+        self._pd_unregister()
         super().server_close()
         self.state.close()
 
@@ -1121,6 +1662,14 @@ def make_server(engine: Optional[InferenceEngine], cfg: EngineConfig,
     server = _Server((host, port if port is not None else cfg.port), handler)
     server.daemon_threads = True
     server.state = state  # type: ignore[attr-defined]
+    bound = server.server_address[1]
+    hosts = {"127.0.0.1", "localhost"}
+    if host not in ("0.0.0.0", "::", ""):
+        hosts.add(host)
+    server._pd_urls = tuple(f"http://{h}:{bound}" for h in sorted(hosts))
+    with _LOCAL_PD_LOCK:
+        for u in server._pd_urls:
+            _LOCAL_PD_ENGINES[u] = engine
     return server
 
 
@@ -1272,6 +1821,35 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     default=os.environ.get("KAITO_ADAPTER_ALLOWLIST", ""),
                     help="comma-separated source prefixes POST /v1/adapters may "
                          "pull from (hub://, oras://); '' = local paths only")
+    ap.add_argument("--pd-enabled", action="store_true",
+                    default=os.environ.get("KAITO_PD_ENABLED", "") == "true",
+                    help="P/D disaggregation: /pd/* and kv_transfer (default "
+                         "KAITO_PD_ENABLED=true, else off: 403)")
+    ap.add_argument("--pd-source-allowlist",
+                    default=os.environ.get("KAITO_PD_ALLOWLIST", ""),
+                    help="comma-separated URL prefixes KV may be pulled from "
+                         "('' = any)")
+    ap.add_argument("--kv-pool", action="store_true",
+                    default=os.environ.get("KAITO_KV_POOL", "") == "true",
+                    help="cluster-wide KV pool: publish finished prompt prefixes "
+                         "and serve them over the chunked P/D wire (off keeps "
+                         "/metrics as it was)")
+    ap.add_argument("--kv-pool-bytes", type=int,
+                    default=int(os.environ.get("KAITO_KV_POOL_BYTES", str(1 << 30))),
+                    help="host bytes for the replica-local prefix store")
+    ap.add_argument("--kv-pool-disk-bytes", type=int,
+                    default=int(os.environ.get("KAITO_KV_POOL_DISK_BYTES", "0")),
+                    help="the pool's disk tier: host-store victims demote to a "
+                         "bounded slab directory, and misses probe it first (0: "
+                         "none)")
+    ap.add_argument("--kv-pool-disk-dir",
+                    default=os.environ.get("KAITO_KV_POOL_DISK_DIR", ""),
+                    help="the disk tier's slab directory ('' = "
+                         "<tempdir>/kaito-kv-tier)")
+    ap.add_argument("--kv-pool-advert-max", type=int,
+                    default=int(os.environ.get("KAITO_KV_POOL_ADVERT_MAX", "0")),
+                    help="cap /debug/kv_pool adverts to the freshest N entries "
+                         "(0 = unlimited)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tensor-parallel-size", type=int,
                     default=int(os.environ.get("KAITO_TENSOR_PARALLEL", "1")),
@@ -1340,7 +1918,12 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         adapters_dir=args.kaito_adapters_dir, adapter_slots=args.adapter_slots,
         adapter_rmax=args.adapter_rmax, adapter_host_bytes=args.adapter_host_bytes,
         adapter_allow_base_mismatch=args.adapter_allow_base_mismatch,
-        adapter_source_allowlist=args.adapter_source_allowlist)
+        adapter_source_allowlist=args.adapter_source_allowlist,
+        pd_enabled=args.pd_enabled, pd_source_allowlist=args.pd_source_allowlist,
+        kv_pool_enabled=args.kv_pool, kv_pool_bytes=args.kv_pool_bytes,
+        kv_pool_disk_bytes=args.kv_pool_disk_bytes,
+        kv_pool_disk_dir=args.kv_pool_disk_dir,
+        kv_pool_advert_max=args.kv_pool_advert_max)
     return cfg, args
 
 

@@ -1,1 +1,2 @@
-"""Runtime services around the serving engine: the SLO watchdog."""
+"""Runtime services around the serving engine: the SLO watchdog and the
+router's prefix hashes the KV pool publishes under."""

@@ -25,6 +25,7 @@ against the JAX package's (``kaito_tpu/engine/devprof.py``) on the CPU.
 import copy
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -424,7 +425,7 @@ class _Garbage:
 
 
 def test_parse_error_is_counted(monkeypatch):
-    monkeypatch.setattr(tdp, "_profile", lambda cuda: _Garbage())
+    monkeypatch.setattr(tdp, "_RangesProfile", lambda cuda: _Garbage())
     prof = tdp.DeviceProfiler(interval_s=60.0, window_s=0.0)
     assert prof.sample_window() is None
     assert prof.parse_errors == 1 and prof.windows_total == 0
@@ -439,3 +440,210 @@ def test_a_window_is_folded_in_a_child_process():
     want = tdp.summarize_trace(GPU_TRACE, roofline=roof, window_tokens=40.0,
                                capture_s=0.25)
     assert _no_ts(got) == _no_ts(want) and want["n_slices"] == 8
+
+
+def test_a_window_closes_after_one_dispatch():
+    """The window cap: an attached window closes at the first step
+    boundary after the engine dispatched once, well before its
+    ``window_s``."""
+    dispatches = [0]
+    prof = tdp.DeviceProfiler(interval_s=60.0, window_s=3600.0,
+                              dispatches_fn=lambda: dispatches[0])
+    prof.attached = True
+    prof._ask = True
+    prof.at_step_boundary()                       # opens
+    assert prof._win is not None
+    prof.at_step_boundary()                       # nothing dispatched: stays open
+    assert prof._win is not None
+    x = torch.randn(64, 64)
+    with tdp.profiler_range("kaito/decode"):
+        (x @ x).relu()
+    dispatches[0] += 1
+    prof.at_step_boundary()                       # one dispatch: closes
+    assert prof._win is None and not tdp.PROFILE_LOCK.locked()
+    got = prof._handoff.get_nowait()
+    assert got is not None and len(prof.holds_recent) == 1
+
+
+def test_a_capture_drops_the_open_window():
+    """A graph capture on the engine thread drops the open window first
+    (skipped, the lock released) and the sampler's ask stands, so the
+    next boundary opens another; a capture on another thread leaves the
+    window."""
+    import threading
+
+    prof = tdp.DeviceProfiler(interval_s=60.0, window_s=3600.0)
+    prof.attached = True
+    prof._ask = True
+    prof.at_step_boundary()
+    t = threading.Thread(target=prof.before_capture)
+    t.start()
+    t.join()
+    assert prof._win is not None
+    prof.before_capture()
+    assert prof._win is None and prof.windows_skipped == 1
+    assert not tdp.PROFILE_LOCK.locked() and prof._handoff.empty() and prof._ask
+    assert len(prof.holds_recent) == 1
+    prof.at_step_boundary()
+    assert prof._win is not None
+    prof.at_step_boundary(closing=True)
+    assert prof._handoff.get_nowait() is not None and not tdp.PROFILE_LOCK.locked()
+
+
+def test_the_engine_graphs_drop_the_window_before_a_capture():
+    """The engine hands its profiler's ``before_capture`` to each of its
+    static graphs (the decode window, the verify window, the draft's
+    scan), and a graph calls it before it captures; an engine without a
+    profiler leaves them unset."""
+    from kaito_tpu_torch.engine.config import EngineConfig
+    from kaito_tpu_torch.engine.decode_graph import StaticGraphs
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+
+    base = dict(model="tiny-llama-test", dtype="float32", max_model_len=128,
+                max_num_seqs=2, prefill_buckets=(32, 64), seed=0, speculative_ngram=2)
+    on = InferenceEngine(EngineConfig(**base, devprof_interval_s=60.0), device="cpu")
+    off = InferenceEngine(EngineConfig(**base), device="cpu")
+    for graphs in (on.window, on.spec_verify):
+        assert graphs.before_capture == on.devprof.before_capture
+    for graphs in (off.window, off.spec_verify):
+        assert graphs.before_capture is None
+    calls = []
+    g = StaticGraphs({"x": torch.zeros(2)}, torch.device("cpu"), False, {}, "t")
+    g.before_capture = lambda: calls.append(1)
+    g.capture = True           # a capture reached with no card: the hook runs first
+    with pytest.raises(Exception):
+        g.replay(("k",), lambda: (lambda: None, lambda: (lambda: None), {}))
+    assert calls == [1]
+
+
+def _cpu_work():
+    x = torch.randn(128, 128)
+    with tdp.profiler_range("kaito/decode"):
+        for _ in range(3):
+            x = torch.softmax(x @ x, -1)
+    with tdp.profiler_range("kaito/prefill"):
+        (x @ x).relu()
+
+
+def _shape(path) -> list:
+    """What a trace's slices are, apart from their times: each slice's
+    name, scope and track kind, in order."""
+    return [(s.name, s.op_name, s.device)
+            for s in tdp.parse_torch_trace(tdp.read_trace(path))]
+
+
+def test_a_capped_cpu_window_folds_as_the_whole_trace(tmp_path):
+    """A CPU-only window goes through the window profiler
+    (:class:`_RangesProfile`): opened and closed by the engine thread's
+    boundaries, written by the sampler and folded in the child process,
+    it gives the buckets and phases of the same file folded here.  The
+    same work through ``_RangesProfile(False)`` and through a plain
+    ``torch.profiler`` run written by ``export_chrome_trace`` (the old
+    path) gives the same slices, scopes and order; their times are two
+    runs' own, so the non-zero buckets and phases are compared there."""
+    import threading
+    import unittest.mock as mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = {}
+    inner = tdp._summarize_elsewhere
+
+    def spy(path, roofline, tokens, capture_s):
+        seen["here"] = tdp.summarize_trace(path, roofline=roofline, window_tokens=tokens,
+                                           capture_s=capture_s)
+        seen["shape"] = _shape(path)
+        return inner(path, roofline, tokens, capture_s)
+
+    dispatches = [0]
+    prof = tdp.DeviceProfiler(interval_s=60.0, window_s=3600.0,
+                              dispatches_fn=lambda: dispatches[0])
+    prof.attached = True
+    opened = []
+    real = tdp._RangesProfile
+
+    def ranges(cuda):
+        opened.append(cuda)
+        return real(cuda)
+
+    got = {}
+    with mock.patch.object(tdp, "_summarize_elsewhere", spy), \
+            mock.patch.object(tdp, "_RangesProfile", ranges):
+        sampler = threading.Thread(target=lambda: got.update(s=prof.sample_window()))
+        sampler.start()
+        deadline = time.monotonic() + 60
+        while not prof._ask:
+            assert time.monotonic() < deadline, "the sampler never asked"
+            time.sleep(0.001)
+        prof.at_step_boundary()
+        _cpu_work()
+        dispatches[0] += 1
+        prof.at_step_boundary()
+        sampler.join()
+    assert opened == [False]
+    summary = got["s"]
+    assert summary is not None and summary["n_slices"] > 0
+    assert _no_ts(summary) == _no_ts(seen["here"])
+
+    new = tdp._RangesProfile(False)
+    new.start()
+    _cpu_work()
+    new.stop()
+    new.export_chrome_trace(str(tmp_path / "new.json"))
+    with profile(activities=[ProfilerActivity.CPU]) as plain:
+        _cpu_work()
+    plain.export_chrome_trace(str(tmp_path / "old.json"))
+    assert _shape(tmp_path / "new.json") == _shape(tmp_path / "old.json") == seen["shape"]
+    for path in ("new.json", "old.json"):
+        whole = tdp.summarize_trace(str(tmp_path / path))
+        for key in ("phase_pct", "bucket_pct"):
+            assert set(k for k, v in whole[key].items() if v > 0) == \
+                set(k for k, v in summary[key].items() if v > 0)
+        assert set(k for k, v in whole["phase_pct"].items() if v > 0) == \
+            {"decode", "prefill"}
+        assert whole["n_slices"] == summary["n_slices"]
+
+
+def test_a_card_window_records_the_ranges_and_no_operators(tmp_path):
+    """A card's window profiler (``_RangesProfile``) records the host's
+    ``record_function`` ranges and none of its operators: the card's
+    reader scopes kernels by ranges alone (a full trace's per-operator
+    events only cost the stop).  Built here, where torch has no card, it
+    records the host's side alone."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "CUDA is not available")
+        prof = tdp._RangesProfile(True)
+    prof.start()
+    x = torch.randn(64, 64)
+    with tdp.profiler_range("kaito/decode"):
+        with tdp.profiler_range("attention"):
+            (x @ x).softmax(-1)
+    prof.stop()
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    cats = {}
+    for ev in tdp.read_trace(path)["traceEvents"]:
+        cats.setdefault(ev.get("cat"), set()).add(ev.get("name"))
+    assert {"kaito/decode", "attention"} <= cats.get("user_annotation", set())
+    assert "cpu_op" not in cats
+    assert not torch.autograd._profiler_enabled()
+
+
+def test_a_card_trace_without_its_operators_folds_the_same(tmp_path):
+    """What a card's window no longer records (the host's operators)
+    changes no summary: the committed card trace folded whole and with
+    its ``cpu_op`` events taken out give equal buckets and phases."""
+    doc = tdp.read_trace(GPU_TRACE)
+    ranges_only = dict(doc, traceEvents=[e for e in doc["traceEvents"]
+                                         if e.get("cat") != "cpu_op"])
+    assert len(ranges_only["traceEvents"]) < len(doc["traceEvents"])
+    path = tmp_path / "ranges_only.json"
+    path.write_text(json.dumps(ranges_only))
+    roof = tdp.roofline("NVIDIA H100 80GB HBM3", "", 10**9)
+    whole = tdp.summarize_trace(GPU_TRACE, roofline=roof, window_tokens=8.0)
+    got = tdp.summarize_trace(str(path), roofline=roof, window_tokens=8.0)
+    assert got["bucket_pct"] == whole["bucket_pct"]
+    assert got["phase_pct"] == whole["phase_pct"]
+    assert _no_ts(got) == _no_ts(whole)

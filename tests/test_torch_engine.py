@@ -237,9 +237,6 @@ def test_submit_validates_input():
     ("data_parallel", 2, "M19"),
     ("sequence_parallel", 2, "M19"),
     ("expert_parallel", 2, "M19"),
-    ("kv_pool_enabled", True, "M18"),
-    ("kv_pool_disk_bytes", 1 << 20, "M18"),
-    ("pd_enabled", True, "M18"),
 ])
 def test_unported_gates_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,8 +1,9 @@
 """The port stands alone: no module of kaito_tpu_torch, and not
-chip_smoke.py, imports jax, flax, msgpack or anything of kaito_tpu (the
-card machine has none of them: the adapter artifact's msgpack is read
-by the port's own codec, ``utils/msgpack.py``); every module
-imports on a machine without a card; and a CUDA request without a
+chip_smoke.py, imports jax, flax, msgpack, ml_dtypes or anything of
+kaito_tpu (the card machine has none of them: the adapter artifact's
+msgpack is read by the port's own codec, ``utils/msgpack.py``, and the
+KV wire's bfloat16 bytes move through torch, ``engine/pd.py``); every
+module imports on a machine without a card; and a CUDA request without a
 usable card raises instead of falling back to the CPU."""
 
 import ast
@@ -15,7 +16,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "kaito_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "kaito_tpu", "flax", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "kaito_tpu", "flax", "msgpack", "ml_dtypes")
 
 
 def _imports(path):
@@ -44,7 +45,8 @@ def test_sources_found():
                 "engine/parsers.py", "runtime/slo.py", "utils/tracing.py",
                 "utils/promtext.py", "utils/flightrec.py", "utils/msgpack.py",
                 "tuning/lora.py", "engine/adapters.py", "engine/adapter_cache.py",
-                "engine/devprof.py", "engine/host_offload.py"):
+                "engine/devprof.py", "engine/host_offload.py", "engine/pd.py",
+                "engine/kv_pool.py", "runtime/routing.py", "utils/failpoints.py"):
         assert PKG / mod in SOURCES, mod
 
 

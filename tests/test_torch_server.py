@@ -132,7 +132,7 @@ def test_health_and_models(served):
     assert status == 200 and body["data"][0]["id"] == "tiny-llama-real"
 
 
-@pytest.mark.parametrize("path", ["/pd/kv/x", "/debug/kv_pool"])
+@pytest.mark.parametrize("path", ["/ui", "/ui/"])
 def test_unported_routes_answer_501(served, path):
     _, base = served
     status, body = _get(base + path)
@@ -151,11 +151,11 @@ def test_debug_device_is_403_with_devprof_off(served):
     ({"prompt": ""}, 400),
     ({"prompt": "x", "model": "other-model"}, 404),
     # the JAX server's answers: constrained output is served on both
-    # endpoints, tools only on chat; KV transfer is not ported
+    # endpoints, tools only on chat; KV transfer without --pd-enabled 403
     ({"prompt": "x", "max_tokens": 8, "response_format": {"type": "json_object"}},
      200),
     ({"prompt": "x", "tool_choice": "auto"}, 400),
-    ({"prompt": "x", "kv_transfer": {"source_url": "http://localhost:1"}}, 501),
+    ({"prompt": "x", "kv_transfer": {"source_url": "http://localhost:1"}}, 403),
     ({"prompt": "x", "max_tokens": -3}, 400),
     ({"prompt": "x", "temperature": "hot"}, 400),
 ])

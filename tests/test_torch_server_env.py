@@ -33,11 +33,25 @@ ENV = {
     "KAITO_KV_CPU_MEM_UTIL": ("0.25", "host_kv_offload_bytes",
                               int(0.25 * os.sysconf("SC_PAGE_SIZE")
                                   * os.sysconf("SC_PHYS_PAGES"))),
+    # the P/D and KV pool flags (the operator sets the first two on a
+    # P/D pod)
+    "KAITO_PD_ENABLED": ("true", "pd_enabled", True),
+    "KAITO_PD_ALLOWLIST": ("http://prefill-0:5000,http://prefill-1:5000",
+                           "pd_source_allowlist",
+                           "http://prefill-0:5000,http://prefill-1:5000"),
+    "KAITO_KV_POOL": ("true", "kv_pool_enabled", True),
+    "KAITO_KV_POOL_BYTES": ("123456789", "kv_pool_bytes", 123456789),
+    "KAITO_KV_POOL_DISK_BYTES": ("987654321", "kv_pool_disk_bytes", 987654321),
+    "KAITO_KV_POOL_DISK_DIR": ("/var/kaito/slabs", "kv_pool_disk_dir",
+                               "/var/kaito/slabs"),
+    "KAITO_KV_POOL_ADVERT_MAX": ("7", "kv_pool_advert_max", 7),
 }
 FIELDS = ("tensor_parallel", "pipeline_parallel", "expert_parallel", "data_parallel",
           "sequence_parallel", "kv_dtype", "quantization", "weights_dir",
           "prefill_pack", "dtype", "devprof_interval_s", "devprof_window_s",
-          "host_kv_offload_bytes")
+          "host_kv_offload_bytes", "pd_enabled", "pd_source_allowlist",
+          "kv_pool_enabled", "kv_pool_bytes", "kv_pool_disk_bytes", "kv_pool_disk_dir",
+          "kv_pool_advert_max")
 ARGV = ["--model", "tiny-llama-test", "--dtype", "float32"]
 
 
@@ -90,6 +104,20 @@ def test_flags_win_over_the_environment(monkeypatch):
     jax_kw = _jax_config(monkeypatch, argv)
     assert (cfg.quantization, cfg.kv_dtype) == ("int8", "float32")
     assert (jax_kw["quantization"], jax_kw["kv_dtype"]) == ("int8", "float32")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--pd-enabled", "--pd-source-allowlist", "http://p:1"],
+    ["--kv-pool", "--kv-pool-bytes", "1048576", "--kv-pool-disk-bytes", "2097152",
+     "--kv-pool-disk-dir", "/srv/slabs", "--kv-pool-advert-max", "3"],
+    ["--pd-enabled", "--kv-pool"]])
+def test_kv_movement_flags_match_the_jax_server(monkeypatch, argv):
+    monkeypatch.setenv("KAITO_KV_POOL_BYTES", "5")
+    cfg, _ = parse_args(ARGV + argv)
+    jax_kw = _jax_config(monkeypatch, ARGV + argv)
+    for name in FIELDS:
+        assert getattr(cfg, name) == jax_kw[name], name
+    check_ported(cfg)
 
 
 @pytest.mark.parametrize("field", ["pipeline_parallel", "expert_parallel",

@@ -25,6 +25,16 @@ the seconds ``stop()`` and ``export_chrome_trace`` take, the counting
 thread's rate during each against its rate alone, the kernel events and
 the trace's size.
 
+``python3 tools/devprof_probe.py split`` splits a window's stop into its
+parts on the same graphs, with the trace taken through the low-level
+profiler API (``torch.autograd.profiler.profile`` entered by hand):
+``torch.autograd._disable_profiler()`` (Kineto gathers its results in
+C++), the Python parse of every event into ``FunctionEvent``s (what
+``torch.profiler.profile.stop()`` runs after it) and the trace write
+(``_ProfilerResult.save``, what ``export_chrome_trace`` calls), each with
+its seconds and the counting thread's turns a second; then the write
+again on a second thread while this one counts.
+
 ``python3 tools/devprof_probe.py engine [MODEL]`` times the device
 profiler's windows in a serving engine (default ``llama-3.1-8b-instruct``
 at full width in bf16, synthetic weights; ``tiny-llama-real`` from its
@@ -240,6 +250,77 @@ def cost(n_kernels: int, replays: int) -> dict:
                 ticks_per_s_during_export=export_rate)
 
 
+def split(n_kernels: int, replays: int) -> dict:
+    """``cost``'s trace stopped through the low-level API, part by part
+    (see the module's docstring)."""
+    from torch.autograd.profiler import profile as autograd_profile
+
+    x = torch.zeros(1024, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        x.add_(1.0)
+    torch.cuda.current_stream().wait_stream(s)
+    with torch.cuda.graph(g):
+        for _ in range(n_kernels):
+            x.add_(1.0)
+    torch.cuda.synchronize()
+    ticks = [0]
+    done = threading.Event()
+
+    def tick():
+        while not done.is_set():
+            ticks[0] += 1
+
+    t = threading.Thread(target=tick, daemon=True)
+    t.start()
+
+    def rate(fn):
+        n0, t0 = ticks[0], time.perf_counter()
+        fn()
+        dt = time.perf_counter() - t0
+        return dt, (ticks[0] - n0) / dt
+
+    _, alone = rate(lambda: time.sleep(0.3))
+    out = dict(n_kernels=n_kernels, replays=replays, ticks_per_s_alone=alone)
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in ("main", "thread"):
+            prof = autograd_profile(use_device="cuda", use_kineto=True)
+            prof.__enter__()
+            for _ in range(replays):
+                with record_function("kaito/decode"):
+                    g.replay()
+            torch.cuda.synchronize()
+            res = []
+            path = os.path.join(tmp, f"{part}.json")
+            if part == "main":
+                out["disable_s"], out["ticks_per_s_during_disable"] = rate(
+                    lambda: res.append(torch.autograd._disable_profiler()))
+                out["parse_s"], out["ticks_per_s_during_parse"] = rate(
+                    lambda: prof._parse_kineto_results(res[0]))
+                out["save_s"], out["ticks_per_s_during_save"] = rate(
+                    lambda: res[0].save(path))
+                with open(path) as f:
+                    out["kernel_events"] = sum(1 for e in json.load(f)["traceEvents"]
+                                               if e.get("cat") == "kernel")
+                out["trace_mib"] = os.path.getsize(path) / 2**20
+            else:
+                res.append(torch.autograd._disable_profiler())
+                # the write on a second thread while this one counts
+                n, t0 = [0], time.perf_counter()
+                w = threading.Thread(target=res[0].save, args=(path,))
+                w.start()
+                while w.is_alive():
+                    n[0] += 1
+                out["save_on_thread_s"] = time.perf_counter() - t0
+                out["main_turns_per_s_during_thread_save"] = n[0] / out["save_on_thread_s"]
+            del prof, res
+    done.set()
+    t.join()
+    return out
+
+
 def engine_probe(model: str, windows: int = 3) -> dict:
     """Step, start and stop seconds of the device profiler's windows in
     an engine decoding eight sequences (see the module's docstring)."""
@@ -310,6 +391,15 @@ def main() -> None:
     if len(sys.argv) > 1 and sys.argv[1] == "engine":
         model = sys.argv[2] if len(sys.argv) > 2 else "llama-3.1-8b-instruct"
         print(json.dumps(engine_probe(model)))
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "split":
+        p = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        p.start()
+        p.stop()
+        print(json.dumps(dict(torch=torch.__version__, card=torch.cuda.get_device_name(0))))
+        for n, r in ((2700, 10), (2700, 25), (2700, 50)):
+            print(json.dumps(cost(n, r)))
+            print(json.dumps(split(n, r)))
         return
     if len(sys.argv) > 1 and sys.argv[1] == "cost":
         p = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
