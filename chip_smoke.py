@@ -357,6 +357,29 @@ order; any failure exits non-zero and prints no result:
    ``tiny-llama-real``'s four sections through P/D over both wires,
    pages equal, tokens exact and logprobs within 2e-3 of the goldens
    (``kv_int8`` of a CPU pair's same runs).
+16. Fine-tuning (legs ``train-bf16`` and ``train-fp32``).  Through
+   ``tuning.trainer.Trainer`` with no output dir, synthetic bf16 weights
+   from seed 0 and a seeded instruction/response jsonl in a temp dir, 8
+   steps each: LoRA (r 8, alpha 16, q/k/v/o) and QLoRA on Llama-3.1-8B
+   at full width with B=4, T=512 (QLoRA's 2048-row products take the
+   dequant route), QLoRA at B=1, T=256 (256 rows: K4 under autograd, its
+   launch counter must rise), and full fine-tuning of Llama-3.2-1B at
+   B=4, T=512.  Logged for each: the loss at each step, the median step
+   ms over steps 3-8 (synchronized), tokens/s by the trainer's formula
+   and the peak GiB; then one more forward and backward, whose gradient
+   on every trainable leaf is finite and non-zero in every layer, and
+   every B has moved.  Throughout, no ``quant_matmul_cuda`` call takes an
+   x that needs a gradient outside ``QuantMatmulFn`` and the flash
+   prefill kernel never launches.  Exact: ``tiny-llama-real`` (LoRA, and
+   QLoRA at 64 rows, K4 launching) and ``tiny-moe-real`` (LoRA) in fp32
+   from their checkpoints, 5 steps on the CPU and on the card from the
+   same weights and factors: losses (rtol 1e-4), grad norms (rtol 1e-3)
+   and final leaves (measured in the summed learning rates, since Adam
+   moves an element about the learning rate a step: 99% of each leaf
+   within 1%, all within 25%, Adam's either-sign step at rounding-level
+   gradients excepted) equal; each LoRA run's adapter,
+   saved and served by a card engine, gives its first greedy token the
+   logprob ``forward_train`` gives it (within 2e-3).
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -369,7 +392,7 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 ``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
 ``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``,
 ``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``,
-``pd-bf16``), which
+``pd-bf16``, ``train-bf16``, ``train-fp32``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -5905,6 +5928,341 @@ def _pd_params(n):
 
 _TP2 = ["--tensor-parallel-size", "2", "--comm-overlap"]
 _LLAMA, _GPT_OSS, _DEEPSEEK = "llama-3.1-8b-instruct", "gpt-oss-20b", "deepseek-v3-0324"
+
+
+TRAIN_LEG = ("train-bf16", "phase 16, bf16 fine-tuning at full width (LoRA, QLoRA, full)")
+TRAIN_EXACT_LEG = ("train-fp32", "phase 16, fp32 fine-tuning exact against the CPU")
+_TRAIN_WORDS = ("river", "stone", "light", "north", "amber", "cedar", "violet", "harbor",
+                "signal", "meadow", "copper", "lantern", "orbit", "thistle", "quartz",
+                "willow")
+# (run, model, method, batch, sequence length): the 8B runs share the
+# seeded base (each draws it anew), QLoRA at B=4 x T=512 takes the dequant
+# product (2048 rows), at B=1 x T=256 the K4 wrapper under autograd
+TRAIN_RUNS = (("lora", _LLAMA, "lora", 4, 512),
+              ("qlora", _LLAMA, "qlora", 4, 512),
+              ("qlora-short", _LLAMA, "qlora", 1, 256),
+              ("full", _DRAFT, "full", 4, 512))
+TRAIN_STEPS = 8
+TRAIN_EXACT_STEPS = 5
+# the exact leg: (model, method, batch, sequence length, serve the adapter)
+TRAIN_EXACT_RUNS = (("tiny-llama-real", "lora", 2, 64, True),
+                    ("tiny-llama-real", "qlora", 1, 64, False),
+                    ("tiny-moe-real", "lora", 2, 64, True))
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_STEP_REL, TRAIN_LOGPROB_ATOL = 1e-4, 1e-3, 1e-2, 2e-3
+
+
+def _train_data(root, n, chars, seed) -> str:
+    """A seeded instruction/response jsonl of ``n`` records of about
+    ``chars`` bytes each (byte tokens: the card machine has no tokenizer
+    files)."""
+    import random
+
+    rng = random.Random(seed)
+    path = os.path.join(root, f"data-{seed}")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "train.jsonl"), "w") as f:
+        for _ in range(n):
+            words = []
+            while sum(len(w) + 1 for w in words) < chars // 2:
+                words.append(rng.choice(_TRAIN_WORDS))
+            text = " ".join(words)
+            f.write(json.dumps({"instruction": f"Reverse: {text}",
+                                "response": " ".join(reversed(words))}) + "\n")
+    return path
+
+
+@contextlib.contextmanager
+def _grad_guard():
+    """Fail if ``quant_matmul_cuda`` is called with an ``x`` that needs a
+    gradient under grad mode (outside ``QuantMatmulFn``, whose forward
+    runs with grad mode off), or if the flash prefill kernel launches."""
+    import torch
+
+    from kaito_tpu_torch.engine.ops import flash_prefill
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+
+    real = qm.quant_matmul_cuda
+    counters = {k: v for k, v in vars(real).items() if k.startswith("launches")}
+    flash0 = flash_prefill.flash_prefill_attention_cuda.launches
+
+    def guarded(x, w, w_next=None):
+        if x.requires_grad and torch.is_grad_enabled():
+            raise SmokeFailure("quant_matmul_cuda called on an x that needs a gradient "
+                               "outside QuantMatmulFn")
+        return real(x, w, w_next)
+
+    # the wrapper counts its launches on the module's name for it: the
+    # guard holds the counters meanwhile and hands them back
+    vars(guarded).update(counters)
+    qm.quant_matmul_cuda = guarded
+    try:
+        yield
+    finally:
+        qm.quant_matmul_cuda = real
+        for k in counters:
+            setattr(real, k, getattr(guarded, k))
+    n = flash_prefill.flash_prefill_attention_cuda.launches - flash0
+    if n:
+        raise SmokeFailure(f"the flash prefill kernel launched {n} times in training")
+
+
+def _per_layer_ok(torch, name, t) -> bool:
+    """Every layer's slice of a stacked leaf (``group/name``), or a
+    top-level leaf whole, finite and not all zero."""
+    t = t.float()
+    rows = t.flatten(1) if "/" in name else t.reshape(1, -1)
+    return bool(torch.isfinite(rows).all()) and bool((rows.abs().amax(1) > 0).all())
+
+
+def _train_run(torch, run, model, method, B, T, data_dir, label) -> dict:
+    """One full-width run through ``Trainer`` (8 steps, no output dir),
+    then one more forward and backward: every trainable leaf's gradient
+    finite and non-zero in every layer, every B moved."""
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.tuning import dataset as ds
+    from kaito_tpu_torch.tuning.lora import LoraConfig
+    from kaito_tpu_torch.tuning.train_step import loss_and_grads
+    from kaito_tpu_torch.tuning.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(model=model, method=method, data_dir=data_dir, output_dir="",
+                      lora=LoraConfig(r=8, alpha=16), batch_size=B, max_seq_len=T,
+                      max_steps=TRAIN_STEPS, warmup_steps=2, checkpoint_every=0,
+                      dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    k4 = qm.quant_matmul_cuda.launches_int8
+    k4w = qm.quant_matmul_cuda.launches_int8_wide
+    stamps, losses, norms, tps = [time.perf_counter()], [], [], []
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(m["loss"])
+        norms.append(float(m["grad_norm"]))
+        tps.append(m["tokens_per_second"])
+
+    with _grad_guard():
+        tr.train(on_step=on_step)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses + norms):
+            raise SmokeFailure(f"{label} {run}: losses {losses}, grad norms {norms}")
+        data, _ = ds.build_examples(tr.tokenizer, ds.DatasetConfig(data_dir=data_dir,
+                                                                   max_seq_len=T))
+        b = next(ds.batches(data, B, seed=cfg.seed))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        _, grads = loss_and_grads(tr.model, batch, tr.state.params)
+    k4_n = qm.quant_matmul_cuda.launches_int8 - k4
+    k4w_n = qm.quant_matmul_cuda.launches_int8_wide - k4w
+    bad = [n for n, g in zip(tr.train_names, grads) if not _per_layer_ok(torch, n, g)]
+    unmoved = [n for n, p in zip(tr.train_names, tr.state.params)
+               if n.endswith("_lora_b") and not _per_layer_ok(torch, n, p.detach())]
+    if bad or unmoved:
+        raise SmokeFailure(f"{label} {run}: gradients zero or not finite in a layer of "
+                           f"{bad}; B leaves that did not move {unmoved}")
+    if method == "qlora" and B * T <= 256 and k4_n <= 0:
+        raise SmokeFailure(f"{label} {run}: K4 never launched at {B * T} rows")
+    ms = sorted((stamps[i + 1] - stamps[i]) * 1e3 for i in range(2, TRAIN_STEPS))
+    res = dict(model=model, method=method, batch=B, seq=T, setup_s=setup_s,
+               setup_peak_gib=setup_gib, losses=losses, grad_norms=norms,
+               step_ms_median_3_8=(ms[2] + ms[3]) / 2, step_ms_3_8=ms,
+               tokens_per_s=tps[-1], peak_gib=peak_gib,
+               trainable_leaves=len(tr.train_names),
+               trainable_params=sum(p.numel() for p in tr.state.params),
+               k4_launches=k4_n, k4_wide_launches=k4w_n)
+    log(f"{label} {run} ({model}, {method}, B={B}, T={T}): loss by step "
+        f"{[round(x, 4) for x in losses]}; median step {res['step_ms_median_3_8']:.1f} "
+        f"ms (steps 3-8), {res['tokens_per_s']:.0f} tokens/s, peak "
+        f"{res['peak_gib']:.2f} GiB training ({setup_gib:.2f} GiB setting up in "
+        f"{setup_s:.1f} s), K4 launches {k4_n} ({k4w_n} wide); every "
+        f"trainable leaf's gradient finite and non-zero in every layer")
+    del tr, grads, batch
+    return res
+
+
+def run_train_phase(label) -> tuple[dict, dict]:
+    """Phase 16 at full width: LoRA and QLoRA (B=4 x T=512 and B=1 x
+    T=256) on Llama-3.1-8B, full fine-tuning on Llama-3.2-1B, synthetic
+    bf16 weights from seed 0, 8 steps each through ``Trainer``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_leg = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kaito-train-")
+    stats, launches = {}, {"quant_matmul_int8": 0, "quant_matmul_int8_wide": 0}
+    try:
+        for run, model, method, B, T in TRAIN_RUNS:
+            data = _train_data(root, 48 if B > 1 else 24, T + T // 4, seed=B * 1000 + T)
+            stats[run] = _train_run(torch, run, model, method, B, T, data, label)
+            launches["quant_matmul_int8"] += stats[run]["k4_launches"]
+            launches["quant_matmul_int8_wide"] += stats[run]["k4_wide_launches"]
+            _release_card(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats["phase_s"] = time.perf_counter() - t_leg
+    return launches, stats
+
+
+def _close_leaves(torch, label, names, got, want, nu, lr_sum) -> tuple[float, float]:
+    """The card's leaves against the CPU's, measured in the summed
+    learning rates (Adam moves an element about the learning rate a step,
+    whatever its gradient): in every leaf 99% of the elements within 1%
+    of ``lr_sum`` and every element within 25%, except where the
+    gradient is at the rounding level of the leaf's largest (second
+    moment below 1e-10 of the largest), where Adam's step may take either
+    sign.  Adam divides each gradient's rounding by the element's own
+    summed history, which cancels where the gradient changes sign, so a
+    few elements stray past 1%.  Returns (the largest difference, the
+    largest share of a leaf past 1%)."""
+    worst = frac = 0.0
+    for n, a, b, v in zip(names, got, want, nu):
+        d = (a.detach().cpu().float() - b.detach().float()).abs() / lr_sum
+        v = v.cpu().float()
+        stray = d > TRAIN_STEP_REL
+        far = (d > 25 * TRAIN_STEP_REL) & (v >= 1e-10 * v.max())
+        if bool(far.any()) or float(stray.float().mean()) > 1e-2:
+            raise SmokeFailure(f"{label}: leaf {n} differs from the CPU's by up to "
+                               f"{float(d.max()):.3e} of the summed learning rates, "
+                               f"{float(stray.float().mean()):.2e} of it past "
+                               f"{TRAIN_STEP_REL}")
+        worst = max(worst, float(d.max()))
+        frac = max(frac, float(stray.float().mean()))
+    return worst, frac
+
+
+def _serve_logprob(torch, tr, root, model, wdir, prompt) -> tuple[float, float]:
+    """The trained adapter saved by ``save_adapter`` and served by a card
+    engine (boot-time adapter): (logprob of its first greedy token, the
+    same token's logprob from ``forward_train`` at the prompt's last
+    position)."""
+    import dataclasses
+
+    from kaito_tpu_torch.engine.engine import InferenceEngine, SamplingParams
+    from kaito_tpu_torch.engine.server import parse_args
+    from kaito_tpu_torch.tuning.lora import save_adapter
+
+    save_adapter(os.path.join(root, "tuned"), tr.model.param_tree(), tr.cfg.lora, model)
+    cfg, _ = parse_args(["--model", model, "--weights-dir", wdir, "--dtype", "float32",
+                         "--max-model-len", "256", "--max-num-seqs", "4",
+                         "--no-enable-prefix-caching", "--adapter-slots", "2",
+                         "--adapter-rmax", str(tr.cfg.lora.r)])
+    eng = InferenceEngine(dataclasses.replace(cfg, adapters_dir=root), device="cuda")
+    tokens = eng.tokenizer.encode(prompt)
+    req = eng.submit(tokens, SamplingParams(max_tokens=1, temperature=0.0,
+                                            ignore_eos=True, logprobs=True),
+                     adapter="tuned")
+    for _ in range(1000):
+        eng.step()
+        if req.finish_reason:
+            break
+    if req.finish_reason != "length":
+        raise SmokeFailure(f"the adapter's request did not finish: {req.finish_reason}")
+    tok, lp = req.output_tokens[0], float(req.output_logprobs[0])
+    with torch.no_grad():
+        logits = tr.model.forward_train(torch.tensor([tokens], device="cuda"))
+    ref = float(torch.log_softmax(logits[0, -1], -1)[tok])
+    del eng
+    return lp, ref
+
+
+def run_train_exact_phase(label) -> dict:
+    """Phase 16, exact: tiny-llama-real (LoRA, and QLoRA at 64 rows, which
+    runs K4 under autograd) and tiny-moe-real (LoRA) in fp32 from their
+    checkpoints, 5 steps from the same weights and factors on the CPU and
+    on the card: losses, grad norms and final trainable leaves equal; the
+    LoRA runs' adapters served by a card engine give their first token's
+    logprob as ``forward_train`` does."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.engine.model import TransformerLM
+    from kaito_tpu_torch.engine.ops import quant_matmul as qm
+    from kaito_tpu_torch.engine.weights import load_safetensors_params
+    from kaito_tpu_torch.models import get_model_by_name
+    from kaito_tpu_torch.tuning.lora import LoraConfig
+    from kaito_tpu_torch.tuning.optim import warmup_cosine_decay_schedule
+    from kaito_tpu_torch.tuning.trainer import TrainConfig, Trainer
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.detach().clone()
+                for k, v in tree.items()}
+
+    t_leg = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kaito-train-exact-")
+    res = {}
+    try:
+        for model, method, B, T, serve in TRAIN_EXACT_RUNS:
+            run = f"{model} {method} B={B} T={T}"
+            wdir = os.path.join(REPO, "checkpoints", model)
+            base = TransformerLM(get_model_by_name(model).arch, torch.float32, "cpu")
+            tree = load_safetensors_params(base, wdir)
+            cfg = TrainConfig(model=model, method=method,
+                              data_dir=_train_data(root, 24, T, seed=T + B),
+                              output_dir="", lora=LoraConfig(r=8, alpha=16),
+                              batch_size=B, max_seq_len=T, max_steps=TRAIN_EXACT_STEPS,
+                              warmup_steps=2, learning_rate=1e-3, checkpoint_every=0,
+                              dtype="float32")
+            cpu = Trainer(cfg, device="cpu", params=tree)
+            card = Trainer(cfg, device="cuda", params=clone(cpu.model.param_tree()))
+            got, want = [], []
+            cpu.train(on_step=lambda s, m: want.append((m["loss"], float(m["grad_norm"]))))
+            k4 = qm.quant_matmul_cuda.launches_int8
+            with _grad_guard():
+                card.train(on_step=lambda s, m: got.append((m["loss"],
+                                                            float(m["grad_norm"]))))
+            k4_n = qm.quant_matmul_cuda.launches_int8 - k4
+            if method == "qlora" and k4_n <= 0:
+                raise SmokeFailure(f"{label} {run}: K4 never launched")
+            if len(got) != TRAIN_EXACT_STEPS or not all(x > 0 for x, _ in want):
+                raise SmokeFailure(f"{label} {run}: steps {got}, CPU {want}")
+            for (gl, gn), (wl, wn) in zip(got, want):
+                if abs(gl - wl) > TRAIN_LOSS_RTOL * abs(wl) or \
+                        abs(gn - wn) > TRAIN_NORM_RTOL * abs(wn):
+                    raise SmokeFailure(f"{label} {run}: card (loss, grad norm) {got}, "
+                                       f"CPU {want}")
+            schedule = warmup_cosine_decay_schedule(
+                0.0, cfg.learning_rate, cfg.warmup_steps,
+                max(cfg.max_steps, cfg.warmup_steps + 1))
+            lr_sum = sum(float(schedule(c)) for c in range(TRAIN_EXACT_STEPS))
+            worst, frac = _close_leaves(torch, f"{label} {run}", card.train_names,
+                                  card.state.params, cpu.state.params,
+                                  card.state.opt_state[1][0]["nu"], lr_sum)
+            entry = dict(losses_card=[x for x, _ in got], losses_cpu=[x for x, _ in want],
+                         grad_norms_card=[x for _, x in got],
+                         grad_norms_cpu=[x for _, x in want],
+                         leaf_max_diff_over_lr_sum=worst,
+                         leaf_share_past_1pct=frac, k4_launches=k4_n)
+            if serve:
+                lp, ref = _serve_logprob(torch, card, root, model, wdir,
+                                         "Reverse: river stone light")
+                if abs(lp - ref) > TRAIN_LOGPROB_ATOL:
+                    raise SmokeFailure(f"{label} {run}: the served adapter's first "
+                                       f"logprob {lp}, forward_train's {ref}")
+                entry.update(served_logprob=lp, forward_train_logprob=ref)
+            res[run] = entry
+            log(f"{label} {run}: losses card {entry['losses_card']} CPU "
+                f"{entry['losses_cpu']}; leaves within {worst:.2e} of the summed "
+                f"learning rates ({frac:.2e} of a leaf past 1%); "
+                f"K4 launches {k4_n}"
+                + (f"; served logprob {entry['served_logprob']:.6f} vs forward_train "
+                   f"{entry['forward_train_logprob']:.6f}" if serve else ""))
+            del cpu, card
+            _release_card(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_leg
+    log(f"{label}: {res['phase_s']:.1f}s")
+    return res
+
+
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
                   "flash_prefill_attention", "flash_prefill_packed")
 # the server legs of phases 4-8: (name for --leg, label, model, server
@@ -5977,7 +6335,8 @@ def main(argv=None) -> int:
     ap.add_argument("--leg", choices=[name for name, *_ in LEGS] + [
                         QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0], ADAPTER_LEG[0],
                         ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0],
-                        DEVPROF_LEG[0], OFFLOAD_LEG[0], PD_LEG[0]],
+                        DEVPROF_LEG[0], OFFLOAD_LEG[0], PD_LEG[0], TRAIN_LEG[0],
+                        TRAIN_EXACT_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -6201,6 +6560,27 @@ def main(argv=None) -> int:
                     for kname, n in launches.items():
                         records[kname].setdefault("launches_by_leg", {})[label] = n
                 log(f"{label} on {card}: {stats[label]['phase_s']:.1f} s")
+            if args.leg in (None, TRAIN_LEG[0]) and not args.first_leg_only:
+                name, label = TRAIN_LEG
+                launches, stats[label] = run_train_phase(label)
+                _release_card(torch)
+                if launches["quant_matmul_int8"] <= 0:
+                    raise SmokeFailure(f"quant_matmul_int8 never launched in {label}")
+                if not alone:
+                    rec = records["quant_matmul_int8"]
+                    rec.setdefault("launches_by_leg", {})[label] = \
+                        launches["quant_matmul_int8"]
+                    rec.setdefault("launches_wide_by_leg", {})[label] = \
+                        launches["quant_matmul_int8_wide"]
+                log(f"{label} on {card}: " + "; ".join(
+                    f"{run}: median step {s['step_ms_median_3_8']:.1f} ms, "
+                    f"{s['tokens_per_s']:.0f} tokens/s, peak {s['peak_gib']:.2f} GiB"
+                    for run, s in stats[label].items() if isinstance(s, dict))
+                    + f"; {stats[label]['phase_s']:.1f} s")
+            if args.leg in (None, TRAIN_EXACT_LEG[0]) and not args.first_leg_only:
+                name, label = TRAIN_EXACT_LEG
+                stats[label] = run_train_exact_phase(label)
+                _release_card(torch)
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

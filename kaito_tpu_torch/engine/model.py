@@ -35,6 +35,16 @@ cache-less ``"train"`` forward) runs every layer over one fresh row,
 its attention through the flash prefill kernel (MLA: the plain
 ``attention.mla_prefill_attention``), and writes no page.
 
+Training (:meth:`TransformerLM.forward_train`, mode ``"train"``) is the
+JAX model's ``forward_train``: a cache-less forward whose attention is
+the differentiable ``attention.prefill_attention`` (never the flash
+kernel, which has no backward), whose projections add the
+training-form LoRA update of ``{t}_lora_a`` / ``{t}_lora_b`` stacks
+(``tuning.lora.add_lora_params``) times ``lora_scaling``, whose MoE
+layers take the dense form (the JAX trainer's), and whose layers are
+rematerialized in the backward (``torch.utils.checkpoint``).  As in the
+JAX package, MLA's attention projections take no LoRA update there.
+
 Rope takes the linear, llama3, yarn and longrope scalings.  A longrope
 model with factor lists picks its table per position (``_rope_select``):
 positions past ``original_max_position_embeddings`` take the long
@@ -52,6 +62,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from kaito_tpu_torch.device import resolve_device
 from kaito_tpu_torch.engine import attention as attn
@@ -696,17 +707,22 @@ class TransformerLM(tnn.Module):
             return nn.layer_norm(x, p[name], p.get(f"{name}_bias"), a.rms_norm_eps)
         return nn.rms_norm(x, p[name], a.rms_norm_eps, a.norm_offset)
 
-    def _attn_qkv(self, x, p, positions, window, q_proj=None, lora=None, ids=None):
+    def _attn_qkv(self, x, p, positions, window, q_proj=None, lora=None, ids=None,
+                  scaling=None):
         """q/k/v heads with norms and rope applied.  x: [B, T, E];
         positions: [B, T] absolute positions; ``q_proj``: the q
         projection when a collective already computed it; ``lora`` /
-        ``ids``: the layer's adapter lanes and the rows' lanes."""
+        ``ids``: the layer's adapter lanes and the rows' lanes;
+        ``scaling``: the training-form LoRA scaling (None outside
+        training)."""
         a = self.arch
         B, T, _ = x.shape
         q = nn.linear(x, p["q"]) if q_proj is None else q_proj
-        q = nn.plus_delta(q, x, lora, "q", ids)
-        k = nn.plus_delta(nn.linear(x, p["k"]), x, lora, "k", ids)
-        v = nn.plus_delta(nn.linear(x, p["v"]), x, lora, "v", ids)
+        q = nn.plus_lora(nn.plus_delta(q, x, lora, "q", ids), x, p, "q", scaling)
+        k = nn.plus_lora(nn.plus_delta(nn.linear(x, p["k"]), x, lora, "k", ids),
+                         x, p, "k", scaling)
+        v = nn.plus_lora(nn.plus_delta(nn.linear(x, p["v"]), x, lora, "v", ids),
+                         x, p, "v", scaling)
         if "q_bias" in p:
             q, k, v = q + p["q_bias"], k + p["k_bias"], v + p["v_bias"]
         q = q.reshape(B, T, a.num_heads, a.head_dim)
@@ -732,25 +748,37 @@ class TransformerLM(tnn.Module):
                lora=None, ids=None, **kw):
         """One transformer block over layer ``li`` of the pools; ``lora``
         / ``ids`` the layer's adapter lanes and the rows' lanes (None:
-        no adapter sites run)."""
+        no adapter sites run).  Mode "train" adds the training-form LoRA
+        updates of ``p`` (none on MLA's attention, as in the JAX
+        package)."""
+        train = mode == "train"
+        scaling = self.lora_scaling if train else None
         h = self._norm(x, p, "attn_norm")
         if self.is_mla:
             o_in = self._mla_attention(h, p, cache, li, mode, **kw)
         else:
-            o_in = self._attention(h, p, cache, li, mode, lora=lora, ids=ids, **kw)
+            o_in = self._attention(h, p, cache, li, mode, lora=lora, ids=ids,
+                                   scaling=scaling, **kw)
         o = nn.plus_delta(nn.linear(o_in, p["o"]), o_in, lora, "o", ids)
+        if not self.is_mla:
+            o = nn.plus_lora(o, o_in, p, "o", scaling)
         x, h2 = self._attn_residual(x, h, o, p)
-        return self._mlp_residual(x, self._mlp(h2, p, moe, kw["active"], lora, ids), p)
+        return self._mlp_residual(
+            x, self._mlp(h2, p, moe, kw["active"], lora, ids, train=train), p)
 
-    def _mlp(self, x, p, moe: bool, active=None, lora=None, ids=None):
-        """The layer's MLP: dense (with its adapter sites), or its MoE by
-        ``moe_impl``.  ``active`` (decode's active rows, else None) keeps
-        the grouped form's inactive rows out of every expert group."""
+    def _mlp(self, x, p, moe: bool, active=None, lora=None, ids=None,
+             train: bool = False):
+        """The layer's MLP: dense (with its adapter sites, and in training
+        its training-form LoRA updates), or its MoE by ``moe_impl``
+        (training: the dense form, as the JAX trainer runs it).
+        ``active`` (decode's active rows, else None) keeps the grouped
+        form's inactive rows out of every expert group."""
         if not moe:
-            return nn.mlp(x, p, self.arch, lora=lora, lora_ids=ids)
+            return nn.mlp(x, p, self.arch, lora=lora, lora_ids=ids,
+                          lora_scaling=self.lora_scaling if train else None)
         B, T, E = x.shape
         x2 = x.reshape(B * T, E)
-        if self.moe_impl == "dense":
+        if self.moe_impl == "dense" or train:
             y = nn.moe_mlp(x2, p, self.arch)
         else:
             valid = None if active is None else active.repeat_interleave(T)
@@ -760,7 +788,8 @@ class TransformerLM(tnn.Module):
 
     def _attention(self, h, p, cache: KVCache, li: int, mode: str, *,
                    positions, page_tables, lengths, true_lens, active,
-                   start_pos=None, packed=None, q_proj=None, lora=None, ids=None):
+                   start_pos=None, packed=None, q_proj=None, lora=None, ids=None,
+                   scaling=None):
         """q/k/v of the normed input ``h``, their page writes and the
         attention over layer ``li`` of the pools: the attention-out
         projection's input [B, T, H * D]."""
@@ -768,7 +797,16 @@ class TransformerLM(tnn.Module):
         B, T, _ = h.shape
         window = self._window(li)
         win = window if window is not None else _BIG_WINDOW
-        q, k_new, v_new = self._attn_qkv(h, p, positions, window, q_proj, lora, ids)
+        q, k_new, v_new = self._attn_qkv(h, p, positions, window, q_proj, lora, ids,
+                                         scaling)
+        if mode == "train":
+            # training: the differentiable plain attention (the flash
+            # kernel has no backward), as the JAX training layer runs it
+            out = attn.prefill_attention(q, k_new, v_new, scale=self._scale,
+                                         sliding_window=window,
+                                         logit_softcap=a.attn_logit_softcap,
+                                         true_len=true_lens)
+            return out.reshape(B, T, a.num_heads * a.head_dim)
         if mode == "score":
             # the cache-less forward of prompt scoring: the fresh row
             # attends over itself and writes no page
@@ -870,7 +908,7 @@ class TransformerLM(tnn.Module):
                                self._inv_freq_global, dr,
                                mscale=self._rope_mscale)[:, :, 0]
         wk, wv = p["kv_b_k"], p["kv_b_v"]
-        if mode == "score":
+        if mode in ("score", "train"):
             out = attn.mla_prefill_attention(q_nope, q_rope, c_kv, k_rope, wk, wv,
                                              scale=self._scale, true_len=true_lens)
             return out.reshape(B, T, H * dv)
@@ -982,6 +1020,8 @@ class TransformerLM(tnn.Module):
         if x2.dtype == torch.float32:
             return x2 @ head.t()
         if x2.is_cuda:
+            if torch.is_grad_enabled() and (x2.requires_grad or head.requires_grad):
+                return _HeadLogits.apply(x2, head)
             return torch.mm(x2, head.t(), out_dtype=torch.float32)
         return x2.float() @ head.float().t()
 
@@ -1121,6 +1161,52 @@ class TransformerLM(tnn.Module):
         x = self._run_layers(None, x, "score", **kw)[0]
         return _score_logprobs(tokens[0], lambda a, b: self._logits(
             self._norm(x[a:b], self.top, "final_norm")))
+
+    def forward_train(self, tokens, mask=None, remat: bool = True) -> torch.Tensor:
+        """The training forward (``kaito_tpu.engine.model.TransformerLM.
+        forward_train``): tokens [B, T] -> fp32 logits [B, T, vocab].
+        ``mask`` [B, T] (1 for a token, 0 for padding) sets each row's
+        attended length to its sum; None attends over all T.  With
+        ``remat`` each layer's activations are recomputed in the backward
+        (non-reentrant ``checkpoint``), so a step holds one layer's."""
+        B, T = tokens.shape
+        positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
+        true_lens = (mask.sum(-1).to(torch.int32) if mask is not None else
+                     torch.full((B,), T, dtype=torch.int32, device=tokens.device))
+        kw = dict(positions=positions[None, :].expand(B, T), page_tables=None,
+                  lengths=None, true_lens=true_lens, active=None)
+        x = self._embed(tokens)
+        for g in self.groups:
+            for i in range(g.count):
+                if remat:
+                    x = checkpoint(self._train_layer, x, g, i, kw, use_reentrant=False)
+                else:
+                    x = self._train_layer(x, g, i, kw)
+        return self._logits(self._norm(x, self.top, "final_norm"))
+
+    def _train_layer(self, x, g: LayerGroup, i: int, kw: dict):
+        return self._layer(x, self._layer_params(g, i), None, g.start + i, "train",
+                           g.moe, **kw)
+
+
+class _HeadLogits(torch.autograd.Function):
+    """bf16 hidden states times the bf16 logits head with fp32 output
+    (``torch.mm(out_dtype=float32)``, the JAX package's dot_general with
+    preferred_element_type=float32) under autograd: the gradients run in
+    the inputs' dtype with fp32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, x2: torch.Tensor, head: torch.Tensor):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2, head = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = g @ head if ctx.needs_input_grad[0] else None
+        dhead = g.t() @ x2 if ctx.needs_input_grad[1] else None
+        return dx, dhead
 
 
 def greedy_targets(logits: torch.Tensor, grammar_rows: Optional[torch.Tensor] = None

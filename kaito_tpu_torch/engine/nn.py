@@ -42,6 +42,15 @@ def lora_delta(x: torch.Tensor, p: dict, name: str,
     return ((x @ a) @ p[f"{name}_lora_b"]) * scaling
 
 
+def plus_lora(y: torch.Tensor, x: torch.Tensor, p: dict, name: str,
+              scaling: Optional[float]) -> torch.Tensor:
+    """``y`` plus the training-form update :func:`lora_delta` of ``x`` for
+    ``name`` (``y`` itself when ``scaling`` is None, outside training, or
+    the layer carries no factors for ``name``)."""
+    d = None if scaling is None else lora_delta(x, p, name, scaling)
+    return y if d is None else y + d
+
+
 def multi_lora_delta(x: torch.Tensor, lora: Optional[dict], name: str,
                      ids: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """Per-request batched LoRA: every row of the batch applies its own
@@ -297,12 +306,14 @@ def _down_bias(out: torch.Tensor, p: dict) -> torch.Tensor:
 
 def mlp(x, p, arch: ModelArch, mesh: Optional[Mesh] = None,
         overlap: bool = False, pf_down: Optional[list] = None,
-        lora=None, lora_ids=None):
+        lora=None, lora_ids=None, lora_scaling: Optional[float] = None):
     """Gated (SwiGLU/GeGLU) or classic 2-matrix MLP.
 
     ``lora`` and ``lora_ids`` are the layer's multi-LoRA lanes and the
     rows' lane ids (:func:`multi_lora_delta`): gate, up and down each
-    add their delta when the lanes carry them.
+    add their delta when the lanes carry them.  ``lora_scaling`` (in
+    training) adds the training-form update (:func:`plus_lora`) of
+    ``p``'s factors at each of them (one device only).
 
     With a tensor-parallel ``mesh``, ``x`` and ``p`` are lists with one
     entry per shard (the replicated input, each shard's parameters), and
@@ -316,10 +327,13 @@ def mlp(x, p, arch: ModelArch, mesh: Optional[Mesh] = None,
     with ``pf_down`` (each shard's next-layer down slab, or None) as its
     layer-ahead prefetch."""
     if mesh is None:
-        g = (plus_delta(linear(x, p["gate"]), x, lora, "gate", lora_ids)
-             if arch.gated_mlp else None)
-        h = _hidden(g, plus_delta(linear(x, p["up"]), x, lora, "up", lora_ids), p, arch)
-        return _down_bias(plus_delta(linear(h, p["down"]), h, lora, "down", lora_ids), p)
+        def proj(v, name):
+            y = plus_delta(linear(v, p[name]), v, lora, name, lora_ids)
+            return plus_lora(y, v, p, name, lora_scaling)
+
+        g = proj(x, "gate") if arch.gated_mlp else None
+        h = _hidden(g, proj(x, "up"), p, arch)
+        return _down_bias(proj(h, "down"), p)
     n = len(x)
     lora = lora if lora is not None else [None] * n
     ids = lora_ids if lora_ids is not None else [None] * n

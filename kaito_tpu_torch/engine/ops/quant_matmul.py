@@ -444,6 +444,25 @@ quant_matmul_cuda.launches_int8_wide = 0
 quant_matmul_cuda.launches_int4_wide = 0
 
 
+class QuantMatmulFn(torch.autograd.Function):
+    """:func:`quant_matmul_cuda` under autograd: the forward launches
+    K4/K5 (K6 with ``w_next``) on the card and runs the plain version on
+    the CPU; the backward returns ``dx = g @ dequant(w)ᵀ`` in g's dtype.
+    The codes and scales are frozen and get no gradient.  The kernel
+    fills a fresh tensor that autograd cannot follow, so every call
+    whose ``x`` needs a gradient (a QLoRA step whose rows fit the kernel)
+    goes through here."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: dict, w_next: Optional[dict]):
+        ctx.w = w
+        return quant_matmul_cuda(x, w, w_next)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g @ dequant_weight(ctx.w, g.dtype).t(), None, None
+
+
 def quant_linear(x: torch.Tensor, w: dict,
                  prefetch: Optional[dict] = None) -> torch.Tensor:
     """``x [.., K] @ w`` for a QTensor ``w`` (2-D planes: the model has
@@ -451,12 +470,18 @@ def quant_linear(x: torch.Tensor, w: dict,
     the leading dims: up to ``MAX_ROWS`` take the kernel (the plain
     version on the CPU), more take :func:`dequant_matmul`.  ``prefetch``
     (the next layer's slab) engages K6 where :func:`prefetch_ok` holds
-    and is dropped everywhere else, never changing the output."""
+    and is dropped everywhere else, never changing the output.  A kernel
+    call whose ``x`` needs a gradient goes through
+    :class:`QuantMatmulFn`; serving and graph capture call the kernel
+    directly."""
     lead, K = x.shape[:-1], x.shape[-1]
     rows = math.prod(lead)
     if rows < 1 or rows > MAX_ROWS:
         return dequant_matmul(x, w)
     x2 = x.reshape(rows, K)
-    out = (quant_matmul_cuda(x2, w, prefetch) if prefetch_ok(w, prefetch)
-           else quant_matmul_cuda(x2, w))
+    if x.requires_grad and torch.is_grad_enabled():
+        out = QuantMatmulFn.apply(x2, w, prefetch if prefetch_ok(w, prefetch) else None)
+    else:
+        out = (quant_matmul_cuda(x2, w, prefetch) if prefetch_ok(w, prefetch)
+               else quant_matmul_cuda(x2, w))
     return out.reshape(*lead, out.shape[-1])

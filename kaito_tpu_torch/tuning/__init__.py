@@ -1,1 +1,2 @@
-"""Fine-tuning artifacts of the port: the LoRA adapter format."""
+"""Fine-tuning on the card: LoRA, QLoRA and full (``trainer.Trainer``,
+``cli``), the LoRA adapter format (``lora``) and the metrics sidecar."""

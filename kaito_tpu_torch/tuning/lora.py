@@ -1,26 +1,35 @@
-"""LoRA adapter artifacts: the ``kaito-tpu-lora-v1`` format and the
-merge into base weights.
+"""LoRA: the trainable factors, the ``kaito-tpu-lora-v1`` artifact and
+the merge into base weights.
 
-Counterpart of the artifact part of ``kaito_tpu.tuning.lora``: an
-adapter is the ``{group}/{t}_lora_a`` ([L, in, r]) and
-``{group}/{t}_lora_b`` ([L, r, out]) leaves of a parameter tree, saved
-as ``adapter.msgpack`` (flax's msgpack layout, through the port's own
-codec ``utils.msgpack``) beside ``adapter_config.json`` (base model,
-rank, alpha, targets).  Artifacts cross both ways: the JAX package
-loads what :func:`save_adapter` writes, and :func:`load_adapter` reads
-what the JAX package saves.  Leaves come back as CPU tensors.
+Counterpart of ``kaito_tpu.tuning.lora``.  An adapter is the
+``{group}/{t}_lora_a`` ([L, in, r]) and ``{group}/{t}_lora_b``
+([L, r, out]) leaves of a parameter tree.  For training,
+:func:`add_lora_params` puts them into the model's layer stacks as
+trainable parameters, which the model's ``"train"`` mode applies at
+the projection sites (``engine.nn.lora_delta``); the rest of the model
+stays frozen.  An artifact is ``adapter.msgpack`` (flax's msgpack
+layout, through the port's own codec ``utils.msgpack``) beside
+``adapter_config.json`` (base model, rank, alpha, targets).  Artifacts
+cross both ways: the JAX package loads what :func:`save_adapter`
+writes, and :func:`load_adapter` reads what the JAX package saves.
+Leaves come back as CPU tensors.
 
-Training (``add_lora_params``, ``lora_mask``) is not ported yet
-(ROADMAP queue 1, M21).
+Two of the JAX package's choices are not copied: A is drawn from a
+seeded generator with a stable per-name salt (the JAX package salts it
+with Python's per-process ``hash()``), and A is kept in the model's
+dtype.  ``LoraConfig.dropout`` is applied nowhere, in either package.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import zlib
 from dataclasses import dataclass
 
 import torch
+from torch import nn as tnn
 
 from kaito_tpu_torch.utils import msgpack
 
@@ -41,6 +50,63 @@ class LoraConfig:
     @property
     def scaling(self) -> float:
         return self.alpha / self.r
+
+
+def add_lora_params(model, cfg: LoraConfig, seed: int = 0) -> None:
+    """Add trainable lora factors for ``cfg.targets`` to every layer stack
+    of ``model`` that has the target: ``{t}_lora_a`` [L, in, r] ~ N(0,
+    1/r) and ``{t}_lora_b`` [L, r, out] = 0 (the update starts at zero),
+    in the model's dtype on its device, and set ``model.lora_scaling``.
+    Each A draws from its own ``torch.Generator`` seeded by ``seed`` and
+    a crc32 salt of ``{group}/{t}``, so it does not depend on the
+    process or the draw order."""
+    gen = torch.Generator(device=model.device)
+    tree = {}
+    for g in model.groups:
+        specs = model._layer_specs(g.moe)
+        stack = {}
+        for t in cfg.targets:
+            if t not in specs:
+                continue
+            in_dim, out_dim = specs[t]
+            salt = zlib.crc32(f"lora/{g.name}/{t}".encode()) & 0x7FFFFFFF
+            gen.manual_seed((seed * 1_000_003 + salt) & 0x7FFF_FFFF_FFFF_FFFF)
+            a = torch.empty((g.count, in_dim, cfg.r), dtype=model.dtype,
+                            device=model.device).normal_(generator=gen)
+            stack[f"{t}_lora_a"] = a / math.sqrt(cfg.r)
+            stack[f"{t}_lora_b"] = torch.zeros((g.count, cfg.r, out_dim),
+                                               dtype=model.dtype, device=model.device)
+        tree[g.name] = stack
+    set_lora_params(model, tree, cfg)
+
+
+def set_lora_params(model, tree: dict, cfg: LoraConfig) -> None:
+    """Install the lora leaves of a parameter tree (``{group: {"{t}_lora_a"
+    | "{t}_lora_b": tensor}}``, other leaves ignored) into ``model``'s
+    layer stacks as trainable parameters in its dtype on its device, and
+    set ``model.lora_scaling``."""
+    for g in model.groups:
+        for name, t in tree.get(g.name, {}).items():
+            if "_lora_" in name:
+                model.stacks[g.name][name] = tnn.Parameter(
+                    t.detach().to(device=model.device, dtype=model.dtype).clone())
+    model.lora_scaling = cfg.scaling
+
+
+def is_lora_path(path) -> bool:
+    """Whether a leaf's key path (a sequence of keys) names a lora leaf."""
+    return any("lora" in str(k) for k in path)
+
+
+def lora_mask(params: dict) -> dict:
+    """A tree of bools over ``params``: True for the trainable (lora)
+    leaves.  A QTensor dict is one frozen leaf."""
+    def walk(node, path):
+        if isinstance(node, dict) and not ("q8" in node or "q4" in node):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return is_lora_path(path)
+
+    return walk(params, ())
 
 
 def _as_tensor(x) -> torch.Tensor:

@@ -46,7 +46,10 @@ def test_sources_found():
                 "utils/promtext.py", "utils/flightrec.py", "utils/msgpack.py",
                 "tuning/lora.py", "engine/adapters.py", "engine/adapter_cache.py",
                 "engine/devprof.py", "engine/host_offload.py", "engine/pd.py",
-                "engine/kv_pool.py", "runtime/routing.py", "utils/failpoints.py"):
+                "engine/kv_pool.py", "runtime/routing.py", "utils/failpoints.py",
+                "tuning/quant.py", "tuning/optim.py", "tuning/train_step.py",
+                "tuning/dataset.py", "tuning/trainer.py", "tuning/cli.py",
+                "tuning/metrics_server.py"):
         assert PKG / mod in SOURCES, mod
 
 
