@@ -72,7 +72,9 @@ order; any failure exits non-zero and prints no result:
    counts only the keys the window keeps; K1's plan there is logged.
    K2 also at prompt scoring's lengths, T = 1024 and 4096 with true_len
    T - 37 (bf16 and fp32, the same tolerances), timed at T = 4096 beside
-   SDPA.  At the head dims of the other dense families
+   SDPA, and as phase 17's embedder calls it: fp32, 32 and 64 rows of
+   T = 256, each row's true_len a query's or a document's token count
+   and the last row empty, compared on the valid rows.  At the head dims of the other dense families
    (:data:`FAMILY_HEADS`: phi-3-mini H = Hkv = 32, D = 96; phi-2 H = Hkv
    = 32, D = 80; gemma-3-4b H = 8, Hkv = 4, D = 256, scale 1/16, global
    and its window of 1024) K1 and K1q run the eight sequences and K2 and
@@ -380,6 +382,36 @@ order; any failure exits non-zero and prints no result:
    gradients excepted) equal; each LoRA run's adapter,
    saved and served by a card engine, gives its first greedy token the
    logprob ``forward_train`` gives it (within 2e-3).
+17. The RAG service (legs ``rag-bf16`` and ``rag-fp32``).  One process
+   holds the port's RAG server (``kaito_tpu_torch.rag.app``) with
+   ``EMBEDDING_MODEL_ID=qwen3-8b``: Qwen3-Embedding-8B's architecture
+   (36 layers, hidden 4096, 32 query heads over 8 KV heads of 128, q/k
+   norm) uncut in fp32 with synthetic weights from seed 0, ~32.8 GB,
+   built first; then the port's OpenAI server on Llama-3.1-8B in bf16
+   (phase 4's config, 240 pages of 64) as its upstream.  64 seeded
+   documents of 200-1000 bytes (the byte tokenizer cuts at 256 tokens)
+   indexed in two calls with metadata: the flash prefill kernel (K2)
+   launches 36 times a forward, and no plain ``prefill_attention`` runs
+   anywhere in the phase; ``/indexes`` lists the index; 16
+   ``/retrieve`` calls, a query equal to a document's text returning that
+   document first with score 1, a metadata filter excluding what it
+   names; chats with the retrieved context injected under
+   ``llm_context_window`` 1024, not streamed and streamed, answered by
+   the upstream with their ``max_tokens``; a ``MaxLength`` guardrails
+   policy loaded by ``reload_guardrails`` ends a stream and a reply with
+   the block message; ``/metrics`` carries the ``kaito_rag:*`` families
+   with this phase's counts; ``/persist``, then a second RAG service
+   (the first one's embedder released) loading the directory at its
+   start retrieves the same ids with scores within 1e-6.  Logged beside
+   the card: the embed card ms of each forward and its rows, of one
+   64-row forward, documents/s, ``/retrieve`` p50, a chat's TTFT through
+   the RAG server against the same injected prompt sent straight to the
+   upstream (three rounds each, the prompt's pages cached), the peak
+   GiB.  Exact: ``LocalTorchEmbedder`` on ``tiny-llama-real``'s
+   checkpoint on the card and on the CPU: 24 texts (the empty text, one
+   past 256 bytes, non-ASCII) give vectors within atol 1e-5, a row of no
+   token the zero vector on both, K2 four launches a forward, and an
+   index over each the same top-5 ids for 8 queries.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -392,7 +424,7 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 ``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
 ``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``,
 ``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``,
-``pd-bf16``, ``train-bf16``, ``train-fp32``), which
+``pd-bf16``, ``train-bf16``, ``train-fp32``, ``rag-bf16``, ``rag-fp32``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -1495,6 +1527,24 @@ def check_flash(torch, records):
             err2[dtype] = max(err2[dtype], e)
             log(f"K2 {dtype} scoring T={T} true_len={T - 37}: max err {e:.3g}")
             del q, k, v, out, ref
+    # K2 as the RAG embedder calls it (phase 17): fp32, 32 and 64 rows of
+    # T=256 at Qwen3-8B's heads, each row's true_len a query's or a
+    # document's token count, the last row empty; part of its record's error
+    rag_err, rag_lens = 0.0, _rag_token_lens()
+    for B in (32, 64):
+        lens = rag_lens[:B - 1] + [0]
+        q, k, v = _flash_inputs(torch, torch.float32, 256, gen, B=B)
+        tl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = flash_prefill_attention_cuda(q, k, v, tl, BIG, scale=scale)
+        ref = flash_prefill_attention_plain(q, k, v, tl, BIG, scale=scale)
+        torch.cuda.synchronize()
+        valid = torch.arange(256, device="cuda")[None, :] < tl[:, None]
+        e = (out - ref).abs()[valid].max().item()
+        rag_err = max(rag_err, e)
+        err2[torch.float32] = max(err2[torch.float32], e)
+        log(f"K2 torch.float32 RAG rows B={B} T=256 true_lens {min(lens[:-1])}-"
+            f"{max(lens)} and 0: max err {e:.3g}")
+        del q, k, v, out, ref
     scoring = [_time_scoring_k2(torch, T, gen, scale) for T in SCORING_T]
     t512 = _time_flash(torch, 512, gen, scale)
     t256 = _time_flash(torch, 256, gen, scale)
@@ -1519,6 +1569,8 @@ def check_flash(torch, records):
         lengths=list(SCORING_T), true_len="T - 37",
         max_err_bf16=scoring_err[torch.bfloat16],
         max_err_fp32=scoring_err[torch.float32], timed=scoring)
+    records["flash_prefill_attention"]["rag_rows"] = dict(
+        rows=[32, 64], T=256, true_lens=rag_lens[:63] + [0], max_err_fp32=rag_err)
     for name, err in (("K2", err2), ("K3", err3)):
         if err[torch.bfloat16] > BF16_ATOL or err[torch.float32] > FP32_ATOL:
             raise SmokeFailure(f"{name} disagrees with its plain version: {err}")
@@ -3872,14 +3924,15 @@ def _g_taxonomy(base, engine, cfg, label) -> dict:
     return dict(statuses=got)
 
 
-def _g_metrics(base) -> dict:
+def _g_metrics(base, prefix="kaito:grammar_") -> dict:
+    """{series: value} of the ``/metrics`` families named ``prefix``*."""
     from kaito_tpu_torch.utils.promtext import parse_exposition
 
     status, raw = _get(f"{base}/metrics")
     if status != 200:
         raise SmokeFailure(f"/metrics answered {status}")
     return {n + lbl: v for n, lbl, v in parse_exposition(raw.decode())
-            if n.startswith("kaito:grammar_")}
+            if n.startswith(prefix)}
 
 
 def _g_batch(engine, prompts, grammars, n=48) -> list:
@@ -5594,25 +5647,41 @@ def _pd_decode(base, src, text, hs, wire, n, **extra):
     return ch["logprobs"]["tokens"], ch["logprobs"]["token_logprobs"]
 
 
-def _stream_ttft(base, text, n, headers=None) -> tuple[float, str]:
-    """(ms to the first streamed token, the whole text) of a greedy
-    completion."""
-    req = urllib.request.Request(f"{base}/v1/completions", data=json.dumps(dict(
-        prompt=text, max_tokens=n, temperature=0.0, ignore_eos=True,
-        stream=True)).encode(), headers={"Content-Type": "application/json",
-                                         **(headers or {})})
+def _stream_ttft(base, path, body, headers=None) -> tuple[float, list]:
+    """(ms to the first event, the parsed events; "[DONE]" as itself) of
+    a streamed request.  The port's server opens a stream with its first
+    token, and the RAG server relays the upstream's events as they come,
+    so the first event stands for the first token (whose text the byte
+    tokenizer may decode to nothing on a synthetic model's vocabulary)."""
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
     t0 = time.perf_counter()
-    ttft, parts = None, []
+    ttft, events = None, []
     with urllib.request.urlopen(req, timeout=600) as r:
         for line in r:
             line = line.strip()
-            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+            if not line.startswith(b"data: "):
                 continue
-            piece = json.loads(line[6:])["choices"][0].get("text") or ""
+            data = line[6:]
+            if data == b"[DONE]":
+                events.append("[DONE]")
+                continue
             if ttft is None:
                 ttft = (time.perf_counter() - t0) * 1e3
-            parts.append(piece)
-    return ttft, "".join(parts)
+            events.append(json.loads(data))
+    return ttft, events
+
+
+def _content(events) -> str:
+    """The text a stream's events carry (completion or chat chunks)."""
+    return "".join(c.get("text") or (c.get("delta") or {}).get("content") or ""
+                   for e in events if e != "[DONE]" for c in e.get("choices") or [])
+
+
+def _greedy_stream(text, n) -> dict:
+    return dict(prompt=text, max_tokens=n, temperature=0.0, ignore_eos=True,
+                stream=True)
 
 
 def _pd_exact(label) -> dict:
@@ -5773,7 +5842,9 @@ def run_pd_phase(label) -> tuple[dict, dict]:
         # for the near-tie rule
         _keep_logprobs(pre, "submit")
         _keep_logprobs(dec, "submit", "submit_with_kv_prefix")
-        cold_ms, want_text = _stream_ttft(a, text, _PD_TOKENS)
+        cold_ms, events = _stream_ttft(a, "/v1/completions",
+                                       _greedy_stream(text, _PD_TOKENS))
+        want_text = _content(events)
         cold = finished_a[-1]
         blocks = prompt_pool_blocks(text, cfg.page_size)
         key = next((pool_key(blocks[:n]) for n in range(len(blocks), 0, -1)
@@ -5781,8 +5852,10 @@ def run_pd_phase(label) -> tuple[dict, dict]:
         if key is None:
             raise SmokeFailure(f"{label}: the first server published nothing")
         watch.imports = []
-        fetch_ms, got = _stream_ttft(b, text, _PD_TOKENS, headers={
-            "X-Kaito-KV-Fetch": a, "X-Kaito-KV-Fetch-Key": key})
+        fetch_ms, events = _stream_ttft(
+            b, "/v1/completions", _greedy_stream(text, _PD_TOKENS),
+            headers={"X-Kaito-KV-Fetch": a, "X-Kaito-KV-Fetch-Key": key})
+        got = _content(events)
         fetch_req = finished[-1]
         if len(watch.imports) != 1:
             raise SmokeFailure(f"{label}: the pool fetch made {len(watch.imports)} imports")
@@ -5803,7 +5876,9 @@ def run_pd_phase(label) -> tuple[dict, dict]:
         if dec.kv_pool.has(key) or not dec.kv_tier.has(key):
             raise SmokeFailure(f"{label}: the fetched prefix was not demoted to disk")
         watch.imports = []
-        disk_ms, got_disk = _stream_ttft(b, text, _PD_TOKENS)
+        disk_ms, events = _stream_ttft(b, "/v1/completions",
+                                       _greedy_stream(text, _PD_TOKENS))
+        got_disk = _content(events)
         disk_req = finished[-1]
         if c["kv_tier_disk_hits_total"] != 1:
             raise SmokeFailure(f"{label}: disk hits {c['kv_tier_disk_hits_total']}")
@@ -6263,6 +6338,427 @@ def run_train_exact_phase(label) -> dict:
     return res
 
 
+RAG_LEG = ("rag-bf16", "phase 17, the RAG service: Qwen3-8B fp32 embedder over a "
+           "Llama-3.1-8B bf16 upstream")
+RAG_EXACT_LEG = ("rag-fp32", "phase 17, fp32 embedder on tiny-llama-real exact against "
+                 "the CPU")
+# the embedder: Qwen3-Embedding-8B's architecture (qwen3-8b's widths,
+# 36 layers) uncut in fp32, ~32.8 GB beside the upstream's ~16 GB
+_RAG_EMBED, _RAG_PAGES, _RAG_WINDOW = "qwen3-8b", 240, 1024
+_RAG_DOCS, _RAG_QUERIES, _RAG_CHAT_TOKENS = 64, 16, 32
+_RAG_WORDS = ("vector", "index", "cluster", "kernel", "latency", "replica", "tenant",
+              "adapter", "operator", "gateway", "shard", "window", "prefix", "token",
+              "schema", "budget", "router", "storage", "policy", "signal")
+_RAG_USER = "Which documents talk about the kernel budget of a replica?"
+# phase 17's guardrails policy: a reply longer than 20 characters is blocked;
+# the guarded chats ask for letters (most of the synthetic model's tokens
+# decode to no text under the byte tokenizer)
+_RAG_POLICY = "output_scanners:\n  - type: max_length\n    max_chars: 20\nstream_window: 8\n"
+_RAG_LETTERS = {"type": "regex", "regex": "[a-z]{40}"}
+_RAG_EXACT_TEXTS = 24
+
+
+def _rag_docs(n, seed) -> list[str]:
+    """``n`` seeded documents of 200-1000 bytes of words."""
+    import random
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        size = rng.randint(200, 1000)
+        words = [f"doc{i}"]
+        while len(" ".join(words)) < size:
+            words.append(rng.choice(_RAG_WORDS))
+        out.append(" ".join(words)[:size])
+    return out
+
+
+def _rag_token_lens() -> list[int]:
+    """The embedder's token counts (cut at 256) of phase 17's first query
+    of other words, then of its documents: the byte tokenizer's, which
+    the embedder falls back to with no tokenizer files.  Phase 2 calls
+    this, before the server phases: ``load_tokenizer`` would first
+    import ``transformers`` where it is installed."""
+    from kaito_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    texts = [_rag_docs(1, seed=71)[0][:80]] + _rag_docs(_RAG_DOCS, seed=17)
+    return [min(len(tok.encode(t)), 256) for t in texts]
+
+
+def _rag_post(url, body) -> tuple[int, dict]:
+    status, raw = _post(url, body)
+    return status, json.loads(raw)
+
+
+@contextlib.contextmanager
+def _no_plain_prefill_attention():
+    """Fail if the plain differentiable ``attention.prefill_attention``
+    (the training attention) runs: every cache-less forward on the card
+    goes through the flash prefill kernel."""
+    from kaito_tpu_torch.engine import attention
+
+    real, calls = attention.prefill_attention, []
+
+    def guarded(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    attention.prefill_attention = guarded
+    try:
+        yield
+    finally:
+        attention.prefill_attention = real
+    if calls:
+        raise SmokeFailure(f"the plain prefill_attention ran {len(calls)} times")
+
+
+class _EmbedWatch:
+    """Times each forward of a ``LocalTorchEmbedder`` between two
+    synchronizations, on the thread that runs it: (rows, ms)."""
+
+    def __init__(self, torch, embedder):
+        self.forwards, real = [], embedder._forward
+
+        def timed(tokens, lens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(tokens, lens)
+            torch.cuda.synchronize()
+            self.forwards.append((int(tokens.shape[0]), (time.perf_counter() - t0) * 1e3))
+            return out
+        embedder._forward = timed
+
+
+def _rag_serve(cfg):
+    """A started RAG server on the card, its persisted indexes loaded:
+    (server, base URL)."""
+    from kaito_tpu_torch.rag.app import make_server
+
+    server = make_server(cfg, host="127.0.0.1", port=0, device="cuda")
+    server.svc.lifecycle.startup()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _retrieve_all(base, queries, label) -> tuple[list, list]:
+    """(hits, ms) of one ``/retrieve`` (top 5) per query."""
+    hits, ms = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        status, body = _rag_post(base + "/retrieve",
+                                 {"index_name": "docs", "query": q, "top_k": 5})
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if status != 200 or len(body["results"]) != 5:
+            raise SmokeFailure(f"{label}: /retrieve answered {status} {body}")
+        hits.append([(h["doc_id"], h["score"]) for h in body["results"]])
+    return hits, ms
+
+
+def run_rag_phase(label) -> tuple[dict, dict]:
+    """Phase 17, the RAG service at full width: the port's RAG server
+    (``EMBEDDING_MODEL_ID=qwen3-8b``, Qwen3-Embedding-8B's architecture
+    uncut in fp32, synthetic weights from seed 0, built first) fronting
+    the port's OpenAI server on Llama-3.1-8B in bf16 (phase 4's config,
+    :data:`_RAG_PAGES` pages of 64), both in this process.  Indexing 64
+    seeded documents in two calls (K2's launches rise by 36 a forward),
+    16 retrievals (a query equal to a document's text finds it first, a
+    metadata filter excludes what it names), chats streamed and not with
+    the retrieved context injected (the upstream's reply carries its
+    ``max_tokens``), a ``MaxLength`` guardrails policy that ends a stream
+    and a reply with the block message, ``/metrics`` counting this phase,
+    and a second RAG service loading the persisted index that retrieves
+    the same ids and scores.  Logged beside the card: the embed ms a
+    forward and its rows, documents/s, ``/retrieve`` p50, a chat's TTFT
+    through the RAG server against the same injected prompt sent
+    straight to the upstream, and the peak GiB."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.engine.server import make_server, parse_args
+    from kaito_tpu_torch.rag.config import RAGConfig
+
+    t_leg = time.perf_counter()
+    k2 = _counter("flash_prefill_attention")
+    for name in _P14_KERNELS:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="kaito-rag-")
+    policy = os.path.join(root, "policy.yaml")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        up_port = s.getsockname()[1]
+    rcfg = RAGConfig(llm_inference_url=f"http://127.0.0.1:{up_port}",
+                     llm_context_window=_RAG_WINDOW, embedding_model_id=_RAG_EMBED,
+                     persist_dir=os.path.join(root, "persist"),
+                     guardrails_policy_file=policy)
+    stats: dict = {}
+    rag = upstream = None
+    try:
+        with _no_plain_prefill_attention():
+            t0 = time.perf_counter()
+            rag, base = _rag_serve(rcfg)
+            emb = rag.svc.embedder._inner
+            torch.cuda.synchronize()
+            stats["embedder"] = dict(model=emb.model_name, layers=emb.model.arch.num_layers,
+                                     gib=emb.model.param_bytes() / 2**30,
+                                     setup_s=time.perf_counter() - t0)
+            if emb.model_name != _RAG_EMBED or emb.model.dtype != torch.float32:
+                raise SmokeFailure(f"{label}: embedder {emb.model_name} {emb.model.dtype}")
+            watch = _EmbedWatch(torch, emb)
+            cfg, _ = parse_args(["--model", _LLAMA, "--dtype", "bfloat16",
+                                 "--max-num-seqs", "8", "--seed", "0", "--max-pages",
+                                 str(_RAG_PAGES)])
+            t0 = time.perf_counter()
+            upstream = make_server(None, cfg, host="127.0.0.1", port=up_port,
+                                   device="cuda")
+            threading.Thread(target=upstream.serve_forever, daemon=True).start()
+            up = f"http://127.0.0.1:{up_port}"
+            log(f"{label}: embedder {_RAG_EMBED} fp32 "
+                f"{stats['embedder']['gib']:.2f} GiB up in "
+                f"{stats['embedder']['setup_s']:.1f}s; upstream up in "
+                f"{time.perf_counter() - t0:.1f}s, "
+                f"{upstream.state.engine.allocator.num_pages} pages")
+            stats.update(_rag_drive(torch, rag, base, up, watch, k2, policy, label))
+            status, body = _rag_post(base + "/persist", {})
+            if status != 200 or body["persisted"] != ["docs"]:
+                raise SmokeFailure(f"{label}: /persist answered {status} {body}")
+            # a second service loads the persisted index at its start (the
+            # first one's embedder released first: two 8B fp32 models and
+            # the upstream do not fit one card)
+            rag.shutdown()
+            rag.server_close()
+            rag = emb = watch = None
+            _release_card(torch)
+            rag, base2 = _rag_serve(rcfg)
+            hits2, _ = _retrieve_all(base2, stats.pop("queries"), label)
+            worst = max(abs(a[1] - b[1]) for h1, h2 in zip(stats["hits"], hits2)
+                        for a, b in zip(h1, h2))
+            if [[d for d, _ in h] for h in hits2] != [[d for d, _ in h]
+                                                       for h in stats.pop("hits")]:
+                raise SmokeFailure(f"{label}: the reloaded index retrieves other ids")
+            if worst > 1e-6:
+                raise SmokeFailure(f"{label}: reloaded scores differ by {worst:.2e}")
+            stats["reload_max_score_diff"] = worst
+            log(f"{label}: a second service loaded the persisted index: the same "
+                f"ids, scores within {worst:.1e}")
+        torch.cuda.synchronize()
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        for srv in (rag, upstream):
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+        if upstream is not None:
+            upstream.state.engine.stop()
+        rag = upstream = None
+        shutil.rmtree(root, ignore_errors=True)
+        _release_card(torch)
+    launches = {name: getattr(*_counter(name)) for name in _P14_KERNELS}
+    stats["phase_s"] = time.perf_counter() - t_leg
+    log(f"{label}: launches {launches}; peak {stats['peak_gib']:.2f} GiB")
+    return launches, stats
+
+
+def _rag_drive(torch, rag, base, up, watch, k2, policy, label) -> dict:
+    """The requests of :func:`run_rag_phase` against one RAG server
+    ``base`` over the upstream ``up``."""
+    from kaito_tpu_torch.rag.llm_client import inject_context
+    from kaito_tpu_torch.rag.vector_store import doc_id_for
+
+    res: dict = {}
+    docs = _rag_docs(_RAG_DOCS, seed=17)
+    metas = [{"group": i % 4, "i": i} for i in range(_RAG_DOCS)]
+    half = _RAG_DOCS // 2
+    n0, f0 = getattr(*k2), len(watch.forwards)
+    calls = []
+    for part in (slice(0, half), slice(half, None)):
+        t0 = time.perf_counter()
+        status, body = _rag_post(base + "/index", {
+            "index_name": "docs", "documents": [
+                {"text": t, "metadata": m} for t, m in zip(docs[part], metas[part])]})
+        calls.append((time.perf_counter() - t0) * 1e3)
+        if status != 200 or body["doc_ids"] != [doc_id_for(t) for t in docs[part]]:
+            raise SmokeFailure(f"{label}: /index answered {status} {body}")
+    fwd = watch.forwards[f0:]
+    n_k2 = getattr(*k2) - n0
+    layers = rag.svc.embedder._inner.model.arch.num_layers
+    if n_k2 != layers * len(fwd) or sum(r for r, _ in fwd) != _RAG_DOCS:
+        raise SmokeFailure(f"{label}: {n_k2} K2 launches over {len(fwd)} forwards of "
+                           f"{[r for r, _ in fwd]} rows")
+    res["index"] = dict(forwards=fwd, call_ms=calls, k2_launches=n_k2,
+                        docs_per_s=_RAG_DOCS / (sum(ms for _, ms in fwd) / 1e3))
+    log(f"{label}: indexed {_RAG_DOCS} documents in two calls ({calls[0]:.0f}, "
+        f"{calls[1]:.0f} ms): forwards (rows, card ms) "
+        f"{[(r, round(ms, 1)) for r, ms in fwd]}, {res['index']['docs_per_s']:.1f} "
+        f"documents/s, K2 {n_k2} launches ({layers} a forward)")
+    # one forward of 64 rows, the most a chunk holds
+    emb = rag.svc.embedder._inner
+    emb.embed(docs)
+    res["chunk64"] = watch.forwards[-1]
+    log(f"{label}: one forward of {res['chunk64'][0]} rows {res['chunk64'][1]:.1f} ms "
+        f"({res['chunk64'][0] / res['chunk64'][1] * 1e3:.1f} documents/s)")
+    status, raw = _get(f"{base}/indexes")
+    body = json.loads(raw)
+    if status != 200 or body != {"indexes": [{"name": "docs", "documents": _RAG_DOCS}]}:
+        raise SmokeFailure(f"{label}: /indexes answered {status} {body}")
+    # 16 queries: 8 documents' own texts, 8 of other words
+    rng_words = _rag_docs(_RAG_QUERIES // 2, seed=71)
+    exact = list(range(0, _RAG_DOCS, _RAG_DOCS // (_RAG_QUERIES // 2)))
+    queries = [docs[i] for i in exact] + [w[:80] for w in rng_words]
+    hits, ms = _retrieve_all(base, queries, label)
+    for i, h in zip(exact, hits):
+        if h[0][0] != doc_id_for(docs[i]) or h[0][1] < 1.0 - 1e-6:
+            raise SmokeFailure(f"{label}: the text of document {i} retrieves {h[0]} first")
+    status, body = _rag_post(base + "/retrieve", {
+        "index_name": "docs", "query": docs[0], "top_k": 8,
+        "metadata_filter": {"group": 1}})
+    got = body.get("results", [])
+    if status != 200 or not got or any(r["metadata"]["group"] != 1 for r in got) \
+            or any(r["doc_id"] == doc_id_for(docs[0]) for r in got):
+        raise SmokeFailure(f"{label}: the filtered retrieve answered {status} {got}")
+    res["retrieve_ms"] = ms
+    res["retrieve_p50_ms"] = _quantile(ms, 0.5)
+    res["queries"], res["hits"] = queries, hits
+    log(f"{label}: {len(queries)} retrievals, p50 {res['retrieve_p50_ms']:.1f} ms "
+        f"(max {max(ms):.1f}); each document's own text finds it first (score 1); "
+        f"the group filter keeps {len(got)} of group 1 only")
+    # chat, not streamed then streamed, the retrieved context injected
+    chat = {"index_name": "docs", "messages": [{"role": "user", "content": _RAG_USER}],
+            "max_tokens": _RAG_CHAT_TOKENS, "temperature": 0.0, "ignore_eos": True}
+    status, body = _rag_post(base + "/v1/chat/completions", chat)
+    ctx = body.get("retrieved_context") or []
+    if status != 200 or body["usage"]["completion_tokens"] != _RAG_CHAT_TOKENS \
+            or body["choices"][0]["finish_reason"] != "length" or not ctx:
+        raise SmokeFailure(f"{label}: the chat answered {status} {str(body)[:400]}")
+    injected = inject_context(chat["messages"], ctx, _RAG_WINDOW)
+    res["chat"] = dict(contexts=len(ctx), prompt_tokens=body["usage"]["prompt_tokens"])
+    direct = {"messages": injected, "max_tokens": _RAG_CHAT_TOKENS, "temperature": 0.0,
+              "ignore_eos": True, "stream": True}
+    rag_ttft, up_ttft = [], []
+    for _ in range(3):
+        t, events = _stream_ttft(base, "/v1/chat/completions", dict(chat, stream=True))
+        if t is None or events[-1] != "[DONE]" or not any(
+                c.get("finish_reason") == "length" for e in events[:-1]
+                for c in e.get("choices") or []):
+            raise SmokeFailure(f"{label}: the streamed chat ended {events[-3:]}")
+        rag_ttft.append(t)
+        replies = [_content(events)]
+        t, events = _stream_ttft(up, "/v1/chat/completions", direct)
+        if t is None or events[-1] != "[DONE]":
+            raise SmokeFailure(f"{label}: the upstream's stream ended {events[-3:]}")
+        up_ttft.append(t)
+        # both warm, the same prompt: the same greedy reply unless a
+        # near-tie of the flat synthetic distribution parts them
+        replies.append(_content(events))
+    res["ttft_ms"] = dict(rag=rag_ttft, upstream=up_ttft)
+    res["same_reply_as_upstream"] = replies[0] == replies[1]
+    log(f"{label}: chat ({len(ctx)} contexts, {res['chat']['prompt_tokens']} prompt "
+        f"tokens, {_RAG_CHAT_TOKENS} tokens, warm prefix): TTFT through the RAG "
+        f"server {[round(x, 1) for x in rag_ttft]} ms, the same injected prompt "
+        f"straight to the upstream {[round(x, 1) for x in up_ttft]} ms; the same "
+        f"reply: {res['same_reply_as_upstream']}")
+    # guardrails: a policy shorter than the reply blocks it
+    with open(policy, "w") as f:
+        f.write(_RAG_POLICY)
+    rag.svc.reload_guardrails()
+    guarded = dict(chat, response_format=_RAG_LETTERS)
+    _, events = _stream_ttft(base, "/v1/chat/completions", dict(guarded, stream=True))
+    last = events[-2]["choices"][0] if len(events) >= 2 else {}
+    if events[-1] != "[DONE]" or last.get("finish_reason") != "content_filter" or \
+            not last["delta"]["content"].startswith("Response blocked"):
+        raise SmokeFailure(f"{label}: the guarded stream ended {events[-3:]}")
+    status, body = _rag_post(base + "/v1/chat/completions", guarded)
+    if status != 200 or body["choices"][0]["finish_reason"] != "content_filter":
+        raise SmokeFailure(f"{label}: the guarded reply answered {status} {body}")
+    log(f"{label}: the MaxLength policy ended the stream with {last['delta']['content']!r}")
+    # /metrics: this phase's counts
+    m = _g_metrics(base, "kaito_rag:")
+    n_ret = len(queries) + 1
+    want = {"kaito_rag:documents_indexed_total": _RAG_DOCS,
+            "kaito_rag:documents": _RAG_DOCS, "kaito_rag:indexes": 1,
+            'kaito_rag:requests_total{route="index",status="200"}': 3,
+            'kaito_rag:requests_total{route="retrieve",status="200"}': n_ret,
+            'kaito_rag:requests_total{route="chat",status="200"}': 6,
+            "kaito_rag:retrieval_requests_total": n_ret + 6,
+            "kaito_rag:embedding_texts_total": _RAG_DOCS + n_ret + 6,
+            'kaito_rag:llm_requests_total{mode="sync"}': 2,
+            'kaito_rag:llm_requests_total{mode="stream"}': 4,
+            "kaito_rag:guardrails_blocked_total": 2,
+            "kaito_rag:guardrails_policy_reloads_total": 1,
+            "kaito_rag:guardrails_enabled": 1}
+    bad = {k: (m.get(k), v) for k, v in want.items() if m.get(k) != v}
+    if bad:
+        raise SmokeFailure(f"{label}: /metrics (read, wanted) {bad}")
+    log(f"{label}: /metrics carries {len({k.split('{')[0] for k in m})} kaito_rag "
+        f"series names with this phase's counts")
+    return res
+
+
+def run_rag_exact_phase(label) -> dict:
+    """Phase 17, exact: ``LocalTorchEmbedder`` on ``tiny-llama-real``'s
+    checkpoint on the card and on the CPU: the same 24 texts (the empty
+    text, one past 256 bytes and non-ASCII among them) give vectors
+    within atol 1e-5, a row with no token at all gives the zero vector on
+    both, K2 launches 4 times a forward (no plain attention), and an
+    index over each retrieves the same top-5 ids for 8 queries."""
+    import numpy as np
+    import torch
+
+    from kaito_tpu_torch.engine.model import TransformerLM
+    from kaito_tpu_torch.engine.weights import load_safetensors_params
+    from kaito_tpu_torch.models import get_model_by_name
+    from kaito_tpu_torch.rag.embeddings import LocalTorchEmbedder
+    from kaito_tpu_torch.rag.vector_store import VectorIndex
+
+    t_leg = time.perf_counter()
+    md = get_model_by_name("tiny-llama-real")
+    tree = load_safetensors_params(
+        TransformerLM(md.arch, dtype=torch.float32, device="cpu"),
+        os.path.join(REPO, "checkpoints", "tiny-llama-real"))
+    k2 = _counter("flash_prefill_attention")
+    with _no_plain_prefill_attention():
+        cpu = LocalTorchEmbedder(md.name, device="cpu", params=tree)
+        card = LocalTorchEmbedder(md.name, device="cuda", params=tree)
+        texts = (["", "naïve café — 東京 🚀", "x" * 400]
+                 + _rag_docs(_RAG_EXACT_TEXTS - 3, seed=5))
+        n0 = getattr(*k2)
+        got, want = card.embed(texts), cpu.embed(texts)
+        n_k2 = getattr(*k2) - n0
+        err = float(np.abs(got - want).max())
+        # a row of no token (no BOS): K2 sees no visible key there
+        toks = torch.zeros((2, card.max_len), dtype=torch.int32)
+        toks[1, :3] = torch.tensor([256, 72, 105])
+        lens = torch.tensor([0, 3], dtype=torch.int32)
+        with torch.inference_mode():
+            z_card = card._forward(toks.cuda(), lens.cuda()).cpu()
+            z_cpu = cpu._forward(toks, lens)
+        err_empty = float((z_card - z_cpu).abs().max())
+        if err > 1e-5 or err_empty > 1e-5 or not torch.isfinite(z_card).all() \
+                or float(z_card[0].abs().max()) != 0.0:
+            raise SmokeFailure(f"{label}: card against CPU {err:.2e}, no-token rows "
+                               f"{err_empty:.2e} ({z_card[0, :4].tolist()})")
+        if n_k2 != md.arch.num_layers:
+            raise SmokeFailure(f"{label}: {n_k2} K2 launches for one forward")
+        ids = []
+        for emb in (card, cpu):
+            ix = VectorIndex("exact", emb)
+            ix.add_documents(texts)
+            ids.append([[h["doc_id"] for h in ix.retrieve(q, top_k=5)]
+                        for q in texts[3:11]])
+        if ids[0] != ids[1]:
+            raise SmokeFailure(f"{label}: top-5 ids differ between the card and the CPU")
+    res = dict(max_abs_err=err, no_token_row_err=err_empty, k2_launches=n_k2,
+               phase_s=time.perf_counter() - t_leg)
+    log(f"{label}: {len(texts)} texts, card against CPU max |diff| {err:.2e} (atol "
+        f"1e-5), no-token row {err_empty:.1e} (zero on both), K2 {n_k2} launches a "
+        f"forward; 8 queries' top-5 ids equal; {res['phase_s']:.1f} s")
+    return res
+
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
                   "flash_prefill_attention", "flash_prefill_packed")
 # the server legs of phases 4-8: (name for --leg, label, model, server
@@ -6336,7 +6832,7 @@ def main(argv=None) -> int:
                         QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0], ADAPTER_LEG[0],
                         ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0],
                         DEVPROF_LEG[0], OFFLOAD_LEG[0], PD_LEG[0], TRAIN_LEG[0],
-                        TRAIN_EXACT_LEG[0]],
+                        TRAIN_EXACT_LEG[0], RAG_LEG[0], RAG_EXACT_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -6580,6 +7076,25 @@ def main(argv=None) -> int:
             if args.leg in (None, TRAIN_EXACT_LEG[0]) and not args.first_leg_only:
                 name, label = TRAIN_EXACT_LEG
                 stats[label] = run_train_exact_phase(label)
+                _release_card(torch)
+            if args.leg in (None, RAG_LEG[0]) and not args.first_leg_only:
+                name, label = RAG_LEG
+                launches, stats[label] = run_rag_phase(label)
+                if launches["flash_prefill_attention"] <= 0:
+                    raise SmokeFailure(f"flash_prefill_attention never launched in {label}")
+                if not alone:
+                    for kname, n in launches.items():
+                        records[kname].setdefault("launches_by_leg", {})[label] = n
+                s = stats[label]
+                log(f"{label} on {card}: embed {s['chunk64'][1]:.1f} ms a forward of "
+                    f"{s['chunk64'][0]} rows, {s['index']['docs_per_s']:.1f} documents/s "
+                    f"indexing; /retrieve p50 {s['retrieve_p50_ms']:.1f} ms; chat TTFT "
+                    f"through RAG {_quantile(s['ttft_ms']['rag'], 0.5):.1f} ms against "
+                    f"{_quantile(s['ttft_ms']['upstream'], 0.5):.1f} ms straight; peak "
+                    f"{s['peak_gib']:.2f} GiB; {s['phase_s']:.1f} s")
+            if args.leg in (None, RAG_EXACT_LEG[0]) and not args.first_leg_only:
+                name, label = RAG_EXACT_LEG
+                stats[label] = run_rag_exact_phase(label)
                 _release_card(torch)
         if alone:
             print(json.dumps({"server_legs": stats}))

@@ -1326,10 +1326,17 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                 "created": int(time.time()),
                 "model": model_field or st.model_name}
         if stream:
-            if chat and use_tools:
-                return self._stream_tool_calls(reqs[0], base, forced_tools,
-                                               include_usage)
-            return self._stream(reqs[0], base, chat, stop_strs, include_usage)
+            try:
+                if chat and use_tools:
+                    return self._stream_tool_calls(reqs[0], base, forced_tools,
+                                                   include_usage)
+                return self._stream(reqs[0], base, chat, stop_strs, include_usage)
+            except (BrokenPipeError, ConnectionResetError):
+                # the client left mid-stream: free its slot now rather
+                # than decode on to max_tokens for no reader
+                eng.abort(reqs[0])
+                self.close_connection = True
+                return
 
         outs = [list(r.stream()) for r in reqs]   # drain every choice
         bad = next((r for r in reqs if r.finish_reason in ("error", "deadline")),

@@ -4,7 +4,9 @@ the same prompt, in the JAX server's response shapes."""
 
 import json
 import os
+import socket
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -170,3 +172,46 @@ def test_unknown_route_is_404(served):
     _, base = served
     status, _ = _post(f"{base}/v1/embeddings", {"input": "x"})
     assert status == 404
+
+
+@pytest.mark.parametrize("path,body", [
+    ("/v1/completions", {"prompt": "This package provides a"}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "Hi."}]}),
+])
+def test_a_client_that_leaves_mid_stream_frees_its_slot(served, monkeypatch, capsys,
+                                                        path, body):
+    """A streaming client that closes its connection after the first
+    event: the server aborts the request at the first failed write (no
+    traceback), so it stops well short of max_tokens, and serves on."""
+    eng, base = served
+    submitted = []
+    real = eng.submit
+
+    def recording(*a, **kw):
+        submitted.append(real(*a, **kw))
+        return submitted[-1]
+
+    monkeypatch.setattr(eng, "submit", recording)
+    max_tokens = 400
+    data = json.dumps(dict(body, max_tokens=max_tokens, temperature=0.0,
+                           ignore_eos=True, stream=True)).encode()
+    host, port = base[len("http://"):].split(":")
+    with socket.create_connection((host, int(port)), timeout=60) as s:
+        s.sendall(b"POST %s HTTP/1.1\r\nHost: %s\r\nContent-Type: application/json"
+                  b"\r\nContent-Length: %d\r\n\r\n%s"
+                  % (path.encode(), host.encode(), len(data), data))
+        got = b""
+        while b"data: " not in got:
+            chunk = s.recv(4096)
+            assert chunk, got
+            got += chunk
+    assert got.startswith(b"HTTP/1.0 200") or got.startswith(b"HTTP/1.1 200"), got
+    (req,) = submitted
+    deadline = time.monotonic() + 60
+    while req.finish_time is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert req.aborted and req.finish_time is not None
+    assert len(req.output_tokens) < max_tokens
+    assert "Traceback" not in capsys.readouterr().err
+    status, _ = _post(f"{base}/v1/completions", {"prompt": "x", "max_tokens": 2})
+    assert status == 200
