@@ -25,7 +25,10 @@ order; any failure exits non-zero and prints no result:
    shared-expert MLPs) with 1, 8, 16, 17, 200 and 256 bf16 rows, each
    call one launch, on the wide path exactly when the wrapper takes it
    (the errors, paths and launches by shape go into the kernel
-   records); and K6, the int8 and
+   records); K4 likewise at TinyLlama-1.1B's four projection shapes
+   (q/o 2048x2048, k/v 2048x256, gate/up 2048x5632, down 5632x2048) with
+   1, 4, 16, 17, 200 and 256 rows, timed at gate/up with 4 and 200 rows
+   (phase 18's model); and K6, the int8 and
    int4 kernels with the next layer's slab prefetched into L2, at the
    TP=2 ring-chunk shapes (o and down chunks, strided views), whose
    output must be bitwise K4/K5's.  The decode-row path (bf16, 1-16
@@ -412,6 +415,35 @@ order; any failure exits non-zero and prints no result:
    past 256 bytes, non-ASCII) give vectors within atol 1e-5, a row of no
    token the zero vector on both, K2 four launches a forward, and an
    index over each the same top-5 ids for 8 queries.
+18. Start-up from the operator's command line (leg ``startup-int8``).
+   The catalog's ``TinyLlama/TinyLlama-1.1B-Chat-v1.0`` at full width
+   (22 layers, hidden 2048, 32 query heads over 4 KV heads of 64,
+   intermediate 5632, vocab 32000), resolved by the port's hub fetcher
+   from the committed catalog; synthetic bf16 weights drawn on the card
+   from seed 0 and written under HF names in one ``model.safetensors``
+   (2.2 GB), served by a local file server that answers ``Range``.  The
+   server starts through ``start_server`` (``main`` less its serving
+   loop) from the command line the JAX operator renders for such a
+   Workspace (``--model <id> --port P --max-model-len 2048``) plus
+   ``--weights-dir http://127.0.0.1:W/`` and ``--kaito-config-file F``
+   (``vllm:`` max-num-seqs 4, served-model-name, ``quantization:
+   int8``).  While the weights stream and quantize, ``/health`` (polled
+   every 20 ms) answers 503 ``loading``, ``/metrics`` carries
+   ``kaito:engine_loading 1`` and a POST answers 503; then ``/health``
+   200 and ``/v1/models`` the file's name.  The streamed tree equals the
+   disk loader's on the same file bit for bit; no shard read is
+   unranged.  Four streamed chats of 64 greedy tokens: one alone (a
+   ~190-token prompt), then three admitted together (one packed
+   prefill); ``/ui`` answers the page and one chat goes through the
+   standalone UI proxy.  K1, K2, K3 and K4 (decode rows and the wide
+   path), zeroed just before the start, must each launch in this
+   process, and K1q and K5 must not.  Logged beside the card: the
+   ``KAITO_WEIGHTS_STREAM_RESULT`` line's seconds, bytes and MiB/s, the
+   load's seconds, TTFT and tok/s of the four chats, the phase's
+   seconds.  Phase 2 holds K4 at TinyLlama's four projection shapes
+   (1-256 rows) and times it at gate/up with 4 and 200 rows; K1, K2 and
+   K3 at its head dim 64 and 8 query heads a KV head are the gpt-oss-20b
+   cases there.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -424,7 +456,8 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 ``tp2-int8``, ``moe-bf16``, ``mla-bf16``, ``mla-int8-kv8``, ``qos-bf16``,
 ``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``,
 ``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``,
-``pd-bf16``, ``train-bf16``, ``train-fp32``, ``rag-bf16``, ``rag-fp32``), which
+``pd-bf16``, ``train-bf16``, ``train-fp32``, ``rag-bf16``, ``rag-fp32``,
+``startup-int8``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -1058,15 +1091,51 @@ DEEPSEEK_PROJ_SHAPES = {"kv_a": (7168, 576), "q_a": (7168, 1536), "q_b": (1536, 
 DEEPSEEK_ROWS = (1, 8, 16, 17, 200, 256)
 
 
+# TinyLlama-1.1B's projections (phase 18's model): q/o 2048x2048, k/v
+# 2048x256 (4 KV heads of 64), gate/up 2048x5632, down 5632x2048; decode
+# rows up to the config file's 4 sequences, and prefill rows
+TINYLLAMA_PROJ_SHAPES = {"q/o": (2048, 2048), "k/v": (2048, 256),
+                         "gate/up": (2048, 5632), "down": (5632, 2048)}
+TINYLLAMA_ROWS = (1, 4, 16, 17, 200, 256)
+
+
 def check_quant_matmul_deepseek(torch, records):
-    """K4 and K5 against their plain version at DeepSeek-V3's projection
-    shapes (``DEEPSEEK_PROJ_SHAPES``), bf16, at ``DEEPSEEK_ROWS`` rows
-    (decode rows, both sides of the wide path's lower edge, and prefill
-    rows): each call must launch once, on the wide path exactly when the
-    wrapper says it takes it, and agree within the phase's bf16
-    tolerance relative to the output's largest magnitude.  Each shape's
-    path at each row count, its worst error and the launches this check
-    made go into the kernel record under ``deepseek_v3``."""
+    """K4 and K5 at DeepSeek-V3's projection shapes
+    (:func:`check_quant_matmul_shapes`, under ``deepseek_v3``)."""
+    check_quant_matmul_shapes(torch, records, "DeepSeek-V3", "deepseek_v3",
+                              DEEPSEEK_PROJ_SHAPES, DEEPSEEK_ROWS, ("int8", "int4"))
+
+
+def check_quant_matmul_tinyllama(torch, records):
+    """K4 at TinyLlama-1.1B's projection shapes (phase 18 serves it in
+    int8; :func:`check_quant_matmul_shapes`, under ``tinyllama``), and
+    K4 timed at gate/up with 4 rows (a decode step of the config file's
+    4 sequences) and 200 rows (a prefill)."""
+    check_quant_matmul_shapes(torch, records, "TinyLlama-1.1B", "tinyllama",
+                              TINYLLAMA_PROJ_SHAPES, TINYLLAMA_ROWS, ("int8",))
+    from kaito_tpu_torch.engine.quant import dequant_weight, quantize_weight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    K, N = TINYLLAMA_PROJ_SHAPES["gate/up"]
+    w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K),
+                        "int8")
+    records["quant_matmul_int8"]["tinyllama_timed"] = [
+        _time_quant_matmul(torch, w, rows, K, N, "int8",
+                           f"TinyLlama gate/up [{K}x{N}] {rows} rows", gen,
+                           dequant_weight)
+        for rows in (4, 200)]
+
+
+def check_quant_matmul_shapes(torch, records, model, key, shapes, row_counts, schemes):
+    """K4 and K5 (``schemes``) against their plain version at ``model``'s
+    projection ``shapes``, bf16, at ``row_counts`` rows (decode rows,
+    both sides of the wide path's lower edge, and prefill rows): each
+    call must launch once, on the wide path exactly when the wrapper says
+    it takes it, and agree within the phase's bf16 tolerance relative to
+    the output's largest magnitude.  Each shape's path at each row count,
+    its worst error and the launches this check made go into the kernel
+    record under ``key``."""
     from kaito_tpu_torch.engine.ops import quant_matmul as qm
     from kaito_tpu_torch.engine.ops.quant_matmul import (quant_matmul_cuda,
                                                          quant_matmul_plain)
@@ -1074,17 +1143,18 @@ def check_quant_matmul_deepseek(torch, records):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    for scheme, name in (("int8", "quant_matmul_int8"), ("int4", "quant_matmul_int4")):
+    for scheme in schemes:
+        name = f"quant_matmul_{scheme}"
         int4 = scheme == "int4"
         per_shape = {}
-        for label, (K, N) in DEEPSEEK_PROJ_SHAPES.items():
+        for label, (K, N) in shapes.items():
             w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda")
                                 / math.sqrt(K), scheme)
             codes, scale = w["q4" if int4 else "q8"], w["scale"]
             groups = scale.shape[0] if int4 else 1
             launched = {"launches": 0, "launches_wide": 0}
             err, paths = {}, {}
-            for rows in DEEPSEEK_ROWS:
+            for rows in row_counts:
                 x = torch.randn(rows, K, generator=gen, device="cuda").to(torch.bfloat16)
                 wide = qm.takes_wide(x, codes, scale, groups)
                 paths[rows] = ("wide" if wide else "decode-row"
@@ -1105,18 +1175,18 @@ def check_quant_matmul_deepseek(torch, records):
                 err[rows] = (out.float() - ref).abs().max().item() / max(
                     ref.abs().max().item(), 1e-30)
             worst = max(err.values())
-            log(f"{name} DeepSeek-V3 {label} [{K}x{N}] bf16 rows {DEEPSEEK_ROWS}: "
+            log(f"{name} {model} {label} [{K}x{N}] bf16 rows {row_counts}: "
                 f"paths {paths}, max relative err {worst:.3g}")
             if worst > BF16_ATOL:
-                raise SmokeFailure(f"{name} at DeepSeek-V3's {label} [{K}x{N}] "
+                raise SmokeFailure(f"{name} at {model}'s {label} [{K}x{N}] "
                                    f"disagrees with its plain version: {err}")
             per_shape[label] = dict(K=K, N=N, paths=paths, max_rel_err_bf16=err,
                                     check_launches=launched)
             del w, codes, scale
-        records[name]["deepseek_v3"] = per_shape
+        records[name][key] = per_shape
         records[name]["max_abs_err"] = max(
             records[name]["max_abs_err"],
-            *(v["max_rel_err_bf16"][r] for v in per_shape.values() for r in DEEPSEEK_ROWS))
+            *(v["max_rel_err_bf16"][r] for v in per_shape.values() for r in row_counts))
 
 
 def _time_quant_matmul(torch, w, rows, K, N, scheme, label, gen, dequant_weight):
@@ -6759,6 +6829,356 @@ def run_rag_exact_phase(label) -> dict:
         f"forward; 8 queries' top-5 ids equal; {res['phase_s']:.1f} s")
     return res
 
+STARTUP_LEG = ("startup-int8", "phase 18, TinyLlama-1.1B from the operator's command "
+               "line: config file, streamed weights, int8")
+_TINYLLAMA = "TinyLlama/TinyLlama-1.1B-Chat-v1.0"
+# the command line the JAX operator renders for a Workspace of the
+# catalog's TinyLlama (build_engine_command; tests/test_torch_startup.py
+# holds the port's parse of it to the JAX server's)
+_STARTUP_CONFIG = ("vllm:\n  max-num-seqs: 4\n  served-model-name: tinyllama-chat\n"
+                   "  quantization: int8\n")
+_STARTUP_COUNTED = ("paged_decode_attention", "flash_prefill_attention",
+                    "flash_prefill_packed", "quant_matmul_int8", "quant_matmul_int8_wide")
+_STARTUP_ABSENT = ("paged_decode_attention_int8kv", "quant_matmul_int4")
+
+
+def _hf_checkpoint(model, path) -> int:
+    """``model``'s parameters as a HF checkpoint (one
+    ``model.safetensors``, HF names, [out, in] projections) written by
+    the port's own ``write_safetensors``; its size in bytes."""
+    from kaito_tpu_torch.engine.weights import _LAYER_MAP, write_safetensors
+
+    tree = model.param_tree()
+    V = model.arch.vocab_size
+    sd = {"model.embed_tokens.weight": tree["embed"][:V],
+          "model.norm.weight": tree["final_norm"], "lm_head.weight": tree["lm_head"][:V]}
+    for g in model.groups:
+        for key, t in tree[g.name].items():
+            suffix, transpose = _LAYER_MAP[key]
+            for j in range(g.count):
+                sd[f"model.layers.{g.start + j}.{suffix}"] = t[j].t() if transpose else t[j]
+    out = os.path.join(path, "model.safetensors")
+    write_safetensors(out, {k: v.contiguous() for k, v in sd.items()})
+    return os.path.getsize(out)
+
+
+def _range_server(root):
+    """A file server over ``root`` on 127.0.0.1 that answers ``Range``
+    (206 with the span, read from disk), as a blob store does; the stdlib
+    ``SimpleHTTPRequestHandler`` ignores it.  (server, base URL, log of
+    (path, range))."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    seen = []
+
+    class Ranges(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            path = os.path.join(root, self.path.lstrip("/"))
+            rng = self.headers.get("Range")
+            seen.append((self.path, rng))
+            if not os.path.isfile(path):
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            size = os.path.getsize(path)
+            start, end = 0, size
+            if rng:
+                a, _, b = rng.split("=", 1)[1].partition("-")
+                start, end = int(a), min(int(b) + 1 if b else size, size)
+            with open(path, "rb") as f:
+                f.seek(start)
+                body = f.read(end - start)
+            self.send_response(206 if rng else 200)
+            if rng:
+                self.send_header("Content-Range", f"bytes {start}-{end - 1}/{size}")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Ranges)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}/", seen
+
+
+class _StdoutTee:
+    """Standard output passed through, its text kept."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _timed_chat(base, content, n) -> dict:
+    """One streamed chat of ``n`` greedy tokens: TTFT (ms to the first
+    event) and decode tokens/s after it."""
+    t0 = time.perf_counter()
+    ttft, events = _stream_ttft(base, "/v1/chat/completions", dict(
+        messages=[{"role": "user", "content": content}], max_tokens=n,
+        temperature=0.0, ignore_eos=True, stream=True,
+        stream_options={"include_usage": True}))
+    total_ms = (time.perf_counter() - t0) * 1e3
+    usage = next((e["usage"] for e in reversed(events)
+                  if e != "[DONE]" and e.get("usage")), {})
+    if events[-1] != "[DONE]" or usage.get("completion_tokens") != n:
+        raise SmokeFailure(f"streamed chat asked {n} tokens: usage {usage}, last "
+                           f"event {events[-1]!r}")
+    return dict(ttft_ms=ttft, total_ms=total_ms, prompt_tokens=usage["prompt_tokens"],
+                tok_s=(n - 1) / ((total_ms - ttft) / 1e3))
+
+
+def run_startup_phase(label) -> tuple[dict, dict]:
+    """Phase 18: the port's server started as the operator starts a pod
+    of the catalog's ``TinyLlama/TinyLlama-1.1B-Chat-v1.0``, at full width
+    (22 layers, hidden 2048, 32 heads over 4 KV heads of 64, intermediate
+    5632), from its rendered command line (``--model <id> --port P
+    --max-model-len 2048``) plus ``--weights-dir http://127.0.0.1:W/``
+    and ``--kaito-config-file F`` (``vllm:`` max-num-seqs 4, a served
+    model name, ``quantization: int8``), through ``start_server``, the
+    first half of ``main``.  The weights: bf16 drawn on the card from
+    seed 0, written under HF names in one file and served by a local
+    range server.  While they stream and quantize, ``/health`` (polled
+    every 20 ms) answers 503 ``loading``, ``/metrics`` carries
+    ``kaito:engine_loading 1`` and a POST answers 503; then ``/health``
+    200 and ``/v1/models`` the file's name.  The tree the engine streamed
+    equals the disk loader's on the same file tensor by tensor and bit
+    for bit, and no shard read was unranged.  Four streamed chats of 64
+    greedy tokens: one alone (a 200-token prompt: K2 and the wide K4
+    path), then three admitted together (a packed prefill: K3); ``/ui``
+    answers the page and one chat goes through the standalone UI proxy.
+    K1, K2, K3 and K4 (decode rows and wide path) are zeroed just before
+    ``start_server`` and must each have launched; K1q and K5 must not.
+    Returns (launches, statistics)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.engine import streaming
+    from kaito_tpu_torch.engine.model import TransformerLM
+    from kaito_tpu_torch.engine.server import start_server
+    from kaito_tpu_torch.engine.weights import load_safetensors_params
+    from kaito_tpu_torch.models.hub import install_default_fetcher
+    from kaito_tpu_torch.models.registry import get_model_by_name
+    from kaito_tpu_torch.ui import PAGE
+    from kaito_tpu_torch.ui import make_server as make_ui_server
+
+    t_leg = time.perf_counter()
+    offline = os.environ.get("HF_HUB_OFFLINE")
+    os.environ["HF_HUB_OFFLINE"] = "1"      # the catalog answers; nothing is fetched
+    root = tempfile.mkdtemp(prefix="kaito-tinyllama-")
+    weights = server = engine = None
+    stats: dict = {}
+    real_stream = streaming.stream_safetensors_params
+    try:
+        install_default_fetcher()
+        arch = get_model_by_name(_TINYLLAMA).arch
+        widths = (arch.num_layers, arch.hidden_size, arch.num_heads, arch.num_kv_heads,
+                  arch.head_dim, arch.intermediate_size, arch.vocab_size)
+        if widths != (22, 2048, 32, 4, 64, 5632, 32000):
+            raise SmokeFailure(f"{label}: {_TINYLLAMA} resolved to {widths}")
+        src = TransformerLM(arch, dtype=torch.bfloat16, device="cuda")
+        src.init_params(seed=0)
+        t0 = time.perf_counter()
+        stats["checkpoint_bytes"] = _hf_checkpoint(src, root)
+        stats["checkpoint_write_s"] = time.perf_counter() - t0
+        del src
+        _release_card(torch)
+        weights, wurl, seen = _range_server(root)
+        conf = os.path.join(root, "inference_config.yaml")
+        with open(conf, "w") as f:
+            f.write(_STARTUP_CONFIG)
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        argv = ["--model", _TINYLLAMA, "--port", str(port), "--max-model-len", "2048",
+                "--weights-dir", wurl, "--kaito-config-file", conf]
+        log(f"{label}: {stats['checkpoint_bytes'] / 2**30:.2f} GiB checkpoint written "
+            f"in {stats['checkpoint_write_s']:.1f}s; serving with {argv}")
+
+        streamed: dict = {}
+
+        def keep(model, location, reader=None):
+            streamed["tree"] = real_stream(model, location, reader)
+            return streamed["tree"]
+
+        streaming.stream_safetensors_params = keep
+        for name in (*_STARTUP_COUNTED, *_STARTUP_ABSENT):
+            fn, attr = _counter(name)
+            setattr(fn, attr, 0)
+        built: dict = {}
+
+        def build():
+            try:
+                built["server"], _ = start_server(argv)
+            except Exception as e:   # reported below; the phase fails
+                built["error"] = e
+
+        tee = _StdoutTee(sys.stdout)
+        loading = {"health_503": 0, "metrics_gauge": False, "post_503": False}
+        t_load = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            loader = threading.Thread(target=build)
+            loader.start()
+            while loader.is_alive():
+                try:
+                    status, raw = _get(f"{base}/health")
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    status = None
+                if status == 503 and json.loads(raw)["status"] == "loading":
+                    loading["health_503"] += 1
+                    if not loading["metrics_gauge"]:
+                        _, m = _get(f"{base}/metrics")
+                        loading["metrics_gauge"] = b"kaito:engine_loading 1\n" in m
+                        try:
+                            _post(f"{base}/v1/completions", {"prompt": "x",
+                                                             "max_tokens": 1})
+                        except urllib.error.HTTPError as e:
+                            loading["post_503"] = e.code == 503
+                time.sleep(0.02)
+            loader.join()
+        stats["load_s"] = time.perf_counter() - t_load
+        streaming.stream_safetensors_params = real_stream
+        if "error" in built:
+            raise SmokeFailure(f"{label}: start_server failed: {built['error']!r}")
+        server = built["server"]
+        engine = server.state.engine
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        stats["loading"] = loading
+        if not (loading["health_503"] and loading["metrics_gauge"] and loading["post_503"]):
+            raise SmokeFailure(f"{label}: the loading stub was not seen: {loading}")
+        line = next((ln for ln in "".join(tee.text).splitlines()
+                     if ln.startswith("KAITO_WEIGHTS_STREAM_RESULT ")), None)
+        if line is None:
+            raise SmokeFailure(f"{label}: no KAITO_WEIGHTS_STREAM_RESULT line")
+        stats["stream"] = json.loads(line.split(" ", 1)[1])
+        unranged = [p for p, r in seen if p.endswith(".safetensors") and r is None]
+        if unranged:
+            raise SmokeFailure(f"{label}: whole-shard reads {unranged}")
+        status, raw = _get(f"{base}/health")
+        if status != 200 or json.loads(raw)["status"] != "ok":
+            raise SmokeFailure(f"{label}: /health after the load {status} {raw!r}")
+        status, raw = _get(f"{base}/v1/models")
+        if json.loads(raw)["data"][0]["id"] != "tinyllama-chat":
+            raise SmokeFailure(f"{label}: /v1/models {raw!r}")
+        cfg = engine.cfg
+        if (cfg.max_num_seqs, cfg.quantization, cfg.max_model_len) != (4, "int8", 2048):
+            raise SmokeFailure(f"{label}: the config file did not take: {cfg}")
+        log(f"{label}: loaded in {stats['load_s']:.1f}s ({loading['health_503']} "
+            f"loading answers); stream {stats['stream']}; "
+            f"{engine.model.param_bytes() / 2**30:.2f} GiB int8 weights, "
+            f"{engine.sizing_report}")
+
+        disk = load_safetensors_params(engine.model, root)
+        got = streamed.pop("tree")
+        n_tensors = 0
+        for key, want in disk.items():
+            pairs = (want.items() if isinstance(want, dict) else [("", want)])
+            for sub, w in pairs:
+                g = got[key][sub] if sub else got[key]
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise SmokeFailure(f"{label}: streamed {key}.{sub} differs from "
+                                       f"the disk loader's")
+                n_tensors += 1
+        if set(got) != set(disk):
+            raise SmokeFailure(f"{label}: streamed tree keys {sorted(got)} != "
+                               f"{sorted(disk)}")
+        del disk, got
+        stats["tree_tensors_equal"] = n_tensors
+
+        stats["alone"] = _timed_chat(base, _prompt(170, 40), 64)
+        results, errors = {}, []
+
+        def run(i):
+            try:
+                results[i] = _timed_chat(base, _prompt(90 + 10 * i, 41 + i), 64)
+            except Exception as e:   # reported below; the phase fails
+                errors.append(repr(e))
+
+        packs = engine.counters["prefill_packed_steps_total"]
+        group = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+        engine._admit_new = lambda: False     # the three are admitted together
+        try:
+            for t in group:
+                queued = engine.counters["requests_total"]
+                t.start()
+                deadline = time.monotonic() + 60
+                while (engine.counters["requests_total"] == queued and t.is_alive()
+                       and time.monotonic() < deadline):
+                    time.sleep(0.001)
+        finally:
+            del engine._admit_new
+            engine._wake.set()
+        for t in group:
+            t.join(timeout=300)
+        if errors or len(results) != 3:
+            raise SmokeFailure(f"{label}: concurrent chats failed: {errors}")
+        stats["together"] = [results[i] for i in range(3)]
+        stats["packed_prefill_dispatches"] = (
+            engine.counters["prefill_packed_steps_total"] - packs)
+
+        status, page = _get(f"{base}/ui")
+        if status != 200 or page != PAGE.encode():
+            raise SmokeFailure(f"{label}: /ui answered {status}")
+        proxy = make_ui_server(base, host="127.0.0.1", port=0)
+        threading.Thread(target=proxy.serve_forever, daemon=True).start()
+        try:
+            _, raw = _post(f"http://127.0.0.1:{proxy.server_address[1]}"
+                           "/v1/chat/completions", dict(
+                               messages=[{"role": "user", "content": "hello"}],
+                               max_tokens=8, temperature=0.0, ignore_eos=True))
+        finally:
+            proxy.shutdown()
+            proxy.server_close()
+        if json.loads(raw)["usage"]["completion_tokens"] != 8:
+            raise SmokeFailure(f"{label}: the UI proxy relayed {raw[:200]!r}")
+        torch.cuda.synchronize()
+        launches = {name: getattr(*_counter(name)) for name in _STARTUP_COUNTED}
+        stray = {name: getattr(*_counter(name)) for name in _STARTUP_ABSENT}
+        if any(stray.values()):
+            raise SmokeFailure(f"{label}: kernels of another path launched: {stray}")
+        log(f"{label}: launches {launches}; packed prefill dispatches "
+            f"{stats['packed_prefill_dispatches']}")
+    finally:
+        streaming.stream_safetensors_params = real_stream
+        if offline is None:
+            os.environ.pop("HF_HUB_OFFLINE", None)
+        else:
+            os.environ["HF_HUB_OFFLINE"] = offline
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+        if weights is not None:
+            weights.shutdown()
+            weights.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+    del server, engine
+    _release_card(torch)
+    stats["phase_s"] = time.perf_counter() - t_leg
+    return launches, stats
+
+
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
                   "flash_prefill_attention", "flash_prefill_packed")
 # the server legs of phases 4-8: (name for --leg, label, model, server
@@ -6832,7 +7252,8 @@ def main(argv=None) -> int:
                         QOS_LEG[0], SPEC_LEG[0], GRAMMAR_LEG[0], ADAPTER_LEG[0],
                         ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0],
                         DEVPROF_LEG[0], OFFLOAD_LEG[0], PD_LEG[0], TRAIN_LEG[0],
-                        TRAIN_EXACT_LEG[0], RAG_LEG[0], RAG_EXACT_LEG[0]],
+                        TRAIN_EXACT_LEG[0], RAG_LEG[0], RAG_EXACT_LEG[0],
+                        STARTUP_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -6883,6 +7304,7 @@ def main(argv=None) -> int:
                 check_families(torch, records, logs)
                 check_quant_matmul(torch, records, logs)
                 check_quant_matmul_deepseek(torch, records)
+                check_quant_matmul_tinyllama(torch, records)
                 check_quant_matmul_pf(torch, records)
                 check_quant_graph(torch, records)
             if args.phase2_only:
@@ -7096,6 +7518,26 @@ def main(argv=None) -> int:
                 name, label = RAG_EXACT_LEG
                 stats[label] = run_rag_exact_phase(label)
                 _release_card(torch)
+            if args.leg in (None, STARTUP_LEG[0]) and not args.first_leg_only:
+                name, label = STARTUP_LEG
+                launches, stats[label] = run_startup_phase(label)
+                for kname, n in launches.items():
+                    if n <= 0:
+                        raise SmokeFailure(f"{kname} never launched in {label}")
+                    if not alone:
+                        wide = next((w for w in WIDE_COUNTERS if w[0] == kname), None)
+                        key = "launches_wide_by_leg" if wide else "launches_by_leg"
+                        records[wide[1] if wide else kname].setdefault(
+                            key, {})[label] = n
+                s = stats[label]
+                log(f"{label} on {card}: stream {s['stream']['seconds']} s, "
+                    f"{s['stream']['bytes']} bytes, {s['stream']['mib_per_s']} MiB/s; "
+                    f"load {s['load_s']:.1f} s; TTFT alone {s['alone']['ttft_ms']:.1f} ms "
+                    f"({s['alone']['prompt_tokens']}-token prompt), "
+                    f"{s['alone']['tok_s']:.1f} tok/s; three together: TTFT "
+                    + ", ".join(f"{r['ttft_ms']:.1f}" for r in s["together"])
+                    + " ms, " + ", ".join(f"{r['tok_s']:.1f}" for r in s["together"])
+                    + f" tok/s; {s['phase_s']:.1f} s")
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

@@ -149,6 +149,7 @@ from kaito_tpu_torch.engine.quant import QUANT_SCHEMES, supports_quantization
 from kaito_tpu_torch.engine.sampler import SamplingState, chosen_logprob, sample
 from kaito_tpu_torch.engine.spec import (DepthController, DraftRunner, NgramIndex,
                                          VerifyWindow, width_bucket)
+from kaito_tpu_torch.engine import streaming
 from kaito_tpu_torch.engine.tokenizer import load_tokenizer
 from kaito_tpu_torch.models.metadata import ModelMetadata
 from kaito_tpu_torch.models.registry import get_model_by_name
@@ -421,7 +422,9 @@ class InferenceEngine:
 
     ``params`` is an optional parameter tree (``model.params_from_jax``
     or ``TransformerLM.param_tree`` form, plain or already quantized);
-    else ``cfg.weights_dir`` is loaded, else synthetic weights are drawn
+    else ``cfg.weights_dir`` is loaded (streamed by ranged reads when it
+    is a ``gs://``, ``http(s)://`` or ``http(s)+token://`` location:
+    ``streaming.is_stream_location``), else synthetic weights are drawn
     from ``cfg.seed``.  Under ``cfg.quantization`` the plain projections
     of any of the three are quantized one tensor at a time after the
     cast to the model dtype, as the JAX engine does.
@@ -493,6 +496,10 @@ class InferenceEngine:
         quant = cfg.quantization
         if params is not None:
             self.model.load_params(params, quantization=quant)
+        elif streaming.is_stream_location(cfg.weights_dir):
+            # streaming load: per-tensor ranged reads, no local copy
+            self.model.load_params(streaming.stream_safetensors_params(
+                self.model, cfg.weights_dir), quantization=quant)
         elif cfg.weights_dir:
             from kaito_tpu_torch.engine.weights import load_safetensors_params
 

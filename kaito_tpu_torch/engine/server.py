@@ -79,7 +79,22 @@ published prefixes, ``/kv_pool/<key>/meta`` and ``/chunk/<i>`` serve
 them, and a completion carrying ``X-Kaito-KV-Fetch`` /
 ``X-Kaito-KV-Fetch-Key`` fetches its prefix from that peer; with
 ``--kv-pool-disk-bytes`` a completion first probes this replica's host
-store and slab directory.  ``/ui`` answers 501.
+store and slab directory.  ``/ui`` and ``/ui/`` serve the demo chat page
+of :mod:`kaito_tpu_torch.ui`.
+
+Start-up (:func:`start_server`, in the JAX server's order): the command
+line is parsed; ``--kaito-config-file`` (the YAML the operator mounts
+from a Workspace's inference config) is merged over it
+(:func:`load_config_file`); a loading stub binds the port while the
+engine builds, answering ``/health`` 503 ``{"status": "loading"}``,
+``/metrics`` ``kaito:engine_loading 1`` and every other request 503, so
+probes and scrapes do not read a long load as a failure; then the stub
+closes and the real server binds.  ``--model`` may name a built-in
+preset or an ``org/model`` id, which resolves through the committed
+catalog, then the HF hub (:mod:`kaito_tpu_torch.models.hub`).
+``--weights-dir`` may be a directory, or a ``gs://``, ``http(s)://`` or
+``http(s)+token://`` location whose safetensors are streamed by ranged
+reads (:mod:`kaito_tpu_torch.engine.streaming`).
 
 Run: ``python -m kaito_tpu_torch.engine.server --model
 llama-3.1-8b-instruct`` (on the card; ``--device cpu`` for the CPU).
@@ -133,9 +148,6 @@ from kaito_tpu_torch.utils.tracing import (chrome_trace, make_request_id,
                                            parse_traceparent, sanitize_request_id)
 
 logger = logging.getLogger(__name__)
-
-# routes of the JAX server that later slices port (ROADMAP queue 1)
-_UNPORTED_GET = ("/ui",)
 
 # the 429's message for each shed reason of RateLimiter.shed_reason
 _SHED_MESSAGES = {
@@ -359,10 +371,6 @@ class OpenAIHandler(BaseHTTPRequestHandler):
                         "Retry-After": st.limiter.retry_after_s(st.engine,
                                                                 key=self._rid)})
 
-    def _not_ported(self):
-        self._error(501, f"{self.path} is not implemented by the PyTorch "
-                         f"engine yet", "not_implemented")
-
     def _read_body(self) -> Optional[dict]:
         try:
             n = int(self.headers.get("Content-Length", "0"))
@@ -418,8 +426,12 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         elif self.path == "/metrics":
             self._send(200, "text/plain; version=0.0.4",
                        st.metrics.registry.expose().encode())
-        elif self.path.startswith(_UNPORTED_GET):
-            self._not_ported()
+        elif self.path in ("/ui", "/ui/"):
+            # single-pod demo: the chat page served in-process (the
+            # standalone proxy is ``python -m kaito_tpu_torch.ui``)
+            from kaito_tpu_torch.ui import serve_page
+
+            serve_page(self)
         elif self.path.startswith("/pd/kv/"):
             rest = self.path[len("/pd/kv/"):]
             if rest.endswith("/meta"):
@@ -1759,6 +1771,9 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     help="shed new requests with 429 + Retry-After when KV page "
                          "usage crosses this fraction while a queue exists "
                          "(0 = off)")
+    ap.add_argument("--kv-import-retries", type=int, default=1,
+                    help="transient KV-transfer failures fall back to local "
+                         "recompute this many times per request")
     ap.add_argument("--itl", action="store_true",
                     default=os.environ.get("KAITO_ITL", "") in ("1", "true"),
                     help="stamp every retired token and expose true per-token "
@@ -1769,6 +1784,11 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     default=float(os.environ.get("KAITO_SLO_ITL_P99_MS", "250")),
                     help="ITL p99 SLO target (ms); gaps beyond it count as "
                          "stalls and burn the itl_p99 budget")
+    ap.add_argument("--inference-role",
+                    default=os.environ.get("KAITO_INFERENCE_ROLE", ""),
+                    help="serving role this replica's SLO burn attributes to "
+                         "(prefill/decode; '' = unified); set by the "
+                         "operator's role annotation")
     ap.add_argument("--devprof-interval-s", type=float,
                     default=float(os.environ.get("KAITO_DEVPROF_INTERVAL_S", "0")),
                     help="sampled device-time attribution: capture a short "
@@ -1804,6 +1824,9 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                     default=int(os.environ.get("KAITO_GRAMMAR_MAX_STATES", "512")),
                     help="DFA state cap per grammar; each state costs 8 bytes "
                          "per vocabulary entry in the device mask table")
+    ap.add_argument("--kaito-config-file", default="",
+                    help="KAITO config YAML merged over these flags (its "
+                         "vllm: or engine: section, else its top level)")
     ap.add_argument("--kaito-adapters-dir", default="",
                     help="LoRA adapters to serve at boot (one subdirectory each)")
     ap.add_argument("--adapter-slots", type=int,
@@ -1883,6 +1906,14 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
                          "(default: follow KAITO_ASYNC_DISPATCH, off when "
                          "unset)")
     args = ap.parse_args(argv)
+    if "/" in args.model:
+        # the operator renders an auto-generated preset's FULL org/model
+        # id into --model; it resolves as the controller resolved it
+        # (committed catalog first, HF hub second), here already since
+        # --speculative-draft resolves against the model below
+        from kaito_tpu_torch.models.hub import install_default_fetcher
+
+        install_default_fetcher()
     cfg = EngineConfig(
         model=args.model, port=args.port, max_model_len=args.max_model_len,
         max_num_seqs=args.max_num_seqs,
@@ -1900,8 +1931,9 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
         max_queue_len=args.max_queue_len,
         disable_rate_limit=args.kaito_disable_rate_limit,
         qos_config=args.qos_config, request_timeout_s=args.request_timeout_s,
-        kv_shed_threshold=args.kv_shed_threshold, itl_enabled=args.itl,
-        slo_itl_p99_ms=args.slo_itl_p99_ms,
+        kv_shed_threshold=args.kv_shed_threshold,
+        kv_import_retries=args.kv_import_retries, itl_enabled=args.itl,
+        slo_itl_p99_ms=args.slo_itl_p99_ms, role=args.inference_role,
         slow_request_threshold_s=args.slow_request_threshold_s,
         structured_output=args.structured_output,
         grammar_cache_entries=args.grammar_cache_entries,
@@ -1934,11 +1966,138 @@ def parse_args(argv=None) -> tuple[EngineConfig, argparse.Namespace]:
     return cfg, args
 
 
-def main(argv=None):
+class _LoadingHandler(BaseHTTPRequestHandler):
+    """The server's stand-in while the engine builds: ``/health``
+    answers 503 ``{"status": "loading"}`` (start-up probes keep waiting
+    instead of failing), ``/metrics`` a loading gauge, anything else
+    503, as the JAX server's stub does."""
+
+    protocol_version = "HTTP/1.1"
+    started: float = 0.0   # stamped by start_loading_stub's subclass
+
+    def log_message(self, *a):
+        pass
+
+    def _body(self, code, body, ctype):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        if self.path == "/health":
+            self._body(503, json.dumps(
+                {"status": "loading",
+                 "seconds": round(time.time() - self.started, 1)}).encode(),
+                "application/json")
+        elif self.path == "/metrics":
+            body = ("# HELP kaito:engine_loading 1 while weights "
+                    "load/compile\n# TYPE kaito:engine_loading gauge\n"
+                    f"kaito:engine_loading 1\n"
+                    f"kaito:engine_loading_seconds "
+                    f"{time.time() - self.started:.1f}\n").encode()
+            self._body(200, body, "text/plain; version=0.0.4")
+        else:
+            self._body(503, b'{"error": "engine loading"}',
+                       "application/json")
+
+    def do_POST(self):
+        # drain the body: an unread payload would desynchronize the next
+        # request on a keep-alive connection
+        n = int(self.headers.get("Content-Length", "0") or 0)
+        if n:
+            self.rfile.read(n)
+        self._body(503, b'{"error": {"message": "engine loading", '
+                        b'"type": "unavailable"}}', "application/json")
+
+
+def start_loading_stub(host: str, port: int) -> ThreadingHTTPServer:
+    """Serve the loading stub until the engine is built; the caller
+    shuts it down and closes it right before the real server binds."""
+    handler = type("LoadingHandler", (_LoadingHandler,),
+                   {"started": time.time()})
+    stub = ThreadingHTTPServer((host, port), handler)
+    threading.Thread(target=stub.serve_forever, daemon=True,
+                     name="loading-stub").start()
+    return stub
+
+
+# config-file keys (both spellings) -> EngineConfig fields
+_CONFIG_FILE_KEYS = {
+    "max-model-len": "max_model_len", "max_model_len": "max_model_len",
+    "max-num-seqs": "max_num_seqs", "max_num_seqs": "max_num_seqs",
+    "served-model-name": "served_model_name",
+    "served_model_name": "served_model_name",
+    "tensor-parallel-size": "tensor_parallel",
+    "tensor_parallel_size": "tensor_parallel",
+    "pipeline-parallel-size": "pipeline_parallel",
+    "pipeline_parallel_size": "pipeline_parallel",
+    "data-parallel-size": "data_parallel",
+    "data_parallel_size": "data_parallel",
+    "sequence-parallel-size": "sequence_parallel",
+    "sequence_parallel_size": "sequence_parallel",
+    "page-size": "page_size", "page_size": "page_size",
+    "dtype": "dtype", "kv-cache-dtype": "kv_dtype",
+    "quantization": "quantization",
+    "seed": "seed", "port": "port",
+    "structured-output": "structured_output",
+    "structured_output": "structured_output",
+    "grammar-cache-entries": "grammar_cache_entries",
+    "grammar_cache_entries": "grammar_cache_entries",
+    "grammar-max-states": "grammar_max_states",
+    "grammar_max_states": "grammar_max_states",
+}
+
+
+def load_config_file(cfg: EngineConfig, path: str) -> EngineConfig:
+    """Merge a KAITO config YAML over ``cfg``, as the JAX server's
+    ``--kaito-config-file`` does: the file's ``vllm:`` section (else its
+    ``engine:`` section, else its top level) wins over the flags; null
+    values and unknown keys are ignored."""
+    import yaml
+
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    section = data.get("vllm") or data.get("engine") or data
+    mapped = {_CONFIG_FILE_KEYS[k]: v for k, v in (section or {}).items()
+              if k in _CONFIG_FILE_KEYS and v is not None}
+    return cfg.replace(**mapped)
+
+
+def start_server(argv=None) -> tuple[ThreadingHTTPServer, argparse.Namespace]:
+    """Everything :func:`main` does before it serves: parse ``argv``,
+    merge the config file, hold the port with the loading stub while the
+    engine builds and starts on ``--device``, close the stub, and bind
+    the real server (returned bound, not yet serving; its engine is
+    ``server.state.engine``)."""
     cfg, args = parse_args(argv)
+    if args.kaito_config_file:
+        cfg = load_config_file(cfg, args.kaito_config_file)
     logging.basicConfig(level=logging.INFO)
-    server = make_server(None, cfg, host=args.host, device=args.device)
-    engine = server.state.engine
+    try:
+        stub = start_loading_stub(args.host, cfg.port)
+    except OSError:
+        stub = None
+        logger.warning("loading stub could not bind %s:%d; probes will see "
+                       "connection refused during load", args.host, cfg.port)
+    try:
+        engine = InferenceEngine(cfg, device=args.device)
+        engine.start()
+    finally:
+        if stub is not None:
+            stub.shutdown()
+            stub.server_close()
+    try:
+        return make_server(engine, cfg, host=args.host, device=args.device), args
+    except BaseException:
+        engine.stop()
+        raise
+
+
+def main(argv=None):
+    server, args = start_server(argv)
+    engine, cfg = server.state.engine, server.state.cfg
     if cfg.flight_dir:
         # a flight trigger: SIGTERM with requests still in flight
         # snapshots the black box before the graceful shutdown runs

@@ -49,7 +49,8 @@ def test_sources_found():
                 "engine/kv_pool.py", "runtime/routing.py", "utils/failpoints.py",
                 "tuning/quant.py", "tuning/optim.py", "tuning/train_step.py",
                 "tuning/dataset.py", "tuning/trainer.py", "tuning/cli.py",
-                "tuning/metrics_server.py"):
+                "tuning/metrics_server.py", "engine/streaming.py", "models/hub.py",
+                "ui/__init__.py", "ui/__main__.py"):
         assert PKG / mod in SOURCES, mod
 
 

@@ -161,17 +161,18 @@ def test_tensor_parallel_mla_raises():
 def test_server_takes_deepseek_v3(monkeypatch):
     """``--model deepseek-v3-0324`` reaches the engine config with no new
     flag (the engine itself is built on the card, cut in depth, by
-    ``chip_smoke.py``)."""
+    ``chip_smoke.py``; ``main`` builds it before ``make_server``, so the
+    engine is what stops here)."""
     seen = {}
 
     class Stop(Exception):
         pass
 
-    def fake_make_server(engine, cfg, host="0.0.0.0", port=None, device="cuda"):
+    def fake_engine(cfg, device="cuda"):
         seen["cfg"] = cfg
         raise Stop
 
-    monkeypatch.setattr(tserver, "make_server", fake_make_server)
+    monkeypatch.setattr(tserver, "InferenceEngine", fake_engine)
     with pytest.raises(Stop):
         tserver.main(["--model", "deepseek-v3-0324", "--device", "cpu",
                       "--quantization", "int8", "--kv-cache-dtype", "int8"])

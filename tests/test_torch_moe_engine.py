@@ -194,17 +194,18 @@ def test_server_serves_tiny_moe_real():
 
 def test_server_takes_gpt_oss_20b(monkeypatch):
     """``--model gpt-oss-20b`` reaches the engine config with no new flag
-    (the engine itself is built on the card by ``chip_smoke.py``)."""
+    (the engine itself is built on the card by ``chip_smoke.py``; ``main``
+    builds it before ``make_server``, so the engine is what stops here)."""
     seen = {}
 
     class Stop(Exception):
         pass
 
-    def fake_make_server(engine, cfg, host="0.0.0.0", port=None, device="cuda"):
+    def fake_engine(cfg, device="cuda"):
         seen["cfg"] = cfg
         raise Stop
 
-    monkeypatch.setattr(tserver, "make_server", fake_make_server)
+    monkeypatch.setattr(tserver, "InferenceEngine", fake_engine)
     with pytest.raises(Stop):
         tserver.main(["--model", "gpt-oss-20b", "--device", "cpu"])
     assert seen["cfg"].model == "gpt-oss-20b"

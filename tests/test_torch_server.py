@@ -136,9 +136,15 @@ def test_health_and_models(served):
 
 @pytest.mark.parametrize("path", ["/ui", "/ui/"])
 def test_unported_routes_answer_501(served, path):
+    """The routes this test once found unported: ``/ui`` and ``/ui/`` now
+    serve the demo chat page, as the JAX server does."""
+    from kaito_tpu_torch.ui import PAGE
+
     _, base = served
-    status, body = _get(base + path)
-    assert status == 501 and body["error"]["type"] == "not_implemented"
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"] == "text/html; charset=utf-8"
+        assert r.read() == PAGE.encode()
 
 
 def test_debug_device_is_403_with_devprof_off(served):
