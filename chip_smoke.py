@@ -432,7 +432,18 @@ order; any failure exits non-zero and prints no result:
    ``kaito:engine_loading 1`` and a POST answers 503; then ``/health``
    200 and ``/v1/models`` the file's name.  The streamed tree equals the
    disk loader's on the same file bit for bit; no shard read is
-   unranged.  Four streamed chats of 64 greedy tokens: one alone (a
+   unranged.  The command line and env come from the port's operator:
+   a Workspace for that id on ``a3-highgpu-1g`` with the annotation
+   ``kaito-tpu.io/quantization: int8`` and an ``inference.config``
+   ConfigMap, reconciled by the port's ``WorkspaceReconciler`` with its
+   Karpenter provisioner over ``FakeCloud`` until ``InferenceReady``.
+   Its StatefulSet's engine container must run ``python -m
+   kaito_tpu_torch.engine.server --model <id> --port 5000
+   --max-model-len 2048 --quantization int8 --kaito-config-file
+   /mnt/config/inference_config.yaml``, request and limit
+   ``nvidia.com/gpu: "1"``, and select the fake node by its labels; the
+   phase serves that argv with the port and the config path mapped to
+   its own and ``--weights-dir`` added, under the container's env.  Four streamed chats of 64 greedy tokens: one alone (a
    ~190-token prompt), then three admitted together (one packed
    prefill); ``/ui`` answers the page and one chat goes through the
    standalone UI proxy.  K1, K2, K3 and K4 (decode rows and the wide
@@ -444,6 +455,27 @@ order; any failure exits non-zero and prints no result:
    (1-256 rows) and times it at gate/up with 4 and 200 rows; K1, K2 and
    K3 at its head dim 64 and 8 query heads a KV head are the gpt-oss-20b
    cases there.
+19. The SKU catalog and the estimator against the card (no model of its
+   own).  Node labels made from the card as GPU feature discovery makes
+   them (``torch.cuda.get_device_name()`` with spaces as ``-``, total
+   memory in MiB, the count) resolve through the BYO lookup to the
+   catalog's H100 entry, whose memory is within 1% of the card's.  For
+   the engines of phase 4 (bf16), phase 5 (int4 + int8 KV; int8) and
+   phase 18 (TinyLlama, int8), the estimator's weight bytes must be no
+   less than the engine's ``param_bytes()``, and its KV tokens for a
+   one-card plan no more than the tokens the engine's measured free
+   memory holds after its reserve (before the ``max_num_seqs`` cap).
+   Both, and their ratio, are logged beside the CUDA context measured at
+   the script's start.
+
+Every phase start hands back the cuBLAS workspaces the phases before it
+left (one per stream a finished engine used, 32 MiB each) and logs what
+they left in the process (live threads and OS threads, engines and
+servers never closed, the port's CUDA graph holders, child processes,
+device memory allocated and reserved, the host microseconds of an eager
+launch); phases 4, 9 and 18 also the largest CUDA tensors still alive
+and what holds them, and the CPU each OS thread of the process and each
+process of the machine took over one second.  Phase 9 logs its garbage collections while acme is timed.
 
 The last three lines of standard output are the card line, one JSON
 object with the kernel records, and ``{"ok": true, "device": ...}``.
@@ -457,7 +489,7 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 ``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``,
 ``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``,
 ``pd-bf16``, ``train-bf16``, ``train-fp32``, ``rag-bf16``, ``rag-fp32``,
-``startup-int8``), which
+``startup-int8``, which runs phase 19 after it on its one engine), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -2265,6 +2297,11 @@ def run_server_phase(flags, counted, label, burst=True, run_ahead_sweep=False,
                      tensor_parallel=tp, comm_overlap=engine.comm_overlap,
                      shared_card=bool(tp > 1 and engine.mesh.shared),
                      weights_gib=engine.model.param_bytes() / 2**30,
+                     param_bytes=engine.model.param_bytes(),
+                     sizing=dict(engine.sizing_report),
+                     engine_cfg=dict(model=model, layers=layers,
+                                     quantization=cfg.quantization,
+                                     kv_dtype=cfg.kv_dtype, page_size=cfg.page_size),
                      kv_pages=engine.sizing_report.get("pages"),
                      kv_pool_mib=kv_bytes(engine.cache) / 2**20,
                      layers=md.arch.num_layers, single_stream=single)
@@ -2502,14 +2539,27 @@ def time_mla_decode(engine, label) -> dict:
 def _card_profile():
     """torch.profiler over the host and the card, holding the process-wide
     profiler lock that the engine's device profiler and ``/start_profile``
-    take too (one trace at a time)."""
+    take too (one trace at a time).  The trace asks the profiler to
+    detach CUPTI when it stops (``TEARDOWN_CUPTI=1``, set around it):
+    left attached, CUPTI makes every later kernel launch of the process
+    cost the host more (``tools/cupti_probe.py``: 9.5 us before a trace,
+    13.8-14.4 us after, 7.9 us after with the teardown; PERF.md),
+    and the host-bound phases after the traced legs pay it."""
     from torch.profiler import ProfilerActivity, profile
 
     from kaito_tpu_torch.engine.devprof import PROFILE_LOCK
 
-    with PROFILE_LOCK, profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA]) as prof:
-        yield prof
+    before = os.environ.get("TEARDOWN_CUPTI")
+    os.environ["TEARDOWN_CUPTI"] = "1"
+    try:
+        with PROFILE_LOCK, profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+            yield prof
+    finally:
+        if before is None:
+            os.environ.pop("TEARDOWN_CUPTI", None)
+        else:
+            os.environ["TEARDOWN_CUPTI"] = before
 
 
 def _api_calls(prof) -> dict:
@@ -2695,6 +2745,160 @@ def _release_card(torch):
     torch.cuda.empty_cache()
     log(f"card memory after release: {torch.cuda.memory_allocated() / 2**30:.2f} "
         f"GiB allocated")
+
+
+# the CUDA context: total - free - reserved right after this process's
+# first allocation (main, before the build)
+CONTEXT_BYTES = 0
+
+
+def _launch_us(torch, n=2000, rounds=3) -> float:
+    """Median host microseconds of an eager launch (``x.add_(1)``)."""
+    x = torch.zeros(1024, device="cuda")
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x.add_(1)
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return sorted(times)[rounds // 2]
+
+
+def _os_threads() -> dict:
+    """{tid: (name, CPU ticks)} of this process's OS threads."""
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                name = f.read().strip()
+        except OSError:
+            continue
+        fields = stat.rsplit(")", 1)[1].split()
+        out[tid] = (name, int(fields[11]) + int(fields[12]))
+    return out
+
+
+def _process_ticks() -> dict:
+    """{pid: (name, CPU ticks)} of every process this machine shows."""
+    out = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        name = stat[stat.index("(") + 1:stat.rindex(")")]
+        fields = stat.rsplit(")", 1)[1].split()
+        out[pid] = (name, int(fields[11]) + int(fields[12]))
+    return out
+
+
+def _rss_gib() -> float:
+    with open("/proc/self/status") as f:
+        kb = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS:"))
+    return kb / 2**20
+
+
+def _children() -> list:
+    """Process ids of this process's live children."""
+    kids = []
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/children") as f:
+                kids += f.read().split()
+        except OSError:
+            pass
+    return kids
+
+
+def _phase_start(torch, label, deep=False) -> dict:
+    """The start of phase ``label``: hand back what the phases before it
+    left that can go, then log what is still there.  When none of the
+    port's CUDA graph holders is alive, cuBLAS's workspaces go (one per
+    stream a finished engine ran a matmul on, 32 MiB each, counted as
+    allocated; a captured matmul would keep using its workspace), then
+    the caching allocator's free blocks.  Logged: Python and OS threads,
+    engines whose loop still runs and engines or HTTP servers still
+    reachable, the graph holders (and their graphs), child processes,
+    device memory, the host cost of a launch and of a pure-Python loop;
+    with ``deep``, also the largest live CUDA tensors with the types that
+    hold them, and the CPU each OS thread and each process of the machine
+    took over one second."""
+    import socketserver
+
+    from kaito_tpu_torch.engine.decode_graph import StaticGraphs
+    from kaito_tpu_torch.engine.engine import InferenceEngine
+
+    gc.collect()
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_ms = (time.perf_counter() - t0) * 1e3
+    objs = gc.get_objects()
+    engines = [o for o in objs if isinstance(o, InferenceEngine)]
+    servers = [o for o in objs if isinstance(o, socketserver.BaseServer)]
+    holders = [o for o in objs if isinstance(o, StaticGraphs)]
+    before = torch.cuda.memory_allocated()
+    if not holders:
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sum(i * i for i in range(200_000))
+    py_ms = (time.perf_counter() - t0) * 1e3
+    names: dict = {}
+    for t in threading.enumerate():
+        key = re.sub(r"\d+", "N", t.name)
+        names[key] = names.get(key, 0) + 1
+    res = dict(
+        threads=len(threading.enumerate()), thread_names=names,
+        os_threads=len(os.listdir("/proc/self/task")), children=_children(),
+        engines=len(engines),
+        engines_running=sum(bool(e._thread and e._thread.is_alive()) for e in engines),
+        servers=len(servers),
+        servers_open=sum(getattr(getattr(sv, "socket", None), "fileno", lambda: -1)()
+                         != -1 for sv in servers),
+        graph_holders=len(holders), graphs=sum(len(h.graphs) for h in holders),
+        released_mib=(before - torch.cuda.memory_allocated()) / 2**20,
+        gc_objects=len(objs), gc_full_ms=gc_ms, py_loop_ms=py_ms,
+        allocated_gib=torch.cuda.memory_allocated() / 2**30,
+        reserved_gib=torch.cuda.memory_reserved() / 2**30, rss_gib=_rss_gib(),
+        launch_us=_launch_us(torch))
+    if deep:
+        tensors = []
+        for o in objs:
+            try:
+                if isinstance(o, torch.Tensor) and o.is_cuda:
+                    tensors.append(o)
+            except Exception:       # a half-built object
+                continue
+        tensors.sort(key=lambda t: -t.untyped_storage().nbytes())
+        res["cuda_tensors"] = len(tensors)
+        res["cuda_tensor_gib"] = sum(t.untyped_storage().nbytes()
+                                     for t in tensors) / 2**30
+        top = []
+        for t in tensors[:6]:
+            refs = [type(r).__name__ + (f"({len(r)})" if isinstance(r, (dict, list)) else "")
+                    for r in gc.get_referrers(t) if r is not objs and r is not tensors]
+            top.append(dict(shape=list(t.shape), dtype=str(t.dtype),
+                            mib=t.untyped_storage().nbytes() / 2**20, held_by=refs[:4]))
+        res["largest_cuda_tensors"] = top
+        del tensors
+        before, procs = _os_threads(), _process_ticks()
+        time.sleep(1.0)
+        after, procs_after = _os_threads(), _process_ticks()
+        for key, a, b in (("os_thread_ticks_1s", before, after),
+                          ("process_ticks_1s", procs, procs_after)):
+            busy = {f"{b[k][0]}:{k}": b[k][1] - a[k][1]
+                    for k in b if k in a and b[k][1] > a[k][1]}
+            res[key] = dict(sorted(busy.items(), key=lambda kv: -kv[1])[:8])
+    del objs, engines, servers, holders
+    log(f"{label}: left in the process: {res}")
+    return res
 
 
 def profile_request(engine, base):
@@ -3313,6 +3517,33 @@ def qos_choices(base, engine, label, submitted) -> dict:
     return dict(greedy_near_ties=ties, sampled_distinct=distinct)
 
 
+@contextlib.contextmanager
+def _gc_pauses(label):
+    """Garbage collections while the block runs, by generation: count,
+    total and longest ms (each one holds every Python thread), logged on
+    exit; yields the dict it fills."""
+    out = {f"gen{g}": {"count": 0, "total_ms": 0.0, "max_ms": 0.0} for g in range(3)}
+    started = {}
+
+    def cb(phase, info):
+        g = info["generation"]
+        if phase == "start":
+            started[g] = time.perf_counter()
+        elif g in started:
+            ms = (time.perf_counter() - started.pop(g)) * 1e3
+            c = out[f"gen{g}"]
+            c["count"] += 1
+            c["total_ms"] += ms
+            c["max_ms"] = max(c["max_ms"], ms)
+
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
+        log(f"{label}: garbage collections {out}")
+
+
 def run_qos_phase(label) -> tuple[dict, dict]:
     """Phase 9: Llama-3.1-8B at full width in bf16 behind the QoS
     document, ITL on, KV shedding at 0.95 and a queue of 64 (the server's
@@ -3355,7 +3586,9 @@ def run_qos_phase(label) -> tuple[dict, dict]:
         for name in counted:
             fn, attr = _counter(name)
             setattr(fn, attr, 0)
-        stats["overload"] = qos_overload(base, engine, label)
+        with _gc_pauses(label + ", acme alone and under the flood") as pauses:
+            stats["overload"] = qos_overload(base, engine, label)
+        stats["overload"]["gc"] = pauses
         stats["slot_preemption"] = qos_slot_preemption(base, engine, label)
         stats["deadlines"] = qos_deadlines(base, engine, label)
         # the ITL recorder beside the client's own stamps of one sequence
@@ -6832,9 +7065,11 @@ def run_rag_exact_phase(label) -> dict:
 STARTUP_LEG = ("startup-int8", "phase 18, TinyLlama-1.1B from the operator's command "
                "line: config file, streamed weights, int8")
 _TINYLLAMA = "TinyLlama/TinyLlama-1.1B-Chat-v1.0"
-# the command line the JAX operator renders for a Workspace of the
-# catalog's TinyLlama (build_engine_command; tests/test_torch_startup.py
-# holds the port's parse of it to the JAX server's)
+# what the port's operator must render for phase 18's Workspace
+_STARTUP_COMMAND = ["python", "-m", "kaito_tpu_torch.engine.server", "--model", _TINYLLAMA,
+                    "--port", "5000", "--max-model-len", "2048", "--quantization", "int8",
+                    "--kaito-config-file", "/mnt/config/inference_config.yaml"]
+# the ConfigMap's inference_config.yaml
 _STARTUP_CONFIG = ("vllm:\n  max-num-seqs: 4\n  served-model-name: tinyllama-chat\n"
                    "  quantization: int8\n")
 _STARTUP_COUNTED = ("paged_decode_attention", "flash_prefill_attention",
@@ -6947,15 +7182,77 @@ def _timed_chat(base, content, n) -> dict:
                 tok_s=(n - 1) / ((total_ms - ttft) / 1e3))
 
 
+def render_startup_workspace(label) -> dict:
+    """The port's operator on phase 18's Workspace: the catalog's
+    TinyLlama on ``a3-highgpu-1g`` with ``kaito-tpu.io/quantization:
+    int8`` and an ``inference.config`` ConfigMap, reconciled by the
+    port's ``WorkspaceReconciler`` with its Karpenter provisioner over
+    ``FakeCloud`` until ``InferenceReady``.  Checks the StatefulSet's
+    engine container (:data:`_STARTUP_COMMAND`, ``nvidia.com/gpu: "1"``
+    requested and limited, a node selector the fake node's labels
+    satisfy) and returns its command, its env (the variables with a
+    value) and the node's labels."""
+    from kaito_tpu_torch.api import InferenceSpec, ObjectMeta, ResourceSpec, Workspace
+    from kaito_tpu_torch.api.meta import condition_true
+    from kaito_tpu_torch.controllers.runtime import Store
+    from kaito_tpu_torch.controllers.workspace import WorkspaceReconciler
+    from kaito_tpu_torch.provision import FakeCloud, KarpenterTPUProvisioner
+
+    store = Store()
+    cloud = FakeCloud(store)
+    rec = WorkspaceReconciler(store, KarpenterTPUProvisioner(store))
+    store.create(Workspace(
+        ObjectMeta(name="tinyllama", annotations={"kaito-tpu.io/quantization": "int8"}),
+        resource=ResourceSpec(instance_type="a3-highgpu-1g"),
+        inference=InferenceSpec(preset=_TINYLLAMA, config="inference-config")))
+    for _ in range(10):
+        rec.reconcile_key("default", "tinyllama")
+        cloud.tick()
+        ws = store.get("Workspace", "default", "tinyllama")
+        if condition_true(ws.status.conditions, "InferenceReady"):
+            break
+    else:
+        raise SmokeFailure(f"{label}: the Workspace never became ready: "
+                           f"{[(c.type, c.status, c.message) for c in ws.status.conditions]}")
+    pod = store.get("StatefulSet", "default", "tinyllama").spec["template"]["spec"]
+    c = pod["containers"][0]
+    if c["command"] != _STARTUP_COMMAND:
+        raise SmokeFailure(f"{label}: the operator rendered {c['command']}")
+    one = {"nvidia.com/gpu": "1"}
+    if c["resources"] != {"requests": one, "limits": one}:
+        raise SmokeFailure(f"{label}: the operator asked for {c['resources']}")
+    nodes = store.list("Node")
+    if len(nodes) != 1 or any(nodes[0].metadata.labels.get(k) != v
+                              for k, v in pod["nodeSelector"].items()):
+        raise SmokeFailure(f"{label}: node selector {pod['nodeSelector']} against "
+                           f"nodes {[n.metadata.labels for n in nodes]}")
+    env = {e["name"]: e["value"] for e in c["env"] if "value" in e}
+    log(f"{label}: the port's operator rendered {c['command']}, resources "
+        f"{c['resources']}, env {env}, node selector {pod['nodeSelector']}")
+    return dict(command=c["command"], env=env, node=dict(nodes[0].metadata.labels))
+
+
+def _serve_argv(command, port, conf, weights) -> list:
+    """The rendered engine command's argv with the pod's port and config
+    path mapped to this process's, and ``--weights-dir`` added."""
+    argv = list(command[3:])
+    argv[argv.index("--port") + 1] = str(port)
+    argv[argv.index("--kaito-config-file") + 1] = conf
+    return argv + ["--weights-dir", weights]
+
+
 def run_startup_phase(label) -> tuple[dict, dict]:
     """Phase 18: the port's server started as the operator starts a pod
     of the catalog's ``TinyLlama/TinyLlama-1.1B-Chat-v1.0``, at full width
     (22 layers, hidden 2048, 32 heads over 4 KV heads of 64, intermediate
-    5632), from its rendered command line (``--model <id> --port P
-    --max-model-len 2048``) plus ``--weights-dir http://127.0.0.1:W/``
-    and ``--kaito-config-file F`` (``vllm:`` max-num-seqs 4, a served
-    model name, ``quantization: int8``), through ``start_server``, the
-    first half of ``main``.  The weights: bf16 drawn on the card from
+    5632), from the command line and env the port's operator renders
+    (:func:`render_startup_workspace`: ``--model <id> --port 5000
+    --max-model-len 2048 --quantization int8 --kaito-config-file
+    /mnt/config/inference_config.yaml``), its port and config path
+    mapped to this process's (the file: ``vllm:`` max-num-seqs 4, a
+    served model name, ``quantization: int8``) and ``--weights-dir
+    http://127.0.0.1:W/`` added, through ``start_server``, the first half
+    of ``main``, with the container's env applied while it runs.  The weights: bf16 drawn on the card from
     seed 0, written under HF names in one file and served by a local
     range server.  While they stream and quantize, ``/health`` (polled
     every 20 ms) answers 503 ``loading``, ``/metrics`` carries
@@ -6993,6 +7290,7 @@ def run_startup_phase(label) -> tuple[dict, dict]:
     real_stream = streaming.stream_safetensors_params
     try:
         install_default_fetcher()
+        pod = render_startup_workspace(label)
         arch = get_model_by_name(_TINYLLAMA).arch
         widths = (arch.num_layers, arch.hidden_size, arch.num_heads, arch.num_kv_heads,
                   arch.head_dim, arch.intermediate_size, arch.vocab_size)
@@ -7011,8 +7309,7 @@ def run_startup_phase(label) -> tuple[dict, dict]:
             f.write(_STARTUP_CONFIG)
         port = _free_port()
         base = f"http://127.0.0.1:{port}"
-        argv = ["--model", _TINYLLAMA, "--port", str(port), "--max-model-len", "2048",
-                "--weights-dir", wurl, "--kaito-config-file", conf]
+        argv = _serve_argv(pod["command"], port, conf, wurl)
         log(f"{label}: {stats['checkpoint_bytes'] / 2**30:.2f} GiB checkpoint written "
             f"in {stats['checkpoint_write_s']:.1f}s; serving with {argv}")
 
@@ -7037,26 +7334,35 @@ def run_startup_phase(label) -> tuple[dict, dict]:
         tee = _StdoutTee(sys.stdout)
         loading = {"health_503": 0, "metrics_gauge": False, "post_503": False}
         t_load = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            loader = threading.Thread(target=build)
-            loader.start()
-            while loader.is_alive():
-                try:
-                    status, raw = _get(f"{base}/health")
-                except (urllib.error.URLError, ConnectionError, OSError):
-                    status = None
-                if status == 503 and json.loads(raw)["status"] == "loading":
-                    loading["health_503"] += 1
-                    if not loading["metrics_gauge"]:
-                        _, m = _get(f"{base}/metrics")
-                        loading["metrics_gauge"] = b"kaito:engine_loading 1\n" in m
-                        try:
-                            _post(f"{base}/v1/completions", {"prompt": "x",
-                                                             "max_tokens": 1})
-                        except urllib.error.HTTPError as e:
-                            loading["post_503"] = e.code == 503
-                time.sleep(0.02)
-            loader.join()
+        saved_env = {k: os.environ.get(k) for k in pod["env"]}
+        os.environ.update(pod["env"])
+        try:
+            with contextlib.redirect_stdout(tee):
+                loader = threading.Thread(target=build)
+                loader.start()
+                while loader.is_alive():
+                    try:
+                        status, raw = _get(f"{base}/health")
+                    except (urllib.error.URLError, ConnectionError, OSError):
+                        status = None
+                    if status == 503 and json.loads(raw)["status"] == "loading":
+                        loading["health_503"] += 1
+                        if not loading["metrics_gauge"]:
+                            _, m = _get(f"{base}/metrics")
+                            loading["metrics_gauge"] = b"kaito:engine_loading 1\n" in m
+                            try:
+                                _post(f"{base}/v1/completions", {"prompt": "x",
+                                                                 "max_tokens": 1})
+                            except urllib.error.HTTPError as e:
+                                loading["post_503"] = e.code == 503
+                    time.sleep(0.02)
+                loader.join()
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         stats["load_s"] = time.perf_counter() - t_load
         streaming.stream_safetensors_params = real_stream
         if "error" in built:
@@ -7082,8 +7388,14 @@ def run_startup_phase(label) -> tuple[dict, dict]:
         if json.loads(raw)["data"][0]["id"] != "tinyllama-chat":
             raise SmokeFailure(f"{label}: /v1/models {raw!r}")
         cfg = engine.cfg
-        if (cfg.max_num_seqs, cfg.quantization, cfg.max_model_len) != (4, "int8", 2048):
+        if (cfg.max_num_seqs, cfg.quantization, cfg.max_model_len,
+                cfg.tensor_parallel) != (4, "int8", 2048, 1):
             raise SmokeFailure(f"{label}: the config file did not take: {cfg}")
+        stats.update(rendered=pod, param_bytes=engine.model.param_bytes(),
+                     sizing=dict(engine.sizing_report),
+                     engine_cfg=dict(model=_TINYLLAMA, layers=None,
+                                     quantization=cfg.quantization,
+                                     kv_dtype=cfg.kv_dtype, page_size=cfg.page_size))
         log(f"{label}: loaded in {stats['load_s']:.1f}s ({loading['health_503']} "
             f"loading answers); stream {stats['stream']}; "
             f"{engine.model.param_bytes() / 2**30:.2f} GiB int8 weights, "
@@ -7177,6 +7489,80 @@ def run_startup_phase(label) -> tuple[dict, dict]:
     _release_card(torch)
     stats["phase_s"] = time.perf_counter() - t_leg
     return launches, stats
+
+
+SKU_LABEL = "phase 19, the SKU catalog and the estimator against the card"
+
+
+def run_sku_phase(torch, legs, label, whole) -> dict:
+    """Phase 19 (no model of its own): the card's identity through the
+    catalog's BYO lookup, and the estimator's GPU half against the
+    engines phases 4, 5 and 18 sized (``legs``: their statistics, each
+    with its ``sizing`` report, ``param_bytes`` and ``engine_cfg``; in a
+    whole run all four must be there).  Returns the readings."""
+    from kaito_tpu_torch.estimator.estimator import (
+        CUDA_CONTEXT_BYTES, engine_weight_bytes, gpu_page_bytes, max_kv_tokens)
+    from kaito_tpu_torch.sku.catalog import (
+        LABEL_GPU_COUNT, LABEL_GPU_MEMORY, LABEL_GPU_PRODUCT,
+        get_gpu_config_from_node_labels, machine_chip)
+
+    t0 = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    labels = {LABEL_GPU_PRODUCT: torch.cuda.get_device_name(0).replace(" ", "-"),
+              LABEL_GPU_MEMORY: str(props.total_memory // 2**20),
+              LABEL_GPU_COUNT: str(torch.cuda.device_count())}
+    spec = get_gpu_config_from_node_labels(labels)
+    if spec is None or spec.chip.generation != "h100-80gb":
+        raise SmokeFailure(f"{label}: labels {labels} resolved to {spec}")
+    rel = abs(spec.chip.hbm_bytes - props.total_memory) / props.total_memory
+    if rel > 0.01:
+        raise SmokeFailure(f"{label}: the entry's {spec.chip.hbm_bytes} bytes against "
+                           f"the card's {props.total_memory}")
+    out = dict(labels=labels, entry=spec.chip.generation, entry_bytes=spec.chip.hbm_bytes,
+               card_bytes=props.total_memory, memory_rel_diff=rel,
+               context_bytes=CONTEXT_BYTES, estimator_context_bytes=CUDA_CONTEXT_BYTES,
+               legs={})
+    log(f"{label}: {labels} -> {spec.chip.generation} ({spec.chip.hbm_bytes} bytes, the "
+        f"card {props.total_memory}: {rel:.2e} apart); CUDA context at the start "
+        f"{CONTEXT_BYTES} bytes, the estimator's {CUDA_CONTEXT_BYTES}")
+    card = machine_chip("a3-highgpu-1g")
+    for leg in (LEGS[0][1], LEGS[1][1], LEGS[2][1], STARTUP_LEG[1]):
+        s = legs.get(leg)
+        if s is None:
+            if whole:
+                raise SmokeFailure(f"{label}: no sizing from {leg}")
+            continue
+        ec, rep = s["engine_cfg"], s["sizing"]
+        if rep.get("source") != "measured":
+            raise SmokeFailure(f"{label}: {leg} sized its pool by {rep}")
+        md = cut_metadata(ec["model"], ec["layers"])
+        quant = ec["quantization"] or ""
+        el = 1 if ec["kv_dtype"] == "int8" else 2
+        est_w = engine_weight_bytes(md, quant)
+        page = gpu_page_bytes(md, el, ec["page_size"])
+        room = max(rep["free_after_weights_bytes"] - rep["reserve_bytes"], 0)
+        measured = room // page * ec["page_size"]
+        est = max_kv_tokens(md, card, 1, kv_dtype_bytes=el, quantization=quant)
+        row = dict(param_bytes=s["param_bytes"], estimated_weight_bytes=est_w,
+                   weight_ratio=est_w / s["param_bytes"], measured_kv_tokens=measured,
+                   estimated_kv_tokens=est, kv_ratio=est / measured if measured else None,
+                   device_total_bytes=rep["device_total_bytes"],
+                   non_weight_bytes_at_sizing=rep["device_total_bytes"]
+                   - rep["free_after_weights_bytes"] - s["param_bytes"])
+        out["legs"][leg] = row
+        log(f"{label}: {leg}: weights {est_w} estimated, {s['param_bytes']} held "
+            f"(x{row['weight_ratio']:.4f}); KV tokens {est} estimated for one card, "
+            f"{measured} in the measured free memory (x{row['kv_ratio']:.4f}); "
+            f"{row['non_weight_bytes_at_sizing']} bytes neither free nor weights at "
+            f"sizing")
+        if est_w < s["param_bytes"]:
+            raise SmokeFailure(f"{label}: {leg}: the estimator counts {est_w} weight "
+                               f"bytes, the engine holds {s['param_bytes']}")
+        if est > measured:
+            raise SmokeFailure(f"{label}: {leg}: the estimator promises {est} KV tokens, "
+                               f"the measured free memory holds {measured}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
@@ -7284,6 +7670,12 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         card = card_line()
         log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+        global CONTEXT_BYTES
+        torch.zeros(1, device="cuda")
+        free, total = torch.cuda.mem_get_info()
+        CONTEXT_BYTES = total - free - torch.cuda.memory_reserved()
+        log(f"CUDA context: {CONTEXT_BYTES} bytes ({CONTEXT_BYTES / 2**20:.1f} MiB) of "
+            f"{total} on {card}")
         from kaito_tpu_torch.ops import build
 
         t0 = time.perf_counter()
@@ -7353,6 +7745,7 @@ def main(argv=None) -> int:
             stats = {}
             for i, (label, model, flags, counted, burst, tp, shared, layers,
                     absent) in enumerate(legs):
+                _phase_start(torch, label, deep=i == 0)
                 launches, stats[label] = run_server_phase(
                     flags, counted, label, burst=burst,
                     run_ahead_sweep=args.sweep_run_ahead and i == 0,
@@ -7376,6 +7769,7 @@ def main(argv=None) -> int:
                     f"{stats[label]['decode_tok_s']:.1f} tok/s (one sequence)")
             if args.leg in (None, QOS_LEG[0]) and not args.first_leg_only:
                 name, label = QOS_LEG
+                _phase_start(torch, label, deep=True)
                 launches, stats[label] = run_qos_phase(label)
                 _release_card(torch)
                 for kname, n in launches.items():
@@ -7388,6 +7782,7 @@ def main(argv=None) -> int:
                     f"ms alone, {o['acme_ttft_p50_loaded_ms']:.1f} ms under the flood")
             if args.leg in (None, SPEC_LEG[0]) and not args.first_leg_only:
                 name, label = SPEC_LEG
+                _phase_start(torch, label, deep=False)
                 launches, stats[label] = run_spec_phase(label)
                 _release_card(torch)
                 for kname, n in launches.items():
@@ -7404,6 +7799,7 @@ def main(argv=None) -> int:
                     f"{s['draft']['tokens_per_target_forward']:.3f}")
             if args.leg in (None, GRAMMAR_LEG[0]) and not args.first_leg_only:
                 name, label = GRAMMAR_LEG
+                _phase_start(torch, label, deep=False)
                 launches, stats[label] = run_grammar_phase(label)
                 _release_card(torch)
                 for kname, n in launches.items():
@@ -7419,6 +7815,7 @@ def main(argv=None) -> int:
                     f"(card ms) {s['window_ms']}")
             if args.leg in (None, ADAPTER_LEG[0]) and not args.first_leg_only:
                 name, label = ADAPTER_LEG
+                _phase_start(torch, label, deep=False)
                 launches, stats[label] = run_adapter_phase(label)
                 for kname, n in launches.items():
                     if n <= 0:
@@ -7432,9 +7829,11 @@ def main(argv=None) -> int:
                     f"{s['post_load_ms']}; one K=4 window of 8 rows {s['window']}")
             if args.leg in (None, ADAPTER_EXACT_LEG[0]) and not args.first_leg_only:
                 name, label = ADAPTER_EXACT_LEG
+                _phase_start(torch, label, deep=False)
                 stats[label] = run_adapter_exact_phase(label)
             if args.leg in (None, FAMILIES_LEG[0]) and not args.first_leg_only:
                 name, label = FAMILIES_LEG
+                _phase_start(torch, label, deep=False)
                 launches, stats[label] = run_families_phase(label)
                 if not alone:
                     for kname, n in launches.items():
@@ -7445,6 +7844,7 @@ def main(argv=None) -> int:
                     for m, s in stats[label].items() if isinstance(s, dict)))
             if args.leg in (None, FAMILIES_EXACT_LEG[0]) and not args.first_leg_only:
                 name, label = FAMILIES_EXACT_LEG
+                _phase_start(torch, label, deep=False)
                 stats[label] = run_families_exact_phase(label)
             params14 = None
             for leg, must in ((DEVPROF_LEG, ("paged_decode_attention",
@@ -7454,6 +7854,7 @@ def main(argv=None) -> int:
                 if args.leg not in (None, leg[0]) or args.first_leg_only:
                     continue
                 name, label = leg
+                _phase_start(torch, label)
                 if leg is DEVPROF_LEG:
                     launches, stats[label], params14 = run_devprof_phase(label)
                 else:
@@ -7469,6 +7870,7 @@ def main(argv=None) -> int:
                 log(f"{label} on {card}: {stats[label]['phase_s']:.1f} s")
             if args.leg in (None, PD_LEG[0]) and not args.first_leg_only:
                 name, label = PD_LEG
+                _phase_start(torch, label, deep=False)
                 launches, stats[label] = run_pd_phase(label)
                 _release_card(torch)
                 for kname in ("paged_decode_attention", "flash_prefill_attention"):
@@ -7480,6 +7882,7 @@ def main(argv=None) -> int:
                 log(f"{label} on {card}: {stats[label]['phase_s']:.1f} s")
             if args.leg in (None, TRAIN_LEG[0]) and not args.first_leg_only:
                 name, label = TRAIN_LEG
+                _phase_start(torch, label, deep=False)
                 launches, stats[label] = run_train_phase(label)
                 _release_card(torch)
                 if launches["quant_matmul_int8"] <= 0:
@@ -7497,10 +7900,12 @@ def main(argv=None) -> int:
                     + f"; {stats[label]['phase_s']:.1f} s")
             if args.leg in (None, TRAIN_EXACT_LEG[0]) and not args.first_leg_only:
                 name, label = TRAIN_EXACT_LEG
+                _phase_start(torch, label, deep=False)
                 stats[label] = run_train_exact_phase(label)
                 _release_card(torch)
             if args.leg in (None, RAG_LEG[0]) and not args.first_leg_only:
                 name, label = RAG_LEG
+                _phase_start(torch, label, deep=False)
                 launches, stats[label] = run_rag_phase(label)
                 if launches["flash_prefill_attention"] <= 0:
                     raise SmokeFailure(f"flash_prefill_attention never launched in {label}")
@@ -7516,10 +7921,12 @@ def main(argv=None) -> int:
                     f"{s['peak_gib']:.2f} GiB; {s['phase_s']:.1f} s")
             if args.leg in (None, RAG_EXACT_LEG[0]) and not args.first_leg_only:
                 name, label = RAG_EXACT_LEG
+                _phase_start(torch, label, deep=False)
                 stats[label] = run_rag_exact_phase(label)
                 _release_card(torch)
             if args.leg in (None, STARTUP_LEG[0]) and not args.first_leg_only:
                 name, label = STARTUP_LEG
+                _phase_start(torch, label, deep=True)
                 launches, stats[label] = run_startup_phase(label)
                 for kname, n in launches.items():
                     if n <= 0:
@@ -7538,6 +7945,11 @@ def main(argv=None) -> int:
                     + ", ".join(f"{r['ttft_ms']:.1f}" for r in s["together"])
                     + " ms, " + ", ".join(f"{r['tok_s']:.1f}" for r in s["together"])
                     + f" tok/s; {s['phase_s']:.1f} s")
+                stats[SKU_LABEL] = run_sku_phase(torch, stats, SKU_LABEL, whole=not alone)
+                log(f"{SKU_LABEL} on {card}: " + "; ".join(
+                    f"{leg}: weights x{r['weight_ratio']:.4f}, KV tokens "
+                    f"x{r['kv_ratio']:.4f}" for leg, r in stats[SKU_LABEL]["legs"].items())
+                    + f"; {stats[SKU_LABEL]['phase_s']:.1f} s")
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

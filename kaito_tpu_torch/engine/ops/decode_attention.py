@@ -203,6 +203,9 @@ class _Workspace:
                                    f"allocated by the first call, which must run "
                                    f"outside CUDA graph capture")
             floats, counters = workspace_bounds(sms)
+            # fresh segments: kept for the process, these carved out of a
+            # freed larger block would pin its whole segment
+            torch.cuda.empty_cache()
             self.part = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
             self.counters = torch.zeros(max(counters, 1), dtype=torch.int32, device=device)
         if plan.n_split > 1 and (plan.scratch_floats > self.part.numel()

@@ -320,6 +320,9 @@ class _DecodeWorkspace:
 
     def __init__(self, device: torch.device, sms: int):
         floats, counters = decode_workspace_bounds(sms)
+        # fresh segments: kept for the process, these carved out of a
+        # freed larger block would pin its whole segment
+        torch.cuda.empty_cache()
         self.part = torch.empty(floats, dtype=torch.float32, device=device)
         self.counters = torch.zeros(counters, dtype=torch.int32, device=device)
 

@@ -127,11 +127,15 @@ def unpack_int4(q4: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_weight_int8(w: torch.Tensor) -> dict:
-    """[.., in, out] -> {"q8": int8, "scale": f32[.., out]}."""
+    """[.., in, out] -> {"q8": int8, "scale": f32[.., out]}.  The result
+    is allocated before the fp32 temporaries (see :func:`quantize_weight`)."""
+    q8 = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((*w.shape[:-2], w.shape[-1]), dtype=torch.float32,
+                        device=w.device)
     w32 = w.float()
-    scale = (w32.abs().amax(dim=-2) * INV_127).clamp_min(1e-8)
-    q8 = torch.round(w32 / scale[..., None, :]).clamp_(-127, 127)
-    return {"q8": q8.to(torch.int8), "scale": scale}
+    torch.mul(w32.abs().amax(dim=-2), INV_127, out=scale).clamp_min_(1e-8)
+    q8.copy_(torch.round(w32 / scale[..., None, :]).clamp_(-127, 127))
+    return {"q8": q8, "scale": scale}
 
 
 def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> dict:
@@ -143,14 +147,25 @@ def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> dict:
     if K % 2:
         raise ValueError(f"int4 packs two in-rows per byte; in-dim {K} is odd")
     g = group if K % group == 0 else K
-    grouped = w.float().reshape(*w.shape[:-2], K // g, g, N)
-    scale = (grouped.abs().amax(dim=-2) * _INV_7).clamp_min(1e-8)   # [.., G, N]
+    lead = w.shape[:-2]
+    q4 = torch.empty((*lead, K // 2, N), dtype=torch.int8, device=w.device)
+    scale = torch.empty((*lead, K // g, N), dtype=torch.float32, device=w.device)
+    grouped = w.float().reshape(*lead, K // g, g, N)
+    torch.mul(grouped.abs().amax(dim=-2), _INV_7, out=scale).clamp_min_(1e-8)
     q = torch.round(grouped / scale[..., None, :]).clamp_(-7, 7)
-    q = q.to(torch.int32).reshape(*w.shape[:-2], K, N)
-    return {"q4": _pack_int4(q), "scale": scale}
+    q4.copy_(_pack_int4(q.to(torch.int32).reshape(*lead, K, N)))
+    return {"q4": q4, "scale": scale}
 
 
 def quantize_weight(w: torch.Tensor, scheme: str = "int8") -> dict:
+    """``w`` quantized under ``scheme``.  On the card the caching
+    allocator's free blocks go back first, so the result, allocated
+    before the temporaries, takes fresh segments: carved out of an
+    earlier leaf's freed temporary, it would pin that temporary's whole
+    segment, room the KV pool sized after the weights could not take
+    (PERF.md)."""
+    if w.is_cuda:
+        torch.cuda.empty_cache()
     if scheme == "int8":
         return quantize_weight_int8(w)
     if scheme == "int4":

@@ -1,2 +1,3 @@
-"""Tensor parallelism for the serving engine: the device mesh and the
-logical-axis sharding rules (counterpart of ``kaito_tpu.parallel``)."""
+"""Parallelism: the device mesh of a tensor-parallel engine, the
+logical-axis sharding rules, and the planner that sizes a Workspace's
+slice and mesh (counterpart of ``kaito_tpu.parallel``)."""

@@ -428,6 +428,21 @@ class SLOWatchdog:
                       fn=_tenant_itls)
 
 
+def condition_from_verdict(verdict: dict) -> tuple[str, str, str]:
+    """Fold a ``/debug/slo`` snapshot (or the subset the probe ships)
+    into (status, reason, message) for the Workspace ``SLOHealthy``
+    condition (a copy of ``kaito_tpu.runtime.slo.condition_from_verdict``)."""
+    alerts = verdict.get("alerts") or {}
+    burning = sorted(sli for sli, st in alerts.items() if st != STATE_OK)
+    healthy = bool(verdict.get("healthy", True)) and not burning
+    if healthy:
+        return "True", "SLOMet", "north-star SLOs met"
+    paging = sorted(sli for sli, st in alerts.items() if st == STATE_PAGE)
+    reason = "SLOBurnRate" if paging else "SLOWarning"
+    return ("False" if paging else "True", reason,
+            "burning error budget: " + ", ".join(burning))
+
+
 def engine_chip_count(engine) -> int:
     """Cards behind a server: the distinct CUDA devices of the engine's
     mesh, 1 without a mesh (and for a mesh of CPU slots)."""

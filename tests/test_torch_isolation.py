@@ -50,7 +50,13 @@ def test_sources_found():
                 "tuning/quant.py", "tuning/optim.py", "tuning/train_step.py",
                 "tuning/dataset.py", "tuning/trainer.py", "tuning/cli.py",
                 "tuning/metrics_server.py", "engine/streaming.py", "models/hub.py",
-                "ui/__init__.py", "ui/__main__.py"):
+                "ui/__init__.py", "ui/__main__.py", "featuregates.py",
+                "utils/quantity.py", "api/meta.py", "api/workspace.py",
+                "api/conversion.py", "sku/catalog.py", "estimator/estimator.py",
+                "parallel/plan.py", "controllers/objects.py", "controllers/runtime.py",
+                "controllers/workspace.py", "k8s/events.py", "provision/karpenter.py",
+                "provision/fake.py", "manifests/inference.py",
+                "manifests/tuning_job.py"):
         assert PKG / mod in SOURCES, mod
 
 
