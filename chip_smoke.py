@@ -467,6 +467,34 @@ order; any failure exits non-zero and prints no result:
    memory holds after its reserve (before the ``max_num_seqs`` cap).
    Both, and their ratio, are logged beside the CUDA context measured at
    the script's start.
+20. The operator's manager closes its loop on the card (leg
+   ``manager-int8``).  The port's ``Manager`` (gates
+   ``enableInferenceSetController``, ``autoscaler``) over the in-memory
+   store, with its Karpenter provisioner over ``FakeCloud`` (nodes only:
+   no fake kubelet), its metrics server on 127.0.0.1:0 and its fleet
+   plane scraping every second; an InferenceSet of phase 18's TinyLlama
+   on ``a3-highgpu-1g`` (int8, phase 18's config map), one replica,
+   autoscaling 1-2 with a 3 s sustain, 2 s of stabilization and 2 s of
+   cooldown (the phase's own values, logged).  The child Workspace's
+   pod (command, env, resources, node selector) must equal phase 18's,
+   names apart; the phase serves it through ``start_server`` (weights
+   written and streamed again), points the fleet's scrape-URL
+   annotation at it and marks its StatefulSet ready once ``/health``
+   answers.  One chat alone, then idle: three scrapes, the signal
+   nominal, one replica, the fleet's folded running, waiting, KV and
+   request samples equal to the server's own ``/metrics``.  Then 24
+   clients chat 64 tokens in a loop against ``max-num-seqs`` 4: the
+   signal must leave nominal within 7 s, the autoscaler take
+   ``spec.replicas`` to 2 and the second child's pod equal the first's
+   (it is not served; its Service name is never resolved).  After it:
+   every enabled controller counted ``result="ok"`` reconciles on the
+   manager's ``/metrics`` and none ``"error"``, the ``kaito:fleet_*``
+   gauges are there, K1-K4 launched in the serving process and K1q/K5
+   did not.  Host only: a RAGEngine on ``a3-highgpu-1g`` renders the
+   port's RAG app on one ``nvidia.com/gpu`` with an env the port's
+   ``RAGConfig`` reads; a GPU InferenceSet under the Gateway API gate
+   renders nothing and names ROADMAP item 2.  Every thread and server
+   the phase started is gone at the next phase start, which is logged.
 
 Every phase start hands back the cuBLAS workspaces the phases before it
 left (one per stream a finished engine used, 32 MiB each) and logs what
@@ -489,7 +517,8 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 ``spec-bf16``, ``grammar-bf16``, ``adapter-bf16``, ``adapter-fp32``,
 ``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``,
 ``pd-bf16``, ``train-bf16``, ``train-fp32``, ``rag-bf16``, ``rag-fp32``,
-``startup-int8``, which runs phase 19 after it on its one engine), which
+``startup-int8``, which runs phase 19 after it on its one engine,
+``manager-int8``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -7229,7 +7258,8 @@ def render_startup_workspace(label) -> dict:
     env = {e["name"]: e["value"] for e in c["env"] if "value" in e}
     log(f"{label}: the port's operator rendered {c['command']}, resources "
         f"{c['resources']}, env {env}, node selector {pod['nodeSelector']}")
-    return dict(command=c["command"], env=env, node=dict(nodes[0].metadata.labels))
+    return dict(command=c["command"], env=env, node=dict(nodes[0].metadata.labels),
+                resources=c["resources"], node_selector=dict(pod["nodeSelector"]))
 
 
 def _serve_argv(command, port, conf, weights) -> list:
@@ -7565,6 +7595,486 @@ def run_sku_phase(torch, legs, label, whole) -> dict:
     return out
 
 
+MANAGER_LEG = ("manager-int8", "phase 20, the operator's manager scaling a served "
+               "TinyLlama InferenceSet: fleet telemetry and the autoscaler, int8")
+# phase 20's short clocks, set on its own objects (the defaults: sustain
+# 30 s, scrapes every 10 s, stabilization 30 s, cooldown 60 s).  The
+# engines' SLO burn rolls over a fixed 300 s window, so on this timescale
+# the first chat's capture would hold the burn watermark: it is set out of
+# reach, as the JAX closed-loop test sets it.
+_MANAGER_FLEET = dict(sustain_s=3.0, min_samples=2, burn_hi=1e9, burn_lo=1e9)
+_MANAGER_INTERVAL_S = 1.0
+_MANAGER_AUTOSCALE = dict(enabled=True, min_replicas=1, max_replicas=2, warm_pool=0,
+                          scale_up_stabilization_s=2.0, scale_up_cooldown_s=2.0)
+_MANAGER_GATES = "enableInferenceSetController=true,autoscaler=true"
+_MANAGER_BURST = 24          # concurrent 64-token chats, against max-num-seqs 4
+_MANAGER_CONTROLLERS = ("WorkspaceReconciler", "InferenceSetReconciler",
+                        "RAGEngineReconciler", "DriftReconciler", "AutoscalerController")
+# the fleet's folded samples held against the server's own /metrics at idle
+_FLEET_HELD = ("active_slots", "slots_total", "waiting", "kv_usage", "occupancy",
+               "requests_total", "gen_tokens_total")
+# threads the manager, its fleet plane and a KubeStore start
+_MANAGER_THREADS = ("fleet-telemetry", "fleet-scrape", "manager-metrics", "watch-")
+
+
+@contextlib.contextmanager
+def _loopback_only():
+    """Name lookups of anything but the loopback refused while the phase
+    runs: the second replica's Service name (``tinyllama-1``), which the
+    fleet scrapes, is not served, and no lookup may leave the machine.
+    Yields the names refused."""
+    import socket
+
+    real, refused = socket.getaddrinfo, []
+
+    def guard(host, *a, **kw):
+        if host not in ("127.0.0.1", "localhost", "::1"):
+            refused.append(host)
+            raise socket.gaierror(socket.EAI_NONAME, f"{host}: not resolved here")
+        return real(host, *a, **kw)
+
+    socket.getaddrinfo = guard
+    try:
+        yield refused
+    finally:
+        socket.getaddrinfo = real
+
+
+def _pod_of(store, name) -> dict:
+    """The engine container, node selector and tolerations of a child
+    Workspace's StatefulSet, its name written as ``<set>``."""
+    pod = store.get("StatefulSet", "default", name).spec["template"]["spec"]
+    return json.loads(json.dumps(dict(
+        container=pod["containers"][0], node_selector=pod["nodeSelector"],
+        tolerations=pod.get("tolerations"))).replace(name, "<set>"))
+
+
+def _check_epp_gate(label) -> dict:
+    """Host only: a GPU InferenceSet under the Gateway API gate, in a
+    manager of its own, renders no child, pool or picker, and its
+    condition names ROADMAP queue 1, item 2 (the port has no
+    ``runtime/epp.py`` yet)."""
+    from kaito_tpu_torch.api import (InferenceSet, InferenceSetSpec, InferenceSpec,
+                                     ObjectMeta, ResourceSpec)
+    from kaito_tpu_torch.api.inferenceset import WorkspaceTemplate
+    from kaito_tpu_torch.controllers.manager import Manager
+    from kaito_tpu_torch.controllers.runtime import Store
+
+    store = Store()
+    mgr = Manager(store=store, feature_gates="enableInferenceSetController=true,"
+                  "gatewayAPIInferenceExtension=true")
+    store.create(InferenceSet(ObjectMeta(name="gw"), InferenceSetSpec(
+        replicas=1, template=WorkspaceTemplate(
+            resource=ResourceSpec(instance_type="a3-highgpu-1g"),
+            inference=InferenceSpec(preset=_TINYLLAMA)))))
+    mgr.resync()
+    live = store.get("InferenceSet", "default", "gw")
+    cond = next(c for c in live.status.conditions if c.type == "InferenceSetReady")
+    rendered = [k for k in ("Workspace", "InferencePool", "Deployment") if store.list(k)]
+    if (cond.status, cond.reason) != ("False", "EPPUnavailable") \
+            or "item 2" not in cond.message or rendered:
+        raise SmokeFailure(f"{label}: a GPU set under the Gateway API gate: {cond}; "
+                           f"rendered {rendered}")
+    log(f"{label}: a GPU InferenceSet under gatewayAPIInferenceExtension: "
+        f"{cond.reason}: {cond.message}")
+    return dict(status=cond.status, reason=cond.reason, message=cond.message)
+
+
+def _create_rag(store, iset_name) -> None:
+    """Host only: a RAGEngine on ``a3-highgpu-1g`` with a local embedder
+    (the served model's id) whose LLM is the set's first replica's
+    Service, for the phase's manager to reconcile."""
+    from kaito_tpu_torch.api import ObjectMeta, RAGEngine, RAGEngineSpec, ResourceSpec
+    from kaito_tpu_torch.api.ragengine import (EmbeddingSpec, InferenceServiceSpec,
+                                               LocalEmbedding)
+
+    svc = store.get("Service", "default", f"{iset_name}-0")
+    store.create(RAGEngine(ObjectMeta(name="rag"), RAGEngineSpec(
+        compute=ResourceSpec(instance_type="a3-highgpu-1g"),
+        embedding=EmbeddingSpec(local=LocalEmbedding(model_id=_TINYLLAMA)),
+        inference_service=InferenceServiceSpec(
+            url=f"http://{svc.metadata.name}:{svc.spec['ports'][0]['port']}"))))
+
+
+def _check_rag(label, store) -> dict:
+    """The RAGEngine :func:`_create_rag` made, as the phase's manager
+    rendered it: the port's RAG app on one ``nvidia.com/gpu``, its env
+    read by the port's ``RAGConfig.from_env`` into the Service's URL and
+    the embedder's id."""
+    from kaito_tpu_torch.rag.config import RAGConfig
+
+    c = store.get("Deployment", "default", "rag").spec["template"]["spec"]["containers"][0]
+    env = {e["name"]: e["value"] for e in c["env"]}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg = RAGConfig.from_env()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    llm = store.get("RAGEngine", "default", "rag").spec.inference_service.url
+    one = {"nvidia.com/gpu": "1"}
+    if (c["command"][:3] != ["python", "-m", "kaito_tpu_torch.rag.app"]
+            or c["resources"] != {"requests": one, "limits": one}
+            or cfg.llm_inference_url != llm or cfg.embedding_model_id != _TINYLLAMA):
+        raise SmokeFailure(f"{label}: the RAGEngine rendered {c['command']}, "
+                           f"{c['resources']}, env {env}")
+    log(f"{label}: the RAGEngine on a3-highgpu-1g runs {c['command']} on "
+        f"{c['resources']['limits']}; its env reads into LLM URL {cfg.llm_inference_url}, "
+        f"embedder {cfg.embedding_model_id}")
+    return dict(command=c["command"], resources=c["resources"], llm=cfg.llm_inference_url)
+
+
+def run_manager_phase(label) -> tuple[dict, dict]:
+    """Phase 20: the port's operator closes its loop on the card.  The
+    port's ``Manager`` (gates :data:`_MANAGER_GATES`) over the in-memory
+    store, with the Karpenter provisioner over ``FakeCloud`` (nodes only:
+    no fake kubelet), its metrics server on 127.0.0.1:0, its fleet plane
+    scraping every :data:`_MANAGER_INTERVAL_S` s under
+    :data:`_MANAGER_FLEET`.  An InferenceSet of the catalog's TinyLlama
+    on ``a3-highgpu-1g`` (int8 by annotation, phase 18's config map), one
+    replica, autoscaling 1-2 (:data:`_MANAGER_AUTOSCALE`).  Resynced until
+    the child Workspace's StatefulSet is rendered; its engine container
+    (command, env, resources) and node selector must equal phase 18's
+    Workspace's, names apart.  The phase serves that pod as phase 18 does
+    (weights written and streamed again), sets the fleet's scrape-URL
+    annotation on the child to the server, and marks the StatefulSet
+    ready once ``/health`` (the rendered readiness probe) answers 200.
+    One 64-token chat alone (K2; the windows captured), then idle: two
+    scrapes or more, the signal nominal, ``spec.replicas`` 1, and the
+    fleet's folded :data:`_FLEET_HELD` equal to the server's own
+    ``/metrics``.  Then :data:`_MANAGER_BURST` clients chat 64 tokens in
+    a loop until the second child's StatefulSet is rendered: the signal
+    must leave nominal within ``sustain_s + 4 * interval`` of the burst,
+    the autoscaler take ``spec.replicas`` to 2, and the second child's pod
+    equal the first's, names apart (it is not served).  After it: every
+    enabled controller counted ``result="ok"`` reconciles on the
+    manager's ``/metrics`` and none ``"error"``, the fleet's gauges are in
+    that exposition, K1-K4 launched and K1q/K5 did not; the host-only
+    checks of :func:`_check_epp_gate` and :func:`_check_rag`.  Every thread
+    and server the phase starts is stopped.  Returns (launches,
+    statistics)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.api import (InferenceSet, InferenceSetSpec, InferenceSpec,
+                                     ObjectMeta, ResourceSpec)
+    from kaito_tpu_torch.api.inferenceset import AutoscalePolicy, WorkspaceTemplate
+    from kaito_tpu_torch.controllers.manager import Manager
+    from kaito_tpu_torch.controllers.metrics import start_manager_server
+    from kaito_tpu_torch.controllers.runtime import Store, update_with_retry
+    from kaito_tpu_torch.engine.model import TransformerLM
+    from kaito_tpu_torch.engine.server import start_server
+    from kaito_tpu_torch.models.hub import install_default_fetcher
+    from kaito_tpu_torch.models.registry import get_model_by_name
+    from kaito_tpu_torch.provision import FakeCloud
+    from kaito_tpu_torch.runtime.fleet import (ANNOTATION_SCRAPE_URL, FleetPolicy,
+                                               parse_replica_metrics)
+    from kaito_tpu_torch.utils.promtext import parse_exposition, parse_labels
+
+    t_leg = time.perf_counter()
+    offline = os.environ.get("HF_HUB_OFFLINE")
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    root = tempfile.mkdtemp(prefix="kaito-manager-")
+    name, key = "tinyllama", ("InferenceSet", "default", "tinyllama")
+    stats: dict = dict(policy=dict(fleet=dict(_MANAGER_FLEET, interval_s=_MANAGER_INTERVAL_S),
+                                   autoscale=_MANAGER_AUTOSCALE, gates=_MANAGER_GATES,
+                                   burst=_MANAGER_BURST))
+    mgr = msrv = server = engine = weights = None
+    stop_burst = threading.Event()
+    clients: list = []
+    with _loopback_only() as refused:
+        try:
+            install_default_fetcher()
+            stats["epp_gate"] = _check_epp_gate(label)
+            want = render_startup_workspace(label)
+            store = Store()
+            cloud = FakeCloud(store, kubelet=False)
+            mgr = Manager(store=store, feature_gates=_MANAGER_GATES)
+            mgr.fleet.policy = FleetPolicy(**_MANAGER_FLEET)
+            mgr.fleet.interval_s = _MANAGER_INTERVAL_S
+            msrv = start_manager_server(mgr.metrics, host="127.0.0.1", port=0,
+                                        fleet=mgr.fleet)
+            murl = f"http://127.0.0.1:{msrv.server_address[1]}"
+            log(f"{label}: gates {_MANAGER_GATES}; fleet {mgr.fleet.policy.to_dict()}, "
+                f"interval {mgr.fleet.interval_s} s, freshness {mgr.fleet.freshness_s} s; "
+                f"autoscale {_MANAGER_AUTOSCALE}; manager on {murl}")
+            store.create(InferenceSet(ObjectMeta(name=name), InferenceSetSpec(
+                replicas=1, autoscale=AutoscalePolicy(**_MANAGER_AUTOSCALE),
+                template=WorkspaceTemplate(
+                    resource=ResourceSpec(instance_type="a3-highgpu-1g"),
+                    inference=InferenceSpec(preset=_TINYLLAMA, config="inference-config"),
+                    annotations={"kaito-tpu.io/quantization": "int8"}))))
+            served = {"url": None, "ready": False}
+
+            def turn():
+                """One control-plane turn: resync, the cloud's nodes, and
+                the kubelet's part for the served replica."""
+                mgr.resync()
+                cloud.tick()
+                if served["url"] and not served["ready"]:
+                    ss = store.get("StatefulSet", "default", f"{name}-0")
+                    probe = ss.spec["template"]["spec"]["containers"][0][
+                        "readinessProbe"]["httpGet"]["path"]
+                    if _get(served["url"] + probe)[0] == 200:
+                        def ready(o):
+                            o.status["readyReplicas"] = 1
+                        update_with_retry(store, "StatefulSet", "default", f"{name}-0",
+                                          ready)
+                        served["ready"] = True
+
+            for _ in range(12):
+                turn()
+                if store.try_get("StatefulSet", "default", f"{name}-0") is not None:
+                    break
+            else:
+                raise SmokeFailure(f"{label}: no StatefulSet for {name}-0")
+            first = _pod_of(store, f"{name}-0")
+            c = first["container"]
+            env = {e["name"]: e["value"] for e in c["env"] if "value" in e}
+            phase18 = json.loads(json.dumps(want).replace("tinyllama", "<set>"))
+            if (c["command"] != phase18["command"] or env != phase18["env"]
+                    or c["resources"] != phase18["resources"]
+                    or first["node_selector"] != phase18["node_selector"]):
+                raise SmokeFailure(f"{label}: the set's child renders {c['command']}, "
+                                   f"{env}, {c['resources']}, {first['node_selector']}; "
+                                   f"phase 18's Workspace {phase18}")
+            log(f"{label}: {name}-0 renders phase 18's pod, names apart: {c['command']}")
+
+            arch = get_model_by_name(_TINYLLAMA).arch
+            src = TransformerLM(arch, dtype=torch.bfloat16, device="cuda")
+            src.init_params(seed=0)
+            t0 = time.perf_counter()
+            stats["checkpoint_bytes"] = _hf_checkpoint(src, root)
+            stats["checkpoint_write_s"] = time.perf_counter() - t0
+            del src
+            _release_card(torch)
+            weights, wurl, _ = _range_server(root)
+            conf = os.path.join(root, "inference_config.yaml")
+            with open(conf, "w") as f:
+                f.write(_STARTUP_CONFIG)
+            port = _free_port()
+            base = f"http://127.0.0.1:{port}"
+            for kname in (*_STARTUP_COUNTED, *_STARTUP_ABSENT):
+                fn, attr = _counter(kname)
+                setattr(fn, attr, 0)
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            t0 = time.perf_counter()
+            try:
+                server, _ = start_server(_serve_argv(c["command"], port, conf, wurl))
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            stats["load_s"] = time.perf_counter() - t0
+            engine = server.state.engine
+            threading.Thread(target=server.serve_forever, daemon=True,
+                             name="phase20-replica").start()
+
+            def annotate(o):
+                o.metadata.annotations[ANNOTATION_SCRAPE_URL] = base
+            update_with_retry(store, "Workspace", "default", f"{name}-0", annotate)
+            served["url"] = base
+            _create_rag(store, name)
+            mgr.fleet.start()
+            deadline = time.monotonic() + 30
+            while store.get("InferenceSet", "default", name).status.ready_replicas < 1:
+                if time.monotonic() > deadline:
+                    raise SmokeFailure(f"{label}: the set never counted its replica ready")
+                turn()
+                time.sleep(0.1)
+            # the RAGEngine's Deployment marked ready as the fake kubelet
+            # marks one: no RAG pod runs in this phase
+            def rag_ready(o):
+                o.status["readyReplicas"] = 1
+            update_with_retry(store, "Deployment", "default", "rag", rag_ready)
+            log(f"{label}: served {name}-0 at {base} (checkpoint written in "
+                f"{stats['checkpoint_write_s']:.1f} s, loaded in {stats['load_s']:.1f} s); "
+                f"StatefulSet ready after /health answered")
+
+            stats["alone"] = _timed_chat(base, _prompt(170, 40), 64)
+            log(f"{label}: one chat alone: {stats['alone']}")
+
+            def fleet_sample():
+                """The fleet's last sample of the served replica, and its age."""
+                snap = mgr.fleet.snapshot()["fleet"].get("InferenceSet/default/" + name)
+                rep = (snap or {}).get("replicas", {}).get(f"{name}-0") or {}
+                return rep.get("values", {}), rep.get("age_s")
+
+            def direct():
+                return parse_replica_metrics(_get(base + "/metrics")[1].decode())
+
+            uptimes, held = set(), None
+            deadline = time.monotonic() + 20
+            while time.monotonic() < deadline:
+                turn()
+                vals, _ = fleet_sample()
+                if "uptime_s" in vals:
+                    uptimes.add(vals["uptime_s"])
+                sig = mgr.fleet.signal(key)
+                if len(uptimes) >= 3 and sig is not None:
+                    d = direct()
+                    vals, _ = fleet_sample()
+                    pair = {k: (vals.get(k), d.get(k)) for k in _FLEET_HELD}
+                    if all(a == b for a, b in pair.values()):
+                        held = pair
+                        break
+                time.sleep(0.25)
+            sig = mgr.fleet.signal(key)
+            live = store.get("InferenceSet", "default", name)
+            stats["idle"] = dict(scrapes=len(uptimes), held=held,
+                                 state=sig[0] if sig else None,
+                                 replicas=live.spec.replicas)
+            if held is None or sig is None or sig[0] != "nominal" or live.spec.replicas != 1:
+                raise SmokeFailure(f"{label}: idle: {stats['idle']}, fleet "
+                                   f"{fleet_sample()[0]}, direct {direct()}")
+            log(f"{label}: idle after {len(uptimes)} scrapes: signal {sig[0]}, "
+                f"spec.replicas 1; fleet against /metrics (fleet, direct): {held}")
+
+            failures = []
+
+            def client(i):
+                n = 0
+                while not stop_burst.is_set():
+                    try:
+                        _timed_chat(base, _prompt(90 + 10 * (i % 8), 1000 + 97 * i + n), 64)
+                    except Exception as e:   # counted; the phase fails on any
+                        failures.append(repr(e))
+                        return
+                    n += 1
+
+            transitions = [(0.0, sig[0])]
+            samples = []
+            marks: dict = {}
+            t_burst = time.perf_counter()
+            clients[:] = [threading.Thread(target=client, args=(i,), name=f"phase20-{i}")
+                          for i in range(_MANAGER_BURST)]
+            for t in clients:
+                t.start()
+            last_log = -1.0
+            while True:
+                now = time.perf_counter() - t_burst
+                if now > 60:
+                    raise SmokeFailure(f"{label}: no second replica 60 s into the burst: "
+                                       f"transitions {transitions}, marks {marks}")
+                turn()
+                sig = mgr.fleet.signal(key)
+                if sig is not None and sig[0] != transitions[-1][1]:
+                    transitions.append((now, sig[0]))
+                    log(f"{label}: +{now:.2f} s signal {sig[0]} ({sig[2].reason}: "
+                        f"{sig[2].message}; recommended {sig[2].recommended_replicas})")
+                live = store.get("InferenceSet", "default", name)
+                if live.spec.replicas >= 2 and "replicas_2" not in marks:
+                    marks["replicas_2"] = now
+                    log(f"{label}: +{now:.2f} s spec.replicas {live.spec.replicas}")
+                if store.try_get("Workspace", "default", f"{name}-1") is not None:
+                    marks.setdefault("child_1", now)
+                if store.try_get("StatefulSet", "default", f"{name}-1") is not None:
+                    marks["child_1_rendered"] = now
+                    break
+                if now - last_log >= 1.0:
+                    last_log = now
+                    vals, age = fleet_sample()
+                    d = direct()
+                    row = dict(t=round(now, 2), age_s=age, state=sig[0] if sig else None,
+                               fleet={k: vals.get(k) for k in _FLEET_HELD[:5]},
+                               direct={k: d.get(k) for k in _FLEET_HELD[:5]})
+                    samples.append(row)
+                    log(f"{label}: {row}")
+                time.sleep(0.25)
+            stop_burst.set()
+            for t in clients:
+                t.join(timeout=120)
+            if failures or any(t.is_alive() for t in clients):
+                raise SmokeFailure(f"{label}: burst chats failed: {failures[:3]}")
+            stats.update(transitions=transitions, samples=samples, marks=marks)
+            left = next((t for t, st in transitions if st != "nominal"), None)
+            window = _MANAGER_FLEET["sustain_s"] + 4 * _MANAGER_INTERVAL_S
+            if left is None or left > window:
+                raise SmokeFailure(f"{label}: the signal left nominal at {left} s, "
+                                   f"window {window} s: {transitions}")
+            second = _pod_of(store, f"{name}-1")
+            first = _pod_of(store, f"{name}-0")
+            if second != first:
+                raise SmokeFailure(f"{label}: {name}-1 renders {second}, {name}-0 {first}")
+            log(f"{label}: burst of {_MANAGER_BURST}: signal left nominal at +{left:.2f} s "
+                f"(window {window} s), spec.replicas 2 at +{marks['replicas_2']:.2f} s, "
+                f"{name}-1 rendered at +{marks['child_1_rendered']:.2f} s, its pod equal "
+                f"to {name}-0's, names apart")
+
+            turn()
+            stats["rag"] = _check_rag(label, store)
+            text = _get(murl + "/metrics")[1].decode()
+            counts: dict = {}
+            for mname, lab, v in parse_exposition(text):
+                if mname == "kaito:controller_reconcile_total":
+                    lb = parse_labels(lab)
+                    counts.setdefault(lb["controller"], {})[lb["result"]] = v
+            stats["reconciles"] = counts
+            missing = [ctl for ctl in _MANAGER_CONTROLLERS
+                       if counts.get(ctl, {}).get("ok", 0) <= 0]
+            errors = {ctl: r["error"] for ctl, r in counts.items() if r.get("error")}
+            gauges = {mname for mname, lab, _ in parse_exposition(text)
+                      if mname.startswith("kaito:fleet_") and f'name="{name}"' in lab}
+            stats["fleet_gauges"] = sorted(gauges)
+            if missing or errors or not {"kaito:fleet_signal_state",
+                                         "kaito:fleet_queue_depth",
+                                         "kaito:fleet_replicas_reporting"} <= gauges:
+                raise SmokeFailure(f"{label}: reconciles {counts}, fleet gauges "
+                                   f"{sorted(gauges)}")
+            log(f"{label}: reconciles by controller and result {counts}; "
+                f"{len(gauges)} kaito:fleet_* families for the set")
+            torch.cuda.synchronize()
+            launches = {k: getattr(*_counter(k)) for k in _STARTUP_COUNTED}
+            stray = {k: getattr(*_counter(k)) for k in _STARTUP_ABSENT}
+            if any(stray.values()) or not all(launches.values()):
+                raise SmokeFailure(f"{label}: launches {launches}, absent {stray}")
+            log(f"{label}: launches {launches}; {stray} (none); names the fleet could "
+                f"not resolve: {sorted(set(refused))}")
+            stats["unresolved"] = sorted(set(refused))
+        finally:
+            stop_burst.set()
+            for t in clients:
+                t.join(timeout=120)
+            if offline is None:
+                os.environ.pop("HF_HUB_OFFLINE", None)
+            else:
+                os.environ["HF_HUB_OFFLINE"] = offline
+            if mgr is not None:
+                mgr.fleet.stop()
+            if msrv is not None:
+                msrv.shutdown()
+                msrv.server_close()
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+                engine.stop()
+            if weights is not None:
+                weights.shutdown()
+                weights.server_close()
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline and any(
+                    t.name.startswith(_MANAGER_THREADS) for t in threading.enumerate()):
+                time.sleep(0.05)
+            shutil.rmtree(root, ignore_errors=True)
+    left = sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith(_MANAGER_THREADS + ("phase20-",)))
+    if left:
+        raise SmokeFailure(f"{label}: threads left running: {left}")
+    del server, engine, mgr
+    _release_card(torch)
+    stats["phase_s"] = time.perf_counter() - t_leg
+    return launches, stats
+
+
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
                   "flash_prefill_attention", "flash_prefill_packed")
 # the server legs of phases 4-8: (name for --leg, label, model, server
@@ -7639,7 +8149,7 @@ def main(argv=None) -> int:
                         ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0],
                         DEVPROF_LEG[0], OFFLOAD_LEG[0], PD_LEG[0], TRAIN_LEG[0],
                         TRAIN_EXACT_LEG[0], RAG_LEG[0], RAG_EXACT_LEG[0],
-                        STARTUP_LEG[0]],
+                        STARTUP_LEG[0], MANAGER_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -7950,6 +8460,23 @@ def main(argv=None) -> int:
                     f"{leg}: weights x{r['weight_ratio']:.4f}, KV tokens "
                     f"x{r['kv_ratio']:.4f}" for leg, r in stats[SKU_LABEL]["legs"].items())
                     + f"; {stats[SKU_LABEL]['phase_s']:.1f} s")
+            if args.leg in (None, MANAGER_LEG[0]) and not args.first_leg_only:
+                name, label = MANAGER_LEG
+                _phase_start(torch, label, deep=False)
+                launches, stats[label] = run_manager_phase(label)
+                _phase_start(torch, f"after {label}", deep=False)
+                if not alone:
+                    for kname, n in launches.items():
+                        wide = next((w for w in WIDE_COUNTERS if w[0] == kname), None)
+                        key = "launches_wide_by_leg" if wide else "launches_by_leg"
+                        records[wide[1] if wide else kname].setdefault(
+                            key, {})[label] = n
+                s = stats[label]
+                log(f"{label} on {card}: signal out of nominal +"
+                    f"{next(t for t, st in s['transitions'] if st != 'nominal'):.2f} s, "
+                    f"spec.replicas 2 +{s['marks']['replicas_2']:.2f} s, second child "
+                    f"rendered +{s['marks']['child_1_rendered']:.2f} s after the burst; "
+                    f"load {s['load_s']:.1f} s; {s['phase_s']:.1f} s")
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

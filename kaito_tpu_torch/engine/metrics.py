@@ -49,6 +49,11 @@ class Counter:
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def value(self, **labels) -> float:
+        key = tuple(str(labels.get(l, "")) for l in self.label_names)
+        with self._lock:
+            return self._values.get(key, 0.0)
+
     def collect(self) -> Iterable[str]:
         with self._lock:
             values = sorted(self._values.items())
@@ -92,6 +97,12 @@ class Gauge:
                 self._values[key] = float(v)
         else:
             self.value = float(v)
+
+    def clear(self) -> None:
+        """Drop every stored series (per-CR gauges are rebuilt from a
+        full listing each resync, so deleted objects must not linger)."""
+        with self._lock:
+            self._values.clear()
 
     def collect(self) -> Iterable[str]:
         yield f"# HELP {self.name} {self.help}"

@@ -1,8 +1,10 @@
-"""The controller layer's Kubernetes pieces: event recording
-(``events.py``).  The wire codec, the REST client and the Store adapter
-that speaks to an API server (``kaito_tpu.k8s.{codec,client,store}``)
-are not ported yet (ROADMAP queue 1, item 1)."""
+"""Real-cluster backend: wire codec, REST client, and a Store adapter
+speaking the Kubernetes API (the counterpart of the reference's
+controller-runtime client + pkg/k8sclient singletons).  A copy of
+``kaito_tpu.k8s``."""
 
-from kaito_tpu_torch.k8s.events import EventRecorder, record_event
+from kaito_tpu_torch.k8s.client import KubeClient
+from kaito_tpu_torch.k8s.codec import from_wire, to_wire
+from kaito_tpu_torch.k8s.store import KubeStore
 
-__all__ = ["EventRecorder", "record_event"]
+__all__ = ["KubeClient", "KubeStore", "from_wire", "to_wire"]

@@ -6,15 +6,13 @@ The in-process analogue of client-go's EventRecorder + correlator
 transitions, the recorder dedupes identical events into one entry with
 a bumped ``count`` (the aggregation ``kubectl get events`` shows as
 ``x12``), keeps a bounded in-memory ring (the sink tests and the fake
-store read), and — when constructed with a sink (anything with an
-``emit(event)`` method) — mirrors each emission to it.
+store read), and — when constructed with a ``KubeEventSink`` — mirrors
+each emission to the API server as a ``v1.Event``.
 
 Event emission is strictly best-effort: a recorder failure must never
 fail a reconcile, so every sink error is swallowed into a debug log.
 
-A copy of ``kaito_tpu.k8s.events`` without its ``KubeEventSink``, the
-sink that writes ``v1.Event`` objects to the API server: it comes with
-the port's ``k8s/client.py`` (ROADMAP queue 1, item 1).
+A copy of ``kaito_tpu.k8s.events``.
 """
 
 from __future__ import annotations
@@ -82,7 +80,7 @@ class Event:
 class EventRecorder:
     """Deduplicating bounded recorder; optionally mirrors to a sink."""
 
-    def __init__(self, sink=None,
+    def __init__(self, sink: "Optional[KubeEventSink]" = None,
                  capacity: int = DEFAULT_CAPACITY):
         self.sink = sink
         self.capacity = max(1, int(capacity))
@@ -145,6 +143,47 @@ class EventRecorder:
     def __len__(self) -> int:
         with self._lock:
             return len(self._events)
+
+
+class KubeEventSink:
+    """Mirrors recorded events to the API server.
+
+    First occurrence POSTs the ``v1.Event``; repeats PUT the same
+    (stable-named) object with the bumped count, the way client-go's
+    correlator patches the existing Event instead of flooding etcd.
+    """
+
+    def __init__(self, client, namespace: str = "default",
+                 component: str = "kaito-tpu-manager"):
+        self.client = client
+        self.namespace = namespace
+        self.component = component
+
+    def emit(self, ev: Event) -> None:
+        from kaito_tpu_torch.k8s.client import ApiError
+
+        wire = ev.to_wire(self.namespace, self.component)
+        ns = wire["metadata"]["namespace"]
+        base = f"/api/v1/namespaces/{ns}/events"
+        try:
+            if ev.count > 1:
+                self.client.request_json(
+                    "PUT", f"{base}/{wire['metadata']['name']}", body=wire)
+            else:
+                self.client.request_json("POST", base, body=wire)
+        except ApiError as e:
+            # count drifted vs the server (restart, races): converge by
+            # the opposite verb, then give up quietly
+            try:
+                if e.status == 404:
+                    self.client.request_json("POST", base, body=wire)
+                elif e.status == 409:
+                    self.client.request_json(
+                        "PUT", f"{base}/{wire['metadata']['name']}",
+                        body=wire)
+            except ApiError:
+                logger.debug("event write failed: %s", ev.reason,
+                             exc_info=True)
 
 
 def record_event(store, obj, etype: str, reason: str, message: str) -> None:

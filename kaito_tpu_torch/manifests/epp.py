@@ -1,0 +1,122 @@
+"""Endpoint-picker (EPP) workload rendering.
+
+Both controllers render an InferencePool whose ``extensionRef`` names
+``<cr>-epp``; these helpers render the Deployment + Service that make
+the ref resolve (docs/routing.md).  The picker is the in-repo
+``kaito_tpu.runtime.epp`` service: the backend set is passed as
+``--backend url[=role[/group]]`` args, recomputed by the owning
+reconciler whenever replicas come and go (the in-miniature analogue of
+the GAIE EPP watching pods behind the pool selector).
+
+A copy of ``kaito_tpu.manifests.epp``.  The picker runs from the JAX
+engine's image, the one engine package that ships it: a catalog entry
+whose ``runtime_modules`` lacks ``"epp"`` (the GPU entries, until the
+port's ``runtime/epp.py`` lands) gets no picker, and
+:func:`epp_missing_reason` says why.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+from kaito_tpu_torch.api.meta import ObjectMeta
+from kaito_tpu_torch.controllers.objects import Unstructured
+from kaito_tpu_torch.manifests.core import generate_service
+from kaito_tpu_torch.sku.catalog import TPU_IMAGE, TPUChipSpec
+
+EPP_PORT = 5000
+LABEL_EPP = "kaito-tpu.io/epp"
+
+
+def epp_missing_reason(chip: TPUChipSpec) -> Optional[str]:
+    """Why a set served on ``chip`` can have no endpoint picker (None
+    when its engine package ships one)."""
+    if "epp" in chip.runtime_modules:
+        return None
+    return (f"the endpoint picker (runtime/epp.py) is not in "
+            f"{chip.engine_package} yet (ROADMAP queue 1, item 2: the "
+            f"runtime services); turn gatewayAPIInferenceExtension off "
+            f"for {chip.family} sets")
+
+
+def build_epp_command(backends: list[str], *,
+                      plugins_config: Optional[dict] = None,
+                      block_chars: int = 0,
+                      draining: Optional[list[str]] = None,
+                      kv_pool: bool = False,
+                      adapter_affinity: bool = False) -> list[str]:
+    """The container command: one ``--backend`` per replica spec
+    (``url[=role[/group]]``), the plugin chain inline as JSON, and one
+    ``--drain-backend`` per replica the autoscaler is retiring (the
+    picker keeps relaying its in-flight work but stops scoring it).
+    ``kv_pool`` mirrors the engines' ``kaito-tpu.io/kv-pool``
+    annotation: the picker scrapes holder adverts and emits fetch
+    hints only when the replicas actually publish (docs/kv-pool.md).
+    ``adapter_affinity`` mirrors ``kaito-tpu.io/adapters`` the same
+    way: resident-adapter adverts are only worth scraping when the
+    replicas run the adapter cache (docs/multi-lora.md)."""
+    cmd = ["python", "-m", "kaito_tpu.runtime.epp",
+           "--port", str(EPP_PORT)]
+    for spec in backends:
+        cmd += ["--backend", spec]
+    for url in draining or []:
+        cmd += ["--drain-backend", url]
+    if plugins_config:
+        cmd += ["--plugins-config",
+                json.dumps(plugins_config, sort_keys=True)]
+    if block_chars:
+        cmd += ["--block-chars", str(block_chars)]
+    if kv_pool:
+        cmd += ["--kv-pool"]
+    if adapter_affinity:
+        cmd += ["--adapter-affinity"]
+    return cmd
+
+
+def generate_epp_workload(name: str, namespace: str, *,
+                          backends: list[str],
+                          owner: Optional[dict] = None,
+                          plugins_config: Optional[dict] = None,
+                          draining: Optional[list[str]] = None,
+                          kv_pool: bool = False,
+                          adapter_affinity: bool = False,
+                          image: str = TPU_IMAGE) -> list:
+    """Render the ``<name>`` (conventionally ``<cr>-epp``) Deployment +
+    Service the InferencePool's extensionRef resolves to."""
+    labels = {LABEL_EPP: name}
+    owners = [owner] if owner else []
+    deploy = Unstructured(
+        "Deployment",
+        ObjectMeta(name=name, namespace=namespace, labels=dict(labels),
+                   owner_references=list(owners)),
+        spec={
+            "replicas": 1,
+            "selector": {"matchLabels": dict(labels)},
+            "template": {
+                "metadata": {"labels": dict(labels)},
+                "spec": {
+                    "containers": [{
+                        "name": "epp",
+                        "image": image,
+                        "command": build_epp_command(
+                            backends, plugins_config=plugins_config,
+                            draining=draining, kv_pool=kv_pool,
+                            adapter_affinity=adapter_affinity),
+                        "ports": [{"containerPort": EPP_PORT}],
+                        "readinessProbe": {
+                            "httpGet": {"path": "/router/stats",
+                                        "port": EPP_PORT},
+                            "periodSeconds": 5,
+                        },
+                        "resources": {
+                            "requests": {"cpu": "500m", "memory": "1Gi"},
+                        },
+                    }],
+                },
+            },
+        })
+    svc = generate_service(name, namespace, labels, port=EPP_PORT,
+                           labels=labels)
+    svc.metadata.owner_references = list(owners)
+    return [deploy, svc]

@@ -9,7 +9,9 @@ the collectives; here :meth:`PartitionRules.spec` returns a plain tuple
 of mesh-axis names (``None`` for a replicated dim), which
 ``engine.model.shard_params`` uses to cut a full tree into per-device
 shards, and the model calls the collectives itself.  The training rules
-are left out: tuning is not ported.
+(the JAX package's ``TRAIN_RULES``) are left out: the port's trainer
+(``tuning/``) runs on one card, and its mesh waits for them (ROADMAP
+queue 1, item 4).
 """
 
 from __future__ import annotations

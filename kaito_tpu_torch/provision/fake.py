@@ -6,7 +6,10 @@ fake topology/provisioner backend SURVEY.md §4 calls out as the
 reference's weakest testing area (its e2e needs a real cluster + GPU
 quota).  Supports failure injection per pool.
 
-A copy of ``kaito_tpu.provision.fake``.
+A copy of ``kaito_tpu.provision.fake``, plus ``kubelet=False``: nodes
+come up, workloads do not, so whoever serves a rendered pod marks its
+StatefulSet ready (``chip_smoke.py`` phase 20 does, once the served
+replica answers its readiness probe).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ class FakeCloud:
     store: Store
     provision_delay_ticks: int = 0       # ticks before nodes appear
     fail_pools: set = field(default_factory=set)  # pool names that never come up
+    kubelet: bool = True                 # False: workloads are never marked ready
     _pending: dict = field(default_factory=dict)
 
     def tick(self) -> None:
@@ -60,7 +64,12 @@ class FakeCloud:
                     continue
                 self.store.create(node(node_name, labels, ready=True))
 
-        # kubelet sim: StatefulSets/Jobs on ready nodes come up
+        if self.kubelet:
+            self._kubelet()
+        self._reclaim()
+
+    def _kubelet(self) -> None:
+        """StatefulSets/Jobs on ready nodes come up."""
         for ss in self.store.list("StatefulSet"):
             want = int(ss.spec.get("replicas", 1))
             if ss.status.get("readyReplicas", 0) < want:
@@ -88,7 +97,8 @@ class FakeCloud:
                 update_with_retry(self.store, "Job", job.metadata.namespace,
                                   job.metadata.name, mark)
 
-        # garbage-collect nodes of deleted pools (cloud reclaim)
+    def _reclaim(self) -> None:
+        """Garbage-collect nodes of deleted pools (cloud reclaim)."""
         pools = {p.metadata.name for p in self.store.list("NodePool")}
         for n in self.store.list("Node"):
             owner_pool = n.metadata.name.rsplit("-node-", 1)[0]

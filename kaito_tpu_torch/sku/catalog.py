@@ -96,8 +96,9 @@ class TPUChipSpec:
     engine_package: str = "kaito_tpu"        # python -m <package>.engine.server
     image: str = TPU_IMAGE
     # runtime modules the engine package ships beside its server
-    # (manifests: the HF fallback, the benchmark and health probes)
-    runtime_modules: tuple[str, ...] = ("hf_fallback", "benchmark_probe", "health")
+    # (manifests: the HF fallback, the benchmark and health probes; the
+    # controllers: the endpoint picker)
+    runtime_modules: tuple[str, ...] = ("hf_fallback", "benchmark_probe", "health", "epp")
     # False: a slice spans hosts, a pod takes every chip of its host
     # (GKE's TPU rule) and the JAX mesh env.  True: a slice is the
     # plan's devices of one host, which a pod requests (GPU plans are one

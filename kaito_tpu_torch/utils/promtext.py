@@ -23,6 +23,7 @@ SAMPLE_RE = re.compile(
     r"(-?(?:[0-9.]+(?:e[+-]?[0-9]+)?|inf|nan))$",
     re.IGNORECASE)
 _LE_RE = re.compile(r'le="([^"]*)"')
+_LABEL_RE = re.compile(r'([A-Za-z_][A-Za-z0-9_]*)="((?:[^"\\]|\\.)*)"')
 
 Sample = tuple  # (name, labels_str, value)
 
@@ -41,6 +42,16 @@ def parse_exposition(text: str) -> list[Sample]:
             raise ValueError(f"unparseable exposition line: {line!r}")
         samples.append((m.group(1), m.group(2) or "", float(m.group(3))))
     return samples
+
+
+def parse_labels(labels_str: str) -> dict[str, str]:
+    """``'{a="x",le="+Inf"}'`` -> ``{"a": "x", "le": "+Inf"}`` with the
+    writer's escapes (``\\\\``, ``\\"``, ``\\n``) undone."""
+    out: dict[str, str] = {}
+    for name, raw in _LABEL_RE.findall(labels_str or ""):
+        out[name] = (raw.replace("\\n", "\n").replace('\\"', '"')
+                     .replace("\\\\", "\\"))
+    return out
 
 
 def check_histograms(samples: list[Sample], require: bool = True) -> dict:

@@ -27,7 +27,9 @@ from __future__ import annotations
 import collections
 import re
 import threading
+import time
 import uuid
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Iterable, Optional
 
@@ -113,6 +115,19 @@ class RingTracer:
             if len(self._spans) == self._spans.maxlen:
                 self._dropped += 1
             self._spans.append(span)
+
+    @contextmanager
+    def span(self, name: str, trace_id: str, **attrs):
+        """Record the wrapped block as one span; an escaping exception
+        is noted in the attrs and re-raised."""
+        t0 = time.monotonic()
+        try:
+            yield attrs
+        except BaseException as e:
+            attrs["error"] = type(e).__name__
+            raise
+        finally:
+            self.record(name, trace_id, t0, time.monotonic() - t0, **attrs)
 
     def spans(self, trace_id: Optional[str] = None) -> list[Span]:
         """Snapshot, oldest first; optionally filtered to one trace."""

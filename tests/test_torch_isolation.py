@@ -56,7 +56,13 @@ def test_sources_found():
                 "parallel/plan.py", "controllers/objects.py", "controllers/runtime.py",
                 "controllers/workspace.py", "k8s/events.py", "provision/karpenter.py",
                 "provision/fake.py", "manifests/inference.py",
-                "manifests/tuning_job.py"):
+                "manifests/tuning_job.py", "k8s/codec.py", "k8s/client.py",
+                "k8s/store.py", "manifests/epp.py", "controllers/inferenceset.py",
+                "controllers/multiroleinference.py", "controllers/ragengine.py",
+                "controllers/modelmirror.py", "controllers/drift.py",
+                "controllers/autoupgrade.py", "controllers/webhook.py",
+                "controllers/metrics.py", "runtime/fleet.py",
+                "controllers/autoscaler.py", "controllers/manager.py"):
         assert PKG / mod in SOURCES, mod
 
 
