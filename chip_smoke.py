@@ -493,8 +493,51 @@ order; any failure exits non-zero and prints no result:
    did not.  Host only: a RAGEngine on ``a3-highgpu-1g`` renders the
    port's RAG app on one ``nvidia.com/gpu`` with an env the port's
    ``RAGConfig`` reads; a GPU InferenceSet under the Gateway API gate
-   renders nothing and names ROADMAP item 2.  Every thread and server
-   the phase started is gone at the next phase start, which is logged.
+   renders its InferencePool and the port's picker
+   (``kaito_tpu_torch.runtime.epp`` from the GPU image), no
+   ``EPPUnavailable``.  Every thread and server the phase started is
+   gone at the next phase start, which is logged.
+21. The runtime services (leg ``services-int8``), under the same refusal
+   of every name lookup but the loopback.  The port's manager (gates
+   ``enableInferenceSetController``, ``gatewayAPIInferenceExtension``)
+   renders phase 18's TinyLlama as an InferenceSet of two replicas on
+   ``a3-highgpu-1g``: each child's pod runs phase 18's command on one
+   ``nvidia.com/gpu`` with the port's benchmark probe as its startup
+   probe, and the pool's ``extensionRef`` names a Deployment running
+   ``kaito_tpu_torch.runtime.epp`` from the GPU image over both.  Two
+   replicas uncut (int8, phase 18's config file, ``--max-pages 512``
+   each, one checkpoint from seed 0 read from disk) served through
+   ``start_server`` from that command and env; the picker a child
+   process from the Deployment's command (its ``--backend`` URLs the
+   loopback ports), the round-robin ``dp_router`` another.  A chat on
+   each replica captures its windows, three admitted together on the
+   first launch K3.  Eight sessions (a 1536-char system prefix of
+   their own, four turns of 32 greedy tokens) through the picker: each
+   session's turns 2-4 reach its turn 1's replica (by the replicas'
+   request counters) and the picker counts 24 affinity hits; eight
+   fresh sessions through the round robin; the picker's share of
+   prompt tokens served from the prefix caches at least the round
+   robin's (each front's share and TTFT p50 logged).  The same prompt
+   on both replicas gives the same greedy tokens.  Replica B stopped:
+   eight requests through each front answer 200 from A and each
+   front's ``/metrics`` shows B's breaker not closed;
+   ``python -m kaito_tpu_torch.runtime.health --role leader`` exits 0
+   for A and 1 for B; ``python -m kaito_tpu_torch.runtime.benchmark_probe
+   --duration 10 --input-len 512 --output-len 64`` on A exits 0 with
+   ``generation_tokens > 0``.  K1, K2, K3 and K4 launched in the
+   replicas, K1q and K5 did not; each front, sent SIGTERM, drains and
+   exits 0.  Last, the HF fallback: GPT-2 at ``GPT2Config()``'s widths
+   (12 layers, 768 wide, 12 heads, vocab 50257) drawn from seed 0 on a
+   thread from the phase's start and saved locally (``safetensors``
+   where it imports), served as a child process from the command the
+   port's operator renders for its Workspace on ``a3-highgpu-1g``
+   (``kaito_tpu_torch.runtime.hf_fallback --device cuda`` on one
+   ``nvidia.com/gpu``; ``KAITO_OFFLINE=1``): ``/health`` names a CUDA
+   device, a 32-token chat and a 16-token SSE stream are answered, and
+   the port's fallback on the card gives the CPU's logits for 64 ids
+   within 1e-3.  Logged: each replica's pages and GiB, whether
+   ``safetensors`` and ``huggingface_hub`` import, the probe's result,
+   the fallback's load seconds and tok/s.
 
 Every phase start hands back the cuBLAS workspaces the phases before it
 left (one per stream a finished engine used, 32 MiB each) and logs what
@@ -518,7 +561,7 @@ and prints no result line either; nor does ``--leg NAME`` (one of
 ``families-bf16``, ``families-fp32``, ``devprof-bf16``, ``offload-bf16``,
 ``pd-bf16``, ``train-bf16``, ``train-fp32``, ``rag-bf16``, ``rag-fp32``,
 ``startup-int8``, which runs phase 19 after it on its one engine,
-``manager-int8``), which
+``manager-int8``, ``services-int8``), which
 builds the kernels and runs that server leg alone, phases 2 and 3
 skipped: with ``--profile``, the quickest reading of a leg's TTFT and of
 its quantized matmuls' device time per 200-token prefill, in one call
@@ -7211,6 +7254,41 @@ def _timed_chat(base, content, n) -> dict:
                 tok_s=(n - 1) / ((total_ms - ttft) / 1e3))
 
 
+def _chats_together(engine, base, prompts, n, label) -> tuple[list, int]:
+    """One streamed chat of ``n`` greedy tokens a prompt, all admitted by
+    ``engine`` in one scheduler step (a packed prefill: K3): the engine
+    admits nothing new until each has been queued.  (Each chat's
+    :func:`_timed_chat` reading, the packed prefill dispatches.)"""
+    results, errors = {}, []
+
+    def run(i):
+        try:
+            results[i] = _timed_chat(base, prompts[i], n)
+        except Exception as e:   # reported below; the phase fails
+            errors.append(repr(e))
+
+    packs = engine.counters["prefill_packed_steps_total"]
+    group = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    engine._admit_new = lambda: False     # admitted together
+    try:
+        for t in group:
+            queued = engine.counters["requests_total"]
+            t.start()
+            deadline = time.monotonic() + 60
+            while (engine.counters["requests_total"] == queued and t.is_alive()
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+    finally:
+        del engine._admit_new
+        engine._wake.set()
+    for t in group:
+        t.join(timeout=300)
+    if errors or len(results) != len(prompts):
+        raise SmokeFailure(f"{label}: concurrent chats failed: {errors}")
+    return ([results[i] for i in range(len(prompts))],
+            engine.counters["prefill_packed_steps_total"] - packs)
+
+
 def render_startup_workspace(label) -> dict:
     """The port's operator on phase 18's Workspace: the catalog's
     TinyLlama on ``a3-highgpu-1g`` with ``kaito-tpu.io/quantization:
@@ -7449,35 +7527,8 @@ def run_startup_phase(label) -> tuple[dict, dict]:
         stats["tree_tensors_equal"] = n_tensors
 
         stats["alone"] = _timed_chat(base, _prompt(170, 40), 64)
-        results, errors = {}, []
-
-        def run(i):
-            try:
-                results[i] = _timed_chat(base, _prompt(90 + 10 * i, 41 + i), 64)
-            except Exception as e:   # reported below; the phase fails
-                errors.append(repr(e))
-
-        packs = engine.counters["prefill_packed_steps_total"]
-        group = [threading.Thread(target=run, args=(i,)) for i in range(3)]
-        engine._admit_new = lambda: False     # the three are admitted together
-        try:
-            for t in group:
-                queued = engine.counters["requests_total"]
-                t.start()
-                deadline = time.monotonic() + 60
-                while (engine.counters["requests_total"] == queued and t.is_alive()
-                       and time.monotonic() < deadline):
-                    time.sleep(0.001)
-        finally:
-            del engine._admit_new
-            engine._wake.set()
-        for t in group:
-            t.join(timeout=300)
-        if errors or len(results) != 3:
-            raise SmokeFailure(f"{label}: concurrent chats failed: {errors}")
-        stats["together"] = [results[i] for i in range(3)]
-        stats["packed_prefill_dispatches"] = (
-            engine.counters["prefill_packed_steps_total"] - packs)
+        stats["together"], stats["packed_prefill_dispatches"] = _chats_together(
+            engine, base, [_prompt(90 + 10 * i, 41 + i) for i in range(3)], 64, label)
 
         status, page = _get(f"{base}/ui")
         if status != 200 or page != PAGE.encode():
@@ -7651,18 +7702,18 @@ def _pod_of(store, name) -> dict:
 
 def _check_epp_gate(label) -> dict:
     """Host only: a GPU InferenceSet under the Gateway API gate, in a
-    manager of its own, renders no child, pool or picker, and its
-    condition names ROADMAP queue 1, item 2 (the port has no
-    ``runtime/epp.py`` yet)."""
+    manager of its own, renders its InferencePool and the port's picker
+    (``kaito_tpu_torch.runtime.epp`` from the GPU image, one
+    ``--backend`` for its replica) and no ``EPPUnavailable``."""
     from kaito_tpu_torch.api import (InferenceSet, InferenceSetSpec, InferenceSpec,
                                      ObjectMeta, ResourceSpec)
     from kaito_tpu_torch.api.inferenceset import WorkspaceTemplate
     from kaito_tpu_torch.controllers.manager import Manager
     from kaito_tpu_torch.controllers.runtime import Store
+    from kaito_tpu_torch.sku.catalog import GPU_IMAGE
 
     store = Store()
-    mgr = Manager(store=store, feature_gates="enableInferenceSetController=true,"
-                  "gatewayAPIInferenceExtension=true")
+    mgr = Manager(store=store, feature_gates=_SERVICES_GATES)
     store.create(InferenceSet(ObjectMeta(name="gw"), InferenceSetSpec(
         replicas=1, template=WorkspaceTemplate(
             resource=ResourceSpec(instance_type="a3-highgpu-1g"),
@@ -7670,14 +7721,18 @@ def _check_epp_gate(label) -> dict:
     mgr.resync()
     live = store.get("InferenceSet", "default", "gw")
     cond = next(c for c in live.status.conditions if c.type == "InferenceSetReady")
-    rendered = [k for k in ("Workspace", "InferencePool", "Deployment") if store.list(k)]
-    if (cond.status, cond.reason) != ("False", "EPPUnavailable") \
-            or "item 2" not in cond.message or rendered:
+    pool = store.try_get("InferencePool", "default", "gw-pool")
+    dep = store.try_get("Deployment", "default", "gw-epp")
+    c = dep.spec["template"]["spec"]["containers"][0] if dep is not None else {}
+    if (cond.reason == "EPPUnavailable" or pool is None
+            or pool.spec["extensionRef"]["name"] != "gw-epp"
+            or c.get("command", [])[:3] != _EPP_MODULE or c.get("image") != GPU_IMAGE
+            or c["command"].count("--backend") != 1):
         raise SmokeFailure(f"{label}: a GPU set under the Gateway API gate: {cond}; "
-                           f"rendered {rendered}")
-    log(f"{label}: a GPU InferenceSet under gatewayAPIInferenceExtension: "
-        f"{cond.reason}: {cond.message}")
-    return dict(status=cond.status, reason=cond.reason, message=cond.message)
+                           f"pool {pool and pool.spec}; picker {c}")
+    log(f"{label}: a GPU InferenceSet under gatewayAPIInferenceExtension: {cond.reason}; "
+        f"its pool names gw-epp, which runs {c['command']} from {c['image']}")
+    return dict(reason=cond.reason, command=c["command"], image=c["image"])
 
 
 def _create_rag(store, iset_name) -> None:
@@ -8075,6 +8130,580 @@ def run_manager_phase(label) -> tuple[dict, dict]:
     return launches, stats
 
 
+SERVICES_LEG = ("services-int8", "phase 21, the runtime services: two TinyLlama replicas "
+                "behind the port's picker and round-robin front, failover, the health and "
+                "benchmark probes, the HF fallback on the card")
+_SERVICES_GATES = "enableInferenceSetController=true,gatewayAPIInferenceExtension=true"
+_EPP_MODULE = ["python", "-m", "kaito_tpu_torch.runtime.epp"]
+_SERVICES_PAGES = 512        # each replica's --max-pages (64-token pages): both on one card
+# affinity traffic: sessions of a system prefix of their own and turns of
+# greedy tokens; a prefix spans six 256-char picker blocks (page 64 x 4)
+_SESSIONS, _TURNS, _TURN_TOKENS, _SYSTEM_CHARS = 8, 4, 32, 1536
+_FAILOVER_REQUESTS = 8
+_GPT2 = "openai-community/gpt2"
+_GPT2_WIDTHS = (12, 768, 12, 50257)   # GPT2Config()'s n_layer, n_embd, n_head, vocab
+_FALLBACK_ATOL = 1e-3
+
+
+def render_services_set(label) -> dict:
+    """Host only: the port's manager (gates :data:`_SERVICES_GATES`) over
+    ``FakeCloud`` on phase 18's TinyLlama as an InferenceSet of two
+    replicas on ``a3-highgpu-1g`` (int8, phase 18's config map).  Each
+    child's engine container must run :data:`_STARTUP_COMMAND` on one
+    ``nvidia.com/gpu`` with the port's benchmark probe as its startup
+    probe; the pool's ``extensionRef`` names a Deployment running the
+    port's picker from the GPU image over the two replicas' Services,
+    and no ``EPPUnavailable`` is recorded.  Returns the child's command
+    and env and the picker's command."""
+    from kaito_tpu_torch.api import (InferenceSet, InferenceSetSpec, InferenceSpec,
+                                     ObjectMeta, ResourceSpec)
+    from kaito_tpu_torch.api.inferenceset import WorkspaceTemplate
+    from kaito_tpu_torch.controllers.manager import Manager
+    from kaito_tpu_torch.controllers.runtime import Store
+    from kaito_tpu_torch.provision import FakeCloud
+    from kaito_tpu_torch.sku.catalog import GPU_IMAGE
+
+    store = Store()
+    mgr = Manager(store=store, feature_gates=_SERVICES_GATES)
+    cloud = FakeCloud(store)
+    store.create(InferenceSet(ObjectMeta(name="tinyllama"), InferenceSetSpec(
+        replicas=2, template=WorkspaceTemplate(
+            resource=ResourceSpec(instance_type="a3-highgpu-1g"),
+            inference=InferenceSpec(preset=_TINYLLAMA, config="inference-config"),
+            annotations={"kaito-tpu.io/quantization": "int8"}))))
+    names = ("tinyllama-0", "tinyllama-1")
+    for _ in range(12):
+        mgr.resync()
+        cloud.tick()
+        if all(store.try_get("StatefulSet", "default", n) for n in names) \
+                and store.try_get("Deployment", "default", "tinyllama-epp"):
+            break
+    else:
+        raise SmokeFailure(f"{label}: the set rendered "
+                           f"{[(o.kind, o.metadata.name) for o in store.list('StatefulSet')]}")
+    pods = [store.get("StatefulSet", "default", n).spec["template"]["spec"]["containers"][0]
+            for n in names]
+    one = {"nvidia.com/gpu": "1"}
+    probe = ["python", "-m", "kaito_tpu_torch.runtime.benchmark_probe"]
+    for c in pods:
+        if (c["command"] != _STARTUP_COMMAND or c["resources"] != {"requests": one,
+                                                                   "limits": one}
+                or c["startupProbe"].get("exec", {}).get("command") != probe):
+            raise SmokeFailure(f"{label}: a replica renders {c['command']}, "
+                               f"{c['resources']}, startup probe {c['startupProbe']}")
+    ref = store.get("InferencePool", "default", "tinyllama-pool").spec["extensionRef"]["name"]
+    epp = store.get("Deployment", "default", ref).spec["template"]["spec"]["containers"][0]
+    backends = [epp["command"][i + 1] for i, a in enumerate(epp["command"]) if a == "--backend"]
+    if (epp["command"][:3] != _EPP_MODULE or epp["image"] != GPU_IMAGE
+            or backends != [f"http://{n}:5000" for n in names]
+            or store.events.events(reason="EPPUnavailable")):
+        raise SmokeFailure(f"{label}: the pool names {ref}, which runs {epp['command']} "
+                           f"from {epp['image']}")
+    log(f"{label}: the port's operator rendered two replicas of {pods[0]['command']} "
+        f"(startup probe {probe}) and {ref}: {epp['command']} from {epp['image']}")
+    return dict(command=pods[0]["command"],
+                env={e["name"]: e["value"] for e in pods[0]["env"] if "value" in e},
+                epp=epp["command"], image=epp["image"])
+
+
+def render_fallback_workspace(label, config) -> list:
+    """Host only: the port's ``WorkspaceReconciler`` on a Workspace of
+    :data:`_GPT2` (its config served by a fetcher of this phase's, as the
+    hub serves it) on ``a3-highgpu-1g``: a ``runtime: transformers``
+    preset, whose engine container must run the port's HF fallback with
+    ``--device cuda`` on one ``nvidia.com/gpu``.  Returns its command."""
+    from kaito_tpu_torch.api import InferenceSpec, ObjectMeta, ResourceSpec, Workspace
+    from kaito_tpu_torch.controllers.runtime import Store
+    from kaito_tpu_torch.controllers.workspace import WorkspaceReconciler
+    from kaito_tpu_torch.models import registry
+    from kaito_tpu_torch.provision import FakeCloud, KarpenterTPUProvisioner
+
+    saved = registry._config_fetcher
+    registry.set_config_fetcher(lambda hf_id: config if hf_id == _GPT2 else None)
+    try:
+        store = Store()
+        cloud = FakeCloud(store)
+        rec = WorkspaceReconciler(store, KarpenterTPUProvisioner(store))
+        store.create(Workspace(ObjectMeta(name="gpt2"),
+                               resource=ResourceSpec(instance_type="a3-highgpu-1g"),
+                               inference=InferenceSpec(preset=_GPT2)))
+        for _ in range(8):
+            rec.reconcile_key("default", "gpt2")
+            cloud.tick()
+            if store.try_get("StatefulSet", "default", "gpt2") is not None:
+                break
+        else:
+            ws = store.get("Workspace", "default", "gpt2")
+            raise SmokeFailure(f"{label}: the fallback Workspace: "
+                               f"{[(c.type, c.reason, c.message) for c in ws.status.conditions]}")
+    finally:
+        registry.set_config_fetcher(saved)
+    c = store.get("StatefulSet", "default", "gpt2").spec["template"]["spec"]["containers"][0]
+    one = {"nvidia.com/gpu": "1"}
+    if (c["command"][:3] != ["python", "-m", "kaito_tpu_torch.runtime.hf_fallback"]
+            or c["command"][-2:] != ["--device", "cuda"]
+            or c["resources"] != {"requests": one, "limits": one}):
+        raise SmokeFailure(f"{label}: the fallback renders {c['command']}, {c['resources']}")
+    log(f"{label}: a runtime: transformers preset renders {c['command']} on "
+        f"{c['resources']['limits']}")
+    return c["command"]
+
+
+def _gpt2_checkpoint(path, out) -> None:
+    """Thread body: GPT-2 at ``GPT2Config()``'s published widths, drawn
+    from seed 0 and saved to ``path`` (``safe_serialization`` only where
+    ``safetensors`` imports), then the port's fallback on the CPU and its
+    logits for fixed ids; ``out`` gets the readings, or ``error``."""
+    try:
+        import torch
+
+        t0 = time.perf_counter()
+        from transformers import GPT2Config, GPT2LMHeadModel
+        from transformers.utils import logging as hf_logging
+
+        from kaito_tpu_torch.runtime.hf_fallback import FallbackState
+
+        out["transformers_import_s"] = time.perf_counter() - t0
+        hf_logging.disable_progress_bar()    # its monitor thread outlives the phase
+        for mod in ("safetensors", "huggingface_hub"):
+            try:
+                out[mod] = importlib.import_module(mod).__version__
+            except ImportError:
+                out[mod] = None
+        cfg = GPT2Config()
+        out["widths"] = (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.vocab_size)
+        t0 = time.perf_counter()
+        torch.manual_seed(0)
+        GPT2LMHeadModel(cfg).save_pretrained(path, safe_serialization=bool(out["safetensors"]))
+        out["write_s"] = time.perf_counter() - t0
+        with open(os.path.join(path, "config.json")) as f:
+            out["config"] = json.load(f)
+        cpu = FallbackState(path, max_model_len=cfg.n_positions, device="cpu")
+        ids = torch.tensor([list(range(1000, 1064))])
+        with torch.no_grad():
+            out["cpu_logits"] = cpu.model(ids).logits
+        out["ids"] = ids
+    except Exception as e:   # reported by the phase, which fails
+        out["error"] = repr(e)
+
+
+def _child(argv, log_path, env=None):
+    """A child process of this repository's Python, its output in a file."""
+    f = open(log_path, "w")
+    try:
+        return subprocess.Popen([sys.executable, *argv[1:]], cwd=REPO, stdout=f,
+                                stderr=subprocess.STDOUT, env={**os.environ, **(env or {})})
+    finally:
+        f.close()
+
+
+def _wait_answering(proc, url, log_path, label, limit=120.0) -> float:
+    """Seconds until ``url`` answers 200 (the child's log in the failure)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit:
+        if proc.poll() is not None:
+            break
+        try:
+            if _get(url)[0] == 200:
+                return time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        time.sleep(0.1)
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    raise SmokeFailure(f"{label}: {url} never answered (exit {proc.poll()}): {tail}")
+
+
+def _samples(url) -> dict:
+    """``{(family, labels): value}`` of a server's ``/metrics``."""
+    from kaito_tpu_torch.utils.promtext import parse_exposition
+
+    return {(n, lb): v for n, lb, v in parse_exposition(_get(url + "/metrics")[1].decode())}
+
+
+def _front_leg(front, engines, urls, salt, label) -> dict:
+    """:data:`_SESSIONS` sessions of :data:`_TURNS` streamed greedy chat
+    turns through ``front``, one request at a time: each session a
+    system prefix of its own, each turn the conversation so far.  Which
+    replica served each turn (the one whose ``requests_total`` moved),
+    TTFT, prompt tokens and the replicas' cached-token deltas."""
+    import random
+
+    cached0 = sum(e.counters["prefix_cached_tokens_total"] for e in engines)
+    served, ttfts, prompt_tokens = [], [], 0
+    for s in range(_SESSIONS):
+        rng = random.Random(salt + s)
+        system = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz ")
+                         for _ in range(_SYSTEM_CHARS))
+        messages = [{"role": "system", "content": system}]
+        turns = []
+        for t in range(_TURNS):
+            messages.append({"role": "user", "content": f"turn {t} of session {salt + s}"})
+            before = [e.counters["requests_total"] for e in engines]
+            ttft, events = _stream_ttft(front, "/v1/chat/completions", dict(
+                messages=messages, max_tokens=_TURN_TOKENS, temperature=0.0,
+                ignore_eos=True, stream=True, stream_options={"include_usage": True}))
+            usage = next(e["usage"] for e in reversed(events)
+                         if e != "[DONE]" and e.get("usage"))
+            moved = [i for i, e in enumerate(engines)
+                     if e.counters["requests_total"] != before[i]]
+            if usage["completion_tokens"] != _TURN_TOKENS or len(moved) != 1:
+                raise SmokeFailure(f"{label}: session {s} turn {t}: usage {usage}, "
+                                   f"replicas moved {moved}")
+            turns.append(urls[moved[0]])
+            ttfts.append(ttft)
+            prompt_tokens += usage["prompt_tokens"]
+            messages.append({"role": "assistant", "content": _content(events)})
+        served.append(turns)
+    cached = sum(e.counters["prefix_cached_tokens_total"] for e in engines) - cached0
+    return dict(served=served, ttft_ms=ttfts, ttft_p50_ms=_quantile(ttfts, 0.5),
+                prompt_tokens=prompt_tokens, cached_tokens=cached,
+                cached_share=cached / prompt_tokens)
+
+
+def run_services_phase(label) -> tuple[dict, dict]:
+    """Phase 21: the runtime services around the engine on the card,
+    under :func:`_loopback_only`.
+
+    Two TinyLlama-1.1B int8 replicas at full width, served through
+    ``start_server`` from the argv and env the port's operator renders
+    for a GPU InferenceSet of two replicas (:func:`render_services_set`),
+    each with ``--max-pages`` :data:`_SERVICES_PAGES` and the same
+    checkpoint (written once from seed 0, read from disk).  The picker
+    runs as a child process from the rendered Deployment's command, its
+    ``--backend`` URLs rewritten to the two loopback ports; the port's
+    ``dp_router`` as another over the same replicas.  Each replica's
+    first chat captures its windows, and three chats admitted together
+    on the first launch K3.  Then :func:`_front_leg` through the picker
+    and through the round robin: every picker session's turns 2-4 reach
+    the replica of its turn 1, the picker counts ``_SESSIONS * (_TURNS -
+    1)`` affinity hits, and its cached-token share is at least the round
+    robin's (TTFT p50 of each logged, not gated).  The same prompt on
+    either replica gives the same greedy tokens.  Replica B stopped,
+    :data:`_FAILOVER_REQUESTS` requests through each front all answer 200
+    from A and each front's breaker for B is not closed;
+    ``runtime.health --role leader`` exits 0 for A and 1 for B; the
+    benchmark probe (``--duration 10 --input-len 512 --output-len 64``)
+    exits 0 with ``generation_tokens > 0``.  K1-K4 launched in the
+    replicas and K1q/K5 did not.  Each front, sent SIGTERM, drains and
+    exits 0.  Last, the HF fallback: GPT-2 at ``GPT2Config()``'s widths
+    from seed 0 (:func:`_gpt2_checkpoint`, from the phase's start on a
+    thread), served as a child from the command the operator renders for
+    its Workspace (:func:`render_fallback_workspace`) with ``KAITO_OFFLINE=1``:
+    ``/health`` names a CUDA device, one chat and one SSE stream are
+    answered, and the port's fallback on the card gives the CPU's logits
+    for the same ids within :data:`_FALLBACK_ATOL`.  Returns (launches,
+    statistics)."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from kaito_tpu_torch.engine.kv_cache import kv_bytes
+    from kaito_tpu_torch.engine.model import TransformerLM
+    from kaito_tpu_torch.engine.server import start_server
+    from kaito_tpu_torch.models.hub import install_default_fetcher
+    from kaito_tpu_torch.models.registry import get_model_by_name
+
+    t_leg = time.perf_counter()
+    offline = os.environ.get("HF_HUB_OFFLINE")
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    root = tempfile.mkdtemp(prefix="kaito-services-")
+    gpt2_dir = os.path.join(root, "gpt2")
+    stats: dict = dict(sessions=_SESSIONS, turns=_TURNS, turn_tokens=_TURN_TOKENS,
+                       system_chars=_SYSTEM_CHARS, max_pages=_SERVICES_PAGES)
+    gpt2: dict = {}
+    writer = threading.Thread(target=_gpt2_checkpoint, args=(gpt2_dir, gpt2),
+                               name="phase21-gpt2", daemon=True)
+    replicas, children = [], {}
+    child_env = {"HF_HUB_OFFLINE": "1", "TRANSFORMERS_OFFLINE": "1", "KAITO_OFFLINE": "1"}
+    with _loopback_only() as refused:
+        try:
+            writer.start()
+            install_default_fetcher()
+            pod = render_services_set(label)
+            arch = get_model_by_name(_TINYLLAMA).arch
+            src = TransformerLM(arch, dtype=torch.bfloat16, device="cuda")
+            src.init_params(seed=0)
+            stats["checkpoint_bytes"] = _hf_checkpoint(src, root)
+            del src
+            _release_card(torch)
+            conf = os.path.join(root, "inference_config.yaml")
+            with open(conf, "w") as f:
+                f.write(_STARTUP_CONFIG)
+            for kname in (*_STARTUP_COUNTED, *_STARTUP_ABSENT):
+                fn, attr = _counter(kname)
+                setattr(fn, attr, 0)
+            saved = {k: os.environ.get(k) for k in pod["env"]}
+            os.environ.update(pod["env"])
+            try:
+                for i in range(2):
+                    port = _free_port()
+                    t0 = time.perf_counter()
+                    server, _ = start_server(_serve_argv(pod["command"], port, conf, root)
+                                             + ["--max-pages", str(_SERVICES_PAGES)])
+                    threading.Thread(target=server.serve_forever, daemon=True,
+                                     name=f"phase21-replica-{i}").start()
+                    replicas.append((server, server.state.engine,
+                                     f"http://127.0.0.1:{port}"))
+                    eng = server.state.engine
+                    stats[f"replica_{i}"] = dict(
+                        load_s=time.perf_counter() - t0, pages=eng.sizing_report["pages"],
+                        kv_gib=kv_bytes(eng.cache) / 2**30,
+                        weights_gib=eng.model.param_bytes() / 2**30)
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            engines = [e for _, e, _ in replicas]
+            urls = [u for _, _, u in replicas]
+            log(f"{label}: replicas {urls}: " + "; ".join(
+                f"{stats[f'replica_{i}']['pages']} pages, "
+                f"{stats[f'replica_{i}']['kv_gib']:.2f} GiB KV, "
+                f"{stats[f'replica_{i}']['weights_gib']:.2f} GiB weights, loaded in "
+                f"{stats[f'replica_{i}']['load_s']:.1f} s" for i in range(2)))
+
+            # the fronts: the picker from its rendered command, the round robin
+            argv = list(pod["epp"])
+            backends = iter(urls)
+            argv = [next(backends) if i and argv[i - 1] == "--backend" else a
+                    for i, a in enumerate(argv)]
+            fronts = {}
+            for name, cmd in (("picker", argv), ("dp_router", [
+                    "python", "-m", "kaito_tpu_torch.runtime.dp_router",
+                    "--backend", urls[0], "--backend", urls[1], "--port", "5000"])):
+                port = _free_port()
+                cmd[cmd.index("--port") + 1] = str(port)
+                path = os.path.join(root, f"{name}.log")
+                children[name] = (_child(cmd, path), path)
+                fronts[name] = f"http://127.0.0.1:{port}"
+            for name, (proc, path) in children.items():
+                _wait_answering(proc, fronts[name] + "/router/stats", path, label, 60)
+            log(f"{label}: picker {argv} and round robin at {fronts}")
+
+            # each replica's windows captured; three chats packed on A (K3)
+            stats["warm"] = [_timed_chat(u, _prompt(170, 60 + i), 64)
+                             for i, u in enumerate(urls)]
+            stats["together"], stats["packed_prefill_dispatches"] = _chats_together(
+                engines[0], urls[0], [_prompt(90 + 10 * i, 70 + i) for i in range(3)],
+                64, label)
+
+            writer.join(timeout=120)
+            if "error" in gpt2 or writer.is_alive():
+                raise SmokeFailure(f"{label}: the GPT-2 checkpoint: {gpt2.get('error')}")
+            if gpt2["widths"] != _GPT2_WIDTHS:
+                raise SmokeFailure(f"{label}: GPT2Config() gave {gpt2['widths']}")
+            cmd = render_fallback_workspace(label, gpt2["config"])
+            fport = _free_port()
+            cmd[cmd.index("--model") + 1] = gpt2_dir
+            cmd[cmd.index("--port") + 1] = str(fport)
+            fpath = os.path.join(root, "hf_fallback.log")
+            t_fallback = time.perf_counter()
+            children["hf_fallback"] = (_child(cmd, fpath, child_env), fpath)
+            log(f"{label}: GPT-2 {gpt2['widths']} written in {gpt2['write_s']:.1f} s "
+                f"(transformers imported in {gpt2['transformers_import_s']:.1f} s; "
+                f"safetensors {gpt2['safetensors']}, huggingface_hub "
+                f"{gpt2['huggingface_hub']}); serving {cmd}")
+
+            time.sleep(1.5)      # the picker's first scrape: kaito:kv_page_size
+            stats["picker"] = _front_leg(fronts["picker"], engines, urls, 1000, label)
+            stats["round_robin"] = _front_leg(fronts["dp_router"], engines, urls, 2000,
+                                              label)
+            pm = _samples(fronts["picker"])
+            hits = pm.get(("kaito:epp_affinity_hits_total", ""), 0)
+            stats["picker"].update(
+                affinity_hits=hits,
+                affinity_misses=pm.get(("kaito:epp_affinity_misses_total", ""), 0),
+                picks={u: pm.get(("kaito:epp_picks_total", f'{{backend="{u}"}}'), 0)
+                       for u in urls})
+            strays = [(s, turns) for s, turns in enumerate(stats["picker"]["served"])
+                      if len(set(turns)) != 1]
+            if (strays or hits != _SESSIONS * (_TURNS - 1)
+                    or stats["picker"]["cached_share"] < stats["round_robin"]["cached_share"]):
+                raise SmokeFailure(f"{label}: affinity: sessions off their replica {strays}, "
+                                   f"hits {hits}, cached share picker "
+                                   f"{stats['picker']['cached_share']:.4f} against round "
+                                   f"robin {stats['round_robin']['cached_share']:.4f}")
+            for name in ("picker", "round_robin"):
+                s = stats[name]
+                log(f"{label}: {name}: cached {s['cached_tokens']} of {s['prompt_tokens']} "
+                    f"prompt tokens ({s['cached_share']:.4f}), TTFT p50 "
+                    f"{s['ttft_p50_ms']:.1f} ms, sessions' replicas "
+                    f"{[sorted(set(t)) for t in s['served']]}")
+            log(f"{label}: picker counters: affinity hits {hits}, misses "
+                f"{stats['picker']['affinity_misses']}, picks {stats['picker']['picks']}")
+
+            # greedy determinism across the replicas
+            traces = [e._finish_trace for e in engines]
+            done = [_finished_requests(e) for e in engines]
+            try:
+                for u in urls:
+                    _completion(u, _prompt(300, 80), 24)
+            finally:
+                for e, trace in zip(engines, traces):
+                    e._finish_trace = trace
+            pair = [list(d[-1].output_tokens) for d in done]
+            if pair[0] != pair[1] or len(pair[0]) != 24:
+                raise SmokeFailure(f"{label}: greedy tokens differ: {pair}")
+            stats["greedy_equal"] = len(pair[0])
+
+            # failover: B stopped
+            server_b, engine_b, url_b = replicas.pop()
+            server_b.shutdown()
+            server_b.server_close()
+            engine_b.stop()
+            url_a = urls[0]
+            failover = {}
+            b_label = f'{{backend="{url_b}"}}'
+            t_stop = time.perf_counter()
+            for name, front in fronts.items():
+                before = engines[0].counters["requests_total"]
+                codes = [_post(f"{front}/v1/completions", dict(
+                    prompt=_prompt(120, 90 + i), max_tokens=8, temperature=0.0,
+                    ignore_eos=True))[0] for i in range(_FAILOVER_REQUESTS)]
+                failover[name] = dict(
+                    codes=codes, served_by_a=engines[0].counters["requests_total"] - before)
+            # a front's /health prober (every 2 s, the rendered default)
+            # opens B's breaker if no request found B down first
+            for name, front in fronts.items():
+                deadline = time.monotonic() + 10
+                while True:
+                    m = _samples(front)
+                    breaker = m.get(("kaito:router_backend_breaker_state", b_label))
+                    if breaker or time.monotonic() > deadline:
+                        break
+                    time.sleep(0.2)
+                f = failover[name]
+                f.update(breaker_b=breaker, breaker_open_after_s=time.perf_counter() - t_stop,
+                         failures_b=m.get(("kaito:router_backend_failures_total", b_label), 0),
+                         forwarded_a=m.get(("kaito:router_requests_forwarded_total",
+                                            f'{{backend="{url_a}"}}'), 0))
+                if (f["codes"] != [200] * _FAILOVER_REQUESTS
+                        or f["served_by_a"] != _FAILOVER_REQUESTS or not breaker):
+                    raise SmokeFailure(f"{label}: failover through {name}: {f}")
+            stats["failover"] = failover
+            log(f"{label}: replica B stopped: {failover}")
+            rcs = {}
+            for name, url in (("A", url_a), ("B", url_b)):
+                out = subprocess.run([sys.executable, "-m", "kaito_tpu_torch.runtime.health",
+                                      "--role", "leader", "--base-url", url], cwd=REPO,
+                                     capture_output=True, text=True, timeout=60)
+                rcs[name] = (out.returncode, out.stdout.strip())
+            if rcs["A"][0] != 0 or rcs["B"][0] != 1:
+                raise SmokeFailure(f"{label}: runtime.health: {rcs}")
+            stats["health"] = rcs
+            log(f"{label}: runtime.health --role leader: {rcs}")
+
+            sink = os.path.join(root, "benchmark.sink")
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "kaito_tpu_torch.runtime.benchmark_probe",
+                                  "--base-url", url_a, "--duration", "10", "--input-len",
+                                  "512", "--output-len", "64", "--sink", sink], cwd=REPO,
+                                 capture_output=True, text=True, timeout=180)
+            wall = time.perf_counter() - t0
+            line = open(sink).read().strip() if os.path.exists(sink) else ""
+            if out.returncode != 0 or not line.startswith("KAITO_BENCHMARK_RESULT"):
+                raise SmokeFailure(f"{label}: the benchmark probe exited {out.returncode}: "
+                                   f"{line!r} {out.stderr[-2000:]}")
+            result = json.loads(line[len("KAITO_BENCHMARK_RESULT"):])
+            if result["generation_tokens"] <= 0:
+                raise SmokeFailure(f"{label}: the benchmark probe: {result}")
+            stats["probe"] = dict(result, wall_s=wall,
+                                  tok_s=result["generation_tokens"] / result["elapsed_s"])
+            log(f"{label}: benchmark probe on A, {wall:.1f} s: {result}")
+
+            torch.cuda.synchronize()
+            launches = {k: getattr(*_counter(k)) for k in _STARTUP_COUNTED}
+            stray = {k: getattr(*_counter(k)) for k in _STARTUP_ABSENT}
+            if any(stray.values()) or not all(launches.values()):
+                raise SmokeFailure(f"{label}: launches {launches}, absent {stray}")
+            log(f"{label}: launches {launches}; {stray} (none)")
+
+            drained = {}
+            for name in fronts:
+                proc, _ = children.pop(name)
+                proc.send_signal(signal.SIGTERM)
+                drained[name] = proc.wait(timeout=40)
+            if any(drained.values()):
+                raise SmokeFailure(f"{label}: fronts after SIGTERM exited {drained}")
+            stats["drained"] = drained
+            for server, engine, _ in replicas:
+                server.shutdown()
+                server.server_close()
+                engine.stop()
+            replicas.clear()
+            _release_card(torch)
+
+            # the HF fallback, last
+            fproc, fpath = children["hf_fallback"]
+            furl = f"http://127.0.0.1:{fport}"
+            _wait_answering(fproc, furl + "/health", fpath, label, 180)
+            health = json.loads(_get(furl + "/health")[1])
+            try:
+                t0 = time.perf_counter()
+                status, raw = _post(furl + "/v1/chat/completions", dict(
+                    messages=[{"role": "user", "content": "hello"}], max_tokens=32,
+                    temperature=0.0, ignore_eos=True))
+                chat_s = time.perf_counter() - t0
+                chat = json.loads(raw)
+                ttft, events = _stream_ttft(furl, "/v1/completions", dict(
+                    prompt="hello", max_tokens=16, temperature=0.0, ignore_eos=True,
+                    stream=True))
+            except (urllib.error.URLError, ConnectionError, OSError, ValueError) as e:
+                with open(fpath) as f:
+                    raise SmokeFailure(f"{label}: the fallback: {e!r}; its log: "
+                                       f"{f.read()[-3000:]}") from None
+            with open(fpath) as f:
+                ready = re.search(r"fallback runtime ready in ([0-9.]+)s", f.read())
+            if (not health.get("device", "").startswith("cuda") or status != 200
+                    or chat["usage"]["completion_tokens"] != 32 or events[-1] != "[DONE]"
+                    or len(events) != 18 or ready is None):
+                raise SmokeFailure(f"{label}: the fallback: health {health}, chat {status} "
+                                   f"{chat.get('usage')}, {len(events)} events, ready {ready}")
+            from kaito_tpu_torch.runtime.hf_fallback import FallbackState
+
+            gpu = FallbackState(gpt2_dir, max_model_len=1024, device="cuda")
+            with torch.no_grad():
+                logits = gpu.model(gpt2["ids"].cuda()).logits.cpu()
+            err = (logits - gpt2["cpu_logits"]).abs().max().item()
+            del gpu
+            if not err <= _FALLBACK_ATOL:
+                raise SmokeFailure(f"{label}: fallback logits on the card against the CPU: "
+                                   f"max abs error {err}")
+            stats["fallback"] = dict(
+                health=health, load_s=float(ready.group(1)),
+                to_health_s=time.perf_counter() - t_fallback,
+                chat_tok_s=32 / chat_s, stream_ttft_ms=ttft, logits_max_abs_err=err,
+                transformers_import_s=gpt2["transformers_import_s"],
+                safetensors=gpt2["safetensors"], huggingface_hub=gpt2["huggingface_hub"])
+            log(f"{label}: the fallback on {health['device']}: loaded in "
+                f"{stats['fallback']['load_s']} s; a 32-token chat {32 / chat_s:.1f} tok/s; "
+                f"SSE TTFT {ttft:.1f} ms; logits against the CPU max abs {err:.3g}")
+            stats["unresolved"] = sorted(set(refused))
+        finally:
+            if offline is None:
+                os.environ.pop("HF_HUB_OFFLINE", None)
+            else:
+                os.environ["HF_HUB_OFFLINE"] = offline
+            for proc, _ in children.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=30)
+            for server, engine, _ in replicas:
+                server.shutdown()
+                server.server_close()
+                engine.stop()
+            writer.join(timeout=120)
+            shutil.rmtree(root, ignore_errors=True)
+    del replicas
+    _release_card(torch)
+    stats["phase_s"] = time.perf_counter() - t_leg
+    return launches, stats
+
+
 _GQA_ATTENTION = ("paged_decode_attention", "paged_decode_attention_int8kv",
                   "flash_prefill_attention", "flash_prefill_packed")
 # the server legs of phases 4-8: (name for --leg, label, model, server
@@ -8149,7 +8778,7 @@ def main(argv=None) -> int:
                         ADAPTER_EXACT_LEG[0], FAMILIES_LEG[0], FAMILIES_EXACT_LEG[0],
                         DEVPROF_LEG[0], OFFLOAD_LEG[0], PD_LEG[0], TRAIN_LEG[0],
                         TRAIN_EXACT_LEG[0], RAG_LEG[0], RAG_EXACT_LEG[0],
-                        STARTUP_LEG[0], MANAGER_LEG[0]],
+                        STARTUP_LEG[0], MANAGER_LEG[0], SERVICES_LEG[0]],
                     help="build the kernels and run this one server leg alone "
                          "(phases 2 and 3 skipped; with --profile, the quickest "
                          "reading of its TTFT and prefill device time); no result "
@@ -8477,6 +9106,25 @@ def main(argv=None) -> int:
                     f"spec.replicas 2 +{s['marks']['replicas_2']:.2f} s, second child "
                     f"rendered +{s['marks']['child_1_rendered']:.2f} s after the burst; "
                     f"load {s['load_s']:.1f} s; {s['phase_s']:.1f} s")
+            if args.leg in (None, SERVICES_LEG[0]) and not args.first_leg_only:
+                name, label = SERVICES_LEG
+                _phase_start(torch, label, deep=False)
+                launches, stats[label] = run_services_phase(label)
+                _phase_start(torch, f"after {label}", deep=False)
+                if not alone:
+                    for kname, n in launches.items():
+                        wide = next((w for w in WIDE_COUNTERS if w[0] == kname), None)
+                        key = "launches_wide_by_leg" if wide else "launches_by_leg"
+                        records[wide[1] if wide else kname].setdefault(
+                            key, {})[label] = n
+                s = stats[label]
+                log(f"{label} on {card}: cached-token share picker "
+                    f"{s['picker']['cached_share']:.4f} / round robin "
+                    f"{s['round_robin']['cached_share']:.4f}; TTFT p50 "
+                    f"{s['picker']['ttft_p50_ms']:.1f} / {s['round_robin']['ttft_p50_ms']:.1f} "
+                    f"ms; probe {s['probe']['tok_s']:.1f} tok/s; fallback loaded in "
+                    f"{s['fallback']['load_s']} s, {s['fallback']['chat_tok_s']:.1f} tok/s; "
+                    f"{s['phase_s']:.1f} s")
         if alone:
             print(json.dumps({"server_legs": stats}))
             return 0

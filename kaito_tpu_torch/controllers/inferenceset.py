@@ -7,12 +7,9 @@ stale-cache over-creation, surface scale-subresource status
 (replicas/readyReplicas/selector) for KEDA/HPA, aggregate per-replica
 benchmark TPM, and install the Gateway API InferencePool + EPP.
 
-A copy of ``kaito_tpu.controllers.inferenceset``.  With the Gateway
-API gate on, a set whose template resolves to a catalog entry that
-ships no endpoint picker (a GPU machine type, until the port's
-``runtime/epp.py`` lands: ROADMAP queue 1, item 2) renders nothing: its
-``InferenceSetReady`` condition fails with reason ``EPPUnavailable``
-and names the item, as a GPU plan that needs the HF fallback fails.
+A copy of ``kaito_tpu.controllers.inferenceset``.  The endpoint picker
+is rendered from the catalog entry the template resolves to
+(``manifests/epp.py``): a GPU set's picker is the port's.
 """
 
 from __future__ import annotations
@@ -38,8 +35,7 @@ from kaito_tpu_torch.controllers.runtime import (
 )
 from kaito_tpu_torch.controllers.workspace import BENCH_METRIC_PEAK_TPM
 from kaito_tpu_torch.k8s.events import record_event
-from kaito_tpu_torch.manifests.epp import epp_missing_reason
-from kaito_tpu_torch.sku.catalog import machine_chip
+from kaito_tpu_torch.sku.catalog import TPUChipSpec, machine_chip
 
 logger = logging.getLogger(__name__)
 
@@ -135,15 +131,6 @@ class InferenceSetReconciler(Reconciler):
                            "; ".join(errs))
             return Result()
 
-        if self.gateway_api_enabled:
-            why = self._epp_missing(iset)
-            if why:
-                self._set_cond(iset, COND_SET_READY, "False",
-                               "EPPUnavailable", why)
-                record_event(self.store, iset, "Warning", "EPPUnavailable",
-                             why)
-                return Result()
-
         key = f"{iset.metadata.namespace}/{iset.metadata.name}"
         if not self.expectations.satisfied(key):
             return Result(requeue_after=1.0)
@@ -223,11 +210,10 @@ class InferenceSetReconciler(Reconciler):
             self._ensure_epp(iset)
         return Result() if len(ready) >= want else Result(requeue_after=5.0)
 
-    def _epp_missing(self, iset: InferenceSet) -> Optional[str]:
-        """Why this set can have no endpoint picker: the catalog entry
-        its template resolves to (by machine type, else by planning a
-        BYO replica) ships none.  None when it does, or when the
-        template does not plan (its children surface PlanFailed)."""
+    def _serving_chip(self, iset: InferenceSet) -> Optional[TPUChipSpec]:
+        """The catalog entry the template resolves to: by machine type,
+        else by planning a BYO replica; None when the template does not
+        plan (its children surface PlanFailed)."""
         chip = machine_chip(iset.spec.template.resource.instance_type)
         if chip is None:
             try:
@@ -238,7 +224,7 @@ class InferenceSetReconciler(Reconciler):
                 chip = plan.chip
             except Exception:
                 return None
-        return epp_missing_reason(chip)
+        return chip
 
     def _ensure_inference_pool(self, iset: InferenceSet) -> None:
         """Install the Gateway API InferencePool + endpoint picker
@@ -260,8 +246,8 @@ class InferenceSetReconciler(Reconciler):
 
     def _ensure_epp(self, iset: InferenceSet) -> None:
         """Render the endpoint picker the pool's extensionRef names
-        (docs/routing.md): a Deployment running
-        ``kaito_tpu.runtime.epp`` plus its Service.  The backend set is
+        (docs/routing.md): a Deployment running the serving engine
+        package's ``runtime.epp`` plus its Service.  The backend set is
         the replica workspaces' Services, recomputed every reconcile so
         scale-up/down keeps the picker's ``--backend`` args current."""
         from kaito_tpu_torch.manifests.epp import EPP_PORT, generate_epp_workload
@@ -295,7 +281,8 @@ class InferenceSetReconciler(Reconciler):
             f"{iset.metadata.name}-epp", ns, backends=backends,
             draining=draining, kv_pool=kv_pool,
             adapter_affinity=adapter_affinity,
-            owner={"kind": "InferenceSet", "name": iset.metadata.name})
+            owner={"kind": "InferenceSet", "name": iset.metadata.name},
+            chip=self._serving_chip(iset))
         for obj in objs:
             existing = self.store.try_get(obj.kind, ns, obj.metadata.name)
             if existing is None:

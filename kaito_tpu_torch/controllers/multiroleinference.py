@@ -13,10 +13,8 @@ holds its KV.
 A copy of ``kaito_tpu.controllers.multiroleinference``.  Each role's
 child Workspaces render ``--inference-role <role>`` into the engine
 command (``manifests/inference.py``), which both engines' servers take.
-An MRI with a role on a catalog entry that ships no endpoint picker (a
-GPU machine type, until the port's ``runtime/epp.py`` lands: ROADMAP
-queue 1, item 2) still gets its role sets, but no InferencePool or
-picker: its condition fails with reason ``EPPUnavailable``.
+The picker is rendered from the catalog entry of the roles' machine
+type (``manifests/epp.py``): a GPU MRI's picker is the port's.
 """
 
 from __future__ import annotations
@@ -38,8 +36,7 @@ from kaito_tpu_torch.api.workspace import InferenceSpec, ResourceSpec
 from kaito_tpu_torch.controllers.inferenceset import COND_SET_READY
 from kaito_tpu_torch.controllers.objects import Unstructured
 from kaito_tpu_torch.controllers.runtime import Reconciler, Result, Store, update_with_retry
-from kaito_tpu_torch.manifests.epp import epp_missing_reason
-from kaito_tpu_torch.sku.catalog import machine_chip
+from kaito_tpu_torch.sku.catalog import TPUChipSpec, machine_chip
 
 LABEL_MRI = "kaito-tpu.io/multirole-inference"
 LABEL_ROLE = "kaito-tpu.io/inference-role"
@@ -90,11 +87,6 @@ class MultiRoleInferenceReconciler(Reconciler):
                               mri.metadata.namespace, mri.metadata.name,
                               set_role)
 
-        why = self._epp_missing(mri)
-        if why:
-            self._set_cond(mri, COND_MRI_READY, "False", "EPPUnavailable",
-                           why)
-            return Result(requeue_after=5.0)
         self._ensure_inference_pool(mri)
         self._ensure_epp(mri)
         self._set_cond(mri, COND_MRI_READY,
@@ -104,14 +96,13 @@ class MultiRoleInferenceReconciler(Reconciler):
         return Result() if all_ready else Result(requeue_after=5.0)
 
     @staticmethod
-    def _epp_missing(mri: MultiRoleInference) -> Optional[str]:
-        """Why this MRI can have no picker: a role's machine type
-        resolves to a catalog entry that ships none (None otherwise)."""
+    def _serving_chip(mri: MultiRoleInference) -> Optional[TPUChipSpec]:
+        """The catalog entry of the first role whose machine type the
+        catalog knows (None: the JAX package's picker)."""
         for role in mri.spec.roles:
             chip = machine_chip(role.instance_type)
-            why = epp_missing_reason(chip) if chip is not None else None
-            if why:
-                return f"role {role.type}: {why}"
+            if chip is not None:
+                return chip
         return None
 
     def _ensure_role_set(self, mri: MultiRoleInference, role) -> InferenceSet:
@@ -182,7 +173,8 @@ class MultiRoleInferenceReconciler(Reconciler):
         objs = generate_epp_workload(
             f"{mri.metadata.name}-epp", ns, backends=backends,
             plugins_config=plugins,
-            owner={"kind": "MultiRoleInference", "name": mri.metadata.name})
+            owner={"kind": "MultiRoleInference", "name": mri.metadata.name},
+            chip=self._serving_chip(mri))
         for obj in objs:
             existing = self.store.try_get(obj.kind, ns, obj.metadata.name)
             if existing is None:

@@ -12,8 +12,7 @@ A copy of ``kaito_tpu.controllers.workspace`` over the port's catalog:
 ``plan_workspace`` resolves GPU machine types (GKE's A3) and GPU BYO
 nodes (GPU feature discovery's labels) as well as TPU ones, and plans a
 GPU Workspace for the port's engine (``parallel.plan``): a plan the
-port's server would refuse, or a runtime its engine package does not
-ship, fails at plan time (``PlanFailed``).  The annotation parses are
+port's server would refuse fails at plan time (``PlanFailed``).  The annotation parses are
 the port's own (``engine/qos.py``, ``models/registry.py``,
 ``manifests/inference.py``).
 """
@@ -91,12 +90,6 @@ def plan_workspace(store: Store, ws: Workspace):
                 f"cannot determine TPU generation for {ws.metadata.name}: "
                 f"unknown instance type and no labeled BYO nodes")
         chip = spec.chip
-    runtime = getattr(md, "runtime", "engine")
-    if runtime == "transformers" and "hf_fallback" not in chip.runtime_modules:
-        raise ValueError(
-            f"preset {md.name!r} runs the HF fallback runtime, which "
-            f"{chip.engine_package} does not ship yet (ROADMAP queue 1, item 2: "
-            f"the runtime services)")
     workload = "train" if ws.tuning is not None else "serve"
     target = None
     if ws.resource.tpu_topology:

@@ -49,9 +49,9 @@ adapters, and with ``--adapter-slots`` ``/v1/adapters`` hot-loads
 /v1/adapters/<name>``) them: 403 with the cache off, 400 for a bad name
 or source, 403 for a remote source outside
 ``--adapter-source-allowlist``, 409 while in-flight work pins it, 422
-for a refused load, 404 for an unknown name.  Sources are local
-directories (``path://`` or a bare path) and ``oras://`` pulls; a
-``hub://`` pull needs the hub fetcher, which is not ported yet.
+for a refused load, 404 for an unknown name, 502 for a failed pull.
+Sources are local directories (``path://`` or a bare path), ``oras://``
+pulls and ``hub://`` snapshots (``runtime/weight_fetch.fetch_from_hub``).
 
 Device profiling: with ``--devprof-interval-s`` > 0 the engine samples
 a ``--devprof-window-s`` torch.profiler window at that cadence;
@@ -408,7 +408,9 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         if self.path == "/health":
             body = {"status": "ok", "device": str(st.engine.device)}
             if st.engine.sizing_report:
-                body["kv_sizing"] = st.engine.sizing_report
+                # the key the JAX server uses: the benchmark probe folds
+                # it into its result (status.performance)
+                body["hbm_sizing"] = st.engine.sizing_report
             self._json(200, body)
         elif self.path == "/v1/models":
             models = [{"id": st.model_name, "object": "model",
@@ -594,15 +596,15 @@ class OpenAIHandler(BaseHTTPRequestHandler):
         if not any(source.startswith(pref) for pref in allow):
             raise PermissionError(f"adapter source {source!r} not in "
                                   f"--adapter-source-allowlist")
-        if scheme == "hub":
-            raise RuntimeError(
-                f"adapter pull from {source} failed: hub:// pulls need the hub "
-                f"fetcher (kaito_tpu/runtime/weight_fetch.py), not ported yet "
-                f"(ROADMAP queue 1, M23)")
         dest = tempfile.mkdtemp(prefix="kaito-adapter-")
         try:
-            subprocess.run(["oras", "pull", source[len("oras://"):], "-o", dest],
-                           check=True, capture_output=True, timeout=600)
+            if scheme == "hub":
+                from kaito_tpu_torch.runtime.weight_fetch import fetch_from_hub
+
+                fetch_from_hub(source[len("hub://"):], dest)
+            else:
+                subprocess.run(["oras", "pull", source[len("oras://"):], "-o", dest],
+                               check=True, capture_output=True, timeout=600)
         except Exception as e:
             shutil.rmtree(dest, ignore_errors=True)
             raise RuntimeError(f"adapter pull from {source} failed: {e}") from None

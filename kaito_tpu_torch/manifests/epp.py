@@ -8,11 +8,11 @@ the ref resolve (docs/routing.md).  The picker is the in-repo
 reconciler whenever replicas come and go (the in-miniature analogue of
 the GAIE EPP watching pods behind the pool selector).
 
-A copy of ``kaito_tpu.manifests.epp``.  The picker runs from the JAX
-engine's image, the one engine package that ships it: a catalog entry
-whose ``runtime_modules`` lacks ``"epp"`` (the GPU entries, until the
-port's ``runtime/epp.py`` lands) gets no picker, and
-:func:`epp_missing_reason` says why.
+A copy of ``kaito_tpu.manifests.epp`` that renders from the catalog
+entry the set is served on: the picker runs as ``python -m
+<package>.runtime.epp`` from the entry's image, so a GPU set's picker is
+the port's.  Without an entry (a template that does not plan) it is the
+JAX package's, as the JAX operator renders it.
 """
 
 from __future__ import annotations
@@ -29,23 +29,13 @@ EPP_PORT = 5000
 LABEL_EPP = "kaito-tpu.io/epp"
 
 
-def epp_missing_reason(chip: TPUChipSpec) -> Optional[str]:
-    """Why a set served on ``chip`` can have no endpoint picker (None
-    when its engine package ships one)."""
-    if "epp" in chip.runtime_modules:
-        return None
-    return (f"the endpoint picker (runtime/epp.py) is not in "
-            f"{chip.engine_package} yet (ROADMAP queue 1, item 2: the "
-            f"runtime services); turn gatewayAPIInferenceExtension off "
-            f"for {chip.family} sets")
-
-
 def build_epp_command(backends: list[str], *,
                       plugins_config: Optional[dict] = None,
                       block_chars: int = 0,
                       draining: Optional[list[str]] = None,
                       kv_pool: bool = False,
-                      adapter_affinity: bool = False) -> list[str]:
+                      adapter_affinity: bool = False,
+                      package: str = "kaito_tpu") -> list[str]:
     """The container command: one ``--backend`` per replica spec
     (``url[=role[/group]]``), the plugin chain inline as JSON, and one
     ``--drain-backend`` per replica the autoscaler is retiring (the
@@ -55,8 +45,9 @@ def build_epp_command(backends: list[str], *,
     hints only when the replicas actually publish (docs/kv-pool.md).
     ``adapter_affinity`` mirrors ``kaito-tpu.io/adapters`` the same
     way: resident-adapter adverts are only worth scraping when the
-    replicas run the adapter cache (docs/multi-lora.md)."""
-    cmd = ["python", "-m", "kaito_tpu.runtime.epp",
+    replicas run the adapter cache (docs/multi-lora.md).  ``package`` is
+    the engine package whose picker runs."""
+    cmd = ["python", "-m", f"{package}.runtime.epp",
            "--port", str(EPP_PORT)]
     for spec in backends:
         cmd += ["--backend", spec]
@@ -81,9 +72,13 @@ def generate_epp_workload(name: str, namespace: str, *,
                           draining: Optional[list[str]] = None,
                           kv_pool: bool = False,
                           adapter_affinity: bool = False,
-                          image: str = TPU_IMAGE) -> list:
+                          chip: Optional[TPUChipSpec] = None) -> list:
     """Render the ``<name>`` (conventionally ``<cr>-epp``) Deployment +
-    Service the InferencePool's extensionRef resolves to."""
+    Service the InferencePool's extensionRef resolves to, running the
+    picker of ``chip``'s engine package from its image (None: the JAX
+    package's)."""
+    package = chip.engine_package if chip is not None else "kaito_tpu"
+    image = chip.image if chip is not None else TPU_IMAGE
     labels = {LABEL_EPP: name}
     owners = [owner] if owner else []
     deploy = Unstructured(
@@ -102,7 +97,8 @@ def generate_epp_workload(name: str, namespace: str, *,
                         "command": build_epp_command(
                             backends, plugins_config=plugins_config,
                             draining=draining, kv_pool=kv_pool,
-                            adapter_affinity=adapter_affinity),
+                            adapter_affinity=adapter_affinity,
+                            package=package),
                         "ports": [{"containerPort": EPP_PORT}],
                         "readinessProbe": {
                             "httpGet": {"path": "/router/stats",

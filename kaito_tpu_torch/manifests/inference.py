@@ -13,10 +13,10 @@ catalog entry: the engine package its pods run (``python -m
 <package>.engine.server``, so a GPU plan runs ``kaito_tpu_torch``), the
 image, the device resource and how many a pod requests (a TPU host's
 every chip; the plan's cards on a GPU node), the taint it tolerates,
-the runtime probes the package ships and the mesh env (the JAX mesh,
-coordinator and topology on a TPU; the parallel degrees the port's
-server reads on a GPU).  A TPU plan renders what the JAX operator
-renders.
+the package's runtime probes, the HF fallback's device and the mesh
+env (the JAX mesh, coordinator and topology on a TPU; the parallel
+degrees the port's server reads on a GPU).  A TPU plan renders what the
+JAX operator renders.
 """
 
 from __future__ import annotations
@@ -364,13 +364,14 @@ def build_engine_command(
     mesh = plan.mesh
     pkg = plan.chip.engine_package
     if getattr(md, "runtime", "engine") == "transformers":
+        device = plan.chip.torch_device
         return [
             "python", "-m", f"{pkg}.runtime.hf_fallback",
             "--model", md.hf_id,
             "--port", str(PORT),
             "--max-model-len", str(plan.max_model_len),
             "--served-model-name", md.name or md.hf_id,
-        ]
+        ] + (["--device", device] if device else [])
     args = [
         "python", "-m", f"{pkg}.engine.server",
         "--model", md.name if md.name else md.hf_id,
@@ -583,11 +584,11 @@ def generate_inference_workload(
     benchmark: bool = True,
 ) -> list:
     """Render Service + headless Service + StatefulSet for a workspace
-    (``image`` "" takes the plan's entry's).  The self-benchmark startup
-    probe renders only for an engine package that ships it."""
+    (``image`` "" takes the plan's entry's).  The HF fallback runs on one
+    device where the entry names torch's (``torch_device``: ``--device``
+    and one ``resource``), else on the CPU."""
     chip = plan.chip
     image = image or chip.image
-    benchmark = benchmark and "benchmark_probe" in chip.runtime_modules
     name = ws.metadata.name
     ns = ws.metadata.namespace
     labels = {LABEL_WORKSPACE_NAME: name}
@@ -625,10 +626,15 @@ def generate_inference_workload(
 
     fallback = getattr(md, "runtime", "engine") == "transformers"
     if fallback:
-        # CPU torch runtime: no TPU chips to pin, and the engine
+        # torch runtime: on one card where torch has a device for the
+        # entry, else on the CPU (no TPU chips to pin); the engine
         # self-benchmark probe would 400 on small-context long-tail
         # models (input_len 2048 > n_positions) — plain HTTP probes
-        resources = {"requests": {"cpu": "4", "memory": "16Gi"}}
+        if chip.torch_device:
+            resources = {"requests": {chip.resource: "1"},
+                         "limits": {chip.resource: "1"}}
+        else:
+            resources = {"requests": {"cpu": "4", "memory": "16Gi"}}
         benchmark = False
     else:
         n = str(chip.devices_per_pod(plan.chips_per_slice))

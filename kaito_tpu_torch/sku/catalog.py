@@ -95,10 +95,9 @@ class TPUChipSpec:
     topology_key: str = LABEL_TPU_TOPOLOGY   # "" when nodes carry none
     engine_package: str = "kaito_tpu"        # python -m <package>.engine.server
     image: str = TPU_IMAGE
-    # runtime modules the engine package ships beside its server
-    # (manifests: the HF fallback, the benchmark and health probes; the
-    # controllers: the endpoint picker)
-    runtime_modules: tuple[str, ...] = ("hf_fallback", "benchmark_probe", "health", "epp")
+    # torch's device for the HF fallback runtime ("": none, the pod asks
+    # for CPU and memory; else one ``resource`` and ``--device`` this)
+    torch_device: str = ""
     # False: a slice spans hosts, a pod takes every chip of its host
     # (GKE's TPU rule) and the JAX mesh env.  True: a slice is the
     # plan's devices of one host, which a pod requests (GPU plans are one
@@ -239,7 +238,7 @@ class GPUCardSpec(TPUChipSpec):
     topology_key: str = ""
     engine_package: str = "kaito_tpu_torch"
     image: str = GPU_IMAGE
-    runtime_modules: tuple[str, ...] = ()
+    torch_device: str = "cuda"
     single_host: bool = True
     family: str = "GPU"
 

@@ -15,6 +15,7 @@ name                        where it fires
 ``engine.kv_import``        per slot inside ``_advance_imports`` (ctx: req_id)
 ``pd.export_drain``         ``StagedExport`` device-to-host drain start
 ``pd.chunk``                ``StagedExport.get_chunk`` payload (corrupt site)
+``router.forward``          a routing front's backend connect (ctx: backend url)
 ==========================  ====================================================
 
 Activation is programmatic (``FAILPOINTS.activate(...)`` or the

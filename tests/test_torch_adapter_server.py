@@ -16,9 +16,9 @@ adapter artifacts; ``--adapter-slots 2`` with a host tier).
   host tier; every ``kaito:adapter_*`` line equals the JAX server's.
 - With the cache off: GET/POST/DELETE ``/v1/adapters`` answer 403, and
   ``/metrics`` has no ``kaito:adapter_*`` line.
-- ``hub://`` passes the allowlist, then answers 502 naming the queue
-  item that ports the hub fetcher; the six ``--adapter*`` flags reach
-  the config.
+- ``hub://`` passes the allowlist, then answers 502 naming the failed
+  pull when the hub has no such snapshot (an offline, empty cache); the
+  six ``--adapter*`` flags reach the config.
 """
 
 import json
@@ -37,6 +37,7 @@ from kaito_tpu.models import get_model_by_name as jax_model
 from kaito_tpu_torch.engine.config import EngineConfig
 from kaito_tpu_torch.engine.engine import InferenceEngine
 from kaito_tpu_torch.engine.server import make_server, parse_args
+from tests.helpers.hub_cache import offline_hub
 from tests.helpers.lora_adapters import make_adapter
 from tests.helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -237,7 +238,8 @@ def test_cache_off_answers_403(artifacts):
         srv.close()
 
 
-def test_hub_source_names_its_queue_item(artifacts):
+def test_hub_source_names_its_queue_item(artifacts, monkeypatch, tmp_path):
+    offline_hub(monkeypatch, tmp_path / "hub")
     eng = InferenceEngine(EngineConfig(**{**CFG, "qos_config": ""}), device="cpu")
     eng.start()
     srv = _Served(make_server(eng, EngineConfig(**{**CFG, "qos_config": ""}),
@@ -245,7 +247,7 @@ def test_hub_source_names_its_queue_item(artifacts):
     try:
         status, raw = _call(srv.base + "/v1/adapters",
                             {"name": "h", "source": "hub://acme/lora"})
-        assert status == 502 and "M23" in raw and "weight_fetch" in raw
+        assert status == 502 and "adapter pull from hub://acme/lora failed" in raw
         assert _call(srv.base + "/v1/adapters",
                      {"name": "h", "source": "hub://other/lora"})[0] == 403
     finally:

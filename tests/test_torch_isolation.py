@@ -62,7 +62,10 @@ def test_sources_found():
                 "controllers/modelmirror.py", "controllers/drift.py",
                 "controllers/autoupgrade.py", "controllers/webhook.py",
                 "controllers/metrics.py", "runtime/fleet.py",
-                "controllers/autoscaler.py", "controllers/manager.py"):
+                "controllers/autoscaler.py", "controllers/manager.py",
+                "runtime/health.py", "runtime/dp_router.py", "runtime/epp.py",
+                "runtime/benchmark_probe.py", "runtime/weight_fetch.py",
+                "runtime/hf_fallback.py", "models/preset_generator.py"):
         assert PKG / mod in SOURCES, mod
 
 

@@ -14,10 +14,11 @@ event sink and its manager against the JAX package's, on the CPU.
 - GPU cases with stated expectations: an InferenceSet on
   ``a3-highgpu-1g`` renders the port's engine on one ``nvidia.com/gpu``
   a replica; a RAGEngine there runs the port's RAG app on the card, its
-  env read by the port's ``RAGConfig``; the Gateway API gate refuses a
-  GPU set (and a GPU MRI's picker), naming ROADMAP queue 1, item 2;
-  each MRI role's rendered command, under its rendered env, parses into
-  a config with that role that ``check_ported`` accepts.
+  env read by the port's ``RAGConfig``; under the Gateway API gate a
+  GPU set renders its pool and the port's picker from the GPU image (a
+  GPU MRI its PD-aware picker); each MRI role's rendered command, under
+  its rendered env, parses into a config with that role that
+  ``check_ported`` accepts.
 """
 
 import importlib
@@ -442,6 +443,10 @@ def _ragengine_remote(p):
 
 
 def test_gateway_gate_refuses_a_gpu_set_naming_the_roadmap_item():
+    """Under the Gateway API gate a GPU set renders its children, its
+    InferencePool and the port's picker (``kaito_tpu_torch.runtime.epp``
+    from the GPU image, one ``--backend`` a replica): no
+    ``EPPUnavailable``.  The TPU set beside it keeps the JAX render."""
     mgr, cloud = _mgr(PORT, "enableInferenceSetController=true,"
                             "gatewayAPIInferenceExtension=true")
     mgr.store.create(_iset(PORT, "gw", 2, template=_template(
@@ -449,16 +454,25 @@ def test_gateway_gate_refuses_a_gpu_set_naming_the_roadmap_item():
     mgr.store.create(_iset(PORT, "tpu", 1))
     _drive(mgr, cloud, 6)
     cond = _conds(mgr.store.get("InferenceSet", "default", "gw"))["InferenceSetReady"]
-    assert (cond.status, cond.reason) == ("False", "EPPUnavailable")
-    assert "ROADMAP queue 1, item 2" in cond.message and "kaito_tpu_torch" in cond.message
-    assert not mgr.store.list("Workspace", labels={
-        PORT.ws.LABEL_CREATED_BY_INFERENCESET: "gw"})
-    assert mgr.store.try_get("InferencePool", "default", "gw-pool") is None
-    assert mgr.store.try_get("Deployment", "default", "gw-epp") is None
-    assert mgr.store.events.events(name="gw", reason="EPPUnavailable")
+    assert (cond.status, cond.reason) == ("True", "Ready")
+    assert len(mgr.store.list("Workspace", labels={
+        PORT.ws.LABEL_CREATED_BY_INFERENCESET: "gw"})) == 2
+    pool = mgr.store.get("InferencePool", "default", "gw-pool")
+    assert pool.spec["extensionRef"]["name"] == "gw-epp"
+    c = mgr.store.get("Deployment", "default", "gw-epp").spec["template"]["spec"][
+        "containers"][0]
+    assert c["command"][:3] == ["python", "-m", "kaito_tpu_torch.runtime.epp"]
+    assert c["image"] == "ghcr.io/kaito-tpu/engine-cuda:latest"
+    assert [c["command"][i + 1] for i, a in enumerate(c["command"])
+            if a == "--backend"] == ["http://gw-0:5000", "http://gw-1:5000"]
+    assert mgr.store.get("Service", "default", "gw-epp")
+    assert not mgr.store.events.events(name="gw", reason="EPPUnavailable")
     # the TPU set beside it keeps its pool and picker (the JAX render)
     assert mgr.store.try_get("InferencePool", "default", "tpu-pool") is not None
-    assert mgr.store.try_get("Deployment", "default", "tpu-epp") is not None
+    tpu = mgr.store.get("Deployment", "default", "tpu-epp").spec["template"]["spec"][
+        "containers"][0]
+    assert tpu["command"][:3] == ["python", "-m", "kaito_tpu.runtime.epp"]
+    assert tpu["image"] == "ghcr.io/kaito-tpu/engine:latest"
 
 
 def _gpu_mri(p, gates):
@@ -480,10 +494,20 @@ def test_gpu_mri_roles_render_commands_the_port_serves(monkeypatch, role):
                            "enableMultiRoleInferenceController=true")
     mri = store.get("MultiRoleInference", "default", "pd")
     cond = _conds(mri)["MultiRoleInferenceReady"]
-    assert (cond.status, cond.reason) == ("False", "EPPUnavailable")
-    assert "item 2" in cond.message
+    assert (cond.status, cond.reason) == ("True", "Ready")
     assert mri.status.role_ready == {"prefill": True, "decode": True}
-    assert not store.list("InferencePool") and not store.list("Deployment")
+    # the pool and the port's PD-aware picker, from the GPU image
+    pool = store.get("InferencePool", "default", "pd-pool")
+    assert pool.spec["extensionRef"]["name"] == "pd-epp"
+    epp = store.get("Deployment", "default", "pd-epp").spec["template"]["spec"][
+        "containers"][0]
+    assert epp["command"][:3] == ["python", "-m", "kaito_tpu_torch.runtime.epp"]
+    assert epp["image"] == "ghcr.io/kaito-tpu/engine-cuda:latest"
+    assert sorted(epp["command"][i + 1] for i, a in enumerate(epp["command"])
+                  if a == "--backend") == ["http://pd-decode-0:5000=decode/pd-decode",
+                                           "http://pd-prefill-0:5000=prefill/pd-prefill"]
+    chain = json.loads(epp["command"][epp["command"].index("--plugins-config") + 1])
+    assert chain == pool.spec["eppPluginsConfig"]
     c = _engine(store, f"pd-{role}-0")["containers"][0]
     cmd = c["command"]
     assert cmd[:3] == ["python", "-m", "kaito_tpu_torch.engine.server"]

@@ -17,7 +17,8 @@ CPU.
   by GPU feature discovery resolves to the H100 entry; gpt-oss-120b
   (MoE over several cards) and DeepSeek-V3 (more than one node) fail
   their plan, naming their ROADMAP item; a tuning Workspace runs the
-  port's trainer.
+  port's trainer; a long-tail preset runs the port's HF fallback on one
+  card.
 - Every rendered GPU command line parses through the port's
   ``parse_args`` with the rendered env applied, into an ``EngineConfig``
   that ``check_ported`` and ``check_tensor_parallel`` accept.
@@ -298,8 +299,10 @@ def test_llama_8b_on_a3_highgpu_1g_is_one_card_at_tp1():
     assert pod["tolerations"] == [{"key": "nvidia.com/gpu", "operator": "Exists",
                                    "effect": "NoSchedule"}]
     assert c["image"] == "ghcr.io/kaito-tpu/engine-cuda:latest"
-    # no exec probe of a module the port does not ship
-    assert "exec" not in json.dumps(c["startupProbe"]) + json.dumps(c["livenessProbe"])
+    # the self-benchmark startup probe is the port's; one host: HTTP liveness
+    assert c["startupProbe"]["exec"]["command"] == [
+        "python", "-m", "kaito_tpu_torch.runtime.benchmark_probe"]
+    assert "exec" not in json.dumps(c["livenessProbe"])
     assert ss.spec["replicas"] == 1
     node = store.list("Node")[0]
     assert all(node.metadata.labels.get(k) == v for k, v in pod["nodeSelector"].items())
@@ -404,17 +407,40 @@ def test_tuning_workspace_runs_the_ports_trainer_on_a_card():
 
 
 def test_hf_fallback_preset_fails_its_gpu_plan(monkeypatch):
-    """A long-tail preset runs the HF fallback runtime, which the port
-    does not ship: PlanFailed instead of a pod that cannot start."""
+    """A long-tail preset runs the HF fallback runtime: on a GPU node it
+    plans, and its pod runs the port's fallback on one card with
+    ``--device cuda``, a command line the fallback's own ``main`` takes."""
+    from kaito_tpu_torch.runtime import hf_fallback
+
     md = port_registry.get_model_by_name("phi-4-mini-instruct").with_overrides(
         name="org/long-tail", runtime="transformers")
     monkeypatch.setattr(PORT.ctrl, "get_model_by_name",
                         lambda name: md if name == "org/long-tail"
                         else port_registry.get_model_by_name(name))
-    store, ws = _gpu_run(_workspace(PORT, "hf", "a3-highgpu-8g", "org/long-tail"),
-                         ticks=2)
-    cond = _conds(ws)["ResourceReady"]
-    assert cond.reason == "PlanFailed" and "item 2" in cond.message
+    store, ws = _gpu_run(_workspace(PORT, "hf", "a3-highgpu-8g", "org/long-tail"))
+    assert _conds(ws)["ResourceReady"].status == "True"
+    assert _conds(ws)["InferenceReady"].status == "True"
+    _, c = _engine(store, "hf")
+    cmd = c["command"]
+    assert cmd[:3] == ["python", "-m", "kaito_tpu_torch.runtime.hf_fallback"]
+    assert cmd[cmd.index("--device") + 1] == "cuda"
+    assert cmd[cmd.index("--model") + 1] == md.hf_id
+    assert c["resources"] == {"requests": {"nvidia.com/gpu": "1"},
+                              "limits": {"nvidia.com/gpu": "1"}}
+    assert c["startupProbe"]["httpGet"]["path"] == "/health"
+    seen = {}
+
+    class Recorder:
+        def __init__(self, model, **kw):
+            seen.update(kw, model=model)
+            self.served_name = kw["served_name"]
+
+    monkeypatch.setattr(hf_fallback, "FallbackState", Recorder)
+    monkeypatch.setattr(hf_fallback, "make_fallback_server", lambda state, host, port:
+                        types.SimpleNamespace(serve_forever=lambda: seen.update(port=port)))
+    hf_fallback.main(cmd[3:])
+    assert seen == {"model": md.hf_id, "max_model_len": int(cmd[cmd.index("--max-model-len") + 1]),
+                    "served_name": "org/long-tail", "device": "cuda", "port": 5000}
 
 
 # ---------------------------------------------------------------------------
